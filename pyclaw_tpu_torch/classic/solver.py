@@ -1,0 +1,141 @@
+"""Classic Clawpack solver, 2D unsplit CTU path.
+
+Counterpart of ``pyclaw_tpu/classic/solver.py`` (``ClawSolver :30-107``,
+``ClawSolver2D :134-168``, ``_soa_eligible :387-398``), a rebuild of
+reference ``src/pyclaw/classic/solver.py``.  ``setup`` builds one step
+function ``_step_fn(q, aux, dt, t) -> (q_new, cfl)``: BC extension, then
+``ops.tiled2d.step2_rows``, which launches the CUDA kernel on a CUDA
+tensor and runs the plain PyTorch version on a CPU tensor.
+
+Options of the JAX package that this slice does not port raise
+``NotImplementedError`` at setup, naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+from ..ops import tiled2d
+from ..solver import Solver
+
+
+def _not_ported(what):
+    return NotImplementedError(
+        f"{what} is not ported to pyclaw_tpu_torch yet (ROADMAP.md, "
+        f"Queue 4: '{what}')")
+
+
+class ClawSolver(Solver):
+    num_dim = None
+
+    def __init__(self, riemann_solver=None, device=None):
+        super().__init__(riemann_solver, device=device)
+        self.limiters = [1]           # per-wave limiter ids (tvd.minmod)
+        self.order = 2
+        self.source_split = 1         # 1=Godunov, 2=Strang
+        self.step_source = None
+        self.cfl_max = 1.0
+        self.cfl_desired = 0.9
+        self.num_ghost = 2
+
+    # ------------------------------------------------------------------
+    def _mthlim(self):
+        lims = self.limiters
+        if not isinstance(lims, (list, tuple)):
+            lims = [lims]
+        nw = self.rp.num_waves
+        if len(lims) == 1:
+            return tuple(lims) * nw
+        if len(lims) != nw:
+            raise ValueError("limiters must have length 1 or num_waves")
+        return tuple(lims)
+
+    def _check_ported(self, state):
+        if self.step_source is not None:
+            raise _not_ported("step_source")
+        if self.before_step is not None:
+            raise _not_ported("before_step")
+        if state.patch.grid.gauge_indices:
+            raise _not_ported("gauges")
+        if state.aux is not None:
+            raise _not_ported("aux")
+        if state.index_capa >= 0:
+            raise _not_ported("capacity")
+        if self.fwave:
+            raise _not_ported("fwave")
+
+    def setup(self, solution):
+        state = solution.states[0]
+        if self.rp is None:
+            raise ValueError("no Riemann solver attached")
+        if state.num_eqn != self.rp.num_eqn:
+            raise ValueError(
+                f"State.num_eqn={state.num_eqn} but Riemann solver "
+                f"{self.rp.name} has num_eqn={self.rp.num_eqn}")
+        for key in self.rp.requires:
+            if key not in state.problem_data:
+                raise ValueError(f"problem_data missing '{key}' required by "
+                                 f"{self.rp.name}")
+        self._check_ported(state)
+        self._size_bc_lists(self.num_dim)
+        if self.dt_initial is not None:
+            self.dt = self.dt_initial
+        self._step_fn = self._make_hyperbolic_step(state)
+        self._is_set_up = True
+
+    def _make_hyperbolic_step(self, state):
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    def step(self, solution):
+        state = solution.states[0]
+        q, cfl = self._step_fn(self._q_dev, self._aux_dev, self.dt, state.t)
+        self._q_dev = q
+        self.cfl.update_global_max(float(cfl))
+
+
+class ClawSolver2D(ClawSolver):
+    """2D unsplit classic solver with transverse corner transport
+    (step2.f90/flux2.f90 path).  ``transverse_waves`` ∈ {0, 1, 2}: 0 =
+    donor-cell, 1 = corner transport of the first-order fluctuations,
+    2 = also of the second-order correction waves."""
+    num_dim = 2
+
+    def __init__(self, riemann_solver=None, device=None):
+        super().__init__(riemann_solver, device=device)
+        self.dimensional_split = False
+        self.transverse_waves = 2
+        self.use_soa = True
+
+    def _make_hyperbolic_step(self, state):
+        if self.dimensional_split:
+            raise _not_ported("dimensional_split")
+        if not self._soa_eligible(state):
+            raise _not_ported("generic AoS 2D step")
+        if self.num_ghost != 2:
+            raise ValueError("the 2D CTU step needs num_ghost=2")
+        params = self._weak_params(state.problem_data)
+        mthlim = self._mthlim()
+        order = self.order
+        tw = self.transverse_waves
+        g = self.num_ghost
+        dx, dy = state.patch.delta
+        tiled2d.check_options(mthlim, order, tw)
+
+        def step_fn(q, aux, dt, t):
+            qbc = self._extend_bc(q, t, state)
+            return tiled2d.step2_rows(qbc, dt, dx, dy, params, mthlim, order,
+                                      g, tw)
+        return step_fn
+
+    def _soa_eligible(self, state):
+        """The SoA CTU step covers the no-aux / no-capacity / wave-form
+        case of a solver with SoA hooks; the kernel covers the Euler
+        4-wave system."""
+        if self.use_soa is False:
+            return False
+        return (self.rp.rpn_soa is not None
+                and self.rp.name == "euler_4wave_2D"
+                and state.aux is None
+                and state.index_capa < 0
+                and not self.fwave
+                and (self.transverse_waves == 0
+                     or self.rp.rpt_soa is not None))

@@ -1,0 +1,59 @@
+"""Riemann solver library, plain PyTorch.
+
+Counterpart of ``pyclaw_tpu/riemann/__init__.py``.  Every solver is a
+plain function on whole interface tensors, registered in a
+:class:`RiemannSolver` record that also carries ``num_eqn`` /
+``num_waves`` metadata.  This slice ports the SoA hooks of the 2D Euler
+4-wave Roe solver (``euler_4wave_2D``) only; the rest of the library is
+queued in ROADMAP.md.
+
+SoA calling conventions (classic/soa.py):
+
+  rpn_soa(ixy, qs_l, qs_r, params) -> (waves, speeds)
+      waves: tuple over waves p of tuples over equations e of 2D tensors
+             (None for identically-zero components); speeds: tuple over p
+  rpt_soa(ixy, imp, qs_l, qs_r, asdq, params, eig=None) -> (bm, bp)
+  prefactor_soa(ixy, qs_l, qs_r, params) -> eig (the shared Roe averages)
+
+``ixy`` is a Python int (0 = x sweep, 1 = y sweep); ``params`` is the
+problem_data dict of physics scalars.
+"""
+
+from __future__ import annotations
+
+
+class RiemannSolver:
+    """Metadata record for one Riemann solver (the full record of the
+    JAX package: every hook field, None where this slice has no port)."""
+
+    def __init__(self, name, num_dim, num_eqn, num_waves, rp,
+                 rpt=None, rptt=None, requires=()):
+        self.name = name
+        self.num_dim = num_dim
+        self.num_eqn = num_eqn
+        self.num_waves = num_waves
+        self.rp = rp          # normal solver (AoS form)
+        self.rpt = rpt        # transverse solver (2D/3D, AoS form)
+        self.rptt = rptt      # double-transverse solver (3D)
+        # shared-eigensystem hooks: computed once per sweep direction and
+        # passed as eig= to every transverse call at those interfaces
+        self.prefactor = None
+        self.prefactor_soa = None
+        self.transverse_batchable = False
+        self.evec = None      # eigenvector hook for char_decomp
+        # SoA variants (classic/soa.py protocol)
+        self.rpn_soa = None
+        self.rpt_soa = None
+        self.positivity = None
+        self.flux = None
+        self.flux_soa = None
+        self.requires = tuple(requires)  # required problem_data keys
+
+    def __repr__(self):
+        return (f"RiemannSolver({self.name}, num_eqn={self.num_eqn}, "
+                f"num_waves={self.num_waves})")
+
+
+from .euler import euler_4wave_2D  # noqa: E402,F401
+
+ALL = {s.name: s for s in [euler_4wave_2D]}

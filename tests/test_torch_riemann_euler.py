@@ -1,0 +1,111 @@
+"""The port's 2D Euler Roe solver (SoA hooks) against the JAX package's on
+random admissible states: rpn2 waves and speeds, the shared eigensystem
+(prefactor) and the rpt2 split, for ixy 0 and 1.  float64 to 1e-13
+relative; float32 to 1e-5, which also runs the rsqrt branch of
+_alpha34."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyclaw_tpu.riemann import euler as je
+from pyclaw_tpu_torch import riemann as triemann
+from pyclaw_tpu_torch.riemann import euler as te
+
+PARAMS = {"gamma": 1.4}
+TOL = {np.float64: 1e-13, np.float32: 1e-5}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _sides(seed, dtype, n=(12, 9)):
+    rng = np.random.default_rng(seed)
+
+    def side():
+        rho = 0.5 + rng.random(n)
+        u, v = rng.standard_normal(n), rng.standard_normal(n)
+        p = 0.5 + rng.random(n)
+        return np.stack([rho, rho * u, rho * v,
+                         p / 0.4 + 0.5 * rho * (u * u + v * v)]).astype(dtype)
+    return side(), side()
+
+
+def _cmp(got, ref, dtype):
+    ref = np.asarray(ref, dtype=np.float64)
+    got = got.numpy().astype(np.float64)
+    scale = max(np.abs(ref).max(), 1e-300)
+    assert np.abs(got - ref).max() / scale <= TOL[dtype]
+
+
+def _both(ql, qr):
+    jl = tuple(jnp.asarray(c) for c in ql)
+    jr = tuple(jnp.asarray(c) for c in qr)
+    tl = tuple(torch.from_numpy(c) for c in ql)
+    tr = tuple(torch.from_numpy(c) for c in qr)
+    return jl, jr, tl, tr
+
+
+def test_registry():
+    rs = triemann.euler_4wave_2D
+    assert (rs.num_dim, rs.num_eqn, rs.num_waves) == (2, 4, 4)
+    assert rs.requires == ("gamma",)
+    assert triemann.ALL == {"euler_4wave_2D": rs}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("ixy", [0, 1])
+def test_rpn2_matches_jax(ixy, dtype):
+    ql, qr = _sides(ixy, dtype)
+    jl, jr, tl, tr = _both(ql, qr)
+    wj, sj = je._rpn2_euler_soa(ixy, jl, jr, PARAMS)
+    wt, st = te._rpn2_euler_soa(ixy, tl, tr, PARAMS)
+    for p in range(4):
+        _cmp(st[p], sj[p], dtype)
+        for e in range(4):
+            assert (wt[p][e] is None) == (wj[p][e] is None)
+            if wj[p][e] is not None:
+                assert wt[p][e].dtype == torch.from_numpy(ql).dtype
+                _cmp(wt[p][e], wj[p][e], dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("ixy", [0, 1])
+def test_prefactor_and_rpt2_match_jax(ixy, dtype):
+    ql, qr = _sides(10 + ixy, dtype)
+    jl, jr, tl, tr = _both(ql, qr)
+    asdq = np.random.default_rng(20 + ixy).standard_normal(
+        ql.shape).astype(dtype)
+    ja = tuple(jnp.asarray(c) for c in asdq)
+    ta = tuple(torch.from_numpy(c) for c in asdq)
+    eig_j = je._prefactor_euler_2d_soa(ixy, jl, jr, PARAMS)
+    eig_t = te._prefactor_euler_2d_soa(ixy, tl, tr, PARAMS)
+    for a, b in zip(eig_t, eig_j):
+        _cmp(a, b, dtype)
+    for imp in (1, 2):
+        for kw_j, kw_t in (({}, {}), ({"eig": eig_j}, {"eig": eig_t})):
+            bm_j, bp_j = je._rpt2_euler_soa(ixy, imp, jl, jr, ja, PARAMS,
+                                            **kw_j)
+            bm_t, bp_t = te._rpt2_euler_soa(ixy, imp, tl, tr, ta, PARAMS,
+                                            **kw_t)
+            for e in range(4):
+                _cmp(bm_t[e], bm_j[e], dtype)
+                _cmp(bp_t[e], bp_j[e], dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_alpha34_dtype_branch(dtype):
+    rng = np.random.default_rng(3)
+    a2 = (0.5 + rng.random(50)).astype(dtype)
+    a = np.sqrt(a2)
+    u, n3, n4 = (rng.standard_normal(50).astype(dtype) for _ in range(3))
+    ref = je._alpha34(0.4, jnp.asarray(a), jnp.asarray(a2), jnp.asarray(u),
+                      jnp.asarray(n3), jnp.asarray(n4))
+    got = te._alpha34(0.4, torch.from_numpy(a), torch.from_numpy(a2),
+                      torch.from_numpy(u), torch.from_numpy(n3),
+                      torch.from_numpy(n4))
+    for g, r in zip(got, ref):
+        _cmp(g, r, dtype)
