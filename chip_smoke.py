@@ -4,20 +4,31 @@
 
 Phases (each asserts; any failure exits non-zero):
   1. the card: name, nvidia-smi name and power limit;
-  2. the build of every kernel from the checkout's sources (nvcc, sm_90a),
-     with the ptxas report (registers, shared memory, spills);
-  3. each kernel against its plain PyTorch version on the card, over the
+  2. the build of every kernel from the checkout's sources (nvcc, sm_90a,
+     one nvcc per source, all started together), with the ptxas report
+     (registers, shared memory, spills);
+  3. step2_ctu against its plain PyTorch version on the card, over the
      quadrants initial condition and a seeded random admissible state,
      grids 1024^2, 80^2, 128^2 and 100x37, float32 and float64,
      transverse_waves 0/1/2, order 1/2, limiters {3, 4, 10};
-  4. the main path: examples.euler_2d_quadrants.setup(mx=1024, my=1024,
-     float32) through Controller.run() to tfinal=0.8, with the kernel's
-     launch count read around it;
+  3b. dq2_weno5 against its plain version (one dq each), over the
+     quadrants state, a seeded random admissible state and a seeded state
+     whose WENO edges go non-positive (the positivity fallback), same
+     grids and dtypes;
+  4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
+     my=1024, float32) through Controller.run() to tfinal=0.8, with the
+     kernel's launch count read around it;
+  4b. the SharpClaw path: the same setup with solver_type="sharpclaw"
+     (WENO5, SSP104) through Controller.run() to tfinal=0.8, with
+     dq2_weno5's launch count read around it (10 per attempted step);
   5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
      card, float32 and float64;
-  6. timing at 1024^2 (CUDA events): kernel, plain version, bound; then
-     the main path to t=0.1 under torch.profiler (device busy share,
-     device time by kernel, host time by operation);
+  5b. SharpClaw quadrants at 80^2 on the card against the same run on the
+     CPU (the plain path the CPU tests tie to the JAX package): float64 at
+     t=0.2 and t=0.8, float32 at t=0.8;
+  6. timing at 1024^2 (CUDA events): each kernel, its plain version, its
+     bound; then each main path to t=0.1 under torch.profiler (device
+     busy share, device time by kernel, host time by operation);
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -49,8 +60,37 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #   fold and update per cell 88.
 FLOPS_PER_CELL = 2 * 619 + 88
 
+# Operations per cell of one SharpClaw dq (WENO5, Euler 4-wave), counted
+# from csrc/dq2_weno5.cu in the same way, each interface counted once (the
+# ring of edge states and the ghost-band CFL solves are overhead, not
+# work).  Per direction: WENO5 of four components (smoothness indicators
+# 33, candidate values 34, weights 42 in f32 / 31 in f64: 109 / 98 each)
+# 436 / 392; two positivity tests 20; one Roe solve per interface (Roe
+# averages and strengths 74 / 72, waves 22, fluctuations 64, CFL 12)
+# 172 / 170; two fluxes and their difference 32 / 30; the direction's
+# part of dq 12 -> 672 / 624; the sum of the two parts 4.
+FLOPS_PER_CELL_DQ = {"float32": 2 * 672 + 4, "float64": 2 * 624 + 4}
+
 TOL_REL = {"float32": 1e-5, "float64": 1e-12}        # one step, vs plain
+# A state with positivity fallbacks is ill-conditioned: edge densities
+# near zero come from cancellation, and the sound speed grows as
+# 1/sqrt(rho), so a one-ulp difference (the kernel's FMA contraction
+# against one rounding per PyTorch operation) can grow by orders of
+# magnitude at a few cells.  There the float32 kernel is held to
+# ULP_FACTOR times the plain version's own change when its input
+# moves by one ulp (measured on the same state), or TOL_REL if larger;
+# float64 stays at TOL_REL.
+ULP_FACTOR = 4.0
 GOLDEN_TOL = {"float32": 1e-3, "float64": 1e-8}      # tools/tpu_validate
+# SharpClaw run on the card against the same run on the CPU (80^2): a
+# whole run amplifies one-ulp differences through the shocks, so only the
+# short horizon is held tightly (max relative); t=0.8 in relative L1 and
+# a loose max relative.  At 80^2 the run's own sensitivity at t=0.2 is
+# already near 1e-5 (the CFL of the rejected first steps, taken in a
+# blown-up stage, sets the next dt): there the gate is ULP_FACTOR times
+# the CPU run's own change when its initial state moves by one ulp, or
+# the tolerance below if larger.
+SHARP_RUN_TOL = {"t0.2_max": 1e-6, "t0.8_l1": 1e-4, "t0.8_max": 1e-2}
 
 
 def fail(msg):
@@ -68,12 +108,19 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def random_state(rng, nx, ny, gamma=1.4):
-    """A seeded admissible Euler state (positive density and pressure)."""
+def random_state(rng, nx, ny, gamma=1.4, pockets=0.0):
+    """A seeded admissible Euler state (positive density and pressure).
+    With ``pockets`` > 0, that share of the cells are low-density pockets
+    (rho = p = 0.05), where WENO's edge values go non-positive and the
+    positivity fallback runs."""
     rho = 0.5 + rng.random((nx, ny))
     u = 0.5 * rng.standard_normal((nx, ny))
     v = 0.5 * rng.standard_normal((nx, ny))
     p = 0.5 + rng.random((nx, ny))
+    if pockets > 0.0:
+        pocket = rng.random((nx, ny)) < pockets
+        rho = np.where(pocket, 0.05, rho)
+        p = np.where(pocket, 0.05, p)
     return np.stack([rho, rho * u, rho * v,
                      p / (gamma - 1.0) + 0.5 * rho * (u * u + v * v)])
 
@@ -83,11 +130,11 @@ def quadrants_state(nx, ny):
     return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
 
 
-def padded(q_np, dtype, dev):
+def padded(q_np, dtype, dev, num_ghost=2):
     import torch
     from pyclaw_tpu_torch import bc
     q = torch.as_tensor(q_np, dtype=dtype, device=dev)
-    return bc.extend(q, 2, [bc.BC.extrap] * 2, [bc.BC.extrap] * 2)
+    return bc.extend(q, num_ghost, [bc.BC.extrap] * 2, [bc.BC.extrap] * 2)
 
 
 def compare_kernel(dev, grids, seed=0):
@@ -148,13 +195,91 @@ def compare_kernel(dev, grids, seed=0):
     return worst, worst_cfl, main_abs_err, ncase
 
 
-def run_quadrants(dev, n, dtype, tfinal=0.8):
+def compare_dq(dev, grids, seed=1):
+    """dq2_weno5 vs its plain version, one dq each, on the card."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.riemann import euler
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
+    rng = np.random.default_rng(seed)
+    params = {"gamma": 1.4}
+    worst = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    for nx, ny in grids:
+        inputs = {"quadrants": quadrants_state(nx, ny),
+                  "random": random_state(rng, nx, ny),
+                  "fallback": random_state(rng, nx, ny, pockets=0.05)}
+        dx, dy = 1.0 / nx, 1.0 / ny
+        for iname, q_np in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc = padded(q_np, dtype, dev, num_ghost=3)
+                dt = float(np.dtype(tname).type(0.6 / max(nx, ny)))
+                dk, ck = tiled2d.dq_rows(qbc, dt, dx, dy, params)
+
+                def plain(qin):
+                    return sc_soa.dq_2d_soa(
+                        qin, dt, dx, dy, euler._rpn2_euler_soa, params, 5,
+                        3, positivity=euler.euler_4wave_2D.positivity,
+                        flux_soa=euler._flux_euler_2d_soa)
+                dp, cp = plain(qbc)
+                torch.cuda.synchronize()
+                abs_err = float((dk - dp).abs().max())
+                rel = abs_err / float(dp.abs().max())
+                dcfl = abs(float(ck) - float(cp))
+                tol, nfall, sens = TOL_REL[tname], 0, None
+                if iname == "fallback":
+                    nfall = sc_soa.fallback_count(
+                        qbc, params, euler.euler_4wave_2D.positivity)
+                    # the plain version's own change under a one-ulp move
+                    # of its input
+                    r = torch.as_tensor(rng.uniform(-1.0, 1.0, qbc.shape),
+                                        dtype=dtype, device=dev)
+                    dpp, _ = plain(qbc * (1.0 + torch.finfo(dtype).eps * r))
+                    sens = float((dpp - dp).abs().max() / dp.abs().max())
+                    if tname == "float32":
+                        tol = max(tol, ULP_FACTOR * sens)
+                ok = (np.isfinite(rel) and rel <= tol
+                      and dcfl <= TOL_REL[tname] * float(cp)
+                      and dk.shape == (4, nx, ny))
+                if iname == "fallback" and nfall == 0:
+                    fail(f"dq {nx}x{ny} fallback state: no cell fell back")
+                if not ok:
+                    fail(f"dq2_weno5 vs plain {nx}x{ny} {iname} {tname}: "
+                         f"rel err {rel:.3e} (tol {tol:.3e}), cfl "
+                         f"{float(ck)!r} vs {float(cp)!r}")
+                worst[tname] = max(worst[tname], rel)
+                if (nx, ny, iname, tname) == (1024, 1024, "quadrants",
+                                              "float32"):
+                    main_abs_err = abs_err
+                ncase += 1
+                print(f"  dq {nx}x{ny} {iname:9s} {tname}: rel err "
+                      f"{rel:.3e} (tol {tol:.1e}), |dcfl| {dcfl:.3e}"
+                      + (f"; {nfall} cells fell back, one-ulp input "
+                         f"change moves the plain version by {sens:.3e}"
+                         if nfall else ""), flush=True)
+    return worst, main_abs_err, ncase
+
+
+def run_quadrants(dev, n, dtype, tfinal=0.8, solver_type="classic",
+                  keep_copy=False, perturb_seed=None):
     """examples.euler_2d_quadrants through Controller.run(); returns
-    (claw, status, wall seconds)."""
+    (claw, status, wall seconds).  With ``perturb_seed``, the initial
+    state is first moved by one ulp (relative, seeded uniform in
+    [-1, 1])."""
     import torch
     from pyclaw_tpu_torch.examples import euler_2d_quadrants as ex
-    claw = ex.setup(mx=n, my=n, dtype=dtype, outdir=None, device=dev)
+    claw = ex.setup(mx=n, my=n, dtype=dtype, outdir=None, device=dev,
+                    solver_type=solver_type)
     claw.tfinal = tfinal
+    claw.keep_copy = keep_copy
+    if perturb_seed is not None:
+        state = claw.solution.state
+        r = np.random.default_rng(perturb_seed).uniform(-1.0, 1.0,
+                                                        state.q.shape)
+        eps = np.finfo(state.q.dtype).eps
+        state.q = (state.q * (1.0 + eps * r)).astype(state.q.dtype)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     status = claw.run()
@@ -221,15 +346,76 @@ def timing(dev, n=1024):
     return out
 
 
-def profile_main_path(dev, n=1024, tfinal=0.1):
-    """The main path (Controller.run, quadrants n^2 float32) to `tfinal`,
+def timing_dq(dev, n=1024):
+    """dq2_weno5, its plain version and its bound at n^2 on the quadrants
+    state."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.riemann import euler
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
+    params = {"gamma": 1.4}
+    q_np = quadrants_state(n, n)
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc = padded(q_np, dtype, dev, num_ghost=3)
+        dt = float(np.dtype(tname).type(2.0 / n))
+        h = 1.0 / n
+
+        def kern():
+            return tiled2d.dq_rows(qbc, dt, h, h, params)
+
+        def plain():
+            return sc_soa.dq_2d_soa(
+                qbc, dt, h, h, euler._rpn2_euler_soa, params, 5, 3,
+                positivity=euler.euler_4wave_2D.positivity,
+                flux_soa=euler._flux_euler_2d_soa)
+
+        ms = time_ms(kern, 100)
+        plain_ms = time_ms(plain, 10, warm=2)
+        ms_again = time_ms(kern, 100)
+        item = qbc.element_size()
+        nbytes = qbc.numel() * item + 4 * n * n * item
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops = FLOPS_PER_CELL_DQ[tname] * n * n
+        ops_ms = flops / PEAK_FLOPS[tname] * 1e3
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
+                      "bytes": nbytes, "flops": flops,
+                      "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms > ops_ms
+                      else "operations"}
+        print(f"  timing dq {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
+              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}), library_ms null", flush=True)
+    return out
+
+
+# device kernels grouped by what launched them (by kernel name)
+DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5")),
+                 ("bc_extension", ("CatArrayBatchedCopy", "copy_kernel")),
+                 ("cfl_reduction", ("reduce_kernel", "maximum")),
+                 ("memcpy", ("Memcpy", "Memset")))
+
+
+def device_group(key):
+    for group, needles in DEVICE_GROUPS:
+        if any(k in key for k in needles):
+            return group
+    return "elementwise"     # stage combines and other arithmetic
+
+
+def profile_main_path(dev, n=1024, tfinal=0.1, solver_type="classic"):
+    """A main path (Controller.run, quadrants n^2 float32) to `tfinal`,
     once on the host clock alone and once under torch.profiler: the
-    device busy share of a main-path step, device time by kernel, and
+    device busy share of a step, device time by kernel and by group, and
     host time by operation (the latter inflated by the profiler)."""
     import torch
 
     def run():
-        _, status, wall = run_quadrants(dev, n, np.float32, tfinal)
+        _, status, wall = run_quadrants(dev, n, np.float32, tfinal,
+                                        solver_type)
         return status["numsteps"] + status["numrejected"], wall
 
     steps, wall = run()                    # without the profiler
@@ -258,11 +444,19 @@ def profile_main_path(dev, n=1024, tfinal=0.1):
                 "device_busy_share": None}
     device_us = sum(r[0] for r in dev_rows) / steps
     busy_share = device_us / (step_ms * 1e3)
-    print(f"  profile main path {n}^2 f32 to t={tfinal}: {steps} steps, "
-          f"{step_ms:.4f} ms/step wall ({wall_prof / steps * 1e3:.4f} under "
-          f"the profiler), device kernels {device_us:.2f} us/step, device "
-          f"busy share {busy_share:.4f}", flush=True)
-    for self_dev, key, count in dev_rows[:6]:
+    groups = {}
+    for self_dev, key, _ in dev_rows:
+        g = device_group(key)
+        groups[g] = groups.get(g, 0.0) + self_dev / steps
+    print(f"  profile {solver_type} main path {n}^2 f32 to t={tfinal}: "
+          f"{steps} steps, {step_ms:.4f} ms/step wall "
+          f"({wall_prof / steps * 1e3:.4f} under the profiler), device "
+          f"kernels {device_us:.2f} us/step, device busy share "
+          f"{busy_share:.4f}", flush=True)
+    print("    device us/step by group: " + ", ".join(
+        f"{g} {v:.2f}" for g, v in sorted(groups.items(),
+                                          key=lambda kv: -kv[1])))
+    for self_dev, key, count in dev_rows[:8]:
         print(f"    device {self_dev / steps:10.3f} us/step  {count:6d}x  "
               f"{key[:60]}")
     for self_cpu, key, count in host_rows[:6]:
@@ -272,10 +466,75 @@ def profile_main_path(dev, n=1024, tfinal=0.1):
             "step_ms_profiled": wall_prof / steps * 1e3,
             "device_us_per_step": device_us,
             "device_busy_share": busy_share,
+            "device_us_per_step_by_group": groups,
             "kernels_us_per_step": {k[:60]: s / steps
-                                    for s, k, _ in dev_rows[:6]},
+                                    for s, k, _ in dev_rows[:8]},
             "host_us_per_step_profiled": {k[:60]: s / steps
                                           for s, k, _ in host_rows[:6]}}
+
+
+def sharp_card_vs_cpu(dev, n=80):
+    """SharpClaw quadrants at n^2 to t=0.8 (frames at 0.2, 0.4, 0.6, 0.8)
+    on the card, on the CPU, and on the CPU from a state moved by one ulp
+    (the run's own rounding sensitivity), float64 and float32; returns
+    the comparison per dtype."""
+    out = {}
+    for tname, dtype in (("float64", np.float64), ("float32", np.float32)):
+        runs = {}
+        for label, where, seed in (("card", dev, None), ("cpu", "cpu", None),
+                                   ("cpu_ulp", "cpu", 7)):
+            c, st, w = run_quadrants(where, n, dtype, 0.8, "sharpclaw",
+                                     keep_copy=True, perturb_seed=seed)
+            if abs(c.frames[1].t - 0.2) > 1e-12 or abs(c.solution.t - 0.8) \
+                    > 1e-12:
+                fail(f"sharpclaw {n}^2 {tname} on {where}: frame times "
+                     f"{[f.t for f in c.frames]}")
+            runs[label] = (c.frames[1].q, c.solution.q,
+                           (st["numsteps"], st["numrejected"]), w)
+
+        def max_rel(a, b):
+            return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+        def l1_rel(a, b):
+            return float(np.mean(np.abs(a - b)) / np.mean(np.abs(b)))
+        (q2_k, q8_k, steps_k, w_k) = runs["card"]
+        (q2_c, q8_c, steps_c, w_c) = runs["cpu"]
+        (q2_u, q8_u, steps_u, _) = runs["cpu_ulp"]
+        res = {"t0.2_max": max_rel(q2_k, q2_c),
+               "t0.8_max": max_rel(q8_k, q8_c), "t0.8_l1": l1_rel(q8_k, q8_c),
+               "ulp_t0.2_max": max_rel(q2_u, q2_c),
+               "ulp_t0.8_max": max_rel(q8_u, q8_c),
+               "ulp_t0.8_l1": l1_rel(q8_u, q8_c),
+               "steps_card": steps_k, "steps_cpu": steps_c,
+               "steps_cpu_ulp": steps_u,
+               "wall_card_s": w_k, "wall_cpu_s": w_c}
+        tol = dict(SHARP_RUN_TOL)
+        tol["t0.2_max"] = max(tol["t0.2_max"],
+                              ULP_FACTOR * res["ulp_t0.2_max"])
+        res["tol"] = tol
+        out[tname] = res
+        print(f"[5b] sharpclaw {n}^2 {tname} card vs cpu: t=0.2 max rel "
+              f"{res['t0.2_max']:.3e} (tol {tol['t0.2_max']:.3e}); t=0.8 "
+              f"rel L1 {res['t0.8_l1']:.3e}, max rel {res['t0.8_max']:.3e}; "
+              f"cpu vs cpu from a one-ulp move: t=0.2 max rel "
+              f"{res['ulp_t0.2_max']:.3e}, t=0.8 rel L1 "
+              f"{res['ulp_t0.8_l1']:.3e}, max rel {res['ulp_t0.8_max']:.3e}; "
+              f"steps (accepted, rejected) card {steps_k}, cpu {steps_c}, "
+              f"cpu moved {steps_u}; wall card {w_k:.3f} s, cpu {w_c:.3f} s",
+              flush=True)
+        if not (np.all(np.isfinite(q8_k)) and q8_k.shape == (4, n, n)):
+            fail(f"sharpclaw {n}^2 {tname} on the card is not finite")
+        checks = ["t0.8_l1", "t0.8_max"]
+        if tname == "float64":
+            checks.append("t0.2_max")
+            if steps_k != steps_c:
+                fail(f"sharpclaw {n}^2 f64: steps card {steps_k} != cpu "
+                     f"{steps_c}")
+        for key in checks:
+            if not res[key] <= tol[key]:
+                fail(f"sharpclaw {n}^2 {tname} card vs cpu: {key} "
+                     f"{res[key]} > {tol[key]}")
+    return out
 
 
 def main():
@@ -295,48 +554,78 @@ def main():
     print(f"[1] device: {kind}; nvidia-smi: {card}; torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
 
-    # [2] build every kernel of the path from the checkout's sources
+    # [2] build every kernel of the paths from the checkout's sources, one
+    # nvcc per source, all started together
     t0 = time.perf_counter()
-    report = _build.build_report("step2_ctu")
-    lib = _build.load("step2_ctu")
-    print(f"[2] built csrc/step2_ctu.cu for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s; shared memory per block "
-          f"f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
-          f"{lib.step2_ctu_smem_bytes(1)} B", flush=True)
-    for line in report.splitlines():
-        if any(k in line for k in ("Compiling entry", "registers", "spill",
-                                   "smem")):
-            print("    " + line.strip())
+    lib, dq_lib = _build.load_all(["step2_ctu", "dq2_weno5"])
+    print(f"[2] built csrc/step2_ctu.cu and csrc/dq2_weno5.cu for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s; shared memory per block: "
+          f"step2_ctu f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
+          f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
+          f"{dq_lib.dq2_weno5_smem_bytes(0)} B, f64 "
+          f"{dq_lib.dq2_weno5_smem_bytes(1)} B", flush=True)
+    for name in ("step2_ctu", "dq2_weno5"):
+        for line in _build.build_report(name).splitlines():
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "smem")):
+                print("    " + line.strip())
 
-    # [3] kernel against its plain version
+    grids = [(1024, 1024), (80, 80), (128, 128), (100, 37)]
+    # [3] step2_ctu against its plain version
     t0 = time.perf_counter()
-    worst, worst_cfl, main_abs_err, ncase = compare_kernel(
-        dev, [(1024, 1024), (80, 80), (128, 128), (100, 37)])
+    worst, worst_cfl, main_abs_err, ncase = compare_kernel(dev, grids)
     print(f"[3] kernel vs plain: {ncase} cases, max rel err f32 "
           f"{worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
           f"{worst['float64']:.3e} (tol {TOL_REL['float64']}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # [4] the main path, with the launch count read around it
+    # [3b] dq2_weno5 against its plain version
+    t0 = time.perf_counter()
+    dq_worst, dq_main_abs_err, dq_ncase = compare_dq(dev, grids)
+    print(f"[3b] dq2_weno5 vs plain: {dq_ncase} cases, max rel err f32 "
+          f"{dq_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{dq_worst['float64']:.3e} (tol {TOL_REL['float64']}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def check_run(label, claw, ns, nr):
+        q = claw.solution.q
+        if nr < 1:
+            fail(f"{label}: the first step at dt_initial=0.1 should be "
+                 f"rejected")
+        if q.shape != (4, 1024, 1024) or not np.all(np.isfinite(q)):
+            fail(f"{label}: result is not finite (4, 1024, 1024)")
+        if not claw.solution.state.is_valid():
+            fail(f"{label}: state.is_valid() is False")
+        if abs(claw.solution.t - 0.8) > 1e-12:
+            fail(f"{label}: ended at t={claw.solution.t}")
+
+    # [4] the classic main path, with the launch count read around it
     tiled2d.step2_rows.launches = 0
     claw, status, wall = run_quadrants(dev, 1024, np.float32)
     launches = tiled2d.step2_rows.launches
     ns, nr = status["numsteps"], status["numrejected"]
-    q = claw.solution.q
     print(f"[4] main path 1024^2 f32 to t={claw.solution.t}: {ns} accepted "
           f"+ {nr} rejected steps, {launches} kernel launches, "
           f"{wall:.3f} s wall, {ns * 1024 * 1024 / wall:.4e} "
           f"cell-updates/s", flush=True)
     if launches == 0 or launches != ns + nr:
         fail(f"launches {launches} != accepted {ns} + rejected {nr}")
-    if nr < 1:
-        fail("the first step at dt_initial=0.1 should be rejected")
-    if q.shape != (4, 1024, 1024) or not np.all(np.isfinite(q)):
-        fail("main path result is not finite (4, 1024, 1024)")
-    if not claw.solution.state.is_valid():
-        fail("state.is_valid() is False after the main path")
-    if abs(claw.solution.t - 0.8) > 1e-12:
-        fail(f"main path ended at t={claw.solution.t}")
+    check_run("classic main path", claw, ns, nr)
+
+    # [4b] the SharpClaw path (WENO5 + SSP104), launches read around it
+    tiled2d.dq_rows.launches = 0
+    sclaw, sstatus, swall = run_quadrants(dev, 1024, np.float32,
+                                          solver_type="sharpclaw")
+    dq_launches = tiled2d.dq_rows.launches
+    sns, snr = sstatus["numsteps"], sstatus["numrejected"]
+    print(f"[4b] sharpclaw path 1024^2 f32 SSP104 to t={sclaw.solution.t}: "
+          f"{sns} accepted + {snr} rejected steps, {dq_launches} dq2_weno5 "
+          f"launches, {swall:.3f} s wall, "
+          f"{sns * 1024 * 1024 / swall:.4e} cell-updates/s", flush=True)
+    if dq_launches == 0 or dq_launches != 10 * (sns + snr):
+        fail(f"dq launches {dq_launches} != 10 x (accepted {sns} + "
+             f"rejected {snr})")
+    check_run("sharpclaw path", sclaw, sns, snr)
 
     # [5] goldens on the card
     golden = {}
@@ -358,9 +647,14 @@ def main():
             if abs(c.solution.t - float(ref["t"])) > 1e-10:
                 fail(f"golden {name} {tname}: t={c.solution.t}")
 
-    # [6] timing and a profile window
+    # [5b] SharpClaw on the card against the same run on the CPU
+    sharp_vs_cpu = sharp_card_vs_cpu(dev)
+
+    # [6] timing and a profile window of each path
     tm = timing(dev)
+    tm_dq = timing_dq(dev)
     prof = profile_main_path(dev)
+    sprof = profile_main_path(dev, solver_type="sharpclaw")
 
     f32, f64 = tm["float32"], tm["float64"]
     record = {
@@ -378,16 +672,41 @@ def main():
         "max_rel_err_f64": worst["float64"],
         "max_rel_err_f32": worst["float32"],
     }
+    d32, d64 = tm_dq["float32"], tm_dq["float64"]
+    dq_record = {
+        "name": "dq2_weno5", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/dq2_weno5.cu",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:314",
+        "replaces_function": "dq_pallas_rows",
+        "launches": dq_launches, "max_abs_err": dq_main_abs_err,
+        "ms": d32["ms"], "plain_ms": d32["plain_ms"],
+        "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
+        "library_ms": None,
+        "shape": [4, 1030, 1030], "dtype": "float32",
+        "ms_f64": d64["ms"], "plain_ms_f64": d64["plain_ms"],
+        "bound_ms_f64": d64["bound_ms"], "bound_by_f64": d64["bound_by"],
+        "max_rel_err_f64": dq_worst["float64"],
+        "max_rel_err_f32": dq_worst["float32"],
+    }
+    kernels = [record, dq_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s": wall,
                              "cell_updates_per_s": ns * 1024 * 1024 / wall},
-               "golden_rel_err": golden, "timing": tm, "profile": prof,
+               "sharpclaw_path": {"accepted": sns, "rejected": snr,
+                                  "dq_launches": dq_launches,
+                                  "wall_s": swall,
+                                  "cell_updates_per_s":
+                                      sns * 1024 * 1024 / swall},
+               "golden_rel_err": golden, "sharpclaw_card_vs_cpu":
+                   sharp_vs_cpu,
+               "timing": tm, "timing_dq": tm_dq, "profile": prof,
+               "profile_sharpclaw": sprof,
                "card": card, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
-        json.dump({"kernels": [record], **summary}, f, indent=1)
+        json.dump({"kernels": kernels, **summary}, f, indent=1)
     print(json.dumps(summary))
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,8 +18,9 @@ passes ``device="cpu"``.
     claw.tfinal = 0.6
     claw.run()
 
-This slice ports the 2D classic CTU path of the Euler 4-wave system;
-ROADMAP.md lists what comes next.
+The port carries the 2D classic CTU path and the 2D SharpClaw WENO5
+path (``SharpClawSolver2D``; SSP104, SSP33, Euler) of the Euler 4-wave
+system; ROADMAP.md lists what comes next.
 """
 
 from . import config  # noqa: F401
@@ -31,6 +32,7 @@ from .solution import Solution  # noqa: F401,E402
 from .solver import BC, Solver  # noqa: F401,E402
 from .state import State  # noqa: F401,E402
 from .classic import ClawSolver2D  # noqa: F401,E402
+from .sharpclaw import SharpClawSolver2D  # noqa: F401,E402
 from . import limiters, riemann  # noqa: F401,E402
 
 __version__ = "0.1.0"

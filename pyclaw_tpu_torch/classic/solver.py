@@ -14,13 +14,7 @@ Options of the JAX package that this slice does not port raise
 from __future__ import annotations
 
 from ..ops import tiled2d
-from ..solver import Solver
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to pyclaw_tpu_torch yet (ROADMAP.md, "
-        f"Queue 4: '{what}')")
+from ..solver import Solver, _not_ported
 
 
 class ClawSolver(Solver):
@@ -48,33 +42,13 @@ class ClawSolver(Solver):
             raise ValueError("limiters must have length 1 or num_waves")
         return tuple(lims)
 
-    def _check_ported(self, state):
-        if self.step_source is not None:
-            raise _not_ported("step_source")
-        if self.before_step is not None:
-            raise _not_ported("before_step")
-        if state.patch.grid.gauge_indices:
-            raise _not_ported("gauges")
-        if state.aux is not None:
-            raise _not_ported("aux")
-        if state.index_capa >= 0:
-            raise _not_ported("capacity")
-        if self.fwave:
-            raise _not_ported("fwave")
-
     def setup(self, solution):
         state = solution.states[0]
-        if self.rp is None:
-            raise ValueError("no Riemann solver attached")
-        if state.num_eqn != self.rp.num_eqn:
-            raise ValueError(
-                f"State.num_eqn={state.num_eqn} but Riemann solver "
-                f"{self.rp.name} has num_eqn={self.rp.num_eqn}")
-        for key in self.rp.requires:
-            if key not in state.problem_data:
-                raise ValueError(f"problem_data missing '{key}' required by "
-                                 f"{self.rp.name}")
-        self._check_ported(state)
+        self._check_setup(state)
+        if self.step_source is not None:
+            raise _not_ported("step_source")
+        if self.fwave:
+            raise _not_ported("fwave")
         self._size_bc_lists(self.num_dim)
         if self.dt_initial is not None:
             self.dt = self.dt_initial
@@ -83,13 +57,6 @@ class ClawSolver(Solver):
 
     def _make_hyperbolic_step(self, state):
         raise NotImplementedError
-
-    # ------------------------------------------------------------------
-    def step(self, solution):
-        state = solution.states[0]
-        q, cfl = self._step_fn(self._q_dev, self._aux_dev, self.dt, state.t)
-        self._q_dev = q
-        self.cfl.update_global_max(float(cfl))
 
 
 class ClawSolver2D(ClawSolver):

@@ -17,7 +17,8 @@ from .state import State
 
 SETTINGS = ("limiters", "order", "transverse_waves", "bc_lower",
             "bc_upper", "cfl_max", "cfl_desired", "dt_initial", "dt_max",
-            "dt_variable", "max_steps")
+            "dt_variable", "max_steps", "time_integrator", "weno_order",
+            "lim_type", "char_decomp")
 
 
 def solution_from_arrays(q, problem_data, lower, upper, num_cells, t=0.0):

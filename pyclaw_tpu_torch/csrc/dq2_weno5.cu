@@ -1,0 +1,528 @@
+// dq2_weno5.cu — one SharpClaw semidiscrete evaluation (WENO5, Roe,
+// per-system flux) of the 2D Euler 4-wave system, one launch per RK stage,
+// for Hopper (sm_90a).
+//
+// Replaces the TPU kernel pyclaw_tpu/ops/tiled2d.py:dq_pallas_rows
+// (pallas_call at :415) with its SoA body sharpclaw/soa.py:dq_2d_soa_roll.
+// It computes what pyclaw_tpu/sharpclaw/soa.py:dq_2d_soa computes for
+// componentwise WENO5 with the positivity fallback and the flux form of
+// the in-cell fluctuation; its plain PyTorch version is
+// pyclaw_tpu_torch/sharpclaw/soa.py:dq_2d_soa, which it is held against on
+// the card (chip_smoke.py) and, through the host emulation at the end of
+// this file, on the CPU (tests/test_torch_sharpclaw_kernel.py).
+//
+// What bounds it on the card: per cell it must read the 4 values of q
+// (with the 3-cell ghost band) and write the 4 values of dq, about 32 B
+// per cell in f32 (33.8 MB at 1024^2) and 64 B in f64.  It does ~1.3k
+// floating-point operations per cell: two directions of WENO5 for four
+// components (smoothness indicators, six candidate values, the weights and
+// their divides), two positivity tests, one Roe solve per interface, two
+// flux evaluations per cell.  At 67 TFLOP/s (f32) or 34 TFLOP/s (f64) the
+// operation bound is above the byte bound at 3.35 TB/s, so operations
+// bound it; chip_smoke.py computes both bounds from `FLOPS_PER_CELL_DQ`
+// there.
+//
+// What the design does about it: nothing but q and dq touches device
+// memory, and each quantity is computed once per block.  A block owns a
+// TX x TY tile of cells and stages q with a 3-cell halo in shared memory.
+// Each direction computes the WENO edge states of the tile plus a 1-cell
+// ring along the sweep (positivity fallback applied) into shared memory,
+// then the Roe fluctuations at the tile's interfaces, then that
+// direction's part of dq.  The tile is 16 x 16 cells and a block has 288
+// threads, so the edge phases (18 x 16 cells) keep every thread busy.  The
+// TPU's workarounds are gone: no roll form, no 8-row over-fetch, no
+// 128-lane padding, no prepadded interior.  Ragged edges are masked, so
+// any (nx, ny) works.
+//
+// The CFL window (sharpclaw/soa.py:_dq_dir_soa) covers the x-interfaces
+// g-1 .. nxg-g-1 across the FULL y extent, ghost columns included, and the
+// mirror window for y.  Blocks at the y (x) ends of the grid therefore
+// also solve the x- (y-) interfaces of the ghost band, for the CFL only.
+//
+// Phases (each a loop of the block's threads over a region, separated by
+// barriers):
+//   load     q tile + 3-cell halo -> shared (indices clamped to the padded
+//            grid; clamped cells only feed masked-out results, or
+//            replicate the last column/row, which is in the CFL window)
+//   edges<D> WENO5 edge states of each component along D, positivity
+//            fallback -> E
+//   iface<D> Roe solve at each interface along D: amdq, apdq -> F; CFL
+//            partial max, including the ghost band at the grid's ends
+//   update<D> dq part of D from F and f(qr) - f(ql) of E; x -> DQ in
+//            shared memory, y adds DQ and stores dq
+//   reduce   tree max of the CFL partials; one value per block
+//
+// The arithmetic repeats the plain version operation for operation,
+// including the float32/float64 branches of limiters/recon.py (WENO
+// weights) and riemann/euler.py (_alpha34, _flux_euler_2d_soa).
+
+#include "euler2d.cuh"
+
+namespace {
+
+constexpr int NT = 288;      // threads per block (9 warps)
+constexpr int NT_POW2 = 512; // power of two >= NT, for the tree reduction
+constexpr int TX = 16, TY = 16;  // cells per tile along x (rows), y (cols)
+constexpr int G = 3;         // ghost cells (WENO5)
+
+// ---- WENO5 edge values (limiters/recon.py:weno5_stencil) ---------------
+template <typename T>
+HD void weno5_betas_polys(T vm2, T vm1, T v0, T vp1, T vp2, T b[3], T p[3],
+                          T m[3]) {
+  const T c1312 = T(13.0 / 12.0);
+  T d;
+  d = vm2 - T(2) * vm1 + v0;
+  T e = vm2 - T(4) * vm1 + T(3) * v0;
+  b[0] = c1312 * (d * d) + T(0.25) * (e * e);
+  d = vm1 - T(2) * v0 + vp1;
+  e = vm1 - vp1;
+  b[1] = c1312 * (d * d) + T(0.25) * (e * e);
+  d = v0 - T(2) * vp1 + vp2;
+  e = T(3) * v0 - T(4) * vp1 + vp2;
+  b[2] = c1312 * (d * d) + T(0.25) * (e * e);
+
+  p[0] = (T(2) * vm2 - T(7) * vm1 + T(11) * v0) / T(6);
+  p[1] = (-vm1 + T(5) * v0 + T(2) * vp1) / T(6);
+  p[2] = (T(2) * v0 + T(5) * vp1 - vp2) / T(6);
+  m[0] = (-vm2 + T(5) * vm1 + T(2) * v0) / T(6);
+  m[1] = (T(2) * vm1 + T(5) * v0 - vp1) / T(6);
+  m[2] = (T(11) * v0 - T(7) * vp1 + T(2) * vp2) / T(6);
+}
+
+// float64: the reference weights d_k / (EPWENO + beta_k)^2
+HD void weno5(double vm2, double vm1, double v0, double vp1, double vp2,
+              double& ql, double& qr) {
+  double b[3], p[3], m[3];
+  weno5_betas_polys(vm2, vm1, v0, vp1, vp2, b, p, m);
+  const double EPWENO = 1e-36;
+  double t;
+  t = EPWENO + b[0];
+  const double ib0 = 1.0 / (t * t);
+  t = EPWENO + b[1];
+  const double ib1 = 1.0 / (t * t);
+  t = EPWENO + b[2];
+  const double ib2 = 1.0 / (t * t);
+  const double a0 = 0.1 * ib0, a1 = 0.6 * ib1, a2 = 0.3 * ib2;
+  qr = (a0 * p[0] + a1 * p[1] + a2 * p[2]) / (a0 + a1 + a2);
+  const double c0 = 0.3 * ib0, c1 = 0.6 * ib1, c2 = 0.1 * ib2;
+  ql = (c0 * m[0] + c1 * m[1] + c2 * m[2]) / (c0 + c1 + c2);
+}
+
+// float32: normalised betas scaled by 1e3, one reciprocal for both edges
+HD void weno5(float vm2, float vm1, float v0, float vp1, float vp2,
+              float& ql, float& qr) {
+  float b[3], p[3], m[3];
+  weno5_betas_polys(vm2, vm1, v0, vp1, vp2, b, p, m);
+  const float r = 1e3f / (b[0] + b[1] + b[2] + 1e-30f);
+  const float e0 = 1e-3f + b[0] * r;
+  const float e1 = 1e-3f + b[1] * r;
+  const float e2 = 1e-3f + b[2] * r;
+  float t;
+  t = e0 * e1;
+  const float s01 = t * t;
+  t = e0 * e2;
+  const float s02 = t * t;
+  t = e1 * e2;
+  const float s12 = t * t;
+  const float a0 = 0.1f * s12, a1 = 0.6f * s02, a2 = 0.3f * s01;
+  const float c0 = 0.3f * s12, c1 = 0.6f * s02, c2 = 0.1f * s01;
+  const float den_r = a0 + a1 + a2;
+  const float den_l = c0 + c1 + c2;
+  const float inv = 1.0f / (den_r * den_l);
+  qr = (a0 * p[0] + a1 * p[1] + a2 * p[2]) * (den_l * inv);
+  ql = (c0 * m[0] + c1 * m[1] + c2 * m[2]) * (den_r * inv);
+}
+
+// ---- Euler physics (riemann/euler.py) ----------------------------------
+// positivity: rho > 0 and p > 0
+template <typename T> HD bool admissible(T g1, const T q[4]) {
+  const T rho = q[0];
+  const T ke = T(0.5) * (q[1] * q[1] + q[2] * q[2]) / (rho > T(0) ? rho : T(1));
+  const T p = g1 * (q[3] - ke);
+  return rho > T(0) && p > T(0);
+}
+
+// _flux_euler_2d_soa; float64 divides twice, float32 shares 1/rho
+template <int IXY>
+HD void flux_2d(double g1, const double q[4], double f[4]) {
+  constexpr int mu = 1 + IXY, mv = 2 - IXY;
+  const double u = q[mu] / q[0];
+  const double p = g1 * (q[3] - 0.5 * (q[1] * q[1] + q[2] * q[2]) / q[0]);
+  f[0] = q[mu];
+  f[mu] = q[mu] * u + p;
+  f[mv] = q[mv] * u;
+  f[3] = u * (q[3] + p);
+}
+template <int IXY>
+HD void flux_2d(float g1, const float q[4], float f[4]) {
+  constexpr int mu = 1 + IXY, mv = 2 - IXY;
+  const float rinv = 1.0f / q[0];
+  const float u = q[mu] * rinv;
+  const float p = g1 * (q[3] - 0.5f * (q[1] * q[1] + q[2] * q[2]) * rinv);
+  f[0] = q[mu];
+  f[mu] = q[mu] * u + p;
+  f[mv] = q[mv] * u;
+  f[3] = u * (q[3] + p);
+}
+
+// ---- block geometry and shared-memory layout --------------------------
+constexpr int QR = TX + 2 * G, QC = TY + 2 * G;   // q tile + halo
+constexpr int EXR = TX + 2, EXC = TY;             // x edge states
+constexpr int EYR = TX, EYC = TY + 2;             // y edge states
+constexpr int FXR = TX + 1, FXC = TY;             // x interfaces
+constexpr int FYR = TX, FYC = TY + 1;             // y interfaces
+constexpr int EN = EXR * EXC > EYR * EYC ? EXR * EXC : EYR * EYC;
+constexpr int FN = FXR * FXC > FYR * FYC ? FXR * FXC : FYR * FYC;
+
+template <typename T> struct Layout {
+  // Q [4][QR][QC], E [8][EN] (ql 0..3, qr 4..7), F [8][FN] (amdq 0..3,
+  // apdq 4..7), DQ [4][TX*TY] (the x part of dq), R [NT] (CFL partials)
+  static constexpr size_t elems =
+      4 * QR * QC + 8 * EN + 8 * FN + 4 * TX * TY + NT;
+  static constexpr size_t bytes = elems * sizeof(T);
+};
+
+template <typename T> struct Args {
+  const T* qbc;
+  T* dq;
+  T* cflb;
+  int NX, NY;            // padded (ghost-extended) extents
+  T ndtdx, ndtdy;        // -dt/dx, -dt/dy
+  T dtdx, dtdy, g1;
+};
+
+template <typename T> struct Block {
+  T* Q;
+  T* E;
+  T* F;
+  T* DQ;
+  T* R;
+  int I0, J0, bx, by, nbx, nby;  // first interior cell (padded indices)
+
+  HD void bind(T* s, int bx_, int by_, int nbx_, int nby_) {
+    Q = s;
+    E = Q + 4 * QR * QC;
+    F = E + 8 * EN;
+    DQ = F + 8 * FN;
+    R = DQ + 4 * TX * TY;
+    bx = bx_;
+    by = by_;
+    nbx = nbx_;
+    nby = nby_;
+    I0 = G + by * TX;
+    J0 = G + bx * TY;
+  }
+  HD T q(int e, int r, int c) const { return Q[(e * QR + r) * QC + c]; }
+};
+
+// ---- phase: stage q tile + halo ----------------------------------------
+template <typename T>
+HD void phase_load(const Args<T>& A, Block<T>& B, int tid) {
+  for (int idx = tid; idx < 4 * QR * QC; idx += NT) {
+    int e = idx / (QR * QC);
+    int r = (idx / QC) % QR;
+    int c = idx % QC;
+    int I = B.I0 - G + r, J = B.J0 - G + c;
+    I = I < A.NX ? I : A.NX - 1;
+    J = J < A.NY ? J : A.NY - 1;
+    B.Q[idx] = A.qbc[((long long)e * A.NX + I) * A.NY + J];
+  }
+  B.R[tid] = T(0);
+}
+
+// WENO edge states of the cell at staged (row, col) along D, with the
+// positivity fallback to the cell average (sharpclaw/soa.py:89-92)
+template <int D, typename T>
+HD void edge_states(const Args<T>& A, const Block<T>& B, int row, int col,
+                    T ql[4], T qr[4]) {
+  for (int e = 0; e < 4; ++e) {
+    T v[5];
+    for (int k = 0; k < 5; ++k)
+      v[k] = D == 0 ? B.q(e, row - 2 + k, col) : B.q(e, row, col - 2 + k);
+    weno5(v[0], v[1], v[2], v[3], v[4], ql[e], qr[e]);
+  }
+  if (!(admissible(A.g1, ql) && admissible(A.g1, qr))) {
+    for (int e = 0; e < 4; ++e) {
+      ql[e] = B.q(e, row, col);
+      qr[e] = ql[e];
+    }
+  }
+}
+
+// ---- phase: edge states of the tile plus a 1-cell ring along D ---------
+template <int D, typename T>
+HD void phase_edges(const Args<T>& A, Block<T>& B, int tid) {
+  constexpr int ER = D == 0 ? EXR : EYR, EC = D == 0 ? EXC : EYC;
+  for (int idx = tid; idx < ER * EC; idx += NT) {
+    int r = idx / EC, c = idx % EC;
+    // x: cell (I0-1+r, J0+c) = staged (r+2, c+3); y: (I0+r, J0-1+c)
+    int row = D == 0 ? r + 2 : r + 3, col = D == 0 ? c + 3 : c + 2;
+    T ql[4], qr[4];
+    edge_states<D>(A, B, row, col, ql, qr);
+    for (int e = 0; e < 4; ++e) {
+      B.E[e * EN + idx] = ql[e];
+      B.E[(4 + e) * EN + idx] = qr[e];
+    }
+  }
+}
+
+template <typename T> HD T speed_max(const T s[4], T dtdx) {
+  T m = dtdx * fabs_(s[0]);
+  for (int p = 1; p < 4; ++p) m = mx(m, dtdx * fabs_(s[p]));
+  return m;
+}
+
+// ---- phase: Roe solves at the tile's interfaces along D, and the CFL ---
+template <int D, typename T>
+HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
+  constexpr int FR = D == 0 ? FXR : FYR, FC = D == 0 ? FXC : FYC;
+  constexpr int EC = D == 0 ? EXC : EYC;
+  const T dtdx = D == 0 ? A.dtdx : A.dtdy;
+  T smax = B.R[tid];
+  for (int idx = tid; idx < FR * FC; idx += NT) {
+    int r = idx / FC, c = idx % FC;
+    // interface between E cells (r, c) and x: (r+1, c), y: (r, c+1)
+    int el = r * EC + c;
+    int er = D == 0 ? el + EC : el + 1;
+    T ql[4], qr[4];
+    for (int e = 0; e < 4; ++e) {
+      ql[e] = B.E[(4 + e) * EN + el];   // qr of the left cell
+      qr[e] = B.E[e * EN + er];         // ql of the right cell
+    }
+    const Roe<T> rs = roe_2d<D>(A.g1, ql, qr);
+    T w[4][4], s[4];
+    roe_waves<D>(rs, w, s);
+    for (int e = 0; e < 4; ++e) {
+      T m = T(0), pp = T(0);
+      for (int p = 0; p < 4; ++p) {
+        T am_t = mn(s[p], T(0)) * w[p][e];
+        T ap_t = mx(s[p], T(0)) * w[p][e];
+        m = p == 0 ? am_t : m + am_t;
+        pp = p == 0 ? ap_t : pp + ap_t;
+      }
+      B.F[e * FN + idx] = m;
+      B.F[(4 + e) * FN + idx] = pp;
+    }
+    // x-interface k = I0-1+r (y: j = J0-1+c) is in the window up to nxg-4
+    bool in_cfl = D == 0 ? B.I0 - 1 + r <= A.NX - 4 : B.J0 - 1 + c <= A.NY - 4;
+    if (in_cfl) smax = mx(smax, speed_max(s, dtdx));
+  }
+
+  // ghost band across the sweep (x: columns 0..2 and nyg-3..nyg-1), for
+  // the CFL only: 3 lines at each end of the grid, FR or FC interfaces each
+  constexpr int NL = D == 0 ? FR : FC;
+  const bool lo = D == 0 ? B.bx == 0 : B.by == 0;
+  const bool hi = D == 0 ? B.bx == B.nbx - 1 : B.by == B.nby - 1;
+  for (int idx = tid; idx < 2 * G * NL; idx += NT) {
+    int side = idx / (G * NL), line = (idx / NL) % G, k = idx % NL;
+    if (!(side == 0 ? lo : hi)) continue;
+    // staged line across the sweep: 0..2 below the tile, TY+3.. above
+    int across = side == 0 ? line : (D == 0 ? TY : TX) + G + line;
+    // cells k and k+1 along the sweep, staged index k+2 and k+3
+    int row_l = D == 0 ? k + 2 : across, col_l = D == 0 ? across : k + 2;
+    int row_r = D == 0 ? k + 3 : across, col_r = D == 0 ? across : k + 3;
+    bool in_cfl = D == 0 ? B.I0 - 1 + k <= A.NX - 4 : B.J0 - 1 + k <= A.NY - 4;
+    if (!in_cfl) continue;
+    T ql_l[4], qr_l[4], ql_r[4], qr_r[4];
+    edge_states<D>(A, B, row_l, col_l, ql_l, qr_l);
+    edge_states<D>(A, B, row_r, col_r, ql_r, qr_r);
+    const Roe<T> rs = roe_2d<D>(A.g1, qr_l, ql_r);
+    const T s[4] = {rs.u - rs.a, rs.u, rs.u, rs.u + rs.a};
+    smax = mx(smax, speed_max(s, dtdx));
+  }
+  B.R[tid] = smax;
+}
+
+// ---- phase: one direction's part of dq --------------------------------
+// x: DQ = -dt/dx (apdq_{I-1} + amdq_I + f(qr_I) - f(ql_I));
+// y: dq = DQ + -dt/dy (...), stored to device memory (masked)
+template <int D, typename T>
+HD void phase_update(const Args<T>& A, Block<T>& B, int tid) {
+  constexpr int FC = D == 0 ? FXC : FYC, EC = D == 0 ? EXC : EYC;
+  const T ndt = D == 0 ? A.ndtdx : A.ndtdy;
+  const int nx = A.NX - 2 * G, ny = A.NY - 2 * G;
+  for (int idx = tid; idx < TX * TY; idx += NT) {
+    int ti = idx / TY, tj = idx % TY;
+    int I = B.I0 + ti, J = B.J0 + tj;
+    // interfaces below / above the cell; the cell's own edge states
+    int f_lo = ti * FC + tj;
+    int f_hi = D == 0 ? f_lo + FC : f_lo + 1;
+    int ec = D == 0 ? (ti + 1) * EC + tj : ti * EC + tj + 1;
+    T ql[4], qr[4], fl[4], fr[4];
+    for (int e = 0; e < 4; ++e) {
+      ql[e] = B.E[e * EN + ec];
+      qr[e] = B.E[(4 + e) * EN + ec];
+    }
+    flux_2d<D>(A.g1, ql, fl);
+    flux_2d<D>(A.g1, qr, fr);
+    if (D == 1 && (I >= A.NX - G || J >= A.NY - G)) continue;
+    for (int e = 0; e < 4; ++e) {
+      T part = ndt * (B.F[(4 + e) * FN + f_lo] + B.F[e * FN + f_hi]
+                      + (fr[e] - fl[e]));
+      if (D == 0) {
+        B.DQ[e * TX * TY + idx] = part;
+      } else {
+        A.dq[((long long)e * nx + (I - G)) * ny + (J - G)] =
+            B.DQ[e * TX * TY + idx] + part;
+      }
+    }
+  }
+}
+
+template <typename T>
+HD void phase_reduce(Block<T>& B, int tid, int stride) {
+  if (tid < stride && tid + stride < NT)
+    B.R[tid] = mx(B.R[tid], B.R[tid + stride]);
+}
+
+template <typename T>
+HD void phase_write_cfl(const Args<T>& A, Block<T>& B, int tid) {
+  if (tid == 0) A.cflb[B.by * B.nbx + B.bx] = B.R[0];
+}
+
+template <typename T>
+Args<T> make_args(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
+                  double dt, double dx, double dy, double g1) {
+  Args<T> A;
+  A.qbc = static_cast<const T*>(qbc);
+  A.dq = static_cast<T*>(dq);
+  A.cflb = static_cast<T*>(cflb);
+  A.NX = nxg;
+  A.NY = nyg;
+  const T dt_ = T(dt);
+  A.dtdx = dt_ / T(dx);
+  A.dtdy = dt_ / T(dy);
+  A.ndtdx = -A.dtdx;
+  A.ndtdy = -A.dtdy;
+  A.g1 = T(g1);
+  return A;
+}
+
+void grid_of(int nxg, int nyg, int& nbx, int& nby) {
+  nbx = (nyg - 2 * G + TY - 1) / TY;
+  nby = (nxg - 2 * G + TX - 1) / TX;
+}
+
+#if defined(__CUDACC__)
+template <typename T>
+__global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Block<T> B;
+  B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x,
+         gridDim.y);
+  const int tid = threadIdx.x;
+  phase_load<T>(A, B, tid);
+  __syncthreads();
+  phase_edges<0, T>(A, B, tid);
+  __syncthreads();
+  phase_iface<0, T>(A, B, tid);
+  __syncthreads();
+  phase_update<0, T>(A, B, tid);
+  __syncthreads();
+  phase_edges<1, T>(A, B, tid);
+  __syncthreads();
+  phase_iface<1, T>(A, B, tid);
+  __syncthreads();
+  phase_update<1, T>(A, B, tid);
+  for (int s = NT_POW2 / 2; s > 0; s >>= 1) {
+    __syncthreads();
+    phase_reduce<T>(B, tid, s);
+  }
+  __syncthreads();
+  phase_write_cfl<T>(A, B, tid);
+}
+
+template <typename T>
+int launch(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
+           double dt, double dx, double dy, double g1, void* stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dq2_weno5_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)Layout<T>::bytes);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  int nbx, nby;
+  grid_of(nxg, nyg, nbx, nby);
+  Args<T> A = make_args<T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
+  dq2_weno5_kernel<T><<<dim3(nbx, nby), NT, Layout<T>::bytes,
+                        static_cast<cudaStream_t>(stream)>>>(A);
+  return (int)cudaGetLastError();
+}
+#else
+// Host emulation: the same phases, one block and one "thread" at a time,
+// with each barrier between two phases kept by running the whole block
+// through a phase before the next.  Used by the CPU tests to check the
+// kernel's index algebra against the plain version without a card.
+template <typename T>
+int launch_host(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
+                double dt, double dx, double dy, double g1) {
+  int nbx, nby;
+  grid_of(nxg, nyg, nbx, nby);
+  Args<T> A = make_args<T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
+  std::vector<T> smem(Layout<T>::elems);
+  for (int by = 0; by < nby; ++by) {
+    for (int bx = 0; bx < nbx; ++bx) {
+      Block<T> B;
+      B.bind(smem.data(), bx, by, nbx, nby);
+      for (int t = 0; t < NT; ++t) phase_load<T>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_edges<0, T>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_iface<0, T>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_update<0, T>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_edges<1, T>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_iface<1, T>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_update<1, T>(A, B, t);
+      for (int s = NT_POW2 / 2; s > 0; s >>= 1)
+        for (int t = 0; t < NT; ++t) phase_reduce<T>(B, t, s);
+      for (int t = 0; t < NT; ++t) phase_write_cfl<T>(A, B, t);
+    }
+  }
+  return 0;
+}
+#endif
+
+}  // namespace
+
+// ---- plain C interface (loaded with ctypes) ----------------------------
+extern "C" {
+
+// Number of blocks (= CFL partials) the kernel writes for a padded grid.
+int dq2_weno5_blocks(int nxg, int nyg) {
+  int nbx, nby;
+  grid_of(nxg, nyg, nbx, nby);
+  return nbx * nby;
+}
+
+// Shared memory bytes per block (reported by chip_smoke.py).
+int dq2_weno5_smem_bytes(int is_double) {
+  return is_double ? (int)Layout<double>::bytes : (int)Layout<float>::bytes;
+}
+
+// One SharpClaw dq.  qbc: (4, nxg, nyg) ghost-padded (3 ghost cells), dq:
+// (4, nxg-6, nyg-6), cflb: dq2_weno5_blocks(...) partial CFL maxima; all
+// contiguous, of the type named by the entry.  dt is exact in that type;
+// g1 = gamma - 1.  Returns a cudaError_t (0 on success).
+#if defined(__CUDACC__)
+int dq2_weno5_f32(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
+                  double dt, double dx, double dy, double g1, void* stream) {
+  return launch<float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, stream);
+}
+
+int dq2_weno5_f64(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
+                  double dt, double dx, double dy, double g1, void* stream) {
+  return launch<double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, stream);
+}
+#else
+int dq2_weno5_host_f32(const void* qbc, void* dq, void* cflb, int nxg,
+                       int nyg, double dt, double dx, double dy, double g1) {
+  return launch_host<float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
+}
+
+int dq2_weno5_host_f64(const void* qbc, void* dq, void* cflb, int nxg,
+                       int nyg, double dt, double dx, double dy, double g1) {
+  return launch_host<double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
+}
+#endif
+
+}  // extern "C"

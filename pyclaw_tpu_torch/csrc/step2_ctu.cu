@@ -40,42 +40,15 @@
 //   reduce  tree max of the CFL partials; one value per block
 //
 // The arithmetic repeats the plain version operation for operation,
-// including the float32/float64 branch of riemann/euler.py:_alpha34.
+// including the float32/float64 branch of riemann/euler.py:_alpha34; the
+// Roe solve and the scalar helpers live in euler2d.cuh, shared with
+// dq2_weno5.cu.
 
-#if defined(__CUDACC__)
-#include <cuda_runtime.h>
-#define HD __device__ __forceinline__
-#else
-#include <cmath>
-#include <cstddef>
-#include <vector>
-#define HD inline
-#endif
+#include "euler2d.cuh"
 
 namespace {
 
 constexpr int NT = 256;  // threads per block
-
-// ---- scalar helpers -----------------------------------------------------
-#if defined(__CUDACC__)
-HD float rsqrt_(float x) { return rsqrtf(x); }
-HD double rsqrt_(double x) { return rsqrt(x); }
-HD float sqrt_(float x) { return sqrtf(x); }
-HD double sqrt_(double x) { return sqrt(x); }
-HD float pow_(float x, float y) { return powf(x, y); }
-HD double pow_(double x, double y) { return pow(x, y); }
-HD float fabs_(float x) { return fabsf(x); }
-HD double fabs_(double x) { return fabs(x); }
-#else
-template <typename T> HD T rsqrt_(T x) { return T(1) / std::sqrt(x); }
-template <typename T> HD T sqrt_(T x) { return std::sqrt(x); }
-template <typename T> HD T pow_(T x, T y) { return std::pow(x, y); }
-template <typename T> HD T fabs_(T x) { return std::fabs(x); }
-#endif
-
-// NaN-propagating max/min (jnp.maximum / torch.maximum semantics)
-template <typename T> HD T mx(T a, T b) { return (a != a || a > b) ? a : b; }
-template <typename T> HD T mn(T a, T b) { return (a != a || a < b) ? a : b; }
 
 // TVD limiter phi(theta, nu): every id of limiters/tvd.py _phi and _phi_cfl
 template <typename T> HD T phi_limiter(int lid, T t, T nu) {
@@ -122,19 +95,6 @@ template <typename T> HD T phi_limiter(int lid, T t, T nu) {
       return mx(T(0), mn(bound, pow_(fabs_(t), (T(1) + nu) / T(3))));
     default: return T(1);  // unreachable: the wrapper checks ids
   }
-}
-
-// riemann/euler.py:_alpha34 — the dtype branch is part of the contract
-HD void alpha34(double g1, double a, double a2, double n3, double n4p,
-                double& a3, double& a4) {
-  a3 = g1 / a2 * n3;
-  a4 = (n4p - a * a3) / (2.0 * a);
-}
-HD void alpha34(float g1, float a, float a2, float n3, float n4p,
-                float& a3, float& a4) {
-  float ia = rsqrt_(a2);
-  a3 = g1 * (ia * ia) * n3;
-  a4 = (n4p - a * a3) * (0.5f * ia);
 }
 
 // ---- block geometry and shared-memory layout --------------------------
@@ -214,7 +174,6 @@ HD void phase_roe(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
   using L = Tile<T, TX, TY>;
   constexpr int R = IXY == 0 ? L::WXR : L::WYR;
   constexpr int C = IXY == 0 ? L::WXC : L::WYC;
-  constexpr int mu = 1 + IXY, mv = 2 - IXY;
   const T g1 = A.g1;
   for (int idx = tid; idx < R * C; idx += NT) {
     int r = idx / C, c = idx % C;
@@ -225,57 +184,34 @@ HD void phase_roe(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
       ql[e] = B.qs(e, lr, lc);
       qr[e] = B.qs(e, r + 1, c + 1);
     }
-    T irl = rsqrt_(ql[0]), irr = rsqrt_(qr[0]);
-    T srl = ql[0] * irl, srr = qr[0] * irr;
-    T rinv_l = irl * irl, rinv_r = irr * irr;
-    T w = T(1) / (srl + srr);
-    T u = (ql[mu] * irl + qr[mu] * irr) * w;
-    T v = (ql[mv] * irl + qr[mv] * irr) * w;
-    T ke_l = T(0.5) * (ql[mu] * ql[mu] + ql[mv] * ql[mv]) * rinv_l;
-    T ke_r = T(0.5) * (qr[mu] * qr[mu] + qr[mv] * qr[mv]) * rinv_r;
-    T p_l = g1 * (ql[3] - ke_l);
-    T p_r = g1 * (qr[3] - ke_r);
-    T H = (srl * ((ql[3] + p_l) * rinv_l) + srr * ((qr[3] + p_r) * rinv_r)) * w;
-    T a2 = g1 * (H - T(0.5) * (u * u + v * v));
-    T a = sqrt_(a2);
-
-    T d0 = qr[0] - ql[0], dmu = qr[mu] - ql[mu], dmv = qr[mv] - ql[mv];
-    T dE = qr[3] - ql[3];
-    T euv = H - (u * u + v * v);
-    T a3, a4;
-    alpha34(g1, a, a2, euv * d0 + u * dmu + v * dmv - dE,
-            dmu + (a - u) * d0, a3, a4);
-    T a2w = dmv - v * d0;
-    T a1 = d0 - a3 - a4;
+    const Roe<T> rs = roe_2d<IXY>(g1, ql, qr);
     T* Wp = B.W + idx;
-    Wp[0 * L::WN] = u;
-    Wp[1 * L::WN] = v;
-    Wp[2 * L::WN] = H;
-    Wp[3 * L::WN] = a2;
-    Wp[4 * L::WN] = a;
-    Wp[5 * L::WN] = a1;
-    Wp[6 * L::WN] = a3;
-    Wp[7 * L::WN] = a2w;
-    Wp[8 * L::WN] = a4;
+    Wp[0 * L::WN] = rs.u;
+    Wp[1 * L::WN] = rs.v;
+    Wp[2 * L::WN] = rs.H;
+    Wp[3 * L::WN] = rs.a2;
+    Wp[4 * L::WN] = rs.a;
+    Wp[5 * L::WN] = rs.a1;
+    Wp[6 * L::WN] = rs.a3;
+    Wp[7 * L::WN] = rs.a2w;
+    Wp[8 * L::WN] = rs.a4;
   }
 }
 
 // waves (equation order) and speeds of rpn2 from stored Roe data
 template <int IXY, typename T, int WN>
 HD void waves_at(const T* W, int idx, T w[4][4], T s[4]) {
-  constexpr int mu = 1 + IXY, mv = 2 - IXY;
-  T u = W[0 * WN + idx], v = W[1 * WN + idx], H = W[2 * WN + idx];
-  T a = W[4 * WN + idx];
-  T a1 = W[5 * WN + idx], a3 = W[6 * WN + idx], a2w = W[7 * WN + idx];
-  T a4 = W[8 * WN + idx];
-  w[0][0] = a1; w[0][mu] = a1 * (u - a); w[0][mv] = a1 * v;
-  w[0][3] = a1 * (H - u * a);
-  w[1][0] = a3; w[1][mu] = a3 * u; w[1][mv] = a3 * v;
-  w[1][3] = a3 * T(0.5) * (u * u + v * v);
-  w[2][0] = T(0); w[2][mu] = T(0); w[2][mv] = a2w; w[2][3] = a2w * v;
-  w[3][0] = a4; w[3][mu] = a4 * (u + a); w[3][mv] = a4 * v;
-  w[3][3] = a4 * (H + u * a);
-  s[0] = u - a; s[1] = u; s[2] = u; s[3] = u + a;
+  Roe<T> rs;
+  rs.u = W[0 * WN + idx];
+  rs.v = W[1 * WN + idx];
+  rs.H = W[2 * WN + idx];
+  rs.a2 = W[3 * WN + idx];
+  rs.a = W[4 * WN + idx];
+  rs.a1 = W[5 * WN + idx];
+  rs.a3 = W[6 * WN + idx];
+  rs.a2w = W[7 * WN + idx];
+  rs.a4 = W[8 * WN + idx];
+  roe_waves<IXY>(rs, w, s);
 }
 
 // rpt2_euler: split asdq into transverse down-going bm / up-going bp

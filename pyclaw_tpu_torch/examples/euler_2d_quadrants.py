@@ -1,8 +1,9 @@
 """2D Euler Riemann-quadrants problem, configuration 4 (reference
 examples/euler_2d/quadrants.py) — the port's copy of the JAX package's
 ``examples/euler_2d_quadrants.py``, with the same initial condition and
-``setup()`` keywords plus ``device``.  The device picks the kernel, so
-there is no ``kernel_language``; SharpClaw is not ported yet.
+``setup()`` keywords plus ``device``: the classic CTU solver or SharpClaw
+WENO5 with ``time_integrator`` SSP104 (default), SSP33 or Euler.  The
+device picks the kernel, so there is no ``kernel_language``.
 
     python -m pyclaw_tpu_torch.examples.euler_2d_quadrants
 """
@@ -15,12 +16,13 @@ from pyclaw_tpu_torch import riemann
 
 def setup(mx=200, my=200, solver_type="classic", time_integrator="SSP104",
           outdir="./_output", dtype=None, device=None):
-    if solver_type != "classic":
-        raise NotImplementedError(
-            "solver_type='sharpclaw' is not ported to pyclaw_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 7)")
-    solver = pyclaw.ClawSolver2D(riemann.euler_4wave_2D, device=device)
-    solver.limiters = [pyclaw.limiters.tvd.vanleer]
+    if solver_type == "classic":
+        solver = pyclaw.ClawSolver2D(riemann.euler_4wave_2D, device=device)
+        solver.limiters = [pyclaw.limiters.tvd.vanleer]
+    else:
+        solver = pyclaw.SharpClawSolver2D(riemann.euler_4wave_2D,
+                                          device=device)
+        solver.time_integrator = time_integrator
     solver.all_bcs = pyclaw.BC.extrap
 
     domain = pyclaw.Domain([0.0, 0.0], [1.0, 1.0], [mx, my])

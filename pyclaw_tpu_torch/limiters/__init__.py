@@ -1,4 +1,4 @@
-"""Wave limiters (counterpart of ``pyclaw_tpu/limiters``).  This slice
-ports the TVD family; the WENO reconstructions come with SharpClaw."""
+"""Wave limiters and reconstructions (counterpart of
+``pyclaw_tpu/limiters``): the TVD family and WENO5."""
 
-from . import tvd  # noqa: F401
+from . import recon, tvd  # noqa: F401

@@ -3,7 +3,8 @@
 Route: ``nvcc`` into a shared library with a plain C interface, loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds).  The
 library goes to ``build/kernels/`` at the root of the checkout (listed
-in ``.gitignore``) and is rebuilt when its source is newer.  A missing
+in ``.gitignore``) and is rebuilt when its source, or a shared header
+``csrc/*.cuh``, is newer.  A missing
 ``nvcc`` or a failed build raises: nothing falls back to the plain
 PyTorch version.
 
@@ -40,29 +41,46 @@ def _nvcc():
     return path
 
 
-def _compile(cmd, src, out):
-    """Run ``cmd`` (which writes ``out + '.tmp'``), then move the result
-    into place; returns the compiler's report."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    if (os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(src)):
-        return "(cached build)"
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"build of {src} failed:\n{proc.stderr}")
-    os.replace(out + ".tmp", out)
-    return proc.stdout + proc.stderr
+def _newest_source(src):
+    """mtime of ``src`` or of the newest shared header in ``csrc/``."""
+    headers = [os.path.join(CSRC, n) for n in os.listdir(CSRC)
+               if n.endswith(".cuh")]
+    return max(os.path.getmtime(p) for p in [src, *headers])
+
+
+def load_all(names):
+    """ctypes handles of ``csrc/<name>.cu`` for each of ``names``, built
+    for sm_90a: one nvcc per stale source, all started together."""
+    procs = {}
+    for name in names:
+        if name in _loaded:
+            continue
+        src = os.path.join(CSRC, f"{name}.cu")
+        out = os.path.join(BUILD_DIR, f"lib{name}.so")
+        if (os.path.exists(out)
+                and os.path.getmtime(out) >= _newest_source(src)):
+            _loaded[name] = (ctypes.CDLL(out), "(cached build)")
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs[name] = (src, out, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (src, out, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"build of {src} failed:\n{stderr}")
+            continue
+        os.replace(out + ".tmp", out)
+        _loaded[name] = (ctypes.CDLL(out), stdout + stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [_loaded[name][0] for name in names]
 
 
 def load(name):
     """ctypes handle of ``csrc/<name>.cu`` built for sm_90a."""
-    if name not in _loaded:
-        src = os.path.join(CSRC, f"{name}.cu")
-        out = os.path.join(BUILD_DIR, f"lib{name}.so")
-        report = _compile([_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", src],
-                          src, out)
-        _loaded[name] = (ctypes.CDLL(out), report)
-    return _loaded[name][0]
+    return load_all([name])[0]
 
 
 def build_report(name):

@@ -1,12 +1,17 @@
-"""The 2D CTU step kernel's wrapper.
+"""Wrappers of the 2D kernels of the Euler 4-wave system.
 
-Counterpart of ``pyclaw_tpu/ops/tiled2d.py:step2_pallas_rows`` with its
-SoA body: one launch of ``csrc/step2_ctu.cu`` computes the whole unsplit
-CTU step of the Euler 4-wave Roe solver and one CFL maximum per block.
+* :func:`step2_rows`, counterpart of ``pyclaw_tpu/ops/tiled2d.py:
+  step2_pallas_rows`` with its SoA body: one launch of
+  ``csrc/step2_ctu.cu`` computes the whole unsplit CTU step and one CFL
+  maximum per block.  Plain version: ``classic/soa.py:step2_soa``.
+* :func:`dq_rows`, counterpart of ``dq_pallas_rows``: one launch of
+  ``csrc/dq2_weno5.cu`` computes one SharpClaw WENO5 semidiscrete
+  evaluation (one RK stage's dq) and one CFL maximum per block.  Plain
+  version: ``sharpclaw/soa.py:dq_2d_soa``.
 
-On a CPU tensor :func:`step2_rows` computes the plain PyTorch version
-(``classic/soa.py:step2_soa``).  On a CUDA tensor it launches the kernel
-or raises; it never falls back to the plain version.
+On a CPU tensor each wrapper computes its plain PyTorch version.  On a
+CUDA tensor it launches the kernel or raises; it never falls back to the
+plain version.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from ..classic import soa
 from ..limiters.tvd import CFL_LIMITER_IDS
 from ..riemann import euler
+from ..sharpclaw import soa as sc_soa
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
              + [ctypes.c_double] * 4 + [ctypes.c_int] * 6
@@ -37,6 +43,36 @@ def _lib():
     lib.step2_ctu_blocks.argtypes = [ctypes.c_int] * 3
     lib.step2_ctu_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _dq_lib():
+    from . import _build
+    lib = _build.load("dq2_weno5")
+    for name in ("dq2_weno5_f32", "dq2_weno5_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    lib.dq2_weno5_blocks.argtypes = [ctypes.c_int] * 2
+    lib.dq2_weno5_blocks.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda_qbc(name, qbc, num_ghost):
+    """Raise unless qbc is a contiguous (4, nx+2g, ny+2g) float32/float64
+    CUDA tensor with nx, ny >= 1."""
+    if qbc.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qbc.device}")
+    if qbc.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {qbc.dtype} not supported")
+    g = num_ghost
+    if qbc.dim() != 3 or qbc.shape[0] != 4 or min(qbc.shape[1:]) < 2 * g + 1:
+        raise ValueError(f"{name}: need qbc of shape (4, nx+{2 * g}, "
+                         f"ny+{2 * g}) with nx, ny >= 1, got "
+                         f"{tuple(qbc.shape)}")
+    if not qbc.is_contiguous():
+        raise ValueError(f"{name}: qbc must be contiguous")
 
 
 def check_options(mthlim, order, transverse_waves):
@@ -67,15 +103,7 @@ def step2_rows(qbc, dt, dx, dy, params, mthlim, order, num_ghost=2,
                              euler._rpt2_euler_soa, params, mthlim, order,
                              num_ghost, transverse_waves,
                              euler._prefactor_euler_2d_soa)
-    if qbc.device.type != "cuda":
-        raise ValueError(f"step2_rows: unsupported device {qbc.device}")
-    if qbc.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"step2_rows: dtype {qbc.dtype} not supported")
-    if qbc.dim() != 3 or qbc.shape[0] != 4 or min(qbc.shape[1:]) < 5:
-        raise ValueError(f"step2_rows: need qbc of shape (4, nx+4, ny+4) "
-                         f"with nx, ny >= 1, got {tuple(qbc.shape)}")
-    if not qbc.is_contiguous():
-        raise ValueError("step2_rows: qbc must be contiguous")
+    _check_cuda_qbc("step2_rows", qbc, num_ghost)
     _, nxg, nyg = qbc.shape
     is_double = qbc.dtype == torch.float64
     lib = _lib()
@@ -97,3 +125,45 @@ def step2_rows(qbc, dt, dx, dy, params, mthlim, order, num_ghost=2,
 
 
 step2_rows.launches = 0
+
+
+def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3):
+    """One SharpClaw semidiscrete evaluation of the Euler 4-wave system:
+    componentwise WENO5 edge states with the positivity fallback, Roe
+    fluctuations, and f(qr) - f(ql) in each cell.
+
+    qbc: (4, nx+6, ny+6) ghost-padded q (float32 or float64, contiguous).
+    dt: step in q's dtype (a Python float that is exact in it).
+    Returns (dq (4, nx, ny) with dt included, cfl as a 0-d tensor)."""
+    if num_ghost != (weno_order + 1) // 2:
+        raise ValueError(f"dq_rows: weno_order={weno_order} needs "
+                         f"num_ghost={(weno_order + 1) // 2}, got "
+                         f"{num_ghost}")
+    if qbc.device.type == "cpu":
+        return sc_soa.dq_2d_soa(qbc, dt, dx, dy, euler._rpn2_euler_soa,
+                                params, weno_order, num_ghost,
+                                positivity=euler.euler_4wave_2D.positivity,
+                                flux_soa=euler._flux_euler_2d_soa)
+    if weno_order != 5:
+        raise NotImplementedError(
+            f"dq_rows: weno_order={weno_order} has no kernel yet "
+            f"(ROADMAP.md, Queue 4: 'weno_order 7-17')")
+    _check_cuda_qbc("dq_rows", qbc, num_ghost)
+    _, nxg, nyg = qbc.shape
+    is_double = qbc.dtype == torch.float64
+    lib = _dq_lib()
+    dq = torch.empty((4, nxg - 6, nyg - 6), dtype=qbc.dtype,
+                     device=qbc.device)
+    cfl_blocks = torch.empty((lib.dq2_weno5_blocks(nxg, nyg),),
+                             dtype=qbc.dtype, device=qbc.device)
+    fn = lib.dq2_weno5_f64 if is_double else lib.dq2_weno5_f32
+    rc = fn(qbc.data_ptr(), dq.data_ptr(), cfl_blocks.data_ptr(), nxg, nyg,
+            float(dt), float(dx), float(dy), float(params["gamma"] - 1.0),
+            torch.cuda.current_stream(qbc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dq2_weno5 launch failed: cudaError_t {rc}")
+    dq_rows.launches += 1
+    return dq, torch.amax(cfl_blocks)
+
+
+dq_rows.launches = 0

@@ -2,13 +2,15 @@
 
 Counterpart of ``pyclaw_tpu/riemann/euler.py``: ``_alpha34 :66``,
 ``_roe_averages_soa :274``, ``_rpn2_euler_soa :297``,
-``_prefactor_euler_2d_soa :359``, ``_rpt2_euler_soa :365`` and the
-registry lines ``:797-803, :820`` (physics of reference
-``rpn2_euler_4wave.f90`` + ``rpt2_euler.f90``).  Ideal gas, gamma from
+``_prefactor_euler_2d_soa :359``, ``_rpt2_euler_soa :365``,
+``_flux_euler_2d_soa :752``, positivity ``:775`` and the registry lines
+``:797-803, :820, :829`` (physics of reference ``rpn2_euler_4wave.f90``
++ ``rpt2_euler.f90``).  Ideal gas, gamma from
 problem_data; q = (rho, rho*u, rho*v, E).
 
-The CUDA kernel ``csrc/step2_ctu.cu`` repeats this algebra operation for
-operation, including the float32/float64 branch of :func:`_alpha34`.
+The CUDA kernels ``csrc/step2_ctu.cu`` and ``csrc/dq2_weno5.cu`` repeat
+this algebra operation for operation, including the float32/float64
+branches of :func:`_alpha34` and :func:`_flux_euler_2d_soa`.
 """
 
 from __future__ import annotations
@@ -151,6 +153,29 @@ def _rpt2_euler_soa(ixy, imp, q_l, q_r, asdq, params, eig=None):
     return tuple(bm), tuple(bp)
 
 
+def _flux_euler_2d_soa(ixy, qs, params):
+    """Physical flux of the 2D Euler system along ``ixy``, one tensor per
+    component (RiemannSolver.flux_soa).  float32 shares one reciprocal of
+    rho, as the JAX package does; the CUDA kernel ``csrc/dq2_weno5.cu``
+    branches the same way."""
+    gamma = params["gamma"]
+    mu, mv = 1 + ixy, 2 - ixy
+    rho, E = qs[0], qs[3]
+    if rho.dtype == torch.float64:
+        u = qs[mu] / rho
+        p = (gamma - 1.0) * (E - 0.5 * (qs[1] ** 2 + qs[2] ** 2) / rho)
+    else:
+        rinv = 1.0 / rho
+        u = qs[mu] * rinv
+        p = (gamma - 1.0) * (E - 0.5 * (qs[1] ** 2 + qs[2] ** 2) * rinv)
+    comp = [None] * len(qs)
+    comp[0] = qs[mu]
+    comp[mu] = qs[mu] * u + p
+    comp[mv] = qs[mv] * u
+    comp[3] = u * (E + p)
+    return tuple(comp)
+
+
 def _make_euler_positivity(vel_idx, e_idx):
     def positivity(q, aux, params):
         rho = q[0]
@@ -171,3 +196,4 @@ euler_4wave_2D.rpn_soa = _rpn2_euler_soa
 euler_4wave_2D.rpt_soa = _rpt2_euler_soa
 euler_4wave_2D.prefactor_soa = _prefactor_euler_2d_soa
 euler_4wave_2D.positivity = _make_euler_positivity((1, 2), 3)
+euler_4wave_2D.flux_soa = _flux_euler_2d_soa

@@ -1,0 +1,151 @@
+"""SharpClaw method-of-lines solver, 2D WENO5 path.
+
+Counterpart of ``pyclaw_tpu/sharpclaw/solver.py`` (``_CFL_DEFAULTS :40``,
+``SharpClawSolver :47-148`` without the multistep integrators,
+``_soa_eligible :151``, the SoA branch of ``_make_dq :165-270``,
+``_make_step :300-347`` for Euler, SSP33 and SSP104,
+``SharpClawSolver2D :505``), a rebuild of reference
+``src/pyclaw/sharpclaw/solver.py``.  ``setup`` builds one step function
+``_step_fn(q, aux, dt, t) -> (q_new, cfl)``; each RK stage extends the
+BCs and calls ``ops.tiled2d.dq_rows``, which launches the CUDA kernel on
+a CUDA tensor and runs the plain PyTorch version on a CPU tensor.  The
+stage combines are plain tensor operations, as the JAX package leaves
+them to XLA.
+
+Options of the JAX package that this slice does not port raise
+``NotImplementedError`` at setup, naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import tiled2d
+from ..solver import Solver, _not_ported
+
+_CFL_DEFAULTS = {
+    "Euler": (0.45, 0.5),
+    "SSP33": (0.9, 1.0),
+    "SSP104": (2.45, 2.5),
+}
+
+
+class SharpClawSolver(Solver):
+    num_dim = None
+
+    def __init__(self, riemann_solver=None, device=None):
+        super().__init__(riemann_solver, device=device)
+        self.time_integrator = "SSP104"
+        self.lim_type = 2
+        self.weno_order = 5
+        self.tfluct_solver = False
+        self.dq_src = None
+        self.call_before_step_each_stage = False
+        self.char_decomp = 0
+        self.use_soa = True
+        # never set True, as in the JAX package: setup always takes the
+        # integrator's CFL defaults (ROADMAP.md, Queue 3)
+        self._cfl_set_by_user = False
+
+    @property
+    def _weno_ghost(self):
+        if self.lim_type == 2:
+            return (self.weno_order + 1) // 2
+        return 2
+
+    def _check_ported(self):
+        if self.time_integrator not in _CFL_DEFAULTS:
+            raise _not_ported("time_integrator RK/SSPLMMk2/SSPLMMk3/LMM")
+        if self.lim_type != 2:
+            raise _not_ported("lim_type=1")
+        if self.weno_order != 5:
+            raise _not_ported("weno_order 7-17")
+        if self.char_decomp != 0:
+            raise _not_ported("char_decomp 1-4")
+        if self.tfluct_solver:
+            raise _not_ported("tfluct_solver")
+        if self.dq_src is not None:
+            raise _not_ported("dq_src")
+        if self.call_before_step_each_stage:
+            raise _not_ported("call_before_step_each_stage")
+        if (self.use_soa is False or self.num_dim != 2
+                or self.rp.name != "euler_4wave_2D"):
+            raise _not_ported("generic SharpClaw dq")
+
+    def setup(self, solution):
+        state = solution.states[0]
+        self._check_setup(state)
+        self._check_ported()
+        self.num_ghost = self._weno_ghost
+        self._size_bc_lists(self.num_dim)
+        if not self._cfl_set_by_user:
+            self.cfl_desired, self.cfl_max = _CFL_DEFAULTS[
+                self.time_integrator]
+        if self.dt_initial is not None:
+            self.dt = self.dt_initial
+        self._step_fn = self._make_step(state)
+        self._is_set_up = True
+
+    # ------------------------------------------------------------------
+    def _make_dq(self, state):
+        """fn(q, aux, dt, t) -> (dq over the interior with dt included,
+        cfl): BC extension, then one dq_rows call."""
+        params = self._weak_params(state.problem_data)
+        weno_order = self.weno_order
+        g = self.num_ghost
+        dx, dy = state.patch.delta
+
+        def dq(q, aux, dt, t):
+            qbc = self._extend_bc(q, t, state)
+            return tiled2d.dq_rows(qbc, dt, dx, dy, params, weno_order, g)
+        return dq
+
+    def _make_step(self, state):
+        dq = self._make_dq(state)
+        kdtype = state.q.dtype.type
+
+        def stage_t(t, dt, c, div=1.0):
+            """t + c*dt/div in q's dtype, as the JAX package computes the
+            stage times (they reach only the BCs)."""
+            return float(kdtype(t) + kdtype(c) * kdtype(dt) / kdtype(div))
+
+        if self.time_integrator == "Euler":
+            def step(q, aux, dt, t):
+                d, cfl = dq(q, aux, dt, t)
+                return q + d, cfl
+
+        elif self.time_integrator == "SSP33":
+            def step(q, aux, dt, t):
+                d1, c1 = dq(q, aux, dt, t)
+                q1 = q + d1
+                d2, c2 = dq(q1, aux, dt, stage_t(t, dt, 1.0))
+                q2 = 0.75 * q + 0.25 * (q1 + d2)
+                d3, c3 = dq(q2, aux, dt, stage_t(t, dt, 0.5))
+                qn = q / 3.0 + (2.0 / 3.0) * (q2 + d3)
+                return qn, torch.maximum(c1, torch.maximum(c2, c3))
+
+        else:  # SSP104: Ketcheson's low-storage 2-register scheme
+            def step(q, aux, dt, t):
+                # the CFL carry is a function of q, so a NaN in q still
+                # reaches the accept/reject test
+                cfl = q.reshape(-1)[0] * 0.0
+                s1 = q
+                for i in range(5):
+                    d, c = dq(s1, aux, dt, stage_t(t, dt, i, 6.0))
+                    s1 = s1 + d / 6.0
+                    cfl = torch.maximum(cfl, c)
+                s2 = q / 25.0 + (9.0 / 25.0) * s1
+                s1 = 15.0 * s2 - 5.0 * s1
+                for i in range(4):
+                    d, c = dq(s1, aux, dt, stage_t(t, dt, i + 6, 6.0))
+                    s1 = s1 + d / 6.0
+                    cfl = torch.maximum(cfl, c)
+                d, c = dq(s1, aux, dt, stage_t(t, dt, 1.0))
+                qn = s2 + 0.6 * s1 + 0.1 * d
+                return qn, torch.maximum(cfl, c)
+        return step
+
+
+class SharpClawSolver2D(SharpClawSolver):
+    num_dim = 2
+

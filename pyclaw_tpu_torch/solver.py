@@ -31,6 +31,14 @@ logger = logging.getLogger("pyclaw.solver")
 __all__ = ["BC", "Solver"]
 
 
+def _not_ported(what):
+    """The error an option of the JAX package that the port does not take
+    yet raises at setup; ``what`` names its ROADMAP.md item."""
+    return NotImplementedError(
+        f"{what} is not ported to pyclaw_tpu_torch yet (ROADMAP.md, "
+        f"Queue 4: '{what}')")
+
+
 class Solver:
     def __init__(self, riemann_solver=None, device=None):
         self.device = resolve_device(device)
@@ -103,6 +111,28 @@ class Solver:
         """Subclasses build their step function here."""
         raise NotImplementedError
 
+    def _check_setup(self, state):
+        """The checks of every solver's setup: the Riemann solver fits the
+        state, and no option that the port does not take yet is set."""
+        if self.rp is None:
+            raise ValueError("no Riemann solver attached")
+        if state.num_eqn != self.rp.num_eqn:
+            raise ValueError(
+                f"State.num_eqn={state.num_eqn} but Riemann solver "
+                f"{self.rp.name} has num_eqn={self.rp.num_eqn}")
+        for key in self.rp.requires:
+            if key not in state.problem_data:
+                raise ValueError(f"problem_data missing '{key}' required by "
+                                 f"{self.rp.name}")
+        if self.before_step is not None:
+            raise _not_ported("before_step")
+        if state.patch.grid.gauge_indices:
+            raise _not_ported("gauges")
+        if state.aux is not None:
+            raise _not_ported("aux")
+        if state.index_capa >= 0:
+            raise _not_ported("capacity")
+
     def _extend_bc(self, q, t, state):
         """Ghost-cell extension + custom-BC callbacks."""
         g = self.num_ghost
@@ -121,8 +151,11 @@ class Solver:
         return qbc
 
     def step(self, solution):
-        """One step of self.dt; sets the cached CFL."""
-        raise NotImplementedError
+        """One step of self.dt on the device state; sets the cached CFL."""
+        state = solution.states[0]
+        q, cfl = self._step_fn(self._q_dev, self._aux_dev, self.dt, state.t)
+        self._q_dev = q
+        self.cfl.update_global_max(float(cfl))
 
     # ------------------------------------------------------------------
     def _push(self, state):

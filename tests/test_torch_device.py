@@ -61,6 +61,33 @@ def test_unported_options_raise():
     claw.solver.before_step = lambda solver, state: None
     with pytest.raises(NotImplementedError, match="before_step"):
         claw.solver.setup(claw.solution)
-    with pytest.raises(NotImplementedError, match="sharpclaw"):
-        ex.setup(mx=8, my=8, outdir=None, device="cpu",
-                 solver_type="sharpclaw")
+    claw = ex.setup(mx=8, my=8, outdir=None, device="cpu",
+                    solver_type="sharpclaw", time_integrator="SSPLMMk3")
+    with pytest.raises(NotImplementedError, match="SSPLMMk3"):
+        claw.solver.setup(claw.solution)
+
+
+def test_default_device_sharpclaw_raises_without_card(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ex.setup(mx=8, my=8, outdir=None, solver_type="sharpclaw")
+
+
+def test_explicit_cpu_device_runs_sharpclaw(no_card):
+    claw = ex.setup(mx=8, my=8, outdir=None, device="cpu",
+                    solver_type="sharpclaw")
+    claw.tfinal = 0.05
+    claw.num_output_times = 1
+    claw.run()
+    assert claw.solver.device.type == "cpu"
+    assert claw.solution.state.is_valid()
+
+
+def test_cuda_tensor_without_card_is_not_run_on_cpu_dq(no_card):
+    """dq_rows decides by the tensor's device, as step2_rows does."""
+    from pyclaw_tpu_torch.ops import tiled2d
+    q = torch.zeros(4, 12, 12, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tiled2d.dq_rows(q, 0.01, 0.1, 0.1, {"gamma": 1.4})
+    with pytest.raises(NotImplementedError, match="weno_order"):
+        tiled2d.dq_rows(q, 0.01, 0.1, 0.1, {"gamma": 1.4}, weno_order=7,
+                        num_ghost=4)

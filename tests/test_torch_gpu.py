@@ -1,5 +1,5 @@
-"""Card-only tests: the CUDA kernel against its plain PyTorch version at
-small shapes.  Whether a card is present is decided inside the fixture,
+"""Card-only tests: the CUDA kernels (step2_ctu, dq2_weno5) against their
+plain PyTorch versions at small shapes.  Whether a card is present is decided inside the fixture,
 so every process collects the same tests; without a card they skip.
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q   # with a card
@@ -13,6 +13,7 @@ from pyclaw_tpu_torch import bc
 from pyclaw_tpu_torch.classic import soa
 from pyclaw_tpu_torch.ops import tiled2d
 from pyclaw_tpu_torch.riemann import euler
+from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
 
 PARAMS = {"gamma": 1.4}
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -25,14 +26,18 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _qbc(seed, nx, ny, dtype, dev):
+def _qbc(seed, nx, ny, dtype, dev, num_ghost=2, pockets=0.0):
     rng = np.random.default_rng(seed)
     rho = 0.5 + rng.random((nx, ny))
     u, v = rng.standard_normal((nx, ny)), rng.standard_normal((nx, ny))
     p = 0.5 + rng.random((nx, ny))
+    if pockets:
+        pocket = rng.random((nx, ny)) < pockets
+        rho = np.where(pocket, 0.05, rho)
+        p = np.where(pocket, 0.05, p)
     q = np.stack([rho, rho * u, rho * v, p / 0.4 + 0.5 * rho * (u * u + v * v)])
     q = torch.as_tensor(q, dtype=dtype, device=dev)
-    return bc.extend(q, 2, [bc.BC.extrap] * 2, [bc.BC.wall] * 2)
+    return bc.extend(q, num_ghost, [bc.BC.extrap] * 2, [bc.BC.wall] * 2)
 
 
 @pytest.mark.gpu
@@ -62,3 +67,41 @@ def test_kernel_rejects_noncontiguous(card):
     qbc = _qbc(1, 16, 16, torch.float64, card).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         tiled2d.step2_rows(qbc, 1e-3, 0.1, 0.1, PARAMS, (3,) * 4, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nx,ny,pockets", [
+    (80, 80, 0.0), (100, 37, 0.05), (16, 16, 0.0), (5, 130, 0.05)])
+def test_dq_kernel_matches_plain(card, nx, ny, pockets, dtype):
+    """dq2_weno5 against sharpclaw/soa.py:dq_2d_soa; ``pockets`` gives a
+    state whose WENO edges go non-positive (the positivity fallback)."""
+    qbc = _qbc(nx * ny, nx, ny, dtype, card, num_ghost=3, pockets=pockets)
+    if pockets:
+        assert sc_soa.fallback_count(qbc, PARAMS,
+                                     euler.euler_4wave_2D.positivity) > 0
+    dt = float(np.dtype(str(dtype).split(".")[1]).type(0.5 / max(nx, ny)))
+    before = tiled2d.dq_rows.launches
+    dk, ck = tiled2d.dq_rows(qbc, dt, 1 / nx, 1 / ny, PARAMS)
+    torch.cuda.synchronize()
+    assert tiled2d.dq_rows.launches == before + 1
+    dp, cp = sc_soa.dq_2d_soa(qbc, dt, 1 / nx, 1 / ny,
+                              euler._rpn2_euler_soa, PARAMS, 5, 3,
+                              positivity=euler.euler_4wave_2D.positivity,
+                              flux_soa=euler._flux_euler_2d_soa)
+    assert dk.dtype == dtype and dk.shape == (4, nx, ny)
+    rel = float((dk - dp).abs().max() / dp.abs().max())
+    assert rel <= TOL[dtype]
+    assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+def test_dq_kernel_rejects_what_it_cannot_take(card):
+    qbc = _qbc(1, 16, 16, torch.float64, card, num_ghost=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled2d.dq_rows(qbc.transpose(1, 2), 1e-3, 0.1, 0.1, PARAMS)
+    with pytest.raises(NotImplementedError, match="weno_order"):
+        tiled2d.dq_rows(_qbc(1, 16, 16, torch.float64, card, num_ghost=4),
+                        1e-3, 0.1, 0.1, PARAMS, weno_order=7, num_ghost=4)
+    with pytest.raises(TypeError, match="dtype"):
+        tiled2d.dq_rows(qbc.half(), 1e-3, 0.1, 0.1, PARAMS)

@@ -44,7 +44,10 @@ def test_the_scan_sees_every_module():
     names = [os.path.relpath(f, ROOT) for f in _files()]
     assert "chip_smoke.py" in names
     assert os.path.join("pyclaw_tpu_torch", "ops", "tiled2d.py") in names
-    assert len(names) >= 20
+    for new in (("sharpclaw", "soa.py"), ("sharpclaw", "solver.py"),
+                ("sharpclaw", "__init__.py"), ("limiters", "recon.py")):
+        assert os.path.join("pyclaw_tpu_torch", *new) in names
+    assert len(names) >= 24
 
 
 @pytest.mark.parametrize("path", _files(),

@@ -1,0 +1,112 @@
+"""The CUDA kernel ``csrc/dq2_weno5.cu``, compiled for the host, against
+its plain PyTorch version ``sharpclaw/soa.py:dq_2d_soa``.
+
+Without ``__CUDACC__`` the source runs its phases block by block on the
+CPU, which checks the kernel's index algebra, 16x16 tiling, ragged-edge
+masks, positivity fallback and CFL windows (ghost band included) without
+a card.  Tolerances as tests/test_torch_step2.py: 1e-12 (float64) and
+1e-5 (float32) relative to max|dq|, and the CFL to the same relative
+tolerance.
+"""
+
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from pyclaw_tpu_torch.riemann import euler as te
+from pyclaw_tpu_torch.sharpclaw import soa as tsoa
+from test_torch_sharpclaw import euler_state, fallback_cells
+
+PARAMS = {"gamma": 1.4}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler for the kernel emulation")
+    from pyclaw_tpu_torch.ops import _build
+    lib = _build.build_host_emulation(
+        "dq2_weno5", str(tmp_path_factory.mktemp("dq2_weno5_host")))
+    for name in ("dq2_weno5_host_f32", "dq2_weno5_host_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                       + [ctypes.c_double] * 4)
+        fn.restype = ctypes.c_int
+    lib.dq2_weno5_blocks.argtypes = [ctypes.c_int] * 2
+    lib.dq2_weno5_blocks.restype = ctypes.c_int
+    return lib
+
+
+def _host_dq(lib, qbc, dt, dx, dy):
+    nxg, nyg = qbc.shape[1:]
+    out = np.empty((4, nxg - 6, nyg - 6), qbc.dtype)
+    cfl_blocks = np.empty(lib.dq2_weno5_blocks(nxg, nyg), qbc.dtype)
+    fn = (lib.dq2_weno5_host_f64 if qbc.dtype == np.float64
+          else lib.dq2_weno5_host_f32)
+    rc = fn(qbc.ctypes.data, out.ctypes.data, cfl_blocks.ctypes.data, nxg,
+            nyg, dt, dx, dy, 0.4)
+    assert rc == 0
+    return out, cfl_blocks.max()
+
+
+def _plain_dq(qbc, dt, dx, dy):
+    d, c = tsoa.dq_2d_soa(torch.from_numpy(qbc), dt, dx, dy,
+                          te._rpn2_euler_soa, PARAMS, 5, 3,
+                          positivity=te.euler_4wave_2D.positivity,
+                          flux_soa=te._flux_euler_2d_soa)
+    return d.numpy(), float(c)
+
+
+def _check(lib, qbc, tol):
+    nx, ny = qbc.shape[1] - 6, qbc.shape[2] - 6
+    dt = float(qbc.dtype.type(0.3 / max(nx, ny)))
+    out, cfl = _host_dq(lib, qbc, dt, 1.0 / nx, 1.0 / ny)
+    d_p, c_p = _plain_dq(qbc, dt, 1.0 / nx, 1.0 / ny)
+    assert np.abs(out - d_p).max() / np.abs(d_p).max() <= tol
+    assert abs(cfl - c_p) <= tol * c_p
+    return c_p
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny,fallback", [
+    (40, 36, False), (16, 16, False), (5, 9, False), (33, 17, True),
+    (17, 50, True)])
+def test_kernel_source_on_host_matches_plain(host_kernel, nx, ny, fallback,
+                                             dtype, tol):
+    """Grids of several tiles, partial tiles, exactly one tile and a
+    single partial tile; random states, and states whose WENO edges go
+    non-positive so that the fallback runs."""
+    qbc = np.ascontiguousarray(
+        euler_state(nx * ny, (nx + 6, ny + 6), fallback).astype(dtype))
+    if fallback:
+        assert fallback_cells(torch.from_numpy(qbc)) > 0
+    _check(host_kernel, qbc, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("where", ["x-lo", "x-hi", "y-lo", "y-hi"])
+def test_kernel_cfl_covers_the_ghost_band(host_kernel, where, dtype, tol):
+    """A fast state only in one ghost band sets the CFL; the blocks at the
+    grid's ends must solve those interfaces (grid 37 x 21: two tiles per
+    axis, the last partial)."""
+    nx, ny = 37, 21
+    qbc = euler_state(9, (nx + 6, ny + 6))
+    i, j = {"x-lo": (20, 1), "x-hi": (20, ny + 4),
+            "y-lo": (1, 10), "y-hi": (nx + 4, 10)}[where]
+    normal = 1 if where.startswith("x") else 2      # momentum along the band
+    qbc[normal, i, j] = 40.0 * qbc[0, i, j]
+    qbc[3, i, j] += 0.5 * qbc[normal, i, j] ** 2 / qbc[0, i, j]
+    qbc = np.ascontiguousarray(qbc.astype(dtype))
+    # the state elsewhere gives a CFL below 1; the Roe averages with the
+    # neighbours still carry about half of the cell's speed 40
+    assert _check(host_kernel, qbc, tol) > 2.0
