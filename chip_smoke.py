@@ -15,20 +15,31 @@ Phases (each asserts; any failure exits non-zero):
      quadrants state, a seeded random admissible state and a seeded state
      whose WENO edges go non-positive (the positivity fallback), same
      grids and dtypes;
+  3c. step3_ctu against its plain PyTorch version (one step each), over
+     the euler_3d initial state and a seeded random admissible state with
+     velocities in all three directions: the main configuration
+     (transverse_waves 2, order 2, MC) at 192^3, and transverse_waves
+     0/1/2 x order 1/2 x limiters {4, 3, 10} at 16^3, 33x17x9 and 5x40x7,
+     float32 and float64;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
   4b. the SharpClaw path: the same setup with solver_type="sharpclaw"
      (WENO5, SSP104) through Controller.run() to tfinal=0.8, with
      dq2_weno5's launch count read around it (10 per attempted step);
+  4c. the 3D path: examples.euler_3d.setup(mx=my=mz=192, float32)
+     through Controller.run() to tfinal=0.2, with step3_ctu's launch count
+     read around it (1 per attempted step);
   5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
      card, float32 and float64;
+  5c. the 16^3 euler_3d golden on the card, float32 and float64;
   5b. SharpClaw quadrants at 80^2 on the card against the same run on the
      CPU (the plain path the CPU tests tie to the JAX package): float64 at
      t=0.2 and t=0.8, float32 at t=0.8;
-  6. timing at 1024^2 (CUDA events): each kernel, its plain version, its
-     bound; then each main path to t=0.1 under torch.profiler (device
-     busy share, device time by kernel, host time by operation);
+  6. timing at 1024^2 (CUDA events): each 2D kernel, its plain version,
+     its bound, and step3_ctu the same at 192^3; then each 2D path to
+     t=0.1 and the 3D path to t=0.02 under torch.profiler (device busy
+     share, device time by kernel, host time by operation);
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -70,6 +81,23 @@ FLOPS_PER_CELL = 2 * 619 + 88
 # 172 / 170; two fluxes and their difference 32 / 30; the direction's
 # part of dq 12 -> 672 / 624; the sum of the two parts 4.
 FLOPS_PER_CELL_DQ = {"float32": 2 * 672 + 4, "float64": 2 * 624 + 4}
+
+# Operations per cell of one 3D CTU step (order 2, transverse_waves 2,
+# MC), counted from csrc/step3_ctu.cu and csrc/euler3d.cuh in the same
+# way, each interface quantity counted once (the halo interfaces, the
+# neighbour waves the limiter rebuilds and the sound speed each split
+# recomputes are overhead, not work).  Per sweep direction, per interface:
+# the Roe average 54, sqrt and wave strengths 35 (89); the waves 28; the
+# limiter (one 5-wave dot product with the neighbour 45, norms 45, theta
+# and MC phi 45) 135; amdq/apdq 140 and the correction flux 75; the
+# fluctuations to split 10; the eigensystem (a second Roe average in the
+# fixed order 54, its sound speed and kinetic energy 7) 61; CFL 15; cq
+# into the flux 5; the cell's fluctuation term 15 -> 573.  Per (sweep,
+# transverse) pair: 2 rpt3 + 4 rptt3 splits of 141 each (strengths 25,
+# waves and speeds 26, the up/down sums 90), the rptt3 scaling 40, the
+# gathers into the E-flux 40 and into the F-flux 100 -> 1026; two pairs
+# per direction.  The update 50 per cell.
+FLOPS_PER_CELL_3D = 3 * (573 + 2 * 1026) + 50
 
 TOL_REL = {"float32": 1e-5, "float64": 1e-12}        # one step, vs plain
 # A state with positivity fallbacks is ill-conditioned: edge densities
@@ -262,6 +290,112 @@ def compare_dq(dev, grids, seed=1):
     return worst, main_abs_err, ncase
 
 
+def random_state3(rng, nx, ny, nz, gamma=1.4):
+    """A seeded admissible 3D Euler state with velocities in all three
+    directions."""
+    n = (nx, ny, nz)
+    rho = 0.5 + rng.random(n)
+    u, v, w = (0.5 * rng.standard_normal(n) for _ in range(3))
+    p = 0.5 + rng.random(n)
+    return np.stack([rho, rho * u, rho * v, rho * w,
+                     p / (gamma - 1.0) + 0.5 * rho * (u * u + v * v + w * w)])
+
+
+def euler3d_state(nx, ny, nz):
+    from pyclaw_tpu_torch.examples import euler_3d as ex
+    return ex.setup(mx=nx, my=ny, mz=nz, outdir=None,
+                    device="cpu").solution.q
+
+
+def padded3(q_np, dtype, dev):
+    import torch
+    from pyclaw_tpu_torch import bc
+    q = torch.as_tensor(q_np, dtype=dtype, device=dev)
+    return bc.extend(q, 2, [bc.BC.extrap] * 3, [bc.BC.extrap] * 3)
+
+
+def plain_step3(qbc, dt, deltas, lims, order, tw):
+    from pyclaw_tpu_torch.classic import kernels
+    from pyclaw_tpu_torch.riemann import euler
+    rp = euler.euler_3D
+    return kernels.step3(qbc, None, dt, *deltas, rp.rp, rp.rpt, rp.rptt,
+                         {"gamma": 1.4}, lims, order, False, -1, 2, tw,
+                         rp.prefactor)
+
+
+def compare_step3(dev, n_main=192, seed=2):
+    """step3_ctu vs its plain version, one step each, on the card: the
+    main configuration at n_main^3, the option matrix at small grids."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    matrix = [(tw, order, lim) for tw in (0, 1, 2) for order in (1, 2)
+              for lim in (4, 3, 10)]
+    for shape, cases in (((n_main,) * 3, [(2, 2, 4)]),
+                         ((16, 16, 16), matrix), ((33, 17, 9), matrix),
+                         ((5, 40, 7), matrix)):
+        inputs = {"euler_3d": euler3d_state(*shape),
+                  "random": random_state3(rng, *shape)}
+        deltas = tuple(2.0 / n for n in shape)
+        for iname, q_np in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc = padded3(q_np, dtype, dev)
+                dt = float(np.dtype(tname).type(0.3 * min(deltas)))
+                for tw, order, lim in cases:
+                    ml = (lim,) * 5
+                    qk, ck = tiled2d.step3_xy(qbc, dt, *deltas, {"gamma": 1.4},
+                                              ml, order, 2, tw)
+                    qp, cp = plain_step3(qbc, dt, deltas, ml, order, tw)
+                    torch.cuda.synchronize()
+                    abs_err = float((qk - qp).abs().max())
+                    rel = abs_err / float(qp.abs().max())
+                    dcfl = abs(float(ck) - float(cp))
+                    if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                            and dcfl <= TOL_REL[tname] * float(cp)
+                            and tuple(qk.shape) == (5,) + shape):
+                        fail(f"step3_ctu vs plain {shape} {iname} {tname} "
+                             f"order={order} tw={tw} lim={lim}: rel err "
+                             f"{rel:.3e}, cfl {float(ck)!r} vs {float(cp)!r}")
+                    worst[tname] = max(worst[tname], rel)
+                    worst_cfl[tname] = max(worst_cfl[tname],
+                                           dcfl / float(cp))
+                    if (shape[0], iname, tname) == (n_main, "euler_3d",
+                                                    "float32"):
+                        main_abs_err = abs_err
+                    if shape[0] == n_main:
+                        print(f"  step3 {shape} {iname:8s} {tname}: rel err "
+                              f"{rel:.3e}, cfl rel {dcfl / float(cp):.3e}",
+                              flush=True)
+                    ncase += 1
+                    del qk, qp
+                del qbc
+                torch.cuda.empty_cache()
+        print(f"  compare step3 {shape}: max rel err f32 "
+              f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; max cfl "
+              f"rel f32 {worst_cfl['float32']:.3e} f64 "
+              f"{worst_cfl['float64']:.3e}", flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def run_euler3d(dev, n, dtype, tfinal=0.2):
+    """examples.euler_3d through Controller.run(); returns (claw, status,
+    wall seconds)."""
+    import torch
+    from pyclaw_tpu_torch.examples import euler_3d as ex
+    claw = ex.setup(mx=n, my=n, mz=n, dtype=dtype, outdir=None, device=dev)
+    claw.tfinal = tfinal
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
 def run_quadrants(dev, n, dtype, tfinal=0.8, solver_type="classic",
                   keep_copy=False, perturb_seed=None):
     """examples.euler_2d_quadrants through Controller.run(); returns
@@ -392,8 +526,51 @@ def timing_dq(dev, n=1024):
     return out
 
 
+def timing_step3(dev, n=192):
+    """step3_ctu, its plain version and its bound at n^3 on the euler_3d
+    initial state (the main path's first input)."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    q_np = euler3d_state(n, n, n)
+    deltas = (2.0 / n,) * 3
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc = padded3(q_np, dtype, dev)
+        dt = float(np.dtype(tname).type(0.3 * deltas[0]))
+
+        def kern():
+            return tiled2d.step3_xy(qbc, dt, *deltas, {"gamma": 1.4},
+                                    (4,) * 5, 2, 2, 2)
+
+        def plain():
+            return plain_step3(qbc, dt, deltas, (4,) * 5, 2, 2)
+
+        ms = time_ms(kern, 20, warm=2)
+        plain_ms = time_ms(plain, 3, warm=1)
+        ms_again = time_ms(kern, 20, warm=2)
+        item = qbc.element_size()
+        nbytes = qbc.numel() * item + 5 * n ** 3 * item
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops = FLOPS_PER_CELL_3D * n ** 3
+        ops_ms = flops / PEAK_FLOPS[tname] * 1e3
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
+                      "bytes": nbytes, "flops": flops,
+                      "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms > ops_ms
+                      else "operations"}
+        print(f"  timing step3 {n}^3 {tname}: kernel {ms:.4f} ms (repeat "
+              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}), library_ms null", flush=True)
+        del qbc
+        torch.cuda.empty_cache()
+    return out
+
+
 # device kernels grouped by what launched them (by kernel name)
-DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5")),
+DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5", "step3_ctu")),
                  ("bc_extension", ("CatArrayBatchedCopy", "copy_kernel")),
                  ("cfl_reduction", ("reduce_kernel", "maximum")),
                  ("memcpy", ("Memcpy", "Memset")))
@@ -406,16 +583,16 @@ def device_group(key):
     return "elementwise"     # stage combines and other arithmetic
 
 
-def profile_main_path(dev, n=1024, tfinal=0.1, solver_type="classic"):
-    """A main path (Controller.run, quadrants n^2 float32) to `tfinal`,
-    once on the host clock alone and once under torch.profiler: the
-    device busy share of a step, device time by kernel and by group, and
-    host time by operation (the latter inflated by the profiler)."""
+def profile_main_path(label, run_path):
+    """A main path, driven by ``run_path()`` (a Controller.run through
+    run_quadrants or run_euler3d, returning (claw, status, wall)), once on
+    the host clock alone and once under torch.profiler: the device busy
+    share of a step, device time by kernel and by group, and host time by
+    operation (the latter inflated by the profiler)."""
     import torch
 
     def run():
-        _, status, wall = run_quadrants(dev, n, np.float32, tfinal,
-                                        solver_type)
+        _, status, wall = run_path()
         return status["numsteps"] + status["numrejected"], wall
 
     steps, wall = run()                    # without the profiler
@@ -448,7 +625,7 @@ def profile_main_path(dev, n=1024, tfinal=0.1, solver_type="classic"):
     for self_dev, key, _ in dev_rows:
         g = device_group(key)
         groups[g] = groups.get(g, 0.0) + self_dev / steps
-    print(f"  profile {solver_type} main path {n}^2 f32 to t={tfinal}: "
+    print(f"  profile {label}: "
           f"{steps} steps, {step_ms:.4f} ms/step wall "
           f"({wall_prof / steps * 1e3:.4f} under the profiler), device "
           f"kernels {device_us:.2f} us/step, device busy share "
@@ -557,14 +734,19 @@ def main():
     # [2] build every kernel of the paths from the checkout's sources, one
     # nvcc per source, all started together
     t0 = time.perf_counter()
-    lib, dq_lib = _build.load_all(["step2_ctu", "dq2_weno5"])
-    print(f"[2] built csrc/step2_ctu.cu and csrc/dq2_weno5.cu for sm_90a in "
+    lib, dq_lib, lib3 = _build.load_all(["step2_ctu", "dq2_weno5",
+                                         "step3_ctu"])
+    print(f"[2] built csrc/step2_ctu.cu, csrc/dq2_weno5.cu and "
+          f"csrc/step3_ctu.cu for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s; shared memory per block: "
           f"step2_ctu f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
           f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
           f"{dq_lib.dq2_weno5_smem_bytes(0)} B, f64 "
-          f"{dq_lib.dq2_weno5_smem_bytes(1)} B", flush=True)
-    for name in ("step2_ctu", "dq2_weno5"):
+          f"{dq_lib.dq2_weno5_smem_bytes(1)} B; step3_ctu f32 "
+          f"{lib3.step3_ctu_smem_bytes(0)} B, f64 "
+          f"{lib3.step3_ctu_smem_bytes(1)} B", flush=True)
+    phase_s = {"build": time.perf_counter() - t0}
+    for name in ("step2_ctu", "dq2_weno5", "step3_ctu"):
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill", "smem")):
@@ -578,6 +760,7 @@ def main():
           f"{worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
           f"{worst['float64']:.3e} (tol {TOL_REL['float64']}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3"] = time.perf_counter() - t0
 
     # [3b] dq2_weno5 against its plain version
     t0 = time.perf_counter()
@@ -586,6 +769,18 @@ def main():
           f"{dq_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
           f"{dq_worst['float64']:.3e} (tol {TOL_REL['float64']}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3b"] = time.perf_counter() - t0
+
+    # [3c] step3_ctu against its plain version
+    t0 = time.perf_counter()
+    s3_worst, s3_worst_cfl, s3_main_abs_err, s3_ncase = compare_step3(dev)
+    print(f"[3c] step3_ctu vs plain: {s3_ncase} cases, max rel err f32 "
+          f"{s3_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{s3_worst['float64']:.3e} (tol {TOL_REL['float64']}); max cfl "
+          f"rel f32 {s3_worst_cfl['float32']:.3e}, f64 "
+          f"{s3_worst_cfl['float64']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3c"] = time.perf_counter() - t0
 
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
@@ -600,6 +795,7 @@ def main():
             fail(f"{label}: ended at t={claw.solution.t}")
 
     # [4] the classic main path, with the launch count read around it
+    t0 = time.perf_counter()
     tiled2d.step2_rows.launches = 0
     claw, status, wall = run_quadrants(dev, 1024, np.float32)
     launches = tiled2d.step2_rows.launches
@@ -626,6 +822,35 @@ def main():
         fail(f"dq launches {dq_launches} != 10 x (accepted {sns} + "
              f"rejected {snr})")
     check_run("sharpclaw path", sclaw, sns, snr)
+    phase_s["4+4b"] = time.perf_counter() - t0
+
+    # [4c] the 3D path (ClawSolver3D, Euler, 192^3 f32), launches read
+    # around it
+    t0 = time.perf_counter()
+    n3 = 192
+    tiled2d.step3_xy.launches = 0
+    claw3, status3, wall3 = run_euler3d(dev, n3, np.float32)
+    s3_launches = tiled2d.step3_xy.launches
+    ns3, nr3 = status3["numsteps"], status3["numrejected"]
+    print(f"[4c] euler_3d path {n3}^3 f32 to t={claw3.solution.t}: {ns3} "
+          f"accepted + {nr3} rejected steps, {s3_launches} step3_ctu "
+          f"launches, {wall3:.3f} s wall, {ns3 * n3 ** 3 / wall3:.4e} "
+          f"cell-updates/s", flush=True)
+    if s3_launches == 0 or s3_launches != ns3 + nr3:
+        fail(f"step3 launches {s3_launches} != accepted {ns3} + rejected "
+             f"{nr3}")
+    q3 = claw3.solution.q
+    if nr3 < 1:
+        fail("euler_3d path: the first step at dt_initial=0.1 should be "
+             "rejected")
+    if q3.shape != (5, n3, n3, n3) or not np.all(np.isfinite(q3)):
+        fail(f"euler_3d path: result is not finite (5, {n3}, {n3}, {n3})")
+    if not claw3.solution.state.is_valid():
+        fail("euler_3d path: state.is_valid() is False")
+    if abs(claw3.solution.t - 0.2) > 1e-12:
+        fail(f"euler_3d path: ended at t={claw3.solution.t}")
+    del claw3, q3
+    phase_s["4c"] = time.perf_counter() - t0
 
     # [5] goldens on the card
     golden = {}
@@ -647,14 +872,41 @@ def main():
             if abs(c.solution.t - float(ref["t"])) > 1e-10:
                 fail(f"golden {name} {tname}: t={c.solution.t}")
 
+    # [5c] the 16^3 euler_3d golden on the card
+    ref = np.load(os.path.join(ROOT, "tests", "golden", "euler_3d.npz"))
+    for tname, dtype in (("float32", np.float32), ("float64", np.float64)):
+        c, st, w = run_euler3d(dev, 16, dtype)
+        rel = float(np.max(np.abs(c.solution.q.astype(np.float64) - ref["q"]))
+                    / np.max(np.abs(ref["q"])))
+        golden[f"euler_3d:{tname}"] = rel
+        print(f"[5c] golden euler_3d {tname}: rel err {rel:.3e} (tol "
+              f"{GOLDEN_TOL[tname]}), {st['numsteps']} + "
+              f"{st['numrejected']} steps, {w:.3f} s", flush=True)
+        if not rel <= GOLDEN_TOL[tname]:
+            fail(f"golden euler_3d {tname}: {rel} > {GOLDEN_TOL[tname]}")
+        if abs(c.solution.t - float(ref["t"])) > 1e-10:
+            fail(f"golden euler_3d {tname}: t={c.solution.t}")
+
     # [5b] SharpClaw on the card against the same run on the CPU
+    t0 = time.perf_counter()
     sharp_vs_cpu = sharp_card_vs_cpu(dev)
+    phase_s["5b"] = time.perf_counter() - t0
 
     # [6] timing and a profile window of each path
+    t0 = time.perf_counter()
     tm = timing(dev)
     tm_dq = timing_dq(dev)
-    prof = profile_main_path(dev)
-    sprof = profile_main_path(dev, solver_type="sharpclaw")
+    tm3 = timing_step3(dev)
+    prof = profile_main_path(
+        "classic main path 1024^2 f32 to t=0.1",
+        lambda: run_quadrants(dev, 1024, np.float32, 0.1))
+    sprof = profile_main_path(
+        "sharpclaw main path 1024^2 f32 to t=0.1",
+        lambda: run_quadrants(dev, 1024, np.float32, 0.1, "sharpclaw"))
+    prof3 = profile_main_path(
+        "euler_3d main path 192^3 f32 to t=0.02",
+        lambda: run_euler3d(dev, 192, np.float32, 0.02))
+    phase_s["6"] = time.perf_counter() - t0
 
     f32, f64 = tm["float32"], tm["float64"]
     record = {
@@ -688,7 +940,23 @@ def main():
         "max_rel_err_f64": dq_worst["float64"],
         "max_rel_err_f32": dq_worst["float32"],
     }
-    kernels = [record, dq_record]
+    t32, t64 = tm3["float32"], tm3["float64"]
+    s3_record = {
+        "name": "step3_ctu", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step3_ctu.cu",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:431",
+        "replaces_function": "step3_pallas_xy",
+        "launches": s3_launches, "max_abs_err": s3_main_abs_err,
+        "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+        "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+        "library_ms": None,
+        "shape": [5, 196, 196, 196], "dtype": "float32",
+        "ms_f64": t64["ms"], "plain_ms_f64": t64["plain_ms"],
+        "bound_ms_f64": t64["bound_ms"], "bound_by_f64": t64["bound_by"],
+        "max_rel_err_f64": s3_worst["float64"],
+        "max_rel_err_f32": s3_worst["float32"],
+    }
+    kernels = [record, dq_record, s3_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s": wall,
                              "cell_updates_per_s": ns * 1024 * 1024 / wall},
@@ -697,10 +965,15 @@ def main():
                                   "wall_s": swall,
                                   "cell_updates_per_s":
                                       sns * 1024 * 1024 / swall},
+               "euler3d_path": {"accepted": ns3, "rejected": nr3,
+                                "step3_launches": s3_launches,
+                                "wall_s": wall3,
+                                "cell_updates_per_s": ns3 * n3 ** 3 / wall3},
                "golden_rel_err": golden, "sharpclaw_card_vs_cpu":
                    sharp_vs_cpu,
-               "timing": tm, "timing_dq": tm_dq, "profile": prof,
-               "profile_sharpclaw": sprof,
+               "timing": tm, "timing_dq": tm_dq, "timing_step3": tm3,
+               "profile": prof, "profile_sharpclaw": sprof,
+               "profile_euler3d": prof3, "phase_seconds": phase_s,
                "card": card, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

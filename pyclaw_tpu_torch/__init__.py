@@ -20,6 +20,7 @@ passes ``device="cpu"``.
 
 The port carries the 2D classic CTU path and the 2D SharpClaw WENO5
 path (``SharpClawSolver2D``; SSP104, SSP33, Euler) of the Euler 4-wave
+system, and the 3D classic CTU path (``ClawSolver3D``) of the 3D Euler
 system; ROADMAP.md lists what comes next.
 """
 
@@ -31,7 +32,7 @@ from .geometry import Dimension, Domain, Grid, Patch  # noqa: F401,E402
 from .solution import Solution  # noqa: F401,E402
 from .solver import BC, Solver  # noqa: F401,E402
 from .state import State  # noqa: F401,E402
-from .classic import ClawSolver2D  # noqa: F401,E402
+from .classic import ClawSolver2D, ClawSolver3D  # noqa: F401,E402
 from .sharpclaw import SharpClawSolver2D  # noqa: F401,E402
 from . import limiters, riemann  # noqa: F401,E402
 

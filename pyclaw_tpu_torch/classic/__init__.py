@@ -1,4 +1,4 @@
-"""Classic Clawpack solvers (counterpart of ``pyclaw_tpu/classic``).
-This slice ports the 2D unsplit CTU solver."""
+"""Classic Clawpack solvers (counterpart of ``pyclaw_tpu/classic``):
+the 2D and 3D unsplit CTU solvers."""
 
-from .solver import ClawSolver, ClawSolver2D  # noqa: F401
+from .solver import ClawSolver, ClawSolver2D, ClawSolver3D  # noqa: F401

@@ -1,11 +1,12 @@
-"""Classic Clawpack solver, 2D unsplit CTU path.
+"""Classic Clawpack solvers, the 2D and 3D unsplit CTU paths.
 
 Counterpart of ``pyclaw_tpu/classic/solver.py`` (``ClawSolver :30-107``,
-``ClawSolver2D :134-168``, ``_soa_eligible :387-398``), a rebuild of
-reference ``src/pyclaw/classic/solver.py``.  ``setup`` builds one step
-function ``_step_fn(q, aux, dt, t) -> (q_new, cfl)``: BC extension, then
-``ops.tiled2d.step2_rows``, which launches the CUDA kernel on a CUDA
-tensor and runs the plain PyTorch version on a CPU tensor.
+``ClawSolver2D :134-168``, ``_soa_eligible :387-398``, ``ClawSolver3D
+:401-528``), a rebuild of reference ``src/pyclaw/classic/solver.py``.
+``setup`` builds one step function ``_step_fn(q, aux, dt, t) -> (q_new,
+cfl)``: BC extension, then ``ops.tiled2d.step2_rows`` (2D) or
+``ops.tiled2d.step3_xy`` (3D), which launch the CUDA kernel on a CUDA
+tensor and run the plain PyTorch version on a CPU tensor.
 
 Options of the JAX package that this slice does not port raise
 ``NotImplementedError`` at setup, naming their ROADMAP.md item.
@@ -106,3 +107,52 @@ class ClawSolver2D(ClawSolver):
                 and not self.fwave
                 and (self.transverse_waves == 0
                      or self.rp.rpt_soa is not None))
+
+
+class ClawSolver3D(ClawSolver):
+    """3D unsplit classic solver (step3.f90/flux3.f90 path): the full
+    Langseth-LeVeque corner transport, single-transverse (rpt3) terms plus
+    double-transverse (rptt3) corner-of-corner terms.  ``transverse_waves``
+    as in 2D; without an rptt hook the unsplit step with
+    ``transverse_waves >= 2`` is refused, as in the JAX package."""
+    num_dim = 3
+
+    def __init__(self, riemann_solver=None, device=None):
+        super().__init__(riemann_solver, device=device)
+        self.dimensional_split = False
+        self.transverse_waves = 2
+        self.cfl_max = 1.0
+        self.cfl_desired = 0.9
+
+    def setup(self, solution):
+        if (not self.dimensional_split and self.transverse_waves >= 2
+                and self.rp is not None and self.rp.rptt is None):
+            raise ValueError(
+                f"Riemann solver {self.rp.name} has no rptt (double-"
+                "transverse) hook: 3D unsplit CTU would be unstable. "
+                "Set solver.dimensional_split = True or "
+                "transverse_waves < 2 with a reduced CFL.")
+        super().setup(solution)
+
+    def _make_hyperbolic_step(self, state):
+        if self.dimensional_split:
+            raise _not_ported("dimensional_split")
+        if self.rp.name != "euler_3D":
+            raise NotImplementedError(
+                f"the 3D step of {self.rp.name} is not ported to "
+                "pyclaw_tpu_torch yet (ROADMAP.md, Queue 1 items 10-11)")
+        if self.num_ghost != 2:
+            raise ValueError("the 3D CTU step needs num_ghost=2")
+        params = self._weak_params(state.problem_data)
+        mthlim = self._mthlim()
+        order = self.order
+        tw = self.transverse_waves
+        g = self.num_ghost
+        dx, dy, dz = state.patch.delta
+        tiled2d.check_options(mthlim, order, tw, 5, "step3_xy")
+
+        def step_fn(q, aux, dt, t):
+            qbc = self._extend_bc(q, t, state)
+            return tiled2d.step3_xy(qbc, dt, dx, dy, dz, params, mthlim,
+                                    order, g, tw)
+        return step_fn

@@ -435,14 +435,11 @@ __global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<T> A) {
 template <typename T>
 int launch(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
            double dt, double dx, double dy, double g1, void* stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dq2_weno5_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Layout<T>::bytes);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  // The limit applies to the current device only: set it on every launch.
+  cudaError_t err = cudaFuncSetAttribute(
+      dq2_weno5_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Layout<T>::bytes);
+  if (err != cudaSuccess) return (int)err;
   int nbx, nby;
   grid_of(nxg, nyg, nbx, nby);
   Args<T> A = make_args<T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);

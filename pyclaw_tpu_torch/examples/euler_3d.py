@@ -1,0 +1,59 @@
+"""3D Euler smooth energy deposition (reference examples/euler_3d/Sedov.py)
+— the port's copy of the JAX package's ``examples/euler_3d.py``, with the
+same initial condition and ``setup()`` keywords plus ``device``, on the
+unsplit classic CTU solver (MC limiter, extrapolation BCs, gamma = 1.4,
+to t = 0.2).  The device picks the kernel, so there is no
+``kernel_language``.
+
+    python -m pyclaw_tpu_torch.examples.euler_3d
+"""
+
+import numpy as np
+
+import pyclaw_tpu_torch as pyclaw
+from pyclaw_tpu_torch import riemann
+from pyclaw_tpu_torch.solver import _not_ported
+
+
+def setup(mx=32, my=32, mz=32, solver_type="classic", use_parallel=False,
+          outdir="./_output", dtype=None, device=None):
+    if solver_type != "classic":
+        raise _not_ported("generic SharpClaw dq")
+    if use_parallel:
+        raise NotImplementedError(
+            "use_parallel is not ported to pyclaw_tpu_torch yet (ROADMAP.md, "
+            "Queue 1 item 13)")
+    solver = pyclaw.ClawSolver3D(riemann.euler_3D, device=device)
+    solver.limiters = [pyclaw.limiters.tvd.MC]
+    solver.all_bcs = pyclaw.BC.extrap
+
+    domain = pyclaw.Domain([-1.0, -1.0, -1.0], [1.0, 1.0, 1.0],
+                           [mx, my, mz])
+    state = pyclaw.State(domain, solver.rp.num_eqn, dtype=dtype)
+    gamma = 1.4
+    state.problem_data["gamma"] = gamma
+
+    x, y, z = domain.grid.c_centers
+    r2 = x ** 2 + y ** 2 + z ** 2
+    p = 0.1 + 5.0 * np.exp(-40.0 * r2)      # smooth energy deposition
+    state.q[0] = 1.0
+    state.q[1] = 0.0
+    state.q[2] = 0.0
+    state.q[3] = 0.0
+    state.q[4] = p / (gamma - 1.0)
+
+    claw = pyclaw.Controller()
+    claw.solution = pyclaw.Solution(state, domain)
+    claw.solver = solver
+    claw.tfinal = 0.2
+    claw.num_output_times = 2
+    claw.outdir = outdir
+    if outdir is None:
+        claw.output_format = None
+    return claw
+
+
+if __name__ == "__main__":
+    claw = setup()
+    status = claw.run()
+    print(status)

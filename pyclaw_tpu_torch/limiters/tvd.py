@@ -1,8 +1,9 @@
 """TVD wave limiters, plain PyTorch.
 
 Counterpart of ``pyclaw_tpu/limiters/tvd.py`` (``_phi :65``,
-``_phi_cfl :109``, ``CFL_LIMITER_IDS :143``), itself a rebuild of
-reference ``src/pyclaw/limiters/tvd.py`` and ``classic/limiter.f90``.
+``_phi_cfl :109``, ``CFL_LIMITER_IDS :143``, ``limiter_phi :152``),
+itself a rebuild of reference ``src/pyclaw/limiters/tvd.py`` and
+``classic/limiter.f90``.
 The limiter ratio for wave p at interface I is the upwind-side projection
 
     theta = <W_upwind, W_I> / <W_I, W_I>,   upwind = I-1 if s>0 else I+1
@@ -21,13 +22,15 @@ CFL-dependent ids (nu = |s| dt/dx at the interface):
     17 hyperbee             18 superpower
 
 Every formula repeats the JAX package's operation order, so the two agree
-to the last bit or two (tests/test_torch_limiters.py).  The CUDA kernel
-(``csrc/step2_ctu.cu: phi_limiter``) repeats them once more.
+to the last bit or two (tests/test_torch_limiters.py).  The CUDA kernels
+repeat them once more (``csrc/tvd.cuh: phi_limiter``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .._slicing import slc
 
 minmod = 1
 superbee = 2
@@ -134,3 +137,44 @@ def limiter_phi_one(limiter_id, theta, nu):
     if int(limiter_id) in CFL_LIMITER_IDS:
         return _phi_cfl(int(limiter_id), theta, nu)
     return _phi(int(limiter_id), theta)
+
+
+
+def limiter_phi(num_eqn, wave, s, limiter_ids, dtdx=None, axis=-1):
+    """Per-wave limiter factors phi (num_waves, *n) of the AoS wave
+    tensor ``wave`` (num_eqn, num_waves, *n) with speeds ``s``
+    (num_waves, *n) (counterpart of the JAX package's ``limiter_phi
+    :152``).  ``axis`` is the interface axis as a NEGATIVE index, so it
+    names the same spatial axis in ``wave``, ``s`` and phi.  The upwind
+    dot product is <W_{k-1}, W_k> where s > 0, else <W_k, W_{k+1}>; the
+    end interfaces get theta = 0, and phi = 1 where the wave vanishes.
+    CFL-dependent ids take nu = |s| dtdx."""
+    if axis >= 0:
+        raise ValueError("limiter_phi axis must be negative")
+    num_waves = wave.shape[1]
+    n_ifc = wave.shape[axis]
+    wnorm2 = torch.sum(wave * wave, dim=0)
+    d = torch.sum(slc(wave, axis, slice(0, n_ifc - 1))
+                  * slc(wave, axis, slice(1, n_ifc)), dim=0)
+    zcol = torch.zeros_like(slc(d, axis, slice(0, 1)))
+    dot_right = torch.cat([d, zcol], dim=axis)
+    dot_left = torch.cat([zcol, d], dim=axis)
+    dotu = torch.where(s > 0.0, dot_left, dot_right)
+    safe = wnorm2 > 0.0
+    theta = torch.where(safe, dotu / torch.where(safe, wnorm2, 1.0), 0.0)
+
+    phis = []
+    for p in range(num_waves):
+        lid = limiter_ids[p] if p < len(limiter_ids) else limiter_ids[-1]
+        if lid == 0:
+            phis.append(torch.ones_like(theta[p]))
+            continue
+        if int(lid) in CFL_LIMITER_IDS:
+            if dtdx is None:
+                raise ValueError(f"limiter id {lid} is CFL-dependent and "
+                                 "needs dtdx")
+            phi = _phi_cfl(int(lid), theta[p], torch.abs(s[p]) * dtdx)
+        else:
+            phi = _phi(int(lid), theta[p])
+        phis.append(torch.where(safe[p], phi, 1.0))
+    return torch.stack(phis, dim=0)

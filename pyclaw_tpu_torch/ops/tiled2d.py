@@ -1,13 +1,18 @@
-"""Wrappers of the 2D kernels of the Euler 4-wave system.
+"""Wrappers of the kernels of the Euler systems (the counterpart of
+``pyclaw_tpu/ops/tiled2d.py``, whose 2D and 3D kernels live there too).
 
-* :func:`step2_rows`, counterpart of ``pyclaw_tpu/ops/tiled2d.py:
-  step2_pallas_rows`` with its SoA body: one launch of
-  ``csrc/step2_ctu.cu`` computes the whole unsplit CTU step and one CFL
-  maximum per block.  Plain version: ``classic/soa.py:step2_soa``.
+* :func:`step2_rows`, counterpart of ``step2_pallas_rows`` with its SoA
+  body: one launch of ``csrc/step2_ctu.cu`` computes the whole unsplit
+  CTU step and one CFL maximum per block.  Plain version:
+  ``classic/soa.py:step2_soa``.
 * :func:`dq_rows`, counterpart of ``dq_pallas_rows``: one launch of
   ``csrc/dq2_weno5.cu`` computes one SharpClaw WENO5 semidiscrete
   evaluation (one RK stage's dq) and one CFL maximum per block.  Plain
   version: ``sharpclaw/soa.py:dq_2d_soa``.
+* :func:`step3_xy`, counterpart of ``step3_pallas_xy``: one launch of
+  ``csrc/step3_ctu.cu`` computes the whole 3D unsplit CTU step (normal
+  sweeps, rpt3 and rptt3 corner transport) of the Euler system and one
+  CFL maximum per block.  Plain version: ``classic/kernels.py:step3``.
 
 On a CPU tensor each wrapper computes its plain PyTorch version.  On a
 CUDA tensor it launches the kernel or raises; it never falls back to the
@@ -21,7 +26,7 @@ import functools
 
 import torch
 
-from ..classic import soa
+from ..classic import kernels, soa
 from ..limiters.tvd import CFL_LIMITER_IDS
 from ..riemann import euler
 from ..sharpclaw import soa as sc_soa
@@ -59,33 +64,35 @@ def _dq_lib():
     return lib
 
 
-def _check_cuda_qbc(name, qbc, num_ghost):
-    """Raise unless qbc is a contiguous (4, nx+2g, ny+2g) float32/float64
-    CUDA tensor with nx, ny >= 1."""
+def _check_cuda_qbc(name, qbc, num_ghost, num_eqn, num_dim):
+    """Raise unless qbc is a contiguous (num_eqn, n1+2g, ..., n{num_dim}+2g)
+    float32/float64 CUDA tensor with every n >= 1."""
     if qbc.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {qbc.device}")
     if qbc.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {qbc.dtype} not supported")
     g = num_ghost
-    if qbc.dim() != 3 or qbc.shape[0] != 4 or min(qbc.shape[1:]) < 2 * g + 1:
-        raise ValueError(f"{name}: need qbc of shape (4, nx+{2 * g}, "
-                         f"ny+{2 * g}) with nx, ny >= 1, got "
-                         f"{tuple(qbc.shape)}")
+    if (qbc.dim() != 1 + num_dim or qbc.shape[0] != num_eqn
+            or min(qbc.shape[1:]) < 2 * g + 1):
+        axes = ", ".join(f"n{d}+{2 * g}" for d in range(num_dim))
+        raise ValueError(f"{name}: need qbc of shape ({num_eqn}, {axes}) "
+                         f"with every n >= 1, got {tuple(qbc.shape)}")
     if not qbc.is_contiguous():
         raise ValueError(f"{name}: qbc must be contiguous")
 
 
-def check_options(mthlim, order, transverse_waves):
+def check_options(mthlim, order, transverse_waves, num_waves=4,
+                  name="step2_rows"):
     """Raise on options the kernel does not take."""
-    if len(mthlim) != 4 or any(int(m) not in _VALID_LIMITERS
-                               for m in mthlim):
-        raise ValueError(f"step2_rows: need 4 limiter ids in 0..21, got "
-                         f"{mthlim}")
+    if len(mthlim) != num_waves or any(int(m) not in _VALID_LIMITERS
+                                       for m in mthlim):
+        raise ValueError(f"{name}: need {num_waves} limiter ids in 0..21, "
+                         f"got {mthlim}")
     if order not in (1, 2):
-        raise ValueError(f"step2_rows: order must be 1 or 2, got {order}")
+        raise ValueError(f"{name}: order must be 1 or 2, got {order}")
     if transverse_waves not in (0, 1, 2):
-        raise ValueError(f"step2_rows: transverse_waves must be 0, 1 or "
-                         f"2, got {transverse_waves}")
+        raise ValueError(f"{name}: transverse_waves must be 0, 1 or 2, "
+                         f"got {transverse_waves}")
 
 
 def step2_rows(qbc, dt, dx, dy, params, mthlim, order, num_ghost=2,
@@ -103,7 +110,7 @@ def step2_rows(qbc, dt, dx, dy, params, mthlim, order, num_ghost=2,
                              euler._rpt2_euler_soa, params, mthlim, order,
                              num_ghost, transverse_waves,
                              euler._prefactor_euler_2d_soa)
-    _check_cuda_qbc("step2_rows", qbc, num_ghost)
+    _check_cuda_qbc("step2_rows", qbc, num_ghost, 4, 2)
     _, nxg, nyg = qbc.shape
     is_double = qbc.dtype == torch.float64
     lib = _lib()
@@ -148,7 +155,7 @@ def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3):
         raise NotImplementedError(
             f"dq_rows: weno_order={weno_order} has no kernel yet "
             f"(ROADMAP.md, Queue 4: 'weno_order 7-17')")
-    _check_cuda_qbc("dq_rows", qbc, num_ghost)
+    _check_cuda_qbc("dq_rows", qbc, num_ghost, 4, 2)
     _, nxg, nyg = qbc.shape
     is_double = qbc.dtype == torch.float64
     lib = _dq_lib()
@@ -167,3 +174,65 @@ def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3):
 
 
 dq_rows.launches = 0
+
+
+@functools.cache
+def _step3_lib():
+    from . import _build
+    lib = _build.load("step3_ctu")
+    for name in ("step3_ctu_f32", "step3_ctu_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = STEP3_ARGTYPES + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.step3_ctu_blocks.argtypes = [ctypes.c_int] * 4
+    lib.step3_ctu_blocks.restype = ctypes.c_int
+    return lib
+
+
+# qbc, qout, cflb; nxg, nyg, nzg; dt, dx, dy, dz, gamma-1; order, tw and
+# five limiter ids (the host emulation takes these, the card's entries a
+# stream after them)
+STEP3_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                  + [ctypes.c_double] * 5 + [ctypes.c_int] * 7)
+
+
+def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
+             transverse_waves=2):
+    """One 3D CTU step of the Euler system (5 equations, 5 waves), the
+    counterpart of ``pyclaw_tpu/ops/tiled2d.py:step3_pallas_xy``.
+
+    qbc: (5, nx+4, ny+4, nz+4) ghost-padded q (float32 or float64,
+    contiguous).  dt: step in q's dtype (a Python float that is exact in
+    it).  Returns (q (5, nx, ny, nz), cfl as a 0-d tensor).  On a CPU
+    tensor this is ``classic/kernels.py:step3``; on a CUDA tensor one
+    launch of ``csrc/step3_ctu.cu``."""
+    check_options(mthlim, order, transverse_waves, 5, "step3_xy")
+    if num_ghost != 2:
+        raise ValueError(f"step3_xy: num_ghost must be 2, got {num_ghost}")
+    if qbc.device.type == "cpu":
+        rp = euler.euler_3D
+        return kernels.step3(qbc, None, dt, dx, dy, dz, rp.rp, rp.rpt,
+                             rp.rptt, params, mthlim, order, False, -1,
+                             num_ghost, transverse_waves, rp.prefactor)
+    _check_cuda_qbc("step3_xy", qbc, num_ghost, 5, 3)
+    _, nxg, nyg, nzg = qbc.shape
+    is_double = qbc.dtype == torch.float64
+    lib = _step3_lib()
+    q_out = torch.empty((5, nxg - 4, nyg - 4, nzg - 4), dtype=qbc.dtype,
+                        device=qbc.device)
+    cfl_blocks = torch.empty((lib.step3_ctu_blocks(nxg, nyg, nzg,
+                                                   int(is_double)),),
+                             dtype=qbc.dtype, device=qbc.device)
+    fn = lib.step3_ctu_f64 if is_double else lib.step3_ctu_f32
+    rc = fn(qbc.data_ptr(), q_out.data_ptr(), cfl_blocks.data_ptr(), nxg,
+            nyg, nzg, float(dt), float(dx), float(dy), float(dz),
+            float(params["gamma"] - 1.0), int(order), int(transverse_waves),
+            *[int(m) for m in mthlim],
+            torch.cuda.current_stream(qbc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"step3_ctu launch failed: cudaError_t {rc}")
+    step3_xy.launches += 1
+    return q_out, torch.amax(cfl_blocks)
+
+
+step3_xy.launches = 0

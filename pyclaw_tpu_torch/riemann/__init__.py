@@ -3,9 +3,19 @@
 Counterpart of ``pyclaw_tpu/riemann/__init__.py``.  Every solver is a
 plain function on whole interface tensors, registered in a
 :class:`RiemannSolver` record that also carries ``num_eqn`` /
-``num_waves`` metadata.  This slice ports the SoA hooks of the 2D Euler
-4-wave Roe solver (``euler_4wave_2D``) only; the rest of the library is
-queued in ROADMAP.md.
+``num_waves`` metadata.  The port carries the SoA hooks of the 2D Euler
+4-wave Roe solver (``euler_4wave_2D``) and the AoS hooks of the 3D Euler
+solver (``euler_3D``); the rest of the library is queued in ROADMAP.md.
+
+AoS calling conventions (classic/kernels.py), q (num_eqn, *n):
+
+  rp(ixy, q_l, q_r, aux_l, aux_r, params) -> (wave, s, amdq, apdq)
+      wave (num_eqn, num_waves, *n), s (num_waves, *n)
+  rpt(ixy, imp, q_l, q_r, aux_l, aux_r, asdq, params, trans_axis, eig)
+      -> (bm, bp), the split of asdq along spatial axis trans_axis
+  rptt(ixy, icoor, imp, impt, q_l, q_r, aux_l, aux_r, bsasdq, params,
+       trans_axis, eig) -> (cm, cp)
+  prefactor(ixy, q_l, q_r, aux_l, aux_r, params) -> eig
 
 SoA calling conventions (classic/soa.py):
 
@@ -54,6 +64,6 @@ class RiemannSolver:
                 f"num_waves={self.num_waves})")
 
 
-from .euler import euler_4wave_2D  # noqa: E402,F401
+from .euler import euler_3D, euler_4wave_2D  # noqa: E402,F401
 
-ALL = {s.name: s for s in [euler_4wave_2D]}
+ALL = {s.name: s for s in [euler_4wave_2D, euler_3D]}

@@ -1,16 +1,25 @@
-"""2D Euler Roe solver (4 waves), SoA form, plain PyTorch.
+"""Euler Roe solvers, plain PyTorch: the 2D 4-wave system in SoA form and
+the 3D system in AoS form.
 
-Counterpart of ``pyclaw_tpu/riemann/euler.py``: ``_alpha34 :66``,
-``_roe_averages_soa :274``, ``_rpn2_euler_soa :297``,
-``_prefactor_euler_2d_soa :359``, ``_rpt2_euler_soa :365``,
-``_flux_euler_2d_soa :752``, positivity ``:775`` and the registry lines
-``:797-803, :820, :829`` (physics of reference ``rpn2_euler_4wave.f90``
-+ ``rpt2_euler.f90``).  Ideal gas, gamma from
-problem_data; q = (rho, rho*u, rho*v, E).
+Counterpart of ``pyclaw_tpu/riemann/euler.py``: ``_wsum :22``,
+``_roe_averages :32``, ``_alpha34 :66``, ``_roe_averages_soa :274``,
+``_rpn2_euler_soa :297``, ``_prefactor_euler_2d_soa :359``,
+``_rpt2_euler_soa :365``, ``_rpn3_euler :489``,
+``_prefactor_euler_3d :542``, ``_split_transverse_euler :556``,
+``_rpt3_euler :626``, ``_rptt3_euler :634``, ``_flux_euler_2d_soa :752``,
+positivity ``:775`` and the registry lines ``:797-824`` (physics of
+reference ``rpn2_euler_4wave.f90`` + ``rpt2_euler.f90`` and
+``rpn3_euler.f90`` + ``rpt3_euler.f90`` + ``rptt3_euler.f90``).  Ideal
+gas, gamma from problem_data; q = (rho, rho*u, rho*v, E) in 2D and
+(rho, rho*u, rho*v, rho*w, E) in 3D.
 
 The CUDA kernels ``csrc/step2_ctu.cu`` and ``csrc/dq2_weno5.cu`` repeat
-this algebra operation for operation, including the float32/float64
-branches of :func:`_alpha34` and :func:`_flux_euler_2d_soa`.
+the 2D algebra operation for operation, including the float32/float64
+branches of :func:`_alpha34` and :func:`_flux_euler_2d_soa`;
+``csrc/step3_ctu.cu`` repeats the 3D algebra.  The 3D solver has two
+wave sets: the normal solve keeps 5 explicit waves (the limiter sees the
+two shear waves apart), the transverse splits sum entropy and both shears
+into one wave, so a split has 3 speeds.
 """
 
 from __future__ import annotations
@@ -176,6 +185,170 @@ def _flux_euler_2d_soa(ixy, qs, params):
     return tuple(comp)
 
 
+def _wsum(coef, wave):
+    """sum_p coef[p] * wave[:, p]  ->  (num_eqn, *n)."""
+    return torch.sum(coef[None] * wave, dim=1)
+
+
+def _roe_averages(q_l, q_r, gamma, vel_idx, e_idx=None):
+    """Roe-averaged velocities (one per entry of ``vel_idx``, in that
+    order), enthalpy and sound speed of AoS states (num_eqn, *n), in the
+    rsqrt form of the JAX package (1 divide + 2 rsqrts per interface).
+    Returns (vels, H, a, a2, (p_l, p_r))."""
+    rho_l, rho_r = q_l[0], q_r[0]
+    irl, irr = torch.rsqrt(rho_l), torch.rsqrt(rho_r)
+    srl, srr = rho_l * irl, rho_r * irr
+    rinv_l, rinv_r = irl * irl, irr * irr
+    w = 1.0 / (srl + srr)
+    vels = [(q_l[i] * irl + q_r[i] * irr) * w for i in vel_idx]
+    E_idx = (1 + len(vel_idx)) if e_idx is None else e_idx
+    ke_l = 0.5 * sum(q_l[i] ** 2 for i in vel_idx) * rinv_l
+    ke_r = 0.5 * sum(q_r[i] ** 2 for i in vel_idx) * rinv_r
+    p_l = (gamma - 1.0) * (q_l[E_idx] - ke_l)
+    p_r = (gamma - 1.0) * (q_r[E_idx] - ke_r)
+    H_l = (q_l[E_idx] + p_l) * rinv_l
+    H_r = (q_r[E_idx] + p_r) * rinv_r
+    H = (srl * H_l + srr * H_r) * w
+    ke = 0.5 * sum(v * v for v in vels)
+    a2 = (gamma - 1.0) * (H - ke)
+    a = torch.sqrt(a2)
+    return vels, H, a, a2, (p_l, p_r)
+
+
+def _rpn3_euler(ixy, q_l, q_r, aux_l, aux_r, params):
+    """rpn3_euler: 5 explicit waves (num_eqn, 5, *n), speeds (5, *n),
+    amdq, apdq.  The Roe average runs in the sweep's permuted component
+    order (mu, mv, mw)."""
+    gamma = params["gamma"]
+    g1 = gamma - 1.0
+    mu = 1 + ixy
+    mv = 1 + (ixy + 1) % 3
+    mw = 1 + (ixy + 2) % 3
+    E = 4
+
+    (u, v, w_), H, a, a2, _ = _roe_averages(q_l, q_r, gamma, (mu, mv, mw))
+
+    d = q_r - q_l
+    d0, dmu, dmv, dmw, dE = d[0], d[mu], d[mv], d[mw], d[E]
+
+    euv = H - (u * u + v * v + w_ * w_)
+    a3 = g1 / a2 * (euv * d0 + u * dmu + v * dmv + w_ * dmw - dE)
+    ash = dmv - v * d0                 # shear (v)
+    ash2 = dmw - w_ * d0               # shear (w)
+    a5 = (dmu + (a - u) * d0 - a * a3) / (2.0 * a)
+    a1 = d0 - a3 - a5
+
+    num_eqn = q_l.shape[0]
+    z = torch.zeros_like(d0)
+
+    def mk(rho_c, mu_c, mv_c, mw_c, e_c):
+        comp = [z] * num_eqn
+        comp[0] = rho_c
+        comp[mu] = mu_c
+        comp[mv] = mv_c
+        comp[mw] = mw_c
+        comp[E] = e_c
+        return torch.stack(comp)
+
+    w1 = mk(a1, a1 * (u - a), a1 * v, a1 * w_, a1 * (H - u * a))
+    w2 = mk(a3, a3 * u, a3 * v, a3 * w_,
+            a3 * 0.5 * (u * u + v * v + w_ * w_))
+    w3 = mk(z, z, ash, z, ash * v)
+    w4 = mk(z, z, z, ash2, ash2 * w_)
+    w5 = mk(a5, a5 * (u + a), a5 * v, a5 * w_, a5 * (H + u * a))
+
+    wave = torch.stack([w1, w2, w3, w4, w5], dim=1)
+    s = torch.stack([u - a, u, u, u, u + a])
+    amdq = _wsum(torch.clamp(s, max=0.0), wave)
+    apdq = _wsum(torch.clamp(s, min=0.0), wave)
+    return wave, s, amdq, apdq
+
+
+def _prefactor_euler_3d(ixy, q_l, q_r, aux_l, aux_r, params):
+    """Shared eigensystem of the 3D transverse splits at one set of
+    interfaces: the Roe average in the fixed component order (1, 2, 3),
+    and its kinetic energy per unit mass."""
+    (u1, u2, u3), H, a, a2, _ = _roe_averages(q_l, q_r, params["gamma"],
+                                              (1, 2, 3))
+    ke = 0.5 * (u1 * u1 + u2 * u2 + u3 * u3)
+    return ((u1, u2, u3), H, a, a2, ke)
+
+
+def _split_transverse_euler(vel_comp, q_l, q_r, aux_l, aux_r, asdq, params,
+                            normal_comp, eig=None):
+    """Split ``asdq`` into its parts going down (bm) and up (bp) along
+    the momentum row ``vel_comp`` (1 = u, 2 = v, 3 = w), with the
+    entropy and both shear waves summed into one wave of speed vt."""
+    gamma = params["gamma"]
+    g1 = gamma - 1.0
+    E = 4
+    vel_idx = (1, 2, 3)
+    if eig is None:
+        (u1, u2, u3), H, a, a2, _ = _roe_averages(q_l, q_r, gamma, vel_idx)
+        ke = 0.5 * (u1 * u1 + u2 * u2 + u3 * u3)
+    else:
+        (u1, u2, u3), H, a, a2, ke = eig
+    vels = {1: u1, 2: u2, 3: u3}
+    vt = vels[vel_comp]
+
+    d0 = asdq[0]
+    dE = asdq[E]
+    dm = {i: asdq[i] for i in vel_idx}
+
+    euv = H - 2.0 * ke
+    b3 = g1 / a2 * (euv * d0 + u1 * dm[1] + u2 * dm[2] + u3 * dm[3] - dE)
+    b5 = (dm[vel_comp] + (a - vt) * d0 - a * b3) / (2.0 * a)
+    b1 = d0 - b3 - b5
+    shear_comps = [i for i in vel_idx if i != vel_comp]
+    bsh = {i: dm[i] - vels[i] * d0 for i in shear_comps}
+
+    num_eqn = q_l.shape[0]
+    z = torch.zeros_like(d0)
+
+    def mk(rho_c, mom, e_c):
+        comp = [z] * num_eqn
+        comp[0] = rho_c
+        for i in vel_idx:
+            comp[i] = mom[i]
+        comp[E] = e_c
+        return torch.stack(comp)
+
+    mom1 = {i: b1 * vels[i] for i in vel_idx}
+    mom1[vel_comp] = b1 * (vt - a)
+    w1 = mk(b1, mom1, b1 * (H - vt * a))
+    momm = {i: b3 * vels[i] + bsh[i] for i in shear_comps}
+    momm[vel_comp] = b3 * vt
+    wmid = mk(b3, momm,
+              b3 * ke + bsh[shear_comps[0]] * vels[shear_comps[0]]
+              + bsh[shear_comps[1]] * vels[shear_comps[1]])
+    mom5 = {i: b5 * vels[i] for i in vel_idx}
+    mom5[vel_comp] = b5 * (vt + a)
+    w5 = mk(b5, mom5, b5 * (H + vt * a))
+
+    bm = torch.zeros_like(asdq)
+    bp = torch.zeros_like(asdq)
+    for w, sp_ in zip((w1, wmid, w5), (vt - a, vt, vt + a)):
+        bm = bm + torch.clamp(sp_, max=0.0) * w
+        bp = bp + torch.clamp(sp_, min=0.0) * w
+    return bm, bp
+
+
+def _rpt3_euler(ixy, imp, q_l, q_r, aux_l, aux_r, asdq, params,
+                trans_axis=None, eig=None):
+    if trans_axis is None:
+        trans_axis = (ixy + 1) % 3
+    return _split_transverse_euler(1 + trans_axis, q_l, q_r, aux_l, aux_r,
+                                   asdq, params, 1 + ixy, eig=eig)
+
+
+def _rptt3_euler(ixy, icoor, imp, impt, q_l, q_r, aux_l, aux_r, bsasdq,
+                 params, trans_axis=None, eig=None):
+    if trans_axis is None:
+        trans_axis = (ixy + 2) % 3
+    return _split_transverse_euler(1 + trans_axis, q_l, q_r, aux_l, aux_r,
+                                   bsasdq, params, 1 + ixy, eig=eig)
+
+
 def _make_euler_positivity(vel_idx, e_idx):
     def positivity(q, aux, params):
         rho = q[0]
@@ -197,3 +370,11 @@ euler_4wave_2D.rpt_soa = _rpt2_euler_soa
 euler_4wave_2D.prefactor_soa = _prefactor_euler_2d_soa
 euler_4wave_2D.positivity = _make_euler_positivity((1, 2), 3)
 euler_4wave_2D.flux_soa = _flux_euler_2d_soa
+
+euler_3D = RiemannSolver("euler_3D", 3, 5, 5, _rpn3_euler,
+                         rpt=_rpt3_euler, rptt=_rptt3_euler,
+                         requires=("gamma",))
+euler_3D.prefactor = _prefactor_euler_3d
+# metadata of the JAX package; its batched transverse path is not ported
+euler_3D.transverse_batchable = True
+euler_3D.positivity = _make_euler_positivity((1, 2, 3), 4)

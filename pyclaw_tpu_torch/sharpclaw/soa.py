@@ -18,13 +18,9 @@ from functools import reduce
 
 import torch
 
+from .._slicing import slc
 from ..limiters import recon
 
-
-def _slc(a, axis, sl):
-    idx = [slice(None)] * a.dim()
-    idx[axis] = sl
-    return a[tuple(idx)]
 
 
 def _shift_ax(a, k, axis):
@@ -34,12 +30,12 @@ def _shift_ax(a, k, axis):
         return a
     n = a.shape[axis]
     if k > 0:
-        core = _slc(a, axis, slice(k, n))
-        edge = _slc(a, axis, slice(n - 1, n))
+        core = slc(a, axis, slice(k, n))
+        edge = slc(a, axis, slice(n - 1, n))
         reps = [core] + [edge] * k
     else:
-        core = _slc(a, axis, slice(0, n + k))
-        edge = _slc(a, axis, slice(0, 1))
+        core = slc(a, axis, slice(0, n + k))
+        edge = slc(a, axis, slice(0, 1))
         reps = [edge] * (-k) + [core]
     return torch.cat(reps, dim=axis)
 
@@ -103,8 +99,8 @@ def _dq_dir_soa(qs, axis, dt, dxi, rpn_soa, params, weno_order, num_ghost,
         qr = [torch.where(ok, r, c) for r, c in zip(qr, qs)]
 
     # interface k between cells k, k+1: states (qr_k, ql_{k+1})
-    q_li = tuple(_slc(r, axis, slice(0, n - 1)) for r in qr)
-    q_ri = tuple(_slc(l, axis, slice(1, n)) for l in ql)
+    q_li = tuple(slc(r, axis, slice(0, n - 1)) for r in qr)
+    q_ri = tuple(slc(l, axis, slice(1, n)) for l in ql)
     waves, speeds = rpn_soa(axis, q_li, q_ri, params)
     amdq, apdq = _combine(waves, speeds, num_eqn, torch.zeros_like(q_li[0]))
 
@@ -134,15 +130,15 @@ def _dq_dir_soa(qs, axis, dt, dxi, rpn_soa, params, weno_order, num_ghost,
     # interfaces g-1 .. n-g-1 along the sweep, the whole other axis
     # (ghost band included); NaN propagates
     cfl = dtdx * reduce(torch.maximum,
-                        (torch.amax(torch.abs(_slc(s, axis,
+                        (torch.amax(torch.abs(slc(s, axis,
                                                    slice(g - 1, n - g))))
                          for s in speeds))
 
     dq = []
     for e in range(num_eqn):
-        dq.append(-dtdx * (_slc(apdq[e], axis, slice(0, n - 2))
-                           + _slc(amdq[e], axis, slice(1, n - 1))
-                           + _slc(adq[e], axis, slice(1, n - 1))))
+        dq.append(-dtdx * (slc(apdq[e], axis, slice(0, n - 2))
+                           + slc(amdq[e], axis, slice(1, n - 1))
+                           + slc(adq[e], axis, slice(1, n - 1))))
     return dq, cfl
 
 

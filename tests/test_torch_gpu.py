@@ -1,5 +1,5 @@
-"""Card-only tests: the CUDA kernels (step2_ctu, dq2_weno5) against their
-plain PyTorch versions at small shapes.  Whether a card is present is decided inside the fixture,
+"""Card-only tests: the CUDA kernels (step2_ctu, dq2_weno5, step3_ctu)
+against their plain PyTorch versions at small shapes.  Whether a card is present is decided inside the fixture,
 so every process collects the same tests; without a card they skip.
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q   # with a card
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from pyclaw_tpu_torch import bc
-from pyclaw_tpu_torch.classic import soa
+from pyclaw_tpu_torch.classic import kernels, soa
 from pyclaw_tpu_torch.ops import tiled2d
 from pyclaw_tpu_torch.riemann import euler
 from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
@@ -105,3 +105,50 @@ def test_dq_kernel_rejects_what_it_cannot_take(card):
                         1e-3, 0.1, 0.1, PARAMS, weno_order=7, num_ghost=4)
     with pytest.raises(TypeError, match="dtype"):
         tiled2d.dq_rows(qbc.half(), 1e-3, 0.1, 0.1, PARAMS)
+
+
+def _qbc3(seed, nx, ny, nz, dtype, dev):
+    rng = np.random.default_rng(seed)
+    n = (nx, ny, nz)
+    rho = 0.5 + rng.random(n)
+    u, v, w = (rng.standard_normal(n) for _ in range(3))
+    p = 0.5 + rng.random(n)
+    q = np.stack([rho, rho * u, rho * v, rho * w,
+                  p / 0.4 + 0.5 * rho * (u * u + v * v + w * w)])
+    q = torch.as_tensor(q, dtype=dtype, device=dev)
+    return bc.extend(q, 2, [bc.BC.extrap] * 3, [bc.BC.wall] * 3).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tw", [0, 1, 2])
+@pytest.mark.parametrize("nx,ny,nz,order,lim", [
+    (16, 16, 16, 2, 4), (33, 17, 9, 2, 10), (5, 40, 7, 1, 3)])
+def test_step3_kernel_matches_plain(card, nx, ny, nz, order, lim, tw, dtype):
+    qbc = _qbc3(nx * ny + nz, nx, ny, nz, dtype, card)
+    dt = float(np.dtype(str(dtype).split(".")[1]).type(0.3 / max(nx, ny, nz)))
+    d = (2.0 / nx, 2.0 / ny, 2.0 / nz)
+    before = tiled2d.step3_xy.launches
+    qk, ck = tiled2d.step3_xy(qbc, dt, *d, PARAMS, (lim,) * 5, order,
+                              transverse_waves=tw)
+    torch.cuda.synchronize()
+    assert tiled2d.step3_xy.launches == before + 1
+    rp = euler.euler_3D
+    qp, cp = kernels.step3(qbc, None, dt, *d, rp.rp, rp.rpt, rp.rptt, PARAMS,
+                           (lim,) * 5, order, False, -1, 2, tw, rp.prefactor)
+    assert qk.dtype == dtype and qk.shape == (5, nx, ny, nz)
+    rel = float((qk - qp).abs().max() / qp.abs().max())
+    assert rel <= TOL[dtype]
+    assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+def test_step3_kernel_rejects_what_it_cannot_take(card):
+    qbc = _qbc3(1, 8, 8, 8, torch.float64, card)
+    args = (1e-3, 0.1, 0.1, 0.1, PARAMS, (4,) * 5, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled2d.step3_xy(qbc.transpose(1, 3), *args)
+    with pytest.raises(TypeError, match="dtype"):
+        tiled2d.step3_xy(qbc.half(), *args)
+    with pytest.raises(ValueError, match="shape"):
+        tiled2d.step3_xy(qbc[:4].contiguous(), *args)

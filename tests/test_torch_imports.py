@@ -45,9 +45,10 @@ def test_the_scan_sees_every_module():
     assert "chip_smoke.py" in names
     assert os.path.join("pyclaw_tpu_torch", "ops", "tiled2d.py") in names
     for new in (("sharpclaw", "soa.py"), ("sharpclaw", "solver.py"),
-                ("sharpclaw", "__init__.py"), ("limiters", "recon.py")):
+                ("sharpclaw", "__init__.py"), ("limiters", "recon.py"),
+                ("classic", "kernels.py"), ("examples", "euler_3d.py")):
         assert os.path.join("pyclaw_tpu_torch", *new) in names
-    assert len(names) >= 24
+    assert len(names) >= 26
 
 
 @pytest.mark.parametrize("path", _files(),

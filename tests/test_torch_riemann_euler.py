@@ -53,7 +53,8 @@ def test_registry():
     rs = triemann.euler_4wave_2D
     assert (rs.num_dim, rs.num_eqn, rs.num_waves) == (2, 4, 4)
     assert rs.requires == ("gamma",)
-    assert triemann.ALL == {"euler_4wave_2D": rs}
+    assert triemann.ALL == {"euler_4wave_2D": rs,
+                            "euler_3D": triemann.euler_3D}
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
