@@ -9,7 +9,7 @@ Phases (each asserts; any failure exits non-zero):
      (registers, shared memory, spills);
   3. step2_ctu against its plain PyTorch version on the card, over the
      quadrants initial condition and a seeded random admissible state,
-     grids 1024^2, 80^2, 128^2 and 100x37, float32 and float64,
+     grids 1024^2, 80^2, 128^2, 100x37 and 64x100, float32 and float64,
      transverse_waves 0/1/2, order 1/2, limiters {3, 4, 10};
   3b. dq2_weno5 against its plain version (one dq each), over the
      quadrants state, a seeded random admissible state and a seeded state
@@ -21,6 +21,11 @@ Phases (each asserts; any failure exits non-zero):
      (transverse_waves 2, order 2, MC) at 192^3, and transverse_waves
      0/1/2 x order 1/2 x limiters {4, 3, 10} at 16^3, 33x17x9 and 5x40x7,
      float32 and float64;
+  3d. step2_aos against its plain PyTorch version (one step each), over
+     the radial dam break state and a seeded random wet state, grids
+     1024^2, 60^2, 125^2, 64x100 and 100x37, float32 and float64: the
+     shallow-water Roe solver for transverse_waves 0/1/2 x order 1/2, and
+     bathymetry f-waves with aux, with and without a capacity function;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -30,9 +35,16 @@ Phases (each asserts; any failure exits non-zero):
   4c. the 3D path: examples.euler_3d.setup(mx=my=mz=192, float32)
      through Controller.run() to tfinal=0.2, with step3_ctu's launch count
      read around it (1 per attempted step);
+  4d. the shallow-water path: examples.shallow_2d_radial.setup(mx=1024,
+     my=1024, float32) through Controller.run() to tfinal=1.0, with
+     step2_aos's launch count read around it (1 per attempted step), mass
+     conservation and the x/y mirror symmetry of the depth;
   5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
      card, float32 and float64;
   5c. the 16^3 euler_3d golden on the card, float32 and float64;
+  5d. the 60^2 shallow_2d_radial golden on the card, float32 and float64,
+     and a lake at rest over a bump (bathymetry f-waves) at 1024^2
+     float32, which must stay at rest to roundoff;
   5b. SharpClaw quadrants at 80^2 on the card against the same run on the
      CPU (the plain path the CPU tests tie to the JAX package): float64 at
      t=0.2 and t=0.8, float32 at t=0.8;
@@ -99,6 +111,20 @@ FLOPS_PER_CELL_DQ = {"float32": 2 * 672 + 4, "float64": 2 * 624 + 4}
 # per direction.  The update 50 per cell.
 FLOPS_PER_CELL_3D = 3 * (573 + 2 * 1026) + 50
 
+# Operations per cell of one generic CTU step of the shallow-water Roe
+# solver (order 2, transverse_waves 2, MC, no capacity), counted from
+# csrc/step2_aos.cu and csrc/shallow2d.cuh in the same way, each interface
+# quantity counted once (the Roe average each rpt2 split recomputes, the
+# neighbour's dot product and the halo interfaces are overhead, not
+# work).  Per interface (one x and one y per cell): the Roe average 19,
+# jumps 3, strengths 13, waves 4, the entropy fix 39, amdq/apdq 33 (the
+# normal solve, 111); the limiter of three waves (norm 5, dot product 5,
+# theta 3, MC 6, nu 2, select 1, coefficient 4) 78; the correction flux
+# 15; the fluctuations to split 6; two rpt2 splits of 71 (strengths 13,
+# waves 4, the up/down sums 54) and v +- c 2, 144; CFL 3 -> 357; two
+# interfaces 714.  The fold and update per cell 78.
+FLOPS_PER_CELL_AOS = 2 * 357 + 78
+
 TOL_REL = {"float32": 1e-5, "float64": 1e-12}        # one step, vs plain
 # A state with positivity fallbacks is ill-conditioned: edge densities
 # near zero come from cancellation, and the sound speed grows as
@@ -110,6 +136,11 @@ TOL_REL = {"float32": 1e-5, "float64": 1e-12}        # one step, vs plain
 # float64 stays at TOL_REL.
 ULP_FACTOR = 4.0
 GOLDEN_TOL = {"float32": 1e-3, "float64": 1e-8}      # tools/tpu_validate
+# tools/tpu_validate.py:49 holds shallow_2d_radial to 2e-3 in float32
+GOLDEN_TOL_SHALLOW = {"float32": 2e-3, "float64": 1e-8}
+# a lake at rest in float32 stays at rest to this (absolute, in units of
+# the depth 1 and of the momentum): roundoff of the well-balanced f-waves
+LAKE_TOL = 1e-5
 # SharpClaw run on the card against the same run on the CPU (80^2): a
 # whole run amplifies one-ulp differences through the shocks, so only the
 # short horizon is held tightly (max relative); t=0.8 in relative L1 and
@@ -569,8 +600,182 @@ def timing_step3(dev, n=192):
     return out
 
 
+SW_PARAMS = {"grav": 1.0}
+ROE, BATHY = "shallow_roe_with_efix_2D", "shallow_bathymetry_fwave_2D"
+# (system, fwave, index_capa, transverse_waves, order, limiter) of [3d]
+AOS_CASES = ([(ROE, False, -1, tw, order, 4) for tw in (0, 1, 2)
+              for order in (1, 2)]
+             + [(BATHY, True, -1, 2, 2, 4), (BATHY, True, 1, 2, 2, 10)])
+
+
+def dam_break_state(nx, ny):
+    from pyclaw_tpu_torch.examples import shallow_2d_radial as ex
+    return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
+
+
+def random_wet_state(rng, nx, ny):
+    """A seeded wet shallow-water state with velocities of either sign
+    (transonic interfaces included), and aux: bathymetry, and a
+    non-uniform capacity function."""
+    h = 0.5 + rng.random((nx, ny))
+    u = rng.standard_normal((nx, ny))
+    v = rng.standard_normal((nx, ny))
+    aux = np.stack([0.3 * rng.random((nx, ny)),
+                    0.7 + 0.6 * rng.random((nx, ny))])
+    return np.stack([h, h * u, h * v]), aux
+
+
+def plain_aos(qbc, auxbc, dt, dx, dy, name, fwave, capa, tw, order, lim):
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.classic import kernels
+    rp = riemann.ALL[name]
+    return kernels.step2(qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt, SW_PARAMS,
+                         (lim,) * 3, order, fwave, capa, 2, tw)
+
+
+def compare_aos(dev, grids, seed=3):
+    """step2_aos vs its plain version, one step each, on the card."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    for nx, ny in grids:
+        q_rand, aux_np = random_wet_state(rng, nx, ny)
+        inputs = {"dam_break": dam_break_state(nx, ny), "random": q_rand}
+        dx, dy = 5.0 / nx, 5.0 / ny
+        for iname, q_np in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc = padded(q_np, dtype, dev)
+                auxbc = padded(aux_np, dtype, dev)
+                dt = float(np.dtype(tname).type(0.1 * min(dx, dy)))
+                for name, fwave, capa, tw, order, lim in AOS_CASES:
+                    qk, ck = tiled2d.step2_rows_generic(
+                        qbc, auxbc, dt, dx, dy, riemann.ALL[name],
+                        SW_PARAMS, (lim,) * 3, order, fwave, capa, 2, tw)
+                    qp, cp = plain_aos(qbc, auxbc, dt, dx, dy, name, fwave,
+                                       capa, tw, order, lim)
+                    torch.cuda.synchronize()
+                    abs_err = float((qk - qp).abs().max())
+                    rel = abs_err / float(qp.abs().max())
+                    dcfl = abs(float(ck) - float(cp)) / float(cp)
+                    if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                            and dcfl <= TOL_REL[tname]
+                            and tuple(qk.shape) == (3, nx, ny)):
+                        fail(f"step2_aos vs plain {nx}x{ny} {iname} {tname} "
+                             f"{name} fwave={fwave} capa={capa} tw={tw} "
+                             f"order={order} lim={lim}: rel err {rel:.3e}, "
+                             f"cfl {float(ck)!r} vs {float(cp)!r}")
+                    worst[tname] = max(worst[tname], rel)
+                    worst_cfl[tname] = max(worst_cfl[tname], dcfl)
+                    if ((nx, ny, iname, tname, name, tw, order)
+                            == (1024, 1024, "dam_break", "float32", ROE, 2,
+                                2)):
+                        main_abs_err = abs_err
+                    ncase += 1
+                    del qk, qp
+        print(f"  compare step2_aos {nx}x{ny}: max rel err f32 "
+              f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; max cfl "
+              f"rel f32 {worst_cfl['float32']:.3e} f64 "
+              f"{worst_cfl['float64']:.3e}", flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def run_shallow(dev, n, dtype, tfinal=1.0):
+    """examples.shallow_2d_radial through Controller.run(); returns
+    (claw, status, wall seconds)."""
+    import torch
+    from pyclaw_tpu_torch.examples import shallow_2d_radial as ex
+    claw = ex.setup(mx=n, my=n, dtype=dtype, outdir=None, device=dev)
+    claw.tfinal = tfinal
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
+def lake_at_rest(dev, n, dtype, tfinal):
+    """A lake at rest (h + b = 1, u = v = 0) over a Gaussian bump on
+    shallow_bathymetry_fwave_2D, through Controller.run(); returns
+    (max |eta - eta0|, max |hu|, |hv|, attempted steps)."""
+    import pyclaw_tpu_torch as pyclaw
+    from pyclaw_tpu_torch import riemann
+    solver = pyclaw.ClawSolver2D(riemann.shallow_bathymetry_fwave_2D,
+                                 device=dev)
+    solver.fwave = True
+    solver.limiters = [pyclaw.limiters.tvd.MC]
+    solver.all_bcs = pyclaw.BC.extrap
+    domain = pyclaw.Domain([-1.0, -1.0], [1.0, 1.0], [n, n])
+    state = pyclaw.State(domain, 3, num_aux=1, dtype=dtype)
+    state.problem_data["grav"] = 9.8
+    x, y = domain.grid.c_centers
+    state.aux[0] = 0.5 * np.exp(-10.0 * (x ** 2 + y ** 2))
+    state.q[0] = 1.0 - state.aux[0]
+    eta0 = state.q[0] + state.aux[0]
+    claw = pyclaw.Controller()
+    claw.solution = pyclaw.Solution(state, domain)
+    claw.solver = solver
+    claw.tfinal, claw.num_output_times = tfinal, 1
+    claw.output_format = None
+    status = claw.run()
+    q = claw.solution.q
+    return (float(np.abs(q[0] + claw.solution.aux[0] - eta0).max()),
+            float(np.abs(q[1:]).max()),
+            status["numsteps"] + status["numrejected"])
+
+
+def timing_aos(dev, n=1024):
+    """step2_aos, its plain version and its bound at n^2 on the radial dam
+    break state (the main path's first input)."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    q_np = dam_break_state(n, n)
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc = padded(q_np, dtype, dev)
+        h = 5.0 / n
+        dt = float(np.dtype(tname).type(0.5 * h))
+        rp = riemann.ALL[ROE]
+
+        def kern():
+            return tiled2d.step2_rows_generic(qbc, None, dt, h, h, rp,
+                                              SW_PARAMS, (4,) * 3, 2, False,
+                                              -1, 2, 2)
+
+        def plain():
+            return plain_aos(qbc, None, dt, h, h, ROE, False, -1, 2, 2, 4)
+
+        ms = time_ms(kern, 200)
+        plain_ms = time_ms(plain, 20, warm=2)
+        ms_again = time_ms(kern, 200)
+        item = qbc.element_size()
+        nbytes = qbc.numel() * item + 3 * n * n * item
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops = FLOPS_PER_CELL_AOS * n * n
+        ops_ms = flops / PEAK_FLOPS[tname] * 1e3
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
+                      "bytes": nbytes, "flops": flops,
+                      "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                      "bound_ms": max(bytes_ms, ops_ms),
+                      "bound_by": "bytes" if bytes_ms > ops_ms
+                      else "operations"}
+        print(f"  timing step2_aos {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
+              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+              f"operations {ops_ms:.4f}), library_ms null", flush=True)
+    return out
+
+
 # device kernels grouped by what launched them (by kernel name)
-DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5", "step3_ctu")),
+DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5", "step3_ctu",
+                             "step2_aos")),
                  ("bc_extension", ("CatArrayBatchedCopy", "copy_kernel")),
                  ("cfl_reduction", ("reduce_kernel", "maximum")),
                  ("memcpy", ("Memcpy", "Memset")))
@@ -734,19 +939,23 @@ def main():
     # [2] build every kernel of the paths from the checkout's sources, one
     # nvcc per source, all started together
     t0 = time.perf_counter()
-    lib, dq_lib, lib3 = _build.load_all(["step2_ctu", "dq2_weno5",
-                                         "step3_ctu"])
-    print(f"[2] built csrc/step2_ctu.cu, csrc/dq2_weno5.cu and "
-          f"csrc/step3_ctu.cu for sm_90a in "
+    names = ["step2_ctu", "dq2_weno5", "step3_ctu", "step2_aos"]
+    lib, dq_lib, lib3, lib_aos = _build.load_all(names)
+    print(f"[2] built csrc/step2_ctu.cu, csrc/dq2_weno5.cu, "
+          f"csrc/step3_ctu.cu and csrc/step2_aos.cu for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s; shared memory per block: "
           f"step2_ctu f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
           f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
           f"{dq_lib.dq2_weno5_smem_bytes(0)} B, f64 "
           f"{dq_lib.dq2_weno5_smem_bytes(1)} B; step3_ctu f32 "
           f"{lib3.step3_ctu_smem_bytes(0)} B, f64 "
-          f"{lib3.step3_ctu_smem_bytes(1)} B", flush=True)
+          f"{lib3.step3_ctu_smem_bytes(1)} B; step2_aos (shallow Roe) f32 "
+          f"{lib_aos.step2_aos_smem_bytes(0, 0, 0)} B, f64 "
+          f"{lib_aos.step2_aos_smem_bytes(0, 0, 1)} B, (bathymetry with "
+          f"capacity) f32 {lib_aos.step2_aos_smem_bytes(1, 1, 0)} B, f64 "
+          f"{lib_aos.step2_aos_smem_bytes(1, 1, 1)} B", flush=True)
     phase_s = {"build": time.perf_counter() - t0}
-    for name in ("step2_ctu", "dq2_weno5", "step3_ctu"):
+    for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill", "smem")):
@@ -755,7 +964,8 @@ def main():
     grids = [(1024, 1024), (80, 80), (128, 128), (100, 37)]
     # [3] step2_ctu against its plain version
     t0 = time.perf_counter()
-    worst, worst_cfl, main_abs_err, ncase = compare_kernel(dev, grids)
+    worst, worst_cfl, main_abs_err, ncase = compare_kernel(
+        dev, grids + [(64, 100)])
     print(f"[3] kernel vs plain: {ncase} cases, max rel err f32 "
           f"{worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
           f"{worst['float64']:.3e} (tol {TOL_REL['float64']}); "
@@ -781,6 +991,18 @@ def main():
           f"{s3_worst_cfl['float64']:.3e}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3c"] = time.perf_counter() - t0
+
+    # [3d] step2_aos against its plain version
+    t0 = time.perf_counter()
+    aos_worst, aos_worst_cfl, aos_main_abs_err, aos_ncase = compare_aos(
+        dev, [(1024, 1024), (60, 60), (125, 125), (64, 100), (100, 37)])
+    print(f"[3d] step2_aos vs plain: {aos_ncase} cases, max rel err f32 "
+          f"{aos_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{aos_worst['float64']:.3e} (tol {TOL_REL['float64']}); max cfl "
+          f"rel f32 {aos_worst_cfl['float32']:.3e}, f64 "
+          f"{aos_worst_cfl['float64']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3d"] = time.perf_counter() - t0
 
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
@@ -852,6 +1074,42 @@ def main():
     del claw3, q3
     phase_s["4c"] = time.perf_counter() - t0
 
+    # [4d] the shallow-water path (radial dam break, 1024^2 f32), launches
+    # read around it
+    t0 = time.perf_counter()
+    tiled2d.step2_rows_generic.launches = 0
+    claw_sw, status_sw, wall_sw = run_shallow(dev, 1024, np.float32)
+    aos_launches = tiled2d.step2_rows_generic.launches
+    ns_sw, nr_sw = status_sw["numsteps"], status_sw["numrejected"]
+    q_sw = claw_sw.solution.q
+    mass0 = float(np.sum(dam_break_state(1024, 1024)[0], dtype=np.float64))
+    mass_rel = abs(float(np.sum(q_sw[0], dtype=np.float64)) - mass0) / mass0
+    mirror = float(np.abs(q_sw[0] - q_sw[0].T).max() / np.abs(q_sw[0]).max())
+    print(f"[4d] shallow path 1024^2 f32 to t={claw_sw.solution.t}: {ns_sw} "
+          f"accepted + {nr_sw} rejected steps, {aos_launches} step2_aos "
+          f"launches, {wall_sw:.3f} s wall, "
+          f"{ns_sw * 1024 * 1024 / wall_sw:.4e} cell-updates/s; mass "
+          f"change {mass_rel:.3e} (relative), max |h - h^T| / max h "
+          f"{mirror:.3e}", flush=True)
+    if aos_launches == 0 or aos_launches != ns_sw + nr_sw:
+        fail(f"step2_aos launches {aos_launches} != accepted {ns_sw} + "
+             f"rejected {nr_sw}")
+    if nr_sw < 1:
+        fail("shallow path: the first step at dt_initial=0.1 should be "
+             "rejected")
+    if q_sw.shape != (3, 1024, 1024) or not np.all(np.isfinite(q_sw)):
+        fail("shallow path: result is not finite (3, 1024, 1024)")
+    if not claw_sw.solution.state.is_valid() or np.min(q_sw[0]) <= 0.0:
+        fail("shallow path: invalid state or a dry cell")
+    if abs(claw_sw.solution.t - 1.0) > 1e-12:
+        fail(f"shallow path: ended at t={claw_sw.solution.t}")
+    # the front has not reached the boundary by t=1: no mass crosses it
+    if not (mass_rel <= 1e-5 and mirror <= 1e-4):
+        fail(f"shallow path: mass change {mass_rel} or mirror asymmetry "
+             f"{mirror} too large")
+    del claw_sw, q_sw
+    phase_s["4d"] = time.perf_counter() - t0
+
     # [5] goldens on the card
     golden = {}
     for n, name in ((80, "euler_2d_quadrants"),
@@ -887,6 +1145,34 @@ def main():
         if abs(c.solution.t - float(ref["t"])) > 1e-10:
             fail(f"golden euler_3d {tname}: t={c.solution.t}")
 
+    # [5d] the 60^2 shallow_2d_radial golden and a lake at rest on the card
+    ref = np.load(os.path.join(ROOT, "tests", "golden",
+                               "shallow_2d_radial.npz"))
+    for tname, dtype in (("float32", np.float32), ("float64", np.float64)):
+        c, st, w = run_shallow(dev, 60, dtype)
+        rel = float(np.max(np.abs(c.solution.q.astype(np.float64) - ref["q"]))
+                    / np.max(np.abs(ref["q"])))
+        golden[f"shallow_2d_radial:{tname}"] = rel
+        print(f"[5d] golden shallow_2d_radial {tname}: rel err {rel:.3e} (tol "
+              f"{GOLDEN_TOL_SHALLOW[tname]}), {st['numsteps']} + "
+              f"{st['numrejected']} steps, {w:.3f} s", flush=True)
+        if not rel <= GOLDEN_TOL_SHALLOW[tname]:
+            fail(f"golden shallow_2d_radial {tname}: {rel} > "
+                 f"{GOLDEN_TOL_SHALLOW[tname]}")
+        if abs(c.solution.t - float(ref["t"])) > 1e-10:
+            fail(f"golden shallow_2d_radial {tname}: t={c.solution.t}")
+    tiled2d.step2_rows_generic.launches = 0
+    eta_drift, mom, lake_steps = lake_at_rest(dev, 1024, np.float32, 0.05)
+    lake_launches = tiled2d.step2_rows_generic.launches
+    print(f"[5d] lake at rest 1024^2 f32 to t=0.05: {lake_steps} steps, "
+          f"{lake_launches} step2_aos launches, max |eta - eta0| "
+          f"{eta_drift:.3e}, max |hu|, |hv| {mom:.3e} (tol {LAKE_TOL})",
+          flush=True)
+    if not (lake_launches == lake_steps > 0 and eta_drift <= LAKE_TOL
+            and mom <= LAKE_TOL):
+        fail(f"lake at rest: drift {eta_drift}, momentum {mom}, launches "
+             f"{lake_launches} for {lake_steps} steps")
+
     # [5b] SharpClaw on the card against the same run on the CPU
     t0 = time.perf_counter()
     sharp_vs_cpu = sharp_card_vs_cpu(dev)
@@ -897,6 +1183,7 @@ def main():
     tm = timing(dev)
     tm_dq = timing_dq(dev)
     tm3 = timing_step3(dev)
+    tm_aos = timing_aos(dev)
     prof = profile_main_path(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
@@ -906,6 +1193,9 @@ def main():
     prof3 = profile_main_path(
         "euler_3d main path 192^3 f32 to t=0.02",
         lambda: run_euler3d(dev, 192, np.float32, 0.02))
+    prof_sw = profile_main_path(
+        "shallow path 1024^2 f32 to t=0.1",
+        lambda: run_shallow(dev, 1024, np.float32, 0.1))
     phase_s["6"] = time.perf_counter() - t0
 
     f32, f64 = tm["float32"], tm["float64"]
@@ -913,7 +1203,9 @@ def main():
         "name": "step2_ctu", "route": "cuda",
         "source": "pyclaw_tpu_torch/csrc/step2_ctu.cu",
         "replaces": "pyclaw_tpu/ops/tiled2d.py:113",
-        "replaces_function": "step2_pallas_rows",
+        "replaces_function": "step2_pallas_rows (SoA body); "
+                             "step2_pallas_tiled (ops/tiled2d.py:52)",
+        "rows": ["1", "4"],
         "launches": launches, "max_abs_err": main_abs_err,
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
@@ -929,7 +1221,7 @@ def main():
         "name": "dq2_weno5", "route": "cuda",
         "source": "pyclaw_tpu_torch/csrc/dq2_weno5.cu",
         "replaces": "pyclaw_tpu/ops/tiled2d.py:314",
-        "replaces_function": "dq_pallas_rows",
+        "replaces_function": "dq_pallas_rows", "rows": ["2"],
         "launches": dq_launches, "max_abs_err": dq_main_abs_err,
         "ms": d32["ms"], "plain_ms": d32["plain_ms"],
         "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
@@ -945,7 +1237,7 @@ def main():
         "name": "step3_ctu", "route": "cuda",
         "source": "pyclaw_tpu_torch/csrc/step3_ctu.cu",
         "replaces": "pyclaw_tpu/ops/tiled2d.py:431",
-        "replaces_function": "step3_pallas_xy",
+        "replaces_function": "step3_pallas_xy", "rows": ["3"],
         "launches": s3_launches, "max_abs_err": s3_main_abs_err,
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
@@ -956,7 +1248,28 @@ def main():
         "max_rel_err_f64": s3_worst["float64"],
         "max_rel_err_f32": s3_worst["float32"],
     }
-    kernels = [record, dq_record, s3_record]
+    a32, a64 = tm_aos["float32"], tm_aos["float64"]
+    aos_record = {
+        "name": "step2_aos", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step2_aos.cu",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:113",
+        "replaces_function": "step2_pallas_rows (generic body "
+                             "classic/kernels.py:345 step2_roll); "
+                             "step2_pallas_tiled_generic "
+                             "(ops/tiled2d.py:609); step2_pallas "
+                             "(ops/sweep2d.py:41)",
+        "rows": ["1b", "5", "6"],
+        "launches": aos_launches, "max_abs_err": aos_main_abs_err,
+        "ms": a32["ms"], "plain_ms": a32["plain_ms"],
+        "bound_ms": a32["bound_ms"], "bound_by": a32["bound_by"],
+        "library_ms": None,
+        "shape": [3, 1028, 1028], "dtype": "float32",
+        "ms_f64": a64["ms"], "plain_ms_f64": a64["plain_ms"],
+        "bound_ms_f64": a64["bound_ms"], "bound_by_f64": a64["bound_by"],
+        "max_rel_err_f64": aos_worst["float64"],
+        "max_rel_err_f32": aos_worst["float32"],
+    }
+    kernels = [record, dq_record, s3_record, aos_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s": wall,
                              "cell_updates_per_s": ns * 1024 * 1024 / wall},
@@ -969,11 +1282,22 @@ def main():
                                 "step3_launches": s3_launches,
                                 "wall_s": wall3,
                                 "cell_updates_per_s": ns3 * n3 ** 3 / wall3},
+               "shallow_path": {"accepted": ns_sw, "rejected": nr_sw,
+                                "aos_launches": aos_launches,
+                                "wall_s": wall_sw,
+                                "cell_updates_per_s":
+                                    ns_sw * 1024 * 1024 / wall_sw,
+                                "mass_change_rel": mass_rel,
+                                "mirror_asymmetry": mirror},
+               "lake_at_rest": {"steps": lake_steps,
+                                "eta_drift": eta_drift, "momentum": mom},
                "golden_rel_err": golden, "sharpclaw_card_vs_cpu":
                    sharp_vs_cpu,
                "timing": tm, "timing_dq": tm_dq, "timing_step3": tm3,
+               "timing_aos": tm_aos,
                "profile": prof, "profile_sharpclaw": sprof,
-               "profile_euler3d": prof3, "phase_seconds": phase_s,
+               "profile_euler3d": prof3, "profile_shallow": prof_sw,
+               "phase_seconds": phase_s,
                "card": card, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:

@@ -1,20 +1,25 @@
-"""Plain PyTorch version of the 3D unsplit classic (CTU) step, AoS form.
+"""Plain PyTorch versions of the unsplit classic (CTU) steps, AoS form.
 
 Counterpart of ``pyclaw_tpu/classic/kernels.py`` (``_correction_flux
-:38``, ``_sweep_normal :125``, ``_embed :509``, ``_slc :523``,
-``_step3_sweeps :529``, ``step3 :572``, ``_step3_update :597``) — the XLA
-form, the oracle of the JAX package, not its roll form or its tiled and
-phased variants.  This is what ``ops.tiled2d.step3_xy`` computes on a CPU
-tensor, and what the CUDA kernel ``csrc/step3_ctu.cu`` is held against on
-the card.  The index algebra and the order of the sums are the JAX
-package's, so in float64 the two agree to roundoff
-(tests/test_torch_step3.py).
+:38``, ``_sweep_normal :125``, ``_pad_axis :171``, ``step2 :177``,
+``_embed :509``, ``_slc :523``, ``_step3_sweeps :529``, ``step3 :572``,
+``_step3_update :597``) — the XLA form, the oracle of the JAX package,
+not its roll form or its tiled and phased variants.  ``step2`` is what
+``ops.tiled2d.step2_rows_generic`` computes on a CPU tensor, and what
+the CUDA kernel ``csrc/step2_aos.cu`` is held against on the card;
+``step3`` the same for ``ops.tiled2d.step3_xy`` and
+``csrc/step3_ctu.cu``.  The index algebra and the order of the sums are
+the JAX package's, so in float64 the two agree to roundoff
+(tests/test_torch_step2_aos.py, tests/test_torch_step3.py).
 
-Only the wave-form path without aux arrays or a capacity function is
-ported; those arguments raise ``NotImplementedError``.  Without a
+The 2D step takes aux arrays, a capacity function (``index_capa`` >= 0:
+per-cell dt/(dx kappa)) and the f-wave correction form; the 3D step
+takes none of them yet and raises ``NotImplementedError``.  Without a
 capacity function dt/dx stays a scalar: ``dt/dx``, ``0.5 dt/dx`` and
 ``dt^2 / (6 dx dy)`` are Python floats, which PyTorch rounds to q's
-dtype where they meet a tensor.
+dtype where they meet a tensor.  Sums over the small wave and equation
+axes are written as explicit adds in a fixed order, so no result
+depends on how ATen splits or vectorises a reduction.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ import torch
 from .._slicing import slc
 from ..limiters import tvd
 from ..solver import _not_ported
-
 
 
 def _embed(v, like, starts):
@@ -37,28 +41,184 @@ def _embed(v, like, starts):
     return out
 
 
-def _correction_flux(wave, phi, s, dtdxave):
-    """Second-order correction flux at each interface (wave form):
-    cqxx = sum_p 0.5 |s^p| (1 - |s^p| dt/dx) phi^p W^p."""
+def _correction_flux(wave, phi, s, dtdxave, fwave):
+    """Second-order correction flux at each interface:
+    cqxx = sum_p 0.5 |s^p| (1 - |s^p| dt/dx) phi^p W^p     (wave form)
+    cqxx = sum_p 0.5 sign(s^p) (1 - |s^p| dt/dx) phi^p Z^p (f-wave form)
+    with sign(0) = 0; the sum over p runs in wave order."""
     abss = torch.abs(s)
-    coef = 0.5 * abss * (1.0 - abss * dtdxave)
-    return torch.sum((coef * phi)[None] * wave, dim=1)
+    if fwave:
+        coef = 0.5 * torch.sign(s) * (1.0 - abss * dtdxave)
+    else:
+        coef = 0.5 * abss * (1.0 - abss * dtdxave)
+    terms = (coef * phi)[None] * wave
+    cq = terms[:, 0]
+    for p in range(1, wave.shape[1]):
+        cq = cq + terms[:, p]
+    return cq
 
 
-def _sweep_normal(q, ixy, rp, params, mthlim, order, dtdx):
+def _sweep_normal(q, aux, ixy, rp, params, mthlim, order, fwave,
+                  dtdx_cells):
     """Normal Riemann sweep along axis ``ixy`` of a ghost-padded array:
-    (wave, s, amdq, apdq, cqxx) at every interface along that axis
-    (cqxx is None for order 1)."""
+    (wave, s, amdq, apdq, cqxx, dtdxave) at every interface along that
+    axis.  ``dtdx_cells`` is a Python float, or a per-cell tensor (with a
+    capacity function), whose interface value is the average of the two
+    cells'.  cqxx and dtdxave are None for order 1."""
     axis = 1 + ixy
     n = q.shape[axis]
     q_l, q_r = slc(q, axis, slice(0, n - 1)), slc(q, axis, slice(1, n))
-    wave, s, amdq, apdq = rp(ixy, q_l, q_r, None, None, params)
-    cqxx = None
+    aux_l = aux_r = None
+    if aux is not None:
+        aux_l, aux_r = slc(aux, axis, slice(0, n - 1)), slc(aux, axis,
+                                                            slice(1, n))
+    wave, s, amdq, apdq = rp(ixy, q_l, q_r, aux_l, aux_r, params)
+    cqxx = dtdxave = None
     if order == 2:
-        phi = tvd.limiter_phi(q.shape[0], wave, s, mthlim, dtdx=dtdx,
+        if isinstance(dtdx_cells, torch.Tensor):
+            dtdxave = 0.5 * (slc(dtdx_cells, ixy, slice(0, n - 1))
+                             + slc(dtdx_cells, ixy, slice(1, n)))
+        else:
+            dtdxave = dtdx_cells
+        phi = tvd.limiter_phi(q.shape[0], wave, s, mthlim, dtdx=dtdxave,
                               axis=axis - q.ndim)
-        cqxx = _correction_flux(wave, phi, s, dtdx)
-    return wave, s, amdq, apdq, cqxx
+        cqxx = _correction_flux(wave, phi, s, dtdxave, fwave)
+    return wave, s, amdq, apdq, cqxx, dtdxave
+
+
+def _pad_axis(a, axis, before, after):
+    """``a`` with ``before`` / ``after`` zero entries added along
+    ``axis``."""
+    pads = [0, 0] * a.ndim
+    k = 2 * (a.ndim - 1 - axis)
+    pads[k], pads[k + 1] = before, after
+    return torch.nn.functional.pad(a, pads)
+
+
+def step2(q, aux, dt, dx, dy, rp, rpt, params, mthlim, order, fwave,
+          index_capa, num_ghost, transverse_waves=2, prefactor=None):
+    """2D unsplit classic step (step2.f90 + flux2.f90).
+
+    q: (num_eqn, nx, ny) ghost-padded; aux: (num_aux, nx, ny) or None;
+    ``dt`` a Python float.  Normal fluctuations and correction fluxes
+    are full-grid tensors; the transverse pass adds the corner-transport
+    terms into the orthogonal flux as zero-padded shifted blocks (no
+    scatter).  ``transverse_waves``: 0 donor-cell corners, 1 transport of
+    the first-order fluctuations, 2 also of the correction waves
+    (flux2.f90 method(3)).  With a capacity function the transverse
+    coefficients are those of the receiving cell (flux2.f90
+    ``dtdx1d(i1)``).  Returns (q_interior, cfl)."""
+    g = num_ghost
+    num_eqn, nx, ny = q.shape
+    dt = float(dt)
+
+    capa = aux[index_capa] if index_capa >= 0 else None
+    if capa is None:
+        dtdx = dt / dx
+        dtdy = dt / dy
+    else:
+        dt_t = capa.new_full((), dt)
+        dtdx = dt_t / (dx * capa)
+        dtdy = dt_t / (dy * capa)
+
+    wx, sx, amdqx, apdqx, cqxx, _ = _sweep_normal(
+        q, aux, 0, rp, params, mthlim, order, fwave, dtdx)
+    wy, sy, amdqy, apdqy, cqyy, _ = _sweep_normal(
+        q, aux, 1, rp, params, mthlim, order, fwave, dtdy)
+
+    # CFL over the interfaces touching interior cells
+    sx_int = sx[:, g - 1:nx - g, g:ny - g]
+    sy_int = sy[:, g:nx - g, g - 1:ny - g]
+    if capa is None:
+        cflx = dtdx * torch.amax(torch.abs(sx_int))
+        cfly = dtdy * torch.amax(torch.abs(sy_int))
+    else:
+        cflx = torch.amax(torch.maximum(
+            sx_int * dtdx[None, g:nx - g + 1, g:ny - g],
+            -sx_int * dtdx[None, g - 1:nx - g, g:ny - g]))
+        cfly = torch.amax(torch.maximum(
+            sy_int * dtdy[None, g:nx - g, g:ny - g + 1],
+            -sy_int * dtdy[None, g:nx - g, g - 1:ny - g]))
+    cfl = torch.maximum(cflx, cfly)
+
+    # F~ at x-interfaces (num_eqn, nx-1, ny); G~ at y-interfaces
+    Fx = cqxx if cqxx is not None else torch.zeros_like(amdqx)
+    Gy = cqyy if cqyy is not None else torch.zeros_like(amdqy)
+
+    if rpt is not None and transverse_waves > 0:
+        if transverse_waves >= 2 and cqxx is not None:
+            amdqx_t, apdqx_t = amdqx + cqxx, apdqx - cqxx
+        else:
+            amdqx_t, apdqx_t = amdqx, apdqx
+        qx_l, qx_r = q[:, :-1], q[:, 1:]
+        auxx_l = auxx_r = None
+        if aux is not None:
+            auxx_l, auxx_r = aux[:, :-1], aux[:, 1:]
+        kwx = {} if prefactor is None else {
+            "eig": prefactor(0, qx_l, qx_r, auxx_l, auxx_r, params)}
+        bm_am, bp_am = rpt(0, 1, qx_l, qx_r, auxx_l, auxx_r, amdqx_t,
+                           params, **kwx)
+        bm_ap, bp_ap = rpt(0, 2, qx_l, qx_r, auxx_l, auxx_r, apdqx_t,
+                           params, **kwx)
+
+        # x-interface k lies between cells k and k+1; its A-dQ parts go
+        # to Gy row i = k (i0 = 0), its A+dQ parts to row k+1 (i0 = 1):
+        # below-going parts of source column j to y-interface j-1,
+        # above-going to y-interface j, with the receiving cell's
+        # coefficient
+        def transverse_contrib(bm, bp, i0):
+            if capa is None:
+                c_lo = c_hi = 0.5 * dtdx
+            else:
+                nxm1 = bm.shape[1]
+                c_lo = 0.5 * dtdx[None, i0:i0 + nxm1, 1:]
+                c_hi = 0.5 * dtdx[None, i0:i0 + nxm1, :-1]
+            block = c_lo * bm[:, :, 1:] + c_hi * bp[:, :, :-1]
+            return _pad_axis(block, 1, i0, 1 - i0)
+
+        Gy = Gy - transverse_contrib(bm_am, bp_am, 0) \
+                - transverse_contrib(bm_ap, bp_ap, 1)
+
+        if transverse_waves >= 2 and cqyy is not None:
+            amdqy_t, apdqy_t = amdqy + cqyy, apdqy - cqyy
+        else:
+            amdqy_t, apdqy_t = amdqy, apdqy
+        qy_l, qy_r = q[:, :, :-1], q[:, :, 1:]
+        auxy_l = auxy_r = None
+        if aux is not None:
+            auxy_l, auxy_r = aux[:, :, :-1], aux[:, :, 1:]
+        kwy = {} if prefactor is None else {
+            "eig": prefactor(1, qy_l, qy_r, auxy_l, auxy_r, params)}
+        am_bm, ap_bm = rpt(1, 1, qy_l, qy_r, auxy_l, auxy_r, amdqy_t,
+                           params, **kwy)
+        am_bp, ap_bp = rpt(1, 2, qy_l, qy_r, auxy_l, auxy_r, apdqy_t,
+                           params, **kwy)
+
+        def transverse_contrib_y(am, ap, j0):
+            if capa is None:
+                c_lo = c_hi = 0.5 * dtdy
+            else:
+                nym1 = am.shape[2]
+                c_lo = 0.5 * dtdy[None, 1:, j0:j0 + nym1]
+                c_hi = 0.5 * dtdy[None, :-1, j0:j0 + nym1]
+            block = c_lo * am[:, 1:, :] + c_hi * ap[:, :-1, :]
+            return _pad_axis(block, 2, j0, 1 - j0)
+
+        Fx = Fx - transverse_contrib_y(am_bm, ap_bm, 0) \
+                - transverse_contrib_y(am_bp, ap_bp, 1)
+
+    # ---- update of cells 1..nx-2 (x) and 1..ny-2 (y) ---------------------
+    qc = q[:, 1:-1, 1:-1]
+    if capa is None:
+        dtdx_c, dtdy_c = dtdx, dtdy
+    else:
+        dtdx_c, dtdy_c = dtdx[1:-1, 1:-1], dtdy[1:-1, 1:-1]
+    dq = (apdqx[:, :-1, 1:-1] + amdqx[:, 1:, 1:-1]
+          + Fx[:, 1:, 1:-1] - Fx[:, :-1, 1:-1]) * dtdx_c \
+        + (apdqy[:, 1:-1, :-1] + amdqy[:, 1:-1, 1:]
+           + Gy[:, 1:-1, 1:] - Gy[:, 1:-1, :-1]) * dtdy_c
+    q_new = qc - dq
+    return q_new[:, g - 1:nx - 1 - g, g - 1:ny - 1 - g], cfl
 
 
 def _step3_sweeps(q, dt, deltas, rp, params, mthlim, order, num_ghost):
@@ -70,8 +230,8 @@ def _step3_sweeps(q, dt, deltas, rp, params, mthlim, order, num_ghost):
     cfl = None
     for d in range(3):
         dtdx = dt / deltas[d]
-        _, s, amdq, apdq, cqxx = _sweep_normal(q, d, rp, params, mthlim,
-                                               order, dtdx)
+        _, s, amdq, apdq, cqxx, _ = _sweep_normal(q, None, d, rp, params,
+                                                  mthlim, order, False, dtdx)
         waves[d] = (amdq, apdq, cqxx)
         s_int = slc(s, 1 + d, slice(g - 1, shape[d] - g))
         for d2 in range(3):

@@ -4,9 +4,11 @@ Counterpart of ``pyclaw_tpu/classic/solver.py`` (``ClawSolver :30-107``,
 ``ClawSolver2D :134-168``, ``_soa_eligible :387-398``, ``ClawSolver3D
 :401-528``), a rebuild of reference ``src/pyclaw/classic/solver.py``.
 ``setup`` builds one step function ``_step_fn(q, aux, dt, t) -> (q_new,
-cfl)``: BC extension, then ``ops.tiled2d.step2_rows`` (2D) or
-``ops.tiled2d.step3_xy`` (3D), which launch the CUDA kernel on a CUDA
-tensor and run the plain PyTorch version on a CPU tensor.
+cfl)``: BC extension of q (and aux), then ``ops.tiled2d.step2_rows`` (2D,
+the SoA Euler step), ``ops.tiled2d.step2_rows_generic`` (2D, the generic
+AoS step: aux, capacity, f-waves) or ``ops.tiled2d.step3_xy`` (3D), which
+launch the CUDA kernel on a CUDA tensor and run the plain PyTorch version
+on a CPU tensor.
 
 Options of the JAX package that this slice does not port raise
 ``NotImplementedError`` at setup, naming their ROADMAP.md item.
@@ -48,8 +50,6 @@ class ClawSolver(Solver):
         self._check_setup(state)
         if self.step_source is not None:
             raise _not_ported("step_source")
-        if self.fwave:
-            raise _not_ported("fwave")
         self._size_bc_lists(self.num_dim)
         if self.dt_initial is not None:
             self.dt = self.dt_initial
@@ -64,8 +64,10 @@ class ClawSolver2D(ClawSolver):
     """2D unsplit classic solver with transverse corner transport
     (step2.f90/flux2.f90 path).  ``transverse_waves`` ∈ {0, 1, 2}: 0 =
     donor-cell, 1 = corner transport of the first-order fluctuations,
-    2 = also of the second-order correction waves."""
+    2 = also of the second-order correction waves.  Takes aux arrays, a
+    capacity function (``state.index_capa``) and ``fwave``."""
     num_dim = 2
+    takes_aux = True
 
     def __init__(self, riemann_solver=None, device=None):
         super().__init__(riemann_solver, device=device)
@@ -76,8 +78,6 @@ class ClawSolver2D(ClawSolver):
     def _make_hyperbolic_step(self, state):
         if self.dimensional_split:
             raise _not_ported("dimensional_split")
-        if not self._soa_eligible(state):
-            raise _not_ported("generic AoS 2D step")
         if self.num_ghost != 2:
             raise ValueError("the 2D CTU step needs num_ghost=2")
         params = self._weak_params(state.problem_data)
@@ -86,18 +86,37 @@ class ClawSolver2D(ClawSolver):
         tw = self.transverse_waves
         g = self.num_ghost
         dx, dy = state.patch.delta
-        tiled2d.check_options(mthlim, order, tw)
+        if self._soa_eligible(state):
+            tiled2d.check_options(mthlim, order, tw)
+
+            def step_fn(q, aux, dt, t):
+                qbc, _ = self._extend_bc(q, aux, t, state)
+                return tiled2d.step2_rows(qbc, dt, dx, dy, params, mthlim,
+                                          order, g, tw)
+            return step_fn
+
+        # the generic AoS step (any system with AoS hooks; on the card the
+        # systems of tiled2d.AOS_SYSTEMS, the wrapper raises for others)
+        rp = self.rp
+        if rp.rp is None:
+            raise _not_ported("generic AoS 2D step")
+        tiled2d.check_options(mthlim, order, tw, rp.num_waves,
+                              "step2_rows_generic")
+        fwave = self.fwave
+        index_capa = state.index_capa
 
         def step_fn(q, aux, dt, t):
-            qbc = self._extend_bc(q, t, state)
-            return tiled2d.step2_rows(qbc, dt, dx, dy, params, mthlim, order,
-                                      g, tw)
+            qbc, auxbc = self._extend_bc(q, aux, t, state)
+            return tiled2d.step2_rows_generic(qbc, auxbc, dt, dx, dy, rp,
+                                              params, mthlim, order, fwave,
+                                              index_capa, g, tw)
         return step_fn
 
     def _soa_eligible(self, state):
-        """The SoA CTU step covers the no-aux / no-capacity / wave-form
-        case of a solver with SoA hooks; the kernel covers the Euler
-        4-wave system."""
+        """The JAX package's test (``classic/solver.py:387-398``): the SoA
+        CTU step covers the no-aux / no-capacity / wave-form case of a
+        solver with SoA hooks.  The port's SoA kernel covers the Euler
+        4-wave system only."""
         if self.use_soa is False:
             return False
         return (self.rp.rpn_soa is not None
@@ -137,6 +156,8 @@ class ClawSolver3D(ClawSolver):
     def _make_hyperbolic_step(self, state):
         if self.dimensional_split:
             raise _not_ported("dimensional_split")
+        if self.fwave:
+            raise _not_ported("fwave")
         if self.rp.name != "euler_3D":
             raise NotImplementedError(
                 f"the 3D step of {self.rp.name} is not ported to "
@@ -152,7 +173,7 @@ class ClawSolver3D(ClawSolver):
         tiled2d.check_options(mthlim, order, tw, 5, "step3_xy")
 
         def step_fn(q, aux, dt, t):
-            qbc = self._extend_bc(q, t, state)
+            qbc, _ = self._extend_bc(q, aux, t, state)
             return tiled2d.step3_xy(qbc, dt, dx, dy, dz, params, mthlim,
                                     order, g, tw)
         return step_fn

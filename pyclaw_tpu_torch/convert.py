@@ -16,21 +16,33 @@ from .solution import Solution
 from .state import State
 
 SETTINGS = ("limiters", "order", "transverse_waves", "bc_lower",
-            "bc_upper", "cfl_max", "cfl_desired", "dt_initial", "dt_max",
-            "dt_variable", "max_steps", "time_integrator", "weno_order",
-            "lim_type", "char_decomp")
+            "bc_upper", "aux_bc_lower", "aux_bc_upper", "fwave", "cfl_max",
+            "cfl_desired", "dt_initial", "dt_max", "dt_variable",
+            "max_steps", "time_integrator", "weno_order", "lim_type",
+            "char_decomp")
 
 
-def solution_from_arrays(q, problem_data, lower, upper, num_cells, t=0.0):
+def solution_from_arrays(q, problem_data, lower, upper, num_cells, t=0.0,
+                         aux=None, index_capa=-1):
     """Solution on Domain(lower, upper, num_cells) holding a copy of
-    ``q`` (num_eqn, *num_cells), in q's dtype, at time ``t``."""
+    ``q`` (num_eqn, *num_cells), in q's dtype, at time ``t``; with ``aux``
+    (num_aux, *num_cells) a copy of it in q's dtype, and ``index_capa``
+    its capacity row (-1: none)."""
     q = np.asarray(q)
     domain = Domain(list(lower), list(upper), list(num_cells))
     if tuple(q.shape[1:]) != tuple(domain.patch.num_cells_global):
         raise ValueError(f"q shape {q.shape} does not match num_cells "
                          f"{num_cells}")
-    state = State(domain, q.shape[0], dtype=q.dtype)
+    num_aux = 0 if aux is None else np.asarray(aux).shape[0]
+    state = State(domain, q.shape[0], num_aux, dtype=q.dtype)
     state.q = np.array(q, copy=True)
+    if aux is not None:
+        aux = np.asarray(aux)
+        if aux.shape[1:] != q.shape[1:]:
+            raise ValueError(f"aux shape {aux.shape} does not match q "
+                             f"shape {q.shape}")
+        state.aux = np.array(aux, dtype=q.dtype, copy=True)
+    state.index_capa = int(index_capa)
     state.t = float(t)
     state.problem_data = {k: (v.item() if isinstance(v, np.generic) else v)
                           for k, v in problem_data.items()}

@@ -1,0 +1,610 @@
+// step2_aos.cu — the whole 2D unsplit classic (CTU) step of the generic
+// AoS form, one launch per step, for Hopper (sm_90a): any registered
+// system of csrc/shallow2d.cuh, with aux arrays, a capacity function and
+// the f-wave correction form.
+//
+// Replaces the TPU kernels that run the generic body
+// pyclaw_tpu/classic/kernels.py:step2 (and its roll form step2_roll):
+// pyclaw_tpu/ops/tiled2d.py:step2_pallas_rows with rpn_soa=None
+// (pallas_call at :301), ops/tiled2d.py:step2_pallas_tiled_generic (:609)
+// and ops/sweep2d.py:step2_pallas (:41), which the JAX package picks by
+// grid shape; this kernel takes any (nx, ny).  Its plain PyTorch version
+// is pyclaw_tpu_torch/classic/kernels.py:step2, which it is held against on
+// the card (chip_smoke.py) and, through the host emulation at the end of
+// this file, on the CPU (tests/test_torch_step2_aos.py).
+//
+// What bounds it on the card: per cell it reads 3 values of q (and 0-2 of
+// aux) and writes 3 (least traffic 24 B/cell in f32), but it does ~900
+// floating-point operations per cell (two normal solves with the entropy
+// fix, the limiter, four transverse splits, the fold), among them divides
+// and square roots.  So it is bound by operations; chip_smoke.py computes
+// both bounds from the count in `FLOPS_PER_CELL_AOS` there.
+//
+// Design (that of step2_ctu.cu): a block owns a TX x TY tile of output
+// cells and stages q, the aux fields the system reads and, with a capacity
+// function, the per-cell dt/(dx kappa) and dt/(dy kappa), with a 2-cell
+// halo in shared memory.  Interface quantities live in shared memory only:
+// the waves and speeds of each normal solve (for the limiter), the
+// fluctuations, the correction flux and the four rpt2 parts.  rpt2's
+// scatter into the orthogonal flux is written as a gather (no atomics),
+// with the coefficient of the receiving cell (flux2.f90 dtdx1d(i1)).
+// Ragged edges are masked, so any (nx, ny) works.
+//
+// Phases (each a loop of the block's threads over a region, separated by
+// barriers):
+//   load      q, aux tile + halo -> shared (indices clamped to the padded
+//             grid; clamped cells only feed masked-out results); per-cell
+//             dtdx, dtdy with a capacity function
+//   rpn<0>    x-interface waves, speeds -> W; fluctuations -> OX
+//   sweep<0>  x-interface limiter, correction flux, the rpt2 splits of
+//             amdq(+cq) and apdq(-cq) -> OX; CFL partial max
+//   rpn<1>, sweep<1>: the same for y -> W (reused), OY
+//   update    each cell gathers the transverse terms of its four neighbour
+//             interfaces into Fx/Gy and applies the conservative update
+//   reduce    tree max of the CFL partials; one value per block
+//
+// Template parameters: the system (its normal and transverse solvers),
+// the type, the tile, CAPA (per-cell dtdx) and FWAVE (the correction
+// form 0.5 sign(s) (1 - |s| dt/dx), with sign(0) = 0).  The arithmetic
+// repeats the plain version operation for operation, and the source is
+// built without fused multiply-adds (ops/_build.py: -fmad=false), so each
+// operation rounds as PyTorch's does: the f-wave correction and split
+// jump where a speed crosses zero, and a contracted multiply-add that
+// moved such a speed across zero moved the result by a whole wave.
+
+#include "shallow2d.cuh"
+#include "tvd.cuh"
+
+namespace {
+
+constexpr int NT = 256;  // threads per block
+
+template <typename S, typename T, int TX, int TY, bool CAPA> struct Tile {
+  static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
+  static constexpr int QR = TX + 4, QC = TY + 4, QN = QR * QC;  // + halo
+  static constexpr int WXR = TX + 3, WXC = TY + 2;    // x solve region
+  static constexpr int WYR = TX + 2, WYC = TY + 3;    // y solve region
+  static constexpr int WN = WXR * WXC > WYR * WYC ? WXR * WXC : WYR * WYC;
+  static constexpr int NWF = NW * NEQ + NW;           // waves, speeds
+  static constexpr int OXR = TX + 1, OXC = TY + 2;    // x-interface outputs
+  static constexpr int OYR = TX + 2, OYC = TY + 1;    // y-interface outputs
+  static constexpr int OXN = OXR * OXC, OYN = OYR * OYC;
+  // amdq apdq cq bm(am) bp(am) bm(ap) bp(ap), NEQ each
+  static constexpr int NOF = 7 * NEQ;
+  static constexpr size_t elems = NEQ * QN + NAUX * QN + (CAPA ? 2 * QN : 0)
+      + NWF * WN + NOF * OXN + NOF * OYN + 2 * NT;
+  static constexpr size_t bytes = elems * sizeof(T);
+};
+
+// field offsets inside an O array (times the region size), times NEQ
+enum { F_AM = 0, F_AP = 1, F_CQ = 2, F_T0 = 3, F_T1 = 4, F_T2 = 5,
+       F_T3 = 6 };
+
+template <typename T> struct Args {
+  const T* qbc;
+  const T* aux;
+  T* qout;
+  T* cflb;
+  int NX, NY;           // padded (ghost-extended) extents
+  int capa;             // aux row of the capacity function (CAPA only)
+  T dt, dx, dy;         // for the per-cell dt/(dx kappa)
+  T dtdx, dtdy, hdx, hdy;  // dt/dx, dt/dy, 0.5 dt/dx, 0.5 dt/dy
+  Sw<T> P;
+  int order, tw;
+  int lim[3];
+};
+
+template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
+  using L = Tile<S, T, TX, TY, CAPA>;
+  T* q;    // [NEQ][QR][QC]
+  T* a;    // [NAUX][QR][QC]
+  T* DX;   // [QR][QC] dt/(dx kappa) (CAPA)
+  T* DY;   // [QR][QC] dt/(dy kappa) (CAPA)
+  T* W;    // [NWF][WN]: wave p component e at (p*NEQ+e), speeds after
+  T* OX;   // [NOF][OXN]
+  T* OY;   // [NOF][OYN]
+  T* rx;   // [NT] x CFL partial max
+  T* ry;   // [NT] y CFL partial max
+  int I0, J0, bid;  // first interior cell of the tile (padded indices)
+
+  HD void bind(T* s, int bx, int by, int nbx) {
+    q = s;
+    a = q + L::NEQ * L::QN;
+    DX = a + L::NAUX * L::QN;
+    DY = DX + (CAPA ? L::QN : 0);
+    W = DY + (CAPA ? L::QN : 0);
+    OX = W + L::NWF * L::WN;
+    OY = OX + L::NOF * L::OXN;
+    rx = OY + L::NOF * L::OYN;
+    ry = rx + NT;
+    I0 = 2 + by * TX;
+    J0 = 2 + bx * TY;
+    bid = by * nbx + bx;
+  }
+  HD void cell(int r, int c, T qv[], T av[]) const {
+    for (int e = 0; e < L::NEQ; ++e) qv[e] = q[e * L::QN + r * L::QC + c];
+    for (int m = 0; m < L::NAUX; ++m) av[m] = a[m * L::QN + r * L::QC + c];
+  }
+  // dt/dx (D = 0) or dt/dy (D = 1) of the tile cell (r, c)
+  template <int D> HD T dtd(const Args<T>& A, int r, int c) const {
+    if (CAPA) return (D == 0 ? DX : DY)[r * L::QC + c];
+    return D == 0 ? A.dtdx : A.dtdy;
+  }
+};
+
+// ---- phase: stage q, aux tile + halo -------------------------------------
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void phase_load(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
+  using L = Tile<S, T, TX, TY, CAPA>;
+  constexpr int NF = L::NEQ + L::NAUX + (CAPA ? 1 : 0);
+  for (int idx = tid; idx < NF * L::QN; idx += NT) {
+    int f = idx / L::QN, rc = idx % L::QN;
+    int r = rc / L::QC, c = rc % L::QC;
+    int I = B.I0 - 2 + r, J = B.J0 - 2 + c;
+    I = I < A.NX ? I : A.NX - 1;
+    J = J < A.NY ? J : A.NY - 1;
+    const long long off = (long long)I * A.NY + J;
+    const long long plane = (long long)A.NX * A.NY;
+    if (f < L::NEQ) {
+      B.q[idx] = A.qbc[f * plane + off];
+    } else if (f < L::NEQ + L::NAUX) {
+      B.a[(f - L::NEQ) * L::QN + rc] = A.aux[(f - L::NEQ) * plane + off];
+    } else {
+      const T kappa = A.aux[A.capa * plane + off];
+      B.DX[rc] = A.dt / (A.dx * kappa);
+      B.DY[rc] = A.dt / (A.dy * kappa);
+    }
+  }
+  B.rx[tid] = T(0);
+  B.ry[tid] = T(0);
+}
+
+// ---- phase: normal solves at one set of interfaces ------------------------
+template <int IXY, typename S, typename T, int TX, int TY, bool CAPA>
+HD void phase_rpn(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
+  using L = Tile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, NW = L::NW;
+  constexpr int R = IXY == 0 ? L::WXR : L::WYR;
+  constexpr int C = IXY == 0 ? L::WXC : L::WYC;
+  constexpr int OC = IXY == 0 ? L::OXC : L::OYC;
+  constexpr int ON = IXY == 0 ? L::OXN : L::OYN;
+  T* O = IXY == 0 ? B.OX : B.OY;
+  for (int idx = tid; idx < R * C; idx += NT) {
+    int r = idx / C, c = idx % C;
+    // left cell: x (r, c+1), y (r+1, c); right cell (r+1, c+1)
+    T ql[NEQ], qr[NEQ], al[L::NAUX + 1], ar[L::NAUX + 1];
+    B.cell(IXY == 0 ? r : r + 1, IXY == 0 ? c + 1 : c, ql, al);
+    B.cell(r + 1, c + 1, qr, ar);
+    T w[NW][NEQ], s[NW], am[NEQ], ap[NEQ];
+    S::template rpn<IXY, T>(A.P, ql, qr, al, ar, w, s, am, ap);
+    for (int p = 0; p < NW; ++p) {
+      for (int e = 0; e < NEQ; ++e) B.W[(p * NEQ + e) * L::WN + idx] = w[p][e];
+      B.W[(NW * NEQ + p) * L::WN + idx] = s[p];
+    }
+    // the fluctuations of the interfaces the sweep phase keeps
+    int orow = IXY == 0 ? r - 1 : r, ocol = IXY == 0 ? c : c - 1;
+    int orows = IXY == 0 ? L::OXR : L::OYR;
+    if (orow >= 0 && orow < orows && ocol >= 0 && ocol < OC) {
+      int o = orow * OC + ocol;
+      for (int e = 0; e < NEQ; ++e) {
+        O[(F_AM * NEQ + e) * ON + o] = am[e];
+        O[(F_AP * NEQ + e) * ON + o] = ap[e];
+      }
+    }
+  }
+}
+
+// ---- phase: limiter, correction flux, transverse split, CFL --------------
+template <int IXY, bool FWAVE, typename S, typename T, int TX, int TY,
+          bool CAPA>
+HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
+  using L = Tile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, NW = L::NW, WN = L::WN;
+  constexpr int R = IXY == 0 ? L::OXR : L::OYR;
+  constexpr int C = IXY == 0 ? L::OXC : L::OYC;
+  constexpr int WC = IXY == 0 ? L::WXC : L::WYC;
+  constexpr int ON = R * C;
+  T* O = IXY == 0 ? B.OX : B.OY;
+  T cmax = IXY == 0 ? B.rx[tid] : B.ry[tid];
+  for (int idx = tid; idx < ON; idx += NT) {
+    int r = idx / C, c = idx % C;
+    // own interface and its lower/upper neighbours along the sweep axis
+    int own = IXY == 0 ? (r + 1) * WC + c : r * WC + c + 1;
+    int lo = r * WC + c;
+    int hi = IXY == 0 ? (r + 2) * WC + c : r * WC + c + 2;
+    // the interface's left and right cells in the tile
+    int lr = r + 1, lc = c + 1;
+    int rr = IXY == 0 ? r + 2 : r + 1, rc = IXY == 0 ? c + 1 : c + 2;
+    const T dl = B.template dtd<IXY>(A, lr, lc);
+    const T dr = B.template dtd<IXY>(A, rr, rc);
+    const T dtdx = CAPA ? T(0.5) * (dl + dr) : dl;
+    T w[NW][NEQ], s[NW];
+    for (int p = 0; p < NW; ++p) {
+      for (int e = 0; e < NEQ; ++e) w[p][e] = B.W[(p * NEQ + e) * WN + own];
+      s[p] = B.W[(NW * NEQ + p) * WN + own];
+    }
+
+    T cq[NEQ];
+    for (int e = 0; e < NEQ; ++e) cq[e] = T(0);
+    if (A.order == 2) {
+      T cf[NW];
+      for (int p = 0; p < NW; ++p) {
+        T wn2 = w[p][0] * w[p][0];
+        T dlo = B.W[(p * NEQ) * WN + lo] * w[p][0];
+        T dhi = w[p][0] * B.W[(p * NEQ) * WN + hi];
+        for (int e = 1; e < NEQ; ++e) {
+          wn2 = wn2 + w[p][e] * w[p][e];
+          dlo = dlo + B.W[(p * NEQ + e) * WN + lo] * w[p][e];
+          dhi = dhi + w[p][e] * B.W[(p * NEQ + e) * WN + hi];
+        }
+        T phi = T(1);
+        const int lid = A.lim[p];
+        if (lid != 0) {
+          const bool safe = wn2 > T(0);
+          const T theta = safe ? (s[p] > T(0) ? dlo : dhi) / wn2 : T(0);
+          const T ph = phi_limiter<T>(lid, theta, fabs_(s[p]) * dtdx);
+          phi = safe ? ph : T(1);
+        }
+        const T abss = fabs_(s[p]);
+        const T lead = FWAVE
+            ? T(0.5) * T((s[p] > T(0)) - (s[p] < T(0)))
+            : T(0.5) * abss;
+        cf[p] = lead * (T(1) - abss * dtdx) * phi;
+      }
+      for (int e = 0; e < NEQ; ++e) {
+        T acc = cf[0] * w[0][e];
+        for (int p = 1; p < NW; ++p) acc = acc + cf[p] * w[p][e];
+        cq[e] = acc;
+      }
+    }
+    for (int e = 0; e < NEQ; ++e) O[(F_CQ * NEQ + e) * ON + idx] = cq[e];
+
+    if (A.tw > 0) {
+      const bool both = A.tw >= 2 && A.order == 2;
+      T amt[NEQ], apt[NEQ], bm[NEQ], bp[NEQ], ql[NEQ], qr[NEQ];
+      T ax[L::NAUX + 1];
+      for (int e = 0; e < NEQ; ++e) {
+        const T am = O[(F_AM * NEQ + e) * ON + idx];
+        const T ap = O[(F_AP * NEQ + e) * ON + idx];
+        amt[e] = both ? am + cq[e] : am;
+        apt[e] = both ? ap - cq[e] : ap;
+      }
+      B.cell(lr, lc, ql, ax);
+      B.cell(rr, rc, qr, ax);
+      rpt2_shallow<IXY, T>(A.P, ql, qr, amt, bm, bp);
+      for (int e = 0; e < NEQ; ++e) {
+        O[(F_T0 * NEQ + e) * ON + idx] = bm[e];
+        O[(F_T1 * NEQ + e) * ON + idx] = bp[e];
+      }
+      rpt2_shallow<IXY, T>(A.P, ql, qr, apt, bm, bp);
+      for (int e = 0; e < NEQ; ++e) {
+        O[(F_T2 * NEQ + e) * ON + idx] = bm[e];
+        O[(F_T3 * NEQ + e) * ON + idx] = bp[e];
+      }
+    }
+
+    // CFL window: interfaces touching the interior (kernels.py step2)
+    bool in_cfl;
+    if (IXY == 0) {   // x-interface k = I0-1+r, column J = J0-1+c
+      int k = B.I0 - 1 + r, J = B.J0 - 1 + c;
+      in_cfl = k < A.NX - 2 && c >= 1 && c <= TY && J < A.NY - 2;
+    } else {          // y-interface row i = I0-1+r, j = J0-1+c
+      int i = B.I0 - 1 + r, j = B.J0 - 1 + c;
+      in_cfl = r >= 1 && r <= TX && i < A.NX - 2 && j < A.NY - 2;
+    }
+    if (in_cfl) {
+      for (int p = 0; p < NW; ++p) {
+        if (CAPA) cmax = mx(cmax, mx(s[p] * dr, -s[p] * dl));
+        else cmax = mx(cmax, fabs_(s[p]));
+      }
+    }
+  }
+  if (IXY == 0) B.rx[tid] = cmax; else B.ry[tid] = cmax;
+}
+
+// ---- phase: transverse fold (gather) + conservative update ---------------
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void phase_update(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
+  using L = Tile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ;
+  constexpr int OXC = L::OXC, OYC = L::OYC, OXN = L::OXN, OYN = L::OYN;
+  const T* OX = B.OX;
+  const T* OY = B.OY;
+  // field f, component e of the x- (X) or y-interface (Y) at (r, c)
+  auto X = [&](int f, int e, int r, int c) {
+    return OX[(f * NEQ + e) * OXN + r * OXC + c];
+  };
+  auto Y = [&](int f, int e, int r, int c) {
+    return OY[(f * NEQ + e) * OYN + r * OYC + c];
+  };
+  const int nx = A.NX - 4, ny = A.NY - 4;
+  for (int idx = tid; idx < TX * TY; idx += NT) {
+    int ti = idx / TY, tj = idx % TY;
+    int I = B.I0 + ti, J = B.J0 + tj;
+    if (I >= A.NX - 2 || J >= A.NY - 2) continue;
+    // coefficients of the receiving cells: Fx at x-interface k = I-1+h
+    // takes the y parts of cells k (hi) and k+1 (lo) of column J; Gy at
+    // y-interface j = J-1+h those of cells j (hi) and j+1 (lo) of row I
+    T fy_lo[2], fy_hi[2], gx_lo[2], gx_hi[2];
+    for (int h = 0; h < 2; ++h) {
+      if (CAPA) {
+        fy_lo[h] = T(0.5) * B.template dtd<1>(A, ti + 2 + h, tj + 2);
+        fy_hi[h] = T(0.5) * B.template dtd<1>(A, ti + 1 + h, tj + 2);
+        gx_lo[h] = T(0.5) * B.template dtd<0>(A, ti + 2, tj + 2 + h);
+        gx_hi[h] = T(0.5) * B.template dtd<0>(A, ti + 2, tj + 1 + h);
+      } else {
+        fy_lo[h] = fy_hi[h] = A.hdy;
+        gx_lo[h] = gx_hi[h] = A.hdx;
+      }
+    }
+    const T dxc = B.template dtd<0>(A, ti + 2, tj + 2);
+    const T dyc = B.template dtd<1>(A, ti + 2, tj + 2);
+    for (int e = 0; e < NEQ; ++e) {
+      T F[2], G[2];
+      for (int h = 0; h < 2; ++h) {
+        // Fx at OX row ti+h, column tj+1; y parts from OY rows rk, rk+1
+        int rk = ti + h;
+        T f = X(F_CQ, e, rk, tj + 1);
+        if (A.tw > 0) {
+          f = f - (fy_lo[h] * Y(F_T0, e, rk + 1, tj + 1)
+                   + fy_hi[h] * Y(F_T1, e, rk, tj + 1));
+          f = f - (fy_lo[h] * Y(F_T2, e, rk + 1, tj)
+                   + fy_hi[h] * Y(F_T3, e, rk, tj));
+        }
+        F[h] = f;
+        // Gy at OY row ti+1, column cj; x parts from OX rows ti, ti+1
+        int cj = tj + h;
+        T gy = Y(F_CQ, e, ti + 1, cj);
+        if (A.tw > 0) {
+          gy = gy - (gx_lo[h] * X(F_T0, e, ti + 1, cj + 1)
+                     + gx_hi[h] * X(F_T1, e, ti + 1, cj));
+          gy = gy - (gx_lo[h] * X(F_T2, e, ti, cj + 1)
+                     + gx_hi[h] * X(F_T3, e, ti, cj));
+        }
+        G[h] = gy;
+      }
+      const T apx = X(F_AP, e, ti, tj + 1), amx = X(F_AM, e, ti + 1, tj + 1);
+      const T apy = Y(F_AP, e, ti + 1, tj), amy = Y(F_AM, e, ti + 1, tj + 1);
+      const T dq = (apx + amx + F[1] - F[0]) * dxc
+                 + (apy + amy + G[1] - G[0]) * dyc;
+      A.qout[((long long)e * nx + (I - 2)) * ny + (J - 2)] =
+          B.q[e * L::QN + (ti + 2) * L::QC + tj + 2] - dq;
+    }
+  }
+}
+
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void phase_reduce(Block<S, T, TX, TY, CAPA>& B, int tid, int stride) {
+  if (tid < stride) {
+    B.rx[tid] = mx(B.rx[tid], B.rx[tid + stride]);
+    B.ry[tid] = mx(B.ry[tid], B.ry[tid + stride]);
+  }
+}
+
+// one CFL value per block: max(s dt/dx) over the block's window; without a
+// capacity function the partials hold max|s| and the scalar dt/dx is
+// applied here (the same value: the product is monotone)
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void phase_write_cfl(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
+                        int tid) {
+  if (tid != 0) return;
+  A.cflb[B.bid] = CAPA ? mx(B.rx[0], B.ry[0])
+                       : mx(A.dtdx * B.rx[0], A.dtdy * B.ry[0]);
+}
+
+// Tile shape per type: 16x16 cells in f32 (~80 KB of shared memory for
+// shallow water), 8x16 in f64 (~90 KB): two blocks per SM.
+template <typename T> struct Shape;
+template <> struct Shape<float> { static constexpr int TX = 16, TY = 16; };
+template <> struct Shape<double> { static constexpr int TX = 8, TY = 16; };
+
+template <typename T>
+Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
+                  int nxg, int nyg, int capa, double dt, double dx,
+                  double dy, double grav, double dry, int order, int tw,
+                  const int* lim) {
+  Args<T> A;
+  A.qbc = static_cast<const T*>(qbc);
+  A.aux = static_cast<const T*>(aux);
+  A.qout = static_cast<T*>(qout);
+  A.cflb = static_cast<T*>(cflb);
+  A.NX = nxg;
+  A.NY = nyg;
+  A.capa = capa;
+  A.dt = T(dt);
+  A.dx = T(dx);
+  A.dy = T(dy);
+  // Python floats of the plain version, rounded once to T
+  A.dtdx = T(dt / dx);
+  A.dtdy = T(dt / dy);
+  A.hdx = T(0.5 * (dt / dx));
+  A.hdy = T(0.5 * (dt / dy));
+  A.P.g = T(grav);
+  A.P.hg = T(grav * 0.5);
+  A.P.dry = T(dry);
+  A.order = order;
+  A.tw = tw;
+  for (int p = 0; p < 3; ++p) A.lim[p] = lim[p];
+  return A;
+}
+
+template <typename T>
+void grid_of(int nxg, int nyg, int& nbx, int& nby) {
+  nbx = (nyg - 4 + Shape<T>::TY - 1) / Shape<T>::TY;
+  nby = (nxg - 4 + Shape<T>::TX - 1) / Shape<T>::TX;
+}
+
+template <typename S, typename T, bool CAPA> constexpr size_t smem_bytes() {
+  return Tile<S, T, Shape<T>::TX, Shape<T>::TY, CAPA>::bytes;
+}
+
+template <typename S> int smem_of(bool capa, bool is_double) {
+  if (is_double) {
+    return (int)(capa ? smem_bytes<S, double, true>()
+                      : smem_bytes<S, double, false>());
+  }
+  return (int)(capa ? smem_bytes<S, float, true>()
+                    : smem_bytes<S, float, false>());
+}
+
+#if defined(__CUDACC__)
+template <typename S, typename T, int TX, int TY, bool CAPA, bool FWAVE>
+__global__ void __launch_bounds__(NT) step2_aos_kernel(Args<T> A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Block<S, T, TX, TY, CAPA> B;
+  B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x);
+  const int t = threadIdx.x;
+  phase_load<S, T, TX, TY, CAPA>(A, B, t);
+  __syncthreads();
+  phase_rpn<0, S, T, TX, TY, CAPA>(A, B, t);
+  __syncthreads();
+  phase_sweep<0, FWAVE, S, T, TX, TY, CAPA>(A, B, t);
+  __syncthreads();
+  phase_rpn<1, S, T, TX, TY, CAPA>(A, B, t);
+  __syncthreads();
+  phase_sweep<1, FWAVE, S, T, TX, TY, CAPA>(A, B, t);
+  __syncthreads();
+  phase_update<S, T, TX, TY, CAPA>(A, B, t);
+  __syncthreads();
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    phase_reduce<S, T, TX, TY, CAPA>(B, t, s);
+    __syncthreads();
+  }
+  phase_write_cfl<S, T, TX, TY, CAPA>(A, B, t);
+}
+
+template <typename S, typename T, bool CAPA, bool FWAVE>
+int launch(const Args<T>& A, int nbx, int nby, void* stream) {
+  constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
+  constexpr size_t bytes = smem_bytes<S, T, CAPA>();
+  // The limit applies to the current device only: set it on every launch.
+  cudaError_t err = cudaFuncSetAttribute(
+      step2_aos_kernel<S, T, TX, TY, CAPA, FWAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  step2_aos_kernel<S, T, TX, TY, CAPA, FWAVE>
+      <<<dim3(nbx, nby), NT, bytes, static_cast<cudaStream_t>(stream)>>>(A);
+  return (int)cudaGetLastError();
+}
+#else
+// Host emulation: the same phases, one block and one "thread" at a time,
+// with each barrier between two phases kept by running the whole block
+// through a phase before the next.  Used by the CPU tests to check the
+// kernel's index algebra against the plain version without a card.
+template <typename S, typename T, bool CAPA, bool FWAVE>
+int launch(const Args<T>& A, int nbx, int nby, void*) {
+  constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
+  using L = Tile<S, T, TX, TY, CAPA>;
+  std::vector<T> smem(L::elems);
+  for (int by = 0; by < nby; ++by) {
+    for (int bx = 0; bx < nbx; ++bx) {
+      Block<S, T, TX, TY, CAPA> B;
+      B.bind(smem.data(), bx, by, nbx);
+      for (int t = 0; t < NT; ++t) phase_load<S, T, TX, TY, CAPA>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_rpn<0, S, T, TX, TY, CAPA>(A, B, t);
+      for (int t = 0; t < NT; ++t)
+        phase_sweep<0, FWAVE, S, T, TX, TY, CAPA>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_rpn<1, S, T, TX, TY, CAPA>(A, B, t);
+      for (int t = 0; t < NT; ++t)
+        phase_sweep<1, FWAVE, S, T, TX, TY, CAPA>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_update<S, T, TX, TY, CAPA>(A, B, t);
+      for (int s = NT / 2; s > 0; s >>= 1)
+        for (int t = 0; t < NT; ++t) phase_reduce<S, T, TX, TY, CAPA>(B, t, s);
+      for (int t = 0; t < NT; ++t)
+        phase_write_cfl<S, T, TX, TY, CAPA>(A, B, t);
+    }
+  }
+  return 0;
+}
+#endif
+
+// system ids of the C interface (ops/tiled2d.py:AOS_SYSTEMS)
+enum { SYS_SHALLOW_ROE_EFIX = 0, SYS_SHALLOW_BATHY_FWAVE = 1 };
+
+template <typename T, typename S>
+int dispatch_flags(const Args<T>& A, bool capa, bool fwave, int nbx, int nby,
+                   void* stream) {
+  if (capa) {
+    return fwave ? launch<S, T, true, true>(A, nbx, nby, stream)
+                 : launch<S, T, true, false>(A, nbx, nby, stream);
+  }
+  return fwave ? launch<S, T, false, true>(A, nbx, nby, stream)
+               : launch<S, T, false, false>(A, nbx, nby, stream);
+}
+
+template <typename T>
+int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
+         int nyg, int system, int capa, int fwave, double dt, double dx,
+         double dy, double grav, double dry, int order, int tw,
+         const int* lim, void* stream) {
+  int nbx, nby;
+  grid_of<T>(nxg, nyg, nbx, nby);
+  const Args<T> A = make_args<T>(qbc, aux, qout, cflb, nxg, nyg, capa, dt,
+                                 dx, dy, grav, dry, order, tw, lim);
+  switch (system) {
+    case SYS_SHALLOW_ROE_EFIX:
+      return dispatch_flags<T, ShallowRoeEfix2D>(A, capa >= 0, fwave != 0,
+                                                 nbx, nby, stream);
+    case SYS_SHALLOW_BATHY_FWAVE:
+      return dispatch_flags<T, ShallowBathyFwave2D>(A, capa >= 0, fwave != 0,
+                                                    nbx, nby, stream);
+    default:
+      return -1;
+  }
+}
+
+}  // namespace
+
+// ---- plain C interface (loaded with ctypes) ------------------------------
+extern "C" {
+
+// Number of blocks (= CFL partials) the kernel writes for a padded grid.
+int step2_aos_blocks(int nxg, int nyg, int is_double) {
+  int nbx, nby;
+  if (is_double) grid_of<double>(nxg, nyg, nbx, nby);
+  else grid_of<float>(nxg, nyg, nbx, nby);
+  return nbx * nby;
+}
+
+// Shared memory bytes per block (reported by chip_smoke.py).
+int step2_aos_smem_bytes(int system, int capa, int is_double) {
+  return system == SYS_SHALLOW_BATHY_FWAVE
+      ? smem_of<ShallowBathyFwave2D>(capa != 0, is_double != 0)
+      : smem_of<ShallowRoeEfix2D>(capa != 0, is_double != 0);
+}
+
+// One CTU step.  qbc: (3, nxg, nyg) ghost-padded (2 ghost cells); aux:
+// (num_aux, nxg, nyg) or null when the system reads none and capa < 0;
+// qout: (3, nxg-4, nyg-4); cflb: step2_aos_blocks(...) partial CFL maxima;
+// all contiguous, of the type named by the entry.  system: SYS_*; capa:
+// aux row of the capacity function or -1; fwave: the f-wave correction
+// form; l0..l2: the limiter ids of the three waves.  Returns a cudaError_t
+// (0 on success), or -1 for an unknown system.
+#if defined(__CUDACC__)
+#define STEP2_AOS_ENTRY(NAME, T)                                             \
+  int NAME(const void* qbc, const void* aux, void* qout, void* cflb,         \
+           int nxg, int nyg, int system, int capa, int fwave, double dt,     \
+           double dx, double dy, double grav, double dry, int order, int tw, \
+           int l0, int l1, int l2, void* stream) {                           \
+    const int lim[3] = {l0, l1, l2};                                         \
+    return step<T>(qbc, aux, qout, cflb, nxg, nyg, system, capa, fwave, dt,  \
+                   dx, dy, grav, dry, order, tw, lim, stream);               \
+  }
+STEP2_AOS_ENTRY(step2_aos_f32, float)
+STEP2_AOS_ENTRY(step2_aos_f64, double)
+#else
+#define STEP2_AOS_ENTRY(NAME, T)                                             \
+  int NAME(const void* qbc, const void* aux, void* qout, void* cflb,         \
+           int nxg, int nyg, int system, int capa, int fwave, double dt,     \
+           double dx, double dy, double grav, double dry, int order, int tw, \
+           int l0, int l1, int l2) {                                         \
+    const int lim[3] = {l0, l1, l2};                                         \
+    return step<T>(qbc, aux, qout, cflb, nxg, nyg, system, capa, fwave, dt,  \
+                   dx, dy, grav, dry, order, tw, lim, nullptr);              \
+  }
+STEP2_AOS_ENTRY(step2_aos_host_f32, float)
+STEP2_AOS_ENTRY(step2_aos_host_f64, double)
+#endif
+#undef STEP2_AOS_ENTRY
+
+}  // extern "C"

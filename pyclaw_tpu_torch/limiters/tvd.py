@@ -140,6 +140,16 @@ def limiter_phi_one(limiter_id, theta, nu):
 
 
 
+def _sum_eqn(a):
+    """Sum over the leading (equation) axis as explicit adds in a fixed
+    order, so the result does not depend on how ATen splits a
+    reduction."""
+    out = a[0]
+    for e in range(1, a.shape[0]):
+        out = out + a[e]
+    return out
+
+
 def limiter_phi(num_eqn, wave, s, limiter_ids, dtdx=None, axis=-1):
     """Per-wave limiter factors phi (num_waves, *n) of the AoS wave
     tensor ``wave`` (num_eqn, num_waves, *n) with speeds ``s``
@@ -148,14 +158,16 @@ def limiter_phi(num_eqn, wave, s, limiter_ids, dtdx=None, axis=-1):
     names the same spatial axis in ``wave``, ``s`` and phi.  The upwind
     dot product is <W_{k-1}, W_k> where s > 0, else <W_k, W_{k+1}>; the
     end interfaces get theta = 0, and phi = 1 where the wave vanishes.
-    CFL-dependent ids take nu = |s| dtdx."""
+    CFL-dependent ids take nu = |s| dtdx, where ``dtdx`` is a Python float
+    or a per-interface tensor shaped like ``s[p]`` (with a capacity
+    function)."""
     if axis >= 0:
         raise ValueError("limiter_phi axis must be negative")
     num_waves = wave.shape[1]
     n_ifc = wave.shape[axis]
-    wnorm2 = torch.sum(wave * wave, dim=0)
-    d = torch.sum(slc(wave, axis, slice(0, n_ifc - 1))
-                  * slc(wave, axis, slice(1, n_ifc)), dim=0)
+    wnorm2 = _sum_eqn(wave * wave)
+    d = _sum_eqn(slc(wave, axis, slice(0, n_ifc - 1))
+                 * slc(wave, axis, slice(1, n_ifc)))
     zcol = torch.zeros_like(slc(d, axis, slice(0, 1)))
     dot_right = torch.cat([d, zcol], dim=axis)
     dot_left = torch.cat([zcol, d], dim=axis)

@@ -26,6 +26,12 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Per-source flags.  step2_aos.cu rounds every operation as its plain
+# version's PyTorch operations do (no fused multiply-add): the f-wave
+# correction 0.5 sign(s) and the f-wave split s < 0 jump where a speed
+# crosses zero, so a one-ulp difference in a speed near zero would move
+# the result by a whole wave.
+EXTRA_NVCC_FLAGS = {"step2_aos": ["-fmad=false"]}
 
 # name -> (ctypes.CDLL, compiler report); one build per process
 _loaded = {}
@@ -63,7 +69,8 @@ def load_all(names):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs[name] = (src, out, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", src],
+            [_nvcc(), *NVCC_FLAGS, *EXTRA_NVCC_FLAGS.get(name, []), "-o",
+             out + ".tmp", src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
     for name, (src, out, proc) in procs.items():

@@ -1,4 +1,4 @@
-"""Wrappers of the kernels of the Euler systems (the counterpart of
+"""Wrappers of the port's CUDA kernels (the counterpart of
 ``pyclaw_tpu/ops/tiled2d.py``, whose 2D and 3D kernels live there too).
 
 * :func:`step2_rows`, counterpart of ``step2_pallas_rows`` with its SoA
@@ -13,6 +13,13 @@
   ``csrc/step3_ctu.cu`` computes the whole 3D unsplit CTU step (normal
   sweeps, rpt3 and rptt3 corner transport) of the Euler system and one
   CFL maximum per block.  Plain version: ``classic/kernels.py:step3``.
+* :func:`step2_rows_generic`, counterpart of ``step2_pallas_rows`` with
+  its generic-AoS body (``rpn_soa=None``), of ``step2_pallas_tiled_generic``
+  and of ``ops/sweep2d.py:step2_pallas``: one launch of
+  ``csrc/step2_aos.cu`` computes the whole unsplit CTU step of a system
+  of :data:`AOS_SYSTEMS`, with aux arrays, a capacity function and the
+  f-wave form, for any (nx, ny).  Plain version:
+  ``classic/kernels.py:step2``.
 
 On a CPU tensor each wrapper computes its plain PyTorch version.  On a
 CUDA tensor it launches the kernel or raises; it never falls back to the
@@ -236,3 +243,94 @@ def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
 
 
 step3_xy.launches = 0
+
+
+# rp.name -> (system id of csrc/step2_aos.cu (SYS_*), aux rows its normal
+# solver reads (NAUX))
+AOS_SYSTEMS = {"shallow_roe_with_efix_2D": (0, 0),
+               "shallow_bathymetry_fwave_2D": (1, 1)}
+# qbc, aux, qout, cflb; nxg, nyg, system, capa, fwave; dt, dx, dy, grav,
+# dry_tolerance; order, tw and three limiter ids (the host emulation takes
+# these, the card's entries a stream after them)
+AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                + [ctypes.c_double] * 5 + [ctypes.c_int] * 5)
+
+
+@functools.cache
+def _aos_lib():
+    from . import _build
+    lib = _build.load("step2_aos")
+    for name in ("step2_aos_f32", "step2_aos_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = AOS_ARGTYPES + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.step2_aos_blocks.argtypes = [ctypes.c_int] * 3
+    lib.step2_aos_blocks.restype = ctypes.c_int
+    return lib
+
+
+def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
+                       fwave, index_capa, num_ghost=2, transverse_waves=2):
+    """One 2D CTU step of the generic AoS form (any system with AoS
+    hooks on the CPU; the systems of :data:`AOS_SYSTEMS` on the card).
+
+    qbc: (num_eqn, nx+4, ny+4) ghost-padded q; auxbc: (num_aux, nx+4,
+    ny+4) or None (float32 or float64, contiguous, q's dtype).  dt: step
+    in q's dtype (a Python float that is exact in it).  ``index_capa``
+    >= 0 names the aux row of the capacity function.  Returns (q
+    (num_eqn, nx, ny), cfl as a 0-d tensor).  On a CPU tensor this is
+    ``classic/kernels.py:step2``; on a CUDA tensor one launch of
+    ``csrc/step2_aos.cu``."""
+    check_options(mthlim, order, transverse_waves, rp.num_waves,
+                  "step2_rows_generic")
+    if num_ghost != 2:
+        raise ValueError(f"step2_rows_generic: num_ghost must be 2, got "
+                         f"{num_ghost}")
+    if qbc.device.type == "cpu":
+        return kernels.step2(qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt, params,
+                             mthlim, order, fwave, index_capa, num_ghost,
+                             transverse_waves, rp.prefactor)
+    if rp.name not in AOS_SYSTEMS:
+        raise NotImplementedError(
+            f"step2_rows_generic: {rp.name} has no kernel yet (ROADMAP.md, "
+            f"Queue 2 item 8: '2D systems of step2_aos.cu')")
+    _check_cuda_qbc("step2_rows_generic", qbc, num_ghost, 3, 2)
+    _, nxg, nyg = qbc.shape
+    system, naux = AOS_SYSTEMS[rp.name]
+    if naux or index_capa >= 0:
+        if (auxbc is None or auxbc.dim() != 3
+                or auxbc.shape[1:] != qbc.shape[1:]
+                or auxbc.shape[0] <= max(naux - 1, index_capa)):
+            raise ValueError(
+                f"step2_rows_generic: {rp.name} with index_capa={index_capa} "
+                f"needs auxbc of shape (num_aux, {nxg}, {nyg}), got "
+                f"{None if auxbc is None else tuple(auxbc.shape)}")
+        if auxbc.device != qbc.device or auxbc.dtype != qbc.dtype:
+            raise TypeError("step2_rows_generic: auxbc must share qbc's "
+                            "device and dtype")
+        if not auxbc.is_contiguous():
+            raise ValueError("step2_rows_generic: auxbc must be contiguous")
+        aux_ptr = auxbc.data_ptr()
+    else:
+        aux_ptr = None
+    is_double = qbc.dtype == torch.float64
+    lib = _aos_lib()
+    q_out = torch.empty((3, nxg - 4, nyg - 4), dtype=qbc.dtype,
+                        device=qbc.device)
+    cfl_blocks = torch.empty((lib.step2_aos_blocks(nxg, nyg,
+                                                   int(is_double)),),
+                             dtype=qbc.dtype, device=qbc.device)
+    fn = lib.step2_aos_f64 if is_double else lib.step2_aos_f32
+    rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
+            nxg, nyg, system, int(index_capa), int(bool(fwave)),
+            float(dt), float(dx), float(dy), float(params["grav"]),
+            float(params.get("dry_tolerance", 1e-8)), int(order),
+            int(transverse_waves), *[int(m) for m in mthlim],
+            torch.cuda.current_stream(qbc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"step2_aos launch failed: cudaError_t {rc}")
+    step2_rows_generic.launches += 1
+    return q_out, torch.amax(cfl_blocks)
+
+
+step2_rows_generic.launches = 0

@@ -4,8 +4,10 @@ Counterpart of ``pyclaw_tpu/riemann/__init__.py``.  Every solver is a
 plain function on whole interface tensors, registered in a
 :class:`RiemannSolver` record that also carries ``num_eqn`` /
 ``num_waves`` metadata.  The port carries the SoA hooks of the 2D Euler
-4-wave Roe solver (``euler_4wave_2D``) and the AoS hooks of the 3D Euler
-solver (``euler_3D``); the rest of the library is queued in ROADMAP.md.
+4-wave Roe solver (``euler_4wave_2D``), the AoS hooks of the 3D Euler
+solver (``euler_3D``) and of the 2D shallow-water solvers
+(``shallow_roe_with_efix_2D``, ``shallow_bathymetry_fwave_2D``); the rest
+of the library is queued in ROADMAP.md.
 
 AoS calling conventions (classic/kernels.py), q (num_eqn, *n):
 
@@ -65,5 +67,9 @@ class RiemannSolver:
 
 
 from .euler import euler_3D, euler_4wave_2D  # noqa: E402,F401
+from .shallow import (  # noqa: E402,F401
+    shallow_bathymetry_fwave_2D, shallow_roe_with_efix_2D)
 
-ALL = {s.name: s for s in [euler_4wave_2D, euler_3D]}
+ALL = {s.name: s for s in [euler_4wave_2D, euler_3D,
+                           shallow_roe_with_efix_2D,
+                           shallow_bathymetry_fwave_2D]}

@@ -186,8 +186,13 @@ def _flux_euler_2d_soa(ixy, qs, params):
 
 
 def _wsum(coef, wave):
-    """sum_p coef[p] * wave[:, p]  ->  (num_eqn, *n)."""
-    return torch.sum(coef[None] * wave, dim=1)
+    """sum_p coef[p] * wave[:, p]  ->  (num_eqn, *n), as explicit adds
+    in wave order."""
+    terms = coef[None] * wave
+    out = terms[:, 0]
+    for p in range(1, wave.shape[1]):
+        out = out + terms[:, p]
+    return out
 
 
 def _roe_averages(q_l, q_r, gamma, vel_idx, e_idx=None):

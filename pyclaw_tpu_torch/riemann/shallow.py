@@ -1,0 +1,207 @@
+"""Shallow-water Riemann solvers of the 2D classic path, plain PyTorch.
+
+Counterpart of ``pyclaw_tpu/riemann/shallow.py`` (``_rpn2_shallow_roe
+:115``, ``_rpt2_shallow_roe :187``, ``_rpn2_shallow_bathymetry_fwave
+:341``, ``_shallow_positivity :407``), itself a rebuild of reference
+``rpn2_shallow_roe_with_efix.f90``, ``rpt2_shallow_roe_with_efix.f90``
+and ``rpn2_shallow_bathymetry_fwave.f90``.  System: h_t + (hu)_x +
+(hv)_y = 0, (hu)_t + (hu^2 + g h^2/2)_x + (huv)_y = 0, (hv)_t + (huv)_x
++ (hv^2 + g h^2/2)_y = 0, with g = problem_data['grav'].
+
+Every expression keeps the JAX package's operation order (Python
+scalars fold first, as there), so in float64 the two agree to roundoff
+(tests/test_torch_riemann_shallow.py).  The CUDA kernel repeats them in
+``csrc/shallow2d.cuh``.  Dry states (h = 0) give inf/nan in the Roe
+solver, as in the reference; the bathymetry f-wave solver guards its
+divisions with ``dry_tolerance`` (default 1e-8).  The SharpClaw hooks
+(``evec``, ``flux``) are not ported yet (ROADMAP.md, Queue 4 item 19).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _mk(num_eqn, mu, mv, z, h_c, mu_c, mv_c):
+    """A wave (num_eqn, *n) with components h, normal and transverse
+    momentum at rows 0, ``mu`` and ``mv``; any further row is ``z``."""
+    comp = [z] * num_eqn
+    comp[0], comp[mu], comp[mv] = h_c, mu_c, mv_c
+    return torch.stack(comp)
+
+
+def _rpn2_shallow_roe(ixy, q_l, q_r, aux_l, aux_r, params):
+    """Roe solver with the shear wave and Harten's entropy fix on waves 1
+    and 3: (wave (num_eqn, 3, *n), s (3, *n), amdq, apdq)."""
+    g = params["grav"]
+    mu = 1 + ixy
+    mv = 2 - ixy
+    h_l, h_r = q_l[0], q_r[0]
+    u_l, u_r = q_l[mu] / h_l, q_r[mu] / h_r
+    v_l, v_r = q_l[mv] / h_l, q_r[mv] / h_r
+
+    sh_l, sh_r = torch.sqrt(h_l), torch.sqrt(h_r)
+    wgt = 1.0 / (sh_l + sh_r)
+    u = (sh_l * u_l + sh_r * u_r) * wgt
+    v = (sh_l * v_l + sh_r * v_r) * wgt
+    c = torch.sqrt(g * 0.5 * (h_l + h_r))
+
+    d0 = q_r[0] - q_l[0]
+    dmu = q_r[mu] - q_l[mu]
+    dmv = q_r[mv] - q_l[mv]
+
+    a1 = 0.5 * ((u + c) * d0 - dmu) / c
+    a2 = dmv - v * d0                      # shear strength
+    a3 = 0.5 * (-(u - c) * d0 + dmu) / c
+
+    num_eqn = q_l.shape[0]
+    z = torch.zeros_like(d0)
+    w1 = _mk(num_eqn, mu, mv, z, a1, a1 * (u - c), a1 * v)
+    w2 = _mk(num_eqn, mu, mv, z, z, z, a2)
+    w3 = _mk(num_eqn, mu, mv, z, a3, a3 * (u + c), a3 * v)
+    wave = torch.stack([w1, w2, w3], dim=1)
+    s = torch.stack([u - c, u, u + c])
+
+    # entropy fix on waves 1 and 3
+    c_l = torch.sqrt(g * h_l)
+    c_r = torch.sqrt(g * h_r)
+    hm = h_l + a1
+    hum = q_l[mu] + a1 * (u - c)
+    um = hum / torch.where(hm <= 0.0, 1.0, hm)
+    cm = torch.sqrt(g * torch.clamp(hm, min=0.0))
+
+    lam1_l = u_l - c_l
+    lam1_m = um - cm
+    trans1 = (lam1_l < 0.0) & (lam1_m > 0.0)
+    den1 = torch.where(lam1_m - lam1_l == 0.0, 1.0, lam1_m - lam1_l)
+    sf1 = torch.where(trans1, lam1_l * (lam1_m - s[0]) / den1,
+                      torch.clamp(s[0], max=0.0))
+
+    sf2 = torch.clamp(s[1], max=0.0)
+
+    hm3 = h_r - a3
+    hum3 = q_r[mu] - a3 * (u + c)
+    um3 = hum3 / torch.where(hm3 <= 0.0, 1.0, hm3)
+    cm3 = torch.sqrt(g * torch.clamp(hm3, min=0.0))
+    lam3_m = um3 + cm3
+    lam3_r = u_r + c_r
+    trans3 = (lam3_m < 0.0) & (lam3_r > 0.0)
+    den3 = torch.where(lam3_r - lam3_m == 0.0, 1.0, lam3_r - lam3_m)
+    sf3 = torch.where(trans3, lam3_m * (lam3_r - s[2]) / den3,
+                      torch.clamp(s[2], max=0.0))
+
+    amdq = sf1 * w1 + sf2 * w2 + sf3 * w3
+    df = s[0] * w1 + s[1] * w2 + s[2] * w3
+    apdq = df - amdq
+    return wave, s, amdq, apdq
+
+
+def _rpt2_shallow_roe(ixy, imp, q_l, q_r, aux_l, aux_r, asdq, params):
+    """Transverse split (rpt2_shallow_roe_with_efix.f90): decompose asdq
+    in the transverse direction at the Roe average, which it computes
+    itself (shallow water has no shared-eigensystem hook)."""
+    g = params["grav"]
+    mu = 1 + ixy
+    mv = 2 - ixy
+    h_l, h_r = q_l[0], q_r[0]
+    u_l, u_r = q_l[mu] / h_l, q_r[mu] / h_r
+    v_l, v_r = q_l[mv] / h_l, q_r[mv] / h_r
+    sh_l, sh_r = torch.sqrt(h_l), torch.sqrt(h_r)
+    wgt = 1.0 / (sh_l + sh_r)
+    u = (sh_l * u_l + sh_r * u_r) * wgt
+    v = (sh_l * v_l + sh_r * v_r) * wgt
+    c = torch.sqrt(g * 0.5 * (h_l + h_r))
+
+    d0, dmu, dmv = asdq[0], asdq[mu], asdq[mv]
+    b1 = 0.5 * ((v + c) * d0 - dmv) / c
+    b2 = dmu - u * d0
+    b3 = 0.5 * (-(v - c) * d0 + dmv) / c
+
+    num_eqn = q_l.shape[0]
+    z = torch.zeros_like(d0)
+    w1 = _mk(num_eqn, mu, mv, z, b1, b1 * u, b1 * (v - c))
+    w2 = _mk(num_eqn, mu, mv, z, z, b2, z)
+    w3 = _mk(num_eqn, mu, mv, z, b3, b3 * u, b3 * (v + c))
+
+    bmasdq = torch.zeros_like(asdq)
+    bpasdq = torch.zeros_like(asdq)
+    for w, sp in zip((w1, w2, w3), (v - c, v, v + c)):
+        bmasdq = bmasdq + torch.clamp(sp, max=0.0) * w
+        bpasdq = bpasdq + torch.clamp(sp, min=0.0) * w
+    return bmasdq, bpasdq
+
+
+def _rpn2_shallow_bathymetry_fwave(ixy, q_l, q_r, aux_l, aux_r, params):
+    """Well-balanced f-wave solver over bathymetry aux[0] = b: two
+    gravity f-waves at HLLE-bounded Roe speeds carrying the normal flux
+    jump augmented by g h_bar (b_r - b_l), and a transverse-momentum
+    f-wave at the Roe normal speed.  Lake at rest has zero fluctuations.
+    Use with solver.fwave = True."""
+    g = params["grav"]
+    dry = params.get("dry_tolerance", 1e-8)
+    mu = 1 + ixy
+    mv = 2 - ixy
+
+    h_l, h_r = q_l[0], q_r[0]
+    wet_l, wet_r = h_l > dry, h_r > dry
+    hs_l = torch.where(wet_l, h_l, 1.0)
+    hs_r = torch.where(wet_r, h_r, 1.0)
+    u_l = torch.where(wet_l, q_l[mu] / hs_l, 0.0)
+    u_r = torch.where(wet_r, q_r[mu] / hs_r, 0.0)
+    v_l = torch.where(wet_l, q_l[mv] / hs_l, 0.0)
+    v_r = torch.where(wet_r, q_r[mv] / hs_r, 0.0)
+    b_l, b_r = aux_l[0], aux_r[0]
+
+    sh_l = torch.sqrt(torch.clamp(h_l, min=0.0))
+    sh_r = torch.sqrt(torch.clamp(h_r, min=0.0))
+    denom_roe = torch.where(sh_l + sh_r > 0.0, sh_l + sh_r, 1.0)
+    u = (sh_l * u_l + sh_r * u_r) / denom_roe
+    c = torch.sqrt(g * 0.5 * (h_l + h_r))
+    s1 = torch.minimum(u - c,
+                       u_l - torch.sqrt(g * torch.clamp(h_l, min=0.0)))
+    s3 = torch.maximum(u + c,
+                       u_r + torch.sqrt(g * torch.clamp(h_r, min=0.0)))
+    s2 = u
+
+    hbar = 0.5 * (h_l + h_r)
+    fd1 = q_r[mu] - q_l[mu]
+    fd2 = (q_r[mu] * u_r + 0.5 * g * h_r * h_r) \
+        - (q_l[mu] * u_l + 0.5 * g * h_l * h_l) \
+        + g * hbar * (b_r - b_l)
+    fd3 = q_r[mu] * v_r - q_l[mu] * v_l
+
+    denom = torch.where(s3 - s1 == 0.0, 1.0, s3 - s1)
+    beta1 = (s3 * fd1 - fd2) / denom
+    beta3 = (fd2 - s1 * fd1) / denom
+
+    num_eqn = q_l.shape[0]
+    z = torch.zeros_like(h_l)
+    w1 = _mk(num_eqn, mu, mv, z, beta1, beta1 * s1, beta1 * v_l)
+    w3 = _mk(num_eqn, mu, mv, z, beta3, beta3 * s3, beta3 * v_r)
+    w2 = _mk(num_eqn, mu, mv, z, z, z, fd3 - beta1 * v_l - beta3 * v_r)
+    wave = torch.stack([w1, w2, w3], dim=1)
+    s = torch.stack([s1, s2, s3])
+
+    amdq = torch.zeros_like(q_l)
+    apdq = torch.zeros_like(q_l)
+    for w, sp in ((w1, s1), (w2, s2), (w3, s3)):
+        amdq = amdq + torch.where(sp < 0.0, w, 0.0)
+        apdq = apdq + torch.where(sp >= 0.0, w, 0.0)
+    return wave, s, amdq, apdq
+
+
+def _shallow_positivity(q, aux, params):
+    return q[0] > 0.0
+
+
+from . import RiemannSolver  # noqa: E402
+
+shallow_roe_with_efix_2D = RiemannSolver(
+    "shallow_roe_with_efix_2D", 2, 3, 3, _rpn2_shallow_roe,
+    rpt=_rpt2_shallow_roe, requires=("grav",))
+shallow_roe_with_efix_2D.positivity = _shallow_positivity
+
+shallow_bathymetry_fwave_2D = RiemannSolver(
+    "shallow_bathymetry_fwave_2D", 2, 3, 3, _rpn2_shallow_bathymetry_fwave,
+    rpt=_rpt2_shallow_roe, requires=("grav",))
+shallow_bathymetry_fwave_2D.positivity = _shallow_positivity

@@ -96,7 +96,7 @@ class SharpClawSolver(Solver):
         dx, dy = state.patch.delta
 
         def dq(q, aux, dt, t):
-            qbc = self._extend_bc(q, t, state)
+            qbc, _ = self._extend_bc(q, aux, t, state)
             return tiled2d.dq_rows(qbc, dt, dx, dy, params, weno_order, g)
         return dq
 

@@ -64,8 +64,12 @@ class Solver:
         # per-dimension BC settings; sized at setup from the domain
         self.bc_lower = []
         self.bc_upper = []
+        self.aux_bc_lower = []
+        self.aux_bc_upper = []
         self.user_bc_lower = None
         self.user_bc_upper = None
+        self.user_aux_bc_lower = None
+        self.user_aux_bc_upper = None
 
         self._is_set_up = False
         self._q_dev = None
@@ -100,6 +104,12 @@ class Solver:
                     setattr(self, name, lst * num_dim)
                 else:
                     raise ValueError(f"{name} has wrong length")
+        for name in ("aux_bc_lower", "aux_bc_upper"):
+            lst = getattr(self, name)
+            if not lst:
+                setattr(self, name, [BC.extrap] * num_dim)
+            elif len(lst) == 1 and num_dim > 1:
+                setattr(self, name, lst * num_dim)
         for d in range(num_dim):
             lo, up = self.bc_lower[d], self.bc_upper[d]
             if (lo == BC.periodic) != (up == BC.periodic):
@@ -110,6 +120,10 @@ class Solver:
     def setup(self, solution):
         """Subclasses build their step function here."""
         raise NotImplementedError
+
+    # aux arrays and a capacity function: only the solvers that set this
+    # take them (ClawSolver2D); the others raise under their ROADMAP items
+    takes_aux = False
 
     def _check_setup(self, state):
         """The checks of every solver's setup: the Riemann solver fits the
@@ -128,27 +142,45 @@ class Solver:
             raise _not_ported("before_step")
         if state.patch.grid.gauge_indices:
             raise _not_ported("gauges")
-        if state.aux is not None:
+        if state.aux is not None and not self.takes_aux:
             raise _not_ported("aux")
         if state.index_capa >= 0:
-            raise _not_ported("capacity")
+            if not self.takes_aux:
+                raise _not_ported("capacity")
+            if state.aux is None or state.index_capa >= state.aux.shape[0]:
+                raise ValueError(f"index_capa={state.index_capa} names no "
+                                 "row of state.aux")
 
-    def _extend_bc(self, q, t, state):
-        """Ghost-cell extension + custom-BC callbacks."""
+    def _extend_bc(self, q, aux, t, state):
+        """Ghost-cell extension + custom-BC callbacks: (qbc, auxbc).  aux
+        is extended on every step, without the wall reflection, as in the
+        JAX package (``pyclaw_tpu/solver.py:_extend_bc``)."""
         g = self.num_ghost
         qbc = extend(q, g, self.bc_lower, self.bc_upper, wall_reflects=True)
+        auxbc = None
+        if aux is not None:
+            auxbc = extend(aux, g, self.aux_bc_lower, self.aux_bc_upper,
+                           wall_reflects=False)
+            for d in range(self.num_dim):
+                if (self.aux_bc_lower[d] == BC.custom
+                        and self.user_aux_bc_lower is not None):
+                    auxbc = self.user_aux_bc_lower(state, d, t, qbc, auxbc, g)
+            for d in range(self.num_dim):
+                if (self.aux_bc_upper[d] == BC.custom
+                        and self.user_aux_bc_upper is not None):
+                    auxbc = self.user_aux_bc_upper(state, d, t, qbc, auxbc, g)
         for d in range(self.num_dim):
             if self.bc_lower[d] == BC.custom:
                 if self.user_bc_lower is None:
                     raise ValueError("bc_lower is custom but user_bc_lower "
                                      "is not set")
-                qbc = self.user_bc_lower(state, d, t, qbc, None, g)
+                qbc = self.user_bc_lower(state, d, t, qbc, auxbc, g)
             if self.bc_upper[d] == BC.custom:
                 if self.user_bc_upper is None:
                     raise ValueError("bc_upper is custom but user_bc_upper "
                                      "is not set")
-                qbc = self.user_bc_upper(state, d, t, qbc, None, g)
-        return qbc
+                qbc = self.user_bc_upper(state, d, t, qbc, auxbc, g)
+        return qbc, auxbc
 
     def step(self, solution):
         """One step of self.dt on the device state; sets the cached CFL."""
@@ -159,8 +191,13 @@ class Solver:
 
     # ------------------------------------------------------------------
     def _push(self, state):
+        """q and aux to the device, once per evolve_to_time; aux stays
+        there for every step of it."""
         self._q_dev = torch.as_tensor(
             np.ascontiguousarray(state.q),
+            dtype=torch_dtype(state.q.dtype)).to(self.device)
+        self._aux_dev = None if state.aux is None else torch.as_tensor(
+            np.ascontiguousarray(state.aux),
             dtype=torch_dtype(state.q.dtype)).to(self.device)
 
     def _pull(self, state):
@@ -217,7 +254,8 @@ class Solver:
 
         while more():
             dt_try = dt if take_one_step else min(dt, tend - t)
-            q_new, cfl_t = self._step_fn(q, None, float(kdtype(dt_try)),
+            q_new, cfl_t = self._step_fn(q, self._aux_dev,
+                                         float(kdtype(dt_try)),
                                          float(kdtype(t)))
             cfl = float(cfl_t)           # the one host readback per step
             ok = self.accept_reject_step(cfl)

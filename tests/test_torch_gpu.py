@@ -1,6 +1,7 @@
-"""Card-only tests: the CUDA kernels (step2_ctu, dq2_weno5, step3_ctu)
-against their plain PyTorch versions at small shapes.  Whether a card is present is decided inside the fixture,
-so every process collects the same tests; without a card they skip.
+"""Card-only tests: the CUDA kernels (step2_ctu, dq2_weno5, step3_ctu,
+step2_aos) against their plain PyTorch versions at small shapes.  Whether
+a card is present is decided inside the fixture, so every process
+collects the same tests; without a card they skip.
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q   # with a card
 """
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from pyclaw_tpu_torch import bc
+from pyclaw_tpu_torch import bc, riemann
 from pyclaw_tpu_torch.classic import kernels, soa
 from pyclaw_tpu_torch.ops import tiled2d
 from pyclaw_tpu_torch.riemann import euler
@@ -152,3 +153,70 @@ def test_step3_kernel_rejects_what_it_cannot_take(card):
         tiled2d.step3_xy(qbc.half(), *args)
     with pytest.raises(ValueError, match="shape"):
         tiled2d.step3_xy(qbc[:4].contiguous(), *args)
+
+
+def _shallow(seed, nx, ny, dtype, dev):
+    """Ghost-padded wet shallow-water state and aux (b, kappa)."""
+    rng = np.random.default_rng(seed)
+    n = (nx, ny)
+    h = 0.5 + rng.random(n)
+    u, v = rng.standard_normal(n), rng.standard_normal(n)
+    q = torch.as_tensor(np.stack([h, h * u, h * v]), dtype=dtype, device=dev)
+    aux = torch.as_tensor(np.stack([0.3 * rng.random(n),
+                                    0.7 + 0.6 * rng.random(n)]),
+                          dtype=dtype, device=dev)
+    ext = [bc.BC.extrap] * 2
+    return (bc.extend(q, 2, ext, [bc.BC.wall] * 2).contiguous(),
+            bc.extend(aux, 2, ext, ext, wall_reflects=False).contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,fwave,capa,tw,order,lim,nx,ny", [
+    ("shallow_roe_with_efix_2D", False, -1, 2, 2, 4, 60, 60),
+    ("shallow_roe_with_efix_2D", False, 1, 1, 2, 10, 100, 37),
+    ("shallow_roe_with_efix_2D", False, -1, 0, 1, 1, 5, 130),
+    ("shallow_bathymetry_fwave_2D", True, -1, 2, 2, 4, 64, 100),
+    ("shallow_bathymetry_fwave_2D", True, 1, 2, 2, 10, 33, 17)])
+def test_aos_kernel_matches_plain(card, name, fwave, capa, tw, order, lim,
+                                  nx, ny, dtype):
+    qbc, auxbc = _shallow(nx + ny, nx, ny, dtype, card)
+    dt = float(np.dtype(str(dtype).split(".")[1]).type(0.5 / max(nx, ny)))
+    rp = riemann.ALL[name]
+    args = (dt, 1 / nx, 1 / ny)
+    params = {"grav": 1.0}
+    before = tiled2d.step2_rows_generic.launches
+    qk, ck = tiled2d.step2_rows_generic(qbc, auxbc, *args, rp, params,
+                                        (lim,) * 3, order, fwave, capa, 2, tw)
+    torch.cuda.synchronize()
+    assert tiled2d.step2_rows_generic.launches == before + 1
+    qp, cp = kernels.step2(qbc, auxbc, *args, rp.rp, rp.rpt, params,
+                           (lim,) * 3, order, fwave, capa, 2, tw)
+    assert qk.dtype == dtype and qk.shape == (3, nx, ny)
+    rel = float((qk - qp).abs().max() / qp.abs().max())
+    assert rel <= TOL[dtype]
+    assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+def test_aos_kernel_rejects_what_it_cannot_take(card):
+    qbc, auxbc = _shallow(1, 16, 16, torch.float64, card)
+    roe = riemann.shallow_roe_with_efix_2D
+    bathy = riemann.shallow_bathymetry_fwave_2D
+    args = (1e-3, 0.1, 0.1)
+    lims = (4,) * 3
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled2d.step2_rows_generic(qbc.transpose(1, 2), None, *args, roe,
+                                   {"grav": 1.0}, lims, 2, False, -1)
+    with pytest.raises(ValueError, match="auxbc"):
+        tiled2d.step2_rows_generic(qbc, None, *args, bathy, {"grav": 1.0},
+                                   lims, 2, True, -1)
+    with pytest.raises(TypeError, match="dtype"):
+        tiled2d.step2_rows_generic(qbc.float(), auxbc, *args, bathy,
+                                   {"grav": 1.0}, lims, 2, True, -1)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+        tiled2d.step2_rows_generic(qbc, None, *args,
+                                   riemann.RiemannSolver(
+                                       "other_2D", 2, 3, 3, roe.rp,
+                                       rpt=roe.rpt),
+                                   {"grav": 1.0}, lims, 2, False, -1)

@@ -46,9 +46,11 @@ def test_the_scan_sees_every_module():
     assert os.path.join("pyclaw_tpu_torch", "ops", "tiled2d.py") in names
     for new in (("sharpclaw", "soa.py"), ("sharpclaw", "solver.py"),
                 ("sharpclaw", "__init__.py"), ("limiters", "recon.py"),
-                ("classic", "kernels.py"), ("examples", "euler_3d.py")):
+                ("classic", "kernels.py"), ("examples", "euler_3d.py"),
+                ("riemann", "shallow.py"),
+                ("examples", "shallow_2d_radial.py")):
         assert os.path.join("pyclaw_tpu_torch", *new) in names
-    assert len(names) >= 26
+    assert len(names) >= 28
 
 
 @pytest.mark.parametrize("path", _files(),

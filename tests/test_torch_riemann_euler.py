@@ -53,8 +53,11 @@ def test_registry():
     rs = triemann.euler_4wave_2D
     assert (rs.num_dim, rs.num_eqn, rs.num_waves) == (2, 4, 4)
     assert rs.requires == ("gamma",)
-    assert triemann.ALL == {"euler_4wave_2D": rs,
-                            "euler_3D": triemann.euler_3D}
+    assert triemann.ALL == {
+        "euler_4wave_2D": rs, "euler_3D": triemann.euler_3D,
+        "shallow_roe_with_efix_2D": triemann.shallow_roe_with_efix_2D,
+        "shallow_bathymetry_fwave_2D":
+            triemann.shallow_bathymetry_fwave_2D}
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

@@ -1,0 +1,248 @@
+"""The port's generic 2D CTU step (aux, capacity, f-waves) against the
+JAX package's.
+
+* ``classic/kernels.py:step2`` of the port (the plain version of
+  ``csrc/step2_aos.cu``) against ``pyclaw_tpu/classic/kernels.py:step2``
+  in float64, CFL included, to 1e-12 relative: the shallow-water Roe
+  solver for transverse_waves 0/1/2 x order 1/2 x limiters {MC, minmod,
+  one CFL-dependent id}; the bathymetry f-wave solver with aux; and both
+  with a non-uniform capacity function in aux[1] (``index_capa=1``).
+* one case each against the JAX package's Pallas kernels in interpret
+  mode, as tests/test_pallas_backend.py runs them: ``step2_pallas_rows``
+  with the generic body (``rpn_soa=None``) at 16x128,
+  ``step2_pallas_tiled_generic`` at 32x64 and ``ops.step2_pallas`` at
+  12x10.
+* the CUDA kernel's own source, compiled for the host (its phases run
+  block by block on the CPU), against the plain version: several tiles,
+  partial tiles, float32 and float64, with a non-uniform capacity
+  function and, on each face in turn, a fast state in the inner ghost
+  layer (inside the CFL window) and a faster one in the outer layer
+  (outside it).
+"""
+
+import ctypes
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyclaw_tpu import riemann as jriemann
+from pyclaw_tpu.classic import kernels as jk
+from pyclaw_tpu_torch import riemann as triemann
+from pyclaw_tpu_torch.classic import kernels as tk
+from pyclaw_tpu_torch.ops import tiled2d
+
+PARAMS = {"grav": 1.0}
+ROE, BATHY = "shallow_roe_with_efix_2D", "shallow_bathymetry_fwave_2D"
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _state(seed, nx, ny, dtype=np.float64):
+    """Ghost-padded wet state (3, nx+4, ny+4) with velocities of either
+    sign (transonic interfaces included), bathymetry in aux[0] and a
+    non-uniform capacity function in aux[1]."""
+    rng = np.random.default_rng(seed)
+    n = (nx + 4, ny + 4)
+    h = 0.5 + rng.random(n)
+    u, v = rng.standard_normal(n), rng.standard_normal(n)
+    q = np.stack([h, h * u, h * v])
+    aux = np.stack([0.3 * rng.random(n), 0.7 + 0.6 * rng.random(n)])
+    return (np.ascontiguousarray(q.astype(dtype)),
+            np.ascontiguousarray(aux.astype(dtype)))
+
+
+def _jax_step(name, q, aux, dt, dx, dy, lims, order, fwave, capa, tw):
+    rp = getattr(jriemann, name)
+    qn, cfl = jk.step2(jnp.asarray(q), jnp.asarray(aux), dt, dx, dy, rp.rp,
+                       rp.rpt, PARAMS, lims, order, fwave, capa, 2,
+                       transverse_waves=tw)
+    return np.asarray(qn), float(cfl)
+
+
+def _plain(name, q, aux, dt, dx, dy, lims, order, fwave, capa, tw):
+    rp = triemann.ALL[name]
+    qn, cfl = tk.step2(torch.from_numpy(q), torch.from_numpy(aux), dt, dx,
+                       dy, rp.rp, rp.rpt, PARAMS, lims, order, fwave, capa,
+                       2, tw)
+    return qn.numpy(), float(cfl)
+
+
+def _close(a, b, ca, cb, tol):
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() / np.abs(b).max() <= tol
+    assert abs(ca - cb) <= tol * cb
+
+
+CASES = ([(ROE, False, -1, tw, order, lim) for tw in (0, 1, 2)
+          for order in (1, 2) for lim in (4, 1, 10)]
+         + [(BATHY, True, -1, 2, 2, 4), (BATHY, True, -1, 1, 2, 10),
+            (BATHY, True, -1, 0, 1, 1), (BATHY, True, 1, 2, 2, 4),
+            (BATHY, True, 1, 1, 2, 10), (BATHY, True, 1, 2, 1, 1),
+            (ROE, False, 1, 2, 2, 4), (ROE, True, -1, 2, 2, 10)])
+
+
+@pytest.mark.parametrize("name,fwave,capa,tw,order,lim", CASES)
+def test_plain_step_matches_jax_step2(name, fwave, capa, tw, order, lim):
+    nx, ny = 14, 11
+    q, aux = _state(100 * tw + 10 * order + lim + capa, nx, ny)
+    args = (0.02, 1.0 / nx, 1.0 / ny, (lim,) * 3, order, fwave, capa, tw)
+    q_t, c_t = _plain(name, q, aux, *args)
+    q_j, c_j = _jax_step(name, q, aux, *args)
+    _close(q_t, q_j, c_t, c_j, 1e-12)
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    q, aux = _state(7, 9, 6)
+    rp = triemann.ALL[BATHY]
+    before = tiled2d.step2_rows_generic.launches
+    q_w, c_w = tiled2d.step2_rows_generic(
+        torch.from_numpy(q), torch.from_numpy(aux), 0.02, 1 / 9, 1 / 6, rp,
+        PARAMS, (4,) * 3, 2, True, 1)
+    q_p, c_p = _plain(BATHY, q, aux, 0.02, 1 / 9, 1 / 6, (4,) * 3, 2, True,
+                      1, 2)
+    assert np.array_equal(q_w.numpy(), q_p) and float(c_w) == c_p
+    assert tiled2d.step2_rows_generic.launches == before
+
+
+@pytest.mark.parametrize("bad", [
+    dict(mthlim=(4,) * 4), dict(mthlim=(22,) * 3), dict(order=3),
+    dict(transverse_waves=3), dict(num_ghost=3)])
+def test_wrapper_rejects_options(bad):
+    kw = dict(mthlim=(4,) * 3, order=2, transverse_waves=2, num_ghost=2)
+    kw.update(bad)
+    with pytest.raises(ValueError):
+        tiled2d.step2_rows_generic(
+            torch.ones(3, 9, 9, dtype=torch.float64), None, 0.01, 0.1, 0.1,
+            triemann.ALL[ROE], PARAMS, kw["mthlim"], kw["order"], False, -1,
+            kw["num_ghost"], kw["transverse_waves"])
+
+
+# ---- the JAX package's Pallas kernels, interpret mode ---------------------
+def test_matches_step2_pallas_rows_generic_body():
+    """step2_pallas_rows with the generic-AoS roll body (rpn_soa=None),
+    bathymetry f-waves with capacity, two row tiles of 8."""
+    from pyclaw_tpu.ops import tiled2d as jtiled
+    nx, ny = 16, 128
+    q, aux = _state(3, nx, ny)
+    rp = jriemann.shallow_bathymetry_fwave_2D
+    args = (2e-3, 1.0 / nx, 1.0 / ny)
+    q_j, c_j = jtiled.step2_pallas_rows(
+        jnp.asarray(q), jnp.asarray(aux), *args, rp.rp, rp.rpt, PARAMS,
+        (4,) * 3, 2, True, 1, 2, rpn_soa=None, transverse_waves=2,
+        tile_rows=8)
+    q_t, c_t = _plain(BATHY, q, aux, *args, (4,) * 3, 2, True, 1, 2)
+    _close(q_t, np.asarray(q_j), c_t, float(c_j), 1e-12)
+
+
+def test_matches_step2_pallas_tiled_generic():
+    from pyclaw_tpu.ops import tiled2d as jtiled
+    nx, ny = 32, 64
+    q, aux = _state(4, nx, ny)
+    rp = jriemann.shallow_roe_with_efix_2D
+    args = (2e-3, 1.0 / nx, 1.0 / ny)
+    q_j, c_j = jtiled.step2_pallas_tiled_generic(
+        jnp.asarray(q), jnp.asarray(aux), *args, rp.rp, rp.rpt, PARAMS,
+        (1,) * 3, 2, False, 1, 2, transverse_waves=1, tile=(8, 32))
+    q_t, c_t = _plain(ROE, q, aux, *args, (1,) * 3, 2, False, 1, 1)
+    _close(q_t, np.asarray(q_j), c_t, float(c_j), 1e-12)
+
+
+def test_matches_step2_pallas_single_block():
+    from pyclaw_tpu.ops import step2_pallas
+    nx, ny = 12, 10
+    q, aux = _state(5, nx, ny)
+    rp = jriemann.shallow_roe_with_efix_2D
+    args = (1e-2, 1.0 / nx, 1.0 / ny)
+    q_j, c_j = step2_pallas(jnp.asarray(q), None, *args, rp.rp, rp.rpt,
+                            PARAMS, (4,) * 3, 2, False, -1, 2,
+                            transverse_waves=2)
+    q_t, c_t = _plain(ROE, q, aux, *args, (4,) * 3, 2, False, -1, 2)
+    _close(q_t, np.asarray(q_j), c_t, float(c_j), 1e-12)
+
+
+# ---- the kernel's source on the host ---------------------------------------
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler for the kernel emulation")
+    from pyclaw_tpu_torch.ops import _build
+    lib = _build.build_host_emulation(
+        "step2_aos", str(tmp_path_factory.mktemp("step2_aos_host")))
+    for name in ("step2_aos_host_f32", "step2_aos_host_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = tiled2d.AOS_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.step2_aos_blocks.argtypes = [ctypes.c_int] * 3
+    lib.step2_aos_blocks.restype = ctypes.c_int
+    return lib
+
+
+def _fast_face(q, axis, side, scale):
+    """A fast state (velocity 8 scale, inward) in the inner ghost layer of
+    one face, and a faster one (16 scale) in its outer layer.  The inner
+    layer's interface with the interior lies in the CFL window of the
+    sweep along ``axis``; the outer layer's interface, and the inner
+    layer seen from the other sweep, lie outside it.  ``scale`` (the
+    axis' cell width over the smallest) makes the face's Courant number,
+    not only its speed, the largest."""
+    n = q.shape[1 + axis]
+    sign = 1.0 if side == 0 else -1.0
+    for layer, speed in (((1, 8.0) if side == 0 else (n - 2, 8.0)),
+                         ((0, 16.0) if side == 0 else (n - 1, 16.0))):
+        idx = [slice(None)] * 3
+        idx[1 + axis] = layer
+        h = q[tuple([0] + idx[1:])]
+        for c in (1, 2):
+            q[tuple([c] + idx[1:])] = sign * h * speed * scale
+    return q
+
+
+FACES = [None] + [(a, s) for a in range(2) for s in (0, 1)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny", [(24, 20), (13, 37), (33, 5)])
+@pytest.mark.parametrize("face", range(len(FACES)))
+def test_kernel_source_on_host_matches_plain(host_kernel, face, nx, ny,
+                                             dtype, tol):
+    """csrc/step2_aos.cu's phases (tiles, halos, ragged-edge masks, the
+    rpt2 gathers with the receiving cells' capacity, the CFL windows)
+    against the plain version, for each system with and without a
+    capacity function."""
+    name, fwave, capa, tw, order, lim = [
+        (BATHY, True, 1, 2, 2, 4), (ROE, False, 1, 1, 2, 10),
+        (BATHY, True, -1, 2, 1, 1), (ROE, False, -1, 2, 2, 4),
+        (ROE, True, 1, 0, 2, 10)][face]
+    q, aux = _state(face + nx + ny, nx, ny)
+    deltas = (1.0 / nx, 1.0 / ny)
+    if FACES[face] is not None:
+        axis = FACES[face][0]
+        q = _fast_face(q, *FACES[face], deltas[axis] / min(deltas))
+    q, aux = (np.ascontiguousarray(a.astype(dtype)) for a in (q, aux))
+    dt = float(dtype(0.05 * min(deltas)))
+    is_double = dtype == np.float64
+    fn = (host_kernel.step2_aos_host_f64 if is_double
+          else host_kernel.step2_aos_host_f32)
+    out = np.empty((3, nx, ny), dtype)
+    cfl_blocks = np.empty(host_kernel.step2_aos_blocks(nx + 4, ny + 4,
+                                                       int(is_double)), dtype)
+    rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
+            cfl_blocks.ctypes.data, nx + 4, ny + 4, tiled2d.AOS_SYSTEMS[name][0],
+            capa, int(fwave), dt, *deltas, PARAMS["grav"], 1e-8, order, tw,
+            lim, lim, lim)
+    assert rc == 0
+    q_p, c_p = _plain(name, q, aux, dt, *deltas, (lim,) * 3, order, fwave,
+                      capa, tw)
+    _close(out, q_p, float(cfl_blocks.max()), c_p, tol)
+    if FACES[face] is not None:
+        # the fast inner layer sets the CFL: its window is the one pinned
+        q0, _ = _state(face + nx + ny, nx, ny)
+        assert c_p > 1.2 * _plain(name, q0.astype(dtype), aux, dt, *deltas,
+                                  (lim,) * 3, order, fwave, capa, tw)[1]

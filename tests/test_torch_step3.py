@@ -16,7 +16,8 @@
 
 The states keep every velocity component away from zero (and the sound
 speed well above it), so no upwind switch sits on a roundoff tie.  The
-plain step gives the same bits on 1 to 8 intra-op threads.
+plain step gives the same bits on 1 to 8 intra-op threads, and on 8
+threads for an input at any storage offset from 1 to 7 elements.
 
 Run as a script (``python tests/test_torch_step3.py --probe N OUTDIR``),
 it repeats the plain step in N fresh processes, each after a JAX step as
@@ -132,6 +133,25 @@ def test_plain_step_is_the_same_on_any_thread_count():
         q_t, c_t = _plain(q, CROSSING_ARGS[0], CROSSING_ARGS[1:], (4,) * 5,
                           2, 2)
         assert np.array_equal(q_t, ref[0]) and c_t == ref[1]
+
+
+@pytest.mark.parametrize("offset", range(1, 8))
+def test_plain_step_is_the_same_at_any_storage_offset(offset):
+    """On 8 intra-op threads, the plain step of an input that sits
+    ``offset`` elements into a larger buffer (so every slice of it starts
+    at another alignment, and ATen's vectorised bodies and scalar tails
+    meet other elements) gives the bits of the aligned input."""
+    q = _crossing_state()
+    ref = _plain(q, CROSSING_ARGS[0], CROSSING_ARGS[1:], (4,) * 5, 2, 2)
+    torch.set_num_threads(8)
+    buf = torch.zeros(q.size + 8, dtype=torch.float64)
+    buf[offset:offset + q.size] = torch.from_numpy(q).reshape(-1)
+    q_off = buf[offset:offset + q.size].view(q.shape)
+    assert q_off.storage_offset() == offset
+    q_t, c_t = tk.step3(q_off, None, CROSSING_ARGS[0], *CROSSING_ARGS[1:],
+                        RP.rp, RP.rpt, RP.rptt, PARAMS, (4,) * 5, 2, False,
+                        -1, 2, 2, RP.prefactor)
+    assert np.array_equal(q_t.numpy(), ref[0]) and float(c_t) == ref[1]
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
