@@ -26,6 +26,16 @@ Phases (each asserts; any failure exits non-zero):
      1024^2, 60^2, 125^2, 64x100 and 100x37, float32 and float64: the
      shallow-water Roe solver for transverse_waves 0/1/2 x order 1/2, and
      bathymetry f-waves with aux, with and without a capacity function;
+  3e. step1 against its plain PyTorch version (one step each): the five
+     1D systems (advection, acoustics, Euler with and without the entropy
+     fix, HLLE) at n in {1, 7, 255, 256, 257, 800, 100003} on seeded
+     random states (and the Sod state at 800), order 1/2 with MC, van
+     Leer and the CFL-dependent id 10; advection with a non-uniform
+     capacity function and with the f-wave form; float32 and float64, the
+     CFL equal bit for bit;
+  3f. weno5 against its plain version at (1, 5), (3, 806), (3, 2^20+6)
+     and (4, 37, 131): seeded random data, constant data (finite in
+     float32 too) and the Sod state padded for SharpClaw;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -39,19 +49,31 @@ Phases (each asserts; any failure exits non-zero):
      my=1024, float32) through Controller.run() to tfinal=1.0, with
      step2_aos's launch count read around it (1 per attempted step), mass
      conservation and the x/y mirror symmetry of the depth;
+  4e. the 1D Sod path: examples.euler_1d_shocktube.setup(nx=800, float32)
+     to t=0.2, classic (ClawSolver1D, MC) and SharpClaw (WENO5, SSP104),
+     each with every launch count set to 0 just before it and read just
+     after (step1: 1 per attempted step; weno5: 10), against the same run
+     in float64, with the change of mass and energy;
   5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
      card, float32 and float64;
   5c. the 16^3 euler_3d golden on the card, float32 and float64;
   5d. the 60^2 shallow_2d_radial golden on the card, float32 and float64,
      and a lake at rest over a bump (bathymetry f-waves) at 1024^2
      float32, which must stay at rest to roundoff;
+  5e. the five 1D goldens (advection_1d, advection_1d_sharpclaw,
+     acoustics_1d, euler_1d_sod, euler_1d_sod_sharpclaw) on the card,
+     float32 and float64;
   5b. SharpClaw quadrants at 80^2 on the card against the same run on the
      CPU (the plain path the CPU tests tie to the JAX package): float64 at
      t=0.2 and t=0.8, float32 at t=0.8;
   6. timing at 1024^2 (CUDA events): each 2D kernel, its plain version,
-     its bound, and step3_ctu the same at 192^3; then each 2D path to
-     t=0.1 and the 3D path to t=0.02 under torch.profiler (device busy
-     share, device time by kernel, host time by operation);
+     its bound, and step3_ctu the same at 192^3; step1 on the Sod state at
+     n = 800 and 2^20, weno5 at (3, 806) and (3, 2^20+6), each also with
+     its device time from torch.profiler; then each 2D
+     path to t=0.1, the 3D path to t=0.02, the classic Sod path to t=0.2
+     and the SharpClaw one to t=0.02 under torch.profiler (device busy
+     share, launches per step, device time by kernel, host time by
+     operation);
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -467,6 +489,16 @@ def time_ms(fn, iters, warm=5):
     return start.elapsed_time(end) / iters
 
 
+def bound_of(nbytes, flops, tname):
+    """The least time of the card for ``nbytes`` moved and ``flops``
+    done in ``tname``: the larger of the two times, and which it is."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[tname] * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations"}
+
+
 def timing(dev, n=1024):
     """Kernel, plain version and bound at n^2 on the quadrants state."""
     import torch
@@ -495,19 +527,14 @@ def timing(dev, n=1024):
         plain_ms = time_ms(plain, 20, warm=2)
         ms_again = time_ms(kern, 200)
         item = qbc.element_size()
-        nbytes = qbc.numel() * item + 4 * n * n * item
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = FLOPS_PER_CELL * n * n / PEAK_FLOPS[tname] * 1e3
+        b = bound_of(qbc.numel() * item + 4 * n * n * item,
+                     FLOPS_PER_CELL * n * n, tname)
         out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                      "bytes": nbytes, "flops": FLOPS_PER_CELL * n * n,
-                      "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms > ops_ms
-                      else "operations"}
+                      **b}
         print(f"  timing {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
               f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
-              f"operations {ops_ms:.4f}), library_ms null", flush=True)
+              f"{b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, "
+              f"operations {b['ops_ms']:.4f}), library_ms null", flush=True)
     return out
 
 
@@ -540,20 +567,14 @@ def timing_dq(dev, n=1024):
         plain_ms = time_ms(plain, 10, warm=2)
         ms_again = time_ms(kern, 100)
         item = qbc.element_size()
-        nbytes = qbc.numel() * item + 4 * n * n * item
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flops = FLOPS_PER_CELL_DQ[tname] * n * n
-        ops_ms = flops / PEAK_FLOPS[tname] * 1e3
+        b = bound_of(qbc.numel() * item + 4 * n * n * item,
+                     FLOPS_PER_CELL_DQ[tname] * n * n, tname)
         out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                      "bytes": nbytes, "flops": flops,
-                      "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms > ops_ms
-                      else "operations"}
+                      **b}
         print(f"  timing dq {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
               f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
-              f"operations {ops_ms:.4f}), library_ms null", flush=True)
+              f"{b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, "
+              f"operations {b['ops_ms']:.4f}), library_ms null", flush=True)
     return out
 
 
@@ -581,20 +602,14 @@ def timing_step3(dev, n=192):
         plain_ms = time_ms(plain, 3, warm=1)
         ms_again = time_ms(kern, 20, warm=2)
         item = qbc.element_size()
-        nbytes = qbc.numel() * item + 5 * n ** 3 * item
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flops = FLOPS_PER_CELL_3D * n ** 3
-        ops_ms = flops / PEAK_FLOPS[tname] * 1e3
+        b = bound_of(qbc.numel() * item + 5 * n ** 3 * item,
+                     FLOPS_PER_CELL_3D * n ** 3, tname)
         out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                      "bytes": nbytes, "flops": flops,
-                      "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms > ops_ms
-                      else "operations"}
+                      **b}
         print(f"  timing step3 {n}^3 {tname}: kernel {ms:.4f} ms (repeat "
               f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
-              f"operations {ops_ms:.4f}), library_ms null", flush=True)
+              f"{b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, "
+              f"operations {b['ops_ms']:.4f}), library_ms null", flush=True)
         del qbc
         torch.cuda.empty_cache()
     return out
@@ -756,26 +771,439 @@ def timing_aos(dev, n=1024):
         plain_ms = time_ms(plain, 20, warm=2)
         ms_again = time_ms(kern, 200)
         item = qbc.element_size()
-        nbytes = qbc.numel() * item + 3 * n * n * item
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        flops = FLOPS_PER_CELL_AOS * n * n
-        ops_ms = flops / PEAK_FLOPS[tname] * 1e3
+        b = bound_of(qbc.numel() * item + 3 * n * n * item,
+                     FLOPS_PER_CELL_AOS * n * n, tname)
         out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                      "bytes": nbytes, "flops": flops,
-                      "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                      "bound_ms": max(bytes_ms, ops_ms),
-                      "bound_by": "bytes" if bytes_ms > ops_ms
-                      else "operations"}
+                      **b}
         print(f"  timing step2_aos {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
               f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
-              f"operations {ops_ms:.4f}), library_ms null", flush=True)
+              f"{b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, "
+              f"operations {b['ops_ms']:.4f}), library_ms null", flush=True)
+    return out
+
+
+# ---- the 1D paths: step1 (classic sweep) and weno5 (SharpClaw recon) ----
+
+# Operations per cell of one classic 1D step of euler_with_efix_1D (order
+# 2, MC, no capacity), counted from csrc/step1.cu and csrc/systems1d.cuh in
+# the same way, each interface counted once (the halo interfaces are
+# overhead, not work), the entropy fix on its common, non-transonic
+# branch.  Per interface: the Roe average 35; strengths, waves and speeds
+# 37; the entropy fix (three sound speeds 30, the two middle states 6, the
+# transonic tests and split speeds 13) and amdq/apdq 33, 82; the limiter
+# of three waves (norm and two dot products 15, the upwind choice and
+# theta 3, nu 2, MC 6, the coefficient 6) 96; the correction flux 15; CFL
+# 6 -> 271.  Per cell: the update 18 and the CFL reduction 1.
+FLOPS_PER_CELL_STEP1 = 35 + 37 + 82 + 96 + 15 + 6 + 18 + 1
+
+# Operations per entry of one WENO5 reconstruction (left and right edge
+# values), counted from csrc/weno5.cuh: smoothness indicators 33, candidate
+# values 34, the weights and the two weighted sums 42 in float32 (the
+# normalised-beta branch) and 31 in float64.
+FLOPS_PER_ENTRY_WENO5 = {"float32": 33 + 34 + 42, "float64": 33 + 34 + 31}
+
+SYSTEMS_1D = ("advection_1D", "acoustics_1D", "euler_with_efix_1D",
+              "euler_roe_1D", "euler_hlle_1D")
+PARAMS_1D = {"u": 0.7, "zz": 1.3, "cc": 0.8, "gamma": 1.4}
+# interior lengths of [3e]: one cell, less than, equal to and more than
+# one tile of 256, the main path's 800 and a long odd one
+STEP1_NS = (1, 7, 255, 256, 257, 800, 100003)
+# (order, limiter) of [3e]: first order, MC, van Leer and the CFL-dependent
+# id 10
+STEP1_LIMS = ((1, 4), (2, 4), (2, 3), (2, 10))
+# advection's extra (order, limiter, index_capa, fwave) cases: a
+# non-uniform capacity function, and the f-wave branch
+STEP1_ADVECTION_EXTRA = ((2, 4, 0, False), (2, 10, 0, False),
+                         (2, 4, -1, True), (2, 10, 0, True))
+WENO5_SHAPES = ((1, 5), (3, 806), (3, 2 ** 20 + 6), (4, 37, 131))
+# the 1D goldens on the card: (golden, example module, setup keywords,
+# float32 tolerance).  tools/tpu_validate.py:36-38 holds advection_1d and
+# advection_1d_sharpclaw to 5e-4 and :42-43 euler_1d_sod_sharpclaw to
+# 1e-3; it has no case for acoustics_1d and euler_1d_sod, held to 1e-3.
+GOLDENS_1D = (
+    ("advection_1d", "advection_1d", dict(nx=100, solver_type="classic"),
+     5e-4),
+    ("advection_1d_sharpclaw", "advection_1d",
+     dict(nx=100, solver_type="sharpclaw"), 5e-4),
+    ("acoustics_1d", "acoustics_1d", dict(nx=100), 1e-3),
+    ("euler_1d_sod", "euler_1d_shocktube",
+     dict(nx=200, solver_type="classic"), 1e-3),
+    ("euler_1d_sod_sharpclaw", "euler_1d_shocktube",
+     dict(nx=200, solver_type="sharpclaw"), 1e-3))
+# the Sod path at 800 cells in float32 against the same run in float64 on
+# the card (relative L1, max relative) and the change of mass and energy
+# (relative; no wave reaches the ends by t=0.2).  The plain versions on
+# the CPU give 1.8e-7 / 8.5e-7 / 2.3e-8 (classic) and 9.0e-6 / 9.9e-5 /
+# 7.8e-6 (SharpClaw, whose float32 weights and positivity fallback move
+# mass by roundoff); the gates leave a factor of ten or more.
+SOD_RUN_TOL = {"classic": (1e-5, 1e-4, 1e-6),
+               "sharpclaw": (1e-4, 1e-3, 1e-4)}
+
+
+def random_state_1d(rng, name, m):
+    """A seeded ghost-padded 1D state (num_eqn, m) of system ``name`` and
+    a positive capacity row (1, m).  Euler states have velocities of
+    either sign, so some interfaces are transonic (the entropy fix's
+    branches)."""
+    if name.startswith("euler"):
+        rho = 0.3 + rng.random(m)
+        u = 1.5 * rng.standard_normal(m)
+        p = 0.2 + rng.random(m)
+        q = np.stack([rho, rho * u, p / 0.4 + 0.5 * rho * u * u])
+    else:
+        q = rng.standard_normal((2 if name == "acoustics_1D" else 1, m))
+    return q, 0.7 + 0.6 * rng.random((1, m))
+
+
+def sod_state(n):
+    from pyclaw_tpu_torch.examples import euler_1d_shocktube as ex
+    return ex.setup(nx=n, outdir=None, device="cpu").solution.q
+
+
+def padded_1d(q_np, dtype, dev, num_ghost):
+    import torch
+    from pyclaw_tpu_torch import bc
+    q = torch.as_tensor(q_np, dtype=dtype, device=dev)
+    return bc.extend(q, num_ghost, [bc.BC.extrap], [bc.BC.extrap])
+
+
+def plain_step1(qbc, auxbc, dt, dx, name, lims, order, fwave, capa):
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.classic import kernels
+    return kernels.step1(qbc, auxbc, dt, dx, riemann.ALL[name].rp,
+                         PARAMS_1D, lims, order, fwave, capa, 2)
+
+
+def compare_step1(dev, seed=4):
+    """step1 vs its plain version, one step each, on the card: the five 1D
+    systems at every n of STEP1_NS (seeded random states; the Sod state
+    too at n = 800), the (order, limiter) pairs of STEP1_LIMS, and on
+    advection a non-uniform capacity function and the f-wave form.  The
+    CFL must be equal bit for bit."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import sweep
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    for n in STEP1_NS:
+        dx = 1.0 / n
+        for name in SYSTEMS_1D:
+            rp = riemann.ALL[name]
+            q_np, aux_np = random_state_1d(rng, name, n + 4)
+            inputs = {"random": q_np}
+            if n == 800 and name == "euler_with_efix_1D":
+                inputs["sod"] = padded_1d(sod_state(n), torch.float64,
+                                          "cpu", 2).numpy()
+            cases = [(order, lim, -1, False) for order, lim in STEP1_LIMS]
+            if name == "advection_1D":
+                cases += list(STEP1_ADVECTION_EXTRA)
+            for iname, qn in inputs.items():
+                for tname, dtype in (("float32", torch.float32),
+                                     ("float64", torch.float64)):
+                    qbc = torch.as_tensor(qn, dtype=dtype, device=dev)
+                    auxbc = torch.as_tensor(aux_np, dtype=dtype, device=dev)
+                    dt = float(np.dtype(tname).type(0.1 * dx))
+                    for order, lim, capa, fwave in cases:
+                        lims = (lim,) * rp.num_waves
+                        qk, ck = sweep.step1(qbc, auxbc, dt, dx, rp,
+                                             PARAMS_1D, lims, order, fwave,
+                                             capa)
+                        qp, cp = plain_step1(qbc, auxbc, dt, dx, name, lims,
+                                             order, fwave, capa)
+                        torch.cuda.synchronize()
+                        abs_err = float((qk - qp).abs().max())
+                        scale = float(qp.abs().max())
+                        rel = abs_err / scale if scale > 0.0 else abs_err
+                        if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                                and float(ck) == float(cp)
+                                and tuple(qk.shape) == (rp.num_eqn, n)):
+                            fail(f"step1 vs plain n={n} {name} {iname} "
+                                 f"{tname} order={order} lim={lim} "
+                                 f"capa={capa} fwave={fwave}: rel err "
+                                 f"{rel:.3e}, cfl {float(ck)!r} vs "
+                                 f"{float(cp)!r}")
+                        worst[tname] = max(worst[tname], rel)
+                        if (iname, tname, order, lim) == ("sod", "float32",
+                                                          2, 4):
+                            main_abs_err = abs_err
+                        ncase += 1
+        print(f"  compare step1 n={n}: max rel err f32 "
+              f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; the CFL "
+              f"equal in every case", flush=True)
+    return worst, main_abs_err, ncase
+
+
+def compare_weno5(dev, seed=5):
+    """weno5 vs its plain version on the card: seeded random data at every
+    shape of WENO5_SHAPES, the Sod state padded for SharpClaw at (3, 806),
+    and constant data, which must stay finite in float32 too."""
+    import torch
+    from pyclaw_tpu_torch.limiters import recon
+    from pyclaw_tpu_torch.ops import weno
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    for shape in WENO5_SHAPES:
+        inputs = {"random": rng.standard_normal(shape),
+                  "constant": np.full(shape, 0.5)}
+        if shape == (3, 806):
+            inputs["sod"] = padded_1d(sod_state(800), torch.float64, "cpu",
+                                      3).numpy()
+        for iname, q_np in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                q = torch.as_tensor(q_np, dtype=dtype, device=dev)
+                lk, rk = weno.weno5(q)
+                lp, rp = recon.weno5(q)
+                torch.cuda.synchronize()
+                abs_err = max(float((lk - lp).abs().max()),
+                              float((rk - rp).abs().max()))
+                rel = abs_err / max(float(lp.abs().max()),
+                                    float(rp.abs().max()))
+                finite = bool(torch.isfinite(lk).all()
+                              and torch.isfinite(rk).all())
+                if not (finite and rel <= TOL_REL[tname]
+                        and lk.shape == rk.shape == q.shape):
+                    fail(f"weno5 vs plain {shape} {iname} {tname}: rel err "
+                         f"{rel:.3e}, finite {finite}")
+                worst[tname] = max(worst[tname], rel)
+                if (iname, tname) == ("sod", "float32"):
+                    main_abs_err = abs_err
+                ncase += 1
+        print(f"  compare weno5 {shape}: max rel err f32 "
+              f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; constant "
+              f"data finite", flush=True)
+    return worst, main_abs_err, ncase
+
+
+def run_sod(dev, n, dtype, solver_type, tfinal=0.2):
+    """examples.euler_1d_shocktube through Controller.run(); returns
+    (claw, status, wall seconds)."""
+    import torch
+    from pyclaw_tpu_torch.examples import euler_1d_shocktube as ex
+    claw = ex.setup(nx=n, solver_type=solver_type, dtype=dtype, outdir=None,
+                    device=dev)
+    claw.tfinal = tfinal
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
+def kernel_counts():
+    """The launch counts of every kernel wrapper, by kernel."""
+    from pyclaw_tpu_torch.ops import sweep, tiled2d, weno
+    return {"step2_ctu": tiled2d.step2_rows.launches,
+            "dq2_weno5": tiled2d.dq_rows.launches,
+            "step3_ctu": tiled2d.step3_xy.launches,
+            "step2_aos": tiled2d.step2_rows_generic.launches,
+            "step1": sweep.step1.launches, "weno5": weno.weno5.launches}
+
+
+def reset_kernel_counts():
+    from pyclaw_tpu_torch.ops import sweep, tiled2d, weno
+    for fn in (tiled2d.step2_rows, tiled2d.dq_rows, tiled2d.step3_xy,
+               tiled2d.step2_rows_generic, sweep.step1, weno.weno5):
+        fn.launches = 0
+
+
+def sod_path(dev, n=800):
+    """[4e]: the Sod path at n cells in float32, classic and SharpClaw
+    SSP104, each with every launch count set to 0 just before it and read
+    just after; then each against the same run in float64 on the card,
+    and the change of mass and energy."""
+    q0 = sod_state(n)
+    out = {}
+    for solver_type in ("classic", "sharpclaw"):
+        reset_kernel_counts()
+        claw, status, wall = run_sod(dev, n, np.float32, solver_type)
+        counts = kernel_counts()
+        ns, nr = status["numsteps"], status["numrejected"]
+        q = claw.solution.q.astype(np.float64)
+        ref, st64, wall64 = run_sod(dev, n, np.float64, solver_type)
+        q64 = ref.solution.q
+        l1 = float(np.mean(np.abs(q - q64)) / np.mean(np.abs(q64)))
+        mx_rel = float(np.max(np.abs(q - q64)) / np.max(np.abs(q64)))
+        cons = max(abs(float(np.sum(q[k])) - float(np.sum(q0[k])))
+                   / float(np.sum(q0[k])) for k in (0, 2))
+        kernel, per_step = (("step1", 1) if solver_type == "classic"
+                            else ("weno5", 10))
+        res = {"accepted": ns, "rejected": nr, "wall_s": wall,
+               "cell_updates_per_s": ns * n / wall, "launches": counts,
+               "f64_accepted": st64["numsteps"],
+               "f64_rejected": st64["numrejected"], "f64_wall_s": wall64,
+               "vs_f64_l1": l1, "vs_f64_max": mx_rel,
+               "mass_energy_change": cons}
+        out[solver_type] = res
+        print(f"[4e] sod {solver_type} {n} f32 to t={claw.solution.t}: {ns} "
+              f"accepted + {nr} rejected steps, {counts[kernel]} {kernel} "
+              f"launches (all counts {counts}), {wall:.3f} s wall, "
+              f"{ns * n / wall:.4e} cell-updates/s; against float64 "
+              f"({st64['numsteps']} + {st64['numrejected']} steps, "
+              f"{wall64:.3f} s): rel L1 {l1:.3e}, max rel {mx_rel:.3e}; "
+              f"mass/energy change {cons:.3e}", flush=True)
+        others = {k: v for k, v in counts.items() if k != kernel}
+        if counts[kernel] == 0 or counts[kernel] != per_step * (ns + nr):
+            fail(f"sod {solver_type}: {counts[kernel]} {kernel} launches != "
+                 f"{per_step} x (accepted {ns} + rejected {nr})")
+        if any(others.values()):
+            fail(f"sod {solver_type}: other kernels launched: {others}")
+        if nr < 1:
+            fail(f"sod {solver_type}: the first step at dt_initial=0.1 "
+                 f"should be rejected")
+        if q.shape != (3, n) or not np.all(np.isfinite(q)):
+            fail(f"sod {solver_type}: result is not finite (3, {n})")
+        if np.min(q[0]) <= 0.0 or abs(claw.solution.t - 0.2) > 1e-12:
+            fail(f"sod {solver_type}: a non-positive density or t="
+                 f"{claw.solution.t}")
+        tol_l1, tol_max, tol_cons = SOD_RUN_TOL[solver_type]
+        if not (l1 <= tol_l1 and mx_rel <= tol_max and cons <= tol_cons):
+            fail(f"sod {solver_type} f32 vs f64: rel L1 {l1}, max rel "
+                 f"{mx_rel}, mass/energy change {cons}")
+    return out
+
+
+def goldens_1d(dev):
+    """[5e]: the five 1D goldens on the card, float32 and float64."""
+    import importlib
+    out = {}
+    for name, module, kwargs, tol32 in GOLDENS_1D:
+        ex = importlib.import_module(f"pyclaw_tpu_torch.examples.{module}")
+        ref = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz"))
+        for tname, dtype, tol in (("float32", np.float32, tol32),
+                                  ("float64", np.float64,
+                                   GOLDEN_TOL["float64"])):
+            claw = ex.setup(outdir=None, device=dev, dtype=dtype, **kwargs)
+            st = claw.run()
+            q = claw.solution.q.astype(np.float64)
+            rel = float(np.max(np.abs(q - ref["q"]))
+                        / np.max(np.abs(ref["q"])))
+            out[f"{name}:{tname}"] = rel
+            print(f"[5e] golden {name} {tname}: rel err {rel:.3e} (tol "
+                  f"{tol}), {st['numsteps']} + {st['numrejected']} steps",
+                  flush=True)
+            if not rel <= tol:
+                fail(f"golden {name} {tname}: {rel} > {tol}")
+            if abs(claw.solution.t - float(ref["t"])) > 1e-10:
+                fail(f"golden {name} {tname}: t={claw.solution.t}")
+    return out
+
+
+def device_ms_per_call(fn, needle, calls=20):
+    """Device time per launch of the kernels whose name holds ``needle``
+    over ``calls`` calls of ``fn``, from torch.profiler, and the number of
+    such launches (None, 0 when it shows none).  At the 1D sizes a
+    wrapper call's host work (allocations, the ctypes call, the CFL
+    reduction) takes longer than its kernel, so the CUDA events of
+    time_ms time the host; this times the kernel alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count, seen = 0.0, 0, []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        seen.append((ev.key[:60], ev.count, t))
+        if needle in ev.key:
+            total += t
+            count += ev.count
+    if count == 0:
+        print(f"    profiler: no {needle} launch among {seen[:4]}",
+              flush=True)
+        return None, 0
+    return total / count / 1e3, count
+
+
+def timing_1d(dev):
+    """step1 on the Sod state at n = 800 and 2^20, and weno5 on the Sod
+    state padded for SharpClaw at (3, 806) and (3, 2^20 + 6): the time of
+    a wrapper call (CUDA events), the kernel's device time
+    (torch.profiler), the plain version and the bound, float32 and
+    float64."""
+    import torch
+    from pyclaw_tpu_torch.limiters import recon
+    from pyclaw_tpu_torch.ops import sweep, weno
+    from pyclaw_tpu_torch import riemann
+    rp = riemann.euler_with_efix_1D
+    out = {"step1": {}, "weno5": {}}
+    for n in (800, 2 ** 20):
+        q_np = sod_state(n)
+        for tname, dtype in (("float32", torch.float32),
+                             ("float64", torch.float64)):
+            item = torch.finfo(dtype).bits // 8
+            iters = 200 if n == 800 else 50
+            qbc = padded_1d(q_np, dtype, dev, 2)
+            dx = 1.0 / n
+            dt = float(np.dtype(tname).type(0.5 * dx))
+
+            def kern():
+                return sweep.step1(qbc, None, dt, dx, rp, PARAMS_1D, (4,) * 3,
+                                   2, False, -1)
+
+            def plain():
+                return plain_step1(qbc, None, dt, dx, "euler_with_efix_1D",
+                                   (4,) * 3, 2, False, -1)
+            ms = time_ms(kern, iters)
+            plain_ms = time_ms(plain, iters // 5, warm=2)
+            ms_again = time_ms(kern, iters)
+            dev_ms, dev_n = device_ms_per_call(kern, "step1_kernel")
+            rec = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                   "device_launches_profiled": dev_n,
+                   "plain_ms": plain_ms, "shape": list(qbc.shape),
+                   **bound_of((qbc.numel() + 3 * n) * item,
+                              FLOPS_PER_CELL_STEP1 * n, tname)}
+            out["step1"][f"{n}:{tname}"] = rec
+            print(f"  timing step1 n={n} {tname}: wrapper call {ms:.4f} ms "
+                  f"(repeat {ms_again:.4f}), kernel on the device {dev_ms} "
+                  f"ms ({dev_n} launches profiled), plain {plain_ms:.4f} ms, "
+                  f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; bytes "
+                  f"{rec['bytes_ms']:.6f}, operations {rec['ops_ms']:.6f}), "
+                  f"library_ms null", flush=True)
+
+            q = padded_1d(q_np, dtype, dev, 3)
+
+            def wkern():
+                return weno.weno5(q)
+
+            def wplain():
+                return recon.weno5(q)
+            ms = time_ms(wkern, iters)
+            plain_ms = time_ms(wplain, iters // 5, warm=2)
+            ms_again = time_ms(wkern, iters)
+            dev_ms, dev_n = device_ms_per_call(wkern, "weno5_kernel")
+            rec = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                   "device_launches_profiled": dev_n,
+                   "plain_ms": plain_ms, "shape": list(q.shape),
+                   **bound_of(3 * q.numel() * item,
+                              FLOPS_PER_ENTRY_WENO5[tname] * q.numel(),
+                              tname)}
+            out["weno5"][f"{n}:{tname}"] = rec
+            print(f"  timing weno5 {tuple(q.shape)} {tname}: wrapper call "
+                  f"{ms:.4f} ms (repeat {ms_again:.4f}), kernel on the device "
+                  f"{dev_ms} ms ({dev_n} launches profiled), plain "
+                  f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+                  f"({rec['bound_by']}; bytes "
+                  f"{rec['bytes_ms']:.6f}, operations {rec['ops_ms']:.6f}), "
+                  f"library_ms null", flush=True)
     return out
 
 
 # device kernels grouped by what launched them (by kernel name)
 DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5", "step3_ctu",
-                             "step2_aos")),
+                             "step2_aos", "step1_kernel",
+                             "weno5_kernel")),
                  ("bc_extension", ("CatArrayBatchedCopy", "copy_kernel")),
                  ("cfl_reduction", ("reduce_kernel", "maximum")),
                  ("memcpy", ("Memcpy", "Memset")))
@@ -825,6 +1253,7 @@ def profile_main_path(label, run_path):
         return {"steps": steps, "step_ms": step_ms,
                 "device_busy_share": None}
     device_us = sum(r[0] for r in dev_rows) / steps
+    launches = sum(r[2] for r in dev_rows) / steps
     busy_share = device_us / (step_ms * 1e3)
     groups = {}
     for self_dev, key, _ in dev_rows:
@@ -833,8 +1262,8 @@ def profile_main_path(label, run_path):
     print(f"  profile {label}: "
           f"{steps} steps, {step_ms:.4f} ms/step wall "
           f"({wall_prof / steps * 1e3:.4f} under the profiler), device "
-          f"kernels {device_us:.2f} us/step, device busy share "
-          f"{busy_share:.4f}", flush=True)
+          f"kernels {device_us:.2f} us/step in {launches:.1f} launches, "
+          f"device busy share {busy_share:.4f}", flush=True)
     print("    device us/step by group: " + ", ".join(
         f"{g} {v:.2f}" for g, v in sorted(groups.items(),
                                           key=lambda kv: -kv[1])))
@@ -847,6 +1276,7 @@ def profile_main_path(label, run_path):
     return {"steps": steps, "step_ms": step_ms,
             "step_ms_profiled": wall_prof / steps * 1e3,
             "device_us_per_step": device_us,
+            "device_launches_per_step": launches,
             "device_busy_share": busy_share,
             "device_us_per_step_by_group": groups,
             "kernels_us_per_step": {k[:60]: s / steps
@@ -939,10 +1369,12 @@ def main():
     # [2] build every kernel of the paths from the checkout's sources, one
     # nvcc per source, all started together
     t0 = time.perf_counter()
-    names = ["step2_ctu", "dq2_weno5", "step3_ctu", "step2_aos"]
-    lib, dq_lib, lib3, lib_aos = _build.load_all(names)
+    names = ["step2_ctu", "dq2_weno5", "step3_ctu", "step2_aos", "step1",
+             "weno5"]
+    lib, dq_lib, lib3, lib_aos, lib_s1, _ = _build.load_all(names)
     print(f"[2] built csrc/step2_ctu.cu, csrc/dq2_weno5.cu, "
-          f"csrc/step3_ctu.cu and csrc/step2_aos.cu for sm_90a in "
+          f"csrc/step3_ctu.cu, csrc/step2_aos.cu, csrc/step1.cu and "
+          f"csrc/weno5.cu for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s; shared memory per block: "
           f"step2_ctu f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
           f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
@@ -953,7 +1385,11 @@ def main():
           f"{lib_aos.step2_aos_smem_bytes(0, 0, 0)} B, f64 "
           f"{lib_aos.step2_aos_smem_bytes(0, 0, 1)} B, (bathymetry with "
           f"capacity) f32 {lib_aos.step2_aos_smem_bytes(1, 1, 0)} B, f64 "
-          f"{lib_aos.step2_aos_smem_bytes(1, 1, 1)} B", flush=True)
+          f"{lib_aos.step2_aos_smem_bytes(1, 1, 1)} B; step1 (Euler) f32 "
+          f"{lib_s1.step1_smem_bytes(2, 0, 0)} B, f64 "
+          f"{lib_s1.step1_smem_bytes(2, 0, 1)} B, (advection with "
+          f"capacity) f32 {lib_s1.step1_smem_bytes(0, 1, 0)} B, f64 "
+          f"{lib_s1.step1_smem_bytes(0, 1, 1)} B", flush=True)
     phase_s = {"build": time.perf_counter() - t0}
     for name in names:
         for line in _build.build_report(name).splitlines():
@@ -1003,6 +1439,25 @@ def main():
           f"{aos_worst_cfl['float64']:.3e}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3d"] = time.perf_counter() - t0
+
+    # [3e] step1 against its plain version
+    t0 = time.perf_counter()
+    s1_worst, s1_main_abs_err, s1_ncase = compare_step1(dev)
+    print(f"[3e] step1 vs plain: {s1_ncase} cases, max rel err f32 "
+          f"{s1_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{s1_worst['float64']:.3e} (tol {TOL_REL['float64']}); the CFL "
+          f"equal in every case; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    phase_s["3e"] = time.perf_counter() - t0
+
+    # [3f] weno5 against its plain version
+    t0 = time.perf_counter()
+    w5_worst, w5_main_abs_err, w5_ncase = compare_weno5(dev)
+    print(f"[3f] weno5 vs plain: {w5_ncase} cases, max rel err f32 "
+          f"{w5_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{w5_worst['float64']:.3e} (tol {TOL_REL['float64']}); constant "
+          f"data finite; {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3f"] = time.perf_counter() - t0
 
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
@@ -1110,6 +1565,14 @@ def main():
     del claw_sw, q_sw
     phase_s["4d"] = time.perf_counter() - t0
 
+    # [4e] the 1D Sod path (classic and SharpClaw, 800 cells, f32), every
+    # launch count set to 0 just before each run and read just after
+    t0 = time.perf_counter()
+    sod = sod_path(dev)
+    s1_launches = sod["classic"]["launches"]["step1"]
+    w5_launches = sod["sharpclaw"]["launches"]["weno5"]
+    phase_s["4e"] = time.perf_counter() - t0
+
     # [5] goldens on the card
     golden = {}
     for n, name in ((80, "euler_2d_quadrants"),
@@ -1173,6 +1636,11 @@ def main():
         fail(f"lake at rest: drift {eta_drift}, momentum {mom}, launches "
              f"{lake_launches} for {lake_steps} steps")
 
+    # [5e] the five 1D goldens on the card
+    t0 = time.perf_counter()
+    golden.update(goldens_1d(dev))
+    phase_s["5e"] = time.perf_counter() - t0
+
     # [5b] SharpClaw on the card against the same run on the CPU
     t0 = time.perf_counter()
     sharp_vs_cpu = sharp_card_vs_cpu(dev)
@@ -1196,6 +1664,15 @@ def main():
     prof_sw = profile_main_path(
         "shallow path 1024^2 f32 to t=0.1",
         lambda: run_shallow(dev, 1024, np.float32, 0.1))
+    tm_1d = timing_1d(dev)
+    prof_sod = profile_main_path(
+        "sod classic path 800 f32 to t=0.2",
+        lambda: run_sod(dev, 800, np.float32, "classic"))
+    # a short window: the SharpClaw stage is ~230 small launches, and the
+    # profiler's bookkeeping of a whole run takes minutes
+    prof_sod_sharp = profile_main_path(
+        "sod sharpclaw path 800 f32 to t=0.02",
+        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02))
     phase_s["6"] = time.perf_counter() - t0
 
     f32, f64 = tm["float32"], tm["float64"]
@@ -1269,7 +1746,64 @@ def main():
         "max_rel_err_f64": aos_worst["float64"],
         "max_rel_err_f32": aos_worst["float32"],
     }
-    kernels = [record, dq_record, s3_record, aos_record]
+    k32, k64 = tm_1d["step1"]["800:float32"], tm_1d["step1"]["800:float64"]
+    big32 = tm_1d["step1"][f"{2 ** 20}:float32"]
+    big64 = tm_1d["step1"][f"{2 ** 20}:float64"]
+    s1_record = {
+        "name": "step1", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step1.cu",
+        "replaces": "pyclaw_tpu/ops/sweep.py:35",
+        "replaces_function": "step1_pallas", "rows": ["7"],
+        "launches": s1_launches, "max_abs_err": s1_main_abs_err,
+        "ms": k32["ms"], "device_ms": k32["device_ms"],
+        "plain_ms": k32["plain_ms"],
+        "bound_ms": k32["bound_ms"], "bound_by": k32["bound_by"],
+        "library_ms": None,
+        "shape": k32["shape"], "dtype": "float32",
+        "ms_f64": k64["ms"], "device_ms_f64": k64["device_ms"],
+        "plain_ms_f64": k64["plain_ms"],
+        "bound_ms_f64": k64["bound_ms"], "bound_by_f64": k64["bound_by"],
+        "shape_large": big32["shape"], "ms_large": big32["ms"],
+        "device_ms_large": big32["device_ms"],
+        "device_ms_large_f64": big64["device_ms"],
+        "plain_ms_large": big32["plain_ms"],
+        "bound_ms_large": big32["bound_ms"],
+        "bound_by_large": big32["bound_by"], "ms_large_f64": big64["ms"],
+        "plain_ms_large_f64": big64["plain_ms"],
+        "bound_ms_large_f64": big64["bound_ms"],
+        "max_rel_err_f64": s1_worst["float64"],
+        "max_rel_err_f32": s1_worst["float32"],
+    }
+    w32, w64 = tm_1d["weno5"]["800:float32"], tm_1d["weno5"]["800:float64"]
+    wbig32 = tm_1d["weno5"][f"{2 ** 20}:float32"]
+    wbig64 = tm_1d["weno5"][f"{2 ** 20}:float64"]
+    w5_record = {
+        "name": "weno5", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/weno5.cu",
+        "replaces": "pyclaw_tpu/ops/weno.py:76",
+        "replaces_function": "weno5_pallas", "rows": ["8"],
+        "launches": w5_launches, "max_abs_err": w5_main_abs_err,
+        "ms": w32["ms"], "device_ms": w32["device_ms"],
+        "plain_ms": w32["plain_ms"],
+        "bound_ms": w32["bound_ms"], "bound_by": w32["bound_by"],
+        "library_ms": None,
+        "shape": w32["shape"], "dtype": "float32",
+        "ms_f64": w64["ms"], "device_ms_f64": w64["device_ms"],
+        "plain_ms_f64": w64["plain_ms"],
+        "bound_ms_f64": w64["bound_ms"], "bound_by_f64": w64["bound_by"],
+        "shape_large": wbig32["shape"], "ms_large": wbig32["ms"],
+        "device_ms_large": wbig32["device_ms"],
+        "device_ms_large_f64": wbig64["device_ms"],
+        "plain_ms_large": wbig32["plain_ms"],
+        "bound_ms_large": wbig32["bound_ms"],
+        "bound_by_large": wbig32["bound_by"], "ms_large_f64": wbig64["ms"],
+        "plain_ms_large_f64": wbig64["plain_ms"],
+        "bound_ms_large_f64": wbig64["bound_ms"],
+        "max_rel_err_f64": w5_worst["float64"],
+        "max_rel_err_f32": w5_worst["float32"],
+    }
+    kernels = [record, dq_record, s3_record, aos_record, s1_record,
+               w5_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s": wall,
                              "cell_updates_per_s": ns * 1024 * 1024 / wall},
@@ -1289,14 +1823,17 @@ def main():
                                     ns_sw * 1024 * 1024 / wall_sw,
                                 "mass_change_rel": mass_rel,
                                 "mirror_asymmetry": mirror},
+               "sod_path": sod,
                "lake_at_rest": {"steps": lake_steps,
                                 "eta_drift": eta_drift, "momentum": mom},
                "golden_rel_err": golden, "sharpclaw_card_vs_cpu":
                    sharp_vs_cpu,
                "timing": tm, "timing_dq": tm_dq, "timing_step3": tm3,
-               "timing_aos": tm_aos,
+               "timing_aos": tm_aos, "timing_1d": tm_1d,
                "profile": prof, "profile_sharpclaw": sprof,
                "profile_euler3d": prof3, "profile_shallow": prof_sw,
+               "profile_sod_classic": prof_sod,
+               "profile_sod_sharpclaw": prof_sod_sharp,
                "phase_seconds": phase_s,
                "card": card, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -18,10 +18,23 @@ passes ``device="cpu"``.
     claw.tfinal = 0.6
     claw.run()
 
-The port carries the 2D classic CTU path and the 2D SharpClaw WENO5
-path (``SharpClawSolver2D``; SSP104, SSP33, Euler) of the Euler 4-wave
-system, and the 3D classic CTU path (``ClawSolver3D``) of the 3D Euler
-system; ROADMAP.md lists what comes next.
+The port carries these paths, each with a hand-written CUDA kernel:
+
+* 2D Euler quadrants on the classic CTU step (``ClawSolver2D`` with
+  ``euler_4wave_2D``; ``csrc/step2_ctu.cu``);
+* 2D Euler on SharpClaw WENO5 (``SharpClawSolver2D``; SSP104, SSP33,
+  Euler; ``csrc/dq2_weno5.cu``);
+* 3D Euler on the classic CTU step (``ClawSolver3D`` with ``euler_3D``;
+  ``csrc/step3_ctu.cu``);
+* 2D shallow water on the generic AoS CTU step, with aux, capacity and
+  f-waves (``ClawSolver2D`` with ``shallow_roe_with_efix_2D`` or
+  ``shallow_bathymetry_fwave_2D``; ``csrc/step2_aos.cu``);
+* the 1D solvers: advection, acoustics and Euler (Roe with and without
+  the entropy fix, HLLE) on the classic sweep (``ClawSolver1D``;
+  ``csrc/step1.cu``) and on SharpClaw WENO5 (``SharpClawSolver1D``;
+  ``csrc/weno5.cu``).
+
+ROADMAP.md lists what comes next.
 """
 
 from . import config  # noqa: F401
@@ -32,8 +45,9 @@ from .geometry import Dimension, Domain, Grid, Patch  # noqa: F401,E402
 from .solution import Solution  # noqa: F401,E402
 from .solver import BC, Solver  # noqa: F401,E402
 from .state import State  # noqa: F401,E402
-from .classic import ClawSolver2D, ClawSolver3D  # noqa: F401,E402
-from .sharpclaw import SharpClawSolver2D  # noqa: F401,E402
+from .classic import (  # noqa: F401,E402
+    ClawSolver1D, ClawSolver2D, ClawSolver3D)
+from .sharpclaw import SharpClawSolver1D, SharpClawSolver2D  # noqa: F401,E402
 from . import limiters, riemann  # noqa: F401,E402
 
 __version__ = "0.1.0"

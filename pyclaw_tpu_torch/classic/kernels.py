@@ -1,20 +1,24 @@
-"""Plain PyTorch versions of the unsplit classic (CTU) steps, AoS form.
+"""Plain PyTorch versions of the classic steps, AoS form: the 1D sweep and
+the unsplit 2D and 3D CTU steps.
 
-Counterpart of ``pyclaw_tpu/classic/kernels.py`` (``_correction_flux
-:38``, ``_sweep_normal :125``, ``_pad_axis :171``, ``step2 :177``,
-``_embed :509``, ``_slc :523``, ``_step3_sweeps :529``, ``step3 :572``,
-``_step3_update :597``) — the XLA form, the oracle of the JAX package,
-not its roll form or its tiled and phased variants.  ``step2`` is what
-``ops.tiled2d.step2_rows_generic`` computes on a CPU tensor, and what
-the CUDA kernel ``csrc/step2_aos.cu`` is held against on the card;
-``step3`` the same for ``ops.tiled2d.step3_xy`` and
+Counterpart of ``pyclaw_tpu/classic/kernels.py`` (``_dtdx_arr :31``,
+``_correction_flux :38``, ``step1 :55``, ``_sweep_normal :125``,
+``_pad_axis :171``, ``step2 :177``, ``_embed :509``, ``_slc :523``,
+``_step3_sweeps :529``, ``step3 :572``, ``_step3_update :597``) — the
+XLA form, the oracle of the JAX package, not its roll form or its tiled
+and phased variants.  ``step1`` is what ``ops.sweep.step1`` computes on
+a CPU tensor, and what the CUDA kernel ``csrc/step1.cu`` is held against
+on the card; ``step2`` the same for ``ops.tiled2d.step2_rows_generic``
+and ``csrc/step2_aos.cu``; ``step3`` for ``ops.tiled2d.step3_xy`` and
 ``csrc/step3_ctu.cu``.  The index algebra and the order of the sums are
 the JAX package's, so in float64 the two agree to roundoff
-(tests/test_torch_step2_aos.py, tests/test_torch_step3.py).
+(tests/test_torch_step1.py, tests/test_torch_step2_aos.py,
+tests/test_torch_step3.py).
 
-The 2D step takes aux arrays, a capacity function (``index_capa`` >= 0:
-per-cell dt/(dx kappa)) and the f-wave correction form; the 3D step
-takes none of them yet and raises ``NotImplementedError``.  Without a
+The 1D and 2D steps take aux arrays, a capacity function
+(``index_capa`` >= 0: per-cell dt/(dx kappa)) and the f-wave correction
+form; the 3D step takes none of them yet and raises
+``NotImplementedError``.  Without a
 capacity function dt/dx stays a scalar: ``dt/dx``, ``0.5 dt/dx`` and
 ``dt^2 / (6 dx dy)`` are Python floats, which PyTorch rounds to q's
 dtype where they meet a tensor.  Sums over the small wave and equation
@@ -56,6 +60,60 @@ def _correction_flux(wave, phi, s, dtdxave, fwave):
     for p in range(1, wave.shape[1]):
         cq = cq + terms[:, p]
     return cq
+
+
+def _dtdx_arr(dt, dxi, capa):
+    """dt/(dx kappa) per cell along the sweep axis: with a capacity
+    function a tensor shaped like ``capa``, else the Python float dt/dx,
+    which PyTorch rounds to q's dtype where it meets a tensor (the JAX
+    package's ``jnp.full((n,), dt/dx)`` holds that value in every cell).
+    The capacity form divides a 0-d tensor, as the JAX package divides
+    (``float / tensor`` in PyTorch multiplies by a reciprocal)."""
+    if capa is None:
+        return dt / dxi
+    return capa.new_full((), dt) / (dxi * capa)
+
+
+def step1(q, aux, dt, dx, rp, params, mthlim, order, fwave, index_capa,
+          num_ghost, ixy=0):
+    """1D classic sweep (step1.f90) along the LAST axis of ghost-padded
+    arrays: the plain version of ``csrc/step1.cu``.
+
+    q: (num_eqn, ..., n) with n = mx + 2*num_ghost (ghosts filled); aux:
+    (num_aux, ..., n) or None; ``dt`` a Python float.  Interface k lies
+    between cells k and k+1; cell i takes apdq of interface i-1 and amdq
+    of interface i.  Returns (q with the last axis cut to the interior
+    mx, cfl over the interfaces touching interior cells)."""
+    g = num_ghost
+    n = q.shape[-1]
+    dt = float(dt)
+
+    q_l, q_r = q[..., :-1], q[..., 1:]
+    aux_l = aux_r = None
+    if aux is not None:
+        aux_l, aux_r = aux[..., :-1], aux[..., 1:]
+    wave, s, amdq, apdq = rp(ixy, q_l, q_r, aux_l, aux_r, params)
+
+    capa = aux[index_capa] if index_capa >= 0 else None
+    dtdx = _dtdx_arr(dt, dx, capa)
+    s_int = s[..., g - 1:n - g]
+    if capa is None:
+        cfl = torch.amax(torch.maximum(s_int * dtdx, -s_int * dtdx))
+        dtdx_c = dtdxave = dtdx
+    else:
+        cfl = torch.amax(torch.maximum(s_int * dtdx[..., g:n - g + 1],
+                                       -s_int * dtdx[..., g - 1:n - g]))
+        dtdx_c = dtdx[..., 1:-1]
+        dtdxave = 0.5 * (dtdx[..., :-1] + dtdx[..., 1:])
+
+    # first-order fluctuation update for cells 1..n-2
+    q_new = q[..., 1:-1] - dtdx_c * (apdq[..., :-1] + amdq[..., 1:])
+    if order == 2:
+        phi = tvd.limiter_phi(q.shape[0], wave, s, mthlim, dtdx=dtdxave)
+        cqxx = _correction_flux(wave, phi, s, dtdxave, fwave)
+        q_new = q_new - dtdx_c * (cqxx[..., 1:] - cqxx[..., :-1])
+    # q_new covers cells 1..n-2; interior cells are g..n-1-g
+    return q_new[..., g - 1:n - 1 - g], cfl
 
 
 def _sweep_normal(q, aux, ixy, rp, params, mthlim, order, fwave,
@@ -113,13 +171,8 @@ def step2(q, aux, dt, dx, dy, rp, rpt, params, mthlim, order, fwave,
     dt = float(dt)
 
     capa = aux[index_capa] if index_capa >= 0 else None
-    if capa is None:
-        dtdx = dt / dx
-        dtdy = dt / dy
-    else:
-        dt_t = capa.new_full((), dt)
-        dtdx = dt_t / (dx * capa)
-        dtdy = dt_t / (dy * capa)
+    dtdx = _dtdx_arr(dt, dx, capa)
+    dtdy = _dtdx_arr(dt, dy, capa)
 
     wx, sx, amdqx, apdqx, cqxx, _ = _sweep_normal(
         q, aux, 0, rp, params, mthlim, order, fwave, dtdx)

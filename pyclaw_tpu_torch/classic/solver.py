@@ -1,14 +1,17 @@
-"""Classic Clawpack solvers, the 2D and 3D unsplit CTU paths.
+"""Classic Clawpack solvers: the 1D sweep and the 2D and 3D unsplit CTU
+paths.
 
 Counterpart of ``pyclaw_tpu/classic/solver.py`` (``ClawSolver :30-107``,
-``ClawSolver2D :134-168``, ``_soa_eligible :387-398``, ``ClawSolver3D
-:401-528``), a rebuild of reference ``src/pyclaw/classic/solver.py``.
-``setup`` builds one step function ``_step_fn(q, aux, dt, t) -> (q_new,
-cfl)``: BC extension of q (and aux), then ``ops.tiled2d.step2_rows`` (2D,
-the SoA Euler step), ``ops.tiled2d.step2_rows_generic`` (2D, the generic
-AoS step: aux, capacity, f-waves) or ``ops.tiled2d.step3_xy`` (3D), which
-launch the CUDA kernel on a CUDA tensor and run the plain PyTorch version
-on a CPU tensor.
+``ClawSolver1D :109-131``, ``ClawSolver2D :134-168``, ``_soa_eligible
+:387-398``, ``ClawSolver3D :401-528``), a rebuild of reference
+``src/pyclaw/classic/solver.py``.  ``setup`` builds one step function
+``_step_fn(q, aux, dt, t) -> (q_new, cfl)``: BC extension of q (and aux),
+then ``ops.sweep.step1`` (1D: aux, capacity, f-waves),
+``ops.tiled2d.step2_rows`` (2D, the SoA Euler step),
+``ops.tiled2d.step2_rows_generic`` (2D, the generic AoS step: aux,
+capacity, f-waves) or ``ops.tiled2d.step3_xy`` (3D), which launch the
+CUDA kernel on a CUDA tensor and run the plain PyTorch version on a CPU
+tensor.
 
 Options of the JAX package that this slice does not port raise
 ``NotImplementedError`` at setup, naming their ROADMAP.md item.
@@ -16,7 +19,7 @@ Options of the JAX package that this slice does not port raise
 
 from __future__ import annotations
 
-from ..ops import tiled2d
+from ..ops import sweep, tiled2d
 from ..solver import Solver, _not_ported
 
 
@@ -58,6 +61,33 @@ class ClawSolver(Solver):
 
     def _make_hyperbolic_step(self, state):
         raise NotImplementedError
+
+
+class ClawSolver1D(ClawSolver):
+    """1D classic solver (step1.f90 path): Riemann solve, limiter,
+    correction flux and update in one sweep.  Takes aux arrays, a capacity
+    function (``state.index_capa``) and ``fwave``."""
+    num_dim = 1
+    takes_aux = True
+
+    def _make_hyperbolic_step(self, state):
+        rp = self.rp
+        if rp.rp is None:
+            raise ValueError(f"Riemann solver {rp.name} has no rp hook")
+        params = self._weak_params(state.problem_data)
+        mthlim = self._mthlim()
+        order = self.order
+        fwave = self.fwave
+        index_capa = state.index_capa
+        g = self.num_ghost
+        dx = state.patch.delta[0]
+        sweep.check_options(mthlim, order, rp.num_waves, g)
+
+        def step_fn(q, aux, dt, t):
+            qbc, auxbc = self._extend_bc(q, aux, t, state)
+            return sweep.step1(qbc, auxbc, dt, dx, rp, params, mthlim, order,
+                               fwave, index_capa, g)
+        return step_fn
 
 
 class ClawSolver2D(ClawSolver):

@@ -57,6 +57,7 @@
 // weights) and riemann/euler.py (_alpha34, _flux_euler_2d_soa).
 
 #include "euler2d.cuh"
+#include "weno5.cuh"
 
 namespace {
 
@@ -64,74 +65,6 @@ constexpr int NT = 288;      // threads per block (9 warps)
 constexpr int NT_POW2 = 512; // power of two >= NT, for the tree reduction
 constexpr int TX = 16, TY = 16;  // cells per tile along x (rows), y (cols)
 constexpr int G = 3;         // ghost cells (WENO5)
-
-// ---- WENO5 edge values (limiters/recon.py:weno5_stencil) ---------------
-template <typename T>
-HD void weno5_betas_polys(T vm2, T vm1, T v0, T vp1, T vp2, T b[3], T p[3],
-                          T m[3]) {
-  const T c1312 = T(13.0 / 12.0);
-  T d;
-  d = vm2 - T(2) * vm1 + v0;
-  T e = vm2 - T(4) * vm1 + T(3) * v0;
-  b[0] = c1312 * (d * d) + T(0.25) * (e * e);
-  d = vm1 - T(2) * v0 + vp1;
-  e = vm1 - vp1;
-  b[1] = c1312 * (d * d) + T(0.25) * (e * e);
-  d = v0 - T(2) * vp1 + vp2;
-  e = T(3) * v0 - T(4) * vp1 + vp2;
-  b[2] = c1312 * (d * d) + T(0.25) * (e * e);
-
-  p[0] = (T(2) * vm2 - T(7) * vm1 + T(11) * v0) / T(6);
-  p[1] = (-vm1 + T(5) * v0 + T(2) * vp1) / T(6);
-  p[2] = (T(2) * v0 + T(5) * vp1 - vp2) / T(6);
-  m[0] = (-vm2 + T(5) * vm1 + T(2) * v0) / T(6);
-  m[1] = (T(2) * vm1 + T(5) * v0 - vp1) / T(6);
-  m[2] = (T(11) * v0 - T(7) * vp1 + T(2) * vp2) / T(6);
-}
-
-// float64: the reference weights d_k / (EPWENO + beta_k)^2
-HD void weno5(double vm2, double vm1, double v0, double vp1, double vp2,
-              double& ql, double& qr) {
-  double b[3], p[3], m[3];
-  weno5_betas_polys(vm2, vm1, v0, vp1, vp2, b, p, m);
-  const double EPWENO = 1e-36;
-  double t;
-  t = EPWENO + b[0];
-  const double ib0 = 1.0 / (t * t);
-  t = EPWENO + b[1];
-  const double ib1 = 1.0 / (t * t);
-  t = EPWENO + b[2];
-  const double ib2 = 1.0 / (t * t);
-  const double a0 = 0.1 * ib0, a1 = 0.6 * ib1, a2 = 0.3 * ib2;
-  qr = (a0 * p[0] + a1 * p[1] + a2 * p[2]) / (a0 + a1 + a2);
-  const double c0 = 0.3 * ib0, c1 = 0.6 * ib1, c2 = 0.1 * ib2;
-  ql = (c0 * m[0] + c1 * m[1] + c2 * m[2]) / (c0 + c1 + c2);
-}
-
-// float32: normalised betas scaled by 1e3, one reciprocal for both edges
-HD void weno5(float vm2, float vm1, float v0, float vp1, float vp2,
-              float& ql, float& qr) {
-  float b[3], p[3], m[3];
-  weno5_betas_polys(vm2, vm1, v0, vp1, vp2, b, p, m);
-  const float r = 1e3f / (b[0] + b[1] + b[2] + 1e-30f);
-  const float e0 = 1e-3f + b[0] * r;
-  const float e1 = 1e-3f + b[1] * r;
-  const float e2 = 1e-3f + b[2] * r;
-  float t;
-  t = e0 * e1;
-  const float s01 = t * t;
-  t = e0 * e2;
-  const float s02 = t * t;
-  t = e1 * e2;
-  const float s12 = t * t;
-  const float a0 = 0.1f * s12, a1 = 0.6f * s02, a2 = 0.3f * s01;
-  const float c0 = 0.3f * s12, c1 = 0.6f * s02, c2 = 0.1f * s01;
-  const float den_r = a0 + a1 + a2;
-  const float den_l = c0 + c1 + c2;
-  const float inv = 1.0f / (den_r * den_l);
-  qr = (a0 * p[0] + a1 * p[1] + a2 * p[2]) * (den_l * inv);
-  ql = (c0 * m[0] + c1 * m[1] + c2 * m[2]) * (den_r * inv);
-}
 
 // ---- Euler physics (riemann/euler.py) ----------------------------------
 // positivity: rho > 0 and p > 0

@@ -1,0 +1,195 @@
+// systems1d.cuh — the 1D systems of the classic sweep kernel (step1.cu),
+// operation for operation as in pyclaw_tpu_torch/riemann/:
+//   Advection1D       advection.py:_rp_advection
+//   Acoustics1D       acoustics.py:_rp_acoustics
+//   EulerRoe1D<EFIX>  euler.py:_rp1_euler_roe (with and without the Harten
+//                     entropy fix)
+//   EulerHlle1D       euler.py:_rp1_euler_hlle
+// A Python scalar is rounded to T where it meets a tensor (P1d holds the
+// rounded values); PyTorch's `float / tensor` is reciprocal(tensor) * float
+// and is written so here.  Each system's rp() returns the waves w[p][e], the
+// speeds s[p] and the fluctuations amdq, apdq of one interface.
+//
+// Compiles with nvcc and, without __CUDACC__, with a host C++ compiler for
+// the kernel's host emulation (ops/_build.py:build_host_emulation).
+
+#pragma once
+
+#include "euler2d.cuh"
+
+namespace {
+
+// physics scalars in the kernel's type, rounded once from the doubles the
+// wrapper passes (p0, p1: u | zz, cc | gamma)
+template <typename T> struct P1d {
+  T u;              // advection speed
+  T zz, cc, mcc;    // acoustic impedance, sound speed, -cc
+  T z2;             // 2.0 * zz
+  T gamma, g1;      // gamma, gamma - 1.0
+  void set(double p0, double p1) {
+    u = T(p0);
+    zz = T(p0);
+    cc = T(p1);
+    mcc = T(-p1);
+    z2 = T(2.0 * p0);
+    gamma = T(p0);
+    g1 = T(p0 - 1.0);
+  }
+};
+
+// ---- advection_1D ---------------------------------------------------------
+struct Advection1D {
+  static constexpr int NEQ = 1, NW = 1;
+  template <typename T>
+  static HD void rp(const P1d<T>& P, const T ql[1], const T qr[1],
+                    T w[1][1], T s[1], T am[1], T ap[1]) {
+    const T dq = qr[0] - ql[0];
+    w[0][0] = dq;
+    s[0] = P.u;
+    am[0] = mn(P.u, T(0)) * dq;
+    ap[0] = mx(P.u, T(0)) * dq;
+  }
+};
+
+// ---- acoustics_1D: q = (p, u) ----------------------------------------------
+struct Acoustics1D {
+  static constexpr int NEQ = 2, NW = 2;
+  template <typename T>
+  static HD void rp(const P1d<T>& P, const T ql[2], const T qr[2],
+                    T w[2][2], T s[2], T am[2], T ap[2]) {
+    const T d0 = qr[0] - ql[0], d1 = qr[1] - ql[1];
+    const T a1 = (-d0 + P.zz * d1) / P.z2;
+    const T a2 = (d0 + P.zz * d1) / P.z2;
+    w[0][0] = -a1 * P.zz;
+    w[0][1] = a1;
+    w[1][0] = a2 * P.zz;
+    w[1][1] = a2;
+    s[0] = P.mcc;
+    s[1] = P.cc;
+    for (int e = 0; e < 2; ++e) {
+      am[e] = P.mcc * w[0][e];
+      ap[e] = P.cc * w[1][e];
+    }
+  }
+};
+
+// ---- Euler 1D: q = (rho, rho u, E) -----------------------------------------
+// Roe-averaged velocity, enthalpy and sound speed (euler.py:_roe_averages
+// with vel_idx = (1,))
+template <typename T> struct Roe1 {
+  T u, H, a2, a;
+  HD Roe1(const P1d<T>& P, const T ql[3], const T qr[3]) {
+    const T irl = rsqrt_(ql[0]), irr = rsqrt_(qr[0]);
+    const T srl = ql[0] * irl, srr = qr[0] * irr;
+    const T rinv_l = irl * irl, rinv_r = irr * irr;
+    const T w = T(1) / (srl + srr);
+    u = (ql[1] * irl + qr[1] * irr) * w;
+    const T ke_l = T(0.5) * (ql[1] * ql[1]) * rinv_l;
+    const T ke_r = T(0.5) * (qr[1] * qr[1]) * rinv_r;
+    const T p_l = P.g1 * (ql[2] - ke_l);
+    const T p_r = P.g1 * (qr[2] - ke_r);
+    const T H_l = (ql[2] + p_l) * rinv_l;
+    const T H_r = (qr[2] + p_r) * rinv_r;
+    H = (srl * H_l + srr * H_r) * w;
+    a2 = P.g1 * (H - T(0.5) * (u * u));
+    a = sqrt_(a2);
+  }
+};
+
+// velocity and clamped sound speed of a state (the entropy fix's sound());
+// the clamp 1e-300 rounds to 0 in float32, as in PyTorch and JAX
+template <typename T>
+HD void sound1(const P1d<T>& P, T rho, T mom, T E, T& u, T& c) {
+  const T p = P.g1 * (E - T(0.5) * mom * mom / rho);
+  u = mom / rho;
+  c = sqrt_(mx(P.gamma * p / rho, T(1e-300)));
+}
+
+template <bool EFIX> struct EulerRoe1D {
+  static constexpr int NEQ = 3, NW = 3;
+  template <typename T>
+  static HD void rp(const P1d<T>& P, const T ql[3], const T qr[3],
+                    T w[3][3], T s[3], T am[3], T ap[3]) {
+    const Roe1<T> r(P, ql, qr);
+    const T u = r.u, H = r.H, a = r.a;
+    const T d0 = qr[0] - ql[0], d1 = qr[1] - ql[1], d2 = qr[2] - ql[2];
+    const T a2c = ((T(1) / r.a2) * P.g1) * ((H - u * u) * d0 + u * d1 - d2);
+    const T a3c = (d1 + (a - u) * d0 - a * a2c) / (T(2) * a);
+    const T a1c = d0 - a2c - a3c;
+    w[0][0] = a1c; w[0][1] = a1c * (u - a); w[0][2] = a1c * (H - u * a);
+    w[1][0] = a2c; w[1][1] = a2c * u; w[1][2] = a2c * T(0.5) * u * u;
+    w[2][0] = a3c; w[2][1] = a3c * (u + a); w[2][2] = a3c * (H + u * a);
+    s[0] = u - a;
+    s[1] = u;
+    s[2] = u + a;
+    if (!EFIX) {
+      for (int e = 0; e < 3; ++e) {
+        am[e] = mn(s[0], T(0)) * w[0][e] + mn(s[1], T(0)) * w[1][e]
+              + mn(s[2], T(0)) * w[2][e];
+        ap[e] = mx(s[0], T(0)) * w[0][e] + mx(s[1], T(0)) * w[1][e]
+              + mx(s[2], T(0)) * w[2][e];
+      }
+      return;
+    }
+    // Harten entropy fix: transonic 1- and 3-rarefactions get a split speed
+    T u_l, c_l, u_r, c_r, u_m, c_m;
+    sound1(P, ql[0], ql[1], ql[2], u_l, c_l);
+    sound1(P, qr[0], qr[1], qr[2], u_r, c_r);
+    // state just right of the 1-wave
+    sound1(P, ql[0] + w[0][0], ql[1] + w[0][1], ql[2] + w[0][2], u_m, c_m);
+    const T lam1_l = u_l - c_l, lam1_m = u_m - c_m;
+    const bool trans1 = lam1_l < T(0) && lam1_m > T(0);
+    const T den1 = lam1_m - lam1_l;
+    const T sf1 = trans1
+        ? lam1_l * (lam1_m - s[0]) / (den1 == T(0) ? T(1) : den1)
+        : mn(s[0], T(0));
+    const T sf2 = mn(s[1], T(0));
+    // state just left of the 3-wave
+    sound1(P, qr[0] - w[2][0], qr[1] - w[2][1], qr[2] - w[2][2], u_m, c_m);
+    const T lam3_m = u_m + c_m, lam3_r = u_r + c_r;
+    const bool trans3 = lam3_m < T(0) && lam3_r > T(0);
+    const T den3 = lam3_r - lam3_m;
+    const T sf3 = trans3
+        ? lam3_m * (lam3_r - s[2]) / (den3 == T(0) ? T(1) : den3)
+        : mn(s[2], T(0));
+    for (int e = 0; e < 3; ++e) {
+      am[e] = sf1 * w[0][e] + sf2 * w[1][e] + sf3 * w[2][e];
+      // conservation: amdq + apdq = sum_p s_p W_p, not a split of s
+      ap[e] = (s[0] * w[0][e] + s[1] * w[1][e] + s[2] * w[2][e]) - am[e];
+    }
+  }
+};
+
+// ---- euler_hlle_1D: two waves through the intermediate state ---------------
+struct EulerHlle1D {
+  static constexpr int NEQ = 3, NW = 2;
+  template <typename T>
+  static HD void rp(const P1d<T>& P, const T ql[3], const T qr[3],
+                    T w[2][3], T s[2], T am[3], T ap[3]) {
+    const Roe1<T> r(P, ql, qr);
+    const T u_l = ql[1] / ql[0], u_r = qr[1] / qr[0];
+    const T p_l = P.g1 * (ql[2] - T(0.5) * (ql[1] * ql[1]) / ql[0]);
+    const T p_r = P.g1 * (qr[2] - T(0.5) * (qr[1] * qr[1]) / qr[0]);
+    const T c_l = sqrt_(P.gamma * p_l / ql[0]);
+    const T c_r = sqrt_(P.gamma * p_r / qr[0]);
+    const T s1 = mn(r.u - r.a, u_l - c_l);
+    const T s2 = mx(r.u + r.a, u_r + c_r);
+    const T f_l[3] = {ql[1], ql[1] * u_l + p_l, u_l * (ql[2] + p_l)};
+    const T f_r[3] = {qr[1], qr[1] * u_r + p_r, u_r * (qr[2] + p_r)};
+    const T ds = s2 - s1;
+    const T denom = ds == T(0) ? T(1) : ds;
+    s[0] = s1;
+    s[1] = s2;
+    for (int e = 0; e < 3; ++e) {
+      const T q_m = (f_r[e] - f_l[e] - (s2 * qr[e] - s1 * ql[e])) / -denom;
+      w[0][e] = q_m - ql[e];
+      w[1][e] = qr[e] - q_m;
+    }
+    for (int e = 0; e < 3; ++e) {
+      am[e] = mn(s1, T(0)) * w[0][e] + mn(s2, T(0)) * w[1][e];
+      ap[e] = mx(s1, T(0)) * w[0][e] + mx(s2, T(0)) * w[1][e];
+    }
+  }
+};
+
+}  // namespace

@@ -1,15 +1,16 @@
 """WENO5 cell-edge reconstruction, plain PyTorch.
 
 Counterpart of ``pyclaw_tpu/limiters/recon.py`` (``EPWENO :20``,
-``weno5_stencil :40``, ``weno_stencil :257`` for order 5), the rebuild of
-reference ``src/pyclaw/sharpclaw/weno.f90``.  Convention (SharpClaw): for
-every cell i, ``ql[i]`` is the value at its left edge and ``qr[i]`` the
-value at its right edge; the Riemann problem at interface i+1/2 is
+``_shift :23``, ``weno5 :29``, ``weno5_stencil :40``, ``weno_stencil
+:257`` for order 5), the rebuild of reference
+``src/pyclaw/sharpclaw/weno.f90``.  Convention (SharpClaw): for every
+cell i, ``ql[i]`` is the value at its left edge and ``qr[i]`` the value
+at its right edge; the Riemann problem at interface i+1/2 is
 ``(qr[i], ql[i+1])``.
 
 The weights are computed by one of two formulas, chosen by dtype, as in
-the JAX package, and the CUDA kernel ``csrc/dq2_weno5.cu`` branches the
-same way:
+the JAX package, and the CUDA kernels ``csrc/dq2_weno5.cu`` and
+``csrc/weno5.cu`` branch the same way:
 
 * float64: the reference weights ``d_k / (EPWENO + beta_k)^2``;
 * float32: the betas are normalised by their sum and scaled by 1e3, and
@@ -24,6 +25,23 @@ from __future__ import annotations
 import torch
 
 EPWENO = 1e-36  # reference sharpclaw epweno (weno.f90)
+
+
+def _shift(q, k):
+    """q shifted so that out[..., i] = q[..., i+k], wrapping around the
+    ends of the last axis as ``torch.roll`` does (the wrapped band is
+    invalid; callers keep num_ghost >= 3)."""
+    return torch.roll(q, -k, dims=-1)
+
+
+def weno5(q):
+    """Fifth-order Jiang-Shu WENO edge values along the last axis.
+
+    q: (..., n) cell averages.  Returns (ql, qr), each (..., n): ql[..., i]
+    the value at the left edge of cell i, qr[..., i] at its right edge.
+    The plain version of ``csrc/weno5.cu`` (``ops.weno.weno5``)."""
+    return weno5_stencil(_shift(q, -2), _shift(q, -1), q,
+                         _shift(q, 1), _shift(q, 2))
 
 
 def weno5_stencil(vm2, vm1, v0, vp1, vp2):

@@ -26,12 +26,14 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source flags.  step2_aos.cu rounds every operation as its plain
-# version's PyTorch operations do (no fused multiply-add): the f-wave
-# correction 0.5 sign(s) and the f-wave split s < 0 jump where a speed
+# Per-source flags.  step2_aos.cu and step1.cu round every operation as
+# their plain versions' PyTorch operations do (no fused multiply-add): the
+# f-wave correction 0.5 sign(s), the f-wave split s < 0, the entropy fix's
+# transonic tests and the limiter's upwind choice jump where a speed
 # crosses zero, so a one-ulp difference in a speed near zero would move
-# the result by a whole wave.
-EXTRA_NVCC_FLAGS = {"step2_aos": ["-fmad=false"]}
+# the result by a whole wave.  weno5.cu rounds as its plain version too.
+EXTRA_NVCC_FLAGS = {"step2_aos": ["-fmad=false"], "step1": ["-fmad=false"],
+                    "weno5": ["-fmad=false"]}
 
 # name -> (ctypes.CDLL, compiler report); one build per process
 _loaded = {}

@@ -1,0 +1,133 @@
+"""Wrapper of the 1D classic sweep kernel (the counterpart of
+``pyclaw_tpu/ops/sweep.py``).
+
+:func:`step1`, counterpart of ``step1_pallas``: one launch of
+``csrc/step1.cu`` computes one classic 1D step (Riemann solve, limiter,
+wave- or f-wave-form correction flux, per-cell dt/(dx kappa), update) of a
+system of :data:`SYSTEMS_1D` and one CFL maximum per block.  Plain
+version: ``classic/kernels.py:step1``.
+
+On a CPU tensor the wrapper computes the plain version.  On a CUDA tensor
+it launches the kernel or raises; it never falls back to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..classic import kernels
+from ..riemann.acoustics import _zc
+from .tiled2d import _VALID_LIMITERS
+
+# rp.name -> system id of csrc/step1.cu (SYS_*)
+SYSTEMS_1D = {"advection_1D": 0, "acoustics_1D": 1, "euler_with_efix_1D": 2,
+              "euler_roe_1D": 3, "euler_hlle_1D": 4}
+# qbc, aux, qout, cflb; n, g, system, capa, fwave; dt, dx, p0, p1; order
+# and three limiter ids (the host emulation takes these, the card's entries
+# a stream after them)
+STEP1_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                  + [ctypes.c_double] * 4 + [ctypes.c_int] * 4)
+
+
+@functools.cache
+def _lib():
+    from . import _build
+    lib = _build.load("step1")
+    for name in ("step1_f32", "step1_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = STEP1_ARGTYPES + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.step1_blocks.argtypes = [ctypes.c_int] * 2
+    lib.step1_blocks.restype = ctypes.c_int
+    return lib
+
+
+def check_options(mthlim, order, num_waves, num_ghost):
+    """Raise on options the kernel does not take."""
+    if len(mthlim) != num_waves or any(int(m) not in _VALID_LIMITERS
+                                       for m in mthlim):
+        raise ValueError(f"step1: need {num_waves} limiter ids in 0..21, "
+                         f"got {mthlim}")
+    if order not in (1, 2):
+        raise ValueError(f"step1: order must be 1 or 2, got {order}")
+    if num_ghost < 2:
+        raise ValueError(f"step1: num_ghost must be >= 2, got {num_ghost}")
+
+
+def system_params(rp, params):
+    """The two physics scalars the kernel takes for system ``rp``: (u, 0)
+    for advection, (zz, cc) for acoustics, (gamma, 0) for Euler."""
+    if rp.name == "advection_1D":
+        return float(params["u"]), 0.0
+    if rp.name == "acoustics_1D":
+        zz, cc = _zc(params)
+        return float(zz), float(cc)
+    return float(params["gamma"]), 0.0
+
+
+def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
+          num_ghost=2):
+    """One classic 1D step (step1.f90).
+
+    qbc: (num_eqn, mx + 2 num_ghost) ghost-padded q; auxbc: (num_aux,
+    mx + 2 num_ghost) or None (float32 or float64, contiguous, q's dtype).
+    ``rp`` is the RiemannSolver record; ``dt`` the step in q's dtype (a
+    Python float that is exact in it); ``index_capa`` >= 0 names the aux
+    row of the capacity function.  Returns (q (num_eqn, mx), cfl as a 0-d
+    tensor).  On a CPU tensor this is ``classic/kernels.py:step1``; on a
+    CUDA tensor one launch of ``csrc/step1.cu``."""
+    check_options(mthlim, order, rp.num_waves, num_ghost)
+    if qbc.device.type == "cpu":
+        return kernels.step1(qbc, auxbc, dt, dx, rp.rp, params, mthlim,
+                             order, fwave, index_capa, num_ghost)
+    if rp.name not in SYSTEMS_1D:
+        raise NotImplementedError(
+            f"step1: {rp.name} has no kernel yet (ROADMAP.md, Queue 2 item "
+            f"9: '1D systems of step1.cu')")
+    if qbc.device.type != "cuda":
+        raise ValueError(f"step1: unsupported device {qbc.device}")
+    if qbc.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"step1: dtype {qbc.dtype} not supported")
+    g = num_ghost
+    if (qbc.dim() != 2 or qbc.shape[0] != rp.num_eqn
+            or qbc.shape[1] < 2 * g + 1):
+        raise ValueError(f"step1: need qbc of shape ({rp.num_eqn}, "
+                         f"mx+{2 * g}) with mx >= 1, got {tuple(qbc.shape)}")
+    if not qbc.is_contiguous():
+        raise ValueError("step1: qbc must be contiguous")
+    n = qbc.shape[1]
+    aux_ptr = None
+    if index_capa >= 0:
+        if (auxbc is None or auxbc.dim() != 2 or auxbc.shape[1] != n
+                or auxbc.shape[0] <= index_capa):
+            raise ValueError(
+                f"step1: index_capa={index_capa} needs auxbc of shape "
+                f"(num_aux, {n}), got "
+                f"{None if auxbc is None else tuple(auxbc.shape)}")
+        if auxbc.device != qbc.device or auxbc.dtype != qbc.dtype:
+            raise TypeError("step1: auxbc must share qbc's device and dtype")
+        if not auxbc.is_contiguous():
+            raise ValueError("step1: auxbc must be contiguous")
+        aux_ptr = auxbc.data_ptr()
+    lib = _lib()
+    q_out = torch.empty((rp.num_eqn, n - 2 * g), dtype=qbc.dtype,
+                        device=qbc.device)
+    cfl_blocks = torch.empty((lib.step1_blocks(n, g),), dtype=qbc.dtype,
+                             device=qbc.device)
+    fn = lib.step1_f64 if qbc.dtype == torch.float64 else lib.step1_f32
+    lims = [int(m) for m in mthlim] + [0] * (3 - len(mthlim))
+    rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
+            n, g, SYSTEMS_1D[rp.name], int(index_capa), int(bool(fwave)),
+            float(dt), float(dx), *system_params(rp, params), int(order),
+            *lims, torch.cuda.current_stream(qbc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"step1 launch failed: cudaError_t {rc}")
+    step1.launches += 1
+    return q_out, torch.amax(cfl_blocks)
+
+
+step1.launches = 0

@@ -1,0 +1,72 @@
+"""Wrapper of the WENO5 reconstruction kernel (the counterpart of
+``pyclaw_tpu/ops/weno.py``).
+
+:func:`weno5`, counterpart of ``weno5_pallas``: one launch of
+``csrc/weno5.cu`` computes the Jiang-Shu WENO5 left and right edge values
+along the last axis of q, viewed as a contiguous (rows, n) array.  Plain
+version: ``limiters/recon.py:weno5`` (float32 takes its normalised-beta
+weights, not ``weno5_pallas``'s float64 formula).
+
+On a CPU tensor the wrapper computes the plain version.  On a CUDA tensor
+it launches the kernel or raises; it never falls back to the plain
+version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..limiters import recon
+
+# q, ql, qr; rows, n (the host emulation takes these, the card's entries a
+# stream after them)
+WENO5_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+
+
+@functools.cache
+def _lib():
+    from . import _build
+    lib = _build.load("weno5")
+    for name in ("weno5_f32", "weno5_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = WENO5_ARGTYPES + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def weno5(q):
+    """WENO5 edge values (ql, qr) of q (..., n) along its last axis, each
+    shaped like q; the wrapped band at the two ends of a row is invalid,
+    as in the plain version (callers keep num_ghost >= 3)."""
+    if q.device.type == "cpu":
+        return recon.weno5(q)
+    if q.device.type != "cuda":
+        raise ValueError(f"weno5: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"weno5: dtype {q.dtype} not supported")
+    if q.dim() < 1 or q.numel() == 0:
+        raise ValueError(f"weno5: need a non-empty q, got {tuple(q.shape)}")
+    if not q.is_contiguous():
+        raise ValueError("weno5: q must be contiguous")
+    n = q.shape[-1]
+    rows = q.numel() // n
+    lib = _lib()
+    # one block per 256 entries of a row (csrc/weno5.cu: TW)
+    if rows * (-(-n // 256)) >= 2 ** 31:
+        raise ValueError(f"weno5: q of shape {tuple(q.shape)} needs more "
+                         f"blocks than one launch takes")
+    ql = torch.empty_like(q)
+    qr = torch.empty_like(q)
+    fn = lib.weno5_f64 if q.dtype == torch.float64 else lib.weno5_f32
+    rc = fn(q.data_ptr(), ql.data_ptr(), qr.data_ptr(), rows, n,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"weno5 launch failed: cudaError_t {rc}")
+    weno5.launches += 1
+    return ql, qr
+
+
+weno5.launches = 0

@@ -3,7 +3,9 @@
 Counterpart of ``pyclaw_tpu/riemann/__init__.py``.  Every solver is a
 plain function on whole interface tensors, registered in a
 :class:`RiemannSolver` record that also carries ``num_eqn`` /
-``num_waves`` metadata.  The port carries the SoA hooks of the 2D Euler
+``num_waves`` metadata.  The port carries the AoS hooks of the 1D
+solvers (``advection_1D``, ``acoustics_1D``, ``euler_with_efix_1D``,
+``euler_roe_1D``, ``euler_hlle_1D``), the SoA hooks of the 2D Euler
 4-wave Roe solver (``euler_4wave_2D``), the AoS hooks of the 3D Euler
 solver (``euler_3D``) and of the 2D shallow-water solvers
 (``shallow_roe_with_efix_2D``, ``shallow_bathymetry_fwave_2D``); the rest
@@ -66,10 +68,15 @@ class RiemannSolver:
                 f"num_waves={self.num_waves})")
 
 
-from .euler import euler_3D, euler_4wave_2D  # noqa: E402,F401
+from .advection import advection_1D  # noqa: E402,F401
+from .acoustics import acoustics_1D  # noqa: E402,F401
+from .euler import (  # noqa: E402,F401
+    euler_3D, euler_4wave_2D, euler_hlle_1D, euler_roe_1D,
+    euler_with_efix_1D)
 from .shallow import (  # noqa: E402,F401
     shallow_bathymetry_fwave_2D, shallow_roe_with_efix_2D)
 
-ALL = {s.name: s for s in [euler_4wave_2D, euler_3D,
-                           shallow_roe_with_efix_2D,
+ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
+                           euler_roe_1D, euler_hlle_1D, euler_4wave_2D,
+                           euler_3D, shallow_roe_with_efix_2D,
                            shallow_bathymetry_fwave_2D]}

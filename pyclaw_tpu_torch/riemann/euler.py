@@ -1,8 +1,13 @@
-"""Euler Roe solvers, plain PyTorch: the 2D 4-wave system in SoA form and
-the 3D system in AoS form.
+"""Euler Roe solvers, plain PyTorch: the 1D systems (Roe with and without
+the Harten entropy fix, HLLE) and the 3D system in AoS form, the 2D
+4-wave system in SoA form.
 
 Counterpart of ``pyclaw_tpu/riemann/euler.py``: ``_wsum :22``,
-``_roe_averages :32``, ``_alpha34 :66``, ``_roe_averages_soa :274``,
+``_roe_averages :32``, ``_alpha34 :66``, ``_rp1_euler_roe :93-163``,
+``_rp1_euler_hlle :169-194``, ``_make_euler_flux :732-749`` and the 1D
+records ``:787-796, :819, :826-827`` (physics of reference
+``rp1_euler_with_efix.f90`` and ``euler_1D_py.py``),
+``_roe_averages_soa :274``,
 ``_rpn2_euler_soa :297``, ``_prefactor_euler_2d_soa :359``,
 ``_rpt2_euler_soa :365``, ``_rpn3_euler :489``,
 ``_prefactor_euler_3d :542``, ``_split_transverse_euler :556``,
@@ -16,7 +21,8 @@ gas, gamma from problem_data; q = (rho, rho*u, rho*v, E) in 2D and
 The CUDA kernels ``csrc/step2_ctu.cu`` and ``csrc/dq2_weno5.cu`` repeat
 the 2D algebra operation for operation, including the float32/float64
 branches of :func:`_alpha34` and :func:`_flux_euler_2d_soa`;
-``csrc/step3_ctu.cu`` repeats the 3D algebra.  The 3D solver has two
+``csrc/step3_ctu.cu`` repeats the 3D algebra, ``csrc/systems1d.cuh``
+(for ``csrc/step1.cu``) the 1D algebra.  The 3D solver has two
 wave sets: the normal solve keeps 5 explicit waves (the limiter sees the
 two shear waves apart), the transverse splits sum entropy and both shears
 into one wave, so a split has 3 speeds.
@@ -220,6 +226,128 @@ def _roe_averages(q_l, q_r, gamma, vel_idx, e_idx=None):
     return vels, H, a, a2, (p_l, p_r)
 
 
+def _rp1_euler_roe(ixy, q_l, q_r, aux_l, aux_r, params, efix=True):
+    """rp1_euler_with_efix (``efix``) or the plain Roe solver: 3 waves
+    (3, 3, *n), speeds (u - a, u, u + a), amdq, apdq."""
+    gamma = params["gamma"]
+    g1 = gamma - 1.0
+    (u,), H, a, a2, _ = _roe_averages(q_l, q_r, gamma, (1,))
+
+    d = q_r - q_l
+    a2_coef = g1 / a2 * ((H - u * u) * d[0] + u * d[1] - d[2])
+    a3_coef = (d[1] + (a - u) * d[0] - a * a2_coef) / (2.0 * a)
+    a1_coef = d[0] - a2_coef - a3_coef
+
+    w1 = torch.stack([a1_coef, a1_coef * (u - a), a1_coef * (H - u * a)])
+    w2 = torch.stack([a2_coef, a2_coef * u, a2_coef * 0.5 * u * u])
+    w3 = torch.stack([a3_coef, a3_coef * (u + a), a3_coef * (H + u * a)])
+    wave = torch.stack([w1, w2, w3], dim=1)
+    s = torch.stack([u - a, u, u + a])
+
+    if not efix:
+        amdq = _wsum(torch.clamp(s, max=0.0), wave)
+        apdq = _wsum(torch.clamp(s, min=0.0), wave)
+        return wave, s, amdq, apdq
+
+    # Harten entropy fix: transonic 1- and 3-rarefactions get a split
+    # speed.  The clamp's 1e-300 rounds to 0 in float32, as in JAX.
+    def sound(rho, mom, E):
+        p = g1 * (E - 0.5 * mom * mom / rho)
+        return mom / rho, torch.sqrt(torch.clamp(gamma * p / rho, min=1e-300))
+
+    u_l, c_l = sound(q_l[0], q_l[1], q_l[2])
+    u_r, c_r = sound(q_r[0], q_r[1], q_r[2])
+
+    # state just right of the 1-wave
+    qm1 = q_l + w1
+    u_m1, c_m1 = sound(qm1[0], qm1[1], qm1[2])
+    lam1_l = u_l - c_l
+    lam1_m = u_m1 - c_m1
+    trans1 = (lam1_l < 0.0) & (lam1_m > 0.0)
+    den1 = lam1_m - lam1_l
+    sfract1 = torch.where(
+        trans1,
+        lam1_l * (lam1_m - s[0]) / torch.where(den1 == 0.0,
+                                               torch.ones_like(den1), den1),
+        torch.clamp(s[0], max=0.0))
+
+    sfract2 = torch.clamp(s[1], max=0.0)
+
+    # state just left of the 3-wave
+    qm3 = q_r - w3
+    u_m3, c_m3 = sound(qm3[0], qm3[1], qm3[2])
+    lam3_m = u_m3 + c_m3
+    lam3_r = u_r + c_r
+    trans3 = (lam3_m < 0.0) & (lam3_r > 0.0)
+    den3 = lam3_r - lam3_m
+    sfract3 = torch.where(
+        trans3,
+        lam3_m * (lam3_r - s[2]) / torch.where(den3 == 0.0,
+                                               torch.ones_like(den3), den3),
+        torch.clamp(s[2], max=0.0))
+
+    amdq = sfract1 * w1 + sfract2 * w2 + sfract3 * w3
+    # conservation: amdq + apdq = sum_p s_p W_p (Roe), not a split of s
+    apdq = _wsum(s, wave) - amdq
+    return wave, s, amdq, apdq
+
+
+def _rp1_euler_with_efix(ixy, q_l, q_r, aux_l, aux_r, params):
+    return _rp1_euler_roe(ixy, q_l, q_r, aux_l, aux_r, params, efix=True)
+
+
+def _rp1_euler_roe_nofix(ixy, q_l, q_r, aux_l, aux_r, params):
+    return _rp1_euler_roe(ixy, q_l, q_r, aux_l, aux_r, params, efix=False)
+
+
+def _rp1_euler_hlle(ixy, q_l, q_r, aux_l, aux_r, params):
+    """HLLE (euler_1D_py.py's euler_hll_1D): 2 waves through the
+    intermediate state, speeds from the Roe and the one-sided estimates."""
+    gamma = params["gamma"]
+    g1 = gamma - 1.0
+    (u,), H, a, a2, _ = _roe_averages(q_l, q_r, gamma, (1,))
+    u_l = q_l[1] / q_l[0]
+    u_r = q_r[1] / q_r[0]
+    p_l = g1 * (q_l[2] - 0.5 * q_l[1] ** 2 / q_l[0])
+    p_r = g1 * (q_r[2] - 0.5 * q_r[1] ** 2 / q_r[0])
+    c_l = torch.sqrt(gamma * p_l / q_l[0])
+    c_r = torch.sqrt(gamma * p_r / q_r[0])
+
+    s1 = torch.minimum(u - a, u_l - c_l)
+    s2 = torch.maximum(u + a, u_r + c_r)
+
+    f_l = torch.stack([q_l[1], q_l[1] * u_l + p_l, u_l * (q_l[2] + p_l)])
+    f_r = torch.stack([q_r[1], q_r[1] * u_r + p_r, u_r * (q_r[2] + p_r)])
+    ds = s2 - s1
+    denom = torch.where(ds == 0.0, torch.ones_like(ds), ds)
+    q_m = (f_r - f_l - (s2 * q_r - s1 * q_l)) / -denom
+
+    wave = torch.stack([q_m - q_l, q_r - q_m], dim=1)
+    s = torch.stack([s1, s2])
+    amdq = _wsum(torch.clamp(s, max=0.0), wave)
+    apdq = _wsum(torch.clamp(s, min=0.0), wave)
+    return wave, s, amdq, apdq
+
+
+def _make_euler_flux(ndim):
+    """Physical Euler flux f(q) along ``ixy`` (RiemannSolver.flux): every
+    component advects with u, the momentum row adds p, the energy row
+    u p."""
+    e_idx = 1 + ndim
+
+    def flux(ixy, q, aux, params):
+        gamma = params["gamma"]
+        rho = q[0]
+        u = q[1 + ixy] / rho
+        ke = 0.5 * sum(q[1 + d] ** 2 for d in range(ndim)) / rho
+        p = (gamma - 1.0) * (q[e_idx] - ke)
+        f = [u * q[k] for k in range(q.shape[0])]
+        f[1 + ixy] = f[1 + ixy] + p
+        f[e_idx] = f[e_idx] + u * p
+        return torch.stack(f)
+    return flux
+
+
 def _rpn3_euler(ixy, q_l, q_r, aux_l, aux_r, params):
     """rpn3_euler: 5 explicit waves (num_eqn, 5, *n), speeds (5, *n),
     amdq, apdq.  The Roe average runs in the sweep's permuted component
@@ -383,3 +511,13 @@ euler_3D.prefactor = _prefactor_euler_3d
 # metadata of the JAX package; its batched transverse path is not ported
 euler_3D.transverse_batchable = True
 euler_3D.positivity = _make_euler_positivity((1, 2, 3), 4)
+
+euler_with_efix_1D = RiemannSolver("euler_with_efix_1D", 1, 3, 3,
+                                   _rp1_euler_with_efix, requires=("gamma",))
+euler_roe_1D = RiemannSolver("euler_roe_1D", 1, 3, 3, _rp1_euler_roe_nofix,
+                             requires=("gamma",))
+euler_hlle_1D = RiemannSolver("euler_hlle_1D", 1, 3, 2, _rp1_euler_hlle,
+                              requires=("gamma",))
+for _s in (euler_with_efix_1D, euler_roe_1D, euler_hlle_1D):
+    _s.positivity = _make_euler_positivity((1,), 2)
+    _s.flux = _make_euler_flux(1)

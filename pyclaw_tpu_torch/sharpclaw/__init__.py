@@ -1,5 +1,6 @@
 """SharpClaw method-of-lines solvers (counterpart of
-``pyclaw_tpu/sharpclaw``).  This slice ports the 2D WENO5 path of the
-Euler 4-wave system."""
+``pyclaw_tpu/sharpclaw``): the 1D WENO5 path of every registered 1D
+system and the 2D WENO5 path of the Euler 4-wave system."""
 
-from .solver import SharpClawSolver, SharpClawSolver2D  # noqa: F401
+from .solver import (  # noqa: F401
+    SharpClawSolver, SharpClawSolver1D, SharpClawSolver2D)

@@ -1,16 +1,19 @@
-"""SharpClaw method-of-lines solver, 2D WENO5 path.
+"""SharpClaw method-of-lines solvers, the 1D and the 2D WENO5 paths.
 
 Counterpart of ``pyclaw_tpu/sharpclaw/solver.py`` (``_CFL_DEFAULTS :40``,
 ``SharpClawSolver :47-148`` without the multistep integrators,
-``_soa_eligible :151``, the SoA branch of ``_make_dq :165-270``,
-``_make_step :300-347`` for Euler, SSP33 and SSP104,
-``SharpClawSolver2D :505``), a rebuild of reference
-``src/pyclaw/sharpclaw/solver.py``.  ``setup`` builds one step function
-``_step_fn(q, aux, dt, t) -> (q_new, cfl)``; each RK stage extends the
-BCs and calls ``ops.tiled2d.dq_rows``, which launches the CUDA kernel on
-a CUDA tensor and runs the plain PyTorch version on a CPU tensor.  The
-stage combines are plain tensor operations, as the JAX package leaves
-them to XLA.
+``_soa_eligible :151``, the SoA branch of ``_make_dq :165-270`` and its
+1D branch ``:272-280``, ``_make_step :300-347`` for Euler, SSP33 and
+SSP104, ``SharpClawSolver1D :501``, ``SharpClawSolver2D :505``), a
+rebuild of reference ``src/pyclaw/sharpclaw/solver.py``.  ``setup``
+builds one step function ``_step_fn(q, aux, dt, t) -> (q_new, cfl)``;
+each RK stage extends the BCs and calls ``sharpclaw/kernels.py:dq_1d``
+(1D, any registered system with an ``rp`` hook, with aux and capacity:
+its WENO5 reconstruction ``ops.weno.weno5`` launches ``csrc/weno5.cu``
+on a CUDA tensor) or ``ops.tiled2d.dq_rows`` (2D Euler 4-wave: one
+launch of ``csrc/dq2_weno5.cu``); on a CPU tensor both run their plain
+PyTorch versions.  The stage combines are plain tensor operations, as
+the JAX package leaves them to XLA.
 
 Options of the JAX package that this slice does not port raise
 ``NotImplementedError`` at setup, naming their ROADMAP.md item.
@@ -22,6 +25,7 @@ import torch
 
 from ..ops import tiled2d
 from ..solver import Solver, _not_ported
+from . import kernels
 
 _CFL_DEFAULTS = {
     "Euler": (0.45, 0.5),
@@ -68,7 +72,11 @@ class SharpClawSolver(Solver):
             raise _not_ported("dq_src")
         if self.call_before_step_each_stage:
             raise _not_ported("call_before_step_each_stage")
-        if (self.use_soa is False or self.num_dim != 2
+        if self.num_dim == 1:
+            if self.rp.rp is None:
+                raise ValueError(f"Riemann solver {self.rp.name} has no rp "
+                                 "hook")
+        elif (self.use_soa is False or self.num_dim != 2
                 or self.rp.name != "euler_4wave_2D"):
             raise _not_ported("generic SharpClaw dq")
 
@@ -89,10 +97,22 @@ class SharpClawSolver(Solver):
     # ------------------------------------------------------------------
     def _make_dq(self, state):
         """fn(q, aux, dt, t) -> (dq over the interior with dt included,
-        cfl): BC extension, then one dq_rows call."""
+        cfl): BC extension, then one dq_1d (1D) or dq_rows (2D) call."""
         params = self._weak_params(state.problem_data)
         weno_order = self.weno_order
         g = self.num_ghost
+        if self.num_dim == 1:
+            rp = self.rp
+            lim_type = self.lim_type
+            index_capa = state.index_capa
+            (dx,) = state.patch.delta
+
+            def dq1(q, aux, dt, t):
+                qbc, auxbc = self._extend_bc(q, aux, t, state)
+                return kernels.dq_1d(qbc, auxbc, dt, dx, rp.rp, params,
+                                     lim_type, weno_order, index_capa, g,
+                                     positivity=rp.positivity, flux=rp.flux)
+            return dq1
         dx, dy = state.patch.delta
 
         def dq(q, aux, dt, t):
@@ -144,6 +164,13 @@ class SharpClawSolver(Solver):
                 qn = s2 + 0.6 * s1 + 0.1 * d
                 return qn, torch.maximum(cfl, c)
         return step
+
+
+class SharpClawSolver1D(SharpClawSolver):
+    """1D SharpClaw (flux1.f90 path); takes aux arrays and a capacity
+    function, as ``dq_1d``'s plain code carries them."""
+    num_dim = 1
+    takes_aux = True
 
 
 class SharpClawSolver2D(SharpClawSolver):

@@ -122,7 +122,8 @@ class Solver:
         raise NotImplementedError
 
     # aux arrays and a capacity function: only the solvers that set this
-    # take them (ClawSolver2D); the others raise under their ROADMAP items
+    # take them (ClawSolver1D, ClawSolver2D, SharpClawSolver1D); the others
+    # raise under their ROADMAP items
     takes_aux = False
 
     def _check_setup(self, state):

@@ -1,5 +1,6 @@
 """Card-only tests: the CUDA kernels (step2_ctu, dq2_weno5, step3_ctu,
-step2_aos) against their plain PyTorch versions at small shapes.  Whether
+step2_aos, step1, weno5) against their plain PyTorch versions at small
+shapes.  Whether
 a card is present is decided inside the fixture, so every process
 collects the same tests; without a card they skip.
 
@@ -12,7 +13,8 @@ import torch
 
 from pyclaw_tpu_torch import bc, riemann
 from pyclaw_tpu_torch.classic import kernels, soa
-from pyclaw_tpu_torch.ops import tiled2d
+from pyclaw_tpu_torch.limiters import recon
+from pyclaw_tpu_torch.ops import sweep, tiled2d, weno
 from pyclaw_tpu_torch.riemann import euler
 from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
 
@@ -220,3 +222,99 @@ def test_aos_kernel_rejects_what_it_cannot_take(card):
                                        "other_2D", 2, 3, 3, roe.rp,
                                        rpt=roe.rpt),
                                    {"grav": 1.0}, lims, 2, False, -1)
+
+
+PARAMS_1D = {"u": -0.7, "zz": 1.3, "cc": 0.8, "gamma": 1.4}
+
+
+def _q1(seed, name, n, dtype, dev, g=2):
+    """Ghost-padded 1D state of system ``name`` and a capacity row."""
+    rng = np.random.default_rng(seed)
+    m = n + 2 * g
+    if name.startswith("euler"):
+        rho = 0.3 + rng.random(m)
+        u = 1.5 * rng.standard_normal(m)
+        p = 0.2 + rng.random(m)
+        q = np.stack([rho, rho * u, p / 0.4 + 0.5 * rho * u * u])
+    else:
+        q = rng.standard_normal((2 if name == "acoustics_1D" else 1, m))
+    aux = 0.7 + 0.6 * rng.random((1, m))
+    return (torch.as_tensor(q, dtype=dtype, device=dev),
+            torch.as_tensor(aux, dtype=dtype, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,n,order,lim,capa,fwave", [
+    ("euler_with_efix_1D", 800, 2, 4, -1, False),
+    ("euler_roe_1D", 257, 1, 4, 0, False),
+    ("euler_hlle_1D", 255, 2, 10, 0, False),
+    ("acoustics_1D", 7, 2, 3, -1, False),
+    ("advection_1D", 1, 2, 1, -1, False),
+    ("advection_1D", 513, 2, 10, 0, True)])
+def test_step1_kernel_matches_plain(card, name, n, order, lim, capa, fwave,
+                                    dtype):
+    qbc, auxbc = _q1(n + lim, name, n, dtype, card)
+    rp = riemann.ALL[name]
+    dx = 1.0 / max(n, 10)
+    dt = float(np.dtype(str(dtype).split(".")[1]).type(0.05 * dx))
+    lims = (lim,) * rp.num_waves
+    before = sweep.step1.launches
+    qk, ck = sweep.step1(qbc, auxbc, dt, dx, rp, PARAMS_1D, lims, order,
+                         fwave, capa)
+    torch.cuda.synchronize()
+    assert sweep.step1.launches == before + 1
+    qp, cp = kernels.step1(qbc, auxbc, dt, dx, rp.rp, PARAMS_1D, lims, order,
+                           fwave, capa, 2)
+    assert qk.dtype == dtype and qk.shape == (rp.num_eqn, n)
+    rel = float((qk - qp).abs().max() / qp.abs().max())
+    assert rel <= TOL[dtype]
+    assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+def test_step1_kernel_rejects_what_it_cannot_take(card):
+    qbc, auxbc = _q1(1, "euler_with_efix_1D", 20, torch.float64, card)
+    rp = riemann.euler_with_efix_1D
+    args = (1e-3, 0.05, rp, PARAMS_1D, (4,) * 3, 2, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        sweep.step1(qbc.t().contiguous().t(), None, *args, -1)
+    with pytest.raises(TypeError, match="dtype"):
+        sweep.step1(qbc.half(), None, *args, -1)
+    with pytest.raises(ValueError, match="auxbc"):
+        sweep.step1(qbc, None, *args, 0)
+    other = riemann.RiemannSolver("other_1D", 1, 3, 3, rp.rp)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
+        sweep.step1(qbc, None, 1e-3, 0.05, other, PARAMS_1D, (4,) * 3, 2,
+                    False, -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 5), (3, 806), (3, 257), (4, 37, 131)])
+def test_weno5_kernel_matches_plain(card, shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    q = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=card)
+    before = weno.weno5.launches
+    lk, rk = weno.weno5(q)
+    torch.cuda.synchronize()
+    assert weno.weno5.launches == before + 1
+    lp, rp = recon.weno5(q)
+    for k, p in ((lk, lp), (rk, rp)):
+        assert k.dtype == dtype and k.shape == q.shape
+        assert float((k - p).abs().max() / p.abs().max()) <= TOL[dtype]
+    # constant data: finite in float32 too (no (1e-36 + 0)^2 underflow)
+    lc, rc = weno.weno5(torch.full(shape, 0.5, dtype=dtype, device=card))
+    assert bool(torch.isfinite(lc).all() and torch.isfinite(rc).all())
+    assert float((lc - 0.5).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_weno5_kernel_rejects_what_it_cannot_take(card):
+    q = torch.ones(3, 40, dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        weno.weno5(torch.ones(40, 3, dtype=torch.float64, device=card).t())
+    with pytest.raises(TypeError, match="dtype"):
+        weno.weno5(q.half())
+    with pytest.raises(ValueError, match="non-empty"):
+        weno.weno5(q[:, :0])

@@ -54,6 +54,11 @@ def test_registry():
     assert (rs.num_dim, rs.num_eqn, rs.num_waves) == (2, 4, 4)
     assert rs.requires == ("gamma",)
     assert triemann.ALL == {
+        "advection_1D": triemann.advection_1D,
+        "acoustics_1D": triemann.acoustics_1D,
+        "euler_with_efix_1D": triemann.euler_with_efix_1D,
+        "euler_roe_1D": triemann.euler_roe_1D,
+        "euler_hlle_1D": triemann.euler_hlle_1D,
         "euler_4wave_2D": rs, "euler_3D": triemann.euler_3D,
         "shallow_roe_with_efix_2D": triemann.shallow_roe_with_efix_2D,
         "shallow_bathymetry_fwave_2D":
