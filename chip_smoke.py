@@ -36,6 +36,15 @@ Phases (each asserts; any failure exits non-zero):
   3f. weno5 against its plain version at (1, 5), (3, 806), (3, 2^20+6)
      and (4, 37, 131): seeded random data, constant data (finite in
      float32 too) and the Sod state padded for SharpClaw;
+  3g. step3_aos against its plain PyTorch version (one step each), over
+     the layered-medium state of examples.acoustics_3d_heterogeneous and a
+     seeded random state with aux in 1 +- 0.2 and a capacity row: the main
+     configuration (heterogeneous acoustics, transverse_waves 1, order 2,
+     MC) at 192^3, and each system (vc_acoustics_3D, acoustics_3D,
+     advection_3D) for transverse_waves 0/1/(2 where the system has
+     rptt3) x (order, limiter) in {(1, MC), (2, MC), (2, van Leer), (2,
+     id 10)} x with and without a capacity function (and the f-wave form
+     on advection) at 16^3, 33x17x9 and 5x40x7, float32 and float64;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -54,6 +63,11 @@ Phases (each asserts; any failure exits non-zero):
      each with every launch count set to 0 just before it and read just
      after (step1: 1 per attempted step; weno5: 10), against the same run
      in float64, with the change of mass and energy;
+  4f. the 3D heterogeneous-acoustics path:
+     examples.acoustics_3d_heterogeneous.setup(mx=my=mz=192, float32)
+     through Controller.run() to tfinal=0.8, every launch count set to 0
+     just before it and read just after (step3_aos: 1 per attempted step;
+     no other kernel);
   5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
      card, float32 and float64;
   5c. the 16^3 euler_3d golden on the card, float32 and float64;
@@ -63,17 +77,25 @@ Phases (each asserts; any failure exits non-zero):
   5e. the five 1D goldens (advection_1d, advection_1d_sharpclaw,
      acoustics_1d, euler_1d_sod, euler_1d_sod_sharpclaw) on the card,
      float32 and float64;
+  5f. the heterogeneous path's correctness (no golden exists): the 32^3
+     run to t=0.8 on the card in float64 against the same run on the
+     CPU's plain step (equal steps, 1e-10); the 192^3 float32 run against
+     a 192^3 float64 run on the card (relative L1); the x <-> y mirror
+     symmetry of p; and the uniform-medium oracle (vc_acoustics_3D with
+     rho = c = 1 against acoustics_3D, transverse_waves 1, 16^3 to t=0.2);
   5b. SharpClaw quadrants at 80^2 on the card against the same run on the
      CPU (the plain path the CPU tests tie to the JAX package): float64 at
      t=0.2 and t=0.8, float32 at t=0.8;
   6. timing at 1024^2 (CUDA events): each 2D kernel, its plain version,
      its bound, and step3_ctu the same at 192^3; step1 on the Sod state at
      n = 800 and 2^20, weno5 at (3, 806) and (3, 2^20+6), each also with
-     its device time from torch.profiler; then each 2D
-     path to t=0.1, the 3D path to t=0.02, the classic Sod path to t=0.2
-     and the SharpClaw one to t=0.02 under torch.profiler (device busy
-     share, launches per step, device time by kernel, host time by
-     operation);
+     its device time from torch.profiler; step3_aos, its plain version
+     and its bound at 192^3 on the heterogeneous path's first input; then
+     each 2D path to t=0.1, the 3D Euler path to t=0.02, the heterogeneous
+     path to t=0.8, the classic Sod path to t=0.2 and the SharpClaw one to
+     t=0.02 under torch.profiler (device busy share, launches per step,
+     device time by kernel and by group: kernel, BC extension of q and
+     aux, CFL reduction, frame copies; host time by operation);
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -147,6 +169,36 @@ FLOPS_PER_CELL_3D = 3 * (573 + 2 * 1026) + 50
 # interfaces 714.  The fold and update per cell 78.
 FLOPS_PER_CELL_AOS = 2 * 357 + 78
 
+
+def flops_per_cell_3d_aos(name, tw):
+    """Operations per cell of one generic 3D CTU step of system ``name``
+    (order 2, MC, no capacity) with ``tw`` transverse_waves, counted from
+    csrc/step3_aos.cu and csrc/acoustics3d.cuh in the same way, each
+    interface quantity counted once (the halo interfaces, the second dot
+    product of each interface pair and the neighbours' splits are
+    overhead, not work).  Per sweep direction, per interface: the normal
+    solve (vc acoustics 23, acoustics 19, advection 5); per wave the
+    limiter (norm and one dot product 2 (2 m - 1), theta 3, MC 6, nu 2,
+    the coefficient 6, the select 1); the correction flux m (2 p - 1);
+    cq into the flux m; CFL 3 p; the cell's fluctuation term 3 m; with
+    transverse_waves 2 the fluctuations to split 2 m.  Per (sweep,
+    transverse) pair and fluctuation: the split (vc acoustics 15,
+    acoustics 12, advection 4) and the E-flux gather 5 m; with
+    transverse_waves 2 and a system that has rptt3, two double-transverse
+    splits, each with its scaling 2 m and its F-flux gather 5 m.  The
+    update 10 m per cell.  m equations, p waves."""
+    m, p, rpn, split, rptt = {"vc_acoustics_3D": (4, 2, 23, 15, False),
+                              "acoustics_3D": (4, 2, 19, 12, True),
+                              "advection_3D": (1, 1, 5, 4, True)}[name]
+    limiter = 2 * (2 * m - 1) + 3 + 6 + 2 + 6 + 1
+    normal = (rpn + p * limiter + m * (2 * p - 1) + m + 3 * p + 3 * m
+              + (2 * m if tw >= 2 else 0))
+    per_fluct = split + 5 * m
+    if tw >= 2 and rptt:
+        per_fluct += 2 * (split + 2 * m + 5 * m)
+    transverse = 2 * 2 * per_fluct if tw > 0 else 0
+    return 3 * (normal + transverse) + 10 * m
+
 TOL_REL = {"float32": 1e-5, "float64": 1e-12}        # one step, vs plain
 # A state with positivity fallbacks is ill-conditioned: edge densities
 # near zero come from cancellation, and the sound speed grows as
@@ -172,6 +224,14 @@ LAKE_TOL = 1e-5
 # the CPU run's own change when its initial state moves by one ulp, or
 # the tolerance below if larger.
 SHARP_RUN_TOL = {"t0.2_max": 1e-6, "t0.8_l1": 1e-4, "t0.8_max": 1e-2}
+# The heterogeneous-acoustics path (no golden): the 32^3 float64 run on the
+# card against the same run on the CPU's plain step (max relative); the
+# 192^3 float32 run against the 192^3 float64 run on the card (relative
+# L1: float32 roundoff through ~170 linear steps); the x <-> y mirror
+# symmetry of p in float64 and the uniform-medium oracle (absolute, as
+# tests/test_3d.py:167, 197)
+HET_TOL = {"card_vs_cpu_f64": 1e-10, "f32_vs_f64_l1": 1e-4,
+           "mirror_f64": 1e-11, "uniform_f64": 1e-11}
 
 
 def fail(msg):
@@ -782,6 +842,266 @@ def timing_aos(dev, n=1024):
     return out
 
 
+# ---- the 3D heterogeneous-acoustics path: step3_aos ---------------------
+
+PARAMS_3D = {"u": 0.7, "v": -0.4, "w": 0.3, "zz": 1.3, "cc": 0.8}
+# (order, limiter) of [3g]: first order, MC, van Leer and the CFL-dependent
+# id 10
+STEP3_AOS_LIMS = ((1, 4), (2, 4), (2, 3), (2, 10))
+SYSTEMS_3D = ("vc_acoustics_3D", "acoustics_3D", "advection_3D")
+
+
+def step3_aos_matrix():
+    """(system, transverse_waves, order, limiter, index_capa, fwave) of
+    [3g] at the small grids."""
+    out = []
+    for name in SYSTEMS_3D:
+        tws = (0, 1) if name == "vc_acoustics_3D" else (0, 1, 2)
+        fwaves = (False, True) if name == "advection_3D" else (False,)
+        for tw in tws:
+            for order, lim in STEP3_AOS_LIMS:
+                for capa in (-1, 2):
+                    for fwave in fwaves:
+                        out.append((name, tw, order, lim, capa, fwave))
+    return out
+
+
+def het_state(nx, ny, nz):
+    """q and aux (Z, c) of examples.acoustics_3d_heterogeneous."""
+    from pyclaw_tpu_torch.examples import acoustics_3d_heterogeneous as ex
+    st = ex.setup(mx=nx, my=ny, mz=nz, outdir=None,
+                  device="cpu").solution.state
+    return st.q, st.aux
+
+
+def padded3_aux(aux_np, dtype, dev):
+    import torch
+    from pyclaw_tpu_torch import bc
+    aux = torch.as_tensor(aux_np, dtype=dtype, device=dev)
+    return bc.extend(aux, 2, [bc.BC.extrap] * 3, [bc.BC.extrap] * 3,
+                     wall_reflects=False)
+
+
+def plain_step3_aos(qbc, auxbc, dt, deltas, name, lims, order, fwave, capa,
+                    tw):
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.classic import kernels
+    rp = riemann.ALL[name]
+    return kernels.step3(qbc, auxbc, dt, *deltas, rp.rp, rp.rpt, rp.rptt,
+                         PARAMS_3D, lims, order, fwave, capa, 2, tw)
+
+
+def compare_step3_aos(dev, n_main=192, seed=6):
+    """step3_aos vs its plain version, one step each, on the card: the main
+    configuration at n_main^3, the matrix of each system at small grids.
+    Every input carries a third aux row, a capacity function in 0.7 .. 1.3
+    (index_capa = 2)."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    matrix = step3_aos_matrix()
+    main = [("vc_acoustics_3D", 1, 2, 4, -1, False)]
+    for shape, cases in (((n_main,) * 3, main), ((16, 16, 16), matrix),
+                         ((33, 17, 9), matrix), ((5, 40, 7), matrix)):
+        kappa = 0.7 + 0.6 * rng.random((1,) + shape)
+        q_het, aux_het = het_state(*shape)
+        inputs = {"layered": (q_het, np.concatenate([aux_het, kappa])),
+                  "random": (rng.standard_normal((4,) + shape),
+                             np.concatenate([
+                                 1.0 + 0.2 * (2.0 * rng.random((2,) + shape)
+                                              - 1.0), kappa]))}
+        deltas = tuple(2.0 / n for n in shape)
+        for iname, (q_np, aux_np) in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc4 = padded3(q_np, dtype, dev).contiguous()
+                auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
+                dt = float(np.dtype(tname).type(0.3 * min(deltas)))
+                for name, tw, order, lim, capa, fwave in cases:
+                    rp = riemann.ALL[name]
+                    qbc = qbc4 if rp.num_eqn == 4 else qbc4[:1].contiguous()
+                    lims = (lim,) * rp.num_waves
+                    qk, ck = tiled2d.step3_xy_generic(
+                        qbc, auxbc, dt, *deltas, rp, PARAMS_3D, lims, order,
+                        fwave, capa, 2, tw)
+                    qp, cp = plain_step3_aos(qbc, auxbc, dt, deltas, name,
+                                             lims, order, fwave, capa, tw)
+                    torch.cuda.synchronize()
+                    abs_err = float((qk - qp).abs().max())
+                    rel = abs_err / float(qp.abs().max())
+                    dcfl = abs(float(ck) - float(cp)) / float(cp)
+                    if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                            and dcfl <= TOL_REL[tname]
+                            and tuple(qk.shape) == (rp.num_eqn,) + shape):
+                        fail(f"step3_aos vs plain {shape} {iname} {tname} "
+                             f"{name} tw={tw} order={order} lim={lim} "
+                             f"capa={capa} fwave={fwave}: rel err {rel:.3e}, "
+                             f"cfl {float(ck)!r} vs {float(cp)!r}")
+                    worst[tname] = max(worst[tname], rel)
+                    worst_cfl[tname] = max(worst_cfl[tname], dcfl)
+                    if (shape[0], iname, tname) == (n_main, "layered",
+                                                    "float32"):
+                        main_abs_err = abs_err
+                    if shape[0] == n_main:
+                        print(f"  step3_aos {shape} {iname:7s} {tname}: rel "
+                              f"err {rel:.3e}, cfl rel {dcfl:.3e}", flush=True)
+                    ncase += 1
+                    del qk, qp
+                del qbc4, auxbc
+                torch.cuda.empty_cache()
+        print(f"  compare step3_aos {shape}: max rel err f32 "
+              f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; max cfl "
+              f"rel f32 {worst_cfl['float32']:.3e} f64 "
+              f"{worst_cfl['float64']:.3e}", flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def run_het(dev, n, dtype, tfinal=0.8, **kw):
+    """examples.acoustics_3d_heterogeneous through Controller.run(); returns
+    (claw, status, wall seconds)."""
+    import torch
+    from pyclaw_tpu_torch.examples import acoustics_3d_heterogeneous as ex
+    claw = ex.setup(mx=n, my=n, mz=n, dtype=dtype, outdir=None, device=dev,
+                    **kw)
+    claw.tfinal = tfinal
+    claw.num_output_times = 1
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return claw, dict(status), time.perf_counter() - t0
+
+
+def homogeneous_run(dev, n, tfinal):
+    """acoustics_3D with zz = cc = 1 and the heterogeneous example's
+    settings and pulse (tests/test_3d.py:180-196), float64."""
+    import pyclaw_tpu_torch as pyclaw
+    from pyclaw_tpu_torch import riemann
+    solver = pyclaw.ClawSolver3D(riemann.acoustics_3D, device=dev)
+    solver.transverse_waves = 1
+    solver.cfl_desired, solver.cfl_max = 0.45, 0.5
+    solver.limiters = [pyclaw.limiters.tvd.MC]
+    solver.all_bcs = pyclaw.BC.extrap
+    domain = pyclaw.Domain([-1.0] * 3, [1.0] * 3, [n] * 3)
+    state = pyclaw.State(domain, 4)
+    state.problem_data["zz"] = 1.0
+    state.problem_data["cc"] = 1.0
+    x, y, z = domain.grid.c_centers
+    state.q[0] = 5.0 * np.exp(-40.0 * (x ** 2 + y ** 2 + (z + 0.5) ** 2))
+    claw = pyclaw.Controller()
+    claw.solution = pyclaw.Solution(state, domain)
+    claw.solver = solver
+    claw.tfinal, claw.num_output_times = tfinal, 1
+    claw.output_format = None
+    claw.run()
+    return claw.solution.q
+
+
+def het_checks(dev, q192_f32, n=192):
+    """[5f]: the 32^3 float64 run on the card against the CPU's plain step;
+    the n^3 float32 run (q192_f32, from [4f]) against an n^3 float64 card
+    run; the x <-> y mirror symmetry of p in float64; the uniform-medium
+    oracle."""
+    out = {}
+    c_k, st_k, w_k = run_het(dev, 32, np.float64)
+    c_c, st_c, w_c = run_het("cpu", 32, np.float64)
+    q_k, q_c = c_k.solution.q, c_c.solution.q
+    steps_k = (st_k["numsteps"], st_k["numrejected"])
+    steps_c = (st_c["numsteps"], st_c["numrejected"])
+    out["card_vs_cpu_f64"] = float(np.abs(q_k - q_c).max()
+                                   / np.abs(q_c).max())
+    out["steps_card_32"], out["steps_cpu_32"] = steps_k, steps_c
+    out["wall_card_32_s"], out["wall_cpu_32_s"] = w_k, w_c
+    mirror32 = float(np.abs(q_k[0] - q_k[0].transpose(1, 0, 2)).max())
+    c64, st64, w64 = run_het(dev, n, np.float64)
+    q64 = c64.solution.q
+    q32 = q192_f32.astype(np.float64)
+    out["f32_vs_f64_l1"] = float(np.mean(np.abs(q32 - q64))
+                                 / np.mean(np.abs(q64)))
+    out["f32_vs_f64_max"] = float(np.abs(q32 - q64).max() / np.abs(q64).max())
+    out["f64_steps_192"] = (st64["numsteps"], st64["numrejected"])
+    out["f64_wall_192_s"] = w64
+    mirror192 = float(np.abs(q64[0] - q64[0].transpose(1, 0, 2)).max())
+    out["mirror_f64"] = max(mirror32, mirror192)
+    del c64, q64
+    c_vc, _, _ = run_het(dev, 16, np.float64, 0.2, rho_bot=1.0, c_bot=1.0)
+    q_h = homogeneous_run(dev, 16, 0.2)
+    out["uniform_f64"] = float(np.abs(c_vc.solution.q - q_h).max())
+    print(f"[5f] het 32^3 f64 card vs cpu: max rel "
+          f"{out['card_vs_cpu_f64']:.3e} (tol {HET_TOL['card_vs_cpu_f64']}), "
+          f"steps card {steps_k}, cpu {steps_c} (wall {w_k:.3f} s, "
+          f"{w_c:.3f} s); {n}^3 f32 vs f64 on the card: rel L1 "
+          f"{out['f32_vs_f64_l1']:.3e} (tol {HET_TOL['f32_vs_f64_l1']}), "
+          f"max rel {out['f32_vs_f64_max']:.3e}, f64 steps "
+          f"{out['f64_steps_192']} in {w64:.3f} s; max |p - p^T| f64 "
+          f"{mirror32:.3e} (32^3), {mirror192:.3e} ({n}^3) (tol "
+          f"{HET_TOL['mirror_f64']}); uniform medium vs acoustics_3D 16^3 "
+          f"f64 max abs {out['uniform_f64']:.3e} (tol "
+          f"{HET_TOL['uniform_f64']})", flush=True)
+    if steps_k != steps_c:
+        fail(f"het 32^3 f64: steps card {steps_k} != cpu {steps_c}")
+    if not (np.all(np.isfinite(q_k)) and q_k.shape == (4, 32, 32, 32)):
+        fail("het 32^3 f64 on the card is not finite (4, 32, 32, 32)")
+    for key, val in out.items():
+        if key in HET_TOL and not val <= HET_TOL[key]:
+            fail(f"het {key}: {val} > {HET_TOL[key]}")
+    return out
+
+
+def timing_step3_aos(dev, n=192):
+    """step3_aos (the path's configuration: heterogeneous acoustics,
+    transverse_waves 1, order 2, MC), its plain version and its bound at
+    n^3 on the heterogeneous path's first input."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    q_np, aux_np = het_state(n, n, n)
+    rp = riemann.vc_acoustics_3D
+    deltas = (2.0 / n,) * 3
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc = padded3(q_np, dtype, dev).contiguous()
+        auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
+        dt = float(np.dtype(tname).type(0.45 * deltas[0]))
+
+        def kern():
+            return tiled2d.step3_xy_generic(qbc, auxbc, dt, *deltas, rp, {},
+                                            (4, 4), 2, False, -1, 2, 1)
+
+        def plain():
+            return plain_step3_aos(qbc, auxbc, dt, deltas, rp.name, (4, 4), 2,
+                                   False, -1, 1)
+
+        ms = time_ms(kern, 20, warm=2)
+        plain_ms = time_ms(plain, 3, warm=1)
+        ms_again = time_ms(kern, 20, warm=2)
+        dev_ms, dev_n = device_ms_per_call(kern, "step3_aos_kernel", 10)
+        item = qbc.element_size()
+        b = bound_of((qbc.numel() + auxbc.numel() + 4 * n ** 3) * item,
+                     flops_per_cell_3d_aos(rp.name, 1) * n ** 3, tname)
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, **b}
+        print(f"  timing step3_aos {n}^3 {tname}: kernel {ms:.4f} ms (repeat "
+              f"{ms_again:.4f}; on the device {dev_ms} ms, {dev_n} launches "
+              f"profiled), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
+        del qbc, auxbc
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- the 1D paths: step1 (classic sweep) and weno5 (SharpClaw recon) ----
 
 # Operations per cell of one classic 1D step of euler_with_efix_1D (order
@@ -1001,13 +1321,15 @@ def kernel_counts():
             "dq2_weno5": tiled2d.dq_rows.launches,
             "step3_ctu": tiled2d.step3_xy.launches,
             "step2_aos": tiled2d.step2_rows_generic.launches,
-            "step1": sweep.step1.launches, "weno5": weno.weno5.launches}
+            "step1": sweep.step1.launches, "weno5": weno.weno5.launches,
+            "step3_aos": tiled2d.step3_xy_generic.launches}
 
 
 def reset_kernel_counts():
     from pyclaw_tpu_torch.ops import sweep, tiled2d, weno
     for fn in (tiled2d.step2_rows, tiled2d.dq_rows, tiled2d.step3_xy,
-               tiled2d.step2_rows_generic, sweep.step1, weno.weno5):
+               tiled2d.step2_rows_generic, sweep.step1, weno.weno5,
+               tiled2d.step3_xy_generic):
         fn.launches = 0
 
 
@@ -1203,7 +1525,7 @@ def timing_1d(dev):
 # device kernels grouped by what launched them (by kernel name)
 DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5", "step3_ctu",
                              "step2_aos", "step1_kernel",
-                             "weno5_kernel")),
+                             "weno5_kernel", "step3_aos")),
                  ("bc_extension", ("CatArrayBatchedCopy", "copy_kernel")),
                  ("cfl_reduction", ("reduce_kernel", "maximum")),
                  ("memcpy", ("Memcpy", "Memset")))
@@ -1370,11 +1692,11 @@ def main():
     # nvcc per source, all started together
     t0 = time.perf_counter()
     names = ["step2_ctu", "dq2_weno5", "step3_ctu", "step2_aos", "step1",
-             "weno5"]
-    lib, dq_lib, lib3, lib_aos, lib_s1, _ = _build.load_all(names)
+             "weno5", "step3_aos"]
+    lib, dq_lib, lib3, lib_aos, lib_s1, _, lib_3a = _build.load_all(names)
     print(f"[2] built csrc/step2_ctu.cu, csrc/dq2_weno5.cu, "
-          f"csrc/step3_ctu.cu, csrc/step2_aos.cu, csrc/step1.cu and "
-          f"csrc/weno5.cu for sm_90a in "
+          f"csrc/step3_ctu.cu, csrc/step2_aos.cu, csrc/step1.cu, "
+          f"csrc/weno5.cu and csrc/step3_aos.cu for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s; shared memory per block: "
           f"step2_ctu f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
           f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
@@ -1389,7 +1711,11 @@ def main():
           f"{lib_s1.step1_smem_bytes(2, 0, 0)} B, f64 "
           f"{lib_s1.step1_smem_bytes(2, 0, 1)} B, (advection with "
           f"capacity) f32 {lib_s1.step1_smem_bytes(0, 1, 0)} B, f64 "
-          f"{lib_s1.step1_smem_bytes(0, 1, 1)} B", flush=True)
+          f"{lib_s1.step1_smem_bytes(0, 1, 1)} B; step3_aos (heterogeneous "
+          f"acoustics) f32 {lib_3a.step3_aos_smem_bytes(0, 0, 0)} B, f64 "
+          f"{lib_3a.step3_aos_smem_bytes(0, 0, 1)} B, (with capacity) f32 "
+          f"{lib_3a.step3_aos_smem_bytes(0, 1, 0)} B, f64 "
+          f"{lib_3a.step3_aos_smem_bytes(0, 1, 1)} B", flush=True)
     phase_s = {"build": time.perf_counter() - t0}
     for name in names:
         for line in _build.build_report(name).splitlines():
@@ -1458,6 +1784,18 @@ def main():
           f"{w5_worst['float64']:.3e} (tol {TOL_REL['float64']}); constant "
           f"data finite; {time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3f"] = time.perf_counter() - t0
+
+    # [3g] step3_aos against its plain version
+    t0 = time.perf_counter()
+    s3a_worst, s3a_worst_cfl, s3a_main_abs_err, s3a_ncase = \
+        compare_step3_aos(dev)
+    print(f"[3g] step3_aos vs plain: {s3a_ncase} cases, max rel err f32 "
+          f"{s3a_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{s3a_worst['float64']:.3e} (tol {TOL_REL['float64']}); max cfl "
+          f"rel f32 {s3a_worst_cfl['float32']:.3e}, f64 "
+          f"{s3a_worst_cfl['float64']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3g"] = time.perf_counter() - t0
 
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
@@ -1573,6 +1911,35 @@ def main():
     w5_launches = sod["sharpclaw"]["launches"]["weno5"]
     phase_s["4e"] = time.perf_counter() - t0
 
+    # [4f] the 3D heterogeneous-acoustics path (192^3 f32), every launch
+    # count set to 0 just before it and read just after
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    claw_h, status_h, wall_h = run_het(dev, n3, np.float32)
+    counts_h = kernel_counts()
+    het_launches = counts_h["step3_aos"]
+    ns_h, nr_h = status_h["numsteps"], status_h["numrejected"]
+    q_h = claw_h.solution.q
+    print(f"[4f] acoustics_3d_heterogeneous path {n3}^3 f32 to "
+          f"t={claw_h.solution.t}: {ns_h} accepted + {nr_h} rejected steps, "
+          f"{het_launches} step3_aos launches (all counts {counts_h}), "
+          f"{wall_h:.3f} s wall, {ns_h * n3 ** 3 / wall_h:.4e} "
+          f"cell-updates/s", flush=True)
+    if het_launches == 0 or het_launches != ns_h + nr_h:
+        fail(f"step3_aos launches {het_launches} != accepted {ns_h} + "
+             f"rejected {nr_h}")
+    others = {k: v for k, v in counts_h.items() if k != "step3_aos" and v}
+    if others:
+        fail(f"het path: other kernels launched: {others}")
+    if nr_h < 1:
+        fail("het path: the first step at dt_initial=0.1 should be rejected")
+    if q_h.shape != (4, n3, n3, n3) or not np.all(np.isfinite(q_h)):
+        fail(f"het path: result is not finite (4, {n3}, {n3}, {n3})")
+    if abs(claw_h.solution.t - 0.8) > 1e-12:
+        fail(f"het path: ended at t={claw_h.solution.t}")
+    del claw_h
+    phase_s["4f"] = time.perf_counter() - t0
+
     # [5] goldens on the card
     golden = {}
     for n, name in ((80, "euler_2d_quadrants"),
@@ -1641,6 +2008,12 @@ def main():
     golden.update(goldens_1d(dev))
     phase_s["5e"] = time.perf_counter() - t0
 
+    # [5f] the heterogeneous path's correctness
+    t0 = time.perf_counter()
+    het = het_checks(dev, q_h, n3)
+    del q_h
+    phase_s["5f"] = time.perf_counter() - t0
+
     # [5b] SharpClaw on the card against the same run on the CPU
     t0 = time.perf_counter()
     sharp_vs_cpu = sharp_card_vs_cpu(dev)
@@ -1652,6 +2025,7 @@ def main():
     tm_dq = timing_dq(dev)
     tm3 = timing_step3(dev)
     tm_aos = timing_aos(dev)
+    tm_het = timing_step3_aos(dev)
     prof = profile_main_path(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
@@ -1664,6 +2038,9 @@ def main():
     prof_sw = profile_main_path(
         "shallow path 1024^2 f32 to t=0.1",
         lambda: run_shallow(dev, 1024, np.float32, 0.1))
+    prof_het = profile_main_path(
+        "acoustics_3d_heterogeneous path 192^3 f32 to t=0.8",
+        lambda: run_het(dev, 192, np.float32))
     tm_1d = timing_1d(dev)
     prof_sod = profile_main_path(
         "sod classic path 800 f32 to t=0.2",
@@ -1802,8 +2179,31 @@ def main():
         "max_rel_err_f64": w5_worst["float64"],
         "max_rel_err_f32": w5_worst["float32"],
     }
+    h32, h64 = tm_het["float32"], tm_het["float64"]
+    het_record = {
+        "name": "step3_aos", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step3_aos.cu",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:431",
+        "replaces_function": "step3_pallas_xy",
+        "replaces_body": "kernel_aux (ops/tiled2d.py:490-518; "
+                         "classic/kernels.py:806 step3_roll with aux, "
+                         "index_capa, fwave)",
+        "rows": ["3b"],
+        "launches": het_launches, "max_abs_err": s3a_main_abs_err,
+        "ms": h32["ms"], "device_ms": h32["device_ms"],
+        "plain_ms": h32["plain_ms"],
+        "bound_ms": h32["bound_ms"], "bound_by": h32["bound_by"],
+        "library_ms": None,
+        "shape": [4, 196, 196, 196], "aux_shape": [2, 196, 196, 196],
+        "dtype": "float32",
+        "ms_f64": h64["ms"], "device_ms_f64": h64["device_ms"],
+        "plain_ms_f64": h64["plain_ms"],
+        "bound_ms_f64": h64["bound_ms"], "bound_by_f64": h64["bound_by"],
+        "max_rel_err_f64": s3a_worst["float64"],
+        "max_rel_err_f32": s3a_worst["float32"],
+    }
     kernels = [record, dq_record, s3_record, aos_record, s1_record,
-               w5_record]
+               w5_record, het_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s": wall,
                              "cell_updates_per_s": ns * 1024 * 1024 / wall},
@@ -1824,14 +2224,21 @@ def main():
                                 "mass_change_rel": mass_rel,
                                 "mirror_asymmetry": mirror},
                "sod_path": sod,
+               "acoustics3d_het_path": {
+                   "accepted": ns_h, "rejected": nr_h,
+                   "step3_aos_launches": het_launches, "wall_s": wall_h,
+                   "cell_updates_per_s": ns_h * n3 ** 3 / wall_h},
+               "acoustics3d_het_checks": het,
                "lake_at_rest": {"steps": lake_steps,
                                 "eta_drift": eta_drift, "momentum": mom},
                "golden_rel_err": golden, "sharpclaw_card_vs_cpu":
                    sharp_vs_cpu,
                "timing": tm, "timing_dq": tm_dq, "timing_step3": tm3,
                "timing_aos": tm_aos, "timing_1d": tm_1d,
+               "timing_step3_aos": tm_het,
                "profile": prof, "profile_sharpclaw": sprof,
                "profile_euler3d": prof3, "profile_shallow": prof_sw,
+               "profile_acoustics3d_het": prof_het,
                "profile_sod_classic": prof_sod,
                "profile_sod_sharpclaw": prof_sod_sharp,
                "phase_seconds": phase_s,

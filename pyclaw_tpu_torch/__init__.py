@@ -32,7 +32,11 @@ The port carries these paths, each with a hand-written CUDA kernel:
 * the 1D solvers: advection, acoustics and Euler (Roe with and without
   the entropy fix, HLLE) on the classic sweep (``ClawSolver1D``;
   ``csrc/step1.cu``) and on SharpClaw WENO5 (``SharpClawSolver1D``;
-  ``csrc/weno5.cu``).
+  ``csrc/weno5.cu``);
+* 3D heterogeneous acoustics, and the 3D linear acoustics and advection
+  systems, on the generic 3D CTU step with aux, capacity and f-waves
+  (``ClawSolver3D`` with ``vc_acoustics_3D``, ``acoustics_3D`` or
+  ``advection_3D``; ``csrc/step3_aos.cu``).
 
 ROADMAP.md lists what comes next.
 """

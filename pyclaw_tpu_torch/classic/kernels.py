@@ -10,20 +10,20 @@ and phased variants.  ``step1`` is what ``ops.sweep.step1`` computes on
 a CPU tensor, and what the CUDA kernel ``csrc/step1.cu`` is held against
 on the card; ``step2`` the same for ``ops.tiled2d.step2_rows_generic``
 and ``csrc/step2_aos.cu``; ``step3`` for ``ops.tiled2d.step3_xy`` and
-``csrc/step3_ctu.cu``.  The index algebra and the order of the sums are
-the JAX package's, so in float64 the two agree to roundoff
-(tests/test_torch_step1.py, tests/test_torch_step2_aos.py,
-tests/test_torch_step3.py).
+``csrc/step3_ctu.cu`` (Euler) and for ``ops.tiled2d.step3_xy_generic``
+and ``csrc/step3_aos.cu`` (aux, capacity, f-waves).  The index algebra
+and the order of the sums are the JAX package's, so in float64 the two
+agree to roundoff (tests/test_torch_step1.py,
+tests/test_torch_step2_aos.py, tests/test_torch_step3.py,
+tests/test_torch_step3_aos.py).
 
-The 1D and 2D steps take aux arrays, a capacity function
+The 1D, 2D and 3D steps take aux arrays, a capacity function
 (``index_capa`` >= 0: per-cell dt/(dx kappa)) and the f-wave correction
-form; the 3D step takes none of them yet and raises
-``NotImplementedError``.  Without a
-capacity function dt/dx stays a scalar: ``dt/dx``, ``0.5 dt/dx`` and
-``dt^2 / (6 dx dy)`` are Python floats, which PyTorch rounds to q's
-dtype where they meet a tensor.  Sums over the small wave and equation
-axes are written as explicit adds in a fixed order, so no result
-depends on how ATen splits or vectorises a reduction.
+form.  Without a capacity function dt/dx stays a scalar: ``dt/dx``,
+``0.5 dt/dx`` and ``dt^2 / (6 dx dy)`` are Python floats, which PyTorch
+rounds to q's dtype where they meet a tensor.  Sums over the small wave
+and equation axes are written as explicit adds in a fixed order, so no
+result depends on how ATen splits or vectorises a reduction.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ import torch
 
 from .._slicing import slc
 from ..limiters import tvd
-from ..solver import _not_ported
 
 
 def _embed(v, like, starts):
@@ -274,25 +273,39 @@ def step2(q, aux, dt, dx, dy, rp, rpt, params, mthlim, order, fwave,
     return q_new[:, g - 1:nx - 1 - g, g - 1:ny - 1 - g], cfl
 
 
-def _step3_sweeps(q, dt, deltas, rp, params, mthlim, order, num_ghost):
-    """Normal sweeps of the 3D step: per-direction (amdq, apdq, cqxx) and
-    the CFL over the interfaces touching interior cells."""
+def _step3_sweeps(q, aux, dt, deltas, rp, params, mthlim, order, fwave,
+                  index_capa, num_ghost):
+    """Normal sweeps of the 3D step: per-direction (amdq, apdq, cqxx), the
+    per-direction dt/(dD kappa) (Python floats without a capacity
+    function, per-cell tensors with one), the capacity row and the CFL
+    over the interfaces touching interior cells (upwinded per-cell
+    dt/(dD kappa) with a capacity function)."""
     g = num_ghost
     shape = q.shape[1:]
+    capa = aux[index_capa] if index_capa >= 0 else None
+    dtdx_cells = [_dtdx_arr(dt, deltas[d], capa) for d in range(3)]
     waves = {}
     cfl = None
     for d in range(3):
-        dtdx = dt / deltas[d]
-        _, s, amdq, apdq, cqxx, _ = _sweep_normal(q, None, d, rp, params,
-                                                  mthlim, order, False, dtdx)
+        _, s, amdq, apdq, cqxx, _ = _sweep_normal(
+            q, aux, d, rp, params, mthlim, order, fwave, dtdx_cells[d])
         waves[d] = (amdq, apdq, cqxx)
         s_int = slc(s, 1 + d, slice(g - 1, shape[d] - g))
         for d2 in range(3):
             if d2 != d:
                 s_int = slc(s_int, 1 + d2, slice(g, shape[d2] - g))
-        c = torch.amax(torch.abs(s_int)) * dtdx
+        if capa is None:
+            c = torch.amax(torch.abs(s_int)) * dtdx_cells[d]
+        else:
+            dt_r = slc(dtdx_cells[d], d, slice(g, shape[d] - g + 1))
+            dt_l = slc(dtdx_cells[d], d, slice(g - 1, shape[d] - g))
+            for d2 in range(3):
+                if d2 != d:
+                    dt_r = slc(dt_r, d2, slice(g, shape[d2] - g))
+                    dt_l = slc(dt_l, d2, slice(g, shape[d2] - g))
+            c = torch.amax(torch.maximum(s_int * dt_r, -s_int * dt_l))
         cfl = c if cfl is None else torch.maximum(cfl, c)
-    return waves, cfl
+    return waves, dtdx_cells, capa, cfl
 
 
 def step3(q, aux, dt, dx, dy, dz, rp, rpt, rptt, params, mthlim, order,
@@ -300,24 +313,24 @@ def step3(q, aux, dt, dx, dy, dz, rp, rpt, rptt, params, mthlim, order,
     """3D unsplit classic step (step3.f90 + flux3.f90): normal sweeps
     with limited corrections, rpt3 corner transport and rptt3
     corner-of-corner corrections.  q (num_eqn, nx, ny, nz) ghost-padded;
-    ``dt`` a Python float.  Returns (q_interior, cfl)."""
-    if aux is not None:
-        raise _not_ported("aux")
-    if index_capa >= 0:
-        raise _not_ported("capacity")
-    if fwave:
-        raise _not_ported("fwave")
+    aux (num_aux, nx, ny, nz) or None; ``dt`` a Python float.  With a
+    capacity function (``index_capa`` >= 0) every dt/dD becomes the
+    per-cell dt/(dD kappa), and the transverse coefficients are those of
+    the receiving cell (flux3.f90 ``dtdx1d(i1)``).  Returns (q_interior,
+    cfl)."""
     dt = float(dt)
     deltas = (dx, dy, dz)
-    waves, cfl = _step3_sweeps(q, dt, deltas, rp, params, mthlim, order,
-                               num_ghost)
-    q_new = _step3_update(q, waves, dt, deltas, rpt, rptt, params,
-                          num_ghost, transverse_waves, prefactor)
+    waves, dtdx_cells, capa, cfl = _step3_sweeps(
+        q, aux, dt, deltas, rp, params, mthlim, order, fwave, index_capa,
+        num_ghost)
+    q_new = _step3_update(q, aux, waves, dtdx_cells, capa, dt, deltas, rpt,
+                          rptt, params, num_ghost, transverse_waves,
+                          prefactor)
     return q_new, cfl
 
 
-def _step3_update(q, waves, dt, deltas, rpt, rptt, params, num_ghost,
-                  transverse_waves=2, prefactor=None):
+def _step3_update(q, aux, waves, dtdx_cells, capa, dt, deltas, rpt, rptt,
+                  params, num_ghost, transverse_waves=2, prefactor=None):
     """Transverse corner transport and assembly of the 3D step (the
     rpt3/rptt3 + gadd/hadd half of flux3.f90).  The summation order is
     the JAX package's: per (d, e) pair the own-row rptt blocks, then the
@@ -335,8 +348,12 @@ def _step3_update(q, waves, dt, deltas, rpt, rptt, params, num_ghost,
             axis_d = 1 + d
             q_l = slc(q, axis_d, slice(0, shape[d] - 1))
             q_r = slc(q, axis_d, slice(1, shape[d]))
+            a_l = a_r = None
+            if aux is not None:
+                a_l = slc(aux, axis_d, slice(0, shape[d] - 1))
+                a_r = slc(aux, axis_d, slice(1, shape[d]))
             kwd = {} if prefactor is None else {
-                "eig": prefactor(d, q_l, q_r, None, None, params)}
+                "eig": prefactor(d, q_l, q_r, a_l, a_r, params)}
             amdq, apdq, cqdd = waves[d]
             # transverse_waves >= 2 with order 2: the correction waves
             # ride the transverse solves too
@@ -357,18 +374,27 @@ def _step3_update(q, waves, dt, deltas, rpt, rptt, params, num_ghost,
                 fe_blocks = {}  # i0 -> rpt contribution block for F[e]
                 for imp in (1, 2):
                     asdq = amdq if imp == 1 else apdq
-                    bm, bp = rpt(d, imp, q_l, q_r, None, None, asdq,
+                    bm, bp = rpt(d, imp, q_l, q_r, a_l, a_r, asdq,
                                  params, trans_axis=e, **kwd)
                     i0 = imp - 1   # target cell offset along the sweep axis
                     # below-going: F[e] at e-interface j-1 of source cell j
                     bm_s = slc(bm, axis_e, slice(1, n_e))
                     bp_s = slc(bp, axis_e, slice(0, n_e - 1))
-                    fe_blocks[i0] = -(half * bm_s + half * bp_s)
+                    if capa is None:
+                        c_bm = c_bp = half
+                        co2_full = None
+                    else:   # the receiving cell's kappa (dtdx1d(i1))
+                        dd = slc(dtdx_cells[d], d,
+                                 slice(i0, i0 + shape[d] - 1))
+                        c_bm = 0.5 * slc(dd, e, slice(1, n_e))[None]
+                        c_bp = 0.5 * slc(dd, e, slice(0, n_e - 1))[None]
+                        co2_full = (dt / (6.0 * deltas[e])) * dd
+                    fe_blocks[i0] = -(c_bm * bm_s + c_bp * bp_s)
 
                     if rptt is not None and transverse_waves >= 2:
                         for b_part, e_dir in ((bm, -1), (bp, 1)):
                             cm, cp = rptt(d, 2 + (f > e), imp, e_dir, q_l,
-                                          q_r, None, None, b_part, params,
+                                          q_r, a_l, a_r, b_part, params,
                                           trans_axis=f, **kwd)
                             # the b-part carries sign(v_e); the corner
                             # expansion needs |v_e|: flip the down-going
@@ -377,7 +403,11 @@ def _step3_update(q, waves, dt, deltas, rpt, rptt, params, num_ghost,
                                 f_src = (slice(1, n_f) if f_off == -1
                                          else slice(0, n_f - 1))
                                 cs = slc(c_part, axis_f, f_src)
-                                t = sgn * coeff2 * cs
+                                if co2_full is None:
+                                    co_cs = coeff2
+                                else:   # kappa-scaled, sliced like cs
+                                    co_cs = slc(co2_full, f, f_src)[None]
+                                t = sgn * co_cs * cs
                                 # + at the part's own e-row
                                 own[i0] = t if i0 not in own else own[i0] + t
                                 # - at the e-row it crosses into
@@ -402,12 +432,12 @@ def _step3_update(q, waves, dt, deltas, rpt, rptt, params, num_ghost,
                                + _embed(fe_blocks[1], F[e], {axis_d: 1}))
 
     # ---- assemble the update over cells 1..n-2 on every axis -----------
-    def inner_cells(a):
+    def inner_cells(a, first):
         for d in range(3):
-            a = slc(a, 1 + d, slice(1, a.shape[1 + d] - 1))
+            a = slc(a, first + d, slice(1, a.shape[first + d] - 1))
         return a
 
-    qc = inner_cells(q)
+    qc = inner_cells(q, 1)
     dq_tot = torch.zeros_like(qc)
     for d in range(3):
         amdq, apdq, _ = waves[d]
@@ -420,7 +450,9 @@ def _step3_update(q, waves, dt, deltas, rpt, rptt, params, num_ghost,
         for d2 in range(3):
             if d2 != d:
                 term = slc(term, 1 + d2, slice(1, term.shape[1 + d2] - 1))
-        dq_tot = dq_tot + (dt / deltas[d]) * term
+        dtd = (dtdx_cells[d] if capa is None
+               else inner_cells(dtdx_cells[d], 0))
+        dq_tot = dq_tot + dtd * term
     out = qc - dq_tot
     # out covers cells 1..n-2 per axis; the interior is g..n-1-g
     for d in range(3):

@@ -9,9 +9,10 @@ Counterpart of ``pyclaw_tpu/classic/solver.py`` (``ClawSolver :30-107``,
 then ``ops.sweep.step1`` (1D: aux, capacity, f-waves),
 ``ops.tiled2d.step2_rows`` (2D, the SoA Euler step),
 ``ops.tiled2d.step2_rows_generic`` (2D, the generic AoS step: aux,
-capacity, f-waves) or ``ops.tiled2d.step3_xy`` (3D), which launch the
-CUDA kernel on a CUDA tensor and run the plain PyTorch version on a CPU
-tensor.
+capacity, f-waves), ``ops.tiled2d.step3_xy`` (3D Euler) or
+``ops.tiled2d.step3_xy_generic`` (3D, the generic AoS step: aux, capacity,
+f-waves), which launch the CUDA kernel on a CUDA tensor and run the plain
+PyTorch version on a CPU tensor.
 
 Options of the JAX package that this slice does not port raise
 ``NotImplementedError`` at setup, naming their ROADMAP.md item.
@@ -163,8 +164,17 @@ class ClawSolver3D(ClawSolver):
     Langseth-LeVeque corner transport, single-transverse (rpt3) terms plus
     double-transverse (rptt3) corner-of-corner terms.  ``transverse_waves``
     as in 2D; without an rptt hook the unsplit step with
-    ``transverse_waves >= 2`` is refused, as in the JAX package."""
+    ``transverse_waves >= 2`` is refused, as in the JAX package.  Takes aux
+    arrays, a capacity function (``state.index_capa``) and ``fwave``.
+
+    The step: ``euler_3D`` without a capacity function or f-waves runs
+    ``ops.tiled2d.step3_xy`` (``csrc/step3_ctu.cu``; Euler reads no aux);
+    the systems of ``ops.tiled2d.STEP3_SYSTEMS``, and ``euler_3D`` with a
+    capacity function or f-waves, run ``ops.tiled2d.step3_xy_generic``
+    (``csrc/step3_aos.cu``, which on the card refuses Euler: ROADMAP.md
+    Queue 2 item 4c)."""
     num_dim = 3
+    takes_aux = True
 
     def __init__(self, riemann_solver=None, device=None):
         super().__init__(riemann_solver, device=device)
@@ -186,12 +196,12 @@ class ClawSolver3D(ClawSolver):
     def _make_hyperbolic_step(self, state):
         if self.dimensional_split:
             raise _not_ported("dimensional_split")
-        if self.fwave:
-            raise _not_ported("fwave")
-        if self.rp.name != "euler_3D":
+        rp = self.rp
+        is_euler = rp.name == "euler_3D"
+        if not is_euler and rp.name not in tiled2d.STEP3_SYSTEMS:
             raise NotImplementedError(
-                f"the 3D step of {self.rp.name} is not ported to "
-                "pyclaw_tpu_torch yet (ROADMAP.md, Queue 1 items 10-11)")
+                f"the 3D step of {rp.name} is not ported to "
+                "pyclaw_tpu_torch yet (ROADMAP.md, Queue 1 item 10)")
         if self.num_ghost != 2:
             raise ValueError("the 3D CTU step needs num_ghost=2")
         params = self._weak_params(state.problem_data)
@@ -199,11 +209,24 @@ class ClawSolver3D(ClawSolver):
         order = self.order
         tw = self.transverse_waves
         g = self.num_ghost
+        fwave = self.fwave
+        index_capa = state.index_capa
         dx, dy, dz = state.patch.delta
-        tiled2d.check_options(mthlim, order, tw, 5, "step3_xy")
+        if is_euler and index_capa < 0 and not fwave:
+            tiled2d.check_options(mthlim, order, tw, 5, "step3_xy")
+
+            def step_fn(q, aux, dt, t):
+                qbc, _ = self._extend_bc(q, aux, t, state)
+                return tiled2d.step3_xy(qbc, dt, dx, dy, dz, params, mthlim,
+                                        order, g, tw)
+            return step_fn
+
+        tiled2d.check_options(mthlim, order, tw, rp.num_waves,
+                              "step3_xy_generic")
 
         def step_fn(q, aux, dt, t):
-            qbc, _ = self._extend_bc(q, aux, t, state)
-            return tiled2d.step3_xy(qbc, dt, dx, dy, dz, params, mthlim,
-                                    order, g, tw)
+            qbc, auxbc = self._extend_bc(q, aux, t, state)
+            return tiled2d.step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp,
+                                            params, mthlim, order, fwave,
+                                            index_capa, g, tw)
         return step_fn

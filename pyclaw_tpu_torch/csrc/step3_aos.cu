@@ -1,0 +1,824 @@
+// step3_aos.cu — the whole 3D unsplit classic (CTU) step of the generic
+// AoS form, one launch per step, for Hopper (sm_90a): any system of
+// csrc/acoustics3d.cuh, with aux arrays, a capacity function and the
+// f-wave correction form, for any (nx, ny, nz).
+//
+// Replaces the TPU kernel pyclaw_tpu/ops/tiled2d.py:431 step3_pallas_xy in
+// its aux form: kernel_aux (:490-518), launched by the pallas_call at
+// :592-605, whose body is pyclaw_tpu/classic/kernels.py:806 step3_roll with
+// aux=, index_capa and fwave.  It computes what
+// pyclaw_tpu/classic/kernels.py:step3 computes with aux: in each direction
+// the normal solve, the limiter and the correction flux (with per-cell
+// dt/(dD kappa) under a capacity function); the rpt3 split of each
+// fluctuation along both transverse axes into the fluxes of those axes,
+// with the receiving cell's coefficient (flux3.f90 dtdx1d(i1)); the rptt3
+// split of each part along the third axis (systems that have one, with
+// transverse_waves = 2); then the conservative update.  Its plain PyTorch
+// version is pyclaw_tpu_torch/classic/kernels.py:step3, which it is held
+// against on the card (chip_smoke.py) and, through the host emulation at
+// the end of this file, on the CPU (tests/test_torch_step3_aos.py).
+//
+// What bounds it on the card: heterogeneous acoustics reads 4 values of q
+// and 2 of aux per cell and writes 4 (at 192^3 in f32, (6 x 196^3 +
+// 4 x 192^3) x 4 B = 294 MB: 0.088 ms at 3.35 TB/s), and with
+// transverse_waves = 1 does ~300 operations per cell
+// (chip_smoke.py:FLOPS_PER_CELL_3D_AOS counts them from this source), 1.2
+// operations per byte against the card's 20 (f32): bytes bound it.
+//
+// Design (that of step3_ctu.cu, with the system's arithmetic in place of
+// Euler's): a block owns a tile of output cells and stages q, the aux rows
+// the system reads and, with a capacity function, the per-cell
+// dt/(dD kappa) of the three axes, each with a 2-cell halo on all three
+// axes, in shared memory.  The heterogeneous split reads the impedance and
+// sound speed of the receiving cell's two neighbours along the split axis;
+// the split region reaches C0-1 .. C0+T across, so the neighbours lie in
+// C0-2 .. C0+T+1, inside the halo.  The three sweep directions run one
+// after the other and reuse one scratch area: the waves and speeds of the
+// direction's interfaces, its fluctuations, then the split parts.  The
+// scatter of the split parts into the fluxes of the other two axes is
+// written as a gather in a fixed order (no atomics).  Loads are clamped to
+// the padded grid and stores masked, so any (nx, ny, nz) works; clamped
+// cells feed only masked-out results.
+//
+// Tile shape, chosen from the shared-memory budget (227 KB a block):
+// 8x8x8 cells in f32 and 4x6x8 in f64.  Heterogeneous acoustics (4
+// equations, 2 waves, 2 aux rows) takes 190,304 B (f32) / 186,880 B (f64)
+// with a capacity function and 169,568 / 163,840 B without: one block of
+// 256 threads per SM.  4x8x8 in f64 would need 232,896 B with a capacity
+// function.  step3_aos_smem_bytes reports each variant.
+//
+// Phases (each a loop of the block's threads over a region, separated by
+// barriers), for each sweep axis D in x, y, z:
+//   rpn<D>     the normal solve at the D-interfaces the tile needs (T+3
+//              along D, T+2 across): waves and speeds -> scratch, amdq and
+//              apdq of the split region -> TR
+//   sweep<D>   at T+1 x (T+2)^2 interfaces: the limiter, the correction
+//              flux cq, the fluctuations the splits take (amdq + cq,
+//              apdq - cq with transverse_waves = 2), cq into the D-flux of
+//              the tile's faces; the CFL partial max
+//   fluct<D>   each cell: dt/dD (apdq + amdq) of its two D-faces
+//   for each transverse axis E of D (F the third) and each fluctuation:
+//     rpt      split along E -> bm, bp
+//     gather_e the E-flux of each E-face takes -dt/(2 dD) (bm, bp) of its
+//              two neighbour cells; rptt of bm along F
+//     gather_f the F-flux of each F-face takes the bm parts (own e-row
+//              minus the crossing one); rptt of bp along F
+//     gather_f the same for the bp parts
+//   update     q - dq over the tile; reduce the CFL partials
+//
+// Template parameters: the system, the type, the tile, CAPA (per-cell
+// dt/(dD kappa)) and FWAVE (the correction 0.5 sign(s) (1 - |s| dt/dD),
+// with sign(0) = 0).  The arithmetic repeats the plain version's, built
+// without fused multiply-adds (ops/_build.py: -fmad=false), so each
+// operation rounds as PyTorch's; the sums of the transverse terms into the
+// fluxes and of the three directions into dq are taken in another order
+// (roundoff).  The systems live in acoustics3d.cuh, the limiters in
+// tvd.cuh, the tile geometry (shared with step3_ctu.cu) in ctu3d.cuh.
+
+#include "acoustics3d.cuh"
+#include "ctu3d.cuh"
+#include "tvd.cuh"
+
+namespace {
+
+// Tile shape per type (cells along x, y, z)
+template <typename T> struct Shape;
+template <> struct Shape<float> { static constexpr int X = 8, Y = 8, Z = 8; };
+template <> struct Shape<double> { static constexpr int X = 4, Y = 6, Z = 8; };
+
+// Shared-memory layout (offsets in elements)
+template <class S, typename T, class H, bool CAPA> struct Lay {
+  static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
+  static constexpr int NWF = NW * NEQ + NW;         // waves, speeds
+  using R0 = Reg<H, 0>;
+  using R1 = Reg<H, 1>;
+  using R2 = Reg<H, 2>;
+  static constexpr int Q0 = H::X + 4, Q1 = H::Y + 4, Q2 = H::Z + 4;
+  static constexpr int QN = Q0 * Q1 * Q2;           // tile + halo
+  static constexpr int CN = H::X * H::Y * H::Z;     // tile cells
+  static constexpr int AM = CMAX(R0::AN, CMAX(R1::AN, R2::AN));
+  static constexpr int BM = CMAX(R0::BN, CMAX(R1::BN, R2::BN));
+  static constexpr int FM = CMAX(R0::FN, CMAX(R1::FN, R2::FN));
+  // scratch: [waves, speeds NWF x AN | amdq, apdq at faces 2 NEQ x FM]
+  //      or: [bm, bp 2 NEQ x BM | split parts along F 2 NEQ x BM]
+  static constexpr int US = CMAX(4 * NEQ * BM, NWF * AM + 2 * NEQ * FM);
+  static constexpr int oAX = NEQ * QN;
+  static constexpr int oDT = oAX + NAUX * QN;
+  static constexpr int oF0 = oDT + (CAPA ? 3 * QN : 0);
+  static constexpr int oF1 = oF0 + NEQ * R0::FN;
+  static constexpr int oF2 = oF1 + NEQ * R1::FN;
+  static constexpr int oDQ = oF2 + NEQ * R2::FN;
+  static constexpr int oTR = oDQ + NEQ * CN;        // fluctuations to split
+  static constexpr int oU = oTR + 2 * NEQ * BM;
+  static constexpr int oRED = oU + US;
+  static constexpr size_t elems = oRED + NT;
+  static constexpr size_t bytes = elems * sizeof(T);
+};
+
+template <typename T> struct Args {
+  const T* qbc;
+  const T* aux;
+  T* qout;
+  T* cflb;
+  int N[3];            // padded (ghost-extended) extents
+  int nb[3];           // blocks along x, y, z
+  int capa;            // aux row of the capacity function (CAPA only)
+  T dt;                // for the per-cell dt/(dD kappa)
+  T d[3];              // dx, dy, dz
+  T dtd[3];            // dt / dD
+  T half[3];           // 0.5 dt / dD
+  T co2[3][3];         // dt^2 / (6 dD dE)
+  T co6[3];            // dt / (6 dE), the kappa-scaled rptt factor
+  Sys3<T> P;
+  int order, tw;
+  int lim[2];
+};
+
+template <class S, typename T, class H, bool CAPA> struct Block {
+  using L = Lay<S, T, H, CAPA>;
+  T* Q;
+  T* AX;
+  T* DT;
+  T* F[3];
+  T* DQ;
+  T* TR;
+  T* U;
+  T* RED;
+  int C0[3];   // first interior cell of the tile (padded indices)
+  int bid;
+
+  HD void bind(T* s, int b) {
+    Q = s;
+    AX = s + L::oAX;
+    DT = s + L::oDT;
+    F[0] = s + L::oF0;
+    F[1] = s + L::oF1;
+    F[2] = s + L::oF2;
+    DQ = s + L::oDQ;
+    TR = s + L::oTR;
+    U = s + L::oU;
+    RED = s + L::oRED;
+    bid = b;
+  }
+  HD static int cell(int l0, int l1, int l2) {
+    return (l0 * L::Q1 + l1) * L::Q2 + l2;
+  }
+  HD void load_cell(int c, T qv[], T av[]) const {
+    for (int e = 0; e < L::NEQ; ++e) qv[e] = Q[e * L::QN + c];
+    for (int m = 0; m < L::NAUX; ++m) av[m] = AX[m * L::QN + c];
+  }
+  HD void load_aux(int c, T av[]) const {
+    for (int m = 0; m < L::NAUX; ++m) av[m] = AX[m * L::QN + c];
+  }
+  // dt/dD of the staged cell c: per cell with a capacity function
+  template <int D> HD T dtd(const Args<T>& A, int c) const {
+    if (CAPA) return DT[D * L::QN + c];
+    return A.dtd[D];
+  }
+  HD T* AMf() const { return U + L::US - 2 * L::NEQ * L::FM; }
+  HD T* APf() const { return U + L::US - L::NEQ * L::FM; }
+};
+
+// ---- phase: stage q, aux and dt/(dD kappa) + halo, zero the accumulators
+template <class S, typename T, class H, bool CAPA>
+HD void phase_load(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int NF = L::NEQ + L::NAUX + (CAPA ? 1 : 0);
+  const long long plane = (long long)A.N[0] * A.N[1] * A.N[2];
+  for (int idx = tid; idx < NF * L::QN; idx += NT) {
+    const int f = idx / L::QN, r = idx % L::QN;
+    int c[3];
+    dec<L::Q0, L::Q1, L::Q2>(r, c);
+    long long g[3];
+    for (int a = 0; a < 3; ++a) {
+      const int v = B.C0[a] - 2 + c[a];
+      g[a] = v < A.N[a] ? v : A.N[a] - 1;
+    }
+    const long long off = (g[0] * A.N[1] + g[1]) * A.N[2] + g[2];
+    if (f < L::NEQ) {
+      B.Q[idx] = A.qbc[f * plane + off];
+    } else if (f < L::NEQ + L::NAUX) {
+      B.AX[(f - L::NEQ) * L::QN + r] = A.aux[(f - L::NEQ) * plane + off];
+    } else {
+      // dt / (dD kappa): the plain version's 0-d dt over (dD * kappa)
+      const T kappa = A.aux[A.capa * plane + off];
+      for (int d = 0; d < 3; ++d)
+        B.DT[d * L::QN + r] = A.dt / (A.d[d] * kappa);
+    }
+  }
+  for (int idx = tid; idx < L::oTR - L::oF0; idx += NT) B.F[0][idx] = T(0);
+  B.RED[tid] = T(0);
+}
+
+// ---- phase: normal solves at the D-interfaces ---------------------------
+template <int D, class S, typename T, class H, bool CAPA>
+HD void phase_rpn(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using R = Reg<H, D>;
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int NEQ = L::NEQ, NW = L::NW;
+  T* W = B.U;
+  for (int idx = tid; idx < R::AN; idx += NT) {
+    int c[3];
+    dec<R::A0, R::A1, R::A2>(idx, c);
+    int l[3] = {c[0] + 1, c[1] + 1, c[2] + 1};
+    l[D] = c[D];
+    const int cl = B.cell(l[0], l[1], l[2]);
+    const int cr = B.cell(l[0] + (D == 0), l[1] + (D == 1), l[2] + (D == 2));
+    T ql[NEQ], qr[NEQ], al[L::NAUX + 1], ar[L::NAUX + 1];
+    B.load_cell(cl, ql, al);
+    B.load_cell(cr, qr, ar);
+    T w[NW][NEQ], s[NW], am[NEQ], ap[NEQ];
+    S::template rpn<D, T>(A.P, ql, qr, al, ar, w, s, am, ap);
+    for (int p = 0; p < NW; ++p) {
+      for (int e = 0; e < NEQ; ++e) W[(p * NEQ + e) * R::AN + idx] = w[p][e];
+      W[(NW * NEQ + p) * R::AN + idx] = s[p];
+    }
+    // the fluctuations of the split region (interfaces C0-1 .. C0+T-1)
+    if (c[D] >= 1 && c[D] <= (D == 0 ? R::B0 : (D == 1 ? R::B1 : R::B2))) {
+      int b[3] = {c[0], c[1], c[2]};
+      b[D] -= 1;
+      const int k = flat<R::B0, R::B1, R::B2>(b);
+      for (int e = 0; e < NEQ; ++e) {
+        B.TR[e * L::BM + k] = am[e];
+        B.TR[(NEQ + e) * L::BM + k] = ap[e];
+      }
+    }
+  }
+}
+
+// ---- phase: limiter, correction flux, fluctuations to split, CFL --------
+template <int D, bool FWAVE, class S, typename T, class H, bool CAPA>
+HD void phase_sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using R = Reg<H, D>;
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int NEQ = L::NEQ, NW = L::NW, AN = R::AN;
+  constexpr int step = D == 0 ? R::A1 * R::A2 : (D == 1 ? R::A2 : 1);
+  const T* W = B.U;
+  T* AMf = B.AMf();
+  T* APf = B.APf();
+  T cfl = B.RED[tid];
+  for (int idx = tid; idx < R::BN; idx += NT) {
+    int b[3];
+    dec<R::B0, R::B1, R::B2>(idx, b);
+    int a[3] = {b[0], b[1], b[2]};
+    a[D] += 1;
+    const int own = flat<R::A0, R::A1, R::A2>(a);
+    // the interface's left and right cells (staged indices)
+    const int cl = B.cell(b[0] + 1, b[1] + 1, b[2] + 1);
+    const int cr = B.cell(b[0] + 1 + (D == 0), b[1] + 1 + (D == 1),
+                          b[2] + 1 + (D == 2));
+    const T dl = B.template dtd<D>(A, cl);
+    const T dr = B.template dtd<D>(A, cr);
+    const T dtdx = CAPA ? T(0.5) * (dl + dr) : dl;
+    T w[NW][NEQ], s[NW];
+    for (int p = 0; p < NW; ++p) {
+      for (int e = 0; e < NEQ; ++e) w[p][e] = W[(p * NEQ + e) * AN + own];
+      s[p] = W[(NW * NEQ + p) * AN + own];
+    }
+
+    T cq[NEQ];
+    for (int e = 0; e < NEQ; ++e) cq[e] = T(0);
+    if (A.order == 2) {
+      T cf[NW];
+      for (int p = 0; p < NW; ++p) {
+        const int lo = own - step, hi = own + step;
+        T wn2 = w[p][0] * w[p][0];
+        T dlo = W[(p * NEQ) * AN + lo] * w[p][0];
+        T dhi = w[p][0] * W[(p * NEQ) * AN + hi];
+        for (int e = 1; e < NEQ; ++e) {
+          wn2 = wn2 + w[p][e] * w[p][e];
+          dlo = dlo + W[(p * NEQ + e) * AN + lo] * w[p][e];
+          dhi = dhi + w[p][e] * W[(p * NEQ + e) * AN + hi];
+        }
+        T phi = T(1);
+        const int lid = A.lim[p];
+        if (lid != 0) {
+          const bool safe = wn2 > T(0);
+          const T theta = safe ? (s[p] > T(0) ? dlo : dhi) / wn2 : T(0);
+          const T ph = phi_limiter<T>(lid, theta, fabs_(s[p]) * dtdx);
+          phi = safe ? ph : T(1);
+        }
+        const T abss = fabs_(s[p]);
+        const T lead = FWAVE
+            ? T(0.5) * T((s[p] > T(0)) - (s[p] < T(0)))
+            : T(0.5) * abss;
+        cf[p] = lead * (T(1) - abss * dtdx) * phi;
+      }
+      for (int e = 0; e < NEQ; ++e) {
+        T acc = cf[0] * w[0][e];
+        for (int p = 1; p < NW; ++p) acc = acc + cf[p] * w[p][e];
+        cq[e] = acc;
+      }
+    }
+
+    // the fluctuations the transverse splits take
+    const bool both = A.tw >= 2 && A.order == 2;
+    T am[NEQ], ap[NEQ];
+    for (int e = 0; e < NEQ; ++e) {
+      am[e] = B.TR[e * L::BM + idx];
+      ap[e] = B.TR[(NEQ + e) * L::BM + idx];
+      if (both) {
+        B.TR[e * L::BM + idx] = am[e] + cq[e];
+        B.TR[(NEQ + e) * L::BM + idx] = ap[e] - cq[e];
+      }
+    }
+
+    // a face of the tile: cq into the D-flux, amdq/apdq for fluct<D>
+    bool face = true;
+    int f[3];
+    for (int k = 0; k < 3; ++k) {
+      if (k == D) {
+        f[k] = b[k];
+      } else {
+        f[k] = b[k] - 1;
+        face = face && b[k] >= 1
+               && b[k] <= (k == 0 ? H::X : (k == 1 ? H::Y : H::Z));
+      }
+    }
+    if (face) {
+      const int fi = flat<R::F0, R::F1, R::F2>(f);
+      for (int e = 0; e < NEQ; ++e) {
+        if (A.order == 2) B.F[D][e * R::FN + fi] += cq[e];
+        AMf[e * L::FM + fi] = am[e];
+        APf[e * L::FM + fi] = ap[e];
+      }
+    }
+
+    // CFL window: interfaces 1 .. N-3 along D, interior cells across
+    bool in_cfl = true;
+    for (int k = 0; k < 3; ++k) {
+      const int g = B.C0[k] - 1 + b[k];
+      in_cfl = in_cfl && (k == D ? (g >= 1 && g <= A.N[k] - 3)
+                                 : (g >= 2 && g <= A.N[k] - 3));
+    }
+    if (in_cfl) {
+      for (int p = 0; p < NW; ++p) {
+        if (CAPA) cfl = mx(cfl, mx(s[p] * dr, -s[p] * dl));
+        else cfl = mx(cfl, dtdx * fabs_(s[p]));
+      }
+    }
+  }
+  B.RED[tid] = cfl;
+}
+
+// ---- phase: first-order fluctuations of each cell -----------------------
+template <int D, class S, typename T, class H, bool CAPA>
+HD void phase_fluct(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using R = Reg<H, D>;
+  using L = Lay<S, T, H, CAPA>;
+  const T* AMf = B.AMf();
+  const T* APf = B.APf();
+  for (int idx = tid; idx < L::CN; idx += NT) {
+    int c[3];
+    dec<H::X, H::Y, H::Z>(idx, c);
+    const T dtd = B.template dtd<D>(A, B.cell(c[0] + 2, c[1] + 2, c[2] + 2));
+    const int fl = flat<R::F0, R::F1, R::F2>(c);
+    c[D] += 1;
+    const int fr = flat<R::F0, R::F1, R::F2>(c);
+    for (int e = 0; e < L::NEQ; ++e)
+      B.DQ[e * L::CN + idx] += dtd * (APf[e * L::FM + fl]
+                                      + AMf[e * L::FM + fr]);
+  }
+}
+
+// aux of the staged cell c and of its neighbours below and above along E
+template <int E, class S, typename T, class H, bool CAPA>
+HD void split_aux(const Block<S, T, H, CAPA>& B, const int l[3], T ab[],
+                  T ac[], T aa[]) {
+  int m[3] = {l[0], l[1], l[2]};
+  B.load_aux(B.cell(m[0], m[1], m[2]), ac);
+  m[E] = l[E] - 1;
+  B.load_aux(B.cell(m[0], m[1], m[2]), ab);
+  m[E] = l[E] + 1;
+  B.load_aux(B.cell(m[0], m[1], m[2]), aa);
+}
+
+// ---- phase: rpt3 split of one fluctuation along E -----------------------
+template <int D, int E, int IMP, class S, typename T, class H, bool CAPA>
+HD void phase_rpt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using R = Reg<H, D>;
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int NEQ = L::NEQ;
+  T* BB = B.U;
+  for (int idx = tid; idx < R::BN; idx += NT) {
+    int b[3];
+    dec<R::B0, R::B1, R::B2>(idx, b);
+    // the receiving cell: left (IMP 1) or right (IMP 2) of the interface
+    int l[3] = {b[0] + 1, b[1] + 1, b[2] + 1};
+    l[D] += IMP - 1;
+    T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
+    split_aux<E>(B, l, ab, ac, aa);
+    T asdq[NEQ], bm[NEQ], bp[NEQ];
+    for (int e = 0; e < NEQ; ++e)
+      asdq[e] = B.TR[((IMP - 1) * NEQ + e) * L::BM + idx];
+    S::template rpt<E, T>(A.P, ab, ac, aa, asdq, bm, bp);
+    for (int e = 0; e < NEQ; ++e) {
+      BB[e * L::BM + idx] = bm[e];
+      BB[(NEQ + e) * L::BM + idx] = bp[e];
+    }
+  }
+}
+
+// ---- phase: the E-flux gathers the rpt3 parts of its two neighbours -----
+// F_E at (cell I along D, face J along E, cell K along F) takes
+// -(c_bm bm at e-cell J+1 + c_bp bp at e-cell J) of D-interface I-i0, with
+// c = dt/(2 dD) or 0.5 dt/(dD kappa) of the cells (I, J+1, K), (I, J, K)
+template <int D, int E, int IMP, class S, typename T, class H, bool CAPA>
+HD void phase_gather_e(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using R = Reg<H, D>;
+  using RE = Reg<H, E>;
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int F = 3 - D - E;
+  const T* BB = B.U;
+  T* FE = B.F[E];
+  for (int idx = tid; idx < RE::FN; idx += NT) {
+    int c[3], k[3];
+    dec<RE::F0, RE::F1, RE::F2>(idx, c);
+    k[D] = c[D] + 1 - (IMP - 1);
+    k[F] = c[F] + 1;
+    k[E] = c[E] + 1;
+    const int k_bm = flat<R::B0, R::B1, R::B2>(k);
+    k[E] = c[E];
+    const int k_bp = flat<R::B0, R::B1, R::B2>(k);
+    T h_bm = A.half[D], h_bp = A.half[D];
+    if (CAPA) {
+      int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
+      l[E] = c[E] + 2;
+      h_bm = T(0.5) * B.DT[D * L::QN + B.cell(l[0], l[1], l[2])];
+      l[E] = c[E] + 1;
+      h_bp = T(0.5) * B.DT[D * L::QN + B.cell(l[0], l[1], l[2])];
+    }
+    for (int e = 0; e < L::NEQ; ++e)
+      FE[e * RE::FN + idx] += -(h_bm * BB[e * L::BM + k_bm]
+                                + h_bp * BB[(L::NEQ + e) * L::BM + k_bp]);
+  }
+}
+
+// ---- phase: rptt3 split of one rpt3 part (PART 0: bm, 1: bp) along F,
+// scaled by -+dt^2/(6 dD dE) or -+(dt/(6 dE)) dt/(dD kappa) of the
+// receiving cell (the down-going part flips its sign) ---------------------
+template <int D, int E, int IMP, int PART, class S, typename T, class H,
+          bool CAPA>
+HD void phase_rptt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using R = Reg<H, D>;
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int NEQ = L::NEQ;
+  constexpr int F = 3 - D - E;
+  const T* BB = B.U;
+  T* TB = B.U + 2 * NEQ * L::BM;
+  for (int idx = tid; idx < R::BN; idx += NT) {
+    int b[3];
+    dec<R::B0, R::B1, R::B2>(idx, b);
+    int l[3] = {b[0] + 1, b[1] + 1, b[2] + 1};
+    l[D] += IMP - 1;
+    T co = A.co2[D][E];
+    if (CAPA) co = A.co6[E] * B.DT[D * L::QN + B.cell(l[0], l[1], l[2])];
+    if (PART == 0) co = -co;
+    T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
+    split_aux<F>(B, l, ab, ac, aa);
+    T bs[NEQ], cm[NEQ], cp[NEQ];
+    for (int e = 0; e < NEQ; ++e) bs[e] = BB[(NEQ * PART + e) * L::BM + idx];
+    S::template rptt<F, T>(A.P, ab, ac, aa, bs, cm, cp);
+    for (int e = 0; e < NEQ; ++e) {
+      TB[e * L::BM + idx] = co * cm[e];
+      TB[(NEQ + e) * L::BM + idx] = co * cp[e];
+    }
+  }
+}
+
+// ---- phase: the F-flux gathers the rptt3 parts of one rpt3 part ---------
+// F_F at (cell I along D, cell J along E, face K along F) takes, from
+// D-interface I-i0: + (cm at f-cell K+1 + cp at f-cell K) of e-cell J,
+// - the same of e-cell J+1 (bm parts) or J-1 (bp parts).
+template <int D, int E, int IMP, int PART, class S, typename T, class H,
+          bool CAPA>
+HD void phase_gather_f(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using R = Reg<H, D>;
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int NEQ = L::NEQ;
+  constexpr int F = 3 - D - E;
+  using RF = Reg<H, F>;
+  const T* TB = B.U + 2 * NEQ * L::BM;
+  T* FF = B.F[F];
+  for (int idx = tid; idx < RF::FN; idx += NT) {
+    int c[3], k[3];
+    dec<RF::F0, RF::F1, RF::F2>(idx, c);
+    k[D] = c[D] + 1 - (IMP - 1);
+    k[E] = c[E] + 1;
+    k[F] = c[F] + 1;
+    const int own_m = flat<R::B0, R::B1, R::B2>(k);
+    k[F] = c[F];
+    const int own_p = flat<R::B0, R::B1, R::B2>(k);
+    k[E] = c[E] + 1 + (PART == 0 ? 1 : -1);
+    const int x_p = flat<R::B0, R::B1, R::B2>(k);
+    k[F] = c[F] + 1;
+    const int x_m = flat<R::B0, R::B1, R::B2>(k);
+    for (int e = 0; e < NEQ; ++e) {
+      T own = TB[e * L::BM + own_m] + TB[(NEQ + e) * L::BM + own_p];
+      T cross = -TB[e * L::BM + x_m] - TB[(NEQ + e) * L::BM + x_p];
+      FF[e * RF::FN + idx] += own + cross;
+    }
+  }
+}
+
+// ---- phase: conservative update of the tile -----------------------------
+template <class S, typename T, class H, bool CAPA>
+HD void phase_update(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
+  using L = Lay<S, T, H, CAPA>;
+  using R0 = Reg<H, 0>;
+  using R1 = Reg<H, 1>;
+  using R2 = Reg<H, 2>;
+  const int n0 = A.N[0] - 4, n1 = A.N[1] - 4, n2 = A.N[2] - 4;
+  for (int idx = tid; idx < L::CN; idx += NT) {
+    int c[3];
+    dec<H::X, H::Y, H::Z>(idx, c);
+    const int I0 = B.C0[0] + c[0], I1 = B.C0[1] + c[1], I2 = B.C0[2] + c[2];
+    if (I0 >= A.N[0] - 2 || I1 >= A.N[1] - 2 || I2 >= A.N[2] - 2) continue;
+    const int cc = B.cell(c[0] + 2, c[1] + 2, c[2] + 2);
+    const T d0 = B.template dtd<0>(A, cc);
+    const T d1 = B.template dtd<1>(A, cc);
+    const T d2 = B.template dtd<2>(A, cc);
+    int fx[3] = {c[0] + 1, c[1], c[2]};
+    int fy[3] = {c[0], c[1] + 1, c[2]};
+    int fz[3] = {c[0], c[1], c[2] + 1};
+    const int x0 = flat<R0::F0, R0::F1, R0::F2>(c);
+    const int x1 = flat<R0::F0, R0::F1, R0::F2>(fx);
+    const int y0 = flat<R1::F0, R1::F1, R1::F2>(c);
+    const int y1 = flat<R1::F0, R1::F1, R1::F2>(fy);
+    const int z0 = flat<R2::F0, R2::F1, R2::F2>(c);
+    const int z1 = flat<R2::F0, R2::F1, R2::F2>(fz);
+    for (int e = 0; e < L::NEQ; ++e) {
+      T dq = B.DQ[e * L::CN + idx];
+      dq = dq + d0 * (B.F[0][e * R0::FN + x1] - B.F[0][e * R0::FN + x0]);
+      dq = dq + d1 * (B.F[1][e * R1::FN + y1] - B.F[1][e * R1::FN + y0]);
+      dq = dq + d2 * (B.F[2][e * R2::FN + z1] - B.F[2][e * R2::FN + z0]);
+      A.qout[((long long)(e * n0 + I0 - 2) * n1 + (I1 - 2)) * n2 + (I2 - 2)] =
+          B.Q[e * L::QN + cc] - dq;
+    }
+  }
+}
+
+// ---- the phase sequence, shared by the kernel and the host emulation ----
+// X(fn) runs fn(tid) for every thread of the block, then a barrier.
+template <int D, int E, int IMP, class S, typename T, class H, bool CAPA,
+          class X>
+HD void transverse_one(const Args<T>& A, Block<S, T, H, CAPA>& B,
+                       const X& run) {
+  const bool tt = S::HAS_RPTT && A.tw >= 2;
+  run([&](int t) { phase_rpt<D, E, IMP>(A, B, t); });
+  run([&](int t) {
+    phase_gather_e<D, E, IMP>(A, B, t);
+    if (tt) phase_rptt<D, E, IMP, 0>(A, B, t);
+  });
+  if (tt) {
+    run([&](int t) { phase_gather_f<D, E, IMP, 0>(A, B, t); });
+    run([&](int t) { phase_rptt<D, E, IMP, 1>(A, B, t); });
+    run([&](int t) { phase_gather_f<D, E, IMP, 1>(A, B, t); });
+  }
+}
+
+template <int D, bool FWAVE, class S, typename T, class H, bool CAPA,
+          class X>
+HD void sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, const X& run) {
+  run([&](int t) { phase_rpn<D>(A, B, t); });
+  run([&](int t) { phase_sweep<D, FWAVE>(A, B, t); });
+  run([&](int t) { phase_fluct<D>(A, B, t); });
+  if (A.tw > 0) {
+    constexpr int E1 = D == 0 ? 1 : 0;
+    constexpr int E2 = D == 2 ? 1 : 2;
+    transverse_one<D, E1, 1>(A, B, run);
+    transverse_one<D, E1, 2>(A, B, run);
+    transverse_one<D, E2, 1>(A, B, run);
+    transverse_one<D, E2, 2>(A, B, run);
+  }
+}
+
+template <bool FWAVE, class S, typename T, class H, bool CAPA, class X>
+HD void step_block(const Args<T>& A, Block<S, T, H, CAPA>& B, const X& run) {
+  run([&](int t) { phase_load(A, B, t); });
+  sweep<0, FWAVE>(A, B, run);
+  sweep<1, FWAVE>(A, B, run);
+  sweep<2, FWAVE>(A, B, run);
+  run([&](int t) { phase_update(A, B, t); });
+  for (int s = NT / 2; s > 0; s >>= 1) {
+    run([&](int t) {
+      if (t < s) B.RED[t] = mx(B.RED[t], B.RED[t + s]);
+    });
+  }
+}
+
+template <typename T>
+Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
+                  int nxg, int nyg, int nzg, int capa, double dt, double dx,
+                  double dy, double dz, const double* prm, int order, int tw,
+                  const int* lim) {
+  using H = Shape<T>;
+  Args<T> A;
+  A.qbc = static_cast<const T*>(qbc);
+  A.aux = static_cast<const T*>(aux);
+  A.qout = static_cast<T*>(qout);
+  A.cflb = static_cast<T*>(cflb);
+  A.N[0] = nxg;
+  A.N[1] = nyg;
+  A.N[2] = nzg;
+  tile_counts<H>(A.N, A.nb);
+  A.capa = capa;
+  A.dt = T(dt);
+  // the plain version's coefficients: Python doubles rounded to T
+  const double deltas[3] = {dx, dy, dz};
+  for (int d = 0; d < 3; ++d) {
+    A.d[d] = T(deltas[d]);
+    A.dtd[d] = T(dt / deltas[d]);
+    A.half[d] = T(0.5 * (dt / deltas[d]));
+    A.co6[d] = T(dt / (6.0 * deltas[d]));
+    for (int e = 0; e < 3; ++e)
+      A.co2[d][e] = T((dt * dt) / (6.0 * deltas[d] * deltas[e]));
+  }
+  // advection: u, v, w; acoustics: zz, cc
+  for (int d = 0; d < 3; ++d) A.P.vel[d] = T(prm[d]);
+  A.P.zz = T(prm[0]);
+  A.P.cc = T(prm[1]);
+  A.P.p2z = T(2.0 * prm[0]);
+  A.order = order;
+  A.tw = tw;
+  A.lim[0] = lim[0];
+  A.lim[1] = lim[1];
+  return A;
+}
+
+template <typename T> int nblocks(const Args<T>& A) {
+  return A.nb[0] * A.nb[1] * A.nb[2];
+}
+
+template <class S, typename T, bool CAPA> constexpr size_t smem_bytes() {
+  return Lay<S, T, Shape<T>, CAPA>::bytes;
+}
+
+template <class S> int smem_of(bool capa, bool is_double) {
+  if (is_double) {
+    return (int)(capa ? smem_bytes<S, double, true>()
+                      : smem_bytes<S, double, false>());
+  }
+  return (int)(capa ? smem_bytes<S, float, true>()
+                    : smem_bytes<S, float, false>());
+}
+
+#if defined(__CUDACC__)
+struct DeviceRun {
+  template <class Fn> __device__ void operator()(Fn&& fn) const {
+    fn(static_cast<int>(threadIdx.x));
+    __syncthreads();
+  }
+};
+
+template <class S, typename T, bool CAPA, bool FWAVE>
+__global__ void __launch_bounds__(NT, 1) step3_aos_kernel(Args<T> A) {
+  using H = Shape<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Block<S, T, H, CAPA> B;
+  B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x);
+  tile_origin<H>(A.nb, B.bid, B.C0);
+  step_block<FWAVE>(A, B, DeviceRun());
+  if (threadIdx.x == 0) A.cflb[B.bid] = B.RED[0];
+}
+
+template <class S, typename T, bool CAPA, bool FWAVE>
+int launch(const Args<T>& A, void* stream) {
+  constexpr size_t bytes = smem_bytes<S, T, CAPA>();
+  // The limit applies to the current device only: set it on every launch.
+  cudaError_t err = cudaFuncSetAttribute(
+      step3_aos_kernel<S, T, CAPA, FWAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  step3_aos_kernel<S, T, CAPA, FWAVE>
+      <<<nblocks(A), NT, bytes, static_cast<cudaStream_t>(stream)>>>(A);
+  return (int)cudaGetLastError();
+}
+#else
+// Host emulation: the same phases, one block and one "thread" at a time;
+// each barrier is kept by running the whole block through a phase before
+// the next.  Used by the CPU tests to check the kernel's index algebra
+// against the plain version without a card.
+struct HostRun {
+  template <class Fn> void operator()(Fn&& fn) const {
+    for (int t = 0; t < NT; ++t) fn(t);
+  }
+};
+
+template <class S, typename T, bool CAPA, bool FWAVE>
+int launch(const Args<T>& A, void*) {
+  using H = Shape<T>;
+  std::vector<T> smem(Lay<S, T, H, CAPA>::elems);
+  for (int b = 0; b < nblocks(A); ++b) {
+    Block<S, T, H, CAPA> B;
+    B.bind(smem.data(), b);
+    tile_origin<H>(A.nb, B.bid, B.C0);
+    step_block<FWAVE>(A, B, HostRun());
+    A.cflb[b] = B.RED[0];
+  }
+  return 0;
+}
+#endif
+
+// system ids of the C interface (ops/tiled2d.py:STEP3_SYSTEMS)
+enum { SYS_VC_ACOUSTICS = 0, SYS_ACOUSTICS = 1, SYS_ADVECTION = 2 };
+
+template <typename T, class S>
+int dispatch_flags(const Args<T>& A, bool capa, bool fwave, void* stream) {
+  if (capa) {
+    return fwave ? launch<S, T, true, true>(A, stream)
+                 : launch<S, T, true, false>(A, stream);
+  }
+  return fwave ? launch<S, T, false, true>(A, stream)
+               : launch<S, T, false, false>(A, stream);
+}
+
+template <typename T>
+int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
+         int nyg, int nzg, int system, int capa, int fwave, double dt,
+         double dx, double dy, double dz, const double* prm, int order,
+         int tw, const int* lim, void* stream) {
+  const Args<T> A = make_args<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, capa,
+                                 dt, dx, dy, dz, prm, order, tw, lim);
+  switch (system) {
+    case SYS_VC_ACOUSTICS:
+      return dispatch_flags<T, VcAcoustics3D>(A, capa >= 0, fwave != 0,
+                                              stream);
+    case SYS_ACOUSTICS:
+      return dispatch_flags<T, Acoustics3D>(A, capa >= 0, fwave != 0,
+                                            stream);
+    case SYS_ADVECTION:
+      return dispatch_flags<T, Advection3D>(A, capa >= 0, fwave != 0,
+                                            stream);
+    default:
+      return -1;
+  }
+}
+
+}  // namespace
+
+// ---- plain C interface (loaded with ctypes) -----------------------------
+extern "C" {
+
+// Number of blocks (= CFL partials) the kernel writes for a padded grid.
+int step3_aos_blocks(int nxg, int nyg, int nzg, int is_double) {
+  const int lim[2] = {0, 0};
+  const double prm[3] = {0, 0, 0};
+  if (is_double)
+    return nblocks(make_args<double>(nullptr, nullptr, nullptr, nullptr, nxg,
+                                     nyg, nzg, -1, 1, 1, 1, 1, prm, 1, 0,
+                                     lim));
+  return nblocks(make_args<float>(nullptr, nullptr, nullptr, nullptr, nxg,
+                                  nyg, nzg, -1, 1, 1, 1, 1, prm, 1, 0, lim));
+}
+
+// Shared memory bytes per block (reported by chip_smoke.py).
+int step3_aos_smem_bytes(int system, int capa, int is_double) {
+  switch (system) {
+    case SYS_VC_ACOUSTICS:
+      return smem_of<VcAcoustics3D>(capa != 0, is_double != 0);
+    case SYS_ACOUSTICS:
+      return smem_of<Acoustics3D>(capa != 0, is_double != 0);
+    default:
+      return smem_of<Advection3D>(capa != 0, is_double != 0);
+  }
+}
+
+// One CTU step.  qbc: (num_eqn, nxg, nyg, nzg) ghost-padded (2 ghost
+// cells); aux: (num_aux, nxg, nyg, nzg) or null when the system reads none
+// and capa < 0; qout: (num_eqn, nxg-4, nyg-4, nzg-4); cflb:
+// step3_aos_blocks(...) partial CFL maxima; all contiguous, of the type
+// named by the entry.  system: SYS_*; capa: aux row of the capacity
+// function or -1; fwave: the f-wave correction form; p0..p2: u, v, w
+// (advection) or zz, cc (acoustics); l0, l1: the limiter ids of the waves.
+// Returns a cudaError_t (0 on success), or -1 for an unknown system.
+#if defined(__CUDACC__)
+#define STEP3_AOS_ENTRY(NAME, T)                                              \
+  int NAME(const void* qbc, const void* aux, void* qout, void* cflb, int nxg, \
+           int nyg, int nzg, int system, int capa, int fwave, double dt,      \
+           double dx, double dy, double dz, double p0, double p1, double p2,  \
+           int order, int tw, int l0, int l1, void* stream) {                 \
+    const int lim[2] = {l0, l1};                                              \
+    const double prm[3] = {p0, p1, p2};                                       \
+    return step<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, system, capa, fwave,  \
+                   dt, dx, dy, dz, prm, order, tw, lim, stream);              \
+  }
+STEP3_AOS_ENTRY(step3_aos_f32, float)
+STEP3_AOS_ENTRY(step3_aos_f64, double)
+#else
+#define STEP3_AOS_ENTRY(NAME, T)                                              \
+  int NAME(const void* qbc, const void* aux, void* qout, void* cflb, int nxg, \
+           int nyg, int nzg, int system, int capa, int fwave, double dt,      \
+           double dx, double dy, double dz, double p0, double p1, double p2,  \
+           int order, int tw, int l0, int l1) {                               \
+    const int lim[2] = {l0, l1};                                              \
+    const double prm[3] = {p0, p1, p2};                                       \
+    return step<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, system, capa, fwave,  \
+                   dt, dx, dy, dz, prm, order, tw, lim, nullptr);             \
+  }
+STEP3_AOS_ENTRY(step3_aos_host_f32, float)
+STEP3_AOS_ENTRY(step3_aos_host_f64, double)
+#endif
+#undef STEP3_AOS_ENTRY
+
+}  // extern "C"

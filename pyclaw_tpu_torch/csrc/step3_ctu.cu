@@ -67,40 +67,19 @@
 // The arithmetic repeats the plain version's; the sums of the transverse
 // terms into the fluxes and of the three directions into dq are taken in
 // another order (roundoff).  The Roe solve and the split live in
-// euler3d.cuh, the limiters in tvd.cuh.
+// euler3d.cuh, the limiters in tvd.cuh, the tile geometry (shared with
+// step3_aos.cu) in ctu3d.cuh.
 
+#include "ctu3d.cuh"
 #include "euler3d.cuh"
 #include "tvd.cuh"
 
-#define CMAX(a, b) ((a) > (b) ? (a) : (b))
-
 namespace {
-
-constexpr int NT = 256;  // threads per block
 
 // Tile shape per type (cells along x, y, z)
 template <typename T> struct Shape;
 template <> struct Shape<float> { static constexpr int X = 8, Y = 8, Z = 8; };
 template <> struct Shape<double> { static constexpr int X = 4, Y = 4, Z = 8; };
-
-// Regions of the sweep along D (extents along x, y, z)
-template <class S, int D> struct Reg {
-  // Roe data: interfaces C0-2 .. C0+T along D, cells C0-1 .. C0+T across
-  static constexpr int A0 = S::X + (D == 0 ? 3 : 2);
-  static constexpr int A1 = S::Y + (D == 1 ? 3 : 2);
-  static constexpr int A2 = S::Z + (D == 2 ? 3 : 2);
-  static constexpr int AN = A0 * A1 * A2;
-  // splits: interfaces C0-1 .. C0+T-1 along D, cells C0-1 .. C0+T across
-  static constexpr int B0 = S::X + (D == 0 ? 1 : 2);
-  static constexpr int B1 = S::Y + (D == 1 ? 1 : 2);
-  static constexpr int B2 = S::Z + (D == 2 ? 1 : 2);
-  static constexpr int BN = B0 * B1 * B2;
-  // faces of the D-flux: interfaces C0-1 .. C0+T-1 along D, tile cells
-  static constexpr int F0 = S::X + (D == 0 ? 1 : 0);
-  static constexpr int F1 = S::Y + (D == 1 ? 1 : 0);
-  static constexpr int F2 = S::Z + (D == 2 ? 1 : 0);
-  static constexpr int FN = F0 * F1 * F2;
-};
 
 // Shared-memory layout (offsets in elements)
 template <typename T, class S> struct Lay {
@@ -172,24 +151,6 @@ template <typename T, class S> struct Block {
   HD T* AMf() const { return U + L::US - 10 * L::FM; }
   HD T* APf() const { return U + L::US - 5 * L::FM; }
 };
-
-template <int E0, int E1, int E2> HD void dec(int idx, int c[3]) {
-  c[0] = idx / (E1 * E2);
-  c[1] = (idx / E2) % E1;
-  c[2] = idx % E2;
-}
-
-template <int E0, int E1, int E2> HD int flat(const int c[3]) {
-  return (c[0] * E1 + c[1]) * E2 + c[2];
-}
-
-template <typename T, class S>
-HD void block_origin(const Args<T>& A, Block<T, S>& B) {
-  const int b = B.bid;
-  B.C0[2] = 2 + (b % A.nb[2]) * S::Z;
-  B.C0[1] = 2 + ((b / A.nb[2]) % A.nb[1]) * S::Y;
-  B.C0[0] = 2 + (b / (A.nb[2] * A.nb[1])) * S::X;
-}
 
 // ---- phase: stage q tile + halo, zero the accumulators ----------------
 template <typename T, class S>
@@ -605,9 +566,7 @@ Args<T> make_args(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
   A.N[0] = nxg;
   A.N[1] = nyg;
   A.N[2] = nzg;
-  A.nb[0] = (nxg - 4 + S::X - 1) / S::X;
-  A.nb[1] = (nyg - 4 + S::Y - 1) / S::Y;
-  A.nb[2] = (nzg - 4 + S::Z - 1) / S::Z;
+  tile_counts<S>(A.N, A.nb);
   // the plain version's coefficients: Python doubles rounded to T
   const double deltas[3] = {dx, dy, dz};
   for (int d = 0; d < 3; ++d) {
@@ -641,7 +600,7 @@ __global__ void __launch_bounds__(NT, 1) step3_ctu_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Block<T, S> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x);
-  block_origin(A, B);
+  tile_origin<S>(A.nb, B.bid, B.C0);
   step_block(A, B, DeviceRun());
   if (threadIdx.x == 0) A.cflb[B.bid] = B.RED[0];
 }
@@ -684,7 +643,7 @@ int launch_host(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
   for (int b = 0; b < nblocks(A); ++b) {
     Block<T, Shape<T>> B;
     B.bind(smem.data(), b);
-    block_origin(A, B);
+    tile_origin<Shape<T>>(A.nb, B.bid, B.C0);
     step_block(A, B, HostRun());
     A.cflb[b] = B.RED[0];
   }

@@ -17,7 +17,8 @@ the JAX package, and the CUDA kernels ``csrc/dq2_weno5.cu`` and
   one reciprocal ``1/(den_r * den_l)`` normalises both edges.  The
   float64 formula underflows to inf/NaN in float32 on constant data.
 
-The generic orders 7-17 are not ported yet (ROADMAP.md, Queue 4).
+The generic orders 7-17 are not ported yet (ROADMAP.md, Queue 1 item 8:
+'weno_order 7-17').
 """
 
 from __future__ import annotations
@@ -97,7 +98,7 @@ def weno_stencil(order, shifts):
     if order != 5:
         raise NotImplementedError(
             f"weno_order={order} is not ported to pyclaw_tpu_torch yet "
-            f"(ROADMAP.md, Queue 4: 'weno_order 7-17')")
+            f"(ROADMAP.md, Queue 1: 'weno_order 7-17')")
     if len(shifts) != 5:
         raise ValueError(f"weno_stencil(order=5) needs 5 stencil arrays, "
                          f"got {len(shifts)}")

@@ -26,14 +26,15 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source flags.  step2_aos.cu and step1.cu round every operation as
-# their plain versions' PyTorch operations do (no fused multiply-add): the
-# f-wave correction 0.5 sign(s), the f-wave split s < 0, the entropy fix's
-# transonic tests and the limiter's upwind choice jump where a speed
-# crosses zero, so a one-ulp difference in a speed near zero would move
-# the result by a whole wave.  weno5.cu rounds as its plain version too.
-EXTRA_NVCC_FLAGS = {"step2_aos": ["-fmad=false"], "step1": ["-fmad=false"],
-                    "weno5": ["-fmad=false"]}
+# Per-source flags.  step2_aos.cu, step3_aos.cu and step1.cu round every
+# operation as their plain versions' PyTorch operations do (no fused
+# multiply-add): the f-wave correction 0.5 sign(s), the f-wave split
+# s < 0, the entropy fix's transonic tests and the limiter's upwind choice
+# jump where a speed crosses zero, so a one-ulp difference in a speed near
+# zero would move the result by a whole wave.  weno5.cu rounds as its
+# plain version too.
+EXTRA_NVCC_FLAGS = {"step2_aos": ["-fmad=false"], "step3_aos": ["-fmad=false"],
+                    "step1": ["-fmad=false"], "weno5": ["-fmad=false"]}
 
 # name -> (ctypes.CDLL, compiler report); one build per process
 _loaded = {}
@@ -99,15 +100,17 @@ def build_report(name):
     return _loaded[name][1]
 
 
-def build_host_emulation(name, out_dir):
+def build_host_emulation(name, out_dir, opt="-O1"):
     """ctypes handle of ``csrc/<name>.cu`` compiled as plain C++ by the
-    host compiler (its ``__CUDACC__``-free branch) into ``out_dir``."""
+    host compiler (its ``__CUDACC__``-free branch) into ``out_dir``, at
+    optimisation level ``opt`` (``-O0`` compiles a source with many
+    template variants in a third of the time)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no host C++ compiler for the kernel emulation")
     src = os.path.join(CSRC, f"{name}.cu")
     out = os.path.join(out_dir, f"lib{name}_host.so")
-    proc = subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1", "-shared",
+    proc = subprocess.run([cxx, "-x", "c++", "-std=c++17", opt, "-shared",
                            "-fPIC", "-ffp-contract=off", "-o", out, src],
                           capture_output=True, text=True)
     if proc.returncode != 0:

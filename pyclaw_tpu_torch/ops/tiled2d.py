@@ -20,6 +20,11 @@
   of :data:`AOS_SYSTEMS`, with aux arrays, a capacity function and the
   f-wave form, for any (nx, ny).  Plain version:
   ``classic/kernels.py:step2``.
+* :func:`step3_xy_generic`, counterpart of ``step3_pallas_xy`` with its
+  aux body ``kernel_aux``: one launch of ``csrc/step3_aos.cu`` computes
+  the whole 3D unsplit CTU step of a system of :data:`STEP3_SYSTEMS`,
+  with aux arrays, a capacity function and the f-wave form, for any
+  (nx, ny, nz).  Plain version: ``classic/kernels.py:step3``.
 
 On a CPU tensor each wrapper computes its plain PyTorch version.  On a
 CUDA tensor it launches the kernel or raises; it never falls back to the
@@ -35,7 +40,7 @@ import torch
 
 from ..classic import kernels, soa
 from ..limiters.tvd import CFL_LIMITER_IDS
-from ..riemann import euler
+from ..riemann import acoustics, euler
 from ..sharpclaw import soa as sc_soa
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
@@ -161,7 +166,7 @@ def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3):
     if weno_order != 5:
         raise NotImplementedError(
             f"dq_rows: weno_order={weno_order} has no kernel yet "
-            f"(ROADMAP.md, Queue 4: 'weno_order 7-17')")
+            f"(ROADMAP.md, Queue 1: 'weno_order 7-17')")
     _check_cuda_qbc("dq_rows", qbc, num_ghost, 4, 2)
     _, nxg, nyg = qbc.shape
     is_double = qbc.dtype == torch.float64
@@ -334,3 +339,112 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
 
 
 step2_rows_generic.launches = 0
+
+
+# rp.name -> (system id of csrc/step3_aos.cu (SYS_*), aux rows its solvers
+# read (NAUX))
+STEP3_SYSTEMS = {"vc_acoustics_3D": (0, 2), "acoustics_3D": (1, 0),
+                 "advection_3D": (2, 0)}
+# qbc, aux, qout, cflb; nxg, nyg, nzg, system, capa, fwave; dt, dx, dy,
+# dz and three physics scalars; order, tw and two limiter ids (the host
+# emulation takes these, the card's entries a stream after them)
+STEP3_AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                      + [ctypes.c_double] * 7 + [ctypes.c_int] * 4)
+
+
+@functools.cache
+def _step3_aos_lib():
+    from . import _build
+    lib = _build.load("step3_aos")
+    for name in ("step3_aos_f32", "step3_aos_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = STEP3_AOS_ARGTYPES + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.step3_aos_blocks.argtypes = [ctypes.c_int] * 4
+    lib.step3_aos_blocks.restype = ctypes.c_int
+    return lib
+
+
+def step3_system_scalars(rp, params):
+    """The three physics scalars ``csrc/step3_aos.cu`` takes for system
+    ``rp``: (u, v, w) for advection, (zz, cc, 0) for acoustics."""
+    if rp.name == "advection_3D":
+        return tuple(float(params[k]) for k in ("u", "v", "w"))
+    if rp.name == "acoustics_3D":
+        zz, cc = acoustics._zc(params)
+        return float(zz), float(cc), 0.0
+    return 0.0, 0.0, 0.0
+
+
+def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
+                     fwave, index_capa, num_ghost=2, transverse_waves=2):
+    """One 3D CTU step of the generic AoS form (any system with AoS hooks
+    on the CPU; the systems of :data:`STEP3_SYSTEMS` on the card).
+
+    qbc: (num_eqn, nx+4, ny+4, nz+4) ghost-padded q; auxbc: (num_aux,
+    nx+4, ny+4, nz+4) or None (float32 or float64, contiguous, q's dtype).
+    dt: step in q's dtype (a Python float that is exact in it).
+    ``index_capa`` >= 0 names the aux row of the capacity function.
+    Returns (q (num_eqn, nx, ny, nz), cfl as a 0-d tensor).  On a CPU
+    tensor this is ``classic/kernels.py:step3``; on a CUDA tensor one
+    launch of ``csrc/step3_aos.cu``."""
+    check_options(mthlim, order, transverse_waves, rp.num_waves,
+                  "step3_xy_generic")
+    if num_ghost != 2:
+        raise ValueError(f"step3_xy_generic: num_ghost must be 2, got "
+                         f"{num_ghost}")
+    if qbc.device.type == "cpu":
+        return kernels.step3(qbc, auxbc, dt, dx, dy, dz, rp.rp, rp.rpt,
+                             rp.rptt, params, mthlim, order, fwave,
+                             index_capa, num_ghost, transverse_waves,
+                             rp.prefactor)
+    if rp.name == "euler_3D":
+        raise NotImplementedError(
+            "step3_xy_generic: euler_3D runs on step3_xy; with a capacity "
+            "function or f-waves it has no kernel yet (ROADMAP.md, Queue 2 "
+            "item 4c: 'Euler 3D with capacity or f-waves')")
+    if rp.name not in STEP3_SYSTEMS:
+        raise NotImplementedError(
+            f"step3_xy_generic: {rp.name} has no kernel yet (ROADMAP.md, "
+            f"Queue 1 item 10: '3D systems of step3_aos.cu')")
+    _check_cuda_qbc("step3_xy_generic", qbc, num_ghost, rp.num_eqn, 3)
+    _, nxg, nyg, nzg = qbc.shape
+    system, naux = STEP3_SYSTEMS[rp.name]
+    if naux or index_capa >= 0:
+        if (auxbc is None or auxbc.dim() != 4
+                or auxbc.shape[1:] != qbc.shape[1:]
+                or auxbc.shape[0] <= max(naux - 1, index_capa)):
+            raise ValueError(
+                f"step3_xy_generic: {rp.name} with index_capa={index_capa} "
+                f"needs auxbc of shape (num_aux, {nxg}, {nyg}, {nzg}), got "
+                f"{None if auxbc is None else tuple(auxbc.shape)}")
+        if auxbc.device != qbc.device or auxbc.dtype != qbc.dtype:
+            raise TypeError("step3_xy_generic: auxbc must share qbc's "
+                            "device and dtype")
+        if not auxbc.is_contiguous():
+            raise ValueError("step3_xy_generic: auxbc must be contiguous")
+        aux_ptr = auxbc.data_ptr()
+    else:
+        aux_ptr = None
+    is_double = qbc.dtype == torch.float64
+    lib = _step3_aos_lib()
+    q_out = torch.empty((rp.num_eqn, nxg - 4, nyg - 4, nzg - 4),
+                        dtype=qbc.dtype, device=qbc.device)
+    cfl_blocks = torch.empty((lib.step3_aos_blocks(nxg, nyg, nzg,
+                                                   int(is_double)),),
+                             dtype=qbc.dtype, device=qbc.device)
+    fn = lib.step3_aos_f64 if is_double else lib.step3_aos_f32
+    lims = [int(m) for m in mthlim]
+    rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
+            nxg, nyg, nzg, system, int(index_capa), int(bool(fwave)),
+            float(dt), float(dx), float(dy), float(dz),
+            *step3_system_scalars(rp, params), int(order),
+            int(transverse_waves), lims[0], lims[-1],
+            torch.cuda.current_stream(qbc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"step3_aos launch failed: cudaError_t {rc}")
+    step3_xy_generic.launches += 1
+    return q_out, torch.amax(cfl_blocks)
+
+
+step3_xy_generic.launches = 0

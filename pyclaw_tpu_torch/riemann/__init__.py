@@ -6,10 +6,11 @@ plain function on whole interface tensors, registered in a
 ``num_waves`` metadata.  The port carries the AoS hooks of the 1D
 solvers (``advection_1D``, ``acoustics_1D``, ``euler_with_efix_1D``,
 ``euler_roe_1D``, ``euler_hlle_1D``), the SoA hooks of the 2D Euler
-4-wave Roe solver (``euler_4wave_2D``), the AoS hooks of the 3D Euler
-solver (``euler_3D``) and of the 2D shallow-water solvers
-(``shallow_roe_with_efix_2D``, ``shallow_bathymetry_fwave_2D``); the rest
-of the library is queued in ROADMAP.md.
+4-wave Roe solver (``euler_4wave_2D``), the AoS hooks of the 2D
+shallow-water solvers (``shallow_roe_with_efix_2D``,
+``shallow_bathymetry_fwave_2D``) and of the 3D solvers (``euler_3D``,
+``advection_3D``, ``acoustics_3D``, ``vc_acoustics_3D``); the rest of the
+library is queued in ROADMAP.md.
 
 AoS calling conventions (classic/kernels.py), q (num_eqn, *n):
 
@@ -68,8 +69,9 @@ class RiemannSolver:
                 f"num_waves={self.num_waves})")
 
 
-from .advection import advection_1D  # noqa: E402,F401
-from .acoustics import acoustics_1D  # noqa: E402,F401
+from .advection import advection_1D, advection_3D  # noqa: E402,F401
+from .acoustics import acoustics_1D, acoustics_3D  # noqa: E402,F401
+from .acoustics_var import vc_acoustics_3D  # noqa: E402,F401
 from .euler import (  # noqa: E402,F401
     euler_3D, euler_4wave_2D, euler_hlle_1D, euler_roe_1D,
     euler_with_efix_1D)
@@ -79,4 +81,5 @@ from .shallow import (  # noqa: E402,F401
 ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
                            euler_roe_1D, euler_hlle_1D, euler_4wave_2D,
                            euler_3D, shallow_roe_with_efix_2D,
-                           shallow_bathymetry_fwave_2D]}
+                           shallow_bathymetry_fwave_2D, advection_3D,
+                           acoustics_3D, vc_acoustics_3D]}

@@ -14,7 +14,7 @@ scalars fold first, as there), so in float64 the two agree to roundoff
 ``csrc/shallow2d.cuh``.  Dry states (h = 0) give inf/nan in the Roe
 solver, as in the reference; the bathymetry f-wave solver guards its
 divisions with ``dry_tolerance`` (default 1e-8).  The SharpClaw hooks
-(``evec``, ``flux``) are not ported yet (ROADMAP.md, Queue 4 item 19).
+(``evec``, ``flux``) are not ported yet (ROADMAP.md, Queue 1 item 7).
 """
 
 from __future__ import annotations

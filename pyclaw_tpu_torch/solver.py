@@ -36,7 +36,7 @@ def _not_ported(what):
     yet raises at setup; ``what`` names its ROADMAP.md item."""
     return NotImplementedError(
         f"{what} is not ported to pyclaw_tpu_torch yet (ROADMAP.md, "
-        f"Queue 4: '{what}')")
+        f"Queue 1: '{what}')")
 
 
 class Solver:
@@ -122,8 +122,8 @@ class Solver:
         raise NotImplementedError
 
     # aux arrays and a capacity function: only the solvers that set this
-    # take them (ClawSolver1D, ClawSolver2D, SharpClawSolver1D); the others
-    # raise under their ROADMAP items
+    # take them (ClawSolver1D, ClawSolver2D, ClawSolver3D,
+    # SharpClawSolver1D); the others raise under their ROADMAP items
     takes_aux = False
 
     def _check_setup(self, state):

@@ -9,7 +9,8 @@ solver (``ClawSolver3D``), the port against the JAX package.
 * a JAX ``ClawSolver3D``'s settings (five limiters, transverse_waves, CFL)
   and its state carried across with ``convert``, one fixed-dt step against
   the JAX solver's ``_step_fn``;
-* the options the port refuses, and the default device without a card.
+* the options the port refuses (aux, a capacity function and f-waves now
+  set up), and the default device without a card.
 """
 
 import os
@@ -118,10 +119,22 @@ def _setup_raises(exc, match, **kw):
 def test_setup_refuses_what_the_port_does_not_take():
     _setup_raises(NotImplementedError, "'dimensional_split'",
                   dimensional_split=True)
-    _setup_raises(NotImplementedError, "'aux'",
-                  aux=np.zeros((1, 4, 4, 4)))
-    _setup_raises(NotImplementedError, "'capacity'", index_capa=0)
-    _setup_raises(NotImplementedError, "'fwave'", fwave=True)
+    # aux, a capacity function and f-waves now set up (the generic step;
+    # Euler reads no aux); a capacity row that is not in aux is refused
+    for kw in (dict(aux=np.ones((1, 4, 4, 4))),
+               dict(aux=np.ones((1, 4, 4, 4)), index_capa=0),
+               dict(fwave=True)):
+        claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu")
+        for key, val in kw.items():
+            target = claw.solver if key == "fwave" else claw.solution.state
+            setattr(target, key, val)
+        claw.solver.setup(claw.solution)
+        aux = claw.solution.state.aux
+        q_new, cfl = claw.solver._step_fn(
+            torch.from_numpy(claw.solution.state.q),
+            None if aux is None else torch.from_numpy(aux), 1e-3, 0.0)
+        assert q_new.shape == (5, 4, 4, 4) and float(cfl) > 0.0
+    _setup_raises(ValueError, "index_capa", index_capa=0)
     with pytest.raises(NotImplementedError, match="generic SharpClaw dq"):
         tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
                   solver_type="sharpclaw")
@@ -153,7 +166,7 @@ def test_other_3d_solvers_are_not_ported_yet():
         requires=("gamma",))
     claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu")
     claw.solver.rp = rs
-    with pytest.raises(NotImplementedError, match="Queue 1 items 10-11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         claw.solver.setup(claw.solution)
 
 

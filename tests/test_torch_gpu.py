@@ -1,8 +1,8 @@
 """Card-only tests: the CUDA kernels (step2_ctu, dq2_weno5, step3_ctu,
-step2_aos, step1, weno5) against their plain PyTorch versions at small
-shapes.  Whether
-a card is present is decided inside the fixture, so every process
-collects the same tests; without a card they skip.
+step2_aos, step1, weno5, step3_aos) against their plain PyTorch versions
+at small shapes.  Whether a card is present is decided inside the
+fixture, so every process collects the same tests; without a card they
+skip.
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q   # with a card
 """
@@ -318,3 +318,74 @@ def test_weno5_kernel_rejects_what_it_cannot_take(card):
         weno.weno5(q.half())
     with pytest.raises(ValueError, match="non-empty"):
         weno.weno5(q[:, :0])
+
+
+PARAMS_3D = {"u": 0.7, "v": -0.4, "w": 0.3, "zz": 1.3, "cc": 0.8}
+
+
+def _het3(seed, shape, num_eqn, dtype, dev):
+    """Ghost-padded state and aux (Z, c in 1 +- 0.2; kappa in 0.7 .. 1.3)."""
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.standard_normal((num_eqn,) + shape), dtype=dtype,
+                        device=dev)
+    aux = torch.as_tensor(np.concatenate(
+        [1.0 + 0.2 * (2.0 * rng.random((2,) + shape) - 1.0),
+         0.7 + 0.6 * rng.random((1,) + shape)]), dtype=dtype, device=dev)
+    ext = [bc.BC.extrap] * 3
+    return (bc.extend(q, 2, ext, [bc.BC.wall] * 3).contiguous(),
+            bc.extend(aux, 2, ext, ext, wall_reflects=False).contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,tw,order,lim,capa,fwave,shape", [
+    ("vc_acoustics_3D", 1, 2, 4, -1, False, (16, 16, 16)),
+    ("vc_acoustics_3D", 1, 2, 10, 2, False, (33, 17, 9)),
+    ("vc_acoustics_3D", 0, 1, 3, 2, True, (5, 40, 7)),
+    ("acoustics_3D", 2, 2, 4, 2, False, (16, 16, 16)),
+    ("acoustics_3D", 1, 2, 3, -1, False, (33, 17, 9)),
+    ("advection_3D", 2, 2, 10, 2, True, (5, 40, 7)),
+    ("advection_3D", 0, 1, 4, -1, False, (16, 16, 16))])
+def test_step3_aos_kernel_matches_plain(card, name, tw, order, lim, capa,
+                                        fwave, shape, dtype):
+    rp = riemann.ALL[name]
+    qbc, auxbc = _het3(sum(shape) + lim, shape, rp.num_eqn, dtype, card)
+    d = tuple(2.0 / n for n in shape)
+    dt = float(np.dtype(str(dtype).split(".")[1]).type(0.3 * min(d)))
+    lims = (lim,) * rp.num_waves
+    before = tiled2d.step3_xy_generic.launches
+    qk, ck = tiled2d.step3_xy_generic(qbc, auxbc, dt, *d, rp, PARAMS_3D,
+                                      lims, order, fwave, capa, 2, tw)
+    torch.cuda.synchronize()
+    assert tiled2d.step3_xy_generic.launches == before + 1
+    qp, cp = kernels.step3(qbc, auxbc, dt, *d, rp.rp, rp.rpt, rp.rptt,
+                           PARAMS_3D, lims, order, fwave, capa, 2, tw)
+    assert qk.dtype == dtype and qk.shape == (rp.num_eqn,) + shape
+    rel = float((qk - qp).abs().max() / qp.abs().max())
+    assert rel <= TOL[dtype]
+    assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+def test_step3_aos_kernel_rejects_what_it_cannot_take(card):
+    vc = riemann.vc_acoustics_3D
+    qbc, auxbc = _het3(1, (8, 8, 8), 4, torch.float64, card)
+    args = (1e-3, 0.1, 0.1, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tiled2d.step3_xy_generic(qbc.transpose(1, 3), auxbc, *args, vc,
+                                 PARAMS_3D, (4, 4), 2, False, -1)
+    with pytest.raises(ValueError, match="auxbc"):
+        tiled2d.step3_xy_generic(qbc, None, *args, vc, PARAMS_3D, (4, 4), 2,
+                                 False, -1)
+    with pytest.raises(TypeError, match="dtype"):
+        tiled2d.step3_xy_generic(qbc.float(), auxbc, *args, vc, PARAMS_3D,
+                                 (4, 4), 2, False, -1)
+    e3 = riemann.euler_3D
+    q5 = _qbc3(1, 8, 8, 8, torch.float64, card)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4c"):
+        tiled2d.step3_xy_generic(q5, auxbc, *args, e3, PARAMS, (4,) * 5, 2,
+                                 False, 2)
+    other = riemann.RiemannSolver("other_3D", 3, 4, 2, vc.rp, rpt=vc.rpt)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tiled2d.step3_xy_generic(qbc, auxbc, *args, other, PARAMS_3D,
+                                 (4, 4), 2, False, -1)

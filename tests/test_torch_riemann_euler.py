@@ -62,7 +62,10 @@ def test_registry():
         "euler_4wave_2D": rs, "euler_3D": triemann.euler_3D,
         "shallow_roe_with_efix_2D": triemann.shallow_roe_with_efix_2D,
         "shallow_bathymetry_fwave_2D":
-            triemann.shallow_bathymetry_fwave_2D}
+            triemann.shallow_bathymetry_fwave_2D,
+        "advection_3D": triemann.advection_3D,
+        "acoustics_3D": triemann.acoustics_3D,
+        "vc_acoustics_3D": triemann.vc_acoustics_3D}
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

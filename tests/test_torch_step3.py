@@ -177,14 +177,35 @@ def test_wrapper_rejects_options(bad):
 
 
 def test_plain_step_refuses_what_it_does_not_port():
-    q = torch.from_numpy(_state(1, 4, 4, 4))
+    """The plain step now takes aux (which Euler does not read), a
+    capacity function and the f-wave form, as JAX ``step3`` does; what is
+    still refused is Euler with a capacity function on a tensor off the
+    CPU (a meta tensor stands in for the card's), which has no kernel."""
+    q_np = _state(1, 4, 4, 4)
+    q = torch.from_numpy(q_np)
+    kappa = 1.0 + 0.5 * np.random.default_rng(1).random((1,) + q_np.shape[1:])
     args = (0.01, 0.1, 0.1, 0.1, RP.rp, RP.rpt, RP.rptt, PARAMS, (4,) * 5, 2)
-    with pytest.raises(NotImplementedError, match="'aux'"):
-        tk.step3(q, q[:1], *args, False, -1, 2)
-    with pytest.raises(NotImplementedError, match="'capacity'"):
-        tk.step3(q, None, *args, False, 0, 2)
-    with pytest.raises(NotImplementedError, match="'fwave'"):
-        tk.step3(q, None, *args, True, -1, 2)
+    jrp = jriemann.euler_3D
+    jargs = (0.01, 0.1, 0.1, 0.1, jrp.rp, jrp.rpt, jrp.rptt, PARAMS,
+             (4,) * 5, 2)
+    base = tk.step3(q, None, *args, False, -1, 2, 2, RP.prefactor)
+    with_aux = tk.step3(q, q[:1], *args, False, -1, 2, 2, RP.prefactor)
+    assert np.array_equal(with_aux[0].numpy(), base[0].numpy())
+    for aux, fwave, capa in ((kappa, False, 0), (None, True, -1)):
+        q_t, c_t = tk.step3(q, None if aux is None else torch.from_numpy(aux),
+                            *args, fwave, capa, 2, 2, RP.prefactor)
+        step = jax.jit(lambda qj, aj, fw=fwave, ca=capa: jk.step3(
+            qj, aj, *jargs, fw, ca, 2, transverse_waves=2,
+            prefactor=jrp.prefactor))
+        q_j, c_j = step(jnp.asarray(q_np),
+                        None if aux is None else jnp.asarray(aux))
+        q_j = np.asarray(q_j)
+        assert np.abs(q_t.numpy() - q_j).max() / np.abs(q_j).max() <= 1e-12
+        assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 4c"):
+        tiled2d.step3_xy_generic(q.to("meta"), torch.from_numpy(kappa)
+                                 .to("meta"), *args[:4], RP, PARAMS,
+                                 (4,) * 5, 2, False, 0)
 
 
 # ---- the kernel's source on the host -----------------------------------
