@@ -14,7 +14,8 @@ Phases (each asserts; any failure exits non-zero):
   3b. dq2_weno5 against its plain version (one dq each), over the
      quadrants state, a seeded random admissible state and a seeded state
      whose WENO edges go non-positive (the positivity fallback), same
-     grids and dtypes;
+     grids and dtypes, and 7x5 (less than a tile) and 600x700 (ragged,
+     more tiles than resident blocks);
   3c. step3_ctu against its plain PyTorch version (one step each), over
      the euler_3d initial state and a seeded random admissible state with
      velocities in all three directions: the main configuration
@@ -44,7 +45,9 @@ Phases (each asserts; any failure exits non-zero):
      advection_3D) for transverse_waves 0/1/(2 where the system has
      rptt3) x (order, limiter) in {(1, MC), (2, MC), (2, van Leer), (2,
      id 10)} x with and without a capacity function (and the f-wave form
-     on advection) at 16^3, 33x17x9 and 5x40x7, float32 and float64;
+     on advection) at 16^3, 33x17x9, 5x40x7 and 3x5x2 (less than a tile),
+     and the main configuration at 45x70x50 (ragged on every axis, more
+     tiles than resident blocks), float32 and float64;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -89,8 +92,9 @@ Phases (each asserts; any failure exits non-zero):
   6. timing at 1024^2 (CUDA events): each 2D kernel, its plain version,
      its bound, and step3_ctu the same at 192^3; step1 on the Sod state at
      n = 800 and 2^20, weno5 at (3, 806) and (3, 2^20+6), each also with
-     its device time from torch.profiler; step3_aos, its plain version
-     and its bound at 192^3 on the heterogeneous path's first input; then
+     its device time from torch.profiler; dq2_weno5 also by the
+     profiler; step3_aos, its plain version and its bound at 192^3 on the
+     heterogeneous path's first input, and the kernel on its last; then
      each 2D path to t=0.1, the 3D Euler path to t=0.02, the heterogeneous
      path to t=0.8, the classic Sod path to t=0.2 and the SharpClaw one to
      t=0.02 under torch.profiler (device busy share, launches per step,
@@ -108,6 +112,11 @@ import sys
 import time
 
 import numpy as np
+
+# the timers and the timed states, shared with the variant timer
+from pyclaw_tpu_torch.ops.time_kernels import (
+    device_ms_per_call, dq_case, events_ms as time_ms, het_state, padded,
+    padded3, padded3_aux, quadrants_state, step3_aos_case)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -266,18 +275,6 @@ def random_state(rng, nx, ny, gamma=1.4, pockets=0.0):
                      p / (gamma - 1.0) + 0.5 * rho * (u * u + v * v)])
 
 
-def quadrants_state(nx, ny):
-    from pyclaw_tpu_torch.examples import euler_2d_quadrants as ex
-    return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
-
-
-def padded(q_np, dtype, dev, num_ghost=2):
-    import torch
-    from pyclaw_tpu_torch import bc
-    q = torch.as_tensor(q_np, dtype=dtype, device=dev)
-    return bc.extend(q, num_ghost, [bc.BC.extrap] * 2, [bc.BC.extrap] * 2)
-
-
 def compare_kernel(dev, grids, seed=0):
     """Kernel vs plain version, one step each, on the card."""
     import torch
@@ -420,13 +417,6 @@ def euler3d_state(nx, ny, nz):
                     device="cpu").solution.q
 
 
-def padded3(q_np, dtype, dev):
-    import torch
-    from pyclaw_tpu_torch import bc
-    q = torch.as_tensor(q_np, dtype=dtype, device=dev)
-    return bc.extend(q, 2, [bc.BC.extrap] * 3, [bc.BC.extrap] * 3)
-
-
 def plain_step3(qbc, dt, deltas, lims, order, tw):
     from pyclaw_tpu_torch.classic import kernels
     from pyclaw_tpu_torch.riemann import euler
@@ -534,21 +524,6 @@ def run_quadrants(dev, n, dtype, tfinal=0.8, solver_type="classic",
     return claw, status, time.perf_counter() - t0
 
 
-def time_ms(fn, iters, warm=5):
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound_of(nbytes, flops, tname):
     """The least time of the card for ``nbytes`` moved and ``flops``
     done in ``tname``: the larger of the two times, and which it is."""
@@ -605,17 +580,14 @@ def timing_dq(dev, n=1024):
     from pyclaw_tpu_torch.ops import tiled2d
     from pyclaw_tpu_torch.riemann import euler
     from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
-    params = {"gamma": 1.4}
-    q_np = quadrants_state(n, n)
     out = {}
     for tname, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
-        qbc = padded(q_np, dtype, dev, num_ghost=3)
-        dt = float(np.dtype(tname).type(2.0 / n))
-        h = 1.0 / n
+        qbc, args = dq_case(n, dtype, dev)
+        dt, h, _, params = args
 
         def kern():
-            return tiled2d.dq_rows(qbc, dt, h, h, params)
+            return tiled2d.dq_rows(qbc, *args)
 
         def plain():
             return sc_soa.dq_2d_soa(
@@ -626,15 +598,20 @@ def timing_dq(dev, n=1024):
         ms = time_ms(kern, 100)
         plain_ms = time_ms(plain, 10, warm=2)
         ms_again = time_ms(kern, 100)
+        dev_ms, dev_n = device_ms_per_call(kern, "dq2_weno5_kernel", 20)
         item = qbc.element_size()
         b = bound_of(qbc.numel() * item + 4 * n * n * item,
                      FLOPS_PER_CELL_DQ[tname] * n * n, tname)
-        out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                      **b}
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, **b}
         print(f"  timing dq {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
-              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, "
-              f"operations {b['ops_ms']:.4f}), library_ms null", flush=True)
+              f"{ms_again:.4f}; on the device {dev_ms} ms, {dev_n} launches "
+              f"profiled), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
     return out
 
 
@@ -866,22 +843,6 @@ def step3_aos_matrix():
     return out
 
 
-def het_state(nx, ny, nz):
-    """q and aux (Z, c) of examples.acoustics_3d_heterogeneous."""
-    from pyclaw_tpu_torch.examples import acoustics_3d_heterogeneous as ex
-    st = ex.setup(mx=nx, my=ny, mz=nz, outdir=None,
-                  device="cpu").solution.state
-    return st.q, st.aux
-
-
-def padded3_aux(aux_np, dtype, dev):
-    import torch
-    from pyclaw_tpu_torch import bc
-    aux = torch.as_tensor(aux_np, dtype=dtype, device=dev)
-    return bc.extend(aux, 2, [bc.BC.extrap] * 3, [bc.BC.extrap] * 3,
-                     wall_reflects=False)
-
-
 def plain_step3_aos(qbc, auxbc, dt, deltas, name, lims, order, fwave, capa,
                     tw):
     from pyclaw_tpu_torch import riemann
@@ -906,8 +867,12 @@ def compare_step3_aos(dev, n_main=192, seed=6):
     ncase = 0
     matrix = step3_aos_matrix()
     main = [("vc_acoustics_3D", 1, 2, 4, -1, False)]
+    # beside the path's grid and the first port's: a grid smaller than one
+    # tile in either type, and one ragged on every axis with more tiles
+    # than the card holds at once (the main configuration)
     for shape, cases in (((n_main,) * 3, main), ((16, 16, 16), matrix),
-                         ((33, 17, 9), matrix), ((5, 40, 7), matrix)):
+                         ((33, 17, 9), matrix), ((5, 40, 7), matrix),
+                         ((3, 5, 2), matrix), ((45, 70, 50), main)):
         kappa = 0.7 + 0.6 * rng.random((1,) + shape)
         q_het, aux_het = het_state(*shape)
         inputs = {"layered": (q_het, np.concatenate([aux_het, kappa])),
@@ -1055,26 +1020,23 @@ def het_checks(dev, q192_f32, n=192):
     return out
 
 
-def timing_step3_aos(dev, n=192):
+def timing_step3_aos(dev, n=192, q_last=None):
     """step3_aos (the path's configuration: heterogeneous acoustics,
     transverse_waves 1, order 2, MC), its plain version and its bound at
-    n^3 on the heterogeneous path's first input."""
+    n^3 on the heterogeneous path's first input; with ``q_last`` (the
+    path's final q, from [4f]) the kernel's time on that state too: the
+    first state is zero away from the pulse, and the kernel's time
+    depends on the data."""
     import torch
-    from pyclaw_tpu_torch import riemann
     from pyclaw_tpu_torch.ops import tiled2d
-    q_np, aux_np = het_state(n, n, n)
-    rp = riemann.vc_acoustics_3D
-    deltas = (2.0 / n,) * 3
     out = {}
     for tname, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
-        qbc = padded3(q_np, dtype, dev).contiguous()
-        auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
-        dt = float(np.dtype(tname).type(0.45 * deltas[0]))
+        qbc, auxbc, args = step3_aos_case(n, dtype, dev)
+        dt, deltas, rp = args[0], args[1:4], args[4]
 
         def kern():
-            return tiled2d.step3_xy_generic(qbc, auxbc, dt, *deltas, rp, {},
-                                            (4, 4), 2, False, -1, 2, 1)
+            return tiled2d.step3_xy_generic(qbc, auxbc, *args)
 
         def plain():
             return plain_step3_aos(qbc, auxbc, dt, deltas, rp.name, (4, 4), 2,
@@ -1090,6 +1052,15 @@ def timing_step3_aos(dev, n=192):
         out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
                       "device_launches_profiled": dev_n,
                       "plain_ms": plain_ms, **b}
+        if q_last is not None:
+            qbc = padded3(q_last, dtype, dev).contiguous()
+            out[tname]["ms_last_state"] = time_ms(kern, 20, warm=2)
+            out[tname]["device_ms_last_state"] = device_ms_per_call(
+                kern, "step3_aos_kernel", 10)[0]
+            print(f"  timing step3_aos {n}^3 {tname} on the path's last "
+                  f"state: kernel {out[tname]['ms_last_state']:.4f} ms (on "
+                  f"the device {out[tname]['device_ms_last_state']} ms)",
+                  flush=True)
         print(f"  timing step3_aos {n}^3 {tname}: kernel {ms:.4f} ms (repeat "
               f"{ms_again:.4f}; on the device {dev_ms} ms, {dev_n} launches "
               f"profiled), plain {plain_ms:.4f} ms, bound "
@@ -1415,39 +1386,6 @@ def goldens_1d(dev):
     return out
 
 
-def device_ms_per_call(fn, needle, calls=20):
-    """Device time per launch of the kernels whose name holds ``needle``
-    over ``calls`` calls of ``fn``, from torch.profiler, and the number of
-    such launches (None, 0 when it shows none).  At the 1D sizes a
-    wrapper call's host work (allocations, the ctypes call, the CFL
-    reduction) takes longer than its kernel, so the CUDA events of
-    time_ms time the host; this times the kernel alone."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count, seen = 0.0, 0, []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
-        seen.append((ev.key[:60], ev.count, t))
-        if needle in ev.key:
-            total += t
-            count += ev.count
-    if count == 0:
-        print(f"    profiler: no {needle} launch among {seen[:4]}",
-              flush=True)
-        return None, 0
-    return total / count / 1e3, count
-
-
 def timing_1d(dev):
     """step1 on the Sod state at n = 800 and 2^20, and weno5 on the Sod
     state padded for SharpClaw at (3, 806) and (3, 2^20 + 6): the time of
@@ -1673,13 +1611,9 @@ def sharp_card_vs_cpu(dev, n=80):
 
 def main():
     t_start = time.perf_counter()
-    try:
-        import torch
-    except ImportError:
-        fail("torch is not installed")
+    import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
-    sys.path.insert(0, ROOT)
     from pyclaw_tpu_torch.ops import _build, tiled2d
 
     dev = torch.device("cuda", 0)
@@ -1717,6 +1651,11 @@ def main():
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 0)} B, f64 "
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 1)} B", flush=True)
     phase_s = {"build": time.perf_counter() - t0}
+    print(f"    resident per SM: dq2_weno5 "
+          f"{dq_lib.dq2_weno5_blocks_per_sm(0)} blocks of 288 threads (f32), "
+          f"{dq_lib.dq2_weno5_blocks_per_sm(1)} (f64); step3_aos one block "
+          f"(its shared memory) of {lib_3a.step3_aos_threads(0)} threads "
+          f"(f32), {lib_3a.step3_aos_threads(1)} (f64)", flush=True)
     for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
@@ -1736,7 +1675,10 @@ def main():
 
     # [3b] dq2_weno5 against its plain version
     t0 = time.perf_counter()
-    dq_worst, dq_main_abs_err, dq_ncase = compare_dq(dev, grids)
+    # beside the paths' grids: a grid smaller than one tile, and one
+    # ragged on both axes with more tiles than resident blocks
+    dq_worst, dq_main_abs_err, dq_ncase = compare_dq(
+        dev, grids + [(7, 5), (600, 700)])
     print(f"[3b] dq2_weno5 vs plain: {dq_ncase} cases, max rel err f32 "
           f"{dq_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
           f"{dq_worst['float64']:.3e} (tol {TOL_REL['float64']}); "
@@ -2011,7 +1953,6 @@ def main():
     # [5f] the heterogeneous path's correctness
     t0 = time.perf_counter()
     het = het_checks(dev, q_h, n3)
-    del q_h
     phase_s["5f"] = time.perf_counter() - t0
 
     # [5b] SharpClaw on the card against the same run on the CPU
@@ -2025,7 +1966,8 @@ def main():
     tm_dq = timing_dq(dev)
     tm3 = timing_step3(dev)
     tm_aos = timing_aos(dev)
-    tm_het = timing_step3_aos(dev)
+    tm_het = timing_step3_aos(dev, q_last=q_h)
+    del q_h
     prof = profile_main_path(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
@@ -2076,12 +2018,15 @@ def main():
         "source": "pyclaw_tpu_torch/csrc/dq2_weno5.cu",
         "replaces": "pyclaw_tpu/ops/tiled2d.py:314",
         "replaces_function": "dq_pallas_rows", "rows": ["2"],
+        "redesigned_in": 7,
         "launches": dq_launches, "max_abs_err": dq_main_abs_err,
-        "ms": d32["ms"], "plain_ms": d32["plain_ms"],
+        "ms": d32["ms"], "device_ms": d32["device_ms"],
+        "plain_ms": d32["plain_ms"],
         "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
         "library_ms": None,
         "shape": [4, 1030, 1030], "dtype": "float32",
-        "ms_f64": d64["ms"], "plain_ms_f64": d64["plain_ms"],
+        "ms_f64": d64["ms"], "device_ms_f64": d64["device_ms"],
+        "plain_ms_f64": d64["plain_ms"],
         "bound_ms_f64": d64["bound_ms"], "bound_by_f64": d64["bound_by"],
         "max_rel_err_f64": dq_worst["float64"],
         "max_rel_err_f32": dq_worst["float32"],
@@ -2189,6 +2134,7 @@ def main():
                          "classic/kernels.py:806 step3_roll with aux, "
                          "index_capa, fwave)",
         "rows": ["3b"],
+        "redesigned_in": 7,
         "launches": het_launches, "max_abs_err": s3a_main_abs_err,
         "ms": h32["ms"], "device_ms": h32["device_ms"],
         "plain_ms": h32["plain_ms"],

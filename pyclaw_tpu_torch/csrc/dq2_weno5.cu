@@ -13,14 +13,16 @@
 //
 // What bounds it on the card: per cell it must read the 4 values of q
 // (with the 3-cell ghost band) and write the 4 values of dq, about 32 B
-// per cell in f32 (33.8 MB at 1024^2) and 64 B in f64.  It does ~1.3k
-// floating-point operations per cell: two directions of WENO5 for four
+// per cell in f32 (33.8 MB at 1024^2) and 64 B in f64.  It does 1348 (f32)
+// / 1252 (f64) floating-point operations per cell
+// (chip_smoke.py:FLOPS_PER_CELL_DQ): two directions of WENO5 for four
 // components (smoothness indicators, six candidate values, the weights and
 // their divides), two positivity tests, one Roe solve per interface, two
 // flux evaluations per cell.  At 67 TFLOP/s (f32) or 34 TFLOP/s (f64) the
-// operation bound is above the byte bound at 3.35 TB/s, so operations
-// bound it; chip_smoke.py computes both bounds from `FLOPS_PER_CELL_DQ`
-// there.
+// operation bound (0.0211 / 0.0386 ms at 1024^2) is above the byte bound
+// at 3.35 TB/s, so operations bound it.  Tensor cores do not apply: there
+// is no matrix product, only per-cell scalar arithmetic (the WENO weights,
+// the Roe solves).
 //
 // What the design does about it: nothing but q and dq touches device
 // memory, and each quantity is computed once per block.  A block owns a
@@ -34,35 +36,65 @@
 // 128-lane padding, no prepadded interior.  Ragged edges are masked, so
 // any (nx, ny) works.
 //
+// What changed since the first port, measured against it in one
+// call at 1024^2 (PERF.md section 6; H100, 700 W): 7.0% (f32) / 6.5%
+// (f64), with the same bits:
+//   - staging: every copy is issued (cp.async, 4 or 8 B: the padded rows
+//     are not 16-byte aligned) before the thread waits on any;
+//   - each direction's edge states and fluctuations have their own arrays,
+//     so both directions' edges share a phase, both directions' interfaces
+//     the next, and both parts of dq a third with no barrier between them
+//     (a thread owns the same cells in both);
+//   - the CFL partial is a warp-shuffle max and one slot per warp, not a
+//     tree: 5 barriers a block, not 16.
+// What did not pay, measured the same way: persistent blocks that prefetch
+// the next tile into a second buffer; 2 or 4 blocks per SM in place of 3
+// (f32) and 1 or 3 in place of 2 (f64); a division by 6 as an exact FMA
+// sequence; handing a zero numerator back without dividing (bit for bit,
+// 3% slower: zero numerators do not take the division's slow path).  The kernel is bound by its instructions: built with
+// -prec-div=false (a probe only, not IEEE) it takes 28% less time in f32.
+// Its arithmetic code is the first port's as compiled (FMA contraction on,
+// ops/_build.py), bit for bit: a version with the same operations but
+// another contraction moved one dq by 2.9e-8 and the SharpClaw quadrants
+// run from 744 + 8 steps to 748 + 8.
+//
+// Resources (ptxas and the occupancy query, chip_smoke.py [2]): f32 71
+// registers, no spills, 3 blocks (27 warps) per SM; f64 96 registers with
+// 116 B of spill stores (a 136 B stack, as the first port), 2 blocks (18
+// warps) per SM: without spills (one block, 139 registers) it ran 35%
+// slower; 48,832 / 97,664 B of shared memory a block.
+//
 // The CFL window (sharpclaw/soa.py:_dq_dir_soa) covers the x-interfaces
 // g-1 .. nxg-g-1 across the FULL y extent, ghost columns included, and the
 // mirror window for y.  Blocks at the y (x) ends of the grid therefore
 // also solve the x- (y-) interfaces of the ghost band, for the CFL only.
 //
-// Phases (each a loop of the block's threads over a region, separated by
-// barriers):
+// Phases (each a loop of the block's threads over a region), with a
+// barrier after the load, the edges and the interfaces, and two for the
+// CFL max:
 //   load     q tile + 3-cell halo -> shared (indices clamped to the padded
 //            grid; clamped cells only feed masked-out results, or
 //            replicate the last column/row, which is in the CFL window)
-//   edges<D> WENO5 edge states of each component along D, positivity
-//            fallback -> E
-//   iface<D> Roe solve at each interface along D: amdq, apdq -> F; CFL
-//            partial max, including the ghost band at the grid's ends
-//   update<D> dq part of D from F and f(qr) - f(ql) of E; x -> DQ in
-//            shared memory, y adds DQ and stores dq
-//   reduce   tree max of the CFL partials; one value per block
+//   edges<0>, edges<1>   WENO5 edge states of each component along x and
+//            y, positivity fallback -> E[0], E[1]
+//   iface<0>, iface<1>   Roe solve at each x- and y-interface: amdq, apdq
+//            -> F[0], F[1]; CFL partial max, including the ghost band at
+//            the grid's ends
+//   update<0>, update<1> the x part of dq from F[0] and f(qr) - f(ql) of
+//            E[0] -> DQ; the y part added to it and dq stored
+//   reduce   warp-shuffle max of the CFL partials; one value per block
 //
 // The arithmetic repeats the plain version operation for operation,
 // including the float32/float64 branches of limiters/recon.py (WENO
 // weights) and riemann/euler.py (_alpha34, _flux_euler_2d_soa).
 
+#include "async_copy.cuh"
 #include "euler2d.cuh"
 #include "weno5.cuh"
 
 namespace {
 
 constexpr int NT = 288;      // threads per block (9 warps)
-constexpr int NT_POW2 = 512; // power of two >= NT, for the tree reduction
 constexpr int TX = 16, TY = 16;  // cells per tile along x (rows), y (cols)
 constexpr int G = 3;         // ghost cells (WENO5)
 
@@ -108,10 +140,11 @@ constexpr int EN = EXR * EXC > EYR * EYC ? EXR * EXC : EYR * EYC;
 constexpr int FN = FXR * FXC > FYR * FYC ? FXR * FXC : FYR * FYC;
 
 template <typename T> struct Layout {
-  // Q [4][QR][QC], E [8][EN] (ql 0..3, qr 4..7), F [8][FN] (amdq 0..3,
+  // Q [4][QR][QC], E [2][8][EN] (per direction: ql 0..3, qr 4..7), F
+  // [2][8][FN] (per direction: amdq 0..3,
   // apdq 4..7), DQ [4][TX*TY] (the x part of dq), R [NT] (CFL partials)
   static constexpr size_t elems =
-      4 * QR * QC + 8 * EN + 8 * FN + 4 * TX * TY + NT;
+      4 * QR * QC + 2 * 8 * EN + 2 * 8 * FN + 4 * TX * TY + NT;
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
@@ -126,17 +159,19 @@ template <typename T> struct Args {
 
 template <typename T> struct Block {
   T* Q;
-  T* E;
-  T* F;
+  T* E[2];   // edge states along x, y
+  T* F[2];   // fluctuations at the x-, y-interfaces
   T* DQ;
   T* R;
   int I0, J0, bx, by, nbx, nby;  // first interior cell (padded indices)
 
   HD void bind(T* s, int bx_, int by_, int nbx_, int nby_) {
     Q = s;
-    E = Q + 4 * QR * QC;
-    F = E + 8 * EN;
-    DQ = F + 8 * FN;
+    E[0] = Q + 4 * QR * QC;
+    E[1] = E[0] + 8 * EN;
+    F[0] = E[1] + 8 * EN;
+    F[1] = F[0] + 8 * FN;
+    DQ = F[1] + 8 * FN;
     R = DQ + 4 * TX * TY;
     bx = bx_;
     by = by_;
@@ -149,6 +184,7 @@ template <typename T> struct Block {
 };
 
 // ---- phase: stage q tile + halo ----------------------------------------
+// every copy is issued (cp.async) before the thread waits on any
 template <typename T>
 HD void phase_load(const Args<T>& A, Block<T>& B, int tid) {
   for (int idx = tid; idx < 4 * QR * QC; idx += NT) {
@@ -158,9 +194,10 @@ HD void phase_load(const Args<T>& A, Block<T>& B, int tid) {
     int I = B.I0 - G + r, J = B.J0 - G + c;
     I = I < A.NX ? I : A.NX - 1;
     J = J < A.NY ? J : A.NY - 1;
-    B.Q[idx] = A.qbc[((long long)e * A.NX + I) * A.NY + J];
+    copy_async(B.Q + idx, A.qbc + ((long long)e * A.NX + I) * A.NY + J);
   }
   B.R[tid] = T(0);
+  copy_wait_all();
 }
 
 // WENO edge states of the cell at staged (row, col) along D, with the
@@ -193,8 +230,8 @@ HD void phase_edges(const Args<T>& A, Block<T>& B, int tid) {
     T ql[4], qr[4];
     edge_states<D>(A, B, row, col, ql, qr);
     for (int e = 0; e < 4; ++e) {
-      B.E[e * EN + idx] = ql[e];
-      B.E[(4 + e) * EN + idx] = qr[e];
+      B.E[D][e * EN + idx] = ql[e];
+      B.E[D][(4 + e) * EN + idx] = qr[e];
     }
   }
 }
@@ -219,8 +256,8 @@ HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
     int er = D == 0 ? el + EC : el + 1;
     T ql[4], qr[4];
     for (int e = 0; e < 4; ++e) {
-      ql[e] = B.E[(4 + e) * EN + el];   // qr of the left cell
-      qr[e] = B.E[e * EN + er];         // ql of the right cell
+      ql[e] = B.E[D][(4 + e) * EN + el];   // qr of the left cell
+      qr[e] = B.E[D][e * EN + er];         // ql of the right cell
     }
     const Roe<T> rs = roe_2d<D>(A.g1, ql, qr);
     T w[4][4], s[4];
@@ -233,8 +270,8 @@ HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
         m = p == 0 ? am_t : m + am_t;
         pp = p == 0 ? ap_t : pp + ap_t;
       }
-      B.F[e * FN + idx] = m;
-      B.F[(4 + e) * FN + idx] = pp;
+      B.F[D][e * FN + idx] = m;
+      B.F[D][(4 + e) * FN + idx] = pp;
     }
     // x-interface k = I0-1+r (y: j = J0-1+c) is in the window up to nxg-4
     bool in_cfl = D == 0 ? B.I0 - 1 + r <= A.NX - 4 : B.J0 - 1 + c <= A.NY - 4;
@@ -283,14 +320,14 @@ HD void phase_update(const Args<T>& A, Block<T>& B, int tid) {
     int ec = D == 0 ? (ti + 1) * EC + tj : ti * EC + tj + 1;
     T ql[4], qr[4], fl[4], fr[4];
     for (int e = 0; e < 4; ++e) {
-      ql[e] = B.E[e * EN + ec];
-      qr[e] = B.E[(4 + e) * EN + ec];
+      ql[e] = B.E[D][e * EN + ec];
+      qr[e] = B.E[D][(4 + e) * EN + ec];
     }
     flux_2d<D>(A.g1, ql, fl);
     flux_2d<D>(A.g1, qr, fr);
     if (D == 1 && (I >= A.NX - G || J >= A.NY - G)) continue;
     for (int e = 0; e < 4; ++e) {
-      T part = ndt * (B.F[(4 + e) * FN + f_lo] + B.F[e * FN + f_hi]
+      T part = ndt * (B.F[D][(4 + e) * FN + f_lo] + B.F[D][e * FN + f_hi]
                       + (fr[e] - fl[e]));
       if (D == 0) {
         B.DQ[e * TX * TY + idx] = part;
@@ -302,15 +339,13 @@ HD void phase_update(const Args<T>& A, Block<T>& B, int tid) {
   }
 }
 
-template <typename T>
-HD void phase_reduce(Block<T>& B, int tid, int stride) {
-  if (tid < stride && tid + stride < NT)
-    B.R[tid] = mx(B.R[tid], B.R[tid + stride]);
-}
-
+// the block's CFL partial from the per-warp maxima in R[0 .. NT/32)
 template <typename T>
 HD void phase_write_cfl(const Args<T>& A, Block<T>& B, int tid) {
-  if (tid == 0) A.cflb[B.by * B.nbx + B.bx] = B.R[0];
+  if (tid != 0) return;
+  T c = B.R[0];
+  for (int w = 1; w < NT / 32; ++w) c = mx(c, B.R[w]);
+  A.cflb[B.by * B.nbx + B.bx] = c;
 }
 
 template <typename T>
@@ -347,20 +382,18 @@ __global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<T> A) {
   phase_load<T>(A, B, tid);
   __syncthreads();
   phase_edges<0, T>(A, B, tid);
-  __syncthreads();
-  phase_iface<0, T>(A, B, tid);
-  __syncthreads();
-  phase_update<0, T>(A, B, tid);
-  __syncthreads();
   phase_edges<1, T>(A, B, tid);
   __syncthreads();
+  phase_iface<0, T>(A, B, tid);
   phase_iface<1, T>(A, B, tid);
   __syncthreads();
+  // a thread owns the same cells in both: no barrier between
+  phase_update<0, T>(A, B, tid);
   phase_update<1, T>(A, B, tid);
-  for (int s = NT_POW2 / 2; s > 0; s >>= 1) {
-    __syncthreads();
-    phase_reduce<T>(B, tid, s);
-  }
+  // the CFL partial: a warp-shuffle max, then one slot per warp
+  const T m = warp_max(B.R[tid]);
+  __syncthreads();
+  if (tid % 32 == 0) B.R[tid / 32] = m;
   __syncthreads();
   phase_write_cfl<T>(A, B, tid);
 }
@@ -380,6 +413,16 @@ int launch(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
                         static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
 }
+template <typename T> int blocks_per_sm() {
+  int per = 0;
+  if (cudaFuncSetAttribute(dq2_weno5_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)Layout<T>::bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, dq2_weno5_kernel<T>, NT, Layout<T>::bytes) != cudaSuccess)
+    return -1;
+  return per;
+}
 #else
 // Host emulation: the same phases, one block and one "thread" at a time,
 // with each barrier between two phases kept by running the whole block
@@ -397,15 +440,23 @@ int launch_host(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
       Block<T> B;
       B.bind(smem.data(), bx, by, nbx, nby);
       for (int t = 0; t < NT; ++t) phase_load<T>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_edges<0, T>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_iface<0, T>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_update<0, T>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_edges<1, T>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_iface<1, T>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_update<1, T>(A, B, t);
-      for (int s = NT_POW2 / 2; s > 0; s >>= 1)
-        for (int t = 0; t < NT; ++t) phase_reduce<T>(B, t, s);
-      for (int t = 0; t < NT; ++t) phase_write_cfl<T>(A, B, t);
+      for (int t = 0; t < NT; ++t) {
+        phase_edges<0, T>(A, B, t);
+        phase_edges<1, T>(A, B, t);
+      }
+      for (int t = 0; t < NT; ++t) {
+        phase_iface<0, T>(A, B, t);
+        phase_iface<1, T>(A, B, t);
+      }
+      for (int t = 0; t < NT; ++t) {
+        phase_update<0, T>(A, B, t);
+        phase_update<1, T>(A, B, t);
+      }
+      // the warp max as a loop over the lanes (R[t / 32] is written only
+      // after thread t / 32's own value has been read)
+      for (int t = 0; t < NT; ++t)
+        B.R[t / 32] = t % 32 == 0 ? B.R[t] : mx(B.R[t / 32], B.R[t]);
+      phase_write_cfl<T>(A, B, 0);
     }
   }
   return 0;
@@ -442,6 +493,12 @@ int dq2_weno5_f32(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
 int dq2_weno5_f64(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
                   double dt, double dx, double dy, double g1, void* stream) {
   return launch<double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, stream);
+}
+
+// Resident blocks per SM on the current device (reported by
+// chip_smoke.py), or -1 on an error.
+int dq2_weno5_blocks_per_sm(int is_double) {
+  return is_double ? blocks_per_sm<double>() : blocks_per_sm<float>();
 }
 #else
 int dq2_weno5_host_f32(const void* qbc, void* dq, void* cflb, int nxg,

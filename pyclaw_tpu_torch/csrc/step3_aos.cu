@@ -20,51 +20,93 @@
 //
 // What bounds it on the card: heterogeneous acoustics reads 4 values of q
 // and 2 of aux per cell and writes 4 (at 192^3 in f32, (6 x 196^3 +
-// 4 x 192^3) x 4 B = 294 MB: 0.088 ms at 3.35 TB/s), and with
-// transverse_waves = 1 does ~300 operations per cell
-// (chip_smoke.py:FLOPS_PER_CELL_3D_AOS counts them from this source), 1.2
-// operations per byte against the card's 20 (f32): bytes bound it.
+// 4 x 192^3) x 4 B = 294 MB: 0.0877 ms at 3.35 TB/s; 0.1755 ms in f64),
+// and with transverse_waves = 1 does 823 operations per cell
+// (chip_smoke.py:flops_per_cell_3d_aos counts them from this source: the
+// normal solve, two limited waves, the correction, the CFL, the flux terms,
+// four splits and their gathers, the update), 19.8 operations per byte
+// against the card's 20 (f32, 67 TFLOP/s over 3.35 TB/s): bytes bound it,
+// just.  Tensor cores do not apply: there is no matrix product, only
+// per-cell scalar arithmetic (the Riemann solves, the limiter, the
+// splits), so the levers are the work the halo repeats, the phases and
+// their barriers, the warps per SM and the staging.
 //
-// Design (that of step3_ctu.cu, with the system's arithmetic in place of
-// Euler's): a block owns a tile of output cells and stages q, the aux rows
+// Design: a block owns a tile of output cells and stages q, the aux rows
 // the system reads and, with a capacity function, the per-cell
 // dt/(dD kappa) of the three axes, each with a 2-cell halo on all three
 // axes, in shared memory.  The heterogeneous split reads the impedance and
 // sound speed of the receiving cell's two neighbours along the split axis;
 // the split region reaches C0-1 .. C0+T across, so the neighbours lie in
 // C0-2 .. C0+T+1, inside the halo.  The three sweep directions run one
-// after the other and reuse one scratch area: the waves and speeds of the
-// direction's interfaces, its fluctuations, then the split parts.  The
-// scatter of the split parts into the fluxes of the other two axes is
-// written as a gather in a fixed order (no atomics).  Loads are clamped to
-// the padded grid and stores masked, so any (nx, ny, nz) works; clamped
-// cells feed only masked-out results.
+// after the other.  The scatter of the split parts into the fluxes of the
+// other two axes is written as a gather in a fixed order (no atomics).
+// Loads are clamped to the padded grid and stores masked, so any (nx, ny,
+// nz) works; clamped cells feed only masked-out results.
+//
+// What the first port did differently, measured lever by lever at
+// 192^3 against it in one call (PERF.md section 6; H100, 700 W): it kept
+// step3_ctu.cu's structure, one 256-thread block per SM and 51 barriers a
+// block at transverse_waves = 1, and took 4.96 ms (f32) / 8.18 ms (f64).
+//   - staging: every copy is issued (cp.async) before any is waited on;
+//     the first port waited on each global load before its shared store;
+//   - threads: 1024 a block in f32 and 512 in f64 (as many as the
+//     registers allow; the first port's 256 left the SM 8 warps);
+//   - the normal solve is folded into the sweep phase: each interface
+//     solves its own Riemann problem and those of its two neighbours along
+//     D that the limiter reads, from the staged cells (the same operations
+//     on the same values: the same bits), so no waves go through shared
+//     memory and a phase and its barrier go;
+//   - without rptt3 (the heterogeneous path), the E-flux gathers split the
+//     fluctuations themselves, the half of each split they use, so the
+//     splits along both transverse axes and the cell fluctuations share
+//     one phase, no split is staged, and the across-ring that only rptt3
+//     reads is not split: two phases per direction, 8 barriers a block;
+//   - the CFL partial is a warp-shuffle max and one slot per warp.
+// Two blocks per SM on smaller tiles (8x8x4, 6x6x6, 4x6x8; 4x4x4 in f64)
+// were slower: the halo work grows faster than the overlap pays.
+// Not taken: a z-march (a block walks a column along z over a ring of
+// planes, staging each plane once and solving each z-interface once).
+// Probes of this source (PERF.md section 6, runs 12-15; f32 at 192^3)
+// put the staging and the update alone at 0.63 of 2.11 ms and the work
+// with no global load at 1.64-1.88 ms; the transverse splits take 24%,
+// the limiter's neighbour solves 13%.  Over 8x8 columns a march stages 8
+// of today's 12 planes and drops the z-ring of the x and y sweeps (a fifth
+// of their interfaces): a gain of a fifth at most by that count, with a
+// barrier per plane, and a plane gives a 1024-thread block 64-100 items
+// a phase.  Every probe that removed the z-halo's work changed the data
+// the arithmetic sees and ran slower; the kernel's time depends on the
+// data (2.11 ms on the path's first state, 1.65 ms on its last) more than
+// on that work.  A prefetch of the next tile needs a second buffer the
+// shared memory does not hold (186 KB of 227 KB).
 //
 // Tile shape, chosen from the shared-memory budget (227 KB a block):
-// 8x8x8 cells in f32 and 4x6x8 in f64.  Heterogeneous acoustics (4
-// equations, 2 waves, 2 aux rows) takes 190,304 B (f32) / 186,880 B (f64)
-// with a capacity function and 169,568 / 163,840 B without: one block of
-// 256 threads per SM.  4x8x8 in f64 would need 232,896 B with a capacity
-// function.  step3_aos_smem_bytes reports each variant.
+// 8x8x8 cells in f32 and 4x6x8 in f64, one block per SM: 32 warps (f32) /
+// 16 warps (f64).  ptxas (chip_smoke.py [2]): f32 43-62 registers, f64
+// 78-108, no spills in any of the 24 variants.  step3_aos_smem_bytes
+// reports each variant's bytes (heterogeneous acoustics f32 186,368 B,
+// f64 177,568 B; with a capacity function 207,104 / 200,608 B).
 //
 // Phases (each a loop of the block's threads over a region, separated by
 // barriers), for each sweep axis D in x, y, z:
-//   rpn<D>     the normal solve at the D-interfaces the tile needs (T+3
-//              along D, T+2 across): waves and speeds -> scratch, amdq and
-//              apdq of the split region -> TR
-//   sweep<D>   at T+1 x (T+2)^2 interfaces: the limiter, the correction
-//              flux cq, the fluctuations the splits take (amdq + cq,
-//              apdq - cq with transverse_waves = 2), cq into the D-flux of
-//              the tile's faces; the CFL partial max
-//   fluct<D>   each cell: dt/dD (apdq + amdq) of its two D-faces
-//   for each transverse axis E of D (F the third) and each fluctuation:
-//     rpt      split along E -> bm, bp
+//   sweep<D>   at T+1 x (T+2)^2 interfaces: the normal solve, the limiter
+//              (with the neighbours' solves), the correction flux cq, the
+//              fluctuations the splits take (amdq + cq, apdq - cq with
+//              transverse_waves = 2) -> TR, cq into the D-flux of the
+//              tile's faces, amdq/apdq of those faces; the CFL partial max
+//   without rptt3 (one phase):
+//     fluct<D>          each cell: dt/dD (apdq + amdq) of its two D-faces
+//     gather_split<E>   for both transverse axes E: the E-flux of each
+//                       E-face takes -dt/(2 dD) (bm, bp) of the splits of
+//                       amdq, then apdq, at its two neighbour cells
+//   with rptt3 (transverse_waves = 2), for each E and each fluctuation:
+//     rpt      split along E -> bm, bp (fluct<D> in the first one's phase)
 //     gather_e the E-flux of each E-face takes -dt/(2 dD) (bm, bp) of its
 //              two neighbour cells; rptt of bm along F
 //     gather_f the F-flux of each F-face takes the bm parts (own e-row
 //              minus the crossing one); rptt of bp along F
 //     gather_f the same for the bp parts
-//   update     q - dq over the tile; reduce the CFL partials
+//   update     q - dq over the tile (with transverse_waves = 0 after
+//              fluct<2>); each warp's CFL max
 //
 // Template parameters: the system, the type, the tile, CAPA (per-cell
 // dt/(dD kappa)) and FWAVE (the correction 0.5 sign(s) (1 - |s| dt/dD),
@@ -72,36 +114,54 @@
 // without fused multiply-adds (ops/_build.py: -fmad=false), so each
 // operation rounds as PyTorch's; the sums of the transverse terms into the
 // fluxes and of the three directions into dq are taken in another order
-// (roundoff).  The systems live in acoustics3d.cuh, the limiters in
-// tvd.cuh, the tile geometry (shared with step3_ctu.cu) in ctu3d.cuh.
+// (roundoff), the same order as the first port's.  The systems live in
+// acoustics3d.cuh, the limiters in tvd.cuh, the tile geometry (shared with
+// step3_ctu.cu) in ctu3d.cuh, the asynchronous copies in async_copy.cuh.
 
 #include "acoustics3d.cuh"
+#include "async_copy.cuh"
 #include "ctu3d.cuh"
 #include "tvd.cuh"
 
 namespace {
 
-// Tile shape per type (cells along x, y, z)
+// Tile shape per type: cells along x, y, z
 template <typename T> struct Shape;
-template <> struct Shape<float> { static constexpr int X = 8, Y = 8, Z = 8; };
-template <> struct Shape<double> { static constexpr int X = 4, Y = 6, Z = 8; };
+template <> struct Shape<float> {
+  static constexpr int X = 8, Y = 8, Z = 8;
+};
+template <> struct Shape<double> {
+  static constexpr int X = 4, Y = 6, Z = 8;
+};
+
+// Threads per block per type: as many warps as the registers allow over the
+// one tile that the shared memory holds (ctu3d.cuh's NT is step3_ctu.cu's)
+template <typename T> struct Threads;
+template <> struct Threads<float> {
+  static constexpr int N = 1024;
+};
+template <> struct Threads<double> {
+  static constexpr int N = 512;
+};
+template <typename T> constexpr int NTB = Threads<T>::N;
+// the CFL fold keeps one slot per whole warp
+static_assert(NTB<float> % 32 == 0 && NTB<double> % 32 == 0,
+              "whole warps per block");
 
 // Shared-memory layout (offsets in elements)
 template <class S, typename T, class H, bool CAPA> struct Lay {
   static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
-  static constexpr int NWF = NW * NEQ + NW;         // waves, speeds
   using R0 = Reg<H, 0>;
   using R1 = Reg<H, 1>;
   using R2 = Reg<H, 2>;
   static constexpr int Q0 = H::X + 4, Q1 = H::Y + 4, Q2 = H::Z + 4;
   static constexpr int QN = Q0 * Q1 * Q2;           // tile + halo
   static constexpr int CN = H::X * H::Y * H::Z;     // tile cells
-  static constexpr int AM = CMAX(R0::AN, CMAX(R1::AN, R2::AN));
   static constexpr int BM = CMAX(R0::BN, CMAX(R1::BN, R2::BN));
   static constexpr int FM = CMAX(R0::FN, CMAX(R1::FN, R2::FN));
-  // scratch: [waves, speeds NWF x AN | amdq, apdq at faces 2 NEQ x FM]
-  //      or: [bm, bp 2 NEQ x BM | split parts along F 2 NEQ x BM]
-  static constexpr int US = CMAX(4 * NEQ * BM, NWF * AM + 2 * NEQ * FM);
+  // scratch (rptt3 only): [bm, bp 2 NEQ x BM | split parts along F
+  // 2 NEQ x BM]
+  static constexpr int US = S::HAS_RPTT ? 4 * NEQ * BM : 0;
   static constexpr int oAX = NEQ * QN;
   static constexpr int oDT = oAX + NAUX * QN;
   static constexpr int oF0 = oDT + (CAPA ? 3 * QN : 0);
@@ -110,8 +170,10 @@ template <class S, typename T, class H, bool CAPA> struct Lay {
   static constexpr int oDQ = oF2 + NEQ * R2::FN;
   static constexpr int oTR = oDQ + NEQ * CN;        // fluctuations to split
   static constexpr int oU = oTR + 2 * NEQ * BM;
-  static constexpr int oRED = oU + US;
-  static constexpr size_t elems = oRED + NT;
+  static constexpr int oAMF = oU + US;           // amdq, apdq at faces
+  static constexpr int oRED = oAMF + 2 * NEQ * FM;
+  // RED: the CFL partial of each thread, then of each warp
+  static constexpr size_t elems = oRED + NTB<T> + NTB<T> / 32;
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
@@ -175,17 +237,20 @@ template <class S, typename T, class H, bool CAPA> struct Block {
     if (CAPA) return DT[D * L::QN + c];
     return A.dtd[D];
   }
-  HD T* AMf() const { return U + L::US - 2 * L::NEQ * L::FM; }
-  HD T* APf() const { return U + L::US - L::NEQ * L::FM; }
+  HD T* AMf() const { return U + L::US; }
+  HD T* APf() const { return U + L::US + L::NEQ * L::FM; }
 };
 
 // ---- phase: stage q, aux and dt/(dD kappa) + halo, zero the accumulators
+// Every copy is issued (cp.async) before any is waited on; kappa lands in
+// the third dt/(dD kappa) plane, and the thread that copied it turns it
+// into the three dt/(dD kappa) in place after its own wait.
 template <class S, typename T, class H, bool CAPA>
 HD void phase_load(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using L = Lay<S, T, H, CAPA>;
   constexpr int NF = L::NEQ + L::NAUX + (CAPA ? 1 : 0);
   const long long plane = (long long)A.N[0] * A.N[1] * A.N[2];
-  for (int idx = tid; idx < NF * L::QN; idx += NT) {
+  for (int idx = tid; idx < NF * L::QN; idx += NTB<T>) {
     const int f = idx / L::QN, r = idx % L::QN;
     int c[3];
     dec<L::Q0, L::Q1, L::Q2>(r, c);
@@ -196,99 +261,89 @@ HD void phase_load(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
     }
     const long long off = (g[0] * A.N[1] + g[1]) * A.N[2] + g[2];
     if (f < L::NEQ) {
-      B.Q[idx] = A.qbc[f * plane + off];
+      copy_async(B.Q + idx, A.qbc + f * plane + off);
     } else if (f < L::NEQ + L::NAUX) {
-      B.AX[(f - L::NEQ) * L::QN + r] = A.aux[(f - L::NEQ) * plane + off];
+      copy_async(B.AX + (f - L::NEQ) * L::QN + r,
+                 A.aux + (f - L::NEQ) * plane + off);
     } else {
+      copy_async(B.DT + 2 * L::QN + r, A.aux + A.capa * plane + off);
+    }
+  }
+  for (int idx = tid; idx < L::oTR - L::oF0; idx += NTB<T>) B.F[0][idx] = T(0);
+  B.RED[tid] = T(0);
+  copy_wait_all();
+  if (CAPA) {
+    for (int idx = tid; idx < NF * L::QN; idx += NTB<T>) {
+      if (idx < (NF - 1) * L::QN) continue;
+      const int r = idx - (NF - 1) * L::QN;
       // dt / (dD kappa): the plain version's 0-d dt over (dD * kappa)
-      const T kappa = A.aux[A.capa * plane + off];
+      const T kappa = B.DT[2 * L::QN + r];
       for (int d = 0; d < 3; ++d)
         B.DT[d * L::QN + r] = A.dt / (A.d[d] * kappa);
     }
   }
-  for (int idx = tid; idx < L::oTR - L::oF0; idx += NT) B.F[0][idx] = T(0);
-  B.RED[tid] = T(0);
 }
 
-// ---- phase: normal solves at the D-interfaces ---------------------------
+// the waves of the normal solve between the staged cells cl and cr
 template <int D, class S, typename T, class H, bool CAPA>
-HD void phase_rpn(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
-  using R = Reg<H, D>;
+HD void rpn_waves(const Args<T>& A, const Block<S, T, H, CAPA>& B, int cl,
+                  int cr, T w[][S::NEQ]) {
   using L = Lay<S, T, H, CAPA>;
-  constexpr int NEQ = L::NEQ, NW = L::NW;
-  T* W = B.U;
-  for (int idx = tid; idx < R::AN; idx += NT) {
-    int c[3];
-    dec<R::A0, R::A1, R::A2>(idx, c);
-    int l[3] = {c[0] + 1, c[1] + 1, c[2] + 1};
-    l[D] = c[D];
-    const int cl = B.cell(l[0], l[1], l[2]);
-    const int cr = B.cell(l[0] + (D == 0), l[1] + (D == 1), l[2] + (D == 2));
-    T ql[NEQ], qr[NEQ], al[L::NAUX + 1], ar[L::NAUX + 1];
-    B.load_cell(cl, ql, al);
-    B.load_cell(cr, qr, ar);
-    T w[NW][NEQ], s[NW], am[NEQ], ap[NEQ];
-    S::template rpn<D, T>(A.P, ql, qr, al, ar, w, s, am, ap);
-    for (int p = 0; p < NW; ++p) {
-      for (int e = 0; e < NEQ; ++e) W[(p * NEQ + e) * R::AN + idx] = w[p][e];
-      W[(NW * NEQ + p) * R::AN + idx] = s[p];
-    }
-    // the fluctuations of the split region (interfaces C0-1 .. C0+T-1)
-    if (c[D] >= 1 && c[D] <= (D == 0 ? R::B0 : (D == 1 ? R::B1 : R::B2))) {
-      int b[3] = {c[0], c[1], c[2]};
-      b[D] -= 1;
-      const int k = flat<R::B0, R::B1, R::B2>(b);
-      for (int e = 0; e < NEQ; ++e) {
-        B.TR[e * L::BM + k] = am[e];
-        B.TR[(NEQ + e) * L::BM + k] = ap[e];
-      }
-    }
-  }
+  T ql[L::NEQ], qr[L::NEQ], al[L::NAUX + 1], ar[L::NAUX + 1];
+  B.load_cell(cl, ql, al);
+  B.load_cell(cr, qr, ar);
+  T s[L::NW], am[L::NEQ], ap[L::NEQ];
+  S::template rpn<D, T>(A.P, ql, qr, al, ar, w, s, am, ap);
 }
 
-// ---- phase: limiter, correction flux, fluctuations to split, CFL --------
+// ---- phase: normal solve, limiter, correction flux, fluctuations, CFL ---
+// at the D-interfaces C0-1 .. C0+T-1 (cells C0-1 .. C0+T across).  The
+// limiter's neighbour interfaces along D are solved again here (the same
+// operations on the same staged values: the same bits), which spares the
+// first port's separate normal-solve phase, its barrier and its waves in
+// shared memory.
 template <int D, bool FWAVE, class S, typename T, class H, bool CAPA>
 HD void phase_sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using R = Reg<H, D>;
   using L = Lay<S, T, H, CAPA>;
-  constexpr int NEQ = L::NEQ, NW = L::NW, AN = R::AN;
-  constexpr int step = D == 0 ? R::A1 * R::A2 : (D == 1 ? R::A2 : 1);
-  const T* W = B.U;
+  constexpr int NEQ = L::NEQ, NW = L::NW;
+  // the staged stride along D
+  constexpr int sD = D == 0 ? L::Q1 * L::Q2 : (D == 1 ? L::Q2 : 1);
   T* AMf = B.AMf();
   T* APf = B.APf();
   T cfl = B.RED[tid];
-  for (int idx = tid; idx < R::BN; idx += NT) {
+  for (int idx = tid; idx < R::BN; idx += NTB<T>) {
     int b[3];
     dec<R::B0, R::B1, R::B2>(idx, b);
-    int a[3] = {b[0], b[1], b[2]};
-    a[D] += 1;
-    const int own = flat<R::A0, R::A1, R::A2>(a);
     // the interface's left and right cells (staged indices)
     const int cl = B.cell(b[0] + 1, b[1] + 1, b[2] + 1);
-    const int cr = B.cell(b[0] + 1 + (D == 0), b[1] + 1 + (D == 1),
-                          b[2] + 1 + (D == 2));
+    const int cr = cl + sD;
     const T dl = B.template dtd<D>(A, cl);
     const T dr = B.template dtd<D>(A, cr);
     const T dtdx = CAPA ? T(0.5) * (dl + dr) : dl;
-    T w[NW][NEQ], s[NW];
-    for (int p = 0; p < NW; ++p) {
-      for (int e = 0; e < NEQ; ++e) w[p][e] = W[(p * NEQ + e) * AN + own];
-      s[p] = W[(NW * NEQ + p) * AN + own];
+    T w[NW][NEQ], s[NW], am[NEQ], ap[NEQ];
+    {
+      T ql[NEQ], qr[NEQ], al[L::NAUX + 1], ar[L::NAUX + 1];
+      B.load_cell(cl, ql, al);
+      B.load_cell(cr, qr, ar);
+      S::template rpn<D, T>(A.P, ql, qr, al, ar, w, s, am, ap);
     }
 
     T cq[NEQ];
     for (int e = 0; e < NEQ; ++e) cq[e] = T(0);
     if (A.order == 2) {
+      T wlo[NW][NEQ], whi[NW][NEQ];
+      rpn_waves<D>(A, B, cl - sD, cl, wlo);
+      rpn_waves<D>(A, B, cr, cr + sD, whi);
       T cf[NW];
       for (int p = 0; p < NW; ++p) {
-        const int lo = own - step, hi = own + step;
         T wn2 = w[p][0] * w[p][0];
-        T dlo = W[(p * NEQ) * AN + lo] * w[p][0];
-        T dhi = w[p][0] * W[(p * NEQ) * AN + hi];
+        T dlo = wlo[p][0] * w[p][0];
+        T dhi = w[p][0] * whi[p][0];
         for (int e = 1; e < NEQ; ++e) {
           wn2 = wn2 + w[p][e] * w[p][e];
-          dlo = dlo + W[(p * NEQ + e) * AN + lo] * w[p][e];
-          dhi = dhi + w[p][e] * W[(p * NEQ + e) * AN + hi];
+          dlo = dlo + wlo[p][e] * w[p][e];
+          dhi = dhi + w[p][e] * whi[p][e];
         }
         T phi = T(1);
         const int lid = A.lim[p];
@@ -313,14 +368,9 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
 
     // the fluctuations the transverse splits take
     const bool both = A.tw >= 2 && A.order == 2;
-    T am[NEQ], ap[NEQ];
     for (int e = 0; e < NEQ; ++e) {
-      am[e] = B.TR[e * L::BM + idx];
-      ap[e] = B.TR[(NEQ + e) * L::BM + idx];
-      if (both) {
-        B.TR[e * L::BM + idx] = am[e] + cq[e];
-        B.TR[(NEQ + e) * L::BM + idx] = ap[e] - cq[e];
-      }
+      B.TR[e * L::BM + idx] = both ? am[e] + cq[e] : am[e];
+      B.TR[(NEQ + e) * L::BM + idx] = both ? ap[e] - cq[e] : ap[e];
     }
 
     // a face of the tile: cq into the D-flux, amdq/apdq for fluct<D>
@@ -368,7 +418,7 @@ HD void phase_fluct(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using L = Lay<S, T, H, CAPA>;
   const T* AMf = B.AMf();
   const T* APf = B.APf();
-  for (int idx = tid; idx < L::CN; idx += NT) {
+  for (int idx = tid; idx < L::CN; idx += NTB<T>) {
     int c[3];
     dec<H::X, H::Y, H::Z>(idx, c);
     const T dtd = B.template dtd<D>(A, B.cell(c[0] + 2, c[1] + 2, c[2] + 2));
@@ -400,7 +450,7 @@ HD void phase_rpt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using L = Lay<S, T, H, CAPA>;
   constexpr int NEQ = L::NEQ;
   T* BB = B.U;
-  for (int idx = tid; idx < R::BN; idx += NT) {
+  for (int idx = tid; idx < R::BN; idx += NTB<T>) {
     int b[3];
     dec<R::B0, R::B1, R::B2>(idx, b);
     // the receiving cell: left (IMP 1) or right (IMP 2) of the interface
@@ -431,7 +481,7 @@ HD void phase_gather_e(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   constexpr int F = 3 - D - E;
   const T* BB = B.U;
   T* FE = B.F[E];
-  for (int idx = tid; idx < RE::FN; idx += NT) {
+  for (int idx = tid; idx < RE::FN; idx += NTB<T>) {
     int c[3], k[3];
     dec<RE::F0, RE::F1, RE::F2>(idx, c);
     k[D] = c[D] + 1 - (IMP - 1);
@@ -454,6 +504,72 @@ HD void phase_gather_e(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   }
 }
 
+// ---- without rptt3: the E-flux gathers the rpt3 parts, splitting as it
+// goes.  F_E at (cell I along D, face J along E, cell K along F) takes, for
+// each fluctuation (amdq, then apdq), -(c_bm bm + c_bp bp) where bm is the
+// split of D-interface I-i0 at e-cell J+1 and bp that at e-cell J: the
+// gather of phase_gather_e with the split of phase_rpt done in place, for
+// the half it uses.  No split is staged, so the splits along both
+// transverse axes and the cell fluctuations share one phase, and the
+// across-ring that only rptt3 reads is not split.
+template <int D, int E, int IMP, class S, typename T, class H, bool CAPA>
+HD void split_at(const Args<T>& A, const Block<S, T, H, CAPA>& B,
+                 const int k[3], T bm[], T bp[]) {
+  using R = Reg<H, D>;
+  using L = Lay<S, T, H, CAPA>;
+  // the receiving cell: left (IMP 1) or right (IMP 2) of the interface
+  int l[3] = {k[0] + 1, k[1] + 1, k[2] + 1};
+  l[D] += IMP - 1;
+  T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
+  split_aux<E>(B, l, ab, ac, aa);
+  const int kf = flat<R::B0, R::B1, R::B2>(k);
+  T asdq[L::NEQ];
+  for (int e = 0; e < L::NEQ; ++e)
+    asdq[e] = B.TR[((IMP - 1) * L::NEQ + e) * L::BM + kf];
+  S::template rpt<E, T>(A.P, ab, ac, aa, asdq, bm, bp);
+}
+
+template <int D, int E, int IMP, class S, typename T, class H, bool CAPA>
+HD void gather_split_one(const Args<T>& A, const Block<S, T, H, CAPA>& B,
+                         const int c[3], T h_bm, T h_bp, T* fe) {
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int F = 3 - D - E;
+  int k[3];
+  k[D] = c[D] + 1 - (IMP - 1);
+  k[F] = c[F] + 1;
+  k[E] = c[E] + 1;
+  T bm[L::NEQ], unused[L::NEQ], bp[L::NEQ];
+  split_at<D, E, IMP>(A, B, k, bm, unused);
+  k[E] = c[E];
+  split_at<D, E, IMP>(A, B, k, unused, bp);
+  for (int e = 0; e < L::NEQ; ++e) fe[e] += -(h_bm * bm[e] + h_bp * bp[e]);
+}
+
+template <int D, int E, class S, typename T, class H, bool CAPA>
+HD void phase_gather_split(const Args<T>& A, Block<S, T, H, CAPA>& B,
+                           int tid) {
+  using RE = Reg<H, E>;
+  using L = Lay<S, T, H, CAPA>;
+  T* FE = B.F[E];
+  for (int idx = tid; idx < RE::FN; idx += NTB<T>) {
+    int c[3];
+    dec<RE::F0, RE::F1, RE::F2>(idx, c);
+    T h_bm = A.half[D], h_bp = A.half[D];
+    if (CAPA) {
+      int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
+      l[E] = c[E] + 2;
+      h_bm = T(0.5) * B.DT[D * L::QN + B.cell(l[0], l[1], l[2])];
+      l[E] = c[E] + 1;
+      h_bp = T(0.5) * B.DT[D * L::QN + B.cell(l[0], l[1], l[2])];
+    }
+    T fe[L::NEQ];
+    for (int e = 0; e < L::NEQ; ++e) fe[e] = FE[e * RE::FN + idx];
+    gather_split_one<D, E, 1>(A, B, c, h_bm, h_bp, fe);
+    gather_split_one<D, E, 2>(A, B, c, h_bm, h_bp, fe);
+    for (int e = 0; e < L::NEQ; ++e) FE[e * RE::FN + idx] = fe[e];
+  }
+}
+
 // ---- phase: rptt3 split of one rpt3 part (PART 0: bm, 1: bp) along F,
 // scaled by -+dt^2/(6 dD dE) or -+(dt/(6 dE)) dt/(dD kappa) of the
 // receiving cell (the down-going part flips its sign) ---------------------
@@ -466,7 +582,7 @@ HD void phase_rptt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   constexpr int F = 3 - D - E;
   const T* BB = B.U;
   T* TB = B.U + 2 * NEQ * L::BM;
-  for (int idx = tid; idx < R::BN; idx += NT) {
+  for (int idx = tid; idx < R::BN; idx += NTB<T>) {
     int b[3];
     dec<R::B0, R::B1, R::B2>(idx, b);
     int l[3] = {b[0] + 1, b[1] + 1, b[2] + 1};
@@ -500,7 +616,7 @@ HD void phase_gather_f(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using RF = Reg<H, F>;
   const T* TB = B.U + 2 * NEQ * L::BM;
   T* FF = B.F[F];
-  for (int idx = tid; idx < RF::FN; idx += NT) {
+  for (int idx = tid; idx < RF::FN; idx += NTB<T>) {
     int c[3], k[3];
     dec<RF::F0, RF::F1, RF::F2>(idx, c);
     k[D] = c[D] + 1 - (IMP - 1);
@@ -529,7 +645,7 @@ HD void phase_update(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using R1 = Reg<H, 1>;
   using R2 = Reg<H, 2>;
   const int n0 = A.N[0] - 4, n1 = A.N[1] - 4, n2 = A.N[2] - 4;
-  for (int idx = tid; idx < L::CN; idx += NT) {
+  for (int idx = tid; idx < L::CN; idx += NTB<T>) {
     int c[3];
     dec<H::X, H::Y, H::Z>(idx, c);
     const int I0 = B.C0[0] + c[0], I1 = B.C0[1] + c[1], I2 = B.C0[2] + c[2];
@@ -560,37 +676,74 @@ HD void phase_update(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
 
 // ---- the phase sequence, shared by the kernel and the host emulation ----
 // X(fn) runs fn(tid) for every thread of the block, then a barrier.
+// pre(t) runs in the first phase, before the split
 template <int D, int E, int IMP, class S, typename T, class H, bool CAPA,
-          class X>
+          class X, class P>
 HD void transverse_one(const Args<T>& A, Block<S, T, H, CAPA>& B,
-                       const X& run) {
-  const bool tt = S::HAS_RPTT && A.tw >= 2;
-  run([&](int t) { phase_rpt<D, E, IMP>(A, B, t); });
+                       const X& run, const P& pre) {
+  run([&](int t) {
+    pre(t);
+    phase_rpt<D, E, IMP>(A, B, t);
+  });
   run([&](int t) {
     phase_gather_e<D, E, IMP>(A, B, t);
-    if (tt) phase_rptt<D, E, IMP, 0>(A, B, t);
+    phase_rptt<D, E, IMP, 0>(A, B, t);
   });
-  if (tt) {
-    run([&](int t) { phase_gather_f<D, E, IMP, 0>(A, B, t); });
-    run([&](int t) { phase_rptt<D, E, IMP, 1>(A, B, t); });
-    run([&](int t) { phase_gather_f<D, E, IMP, 1>(A, B, t); });
-  }
+  run([&](int t) { phase_gather_f<D, E, IMP, 0>(A, B, t); });
+  run([&](int t) { phase_rptt<D, E, IMP, 1>(A, B, t); });
+  run([&](int t) { phase_gather_f<D, E, IMP, 1>(A, B, t); });
 }
 
+// Per sweep: the sweep phase, then fluct<D> in the same phase as the first
+// split (they touch different scratch); with transverse_waves 0, fluct<0>
+// and fluct<1> alone and fluct<2> in the update's phase (the same thread
+// owns a cell in both).
 template <int D, bool FWAVE, class S, typename T, class H, bool CAPA,
           class X>
 HD void sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, const X& run) {
-  run([&](int t) { phase_rpn<D>(A, B, t); });
   run([&](int t) { phase_sweep<D, FWAVE>(A, B, t); });
-  run([&](int t) { phase_fluct<D>(A, B, t); });
-  if (A.tw > 0) {
-    constexpr int E1 = D == 0 ? 1 : 0;
-    constexpr int E2 = D == 2 ? 1 : 2;
-    transverse_one<D, E1, 1>(A, B, run);
-    transverse_one<D, E1, 2>(A, B, run);
-    transverse_one<D, E2, 1>(A, B, run);
-    transverse_one<D, E2, 2>(A, B, run);
+  constexpr int E1 = D == 0 ? 1 : 0;
+  constexpr int E2 = D == 2 ? 1 : 2;
+  if (A.tw == 0) {
+    if (D < 2) run([&](int t) { phase_fluct<D>(A, B, t); });
+    return;
   }
+  // the rptt3 phases exist only for systems that have rptt3 (their scratch,
+  // Lay::US, is empty in the others)
+  if constexpr (S::HAS_RPTT) {
+    if (A.tw >= 2) {
+      transverse_one<D, E1, 1>(A, B, run, [&](int t) {
+        phase_fluct<D>(A, B, t);
+      });
+      transverse_one<D, E1, 2>(A, B, run, [](int) {});
+      transverse_one<D, E2, 1>(A, B, run, [](int) {});
+      transverse_one<D, E2, 2>(A, B, run, [](int) {});
+      return;
+    }
+  }
+  run([&](int t) {
+    phase_fluct<D>(A, B, t);
+    phase_gather_split<D, E1>(A, B, t);
+    phase_gather_split<D, E2>(A, B, t);
+  });
+}
+
+// fold thread t's CFL partial into its warp's slot: a shuffle max on the
+// card, a loop over the lanes on the host
+template <typename T> HD void warp_fold(T* red, int t) {
+#if defined(__CUDACC__)
+  const T m = warp_max(red[t]);
+  if (t % 32 == 0) red[NTB<T> + t / 32] = m;
+#else
+  red[NTB<T> + t / 32] = t % 32 == 0 ? red[t] : mx(red[NTB<T> + t / 32], red[t]);
+#endif
+}
+
+// the block's CFL partial from the warps' slots
+template <typename T> HD T block_cfl(const T* red) {
+  T m = red[NTB<T>];
+  for (int w = 1; w < NTB<T> / 32; ++w) m = mx(m, red[NTB<T> + w]);
+  return m;
 }
 
 template <bool FWAVE, class S, typename T, class H, bool CAPA, class X>
@@ -599,12 +752,11 @@ HD void step_block(const Args<T>& A, Block<S, T, H, CAPA>& B, const X& run) {
   sweep<0, FWAVE>(A, B, run);
   sweep<1, FWAVE>(A, B, run);
   sweep<2, FWAVE>(A, B, run);
-  run([&](int t) { phase_update(A, B, t); });
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    run([&](int t) {
-      if (t < s) B.RED[t] = mx(B.RED[t], B.RED[t + s]);
-    });
-  }
+  run([&](int t) {
+    if (A.tw == 0) phase_fluct<2>(A, B, t);
+    phase_update(A, B, t);
+    warp_fold(B.RED, t);
+  });
 }
 
 template <typename T>
@@ -672,14 +824,14 @@ struct DeviceRun {
 };
 
 template <class S, typename T, bool CAPA, bool FWAVE>
-__global__ void __launch_bounds__(NT, 1) step3_aos_kernel(Args<T> A) {
+__global__ void __launch_bounds__(NTB<T>, 1) step3_aos_kernel(Args<T> A) {
   using H = Shape<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Block<S, T, H, CAPA> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x);
   tile_origin<H>(A.nb, B.bid, B.C0);
   step_block<FWAVE>(A, B, DeviceRun());
-  if (threadIdx.x == 0) A.cflb[B.bid] = B.RED[0];
+  if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(B.RED);
 }
 
 template <class S, typename T, bool CAPA, bool FWAVE>
@@ -691,7 +843,7 @@ int launch(const Args<T>& A, void* stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   step3_aos_kernel<S, T, CAPA, FWAVE>
-      <<<nblocks(A), NT, bytes, static_cast<cudaStream_t>(stream)>>>(A);
+      <<<nblocks(A), NTB<T>, bytes, static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
 }
 #else
@@ -699,9 +851,9 @@ int launch(const Args<T>& A, void* stream) {
 // each barrier is kept by running the whole block through a phase before
 // the next.  Used by the CPU tests to check the kernel's index algebra
 // against the plain version without a card.
-struct HostRun {
+template <int N> struct HostRun {
   template <class Fn> void operator()(Fn&& fn) const {
-    for (int t = 0; t < NT; ++t) fn(t);
+    for (int t = 0; t < N; ++t) fn(t);
   }
 };
 
@@ -713,8 +865,8 @@ int launch(const Args<T>& A, void*) {
     Block<S, T, H, CAPA> B;
     B.bind(smem.data(), b);
     tile_origin<H>(A.nb, B.bid, B.C0);
-    step_block<FWAVE>(A, B, HostRun());
-    A.cflb[b] = B.RED[0];
+    step_block<FWAVE>(A, B, HostRun<NTB<T>>());
+    A.cflb[b] = block_cfl(B.RED);
   }
   return 0;
 }
@@ -770,6 +922,11 @@ int step3_aos_blocks(int nxg, int nyg, int nzg, int is_double) {
                                      lim));
   return nblocks(make_args<float>(nullptr, nullptr, nullptr, nullptr, nxg,
                                   nyg, nzg, -1, 1, 1, 1, 1, prm, 1, 0, lim));
+}
+
+// Threads per block (reported by chip_smoke.py).
+int step3_aos_threads(int is_double) {
+  return is_double ? NTB<double> : NTB<float>;
 }
 
 // Shared memory bytes per block (reported by chip_smoke.py).

@@ -62,10 +62,9 @@ def _lib():
     return lib
 
 
-@functools.cache
-def _dq_lib():
-    from . import _build
-    lib = _build.load("dq2_weno5")
+def bind_dq_lib(lib):
+    """Set the argument types of a ctypes handle of a build of
+    ``csrc/dq2_weno5.cu``; returns it."""
     for name in ("dq2_weno5_f32", "dq2_weno5_f64"):
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
@@ -74,6 +73,12 @@ def _dq_lib():
     lib.dq2_weno5_blocks.argtypes = [ctypes.c_int] * 2
     lib.dq2_weno5_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _dq_lib():
+    from . import _build
+    return bind_dq_lib(_build.load("dq2_weno5"))
 
 
 def _check_cuda_qbc(name, qbc, num_ghost, num_eqn, num_dim):
@@ -146,13 +151,15 @@ def step2_rows(qbc, dt, dx, dy, params, mthlim, order, num_ghost=2,
 step2_rows.launches = 0
 
 
-def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3):
+def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None):
     """One SharpClaw semidiscrete evaluation of the Euler 4-wave system:
     componentwise WENO5 edge states with the positivity fallback, Roe
     fluctuations, and f(qr) - f(ql) in each cell.
 
     qbc: (4, nx+6, ny+6) ghost-padded q (float32 or float64, contiguous).
     dt: step in q's dtype (a Python float that is exact in it).
+    lib: another build of the kernel, bound by :func:`bind_dq_lib` (the
+    variant timer ``ops/time_kernels.py``); None for this checkout's.
     Returns (dq (4, nx, ny) with dt included, cfl as a 0-d tensor)."""
     if num_ghost != (weno_order + 1) // 2:
         raise ValueError(f"dq_rows: weno_order={weno_order} needs "
@@ -170,7 +177,7 @@ def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3):
     _check_cuda_qbc("dq_rows", qbc, num_ghost, 4, 2)
     _, nxg, nyg = qbc.shape
     is_double = qbc.dtype == torch.float64
-    lib = _dq_lib()
+    lib = _dq_lib() if lib is None else lib
     dq = torch.empty((4, nxg - 6, nyg - 6), dtype=qbc.dtype,
                      device=qbc.device)
     cfl_blocks = torch.empty((lib.dq2_weno5_blocks(nxg, nyg),),
@@ -352,10 +359,9 @@ STEP3_AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                       + [ctypes.c_double] * 7 + [ctypes.c_int] * 4)
 
 
-@functools.cache
-def _step3_aos_lib():
-    from . import _build
-    lib = _build.load("step3_aos")
+def bind_step3_aos_lib(lib):
+    """Set the argument types of a ctypes handle of a build of
+    ``csrc/step3_aos.cu``; returns it."""
     for name in ("step3_aos_f32", "step3_aos_f64"):
         fn = getattr(lib, name)
         fn.argtypes = STEP3_AOS_ARGTYPES + [ctypes.c_void_p]
@@ -363,6 +369,12 @@ def _step3_aos_lib():
     lib.step3_aos_blocks.argtypes = [ctypes.c_int] * 4
     lib.step3_aos_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _step3_aos_lib():
+    from . import _build
+    return bind_step3_aos_lib(_build.load("step3_aos"))
 
 
 def step3_system_scalars(rp, params):
@@ -377,7 +389,8 @@ def step3_system_scalars(rp, params):
 
 
 def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
-                     fwave, index_capa, num_ghost=2, transverse_waves=2):
+                     fwave, index_capa, num_ghost=2, transverse_waves=2,
+                     lib=None):
     """One 3D CTU step of the generic AoS form (any system with AoS hooks
     on the CPU; the systems of :data:`STEP3_SYSTEMS` on the card).
 
@@ -387,7 +400,9 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
     ``index_capa`` >= 0 names the aux row of the capacity function.
     Returns (q (num_eqn, nx, ny, nz), cfl as a 0-d tensor).  On a CPU
     tensor this is ``classic/kernels.py:step3``; on a CUDA tensor one
-    launch of ``csrc/step3_aos.cu``."""
+    launch of ``csrc/step3_aos.cu`` (``lib``: another build of it, bound
+    by :func:`bind_step3_aos_lib`, for the variant timer
+    ``ops/time_kernels.py``; None for this checkout's)."""
     check_options(mthlim, order, transverse_waves, rp.num_waves,
                   "step3_xy_generic")
     if num_ghost != 2:
@@ -427,7 +442,7 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
     else:
         aux_ptr = None
     is_double = qbc.dtype == torch.float64
-    lib = _step3_aos_lib()
+    lib = _step3_aos_lib() if lib is None else lib
     q_out = torch.empty((rp.num_eqn, nxg - 4, nyg - 4, nzg - 4),
                         dtype=qbc.dtype, device=qbc.device)
     cfl_blocks = torch.empty((lib.step3_aos_blocks(nxg, nyg, nzg,

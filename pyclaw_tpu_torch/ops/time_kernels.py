@@ -1,0 +1,320 @@
+"""Time builds of one kernel of ``csrc/`` against each other on one card,
+and the timers and timed cases that ``chip_smoke.py`` uses too.
+
+    python -m pyclaw_tpu_torch.ops.time_kernels KERNEL VARIANT [VARIANT ...]
+        [--out FILE] [--sass]
+
+KERNEL is ``dq2_weno5`` or ``step3_aos``, timed through its wrapper in
+``ops/tiled2d.py`` on the case that ``chip_smoke.py`` times
+(:func:`dq_case`, :func:`step3_aos_case`).  Each VARIANT is
+``LABEL=ROOT[:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/csrc/
+KERNEL.cu`` (ROOT a checkout, for example an unpacked ``git archive`` of a
+parent commit, or a copy with an edited source) built with this
+checkout's nvcc flags and the given extra nvcc flags (for example
+``-prec-div=false``) into ``build/variants/LABEL/``.  All builds start
+together.
+
+For float32 and float64 it prints each build's ptxas lines, each
+variant's output against the first variant's (max |difference| relative
+to max |output|, and the CFL), and its time: CUDA events over a run of
+calls, taken in turns (the variants in order, then in reverse, so two
+variants run old, new, new, old), and the device time per launch from
+torch.profiler.  With ``--sass`` it also prints, for each build, the
+static instruction count of each kernel entry and its most frequent
+opcodes (``cuobjdump -sass``).  Needs a card; writes the numbers as JSON
+to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from . import _build
+
+ITERS = {"dq2_weno5": 100, "step3_aos": 20}
+
+
+# ---- timers -------------------------------------------------------------
+
+def events_ms(fn, iters, warm=5):
+    """Mean ms of a call of ``fn`` over ``iters`` calls, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms_per_call(fn, needle, calls=20):
+    """Device time per launch of the kernels whose name holds ``needle``
+    over ``calls`` calls of ``fn``, from torch.profiler, and the number of
+    such launches (None, 0 when it shows none).  At the 1D sizes a
+    wrapper call's host work (allocations, the ctypes call, the CFL
+    reduction) takes longer than its kernel, so the CUDA events of
+    :func:`events_ms` time the host; this times the kernel alone."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count, seen = 0.0, 0, []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        seen.append((ev.key[:60], ev.count, t))
+        if needle in ev.key:
+            total += t
+            count += ev.count
+    if count == 0:
+        print(f"    profiler: no {needle} launch among {seen[:4]}",
+              flush=True)
+        return None, 0
+    return total / count / 1e3, count
+
+
+# ---- states and timed cases ---------------------------------------------
+
+def quadrants_state(nx, ny):
+    """q of examples.euler_2d_quadrants at nx x ny (a CPU tensor)."""
+    from ..examples import euler_2d_quadrants as ex
+    return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
+
+
+def het_state(nx, ny, nz):
+    """q and aux (Z, c) of examples.acoustics_3d_heterogeneous."""
+    from ..examples import acoustics_3d_heterogeneous as ex
+    st = ex.setup(mx=nx, my=ny, mz=nz, outdir=None,
+                  device="cpu").solution.state
+    return st.q, st.aux
+
+
+def padded(q_np, dtype, dev, num_ghost=2):
+    """2D q extended by extrapolation on every side."""
+    from .. import bc
+    q = torch.as_tensor(q_np, dtype=dtype, device=dev)
+    return bc.extend(q, num_ghost, [bc.BC.extrap] * 2, [bc.BC.extrap] * 2)
+
+
+def padded3(q_np, dtype, dev):
+    """3D q extended by two extrapolated cells on every side."""
+    from .. import bc
+    q = torch.as_tensor(q_np, dtype=dtype, device=dev)
+    return bc.extend(q, 2, [bc.BC.extrap] * 3, [bc.BC.extrap] * 3)
+
+
+def padded3_aux(aux_np, dtype, dev):
+    """3D aux extended as the solver extends it (no wall reflection)."""
+    from .. import bc
+    aux = torch.as_tensor(aux_np, dtype=dtype, device=dev)
+    return bc.extend(aux, 2, [bc.BC.extrap] * 3, [bc.BC.extrap] * 3,
+                     wall_reflects=False)
+
+
+def _exact(value, dtype):
+    """A Python float that is exact in ``dtype``."""
+    return float(np.dtype(str(dtype).split(".")[1]).type(value))
+
+
+def dq_case(n, dtype, dev):
+    """dq2_weno5's timed case at n^2: qbc (the quadrants state, 3 ghost
+    cells) and the rest of ``tiled2d.dq_rows``'s arguments (dt = 2/n,
+    dx = dy = 1/n, gamma 1.4)."""
+    qbc = padded(quadrants_state(n, n), dtype, dev, num_ghost=3)
+    return qbc, (_exact(2.0 / n, dtype), 1.0 / n, 1.0 / n, {"gamma": 1.4})
+
+
+def step3_aos_case(n, dtype, dev):
+    """step3_aos's timed case at n^3, the heterogeneous path's
+    configuration on its first state: qbc, auxbc and the rest of
+    ``tiled2d.step3_xy_generic``'s arguments (dt = 0.45 dx, dx = 2/n,
+    vc_acoustics_3D, MC, order 2, no f-waves, no capacity, 2 ghost cells,
+    transverse_waves 1)."""
+    from .. import riemann
+    q_np, aux_np = het_state(n, n, n)
+    qbc = padded3(q_np, dtype, dev).contiguous()
+    auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
+    d = 2.0 / n
+    return qbc, auxbc, (_exact(0.45 * d, dtype), d, d, d,
+                        riemann.vc_acoustics_3D, {}, (4, 4), 2, False, -1,
+                        2, 1)
+
+
+def _dq_call(dtype, dev, n=1024):
+    from . import tiled2d
+    qbc, args = dq_case(n, dtype, dev)
+
+    def make(lib):
+        lib = tiled2d.bind_dq_lib(lib)
+        return lambda: tiled2d.dq_rows(qbc, *args, lib=lib)
+    return make
+
+
+def _step3_aos_call(dtype, dev, n=192):
+    from . import tiled2d
+    qbc, auxbc, args = step3_aos_case(n, dtype, dev)
+
+    def make(lib):
+        lib = tiled2d.bind_step3_aos_lib(lib)
+        return lambda: tiled2d.step3_xy_generic(qbc, auxbc, *args, lib=lib)
+    return make
+
+
+# ---- variants -----------------------------------------------------------
+
+def _build_variants(kernel, variants):
+    procs = []
+    for label, root, flags in variants:
+        src = os.path.join(root, "pyclaw_tpu_torch", "csrc", f"{kernel}.cu")
+        out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "variants",
+                               label)
+        os.makedirs(out_dir, exist_ok=True)
+        out = os.path.join(out_dir, f"lib{kernel}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
+               *_build.EXTRA_NVCC_FLAGS.get(kernel, []), *flags, "-o", out,
+               src]
+        procs.append((label, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    libs = {}
+    for label, out, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"build of {label} failed:\n{stderr}")
+        for line in (stdout + stderr).splitlines():
+            if any(k in line for k in ("registers", "spill")):
+                print(f"  [{label}] {line.strip()}")
+        libs[label] = ctypes.CDLL(out)
+    return libs
+
+
+def sass_histogram(lib_path, top=12):
+    """{kernel entry: (static instruction count, [(opcode, count), ...])}
+    of a built library, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    return parse_sass(text, top)
+
+
+def parse_sass(text, top=12):
+    """The histogram of :func:`sass_histogram` from ``cuobjdump -sass``
+    text: each ``Function :`` section's instructions by opcode (without
+    its modifiers; a predicate guard is not an opcode)."""
+    out, name, ops = {}, None, collections.Counter()
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if name:
+                out[name] = (sum(ops.values()), ops.most_common(top))
+            name, ops = m.group(1), collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if name and m:
+            ops[m.group(1).split(".")[0]] += 1
+    if name:
+        out[name] = (sum(ops.values()), ops.most_common(top))
+    return out
+
+
+def run(kernel, variants, sass=False):
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_kernels needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"card: {card}")
+    libs = _build_variants(kernel, variants)
+    labels = [v[0] for v in variants]
+    result_sass = {}
+    if sass:
+        for label in labels:
+            hist = sass_histogram(libs[label]._name)
+            result_sass[label] = hist
+            for entry, (count, ops) in hist.items():
+                print(f"  sass [{label}] {entry[:70]}: {count} "
+                      f"instructions; {ops}")
+    order = labels + labels[::-1]
+    case = {"dq2_weno5": _dq_call, "step3_aos": _step3_aos_call}[kernel]
+    result = {"kernel": kernel, "card": card, "order": order, "types": {},
+              "sass": result_sass}
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype).split(".")[1]
+        make = case(dtype, dev)
+        calls = {label: make(libs[label]) for label in labels}
+        ref_out, ref_cfl = None, None
+        per = {}
+        for label in labels:
+            out, cfl = calls[label]()
+            cfl = float(cfl)
+            if ref_out is None:
+                ref_out, ref_cfl = out.clone(), cfl
+            diff = float((out - ref_out).abs().max() / ref_out.abs().max())
+            per[label] = {"rel_diff_vs_first": diff, "cfl": cfl,
+                          "cfl_equal": cfl == ref_cfl, "events_ms": []}
+        for label in order:
+            per[label]["events_ms"].append(
+                events_ms(calls[label], ITERS[kernel], warm=3))
+        for label in labels:
+            dev_ms, dev_n = device_ms_per_call(calls[label],
+                                               f"{kernel}_kernel", 10)
+            per[label]["device_ms"] = dev_ms
+            per[label]["device_launches_profiled"] = dev_n
+            print(f"  {kernel} {tname} [{label}]: events ms "
+                  f"{per[label]['events_ms']}, device ms {dev_ms} "
+                  f"({dev_n} launches), rel diff vs {labels[0]} "
+                  f"{per[label]['rel_diff_vs_first']:.3e}, cfl "
+                  f"{per[label]['cfl']!r}", flush=True)
+        result["types"][tname] = per
+        del calls, ref_out
+        torch.cuda.empty_cache()
+    return result
+
+
+def _parse_variant(text):
+    label, rest = text.split("=", 1)
+    root, _, flags = rest.partition(":")
+    return label, os.path.abspath(root), [f for f in flags.split(",") if f]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("kernel", choices=sorted(ITERS))
+    ap.add_argument("variants", nargs="+", type=_parse_variant)
+    ap.add_argument("--out")
+    ap.add_argument("--sass", action="store_true")
+    args = ap.parse_args(argv)
+    result = run(args.kernel, args.variants, args.sass)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -48,12 +48,16 @@ def host_kernel(tmp_path_factory):
 def _host_dq(lib, qbc, dt, dx, dy):
     nxg, nyg = qbc.shape[1:]
     out = np.empty((4, nxg - 6, nyg - 6), qbc.dtype)
-    cfl_blocks = np.empty(lib.dq2_weno5_blocks(nxg, nyg), qbc.dtype)
+    # one CFL partial per 16 x 16 tile, each written
+    ntiles = -(-(nxg - 6) // 16) * -(-(nyg - 6) // 16)
+    assert lib.dq2_weno5_blocks(nxg, nyg) == ntiles
+    cfl_blocks = np.full(ntiles, np.nan, qbc.dtype)
     fn = (lib.dq2_weno5_host_f64 if qbc.dtype == np.float64
           else lib.dq2_weno5_host_f32)
     rc = fn(qbc.ctypes.data, out.ctypes.data, cfl_blocks.ctypes.data, nxg,
             nyg, dt, dx, dy, 0.4)
     assert rc == 0
+    assert np.isfinite(cfl_blocks).all()
     return out, cfl_blocks.max()
 
 
@@ -110,3 +114,16 @@ def test_kernel_cfl_covers_the_ghost_band(host_kernel, where, dtype, tol):
     # the state elsewhere gives a CFL below 1; the Roe averages with the
     # neighbours still carry about half of the cell's speed 40
     assert _check(host_kernel, qbc, tol) > 2.0
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny", [(70, 50), (48, 97), (17, 130)])
+def test_kernel_on_many_ragged_tiles(host_kernel, nx, ny, dtype, tol):
+    """Grids of 20, 21 and 18 tiles, ragged along x, y or both, on states
+    that fall back: every tile writes its CFL partial (the warp maxima
+    folded into one), and every cell its dq."""
+    qbc = np.ascontiguousarray(
+        euler_state(nx + ny, (nx + 6, ny + 6), fallback=True).astype(dtype))
+    assert fallback_cells(torch.from_numpy(qbc)) > 0
+    _check(host_kernel, qbc, tol)

@@ -328,26 +328,31 @@ def _host_step(lib, rp, q, aux, dt, d, params, case, dtype):
     is_double = dtype == np.float64
     fn = lib.step3_aos_host_f64 if is_double else lib.step3_aos_host_f32
     out = np.empty((rp.num_eqn,) + shape, dtype)
-    cfl_blocks = np.empty(lib.step3_aos_blocks(*q.shape[1:], int(is_double)),
-                          dtype)
+    # one CFL partial per block, each written
+    cfl_blocks = np.full(lib.step3_aos_blocks(*q.shape[1:], int(is_double)),
+                         np.nan, dtype)
     rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
             cfl_blocks.ctypes.data, *q.shape[1:],
             tiled2d.STEP3_SYSTEMS[name][0], capa, int(fwave), dt, *d,
             *tiled2d.step3_system_scalars(rp, params), order, tw, lim, lim)
     assert rc == 0
+    assert np.isfinite(cfl_blocks).all()
     return out, float(cfl_blocks.max())
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
                                        (np.float32, 1e-5)])
-@pytest.mark.parametrize("shape", [(9, 7, 10), (17, 13, 9)])
+@pytest.mark.parametrize("shape", [(9, 7, 10), (17, 13, 9), (3, 5, 2),
+                                   (11, 14, 17)])
 @pytest.mark.parametrize("face", range(len(FACES)))
 def test_kernel_source_on_host_matches_plain(host_kernel, face, shape, dtype,
                                              tol):
     """csrc/step3_aos.cu's phases (tiles, halos, ragged-edge masks, the
     staged aux and per-cell dt/(dD kappa), the gathers of the rpt3/rptt3
     parts with the receiving cells' kappa, the CFL windows) against the
-    plain version; the grids cover several tiles and partial tiles."""
+    plain version; the grids cover several tiles and partial tiles, a grid
+    smaller than one tile, and one ragged on every axis in both types'
+    tiles (8x8x8 in float32, 4x6x8 in float64)."""
     case = HOST_CASES[face]
     name, capa, tw, order, lim, fwave = case
     rp = triemann.ALL[name]

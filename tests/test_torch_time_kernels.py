@@ -1,0 +1,95 @@
+"""The CPU side of ``pyclaw_tpu_torch/ops/time_kernels.py``, the script
+that times builds of one kernel against each other on a card: its
+variant syntax, its reading of ``cuobjdump -sass``, and its timed cases
+(shared with chip_smoke.py), which must call each wrapper as the main
+path's solver does."""
+
+import os
+
+import pytest
+import torch
+
+from pyclaw_tpu_torch.ops import tiled2d
+from pyclaw_tpu_torch.ops import time_kernels as tk
+
+SASS = """
+        code for sm_90a
+                Function : _Z6kernelIfEvv
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   FFMA R2, R3, R4, R5 ;
+        /*0020*/              @!P0 BRA 0x80 ;
+        /*0030*/                   FFMA.FTZ R2, R3, R4, R5 ;
+        /*0040*/                   EXIT ;
+                Function : _Z6kernelIdEvv
+        /*0000*/                   DFMA R2, R4, R6, R8 ;
+        /*0010*/               @P1 MUFU.RCP64H R3, R5 ;
+"""
+
+
+def test_parse_variant():
+    label, root, flags = tk._parse_variant(
+        "probe=build/parent:-prec-div=false,-DNDEBUG")
+    assert label == "probe"
+    assert root == os.path.abspath("build/parent")
+    assert flags == ["-prec-div=false", "-DNDEBUG"]
+    assert tk._parse_variant("new=.")[2] == []
+
+
+def _first_call(monkeypatch, name, claw):
+    """The arguments of the first call of ``tiled2d.<name>`` in a run."""
+    seen = []
+    real = getattr(tiled2d, name)
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(tiled2d, name, spy)
+    claw.run()
+    assert seen
+    return seen[0]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def test_dq_case_is_the_sharpclaw_path(monkeypatch):
+    from pyclaw_tpu_torch.examples import euler_2d_quadrants as ex
+    n = 12
+    claw = ex.setup(mx=n, my=n, outdir=None, device="cpu",
+                    solver_type="sharpclaw", dtype="float64")
+    claw.tfinal = 0.01
+    args, kwargs = _first_call(monkeypatch, "dq_rows", claw)
+    qbc, case = tk.dq_case(n, torch.float64, "cpu")
+    assert torch.equal(args[0], qbc)
+    # dt is the controller's; the rest is the case's
+    assert args[2:] + tuple(kwargs.values()) == case[1:] + (5, 3)
+
+
+def test_step3_aos_case_is_the_heterogeneous_path(monkeypatch):
+    from pyclaw_tpu_torch.examples import acoustics_3d_heterogeneous as ex
+    n = 6
+    claw = ex.setup(mx=n, my=n, mz=n, outdir=None, device="cpu",
+                    dtype="float64")
+    claw.tfinal = 0.01
+    args, kwargs = _first_call(monkeypatch, "step3_xy_generic", claw)
+    qbc, auxbc, case = tk.step3_aos_case(n, torch.float64, "cpu")
+    assert torch.equal(args[1], auxbc)
+    inner = (slice(None),) + (slice(2, -2),) * 3
+    assert torch.equal(args[0][inner], qbc[inner])
+    path = args[3:] + tuple(kwargs.values())
+    assert path[:4] == case[1:5]            # dx, dy, dz, the system
+    assert tiled2d.step3_system_scalars(path[3], path[4]) == \
+        tiled2d.step3_system_scalars(case[4], case[5])
+    assert tuple(path[5]) == case[6] and path[6:] == case[7:]
+
+
+def test_parse_sass_counts_opcodes_per_entry():
+    hist = tk.parse_sass(SASS)
+    assert set(hist) == {"_Z6kernelIfEvv", "_Z6kernelIdEvv"}
+    count, ops = hist["_Z6kernelIfEvv"]
+    assert count == 5
+    assert dict(ops) == {"MOV": 1, "FFMA": 2, "BRA": 1, "EXIT": 1}
+    assert dict(hist["_Z6kernelIdEvv"][1]) == {"DFMA": 1, "MUFU": 1}
