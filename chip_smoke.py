@@ -90,11 +90,13 @@ Phases (each asserts; any failure exits non-zero):
      CPU (the plain path the CPU tests tie to the JAX package): float64 at
      t=0.2 and t=0.8, float32 at t=0.8;
   6. timing at 1024^2 (CUDA events): each 2D kernel, its plain version,
-     its bound, and step3_ctu the same at 192^3; step1 on the Sod state at
+     its bound, and step3_ctu the same at 192^3 (on the 3D path's first
+     input and, the kernel alone, on its last); step1 on the Sod state at
      n = 800 and 2^20, weno5 at (3, 806) and (3, 2^20+6), each also with
-     its device time from torch.profiler; dq2_weno5 also by the
-     profiler; step3_aos, its plain version and its bound at 192^3 on the
-     heterogeneous path's first input, and the kernel on its last; then
+     its device time from torch.profiler; step2_ctu, dq2_weno5 and
+     step3_ctu also by the profiler; step3_aos, its plain version and
+     its bound at 192^3 on the heterogeneous path's first input, and the
+     kernel on its last; then
      each 2D path to t=0.1, the 3D Euler path to t=0.02, the heterogeneous
      path to t=0.8, the classic Sod path to t=0.2 and the SharpClaw one to
      t=0.02 under torch.profiler (device busy share, launches per step,
@@ -115,8 +117,9 @@ import numpy as np
 
 # the timers and the timed states, shared with the variant timer
 from pyclaw_tpu_torch.ops.time_kernels import (
-    device_ms_per_call, dq_case, events_ms as time_ms, het_state, padded,
-    padded3, padded3_aux, quadrants_state, step3_aos_case)
+    device_ms_per_call, dq_case, euler3d_state, events_ms as time_ms,
+    het_state, padded, padded3, padded3_aux, quadrants_state,
+    step2_ctu_case, step3_aos_case, step3_ctu_case)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -132,9 +135,12 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #   per interface (one x and one y per cell): Roe averages and wave
 #   strengths 71, waves 22, limiter (dot products 56, phi 20) 76,
 #   fluctuations and correction flux 152, rpt2 inputs 8, two rpt2
-#   splits 282, CFL 8 -> 619; two interfaces 1238;
-#   fold and update per cell 88.
-FLOPS_PER_CELL = 2 * 619 + 88
+#   splits 279 (what the two share once: H - (u^2 + v^2) 4, g1/a2 1,
+#   1/(2a) 2; each split's strengths 18, waves 20, speeds 2, up/down
+#   sums 96), CFL 8 -> 616; two interfaces 1232;
+#   fold and update per cell 88 (each face's transverse fold once: x 24,
+#   y 24; the update 40).
+FLOPS_PER_CELL = 2 * 616 + 88
 
 # Operations per cell of one SharpClaw dq (WENO5, Euler 4-wave), counted
 # from csrc/dq2_weno5.cu in the same way, each interface counted once (the
@@ -150,19 +156,22 @@ FLOPS_PER_CELL_DQ = {"float32": 2 * 672 + 4, "float64": 2 * 624 + 4}
 # Operations per cell of one 3D CTU step (order 2, transverse_waves 2,
 # MC), counted from csrc/step3_ctu.cu and csrc/euler3d.cuh in the same
 # way, each interface quantity counted once (the halo interfaces, the
-# neighbour waves the limiter rebuilds and the sound speed each split
+# neighbour waves the limiter rebuilds and the kinetic energy each split
 # recomputes are overhead, not work).  Per sweep direction, per interface:
 # the Roe average 54, sqrt and wave strengths 35 (89); the waves 28; the
 # limiter (one 5-wave dot product with the neighbour 45, norms 45, theta
 # and MC phi 45) 135; amdq/apdq 140 and the correction flux 75; the
-# fluctuations to split 10; the eigensystem (a second Roe average in the
-# fixed order 54, its sound speed and kinetic energy 7) 61; CFL 15; cq
-# into the flux 5; the cell's fluctuation term 15 -> 573.  Per (sweep,
-# transverse) pair: 2 rpt3 + 4 rptt3 splits of 141 each (strengths 25,
-# waves and speeds 26, the up/down sums 90), the rptt3 scaling 40, the
-# gathers into the E-flux 40 and into the F-flux 100 -> 1026; two pairs
-# per direction.  The update 50 per cell.
-FLOPS_PER_CELL_3D = 3 * (573 + 2 * 1026) + 50
+# fluctuations to split 10; CFL 15; cq into the flux 5; the cell's
+# fluctuation term 15 -> 512.  The eigensystem of the splits: its Roe
+# average in the fixed order shares the normal one's rsqrt, division and
+# velocities, and along x (the same order) all of it: x 2 (1/(2a)),
+# y and z 38 each (the order-dependent kinetic energies, pressures,
+# enthalpy and a2 34, sqrt, g1/a2, 1/(2a)) -> 78 a cell.  Per (sweep,
+# transverse) pair: 2 rpt3 + 4 rptt3 splits of 139 each (strengths 23,
+# waves and speeds 26, the up/down sums 90), the rptt3 scaling 20 (of the
+# split's input), the gathers into the E-flux 40 and into the F-flux 100
+# -> 994; two pairs per direction.  The update 50 per cell.
+FLOPS_PER_CELL_3D = 3 * (512 + 2 * 994) + 78 + 50
 
 # Operations per cell of one generic CTU step of the shallow-water Roe
 # solver (order 2, transverse_waves 2, MC, no capacity), counted from
@@ -411,12 +420,6 @@ def random_state3(rng, nx, ny, nz, gamma=1.4):
                      p / (gamma - 1.0) + 0.5 * rho * (u * u + v * v + w * w)])
 
 
-def euler3d_state(nx, ny, nz):
-    from pyclaw_tpu_torch.examples import euler_3d as ex
-    return ex.setup(mx=nx, my=ny, mz=nz, outdir=None,
-                    device="cpu").solution.q
-
-
 def plain_step3(qbc, dt, deltas, lims, order, tw):
     from pyclaw_tpu_torch.classic import kernels
     from pyclaw_tpu_torch.riemann import euler
@@ -535,41 +538,44 @@ def bound_of(nbytes, flops, tname):
 
 
 def timing(dev, n=1024):
-    """Kernel, plain version and bound at n^2 on the quadrants state."""
+    """Kernel (CUDA events and the profiler's device time), plain version
+    and bound at n^2 on the quadrants state (the classic path's first
+    input, ops/time_kernels.py:step2_ctu_case)."""
     import torch
     from pyclaw_tpu_torch.classic import soa
     from pyclaw_tpu_torch.ops import tiled2d
     from pyclaw_tpu_torch.riemann import euler
-    params = {"gamma": 1.4}
-    q_np = quadrants_state(n, n)
     out = {}
     for tname, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
-        qbc = padded(q_np, dtype, dev)
-        dt = float(np.dtype(tname).type(0.2 / n))
-        h = 1.0 / n
+        qbc, args = step2_ctu_case(n, dtype, dev)
+        dt, h, _, params, lims, order, _, tw = args
 
         def kern():
-            return tiled2d.step2_rows(qbc, dt, h, h, params, (3,) * 4, 2,
-                                      num_ghost=2, transverse_waves=2)
+            return tiled2d.step2_rows(qbc, *args)
 
         def plain():
             return soa.step2_soa(qbc, dt, h, h, euler._rpn2_euler_soa,
-                                 euler._rpt2_euler_soa, params, (3,) * 4, 2,
-                                 2, transverse_waves=2,
+                                 euler._rpt2_euler_soa, params, lims, order,
+                                 2, transverse_waves=tw,
                                  prefactor_soa=euler._prefactor_euler_2d_soa)
         ms = time_ms(kern, 200)
         plain_ms = time_ms(plain, 20, warm=2)
         ms_again = time_ms(kern, 200)
+        dev_ms, dev_n = device_ms_per_call(kern, "step2_ctu_kernel", 20)
         item = qbc.element_size()
         b = bound_of(qbc.numel() * item + 4 * n * n * item,
                      FLOPS_PER_CELL * n * n, tname)
-        out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                      **b}
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, **b}
         print(f"  timing {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
-              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, "
-              f"operations {b['ops_ms']:.4f}), library_ms null", flush=True)
+              f"{ms_again:.4f}; on the device {dev_ms} ms, {dev_n} launches "
+              f"profiled), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
     return out
 
 
@@ -615,38 +621,53 @@ def timing_dq(dev, n=1024):
     return out
 
 
-def timing_step3(dev, n=192):
-    """step3_ctu, its plain version and its bound at n^3 on the euler_3d
-    initial state (the main path's first input)."""
+def timing_step3(dev, n=192, q_last=None):
+    """step3_ctu (CUDA events and the profiler's device time), its plain
+    version and its bound at n^3 on the euler_3d initial state (the main
+    path's first input, ops/time_kernels.py:step3_ctu_case); with
+    ``q_last`` (the path's final q, from [4c]) the kernel's time on that
+    state too."""
     import torch
     from pyclaw_tpu_torch.ops import tiled2d
-    q_np = euler3d_state(n, n, n)
-    deltas = (2.0 / n,) * 3
     out = {}
     for tname, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
-        qbc = padded3(q_np, dtype, dev)
-        dt = float(np.dtype(tname).type(0.3 * deltas[0]))
+        qbc, args = step3_ctu_case(n, dtype, dev)
+        dt, deltas, lims, order, tw = args[0], args[1:4], args[5], \
+            args[6], args[8]
 
         def kern():
-            return tiled2d.step3_xy(qbc, dt, *deltas, {"gamma": 1.4},
-                                    (4,) * 5, 2, 2, 2)
+            return tiled2d.step3_xy(qbc, *args)
 
         def plain():
-            return plain_step3(qbc, dt, deltas, (4,) * 5, 2, 2)
+            return plain_step3(qbc, dt, deltas, lims, order, tw)
 
         ms = time_ms(kern, 20, warm=2)
         plain_ms = time_ms(plain, 3, warm=1)
         ms_again = time_ms(kern, 20, warm=2)
+        dev_ms, dev_n = device_ms_per_call(kern, "step3_ctu_kernel", 10)
         item = qbc.element_size()
         b = bound_of(qbc.numel() * item + 5 * n ** 3 * item,
                      FLOPS_PER_CELL_3D * n ** 3, tname)
-        out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                      **b}
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, **b}
+        if q_last is not None:
+            qbc = step3_ctu_case(n, dtype, dev, q_last)[0]
+            out[tname]["ms_last_state"] = time_ms(kern, 20, warm=2)
+            out[tname]["device_ms_last_state"] = device_ms_per_call(
+                kern, "step3_ctu_kernel", 10)[0]
+            print(f"  timing step3 {n}^3 {tname} on the path's last state: "
+                  f"kernel {out[tname]['ms_last_state']:.4f} ms (on the "
+                  f"device {out[tname]['device_ms_last_state']} ms)",
+                  flush=True)
         print(f"  timing step3 {n}^3 {tname}: kernel {ms:.4f} ms (repeat "
-              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, "
-              f"operations {b['ops_ms']:.4f}), library_ms null", flush=True)
+              f"{ms_again:.4f}; on the device {dev_ms} ms, {dev_n} launches "
+              f"profiled), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
         del qbc
         torch.cuda.empty_cache()
     return out
@@ -1651,11 +1672,17 @@ def main():
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 0)} B, f64 "
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 1)} B", flush=True)
     phase_s = {"build": time.perf_counter() - t0}
-    print(f"    resident per SM: dq2_weno5 "
+    print(f"    resident per SM: step2_ctu "
+          f"{lib.step2_ctu_blocks_per_sm(0)} blocks of "
+          f"{lib.step2_ctu_threads(0)} threads (f32), "
+          f"{lib.step2_ctu_blocks_per_sm(1)} of {lib.step2_ctu_threads(1)} "
+          f"(f64); dq2_weno5 "
           f"{dq_lib.dq2_weno5_blocks_per_sm(0)} blocks of 288 threads (f32), "
-          f"{dq_lib.dq2_weno5_blocks_per_sm(1)} (f64); step3_aos one block "
-          f"(its shared memory) of {lib_3a.step3_aos_threads(0)} threads "
-          f"(f32), {lib_3a.step3_aos_threads(1)} (f64)", flush=True)
+          f"{dq_lib.dq2_weno5_blocks_per_sm(1)} (f64); step3_ctu one block "
+          f"(its shared memory) of {lib3.step3_ctu_threads(0)} threads "
+          f"(f32), {lib3.step3_ctu_threads(1)} (f64); step3_aos one block "
+          f"of {lib_3a.step3_aos_threads(0)} threads (f32), "
+          f"{lib_3a.step3_aos_threads(1)} (f64)", flush=True)
     for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
@@ -1806,7 +1833,7 @@ def main():
         fail("euler_3d path: state.is_valid() is False")
     if abs(claw3.solution.t - 0.2) > 1e-12:
         fail(f"euler_3d path: ended at t={claw3.solution.t}")
-    del claw3, q3
+    del claw3
     phase_s["4c"] = time.perf_counter() - t0
 
     # [4d] the shallow-water path (radial dam break, 1024^2 f32), launches
@@ -1964,7 +1991,8 @@ def main():
     t0 = time.perf_counter()
     tm = timing(dev)
     tm_dq = timing_dq(dev)
-    tm3 = timing_step3(dev)
+    tm3 = timing_step3(dev, q_last=q3)
+    del q3
     tm_aos = timing_aos(dev)
     tm_het = timing_step3_aos(dev, q_last=q_h)
     del q_h
@@ -2003,11 +2031,13 @@ def main():
                              "step2_pallas_tiled (ops/tiled2d.py:52)",
         "rows": ["1", "4"],
         "launches": launches, "max_abs_err": main_abs_err,
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
+        "ms": f32["ms"], "device_ms": f32["device_ms"],
+        "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": None,
         "shape": [4, 1028, 1028], "dtype": "float32",
-        "ms_f64": f64["ms"], "plain_ms_f64": f64["plain_ms"],
+        "ms_f64": f64["ms"], "device_ms_f64": f64["device_ms"],
+        "plain_ms_f64": f64["plain_ms"],
         "bound_ms_f64": f64["bound_ms"], "bound_by_f64": f64["bound_by"],
         "max_rel_err_f64": worst["float64"],
         "max_rel_err_f32": worst["float32"],
@@ -2038,11 +2068,15 @@ def main():
         "replaces": "pyclaw_tpu/ops/tiled2d.py:431",
         "replaces_function": "step3_pallas_xy", "rows": ["3"],
         "launches": s3_launches, "max_abs_err": s3_main_abs_err,
-        "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+        "ms": t32["ms"], "device_ms": t32["device_ms"],
+        "ms_last_state": t32["ms_last_state"],
+        "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": None,
         "shape": [5, 196, 196, 196], "dtype": "float32",
-        "ms_f64": t64["ms"], "plain_ms_f64": t64["plain_ms"],
+        "ms_f64": t64["ms"], "device_ms_f64": t64["device_ms"],
+        "ms_last_state_f64": t64["ms_last_state"],
+        "plain_ms_f64": t64["plain_ms"],
         "bound_ms_f64": t64["bound_ms"], "bound_by_f64": t64["bound_by"],
         "max_rel_err_f64": s3_worst["float64"],
         "max_rel_err_f32": s3_worst["float32"],

@@ -1,6 +1,6 @@
 // ctu3d.cuh — the tile geometry shared by the 3D CTU kernels
-// (step3_ctu.cu, step3_aos.cu): a block of NT threads owns a tile of
-// H::X x H::Y x H::Z output cells; the regions of the sweep along D are
+// (step3_ctu.cu, step3_aos.cu): a block owns a tile of H::X x H::Y x
+// H::Z output cells (each kernel sets its threads per block per type); the regions of the sweep along D are
 // counted relative to the tile's first interior cell C0.
 //
 // Compiles with nvcc and, without __CUDACC__, with a host C++ compiler
@@ -13,8 +13,6 @@
 #define CMAX(a, b) ((a) > (b) ? (a) : (b))
 
 namespace {
-
-constexpr int NT = 256;  // threads per block
 
 // Regions of the sweep along D (extents along x, y, z)
 template <class H, int D> struct Reg {

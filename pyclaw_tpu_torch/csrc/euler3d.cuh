@@ -1,9 +1,10 @@
 // euler3d.cuh — device code of the 3D Euler solver (5 equations) for
 // step3_ctu.cu: the Roe average, the normal solve with its 5 explicit
-// waves, and the transverse split with the entropy and both shear waves
-// summed into one wave (pyclaw_tpu_torch/riemann/euler.py: _roe_averages,
-// _rpn3_euler, _prefactor_euler_3d, _split_transverse_euler), operation
-// for operation.  Compiles with nvcc and, without __CUDACC__, with a host
+// waves, the shared eigensystem of the splits, and the transverse split
+// with the entropy and both shear waves summed into one wave
+// (pyclaw_tpu_torch/riemann/euler.py: _roe_averages, _rpn3_euler,
+// _prefactor_euler_3d, _split_transverse_euler), operation for
+// operation.  Compiles with nvcc and, without __CUDACC__, with a host
 // C++ compiler for the kernel's host emulation.
 
 #pragma once
@@ -90,22 +91,40 @@ HD void waves3(const Roe3<T>& rs, T W[5][5], T s[5]) {
   s[0] = u - a; s[1] = u; s[2] = u; s[3] = u; s[4] = u + a;
 }
 
+// the shared eigensystem of the transverse splits at one interface from
+// its Roe average in the fixed order (1, 2, 3): (u1, u2, u3, H, a, g1/a2,
+// 1/(2a)), _prefactor_euler_3d's with a2 taken as the quotient g1/a2
+// that every split's entropy strength scales by, and the IEEE reciprocal
+// of 2a that every split's acoustic strength is multiplied by (the plain
+// version divides by 2a in each split: roundoff apart).  The sound speed
+// and the quotient are the operations each split made before, done once
+// per interface.
+template <typename T>
+HD void split_eig(T g1, const T vel[3], T H, T a2, T eig[7]) {
+  eig[0] = vel[0];
+  eig[1] = vel[1];
+  eig[2] = vel[2];
+  eig[3] = H;
+  eig[4] = sqrt_(a2);
+  eig[5] = g1 / a2;
+  eig[6] = T(1) / (T(2) * eig[4]);
+}
+
 // transverse split of asdq along momentum row VC (1, 2, 3) with the
-// shared eigensystem eig = (u1, u2, u3, H, a2) of _prefactor_euler_3d
+// shared eigensystem eig of split_eig
 template <int VC, typename T>
-HD void split3(T g1, const T eig[5], const T asdq[5], T bm[5], T bp[5]) {
+HD void split3(const T eig[7], const T asdq[5], T bm[5], T bp[5]) {
   constexpr int s0 = VC == 1 ? 2 : 1;          // the two shear rows
   constexpr int s1 = VC == 3 ? 2 : 3;
   const T uu[4] = {T(0), eig[0], eig[1], eig[2]};
-  const T H = eig[3], a2 = eig[4];
-  const T a = sqrt_(a2);
+  const T H = eig[3], a = eig[4], ga2 = eig[5], r2a = eig[6];
   const T ke = T(0.5) * (uu[1] * uu[1] + uu[2] * uu[2] + uu[3] * uu[3]);
   const T vt = uu[VC];
   const T d0 = asdq[0], dE = asdq[4];
   T euv = H - T(2) * ke;
-  T b3 = g1 / a2 * (euv * d0 + uu[1] * asdq[1] + uu[2] * asdq[2]
-                    + uu[3] * asdq[3] - dE);
-  T b5 = (asdq[VC] + (a - vt) * d0 - a * b3) / (T(2) * a);
+  T b3 = ga2 * (euv * d0 + uu[1] * asdq[1] + uu[2] * asdq[2]
+                + uu[3] * asdq[3] - dE);
+  T b5 = (asdq[VC] + (a - vt) * d0 - a * b3) * r2a;
   T b1 = d0 - b3 - b5;
   T bsh0 = asdq[s0] - uu[s0] * d0;
   T bsh1 = asdq[s1] - uu[s1] * d0;

@@ -19,37 +19,86 @@
 //
 // What the design does about it: no intermediate touches device memory.
 // A block owns a TX x TY tile of output cells and stages q with a 2-cell
-// halo in shared memory; the interface quantities (Roe data, fluctuations,
-// correction fluxes, transverse terms) live in shared memory only, and
-// each is computed once per block (the halo interfaces are recomputed by
-// the neighbouring block, the price of independent blocks).  The TPU's
-// workarounds are gone: no roll form, no 8-row over-fetch, no 128-lane
-// padding.  Ragged edges are masked, so any (nx, ny) works.
-//
+// halo in shared memory (cp.async, csrc/async_copy.cuh); the interface
+// quantities (Roe data, fluctuations, correction fluxes, transverse
+// terms) live in shared memory only, and each is computed once per block
+// (the halo interfaces are recomputed by the neighbouring block, the
+// price of independent blocks).  The scatter of rpt2 into the fluxes is
+// written as a gather (no atomics).  Ragged edges are masked, so any
+// (nx, ny) works.  The kernel is bound by the latency of its dependent
+// arithmetic more than by its instruction rate, so the design buys
+// resident warps and drops barriers and instructions.  Measured at
+// 1024^2 against the first port in one call (PERF.md section 6; H100,
+// 700 W), 0.243 -> 0.157 ms in f32 and 0.405 -> 0.276 ms in f64, lever by
+// lever:
+//   - the rpt2 split parts are not kept for the whole step: the x parts
+//     live in one scratch array S until the y-faces have gathered them
+//     (into the y-flux accumulators), then S takes the y parts, which the
+//     update gathers into the x-fluxes.  The first port kept both sets
+//     (16 of each interface's 28 fields) to the end: 89,304 B a block in
+//     f32, two blocks of 8 warps per SM; this layout takes 69,784 B on
+//     the same 16x16 tile, three blocks per SM;
+//   - 6 barriers a block in place of 13: the y Roe data are computed in
+//     the phase of the y-face gather, and the CFL partial is a
+//     warp-shuffle max and one slot per warp;
+//   - the two rpt2 splits of an interface share its g1/a2 (kept with
+//     the Roe data; in f64 the Roe strengths' own quotient) and its
+//     H - (u^2 + v^2), the operations each split made, and one IEEE
+//     reciprocal of 2a that both multiply by where each divided (the
+//     plain version divides: roundoff apart);
+//   - tiles fitted to the block (Shape below), 16x16 -> 12x16 in f32 and
+//     8x16 -> 11x16 in f64;
+//   - the limiter's dot products and the amdq/apdq/cq sums skip the two
+//     components the shear wave never has (the same bits).
+// Slower and not taken: a 16x16 f64 tile of 512 threads.  The limiter
+// still rebuilds three wave sets per interface from 9 stored Roe fields:
+// storing the waves (16 fields and 4 speeds) would cost more shared
+// memory than the S array saves.
+
 // Phases (each a loop of the block's threads over a region, separated by
 // barriers):
 //   load    q tile + halo -> shared (indices clamped to the padded grid;
 //           clamped cells only feed masked-out results)
 //   roe<0>  x-interface Roe averages and wave strengths -> W
-//   sweep<0> x-interface limiter, amdq/apdq, correction flux cq, and the
-//           rpt2 split of the fluctuations -> OX; x-speed CFL partial max
-//   roe<1>, sweep<1>: the same for y -> W (reused), OY
-//   update  each cell gathers the transverse terms of its four neighbour
-//           interfaces (no atomics: rpt2's scatter written as a gather),
-//           folds them into Fx/Gy and applies the conservative update
-//   reduce  tree max of the CFL partials; one value per block
+//   sweep<0> x-interface limiter, amdq/apdq, correction flux cq -> OX,
+//           the rpt2 split of the fluctuations -> S; x-speed CFL partial
+//   gather_y + roe<1>  each y-face of the tile gathers the x parts of its
+//           four neighbour x-interfaces from S into OY's flux; the
+//           y-interface Roe data -> W
+//   sweep<1> the same for y -> OY (cq added to the gathered terms), S
+//   update  each cell gathers the y parts of its two x-faces' four
+//           neighbour y-interfaces into Fx and applies the conservative
+//           update; each warp's CFL maxima
 //
 // The arithmetic repeats the plain version operation for operation,
 // including the float32/float64 branch of riemann/euler.py:_alpha34; the
-// Roe solve and the scalar helpers live in euler2d.cuh, shared with
-// dq2_weno5.cu, and the limiters in tvd.cuh, shared with step3_ctu.cu.
+// y-flux's transverse terms are summed before its cq is added, the first
+// port's order after it (roundoff).  The Roe solve and the scalar helpers
+// live in euler2d.cuh, shared with dq2_weno5.cu, and the limiters in
+// tvd.cuh, shared with step3_ctu.cu.
 
+#include "async_copy.cuh"
 #include "euler2d.cuh"
 #include "tvd.cuh"
 
 namespace {
 
 constexpr int NT = 256;  // threads per block
+
+// Tile shape per type (TX x TY cells) and blocks per SM: 12x16 in f32
+// (54,840 B of shared memory, three blocks per SM), 11x16 in f64
+// (102,208 B, two blocks per SM).  The tiles are fitted to the block:
+// each sweep region ((TX+1) x (TY+2), (TX+2) x (TY+1) interfaces) is one
+// pass of its 256 threads (the first port's 16x16 and 8x16 left 50 items
+// to a second pass, or 36% of the threads idle), and in f64 each Roe
+// region too.
+template <typename T> struct Shape;
+template <> struct Shape<float> {
+  static constexpr int TX = 12, TY = 16, PER_SM = 3;
+};
+template <> struct Shape<double> {
+  static constexpr int TX = 11, TY = 16, PER_SM = 2;
+};
 
 // ---- block geometry and shared-memory layout --------------------------
 template <typename T, int TX, int TY> struct Tile {
@@ -59,17 +108,20 @@ template <typename T, int TX, int TY> struct Tile {
   static constexpr int WN = WXR * WXC > WYR * WYC ? WXR * WXC : WYR * WYC;
   static constexpr int OXR = TX + 1, OXC = TY + 2;    // x-interface outputs
   static constexpr int OYR = TX + 2, OYC = TY + 1;    // y-interface outputs
-  static constexpr int NWF = 9;    // u v H a2 a a1 a3 a2w a4
-  static constexpr int NOF = 28;   // amdq apdq cq bm(am) bp(am) bm(ap) bp(ap)
+  static constexpr int NWF = 9;    // u v H g1/a2 a a1 a3 a2w a4
+  static constexpr int NOF = 12;   // amdq apdq flux (cq + transverse terms)
+  static constexpr int NSF = 16;   // bm(am) bp(am) bm(ap) bp(ap)
   static constexpr int OXN = OXR * OXC, OYN = OYR * OYC;
-  static constexpr size_t elems =
-      4 * QR * QC + NWF * WN + NOF * OXN + NOF * OYN + 2 * NT;
+  static constexpr int SN = OXN > OYN ? OXN : OYN;
+  static constexpr size_t elems = 4 * QR * QC + NWF * WN + NOF * OXN
+                                  + NOF * OYN + NSF * SN + 2 * NT
+                                  + 2 * (NT / 32);
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
-// Field offsets inside an O array (times the region size)
-enum { F_AM = 0, F_AP = 4, F_CQ = 8, F_T0 = 12, F_T1 = 16, F_T2 = 20,
-       F_T3 = 24 };
+// Field offsets inside an O array and inside S (times the region size)
+enum { F_AM = 0, F_AP = 4, F_CQ = 8 };
+enum { F_T0 = 0, F_T1 = 4, F_T2 = 8, F_T3 = 12 };
 
 template <typename T> struct Args {
   const T* qbc;
@@ -87,8 +139,9 @@ template <typename T, int TX, int TY> struct Block {
   T* W;    // [NWF][WN]
   T* OX;   // [NOF][OXN]
   T* OY;   // [NOF][OYN]
-  T* rx;   // [NT] x-speed partial max
-  T* ry;   // [NT] y-speed partial max
+  T* S;    // [NSF][SN]: the x, then the y, rpt2 split parts
+  T* rx;   // [NT] x-speed partial max, then [NT / 32] per warp
+  T* ry;   // the same for the y-speeds
   int I0, J0, bid;  // first interior cell of the tile (padded indices)
 
   HD void bind(T* s, int bx, int by, int nbx) {
@@ -96,8 +149,9 @@ template <typename T, int TX, int TY> struct Block {
     W = q + 4 * L::QR * L::QC;
     OX = W + L::NWF * L::WN;
     OY = OX + L::NOF * L::OXN;
-    rx = OY + L::NOF * L::OYN;
-    ry = rx + NT;
+    S = OY + L::NOF * L::OYN;
+    rx = S + L::NSF * L::SN;
+    ry = rx + NT + NT / 32;
     I0 = 2 + by * TX;
     J0 = 2 + bx * TY;
     bid = by * nbx + bx;
@@ -106,6 +160,7 @@ template <typename T, int TX, int TY> struct Block {
 };
 
 // ---- phase: stage q tile + halo ----------------------------------------
+// Every copy is started (cp.async) before any is waited on.
 template <typename T, int TX, int TY>
 HD void phase_load(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
   using L = Tile<T, TX, TY>;
@@ -116,10 +171,11 @@ HD void phase_load(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
     int I = B.I0 - 2 + r, J = B.J0 - 2 + c;
     I = I < A.NX ? I : A.NX - 1;
     J = J < A.NY ? J : A.NY - 1;
-    B.q[idx] = A.qbc[((long long)e * A.NX + I) * A.NY + J];
+    copy_async(B.q + idx, A.qbc + ((long long)e * A.NX + I) * A.NY + J);
   }
   B.rx[tid] = T(0);
   B.ry[tid] = T(0);
+  copy_wait_all();
 }
 
 // ---- phase: Roe averages + wave strengths at one set of interfaces ------
@@ -143,13 +199,23 @@ HD void phase_roe(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
     Wp[0 * L::WN] = rs.u;
     Wp[1 * L::WN] = rs.v;
     Wp[2 * L::WN] = rs.H;
-    Wp[3 * L::WN] = rs.a2;
+    // the quotient both rpt2 splits take (in f64 alpha34's own)
+    Wp[3 * L::WN] = g1 / rs.a2;
     Wp[4 * L::WN] = rs.a;
     Wp[5 * L::WN] = rs.a1;
     Wp[6 * L::WN] = rs.a3;
     Wp[7 * L::WN] = rs.a2w;
     Wp[8 * L::WN] = rs.a4;
   }
+}
+
+// whether component e of wave p of the normal solve along IXY can be
+// nonzero: the shear wave of roe_waves has two components.  The sums
+// below skip the others, which add zero products to a finite sum (the
+// same bits) but cost the card an instruction each (IEEE arithmetic
+// cannot drop x + 0 * y).
+template <int IXY> HD constexpr bool nz(int p, int e) {
+  return p != 2 || e == 2 - IXY || e == 3;
 }
 
 // waves (equation order) and speeds of rpn2 from stored Roe data
@@ -159,7 +225,6 @@ HD void waves_at(const T* W, int idx, T w[4][4], T s[4]) {
   rs.u = W[0 * WN + idx];
   rs.v = W[1 * WN + idx];
   rs.H = W[2 * WN + idx];
-  rs.a2 = W[3 * WN + idx];
   rs.a = W[4 * WN + idx];
   rs.a1 = W[5 * WN + idx];
   rs.a3 = W[6 * WN + idx];
@@ -168,16 +233,17 @@ HD void waves_at(const T* W, int idx, T w[4][4], T s[4]) {
   roe_waves<IXY>(rs, w, s);
 }
 
-// rpt2_euler: split asdq into transverse down-going bm / up-going bp
+// rpt2_euler: split asdq into transverse down-going bm / up-going bp; ga2
+// is g1/a2, euv is H - (u^2 + v^2) and r2a 1/(2a), shared by both splits
+// of an interface
 template <int IXY, typename T>
-HD void rpt2(T g1, T u, T v, T H, T a2, T a, const T asdq[4], T bm[4],
+HD void rpt2(T u, T v, T H, T a, T ga2, T euv, T r2a, const T asdq[4], T bm[4],
              T bp[4]) {
   constexpr int mu = 1 + IXY, mv = 2 - IXY;
   T d0 = asdq[0], dmu = asdq[mu], dmv = asdq[mv], dE = asdq[3];
-  T euv = H - (u * u + v * v);
-  T b3 = g1 / a2 * (euv * d0 + u * dmu + v * dmv - dE);
+  T b3 = ga2 * (euv * d0 + u * dmu + v * dmv - dE);
   T b2w = dmu - u * d0;
-  T b4 = (dmv + (a - v) * d0 - a * b3) / (T(2) * a);
+  T b4 = (dmv + (a - v) * d0 - a * b3) * r2a;
   T b1 = d0 - b3 - b4;
   T r[4][4];
   r[0][0] = b1; r[0][mu] = b1 * u; r[0][mv] = b1 * (v - a);
@@ -226,21 +292,36 @@ HD void phase_sweep(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
       T wn[4][4], sn[4], dl[4], dr[4];
       waves_at<IXY, T, L::WN>(B.W, lo, wn, sn);
       for (int p = 0; p < 4; ++p) {
-        T d = wn[p][0] * w[p][0];
-        for (int e = 1; e < 4; ++e) d = d + wn[p][e] * w[p][e];
+        T d = T(0);
+        bool first = true;
+        for (int e = 0; e < 4; ++e) {
+          if (!nz<IXY>(p, e)) continue;
+          d = first ? wn[p][e] * w[p][e] : d + wn[p][e] * w[p][e];
+          first = false;
+        }
         dl[p] = d;
       }
       waves_at<IXY, T, L::WN>(B.W, hi, wn, sn);
       for (int p = 0; p < 4; ++p) {
-        T d = w[p][0] * wn[p][0];
-        for (int e = 1; e < 4; ++e) d = d + w[p][e] * wn[p][e];
+        T d = T(0);
+        bool first = true;
+        for (int e = 0; e < 4; ++e) {
+          if (!nz<IXY>(p, e)) continue;
+          d = first ? w[p][e] * wn[p][e] : d + w[p][e] * wn[p][e];
+          first = false;
+        }
         dr[p] = d;
       }
       for (int p = 0; p < 4; ++p) {
         int lid = A.lim[p];
         if (lid == 0) continue;
-        T wn2 = w[p][0] * w[p][0];
-        for (int e = 1; e < 4; ++e) wn2 = wn2 + w[p][e] * w[p][e];
+        T wn2 = T(0);
+        bool first = true;
+        for (int e = 0; e < 4; ++e) {
+          if (!nz<IXY>(p, e)) continue;
+          wn2 = first ? w[p][e] * w[p][e] : wn2 + w[p][e] * w[p][e];
+          first = false;
+        }
         T dotu = s[p] > T(0) ? dl[p] : dr[p];
         bool safe = wn2 > T(0);
         T theta = safe ? dotu / wn2 : T(0);
@@ -253,6 +334,7 @@ HD void phase_sweep(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
     for (int e = 0; e < 4; ++e) {
       T m = T(0), pp = T(0), cc = T(0);
       for (int p = 0; p < 4; ++p) {
+        if (!nz<IXY>(p, e)) continue;   // wave 0 has every component
         T am_t = mn(s[p], T(0)) * w[p][e];
         T ap_t = mx(s[p], T(0)) * w[p][e];
         m = p == 0 ? am_t : m + am_t;
@@ -269,7 +351,8 @@ HD void phase_sweep(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
       cq[e] = cc;
       O[(F_AM + e) * ON + idx] = m;
       O[(F_AP + e) * ON + idx] = pp;
-      O[(F_CQ + e) * ON + idx] = cc;
+      // the y-flux already holds its gathered transverse terms
+      O[(F_CQ + e) * ON + idx] = IXY == 0 ? cc : O[(F_CQ + e) * ON + idx] + cc;
     }
 
     if (A.tw > 0) {
@@ -279,19 +362,21 @@ HD void phase_sweep(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
         amt[e] = both ? am[e] + cq[e] : am[e];
         apt[e] = both ? ap[e] - cq[e] : ap[e];
       }
-      T u = B.W[0 * L::WN + own], v = B.W[1 * L::WN + own];
-      T H = B.W[2 * L::WN + own], a2 = B.W[3 * L::WN + own];
-      T a = B.W[4 * L::WN + own];
+      const T u = B.W[0 * L::WN + own], v = B.W[1 * L::WN + own];
+      const T H = B.W[2 * L::WN + own], ga2 = B.W[3 * L::WN + own];
+      const T a = B.W[4 * L::WN + own];
+      const T euv = H - (u * u + v * v);
+      const T r2a = T(1) / (T(2) * a);
       T bm[4], bp[4];
-      rpt2<IXY, T>(A.g1, u, v, H, a2, a, amt, bm, bp);
+      rpt2<IXY, T>(u, v, H, a, ga2, euv, r2a, amt, bm, bp);
       for (int e = 0; e < 4; ++e) {
-        O[(F_T0 + e) * ON + idx] = bm[e];
-        O[(F_T1 + e) * ON + idx] = bp[e];
+        B.S[(F_T0 + e) * L::SN + idx] = bm[e];
+        B.S[(F_T1 + e) * L::SN + idx] = bp[e];
       }
-      rpt2<IXY, T>(A.g1, u, v, H, a2, a, apt, bm, bp);
+      rpt2<IXY, T>(u, v, H, a, ga2, euv, r2a, apt, bm, bp);
       for (int e = 0; e < 4; ++e) {
-        O[(F_T2 + e) * ON + idx] = bm[e];
-        O[(F_T3 + e) * ON + idx] = bp[e];
+        B.S[(F_T2 + e) * L::SN + idx] = bm[e];
+        B.S[(F_T3 + e) * L::SN + idx] = bp[e];
       }
     }
 
@@ -311,13 +396,60 @@ HD void phase_sweep(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
   if (IXY == 0) B.rx[tid] = smax; else B.ry[tid] = smax;
 }
 
-// ---- phase: transverse fold (gather) + conservative update ------------
+// ---- phase: the y-faces gather the x split parts ----------------------
+// Gy at y-interface (OY row ti+1, column cj) takes -dt/(2 dx) (bm(amdq)
+// at x-interface (ti+1, cj+1) + bp(amdq) at (ti+1, cj)) and the same of
+// apdq at row ti: rows 1 .. TX of OY are the tile's y-faces; the rest
+// (read by no cell) start from 0.
+template <typename T, int TX, int TY>
+HD void phase_gather_y(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
+  using L = Tile<T, TX, TY>;
+  constexpr int OXC = L::OXC, OYC = L::OYC, OYN = L::OYN, SN = L::SN;
+  const T* X = B.S;
+  for (int idx = tid; idx < OYN; idx += NT) {
+    const int r = idx / OYC, cj = idx % OYC;
+    const bool face = A.tw > 0 && r >= 1 && r <= TX;
+    for (int e = 0; e < 4; ++e) {
+      T gy = T(0);
+      if (face) {
+        const int ti = r - 1;
+        gy = -A.hdx * (X[(F_T0 + e) * SN + (ti + 1) * OXC + cj + 1]
+                       + X[(F_T1 + e) * SN + (ti + 1) * OXC + cj])
+             - A.hdx * (X[(F_T2 + e) * SN + ti * OXC + cj + 1]
+                        + X[(F_T3 + e) * SN + ti * OXC + cj]);
+      }
+      B.OY[(F_CQ + e) * OYN + idx] = gy;
+    }
+  }
+}
+
+// fold thread t's CFL partials into its warp's slots: a shuffle max on
+// the card, a loop over the lanes on the host
+template <typename T> HD void warp_fold(T* red, int t) {
+#if defined(__CUDACC__)
+  const T m = warp_max(red[t]);
+  if (t % 32 == 0) red[NT + t / 32] = m;
+#else
+  red[NT + t / 32] = t % 32 == 0 ? red[t] : mx(red[NT + t / 32], red[t]);
+#endif
+}
+
+// the block's maximum from the warps' slots
+template <typename T> HD T block_max(const T* red) {
+  T m = red[NT];
+  for (int w = 1; w < NT / 32; ++w) m = mx(m, red[NT + w]);
+  return m;
+}
+
+// ---- phase: x transverse gather + conservative update ------------------
 template <typename T, int TX, int TY>
 HD void phase_update(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
   using L = Tile<T, TX, TY>;
   constexpr int OXC = L::OXC, OYC = L::OYC, OXN = L::OXN, OYN = L::OYN;
+  constexpr int SN = L::SN;
   const T* X = B.OX;
   const T* Y = B.OY;
+  const T* YS = B.S;
   const int nx = A.NX - 4, ny = A.NY - 4;
   for (int idx = tid; idx < TX * TY; idx += NT) {
     int ti = idx / TY, tj = idx % TY;
@@ -332,27 +464,18 @@ HD void phase_update(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
         T f = X[(F_CQ + e) * OXN + rk * OXC + tj + 1];
         if (A.tw > 0) {
           int cJ = tj + 1;
-          f = f - A.hdy * (Y[(F_T0 + e) * OYN + (rk + 1) * OYC + cJ]
-                           + Y[(F_T1 + e) * OYN + rk * OYC + cJ])
-                - A.hdy * (Y[(F_T2 + e) * OYN + (rk + 1) * OYC + cJ - 1]
-                           + Y[(F_T3 + e) * OYN + rk * OYC + cJ - 1]);
+          f = f - A.hdy * (YS[(F_T0 + e) * SN + (rk + 1) * OYC + cJ]
+                           + YS[(F_T1 + e) * SN + rk * OYC + cJ])
+                - A.hdy * (YS[(F_T2 + e) * SN + (rk + 1) * OYC + cJ - 1]
+                           + YS[(F_T3 + e) * SN + rk * OYC + cJ - 1]);
         }
         F[h] = f;
       }
       // Gy at y-interfaces j = J-1 (OY col tj) and j = J (col tj+1),
-      // row I (OY row ti+1); x terms from OX rows ti, ti+1
+      // row I (OY row ti+1): cq and the gathered x terms
       T G[2];
-      for (int h = 0; h < 2; ++h) {
-        int cj = tj + h;
-        T gy = Y[(F_CQ + e) * OYN + (ti + 1) * OYC + cj];
-        if (A.tw > 0) {
-          gy = gy - A.hdx * (X[(F_T0 + e) * OXN + (ti + 1) * OXC + cj + 1]
-                             + X[(F_T1 + e) * OXN + (ti + 1) * OXC + cj])
-                  - A.hdx * (X[(F_T2 + e) * OXN + ti * OXC + cj + 1]
-                             + X[(F_T3 + e) * OXN + ti * OXC + cj]);
-        }
-        G[h] = gy;
-      }
+      for (int h = 0; h < 2; ++h)
+        G[h] = Y[(F_CQ + e) * OYN + (ti + 1) * OYC + tj + h];
       T apx = X[(F_AP + e) * OXN + ti * OXC + tj + 1];
       T amx = X[(F_AM + e) * OXN + (ti + 1) * OXC + tj + 1];
       T apy = Y[(F_AP + e) * OYN + (ti + 1) * OYC + tj];
@@ -363,26 +486,30 @@ HD void phase_update(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
           B.qs(e, ti + 2, tj + 2) - dq;
     }
   }
+  warp_fold(B.rx, tid);
+  warp_fold(B.ry, tid);
 }
 
+// ---- the phase sequence, shared by the kernel and the host emulation ---
+// X(fn) runs fn(tid) for every thread of the block, then a barrier.
+template <typename T, int TX, int TY, class X>
+HD void step_block(const Args<T>& A, Block<T, TX, TY>& B, const X& run) {
+  run([&](int t) { phase_load<T, TX, TY>(A, B, t); });
+  run([&](int t) { phase_roe<0, T, TX, TY>(A, B, t); });
+  run([&](int t) { phase_sweep<0, T, TX, TY>(A, B, t); });
+  run([&](int t) {
+    phase_gather_y<T, TX, TY>(A, B, t);
+    phase_roe<1, T, TX, TY>(A, B, t);
+  });
+  run([&](int t) { phase_sweep<1, T, TX, TY>(A, B, t); });
+  run([&](int t) { phase_update<T, TX, TY>(A, B, t); });
+}
+
+// the block's CFL: max speed times dt/dx, max over both directions
 template <typename T, int TX, int TY>
-HD void phase_reduce(Block<T, TX, TY>& B, int tid, int stride) {
-  if (tid < stride) {
-    B.rx[tid] = mx(B.rx[tid], B.rx[tid + stride]);
-    B.ry[tid] = mx(B.ry[tid], B.ry[tid + stride]);
-  }
+HD T block_cfl(const Args<T>& A, const Block<T, TX, TY>& B) {
+  return mx(A.dtdx * block_max(B.rx), A.dtdy * block_max(B.ry));
 }
-
-template <typename T, int TX, int TY>
-HD void phase_write_cfl(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
-  if (tid == 0) A.cflb[B.bid] = mx(A.dtdx * B.rx[0], A.dtdy * B.ry[0]);
-}
-
-// Tile shape per type: 16x16 cells in f32 (87 KB of shared memory,
-// two blocks per SM), 8x16 in f64 (96 KB, two blocks per SM).
-template <typename T> struct Shape;
-template <> struct Shape<float> { static constexpr int TX = 16, TY = 16; };
-template <> struct Shape<double> { static constexpr int TX = 8, TY = 16; };
 
 template <typename T>
 Args<T> make_args(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
@@ -413,29 +540,21 @@ void grid_of(int nxg, int nyg, int& nbx, int& nby) {
 }
 
 #if defined(__CUDACC__)
+struct DeviceRun {
+  template <class Fn> __device__ void operator()(Fn&& fn) const {
+    fn(static_cast<int>(threadIdx.x));
+    __syncthreads();
+  }
+};
+
 template <typename T, int TX, int TY>
-__global__ void __launch_bounds__(NT) step2_ctu_kernel(Args<T> A) {
+__global__ void __launch_bounds__(NT, Shape<T>::PER_SM)
+    step2_ctu_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Block<T, TX, TY> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x);
-  const int tid = threadIdx.x;
-  phase_load<T, TX, TY>(A, B, tid);
-  __syncthreads();
-  phase_roe<0, T, TX, TY>(A, B, tid);
-  __syncthreads();
-  phase_sweep<0, T, TX, TY>(A, B, tid);
-  __syncthreads();
-  phase_roe<1, T, TX, TY>(A, B, tid);
-  __syncthreads();
-  phase_sweep<1, T, TX, TY>(A, B, tid);
-  __syncthreads();
-  phase_update<T, TX, TY>(A, B, tid);
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    __syncthreads();
-    phase_reduce<T, TX, TY>(B, tid, s);
-  }
-  __syncthreads();
-  phase_write_cfl<T, TX, TY>(A, B, tid);
+  step_block(A, B, DeviceRun());
+  if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(A, B);
 }
 
 template <typename T>
@@ -462,6 +581,12 @@ int launch(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
 // with each barrier between two phases kept by running the whole block
 // through a phase before the next.  Used by the CPU tests to check the
 // kernel's index algebra against the plain version without a card.
+struct HostRun {
+  template <class Fn> void operator()(Fn&& fn) const {
+    for (int t = 0; t < NT; ++t) fn(t);
+  }
+};
+
 template <typename T>
 int launch_host(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
                 double dt, double dx, double dy, double g1, int order,
@@ -477,15 +602,8 @@ int launch_host(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
     for (int bx = 0; bx < nbx; ++bx) {
       Block<T, TX, TY> B;
       B.bind(smem.data(), bx, by, nbx);
-      for (int t = 0; t < NT; ++t) phase_load<T, TX, TY>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_roe<0, T, TX, TY>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_sweep<0, T, TX, TY>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_roe<1, T, TX, TY>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_sweep<1, T, TX, TY>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_update<T, TX, TY>(A, B, t);
-      for (int s = NT / 2; s > 0; s >>= 1)
-        for (int t = 0; t < NT; ++t) phase_reduce<T, TX, TY>(B, t, s);
-      for (int t = 0; t < NT; ++t) phase_write_cfl<T, TX, TY>(A, B, t);
+      step_block(A, B, HostRun());
+      A.cflb[B.bid] = block_cfl(A, B);
     }
   }
   return 0;
@@ -503,6 +621,17 @@ int step2_ctu_blocks(int nxg, int nyg, int is_double) {
   if (is_double) grid_of<double>(nxg, nyg, nbx, nby);
   else grid_of<float>(nxg, nyg, nbx, nby);
   return nbx * nby;
+}
+
+// Threads per block and the blocks per SM the kernel is built for
+// (reported by chip_smoke.py).
+int step2_ctu_threads(int is_double) {
+  (void)is_double;
+  return NT;
+}
+
+int step2_ctu_blocks_per_sm(int is_double) {
+  return is_double ? Shape<double>::PER_SM : Shape<float>::PER_SM;
 }
 
 // Shared memory bytes per block (reported by chip_smoke.py).

@@ -135,7 +135,7 @@ template <> struct Shape<double> {
 };
 
 // Threads per block per type: as many warps as the registers allow over the
-// one tile that the shared memory holds (ctu3d.cuh's NT is step3_ctu.cu's)
+// one tile that the shared memory holds
 template <typename T> struct Threads;
 template <> struct Threads<float> {
   static constexpr int N = 1024;

@@ -49,10 +49,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
 _VALID_LIMITERS = set(range(10)) | {16, 19, 20, 21} | set(CFL_LIMITER_IDS)
 
 
-@functools.cache
-def _lib():
-    from . import _build
-    lib = _build.load("step2_ctu")
+def bind_step2_lib(lib):
+    """Set the argument types of a ctypes handle of a build of
+    ``csrc/step2_ctu.cu``; returns it."""
     for name in ("step2_ctu_f32", "step2_ctu_f64"):
         fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES
@@ -60,6 +59,12 @@ def _lib():
     lib.step2_ctu_blocks.argtypes = [ctypes.c_int] * 3
     lib.step2_ctu_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib():
+    from . import _build
+    return bind_step2_lib(_build.load("step2_ctu"))
 
 
 def bind_dq_lib(lib):
@@ -113,11 +118,13 @@ def check_options(mthlim, order, transverse_waves, num_waves=4,
 
 
 def step2_rows(qbc, dt, dx, dy, params, mthlim, order, num_ghost=2,
-               transverse_waves=2):
+               transverse_waves=2, lib=None):
     """One 2D CTU step of the Euler 4-wave system.
 
     qbc: (4, nx+4, ny+4) ghost-padded q (float32 or float64, contiguous).
     dt: step in q's dtype (a Python float that is exact in it).
+    lib: another build of the kernel, bound by :func:`bind_step2_lib` (the
+    variant timer ``ops/time_kernels.py``); None for this checkout's.
     Returns (q (4, nx, ny), cfl as a 0-d tensor)."""
     check_options(mthlim, order, transverse_waves)
     if num_ghost != 2:
@@ -130,7 +137,7 @@ def step2_rows(qbc, dt, dx, dy, params, mthlim, order, num_ghost=2,
     _check_cuda_qbc("step2_rows", qbc, num_ghost, 4, 2)
     _, nxg, nyg = qbc.shape
     is_double = qbc.dtype == torch.float64
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     nblocks = lib.step2_ctu_blocks(nxg, nyg, int(is_double))
     q_out = torch.empty((4, nxg - 4, nyg - 4), dtype=qbc.dtype,
                         device=qbc.device)
@@ -195,10 +202,9 @@ def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None):
 dq_rows.launches = 0
 
 
-@functools.cache
-def _step3_lib():
-    from . import _build
-    lib = _build.load("step3_ctu")
+def bind_step3_lib(lib):
+    """Set the argument types of a ctypes handle of a build of
+    ``csrc/step3_ctu.cu``; returns it."""
     for name in ("step3_ctu_f32", "step3_ctu_f64"):
         fn = getattr(lib, name)
         fn.argtypes = STEP3_ARGTYPES + [ctypes.c_void_p]
@@ -206,6 +212,12 @@ def _step3_lib():
     lib.step3_ctu_blocks.argtypes = [ctypes.c_int] * 4
     lib.step3_ctu_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _step3_lib():
+    from . import _build
+    return bind_step3_lib(_build.load("step3_ctu"))
 
 
 # qbc, qout, cflb; nxg, nyg, nzg; dt, dx, dy, dz, gamma-1; order, tw and
@@ -216,7 +228,7 @@ STEP3_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 
 
 def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
-             transverse_waves=2):
+             transverse_waves=2, lib=None):
     """One 3D CTU step of the Euler system (5 equations, 5 waves), the
     counterpart of ``pyclaw_tpu/ops/tiled2d.py:step3_pallas_xy``.
 
@@ -224,7 +236,9 @@ def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
     contiguous).  dt: step in q's dtype (a Python float that is exact in
     it).  Returns (q (5, nx, ny, nz), cfl as a 0-d tensor).  On a CPU
     tensor this is ``classic/kernels.py:step3``; on a CUDA tensor one
-    launch of ``csrc/step3_ctu.cu``."""
+    launch of ``csrc/step3_ctu.cu`` (``lib``: another build of it, bound
+    by :func:`bind_step3_lib`, for the variant timer
+    ``ops/time_kernels.py``; None for this checkout's)."""
     check_options(mthlim, order, transverse_waves, 5, "step3_xy")
     if num_ghost != 2:
         raise ValueError(f"step3_xy: num_ghost must be 2, got {num_ghost}")
@@ -236,7 +250,7 @@ def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
     _check_cuda_qbc("step3_xy", qbc, num_ghost, 5, 3)
     _, nxg, nyg, nzg = qbc.shape
     is_double = qbc.dtype == torch.float64
-    lib = _step3_lib()
+    lib = _step3_lib() if lib is None else lib
     q_out = torch.empty((5, nxg - 4, nyg - 4, nzg - 4), dtype=qbc.dtype,
                         device=qbc.device)
     cfl_blocks = torch.empty((lib.step3_ctu_blocks(nxg, nyg, nzg,

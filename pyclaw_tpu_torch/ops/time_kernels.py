@@ -4,9 +4,10 @@ and the timers and timed cases that ``chip_smoke.py`` uses too.
     python -m pyclaw_tpu_torch.ops.time_kernels KERNEL VARIANT [VARIANT ...]
         [--out FILE] [--sass]
 
-KERNEL is ``dq2_weno5`` or ``step3_aos``, timed through its wrapper in
-``ops/tiled2d.py`` on the case that ``chip_smoke.py`` times
-(:func:`dq_case`, :func:`step3_aos_case`).  Each VARIANT is
+KERNEL is ``step2_ctu``, ``dq2_weno5``, ``step3_ctu`` or ``step3_aos``,
+timed through its wrapper in ``ops/tiled2d.py`` on the case that
+``chip_smoke.py`` times (:func:`step2_ctu_case`, :func:`dq_case`,
+:func:`step3_ctu_case`, :func:`step3_aos_case`).  Each VARIANT is
 ``LABEL=ROOT[:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/csrc/
 KERNEL.cu`` (ROOT a checkout, for example an unpacked ``git archive`` of a
 parent commit, or a copy with an edited source) built with this
@@ -42,7 +43,8 @@ import torch
 
 from . import _build
 
-ITERS = {"dq2_weno5": 100, "step3_aos": 20}
+ITERS = {"step2_ctu": 200, "dq2_weno5": 100, "step3_ctu": 10,
+         "step3_aos": 20}
 
 
 # ---- timers -------------------------------------------------------------
@@ -68,30 +70,35 @@ def device_ms_per_call(fn, needle, calls=20):
     such launches (None, 0 when it shows none).  At the 1D sizes a
     wrapper call's host work (allocations, the ctypes call, the CFL
     reduction) takes longer than its kernel, so the CUDA events of
-    :func:`events_ms` time the host; this times the kernel alone."""
+    :func:`events_ms` time the host; this times the kernel alone.  A
+    window whose trace shows none of the launches (it happens for the
+    smallest kernels) is profiled again, up to three windows."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, count, seen = 0.0, 0, []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
-        seen.append((ev.key[:60], ev.count, t))
-        if needle in ev.key:
-            total += t
-            count += ev.count
-    if count == 0:
-        print(f"    profiler: no {needle} launch among {seen[:4]}",
-              flush=True)
-        return None, 0
-    return total / count / 1e3, count
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, count, seen = 0.0, 0, []
+        for ev in prof.key_averages():
+            if (getattr(ev, "device_type", None)
+                    != torch.autograd.DeviceType.CUDA):
+                continue
+            t = getattr(ev, "self_device_time_total", None)
+            t = t if t is not None else getattr(ev, "self_cuda_time_total",
+                                                0.0)
+            seen.append((ev.key[:60], ev.count, t))
+            if needle in ev.key:
+                total += t
+                count += ev.count
+        if count:
+            return total / count / 1e3, count
+        print(f"    profiler window {attempt + 1}: no {needle} launch among "
+              f"{seen[:4]}", flush=True)
+    return None, 0
 
 
 # ---- states and timed cases ---------------------------------------------
@@ -100,6 +107,13 @@ def quadrants_state(nx, ny):
     """q of examples.euler_2d_quadrants at nx x ny (a CPU tensor)."""
     from ..examples import euler_2d_quadrants as ex
     return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
+
+
+def euler3d_state(nx, ny, nz):
+    """q of examples.euler_3d at nx x ny x nz (a CPU tensor)."""
+    from ..examples import euler_3d as ex
+    return ex.setup(mx=nx, my=ny, mz=nz, outdir=None,
+                    device="cpu").solution.q
 
 
 def het_state(nx, ny, nz):
@@ -137,6 +151,30 @@ def _exact(value, dtype):
     return float(np.dtype(str(dtype).split(".")[1]).type(value))
 
 
+def step2_ctu_case(n, dtype, dev):
+    """step2_ctu's timed case at n^2, the classic quadrants path's
+    configuration on its first state: qbc (2 extrapolated ghost cells) and
+    the rest of ``tiled2d.step2_rows``'s arguments (dt = 0.2/n, dx = dy =
+    1/n, gamma 1.4, van Leer, order 2, transverse_waves 2)."""
+    qbc = padded(quadrants_state(n, n), dtype, dev)
+    h = 1.0 / n
+    return qbc, (_exact(0.2 / n, dtype), h, h, {"gamma": 1.4}, (3,) * 4, 2,
+                 2, 2)
+
+
+def step3_ctu_case(n, dtype, dev, q=None):
+    """step3_ctu's timed case at n^3, the Euler 3D path's configuration on
+    its first state (or on ``q``, another state of the path): qbc (2
+    extrapolated ghost cells) and the rest of ``tiled2d.step3_xy``'s
+    arguments (dt = 0.3 dx, dx = 2/n, gamma 1.4, MC, order 2,
+    transverse_waves 2)."""
+    q = euler3d_state(n, n, n) if q is None else q
+    qbc = padded3(q, dtype, dev).contiguous()
+    d = 2.0 / n
+    return qbc, (_exact(0.3 * d, dtype), d, d, d, {"gamma": 1.4}, (4,) * 5,
+                 2, 2, 2)
+
+
 def dq_case(n, dtype, dev):
     """dq2_weno5's timed case at n^2: qbc (the quadrants state, 3 ghost
     cells) and the rest of ``tiled2d.dq_rows``'s arguments (dt = 2/n,
@@ -159,6 +197,26 @@ def step3_aos_case(n, dtype, dev):
     return qbc, auxbc, (_exact(0.45 * d, dtype), d, d, d,
                         riemann.vc_acoustics_3D, {}, (4, 4), 2, False, -1,
                         2, 1)
+
+
+def _step2_ctu_call(dtype, dev, n=1024):
+    from . import tiled2d
+    qbc, args = step2_ctu_case(n, dtype, dev)
+
+    def make(lib):
+        lib = tiled2d.bind_step2_lib(lib)
+        return lambda: tiled2d.step2_rows(qbc, *args, lib=lib)
+    return make
+
+
+def _step3_ctu_call(dtype, dev, n=192):
+    from . import tiled2d
+    qbc, args = step3_ctu_case(n, dtype, dev)
+
+    def make(lib):
+        lib = tiled2d.bind_step3_lib(lib)
+        return lambda: tiled2d.step3_xy(qbc, *args, lib=lib)
+    return make
 
 
 def _dq_call(dtype, dev, n=1024):
@@ -258,7 +316,9 @@ def run(kernel, variants, sass=False):
                 print(f"  sass [{label}] {entry[:70]}: {count} "
                       f"instructions; {ops}")
     order = labels + labels[::-1]
-    case = {"dq2_weno5": _dq_call, "step3_aos": _step3_aos_call}[kernel]
+    case = {"step2_ctu": _step2_ctu_call, "dq2_weno5": _dq_call,
+            "step3_ctu": _step3_ctu_call,
+            "step3_aos": _step3_aos_call}[kernel]
     result = {"kernel": kernel, "card": card, "order": order, "types": {},
               "sass": result_sass}
     for dtype in (torch.float32, torch.float64):

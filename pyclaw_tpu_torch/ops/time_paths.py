@@ -1,0 +1,122 @@
+"""Time the classic quadrants path and the Euler 3D path of checkouts
+against each other on one card, each run in a process of its own.
+
+    python -m pyclaw_tpu_torch.ops.time_paths LABEL=ROOT [LABEL=ROOT ...]
+        [--out FILE]
+
+ROOT is a directory that holds a ``pyclaw_tpu_torch`` package: ``.`` for
+this checkout, an unpacked ``git archive`` for another commit.  For each
+path the labels run in order and then in reverse (parent, change,
+change, parent).  Each run is a fresh Python process that imports the
+package from ROOT (its kernels build into ROOT's ``build/kernels``),
+warms the path up with a short run to t = 0.01, then times
+``Controller.run()`` at the path's full size: quadrants at 1024^2 in
+float32 to t = 0.8 on the classic solver (``step2_ctu``), Euler 3D at
+192^3 in float32 to t = 0.2 (``step3_ctu``).  It prints the accepted and
+rejected steps, the kernel's launches, the wall seconds and the
+cell-updates/s.  Needs a card; writes the records as JSON to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+
+# (example module, setup keywords, final time, cells, wrapper) per path
+PATHS = {
+    "quadrants": ("euler_2d_quadrants", {"mx": 1024, "my": 1024}, 0.8,
+                  1024 ** 2, "step2_rows"),
+    "euler3d": ("euler_3d", {"mx": 192, "my": 192, "mz": 192}, 0.2,
+                192 ** 3, "step3_xy"),
+}
+
+CHILD = r"""
+import importlib, json, sys, time
+import numpy as np
+import torch
+root, module, kw, tfinal, cells, wrapper, device = sys.argv[1:8]
+sys.path.insert(0, root)
+sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+from pyclaw_tpu_torch.ops import tiled2d
+ex = importlib.import_module("pyclaw_tpu_torch.examples." + module)
+kw = json.loads(kw)
+
+def make(t):
+    claw = ex.setup(outdir=None, dtype=np.float32, device=device, **kw)
+    claw.tfinal = t
+    claw.keep_copy = False
+    return claw
+
+make(0.01).run()
+claw = make(float(tfinal))
+fn = getattr(tiled2d, wrapper)
+fn.launches = 0
+sync()
+t0 = time.perf_counter()
+status = claw.run()
+sync()
+wall = time.perf_counter() - t0
+print(json.dumps({"accepted": status["numsteps"],
+                  "rejected": status["numrejected"],
+                  "launches": fn.launches, "wall_s": wall,
+                  "cell_updates_per_s": status["numsteps"] * int(cells)
+                  / wall}))
+"""
+
+
+def run_one(root, path, device="cuda", size=None, tfinal=None):
+    """One timed run of ``path`` from ROOT in a fresh process (``size``
+    and ``tfinal`` override the path's setup keywords and final time: the
+    CPU tests run it small)."""
+    module, kw, t_path, cells, wrapper = PATHS[path]
+    kw = kw if size is None else size
+    cells = cells if size is None else math.prod(size.values())
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD, root, module, json.dumps(kw),
+         str(t_path if tfinal is None else tfinal), str(cells), wrapper,
+         device], cwd=root, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{path} from {root} failed:\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("variants", nargs="+",
+                    type=lambda v: tuple(v.split("=", 1)))
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    order = args.variants + args.variants[::-1]
+    result = {"card": card, "order": [label for label, _ in order],
+              "paths": {}}
+    for path in PATHS:
+        runs = {label: [] for label, _ in args.variants}
+        for label, root in order:
+            rec = run_one(os.path.abspath(root), path)
+            runs[label].append(rec)
+            print(f"  {path} [{label}]: {rec['accepted']} + "
+                  f"{rec['rejected']} steps, {rec['launches']} launches, "
+                  f"{rec['wall_s']:.3f} s, "
+                  f"{rec['cell_updates_per_s']:.4e} cell-updates/s",
+                  flush=True)
+        result["paths"][path] = runs
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

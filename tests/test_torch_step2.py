@@ -140,12 +140,16 @@ def host_kernel(tmp_path_factory):
                                        (np.float32, 1e-5)])
 @pytest.mark.parametrize("nx,ny,order,tw,lim", [
     (24, 20, 2, 2, 3), (13, 37, 2, 1, 4), (17, 9, 1, 2, 10),
-    (8, 16, 2, 0, 3), (33, 5, 2, 2, 10)])
+    (8, 16, 2, 0, 3), (33, 5, 2, 2, 10),
+    # smaller than one tile (12x16 in f32, 10x16 in f64); ragged on both
+    # axes against either tile
+    (7, 11, 2, 2, 3), (29, 37, 2, 2, 4), (23, 18, 2, 1, 10)])
 def test_kernel_source_on_host_matches_plain(host_kernel, nx, ny, order,
                                              tw, lim, dtype, tol):
     """csrc/step2_ctu.cu's phases (tiles, halos, ragged-edge masks, the
-    rpt2 gather, the CFL windows) against the plain version; the grids
-    cover several tiles, partial tiles and a single partial tile."""
+    rpt2 gathers of both directions, the CFL windows) against the plain
+    version; the grids cover several tiles, partial tiles and a single
+    partial tile."""
     q = np.ascontiguousarray(_state(nx * ny + lim, nx, ny).astype(dtype))
     dt = float(dtype(0.2 / max(nx, ny)))
     is_double = dtype == np.float64

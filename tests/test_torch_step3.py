@@ -251,7 +251,10 @@ FACES = [None] + [(a, s) for a in range(3) for s in (0, 1)]
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
                                        (np.float32, 1e-5)])
-@pytest.mark.parametrize("shape", [(9, 7, 5), (17, 16, 10)])
+# (5, 4, 3) is smaller than one tile (8^3 in f32, 6^3 in f64), (13, 11,
+# 10) ragged on every axis against either
+@pytest.mark.parametrize("shape", [(9, 7, 5), (17, 16, 10), (5, 4, 3),
+                                   (13, 11, 10)])
 @pytest.mark.parametrize("face", range(len(FACES)))
 def test_kernel_source_on_host_matches_plain(host_kernel, face, shape,
                                              dtype, tol):

@@ -68,6 +68,39 @@ def test_dq_case_is_the_sharpclaw_path(monkeypatch):
     assert args[2:] + tuple(kwargs.values()) == case[1:] + (5, 3)
 
 
+def test_step2_ctu_case_is_the_classic_quadrants_path(monkeypatch):
+    from pyclaw_tpu_torch.examples import euler_2d_quadrants as ex
+    n = 12
+    claw = ex.setup(mx=n, my=n, outdir=None, device="cpu", dtype="float64")
+    claw.tfinal = 0.01
+    args, kwargs = _first_call(monkeypatch, "step2_rows", claw)
+    qbc, case = tk.step2_ctu_case(n, torch.float64, "cpu")
+    assert torch.equal(args[0], qbc)
+    path = args[2:] + tuple(kwargs.values())
+    # dt is the controller's; the rest is the case's
+    assert path[:3] == case[1:4] and tuple(path[3]) == case[4]
+    assert path[4:] == case[5:]
+
+
+def test_step3_ctu_case_is_the_euler_3d_path(monkeypatch):
+    from pyclaw_tpu_torch.examples import euler_3d as ex
+    n = 6
+    claw = ex.setup(mx=n, my=n, mz=n, outdir=None, device="cpu",
+                    dtype="float64")
+    claw.tfinal = 0.01
+    args, kwargs = _first_call(monkeypatch, "step3_xy", claw)
+    qbc, case = tk.step3_ctu_case(n, torch.float64, "cpu")
+    assert torch.equal(args[0], qbc)
+    path = args[2:] + tuple(kwargs.values())
+    assert path[:4] == case[1:5] and tuple(path[4]) == case[5]
+    assert path[5:] == case[6:]
+    # the case on another state of the path pads that state
+    q = claw.solution.q
+    assert torch.equal(tk.step3_ctu_case(n, torch.float64, "cpu", q)[0]
+                       [(slice(None),) + (slice(2, -2),) * 3],
+                       torch.as_tensor(q))
+
+
 def test_step3_aos_case_is_the_heterogeneous_path(monkeypatch):
     from pyclaw_tpu_torch.examples import acoustics_3d_heterogeneous as ex
     n = 6
@@ -93,3 +126,20 @@ def test_parse_sass_counts_opcodes_per_entry():
     assert count == 5
     assert dict(ops) == {"MOV": 1, "FFMA": 2, "BRA": 1, "EXIT": 1}
     assert dict(hist["_Z6kernelIdEvv"][1]) == {"DFMA": 1, "MUFU": 1}
+
+
+@pytest.mark.parametrize("path,size", [
+    ("quadrants", {"mx": 12, "my": 12}),
+    ("euler3d", {"mx": 6, "my": 6, "mz": 6})])
+def test_time_paths_runs_each_path_in_its_own_process(path, size):
+    """ops/time_paths.py's timed run (a fresh process importing the
+    package from a root), on the CPU at a small size."""
+    from pyclaw_tpu_torch.ops import time_paths
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rec = time_paths.run_one(root, path, device="cpu", size=size,
+                             tfinal=0.02)
+    assert rec["accepted"] >= 1 and rec["rejected"] >= 0
+    assert rec["wall_s"] > 0 and rec["cell_updates_per_s"] > 0
+    # the wrappers count launches of the kernel only, never on the CPU
+    assert rec["launches"] == 0
+
