@@ -48,6 +48,16 @@ Phases (each asserts; any failure exits non-zero):
      on advection) at 16^3, 33x17x9, 5x40x7 and 3x5x2 (less than a tile),
      and the main configuration at 45x70x50 (ragged on every axis, more
      tiles than resident blocks), float32 and float64;
+  3h. step3_aos's Euler system against its plain version (one step each),
+     over the slice's state (examples.euler_3d with the capacity function
+     kappa = 1 + 0.25 cos(pi x) cos(pi y) cos(pi z)) and a seeded random
+     admissible state with velocities in all three directions and a
+     capacity row in 0.7 .. 1.3: the main configuration (capacity,
+     transverse_waves 2, order 2, MC) at 192^3 and 45x70x50, and
+     transverse_waves 0/1/2 x (order, limiter) in {(1, MC), (2, MC), (2,
+     van Leer), (2, id 10)} x {f-waves without aux, capacity, capacity
+     with f-waves} at 16^3, 33x17x9, 5x40x7 and 3x5x2, float32 and
+     float64;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -71,6 +81,11 @@ Phases (each asserts; any failure exits non-zero):
      through Controller.run() to tfinal=0.8, every launch count set to 0
      just before it and read just after (step3_aos: 1 per attempted step;
      no other kernel);
+  4g. the 3D Euler capacity path: examples.euler_3d.setup(mx=my=mz=192,
+     float32) with the capacity function of [3h] (one aux row, index_capa
+     0) through Controller.run() to tfinal=0.2, every launch count set to
+     0 just before it and read just after (step3_aos: 1 per attempted
+     step; step3_ctu and every other kernel: 0);
   5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
      card, float32 and float64;
   5c. the 16^3 euler_3d golden on the card, float32 and float64;
@@ -86,6 +101,14 @@ Phases (each asserts; any failure exits non-zero):
      a 192^3 float64 run on the card (relative L1); the x <-> y mirror
      symmetry of p; and the uniform-medium oracle (vc_acoustics_3D with
      rho = c = 1 against acoustics_3D, transverse_waves 1, 16^3 to t=0.2);
+  5g. the Euler capacity path's correctness (no golden exists): the 32^3
+     run to t=0.2 on the card in float64 against the same run on the CPU's
+     plain step (equal steps, 1e-10); the kappa = 1 oracle (the capacity
+     path with kappa = 1 against the no-capacity path, step3_ctu, 32^3
+     float64, equal steps, 1e-10); the 192^3 float32 run against a 192^3
+     float64 run on the card (relative L1); the x <-> y mirror symmetry of
+     rho; the change of the capacity-weighted mass; the boundary cells
+     unchanged (the front has not reached them);
   5b. SharpClaw quadrants at 80^2 on the card against the same run on the
      CPU (the plain path the CPU tests tie to the JAX package): float64 at
      t=0.2 and t=0.8, float32 at t=0.8;
@@ -96,9 +119,10 @@ Phases (each asserts; any failure exits non-zero):
      its device time from torch.profiler; step2_ctu, dq2_weno5 and
      step3_ctu also by the profiler; step3_aos, its plain version and
      its bound at 192^3 on the heterogeneous path's first input, and the
-     kernel on its last; then
+     kernel on its last; the same for step3_aos's Euler system on the
+     Euler capacity path's first input and last state; then
      each 2D path to t=0.1, the 3D Euler path to t=0.02, the heterogeneous
-     path to t=0.8, the classic Sod path to t=0.2 and the SharpClaw one to
+     path to t=0.8, the Euler capacity path to t=0.02, the classic Sod path to t=0.2 and the SharpClaw one to
      t=0.02 under torch.profiler (device busy share, launches per step,
      device time by kernel and by group: kernel, BC extension of q and
      aux, CFL reduction, frame copies; host time by operation);
@@ -117,9 +141,10 @@ import numpy as np
 
 # the timers and the timed states, shared with the variant timer
 from pyclaw_tpu_torch.ops.time_kernels import (
-    device_ms_per_call, dq_case, euler3d_state, events_ms as time_ms,
-    het_state, padded, padded3, padded3_aux, quadrants_state,
-    step2_ctu_case, step3_aos_case, step3_ctu_case)
+    device_ms_per_call, dq_case, euler3d_capa_state, euler3d_state,
+    events_ms as time_ms, het_state, padded, padded3, padded3_aux,
+    quadrants_state, step2_ctu_case, step3_aos_case, step3_aos_euler_case,
+    step3_ctu_case)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -188,26 +213,57 @@ FLOPS_PER_CELL_3D = 3 * (512 + 2 * 994) + 78 + 50
 FLOPS_PER_CELL_AOS = 2 * 357 + 78
 
 
-def flops_per_cell_3d_aos(name, tw):
+def capacity_ops_per_cell_3d(p, rptt, tw):
+    """Operations per cell a capacity function adds to one generic 3D CTU
+    step (csrc/step3_aos.cu) of a system with p waves: per cell the three
+    dt/(dD kappa) 6; per interface the averaged dt/(dD kappa) 2 and 2 p in
+    the CFL; with transverse waves, per (sweep, transverse) pair and
+    fluctuation the two gather coefficients 2 and, with transverse_waves 2
+    and a system that has rptt3, each of its two splits' coefficient 1."""
+    per_fluct = 2 + (2 if tw >= 2 and rptt else 0)
+    transverse = 2 * 2 * per_fluct if tw > 0 else 0
+    return 3 * (2 + 2 * p + transverse) + 6
+
+
+def flops_per_cell_3d_aos(name, tw, capa=False):
     """Operations per cell of one generic 3D CTU step of system ``name``
-    (order 2, MC, no capacity) with ``tw`` transverse_waves, counted from
+    (order 2, MC) with ``tw`` transverse_waves, with or without a capacity
+    function (:func:`capacity_ops_per_cell_3d`), counted from
     csrc/step3_aos.cu and csrc/acoustics3d.cuh in the same way, each
     interface quantity counted once (the halo interfaces, the second dot
     product of each interface pair and the neighbours' splits are
     overhead, not work).  Per sweep direction, per interface: the normal
     solve (vc acoustics 23, acoustics 19, advection 5); per wave the
     limiter (norm and one dot product 2 (2 m - 1), theta 3, MC 6, nu 2,
-    the coefficient 6, the select 1); the correction flux m (2 p - 1);
-    cq into the flux m; CFL 3 p; the cell's fluctuation term 3 m; with
+    the coefficient 6, the select 1); the correction flux m (2 p - 1); cq
+    into the flux m; CFL 3 p; the cell's fluctuation term 3 m; with
     transverse_waves 2 the fluctuations to split 2 m.  Per (sweep,
     transverse) pair and fluctuation: the split (vc acoustics 15,
     acoustics 12, advection 4) and the E-flux gather 5 m; with
     transverse_waves 2 and a system that has rptt3, two double-transverse
     splits, each with its scaling 2 m and its F-flux gather 5 m.  The
-    update 10 m per cell.  m equations, p waves."""
-    m, p, rpn, split, rptt = {"vc_acoustics_3D": (4, 2, 23, 15, False),
-                              "acoustics_3D": (4, 2, 19, 12, True),
-                              "advection_3D": (1, 1, 5, 4, True)}[name]
+    update 10 m per cell.  m equations, p waves.
+
+    Euler (csrc/euler3d_aos.cuh) does the work of csrc/step3_ctu.cu's
+    step, so it counts FLOPS_PER_CELL_3D, the least count of the same
+    function (order 2, MC, transverse_waves 2): the Roe average each of
+    its splits recomputes, the split's division by 2a, the rptt3 scaling
+    of the split's outputs rather than its inputs and the E-flux gather
+    of every component are overhead of this formulation, not work."""
+    capa_ops = 0
+    if name == "euler_3D":
+        if tw != 2:
+            raise ValueError(f"euler_3D is counted at transverse_waves 2, "
+                             f"got {tw}")
+        if capa:
+            capa_ops = capacity_ops_per_cell_3d(5, True, tw)
+        return FLOPS_PER_CELL_3D + capa_ops
+    m, p, rpn, split, rptt = {
+        "vc_acoustics_3D": (4, 2, 23, 15, False),
+        "acoustics_3D": (4, 2, 19, 12, True),
+        "advection_3D": (1, 1, 5, 4, True)}[name]
+    if capa:
+        capa_ops = capacity_ops_per_cell_3d(p, rptt, tw)
     limiter = 2 * (2 * m - 1) + 3 + 6 + 2 + 6 + 1
     normal = (rpn + p * limiter + m * (2 * p - 1) + m + 3 * p + 3 * m
               + (2 * m if tw >= 2 else 0))
@@ -215,7 +271,7 @@ def flops_per_cell_3d_aos(name, tw):
     if tw >= 2 and rptt:
         per_fluct += 2 * (split + 2 * m + 5 * m)
     transverse = 2 * 2 * per_fluct if tw > 0 else 0
-    return 3 * (normal + transverse) + 10 * m
+    return 3 * (normal + transverse) + 10 * m + capa_ops
 
 TOL_REL = {"float32": 1e-5, "float64": 1e-12}        # one step, vs plain
 # A state with positivity fallbacks is ill-conditioned: edge densities
@@ -1094,6 +1150,280 @@ def timing_step3_aos(dev, n=192, q_last=None):
     return out
 
 
+# ---- the 3D Euler capacity path: step3_aos's Euler system ---------------
+
+# (index_capa, fwave) of [3h]: f-waves without aux, a capacity function,
+# both
+EULER_AOS_FORMS = ((-1, True), (0, False), (0, True))
+# The Euler capacity path (no golden): the 32^3 float64 run on the card
+# against the same run on the CPU's plain step and the kappa = 1 oracle
+# against the no-capacity path (step3_ctu.cu: another kernel, another
+# order of sums, contractions) (max relative); the 192^3 float32 run
+# against the 192^3 float64 run on the card (relative L1, as [5f]); the
+# x <-> y mirror symmetry of rho in float64 (absolute, as [5f]); the
+# change of the capacity-weighted mass sum(kappa rho) dV (relative): each
+# update telescopes, so it moves by roundoff only while the front stays
+# inside (float32: per-cell roundoff of ~1e-7 over ~50 steps, summed in
+# float64; float64 the same at 1e-16); the change of q on the boundary
+# cells (max, relative to max |q|) shows the front has not reached them
+EULER_CAPA_TOL = {"card_vs_cpu_f64": 1e-10, "kappa1_vs_ctu_f64": 1e-10,
+                  "f32_vs_f64_l1": 1e-4, "mirror_f64": 1e-11,
+                  "mass_f32": 1e-5, "mass_f64": 1e-12,
+                  "boundary_f32": 1e-6}
+
+
+def euler_aos_matrix():
+    """(transverse_waves, order, limiter, index_capa, fwave) of [3h] at
+    the small grids."""
+    return [(tw, order, lim, capa, fwave) for tw in (0, 1, 2)
+            for order, lim in STEP3_AOS_LIMS
+            for capa, fwave in EULER_AOS_FORMS]
+
+
+def random_euler_capa(rng, shape):
+    """A seeded admissible Euler state with velocities of both signs in
+    all three directions, and a capacity row in 0.7 .. 1.3."""
+    q = random_state3(rng, *shape)
+    return q, 0.7 + 0.6 * rng.random((1,) + shape)
+
+
+def compare_step3_aos_euler(dev, n_main=192, seed=8):
+    """step3_aos's Euler system vs its plain version, one step each, on the
+    card: the main configuration (capacity, transverse_waves 2, order 2,
+    MC) at n_main^3, the matrix at small grids, on the slice's state (the
+    euler_3d state with its capacity function) and a seeded random one."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.classic import kernels
+    from pyclaw_tpu_torch.ops import tiled2d
+    rp = riemann.euler_3D
+    params = {"gamma": 1.4}
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    matrix = euler_aos_matrix()
+    main = [(2, 2, 4, 0, False)]
+    for shape, cases in (((n_main,) * 3, main), ((16, 16, 16), matrix),
+                         ((33, 17, 9), matrix), ((5, 40, 7), matrix),
+                         ((3, 5, 2), matrix), ((45, 70, 50), main)):
+        inputs = {"slice": euler3d_capa_state(*shape),
+                  "random": random_euler_capa(rng, shape)}
+        deltas = tuple(2.0 / n for n in shape)
+        for iname, (q_np, aux_np) in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc = padded3(q_np, dtype, dev).contiguous()
+                auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
+                dt = float(np.dtype(tname).type(0.3 * min(deltas)))
+                for tw, order, lim, capa, fwave in cases:
+                    aux = auxbc if capa >= 0 else None
+                    lims = (lim,) * 5
+                    qk, ck = tiled2d.step3_xy_generic(
+                        qbc, aux, dt, *deltas, rp, params, lims, order,
+                        fwave, capa, 2, tw)
+                    qp, cp = kernels.step3(
+                        qbc, aux, dt, *deltas, rp.rp, rp.rpt, rp.rptt,
+                        params, lims, order, fwave, capa, 2, tw,
+                        rp.prefactor)
+                    torch.cuda.synchronize()
+                    abs_err = float((qk - qp).abs().max())
+                    rel = abs_err / float(qp.abs().max())
+                    dcfl = abs(float(ck) - float(cp)) / float(cp)
+                    if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                            and dcfl <= TOL_REL[tname]
+                            and tuple(qk.shape) == (5,) + shape):
+                        fail(f"step3_aos euler vs plain {shape} {iname} "
+                             f"{tname} tw={tw} order={order} lim={lim} "
+                             f"capa={capa} fwave={fwave}: rel err "
+                             f"{rel:.3e}, cfl {float(ck)!r} vs "
+                             f"{float(cp)!r}")
+                    worst[tname] = max(worst[tname], rel)
+                    worst_cfl[tname] = max(worst_cfl[tname], dcfl)
+                    if (shape[0], iname, tname) == (n_main, "slice",
+                                                    "float32"):
+                        main_abs_err = abs_err
+                    if shape[0] == n_main:
+                        print(f"  step3_aos euler {shape} {iname:6s} "
+                              f"{tname}: rel err {rel:.3e}, cfl rel "
+                              f"{dcfl:.3e}", flush=True)
+                    ncase += 1
+                    del qk, qp
+                del qbc, auxbc
+                torch.cuda.empty_cache()
+        print(f"  compare step3_aos euler {shape}: max rel err f32 "
+              f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; max cfl "
+              f"rel f32 {worst_cfl['float32']:.3e} f64 "
+              f"{worst_cfl['float64']:.3e}", flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def run_euler3d_capa(dev, n, dtype, tfinal=0.2, kappa=None):
+    """examples.euler_3d with its capacity function (add_capacity; or the
+    constant ``kappa``) through Controller.run(); returns (claw, status,
+    wall seconds)."""
+    import torch
+    from pyclaw_tpu_torch.examples import euler_3d as ex
+    claw = ex.setup(mx=n, my=n, mz=n, dtype=dtype, outdir=None, device=dev)
+    ex.add_capacity(claw.solution.state)
+    if kappa is not None:
+        claw.solution.state.aux[:] = kappa
+    claw.tfinal = tfinal
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return claw, dict(status), time.perf_counter() - t0
+
+
+def capacity_mass(q, aux):
+    """sum(kappa rho) in float64 (dV is constant)."""
+    return float(np.sum(aux[0].astype(np.float64) * q[0].astype(np.float64)))
+
+
+def boundary_change(q, q0):
+    """max |q - q0| over the outermost layer of cells, over max |q0|."""
+    edge = np.zeros(q.shape[1:], bool)
+    edge[[0, -1]] = True
+    edge[:, [0, -1]] = True
+    edge[:, :, [0, -1]] = True
+    return float(np.abs(q[:, edge].astype(np.float64) - q0[:, edge]).max()
+                 / np.abs(q0).max())
+
+
+def euler_capa_checks(dev, q192_f32, n=192):
+    """[5g]: the 32^3 float64 run on the card against the CPU's plain step;
+    the kappa = 1 oracle against the no-capacity path at 32^3 in float64;
+    the n^3 float32 run (q192_f32, from [4g]) against an n^3 float64 card
+    run; the x <-> y mirror symmetry of rho in float64; the change of the
+    capacity-weighted mass and of the boundary cells."""
+    out = {}
+    c_k, st_k, w_k = run_euler3d_capa(dev, 32, np.float64)
+    c_c, st_c, w_c = run_euler3d_capa("cpu", 32, np.float64)
+    q_k, q_c = c_k.solution.q, c_c.solution.q
+    steps_k = (st_k["numsteps"], st_k["numrejected"])
+    steps_c = (st_c["numsteps"], st_c["numrejected"])
+    out["card_vs_cpu_f64"] = float(np.abs(q_k - q_c).max()
+                                   / np.abs(q_c).max())
+    out["steps_card_32"], out["steps_cpu_32"] = steps_k, steps_c
+    out["wall_card_32_s"], out["wall_cpu_32_s"] = w_k, w_c
+    mirror32 = float(np.abs(q_k[0] - q_k[0].transpose(1, 0, 2)).max())
+    # kappa = 1 through step3_aos against step3_ctu
+    c_1, st_1, _ = run_euler3d_capa(dev, 32, np.float64, kappa=1.0)
+    c_e, st_e, _ = run_euler3d(dev, 32, np.float64)
+    steps_1 = (st_1["numsteps"], st_1["numrejected"])
+    steps_e = (st_e["numsteps"], st_e["numrejected"])
+    out["kappa1_vs_ctu_f64"] = float(
+        np.abs(c_1.solution.q - c_e.solution.q).max()
+        / np.abs(c_e.solution.q).max())
+    out["steps_kappa1"], out["steps_ctu"] = steps_1, steps_e
+    c64, st64, w64 = run_euler3d_capa(dev, n, np.float64)
+    q64, aux64 = c64.solution.q, c64.solution.state.aux
+    q0, aux0 = euler3d_capa_state(n, n, n)
+    q32 = q192_f32.astype(np.float64)
+    out["f32_vs_f64_l1"] = float(np.mean(np.abs(q32 - q64))
+                                 / np.mean(np.abs(q64)))
+    out["f32_vs_f64_max"] = float(np.abs(q32 - q64).max() / np.abs(q64).max())
+    out["f64_steps_192"] = (st64["numsteps"], st64["numrejected"])
+    out["f64_wall_192_s"] = w64
+    mirror192 = float(np.abs(q64[0] - q64[0].transpose(1, 0, 2)).max())
+    out["mirror_f64"] = max(mirror32, mirror192)
+    m0_32 = capacity_mass(q0.astype(np.float32), aux0.astype(np.float32))
+    m0_64 = capacity_mass(q0, aux0)
+    out["mass_f32"] = abs(capacity_mass(q192_f32, aux0.astype(np.float32))
+                          - m0_32) / m0_32
+    out["mass_f64"] = abs(capacity_mass(q64, aux64) - m0_64) / m0_64
+    out["boundary_f32"] = boundary_change(q192_f32, q0.astype(np.float32))
+    out["boundary_f64"] = boundary_change(q64, q0)
+    print(f"[5g] euler capacity 32^3 f64 card vs cpu: max rel "
+          f"{out['card_vs_cpu_f64']:.3e} (tol "
+          f"{EULER_CAPA_TOL['card_vs_cpu_f64']}), steps card {steps_k}, cpu "
+          f"{steps_c} (wall {w_k:.3f} s, {w_c:.3f} s); kappa = 1 vs the "
+          f"no-capacity path (step3_ctu) 32^3 f64: max rel "
+          f"{out['kappa1_vs_ctu_f64']:.3e} (tol "
+          f"{EULER_CAPA_TOL['kappa1_vs_ctu_f64']}), steps {steps_1} vs "
+          f"{steps_e}; {n}^3 f32 vs f64 on the card: rel L1 "
+          f"{out['f32_vs_f64_l1']:.3e} (tol "
+          f"{EULER_CAPA_TOL['f32_vs_f64_l1']}), max rel "
+          f"{out['f32_vs_f64_max']:.3e}, f64 steps {out['f64_steps_192']} in "
+          f"{w64:.3f} s; max |rho - rho^T| f64 {mirror32:.3e} (32^3), "
+          f"{mirror192:.3e} ({n}^3) (tol {EULER_CAPA_TOL['mirror_f64']}); "
+          f"change of sum(kappa rho) f32 {out['mass_f32']:.3e} (tol "
+          f"{EULER_CAPA_TOL['mass_f32']}), f64 {out['mass_f64']:.3e} (tol "
+          f"{EULER_CAPA_TOL['mass_f64']}); boundary cells' change f32 "
+          f"{out['boundary_f32']:.3e} (tol {EULER_CAPA_TOL['boundary_f32']}),"
+          f" f64 {out['boundary_f64']:.3e}", flush=True)
+    if steps_k != steps_c:
+        fail(f"euler capacity 32^3 f64: steps card {steps_k} != cpu "
+             f"{steps_c}")
+    if steps_1 != steps_e:
+        fail(f"euler kappa = 1 32^3 f64: steps {steps_1} != no-capacity "
+             f"path {steps_e}")
+    if not (np.all(np.isfinite(q_k)) and q_k.shape == (5, 32, 32, 32)):
+        fail("euler capacity 32^3 f64 on the card is not finite "
+             "(5, 32, 32, 32)")
+    for key, val in out.items():
+        if key in EULER_CAPA_TOL and not val <= EULER_CAPA_TOL[key]:
+            fail(f"euler capacity {key}: {val} > {EULER_CAPA_TOL[key]}")
+    return out
+
+
+def timing_step3_aos_euler(dev, n=192, q_last=None):
+    """step3_aos's Euler system (the capacity path's configuration:
+    capacity, transverse_waves 2, order 2, MC), its plain version and its
+    bound at n^3 on the path's first input; with ``q_last`` (the path's
+    final q, from [4g]) the kernel's time on that state too."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.classic import kernels
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc, auxbc, args = step3_aos_euler_case(n, dtype, dev)
+        dt, deltas, rp, params = args[0], args[1:4], args[4], args[5]
+
+        def kern():
+            return tiled2d.step3_xy_generic(qbc, auxbc, *args)
+
+        def plain():
+            return kernels.step3(qbc, auxbc, dt, *deltas, rp.rp, rp.rpt,
+                                 rp.rptt, params, args[6], 2, False, 0, 2,
+                                 2, rp.prefactor)
+
+        ms = time_ms(kern, 10, warm=2)
+        plain_ms = time_ms(plain, 2, warm=1)
+        ms_again = time_ms(kern, 10, warm=2)
+        dev_ms, dev_n = device_ms_per_call(kern, "step3_aos_kernel", 10)
+        item = qbc.element_size()
+        b = bound_of((qbc.numel() + auxbc.numel() + 5 * n ** 3) * item,
+                     flops_per_cell_3d_aos(rp.name, 2, True) * n ** 3, tname)
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, **b}
+        if q_last is not None:
+            qbc = padded3(q_last, dtype, dev).contiguous()
+            out[tname]["ms_last_state"] = time_ms(kern, 10, warm=2)
+            out[tname]["device_ms_last_state"] = device_ms_per_call(
+                kern, "step3_aos_kernel", 10)[0]
+            print(f"  timing step3_aos euler {n}^3 {tname} on the path's "
+                  f"last state: kernel {out[tname]['ms_last_state']:.4f} ms "
+                  f"(on the device {out[tname]['device_ms_last_state']} ms)",
+                  flush=True)
+        print(f"  timing step3_aos euler {n}^3 {tname}: kernel {ms:.4f} ms "
+              f"(repeat {ms_again:.4f}; on the device {dev_ms} ms, {dev_n} "
+              f"launches profiled), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
+        del qbc, auxbc
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- the 1D paths: step1 (classic sweep) and weno5 (SharpClaw recon) ----
 
 # Operations per cell of one classic 1D step of euler_with_efix_1D (order
@@ -1670,7 +2000,11 @@ def main():
           f"acoustics) f32 {lib_3a.step3_aos_smem_bytes(0, 0, 0)} B, f64 "
           f"{lib_3a.step3_aos_smem_bytes(0, 0, 1)} B, (with capacity) f32 "
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 0)} B, f64 "
-          f"{lib_3a.step3_aos_smem_bytes(0, 1, 1)} B", flush=True)
+          f"{lib_3a.step3_aos_smem_bytes(0, 1, 1)} B, (Euler with capacity) "
+          f"f32 {lib_3a.step3_aos_smem_bytes(3, 1, 0)} B, f64 "
+          f"{lib_3a.step3_aos_smem_bytes(3, 1, 1)} B, (Euler) f32 "
+          f"{lib_3a.step3_aos_smem_bytes(3, 0, 0)} B, f64 "
+          f"{lib_3a.step3_aos_smem_bytes(3, 0, 1)} B", flush=True)
     phase_s = {"build": time.perf_counter() - t0}
     print(f"    resident per SM: step2_ctu "
           f"{lib.step2_ctu_blocks_per_sm(0)} blocks of "
@@ -1765,6 +2099,18 @@ def main():
           f"{s3a_worst_cfl['float64']:.3e}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3g"] = time.perf_counter() - t0
+
+    # [3h] step3_aos's Euler system against its plain version
+    t0 = time.perf_counter()
+    s3e_worst, s3e_worst_cfl, s3e_main_abs_err, s3e_ncase = \
+        compare_step3_aos_euler(dev)
+    print(f"[3h] step3_aos euler vs plain: {s3e_ncase} cases, max rel err "
+          f"f32 {s3e_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{s3e_worst['float64']:.3e} (tol {TOL_REL['float64']}); max cfl "
+          f"rel f32 {s3e_worst_cfl['float32']:.3e}, f64 "
+          f"{s3e_worst_cfl['float64']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3h"] = time.perf_counter() - t0
 
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
@@ -1909,6 +2255,38 @@ def main():
     del claw_h
     phase_s["4f"] = time.perf_counter() - t0
 
+    # [4g] the 3D Euler capacity path (192^3 f32), every launch count set
+    # to 0 just before it and read just after
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    claw_e, status_e, wall_e = run_euler3d_capa(dev, n3, np.float32)
+    counts_e = kernel_counts()
+    eu_launches = counts_e["step3_aos"]
+    ns_e, nr_e = status_e["numsteps"], status_e["numrejected"]
+    q_e = claw_e.solution.q
+    print(f"[4g] euler_3d capacity path {n3}^3 f32 to t={claw_e.solution.t}: "
+          f"{ns_e} accepted + {nr_e} rejected steps, {eu_launches} step3_aos "
+          f"launches (all counts {counts_e}), {wall_e:.3f} s wall, "
+          f"{ns_e * n3 ** 3 / wall_e:.4e} cell-updates/s", flush=True)
+    if eu_launches == 0 or eu_launches != ns_e + nr_e:
+        fail(f"step3_aos launches {eu_launches} != accepted {ns_e} + "
+             f"rejected {nr_e}")
+    others = {k: v for k, v in counts_e.items() if k != "step3_aos" and v}
+    if others:
+        fail(f"euler capacity path: other kernels launched: {others}")
+    if nr_e < 1:
+        fail("euler capacity path: the first step at dt_initial=0.1 should "
+             "be rejected")
+    if q_e.shape != (5, n3, n3, n3) or not np.all(np.isfinite(q_e)):
+        fail(f"euler capacity path: result is not finite (5, {n3}, {n3}, "
+             f"{n3})")
+    if not claw_e.solution.state.is_valid():
+        fail("euler capacity path: state.is_valid() is False")
+    if abs(claw_e.solution.t - 0.2) > 1e-12:
+        fail(f"euler capacity path: ended at t={claw_e.solution.t}")
+    del claw_e
+    phase_s["4g"] = time.perf_counter() - t0
+
     # [5] goldens on the card
     golden = {}
     for n, name in ((80, "euler_2d_quadrants"),
@@ -1982,6 +2360,11 @@ def main():
     het = het_checks(dev, q_h, n3)
     phase_s["5f"] = time.perf_counter() - t0
 
+    # [5g] the Euler capacity path's correctness
+    t0 = time.perf_counter()
+    eu_checks = euler_capa_checks(dev, q_e, n3)
+    phase_s["5g"] = time.perf_counter() - t0
+
     # [5b] SharpClaw on the card against the same run on the CPU
     t0 = time.perf_counter()
     sharp_vs_cpu = sharp_card_vs_cpu(dev)
@@ -1996,6 +2379,8 @@ def main():
     tm_aos = timing_aos(dev)
     tm_het = timing_step3_aos(dev, q_last=q_h)
     del q_h
+    tm_eu = timing_step3_aos_euler(dev, q_last=q_e)
+    del q_e
     prof = profile_main_path(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
@@ -2011,6 +2396,9 @@ def main():
     prof_het = profile_main_path(
         "acoustics_3d_heterogeneous path 192^3 f32 to t=0.8",
         lambda: run_het(dev, 192, np.float32))
+    prof_eu = profile_main_path(
+        "euler_3d capacity path 192^3 f32 to t=0.02",
+        lambda: run_euler3d_capa(dev, 192, np.float32, 0.02))
     tm_1d = timing_1d(dev)
     prof_sod = profile_main_path(
         "sod classic path 800 f32 to t=0.2",
@@ -2182,8 +2570,34 @@ def main():
         "max_rel_err_f64": s3a_worst["float64"],
         "max_rel_err_f32": s3a_worst["float32"],
     }
+    e32, e64 = tm_eu["float32"], tm_eu["float64"]
+    eu_record = {
+        "name": "step3_aos:euler_3D", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step3_aos.cu",
+        "source_system": "pyclaw_tpu_torch/csrc/euler3d_aos.cuh",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:431",
+        "replaces_function": "step3_pallas_xy",
+        "replaces_body": "kernel_aux (ops/tiled2d.py:490-518) with Euler "
+                         "and a capacity function; kernel (:520-563) with "
+                         "fwave=True",
+        "rows": ["4c"],
+        "launches": eu_launches, "max_abs_err": s3e_main_abs_err,
+        "ms": e32["ms"], "device_ms": e32["device_ms"],
+        "ms_last_state": e32["ms_last_state"],
+        "plain_ms": e32["plain_ms"],
+        "bound_ms": e32["bound_ms"], "bound_by": e32["bound_by"],
+        "library_ms": None,
+        "shape": [5, 196, 196, 196], "aux_shape": [1, 196, 196, 196],
+        "dtype": "float32",
+        "ms_f64": e64["ms"], "device_ms_f64": e64["device_ms"],
+        "ms_last_state_f64": e64["ms_last_state"],
+        "plain_ms_f64": e64["plain_ms"],
+        "bound_ms_f64": e64["bound_ms"], "bound_by_f64": e64["bound_by"],
+        "max_rel_err_f64": s3e_worst["float64"],
+        "max_rel_err_f32": s3e_worst["float32"],
+    }
     kernels = [record, dq_record, s3_record, aos_record, s1_record,
-               w5_record, het_record]
+               w5_record, het_record, eu_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s": wall,
                              "cell_updates_per_s": ns * 1024 * 1024 / wall},
@@ -2209,6 +2623,11 @@ def main():
                    "step3_aos_launches": het_launches, "wall_s": wall_h,
                    "cell_updates_per_s": ns_h * n3 ** 3 / wall_h},
                "acoustics3d_het_checks": het,
+               "euler3d_capacity_path": {
+                   "accepted": ns_e, "rejected": nr_e,
+                   "step3_aos_launches": eu_launches, "wall_s": wall_e,
+                   "cell_updates_per_s": ns_e * n3 ** 3 / wall_e},
+               "euler3d_capacity_checks": eu_checks,
                "lake_at_rest": {"steps": lake_steps,
                                 "eta_drift": eta_drift, "momentum": mom},
                "golden_rel_err": golden, "sharpclaw_card_vs_cpu":
@@ -2216,9 +2635,11 @@ def main():
                "timing": tm, "timing_dq": tm_dq, "timing_step3": tm3,
                "timing_aos": tm_aos, "timing_1d": tm_1d,
                "timing_step3_aos": tm_het,
+               "timing_step3_aos_euler": tm_eu,
                "profile": prof, "profile_sharpclaw": sprof,
                "profile_euler3d": prof3, "profile_shallow": prof_sw,
                "profile_acoustics3d_het": prof_het,
+               "profile_euler3d_capacity": prof_eu,
                "profile_sod_classic": prof_sod,
                "profile_sod_sharpclaw": prof_sod_sharp,
                "phase_seconds": phase_s,

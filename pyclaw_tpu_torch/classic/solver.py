@@ -169,10 +169,9 @@ class ClawSolver3D(ClawSolver):
 
     The step: ``euler_3D`` without a capacity function or f-waves runs
     ``ops.tiled2d.step3_xy`` (``csrc/step3_ctu.cu``; Euler reads no aux);
-    the systems of ``ops.tiled2d.STEP3_SYSTEMS``, and ``euler_3D`` with a
-    capacity function or f-waves, run ``ops.tiled2d.step3_xy_generic``
-    (``csrc/step3_aos.cu``, which on the card refuses Euler: ROADMAP.md
-    Queue 2 item 4c)."""
+    the other systems of ``ops.tiled2d.STEP3_SYSTEMS``, and ``euler_3D``
+    with a capacity function or f-waves, run
+    ``ops.tiled2d.step3_xy_generic`` (``csrc/step3_aos.cu``)."""
     num_dim = 3
     takes_aux = True
 

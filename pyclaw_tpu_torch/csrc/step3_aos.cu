@@ -1,12 +1,15 @@
 // step3_aos.cu — the whole 3D unsplit classic (CTU) step of the generic
 // AoS form, one launch per step, for Hopper (sm_90a): any system of
-// csrc/acoustics3d.cuh, with aux arrays, a capacity function and the
-// f-wave correction form, for any (nx, ny, nz).
+// csrc/acoustics3d.cuh (heterogeneous and constant acoustics, advection)
+// or csrc/euler3d_aos.cuh (Euler), with aux arrays, a capacity function
+// and the f-wave correction form, for any (nx, ny, nz).
 //
 // Replaces the TPU kernel pyclaw_tpu/ops/tiled2d.py:431 step3_pallas_xy in
 // its aux form: kernel_aux (:490-518), launched by the pallas_call at
-// :592-605, whose body is pyclaw_tpu/classic/kernels.py:806 step3_roll with
-// aux=, index_capa and fwave.  It computes what
+// :592-605, and, for Euler with f-waves and no aux, its body kernel
+// (:520-563) with fwave=True; both bodies are
+// pyclaw_tpu/classic/kernels.py:806 step3_roll with aux=, index_capa and
+// fwave.  It computes what
 // pyclaw_tpu/classic/kernels.py:step3 computes with aux: in each direction
 // the normal solve, the limiter and the correction flux (with per-cell
 // dt/(dD kappa) under a capacity function); the rpt3 split of each
@@ -26,10 +29,15 @@
 // normal solve, two limited waves, the correction, the CFL, the flux terms,
 // four splits and their gathers, the update), 19.8 operations per byte
 // against the card's 20 (f32, 67 TFLOP/s over 3.35 TB/s): bytes bound it,
-// just.  Tensor cores do not apply: there is no matrix product, only
-// per-cell scalar arithmetic (the Riemann solves, the limiter, the
-// splits), so the levers are the work the halo repeats, the phases and
-// their barriers, the warps per SM and the staging.
+// just.  Euler with a capacity function and transverse_waves = 2 reads 6
+// values a cell and writes 5 ((6 x 196^3 + 5 x 192^3) x 4 B = 322 MB:
+// 0.096 ms in f32) and does the work of step3_ctu.cu's step, 7628
+// operations per cell, and 90 for the capacity function (the same count;
+// the Roe average each split recomputes is overhead): 0.82 ms in f32,
+// 1.61 ms in f64, bound by operations.  Tensor cores do not apply: there is no
+// matrix product, only per-cell scalar arithmetic (the Riemann solves, the
+// limiter, the splits), so the levers are the work the halo repeats, the
+// phases and their barriers, the warps per SM and the staging.
 //
 // Design: a block owns a tile of output cells and stages q, the aux rows
 // the system reads and, with a capacity function, the per-cell
@@ -80,11 +88,15 @@
 // shared memory does not hold (186 KB of 227 KB).
 //
 // Tile shape, chosen from the shared-memory budget (227 KB a block):
-// 8x8x8 cells in f32 and 4x6x8 in f64, one block per SM: 32 warps (f32) /
-// 16 warps (f64).  ptxas (chip_smoke.py [2]): f32 43-62 registers, f64
-// 78-108, no spills in any of the 24 variants.  step3_aos_smem_bytes
-// reports each variant's bytes (heterogeneous acoustics f32 186,368 B,
-// f64 177,568 B; with a capacity function 207,104 / 200,608 B).
+// 8x8x8 cells in f32 and 4x6x8 in f64 for every system, one block per SM:
+// 32 warps (f32) / 16 warps (f64).  The faces' amdq/apdq share the rptt3
+// parts' scratch (they are read before the first rptt3 phase writes it),
+// which is what lets Euler keep the tile.  step3_aos_smem_bytes reports
+// each variant's bytes (f32 / f64, without and with a capacity function):
+//   heterogeneous acoustics  128,768 / 121,216 B; 149,504 / 144,256 B
+//   acoustics                154,112 / 145,792 B; 174,848 / 168,832 B
+//   advection                 41,696 /  39,616 B;  62,432 /  62,656 B
+//   Euler                    191,584 / 181,184 B; 212,320 / 204,224 B
 //
 // Phases (each a loop of the block's threads over a region, separated by
 // barriers), for each sweep axis D in x, y, z:
@@ -108,6 +120,10 @@
 //   update     q - dq over the tile (with transverse_waves = 0 after
 //              fluct<2>); each warp's CFL max
 //
+// A split takes the D-interface's two staged cells (ql, qr) besides the
+// receiving cell's aux: the Euler splits (rpt3 and rptt3) split with the
+// Roe state of the interface whose fluctuation they split.
+//
 // Template parameters: the system, the type, the tile, CAPA (per-cell
 // dt/(dD kappa)) and FWAVE (the correction 0.5 sign(s) (1 - |s| dt/dD),
 // with sign(0) = 0).  The arithmetic repeats the plain version's, built
@@ -118,9 +134,9 @@
 // acoustics3d.cuh, the limiters in tvd.cuh, the tile geometry (shared with
 // step3_ctu.cu) in ctu3d.cuh, the asynchronous copies in async_copy.cuh.
 
-#include "acoustics3d.cuh"
 #include "async_copy.cuh"
 #include "ctu3d.cuh"
+#include "euler3d_aos.cuh"
 #include "tvd.cuh"
 
 namespace {
@@ -147,6 +163,9 @@ template <typename T> constexpr int NTB = Threads<T>::N;
 // the CFL fold keeps one slot per whole warp
 static_assert(NTB<float> % 32 == 0 && NTB<double> % 32 == 0,
               "whole warps per block");
+// limiter ids an entry takes: one per wave of the system with the most
+// (Euler3D)
+constexpr int NLIM = 5;
 
 // Shared-memory layout (offsets in elements)
 template <class S, typename T, class H, bool CAPA> struct Lay {
@@ -162,6 +181,7 @@ template <class S, typename T, class H, bool CAPA> struct Lay {
   // scratch (rptt3 only): [bm, bp 2 NEQ x BM | split parts along F
   // 2 NEQ x BM]
   static constexpr int US = S::HAS_RPTT ? 4 * NEQ * BM : 0;
+  static_assert(FM <= BM, "the faces' fluctuations fit the parts' scratch");
   static constexpr int oAX = NEQ * QN;
   static constexpr int oDT = oAX + NAUX * QN;
   static constexpr int oF0 = oDT + (CAPA ? 3 * QN : 0);
@@ -170,8 +190,11 @@ template <class S, typename T, class H, bool CAPA> struct Lay {
   static constexpr int oDQ = oF2 + NEQ * R2::FN;
   static constexpr int oTR = oDQ + NEQ * CN;        // fluctuations to split
   static constexpr int oU = oTR + 2 * NEQ * BM;
-  static constexpr int oAMF = oU + US;           // amdq, apdq at faces
-  static constexpr int oRED = oAMF + 2 * NEQ * FM;
+  // amdq, apdq at the faces: written in the sweep phase and read by
+  // fluct<D> before the first rptt3 phase writes the split parts along F,
+  // so with rptt3 they take the parts' scratch
+  static constexpr int oAMF = oU + (S::HAS_RPTT ? 2 * NEQ * BM : 0);
+  static constexpr int oRED = CMAX(oU + US, oAMF + 2 * NEQ * FM);
   // RED: the CFL partial of each thread, then of each warp
   static constexpr size_t elems = oRED + NTB<T> + NTB<T> / 32;
   static constexpr size_t bytes = elems * sizeof(T);
@@ -193,7 +216,7 @@ template <typename T> struct Args {
   T co6[3];            // dt / (6 dE), the kappa-scaled rptt factor
   Sys3<T> P;
   int order, tw;
-  int lim[2];
+  int lim[NLIM];       // the limiter id of each wave
 };
 
 template <class S, typename T, class H, bool CAPA> struct Block {
@@ -237,9 +260,26 @@ template <class S, typename T, class H, bool CAPA> struct Block {
     if (CAPA) return DT[D * L::QN + c];
     return A.dtd[D];
   }
-  HD T* AMf() const { return U + L::US; }
-  HD T* APf() const { return U + L::US + L::NEQ * L::FM; }
+  HD T* AMf() const { return U + (L::oAMF - L::oU); }
+  HD T* APf() const { return AMf() + L::NEQ * L::FM; }
 };
+
+// the staged stride along D
+template <class L, int D>
+constexpr int stride_of = D == 0 ? L::Q1 * L::Q2 : (D == 1 ? L::Q2 : 1);
+
+// the staged cells of the D-interface at index k of the split region: the
+// state that a split of its fluctuation takes
+template <int D, class S, typename T, class H, bool CAPA>
+HD void face_cells(const Block<S, T, H, CAPA>& B, const int k[3], T ql[],
+                   T qr[]) {
+  using L = Lay<S, T, H, CAPA>;
+  const int cl = B.cell(k[0] + 1, k[1] + 1, k[2] + 1);
+  for (int e = 0; e < L::NEQ; ++e) {
+    ql[e] = B.Q[e * L::QN + cl];
+    qr[e] = B.Q[e * L::QN + cl + stride_of<L, D>];
+  }
+}
 
 // ---- phase: stage q, aux and dt/(dD kappa) + halo, zero the accumulators
 // Every copy is issued (cp.async) before any is waited on; kappa lands in
@@ -307,8 +347,7 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using R = Reg<H, D>;
   using L = Lay<S, T, H, CAPA>;
   constexpr int NEQ = L::NEQ, NW = L::NW;
-  // the staged stride along D
-  constexpr int sD = D == 0 ? L::Q1 * L::Q2 : (D == 1 ? L::Q2 : 1);
+  constexpr int sD = stride_of<L, D>;
   T* AMf = B.AMf();
   T* APf = B.APf();
   T cfl = B.RED[tid];
@@ -332,24 +371,32 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
     T cq[NEQ];
     for (int e = 0; e < NEQ; ++e) cq[e] = T(0);
     if (A.order == 2) {
-      T wlo[NW][NEQ], whi[NW][NEQ];
-      rpn_waves<D>(A, B, cl - sD, cl, wlo);
-      rpn_waves<D>(A, B, cr, cr + sD, whi);
+      // the dot products with the neighbour interfaces' waves, one
+      // neighbour at a time (the waves of only one are live at once)
+      T dlo[NW], dhi[NW];
+      {
+        T wn[NW][NEQ];
+        rpn_waves<D>(A, B, cl - sD, cl, wn);
+        for (int p = 0; p < NW; ++p) {
+          dlo[p] = wn[p][0] * w[p][0];
+          for (int e = 1; e < NEQ; ++e) dlo[p] = dlo[p] + wn[p][e] * w[p][e];
+        }
+        rpn_waves<D>(A, B, cr, cr + sD, wn);
+        for (int p = 0; p < NW; ++p) {
+          dhi[p] = w[p][0] * wn[p][0];
+          for (int e = 1; e < NEQ; ++e) dhi[p] = dhi[p] + w[p][e] * wn[p][e];
+        }
+      }
       T cf[NW];
       for (int p = 0; p < NW; ++p) {
         T wn2 = w[p][0] * w[p][0];
-        T dlo = wlo[p][0] * w[p][0];
-        T dhi = w[p][0] * whi[p][0];
-        for (int e = 1; e < NEQ; ++e) {
-          wn2 = wn2 + w[p][e] * w[p][e];
-          dlo = dlo + wlo[p][e] * w[p][e];
-          dhi = dhi + w[p][e] * whi[p][e];
-        }
+        for (int e = 1; e < NEQ; ++e) wn2 = wn2 + w[p][e] * w[p][e];
         T phi = T(1);
         const int lid = A.lim[p];
         if (lid != 0) {
           const bool safe = wn2 > T(0);
-          const T theta = safe ? (s[p] > T(0) ? dlo : dhi) / wn2 : T(0);
+          const T theta =
+              safe ? (s[p] > T(0) ? dlo[p] : dhi[p]) / wn2 : T(0);
           const T ph = phi_limiter<T>(lid, theta, fabs_(s[p]) * dtdx);
           phi = safe ? ph : T(1);
         }
@@ -458,10 +505,11 @@ HD void phase_rpt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
     l[D] += IMP - 1;
     T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
     split_aux<E>(B, l, ab, ac, aa);
-    T asdq[NEQ], bm[NEQ], bp[NEQ];
+    T ql[NEQ], qr[NEQ], asdq[NEQ], bm[NEQ], bp[NEQ];
+    face_cells<D>(B, b, ql, qr);
     for (int e = 0; e < NEQ; ++e)
       asdq[e] = B.TR[((IMP - 1) * NEQ + e) * L::BM + idx];
-    S::template rpt<E, T>(A.P, ab, ac, aa, asdq, bm, bp);
+    S::template rpt<E, T>(A.P, ql, qr, ab, ac, aa, asdq, bm, bp);
     for (int e = 0; e < NEQ; ++e) {
       BB[e * L::BM + idx] = bm[e];
       BB[(NEQ + e) * L::BM + idx] = bp[e];
@@ -523,10 +571,11 @@ HD void split_at(const Args<T>& A, const Block<S, T, H, CAPA>& B,
   T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
   split_aux<E>(B, l, ab, ac, aa);
   const int kf = flat<R::B0, R::B1, R::B2>(k);
-  T asdq[L::NEQ];
+  T ql[L::NEQ], qr[L::NEQ], asdq[L::NEQ];
+  face_cells<D>(B, k, ql, qr);
   for (int e = 0; e < L::NEQ; ++e)
     asdq[e] = B.TR[((IMP - 1) * L::NEQ + e) * L::BM + kf];
-  S::template rpt<E, T>(A.P, ab, ac, aa, asdq, bm, bp);
+  S::template rpt<E, T>(A.P, ql, qr, ab, ac, aa, asdq, bm, bp);
 }
 
 template <int D, int E, int IMP, class S, typename T, class H, bool CAPA>
@@ -592,9 +641,10 @@ HD void phase_rptt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
     if (PART == 0) co = -co;
     T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
     split_aux<F>(B, l, ab, ac, aa);
-    T bs[NEQ], cm[NEQ], cp[NEQ];
+    T ql[NEQ], qr[NEQ], bs[NEQ], cm[NEQ], cp[NEQ];
+    face_cells<D>(B, b, ql, qr);
     for (int e = 0; e < NEQ; ++e) bs[e] = BB[(NEQ * PART + e) * L::BM + idx];
-    S::template rptt<F, T>(A.P, ab, ac, aa, bs, cm, cp);
+    S::template rptt<F, T>(A.P, ql, qr, ab, ac, aa, bs, cm, cp);
     for (int e = 0; e < NEQ; ++e) {
       TB[e * L::BM + idx] = co * cm[e];
       TB[(NEQ + e) * L::BM + idx] = co * cp[e];
@@ -786,15 +836,15 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
     for (int e = 0; e < 3; ++e)
       A.co2[d][e] = T((dt * dt) / (6.0 * deltas[d] * deltas[e]));
   }
-  // advection: u, v, w; acoustics: zz, cc
+  // advection: u, v, w; acoustics: zz, cc; Euler: gamma
   for (int d = 0; d < 3; ++d) A.P.vel[d] = T(prm[d]);
   A.P.zz = T(prm[0]);
   A.P.cc = T(prm[1]);
   A.P.p2z = T(2.0 * prm[0]);
+  A.P.g1 = T(prm[0] - 1.0);
   A.order = order;
   A.tw = tw;
-  A.lim[0] = lim[0];
-  A.lim[1] = lim[1];
+  for (int p = 0; p < NLIM; ++p) A.lim[p] = lim[p];
   return A;
 }
 
@@ -873,7 +923,12 @@ int launch(const Args<T>& A, void*) {
 #endif
 
 // system ids of the C interface (ops/tiled2d.py:STEP3_SYSTEMS)
-enum { SYS_VC_ACOUSTICS = 0, SYS_ACOUSTICS = 1, SYS_ADVECTION = 2 };
+enum {
+  SYS_VC_ACOUSTICS = 0,
+  SYS_ACOUSTICS = 1,
+  SYS_ADVECTION = 2,
+  SYS_EULER = 3
+};
 
 template <typename T, class S>
 int dispatch_flags(const Args<T>& A, bool capa, bool fwave, void* stream) {
@@ -902,6 +957,8 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
     case SYS_ADVECTION:
       return dispatch_flags<T, Advection3D>(A, capa >= 0, fwave != 0,
                                             stream);
+    case SYS_EULER:
+      return dispatch_flags<T, Euler3D>(A, capa >= 0, fwave != 0, stream);
     default:
       return -1;
   }
@@ -914,7 +971,7 @@ extern "C" {
 
 // Number of blocks (= CFL partials) the kernel writes for a padded grid.
 int step3_aos_blocks(int nxg, int nyg, int nzg, int is_double) {
-  const int lim[2] = {0, 0};
+  const int lim[NLIM] = {0, 0, 0, 0, 0};
   const double prm[3] = {0, 0, 0};
   if (is_double)
     return nblocks(make_args<double>(nullptr, nullptr, nullptr, nullptr, nxg,
@@ -936,10 +993,18 @@ int step3_aos_smem_bytes(int system, int capa, int is_double) {
       return smem_of<VcAcoustics3D>(capa != 0, is_double != 0);
     case SYS_ACOUSTICS:
       return smem_of<Acoustics3D>(capa != 0, is_double != 0);
-    default:
+    case SYS_ADVECTION:
       return smem_of<Advection3D>(capa != 0, is_double != 0);
+    case SYS_EULER:
+      return smem_of<Euler3D>(capa != 0, is_double != 0);
+    default:
+      return -1;
   }
 }
+
+// Limiter ids an entry takes (l0 .. l4: one per wave; a system with fewer
+// waves reads the first of them).
+int step3_aos_limiter_ids() { return NLIM; }
 
 // One CTU step.  qbc: (num_eqn, nxg, nyg, nzg) ghost-padded (2 ghost
 // cells); aux: (num_aux, nxg, nyg, nzg) or null when the system reads none
@@ -947,15 +1012,17 @@ int step3_aos_smem_bytes(int system, int capa, int is_double) {
 // step3_aos_blocks(...) partial CFL maxima; all contiguous, of the type
 // named by the entry.  system: SYS_*; capa: aux row of the capacity
 // function or -1; fwave: the f-wave correction form; p0..p2: u, v, w
-// (advection) or zz, cc (acoustics); l0, l1: the limiter ids of the waves.
-// Returns a cudaError_t (0 on success), or -1 for an unknown system.
+// (advection), zz, cc (acoustics) or gamma (Euler); l0..l4: the limiter
+// ids of the waves.  Returns a cudaError_t (0 on success), or -1 for an
+// unknown system.
 #if defined(__CUDACC__)
 #define STEP3_AOS_ENTRY(NAME, T)                                              \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb, int nxg, \
            int nyg, int nzg, int system, int capa, int fwave, double dt,      \
            double dx, double dy, double dz, double p0, double p1, double p2,  \
-           int order, int tw, int l0, int l1, void* stream) {                 \
-    const int lim[2] = {l0, l1};                                              \
+           int order, int tw, int l0, int l1, int l2, int l3, int l4,         \
+           void* stream) {                                                    \
+    const int lim[NLIM] = {l0, l1, l2, l3, l4};                               \
     const double prm[3] = {p0, p1, p2};                                       \
     return step<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, system, capa, fwave,  \
                    dt, dx, dy, dz, prm, order, tw, lim, stream);              \
@@ -967,8 +1034,8 @@ STEP3_AOS_ENTRY(step3_aos_f64, double)
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb, int nxg, \
            int nyg, int nzg, int system, int capa, int fwave, double dt,      \
            double dx, double dy, double dz, double p0, double p1, double p2,  \
-           int order, int tw, int l0, int l1) {                               \
-    const int lim[2] = {l0, l1};                                              \
+           int order, int tw, int l0, int l1, int l2, int l3, int l4) {       \
+    const int lim[NLIM] = {l0, l1, l2, l3, l4};                               \
     const double prm[3] = {p0, p1, p2};                                       \
     return step<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, system, capa, fwave,  \
                    dt, dx, dy, dz, prm, order, tw, lim, nullptr);             \

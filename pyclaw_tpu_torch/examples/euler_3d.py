@@ -53,6 +53,22 @@ def setup(mx=32, my=32, mz=32, solver_type="classic", use_parallel=False,
     return claw
 
 
+def add_capacity(state):
+    """Give a 3D state on [-1, 1]^3 a capacity function, kappa = 1 +
+    0.25 cos(pi x) cos(pi y) cos(pi z) (in 0.75 .. 1.25, even in every
+    axis, so the example keeps its x <-> y mirror symmetry), as its one
+    aux row (index_capa = 0); returns the state.  No JAX example runs
+    this configuration: it is how the port's Euler system of
+    csrc/step3_aos.cu is driven with a capacity function."""
+    x, y, z = state.grid.c_centers
+    kappa = 1.0 + 0.25 * (np.cos(np.pi * x) * np.cos(np.pi * y)
+                          * np.cos(np.pi * z))
+    state.num_aux = 1
+    state.aux = kappa[None].astype(state.q.dtype)
+    state.index_capa = 0
+    return state
+
+
 if __name__ == "__main__":
     claw = setup()
     status = claw.run()

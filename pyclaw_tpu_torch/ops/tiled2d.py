@@ -363,19 +363,29 @@ step2_rows_generic.launches = 0
 
 
 # rp.name -> (system id of csrc/step3_aos.cu (SYS_*), aux rows its solvers
-# read (NAUX))
+# read (NAUX)).  euler_3D runs here with a capacity function or f-waves;
+# without either, ClawSolver3D sends it to step3_xy (csrc/step3_ctu.cu).
 STEP3_SYSTEMS = {"vc_acoustics_3D": (0, 2), "acoustics_3D": (1, 0),
-                 "advection_3D": (2, 0)}
+                 "advection_3D": (2, 0), "euler_3D": (3, 0)}
+# limiter ids an entry of csrc/step3_aos.cu takes (one per wave of the
+# system with the most, euler_3D)
+STEP3_AOS_LIMITERS = 5
 # qbc, aux, qout, cflb; nxg, nyg, nzg, system, capa, fwave; dt, dx, dy,
-# dz and three physics scalars; order, tw and two limiter ids (the host
+# dz and three physics scalars; order, tw and five limiter ids (the host
 # emulation takes these, the card's entries a stream after them)
 STEP3_AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                      + [ctypes.c_double] * 7 + [ctypes.c_int] * 4)
+                      + [ctypes.c_double] * 7
+                      + [ctypes.c_int] * (2 + STEP3_AOS_LIMITERS))
 
 
 def bind_step3_aos_lib(lib):
     """Set the argument types of a ctypes handle of a build of
-    ``csrc/step3_aos.cu``; returns it."""
+    ``csrc/step3_aos.cu``; returns it.  Raises if the build takes another
+    number of limiter ids than :data:`STEP3_AOS_LIMITERS`."""
+    n = lib.step3_aos_limiter_ids()
+    if n != STEP3_AOS_LIMITERS:
+        raise RuntimeError(f"step3_aos: the build takes {n} limiter ids, "
+                           f"the wrapper passes {STEP3_AOS_LIMITERS}")
     for name in ("step3_aos_f32", "step3_aos_f64"):
         fn = getattr(lib, name)
         fn.argtypes = STEP3_AOS_ARGTYPES + [ctypes.c_void_p]
@@ -393,13 +403,24 @@ def _step3_aos_lib():
 
 def step3_system_scalars(rp, params):
     """The three physics scalars ``csrc/step3_aos.cu`` takes for system
-    ``rp``: (u, v, w) for advection, (zz, cc, 0) for acoustics."""
+    ``rp``: (u, v, w) for advection, (zz, cc, 0) for acoustics, (gamma,
+    0, 0) for Euler."""
     if rp.name == "advection_3D":
         return tuple(float(params[k]) for k in ("u", "v", "w"))
     if rp.name == "acoustics_3D":
         zz, cc = acoustics._zc(params)
         return float(zz), float(cc), 0.0
+    if rp.name == "euler_3D":
+        return float(params["gamma"]), 0.0, 0.0
     return 0.0, 0.0, 0.0
+
+
+def step3_limiter_ids(mthlim):
+    """The limiter ids of ``mthlim`` as the entries of
+    ``csrc/step3_aos.cu`` take them: one per wave, padded to
+    :data:`STEP3_AOS_LIMITERS` (the kernel reads the system's waves')."""
+    lims = [int(m) for m in mthlim]
+    return lims + [lims[-1]] * (STEP3_AOS_LIMITERS - len(lims))
 
 
 def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
@@ -427,11 +448,6 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
                              rp.rptt, params, mthlim, order, fwave,
                              index_capa, num_ghost, transverse_waves,
                              rp.prefactor)
-    if rp.name == "euler_3D":
-        raise NotImplementedError(
-            "step3_xy_generic: euler_3D runs on step3_xy; with a capacity "
-            "function or f-waves it has no kernel yet (ROADMAP.md, Queue 2 "
-            "item 4c: 'Euler 3D with capacity or f-waves')")
     if rp.name not in STEP3_SYSTEMS:
         raise NotImplementedError(
             f"step3_xy_generic: {rp.name} has no kernel yet (ROADMAP.md, "
@@ -463,12 +479,11 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
                                                    int(is_double)),),
                              dtype=qbc.dtype, device=qbc.device)
     fn = lib.step3_aos_f64 if is_double else lib.step3_aos_f32
-    lims = [int(m) for m in mthlim]
     rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
             nxg, nyg, nzg, system, int(index_capa), int(bool(fwave)),
             float(dt), float(dx), float(dy), float(dz),
             *step3_system_scalars(rp, params), int(order),
-            int(transverse_waves), lims[0], lims[-1],
+            int(transverse_waves), *step3_limiter_ids(mthlim),
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"step3_aos launch failed: cudaError_t {rc}")

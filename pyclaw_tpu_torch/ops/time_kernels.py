@@ -4,10 +4,12 @@ and the timers and timed cases that ``chip_smoke.py`` uses too.
     python -m pyclaw_tpu_torch.ops.time_kernels KERNEL VARIANT [VARIANT ...]
         [--out FILE] [--sass]
 
-KERNEL is ``step2_ctu``, ``dq2_weno5``, ``step3_ctu`` or ``step3_aos``,
+KERNEL is ``step2_ctu``, ``dq2_weno5``, ``step3_ctu``, ``step3_aos`` or
+``step3_aos_euler`` (the source ``step3_aos.cu`` on its Euler system),
 timed through its wrapper in ``ops/tiled2d.py`` on the case that
 ``chip_smoke.py`` times (:func:`step2_ctu_case`, :func:`dq_case`,
-:func:`step3_ctu_case`, :func:`step3_aos_case`).  Each VARIANT is
+:func:`step3_ctu_case`, :func:`step3_aos_case`,
+:func:`step3_aos_euler_case`).  Each VARIANT is
 ``LABEL=ROOT[:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/csrc/
 KERNEL.cu`` (ROOT a checkout, for example an unpacked ``git archive`` of a
 parent commit, or a copy with an edited source) built with this
@@ -44,7 +46,9 @@ import torch
 from . import _build
 
 ITERS = {"step2_ctu": 200, "dq2_weno5": 100, "step3_ctu": 10,
-         "step3_aos": 20}
+         "step3_aos": 20, "step3_aos_euler": 10}
+# the source of each KERNEL that is not its own name
+SOURCE = {"step3_aos_euler": "step3_aos"}
 
 
 # ---- timers -------------------------------------------------------------
@@ -124,6 +128,15 @@ def het_state(nx, ny, nz):
     return st.q, st.aux
 
 
+def euler3d_capa_state(nx, ny, nz):
+    """q and aux (kappa) of examples.euler_3d with the capacity function
+    of ``examples.euler_3d.add_capacity`` (CPU arrays)."""
+    from ..examples import euler_3d as ex
+    st = ex.add_capacity(ex.setup(mx=nx, my=ny, mz=nz, outdir=None,
+                                  device="cpu").solution.state)
+    return st.q, st.aux
+
+
 def padded(q_np, dtype, dev, num_ghost=2):
     """2D q extended by extrapolation on every side."""
     from .. import bc
@@ -199,6 +212,21 @@ def step3_aos_case(n, dtype, dev):
                         2, 1)
 
 
+def step3_aos_euler_case(n, dtype, dev):
+    """step3_aos's timed case of its Euler system at n^3, the Euler
+    capacity path's configuration on its first state: qbc, auxbc (kappa)
+    and the rest of ``tiled2d.step3_xy_generic``'s arguments (dt = 0.3
+    dx, dx = 2/n, euler_3D, gamma 1.4, MC, order 2, no f-waves,
+    index_capa 0, 2 ghost cells, transverse_waves 2)."""
+    from .. import riemann
+    q_np, aux_np = euler3d_capa_state(n, n, n)
+    qbc = padded3(q_np, dtype, dev).contiguous()
+    auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
+    d = 2.0 / n
+    return qbc, auxbc, (_exact(0.3 * d, dtype), d, d, d, riemann.euler_3D,
+                        {"gamma": 1.4}, (4,) * 5, 2, False, 0, 2, 2)
+
+
 def _step2_ctu_call(dtype, dev, n=1024):
     from . import tiled2d
     qbc, args = step2_ctu_case(n, dtype, dev)
@@ -229,14 +257,18 @@ def _dq_call(dtype, dev, n=1024):
     return make
 
 
-def _step3_aos_call(dtype, dev, n=192):
+def _step3_aos_call(dtype, dev, n=192, case=step3_aos_case):
     from . import tiled2d
-    qbc, auxbc, args = step3_aos_case(n, dtype, dev)
+    qbc, auxbc, args = case(n, dtype, dev)
 
     def make(lib):
         lib = tiled2d.bind_step3_aos_lib(lib)
         return lambda: tiled2d.step3_xy_generic(qbc, auxbc, *args, lib=lib)
     return make
+
+
+def _step3_aos_euler_call(dtype, dev, n=192):
+    return _step3_aos_call(dtype, dev, n, step3_aos_euler_case)
 
 
 # ---- variants -----------------------------------------------------------
@@ -305,7 +337,8 @@ def run(kernel, variants, sass=False):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(f"card: {card}")
-    libs = _build_variants(kernel, variants)
+    source = SOURCE.get(kernel, kernel)
+    libs = _build_variants(source, variants)
     labels = [v[0] for v in variants]
     result_sass = {}
     if sass:
@@ -318,7 +351,8 @@ def run(kernel, variants, sass=False):
     order = labels + labels[::-1]
     case = {"step2_ctu": _step2_ctu_call, "dq2_weno5": _dq_call,
             "step3_ctu": _step3_ctu_call,
-            "step3_aos": _step3_aos_call}[kernel]
+            "step3_aos": _step3_aos_call,
+            "step3_aos_euler": _step3_aos_euler_call}[kernel]
     result = {"kernel": kernel, "card": card, "order": order, "types": {},
               "sass": result_sass}
     for dtype in (torch.float32, torch.float64):
@@ -340,7 +374,7 @@ def run(kernel, variants, sass=False):
                 events_ms(calls[label], ITERS[kernel], warm=3))
         for label in labels:
             dev_ms, dev_n = device_ms_per_call(calls[label],
-                                               f"{kernel}_kernel", 10)
+                                               f"{source}_kernel", 10)
             per[label]["device_ms"] = dev_ms
             per[label]["device_launches_profiled"] = dev_n
             print(f"  {kernel} {tname} [{label}]: events ms "

@@ -221,22 +221,57 @@ def test_what_the_slice_refuses():
         claw.solver.setup(claw.solution)
 
 
-def test_euler_with_capacity_off_the_cpu_is_refused():
-    """ClawSolver3D routes Euler with a capacity function to the generic
-    step: the plain version on the CPU, and on a tensor off the CPU (a
-    meta tensor stands in for the card's) the wrapper's refusal, before
-    any launch."""
+def test_euler_with_capacity_off_the_cpu_is_refused(monkeypatch):
+    """ClawSolver3D routes Euler with a capacity function, with f-waves or
+    with both to the generic step (one call of step3_xy_generic with the
+    Euler system of STEP3_SYSTEMS), and Euler without either to step3_xy.
+    On the CPU that step is the plain version; a tensor off the CPU that
+    is not the card's (a meta tensor) is refused before any launch."""
     from pyclaw_tpu_torch.examples import euler_3d
-    claw = euler_3d.setup(mx=4, my=4, mz=4, outdir=None, device="cpu")
-    state = claw.solution.state
-    state.aux = 1.0 + 0.1 * np.random.default_rng(0).random((1, 4, 4, 4))
-    state.index_capa = 0
-    claw.solver.setup(claw.solution)
-    q_t, _ = claw.solver._step_fn(torch.from_numpy(state.q),
-                                  torch.from_numpy(state.aux), 1e-3, 0.0)
+    from pyclaw_tpu_torch.ops import tiled2d
+
+    def setup(capacity, fwave):
+        claw = euler_3d.setup(mx=4, my=4, mz=4, outdir=None, device="cpu")
+        if capacity:
+            euler_3d.add_capacity(claw.solution.state)
+        claw.solver.fwave = fwave
+        claw.solver.setup(claw.solution)
+        return claw.solver, claw.solution.state
+
+    solver, state = setup(True, False)
+    q_t, _ = solver._step_fn(torch.from_numpy(state.q),
+                             torch.from_numpy(state.aux), 1e-3, 0.0)
     assert q_t.shape == (5, 4, 4, 4) and bool(torch.isfinite(q_t).all())
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4c"):
-        claw.solver._step_fn(torch.empty(5, 4, 4, 4, dtype=torch.float64,
-                                         device="meta"),
-                             torch.empty(1, 4, 4, 4, dtype=torch.float64,
-                                         device="meta"), 1e-3, 0.0)
+    with pytest.raises(ValueError, match="device"):
+        solver._step_fn(torch.empty(5, 4, 4, 4, dtype=torch.float64,
+                                    device="meta"),
+                        torch.empty(1, 4, 4, 4, dtype=torch.float64,
+                                    device="meta"), 1e-3, 0.0)
+
+    calls = []
+
+    def recorder(name):
+        def step(qbc, *args):
+            calls.append((name, args))
+            return qbc[:, 2:-2, 2:-2, 2:-2], torch.tensor(0.5)
+        return step
+
+    monkeypatch.setattr(tiled2d, "step3_xy_generic", recorder("generic"))
+    monkeypatch.setattr(tiled2d, "step3_xy", recorder("step3_xy"))
+    for capacity, fwave in ((True, False), (False, True), (True, True),
+                            (False, False)):
+        solver, state = setup(capacity, fwave)
+        calls.clear()
+        aux = None if state.aux is None else torch.from_numpy(state.aux)
+        solver._step_fn(torch.from_numpy(state.q), aux, 1e-3, 0.0)
+        assert len(calls) == 1
+        name, args = calls[0]
+        if not (capacity or fwave):
+            assert name == "step3_xy"
+            continue
+        # (auxbc, dt, dx, dy, dz, rp, params, mthlim, order, fwave,
+        # index_capa, num_ghost, transverse_waves)
+        assert name == "generic"
+        assert tiled2d.STEP3_SYSTEMS[args[5].name] == (3, 0)
+        assert args[9] == fwave and args[10] == (0 if capacity else -1)
+        assert (args[0] is None) == (not capacity)

@@ -178,9 +178,10 @@ def test_wrapper_rejects_options(bad):
 
 def test_plain_step_refuses_what_it_does_not_port():
     """The plain step now takes aux (which Euler does not read), a
-    capacity function and the f-wave form, as JAX ``step3`` does; what is
-    still refused is Euler with a capacity function on a tensor off the
-    CPU (a meta tensor stands in for the card's), which has no kernel."""
+    capacity function and the f-wave form, as JAX ``step3`` does.  Euler
+    with a capacity function has a kernel (step3_aos.cu's Euler system):
+    what is refused is a tensor off the CPU that is not the card's (a
+    meta tensor), before any launch."""
     q_np = _state(1, 4, 4, 4)
     q = torch.from_numpy(q_np)
     kappa = 1.0 + 0.5 * np.random.default_rng(1).random((1,) + q_np.shape[1:])
@@ -202,7 +203,7 @@ def test_plain_step_refuses_what_it_does_not_port():
         q_j = np.asarray(q_j)
         assert np.abs(q_t.numpy() - q_j).max() / np.abs(q_j).max() <= 1e-12
         assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 4c"):
+    with pytest.raises(ValueError, match="device"):
         tiled2d.step3_xy_generic(q.to("meta"), torch.from_numpy(kappa)
                                  .to("meta"), *args[:4], RP, PARAMS,
                                  (4,) * 5, 2, False, 0)

@@ -119,6 +119,27 @@ def test_step3_aos_case_is_the_heterogeneous_path(monkeypatch):
     assert tuple(path[5]) == case[6] and path[6:] == case[7:]
 
 
+def test_step3_aos_euler_case_is_the_euler_capacity_path(monkeypatch):
+    """The Euler system's case is examples.euler_3d with the capacity
+    function of euler_3d.add_capacity, as chip_smoke.py's [4g] path runs it."""
+    from pyclaw_tpu_torch.examples import euler_3d as ex
+    n = 6
+    claw = ex.setup(mx=n, my=n, mz=n, outdir=None, device="cpu",
+                    dtype="float64")
+    ex.add_capacity(claw.solution.state)
+    claw.tfinal = 0.01
+    args, kwargs = _first_call(monkeypatch, "step3_xy_generic", claw)
+    qbc, auxbc, case = tk.step3_aos_euler_case(n, torch.float64, "cpu")
+    assert torch.equal(args[0], qbc) and torch.equal(args[1], auxbc)
+    kappa = auxbc[0, 2:-2, 2:-2, 2:-2]
+    assert 0.75 <= float(kappa.min()) and float(kappa.max()) <= 1.25
+    assert torch.equal(kappa, kappa.transpose(0, 1))
+    path = args[3:] + tuple(kwargs.values())
+    assert path[:4] == case[1:5]            # dx, dy, dz, the system
+    assert path[4] == case[5]               # gamma
+    assert tuple(path[5]) == case[6] and path[6:] == case[7:]
+
+
 def test_parse_sass_counts_opcodes_per_entry():
     hist = tk.parse_sass(SASS)
     assert set(hist) == {"_Z6kernelIfEvv", "_Z6kernelIdEvv"}
