@@ -48,8 +48,8 @@ Phases (each asserts; any failure exits non-zero):
      on advection) at 16^3, 33x17x9, 5x40x7 and 3x5x2 (less than a tile),
      and the main configuration at 45x70x50 (ragged on every axis, more
      tiles than resident blocks), float32 and float64;
-  3h. step3_aos's Euler system against its plain version (one step each),
-     over the slice's state (examples.euler_3d with the capacity function
+  3h. step3_ctu's capacity and f-wave variants against the plain version
+     (one step each), over the slice's state (examples.euler_3d with the capacity function
      kappa = 1 + 0.25 cos(pi x) cos(pi y) cos(pi z)) and a seeded random
      admissible state with velocities in all three directions and a
      capacity row in 0.7 .. 1.3: the main configuration (capacity,
@@ -84,8 +84,8 @@ Phases (each asserts; any failure exits non-zero):
   4g. the 3D Euler capacity path: examples.euler_3d.setup(mx=my=mz=192,
      float32) with the capacity function of [3h] (one aux row, index_capa
      0) through Controller.run() to tfinal=0.2, every launch count set to
-     0 just before it and read just after (step3_aos: 1 per attempted
-     step; step3_ctu and every other kernel: 0);
+     0 just before it and read just after (step3_ctu, its capacity
+     variant: 1 per attempted step; step3_aos and every other kernel: 0);
   5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
      card, float32 and float64;
   5c. the 16^3 euler_3d golden on the card, float32 and float64;
@@ -104,8 +104,9 @@ Phases (each asserts; any failure exits non-zero):
   5g. the Euler capacity path's correctness (no golden exists): the 32^3
      run to t=0.2 on the card in float64 against the same run on the CPU's
      plain step (equal steps, 1e-10); the kappa = 1 oracle (the capacity
-     path with kappa = 1 against the no-capacity path, step3_ctu, 32^3
-     float64, equal steps, 1e-10); the 192^3 float32 run against a 192^3
+     variant of step3_ctu with kappa = 1 against its variant without a
+     capacity function, 32^3 float64, equal steps, 1e-12); the 192^3
+     float32 run against a 192^3
      float64 run on the card (relative L1); the x <-> y mirror symmetry of
      rho; the change of the capacity-weighted mass; the boundary cells
      unchanged (the front has not reached them);
@@ -119,8 +120,9 @@ Phases (each asserts; any failure exits non-zero):
      its device time from torch.profiler; step2_ctu, dq2_weno5 and
      step3_ctu also by the profiler; step3_aos, its plain version and
      its bound at 192^3 on the heterogeneous path's first input, and the
-     kernel on its last; the same for step3_aos's Euler system on the
-     Euler capacity path's first input and last state; then
+     kernel on its last; the same for step3_ctu's capacity variant on the
+     Euler capacity path's first input and last state; step2_aos also by
+     the profiler; then
      each 2D path to t=0.1, the 3D Euler path to t=0.02, the heterogeneous
      path to t=0.8, the Euler capacity path to t=0.02, the classic Sod path to t=0.2 and the SharpClaw one to
      t=0.02 under torch.profiler (device busy share, launches per step,
@@ -141,10 +143,10 @@ import numpy as np
 
 # the timers and the timed states, shared with the variant timer
 from pyclaw_tpu_torch.ops.time_kernels import (
-    device_ms_per_call, dq_case, euler3d_capa_state, euler3d_state,
-    events_ms as time_ms, het_state, padded, padded3, padded3_aux,
-    quadrants_state, step2_ctu_case, step3_aos_case, step3_aos_euler_case,
-    step3_ctu_case)
+    device_ms_per_call, dq_case, euler3d_capa_case, euler3d_capa_state,
+    euler3d_state, events_ms as time_ms, het_state, padded, padded3,
+    padded3_aux, quadrants_state, shallow_state, step2_aos_case,
+    step2_ctu_case, step3_aos_case, step3_ctu_case)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -201,9 +203,9 @@ FLOPS_PER_CELL_3D = 3 * (512 + 2 * 994) + 78 + 50
 # Operations per cell of one generic CTU step of the shallow-water Roe
 # solver (order 2, transverse_waves 2, MC, no capacity), counted from
 # csrc/step2_aos.cu and csrc/shallow2d.cuh in the same way, each interface
-# quantity counted once (the Roe average each rpt2 split recomputes, the
-# neighbour's dot product and the halo interfaces are overhead, not
-# work).  Per interface (one x and one y per cell): the Roe average 19,
+# quantity counted once (the neighbour's dot product and the halo
+# interfaces are overhead, not work; the two rpt2 splits of an interface
+# share its Roe average, which the normal solve's count holds).  Per interface (one x and one y per cell): the Roe average 19,
 # jumps 3, strengths 13, waves 4, the entropy fix 39, amdq/apdq 33 (the
 # normal solve, 111); the limiter of three waves (norm 5, dot product 5,
 # theta 3, MC 6, nu 2, select 1, coefficient 4) 78; the correction flux
@@ -214,8 +216,9 @@ FLOPS_PER_CELL_AOS = 2 * 357 + 78
 
 
 def capacity_ops_per_cell_3d(p, rptt, tw):
-    """Operations per cell a capacity function adds to one generic 3D CTU
-    step (csrc/step3_aos.cu) of a system with p waves: per cell the three
+    """Operations per cell a capacity function adds to one 3D CTU step
+    (csrc/step3_aos.cu, or step3_ctu.cu's capacity variant for Euler) of
+    a system with p waves: per cell the three
     dt/(dD kappa) 6; per interface the averaged dt/(dD kappa) 2 and 2 p in
     the CFL; with transverse waves, per (sweep, transverse) pair and
     fluctuation the two gather coefficients 2 and, with transverse_waves 2
@@ -242,22 +245,8 @@ def flops_per_cell_3d_aos(name, tw, capa=False):
     acoustics 12, advection 4) and the E-flux gather 5 m; with
     transverse_waves 2 and a system that has rptt3, two double-transverse
     splits, each with its scaling 2 m and its F-flux gather 5 m.  The
-    update 10 m per cell.  m equations, p waves.
-
-    Euler (csrc/euler3d_aos.cuh) does the work of csrc/step3_ctu.cu's
-    step, so it counts FLOPS_PER_CELL_3D, the least count of the same
-    function (order 2, MC, transverse_waves 2): the Roe average each of
-    its splits recomputes, the split's division by 2a, the rptt3 scaling
-    of the split's outputs rather than its inputs and the E-flux gather
-    of every component are overhead of this formulation, not work."""
+    update 10 m per cell.  m equations, p waves."""
     capa_ops = 0
-    if name == "euler_3D":
-        if tw != 2:
-            raise ValueError(f"euler_3D is counted at transverse_waves 2, "
-                             f"got {tw}")
-        if capa:
-            capa_ops = capacity_ops_per_cell_3d(5, True, tw)
-        return FLOPS_PER_CELL_3D + capa_ops
     m, p, rpn, split, rptt = {
         "vc_acoustics_3D": (4, 2, 23, 15, False),
         "acoustics_3D": (4, 2, 19, 12, True),
@@ -272,6 +261,12 @@ def flops_per_cell_3d_aos(name, tw, capa=False):
         per_fluct += 2 * (split + 2 * m + 5 * m)
     transverse = 2 * 2 * per_fluct if tw > 0 else 0
     return 3 * (normal + transverse) + 10 * m + capa_ops
+
+# Operations per cell of one 3D Euler CTU step with a capacity function
+# (step3_ctu.cu's capacity variant; order 2, MC, transverse_waves 2): the
+# step's work and what the capacity function adds to it (7628 + 90)
+FLOPS_PER_CELL_3D_CAPA = FLOPS_PER_CELL_3D + capacity_ops_per_cell_3d(
+    5, True, 2)
 
 TOL_REL = {"float32": 1e-5, "float64": 1e-12}        # one step, vs plain
 # A state with positivity fallbacks is ill-conditioned: edge densities
@@ -737,11 +732,6 @@ AOS_CASES = ([(ROE, False, -1, tw, order, 4) for tw in (0, 1, 2)
              + [(BATHY, True, -1, 2, 2, 4), (BATHY, True, 1, 2, 2, 10)])
 
 
-def dam_break_state(nx, ny):
-    from pyclaw_tpu_torch.examples import shallow_2d_radial as ex
-    return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
-
-
 def random_wet_state(rng, nx, ny):
     """A seeded wet shallow-water state with velocities of either sign
     (transonic interfaces included), and aux: bathymetry, and a
@@ -774,7 +764,7 @@ def compare_aos(dev, grids, seed=3):
     ncase = 0
     for nx, ny in grids:
         q_rand, aux_np = random_wet_state(rng, nx, ny)
-        inputs = {"dam_break": dam_break_state(nx, ny), "random": q_rand}
+        inputs = {"dam_break": shallow_state(nx, ny), "random": q_rand}
         dx, dy = 5.0 / nx, 5.0 / ny
         for iname, q_np in inputs.items():
             for tname, dtype in (("float32", torch.float32),
@@ -859,24 +849,19 @@ def lake_at_rest(dev, n, dtype, tfinal):
 
 
 def timing_aos(dev, n=1024):
-    """step2_aos, its plain version and its bound at n^2 on the radial dam
-    break state (the main path's first input)."""
+    """step2_aos (CUDA events and the profiler's device time), its plain
+    version and its bound at n^2 on the radial dam break state (the main
+    path's first input, ops/time_kernels.py:step2_aos_case)."""
     import torch
-    from pyclaw_tpu_torch import riemann
     from pyclaw_tpu_torch.ops import tiled2d
-    q_np = dam_break_state(n, n)
     out = {}
     for tname, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
-        qbc = padded(q_np, dtype, dev)
-        h = 5.0 / n
-        dt = float(np.dtype(tname).type(0.5 * h))
-        rp = riemann.ALL[ROE]
+        qbc, args = step2_aos_case(n, dtype, dev)
+        dt, h = args[1], args[2]
 
         def kern():
-            return tiled2d.step2_rows_generic(qbc, None, dt, h, h, rp,
-                                              SW_PARAMS, (4,) * 3, 2, False,
-                                              -1, 2, 2)
+            return tiled2d.step2_rows_generic(qbc, *args)
 
         def plain():
             return plain_aos(qbc, None, dt, h, h, ROE, False, -1, 2, 2, 4)
@@ -884,15 +869,20 @@ def timing_aos(dev, n=1024):
         ms = time_ms(kern, 200)
         plain_ms = time_ms(plain, 20, warm=2)
         ms_again = time_ms(kern, 200)
+        dev_ms, dev_n = device_ms_per_call(kern, "step2_aos_kernel", 20)
         item = qbc.element_size()
         b = bound_of(qbc.numel() * item + 3 * n * n * item,
                      FLOPS_PER_CELL_AOS * n * n, tname)
-        out[tname] = {"ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
-                      **b}
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, **b}
         print(f"  timing step2_aos {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
-              f"{ms_again:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{b['bound_ms']:.4f} ms (bytes {b['bytes_ms']:.4f}, "
-              f"operations {b['ops_ms']:.4f}), library_ms null", flush=True)
+              f"{ms_again:.4f}; on the device {dev_ms} ms, {dev_n} launches "
+              f"profiled), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
     return out
 
 
@@ -1150,15 +1140,18 @@ def timing_step3_aos(dev, n=192, q_last=None):
     return out
 
 
-# ---- the 3D Euler capacity path: step3_aos's Euler system ---------------
+# ---- the 3D Euler capacity path: step3_ctu's capacity variant -----------
 
 # (index_capa, fwave) of [3h]: f-waves without aux, a capacity function,
 # both
-EULER_AOS_FORMS = ((-1, True), (0, False), (0, True))
+EULER_CAPA_FORMS = ((-1, True), (0, False), (0, True))
 # The Euler capacity path (no golden): the 32^3 float64 run on the card
-# against the same run on the CPU's plain step and the kappa = 1 oracle
-# against the no-capacity path (step3_ctu.cu: another kernel, another
-# order of sums, contractions) (max relative); the 192^3 float32 run
+# against the same run on the CPU's plain step, and the kappa = 1 oracle
+# against the no-capacity path (two variants of step3_ctu.cu; the
+# capacity one divides dt by dD kappa in the working type and scales the
+# rptt3 parts by (dt/(6 dE)) (dt/(dD kappa)) where the other rounds dt/dD
+# and dt^2/(6 dD dE) from doubles: roundoff) (max relative); the 192^3
+# float32 run
 # against the 192^3 float64 run on the card (relative L1, as [5f]); the
 # x <-> y mirror symmetry of rho in float64 (absolute, as [5f]); the
 # change of the capacity-weighted mass sum(kappa rho) dV (relative): each
@@ -1166,18 +1159,18 @@ EULER_AOS_FORMS = ((-1, True), (0, False), (0, True))
 # inside (float32: per-cell roundoff of ~1e-7 over ~50 steps, summed in
 # float64; float64 the same at 1e-16); the change of q on the boundary
 # cells (max, relative to max |q|) shows the front has not reached them
-EULER_CAPA_TOL = {"card_vs_cpu_f64": 1e-10, "kappa1_vs_ctu_f64": 1e-10,
+EULER_CAPA_TOL = {"card_vs_cpu_f64": 1e-10, "kappa1_vs_ctu_f64": 1e-12,
                   "f32_vs_f64_l1": 1e-4, "mirror_f64": 1e-11,
                   "mass_f32": 1e-5, "mass_f64": 1e-12,
                   "boundary_f32": 1e-6}
 
 
-def euler_aos_matrix():
+def euler_capa_matrix():
     """(transverse_waves, order, limiter, index_capa, fwave) of [3h] at
     the small grids."""
     return [(tw, order, lim, capa, fwave) for tw in (0, 1, 2)
             for order, lim in STEP3_AOS_LIMS
-            for capa, fwave in EULER_AOS_FORMS]
+            for capa, fwave in EULER_CAPA_FORMS]
 
 
 def random_euler_capa(rng, shape):
@@ -1187,11 +1180,12 @@ def random_euler_capa(rng, shape):
     return q, 0.7 + 0.6 * rng.random((1,) + shape)
 
 
-def compare_step3_aos_euler(dev, n_main=192, seed=8):
-    """step3_aos's Euler system vs its plain version, one step each, on the
-    card: the main configuration (capacity, transverse_waves 2, order 2,
-    MC) at n_main^3, the matrix at small grids, on the slice's state (the
-    euler_3d state with its capacity function) and a seeded random one."""
+def compare_step3_capa(dev, n_main=192, seed=8):
+    """step3_ctu's capacity and f-wave variants vs the plain version, one
+    step each, on the card: the main configuration (capacity,
+    transverse_waves 2, order 2, MC) at n_main^3, the matrix at small
+    grids, on the slice's state (the euler_3d state with its capacity
+    function) and a seeded random one."""
     import torch
     from pyclaw_tpu_torch import riemann
     from pyclaw_tpu_torch.classic import kernels
@@ -1203,7 +1197,7 @@ def compare_step3_aos_euler(dev, n_main=192, seed=8):
     worst_cfl = {"float32": 0.0, "float64": 0.0}
     main_abs_err = None
     ncase = 0
-    matrix = euler_aos_matrix()
+    matrix = euler_capa_matrix()
     main = [(2, 2, 4, 0, False)]
     for shape, cases in (((n_main,) * 3, main), ((16, 16, 16), matrix),
                          ((33, 17, 9), matrix), ((5, 40, 7), matrix),
@@ -1220,9 +1214,9 @@ def compare_step3_aos_euler(dev, n_main=192, seed=8):
                 for tw, order, lim, capa, fwave in cases:
                     aux = auxbc if capa >= 0 else None
                     lims = (lim,) * 5
-                    qk, ck = tiled2d.step3_xy_generic(
-                        qbc, aux, dt, *deltas, rp, params, lims, order,
-                        fwave, capa, 2, tw)
+                    qk, ck = tiled2d.step3_xy(
+                        qbc, dt, *deltas, params, lims, order, 2, tw,
+                        auxbc=aux, index_capa=capa, fwave=fwave)
                     qp, cp = kernels.step3(
                         qbc, aux, dt, *deltas, rp.rp, rp.rpt, rp.rptt,
                         params, lims, order, fwave, capa, 2, tw,
@@ -1234,7 +1228,7 @@ def compare_step3_aos_euler(dev, n_main=192, seed=8):
                     if not (np.isfinite(rel) and rel <= TOL_REL[tname]
                             and dcfl <= TOL_REL[tname]
                             and tuple(qk.shape) == (5,) + shape):
-                        fail(f"step3_aos euler vs plain {shape} {iname} "
+                        fail(f"step3_ctu capacity vs plain {shape} {iname} "
                              f"{tname} tw={tw} order={order} lim={lim} "
                              f"capa={capa} fwave={fwave}: rel err "
                              f"{rel:.3e}, cfl {float(ck)!r} vs "
@@ -1245,14 +1239,14 @@ def compare_step3_aos_euler(dev, n_main=192, seed=8):
                                                     "float32"):
                         main_abs_err = abs_err
                     if shape[0] == n_main:
-                        print(f"  step3_aos euler {shape} {iname:6s} "
+                        print(f"  step3_ctu capacity {shape} {iname:6s} "
                               f"{tname}: rel err {rel:.3e}, cfl rel "
                               f"{dcfl:.3e}", flush=True)
                     ncase += 1
                     del qk, qp
                 del qbc, auxbc
                 torch.cuda.empty_cache()
-        print(f"  compare step3_aos euler {shape}: max rel err f32 "
+        print(f"  compare step3_ctu capacity {shape}: max rel err f32 "
               f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; max cfl "
               f"rel f32 {worst_cfl['float32']:.3e} f64 "
               f"{worst_cfl['float64']:.3e}", flush=True)
@@ -1311,7 +1305,8 @@ def euler_capa_checks(dev, q192_f32, n=192):
     out["steps_card_32"], out["steps_cpu_32"] = steps_k, steps_c
     out["wall_card_32_s"], out["wall_cpu_32_s"] = w_k, w_c
     mirror32 = float(np.abs(q_k[0] - q_k[0].transpose(1, 0, 2)).max())
-    # kappa = 1 through step3_aos against step3_ctu
+    # kappa = 1 through step3_ctu's capacity variant against its variant
+    # without a capacity function
     c_1, st_1, _ = run_euler3d_capa(dev, 32, np.float64, kappa=1.0)
     c_e, st_e, _ = run_euler3d(dev, 32, np.float64)
     steps_1 = (st_1["numsteps"], st_1["numrejected"])
@@ -1342,7 +1337,7 @@ def euler_capa_checks(dev, q192_f32, n=192):
           f"{out['card_vs_cpu_f64']:.3e} (tol "
           f"{EULER_CAPA_TOL['card_vs_cpu_f64']}), steps card {steps_k}, cpu "
           f"{steps_c} (wall {w_k:.3f} s, {w_c:.3f} s); kappa = 1 vs the "
-          f"no-capacity path (step3_ctu) 32^3 f64: max rel "
+          f"no-capacity variant 32^3 f64: max rel "
           f"{out['kappa1_vs_ctu_f64']:.3e} (tol "
           f"{EULER_CAPA_TOL['kappa1_vs_ctu_f64']}), steps {steps_1} vs "
           f"{steps_e}; {n}^3 f32 vs f64 on the card: rel L1 "
@@ -1371,48 +1366,51 @@ def euler_capa_checks(dev, q192_f32, n=192):
     return out
 
 
-def timing_step3_aos_euler(dev, n=192, q_last=None):
-    """step3_aos's Euler system (the capacity path's configuration:
+def timing_step3_capa(dev, n=192, q_last=None):
+    """step3_ctu's capacity variant (the capacity path's configuration:
     capacity, transverse_waves 2, order 2, MC), its plain version and its
-    bound at n^3 on the path's first input; with ``q_last`` (the path's
+    bound at n^3 on the path's first input
+    (ops/time_kernels.py:euler3d_capa_case); with ``q_last`` (the path's
     final q, from [4g]) the kernel's time on that state too."""
     import torch
+    from pyclaw_tpu_torch import riemann
     from pyclaw_tpu_torch.ops import tiled2d
     from pyclaw_tpu_torch.classic import kernels
+    rp = riemann.euler_3D
     out = {}
     for tname, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
-        qbc, auxbc, args = step3_aos_euler_case(n, dtype, dev)
-        dt, deltas, rp, params = args[0], args[1:4], args[4], args[5]
+        qbc, auxbc, args = euler3d_capa_case(n, dtype, dev)
+        dt, deltas, params = args[0], args[1:4], args[4]
 
         def kern():
-            return tiled2d.step3_xy_generic(qbc, auxbc, *args)
+            return tiled2d.step3_xy(qbc, *args, auxbc=auxbc, index_capa=0)
 
         def plain():
             return kernels.step3(qbc, auxbc, dt, *deltas, rp.rp, rp.rpt,
-                                 rp.rptt, params, args[6], 2, False, 0, 2,
+                                 rp.rptt, params, args[5], 2, False, 0, 2,
                                  2, rp.prefactor)
 
         ms = time_ms(kern, 10, warm=2)
         plain_ms = time_ms(plain, 2, warm=1)
         ms_again = time_ms(kern, 10, warm=2)
-        dev_ms, dev_n = device_ms_per_call(kern, "step3_aos_kernel", 10)
+        dev_ms, dev_n = device_ms_per_call(kern, "step3_ctu_kernel", 10)
         item = qbc.element_size()
         b = bound_of((qbc.numel() + auxbc.numel() + 5 * n ** 3) * item,
-                     flops_per_cell_3d_aos(rp.name, 2, True) * n ** 3, tname)
+                     FLOPS_PER_CELL_3D_CAPA * n ** 3, tname)
         out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
                       "device_launches_profiled": dev_n,
                       "plain_ms": plain_ms, **b}
         if q_last is not None:
-            qbc = padded3(q_last, dtype, dev).contiguous()
+            qbc = euler3d_capa_case(n, dtype, dev, q_last)[0]
             out[tname]["ms_last_state"] = time_ms(kern, 10, warm=2)
             out[tname]["device_ms_last_state"] = device_ms_per_call(
-                kern, "step3_aos_kernel", 10)[0]
-            print(f"  timing step3_aos euler {n}^3 {tname} on the path's "
-                  f"last state: kernel {out[tname]['ms_last_state']:.4f} ms "
-                  f"(on the device {out[tname]['device_ms_last_state']} ms)",
-                  flush=True)
-        print(f"  timing step3_aos euler {n}^3 {tname}: kernel {ms:.4f} ms "
+                kern, "step3_ctu_kernel", 10)[0]
+            print(f"  timing step3_ctu capacity {n}^3 {tname} on the "
+                  f"path's last state: kernel "
+                  f"{out[tname]['ms_last_state']:.4f} ms (on the device "
+                  f"{out[tname]['device_ms_last_state']} ms)", flush=True)
+        print(f"  timing step3_ctu capacity {n}^3 {tname}: kernel {ms:.4f} ms "
               f"(repeat {ms_again:.4f}; on the device {dev_ms} ms, {dev_n} "
               f"launches profiled), plain {plain_ms:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
@@ -1987,8 +1985,10 @@ def main():
           f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
           f"{dq_lib.dq2_weno5_smem_bytes(0)} B, f64 "
           f"{dq_lib.dq2_weno5_smem_bytes(1)} B; step3_ctu f32 "
-          f"{lib3.step3_ctu_smem_bytes(0)} B, f64 "
-          f"{lib3.step3_ctu_smem_bytes(1)} B; step2_aos (shallow Roe) f32 "
+          f"{lib3.step3_ctu_smem_bytes(0, 0)} B, f64 "
+          f"{lib3.step3_ctu_smem_bytes(0, 1)} B, (with capacity) f32 "
+          f"{lib3.step3_ctu_smem_bytes(1, 0)} B, f64 "
+          f"{lib3.step3_ctu_smem_bytes(1, 1)} B; step2_aos (shallow Roe) f32 "
           f"{lib_aos.step2_aos_smem_bytes(0, 0, 0)} B, f64 "
           f"{lib_aos.step2_aos_smem_bytes(0, 0, 1)} B, (bathymetry with "
           f"capacity) f32 {lib_aos.step2_aos_smem_bytes(1, 1, 0)} B, f64 "
@@ -2000,11 +2000,7 @@ def main():
           f"acoustics) f32 {lib_3a.step3_aos_smem_bytes(0, 0, 0)} B, f64 "
           f"{lib_3a.step3_aos_smem_bytes(0, 0, 1)} B, (with capacity) f32 "
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 0)} B, f64 "
-          f"{lib_3a.step3_aos_smem_bytes(0, 1, 1)} B, (Euler with capacity) "
-          f"f32 {lib_3a.step3_aos_smem_bytes(3, 1, 0)} B, f64 "
-          f"{lib_3a.step3_aos_smem_bytes(3, 1, 1)} B, (Euler) f32 "
-          f"{lib_3a.step3_aos_smem_bytes(3, 0, 0)} B, f64 "
-          f"{lib_3a.step3_aos_smem_bytes(3, 0, 1)} B", flush=True)
+          f"{lib_3a.step3_aos_smem_bytes(0, 1, 1)} B", flush=True)
     phase_s = {"build": time.perf_counter() - t0}
     print(f"    resident per SM: step2_ctu "
           f"{lib.step2_ctu_blocks_per_sm(0)} blocks of "
@@ -2012,9 +2008,14 @@ def main():
           f"{lib.step2_ctu_blocks_per_sm(1)} of {lib.step2_ctu_threads(1)} "
           f"(f64); dq2_weno5 "
           f"{dq_lib.dq2_weno5_blocks_per_sm(0)} blocks of 288 threads (f32), "
-          f"{dq_lib.dq2_weno5_blocks_per_sm(1)} (f64); step3_ctu one block "
-          f"(its shared memory) of {lib3.step3_ctu_threads(0)} threads "
-          f"(f32), {lib3.step3_ctu_threads(1)} (f64); step3_aos one block "
+          f"{dq_lib.dq2_weno5_blocks_per_sm(1)} (f64); step2_aos "
+          f"{lib_aos.step2_aos_blocks_per_sm(0)} blocks of 256 threads "
+          f"(f32), {lib_aos.step2_aos_blocks_per_sm(1)} (f64); step3_ctu "
+          f"one block (its shared memory) of "
+          f"{lib3.step3_ctu_threads(0, 0, 0)} threads (f32), "
+          f"{lib3.step3_ctu_threads(0, 0, 1)} (f64), with capacity "
+          f"{lib3.step3_ctu_threads(1, 0, 0)} (f32), "
+          f"{lib3.step3_ctu_threads(1, 0, 1)} (f64); step3_aos one block "
           f"of {lib_3a.step3_aos_threads(0)} threads (f32), "
           f"{lib_3a.step3_aos_threads(1)} (f64)", flush=True)
     for name in names:
@@ -2100,11 +2101,13 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3g"] = time.perf_counter() - t0
 
-    # [3h] step3_aos's Euler system against its plain version
+    # [3h] step3_ctu's capacity and f-wave variants against the plain
+    # version
     t0 = time.perf_counter()
     s3e_worst, s3e_worst_cfl, s3e_main_abs_err, s3e_ncase = \
-        compare_step3_aos_euler(dev)
-    print(f"[3h] step3_aos euler vs plain: {s3e_ncase} cases, max rel err "
+        compare_step3_capa(dev)
+    print(f"[3h] step3_ctu capacity/f-wave vs plain: {s3e_ncase} cases, "
+          f"max rel err "
           f"f32 {s3e_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
           f"{s3e_worst['float64']:.3e} (tol {TOL_REL['float64']}); max cfl "
           f"rel f32 {s3e_worst_cfl['float32']:.3e}, f64 "
@@ -2190,7 +2193,7 @@ def main():
     aos_launches = tiled2d.step2_rows_generic.launches
     ns_sw, nr_sw = status_sw["numsteps"], status_sw["numrejected"]
     q_sw = claw_sw.solution.q
-    mass0 = float(np.sum(dam_break_state(1024, 1024)[0], dtype=np.float64))
+    mass0 = float(np.sum(shallow_state(1024, 1024)[0], dtype=np.float64))
     mass_rel = abs(float(np.sum(q_sw[0], dtype=np.float64)) - mass0) / mass0
     mirror = float(np.abs(q_sw[0] - q_sw[0].T).max() / np.abs(q_sw[0]).max())
     print(f"[4d] shallow path 1024^2 f32 to t={claw_sw.solution.t}: {ns_sw} "
@@ -2261,17 +2264,17 @@ def main():
     reset_kernel_counts()
     claw_e, status_e, wall_e = run_euler3d_capa(dev, n3, np.float32)
     counts_e = kernel_counts()
-    eu_launches = counts_e["step3_aos"]
+    eu_launches = counts_e["step3_ctu"]
     ns_e, nr_e = status_e["numsteps"], status_e["numrejected"]
     q_e = claw_e.solution.q
     print(f"[4g] euler_3d capacity path {n3}^3 f32 to t={claw_e.solution.t}: "
-          f"{ns_e} accepted + {nr_e} rejected steps, {eu_launches} step3_aos "
+          f"{ns_e} accepted + {nr_e} rejected steps, {eu_launches} step3_ctu "
           f"launches (all counts {counts_e}), {wall_e:.3f} s wall, "
           f"{ns_e * n3 ** 3 / wall_e:.4e} cell-updates/s", flush=True)
     if eu_launches == 0 or eu_launches != ns_e + nr_e:
-        fail(f"step3_aos launches {eu_launches} != accepted {ns_e} + "
+        fail(f"step3_ctu launches {eu_launches} != accepted {ns_e} + "
              f"rejected {nr_e}")
-    others = {k: v for k, v in counts_e.items() if k != "step3_aos" and v}
+    others = {k: v for k, v in counts_e.items() if k != "step3_ctu" and v}
     if others:
         fail(f"euler capacity path: other kernels launched: {others}")
     if nr_e < 1:
@@ -2379,7 +2382,7 @@ def main():
     tm_aos = timing_aos(dev)
     tm_het = timing_step3_aos(dev, q_last=q_h)
     del q_h
-    tm_eu = timing_step3_aos_euler(dev, q_last=q_e)
+    tm_eu = timing_step3_capa(dev, q_last=q_e)
     del q_e
     prof = profile_main_path(
         "classic main path 1024^2 f32 to t=0.1",
@@ -2481,11 +2484,13 @@ def main():
                              "(ops/sweep2d.py:41)",
         "rows": ["1b", "5", "6"],
         "launches": aos_launches, "max_abs_err": aos_main_abs_err,
-        "ms": a32["ms"], "plain_ms": a32["plain_ms"],
+        "ms": a32["ms"], "device_ms": a32["device_ms"],
+        "plain_ms": a32["plain_ms"],
         "bound_ms": a32["bound_ms"], "bound_by": a32["bound_by"],
         "library_ms": None,
         "shape": [3, 1028, 1028], "dtype": "float32",
-        "ms_f64": a64["ms"], "plain_ms_f64": a64["plain_ms"],
+        "ms_f64": a64["ms"], "device_ms_f64": a64["device_ms"],
+        "plain_ms_f64": a64["plain_ms"],
         "bound_ms_f64": a64["bound_ms"], "bound_by_f64": a64["bound_by"],
         "max_rel_err_f64": aos_worst["float64"],
         "max_rel_err_f32": aos_worst["float32"],
@@ -2572,9 +2577,8 @@ def main():
     }
     e32, e64 = tm_eu["float32"], tm_eu["float64"]
     eu_record = {
-        "name": "step3_aos:euler_3D", "route": "cuda",
-        "source": "pyclaw_tpu_torch/csrc/step3_aos.cu",
-        "source_system": "pyclaw_tpu_torch/csrc/euler3d_aos.cuh",
+        "name": "step3_ctu:capacity", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step3_ctu.cu",
         "replaces": "pyclaw_tpu/ops/tiled2d.py:431",
         "replaces_function": "step3_pallas_xy",
         "replaces_body": "kernel_aux (ops/tiled2d.py:490-518) with Euler "
@@ -2625,7 +2629,7 @@ def main():
                "acoustics3d_het_checks": het,
                "euler3d_capacity_path": {
                    "accepted": ns_e, "rejected": nr_e,
-                   "step3_aos_launches": eu_launches, "wall_s": wall_e,
+                   "step3_ctu_launches": eu_launches, "wall_s": wall_e,
                    "cell_updates_per_s": ns_e * n3 ** 3 / wall_e},
                "euler3d_capacity_checks": eu_checks,
                "lake_at_rest": {"steps": lake_steps,
@@ -2635,7 +2639,7 @@ def main():
                "timing": tm, "timing_dq": tm_dq, "timing_step3": tm3,
                "timing_aos": tm_aos, "timing_1d": tm_1d,
                "timing_step3_aos": tm_het,
-               "timing_step3_aos_euler": tm_eu,
+               "timing_step3_capa": tm_eu,
                "profile": prof, "profile_sharpclaw": sprof,
                "profile_euler3d": prof3, "profile_shallow": prof_sw,
                "profile_acoustics3d_het": prof_het,

@@ -10,8 +10,9 @@ and phased variants.  ``step1`` is what ``ops.sweep.step1`` computes on
 a CPU tensor, and what the CUDA kernel ``csrc/step1.cu`` is held against
 on the card; ``step2`` the same for ``ops.tiled2d.step2_rows_generic``
 and ``csrc/step2_aos.cu``; ``step3`` for ``ops.tiled2d.step3_xy`` and
-``csrc/step3_ctu.cu`` (Euler) and for ``ops.tiled2d.step3_xy_generic``
-and ``csrc/step3_aos.cu`` (aux, capacity, f-waves).  The index algebra
+``csrc/step3_ctu.cu`` (Euler, with or without a capacity function or
+f-waves) and for ``ops.tiled2d.step3_xy_generic`` and
+``csrc/step3_aos.cu`` (the other 3D systems: aux, capacity, f-waves).  The index algebra
 and the order of the sums are the JAX package's, so in float64 the two
 agree to roundoff (tests/test_torch_step1.py,
 tests/test_torch_step2_aos.py, tests/test_torch_step3.py,

@@ -167,11 +167,11 @@ class ClawSolver3D(ClawSolver):
     ``transverse_waves >= 2`` is refused, as in the JAX package.  Takes aux
     arrays, a capacity function (``state.index_capa``) and ``fwave``.
 
-    The step: ``euler_3D`` without a capacity function or f-waves runs
-    ``ops.tiled2d.step3_xy`` (``csrc/step3_ctu.cu``; Euler reads no aux);
-    the other systems of ``ops.tiled2d.STEP3_SYSTEMS``, and ``euler_3D``
-    with a capacity function or f-waves, run
-    ``ops.tiled2d.step3_xy_generic`` (``csrc/step3_aos.cu``)."""
+    The step: ``euler_3D`` runs ``ops.tiled2d.step3_xy``
+    (``csrc/step3_ctu.cu``), with or without a capacity function or
+    f-waves (Euler reads no other aux); the systems of
+    ``ops.tiled2d.STEP3_SYSTEMS`` run ``ops.tiled2d.step3_xy_generic``
+    (``csrc/step3_aos.cu``)."""
     num_dim = 3
     takes_aux = True
 
@@ -211,13 +211,14 @@ class ClawSolver3D(ClawSolver):
         fwave = self.fwave
         index_capa = state.index_capa
         dx, dy, dz = state.patch.delta
-        if is_euler and index_capa < 0 and not fwave:
+        if is_euler:
             tiled2d.check_options(mthlim, order, tw, 5, "step3_xy")
 
             def step_fn(q, aux, dt, t):
-                qbc, _ = self._extend_bc(q, aux, t, state)
+                qbc, auxbc = self._extend_bc(q, aux, t, state)
                 return tiled2d.step3_xy(qbc, dt, dx, dy, dz, params, mthlim,
-                                        order, g, tw)
+                                        order, g, tw, auxbc=auxbc,
+                                        index_capa=index_capa, fwave=fwave)
             return step_fn
 
         tiled2d.check_options(mthlim, order, tw, rp.num_waves,

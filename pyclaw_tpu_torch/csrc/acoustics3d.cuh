@@ -6,13 +6,11 @@
 //                  _rptt3_acoustics (constant Z and c)
 //   Advection3D    advection.py      _rp_advection + _rpt_advection +
 //                  _rptt_advection (constant u, v, w)
-// (The fourth system, Euler3D, lives in euler3d_aos.cuh.)  Each system
-// gives its normal solve rpn<D> at a D-interface, its transverse split
-// rpt<E> of a fluctuation along E and, where it has one, its
-// double-transverse split rptt<F> along F.  A split reads the two staged
-// cells (ql, qr) of the D-interface whose fluctuation it splits, and the
-// aux of the receiving cell and of its two neighbours along the split's
-// axis; the systems here read only the aux.
+// (Euler in 3D runs step3_ctu.cu, euler3d.cuh.)  Each system gives its
+// normal solve rpn<D> at a D-interface, its transverse split rpt<E> of a
+// fluctuation along E and, where it has one, its double-transverse split
+// rptt<F> along F.  A split reads the aux of the receiving cell and of
+// its two neighbours along the split's axis.
 // The Python scalar factors fold as they do there: 2.0 * zz once in
 // double (Sys3::p2z), then rounded to T where it meets a tensor.
 //
@@ -26,11 +24,10 @@
 namespace {
 
 // physics scalars in the kernel's type: advection (u, v, w) in vel;
-// acoustics zz, cc and 2 zz; Euler gamma - 1
+// acoustics zz, cc and 2 zz
 template <typename T> struct Sys3 {
   T vel[3];
   T zz, cc, p2z;
-  T g1;
 };
 
 // ---- heterogeneous acoustics: q = (p, u, v, w), aux rows (Z, c) ---------
@@ -64,9 +61,8 @@ struct VcAcoustics3D {
   // split of asdq along E against the impedances of the receiving cell
   // (ac) and of its neighbours below (ab) and above (aa) along E
   template <int E, typename T>
-  HD static void rpt(const Sys3<T>&, const T[], const T[], const T ab[],
-                     const T ac[], const T aa[], const T asdq[], T bm[],
-                     T bp[]) {
+  HD static void rpt(const Sys3<T>&, const T ab[], const T ac[],
+                     const T aa[], const T asdq[], T bm[], T bp[]) {
     constexpr int mv = 1 + E;
     const T z_c = ac[0], z_b = ab[0], z_a = aa[0];
     const T c_b = ab[1], c_a = aa[1];
@@ -81,7 +77,7 @@ struct VcAcoustics3D {
 
   template <int F, typename T>
   HD static void rptt(const Sys3<T>&, const T[], const T[], const T[],
-                      const T[], const T[], const T[], T cm[], T cp[]) {
+                      const T[], T cm[], T cp[]) {
     for (int e = 0; e < NEQ; ++e) cm[e] = cp[e] = T(0);   // never called
   }
 };
@@ -114,8 +110,7 @@ struct Acoustics3D {
 
   template <int E, typename T>
   HD static void rpt(const Sys3<T>& P, const T[], const T[], const T[],
-                     const T[], const T[], const T asdq[], T bm[],
-                     T bp[]) {
+                     const T asdq[], T bm[], T bp[]) {
     constexpr int mv = 1 + E;
     const T a1 = (-asdq[0] + P.zz * asdq[mv]) / P.p2z;
     const T a2 = (asdq[0] + P.zz * asdq[mv]) / P.p2z;
@@ -127,10 +122,9 @@ struct Acoustics3D {
   }
 
   template <int F, typename T>
-  HD static void rptt(const Sys3<T>& P, const T ql[], const T qr[],
-                      const T ab[], const T ac[], const T aa[],
-                      const T bs[], T cm[], T cp[]) {
-    rpt<F, T>(P, ql, qr, ab, ac, aa, bs, cm, cp);
+  HD static void rptt(const Sys3<T>& P, const T ab[], const T ac[],
+                      const T aa[], const T bs[], T cm[], T cp[]) {
+    rpt<F, T>(P, ab, ac, aa, bs, cm, cp);
   }
 };
 
@@ -153,18 +147,16 @@ struct Advection3D {
 
   template <int E, typename T>
   HD static void rpt(const Sys3<T>& P, const T[], const T[], const T[],
-                     const T[], const T[], const T asdq[], T bm[],
-                     T bp[]) {
+                     const T asdq[], T bm[], T bp[]) {
     const T ut = P.vel[E];
     bm[0] = mn(ut, T(0)) * asdq[0];
     bp[0] = mx(ut, T(0)) * asdq[0];
   }
 
   template <int F, typename T>
-  HD static void rptt(const Sys3<T>& P, const T ql[], const T qr[],
-                      const T ab[], const T ac[], const T aa[],
-                      const T bs[], T cm[], T cp[]) {
-    rpt<F, T>(P, ql, qr, ab, ac, aa, bs, cm, cp);
+  HD static void rptt(const Sys3<T>& P, const T ab[], const T ac[],
+                      const T aa[], const T bs[], T cm[], T cp[]) {
+    rpt<F, T>(P, ab, ac, aa, bs, cm, cp);
   }
 };
 

@@ -6,6 +6,16 @@
 // _prefactor_euler_3d, _split_transverse_euler), operation for
 // operation.  Compiles with nvcc and, without __CUDACC__, with a host
 // C++ compiler for the kernel's host emulation.
+//
+// step3_ctu.cu is built with contractions (fused multiply-adds), which
+// move a result by roundoff wherever it is continuous in its inputs.  The
+// f-wave correction 0.5 sign(s) is not: at a mirror-symmetric interface
+// the sum of the normal momenta over sqrt(rho), m_l / sqrt(rho_l) +
+// m_r / sqrt(rho_r), is exactly 0 in rounded arithmetic, and a fused
+// multiply-add leaves the rounding error of one product instead: a speed
+// of either sign, which moves a whole wave.  So with RN the normal solve
+// sums its normal velocity with the rounding intrinsics (add_rn, mul_rn),
+// which nvcc never contracts.
 
 #pragma once
 
@@ -13,19 +23,35 @@
 
 namespace {
 
+// one rounding per operation, never contracted
+#if defined(__CUDACC__)
+HD float add_rn(float a, float b) { return __fadd_rn(a, b); }
+HD double add_rn(double a, double b) { return __dadd_rn(a, b); }
+HD float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+HD double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+#else
+template <typename T> HD T add_rn(T a, T b) { return a + b; }
+template <typename T> HD T mul_rn(T a, T b) { return a * b; }
+#endif
+
 // Roe-averaged velocities (momentum rows M0, M1, M2, in that order),
 // enthalpy and sound speed squared between ql and qr (equation order
 // rho, rho u, rho v, rho w, E).  The order of the rows is part of the
 // contract: the normal solve averages in the sweep's permuted order, the
-// transverse splits in the fixed order (1, 2, 3).
-template <int M0, int M1, int M2, typename T>
+// transverse splits in the fixed order (1, 2, 3).  With RN the first
+// velocity is summed without contraction (see above).
+template <int M0, int M1, int M2, bool RN = false, typename T>
 HD void roe_avg3(T g1, const T ql[5], const T qr[5], T vel[3], T& H,
                  T& a2) {
   T irl = rsqrt_(ql[0]), irr = rsqrt_(qr[0]);
   T srl = ql[0] * irl, srr = qr[0] * irr;
   T rinv_l = irl * irl, rinv_r = irr * irr;
   T w = T(1) / (srl + srr);
-  vel[0] = (ql[M0] * irl + qr[M0] * irr) * w;
+  if (RN) {
+    vel[0] = mul_rn(add_rn(mul_rn(ql[M0], irl), mul_rn(qr[M0], irr)), w);
+  } else {
+    vel[0] = (ql[M0] * irl + qr[M0] * irr) * w;
+  }
   vel[1] = (ql[M1] * irl + qr[M1] * irr) * w;
   vel[2] = (ql[M2] * irl + qr[M2] * irr) * w;
   T ke_l = T(0.5) * (ql[M0] * ql[M0] + ql[M1] * ql[M1] + ql[M2] * ql[M2])
@@ -47,12 +73,12 @@ template <typename T> struct Roe3 {
   T a1, a3, ash, ash2, a5;     // wave strengths
 };
 
-template <int D, typename T>
+template <int D, bool RN = false, typename T>
 HD Roe3<T> roe_3d(T g1, const T ql[5], const T qr[5]) {
   constexpr int mu = 1 + D, mv = 1 + (D + 1) % 3, mw = 1 + (D + 2) % 3;
   Roe3<T> rs;
   T vel[3], H, a2;
-  roe_avg3<mu, mv, mw>(g1, ql, qr, vel, H, a2);
+  roe_avg3<mu, mv, mw, RN>(g1, ql, qr, vel, H, a2);
   const T u = vel[0], v = vel[1], w = vel[2];
   const T a = sqrt_(a2);
   T d0 = qr[0] - ql[0], dmu = qr[mu] - ql[mu], dmv = qr[mv] - ql[mv];

@@ -1,6 +1,7 @@
 // shallow2d.cuh — the 2D shallow-water systems of the generic CTU kernel
 // (step2_aos.cu), operation for operation as in
-// pyclaw_tpu_torch/riemann/shallow.py:
+// pyclaw_tpu_torch/riemann/shallow.py but for the splits' reciprocal of c
+// (RoeSw):
 //   ShallowRoeEfix2D     _rpn2_shallow_roe + _rpt2_shallow_roe
 //   ShallowBathyFwave2D  _rpn2_shallow_bathymetry_fwave (aux[0] = b) +
 //                        _rpt2_shallow_roe
@@ -23,36 +24,51 @@ template <typename T> struct Sw {
   T dry;   // dry_tolerance (f-wave solver)
 };
 
+// the quantities of one cell that the solvers take at each of its
+// interfaces: hu/h, hv/h, sqrt(h), sqrt(g h), computed once per staged
+// cell (the same operations on the same values as at each interface)
+constexpr int NPC = 4;
+template <typename T>
+HD void cell_prep(const Sw<T>& P, const T q[3], T pc[NPC]) {
+  pc[0] = q[1] / q[0];
+  pc[1] = q[2] / q[0];
+  pc[2] = sqrt_(q[0]);
+  pc[3] = sqrt_(P.g * q[0]);
+}
+
 // the Roe averages of both shallow-water solvers' transverse split and of
-// the Roe normal solve (the same expressions in both)
+// the Roe normal solve (the same expressions in both), from the depths and
+// the per-cell quantities of the interface's two cells; rc, the IEEE
+// reciprocal of c, is the splits' only (the normal solve divides by c)
 template <int IXY, typename T> struct RoeSw {
-  T ul, ur, u, v, c;
-  HD RoeSw(const Sw<T>& P, const T ql[3], const T qr[3]) {
-    constexpr int mu = 1 + IXY, mv = 2 - IXY;
-    const T hl = ql[0], hr = qr[0];
-    ul = ql[mu] / hl;
-    ur = qr[mu] / hr;
-    const T vl = ql[mv] / hl, vr = qr[mv] / hr;
-    const T shl = sqrt_(hl), shr = sqrt_(hr);
+  T ul, ur, u, v, c, rc;
+  HD RoeSw(const Sw<T>& P, T hl, T hr, const T pl[NPC], const T pr[NPC]) {
+    ul = pl[IXY];
+    ur = pr[IXY];
+    const T vl = pl[1 - IXY], vr = pr[1 - IXY];
+    const T shl = pl[2], shr = pr[2];
     const T wgt = T(1) / (shl + shr);
     u = (shl * ul + shr * ur) * wgt;
     v = (shl * vl + shr * vr) * wgt;
     c = sqrt_(P.hg * (hl + hr));
+    rc = T(1) / c;
   }
 };
 
 // _rpt2_shallow_roe: split asdq along the transverse direction into its
-// down-going (bm) and up-going (bp) parts
+// down-going (bm) and up-going (bp) parts, with the interface's Roe
+// average r, which the two splits of an interface share; they multiply by
+// its reciprocal of c where the plain version divides by c (roundoff: the
+// strengths feed no gate)
 template <int IXY, typename T>
-HD void rpt2_shallow(const Sw<T>& P, const T ql[3], const T qr[3],
-                     const T asdq[3], T bm[3], T bp[3]) {
+HD void rpt2_shallow(const RoeSw<IXY, T>& r, const T asdq[3], T bm[3],
+                     T bp[3]) {
   constexpr int mu = 1 + IXY, mv = 2 - IXY;
-  const RoeSw<IXY, T> r(P, ql, qr);
-  const T u = r.u, v = r.v, c = r.c;
+  const T u = r.u, v = r.v, c = r.c, rc = r.rc;
   const T d0 = asdq[0], dmu = asdq[mu], dmv = asdq[mv];
-  const T b1 = T(0.5) * ((v + c) * d0 - dmv) / c;
+  const T b1 = T(0.5) * ((v + c) * d0 - dmv) * rc;
   const T b2 = dmu - u * d0;
-  const T b3 = T(0.5) * (-(v - c) * d0 + dmv) / c;
+  const T b3 = T(0.5) * (-(v - c) * d0 + dmv) * rc;
   T w[3][3];
   w[0][0] = b1; w[0][mu] = b1 * u; w[0][mv] = b1 * (v - c);
   w[1][0] = T(0); w[1][mu] = b2; w[1][mv] = T(0);
@@ -69,18 +85,24 @@ HD void rpt2_shallow(const Sw<T>& P, const T ql[3], const T qr[3],
   }
 }
 
+// whether component e of wave p of either system's normal solve along IXY
+// can be nonzero: the shear wave (p = 1) has only the transverse momentum
+template <int IXY> HD constexpr bool sw_nz(int p, int e) {
+  return p != 1 || e == 2 - IXY;
+}
+
 // ---- shallow_roe_with_efix_2D ------------------------------------------
 struct ShallowRoeEfix2D {
   static constexpr int NEQ = 3, NW = 3, NAUX = 0;
 
   template <int IXY, typename T>
   static HD void rpn(const Sw<T>& P, const T ql[3], const T qr[3],
-                     const T* al, const T* ar, T w[3][3], T s[3], T am[3],
-                     T ap[3]) {
+                     const T* al, const T* ar, const T pl[NPC],
+                     const T pr[NPC], T w[3][3], T s[3], T am[3], T ap[3]) {
     constexpr int mu = 1 + IXY, mv = 2 - IXY;
     (void)al;
     (void)ar;
-    const RoeSw<IXY, T> r(P, ql, qr);
+    const RoeSw<IXY, T> r(P, ql[0], qr[0], pl, pr);
     const T u = r.u, v = r.v, c = r.c;
     const T hl = ql[0], hr = qr[0];
     const T d0 = qr[0] - ql[0], dmu = qr[mu] - ql[mu], dmv = qr[mv] - ql[mv];
@@ -95,7 +117,7 @@ struct ShallowRoeEfix2D {
     s[2] = u + c;
 
     // Harten's entropy fix on waves 1 and 3; the guards are where(hm <= 0)
-    const T cl = sqrt_(P.g * hl), cr = sqrt_(P.g * hr);
+    const T cl = pl[3], cr = pr[3];
     const T hm = hl + a1;
     const T hum = ql[mu] + a1 * (u - c);
     const T um = hum / (hm <= T(0) ? T(1) : hm);
@@ -128,8 +150,8 @@ struct ShallowBathyFwave2D {
 
   template <int IXY, typename T>
   static HD void rpn(const Sw<T>& P, const T ql[3], const T qr[3],
-                     const T* al, const T* ar, T w[3][3], T s[3], T am[3],
-                     T ap[3]) {
+                     const T* al, const T* ar, const T*, const T*,
+                     T w[3][3], T s[3], T am[3], T ap[3]) {
     constexpr int mu = 1 + IXY, mv = 2 - IXY;
     const T hl = ql[0], hr = qr[0];
     const bool wet_l = hl > P.dry, wet_r = hr > P.dry;

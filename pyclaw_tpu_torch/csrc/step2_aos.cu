@@ -14,7 +14,7 @@
 // this file, on the CPU (tests/test_torch_step2_aos.py).
 //
 // What bounds it on the card: per cell it reads 3 values of q (and 0-2 of
-// aux) and writes 3 (least traffic 24 B/cell in f32), but it does ~900
+// aux) and writes 3 (least traffic 24 B/cell in f32), but it does ~800
 // floating-point operations per cell (two normal solves with the entropy
 // fix, the limiter, four transverse splits, the fold), among them divides
 // and square roots.  So it is bound by operations; chip_smoke.py computes
@@ -22,26 +22,59 @@
 //
 // Design (that of step2_ctu.cu): a block owns a TX x TY tile of output
 // cells and stages q, the aux fields the system reads and, with a capacity
-// function, the per-cell dt/(dx kappa) and dt/(dy kappa), with a 2-cell
-// halo in shared memory.  Interface quantities live in shared memory only:
-// the waves and speeds of each normal solve (for the limiter), the
-// fluctuations, the correction flux and the four rpt2 parts.  rpt2's
-// scatter into the orthogonal flux is written as a gather (no atomics),
-// with the coefficient of the receiving cell (flux2.f90 dtdx1d(i1)).
-// Ragged edges are masked, so any (nx, ny) works.
+// function, kappa, with a 2-cell halo in shared memory (cp.async,
+// csrc/async_copy.cuh).  Each thread stages every field of its cells and,
+// after its own wait, computes their per-cell quantities (hu/h, hv/h,
+// sqrt(h), sqrt(g h): shallow2d.cuh cell_prep) and turns kappa into the
+// per-cell dt/(dx kappa) and dt/(dy kappa).
+// Interface quantities live in shared memory only: the waves and speeds of
+// each normal solve (for the limiter), the fluctuations, the correction
+// flux and the rpt2 parts.  rpt2's scatter into the orthogonal flux is
+// written as a gather (no atomics), with the coefficient of the receiving
+// cell (flux2.f90 dtdx1d(i1)).  Ragged edges are masked, so any (nx, ny)
+// works.  Measured at 1024^2 against the first port in one call (PERF.md
+// section 6; H100, 700 W), 0.2435 -> 0.1359 ms in f32 and 0.5398 ->
+// 0.2994 ms in f64, lever by lever:
+//   - the rpt2 parts live in one scratch array P: the x parts until the
+//     y-faces have gathered them, then the y parts, which the update
+//     gathers into the x-fluxes.  The first port kept seven fields per
+//     interface of each direction to the end (amdq, apdq, cq and the four
+//     parts): 74,672 B a block in f32 on a 16x16 tile; now 50,276 B on a
+//     12x15 tile (Shape below), with 61-64 registers four blocks of 8
+//     warps per SM (two in f64); 6 barriers a block in place of 14 (the
+//     y-faces gather the x parts in the phase of the y normal solves, the
+//     CFL partial is a warp-shuffle max and one slot per warp); cp.async
+//     staging; the two splits of an interface share its Roe average; the
+//     limiter's dot products and the correction sums skip the components
+//     the shear wave never has (sw_nz): 0.2090 / 0.4515 ms, the same bits;
+//   - the f32 tile 12x16 -> 12x15, so that the x normal-solve region
+//     (15 x 17 interfaces) takes one pass of the 256 threads: 0.1887 ms;
+//   - the per-cell quantities computed once per staged cell where each
+//     normal solve and each split's Roe average took them per interface
+//     (four divisions and four square roots fewer per normal solve, four
+//     and two per split pair): 0.1522 / 0.3428 ms, the same bits;
+//   - one IEEE reciprocal of c per interface that its two splits multiply
+//     by where each divided twice (roundoff; no gate reads it: the
+//     splits' speeds and the normal solve's strengths keep their
+//     divisions): 0.1359 / 0.2994 ms.
+// The gathered sums keep the first port's order: each flux takes its cq,
+// then the sum of the parts of amdq, then that of apdq.
 //
-// Phases (each a loop of the block's threads over a region, separated by
-// barriers):
-//   load      q, aux tile + halo -> shared (indices clamped to the padded
-//             grid; clamped cells only feed masked-out results); per-cell
-//             dtdx, dtdy with a capacity function
+// Phases (each a loop of the block's threads over one or two regions,
+// separated by barriers):
+//   load      q, aux, kappa tile + halo -> shared (indices clamped to the
+//             padded grid; clamped cells only feed masked-out results)
 //   rpn<0>    x-interface waves, speeds -> W; fluctuations -> OX
-//   sweep<0>  x-interface limiter, correction flux, the rpt2 splits of
-//             amdq(+cq) and apdq(-cq) -> OX; CFL partial max
-//   rpn<1>, sweep<1>: the same for y -> W (reused), OY
-//   update    each cell gathers the transverse terms of its four neighbour
-//             interfaces into Fx/Gy and applies the conservative update
-//   reduce    tree max of the CFL partials; one value per block
+//   sweep<0>  x-interface limiter, correction flux cq -> OX, the rpt2
+//             splits of amdq(+cq) and apdq(-cq) -> P; CFL partial max
+//   gather_y + rpn<1>  each y-face of the tile sums the x parts of its
+//             four neighbour x-interfaces from P into OY; the y-interface
+//             waves -> W (reused), fluctuations -> OY
+//   sweep<1>  the same for y: the y-face flux is cq minus the two sums;
+//             the y parts -> P
+//   update    each cell gathers the y parts of its two x-faces' four
+//             neighbour y-interfaces into Fx and applies the conservative
+//             update; each warp's CFL maxima
 //
 // Template parameters: the system (its normal and transverse solvers),
 // the type, the tile, CAPA (per-cell dtdx) and FWAVE (the correction
@@ -52,12 +85,28 @@
 // jump where a speed crosses zero, and a contracted multiply-add that
 // moved such a speed across zero moved the result by a whole wave.
 
+#include "async_copy.cuh"
 #include "shallow2d.cuh"
 #include "tvd.cuh"
 
 namespace {
 
 constexpr int NT = 256;  // threads per block
+
+// Tile shape per type (TX x TY cells) and blocks per SM (the launch
+// bound; f32 fits four by its registers and shared memory): 12x15 in f32,
+// 11x16 in f64, so that each normal-solve region ((TX+3) x (TY+2),
+// (TX+2) x (TY+3) interfaces) and each sweep region ((TX+1) x (TY+2),
+// (TX+2) x (TY+1)) is one pass of the 256 threads (the first port's 16x16
+// and 8x16 left up to 86 items to a second pass; step2_ctu.cu's 12x16
+// left 14 of the x normal solves, the costliest items here).
+template <typename T> struct Shape;
+template <> struct Shape<float> {
+  static constexpr int TX = 12, TY = 15, PER_SM = 3;
+};
+template <> struct Shape<double> {
+  static constexpr int TX = 11, TY = 16, PER_SM = 2;
+};
 
 template <typename S, typename T, int TX, int TY, bool CAPA> struct Tile {
   static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
@@ -69,16 +118,20 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Tile {
   static constexpr int OXR = TX + 1, OXC = TY + 2;    // x-interface outputs
   static constexpr int OYR = TX + 2, OYC = TY + 1;    // y-interface outputs
   static constexpr int OXN = OXR * OXC, OYN = OYR * OYC;
-  // amdq apdq cq bm(am) bp(am) bm(ap) bp(ap), NEQ each
-  static constexpr int NOF = 7 * NEQ;
+  static constexpr int SN = OXN > OYN ? OXN : OYN;
+  // OX: amdq apdq cq; OY: amdq apdq and the two sums of gathered x parts
+  // (the first becomes the y-face flux); P: the four rpt2 parts; NEQ each
+  static constexpr int NOX = 3 * NEQ, NOY = 4 * NEQ, NSF = 4 * NEQ;
   static constexpr size_t elems = NEQ * QN + NAUX * QN + (CAPA ? 2 * QN : 0)
-      + NWF * WN + NOF * OXN + NOF * OYN + 2 * NT;
+      + NPC * QN + NWF * WN + NOX * OXN + NOY * OYN + NSF * SN + 2 * (NT / 32);
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
-// field offsets inside an O array (times the region size), times NEQ
-enum { F_AM = 0, F_AP = 1, F_CQ = 2, F_T0 = 3, F_T1 = 4, F_T2 = 5,
-       F_T3 = 6 };
+// field offsets inside an O array (times NEQ): in OY, F_CQ holds the sum
+// of the amdq parts, then the flux, and F_SB the sum of the apdq parts
+enum { F_AM = 0, F_AP = 1, F_CQ = 2, F_SB = 3 };
+// the rpt2 parts in P (times NEQ): bm, bp of amdq(+cq), of apdq(-cq)
+enum { F_T0 = 0, F_T1 = 1, F_T2 = 2, F_T3 = 3 };
 
 template <typename T> struct Args {
   const T* qbc;
@@ -100,11 +153,13 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
   T* a;    // [NAUX][QR][QC]
   T* DX;   // [QR][QC] dt/(dx kappa) (CAPA)
   T* DY;   // [QR][QC] dt/(dy kappa) (CAPA)
+  T* PC;   // [NPC][QR][QC] the per-cell quantities (cell_prep)
   T* W;    // [NWF][WN]: wave p component e at (p*NEQ+e), speeds after
-  T* OX;   // [NOF][OXN]
-  T* OY;   // [NOF][OYN]
-  T* rx;   // [NT] x CFL partial max
-  T* ry;   // [NT] y CFL partial max
+  T* OX;   // [NOX][OXN]
+  T* OY;   // [NOY][OYN]
+  T* P;    // [NSF][SN]: the x, then the y, rpt2 parts
+  T* rx;   // [NT / 32] x CFL partial max of each warp
+  T* ry;   // the same for y
   int I0, J0, bid;  // first interior cell of the tile (padded indices)
 
   HD void bind(T* s, int bx, int by, int nbx) {
@@ -112,11 +167,13 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
     a = q + L::NEQ * L::QN;
     DX = a + L::NAUX * L::QN;
     DY = DX + (CAPA ? L::QN : 0);
-    W = DY + (CAPA ? L::QN : 0);
+    PC = DY + (CAPA ? L::QN : 0);
+    W = PC + NPC * L::QN;
     OX = W + L::NWF * L::WN;
-    OY = OX + L::NOF * L::OXN;
-    rx = OY + L::NOF * L::OYN;
-    ry = rx + NT;
+    OY = OX + L::NOX * L::OXN;
+    P = OY + L::NOY * L::OYN;
+    rx = P + L::NSF * L::SN;
+    ry = rx + NT / 32;
     I0 = 2 + by * TX;
     J0 = 2 + bx * TY;
     bid = by * nbx + bx;
@@ -125,6 +182,9 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
     for (int e = 0; e < L::NEQ; ++e) qv[e] = q[e * L::QN + r * L::QC + c];
     for (int m = 0; m < L::NAUX; ++m) av[m] = a[m * L::QN + r * L::QC + c];
   }
+  HD void prep(int r, int c, T pv[NPC]) const {
+    for (int k = 0; k < NPC; ++k) pv[k] = PC[k * L::QN + r * L::QC + c];
+  }
   // dt/dx (D = 0) or dt/dy (D = 1) of the tile cell (r, c)
   template <int D> HD T dtd(const Args<T>& A, int r, int c) const {
     if (CAPA) return (D == 0 ? DX : DY)[r * L::QC + c];
@@ -132,66 +192,89 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
   }
 };
 
-// ---- phase: stage q, aux tile + halo -------------------------------------
+// ---- phase: stage q, aux, kappa tile + halo ------------------------------
+// Every copy is issued (cp.async) before any is waited on; kappa lands in
+// DX, and the thread that copied it turns it into dt/(dx kappa) and
+// dt/(dy kappa) in place after its own wait.
 template <typename S, typename T, int TX, int TY, bool CAPA>
 HD void phase_load(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
   using L = Tile<S, T, TX, TY, CAPA>;
-  constexpr int NF = L::NEQ + L::NAUX + (CAPA ? 1 : 0);
-  for (int idx = tid; idx < NF * L::QN; idx += NT) {
-    int f = idx / L::QN, rc = idx % L::QN;
+  const long long plane = (long long)A.NX * A.NY;
+  // each thread stages every field of its cells
+  for (int rc = tid; rc < L::QN; rc += NT) {
     int r = rc / L::QC, c = rc % L::QC;
     int I = B.I0 - 2 + r, J = B.J0 - 2 + c;
     I = I < A.NX ? I : A.NX - 1;
     J = J < A.NY ? J : A.NY - 1;
     const long long off = (long long)I * A.NY + J;
-    const long long plane = (long long)A.NX * A.NY;
-    if (f < L::NEQ) {
-      B.q[idx] = A.qbc[f * plane + off];
-    } else if (f < L::NEQ + L::NAUX) {
-      B.a[(f - L::NEQ) * L::QN + rc] = A.aux[(f - L::NEQ) * plane + off];
-    } else {
-      const T kappa = A.aux[A.capa * plane + off];
-      B.DX[rc] = A.dt / (A.dx * kappa);
+    for (int f = 0; f < L::NEQ; ++f)
+      copy_async(B.q + f * L::QN + rc, A.qbc + f * plane + off);
+    for (int m = 0; m < L::NAUX; ++m)
+      copy_async(B.a + m * L::QN + rc, A.aux + m * plane + off);
+    if (CAPA) copy_async(B.DX + rc, A.aux + A.capa * plane + off);
+  }
+  if (tid < NT / 32) {
+    B.rx[tid] = T(0);
+    B.ry[tid] = T(0);
+  }
+  copy_wait_all();
+  for (int rc = tid; rc < L::QN; rc += NT) {
+    T qv[L::NEQ], pv[NPC];
+    for (int f = 0; f < L::NEQ; ++f) qv[f] = B.q[f * L::QN + rc];
+    cell_prep(A.P, qv, pv);
+    for (int k = 0; k < NPC; ++k) B.PC[k * L::QN + rc] = pv[k];
+    if (CAPA) {
+      // dt / (dx kappa): the plain version's 0-d dt over (dx * kappa)
+      const T kappa = B.DX[rc];
       B.DY[rc] = A.dt / (A.dy * kappa);
+      B.DX[rc] = A.dt / (A.dx * kappa);
     }
   }
-  B.rx[tid] = T(0);
-  B.ry[tid] = T(0);
 }
 
-// ---- phase: normal solves at one set of interfaces ------------------------
+// ---- normal solve at one interface of the region of axis IXY ------------
 template <int IXY, typename S, typename T, int TX, int TY, bool CAPA>
-HD void phase_rpn(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
+HD void item_rpn(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int idx) {
   using L = Tile<S, T, TX, TY, CAPA>;
   constexpr int NEQ = L::NEQ, NW = L::NW;
-  constexpr int R = IXY == 0 ? L::WXR : L::WYR;
   constexpr int C = IXY == 0 ? L::WXC : L::WYC;
   constexpr int OC = IXY == 0 ? L::OXC : L::OYC;
   constexpr int ON = IXY == 0 ? L::OXN : L::OYN;
   T* O = IXY == 0 ? B.OX : B.OY;
-  for (int idx = tid; idx < R * C; idx += NT) {
-    int r = idx / C, c = idx % C;
-    // left cell: x (r, c+1), y (r+1, c); right cell (r+1, c+1)
-    T ql[NEQ], qr[NEQ], al[L::NAUX + 1], ar[L::NAUX + 1];
-    B.cell(IXY == 0 ? r : r + 1, IXY == 0 ? c + 1 : c, ql, al);
-    B.cell(r + 1, c + 1, qr, ar);
-    T w[NW][NEQ], s[NW], am[NEQ], ap[NEQ];
-    S::template rpn<IXY, T>(A.P, ql, qr, al, ar, w, s, am, ap);
-    for (int p = 0; p < NW; ++p) {
-      for (int e = 0; e < NEQ; ++e) B.W[(p * NEQ + e) * L::WN + idx] = w[p][e];
-      B.W[(NW * NEQ + p) * L::WN + idx] = s[p];
-    }
-    // the fluctuations of the interfaces the sweep phase keeps
-    int orow = IXY == 0 ? r - 1 : r, ocol = IXY == 0 ? c : c - 1;
-    int orows = IXY == 0 ? L::OXR : L::OYR;
-    if (orow >= 0 && orow < orows && ocol >= 0 && ocol < OC) {
-      int o = orow * OC + ocol;
-      for (int e = 0; e < NEQ; ++e) {
-        O[(F_AM * NEQ + e) * ON + o] = am[e];
-        O[(F_AP * NEQ + e) * ON + o] = ap[e];
-      }
+  int r = idx / C, c = idx % C;
+  // left cell: x (r, c+1), y (r+1, c); right cell (r+1, c+1)
+  T ql[NEQ], qr[NEQ], al[L::NAUX + 1], ar[L::NAUX + 1], pl[NPC], pr[NPC];
+  B.cell(IXY == 0 ? r : r + 1, IXY == 0 ? c + 1 : c, ql, al);
+  B.prep(IXY == 0 ? r : r + 1, IXY == 0 ? c + 1 : c, pl);
+  B.cell(r + 1, c + 1, qr, ar);
+  B.prep(r + 1, c + 1, pr);
+  T w[NW][NEQ], s[NW], am[NEQ], ap[NEQ];
+  S::template rpn<IXY, T>(A.P, ql, qr, al, ar, pl, pr, w, s, am, ap);
+  for (int p = 0; p < NW; ++p) {
+    for (int e = 0; e < NEQ; ++e) B.W[(p * NEQ + e) * L::WN + idx] = w[p][e];
+    B.W[(NW * NEQ + p) * L::WN + idx] = s[p];
+  }
+  // the fluctuations of the interfaces the sweep phase keeps
+  int orow = IXY == 0 ? r - 1 : r, ocol = IXY == 0 ? c : c - 1;
+  int orows = IXY == 0 ? L::OXR : L::OYR;
+  if (orow >= 0 && orow < orows && ocol >= 0 && ocol < OC) {
+    int o = orow * OC + ocol;
+    for (int e = 0; e < NEQ; ++e) {
+      O[(F_AM * NEQ + e) * ON + o] = am[e];
+      O[(F_AP * NEQ + e) * ON + o] = ap[e];
     }
   }
+}
+
+// fold thread t's CFL partial into its warp's slot: a shuffle max on the
+// card, a loop over the lanes on the host
+template <typename T> HD void warp_fold(T* red, int t, T v) {
+#if defined(__CUDACC__)
+  const T m = warp_max(v);
+  if (t % 32 == 0) red[t / 32] = mx(red[t / 32], m);
+#else
+  red[t / 32] = mx(red[t / 32], v);
+#endif
 }
 
 // ---- phase: limiter, correction flux, transverse split, CFL --------------
@@ -199,13 +282,13 @@ template <int IXY, bool FWAVE, typename S, typename T, int TX, int TY,
           bool CAPA>
 HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
   using L = Tile<S, T, TX, TY, CAPA>;
-  constexpr int NEQ = L::NEQ, NW = L::NW, WN = L::WN;
+  constexpr int NEQ = L::NEQ, NW = L::NW, WN = L::WN, SN = L::SN;
   constexpr int R = IXY == 0 ? L::OXR : L::OYR;
   constexpr int C = IXY == 0 ? L::OXC : L::OYC;
   constexpr int WC = IXY == 0 ? L::WXC : L::WYC;
   constexpr int ON = R * C;
   T* O = IXY == 0 ? B.OX : B.OY;
-  T cmax = IXY == 0 ? B.rx[tid] : B.ry[tid];
+  T cmax = T(0);
   for (int idx = tid; idx < ON; idx += NT) {
     int r = idx / C, c = idx % C;
     // own interface and its lower/upper neighbours along the sweep axis
@@ -229,13 +312,18 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
     if (A.order == 2) {
       T cf[NW];
       for (int p = 0; p < NW; ++p) {
-        T wn2 = w[p][0] * w[p][0];
-        T dlo = B.W[(p * NEQ) * WN + lo] * w[p][0];
-        T dhi = w[p][0] * B.W[(p * NEQ) * WN + hi];
-        for (int e = 1; e < NEQ; ++e) {
-          wn2 = wn2 + w[p][e] * w[p][e];
-          dlo = dlo + B.W[(p * NEQ + e) * WN + lo] * w[p][e];
-          dhi = dhi + w[p][e] * B.W[(p * NEQ + e) * WN + hi];
+        // the products with the shear wave's zero components are skipped
+        // (each adds a zero to a finite sum: the same bits)
+        T wn2 = T(0), dlo = T(0), dhi = T(0);
+        bool first = true;
+        for (int e = 0; e < NEQ; ++e) {
+          if (!sw_nz<IXY>(p, e)) continue;
+          const T wl = B.W[(p * NEQ + e) * WN + lo];
+          const T wh = B.W[(p * NEQ + e) * WN + hi];
+          wn2 = first ? w[p][e] * w[p][e] : wn2 + w[p][e] * w[p][e];
+          dlo = first ? wl * w[p][e] : dlo + wl * w[p][e];
+          dhi = first ? w[p][e] * wh : dhi + w[p][e] * wh;
+          first = false;
         }
         T phi = T(1);
         const int lid = A.lim[p];
@@ -253,16 +341,28 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
       }
       for (int e = 0; e < NEQ; ++e) {
         T acc = cf[0] * w[0][e];
-        for (int p = 1; p < NW; ++p) acc = acc + cf[p] * w[p][e];
+        for (int p = 1; p < NW; ++p) {
+          if (sw_nz<IXY>(p, e)) acc = acc + cf[p] * w[p][e];
+        }
         cq[e] = acc;
       }
     }
-    for (int e = 0; e < NEQ; ++e) O[(F_CQ * NEQ + e) * ON + idx] = cq[e];
+    if (IXY == 0) {
+      for (int e = 0; e < NEQ; ++e) O[(F_CQ * NEQ + e) * ON + idx] = cq[e];
+    } else {
+      // a y-face of the tile: cq minus the gathered sums, in the first
+      // port's order
+      const bool face = A.tw > 0 && r >= 1 && r <= TX;
+      for (int e = 0; e < NEQ; ++e) {
+        T* g = O + (F_CQ * NEQ + e) * ON + idx;
+        *g = face ? cq[e] - *g - O[(F_SB * NEQ + e) * ON + idx] : cq[e];
+      }
+    }
 
     if (A.tw > 0) {
       const bool both = A.tw >= 2 && A.order == 2;
       T amt[NEQ], apt[NEQ], bm[NEQ], bp[NEQ], ql[NEQ], qr[NEQ];
-      T ax[L::NAUX + 1];
+      T ax[L::NAUX + 1], pl[NPC], pr[NPC];
       for (int e = 0; e < NEQ; ++e) {
         const T am = O[(F_AM * NEQ + e) * ON + idx];
         const T ap = O[(F_AP * NEQ + e) * ON + idx];
@@ -271,15 +371,18 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
       }
       B.cell(lr, lc, ql, ax);
       B.cell(rr, rc, qr, ax);
-      rpt2_shallow<IXY, T>(A.P, ql, qr, amt, bm, bp);
+      B.prep(lr, lc, pl);
+      B.prep(rr, rc, pr);
+      const RoeSw<IXY, T> roe(A.P, ql[0], qr[0], pl, pr);
+      rpt2_shallow<IXY, T>(roe, amt, bm, bp);
       for (int e = 0; e < NEQ; ++e) {
-        O[(F_T0 * NEQ + e) * ON + idx] = bm[e];
-        O[(F_T1 * NEQ + e) * ON + idx] = bp[e];
+        B.P[(F_T0 * NEQ + e) * SN + idx] = bm[e];
+        B.P[(F_T1 * NEQ + e) * SN + idx] = bp[e];
       }
-      rpt2_shallow<IXY, T>(A.P, ql, qr, apt, bm, bp);
+      rpt2_shallow<IXY, T>(roe, apt, bm, bp);
       for (int e = 0; e < NEQ; ++e) {
-        O[(F_T2 * NEQ + e) * ON + idx] = bm[e];
-        O[(F_T3 * NEQ + e) * ON + idx] = bp[e];
+        B.P[(F_T2 * NEQ + e) * SN + idx] = bm[e];
+        B.P[(F_T3 * NEQ + e) * SN + idx] = bp[e];
       }
     }
 
@@ -299,104 +402,148 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
       }
     }
   }
-  if (IXY == 0) B.rx[tid] = cmax; else B.ry[tid] = cmax;
+  warp_fold(IXY == 0 ? B.rx : B.ry, tid, cmax);
 }
 
-// ---- phase: transverse fold (gather) + conservative update ---------------
+// ---- the y-face (OY row ti+1, column cj) sums the x parts of its four
+// neighbour x-interfaces: (bm(amdq) at (ti+1, cj+1), bp(amdq) at (ti+1,
+// cj)) into F_CQ, the same of apdq at row ti into F_SB, each part times
+// the receiving cell's 0.5 dt/dx ------------------------------------------
 template <typename S, typename T, int TX, int TY, bool CAPA>
-HD void phase_update(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
+HD void item_gather_y(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
+                      int idx) {
+  using L = Tile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, OXC = L::OXC, OYC = L::OYC, OYN = L::OYN;
+  constexpr int SN = L::SN;
+  const T* X = B.P;
+  const int ti = idx / OYC, cj = idx % OYC;
+  const int o = (ti + 1) * OYC + cj;
+  T lo = A.hdx, hi = A.hdx;
+  if (CAPA) {
+    lo = T(0.5) * B.template dtd<0>(A, ti + 2, cj + 2);
+    hi = T(0.5) * B.template dtd<0>(A, ti + 2, cj + 1);
+  }
+  for (int e = 0; e < NEQ; ++e) {
+    B.OY[(F_CQ * NEQ + e) * OYN + o] =
+        lo * X[(F_T0 * NEQ + e) * SN + (ti + 1) * OXC + cj + 1]
+        + hi * X[(F_T1 * NEQ + e) * SN + (ti + 1) * OXC + cj];
+    B.OY[(F_SB * NEQ + e) * OYN + o] =
+        lo * X[(F_T2 * NEQ + e) * SN + ti * OXC + cj + 1]
+        + hi * X[(F_T3 * NEQ + e) * SN + ti * OXC + cj];
+  }
+}
+
+// ---- conservative update of tile cell idx, with the x-flux's gather ----
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void item_update(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
+                    int idx) {
   using L = Tile<S, T, TX, TY, CAPA>;
   constexpr int NEQ = L::NEQ;
   constexpr int OXC = L::OXC, OYC = L::OYC, OXN = L::OXN, OYN = L::OYN;
+  constexpr int SN = L::SN;
   const T* OX = B.OX;
   const T* OY = B.OY;
-  // field f, component e of the x- (X) or y-interface (Y) at (r, c)
+  const T* YS = B.P;
+  // field f, component e of the x- (X) or y-interface (Y) at (r, c); the
+  // y parts in P (YP)
   auto X = [&](int f, int e, int r, int c) {
     return OX[(f * NEQ + e) * OXN + r * OXC + c];
   };
   auto Y = [&](int f, int e, int r, int c) {
     return OY[(f * NEQ + e) * OYN + r * OYC + c];
   };
+  auto YP = [&](int f, int e, int r, int c) {
+    return YS[(f * NEQ + e) * SN + r * OYC + c];
+  };
   const int nx = A.NX - 4, ny = A.NY - 4;
-  for (int idx = tid; idx < TX * TY; idx += NT) {
-    int ti = idx / TY, tj = idx % TY;
-    int I = B.I0 + ti, J = B.J0 + tj;
-    if (I >= A.NX - 2 || J >= A.NY - 2) continue;
-    // coefficients of the receiving cells: Fx at x-interface k = I-1+h
-    // takes the y parts of cells k (hi) and k+1 (lo) of column J; Gy at
-    // y-interface j = J-1+h those of cells j (hi) and j+1 (lo) of row I
-    T fy_lo[2], fy_hi[2], gx_lo[2], gx_hi[2];
+  int ti = idx / TY, tj = idx % TY;
+  int I = B.I0 + ti, J = B.J0 + tj;
+  if (I >= A.NX - 2 || J >= A.NY - 2) return;
+  // coefficients of the receiving cells: Fx at x-interface k = I-1+h
+  // takes the y parts of cells k (hi) and k+1 (lo) of column J
+  T fy_lo[2], fy_hi[2];
+  for (int h = 0; h < 2; ++h) {
+    if (CAPA) {
+      fy_lo[h] = T(0.5) * B.template dtd<1>(A, ti + 2 + h, tj + 2);
+      fy_hi[h] = T(0.5) * B.template dtd<1>(A, ti + 1 + h, tj + 2);
+    } else {
+      fy_lo[h] = fy_hi[h] = A.hdy;
+    }
+  }
+  const T dxc = B.template dtd<0>(A, ti + 2, tj + 2);
+  const T dyc = B.template dtd<1>(A, ti + 2, tj + 2);
+  for (int e = 0; e < NEQ; ++e) {
+    T F[2], G[2];
     for (int h = 0; h < 2; ++h) {
-      if (CAPA) {
-        fy_lo[h] = T(0.5) * B.template dtd<1>(A, ti + 2 + h, tj + 2);
-        fy_hi[h] = T(0.5) * B.template dtd<1>(A, ti + 1 + h, tj + 2);
-        gx_lo[h] = T(0.5) * B.template dtd<0>(A, ti + 2, tj + 2 + h);
-        gx_hi[h] = T(0.5) * B.template dtd<0>(A, ti + 2, tj + 1 + h);
-      } else {
-        fy_lo[h] = fy_hi[h] = A.hdy;
-        gx_lo[h] = gx_hi[h] = A.hdx;
+      // Fx at OX row ti+h, column tj+1; y parts from OY rows rk, rk+1
+      int rk = ti + h;
+      T f = X(F_CQ, e, rk, tj + 1);
+      if (A.tw > 0) {
+        f = f - (fy_lo[h] * YP(F_T0, e, rk + 1, tj + 1)
+                 + fy_hi[h] * YP(F_T1, e, rk, tj + 1));
+        f = f - (fy_lo[h] * YP(F_T2, e, rk + 1, tj)
+                 + fy_hi[h] * YP(F_T3, e, rk, tj));
       }
+      F[h] = f;
+      // Gy at OY row ti+1, column tj+h: cq and the gathered x parts
+      G[h] = Y(F_CQ, e, ti + 1, tj + h);
     }
-    const T dxc = B.template dtd<0>(A, ti + 2, tj + 2);
-    const T dyc = B.template dtd<1>(A, ti + 2, tj + 2);
-    for (int e = 0; e < NEQ; ++e) {
-      T F[2], G[2];
-      for (int h = 0; h < 2; ++h) {
-        // Fx at OX row ti+h, column tj+1; y parts from OY rows rk, rk+1
-        int rk = ti + h;
-        T f = X(F_CQ, e, rk, tj + 1);
-        if (A.tw > 0) {
-          f = f - (fy_lo[h] * Y(F_T0, e, rk + 1, tj + 1)
-                   + fy_hi[h] * Y(F_T1, e, rk, tj + 1));
-          f = f - (fy_lo[h] * Y(F_T2, e, rk + 1, tj)
-                   + fy_hi[h] * Y(F_T3, e, rk, tj));
-        }
-        F[h] = f;
-        // Gy at OY row ti+1, column cj; x parts from OX rows ti, ti+1
-        int cj = tj + h;
-        T gy = Y(F_CQ, e, ti + 1, cj);
-        if (A.tw > 0) {
-          gy = gy - (gx_lo[h] * X(F_T0, e, ti + 1, cj + 1)
-                     + gx_hi[h] * X(F_T1, e, ti + 1, cj));
-          gy = gy - (gx_lo[h] * X(F_T2, e, ti, cj + 1)
-                     + gx_hi[h] * X(F_T3, e, ti, cj));
-        }
-        G[h] = gy;
-      }
-      const T apx = X(F_AP, e, ti, tj + 1), amx = X(F_AM, e, ti + 1, tj + 1);
-      const T apy = Y(F_AP, e, ti + 1, tj), amy = Y(F_AM, e, ti + 1, tj + 1);
-      const T dq = (apx + amx + F[1] - F[0]) * dxc
-                 + (apy + amy + G[1] - G[0]) * dyc;
-      A.qout[((long long)e * nx + (I - 2)) * ny + (J - 2)] =
-          B.q[e * L::QN + (ti + 2) * L::QC + tj + 2] - dq;
-    }
+    const T apx = X(F_AP, e, ti, tj + 1), amx = X(F_AM, e, ti + 1, tj + 1);
+    const T apy = Y(F_AP, e, ti + 1, tj), amy = Y(F_AM, e, ti + 1, tj + 1);
+    const T dq = (apx + amx + F[1] - F[0]) * dxc
+               + (apy + amy + G[1] - G[0]) * dyc;
+    A.qout[((long long)e * nx + (I - 2)) * ny + (J - 2)] =
+        B.q[e * L::QN + (ti + 2) * L::QC + tj + 2] - dq;
   }
 }
 
-template <typename S, typename T, int TX, int TY, bool CAPA>
-HD void phase_reduce(Block<S, T, TX, TY, CAPA>& B, int tid, int stride) {
-  if (tid < stride) {
-    B.rx[tid] = mx(B.rx[tid], B.rx[tid + stride]);
-    B.ry[tid] = mx(B.ry[tid], B.ry[tid + stride]);
+// ---- the phase sequence, shared by the kernel and the host emulation ---
+// X(fn) runs fn(tid) for every thread of the block, then a barrier.  A
+// phase of two regions runs them in one index space: f(i) for i in [0,
+// n), then g(i) for i in [0, m), so the second fills the first's last
+// pass.
+template <class F, class G>
+HD void items2(int tid, int n, const F& f, int m, const G& g) {
+  for (int idx = tid; idx < n + m; idx += NT) {
+    if (idx < n) f(idx);
+    else g(idx - n);
   }
+}
+
+template <bool FWAVE, typename S, typename T, int TX, int TY, bool CAPA,
+          class X>
+HD void step_block(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
+                   const X& run) {
+  using L = Tile<S, T, TX, TY, CAPA>;
+  constexpr int NX0 = L::WXR * L::WXC, NY0 = L::WYR * L::WYC;
+  run([&](int t) { phase_load(A, B, t); });
+  run([&](int t) {
+    for (int i = t; i < NX0; i += NT) item_rpn<0>(A, B, i);
+  });
+  run([&](int t) { phase_sweep<0, FWAVE>(A, B, t); });
+  run([&](int t) {
+    items2(t, A.tw > 0 ? TX * L::OYC : 0, [&](int i) {
+      item_gather_y(A, B, i);
+    }, NY0, [&](int i) { item_rpn<1>(A, B, i); });
+  });
+  run([&](int t) { phase_sweep<1, FWAVE>(A, B, t); });
+  run([&](int t) {
+    for (int i = t; i < TX * TY; i += NT) item_update(A, B, i);
+  });
 }
 
 // one CFL value per block: max(s dt/dx) over the block's window; without a
 // capacity function the partials hold max|s| and the scalar dt/dx is
 // applied here (the same value: the product is monotone)
 template <typename S, typename T, int TX, int TY, bool CAPA>
-HD void phase_write_cfl(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
-                        int tid) {
-  if (tid != 0) return;
-  A.cflb[B.bid] = CAPA ? mx(B.rx[0], B.ry[0])
-                       : mx(A.dtdx * B.rx[0], A.dtdy * B.ry[0]);
+HD T block_cfl(const Args<T>& A, const Block<S, T, TX, TY, CAPA>& B) {
+  T mx_x = B.rx[0], mx_y = B.ry[0];
+  for (int w = 1; w < NT / 32; ++w) {
+    mx_x = mx(mx_x, B.rx[w]);
+    mx_y = mx(mx_y, B.ry[w]);
+  }
+  return CAPA ? mx(mx_x, mx_y) : mx(A.dtdx * mx_x, A.dtdy * mx_y);
 }
-
-// Tile shape per type: 16x16 cells in f32 (~80 KB of shared memory for
-// shallow water), 8x16 in f64 (~90 KB): two blocks per SM.
-template <typename T> struct Shape;
-template <> struct Shape<float> { static constexpr int TX = 16, TY = 16; };
-template <> struct Shape<double> { static constexpr int TX = 8, TY = 16; };
 
 template <typename T>
 Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
@@ -448,29 +595,21 @@ template <typename S> int smem_of(bool capa, bool is_double) {
 }
 
 #if defined(__CUDACC__)
+struct DeviceRun {
+  template <class Fn> __device__ void operator()(Fn&& fn) const {
+    fn(static_cast<int>(threadIdx.x));
+    __syncthreads();
+  }
+};
+
 template <typename S, typename T, int TX, int TY, bool CAPA, bool FWAVE>
-__global__ void __launch_bounds__(NT) step2_aos_kernel(Args<T> A) {
+__global__ void __launch_bounds__(NT, Shape<T>::PER_SM)
+    step2_aos_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Block<S, T, TX, TY, CAPA> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x);
-  const int t = threadIdx.x;
-  phase_load<S, T, TX, TY, CAPA>(A, B, t);
-  __syncthreads();
-  phase_rpn<0, S, T, TX, TY, CAPA>(A, B, t);
-  __syncthreads();
-  phase_sweep<0, FWAVE, S, T, TX, TY, CAPA>(A, B, t);
-  __syncthreads();
-  phase_rpn<1, S, T, TX, TY, CAPA>(A, B, t);
-  __syncthreads();
-  phase_sweep<1, FWAVE, S, T, TX, TY, CAPA>(A, B, t);
-  __syncthreads();
-  phase_update<S, T, TX, TY, CAPA>(A, B, t);
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    phase_reduce<S, T, TX, TY, CAPA>(B, t, s);
-    __syncthreads();
-  }
-  phase_write_cfl<S, T, TX, TY, CAPA>(A, B, t);
+  step_block<FWAVE>(A, B, DeviceRun());
+  if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(A, B);
 }
 
 template <typename S, typename T, bool CAPA, bool FWAVE>
@@ -491,27 +630,22 @@ int launch(const Args<T>& A, int nbx, int nby, void* stream) {
 // with each barrier between two phases kept by running the whole block
 // through a phase before the next.  Used by the CPU tests to check the
 // kernel's index algebra against the plain version without a card.
+struct HostRun {
+  template <class Fn> void operator()(Fn&& fn) const {
+    for (int t = 0; t < NT; ++t) fn(t);
+  }
+};
+
 template <typename S, typename T, bool CAPA, bool FWAVE>
 int launch(const Args<T>& A, int nbx, int nby, void*) {
   constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
-  using L = Tile<S, T, TX, TY, CAPA>;
-  std::vector<T> smem(L::elems);
+  std::vector<T> smem(Tile<S, T, TX, TY, CAPA>::elems);
   for (int by = 0; by < nby; ++by) {
     for (int bx = 0; bx < nbx; ++bx) {
       Block<S, T, TX, TY, CAPA> B;
       B.bind(smem.data(), bx, by, nbx);
-      for (int t = 0; t < NT; ++t) phase_load<S, T, TX, TY, CAPA>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_rpn<0, S, T, TX, TY, CAPA>(A, B, t);
-      for (int t = 0; t < NT; ++t)
-        phase_sweep<0, FWAVE, S, T, TX, TY, CAPA>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_rpn<1, S, T, TX, TY, CAPA>(A, B, t);
-      for (int t = 0; t < NT; ++t)
-        phase_sweep<1, FWAVE, S, T, TX, TY, CAPA>(A, B, t);
-      for (int t = 0; t < NT; ++t) phase_update<S, T, TX, TY, CAPA>(A, B, t);
-      for (int s = NT / 2; s > 0; s >>= 1)
-        for (int t = 0; t < NT; ++t) phase_reduce<S, T, TX, TY, CAPA>(B, t, s);
-      for (int t = 0; t < NT; ++t)
-        phase_write_cfl<S, T, TX, TY, CAPA>(A, B, t);
+      step_block<FWAVE>(A, B, HostRun());
+      A.cflb[B.bid] = block_cfl(A, B);
     }
   }
   return 0;
@@ -564,6 +698,11 @@ int step2_aos_blocks(int nxg, int nyg, int is_double) {
   if (is_double) grid_of<double>(nxg, nyg, nbx, nby);
   else grid_of<float>(nxg, nyg, nbx, nby);
   return nbx * nby;
+}
+
+// Blocks per SM the kernel is built for (reported by chip_smoke.py).
+int step2_aos_blocks_per_sm(int is_double) {
+  return is_double ? Shape<double>::PER_SM : Shape<float>::PER_SM;
 }
 
 // Shared memory bytes per block (reported by chip_smoke.py).

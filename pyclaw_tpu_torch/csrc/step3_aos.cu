@@ -1,15 +1,14 @@
 // step3_aos.cu — the whole 3D unsplit classic (CTU) step of the generic
 // AoS form, one launch per step, for Hopper (sm_90a): any system of
-// csrc/acoustics3d.cuh (heterogeneous and constant acoustics, advection)
-// or csrc/euler3d_aos.cuh (Euler), with aux arrays, a capacity function
-// and the f-wave correction form, for any (nx, ny, nz).
+// csrc/acoustics3d.cuh (heterogeneous and constant acoustics, advection),
+// with aux arrays, a capacity function and the f-wave correction form,
+// for any (nx, ny, nz).  (Euler, with or without a capacity function or
+// f-waves, runs step3_ctu.cu.)
 //
 // Replaces the TPU kernel pyclaw_tpu/ops/tiled2d.py:431 step3_pallas_xy in
 // its aux form: kernel_aux (:490-518), launched by the pallas_call at
-// :592-605, and, for Euler with f-waves and no aux, its body kernel
-// (:520-563) with fwave=True; both bodies are
-// pyclaw_tpu/classic/kernels.py:806 step3_roll with aux=, index_capa and
-// fwave.  It computes what
+// :592-605, with the body pyclaw_tpu/classic/kernels.py:806 step3_roll
+// with aux=, index_capa and fwave.  It computes what
 // pyclaw_tpu/classic/kernels.py:step3 computes with aux: in each direction
 // the normal solve, the limiter and the correction flux (with per-cell
 // dt/(dD kappa) under a capacity function); the rpt3 split of each
@@ -29,12 +28,7 @@
 // normal solve, two limited waves, the correction, the CFL, the flux terms,
 // four splits and their gathers, the update), 19.8 operations per byte
 // against the card's 20 (f32, 67 TFLOP/s over 3.35 TB/s): bytes bound it,
-// just.  Euler with a capacity function and transverse_waves = 2 reads 6
-// values a cell and writes 5 ((6 x 196^3 + 5 x 192^3) x 4 B = 322 MB:
-// 0.096 ms in f32) and does the work of step3_ctu.cu's step, 7628
-// operations per cell, and 90 for the capacity function (the same count;
-// the Roe average each split recomputes is overhead): 0.82 ms in f32,
-// 1.61 ms in f64, bound by operations.  Tensor cores do not apply: there is no
+// just.  Tensor cores do not apply: there is no
 // matrix product, only per-cell scalar arithmetic (the Riemann solves, the
 // limiter, the splits), so the levers are the work the halo repeats, the
 // phases and their barriers, the warps per SM and the staging.
@@ -90,13 +84,12 @@
 // Tile shape, chosen from the shared-memory budget (227 KB a block):
 // 8x8x8 cells in f32 and 4x6x8 in f64 for every system, one block per SM:
 // 32 warps (f32) / 16 warps (f64).  The faces' amdq/apdq share the rptt3
-// parts' scratch (they are read before the first rptt3 phase writes it),
-// which is what lets Euler keep the tile.  step3_aos_smem_bytes reports
-// each variant's bytes (f32 / f64, without and with a capacity function):
+// parts' scratch (they are read before the first rptt3 phase writes it).
+// step3_aos_smem_bytes reports each variant's bytes (f32 / f64, without
+// and with a capacity function):
 //   heterogeneous acoustics  128,768 / 121,216 B; 149,504 / 144,256 B
 //   acoustics                154,112 / 145,792 B; 174,848 / 168,832 B
 //   advection                 41,696 /  39,616 B;  62,432 /  62,656 B
-//   Euler                    191,584 / 181,184 B; 212,320 / 204,224 B
 //
 // Phases (each a loop of the block's threads over a region, separated by
 // barriers), for each sweep axis D in x, y, z:
@@ -120,10 +113,6 @@
 //   update     q - dq over the tile (with transverse_waves = 0 after
 //              fluct<2>); each warp's CFL max
 //
-// A split takes the D-interface's two staged cells (ql, qr) besides the
-// receiving cell's aux: the Euler splits (rpt3 and rptt3) split with the
-// Roe state of the interface whose fluctuation they split.
-//
 // Template parameters: the system, the type, the tile, CAPA (per-cell
 // dt/(dD kappa)) and FWAVE (the correction 0.5 sign(s) (1 - |s| dt/dD),
 // with sign(0) = 0).  The arithmetic repeats the plain version's, built
@@ -134,9 +123,9 @@
 // acoustics3d.cuh, the limiters in tvd.cuh, the tile geometry (shared with
 // step3_ctu.cu) in ctu3d.cuh, the asynchronous copies in async_copy.cuh.
 
+#include "acoustics3d.cuh"
 #include "async_copy.cuh"
 #include "ctu3d.cuh"
-#include "euler3d_aos.cuh"
 #include "tvd.cuh"
 
 namespace {
@@ -163,8 +152,8 @@ template <typename T> constexpr int NTB = Threads<T>::N;
 // the CFL fold keeps one slot per whole warp
 static_assert(NTB<float> % 32 == 0 && NTB<double> % 32 == 0,
               "whole warps per block");
-// limiter ids an entry takes: one per wave of the system with the most
-// (Euler3D)
+// limiter ids an entry takes (one per wave; a system with fewer waves
+// reads the first of them)
 constexpr int NLIM = 5;
 
 // Shared-memory layout (offsets in elements)
@@ -267,19 +256,6 @@ template <class S, typename T, class H, bool CAPA> struct Block {
 // the staged stride along D
 template <class L, int D>
 constexpr int stride_of = D == 0 ? L::Q1 * L::Q2 : (D == 1 ? L::Q2 : 1);
-
-// the staged cells of the D-interface at index k of the split region: the
-// state that a split of its fluctuation takes
-template <int D, class S, typename T, class H, bool CAPA>
-HD void face_cells(const Block<S, T, H, CAPA>& B, const int k[3], T ql[],
-                   T qr[]) {
-  using L = Lay<S, T, H, CAPA>;
-  const int cl = B.cell(k[0] + 1, k[1] + 1, k[2] + 1);
-  for (int e = 0; e < L::NEQ; ++e) {
-    ql[e] = B.Q[e * L::QN + cl];
-    qr[e] = B.Q[e * L::QN + cl + stride_of<L, D>];
-  }
-}
 
 // ---- phase: stage q, aux and dt/(dD kappa) + halo, zero the accumulators
 // Every copy is issued (cp.async) before any is waited on; kappa lands in
@@ -505,11 +481,10 @@ HD void phase_rpt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
     l[D] += IMP - 1;
     T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
     split_aux<E>(B, l, ab, ac, aa);
-    T ql[NEQ], qr[NEQ], asdq[NEQ], bm[NEQ], bp[NEQ];
-    face_cells<D>(B, b, ql, qr);
+    T asdq[NEQ], bm[NEQ], bp[NEQ];
     for (int e = 0; e < NEQ; ++e)
       asdq[e] = B.TR[((IMP - 1) * NEQ + e) * L::BM + idx];
-    S::template rpt<E, T>(A.P, ql, qr, ab, ac, aa, asdq, bm, bp);
+    S::template rpt<E, T>(A.P, ab, ac, aa, asdq, bm, bp);
     for (int e = 0; e < NEQ; ++e) {
       BB[e * L::BM + idx] = bm[e];
       BB[(NEQ + e) * L::BM + idx] = bp[e];
@@ -571,11 +546,10 @@ HD void split_at(const Args<T>& A, const Block<S, T, H, CAPA>& B,
   T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
   split_aux<E>(B, l, ab, ac, aa);
   const int kf = flat<R::B0, R::B1, R::B2>(k);
-  T ql[L::NEQ], qr[L::NEQ], asdq[L::NEQ];
-  face_cells<D>(B, k, ql, qr);
+  T asdq[L::NEQ];
   for (int e = 0; e < L::NEQ; ++e)
     asdq[e] = B.TR[((IMP - 1) * L::NEQ + e) * L::BM + kf];
-  S::template rpt<E, T>(A.P, ql, qr, ab, ac, aa, asdq, bm, bp);
+  S::template rpt<E, T>(A.P, ab, ac, aa, asdq, bm, bp);
 }
 
 template <int D, int E, int IMP, class S, typename T, class H, bool CAPA>
@@ -641,10 +615,9 @@ HD void phase_rptt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
     if (PART == 0) co = -co;
     T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
     split_aux<F>(B, l, ab, ac, aa);
-    T ql[NEQ], qr[NEQ], bs[NEQ], cm[NEQ], cp[NEQ];
-    face_cells<D>(B, b, ql, qr);
+    T bs[NEQ], cm[NEQ], cp[NEQ];
     for (int e = 0; e < NEQ; ++e) bs[e] = BB[(NEQ * PART + e) * L::BM + idx];
-    S::template rptt<F, T>(A.P, ql, qr, ab, ac, aa, bs, cm, cp);
+    S::template rptt<F, T>(A.P, ab, ac, aa, bs, cm, cp);
     for (int e = 0; e < NEQ; ++e) {
       TB[e * L::BM + idx] = co * cm[e];
       TB[(NEQ + e) * L::BM + idx] = co * cp[e];
@@ -836,12 +809,11 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
     for (int e = 0; e < 3; ++e)
       A.co2[d][e] = T((dt * dt) / (6.0 * deltas[d] * deltas[e]));
   }
-  // advection: u, v, w; acoustics: zz, cc; Euler: gamma
+  // advection: u, v, w; acoustics: zz, cc
   for (int d = 0; d < 3; ++d) A.P.vel[d] = T(prm[d]);
   A.P.zz = T(prm[0]);
   A.P.cc = T(prm[1]);
   A.P.p2z = T(2.0 * prm[0]);
-  A.P.g1 = T(prm[0] - 1.0);
   A.order = order;
   A.tw = tw;
   for (int p = 0; p < NLIM; ++p) A.lim[p] = lim[p];
@@ -923,12 +895,7 @@ int launch(const Args<T>& A, void*) {
 #endif
 
 // system ids of the C interface (ops/tiled2d.py:STEP3_SYSTEMS)
-enum {
-  SYS_VC_ACOUSTICS = 0,
-  SYS_ACOUSTICS = 1,
-  SYS_ADVECTION = 2,
-  SYS_EULER = 3
-};
+enum { SYS_VC_ACOUSTICS = 0, SYS_ACOUSTICS = 1, SYS_ADVECTION = 2 };
 
 template <typename T, class S>
 int dispatch_flags(const Args<T>& A, bool capa, bool fwave, void* stream) {
@@ -957,8 +924,6 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
     case SYS_ADVECTION:
       return dispatch_flags<T, Advection3D>(A, capa >= 0, fwave != 0,
                                             stream);
-    case SYS_EULER:
-      return dispatch_flags<T, Euler3D>(A, capa >= 0, fwave != 0, stream);
     default:
       return -1;
   }
@@ -995,8 +960,6 @@ int step3_aos_smem_bytes(int system, int capa, int is_double) {
       return smem_of<Acoustics3D>(capa != 0, is_double != 0);
     case SYS_ADVECTION:
       return smem_of<Advection3D>(capa != 0, is_double != 0);
-    case SYS_EULER:
-      return smem_of<Euler3D>(capa != 0, is_double != 0);
     default:
       return -1;
   }
@@ -1012,8 +975,8 @@ int step3_aos_limiter_ids() { return NLIM; }
 // step3_aos_blocks(...) partial CFL maxima; all contiguous, of the type
 // named by the entry.  system: SYS_*; capa: aux row of the capacity
 // function or -1; fwave: the f-wave correction form; p0..p2: u, v, w
-// (advection), zz, cc (acoustics) or gamma (Euler); l0..l4: the limiter
-// ids of the waves.  Returns a cudaError_t (0 on success), or -1 for an
+// (advection) or zz, cc (acoustics); l0..l4: the limiter ids of the
+// waves.  Returns a cudaError_t (0 on success), or -1 for an
 // unknown system.
 #if defined(__CUDACC__)
 #define STEP3_AOS_ENTRY(NAME, T)                                              \

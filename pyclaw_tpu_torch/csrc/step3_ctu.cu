@@ -1,19 +1,25 @@
 // step3_ctu.cu — the whole 3D unsplit classic (CTU) step of the Euler
 // system (5 equations, 5 waves) with its CFL, one launch per step, for
-// Hopper (sm_90a).
+// Hopper (sm_90a), with or without a capacity function kappa, in the wave
+// or the f-wave correction form.
 //
 // Replaces the TPU kernel pyclaw_tpu/ops/tiled2d.py:431 step3_pallas_xy
-// (pallas_call at :592, body classic/kernels.py:806 step3_roll) in its
-// wave form without aux arrays or a capacity function.  It computes what
+// (pallas_call at :592, body classic/kernels.py:806 step3_roll) for Euler:
+// its body kernel (:520-563) in the wave and the f-wave form, and its body
+// kernel_aux (:490-518) with a capacity function (Euler reads no other
+// aux).  It computes what
 // pyclaw_tpu/classic/kernels.py:step3 computes: in each direction the Roe
 // solve, the 5-wave limiter and the correction flux; the rpt3 split of
 // each fluctuation along both transverse axes into the fluxes of those
 // axes; the rptt3 split of each rpt3 part along the third axis into the
 // third axis' flux (the Langseth-LeVeque corner-of-corner terms); then
-// the conservative update.  Its plain PyTorch version is
-// pyclaw_tpu_torch/classic/kernels.py:step3, which it is held against on
-// the card (chip_smoke.py) and, through the host emulation at the end of
-// this file, on the CPU (tests/test_torch_step3.py).
+// the conservative update.  With a capacity function every dt/dD becomes
+// the per-cell dt/(dD kappa), the transverse coefficients those of the
+// receiving cell (flux3.f90 dtdx1d(i1)) and the CFL window upwinded.  Its
+// plain PyTorch version is pyclaw_tpu_torch/classic/kernels.py:step3,
+// which it is held against on the card (chip_smoke.py) and, through the
+// host emulation at the end of this file, on the CPU
+// (tests/test_torch_step3.py).
 //
 // What bounds it on the card: per cell it reads 5 values of q and writes
 // 5 (at 192^3, qbc read once and q written once are 5 x (196^3 + 192^3)
@@ -69,12 +75,31 @@
 // source (wrong results, one share each; f32 at 192^3): the splits take
 // 31% of the time, the rptt3 splits alone 20%, the limiter 15%.
 //
-// Tile shape: 8x8x8 cells in f32 (224,784 B of shared memory), 6x6x6 in
-// f64 (219,776 B; the first port's 4x4x8 repeated the normal solves 3.22x
-// and the splits 2.41x over the tile's interfaces), one block per SM.
-// Either layout leaves room for one per-cell array of the staged tile (a
-// capacity function kappa: 6,912 B in f32, 8,000 B in f64) within the
-// 227 KB a block may use.
+// Tile shape: 8x8x8 cells in f32, 6x6x6 in f64 (the first port's 4x4x8
+// repeated the normal solves 3.22x and the splits 2.41x over the tile's
+// interfaces), one block per SM.  Shared memory (step3_ctu_smem_bytes):
+// 224,784 B in f32 and 219,776 B in f64 without a capacity function,
+// 231,696 B and 227,776 B with one (kappa over the staged tile), within
+// the 232,448 B a block may use.
+//
+// The capacity function (CAPA): the block stages kappa with its halo, by
+// cp.async like q, into one per-cell array K, and turns it in place into
+// dt/(dx kappa) (the plain version's product and IEEE division: its
+// bits) in the phase of roe<0>.  Every use of sweep D reads dt/(dD kappa)
+// there: the interface average and the upwinded CFL window of the sweep
+// phase, the cell's fluctuation term, the receiving cells' rpt3 and rptt3
+// coefficients.  In the last phase of sweep D, which reads no K, each
+// thread stages kappa again and turns it into dt/(dE kappa) of the next
+// axis E: one division per staged cell and sweep, where dividing at each
+// use would take one per interface, gather and split point.  After the
+// last sweep K keeps kappa, and the update divides on the fly (3 a cell).
+// With transverse_waves < 2 the last phase of a sweep reads K, so the
+// restaging takes a phase of its own.  Measured at 192^3 against the
+// Euler system step3_aos.cu ran before (PERF.md section 6; H100,
+// 700 W): 11.48 -> 7.17 ms in f32, 28.18 -> 15.98 ms in f64.
+// The f-wave form (FWAVE): the correction 0.5 sign(s) (1 - |s| dt/dD)
+// with sign(0) = 0, and the normal velocity that feeds sign summed
+// without contraction (euler3d.cuh: RN).
 //
 // Phases (each a loop of the block's threads over one or two regions,
 // separated by barriers), after load and roe<0>, for each sweep axis D in
@@ -99,12 +124,15 @@
 //   update     q - dq over the tile (with transverse_waves = 0 after
 //              fluct<2>); each warp's CFL max
 //
-// The arithmetic repeats the plain version's but for the reciprocal and
-// the rptt3 scale above; the sums of the transverse terms into the fluxes
+// The arithmetic repeats the plain version's but for the reciprocal, the
+// rptt3 scale and the contractions; the sums of the transverse terms into
+// the fluxes
 // and of the three directions into dq are taken in another order
 // (roundoff).  The Roe solve and the split live in euler3d.cuh, the
 // limiters in tvd.cuh, the tile geometry (shared with step3_aos.cu) in
-// ctu3d.cuh.
+// ctu3d.cuh.  The entry step3_ctu_f32/f64 runs the wave form without a
+// capacity function; step3_ctu_aux_f32/f64 takes the aux array, the
+// capacity row and the f-wave form and runs any of the four variants.
 
 #include "async_copy.cuh"
 #include "ctu3d.cuh"
@@ -123,9 +151,14 @@ template <> struct Shape<double> { static constexpr int X = 6, Y = 6, Z = 6; };
 template <typename T> struct Threads;
 template <> struct Threads<float> { static constexpr int N = 1024; };
 template <> struct Threads<double> { static constexpr int N = 384; };
-template <typename T> constexpr int NTB = Threads<T>::N;
-static_assert(NTB<float> % 32 == 0 && NTB<double> % 32 == 0,
-              "whole warps per block");
+
+// One variant of the kernel: the type's tile and threads, with or without
+// a capacity function (CAPA), in the wave or the f-wave form (FWAVE)
+template <typename T, bool CAPA, bool FWAVE> struct Var : Shape<T> {
+  static constexpr bool capa = CAPA, fwave = FWAVE;
+  static constexpr int NT = Threads<T>::N;
+  static_assert(NT % 32 == 0, "whole warps per block");
+};
 
 // Region of the transverse splits of one fluctuation of the sweep along
 // D: the T interfaces along D whose fluctuation reaches a tile cell (the
@@ -170,9 +203,11 @@ template <typename T, class S> struct Lay {
   static constexpr int oTR = oDQ + 5 * CN;          // fluctuations to split
   static constexpr int oEIG = oTR + 10 * BM;        // u1 u2 u3 H a g1/a2 1/(2a)
   static constexpr int oU = oEIG + 7 * BM;
-  static constexpr int oRED = oU + US;
+  // K: kappa, or dt/(dD kappa) of the sweep's axis, over the staged tile
+  static constexpr int oK = oU + US;
+  static constexpr int oRED = oK + (S::capa ? QN : 0);
   // RED: the CFL partial of each thread, then of each warp
-  static constexpr size_t elems = oRED + NTB<T> + NTB<T> / 32;
+  static constexpr size_t elems = oRED + S::NT + S::NT / 32;
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
@@ -202,13 +237,18 @@ template <int I> struct Rot1 {
 
 template <typename T> struct Args {
   const T* qbc;
+  const T* aux;        // with CAPA: the capacity function in row capa
   T* qout;
   T* cflb;
   int N[3];            // padded (ghost-extended) extents
   int nb[3];           // blocks along x, y, z
+  int capa;
+  T dt;                // for the per-cell dt/(dD kappa)
+  T d[3];              // dx, dy, dz
   T dtd[3];            // dt / dD
   T half[3];           // 0.5 dt / dD
   T co2[3][3];         // dt^2 / (6 dD dE)
+  T co6[3];            // dt / (6 dE), the kappa-scaled rptt factor
   T g1;
   int order, tw;
   int lim[5];
@@ -222,6 +262,7 @@ template <typename T, class S> struct Block {
   T* TR;
   T* EIG;
   T* U;
+  T* K;
   T* RED;
   int C0[3];   // first interior cell of the tile (padded indices)
   int bid;
@@ -235,11 +276,16 @@ template <typename T, class S> struct Block {
     TR = s + L::oTR;
     EIG = s + L::oEIG;
     U = s + L::oU;
+    K = s + L::oK;
     RED = s + L::oRED;
     bid = b;
   }
   HD T qs(int e, int l0, int l1, int l2) const {
     return Q[((e * L::Q0 + l0) * L::Q1 + l1) * L::Q2 + l2];
+  }
+  // index of the staged cell l (its K element)
+  HD static int cell(const int l[3]) {
+    return (l[0] * L::Q1 + l[1]) * L::Q2 + l[2];
   }
   HD T* slot(int k) const { return U + k * L::SL; }
   HD T* AMf() const { return U; }
@@ -247,27 +293,77 @@ template <typename T, class S> struct Block {
   HD T* RS() const { return U + L::oRS; }
 };
 
-// ---- phase: stage q tile + halo, zero the accumulators ----------------
+// offset in one plane of the padded grid of staged cell r (loads are
+// clamped to the grid: clamped cells feed only masked-out results)
+template <typename T, class S>
+HD long long staged_offset(const Args<T>& A, const Block<T, S>& B, int r) {
+  using L = Lay<T, S>;
+  int c[3];
+  dec<L::Q0, L::Q1, L::Q2>(r, c);
+  long long g[3];
+  for (int a = 0; a < 3; ++a) {
+    const int v = B.C0[a] - 2 + c[a];
+    g[a] = v < A.N[a] ? v : A.N[a] - 1;
+  }
+  return (g[0] * A.N[1] + g[1]) * A.N[2] + g[2];
+}
+
+template <typename T> HD long long plane_of(const Args<T>& A) {
+  return (long long)A.N[0] * A.N[1] * A.N[2];
+}
+
+// ---- phase: stage q (and kappa) tile + halo, zero the accumulators -----
 // Every copy is started (cp.async) before any is waited on.
 template <typename T, class S>
 HD void phase_load(const Args<T>& A, Block<T, S>& B, int tid) {
   using L = Lay<T, S>;
-  const long long plane = (long long)A.N[0] * A.N[1] * A.N[2];
-  for (int idx = tid; idx < 5 * L::QN; idx += NTB<T>) {
-    const int e = idx / L::QN;
-    int c[3];
-    dec<L::Q0, L::Q1, L::Q2>(idx % L::QN, c);
-    long long g[3];
-    for (int a = 0; a < 3; ++a) {
-      const int v = B.C0[a] - 2 + c[a];
-      g[a] = v < A.N[a] ? v : A.N[a] - 1;
-    }
-    copy_async(B.Q + idx,
-               A.qbc + e * plane + (g[0] * A.N[1] + g[1]) * A.N[2] + g[2]);
+  constexpr int NF = S::capa ? 6 : 5;
+  const long long plane = plane_of(A);
+  for (int idx = tid; idx < NF * L::QN; idx += S::NT) {
+    const int e = idx / L::QN, r = idx % L::QN;
+    const long long off = staged_offset(A, B, r);
+    if (e < 5) copy_async(B.Q + idx, A.qbc + e * plane + off);
+    else copy_async(B.K + r, A.aux + A.capa * plane + off);
   }
-  for (int idx = tid; idx < L::oTR - L::oF0; idx += NTB<T>) B.F[0][idx] = T(0);
+  for (int idx = tid; idx < L::oTR - L::oF0; idx += S::NT) B.F[0][idx] = T(0);
   B.RED[tid] = T(0);
   copy_wait_all();
+}
+
+// ---- K: the per-cell dt/(dD kappa) of the sweep along D ----------------
+// the plain version's 0-d dt over (dD * kappa)
+template <int D, typename T> HD T dtd_of(const Args<T>& A, T kappa) {
+  return A.dt / (A.d[D] * kappa);
+}
+
+// turn the staged kappa into dt/(dD kappa) in place (the roe<0> phase)
+template <int D, typename T, class S>
+HD void turn(const Args<T>& A, Block<T, S>& B, int tid) {
+  for (int r = tid; r < Lay<T, S>::QN; r += S::NT)
+    B.K[r] = dtd_of<D>(A, B.K[r]);
+}
+
+// stage kappa again, in a phase that reads no K: the copies are issued
+// first, and after its own wait each thread turns the elements it copied
+// into dt/(dD kappa) (D < 3) or leaves kappa (D = 3, for the update)
+template <typename T, class S>
+HD void restage_issue(const Args<T>& A, Block<T, S>& B, int tid) {
+  const long long plane = plane_of(A);
+  for (int r = tid; r < Lay<T, S>::QN; r += S::NT)
+    copy_async(B.K + r, A.aux + A.capa * plane + staged_offset(A, B, r));
+}
+
+template <int D, typename T, class S>
+HD void restage_finish(const Args<T>& A, Block<T, S>& B, int tid) {
+  copy_wait_all();
+  if constexpr (D < 3) turn<D>(A, B, tid);
+}
+
+// dt/dD at staged cell c: per cell with a capacity function
+template <int D, typename T, class S>
+HD T dtd_at(const Args<T>& A, const Block<T, S>& B, int c) {
+  if constexpr (S::capa) return B.K[c];
+  return A.dtd[D];
 }
 
 // ---- Roe data of the normal solve at D-interface idx (Reg's A region);
@@ -288,7 +384,7 @@ HD void item_roe(const Args<T>& A, Block<T, S>& B, int idx) {
     ql[e] = B.qs(e, l[0], l[1], l[2]);
     qr[e] = B.qs(e, l[0] + (D == 0), l[1] + (D == 1), l[2] + (D == 2));
   }
-  const Roe3<T> rs = roe_3d<D>(A.g1, ql, qr);
+  const Roe3<T> rs = roe_3d<D, S::fwave>(A.g1, ql, qr);
   if (A.tw > 0 && c[D] >= 1 && c[D] <= R::B0 * (D == 0) + R::B1 * (D == 1)
                                        + R::B2 * (D == 2)) {
     int b[3] = {c[0], c[1], c[2]};
@@ -345,11 +441,20 @@ HD void item_sweep(const Args<T>& A, Block<T, S>& B, int idx, T& cfl) {
   using L = Lay<T, S>;
   constexpr int step = D == 0 ? R::A1 * R::A2 : (D == 1 ? R::A2 : 1);
   const T* W = B.RS();
-  const T dtd = A.dtd[D];
   T* AMf = B.AMf();
   T* APf = B.APf();
   int b[3];
   dec<R::B0, R::B1, R::B2>(idx, b);
+  // dt/dD of the interface's left and right cells, and at the interface
+  // (the average of the two with a capacity function)
+  T dl = A.dtd[D], dr = dl, dtd = dl;
+  if constexpr (S::capa) {
+    int l[3] = {b[0] + 1, b[1] + 1, b[2] + 1};
+    dl = B.K[B.cell(l)];
+    l[D] += 1;
+    dr = B.K[B.cell(l)];
+    dtd = T(0.5) * (dl + dr);
+  }
   int a[3] = {b[0], b[1], b[2]};
   a[D] += 1;
   const int own = flat<R::A0, R::A1, R::A2>(a);
@@ -410,7 +515,10 @@ HD void item_sweep(const Args<T>& A, Block<T, S>& B, int idx, T& cfl) {
       pp = p == 0 ? ap_t : pp + ap_t;
       if (A.order == 2) {
         T absp = fabs_(s[p]);
-        T coef = T(0.5) * absp * (T(1) - absp * dtd);
+        // 0.5 |s| (wave form) or 0.5 sign(s) (f-wave form), sign(0) = 0
+        T lead = S::fwave ? T(0.5) * T((s[p] > T(0)) - (s[p] < T(0)))
+                          : T(0.5) * absp;
+        T coef = lead * (T(1) - absp * dtd);
         T c_t = coef * phi[p] * w[p][e];
         cc = p == 0 ? c_t : cc + c_t;
       }
@@ -458,12 +566,18 @@ HD void item_sweep(const Args<T>& A, Block<T, S>& B, int idx, T& cfl) {
                                : (g >= 2 && g <= A.N[k] - 3));
   }
   if (in_cfl) {
-    for (int p = 0; p < 5; ++p) cfl = mx(cfl, dtd * fabs_(s[p]));
+    for (int p = 0; p < 5; ++p) {
+      // upwinded with a capacity function: the right cell's dt/(dD kappa)
+      // for a right-going wave, the left cell's for a left-going one
+      if constexpr (S::capa) cfl = mx(cfl, mx(s[p] * dr, -s[p] * dl));
+      else cfl = mx(cfl, dtd * fabs_(s[p]));
+    }
   }
 }
 
 // ---- first-order fluctuations of tile cell idx -------------------------
-template <int D, typename T, class S>
+// (KAPPA: K holds kappa, and dt/(dD kappa) is divided here)
+template <int D, bool KAPPA = false, typename T, class S>
 HD void item_fluct(const Args<T>& A, Block<T, S>& B, int idx) {
   using R = Reg<S, D>;
   using L = Lay<T, S>;
@@ -471,12 +585,15 @@ HD void item_fluct(const Args<T>& A, Block<T, S>& B, int idx) {
   const T* APf = B.APf();
   int c[3];
   dec<S::X, S::Y, S::Z>(idx, c);
+  const int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
+  T dtd = dtd_at<D>(A, B, B.cell(l));
+  if constexpr (KAPPA) dtd = dtd_of<D>(A, dtd);
   const int fl = flat<R::F0, R::F1, R::F2>(c);
   c[D] += 1;
   const int fr = flat<R::F0, R::F1, R::F2>(c);
   for (int e = 0; e < 5; ++e)
-    B.DQ[e * L::CN + idx] += A.dtd[D] * (APf[e * L::FM + fl]
-                                         + AMf[e * L::FM + fr]);
+    B.DQ[e * L::CN + idx] += dtd * (APf[e * L::FM + fl]
+                                    + AMf[e * L::FM + fr]);
 }
 
 // the B-region index of split-region point s of fluctuation IMP
@@ -517,8 +634,10 @@ HD void item_rpt(const Args<T>& A, Block<T, S>& B, int idx, int sm,
 
 // ---- the E-flux gathers the rpt3 parts of its two neighbours -----------
 // F_E at (cell I along D, face J along E, cell K along F) takes
-// -dt/(2 dD) (bm at e-cell J+1 + bp at e-cell J) of the interface of the
-// fluctuation that reaches cell I (split-region index I along D).
+// -(c_bm bm at e-cell J+1 + c_bp bp at e-cell J) of the interface of the
+// fluctuation that reaches cell I (split-region index I along D), with c
+// = dt/(2 dD), or 0.5 dt/(dD kappa) of the cells (I, J, K) and (I, J-1,
+// K) (the tile cells the two parts come from).
 template <int D, int E, typename T, class S>
 HD void item_gather_e(const Args<T>& A, Block<T, S>& B, int idx, int sm,
                       int sp) {
@@ -529,9 +648,15 @@ HD void item_gather_e(const Args<T>& A, Block<T, S>& B, int idx, int sm,
   const T* BM = B.slot(sm);
   const T* BP = B.slot(sp);
   T* FE = B.F[E];
-  const T h = A.half[D];
   int c[3], k[3];
   dec<RE::F0, RE::F1, RE::F2>(idx, c);
+  T h_bm = A.half[D], h_bp = h_bm;
+  if constexpr (S::capa) {
+    int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
+    h_bm = T(0.5) * B.K[B.cell(l)];
+    l[E] -= 1;
+    h_bp = T(0.5) * B.K[B.cell(l)];
+  }
   k[D] = c[D];
   k[F] = c[F] + 1;
   k[E] = c[E] + 1;
@@ -539,14 +664,15 @@ HD void item_gather_e(const Args<T>& A, Block<T, S>& B, int idx, int sm,
   k[E] = c[E];
   const int k_bp = flat<SR::S0, SR::S1, SR::S2>(k);
   for (int e = 0; e < 5; ++e)
-    FE[e * RE::FN + idx] += -(h * BM[e * L::SR + k_bm]
-                             + h * BP[e * L::SR + k_bp]);
+    FE[e * RE::FN + idx] += -(h_bm * BM[e * L::SR + k_bm]
+                             + h_bp * BP[e * L::SR + k_bp]);
 }
 
 // ---- rptt3 split of one rpt3 part (PART 0: bm, 1: bp; slot src) along
-// F, scaled by -+dt^2/(6 dD dE) (the down-going part flips its sign),
-// -> cm (slot dm), cp (slot dp).  Only where the F-flux gathers read it:
-// e-cells 1 .. T_E+1 (bm) or 0 .. T_E (bp) of the split region.
+// F, scaled by -+dt^2/(6 dD dE), or -+(dt/(6 dE)) dt/(dD kappa) of the
+// split point's cell (the down-going part flips its sign), -> cm (slot
+// dm), cp (slot dp).  Only where the F-flux gathers read it: e-cells
+// 1 .. T_E+1 (bm) or 0 .. T_E (bp) of the split region.
 template <int D, int E, int IMP, int PART, typename T, class S>
 HD void item_rptt(const Args<T>& A, Block<T, S>& B, int idx, int src,
                   int dm, int dp) {
@@ -558,11 +684,18 @@ HD void item_rptt(const Args<T>& A, Block<T, S>& B, int idx, int src,
   const T* BS = B.slot(src);
   T* CM = B.slot(dm);
   T* CP = B.slot(dp);
-  const T co = PART == 0 ? -A.co2[D][E] : A.co2[D][E];
   int s[3];
   dec<N0, N1, N2>(idx, s);
   s[E] += PART == 0 ? 1 : 0;
   const int si = flat<SR::S0, SR::S1, SR::S2>(s);
+  T co = A.co2[D][E];
+  if constexpr (S::capa) {
+    // the split point's cell: the receiving tile cell s[D] along D
+    int l[3] = {s[0] + 1, s[1] + 1, s[2] + 1};
+    l[D] += 1;
+    co = A.co6[E] * B.K[B.cell(l)];
+  }
+  if (PART == 0) co = -co;
   T bs[5], eig[7], cm[5], cp[5];
   for (int e = 0; e < 5; ++e) bs[e] = co * BS[e * L::SR + si];
   load_eig(B, b_of<D, IMP, S>(s), eig);
@@ -618,6 +751,15 @@ HD void item_update(const Args<T>& A, Block<T, S>& B, int idx) {
   dec<S::X, S::Y, S::Z>(idx, c);
   const int I0 = B.C0[0] + c[0], I1 = B.C0[1] + c[1], I2 = B.C0[2] + c[2];
   if (I0 >= A.N[0] - 2 || I1 >= A.N[1] - 2 || I2 >= A.N[2] - 2) return;
+  T d0 = A.dtd[0], d1 = A.dtd[1], d2 = A.dtd[2];
+  if constexpr (S::capa) {
+    // K holds kappa after the last sweep
+    const int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
+    const T kappa = B.K[B.cell(l)];
+    d0 = dtd_of<0>(A, kappa);
+    d1 = dtd_of<1>(A, kappa);
+    d2 = dtd_of<2>(A, kappa);
+  }
   int fx[3] = {c[0] + 1, c[1], c[2]};
   int fy[3] = {c[0], c[1] + 1, c[2]};
   int fz[3] = {c[0], c[1], c[2] + 1};
@@ -629,9 +771,9 @@ HD void item_update(const Args<T>& A, Block<T, S>& B, int idx) {
   const int z1 = flat<R2::F0, R2::F1, R2::F2>(fz);
   for (int e = 0; e < 5; ++e) {
     T dq = B.DQ[e * L::CN + idx];
-    dq = dq + A.dtd[0] * (B.F[0][e * R0::FN + x1] - B.F[0][e * R0::FN + x0]);
-    dq = dq + A.dtd[1] * (B.F[1][e * R1::FN + y1] - B.F[1][e * R1::FN + y0]);
-    dq = dq + A.dtd[2] * (B.F[2][e * R2::FN + z1] - B.F[2][e * R2::FN + z0]);
+    dq = dq + d0 * (B.F[0][e * R0::FN + x1] - B.F[0][e * R0::FN + x0]);
+    dq = dq + d1 * (B.F[1][e * R1::FN + y1] - B.F[1][e * R1::FN + y0]);
+    dq = dq + d2 * (B.F[2][e * R2::FN + z1] - B.F[2][e * R2::FN + z0]);
     A.qout[((long long)(e * n0 + I0 - 2) * n1 + (I1 - 2)) * n2 + (I2 - 2)] =
         B.qs(e, c[0] + 2, c[1] + 2, c[2] + 2) - dq;
   }
@@ -643,9 +785,9 @@ HD void item_update(const Args<T>& A, Block<T, S>& B, int idx) {
 // [0, n), then g(i) for i in [0, m), so the second region's items fill
 // the first's last pass (an rpt3 region of 800 items over 768 threads
 // would leave its second pass to one warp).
-template <typename T, class F, class G>
+template <class S, class F, class G>
 HD void items2(int tid, int n, const F& f, int m, const G& g) {
-  for (int idx = tid; idx < n + m; idx += NTB<T>) {
+  for (int idx = tid; idx < n + m; idx += S::NT) {
     if (idx < n) f(idx);
     else g(idx - n);
   }
@@ -660,33 +802,49 @@ template <class S, int D, int E> struct RReg {
 
 // One fluctuation with rptt3 (iteration I of Rot), in three phases; C
 // runs tail(i) over tail_n items, the next split or the next sweep's Roe
-// data, beside the last gather.
-template <int D, int E, int IMP, int I, typename T, class S, class X,
-          class C>
+// data, beside the last gather; after the last fluctuation (RESTAGE) it
+// also stages kappa again: dt/(dE kappa) for the next sweep's axis E, or
+// kappa itself for the update.
+template <int D, int E, int IMP, int I, bool RESTAGE = false,
+          typename T, class S, class X, class C>
 HD void transverse_one(const Args<T>& A, Block<T, S>& B, const X& run,
                        int tail_n, const C& tail) {
   using P = Rot<I>;
   constexpr int NE = Reg<S, E>::FN, NF = Reg<S, 3 - D - E>::FN;
   constexpr int NR = RReg<S, D, E>::N;
   run([&](int t) {
-    items2<T>(t, NE, [&](int i) {
+    items2<S>(t, NE, [&](int i) {
       item_gather_e<D, E>(A, B, i, P::m, P::p);
     }, NR, [&](int i) {
       item_rptt<D, E, IMP, 0>(A, B, i, P::m, P::a, P::b);
     });
   });
   run([&](int t) {
-    items2<T>(t, NF, [&](int i) {
+    items2<S>(t, NF, [&](int i) {
       item_gather_f<D, E, 0>(A, B, i, P::a, P::b);
     }, NR, [&](int i) {
       item_rptt<D, E, IMP, 1>(A, B, i, P::p, P::m, P::x);
     });
   });
   run([&](int t) {
-    items2<T>(t, NF, [&](int i) {
+    if constexpr (RESTAGE) restage_issue(A, B, t);
+    items2<S>(t, NF, [&](int i) {
       item_gather_f<D, E, 1>(A, B, i, P::m, P::x);
     }, tail_n, tail);
+    if constexpr (RESTAGE) restage_finish<D + 1>(A, B, t);
   });
+}
+
+// With a capacity function and transverse_waves < 2 the last phase of a
+// sweep reads K: kappa is staged again in a phase of its own
+template <int NEXT, typename T, class S, class X>
+HD void restage_phase(const Args<T>& A, Block<T, S>& B, const X& run) {
+  if constexpr (S::capa) {
+    run([&](int t) {
+      restage_issue(A, B, t);
+      restage_finish<NEXT>(A, B, t);
+    });
+  }
 }
 
 template <int D, typename T, class S, class X>
@@ -703,12 +861,13 @@ HD void sweep(const Args<T>& A, Block<T, S>& B, const X& run) {
   const auto fluct = [&](int i) { item_fluct<D>(A, B, i); };
   run([&](int t) {
     T cfl = B.RED[t];
-    for (int i = t; i < R::BN; i += NTB<T>) item_sweep<D>(A, B, i, cfl);
+    for (int i = t; i < R::BN; i += S::NT) item_sweep<D>(A, B, i, cfl);
     B.RED[t] = cfl;
   });
   if (A.tw == 0) {
     // fluct<2> runs in the update's phase
-    if (D < 2) run([&](int t) { items2<T>(t, CN, fluct, NNEXT, next); });
+    if (D < 2) run([&](int t) { items2<S>(t, CN, fluct, NNEXT, next); });
+    restage_phase<D + 1>(A, B, run);
     return;
   }
   if (A.tw == 1) {
@@ -716,40 +875,41 @@ HD void sweep(const Args<T>& A, Block<T, S>& B, const X& run) {
     using P1 = Rot1<1>;
     constexpr int NE1 = Reg<S, E1>::FN, NE2 = Reg<S, E2>::FN;
     run([&](int t) {
-      items2<T>(t, CN, fluct, SN, [&](int i) {
+      items2<S>(t, CN, fluct, SN, [&](int i) {
         item_rpt<D, E1, 1>(A, B, i, P0::m, P0::p);
       });
     });
     run([&](int t) {
-      items2<T>(t, NE1, [&](int i) {
+      items2<S>(t, NE1, [&](int i) {
         item_gather_e<D, E1>(A, B, i, P0::m, P0::p);
       }, SN, [&](int i) {
         item_rpt<D, E1, 2>(A, B, i, P1::m, P1::p);
       });
     });
     run([&](int t) {
-      items2<T>(t, NE1, [&](int i) {
+      items2<S>(t, NE1, [&](int i) {
         item_gather_e<D, E1>(A, B, i, P1::m, P1::p);
       }, SN, [&](int i) {
         item_rpt<D, E2, 1>(A, B, i, P0::m, P0::p);
       });
     });
     run([&](int t) {
-      items2<T>(t, NE2, [&](int i) {
+      items2<S>(t, NE2, [&](int i) {
         item_gather_e<D, E2>(A, B, i, P0::m, P0::p);
       }, SN, [&](int i) {
         item_rpt<D, E2, 2>(A, B, i, P1::m, P1::p);
       });
     });
     run([&](int t) {
-      items2<T>(t, NE2, [&](int i) {
+      items2<S>(t, NE2, [&](int i) {
         item_gather_e<D, E2>(A, B, i, P1::m, P1::p);
       }, NNEXT, next);
     });
+    restage_phase<D + 1>(A, B, run);
     return;
   }
   run([&](int t) {
-    items2<T>(t, CN, fluct, SN, [&](int i) {
+    items2<S>(t, CN, fluct, SN, [&](int i) {
       item_rpt<D, E1, 1>(A, B, i, Rot<0>::m, Rot<0>::p);
     });
   });
@@ -762,25 +922,25 @@ HD void sweep(const Args<T>& A, Block<T, S>& B, const X& run) {
   transverse_one<D, E2, 1, 2>(A, B, run, SN, [&](int i) {
     item_rpt<D, E2, 2>(A, B, i, Rot<3>::m, Rot<3>::p);
   });
-  transverse_one<D, E2, 2, 3>(A, B, run, NNEXT, next);
+  transverse_one<D, E2, 2, 3, S::capa>(A, B, run, NNEXT, next);
 }
 
 // fold thread t's CFL partial into its warp's slot: a shuffle max on the
 // card, a loop over the lanes on the host
-template <typename T> HD void warp_fold(T* red, int t) {
+template <class S, typename T> HD void warp_fold(T* red, int t) {
 #if defined(__CUDACC__)
   const T m = warp_max(red[t]);
-  if (t % 32 == 0) red[NTB<T> + t / 32] = m;
+  if (t % 32 == 0) red[S::NT + t / 32] = m;
 #else
-  red[NTB<T> + t / 32] =
-      t % 32 == 0 ? red[t] : mx(red[NTB<T> + t / 32], red[t]);
+  red[S::NT + t / 32] =
+      t % 32 == 0 ? red[t] : mx(red[S::NT + t / 32], red[t]);
 #endif
 }
 
 // the block's CFL partial from the warps' slots
-template <typename T> HD T block_cfl(const T* red) {
-  T m = red[NTB<T>];
-  for (int w = 1; w < NTB<T> / 32; ++w) m = mx(m, red[NTB<T> + w]);
+template <typename T, class S> HD T block_cfl(const Block<T, S>& B) {
+  T m = B.RED[S::NT];
+  for (int w = 1; w < S::NT / 32; ++w) m = mx(m, B.RED[S::NT + w]);
   return m;
 }
 
@@ -788,38 +948,44 @@ template <typename T, class S, class X>
 HD void step_block(const Args<T>& A, Block<T, S>& B, const X& run) {
   run([&](int t) { phase_load(A, B, t); });
   run([&](int t) {
-    for (int i = t; i < Reg<S, 0>::AN; i += NTB<T>) item_roe<0>(A, B, i);
+    for (int i = t; i < Reg<S, 0>::AN; i += S::NT) item_roe<0>(A, B, i);
+    if constexpr (S::capa) turn<0>(A, B, t);
   });
   sweep<0>(A, B, run);
   sweep<1>(A, B, run);
   sweep<2>(A, B, run);
   run([&](int t) {
-    for (int i = t; i < Lay<T, S>::CN; i += NTB<T>) {
-      if (A.tw == 0) item_fluct<2>(A, B, i);
+    for (int i = t; i < Lay<T, S>::CN; i += S::NT) {
+      if (A.tw == 0) item_fluct<2, S::capa>(A, B, i);
       item_update(A, B, i);
     }
-    warp_fold(B.RED, t);
+    warp_fold<S>(B.RED, t);
   });
 }
 
 template <typename T>
-Args<T> make_args(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-                  int nzg, double dt, double dx, double dy, double dz,
-                  double g1, int order, int tw, const int* lim) {
-  using S = Shape<T>;
+Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
+                  int nxg, int nyg, int nzg, int capa, double dt, double dx,
+                  double dy, double dz, double g1, int order, int tw,
+                  const int* lim) {
   Args<T> A;
   A.qbc = static_cast<const T*>(qbc);
+  A.aux = static_cast<const T*>(aux);
   A.qout = static_cast<T*>(qout);
   A.cflb = static_cast<T*>(cflb);
   A.N[0] = nxg;
   A.N[1] = nyg;
   A.N[2] = nzg;
-  tile_counts<S>(A.N, A.nb);
+  tile_counts<Shape<T>>(A.N, A.nb);
+  A.capa = capa;
+  A.dt = T(dt);
   // the plain version's coefficients: Python doubles rounded to T
   const double deltas[3] = {dx, dy, dz};
   for (int d = 0; d < 3; ++d) {
+    A.d[d] = T(deltas[d]);
     A.dtd[d] = T(dt / deltas[d]);
     A.half[d] = T(0.5 * (dt / deltas[d]));
+    A.co6[d] = T(dt / (6.0 * deltas[d]));
     for (int e = 0; e < 3; ++e)
       A.co2[d][e] = T((dt * dt) / (6.0 * deltas[d] * deltas[e]));
   }
@@ -842,31 +1008,25 @@ struct DeviceRun {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(NTB<T>, 1) step3_ctu_kernel(Args<T> A) {
-  using S = Shape<T>;
+template <typename T, class S>
+__global__ void __launch_bounds__(S::NT, 1) step3_ctu_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Block<T, S> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x);
   tile_origin<S>(A.nb, B.bid, B.C0);
   step_block(A, B, DeviceRun());
-  if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(B.RED);
+  if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(B);
 }
 
-template <typename T>
-int launch(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-           int nzg, double dt, double dx, double dy, double dz, double g1,
-           int order, int tw, const int* lim, void* stream) {
-  using L = Lay<T, Shape<T>>;
+template <typename T, class S> int launch(const Args<T>& A, void* stream) {
+  using L = Lay<T, S>;
   // The limit applies to the current device only: set it on every launch.
   cudaError_t err = cudaFuncSetAttribute(
-      step3_ctu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      step3_ctu_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)L::bytes);
   if (err != cudaSuccess) return (int)err;
-  Args<T> A = make_args<T>(qbc, qout, cflb, nxg, nyg, nzg, dt, dx, dy, dz,
-                           g1, order, tw, lim);
-  step3_ctu_kernel<T><<<nblocks(A), NTB<T>, L::bytes,
-                        static_cast<cudaStream_t>(stream)>>>(A);
+  step3_ctu_kernel<T, S><<<nblocks(A), S::NT, L::bytes,
+                           static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
 }
 #else
@@ -880,24 +1040,42 @@ template <int N> struct HostRun {
   }
 };
 
-template <typename T>
-int launch_host(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-                int nzg, double dt, double dx, double dy, double dz,
-                double g1, int order, int tw, const int* lim) {
-  using L = Lay<T, Shape<T>>;
-  Args<T> A = make_args<T>(qbc, qout, cflb, nxg, nyg, nzg, dt, dx, dy, dz,
-                           g1, order, tw, lim);
-  std::vector<T> smem(L::elems);
+template <typename T, class S> int launch(const Args<T>& A, void*) {
+  std::vector<T> smem(Lay<T, S>::elems);
   for (int b = 0; b < nblocks(A); ++b) {
-    Block<T, Shape<T>> B;
+    Block<T, S> B;
     B.bind(smem.data(), b);
-    tile_origin<Shape<T>>(A.nb, B.bid, B.C0);
-    step_block(A, B, HostRun<NTB<T>>());
-    A.cflb[b] = block_cfl(B.RED);
+    tile_origin<S>(A.nb, B.bid, B.C0);
+    step_block(A, B, HostRun<S::NT>());
+    A.cflb[b] = block_cfl(B);
   }
   return 0;
 }
 #endif
+
+// one CTU step in the variant of the capacity row (capa >= 0) and form
+template <typename T>
+int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
+         int nyg, int nzg, int capa, int fwave, double dt, double dx,
+         double dy, double dz, double g1, int order, int tw, const int* lim,
+         void* stream) {
+  const Args<T> A = make_args<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, capa,
+                                 dt, dx, dy, dz, g1, order, tw, lim);
+  if (capa >= 0) {
+    return fwave ? launch<T, Var<T, true, true>>(A, stream)
+                 : launch<T, Var<T, true, false>>(A, stream);
+  }
+  return fwave ? launch<T, Var<T, false, true>>(A, stream)
+               : launch<T, Var<T, false, false>>(A, stream);
+}
+
+template <typename T, bool CAPA, bool FWAVE> constexpr int threads_of() {
+  return Var<T, CAPA, FWAVE>::NT;
+}
+
+template <typename T, bool CAPA> constexpr int smem_of() {
+  return (int)Lay<T, Var<T, CAPA, false>>::bytes;
+}
 
 }  // namespace
 
@@ -906,65 +1084,84 @@ extern "C" {
 
 // Number of blocks (= CFL partials) the kernel writes for a padded grid.
 int step3_ctu_blocks(int nxg, int nyg, int nzg, int is_double) {
-  const int lim[5] = {0, 0, 0, 0, 0};
+  const int N[3] = {nxg, nyg, nzg};
+  int nb[3];
+  if (is_double) tile_counts<Shape<double>>(N, nb);
+  else tile_counts<Shape<float>>(N, nb);
+  return nb[0] * nb[1] * nb[2];
+}
+
+// Threads per block of a variant (reported by chip_smoke.py).
+int step3_ctu_threads(int capa, int fwave, int is_double) {
+  if (is_double) {
+    return capa ? (fwave ? threads_of<double, true, true>()
+                         : threads_of<double, true, false>())
+                : (fwave ? threads_of<double, false, true>()
+                         : threads_of<double, false, false>());
+  }
+  return capa ? (fwave ? threads_of<float, true, true>()
+                       : threads_of<float, true, false>())
+              : (fwave ? threads_of<float, false, true>()
+                       : threads_of<float, false, false>());
+}
+
+// Shared memory bytes per block, without or with a capacity function
+// (reported by chip_smoke.py; the f-wave form takes no more).
+int step3_ctu_smem_bytes(int capa, int is_double) {
   if (is_double)
-    return nblocks(make_args<double>(nullptr, nullptr, nullptr, nxg, nyg,
-                                     nzg, 1, 1, 1, 1, 1, 1, 0, lim));
-  return nblocks(make_args<float>(nullptr, nullptr, nullptr, nxg, nyg, nzg,
-                                  1, 1, 1, 1, 1, 1, 0, lim));
-}
-
-// Threads per block (reported by chip_smoke.py).
-int step3_ctu_threads(int is_double) {
-  return is_double ? NTB<double> : NTB<float>;
-}
-
-// Shared memory bytes per block (reported by chip_smoke.py).
-int step3_ctu_smem_bytes(int is_double) {
-  return is_double ? (int)Lay<double, Shape<double>>::bytes
-                   : (int)Lay<float, Shape<float>>::bytes;
+    return capa ? smem_of<double, true>() : smem_of<double, false>();
+  return capa ? smem_of<float, true>() : smem_of<float, false>();
 }
 
 // One CTU step.  qbc: (5, nxg, nyg, nzg) ghost-padded (2 ghost cells),
 // qout: (5, nxg-4, nyg-4, nzg-4), cflb: step3_ctu_blocks(...) partial CFL
 // maxima; all contiguous, of the type named by the entry.  l0..l4: the
-// limiter id of each wave.  Returns a cudaError_t (0 on success).
+// limiter id of each wave.  step3_ctu_<type> runs the wave form without a
+// capacity function; step3_ctu_aux_<type> also takes aux (num_aux, nxg,
+// nyg, nzg), null when capa < 0, the aux row capa of the capacity
+// function or -1, and fwave, the f-wave correction form.  Returns a
+// cudaError_t (0 on success).
 #if defined(__CUDACC__)
-int step3_ctu_f32(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-                  int nzg, double dt, double dx, double dy, double dz,
-                  double g1, int order, int tw, int l0, int l1, int l2,
-                  int l3, int l4, void* stream) {
-  const int lim[5] = {l0, l1, l2, l3, l4};
-  return launch<float>(qbc, qout, cflb, nxg, nyg, nzg, dt, dx, dy, dz, g1,
-                       order, tw, lim, stream);
-}
-
-int step3_ctu_f64(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-                  int nzg, double dt, double dx, double dy, double dz,
-                  double g1, int order, int tw, int l0, int l1, int l2,
-                  int l3, int l4, void* stream) {
-  const int lim[5] = {l0, l1, l2, l3, l4};
-  return launch<double>(qbc, qout, cflb, nxg, nyg, nzg, dt, dx, dy, dz, g1,
-                        order, tw, lim, stream);
-}
+#define STEP3_CTU_ENTRIES(NAME, AUX_NAME, T)                                 \
+  int NAME(const void* qbc, void* qout, void* cflb, int nxg, int nyg,        \
+           int nzg, double dt, double dx, double dy, double dz, double g1,   \
+           int order, int tw, int l0, int l1, int l2, int l3, int l4,       \
+           void* stream) {                                                   \
+    const int lim[5] = {l0, l1, l2, l3, l4};                                 \
+    return step<T>(qbc, nullptr, qout, cflb, nxg, nyg, nzg, -1, 0, dt, dx,   \
+                   dy, dz, g1, order, tw, lim, stream);                      \
+  }                                                                          \
+  int AUX_NAME(const void* qbc, const void* aux, void* qout, void* cflb,     \
+               int nxg, int nyg, int nzg, int capa, int fwave, double dt,    \
+               double dx, double dy, double dz, double g1, int order,        \
+               int tw, int l0, int l1, int l2, int l3, int l4,               \
+               void* stream) {                                               \
+    const int lim[5] = {l0, l1, l2, l3, l4};                                 \
+    return step<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, capa, fwave, dt, dx, \
+                   dy, dz, g1, order, tw, lim, stream);                      \
+  }
+STEP3_CTU_ENTRIES(step3_ctu_f32, step3_ctu_aux_f32, float)
+STEP3_CTU_ENTRIES(step3_ctu_f64, step3_ctu_aux_f64, double)
 #else
-int step3_ctu_host_f32(const void* qbc, void* qout, void* cflb, int nxg,
-                       int nyg, int nzg, double dt, double dx, double dy,
-                       double dz, double g1, int order, int tw, int l0,
-                       int l1, int l2, int l3, int l4) {
-  const int lim[5] = {l0, l1, l2, l3, l4};
-  return launch_host<float>(qbc, qout, cflb, nxg, nyg, nzg, dt, dx, dy, dz,
-                            g1, order, tw, lim);
-}
-
-int step3_ctu_host_f64(const void* qbc, void* qout, void* cflb, int nxg,
-                       int nyg, int nzg, double dt, double dx, double dy,
-                       double dz, double g1, int order, int tw, int l0,
-                       int l1, int l2, int l3, int l4) {
-  const int lim[5] = {l0, l1, l2, l3, l4};
-  return launch_host<double>(qbc, qout, cflb, nxg, nyg, nzg, dt, dx, dy, dz,
-                             g1, order, tw, lim);
-}
+#define STEP3_CTU_ENTRIES(NAME, AUX_NAME, T)                                 \
+  int NAME(const void* qbc, void* qout, void* cflb, int nxg, int nyg,        \
+           int nzg, double dt, double dx, double dy, double dz, double g1,   \
+           int order, int tw, int l0, int l1, int l2, int l3, int l4) {     \
+    const int lim[5] = {l0, l1, l2, l3, l4};                                 \
+    return step<T>(qbc, nullptr, qout, cflb, nxg, nyg, nzg, -1, 0, dt, dx,   \
+                   dy, dz, g1, order, tw, lim, nullptr);                     \
+  }                                                                          \
+  int AUX_NAME(const void* qbc, const void* aux, void* qout, void* cflb,     \
+               int nxg, int nyg, int nzg, int capa, int fwave, double dt,    \
+               double dx, double dy, double dz, double g1, int order,        \
+               int tw, int l0, int l1, int l2, int l3, int l4) {             \
+    const int lim[5] = {l0, l1, l2, l3, l4};                                 \
+    return step<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, capa, fwave, dt, dx, \
+                   dy, dz, g1, order, tw, lim, nullptr);                     \
+  }
+STEP3_CTU_ENTRIES(step3_ctu_host_f32, step3_ctu_aux_host_f32, float)
+STEP3_CTU_ENTRIES(step3_ctu_host_f64, step3_ctu_aux_host_f64, double)
 #endif
+#undef STEP3_CTU_ENTRIES
 
 }  // extern "C"

@@ -58,8 +58,8 @@ def add_capacity(state):
     0.25 cos(pi x) cos(pi y) cos(pi z) (in 0.75 .. 1.25, even in every
     axis, so the example keeps its x <-> y mirror symmetry), as its one
     aux row (index_capa = 0); returns the state.  No JAX example runs
-    this configuration: it is how the port's Euler system of
-    csrc/step3_aos.cu is driven with a capacity function."""
+    this configuration: it is how the capacity variant of
+    csrc/step3_ctu.cu is driven on a whole run."""
     x, y, z = state.grid.c_centers
     kappa = 1.0 + 0.25 * (np.cos(np.pi * x) * np.cos(np.pi * y)
                           * np.cos(np.pi * z))

@@ -32,7 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # s < 0, the entropy fix's transonic tests and the limiter's upwind choice
 # jump where a speed crosses zero, so a one-ulp difference in a speed near
 # zero would move the result by a whole wave.  weno5.cu rounds as its
-# plain version too.
+# plain version too.  step3_ctu.cu keeps its contractions (the bits of its
+# wave form rest on them); its f-wave variant sums the speed that feeds
+# sign(s) with rounding intrinsics instead (csrc/euler3d.cuh).
 EXTRA_NVCC_FLAGS = {"step2_aos": ["-fmad=false"], "step3_aos": ["-fmad=false"],
                     "step1": ["-fmad=false"], "weno5": ["-fmad=false"]}
 

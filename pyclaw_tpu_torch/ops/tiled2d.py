@@ -9,10 +9,12 @@
   ``csrc/dq2_weno5.cu`` computes one SharpClaw WENO5 semidiscrete
   evaluation (one RK stage's dq) and one CFL maximum per block.  Plain
   version: ``sharpclaw/soa.py:dq_2d_soa``.
-* :func:`step3_xy`, counterpart of ``step3_pallas_xy``: one launch of
-  ``csrc/step3_ctu.cu`` computes the whole 3D unsplit CTU step (normal
-  sweeps, rpt3 and rptt3 corner transport) of the Euler system and one
-  CFL maximum per block.  Plain version: ``classic/kernels.py:step3``.
+* :func:`step3_xy`, counterpart of ``step3_pallas_xy`` for Euler: one
+  launch of ``csrc/step3_ctu.cu`` computes the whole 3D unsplit CTU step
+  (normal sweeps, rpt3 and rptt3 corner transport) of the Euler system,
+  with or without a capacity function, in the wave or the f-wave form,
+  and one CFL maximum per block.  Plain version:
+  ``classic/kernels.py:step3``.
 * :func:`step2_rows_generic`, counterpart of ``step2_pallas_rows`` with
   its generic-AoS body (``rpn_soa=None``), of ``step2_pallas_tiled_generic``
   and of ``ops/sweep2d.py:step2_pallas``: one launch of
@@ -204,11 +206,17 @@ dq_rows.launches = 0
 
 def bind_step3_lib(lib):
     """Set the argument types of a ctypes handle of a build of
-    ``csrc/step3_ctu.cu``; returns it."""
+    ``csrc/step3_ctu.cu``; returns it.  A build without the aux entries
+    (an earlier commit's, for the variant timer) is bound without them."""
     for name in ("step3_ctu_f32", "step3_ctu_f64"):
         fn = getattr(lib, name)
         fn.argtypes = STEP3_ARGTYPES + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in ("step3_ctu_aux_f32", "step3_ctu_aux_f64"):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = STEP3_AUX_ARGTYPES + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     lib.step3_ctu_blocks.argtypes = [ctypes.c_int] * 4
     lib.step3_ctu_blocks.restype = ctypes.c_int
     return lib
@@ -225,16 +233,46 @@ def _step3_lib():
 # stream after them)
 STEP3_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                   + [ctypes.c_double] * 5 + [ctypes.c_int] * 7)
+# the aux entries: qbc, aux, qout, cflb; nxg, nyg, nzg, capa, fwave; then
+# as STEP3_ARGTYPES
+STEP3_AUX_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                      + [ctypes.c_double] * 5 + [ctypes.c_int] * 7)
+
+
+def _check_cuda_aux(name, auxbc, qbc, naux, index_capa):
+    """Raise unless auxbc holds the aux rows a kernel reads (``naux``
+    rows, and row ``index_capa`` of the capacity function) over qbc's
+    grid, on qbc's device, of its dtype, contiguous.  Returns its
+    pointer, or None when the kernel reads no aux."""
+    if not naux and index_capa < 0:
+        return None
+    grid = ", ".join(str(n) for n in qbc.shape[1:])
+    if (auxbc is None or auxbc.dim() != qbc.dim()
+            or auxbc.shape[1:] != qbc.shape[1:]
+            or auxbc.shape[0] <= max(naux - 1, index_capa)):
+        raise ValueError(
+            f"{name}: index_capa={index_capa} needs auxbc of shape "
+            f"(num_aux, {grid}), got "
+            f"{None if auxbc is None else tuple(auxbc.shape)}")
+    if auxbc.device != qbc.device or auxbc.dtype != qbc.dtype:
+        raise TypeError(f"{name}: auxbc must share qbc's device and dtype")
+    if not auxbc.is_contiguous():
+        raise ValueError(f"{name}: auxbc must be contiguous")
+    return auxbc.data_ptr()
 
 
 def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
-             transverse_waves=2, lib=None):
+             transverse_waves=2, lib=None, auxbc=None, index_capa=-1,
+             fwave=False):
     """One 3D CTU step of the Euler system (5 equations, 5 waves), the
     counterpart of ``pyclaw_tpu/ops/tiled2d.py:step3_pallas_xy``.
 
     qbc: (5, nx+4, ny+4, nz+4) ghost-padded q (float32 or float64,
     contiguous).  dt: step in q's dtype (a Python float that is exact in
-    it).  Returns (q (5, nx, ny, nz), cfl as a 0-d tensor).  On a CPU
+    it).  ``index_capa`` >= 0 names the row of ``auxbc`` (num_aux, nx+4,
+    ny+4, nz+4), q's dtype, contiguous, that holds the capacity function
+    (Euler reads no other aux); ``fwave`` takes the f-wave correction
+    form.  Returns (q (5, nx, ny, nz), cfl as a 0-d tensor).  On a CPU
     tensor this is ``classic/kernels.py:step3``; on a CUDA tensor one
     launch of ``csrc/step3_ctu.cu`` (``lib``: another build of it, bound
     by :func:`bind_step3_lib`, for the variant timer
@@ -244,10 +282,12 @@ def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
         raise ValueError(f"step3_xy: num_ghost must be 2, got {num_ghost}")
     if qbc.device.type == "cpu":
         rp = euler.euler_3D
-        return kernels.step3(qbc, None, dt, dx, dy, dz, rp.rp, rp.rpt,
-                             rp.rptt, params, mthlim, order, False, -1,
-                             num_ghost, transverse_waves, rp.prefactor)
+        return kernels.step3(qbc, auxbc, dt, dx, dy, dz, rp.rp, rp.rpt,
+                             rp.rptt, params, mthlim, order, fwave,
+                             index_capa, num_ghost, transverse_waves,
+                             rp.prefactor)
     _check_cuda_qbc("step3_xy", qbc, num_ghost, 5, 3)
+    aux_ptr = _check_cuda_aux("step3_xy", auxbc, qbc, 0, index_capa)
     _, nxg, nyg, nzg = qbc.shape
     is_double = qbc.dtype == torch.float64
     lib = _step3_lib() if lib is None else lib
@@ -256,12 +296,19 @@ def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
     cfl_blocks = torch.empty((lib.step3_ctu_blocks(nxg, nyg, nzg,
                                                    int(is_double)),),
                              dtype=qbc.dtype, device=qbc.device)
-    fn = lib.step3_ctu_f64 if is_double else lib.step3_ctu_f32
-    rc = fn(qbc.data_ptr(), q_out.data_ptr(), cfl_blocks.data_ptr(), nxg,
-            nyg, nzg, float(dt), float(dx), float(dy), float(dz),
+    tail = (float(dt), float(dx), float(dy), float(dz),
             float(params["gamma"] - 1.0), int(order), int(transverse_waves),
             *[int(m) for m in mthlim],
             torch.cuda.current_stream(qbc.device).cuda_stream)
+    if index_capa < 0 and not fwave:
+        fn = lib.step3_ctu_f64 if is_double else lib.step3_ctu_f32
+        rc = fn(qbc.data_ptr(), q_out.data_ptr(), cfl_blocks.data_ptr(),
+                nxg, nyg, nzg, *tail)
+    else:
+        fn = lib.step3_ctu_aux_f64 if is_double else lib.step3_ctu_aux_f32
+        rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(),
+                cfl_blocks.data_ptr(), nxg, nyg, nzg, int(index_capa),
+                int(bool(fwave)), *tail)
     if rc != 0:
         raise RuntimeError(f"step3_ctu launch failed: cudaError_t {rc}")
     step3_xy.launches += 1
@@ -282,10 +329,9 @@ AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_double] * 5 + [ctypes.c_int] * 5)
 
 
-@functools.cache
-def _aos_lib():
-    from . import _build
-    lib = _build.load("step2_aos")
+def bind_step2_aos_lib(lib):
+    """Set the argument types of a ctypes handle of a build of
+    ``csrc/step2_aos.cu``; returns it."""
     for name in ("step2_aos_f32", "step2_aos_f64"):
         fn = getattr(lib, name)
         fn.argtypes = AOS_ARGTYPES + [ctypes.c_void_p]
@@ -295,8 +341,15 @@ def _aos_lib():
     return lib
 
 
+@functools.cache
+def _aos_lib():
+    from . import _build
+    return bind_step2_aos_lib(_build.load("step2_aos"))
+
+
 def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
-                       fwave, index_capa, num_ghost=2, transverse_waves=2):
+                       fwave, index_capa, num_ghost=2, transverse_waves=2,
+                       lib=None):
     """One 2D CTU step of the generic AoS form (any system with AoS
     hooks on the CPU; the systems of :data:`AOS_SYSTEMS` on the card).
 
@@ -306,7 +359,9 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
     >= 0 names the aux row of the capacity function.  Returns (q
     (num_eqn, nx, ny), cfl as a 0-d tensor).  On a CPU tensor this is
     ``classic/kernels.py:step2``; on a CUDA tensor one launch of
-    ``csrc/step2_aos.cu``."""
+    ``csrc/step2_aos.cu`` (``lib``: another build of it, bound by
+    :func:`bind_step2_aos_lib`, for the variant timer
+    ``ops/time_kernels.py``; None for this checkout's)."""
     check_options(mthlim, order, transverse_waves, rp.num_waves,
                   "step2_rows_generic")
     if num_ghost != 2:
@@ -323,24 +378,10 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
     _check_cuda_qbc("step2_rows_generic", qbc, num_ghost, 3, 2)
     _, nxg, nyg = qbc.shape
     system, naux = AOS_SYSTEMS[rp.name]
-    if naux or index_capa >= 0:
-        if (auxbc is None or auxbc.dim() != 3
-                or auxbc.shape[1:] != qbc.shape[1:]
-                or auxbc.shape[0] <= max(naux - 1, index_capa)):
-            raise ValueError(
-                f"step2_rows_generic: {rp.name} with index_capa={index_capa} "
-                f"needs auxbc of shape (num_aux, {nxg}, {nyg}), got "
-                f"{None if auxbc is None else tuple(auxbc.shape)}")
-        if auxbc.device != qbc.device or auxbc.dtype != qbc.dtype:
-            raise TypeError("step2_rows_generic: auxbc must share qbc's "
-                            "device and dtype")
-        if not auxbc.is_contiguous():
-            raise ValueError("step2_rows_generic: auxbc must be contiguous")
-        aux_ptr = auxbc.data_ptr()
-    else:
-        aux_ptr = None
+    aux_ptr = _check_cuda_aux(f"step2_rows_generic: {rp.name}", auxbc, qbc,
+                              naux, index_capa)
     is_double = qbc.dtype == torch.float64
-    lib = _aos_lib()
+    lib = _aos_lib() if lib is None else lib
     q_out = torch.empty((3, nxg - 4, nyg - 4), dtype=qbc.dtype,
                         device=qbc.device)
     cfl_blocks = torch.empty((lib.step2_aos_blocks(nxg, nyg,
@@ -363,12 +404,12 @@ step2_rows_generic.launches = 0
 
 
 # rp.name -> (system id of csrc/step3_aos.cu (SYS_*), aux rows its solvers
-# read (NAUX)).  euler_3D runs here with a capacity function or f-waves;
-# without either, ClawSolver3D sends it to step3_xy (csrc/step3_ctu.cu).
+# read (NAUX)).  euler_3D is not here: ClawSolver3D sends it to step3_xy
+# (csrc/step3_ctu.cu), with or without a capacity function or f-waves.
 STEP3_SYSTEMS = {"vc_acoustics_3D": (0, 2), "acoustics_3D": (1, 0),
-                 "advection_3D": (2, 0), "euler_3D": (3, 0)}
-# limiter ids an entry of csrc/step3_aos.cu takes (one per wave of the
-# system with the most, euler_3D)
+                 "advection_3D": (2, 0)}
+# limiter ids an entry of csrc/step3_aos.cu takes (five: the interface
+# keeps the width it had when it also ran euler_3D's five waves)
 STEP3_AOS_LIMITERS = 5
 # qbc, aux, qout, cflb; nxg, nyg, nzg, system, capa, fwave; dt, dx, dy,
 # dz and three physics scalars; order, tw and five limiter ids (the host
@@ -403,15 +444,12 @@ def _step3_aos_lib():
 
 def step3_system_scalars(rp, params):
     """The three physics scalars ``csrc/step3_aos.cu`` takes for system
-    ``rp``: (u, v, w) for advection, (zz, cc, 0) for acoustics, (gamma,
-    0, 0) for Euler."""
+    ``rp``: (u, v, w) for advection, (zz, cc, 0) for acoustics."""
     if rp.name == "advection_3D":
         return tuple(float(params[k]) for k in ("u", "v", "w"))
     if rp.name == "acoustics_3D":
         zz, cc = acoustics._zc(params)
         return float(zz), float(cc), 0.0
-    if rp.name == "euler_3D":
-        return float(params["gamma"]), 0.0, 0.0
     return 0.0, 0.0, 0.0
 
 
@@ -448,6 +486,9 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
                              rp.rptt, params, mthlim, order, fwave,
                              index_capa, num_ghost, transverse_waves,
                              rp.prefactor)
+    if rp.name == "euler_3D":
+        raise NotImplementedError(
+            "step3_xy_generic: euler_3D runs on step3_xy (csrc/step3_ctu.cu)")
     if rp.name not in STEP3_SYSTEMS:
         raise NotImplementedError(
             f"step3_xy_generic: {rp.name} has no kernel yet (ROADMAP.md, "
@@ -455,22 +496,8 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
     _check_cuda_qbc("step3_xy_generic", qbc, num_ghost, rp.num_eqn, 3)
     _, nxg, nyg, nzg = qbc.shape
     system, naux = STEP3_SYSTEMS[rp.name]
-    if naux or index_capa >= 0:
-        if (auxbc is None or auxbc.dim() != 4
-                or auxbc.shape[1:] != qbc.shape[1:]
-                or auxbc.shape[0] <= max(naux - 1, index_capa)):
-            raise ValueError(
-                f"step3_xy_generic: {rp.name} with index_capa={index_capa} "
-                f"needs auxbc of shape (num_aux, {nxg}, {nyg}, {nzg}), got "
-                f"{None if auxbc is None else tuple(auxbc.shape)}")
-        if auxbc.device != qbc.device or auxbc.dtype != qbc.dtype:
-            raise TypeError("step3_xy_generic: auxbc must share qbc's "
-                            "device and dtype")
-        if not auxbc.is_contiguous():
-            raise ValueError("step3_xy_generic: auxbc must be contiguous")
-        aux_ptr = auxbc.data_ptr()
-    else:
-        aux_ptr = None
+    aux_ptr = _check_cuda_aux(f"step3_xy_generic: {rp.name}", auxbc, qbc,
+                              naux, index_capa)
     is_double = qbc.dtype == torch.float64
     lib = _step3_aos_lib() if lib is None else lib
     q_out = torch.empty((rp.num_eqn, nxg - 4, nyg - 4, nzg - 4),

@@ -4,18 +4,22 @@ and the timers and timed cases that ``chip_smoke.py`` uses too.
     python -m pyclaw_tpu_torch.ops.time_kernels KERNEL VARIANT [VARIANT ...]
         [--out FILE] [--sass]
 
-KERNEL is ``step2_ctu``, ``dq2_weno5``, ``step3_ctu``, ``step3_aos`` or
-``step3_aos_euler`` (the source ``step3_aos.cu`` on its Euler system),
-timed through its wrapper in ``ops/tiled2d.py`` on the case that
-``chip_smoke.py`` times (:func:`step2_ctu_case`, :func:`dq_case`,
-:func:`step3_ctu_case`, :func:`step3_aos_case`,
-:func:`step3_aos_euler_case`).  Each VARIANT is
-``LABEL=ROOT[:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/csrc/
-KERNEL.cu`` (ROOT a checkout, for example an unpacked ``git archive`` of a
-parent commit, or a copy with an edited source) built with this
-checkout's nvcc flags and the given extra nvcc flags (for example
-``-prec-div=false``) into ``build/variants/LABEL/``.  All builds start
-together.
+KERNEL is ``step2_ctu``, ``dq2_weno5``, ``step3_ctu``, ``step3_aos``,
+``step2_aos`` or ``euler3d_capa`` (the source ``step3_ctu.cu`` on the
+Euler capacity path's case), timed through its wrapper in
+``ops/tiled2d.py`` on the case that ``chip_smoke.py`` times
+(:func:`step2_ctu_case`, :func:`dq_case`, :func:`step3_ctu_case`,
+:func:`step3_aos_case`, :func:`step2_aos_case`,
+:func:`euler3d_capa_case`).  Each VARIANT is
+``LABEL=ROOT[@SOURCE][:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/
+csrc/KERNEL.cu`` (ROOT a checkout, for example an unpacked ``git
+archive`` of a parent commit, or a copy with an edited source) built with
+this checkout's nvcc flags and the given extra nvcc flags (for example
+``-prec-div=false``) into ``build/variants/LABEL/``.  ``@SOURCE`` builds
+another source of ROOT for the same case: for ``euler3d_capa``,
+``@step3_aos`` is a checkout whose ``step3_aos.cu`` still has its Euler
+system (system id 3, before ``step3_ctu.cu`` took the capacity path),
+called through its own entry.  All builds start together.
 
 For float32 and float64 it prints each build's ptxas lines, each
 variant's output against the first variant's (max |difference| relative
@@ -46,9 +50,9 @@ import torch
 from . import _build
 
 ITERS = {"step2_ctu": 200, "dq2_weno5": 100, "step3_ctu": 10,
-         "step3_aos": 20, "step3_aos_euler": 10}
+         "step3_aos": 20, "step2_aos": 200, "euler3d_capa": 10}
 # the source of each KERNEL that is not its own name
-SOURCE = {"step3_aos_euler": "step3_aos"}
+SOURCE = {"euler3d_capa": "step3_ctu"}
 
 
 # ---- timers -------------------------------------------------------------
@@ -212,26 +216,47 @@ def step3_aos_case(n, dtype, dev):
                         2, 1)
 
 
-def step3_aos_euler_case(n, dtype, dev):
-    """step3_aos's timed case of its Euler system at n^3, the Euler
-    capacity path's configuration on its first state: qbc, auxbc (kappa)
-    and the rest of ``tiled2d.step3_xy_generic``'s arguments (dt = 0.3
-    dx, dx = 2/n, euler_3D, gamma 1.4, MC, order 2, no f-waves,
-    index_capa 0, 2 ghost cells, transverse_waves 2)."""
-    from .. import riemann
+def euler3d_capa_case(n, dtype, dev, q=None):
+    """The Euler capacity path's timed case at n^3 on its first state (or
+    on ``q``, another state of the path): qbc, auxbc (kappa) and the rest
+    of ``tiled2d.step3_xy``'s positional arguments (dt = 0.3 dx, dx = 2/n,
+    gamma 1.4, MC, order 2, 2 ghost cells, transverse_waves 2); the path
+    passes ``auxbc=auxbc, index_capa=0, fwave=False``."""
     q_np, aux_np = euler3d_capa_state(n, n, n)
+    q_np = q_np if q is None else q
     qbc = padded3(q_np, dtype, dev).contiguous()
     auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
     d = 2.0 / n
-    return qbc, auxbc, (_exact(0.3 * d, dtype), d, d, d, riemann.euler_3D,
-                        {"gamma": 1.4}, (4,) * 5, 2, False, 0, 2, 2)
+    return qbc, auxbc, (_exact(0.3 * d, dtype), d, d, d, {"gamma": 1.4},
+                        (4,) * 5, 2, 2, 2)
+
+
+def shallow_state(nx, ny):
+    """q of examples.shallow_2d_radial at nx x ny (a CPU tensor)."""
+    from ..examples import shallow_2d_radial as ex
+    return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
+
+
+def step2_aos_case(n, dtype, dev):
+    """step2_aos's timed case at n^2, the shallow-water path's
+    configuration on its first state (the radial dam break): qbc (2
+    extrapolated ghost cells) and the rest of
+    ``tiled2d.step2_rows_generic``'s arguments (no aux, dt = 0.5 dx, dx =
+    dy = 5/n, shallow_roe_with_efix_2D, grav 1, MC, order 2, no f-waves, no
+    capacity, 2 ghost cells, transverse_waves 2)."""
+    from .. import riemann
+    qbc = padded(shallow_state(n, n), dtype, dev)
+    h = 5.0 / n
+    return qbc, (None, _exact(0.5 * h, dtype), h, h,
+                 riemann.shallow_roe_with_efix_2D, {"grav": 1.0}, (4,) * 3,
+                 2, False, -1, 2, 2)
 
 
 def _step2_ctu_call(dtype, dev, n=1024):
     from . import tiled2d
     qbc, args = step2_ctu_case(n, dtype, dev)
 
-    def make(lib):
+    def make(lib, source=None):
         lib = tiled2d.bind_step2_lib(lib)
         return lambda: tiled2d.step2_rows(qbc, *args, lib=lib)
     return make
@@ -241,7 +266,7 @@ def _step3_ctu_call(dtype, dev, n=192):
     from . import tiled2d
     qbc, args = step3_ctu_case(n, dtype, dev)
 
-    def make(lib):
+    def make(lib, source=None):
         lib = tiled2d.bind_step3_lib(lib)
         return lambda: tiled2d.step3_xy(qbc, *args, lib=lib)
     return make
@@ -251,38 +276,83 @@ def _dq_call(dtype, dev, n=1024):
     from . import tiled2d
     qbc, args = dq_case(n, dtype, dev)
 
-    def make(lib):
+    def make(lib, source=None):
         lib = tiled2d.bind_dq_lib(lib)
         return lambda: tiled2d.dq_rows(qbc, *args, lib=lib)
     return make
 
 
-def _step3_aos_call(dtype, dev, n=192, case=step3_aos_case):
+def _step3_aos_call(dtype, dev, n=192):
     from . import tiled2d
-    qbc, auxbc, args = case(n, dtype, dev)
+    qbc, auxbc, args = step3_aos_case(n, dtype, dev)
 
-    def make(lib):
+    def make(lib, source=None):
         lib = tiled2d.bind_step3_aos_lib(lib)
         return lambda: tiled2d.step3_xy_generic(qbc, auxbc, *args, lib=lib)
     return make
 
 
-def _step3_aos_euler_call(dtype, dev, n=192):
-    return _step3_aos_call(dtype, dev, n, step3_aos_euler_case)
+def _step2_aos_call(dtype, dev, n=1024):
+    from . import tiled2d
+    qbc, args = step2_aos_case(n, dtype, dev)
+
+    def make(lib, source="step2_aos"):
+        lib = tiled2d.bind_step2_aos_lib(lib)
+        return lambda: tiled2d.step2_rows_generic(qbc, *args, lib=lib)
+    return make
+
+
+def _step3_aos_euler(lib, qbc, auxbc, args):
+    """One step of the Euler system of an earlier build of step3_aos.cu
+    (system id 3, which this checkout's wrapper no longer routes) on the
+    Euler capacity case, through that build's own entry (``lib`` bound by
+    ``tiled2d.bind_step3_aos_lib``)."""
+    dt, dx, dy, dz, params, lims, order, _, tw = args
+    nxg, nyg, nzg = qbc.shape[1:]
+    is_double = qbc.dtype == torch.float64
+    q_out = torch.empty((5, nxg - 4, nyg - 4, nzg - 4), dtype=qbc.dtype,
+                        device=qbc.device)
+    cfl_blocks = torch.empty((lib.step3_aos_blocks(nxg, nyg, nzg,
+                                                   int(is_double)),),
+                             dtype=qbc.dtype, device=qbc.device)
+    fn = lib.step3_aos_f64 if is_double else lib.step3_aos_f32
+    rc = fn(qbc.data_ptr(), auxbc.data_ptr(), q_out.data_ptr(),
+            cfl_blocks.data_ptr(), nxg, nyg, nzg, 3, 0, 0, float(dt),
+            float(dx), float(dy), float(dz), float(params["gamma"]), 0.0,
+            0.0, int(order), int(tw), *[int(m) for m in lims],
+            torch.cuda.current_stream(qbc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"step3_aos (Euler) launch failed: cudaError_t "
+                           f"{rc}")
+    return q_out, torch.amax(cfl_blocks)
+
+
+def _euler3d_capa_call(dtype, dev, n=192):
+    from . import tiled2d
+    qbc, auxbc, args = euler3d_capa_case(n, dtype, dev)
+
+    def make(lib, source="step3_ctu"):
+        if source == "step3_aos":
+            lib = tiled2d.bind_step3_aos_lib(lib)
+            return lambda: _step3_aos_euler(lib, qbc, auxbc, args)
+        lib = tiled2d.bind_step3_lib(lib)
+        return lambda: tiled2d.step3_xy(qbc, *args, lib=lib, auxbc=auxbc,
+                                        index_capa=0)
+    return make
 
 
 # ---- variants -----------------------------------------------------------
 
-def _build_variants(kernel, variants):
+def _build_variants(variants):
     procs = []
-    for label, root, flags in variants:
-        src = os.path.join(root, "pyclaw_tpu_torch", "csrc", f"{kernel}.cu")
+    for label, root, source, flags in variants:
+        src = os.path.join(root, "pyclaw_tpu_torch", "csrc", f"{source}.cu")
         out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "variants",
                                label)
         os.makedirs(out_dir, exist_ok=True)
-        out = os.path.join(out_dir, f"lib{kernel}.so")
+        out = os.path.join(out_dir, f"lib{source}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
-               *_build.EXTRA_NVCC_FLAGS.get(kernel, []), *flags, "-o", out,
+               *_build.EXTRA_NVCC_FLAGS.get(source, []), *flags, "-o", out,
                src]
         procs.append((label, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -337,8 +407,10 @@ def run(kernel, variants, sass=False):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(f"card: {card}")
-    source = SOURCE.get(kernel, kernel)
-    libs = _build_variants(source, variants)
+    variants = [(label, root, source or SOURCE.get(kernel, kernel), flags)
+                for label, root, source, flags in variants]
+    sources = {v[0]: v[2] for v in variants}
+    libs = _build_variants(variants)
     labels = [v[0] for v in variants]
     result_sass = {}
     if sass:
@@ -352,13 +424,15 @@ def run(kernel, variants, sass=False):
     case = {"step2_ctu": _step2_ctu_call, "dq2_weno5": _dq_call,
             "step3_ctu": _step3_ctu_call,
             "step3_aos": _step3_aos_call,
-            "step3_aos_euler": _step3_aos_euler_call}[kernel]
+            "step2_aos": _step2_aos_call,
+            "euler3d_capa": _euler3d_capa_call}[kernel]
     result = {"kernel": kernel, "card": card, "order": order, "types": {},
               "sass": result_sass}
     for dtype in (torch.float32, torch.float64):
         tname = str(dtype).split(".")[1]
         make = case(dtype, dev)
-        calls = {label: make(libs[label]) for label in labels}
+        calls = {label: make(libs[label], sources[label])
+                 for label in labels}
         ref_out, ref_cfl = None, None
         per = {}
         for label in labels:
@@ -373,8 +447,8 @@ def run(kernel, variants, sass=False):
             per[label]["events_ms"].append(
                 events_ms(calls[label], ITERS[kernel], warm=3))
         for label in labels:
-            dev_ms, dev_n = device_ms_per_call(calls[label],
-                                               f"{source}_kernel", 10)
+            dev_ms, dev_n = device_ms_per_call(
+                calls[label], f"{sources[label]}_kernel", 10)
             per[label]["device_ms"] = dev_ms
             per[label]["device_launches_profiled"] = dev_n
             print(f"  {kernel} {tname} [{label}]: events ms "
@@ -389,9 +463,13 @@ def run(kernel, variants, sass=False):
 
 
 def _parse_variant(text):
+    """(label, root, source or None, extra nvcc flags) of
+    ``LABEL=ROOT[@SOURCE][:FLAG,...]``."""
     label, rest = text.split("=", 1)
     root, _, flags = rest.partition(":")
-    return label, os.path.abspath(root), [f for f in flags.split(",") if f]
+    root, _, source = root.partition("@")
+    return (label, os.path.abspath(root), source or None,
+            [f for f in flags.split(",") if f])
 
 
 def main(argv=None):

@@ -1,5 +1,6 @@
-"""Time the classic quadrants path and the Euler 3D path of checkouts
-against each other on one card, each run in a process of its own.
+"""Time the classic quadrants, Euler 3D, shallow-water and Euler capacity
+paths of checkouts against each other on one card, each run in a process
+of its own.
 
     python -m pyclaw_tpu_torch.ops.time_paths LABEL=ROOT [LABEL=ROOT ...]
         [--out FILE]
@@ -10,11 +11,15 @@ path the labels run in order and then in reverse (parent, change,
 change, parent).  Each run is a fresh Python process that imports the
 package from ROOT (its kernels build into ROOT's ``build/kernels``),
 warms the path up with a short run to t = 0.01, then times
-``Controller.run()`` at the path's full size: quadrants at 1024^2 in
-float32 to t = 0.8 on the classic solver (``step2_ctu``), Euler 3D at
-192^3 in float32 to t = 0.2 (``step3_ctu``).  It prints the accepted and
-rejected steps, the kernel's launches, the wall seconds and the
-cell-updates/s.  Needs a card; writes the records as JSON to ``--out``.
+``Controller.run()`` at the path's full size, in float32: quadrants at
+1024^2 to t = 0.8 on the classic solver (``step2_ctu``), Euler 3D at
+192^3 to t = 0.2 (``step3_ctu``), the shallow-water radial dam break at
+1024^2 to t = 1.0 (``step2_aos``) and Euler 3D with the capacity function
+of ``examples.euler_3d.add_capacity`` at 192^3 to t = 0.2 (``step3_ctu``;
+``step3_aos`` in checkouts before it moved there, so both wrappers'
+launches are counted).  It prints the accepted and rejected steps, the
+kernel's launches, the wall seconds and the cell-updates/s.  Needs a
+card; writes the records as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -26,19 +31,25 @@ import os
 import subprocess
 import sys
 
-# (example module, setup keywords, final time, cells, wrapper) per path
+# (example module, setup keywords, final time, cells, the wrappers whose
+# launches count, a function of the module applied to the state or "")
+# per path
 PATHS = {
     "quadrants": ("euler_2d_quadrants", {"mx": 1024, "my": 1024}, 0.8,
-                  1024 ** 2, "step2_rows"),
+                  1024 ** 2, "step2_rows", ""),
     "euler3d": ("euler_3d", {"mx": 192, "my": 192, "mz": 192}, 0.2,
-                192 ** 3, "step3_xy"),
+                192 ** 3, "step3_xy", ""),
+    "shallow": ("shallow_2d_radial", {"mx": 1024, "my": 1024}, 1.0,
+                1024 ** 2, "step2_rows_generic", ""),
+    "euler3d_capa": ("euler_3d", {"mx": 192, "my": 192, "mz": 192}, 0.2,
+                     192 ** 3, "step3_xy,step3_xy_generic", "add_capacity"),
 }
 
 CHILD = r"""
 import importlib, json, sys, time
 import numpy as np
 import torch
-root, module, kw, tfinal, cells, wrapper, device = sys.argv[1:8]
+root, module, kw, tfinal, cells, wrappers, post, device = sys.argv[1:9]
 sys.path.insert(0, root)
 sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
 from pyclaw_tpu_torch.ops import tiled2d
@@ -47,14 +58,17 @@ kw = json.loads(kw)
 
 def make(t):
     claw = ex.setup(outdir=None, dtype=np.float32, device=device, **kw)
+    if post:
+        getattr(ex, post)(claw.solution.state)
     claw.tfinal = t
     claw.keep_copy = False
     return claw
 
 make(0.01).run()
 claw = make(float(tfinal))
-fn = getattr(tiled2d, wrapper)
-fn.launches = 0
+fns = [getattr(tiled2d, w) for w in wrappers.split(",")]
+for fn in fns:
+    fn.launches = 0
 sync()
 t0 = time.perf_counter()
 status = claw.run()
@@ -62,7 +76,7 @@ sync()
 wall = time.perf_counter() - t0
 print(json.dumps({"accepted": status["numsteps"],
                   "rejected": status["numrejected"],
-                  "launches": fn.launches, "wall_s": wall,
+                  "launches": sum(fn.launches for fn in fns), "wall_s": wall,
                   "cell_updates_per_s": status["numsteps"] * int(cells)
                   / wall}))
 """
@@ -72,13 +86,14 @@ def run_one(root, path, device="cuda", size=None, tfinal=None):
     """One timed run of ``path`` from ROOT in a fresh process (``size``
     and ``tfinal`` override the path's setup keywords and final time: the
     CPU tests run it small)."""
-    module, kw, t_path, cells, wrapper = PATHS[path]
+    module, kw, t_path, cells, wrappers, post = PATHS[path]
     kw = kw if size is None else size
     cells = cells if size is None else math.prod(size.values())
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, root, module, json.dumps(kw),
-         str(t_path if tfinal is None else tfinal), str(cells), wrapper,
-         device], cwd=root, capture_output=True, text=True, timeout=900)
+         str(t_path if tfinal is None else tfinal), str(cells), wrappers,
+         post, device], cwd=root, capture_output=True, text=True,
+        timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{path} from {root} failed:\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -89,6 +104,8 @@ def main(argv=None):
     ap.add_argument("variants", nargs="+",
                     type=lambda v: tuple(v.split("=", 1)))
     ap.add_argument("--out")
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="comma-separated paths to time (default: all)")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -98,7 +115,7 @@ def main(argv=None):
     order = args.variants + args.variants[::-1]
     result = {"card": card, "order": [label for label, _ in order],
               "paths": {}}
-    for path in PATHS:
+    for path in args.paths.split(","):
         runs = {label: [] for label, _ in args.variants}
         for label, root in order:
             rec = run_one(os.path.abspath(root), path)

@@ -222,11 +222,11 @@ def test_what_the_slice_refuses():
 
 
 def test_euler_with_capacity_off_the_cpu_is_refused(monkeypatch):
-    """ClawSolver3D routes Euler with a capacity function, with f-waves or
-    with both to the generic step (one call of step3_xy_generic with the
-    Euler system of STEP3_SYSTEMS), and Euler without either to step3_xy.
-    On the CPU that step is the plain version; a tensor off the CPU that
-    is not the card's (a meta tensor) is refused before any launch."""
+    """ClawSolver3D routes Euler with a capacity function, with f-waves,
+    with both and with neither to step3_xy (csrc/step3_ctu.cu), naming the
+    capacity row and the form; never to step3_xy_generic.  On the CPU that
+    step is the plain version; a tensor off the CPU that is not the card's
+    (a meta tensor) is refused before any launch."""
     from pyclaw_tpu_torch.examples import euler_3d
     from pyclaw_tpu_torch.ops import tiled2d
 
@@ -251,8 +251,8 @@ def test_euler_with_capacity_off_the_cpu_is_refused(monkeypatch):
     calls = []
 
     def recorder(name):
-        def step(qbc, *args):
-            calls.append((name, args))
+        def step(qbc, *args, **kwargs):
+            calls.append((name, args, kwargs))
             return qbc[:, 2:-2, 2:-2, 2:-2], torch.tensor(0.5)
         return step
 
@@ -265,13 +265,8 @@ def test_euler_with_capacity_off_the_cpu_is_refused(monkeypatch):
         aux = None if state.aux is None else torch.from_numpy(state.aux)
         solver._step_fn(torch.from_numpy(state.q), aux, 1e-3, 0.0)
         assert len(calls) == 1
-        name, args = calls[0]
-        if not (capacity or fwave):
-            assert name == "step3_xy"
-            continue
-        # (auxbc, dt, dx, dy, dz, rp, params, mthlim, order, fwave,
-        # index_capa, num_ghost, transverse_waves)
-        assert name == "generic"
-        assert tiled2d.STEP3_SYSTEMS[args[5].name] == (3, 0)
-        assert args[9] == fwave and args[10] == (0 if capacity else -1)
-        assert (args[0] is None) == (not capacity)
+        name, args, kwargs = calls[0]
+        assert name == "step3_xy"
+        assert kwargs["fwave"] == fwave
+        assert kwargs["index_capa"] == (0 if capacity else -1)
+        assert (kwargs["auxbc"] is None) == (not capacity)

@@ -1,7 +1,8 @@
 """The Euler capacity / f-wave slice end to end on the CPU: 3D Euler on the
 generic 3D CTU step (``ClawSolver3D(euler_3D)`` with a capacity function
-or the f-wave form, the configuration that runs ``csrc/step3_aos.cu`` on
-the card), the port against the JAX package.
+or the f-wave form, the configuration that runs ``csrc/step3_ctu.cu``'s
+capacity and f-wave variants on the card), the port against the JAX
+package.
 
 * a JAX ``ClawSolver3D(euler_3D)`` with the slice's capacity function
   (kappa = 1 + 0.25 cos(pi x) cos(pi y) cos(pi z), index_capa 0) on the

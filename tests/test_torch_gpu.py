@@ -1,7 +1,7 @@
-"""Card-only tests: the CUDA kernels (step2_ctu, dq2_weno5, step3_ctu,
-step2_aos, step1, weno5, step3_aos and its Euler system) against their
-plain PyTorch versions at small shapes, and the Euler capacity path's
-launch counts.  Whether a card is present is decided inside the
+"""Card-only tests: the CUDA kernels (step2_ctu with step3_ctu's
+capacity and f-wave variants, dq2_weno5, step3_ctu, step2_aos, step1,
+weno5, step3_aos) against their plain PyTorch versions at small shapes,
+and the Euler capacity path's launch counts.  Whether a card is present is decided inside the
 fixture, so every process collects the same tests; without a card they
 skip.
 
@@ -383,9 +383,15 @@ def test_step3_aos_kernel_rejects_what_it_cannot_take(card):
                                  (4, 4), 2, False, -1)
     e3 = riemann.euler_3D
     q5 = _qbc3(1, 8, 8, 8, torch.float64, card)
-    with pytest.raises(ValueError, match="index_capa=3"):
+    with pytest.raises(NotImplementedError, match="step3_ctu"):
         tiled2d.step3_xy_generic(q5, auxbc, *args, e3, PARAMS, (4,) * 5, 2,
-                                 False, 3)
+                                 False, 0)
+    with pytest.raises(ValueError, match="index_capa=3"):
+        tiled2d.step3_xy(q5, *args, PARAMS, (4,) * 5, 2, auxbc=auxbc,
+                         index_capa=3)
+    with pytest.raises(TypeError, match="dtype"):
+        tiled2d.step3_xy(q5, *args, PARAMS, (4,) * 5, 2,
+                         auxbc=auxbc.float(), index_capa=0)
     other = riemann.RiemannSolver("other_3D", 3, 4, 2, vc.rp, rpt=vc.rpt)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tiled2d.step3_xy_generic(qbc, auxbc, *args, other, PARAMS_3D,
@@ -401,11 +407,11 @@ def test_step3_aos_kernel_rejects_what_it_cannot_take(card):
     (2, 2, 4, -1, True, (16, 16, 16)),
     (2, 2, 10, 0, True, (9, 7, 10)),
     (2, 2, 4, 0, False, (3, 5, 2))])
-def test_step3_aos_euler_kernel_matches_plain(card, tw, order, lim, capa,
-                                              fwave, shape, dtype):
-    """step3_aos's Euler system (capacity, f-waves or both) against the
-    plain step, which passes the D-interface's Roe state (prefactor) to
-    its splits."""
+def test_step3_ctu_capacity_kernel_matches_plain(card, tw, order, lim, capa,
+                                                 fwave, shape, dtype):
+    """step3_ctu's capacity and f-wave variants (capacity, f-waves or both)
+    against the plain step, which passes the D-interface's Roe state
+    (prefactor) to its splits."""
     rp = riemann.euler_3D
     qbc = _qbc3(sum(shape) + lim, *shape, dtype, card)
     kappa = 0.7 + 0.6 * np.random.default_rng(sum(shape)).random(
@@ -417,11 +423,11 @@ def test_step3_aos_euler_kernel_matches_plain(card, tw, order, lim, capa,
     d = tuple(2.0 / n for n in shape)
     dt = float(np.dtype(str(dtype).split(".")[1]).type(0.3 * min(d)))
     lims = (lim,) * 5
-    before = tiled2d.step3_xy_generic.launches
-    qk, ck = tiled2d.step3_xy_generic(qbc, aux, dt, *d, rp, PARAMS, lims,
-                                      order, fwave, capa, 2, tw)
+    before = tiled2d.step3_xy.launches
+    qk, ck = tiled2d.step3_xy(qbc, dt, *d, PARAMS, lims, order, 2, tw,
+                              auxbc=aux, index_capa=capa, fwave=fwave)
     torch.cuda.synchronize()
-    assert tiled2d.step3_xy_generic.launches == before + 1
+    assert tiled2d.step3_xy.launches == before + 1
     qp, cp = kernels.step3(qbc, aux, dt, *d, rp.rp, rp.rpt, rp.rptt, PARAMS,
                            lims, order, fwave, capa, 2, tw, rp.prefactor)
     assert qk.dtype == dtype and qk.shape == (5,) + shape
@@ -433,10 +439,10 @@ def test_step3_aos_euler_kernel_matches_plain(card, tw, order, lim, capa,
 @pytest.mark.gpu
 @pytest.mark.parametrize("capacity,fwave", [(True, False), (False, True),
                                             (True, True)])
-def test_euler_capacity_path_launches_step3_aos(card, capacity, fwave):
+def test_euler_capacity_path_launches_step3_ctu(card, capacity, fwave):
     """ClawSolver3D(euler_3D) with a capacity function, f-waves or both
-    through Controller.run on the card: one step3_aos launch per attempted
-    step, no step3_ctu launch; the result matches the same run on the
+    through Controller.run on the card: one step3_ctu launch per attempted
+    step, no step3_aos launch; the result matches the same run on the
     CPU."""
     from pyclaw_tpu_torch.examples import euler_3d
 
@@ -452,9 +458,9 @@ def test_euler_capacity_path_launches_step3_aos(card, capacity, fwave):
 
     generic, ctu = tiled2d.step3_xy_generic.launches, tiled2d.step3_xy.launches
     claw, status = run(card)
-    assert (tiled2d.step3_xy_generic.launches - generic
+    assert (tiled2d.step3_xy.launches - ctu
             == status["numsteps"] + status["numrejected"] > 0)
-    assert tiled2d.step3_xy.launches == ctu
+    assert tiled2d.step3_xy_generic.launches == generic
     claw_c, status_c = run("cpu")
     assert status_c["numsteps"] == status["numsteps"]
     q, q_c = claw.solution.q, claw_c.solution.q

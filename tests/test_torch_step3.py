@@ -13,6 +13,12 @@
   six faces in turn gets a fast state in its inner ghost layer (inside
   the CFL window) and a faster one in its outer layer (outside it), so
   that each of the kernel's CFL windows is pinned from both sides.
+* the same source's capacity and f-wave variants (the aux entries)
+  against the plain version: a capacity function at transverse_waves 2,
+  1 and 0, f-waves without aux and with a capacity function, and two
+  faces whose small capacity pins the upwinded CFL window (1e-12 in
+  float64, 1e-5 in float32); and the capacity variant at kappa = 1
+  against the variant without one.
 
 The states keep every velocity component away from zero (and the sound
 speed well above it), so no upwind switch sits on a roundoff tie.  The
@@ -178,10 +184,11 @@ def test_wrapper_rejects_options(bad):
 
 def test_plain_step_refuses_what_it_does_not_port():
     """The plain step now takes aux (which Euler does not read), a
-    capacity function and the f-wave form, as JAX ``step3`` does.  Euler
-    with a capacity function has a kernel (step3_aos.cu's Euler system):
-    what is refused is a tensor off the CPU that is not the card's (a
-    meta tensor), before any launch."""
+    capacity function and the f-wave form, as JAX ``step3`` does, and so
+    does the wrapper on the CPU.  Euler with a capacity function has a
+    kernel (step3_ctu.cu's capacity variant): what is refused is a tensor
+    off the CPU that is not the card's (a meta tensor), before any
+    launch."""
     q_np = _state(1, 4, 4, 4)
     q = torch.from_numpy(q_np)
     kappa = 1.0 + 0.5 * np.random.default_rng(1).random((1,) + q_np.shape[1:])
@@ -203,10 +210,15 @@ def test_plain_step_refuses_what_it_does_not_port():
         q_j = np.asarray(q_j)
         assert np.abs(q_t.numpy() - q_j).max() / np.abs(q_j).max() <= 1e-12
         assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
+        q_w, c_w = tiled2d.step3_xy(
+            q, *args[:4], PARAMS, (4,) * 5, 2, auxbc=None if aux is None
+            else torch.from_numpy(aux), index_capa=capa, fwave=fwave)
+        assert np.array_equal(q_w.numpy(), q_t.numpy())
+        assert float(c_w) == float(c_t)
     with pytest.raises(ValueError, match="device"):
-        tiled2d.step3_xy_generic(q.to("meta"), torch.from_numpy(kappa)
-                                 .to("meta"), *args[:4], RP, PARAMS,
-                                 (4,) * 5, 2, False, 0)
+        tiled2d.step3_xy(q.to("meta"), *args[:4], PARAMS, (4,) * 5, 2,
+                         auxbc=torch.from_numpy(kappa).to("meta"),
+                         index_capa=0)
 
 
 # ---- the kernel's source on the host -----------------------------------
@@ -220,6 +232,10 @@ def host_kernel(tmp_path_factory):
     for name in ("step3_ctu_host_f32", "step3_ctu_host_f64"):
         fn = getattr(lib, name)
         fn.argtypes = tiled2d.STEP3_ARGTYPES
+        fn.restype = ctypes.c_int
+    for name in ("step3_ctu_aux_host_f32", "step3_ctu_aux_host_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = tiled2d.STEP3_AUX_ARGTYPES
         fn.restype = ctypes.c_int
     lib.step3_ctu_blocks.argtypes = [ctypes.c_int] * 4
     lib.step3_ctu_blocks.restype = ctypes.c_int
@@ -289,6 +305,135 @@ def test_kernel_source_on_host_matches_plain(host_kernel, face, shape,
         assert c_p > 1.2 * _plain(_state(face + sum(shape), *shape)
                                   .astype(dtype), dt, deltas, (lim,) * 5,
                                   order, tw)[1]
+
+
+# the capacity and f-wave variants (the aux entries): (index_capa,
+# transverse_waves, order, limiter, fwave, face); a face case puts a small
+# capacity in the inner ghost layer of one face (inside the CFL window)
+# and a smaller one in its outer layer (outside it)
+EULER_HOST_CASES = [(0, 2, 2, 4, False, None),
+                    (0, 1, 2, 3, False, None),
+                    (0, 0, 1, 4, False, None),
+                    (-1, 2, 2, 4, True, None),
+                    (0, 2, 2, 10, True, None),
+                    (0, 2, 2, 4, False, (0, 1)),
+                    (0, 1, 2, 4, True, (2, 0))]
+
+
+def _euler_random_state(rng, n):
+    """An admissible state with velocities of both signs in all three
+    directions."""
+    q = np.empty((5,) + n)
+    q[0] = 1.0 + 0.3 * rng.random(n)
+    q[1:4] = q[0] * 0.4 * (2.0 * rng.random((3,) + n) - 1.0)
+    q[4] = (1.0 + rng.random(n)) / 0.4 + 0.5 * (q[1:4] ** 2).sum(0) / q[0]
+    return q
+
+
+def _small_capacity_face(kappa, axis, side, scale):
+    """kappa 1 / (4 scale) in the inner ghost layer of one face, 1 / (8
+    scale) in its outer layer: the largest Courant numbers, inside and
+    outside the window of the sweep along ``axis``."""
+    n = kappa.shape[1 + axis]
+    for layer, k in (((1, 4.0) if side == 0 else (n - 2, 4.0)),
+                     ((0, 8.0) if side == 0 else (n - 1, 8.0))):
+        idx = [slice(None)] * 3
+        idx[axis] = layer
+        kappa[(0,) + tuple(idx)] = 1.0 / (k * scale)
+    return kappa
+
+
+def _aux_host_step(lib, q, aux, capa, fwave, dt, d, order, tw, lim):
+    """One step of the aux entry of the host emulation: (q, cfl)."""
+    shape = tuple(n - 4 for n in q.shape[1:])
+    is_double = q.dtype == np.float64
+    fn = (lib.step3_ctu_aux_host_f64 if is_double
+          else lib.step3_ctu_aux_host_f32)
+    out = np.empty((5,) + shape, q.dtype)
+    # one CFL partial per block, each written
+    cfl_blocks = np.full(lib.step3_ctu_blocks(*q.shape[1:], int(is_double)),
+                         np.nan, q.dtype)
+    rc = fn(q.ctypes.data, None if aux is None else aux.ctypes.data,
+            out.ctypes.data, cfl_blocks.ctypes.data, *q.shape[1:], capa,
+            int(fwave), dt, *d, 0.4, order, tw, *(lim,) * 5)
+    assert rc == 0 and np.isfinite(cfl_blocks).all()
+    return out, float(cfl_blocks.max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("shape", [(9, 7, 10), (17, 13, 9), (3, 5, 2)])
+@pytest.mark.parametrize("case", range(len(EULER_HOST_CASES)))
+def test_euler_source_on_host_matches_plain(host_kernel, case, shape, dtype,
+                                            tol):
+    """csrc/step3_ctu.cu's capacity and f-wave variants in the kernel's
+    phases against the plain version: with a capacity function at
+    transverse_waves 2 (MC), 1 (van Leer) and 0 (first order), f-waves
+    without aux and with a capacity function, and two faces whose small
+    capacity pins the CFL window; grids that cover several tiles and
+    partial tiles, one ragged on every axis and one smaller than a tile,
+    in both types' tiles (8^3 in float32, 6^3 in float64)."""
+    capa, tw, order, lim, fwave, face = EULER_HOST_CASES[case]
+    rng = np.random.default_rng(100 + case + sum(shape))
+    n = tuple(s + 4 for s in shape)
+    q = _euler_random_state(rng, n)
+    kappa = 0.7 + 0.6 * rng.random((1,) + n)
+    kappa0 = kappa.copy()
+    d = (2.0 / shape[0], 2.2 / shape[1], 1.8 / shape[2])
+    if face is not None:
+        kappa = _small_capacity_face(kappa, *face, d[face[0]] / min(d))
+    q, kappa, kappa0 = (np.ascontiguousarray(a.astype(dtype))
+                        for a in (q, kappa, kappa0))
+    aux = kappa if capa >= 0 else None
+    dt = float(dtype(0.05 * min(d)))
+    out, c_k = _aux_host_step(host_kernel, q, aux, capa, fwave, dt, d, order,
+                              tw, lim)
+
+    def plain(aux_np):
+        qp, cp = tk.step3(torch.from_numpy(q), None if aux_np is None
+                          else torch.from_numpy(aux_np), dt, *d, RP.rp,
+                          RP.rpt, RP.rptt, PARAMS, (lim,) * 5, order, fwave,
+                          capa, 2, tw, RP.prefactor)
+        return qp.numpy(), float(cp)
+
+    q_p, c_p = plain(aux)
+    assert np.abs(out - q_p).max() / np.abs(q_p).max() <= tol
+    assert abs(c_k - c_p) <= tol * c_p
+    if face is not None:
+        # the small capacity of the inner layer sets the CFL
+        assert c_p > 1.2 * plain(kappa0)[1]
+
+
+# float32: the capacity variant's dt/(dD kappa) is dt and dD rounded to
+# float32, then divided in float32; the variant without one rounds the
+# double dt/dD once (an ulp apart)
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-6)])
+@pytest.mark.parametrize("tw,order,lim", [(2, 2, 4), (1, 2, 10), (0, 1, 3)])
+def test_capacity_variant_at_kappa_one_matches_no_capacity(host_kernel, tw,
+                                                           order, lim,
+                                                           dtype, tol):
+    """The capacity variant with kappa = 1 against the variant without a
+    capacity function, both the kernel's source on the host, on a ragged
+    multi-tile grid with velocities of both signs."""
+    shape = (11, 9, 13)
+    n = tuple(s + 4 for s in shape)
+    q = np.ascontiguousarray(_euler_random_state(
+        np.random.default_rng(7 + tw), n).astype(dtype))
+    ones = np.ones((2,) + n, dtype)
+    d = (2.0 / shape[0], 2.2 / shape[1], 1.8 / shape[2])
+    dt = float(dtype(0.1 * min(d)))
+    out1, c1 = _aux_host_step(host_kernel, q, ones, 1, False, dt, d, order,
+                              tw, lim)
+    is_double = dtype == np.float64
+    fn = (host_kernel.step3_ctu_host_f64 if is_double
+          else host_kernel.step3_ctu_host_f32)
+    out0 = np.empty_like(out1)
+    cfl0 = np.empty(host_kernel.step3_ctu_blocks(*n, int(is_double)), dtype)
+    assert fn(q.ctypes.data, out0.ctypes.data, cfl0.ctypes.data, *n, dt, *d,
+              0.4, order, tw, *(lim,) * 5) == 0
+    assert np.abs(out1 - out0).max() / np.abs(out0).max() <= tol
+    assert abs(c1 - float(cfl0.max())) <= tol * float(cfl0.max())
 
 
 # ---- run as a script: the plain step in fresh processes ------------------

@@ -21,6 +21,9 @@ package's, and the CUDA kernel's source on the host.
   aux in every case; besides a plain state, each of the six faces in turn
   gets a fast state in its inner ghost layer (inside the CFL window) and
   a faster one in its outer layer (outside it).
+
+Euler with a capacity function or f-waves runs ``csrc/step3_ctu.cu``; its
+host test is in tests/test_torch_step3.py.
 """
 
 import ctypes
@@ -258,17 +261,21 @@ def test_wrapper_off_the_cpu_refuses_what_has_no_kernel():
     """On a tensor off the CPU the wrapper launches the kernel or raises;
     systems outside STEP3_SYSTEMS raise before any launch, and so does a
     tensor that is not the card's (a meta tensor stands in for both).
-    Euler is a system of the kernel, gamma its first scalar."""
+    Euler is not a system of this kernel (ClawSolver3D runs it on
+    step3_xy, csrc/step3_ctu.cu): on the card the wrapper refuses it,
+    with or without a capacity function."""
     q = torch.empty(5, 9, 9, 9, dtype=torch.float64, device="meta")
     aux = torch.empty(1, 9, 9, 9, dtype=torch.float64, device="meta")
     e3 = triemann.euler_3D
-    assert tiled2d.STEP3_SYSTEMS["euler_3D"] == (3, 0)
-    assert tiled2d.step3_system_scalars(e3, PARAMS) == (1.4, 0.0, 0.0)
+    assert set(tiled2d.STEP3_SYSTEMS) == {"vc_acoustics_3D", "acoustics_3D",
+                                          "advection_3D"}
+    assert tiled2d.step3_system_scalars(e3, PARAMS) == (0.0, 0.0, 0.0)
     assert tiled2d.step3_limiter_ids((4, 3, 1, 10, 2)) == [4, 3, 1, 10, 2]
     assert tiled2d.step3_limiter_ids((4, 10)) == [4, 10, 10, 10, 10]
-    with pytest.raises(ValueError, match="device"):
-        tiled2d.step3_xy_generic(q, aux, 1e-3, 0.1, 0.1, 0.1, e3, PARAMS,
-                                 (4,) * 5, 2, False, 0)
+    for aux_e, capa in ((aux, 0), (None, -1)):
+        with pytest.raises(NotImplementedError, match="step3_ctu"):
+            tiled2d.step3_xy_generic(q, aux_e, 1e-3, 0.1, 0.1, 0.1, e3,
+                                     PARAMS, (4,) * 5, 2, False, capa)
     other = triemann.RiemannSolver("other_3D", 3, 5, 5, e3.rp, rpt=e3.rpt,
                                    rptt=e3.rptt)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
@@ -415,97 +422,3 @@ def test_kernel_source_on_host_matches_plain(host_kernel, face, shape, dtype,
                             (lim,) * rp.num_waves, order, fwave, capa, 2,
                             tw)[1])
         assert c_p > 1.2 * c0
-
-
-# the Euler system (5 equations, 5 waves; rpt3 and rptt3 take the state of
-# the D-interface they split): (index_capa, transverse_waves, order,
-# limiter, fwave, face); a face case puts a small capacity in the inner
-# ghost layer of one face (inside the CFL window) and a smaller one in its
-# outer layer (outside it)
-EULER_HOST_CASES = [(0, 2, 2, 4, False, None),
-                    (0, 1, 2, 3, False, None),
-                    (0, 0, 1, 4, False, None),
-                    (-1, 2, 2, 4, True, None),
-                    (0, 2, 2, 10, True, None),
-                    (0, 2, 2, 4, False, (0, 1)),
-                    (0, 1, 2, 4, True, (2, 0))]
-
-
-def _euler_random_state(rng, n):
-    """An admissible state with velocities of both signs in all three
-    directions."""
-    q = np.empty((5,) + n)
-    q[0] = 1.0 + 0.3 * rng.random(n)
-    q[1:4] = q[0] * 0.4 * (2.0 * rng.random((3,) + n) - 1.0)
-    q[4] = (1.0 + rng.random(n)) / 0.4 + 0.5 * (q[1:4] ** 2).sum(0) / q[0]
-    return q
-
-
-def _small_capacity_face(kappa, axis, side, scale):
-    """kappa 1 / (4 scale) in the inner ghost layer of one face, 1 / (8
-    scale) in its outer layer: the largest Courant numbers, inside and
-    outside the window of the sweep along ``axis``."""
-    n = kappa.shape[1 + axis]
-    for layer, k in (((1, 4.0) if side == 0 else (n - 2, 4.0)),
-                     ((0, 8.0) if side == 0 else (n - 1, 8.0))):
-        idx = [slice(None)] * 3
-        idx[axis] = layer
-        kappa[(0,) + tuple(idx)] = 1.0 / (k * scale)
-    return kappa
-
-
-@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
-                                       (np.float32, 1e-5)])
-@pytest.mark.parametrize("shape", [(9, 7, 10), (17, 13, 9), (3, 5, 2)])
-@pytest.mark.parametrize("case", range(len(EULER_HOST_CASES)))
-def test_euler_source_on_host_matches_plain(host_kernel, case, shape, dtype,
-                                            tol):
-    """csrc/step3_aos.cu's Euler system (euler3d_aos.cuh) in the kernel's
-    phases against the plain version: with a capacity function at
-    transverse_waves 2 (MC), 1 (van Leer) and 0 (first order), f-waves
-    without aux and with a capacity function, and two faces whose small
-    capacity pins the CFL window; grids that cover several tiles and
-    partial tiles, one ragged on every axis and one smaller than a tile,
-    in both types' tiles (8x8x8 in float32, 4x6x8 in float64)."""
-    capa, tw, order, lim, fwave, face = EULER_HOST_CASES[case]
-    rp = triemann.euler_3D
-    rng = np.random.default_rng(100 + case + sum(shape))
-    n = tuple(s + 4 for s in shape)
-    q = _euler_random_state(rng, n)
-    kappa = 0.7 + 0.6 * rng.random((1,) + n)
-    kappa0 = kappa.copy()
-    d = (2.0 / shape[0], 2.2 / shape[1], 1.8 / shape[2])
-    if face is not None:
-        kappa = _small_capacity_face(kappa, *face, d[face[0]] / min(d))
-    q, kappa, kappa0 = (np.ascontiguousarray(a.astype(dtype))
-                        for a in (q, kappa, kappa0))
-    aux = kappa if capa >= 0 else None
-    dt = float(dtype(0.05 * min(d)))
-    lims = (lim,) * rp.num_waves
-    is_double = dtype == np.float64
-    fn = (host_kernel.step3_aos_host_f64 if is_double
-          else host_kernel.step3_aos_host_f32)
-    out = np.empty((5,) + shape, dtype)
-    cfl_blocks = np.full(host_kernel.step3_aos_blocks(*n, int(is_double)),
-                         np.nan, dtype)
-    rc = fn(q.ctypes.data, None if aux is None else aux.ctypes.data,
-            out.ctypes.data, cfl_blocks.ctypes.data, *n,
-            tiled2d.STEP3_SYSTEMS["euler_3D"][0], capa, int(fwave), dt, *d,
-            *tiled2d.step3_system_scalars(rp, PARAMS), order, tw,
-            *tiled2d.step3_limiter_ids(lims))
-    assert rc == 0 and np.isfinite(cfl_blocks).all()
-    c_k = float(cfl_blocks.max())
-
-    def plain(aux_np):
-        qp, cp = tk.step3(torch.from_numpy(q), None if aux_np is None
-                          else torch.from_numpy(aux_np), dt, *d, rp.rp,
-                          rp.rpt, rp.rptt, PARAMS, lims, order, fwave, capa,
-                          2, tw, rp.prefactor)
-        return qp.numpy(), float(cp)
-
-    q_p, c_p = plain(aux)
-    assert np.abs(out - q_p).max() / np.abs(q_p).max() <= tol
-    assert abs(c_k - c_p) <= tol * c_p
-    if face is not None:
-        # the small capacity of the inner layer sets the CFL
-        assert c_p > 1.2 * plain(kappa0)[1]

@@ -28,12 +28,16 @@ SASS = """
 
 
 def test_parse_variant():
-    label, root, flags = tk._parse_variant(
+    label, root, source, flags = tk._parse_variant(
         "probe=build/parent:-prec-div=false,-DNDEBUG")
     assert label == "probe"
     assert root == os.path.abspath("build/parent")
+    assert source is None
     assert flags == ["-prec-div=false", "-DNDEBUG"]
-    assert tk._parse_variant("new=.")[2] == []
+    assert tk._parse_variant("new=.")[2:] == (None, [])
+    # another source of the root for the same case
+    assert tk._parse_variant("old=build/parent@step3_aos") == (
+        "old", os.path.abspath("build/parent"), "step3_aos", [])
 
 
 def _first_call(monkeypatch, name, claw):
@@ -91,7 +95,9 @@ def test_step3_ctu_case_is_the_euler_3d_path(monkeypatch):
     args, kwargs = _first_call(monkeypatch, "step3_xy", claw)
     qbc, case = tk.step3_ctu_case(n, torch.float64, "cpu")
     assert torch.equal(args[0], qbc)
-    path = args[2:] + tuple(kwargs.values())
+    # the solver names the capacity function and the form: none here
+    assert kwargs == {"auxbc": None, "index_capa": -1, "fwave": False}
+    path = args[2:]
     assert path[:4] == case[1:5] and tuple(path[4]) == case[5]
     assert path[5:] == case[6:]
     # the case on another state of the path pads that state
@@ -120,24 +126,49 @@ def test_step3_aos_case_is_the_heterogeneous_path(monkeypatch):
 
 
 def test_step3_aos_euler_case_is_the_euler_capacity_path(monkeypatch):
-    """The Euler system's case is examples.euler_3d with the capacity
-    function of euler_3d.add_capacity, as chip_smoke.py's [4g] path runs it."""
+    """The Euler capacity case (time_kernels.euler3d_capa_case, the case
+    step3_aos's Euler system was timed on before the path moved to
+    step3_ctu) is examples.euler_3d with the capacity function of
+    euler_3d.add_capacity, as chip_smoke.py's [4g] path runs it: one call
+    of step3_xy with that aux row as the capacity function."""
     from pyclaw_tpu_torch.examples import euler_3d as ex
     n = 6
     claw = ex.setup(mx=n, my=n, mz=n, outdir=None, device="cpu",
                     dtype="float64")
     ex.add_capacity(claw.solution.state)
     claw.tfinal = 0.01
-    args, kwargs = _first_call(monkeypatch, "step3_xy_generic", claw)
-    qbc, auxbc, case = tk.step3_aos_euler_case(n, torch.float64, "cpu")
-    assert torch.equal(args[0], qbc) and torch.equal(args[1], auxbc)
+    args, kwargs = _first_call(monkeypatch, "step3_xy", claw)
+    qbc, auxbc, case = tk.euler3d_capa_case(n, torch.float64, "cpu")
+    assert torch.equal(args[0], qbc)
+    assert torch.equal(kwargs.pop("auxbc"), auxbc)
+    assert kwargs == {"index_capa": 0, "fwave": False}
     kappa = auxbc[0, 2:-2, 2:-2, 2:-2]
     assert 0.75 <= float(kappa.min()) and float(kappa.max()) <= 1.25
     assert torch.equal(kappa, kappa.transpose(0, 1))
+    path = args[2:]
+    assert path[:4] == case[1:5]            # dx, dy, dz, gamma
+    assert tuple(path[4]) == case[5] and path[5:] == case[6:]
+    # the case on another state of the path pads that state
+    q = claw.solution.q
+    assert torch.equal(tk.euler3d_capa_case(n, torch.float64, "cpu", q)[0]
+                       [(slice(None),) + (slice(2, -2),) * 3],
+                       torch.as_tensor(q))
+
+
+def test_step2_aos_case_is_the_shallow_path(monkeypatch):
+    """step2_aos's case is examples.shallow_2d_radial's first step, as
+    chip_smoke.py's [4d] path runs it."""
+    from pyclaw_tpu_torch.examples import shallow_2d_radial as ex
+    n = 12
+    claw = ex.setup(mx=n, my=n, outdir=None, device="cpu", dtype="float64")
+    claw.tfinal = 0.01
+    args, kwargs = _first_call(monkeypatch, "step2_rows_generic", claw)
+    qbc, case = tk.step2_aos_case(n, torch.float64, "cpu")
+    assert torch.equal(args[0], qbc) and args[1] is None is case[0]
     path = args[3:] + tuple(kwargs.values())
-    assert path[:4] == case[1:5]            # dx, dy, dz, the system
-    assert path[4] == case[5]               # gamma
-    assert tuple(path[5]) == case[6] and path[6:] == case[7:]
+    # dt is the controller's; the rest is the case's
+    assert path[:3] == case[2:5] and path[3] == case[5]
+    assert tuple(path[4]) == case[6] and path[5:] == case[7:]
 
 
 def test_parse_sass_counts_opcodes_per_entry():
@@ -151,7 +182,9 @@ def test_parse_sass_counts_opcodes_per_entry():
 
 @pytest.mark.parametrize("path,size", [
     ("quadrants", {"mx": 12, "my": 12}),
-    ("euler3d", {"mx": 6, "my": 6, "mz": 6})])
+    ("euler3d", {"mx": 6, "my": 6, "mz": 6}),
+    ("shallow", {"mx": 12, "my": 12}),
+    ("euler3d_capa", {"mx": 6, "my": 6, "mz": 6})])
 def test_time_paths_runs_each_path_in_its_own_process(path, size):
     """ops/time_paths.py's timed run (a fresh process importing the
     package from a root), on the CPU at a small size."""
