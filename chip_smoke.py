@@ -29,14 +29,18 @@ Phases (each asserts; any failure exits non-zero):
      bathymetry f-waves with aux, with and without a capacity function;
   3e. step1 against its plain PyTorch version (one step each): the five
      1D systems (advection, acoustics, Euler with and without the entropy
-     fix, HLLE) at n in {1, 7, 255, 256, 257, 800, 100003} on seeded
+     fix, HLLE) at n in {1, 7, 251, 252, 253, 255, 256, 257, 505, 800,
+     100003} on seeded
      random states (and the Sod state at 800), order 1/2 with MC, van
      Leer and the CFL-dependent id 10; advection with a non-uniform
      capacity function and with the f-wave form; float32 and float64, the
      CFL equal bit for bit;
-  3f. weno5 against its plain version at (1, 5), (3, 806), (3, 2^20+6)
-     and (4, 37, 131): seeded random data, constant data (finite in
-     float32 too) and the Sod state padded for SharpClaw;
+  3f. weno5 against its plain version at (1, 5), (3, 806), (4, 37, 131),
+     the small tile's edges (3, 127), (3, 129), (65537, 4), the large
+     tile's edges ((257, 1023), (257, 1024), (257, 1025), (129, 2051) in
+     f32 and (513, 511), (513, 512), (513, 513), (257, 1027) in f64) and
+     (3, 2^20+6): seeded random data, constant data (finite in float32
+     too) and the Sod state padded for SharpClaw;
   3g. step3_aos against its plain PyTorch version (one step each), over
      the layered-medium state of examples.acoustics_3d_heterogeneous and a
      seeded random state with aux in 1 +- 0.2 and a capacity row: the main
@@ -116,8 +120,10 @@ Phases (each asserts; any failure exits non-zero):
   6. timing at 1024^2 (CUDA events): each 2D kernel, its plain version,
      its bound, and step3_ctu the same at 192^3 (on the 3D path's first
      input and, the kernel alone, on its last); step1 on the Sod state at
-     n = 800 and 2^20, weno5 at (3, 806) and (3, 2^20+6), each also with
-     its device time from torch.profiler; step2_ctu, dq2_weno5 and
+     n = 800 and 2^20 and on a seeded smooth state at 2^20, weno5 on the
+     same states padded for SharpClaw ((3, 806), (3, 2^20+6)), each also
+     with its device time from torch.profiler and its share of the bound;
+     step2_ctu, dq2_weno5 and
      step3_ctu also by the profiler; step3_aos, its plain version and
      its bound at 192^3 on the heterogeneous path's first input, and the
      kernel on its last; the same for step3_ctu's capacity variant on the
@@ -143,10 +149,11 @@ import numpy as np
 
 # the timers and the timed states, shared with the variant timer
 from pyclaw_tpu_torch.ops.time_kernels import (
-    device_ms_per_call, dq_case, euler3d_capa_case, euler3d_capa_state,
-    euler3d_state, events_ms as time_ms, het_state, padded, padded3,
-    padded3_aux, quadrants_state, shallow_state, step2_aos_case,
-    step2_ctu_case, step3_aos_case, step3_ctu_case)
+    CASES_1D, device_ms_per_call, dq_case, euler3d_capa_case,
+    euler3d_capa_state, euler3d_state, events_ms as time_ms, het_state,
+    padded, padded_1d, padded3, padded3_aux, quadrants_state, shallow_state,
+    sod_state, step1_case, step2_aos_case, step2_ctu_case, step3_aos_case,
+    step3_ctu_case, weno5_case)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1428,26 +1435,33 @@ def timing_step3_capa(dev, n=192, q_last=None):
 # 2, MC, no capacity), counted from csrc/step1.cu and csrc/systems1d.cuh in
 # the same way, each interface counted once (the halo interfaces are
 # overhead, not work), the entropy fix on its common, non-transonic
-# branch.  Per interface: the Roe average 35; strengths, waves and speeds
-# 37; the entropy fix (three sound speeds 30, the two middle states 6, the
-# transonic tests and split speeds 13) and amdq/apdq 33, 82; the limiter
-# of three waves (norm and two dot products 15, the upwind choice and
-# theta 3, nu 2, MC 6, the coefficient 6) 96; the correction flux 15; CFL
-# 6 -> 271.  Per cell: the update 18 and the CFL reduction 1.
-FLOPS_PER_CELL_STEP1 = 35 + 37 + 82 + 96 + 15 + 6 + 18 + 1
+# branch.  Per interface: the Roe average 24 (the cell's part, sqrt(rho),
+# mom/sqrt(rho) and H, 11, once a cell; the average of two parts 13);
+# strengths, waves and speeds 37; the entropy fix (three sound speeds 30:
+# the cell's once and the two middle states', the two middle states 6,
+# the transonic tests and split speeds 13) and amdq/apdq 33, 82; the
+# limiter of three waves (norm and two dot products 15, the upwind choice
+# and theta 3, nu 2, MC 6, the coefficient 6) 96; the correction flux 15;
+# CFL 6 -> 260.  Per cell: the update 18 and the CFL reduction 1.
+FLOPS_PER_CELL_STEP1 = 24 + 37 + 82 + 96 + 15 + 6 + 18 + 1
 
 # Operations per entry of one WENO5 reconstruction (left and right edge
-# values), counted from csrc/weno5.cuh: smoothness indicators 33, candidate
-# values 34, the weights and the two weighted sums 42 in float32 (the
-# normalised-beta branch) and 31 in float64.
-FLOPS_PER_ENTRY_WENO5 = {"float32": 33 + 34 + 42, "float64": 33 + 34 + 31}
+# values), counted from csrc/weno5.cu and csrc/weno5.cuh, each term that
+# neighbouring entries share counted once: smoothness indicators 23 (one
+# curvature term 5, the three other squares and sums 18), candidate values
+# 24 (four, each 5 and a division), the weights and the two weighted sums
+# 42 in float32 (the normalised-beta branch) and 31 in float64.  A
+# constant stencil needs only the weighted sums; bytes bound the kernel
+# either way.
+FLOPS_PER_ENTRY_WENO5 = {"float32": 23 + 24 + 42, "float64": 23 + 24 + 31}
 
 SYSTEMS_1D = ("advection_1D", "acoustics_1D", "euler_with_efix_1D",
               "euler_roe_1D", "euler_hlle_1D")
 PARAMS_1D = {"u": 0.7, "zz": 1.3, "cc": 0.8, "gamma": 1.4}
 # interior lengths of [3e]: one cell, less than, equal to and more than
-# one tile of 256, the main path's 800 and a long odd one
-STEP1_NS = (1, 7, 255, 256, 257, 800, 100003)
+# one tile of 252 (csrc/step1.cu: TILE) and the first port's 256, two
+# tiles and a cell, the main path's 800 and a long odd one
+STEP1_NS = (1, 7, 251, 252, 253, 255, 256, 257, 505, 800, 100003)
 # (order, limiter) of [3e]: first order, MC, van Leer and the CFL-dependent
 # id 10
 STEP1_LIMS = ((1, 4), (2, 4), (2, 3), (2, 10))
@@ -1455,7 +1469,15 @@ STEP1_LIMS = ((1, 4), (2, 4), (2, 3), (2, 10))
 # non-uniform capacity function, and the f-wave branch
 STEP1_ADVECTION_EXTRA = ((2, 4, 0, False), (2, 10, 0, False),
                          (2, 4, -1, True), (2, 10, 0, True))
-WENO5_SHAPES = ((1, 5), (3, 806), (3, 2 ** 20 + 6), (4, 37, 131))
+# shapes of [3f]: the small tile (csrc/weno5.cu: weno5_tile, 128
+# entries) at the path's (3, 806), on short rows, at its edges and on rows
+# past the grid's 65535, and the large tile's edges (1024 entries in f32,
+# 512 in f64): a row one short of, equal to and one past a tile, two
+# tiles and three entries; and the timed (3, 2^20 + 6)
+WENO5_SHAPES = ((1, 5), (3, 806), (4, 37, 131), (3, 127), (3, 129),
+                (65537, 4), (257, 1023), (257, 1024), (257, 1025),
+                (129, 2051), (513, 511), (513, 512), (513, 513),
+                (257, 1027), (3, 2 ** 20 + 6))
 # the 1D goldens on the card: (golden, example module, setup keywords,
 # float32 tolerance).  tools/tpu_validate.py:36-38 holds advection_1d and
 # advection_1d_sharpclaw to 5e-4 and :42-43 euler_1d_sod_sharpclaw to
@@ -1493,18 +1515,6 @@ def random_state_1d(rng, name, m):
     else:
         q = rng.standard_normal((2 if name == "acoustics_1D" else 1, m))
     return q, 0.7 + 0.6 * rng.random((1, m))
-
-
-def sod_state(n):
-    from pyclaw_tpu_torch.examples import euler_1d_shocktube as ex
-    return ex.setup(nx=n, outdir=None, device="cpu").solution.q
-
-
-def padded_1d(q_np, dtype, dev, num_ghost):
-    import torch
-    from pyclaw_tpu_torch import bc
-    q = torch.as_tensor(q_np, dtype=dtype, device=dev)
-    return bc.extend(q, num_ghost, [bc.BC.extrap], [bc.BC.extrap])
 
 
 def plain_step1(qbc, auxbc, dt, dx, name, lims, order, fwave, capa):
@@ -1736,76 +1746,59 @@ def goldens_1d(dev):
 
 
 def timing_1d(dev):
-    """step1 on the Sod state at n = 800 and 2^20, and weno5 on the Sod
-    state padded for SharpClaw at (3, 806) and (3, 2^20 + 6): the time of
-    a wrapper call (CUDA events), the kernel's device time
-    (torch.profiler), the plain version and the bound, float32 and
-    float64."""
+    """step1 and weno5 on the states of ``CASES_1D`` (the Sod state at
+    2^20 and at the path's 800 cells, a seeded smooth state at 2^20; 2
+    ghost cells for step1, 3 for weno5 as the SharpClaw path pads them):
+    the time of a wrapper call (CUDA events), the kernel's device time
+    (torch.profiler), the plain version, the bound and its share of the
+    device time, float32 and float64.  Keys: "800:float32" and the like
+    on the Sod state, "smooth 1048576:float32" on the smooth one."""
     import torch
+    from pyclaw_tpu_torch.classic import kernels
     from pyclaw_tpu_torch.limiters import recon
     from pyclaw_tpu_torch.ops import sweep, weno
-    from pyclaw_tpu_torch import riemann
-    rp = riemann.euler_with_efix_1D
     out = {"step1": {}, "weno5": {}}
-    for n in (800, 2 ** 20):
-        q_np = sod_state(n)
+    for state, n in CASES_1D.values():
+        prefix = "" if state == "sod" else f"{state} "
         for tname, dtype in (("float32", torch.float32),
                              ("float64", torch.float64)):
             item = torch.finfo(dtype).bits // 8
             iters = 200 if n == 800 else 50
-            qbc = padded_1d(q_np, dtype, dev, 2)
-            dx = 1.0 / n
-            dt = float(np.dtype(tname).type(0.5 * dx))
-
-            def kern():
-                return sweep.step1(qbc, None, dt, dx, rp, PARAMS_1D, (4,) * 3,
-                                   2, False, -1)
-
-            def plain():
-                return plain_step1(qbc, None, dt, dx, "euler_with_efix_1D",
-                                   (4,) * 3, 2, False, -1)
-            ms = time_ms(kern, iters)
-            plain_ms = time_ms(plain, iters // 5, warm=2)
-            ms_again = time_ms(kern, iters)
-            dev_ms, dev_n = device_ms_per_call(kern, "step1_kernel")
-            rec = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
-                   "device_launches_profiled": dev_n,
-                   "plain_ms": plain_ms, "shape": list(qbc.shape),
-                   **bound_of((qbc.numel() + 3 * n) * item,
-                              FLOPS_PER_CELL_STEP1 * n, tname)}
-            out["step1"][f"{n}:{tname}"] = rec
-            print(f"  timing step1 n={n} {tname}: wrapper call {ms:.4f} ms "
-                  f"(repeat {ms_again:.4f}), kernel on the device {dev_ms} "
-                  f"ms ({dev_n} launches profiled), plain {plain_ms:.4f} ms, "
-                  f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; bytes "
-                  f"{rec['bytes_ms']:.6f}, operations {rec['ops_ms']:.6f}), "
-                  f"library_ms null", flush=True)
-
-            q = padded_1d(q_np, dtype, dev, 3)
-
-            def wkern():
-                return weno.weno5(q)
-
-            def wplain():
-                return recon.weno5(q)
-            ms = time_ms(wkern, iters)
-            plain_ms = time_ms(wplain, iters // 5, warm=2)
-            ms_again = time_ms(wkern, iters)
-            dev_ms, dev_n = device_ms_per_call(wkern, "weno5_kernel")
-            rec = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
-                   "device_launches_profiled": dev_n,
-                   "plain_ms": plain_ms, "shape": list(q.shape),
-                   **bound_of(3 * q.numel() * item,
-                              FLOPS_PER_ENTRY_WENO5[tname] * q.numel(),
-                              tname)}
-            out["weno5"][f"{n}:{tname}"] = rec
-            print(f"  timing weno5 {tuple(q.shape)} {tname}: wrapper call "
-                  f"{ms:.4f} ms (repeat {ms_again:.4f}), kernel on the device "
-                  f"{dev_ms} ms ({dev_n} launches profiled), plain "
-                  f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.6f} ms "
-                  f"({rec['bound_by']}; bytes "
-                  f"{rec['bytes_ms']:.6f}, operations {rec['ops_ms']:.6f}), "
-                  f"library_ms null", flush=True)
+            qbc, args = step1_case(n, dtype, dev, state)
+            q = weno5_case(n, dtype, dev, state)
+            kerns = {
+                "step1": (lambda: sweep.step1(qbc, *args),
+                          lambda: kernels.step1(qbc, *args[:3],
+                                                args[3].rp, *args[4:]),
+                          "step1_kernel",
+                          bound_of((qbc.numel() + 3 * n) * item,
+                                   FLOPS_PER_CELL_STEP1 * n, tname),
+                          list(qbc.shape)),
+                "weno5": (lambda: weno.weno5(q), lambda: recon.weno5(q),
+                          "weno5_kernel",
+                          bound_of(3 * q.numel() * item,
+                                   FLOPS_PER_ENTRY_WENO5[tname] * q.numel(),
+                                   tname),
+                          list(q.shape))}
+            for name, (kern, plain, needle, bound, shape) in kerns.items():
+                ms = time_ms(kern, iters)
+                plain_ms = time_ms(plain, iters // 5, warm=2)
+                ms_again = time_ms(kern, iters)
+                dev_ms, dev_n = device_ms_per_call(kern, needle)
+                share = (bound["bound_ms"] / dev_ms if dev_ms else None)
+                rec = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                       "device_launches_profiled": dev_n,
+                       "plain_ms": plain_ms, "shape": shape,
+                       "share_of_device": share, **bound}
+                out[name][f"{prefix}{n}:{tname}"] = rec
+                print(f"  timing {name} {state} {tuple(shape)} {tname}: "
+                      f"wrapper call {ms:.4f} ms (repeat {ms_again:.4f}), "
+                      f"kernel on the device {dev_ms} ms ({dev_n} launches "
+                      f"profiled), plain {plain_ms:.4f} ms, bound "
+                      f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}; bytes "
+                      f"{rec['bytes_ms']:.6f}, operations "
+                      f"{rec['ops_ms']:.6f}), share of the device time "
+                      f"{share}, library_ms null", flush=True)
     return out
 
 
@@ -1823,6 +1816,17 @@ def device_group(key):
         if any(k in key for k in needles):
             return group
     return "elementwise"     # stage combines and other arithmetic
+
+
+def smooth_keys(tm):
+    """The record keys of a 1D kernel's timing on the smooth state at 2^20
+    (timing_1d), each type's device time and share of the bound."""
+    out = {}
+    for tname, suffix in (("float32", ""), ("float64", "_f64")):
+        rec = tm[f"smooth {2 ** 20}:{tname}"]
+        out[f"device_ms_smooth{suffix}"] = rec["device_ms"]
+        out[f"share_smooth{suffix}"] = rec["share_of_device"]
+    return out
 
 
 def profile_main_path(label, run_path):
@@ -1976,7 +1980,8 @@ def main():
     t0 = time.perf_counter()
     names = ["step2_ctu", "dq2_weno5", "step3_ctu", "step2_aos", "step1",
              "weno5", "step3_aos"]
-    lib, dq_lib, lib3, lib_aos, lib_s1, _, lib_3a = _build.load_all(names)
+    lib, dq_lib, lib3, lib_aos, lib_s1, lib_w5, lib_3a = _build.load_all(
+        names)
     print(f"[2] built csrc/step2_ctu.cu, csrc/dq2_weno5.cu, "
           f"csrc/step3_ctu.cu, csrc/step2_aos.cu, csrc/step1.cu, "
           f"csrc/weno5.cu and csrc/step3_aos.cu for sm_90a in "
@@ -2017,7 +2022,11 @@ def main():
           f"{lib3.step3_ctu_threads(1, 0, 0)} (f32), "
           f"{lib3.step3_ctu_threads(1, 0, 1)} (f64); step3_aos one block "
           f"of {lib_3a.step3_aos_threads(0)} threads (f32), "
-          f"{lib_3a.step3_aos_threads(1)} (f64)", flush=True)
+          f"{lib_3a.step3_aos_threads(1)} (f64); step1 (Euler) "
+          f"{lib_s1.step1_blocks_per_sm(0)} blocks of 256 threads (f32), "
+          f"{lib_s1.step1_blocks_per_sm(1)} (f64); weno5 (large tile) "
+          f"{lib_w5.weno5_blocks_per_sm(0)} blocks of 128 threads (f32), "
+          f"{lib_w5.weno5_blocks_per_sm(1)} (f64)", flush=True)
     for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
@@ -2522,6 +2531,7 @@ def main():
         "bound_ms_large_f64": big64["bound_ms"],
         "max_rel_err_f64": s1_worst["float64"],
         "max_rel_err_f32": s1_worst["float32"],
+        **smooth_keys(tm_1d["step1"]),
     }
     w32, w64 = tm_1d["weno5"]["800:float32"], tm_1d["weno5"]["800:float64"]
     wbig32 = tm_1d["weno5"][f"{2 ** 20}:float32"]
@@ -2550,6 +2560,7 @@ def main():
         "bound_ms_large_f64": wbig64["bound_ms"],
         "max_rel_err_f64": w5_worst["float64"],
         "max_rel_err_f32": w5_worst["float32"],
+        **smooth_keys(tm_1d["weno5"]),
     }
     h32, h64 = tm_het["float32"], tm_het["float64"]
     het_record = {

@@ -13,7 +13,7 @@
 //
 // What bounds it on the card: per cell it reads num_eqn values of q (and
 // one of the capacity function) and writes num_eqn (24 B per cell for
-// Euler in f32, 48 B in f64), and does 290 floating-point operations per
+// Euler in f32, 48 B in f64), and does 279 floating-point operations per
 // cell for Euler with the entropy fix and MC (chip_smoke.py:
 // FLOPS_PER_CELL_STEP1), among them divides and square roots: 12 (f32)
 // and 6 (f64) operations per byte, below the card's 20 and 10, so bytes
@@ -21,24 +21,39 @@
 // (100-800 cells) a launch does nanoseconds of work, so launch latency and
 // the host loop's CFL readback set the step.
 //
-// Design (that of step2_aos.cu, in one dimension): a block owns a tile of
-// NT interior cells and stages q, and with a capacity function the per-cell
-// dt/(dx kappa), with a 2-cell halo in shared memory.  Interface quantities
-// live in shared memory only.  Any n >= 1 and num_ghost >= 2 work: loads
-// are clamped to the padded array, and results past the last interior cell
-// are masked.
+// Design: a block of NT threads owns a tile of TILE = NT - 4 interior
+// cells, so that its staged cells (the tile and a 2-cell halo on each
+// side) are one a thread, and each phase's region (NT - 1 interfaces for
+// the Riemann solves, TILE + 1 for the limiter, TILE cells for the update)
+// takes one pass of the block.  Thread t owns staged cell t and the
+// interface to its right, so what a thread computes for its interface and
+// reads again in a later phase (the speeds, amdq, the correction flux)
+// stays in its registers; shared memory holds what a neighbour reads: q
+// and the system's per-cell quantities (csrc/systems1d.cuh: cell(),
+// computed once a cell in the load phase instead of at both of its
+// interfaces), with a capacity function the per-cell dt/(dx kappa), and
+// the waves, apdq and the correction flux of each interface (the last
+// aliases the per-cell quantities, dead by then).  q is read with plain
+// loads, not cp.async: the load phase computes each cell's quantities from
+// the values in registers.  The CFL partials fold by warp shuffles; three
+// barriers a block.  Any n >= 1 and num_ghost >=
+// 2 work: loads are clamped to the padded array, and results past the
+// last interior cell are masked.  Every variant's shared memory is below
+// the 48 KB a launch takes without an attribute.
 //
-// Phases (each a loop of the block's threads over a region, separated by
-// barriers):
-//   load    q (+ dt/(dx kappa)) of cells c0-2 .. c0+NT+1 -> shared
-//   rp      waves, speeds, amdq, apdq at interfaces c0-2 .. c0+NT -> shared
-//   limit   at interfaces c0-1 .. c0+NT-1: theta from the upwind
-//           neighbour's wave (dot product over all num_eqn components),
-//           phi (csrc/tvd.cuh), correction flux -> shared; CFL partial max
-//           over the window g-1 .. n-g-1 (classic/kernels.py:step1)
-//   update  q - dtdx (apdq_{i-1/2} + amdq_{i+1/2}), then
-//           - dtdx (cq_{i+1/2} - cq_{i-1/2}) for order 2
-//   reduce  tree max of the CFL partials; one value per block
+// Phases (separated by barriers; staged cell j is padded cell c0-2+j,
+// interface m lies between staged cells m and m+1):
+//   load    q (+ dt/(dx kappa)) of staged cell t into shared memory, and
+//           its per-cell quantities
+//   rp      waves, speeds, amdq, apdq at interface t (0 .. NT-2); the
+//           waves and apdq to shared memory
+//   limit   at interfaces 1 .. TILE+1: theta from the upwind neighbour's
+//           wave (dot product over all num_eqn components), phi
+//           (csrc/tvd.cuh), correction flux; CFL partial max over the
+//           window g-1 .. n-g-1 (classic/kernels.py:step1), folded per warp
+//   update  staged cells 2 .. TILE+1: q - dtdx (apdq_{i-1/2} +
+//           amdq_{i+1/2}), then - dtdx (cq_{i+1/2} - cq_{i-1/2}) for order
+//           2; thread 0 writes the block's CFL value
 //
 // Template parameters: the system, the type, CAPA (per-cell dtdx) and FWAVE
 // (the correction form 0.5 sign(s) (1 - |s| dt/dx), with sign(0) = 0).  The
@@ -48,21 +63,27 @@
 // sign branch on signs, so a contracted multiply-add that moved a speed
 // across zero would move the result by a whole wave.
 
+#include "async_copy.cuh"
 #include "systems1d.cuh"
 #include "tvd.cuh"
 
 namespace {
 
-constexpr int NT = 256;  // threads per block = interior cells per tile
+constexpr int NT = 256;        // threads per block = staged cells per tile
+constexpr int TILE = NT - 4;   // interior cells per tile
+constexpr int NWARP = NT / 32;
 
 template <typename S, typename T, bool CAPA> struct Tile {
-  static constexpr int NEQ = S::NEQ, NW = S::NW;
-  static constexpr int QN = NT + 4;          // cells c0-2 .. c0+NT+1
-  static constexpr int WN = NT + 3;          // interfaces c0-2 .. c0+NT
-  static constexpr int NWF = NW * NEQ + NW;  // waves, speeds
-  static constexpr size_t elems = NEQ * QN + (CAPA ? QN : 0) + NWF * WN
-      + 3 * NEQ * WN + NT;                   // + amdq, apdq, cq; CFL
+  static constexpr int NEQ = S::NEQ, NW = S::NW, NC = S::NC;
+  static constexpr int QN = NT;              // staged cells c0-2 .. c0+TILE+1
+  static constexpr int WN = NT - 1;          // interfaces between them
+  // per-cell quantities, then the correction flux in the same space
+  static constexpr int UN = NC * QN > NEQ * WN ? NC * QN : NEQ * WN;
+  static constexpr size_t elems = NEQ * QN + (CAPA ? QN : 0) + UN
+      + NW * NEQ * WN + NEQ * WN + NWARP;    // + waves, apdq; CFL
   static constexpr size_t bytes = elems * sizeof(T);
+  static_assert(bytes <= 48 * 1024, "a launch takes 48 KB without an "
+                "attribute");
 };
 
 template <typename T> struct Args {
@@ -83,79 +104,106 @@ template <typename S, typename T, bool CAPA> struct Block {
   using L = Tile<S, T, CAPA>;
   T* q;    // [NEQ][QN]
   T* DX;   // [QN] dt/(dx kappa) (CAPA)
-  T* W;    // [NWF][WN]: wave p component e at (p*NEQ+e), speeds after
-  T* F;    // [3*NEQ][WN]: amdq, apdq, cq
-  T* R;    // [NT] CFL partial max
+  T* C;    // [NC][QN] per-cell quantities (load, rp)
+  T* CQ;   // [NEQ][WN] correction flux (limit, update), aliasing C
+  T* W;    // [NW*NEQ][WN]: wave p component e at (p*NEQ+e)
+  T* AP;   // [NEQ][WN] apdq
+  T* R;    // [NWARP] CFL partial max of each warp
   int c0;  // padded index of the tile's first interior cell
 
   HD void bind(T* s, int b, int g) {
     q = s;
     DX = q + L::NEQ * L::QN;
-    W = DX + (CAPA ? L::QN : 0);
-    F = W + L::NWF * L::WN;
-    R = F + 3 * L::NEQ * L::WN;
-    c0 = g + b * NT;
+    C = DX + (CAPA ? L::QN : 0);
+    CQ = C;
+    W = C + L::UN;
+    AP = W + L::NW * L::NEQ * L::WN;
+    R = AP + L::NEQ * L::WN;
+    c0 = g + b * TILE;
   }
   HD T dtd(const Args<T>& A, int j) const { return CAPA ? DX[j] : A.dtdx; }
 };
 
-// ---- phase: stage q (and dt/(dx kappa)) of the tile + halo ----------------
-template <typename S, typename T, bool CAPA>
-HD void phase_load(const Args<T>& A, Block<S, T, CAPA>& B, int tid) {
-  using L = Tile<S, T, CAPA>;
-  constexpr int NF = L::NEQ + (CAPA ? 1 : 0);
-  for (int idx = tid; idx < NF * L::QN; idx += NT) {
-    const int f = idx / L::QN, j = idx % L::QN;
-    int I = B.c0 - 2 + j;
-    I = I < A.N ? I : A.N - 1;
-    if (f < L::NEQ) {
-      B.q[idx] = A.qbc[(long long)f * A.N + I];
-    } else {
-      B.DX[j] = A.dt / (A.dx * A.aux[(long long)A.capa * A.N + I]);
-    }
-  }
-  B.R[tid] = T(0);
-}
+// what a thread computes for its interface and reads again in a later
+// phase: in registers on the card, one per "thread" in the host emulation
+template <typename S, typename T> struct Regs {
+  T s[S::NW];      // speeds (rp -> limit)
+  T am[S::NEQ];    // amdq (rp -> update)
+  T cq[S::NEQ];    // correction flux (limit -> update)
+};
 
-// ---- phase: Riemann solves at the tile's interfaces -----------------------
+// ---- phase: stage q (and dt/(dx kappa)) of cell t, its quantities ---------
 template <typename S, typename T, bool CAPA>
-HD void phase_rp(const Args<T>& A, Block<S, T, CAPA>& B, int tid) {
+HD void phase_load(const Args<T>& A, Block<S, T, CAPA>& B, int t) {
   using L = Tile<S, T, CAPA>;
-  constexpr int NEQ = L::NEQ, NW = L::NW, QN = L::QN, WN = L::WN;
-  for (int m = tid; m < WN; m += NT) {
-    T ql[NEQ], qr[NEQ], w[NW][NEQ], s[NW], am[NEQ], ap[NEQ];
-    for (int e = 0; e < NEQ; ++e) {
-      ql[e] = B.q[e * QN + m];
-      qr[e] = B.q[e * QN + m + 1];
-    }
-    S::template rp<T>(A.P, ql, qr, w, s, am, ap);
-    for (int p = 0; p < NW; ++p) {
-      for (int e = 0; e < NEQ; ++e) B.W[(p * NEQ + e) * WN + m] = w[p][e];
-      B.W[(NW * NEQ + p) * WN + m] = s[p];
-    }
-    for (int e = 0; e < NEQ; ++e) {
-      B.F[e * WN + m] = am[e];
-      B.F[(NEQ + e) * WN + m] = ap[e];
-    }
+  constexpr int NEQ = L::NEQ, NC = L::NC, QN = L::QN;
+  int I = B.c0 - 2 + t;
+  I = I < A.N ? I : A.N - 1;
+  T q[NEQ];
+  for (int e = 0; e < NEQ; ++e) {
+    q[e] = A.qbc[(long long)e * A.N + I];
+    B.q[e * QN + t] = q[e];
+  }
+  if (CAPA) B.DX[t] = A.dt / (A.dx * A.aux[(long long)A.capa * A.N + I]);
+  if constexpr (NC > 0) {
+    T c[NC];
+    S::cell(A.P, q, c);
+    for (int k = 0; k < NC; ++k) B.C[k * QN + t] = c[k];
   }
 }
 
-// ---- phase: limiter, correction flux, CFL ---------------------------------
+// ---- phase: the Riemann solve at interface t -------------------------------
+template <typename S, typename T, bool CAPA>
+HD void phase_rp(const Args<T>& A, Block<S, T, CAPA>& B, Regs<S, T>& r,
+                 int t) {
+  using L = Tile<S, T, CAPA>;
+  constexpr int NEQ = L::NEQ, NW = L::NW, NC = L::NC, QN = L::QN;
+  constexpr int WN = L::WN;
+  if (t >= WN) return;
+  T ql[NEQ], qr[NEQ], cl[NC > 0 ? NC : 1], cr[NC > 0 ? NC : 1];
+  for (int e = 0; e < NEQ; ++e) {
+    ql[e] = B.q[e * QN + t];
+    qr[e] = B.q[e * QN + t + 1];
+  }
+  for (int k = 0; k < NC; ++k) {
+    cl[k] = B.C[k * QN + t];
+    cr[k] = B.C[k * QN + t + 1];
+  }
+  T w[NW][NEQ], ap[NEQ];
+  S::template rp<T>(A.P, ql, qr, cl, cr, w, r.s, r.am, ap);
+  for (int p = 0; p < NW; ++p)
+    for (int e = 0; e < NEQ; ++e) B.W[(p * NEQ + e) * WN + t] = w[p][e];
+  for (int e = 0; e < NEQ; ++e) B.AP[e * WN + t] = ap[e];
+}
+
+// fold thread t's CFL partial into its warp's slot: a shuffle max on the
+// card, a loop over the lanes on the host
+template <typename T> HD void warp_fold(T* red, int t, T v) {
+#if defined(__CUDACC__)
+  const T m = warp_max(v);
+  if (t % 32 == 0) red[t / 32] = m;
+#else
+  red[t / 32] = t % 32 == 0 ? v : mx(red[t / 32], v);
+#endif
+}
+
+// ---- phase: limiter, correction flux, CFL at interface t -------------------
 template <bool FWAVE, typename S, typename T, bool CAPA>
-HD void phase_limit(const Args<T>& A, Block<S, T, CAPA>& B, int tid) {
+HD void phase_limit(const Args<T>& A, Block<S, T, CAPA>& B, Regs<S, T>& r,
+                    int t) {
   using L = Tile<S, T, CAPA>;
   constexpr int NEQ = L::NEQ, NW = L::NW, WN = L::WN;
-  T cmax = B.R[tid];
-  for (int m = 1 + tid; m <= NT + 1; m += NT) {
-    // interface m lies between tile cells m (left) and m+1 (right)
+  T cmax = T(0);
+  const int m = t;
+  if (m >= 1 && m <= TILE + 1) {
+    // interface m lies between staged cells m (left) and m+1 (right)
     const T dl = B.dtd(A, m), dr = B.dtd(A, m + 1);
     const T dtdx = CAPA ? T(0.5) * (dl + dr) : dl;
-    T w[NW][NEQ], s[NW];
-    for (int p = 0; p < NW; ++p) {
+    const T* s = r.s;
+    T w[NW][NEQ];
+    for (int p = 0; p < NW; ++p)
       for (int e = 0; e < NEQ; ++e) w[p][e] = B.W[(p * NEQ + e) * WN + m];
-      s[p] = B.W[(NW * NEQ + p) * WN + m];
-    }
-    T cq[NEQ];
+    T* cq = r.cq;
     for (int e = 0; e < NEQ; ++e) cq[e] = T(0);
     if (A.order == 2) {
       T cf[NW];
@@ -190,7 +238,7 @@ HD void phase_limit(const Args<T>& A, Block<S, T, CAPA>& B, int tid) {
         cq[e] = acc;
       }
     }
-    for (int e = 0; e < NEQ; ++e) B.F[(2 * NEQ + e) * WN + m] = cq[e];
+    for (int e = 0; e < NEQ; ++e) B.CQ[e * WN + m] = cq[e];
     // CFL window: padded interfaces g-1 .. N-g-1
     if (B.c0 - 2 + m < A.N - A.g) {
       for (int p = 0; p < NW; ++p) {
@@ -199,43 +247,36 @@ HD void phase_limit(const Args<T>& A, Block<S, T, CAPA>& B, int tid) {
       }
     }
   }
-  B.R[tid] = cmax;
+  warp_fold(B.R, t, cmax);
 }
 
-// ---- phase: conservative update ---------------------------------------------
+// ---- phase: conservative update of staged cell t ---------------------------
 template <typename S, typename T, bool CAPA>
-HD void phase_update(const Args<T>& A, Block<S, T, CAPA>& B, int tid) {
+HD void phase_update(const Args<T>& A, Block<S, T, CAPA>& B,
+                     const Regs<S, T>& r, int t) {
   using L = Tile<S, T, CAPA>;
   constexpr int NEQ = L::NEQ, QN = L::QN, WN = L::WN;
-  const int i = B.c0 + tid;   // padded cell; tile cell tid+2
-  if (i >= A.N - A.g) return;
+  const int i = B.c0 - 2 + t;   // padded cell
+  if (t < 2 || t > TILE + 1 || i >= A.N - A.g) return;
   const int mx_cells = A.N - 2 * A.g;
-  const T dtc = B.dtd(A, tid + 2);
+  const T dtc = B.dtd(A, t);
   for (int e = 0; e < NEQ; ++e) {
-    const T ap = B.F[(NEQ + e) * WN + tid + 1];   // interface i-1/2
-    const T am = B.F[e * WN + tid + 2];           // interface i+1/2
-    T qn = B.q[e * QN + tid + 2] - dtc * (ap + am);
-    if (A.order == 2) {
-      const T* cq = B.F + (2 * NEQ + e) * WN;
-      qn = qn - dtc * (cq[tid + 2] - cq[tid + 1]);
-    }
+    const T ap = B.AP[e * WN + t - 1];   // interface i-1/2
+    const T am = r.am[e];                // interface i+1/2
+    T qn = B.q[e * QN + t] - dtc * (ap + am);
+    if (A.order == 2) qn = qn - dtc * (r.cq[e] - B.CQ[e * WN + t - 1]);
     A.qout[(long long)e * mx_cells + (i - A.g)] = qn;
   }
-}
-
-template <typename S, typename T, bool CAPA>
-HD void phase_reduce(Block<S, T, CAPA>& B, int tid, int stride) {
-  if (tid < stride) B.R[tid] = mx(B.R[tid], B.R[tid + stride]);
 }
 
 // one CFL value per block: max(s dt/dx) over its window; without a
 // capacity function the partials hold max|s| and the scalar dt/dx is
 // applied here (the same value: the product is monotone)
 template <typename S, typename T, bool CAPA>
-HD void phase_write_cfl(const Args<T>& A, Block<S, T, CAPA>& B, int b,
-                        int tid) {
-  if (tid != 0) return;
-  A.cflb[b] = CAPA ? B.R[0] : A.dtdx * B.R[0];
+HD T block_cfl(const Args<T>& A, const Block<S, T, CAPA>& B) {
+  T m = B.R[0];
+  for (int w = 1; w < NWARP; ++w) m = mx(m, B.R[w]);
+  return CAPA ? m : A.dtdx * m;
 }
 
 template <typename T>
@@ -259,7 +300,7 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
   return A;
 }
 
-int blocks_of(int n, int g) { return (n - 2 * g + NT - 1) / NT; }
+int blocks_of(int n, int g) { return (n - 2 * g + TILE - 1) / TILE; }
 
 #if defined(__CUDACC__)
 template <typename S, typename T, bool CAPA, bool FWAVE>
@@ -267,51 +308,52 @@ __global__ void __launch_bounds__(NT) step1_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Block<S, T, CAPA> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, A.g);
+  Regs<S, T> r;
   const int t = threadIdx.x;
   phase_load<S, T, CAPA>(A, B, t);
   __syncthreads();
-  phase_rp<S, T, CAPA>(A, B, t);
+  phase_rp<S, T, CAPA>(A, B, r, t);
   __syncthreads();
-  phase_limit<FWAVE, S, T, CAPA>(A, B, t);
+  phase_limit<FWAVE, S, T, CAPA>(A, B, r, t);
   __syncthreads();
-  phase_update<S, T, CAPA>(A, B, t);
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    phase_reduce<S, T, CAPA>(B, t, s);
-    __syncthreads();
-  }
-  phase_write_cfl<S, T, CAPA>(A, B, blockIdx.x, t);
+  phase_update<S, T, CAPA>(A, B, r, t);
+  if (t == 0) A.cflb[blockIdx.x] = block_cfl(A, B);
 }
 
 template <typename S, typename T, bool CAPA, bool FWAVE>
 int launch(const Args<T>& A, int nb, void* stream) {
-  constexpr size_t bytes = Tile<S, T, CAPA>::bytes;
-  // The limit applies to the current device only: set it on every launch.
-  cudaError_t err = cudaFuncSetAttribute(
-      step1_kernel<S, T, CAPA, FWAVE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
   step1_kernel<S, T, CAPA, FWAVE>
-      <<<nb, NT, bytes, static_cast<cudaStream_t>(stream)>>>(A);
+      <<<nb, NT, Tile<S, T, CAPA>::bytes,
+         static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
+}
+
+// resident blocks per SM of the wave-form variant of system S
+template <typename S, typename T> int blocks_per_sm() {
+  int nb = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, step1_kernel<S, T, false, false>, NT, Tile<S, T, false>::bytes);
+  return nb;
 }
 #else
 // Host emulation: the same phases, one block and one "thread" at a time,
 // with each barrier between two phases kept by running the whole block
-// through a phase before the next.  Used by the CPU tests to check the
-// kernel's index algebra against the plain version without a card.
+// through a phase before the next, and each thread's registers kept in an
+// array.  Used by the CPU tests to check the kernel's index algebra against
+// the plain version without a card.
 template <typename S, typename T, bool CAPA, bool FWAVE>
 int launch(const Args<T>& A, int nb, void*) {
   std::vector<T> smem(Tile<S, T, CAPA>::elems);
+  std::vector<Regs<S, T>> regs(NT);
   for (int b = 0; b < nb; ++b) {
     Block<S, T, CAPA> B;
     B.bind(smem.data(), b, A.g);
     for (int t = 0; t < NT; ++t) phase_load<S, T, CAPA>(A, B, t);
-    for (int t = 0; t < NT; ++t) phase_rp<S, T, CAPA>(A, B, t);
-    for (int t = 0; t < NT; ++t) phase_limit<FWAVE, S, T, CAPA>(A, B, t);
-    for (int t = 0; t < NT; ++t) phase_update<S, T, CAPA>(A, B, t);
-    for (int s = NT / 2; s > 0; s >>= 1)
-      for (int t = 0; t < NT; ++t) phase_reduce<S, T, CAPA>(B, t, s);
-    for (int t = 0; t < NT; ++t) phase_write_cfl<S, T, CAPA>(A, B, b, t);
+    for (int t = 0; t < NT; ++t) phase_rp<S, T, CAPA>(A, B, regs[t], t);
+    for (int t = 0; t < NT; ++t)
+      phase_limit<FWAVE, S, T, CAPA>(A, B, regs[t], t);
+    for (int t = 0; t < NT; ++t) phase_update<S, T, CAPA>(A, B, regs[t], t);
+    A.cflb[b] = block_cfl(A, B);
   }
   return 0;
 }
@@ -382,6 +424,15 @@ int step1_smem_bytes(int system, int capa, int is_double) {
     default: return smem_of<EulerRoe1D<true>>(capa, is_double);
   }
 }
+
+#if defined(__CUDACC__)
+// Resident blocks per SM of Euler with the entropy fix (reported by
+// chip_smoke.py).
+int step1_blocks_per_sm(int is_double) {
+  return is_double ? blocks_per_sm<EulerRoe1D<true>, double>()
+                   : blocks_per_sm<EulerRoe1D<true>, float>();
+}
+#endif
 
 // One 1D sweep.  qbc: (num_eqn, n) ghost-padded (g >= 2 ghost cells); aux:
 // (num_aux, n) or null when capa < 0; qout: (num_eqn, n-2g); cflb:

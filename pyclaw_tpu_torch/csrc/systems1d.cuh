@@ -7,8 +7,12 @@
 //   EulerHlle1D       euler.py:_rp1_euler_hlle
 // A Python scalar is rounded to T where it meets a tensor (P1d holds the
 // rounded values); PyTorch's `float / tensor` is reciprocal(tensor) * float
-// and is written so here.  Each system's rp() returns the waves w[p][e], the
-// speeds s[p] and the fluctuations amdq, apdq of one interface.
+// and is written so here.  Each system's cell() computes NC quantities of
+// one cell that its rp() reads at both of the cell's interfaces (the same
+// expressions the interface would compute, so the bits do not depend on
+// where they are computed); rp() takes the two cells' states and
+// quantities and returns the waves w[p][e], the speeds s[p] and the
+// fluctuations amdq, apdq of one interface.
 //
 // Compiles with nvcc and, without __CUDACC__, with a host C++ compiler for
 // the kernel's host emulation (ops/_build.py:build_host_emulation).
@@ -39,10 +43,12 @@ template <typename T> struct P1d {
 
 // ---- advection_1D ---------------------------------------------------------
 struct Advection1D {
-  static constexpr int NEQ = 1, NW = 1;
+  static constexpr int NEQ = 1, NW = 1, NC = 0;
   template <typename T>
-  static HD void rp(const P1d<T>& P, const T ql[1], const T qr[1],
-                    T w[1][1], T s[1], T am[1], T ap[1]) {
+  static HD void cell(const P1d<T>&, const T*, T*) {}
+  template <typename T>
+  static HD void rp(const P1d<T>& P, const T ql[1], const T qr[1], const T*,
+                    const T*, T w[1][1], T s[1], T am[1], T ap[1]) {
     const T dq = qr[0] - ql[0];
     w[0][0] = dq;
     s[0] = P.u;
@@ -53,10 +59,12 @@ struct Advection1D {
 
 // ---- acoustics_1D: q = (p, u) ----------------------------------------------
 struct Acoustics1D {
-  static constexpr int NEQ = 2, NW = 2;
+  static constexpr int NEQ = 2, NW = 2, NC = 0;
   template <typename T>
-  static HD void rp(const P1d<T>& P, const T ql[2], const T qr[2],
-                    T w[2][2], T s[2], T am[2], T ap[2]) {
+  static HD void cell(const P1d<T>&, const T*, T*) {}
+  template <typename T>
+  static HD void rp(const P1d<T>& P, const T ql[2], const T qr[2], const T*,
+                    const T*, T w[2][2], T s[2], T am[2], T ap[2]) {
     const T d0 = qr[0] - ql[0], d1 = qr[1] - ql[1];
     const T a1 = (-d0 + P.zz * d1) / P.z2;
     const T a2 = (d0 + P.zz * d1) / P.z2;
@@ -74,23 +82,27 @@ struct Acoustics1D {
 };
 
 // ---- Euler 1D: q = (rho, rho u, E) -----------------------------------------
-// Roe-averaged velocity, enthalpy and sound speed (euler.py:_roe_averages
-// with vel_idx = (1,))
+// A cell's part of the Roe average (euler.py:_roe_averages with vel_idx =
+// (1,)): sqrt(rho) as rho * rsqrt(rho), mom * rsqrt(rho) and the enthalpy
+// H = (E + p) / rho, with 1/rho as rsqrt(rho)^2
+enum { C_SR = 0, C_MR = 1, C_H = 2, ROE_NC = 3 };
+template <typename T> HD void roe_cell(const P1d<T>& P, const T q[3], T c[]) {
+  const T ir = rsqrt_(q[0]);
+  const T rinv = ir * ir;
+  const T ke = T(0.5) * (q[1] * q[1]) * rinv;
+  const T p = P.g1 * (q[2] - ke);
+  c[C_SR] = q[0] * ir;
+  c[C_MR] = q[1] * ir;
+  c[C_H] = (q[2] + p) * rinv;
+}
+
+// Roe-averaged velocity, enthalpy and sound speed of two cells' parts
 template <typename T> struct Roe1 {
   T u, H, a2, a;
-  HD Roe1(const P1d<T>& P, const T ql[3], const T qr[3]) {
-    const T irl = rsqrt_(ql[0]), irr = rsqrt_(qr[0]);
-    const T srl = ql[0] * irl, srr = qr[0] * irr;
-    const T rinv_l = irl * irl, rinv_r = irr * irr;
-    const T w = T(1) / (srl + srr);
-    u = (ql[1] * irl + qr[1] * irr) * w;
-    const T ke_l = T(0.5) * (ql[1] * ql[1]) * rinv_l;
-    const T ke_r = T(0.5) * (qr[1] * qr[1]) * rinv_r;
-    const T p_l = P.g1 * (ql[2] - ke_l);
-    const T p_r = P.g1 * (qr[2] - ke_r);
-    const T H_l = (ql[2] + p_l) * rinv_l;
-    const T H_r = (qr[2] + p_r) * rinv_r;
-    H = (srl * H_l + srr * H_r) * w;
+  HD Roe1(const P1d<T>& P, const T cl[], const T cr[]) {
+    const T w = T(1) / (cl[C_SR] + cr[C_SR]);
+    u = (cl[C_MR] + cr[C_MR]) * w;
+    H = (cl[C_SR] * cl[C_H] + cr[C_SR] * cr[C_H]) * w;
     a2 = P.g1 * (H - T(0.5) * (u * u));
     a = sqrt_(a2);
   }
@@ -107,10 +119,19 @@ HD void sound1(const P1d<T>& P, T rho, T mom, T E, T& u, T& c) {
 
 template <bool EFIX> struct EulerRoe1D {
   static constexpr int NEQ = 3, NW = 3;
+  // the Roe parts and, for the entropy fix, sound1's u and c of the cell
+  enum { C_U = ROE_NC, C_C = ROE_NC + 1 };
+  static constexpr int NC = EFIX ? ROE_NC + 2 : ROE_NC;
+  template <typename T>
+  static HD void cell(const P1d<T>& P, const T q[3], T c[]) {
+    roe_cell(P, q, c);
+    if constexpr (EFIX) sound1(P, q[0], q[1], q[2], c[C_U], c[C_C]);
+  }
   template <typename T>
   static HD void rp(const P1d<T>& P, const T ql[3], const T qr[3],
-                    T w[3][3], T s[3], T am[3], T ap[3]) {
-    const Roe1<T> r(P, ql, qr);
+                    const T cl[], const T cr[], T w[3][3], T s[3], T am[3],
+                    T ap[3]) {
+    const Roe1<T> r(P, cl, cr);
     const T u = r.u, H = r.H, a = r.a;
     const T d0 = qr[0] - ql[0], d1 = qr[1] - ql[1], d2 = qr[2] - ql[2];
     const T a2c = ((T(1) / r.a2) * P.g1) * ((H - u * u) * d0 + u * d1 - d2);
@@ -132,12 +153,10 @@ template <bool EFIX> struct EulerRoe1D {
       return;
     }
     // Harten entropy fix: transonic 1- and 3-rarefactions get a split speed
-    T u_l, c_l, u_r, c_r, u_m, c_m;
-    sound1(P, ql[0], ql[1], ql[2], u_l, c_l);
-    sound1(P, qr[0], qr[1], qr[2], u_r, c_r);
+    T u_m, c_m;
     // state just right of the 1-wave
     sound1(P, ql[0] + w[0][0], ql[1] + w[0][1], ql[2] + w[0][2], u_m, c_m);
-    const T lam1_l = u_l - c_l, lam1_m = u_m - c_m;
+    const T lam1_l = cl[C_U] - cl[C_C], lam1_m = u_m - c_m;
     const bool trans1 = lam1_l < T(0) && lam1_m > T(0);
     const T den1 = lam1_m - lam1_l;
     const T sf1 = trans1
@@ -146,7 +165,7 @@ template <bool EFIX> struct EulerRoe1D {
     const T sf2 = mn(s[1], T(0));
     // state just left of the 3-wave
     sound1(P, qr[0] - w[2][0], qr[1] - w[2][1], qr[2] - w[2][2], u_m, c_m);
-    const T lam3_m = u_m + c_m, lam3_r = u_r + c_r;
+    const T lam3_m = u_m + c_m, lam3_r = cr[C_U] + cr[C_C];
     const bool trans3 = lam3_m < T(0) && lam3_r > T(0);
     const T den3 = lam3_r - lam3_m;
     const T sf3 = trans3
@@ -163,17 +182,25 @@ template <bool EFIX> struct EulerRoe1D {
 // ---- euler_hlle_1D: two waves through the intermediate state ---------------
 struct EulerHlle1D {
   static constexpr int NEQ = 3, NW = 2;
+  // the Roe parts, then the cell's velocity, pressure and sound speed
+  enum { C_U = ROE_NC, C_P = ROE_NC + 1, C_C = ROE_NC + 2 };
+  static constexpr int NC = ROE_NC + 3;
+  template <typename T>
+  static HD void cell(const P1d<T>& P, const T q[3], T c[]) {
+    roe_cell(P, q, c);
+    c[C_U] = q[1] / q[0];
+    c[C_P] = P.g1 * (q[2] - T(0.5) * (q[1] * q[1]) / q[0]);
+    c[C_C] = sqrt_(P.gamma * c[C_P] / q[0]);
+  }
   template <typename T>
   static HD void rp(const P1d<T>& P, const T ql[3], const T qr[3],
-                    T w[2][3], T s[2], T am[3], T ap[3]) {
-    const Roe1<T> r(P, ql, qr);
-    const T u_l = ql[1] / ql[0], u_r = qr[1] / qr[0];
-    const T p_l = P.g1 * (ql[2] - T(0.5) * (ql[1] * ql[1]) / ql[0]);
-    const T p_r = P.g1 * (qr[2] - T(0.5) * (qr[1] * qr[1]) / qr[0]);
-    const T c_l = sqrt_(P.gamma * p_l / ql[0]);
-    const T c_r = sqrt_(P.gamma * p_r / qr[0]);
-    const T s1 = mn(r.u - r.a, u_l - c_l);
-    const T s2 = mx(r.u + r.a, u_r + c_r);
+                    const T cl[], const T cr[], T w[2][3], T s[2], T am[3],
+                    T ap[3]) {
+    const Roe1<T> r(P, cl, cr);
+    const T u_l = cl[C_U], u_r = cr[C_U];
+    const T p_l = cl[C_P], p_r = cr[C_P];
+    const T s1 = mn(r.u - r.a, u_l - cl[C_C]);
+    const T s2 = mx(r.u + r.a, u_r + cr[C_C]);
     const T f_l[3] = {ql[1], ql[1] * u_l + p_l, u_l * (ql[2] + p_l)};
     const T f_r[3] = {qr[1], qr[1] * u_r + p_r, u_r * (qr[2] + p_r)};
     const T ds = s2 - s1;

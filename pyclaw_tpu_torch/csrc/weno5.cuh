@@ -1,7 +1,9 @@
 // weno5.cuh — Jiang-Shu WENO5 edge values of one five-value stencil, shared
 // by dq2_weno5.cu and weno5.cu: pyclaw_tpu_torch/limiters/recon.py
 // weno5_stencil, operation for operation, with its float32/float64 branch
-// as an overload.
+// as an overload.  weno5.cu computes the betas and candidate values of
+// consecutive stencils itself (sharing their common terms) and calls the
+// weights part alone.
 //
 // Compiles with nvcc and, without __CUDACC__, with a host C++ compiler for
 // the kernels' host emulation (ops/_build.py:build_host_emulation).
@@ -36,11 +38,13 @@ HD void weno5_betas_polys(T vm2, T vm1, T v0, T vp1, T vp2, T b[3], T p[3],
   m[2] = (T(11) * v0 - T(7) * vp1 + T(2) * vp2) / T(6);
 }
 
+// The weights of a stencil's betas (weno5_w) and the edge values they
+// give its candidate values (weno5_apply).
+template <typename T> struct Weno5W;
+
 // float64: the reference weights d_k / (EPWENO + beta_k)^2
-HD void weno5(double vm2, double vm1, double v0, double vp1, double vp2,
-              double& ql, double& qr) {
-  double b[3], p[3], m[3];
-  weno5_betas_polys(vm2, vm1, v0, vp1, vp2, b, p, m);
+template <> struct Weno5W<double> { double a0, a1, a2, c0, c1, c2; };
+HD Weno5W<double> weno5_w(const double b[3]) {
   const double EPWENO = 1e-36;
   double t;
   t = EPWENO + b[0];
@@ -49,17 +53,17 @@ HD void weno5(double vm2, double vm1, double v0, double vp1, double vp2,
   const double ib1 = 1.0 / (t * t);
   t = EPWENO + b[2];
   const double ib2 = 1.0 / (t * t);
-  const double a0 = 0.1 * ib0, a1 = 0.6 * ib1, a2 = 0.3 * ib2;
-  qr = (a0 * p[0] + a1 * p[1] + a2 * p[2]) / (a0 + a1 + a2);
-  const double c0 = 0.3 * ib0, c1 = 0.6 * ib1, c2 = 0.1 * ib2;
-  ql = (c0 * m[0] + c1 * m[1] + c2 * m[2]) / (c0 + c1 + c2);
+  return {0.1 * ib0, 0.6 * ib1, 0.3 * ib2, 0.3 * ib0, 0.6 * ib1, 0.1 * ib2};
+}
+HD void weno5_apply(const Weno5W<double>& w, const double p[3],
+                    const double m[3], double& ql, double& qr) {
+  qr = (w.a0 * p[0] + w.a1 * p[1] + w.a2 * p[2]) / (w.a0 + w.a1 + w.a2);
+  ql = (w.c0 * m[0] + w.c1 * m[1] + w.c2 * m[2]) / (w.c0 + w.c1 + w.c2);
 }
 
 // float32: normalised betas scaled by 1e3, one reciprocal for both edges
-HD void weno5(float vm2, float vm1, float v0, float vp1, float vp2,
-              float& ql, float& qr) {
-  float b[3], p[3], m[3];
-  weno5_betas_polys(vm2, vm1, v0, vp1, vp2, b, p, m);
+template <> struct Weno5W<float> { float a0, a1, a2, c0, c1, c2, fr, fl; };
+HD Weno5W<float> weno5_w(const float b[3]) {
   const float r = 1e3f / (b[0] + b[1] + b[2] + 1e-30f);
   const float e0 = 1e-3f + b[0] * r;
   const float e1 = 1e-3f + b[1] * r;
@@ -76,8 +80,21 @@ HD void weno5(float vm2, float vm1, float v0, float vp1, float vp2,
   const float den_r = a0 + a1 + a2;
   const float den_l = c0 + c1 + c2;
   const float inv = 1.0f / (den_r * den_l);
-  qr = (a0 * p[0] + a1 * p[1] + a2 * p[2]) * (den_l * inv);
-  ql = (c0 * m[0] + c1 * m[1] + c2 * m[2]) * (den_r * inv);
+  return {a0, a1, a2, c0, c1, c2, den_l * inv, den_r * inv};
+}
+HD void weno5_apply(const Weno5W<float>& w, const float p[3],
+                    const float m[3], float& ql, float& qr) {
+  qr = (w.a0 * p[0] + w.a1 * p[1] + w.a2 * p[2]) * w.fr;
+  ql = (w.c0 * m[0] + w.c1 * m[1] + w.c2 * m[2]) * w.fl;
+}
+
+// the edge values of one stencil: its betas and candidate values, then the
+// weights of its type
+template <typename T>
+HD void weno5(T vm2, T vm1, T v0, T vp1, T vp2, T& ql, T& qr) {
+  T b[3], p[3], m[3];
+  weno5_betas_polys(vm2, vm1, v0, vp1, vp2, b, p, m);
+  weno5_apply(weno5_w(b), p, m, ql, qr);
 }
 
 }  // namespace

@@ -33,10 +33,9 @@ STEP1_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                   + [ctypes.c_double] * 4 + [ctypes.c_int] * 4)
 
 
-@functools.cache
-def _lib():
-    from . import _build
-    lib = _build.load("step1")
+def bind_lib(lib):
+    """Set the argument types of a ctypes handle of a build of
+    ``csrc/step1.cu``; returns it."""
     for name in ("step1_f32", "step1_f64"):
         fn = getattr(lib, name)
         fn.argtypes = STEP1_ARGTYPES + [ctypes.c_void_p]
@@ -44,6 +43,12 @@ def _lib():
     lib.step1_blocks.argtypes = [ctypes.c_int] * 2
     lib.step1_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib():
+    from . import _build
+    return bind_lib(_build.load("step1"))
 
 
 def check_options(mthlim, order, num_waves, num_ghost):
@@ -70,7 +75,7 @@ def system_params(rp, params):
 
 
 def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
-          num_ghost=2):
+          num_ghost=2, lib=None):
     """One classic 1D step (step1.f90).
 
     qbc: (num_eqn, mx + 2 num_ghost) ghost-padded q; auxbc: (num_aux,
@@ -79,7 +84,8 @@ def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
     Python float that is exact in it); ``index_capa`` >= 0 names the aux
     row of the capacity function.  Returns (q (num_eqn, mx), cfl as a 0-d
     tensor).  On a CPU tensor this is ``classic/kernels.py:step1``; on a
-    CUDA tensor one launch of ``csrc/step1.cu``."""
+    CUDA tensor one launch of ``csrc/step1.cu`` (``lib``: a handle bound by
+    :func:`bind_lib`, another build of it, or None for this checkout's)."""
     check_options(mthlim, order, rp.num_waves, num_ghost)
     if qbc.device.type == "cpu":
         return kernels.step1(qbc, auxbc, dt, dx, rp.rp, params, mthlim,
@@ -113,7 +119,7 @@ def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
         if not auxbc.is_contiguous():
             raise ValueError("step1: auxbc must be contiguous")
         aux_ptr = auxbc.data_ptr()
-    lib = _lib()
+    lib = _lib() if lib is None else lib
     q_out = torch.empty((rp.num_eqn, n - 2 * g), dtype=qbc.dtype,
                         device=qbc.device)
     cfl_blocks = torch.empty((lib.step1_blocks(n, g),), dtype=qbc.dtype,

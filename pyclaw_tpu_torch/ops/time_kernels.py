@@ -5,12 +5,17 @@ and the timers and timed cases that ``chip_smoke.py`` uses too.
         [--out FILE] [--sass]
 
 KERNEL is ``step2_ctu``, ``dq2_weno5``, ``step3_ctu``, ``step3_aos``,
-``step2_aos`` or ``euler3d_capa`` (the source ``step3_ctu.cu`` on the
-Euler capacity path's case), timed through its wrapper in
-``ops/tiled2d.py`` on the case that ``chip_smoke.py`` times
-(:func:`step2_ctu_case`, :func:`dq_case`, :func:`step3_ctu_case`,
-:func:`step3_aos_case`, :func:`step2_aos_case`,
-:func:`euler3d_capa_case`).  Each VARIANT is
+``step2_aos``, ``euler3d_capa`` (the source ``step3_ctu.cu`` on the
+Euler capacity path's case), ``step1`` or ``weno5``, timed through its
+wrapper in ``ops/tiled2d.py``, ``ops/sweep.py`` or ``ops/weno.py`` on the
+case that ``chip_smoke.py`` times (:func:`step2_ctu_case`,
+:func:`dq_case`, :func:`step3_ctu_case`, :func:`step3_aos_case`,
+:func:`step2_aos_case`, :func:`euler3d_capa_case`, :func:`step1_case`,
+:func:`weno5_case`).  The two 1D kernels are timed on two states at 2^20
+cells, the Sod tube's initial state (two constant states: all but one
+interface carry no wave) and a seeded smooth state (:func:`smooth_state`:
+every interface works), and on the Sod state at their path's shape (800
+cells; (3, 806)).  Each VARIANT is
 ``LABEL=ROOT[@SOURCE][:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/
 csrc/KERNEL.cu`` (ROOT a checkout, for example an unpacked ``git
 archive`` of a parent commit, or a copy with an edited source) built with
@@ -21,9 +26,10 @@ another source of ROOT for the same case: for ``euler3d_capa``,
 system (system id 3, before ``step3_ctu.cu`` took the capacity path),
 called through its own entry.  All builds start together.
 
-For float32 and float64 it prints each build's ptxas lines, each
-variant's output against the first variant's (max |difference| relative
-to max |output|, and the CFL), and its time: CUDA events over a run of
+For float32 and float64 (and each state) it prints each build's ptxas
+lines, each variant's output against the first variant's (max
+|difference| relative to max |output|, whether it is equal bit for bit,
+and the CFL), and its time: CUDA events over a run of
 calls, taken in turns (the variants in order, then in reverse, so two
 variants run old, new, new, old), and the device time per launch from
 torch.profiler.  With ``--sass`` it also prints, for each build, the
@@ -50,7 +56,8 @@ import torch
 from . import _build
 
 ITERS = {"step2_ctu": 200, "dq2_weno5": 100, "step3_ctu": 10,
-         "step3_aos": 20, "step2_aos": 200, "euler3d_capa": 10}
+         "step3_aos": 20, "step2_aos": 200, "euler3d_capa": 10,
+         "step1": 200, "weno5": 200}
 # the source of each KERNEL that is not its own name
 SOURCE = {"euler3d_capa": "step3_ctu"}
 
@@ -252,6 +259,62 @@ def step2_aos_case(n, dtype, dev):
                  2, False, -1, 2, 2)
 
 
+def sod_state(n):
+    """q of examples.euler_1d_shocktube at n cells (a CPU array)."""
+    from ..examples import euler_1d_shocktube as ex
+    return ex.setup(nx=n, outdir=None, device="cpu").solution.q
+
+
+def smooth_state(n, seed=0):
+    """A seeded smooth Euler state (gamma 1.4) at n cells of [-0.5, 0.5]:
+    rho, u and p each a constant plus four sine modes a_k sin(2 pi k x +
+    phi_k), k drawn from 1..64, with amplitudes summing to at most 0.2
+    (rho, p in 0.8 .. 1.2) and 0.4 (|u| <= 0.4).  Every interface then
+    carries waves, u takes both signs, and no rarefaction is transonic:
+    |u| stays well below the sound speed (about 1.2)."""
+    rng = np.random.default_rng(seed)
+    x = (np.arange(n) + 0.5) / n - 0.5
+
+    def field(mean, amp):
+        k = rng.choice(np.arange(1, 65), 4, replace=False)
+        phase = rng.uniform(0.0, 2.0 * np.pi, 4)
+        a = amp / 4 * rng.uniform(0.5, 1.0, 4)
+        return mean + sum(a[j] * np.sin(2.0 * np.pi * k[j] * x + phase[j])
+                          for j in range(4))
+    rho, u, p = field(1.0, 0.2), field(0.0, 0.4), field(1.0, 0.2)
+    return np.stack([rho, rho * u, p / 0.4 + 0.5 * rho * u * u])
+
+
+def padded_1d(q_np, dtype, dev, num_ghost):
+    """1D q extended by ``num_ghost`` extrapolated cells at each end."""
+    from .. import bc
+    q = torch.as_tensor(q_np, dtype=dtype, device=dev)
+    return bc.extend(q, num_ghost, [bc.BC.extrap], [bc.BC.extrap])
+
+
+STATES_1D = {"sod": sod_state, "smooth": smooth_state}
+
+
+def step1_case(n, dtype, dev, state="sod"):
+    """step1's timed case at n cells, the classic Sod path's configuration
+    on ``state`` (a name of :data:`STATES_1D`): qbc (2 extrapolated ghost
+    cells) and the rest of ``sweep.step1``'s arguments (no aux, dt = 0.5
+    dx, dx = 1/n, euler_with_efix_1D, gamma 1.4, MC, order 2, no
+    f-waves, no capacity, 2 ghost cells)."""
+    from .. import riemann
+    qbc = padded_1d(STATES_1D[state](n), dtype, dev, 2)
+    dx = 1.0 / n
+    return qbc, (None, _exact(0.5 * dx, dtype), dx,
+                 riemann.euler_with_efix_1D, {"gamma": 1.4}, (4,) * 3, 2,
+                 False, -1, 2)
+
+
+def weno5_case(n, dtype, dev, state="sod"):
+    """weno5's timed case at n cells, the SharpClaw Sod path's input on
+    ``state``: q with 3 extrapolated ghost cells, (3, n + 6)."""
+    return padded_1d(STATES_1D[state](n), dtype, dev, 3)
+
+
 def _step2_ctu_call(dtype, dev, n=1024):
     from . import tiled2d
     qbc, args = step2_ctu_case(n, dtype, dev)
@@ -341,6 +404,46 @@ def _euler3d_capa_call(dtype, dev, n=192):
     return make
 
 
+# the 1D kernels' timed states: name -> (state, cells)
+CASES_1D = {"sod": ("sod", 2 ** 20), "smooth": ("smooth", 2 ** 20),
+            "sod 800": ("sod", 800)}
+
+
+def _step1_call(dtype, dev):
+    from . import sweep
+    makes = {}
+    for label, (state, n) in CASES_1D.items():
+        qbc, args = step1_case(n, dtype, dev, state)
+
+        def make(lib, source=None, qbc=qbc, args=args):
+            lib = sweep.bind_lib(lib)
+            return lambda: sweep.step1(qbc, *args, lib=lib)
+        makes[label] = make
+    return makes
+
+
+def _weno5_call(dtype, dev):
+    from . import weno
+    makes = {}
+    for label, (state, n) in CASES_1D.items():
+        q = weno5_case(n, dtype, dev, state)
+
+        def make(lib, source=None, q=q):
+            lib = weno.bind_lib(lib)
+            return lambda: weno.weno5(q, lib=lib)
+        makes[label] = make
+    return makes
+
+
+def _outputs(res):
+    """(output tensor, CFL as a float or None) of a wrapper's result: a
+    step's (q, cfl) or weno5's (ql, qr), the two edges stacked."""
+    a, b = res
+    if b.dim() == 0:
+        return a, float(b)
+    return torch.stack([a, b]), None
+
+
 # ---- variants -----------------------------------------------------------
 
 def _build_variants(variants):
@@ -425,41 +528,54 @@ def run(kernel, variants, sass=False):
             "step3_ctu": _step3_ctu_call,
             "step3_aos": _step3_aos_call,
             "step2_aos": _step2_aos_call,
-            "euler3d_capa": _euler3d_capa_call}[kernel]
+            "euler3d_capa": _euler3d_capa_call,
+            "step1": _step1_call, "weno5": _weno5_call}[kernel]
     result = {"kernel": kernel, "card": card, "order": order, "types": {},
               "sass": result_sass}
     for dtype in (torch.float32, torch.float64):
         tname = str(dtype).split(".")[1]
-        make = case(dtype, dev)
-        calls = {label: make(libs[label], sources[label])
-                 for label in labels}
-        ref_out, ref_cfl = None, None
-        per = {}
-        for label in labels:
-            out, cfl = calls[label]()
-            cfl = float(cfl)
-            if ref_out is None:
-                ref_out, ref_cfl = out.clone(), cfl
-            diff = float((out - ref_out).abs().max() / ref_out.abs().max())
-            per[label] = {"rel_diff_vs_first": diff, "cfl": cfl,
-                          "cfl_equal": cfl == ref_cfl, "events_ms": []}
-        for label in order:
-            per[label]["events_ms"].append(
-                events_ms(calls[label], ITERS[kernel], warm=3))
-        for label in labels:
-            dev_ms, dev_n = device_ms_per_call(
-                calls[label], f"{sources[label]}_kernel", 10)
-            per[label]["device_ms"] = dev_ms
-            per[label]["device_launches_profiled"] = dev_n
-            print(f"  {kernel} {tname} [{label}]: events ms "
-                  f"{per[label]['events_ms']}, device ms {dev_ms} "
-                  f"({dev_n} launches), rel diff vs {labels[0]} "
-                  f"{per[label]['rel_diff_vs_first']:.3e}, cfl "
-                  f"{per[label]['cfl']!r}", flush=True)
-        result["types"][tname] = per
-        del calls, ref_out
+        makes = case(dtype, dev)
+        if callable(makes):
+            makes = {"": makes}
+        for state, make in makes.items():
+            key = f"{tname} {state}" if state else tname
+            result["types"][key] = _time_state(
+                kernel, key, make, libs, sources, labels, order)
+        del makes
         torch.cuda.empty_cache()
     return result
+
+
+def _time_state(kernel, key, make, libs, sources, labels, order):
+    """Each variant's output against the first one's and its times on one
+    timed state."""
+    calls = {label: make(libs[label], sources[label]) for label in labels}
+    ref_out, ref_cfl = None, None
+    per = {}
+    for label in labels:
+        out, cfl = _outputs(calls[label]())
+        if ref_out is None:
+            ref_out, ref_cfl = out.clone(), cfl
+        diff = float((out - ref_out).abs().max() / ref_out.abs().max())
+        per[label] = {"rel_diff_vs_first": diff,
+                      "equal": bool(torch.equal(out, ref_out)), "cfl": cfl,
+                      "cfl_equal": cfl == ref_cfl, "events_ms": []}
+    for label in order:
+        per[label]["events_ms"].append(
+            events_ms(calls[label], ITERS[kernel], warm=3))
+    for label in labels:
+        dev_ms, dev_n = device_ms_per_call(
+            calls[label], f"{sources[label]}_kernel",
+            max(10, ITERS[kernel] // 4))
+        per[label]["device_ms"] = dev_ms
+        per[label]["device_launches_profiled"] = dev_n
+        print(f"  {kernel} {key} [{label}]: events ms "
+              f"{per[label]['events_ms']}, device ms {dev_ms} "
+              f"({dev_n} launches), rel diff vs {labels[0]} "
+              f"{per[label]['rel_diff_vs_first']:.3e}, equal "
+              f"{per[label]['equal']}, cfl {per[label]['cfl']!r}",
+              flush=True)
+    return per
 
 
 def _parse_variant(text):

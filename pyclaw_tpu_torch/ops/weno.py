@@ -26,10 +26,9 @@ from ..limiters import recon
 WENO5_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
 
 
-@functools.cache
-def _lib():
-    from . import _build
-    lib = _build.load("weno5")
+def bind_lib(lib):
+    """Set the argument types of a ctypes handle of a build of
+    ``csrc/weno5.cu``; returns it."""
     for name in ("weno5_f32", "weno5_f64"):
         fn = getattr(lib, name)
         fn.argtypes = WENO5_ARGTYPES + [ctypes.c_void_p]
@@ -37,10 +36,18 @@ def _lib():
     return lib
 
 
-def weno5(q):
+@functools.cache
+def _lib():
+    from . import _build
+    return bind_lib(_build.load("weno5"))
+
+
+def weno5(q, lib=None):
     """WENO5 edge values (ql, qr) of q (..., n) along its last axis, each
     shaped like q; the wrapped band at the two ends of a row is invalid,
-    as in the plain version (callers keep num_ghost >= 3)."""
+    as in the plain version (callers keep num_ghost >= 3).  ``lib``: a
+    handle bound by :func:`bind_lib` (another build of the kernel), or
+    None for this checkout's."""
     if q.device.type == "cpu":
         return recon.weno5(q)
     if q.device.type != "cuda":
@@ -53,11 +60,10 @@ def weno5(q):
         raise ValueError("weno5: q must be contiguous")
     n = q.shape[-1]
     rows = q.numel() // n
-    lib = _lib()
-    # one block per 256 entries of a row (csrc/weno5.cu: TW)
-    if rows * (-(-n // 256)) >= 2 ** 31:
-        raise ValueError(f"weno5: q of shape {tuple(q.shape)} needs more "
-                         f"blocks than one launch takes")
+    if max(rows, n) >= 2 ** 31:
+        raise ValueError(f"weno5: q of shape {tuple(q.shape)} has more "
+                         f"rows or a longer row than the kernel takes")
+    lib = _lib() if lib is None else lib
     ql = torch.empty_like(q)
     qr = torch.empty_like(q)
     fn = lib.weno5_f64 if q.dtype == torch.float64 else lib.weno5_f32

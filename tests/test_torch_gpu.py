@@ -252,7 +252,12 @@ def _q1(seed, name, n, dtype, dev, g=2):
     ("euler_hlle_1D", 255, 2, 10, 0, False),
     ("acoustics_1D", 7, 2, 3, -1, False),
     ("advection_1D", 1, 2, 1, -1, False),
-    ("advection_1D", 513, 2, 10, 0, True)])
+    ("advection_1D", 513, 2, 10, 0, True),
+    # the edges of the 252-cell tile
+    ("euler_with_efix_1D", 251, 2, 4, 0, False),
+    ("euler_with_efix_1D", 252, 2, 10, -1, False),
+    ("euler_hlle_1D", 253, 2, 4, -1, False),
+    ("acoustics_1D", 505, 2, 4, 0, True)])
 def test_step1_kernel_matches_plain(card, name, n, order, lim, capa, fwave,
                                     dtype):
     qbc, auxbc = _q1(n + lim, name, n, dtype, card)
@@ -292,7 +297,14 @@ def test_step1_kernel_rejects_what_it_cannot_take(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape", [(1, 5), (3, 806), (3, 257), (4, 37, 131)])
+@pytest.mark.parametrize("shape", [
+    (1, 5), (3, 806), (3, 257), (4, 37, 131),
+    # rows past the grid's 65535; the edges of the small tile (128)
+    (65537, 4), (3, 127), (3, 128), (3, 129), (2, 259),
+    # the edges of the large tile (csrc/weno5.cu: weno5_tile), 1024 in
+    # f32 and 512 in f64
+    (257, 1023), (257, 1024), (257, 1025), (129, 2051), (513, 511),
+    (513, 512), (513, 513), (257, 1027), (1, 2 ** 18 + 6)])
 def test_weno5_kernel_matches_plain(card, shape, dtype):
     rng = np.random.default_rng(sum(shape))
     q = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=card)
@@ -308,6 +320,20 @@ def test_weno5_kernel_matches_plain(card, shape, dtype):
     lc, rc = weno.weno5(torch.full(shape, 0.5, dtype=dtype, device=card))
     assert bool(torch.isfinite(lc).all() and torch.isfinite(rc).all())
     assert float((lc - 0.5).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_1d_kernels_repeat_bit_for_bit(card, dtype):
+    """Two launches of step1 and of weno5 on one input give the same bits
+    (at 2^20 cells, on the seeded smooth state of ops/time_kernels.py)."""
+    from pyclaw_tpu_torch.ops import time_kernels as tk
+    qbc, args = tk.step1_case(2 ** 20, dtype, card, "smooth")
+    (q1, c1), (q2, c2) = (sweep.step1(qbc, *args) for _ in range(2))
+    assert torch.equal(q1, q2) and torch.equal(c1, c2)
+    q = tk.weno5_case(2 ** 20, dtype, card, "smooth")
+    (l1, r1), (l2, r2) = (weno.weno5(q) for _ in range(2))
+    assert torch.equal(l1, l2) and torch.equal(r1, r2)
 
 
 @pytest.mark.gpu

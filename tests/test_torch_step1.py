@@ -9,9 +9,10 @@
   in interpret mode, as tests/test_pallas_backend.py runs it.
 * the CUDA kernel's own source, compiled for the host (its phases run
   block by block on the CPU), against the plain version at lengths that
-  span several tiles and are no multiple of the tile, float32 and
-  float64, with a fast state in the inner ghost cell of each end (inside
-  the CFL window) and a faster one in the outer ghost cell (outside it).
+  span several tiles and are no multiple of the tile, and at the edges of
+  its 252-cell tile, float32 and float64, with a fast state in the inner
+  ghost cell of each end (inside the CFL window) and a faster one in the
+  outer ghost cell (outside it); every block writes its CFL partial.
 """
 
 import ctypes
@@ -158,13 +159,15 @@ def _host(lib, name, q, aux, dt, dx, lim, order, fwave, capa, g):
     is_double = q.dtype == np.float64
     fn = lib.step1_host_f64 if is_double else lib.step1_host_f32
     out = np.empty((rp.num_eqn, n - 2 * g), q.dtype)
-    cfl_blocks = np.empty(lib.step1_blocks(n, g), q.dtype)
+    cfl_blocks = np.full(lib.step1_blocks(n, g), np.nan, q.dtype)
     lims = [lim] * rp.num_waves + [0] * (3 - rp.num_waves)
     rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
             cfl_blocks.ctypes.data, n, g, sweep.SYSTEMS_1D[name], capa,
             int(fwave), dt, dx, *sweep.system_params(rp, PARAMS), order,
             *lims)
     assert rc == 0
+    # each block wrote its partial
+    assert np.isfinite(cfl_blocks).all()
     return out, float(cfl_blocks.max())
 
 
@@ -181,7 +184,9 @@ def _fast_end(q, side, g):
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
                                        (np.float32, 1e-5)])
-@pytest.mark.parametrize("n", [1, 7, 300, 513])
+# 251, 252, 253 and 505: one cell short of, equal to and one past the
+# 252-cell tile (csrc/step1.cu: TILE), and two tiles and a cell
+@pytest.mark.parametrize("n", [1, 7, 300, 513, 251, 252, 253, 505])
 @pytest.mark.parametrize("case", [
     ("euler_with_efix_1D", 2, 4, -1, False, 2, None),
     ("euler_with_efix_1D", 2, 10, 0, False, 3, 1),

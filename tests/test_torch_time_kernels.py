@@ -6,6 +6,7 @@ path's solver does."""
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -169,6 +170,78 @@ def test_step2_aos_case_is_the_shallow_path(monkeypatch):
     # dt is the controller's; the rest is the case's
     assert path[:3] == case[2:5] and path[3] == case[5]
     assert tuple(path[4]) == case[6] and path[5:] == case[7:]
+
+
+def test_step1_case_is_the_classic_sod_path(monkeypatch):
+    """step1's case is the classic Sod path's first step, as chip_smoke.py's
+    [4e] runs it (examples.euler_1d_shocktube, ClawSolver1D, MC)."""
+    from pyclaw_tpu_torch.examples import euler_1d_shocktube as ex
+    from pyclaw_tpu_torch.ops import sweep
+    n = 40
+    claw = ex.setup(nx=n, solver_type="classic", outdir=None, device="cpu",
+                    dtype="float64")
+    claw.tfinal = 0.01
+    seen = []
+    real = sweep.step1
+
+    def spy(*args, **kwargs):
+        seen.append(args + tuple(kwargs.values()))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(sweep, "step1", spy)
+    claw.run()
+    path = seen[0]
+    qbc, case = tk.step1_case(n, torch.float64, "cpu")
+    assert torch.equal(path[0], qbc) and path[1] is None is case[0]
+    # dt is the controller's; the rest is the case's
+    assert path[3:5] == case[2:4]
+    assert sweep.system_params(path[4], path[5]) == \
+        sweep.system_params(case[3], case[4])
+    assert tuple(path[6]) == case[5] and path[7:] == case[6:]
+
+
+def test_weno5_case_is_the_sharpclaw_sod_path(monkeypatch):
+    """weno5's case is the SharpClaw Sod path's first input to weno5 (the
+    initial state with three extrapolated ghost cells, (3, n + 6))."""
+    from pyclaw_tpu_torch.examples import euler_1d_shocktube as ex
+    from pyclaw_tpu_torch.ops import weno
+    n = 40
+    claw = ex.setup(nx=n, solver_type="sharpclaw", outdir=None,
+                    device="cpu", dtype="float64")
+    claw.tfinal = 0.001
+    seen = []
+    real = weno.weno5
+
+    def spy(q, *args, **kwargs):
+        seen.append(q.clone())
+        return real(q, *args, **kwargs)
+    monkeypatch.setattr(weno, "weno5", spy)
+    claw.run()
+    q = tk.weno5_case(n, torch.float64, "cpu")
+    assert q.shape == (3, n + 6) and torch.equal(seen[0], q)
+
+
+def test_smooth_state_keeps_its_bounds():
+    """The smooth timed state: seeded, rho and p in 0.8 .. 1.2, |u| <= 0.4
+    with both signs, and no two neighbouring cells equal (every interface
+    carries waves)."""
+    n = 4096
+    q = tk.smooth_state(n)
+    assert q.shape == (3, n) and np.array_equal(q, tk.smooth_state(n))
+    rho, u = q[0], q[1] / q[0]
+    p = 0.4 * (q[2] - 0.5 * rho * u * u)
+    assert 0.8 <= rho.min() and rho.max() <= 1.2
+    assert 0.8 <= p.min() and p.max() <= 1.2
+    assert np.abs(u).max() <= 0.4 and u.min() < 0.0 < u.max()
+    assert (np.diff(q, axis=1) != 0.0).all()
+
+
+def test_outputs_of_a_step_and_of_weno5():
+    q, cfl = torch.ones(3, 4), torch.tensor(0.5)
+    out, c = tk._outputs((q, cfl))
+    assert out is q and c == 0.5
+    out, c = tk._outputs((q, 2 * q))
+    assert out.shape == (2, 3, 4) and c is None
+    assert torch.equal(out[1], 2 * q)
 
 
 def test_parse_sass_counts_opcodes_per_entry():

@@ -10,7 +10,10 @@
   data, the port does not;
 * the CUDA kernel's own source, compiled for the host (its phases run
   block by block on the CPU), against the plain version: rows of one
-  entry up to rows that span several blocks, float32 and float64.
+  entry up to rows that span several blocks, float32 and float64, on
+  both of its tiles (256 entries, one a thread; 1024, four a thread in a
+  sliding window), with rows ending inside a thread's window and across
+  the tiles' edges; every entry written, the wrapped band included.
 """
 
 import ctypes
@@ -96,12 +99,15 @@ def host_kernel(tmp_path_factory):
         fn = getattr(lib, name)
         fn.argtypes = weno.WENO5_ARGTYPES
         fn.restype = ctypes.c_int
+    lib.weno5_tile.argtypes = [ctypes.c_int] * 3
+    lib.weno5_tile.restype = ctypes.c_int
     return lib
 
 
 def _host(lib, q):
+    """The kernel's edge values of q, into outputs filled with NaN."""
     fn = lib.weno5_host_f64 if q.dtype == np.float64 else lib.weno5_host_f32
-    ql, qr = np.empty_like(q), np.empty_like(q)
+    ql, qr = np.full_like(q, np.nan), np.full_like(q, np.nan)
     n = q.shape[-1]
     assert fn(q.ctypes.data, ql.ctypes.data, qr.ctypes.data, q.size // n,
               n) == 0
@@ -129,3 +135,61 @@ def test_kernel_source_on_host_constant_float32(host_kernel):
     ql, qr = _host(host_kernel, q)
     assert np.isfinite(ql).all() and np.isfinite(qr).all()
     np.testing.assert_allclose(ql, 2.5, rtol=1e-6)
+
+
+# the edges of the two tiles (csrc/weno5.cu: weno5_tile): the small one
+# (128 entries, one a thread) and the large one (1024 entries in f32,
+# eight a thread; 512 in f64, four a thread), which takes arrays of at
+# least 2^18 entries in rows of at least half a tile.  A row one short
+# of, equal to and one past a tile, and two tiles and three entries: n =
+# T - 1, T + 1 and 2T + 3 are no multiple of the entries a thread, so a
+# row ends inside a thread's window.
+SMALL, LARGE = 128, {np.float32: 1024, np.float64: 512}
+EDGES = [(-1, 1), (0, 1), (1, 1), (3, 2)]      # n = k T + c
+
+
+def _edge_shape(tile, c, k):
+    n = k * tile + c
+    return (2 ** 18 // n + 1 if tile > SMALL else 3, n)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("large", [False, True])
+@pytest.mark.parametrize("c,k", EDGES)
+def test_kernel_source_on_host_writes_every_entry(host_kernel, c, k, large,
+                                                  dtype):
+    """Every edge value the kernel writes, on both tiles and across their
+    edges, against the plain version at every entry, the wrapped band at
+    the two ends of each row included (the outputs start as NaN)."""
+    tile = LARGE[dtype] if large else SMALL
+    shape = _edge_shape(tile, c, k)
+    assert host_kernel.weno5_tile(*shape, int(dtype == np.float64)) == tile
+    _check_every_entry(host_kernel, _q(shape, shape[1], dtype))
+
+
+def _check_every_entry(lib, q):
+    ql_k, qr_k = _host(lib, q)
+    ql_p, qr_p = recon.weno5(torch.from_numpy(q))
+    tol = 1e-15 if q.dtype == np.float64 else 1e-6
+    for k, p in ((ql_k, ql_p.numpy()), (qr_k, qr_p.numpy())):
+        assert np.isfinite(k).all()
+        assert (np.abs(k - p) <= tol * np.abs(p).max()).all()
+    return ql_k, qr_k
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_kernel_source_on_host_piecewise_constant(host_kernel, dtype):
+    """Constant runs between jumps, on the large tile: most stencils have
+    three zero betas and take the block's weights of zero betas, the rest
+    their own (the outputs start as NaN)."""
+    shape = (3, 2 ** 18 + 6)
+    assert host_kernel.weno5_tile(*shape, int(dtype == np.float64)) == \
+        LARGE[dtype]
+    rng = np.random.default_rng(7)
+    steps = rng.standard_normal((shape[0], 64))
+    q = np.ascontiguousarray(np.repeat(steps, -(-shape[1] // 64), axis=1)
+                             [:, :shape[1]].astype(dtype))
+    # inside a constant run every stencil is the same: so is each edge
+    for k in _check_every_entry(host_kernel, q):
+        run = k[:, 100:4000]
+        assert (run == run[:, :1]).all()
