@@ -7,6 +7,16 @@ Phases (each asserts; any failure exits non-zero):
   2. the build of every kernel from the checkout's sources (nvcc, sm_90a,
      one nvcc per source, all started together), with the ptxas report
      (registers, shared memory, spills);
+  (every main path runs on the device loop: solver.py's _DeviceLoop
+     replays one attempted step as a CUDA graph.  Every wrapper's count
+     and its device counter (ops.count_on_device: one more on the card's
+     stream right after each launch, so a replay counts) are set to 0
+     just before each main path and read just after: the wrappers count
+     the launches they make or capture (an eager warm-up attempt and two
+     captured ones a capture), the device counters the launches the card
+     ran, the kernel's per attempted step times the attempts, the
+     accepted, the rejected and those after the loop's end, and one
+     restore each; the kernels line gives the device counters' count);
   3. step2_ctu against its plain PyTorch version on the card, over the
      quadrants initial condition and a seeded random admissible state,
      grids 1024^2, 80^2, 128^2, 100x37 and 64x100, float32 and float64,
@@ -62,6 +72,9 @@ Phases (each asserts; any failure exits non-zero):
      van Leer), (2, id 10)} x {f-waves without aux, capacity, capacity
      with f-waves} at 16^3, 33x17x9, 5x40x7 and 3x5x2, float32 and
      float64;
+  3i. restore (the device loop's guarded restore, csrc/restore.cu)
+     against torch.where, an accepted and a rejected step, at the paths'
+     shapes and odd sizes, equal bit for bit;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -90,6 +103,16 @@ Phases (each asserts; any failure exits non-zero):
      0) through Controller.run() to tfinal=0.2, every launch count set to
      0 just before it and read just after (step3_ctu, its capacity
      variant: 1 per attempted step; step3_aos and every other kernel: 0);
+  4h. the device loop against the host loop (traced_evolve = False) on
+     each of the eight main paths at a reduced size (quadrants and shallow
+     256^2, SharpClaw 128^2, the 3D paths 48^3, Sod 800): q equal bit for
+     bit, the same accepted and rejected steps, the launch counts of each
+     (the wrappers' and the device counters'), the readbacks per output
+     frame and the attempts after the end; then each path at full size on the
+     device loop and on the host loop, in turns, without the profiler
+     (the walls, and the device loop's warm-up and capture seconds);
+  4i. gauges (on the device loop) and before_step (on the host loop) on
+     the card against the CPU: the Sod tube, classic, 200 cells, float64;
   5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
      card, float32 and float64;
   5c. the 16^3 euler_3d golden on the card, float32 and float64;
@@ -133,12 +156,15 @@ Phases (each asserts; any failure exits non-zero):
      path to t=0.8, the Euler capacity path to t=0.02, the classic Sod path to t=0.2 and the SharpClaw one to
      t=0.02 under torch.profiler (device busy share, launches per step,
      device time by kernel and by group: kernel, BC extension of q and
-     aux, CFL reduction, frame copies; host time by operation);
+     aux, CFL reduction, frame copies; host time by operation), each on
+     the device loop and on the host loop; restore at (4, 1024, 1024) f32,
+     accepted and rejected, against torch.where;
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -147,6 +173,7 @@ import time
 
 import numpy as np
 
+from pyclaw_tpu_torch.ops import count_on_device
 # the timers and the timed states, shared with the variant timer
 from pyclaw_tpu_torch.ops.time_kernels import (
     CASES_1D, device_ms_per_call, dq_case, euler3d_capa_case,
@@ -828,7 +855,7 @@ def run_shallow(dev, n, dtype, tfinal=1.0):
 def lake_at_rest(dev, n, dtype, tfinal):
     """A lake at rest (h + b = 1, u = v = 0) over a Gaussian bump on
     shallow_bathymetry_fwave_2D, through Controller.run(); returns
-    (max |eta - eta0|, max |hu|, |hv|, attempted steps)."""
+    (max |eta - eta0|, max |hu|, |hv|, the device loop's counters)."""
     import pyclaw_tpu_torch as pyclaw
     from pyclaw_tpu_torch import riemann
     solver = pyclaw.ClawSolver2D(riemann.shallow_bathymetry_fwave_2D,
@@ -851,8 +878,7 @@ def lake_at_rest(dev, n, dtype, tfinal):
     status = claw.run()
     q = claw.solution.q
     return (float(np.abs(q[0] + claw.solution.aux[0] - eta0).max()),
-            float(np.abs(q[1:]).max()),
-            status["numsteps"] + status["numrejected"])
+            float(np.abs(q[1:]).max()), dict(claw.solver.loop_stats))
 
 
 def timing_aos(dev, n=1024):
@@ -1500,6 +1526,9 @@ GOLDENS_1D = (
 # mass by roundoff); the gates leave a factor of ten or more.
 SOD_RUN_TOL = {"classic": (1e-5, 1e-4, 1e-6),
                "sharpclaw": (1e-4, 1e-3, 1e-4)}
+# [4i]: the Sod tube in float64 on the card against the CPU, with gauges
+# and with before_step (max relative, as [5f]'s card against the CPU)
+LOOP_HOOK_TOL = 1e-10
 
 
 def random_state_1d(rng, name, m):
@@ -1646,21 +1675,36 @@ def run_sod(dev, n, dtype, solver_type, tfinal=0.2):
 
 def kernel_counts():
     """The launch counts of every kernel wrapper, by kernel."""
-    from pyclaw_tpu_torch.ops import sweep, tiled2d, weno
-    return {"step2_ctu": tiled2d.step2_rows.launches,
-            "dq2_weno5": tiled2d.dq_rows.launches,
-            "step3_ctu": tiled2d.step3_xy.launches,
-            "step2_aos": tiled2d.step2_rows_generic.launches,
-            "step1": sweep.step1.launches, "weno5": weno.weno5.launches,
-            "step3_aos": tiled2d.step3_xy_generic.launches}
+    from pyclaw_tpu_torch.ops import kernel_wrappers
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def reset_kernel_counts():
-    from pyclaw_tpu_torch.ops import sweep, tiled2d, weno
-    for fn in (tiled2d.step2_rows, tiled2d.dq_rows, tiled2d.step3_xy,
-               tiled2d.step2_rows_generic, sweep.step1, weno.weno5,
-               tiled2d.step3_xy_generic):
+    """Every wrapper's launch count, and its device counter where it has
+    one, to 0."""
+    from pyclaw_tpu_torch.ops import kernel_wrappers
+    for fn in kernel_wrappers().values():
         fn.launches = 0
+        if fn.device_launches is not None:
+            fn.device_launches.zero_()
+
+
+def counted_run(run):
+    """``run()`` (a path's Controller.run: (claw, status, wall)) with every
+    wrapper's launch count and device counter set to 0 just before it and
+    read just after: (claw, status, wall, the wrappers' counts of the
+    launches they made or captured, the device counters' counts of the
+    launches the card ran, a graph's replays included).  Needs the
+    device counters (``ops.count_on_device``), whose increments the wall
+    includes."""
+    import torch
+    from pyclaw_tpu_torch.ops import kernel_wrappers
+    reset_kernel_counts()
+    claw, status, wall = run()
+    torch.cuda.synchronize()
+    ran = {k: int(fn.device_launches)
+           for k, fn in kernel_wrappers().items()}
+    return claw, status, wall, kernel_counts(), ran
 
 
 def sod_path(dev, n=800):
@@ -1671,9 +1715,8 @@ def sod_path(dev, n=800):
     q0 = sod_state(n)
     out = {}
     for solver_type in ("classic", "sharpclaw"):
-        reset_kernel_counts()
-        claw, status, wall = run_sod(dev, n, np.float32, solver_type)
-        counts = kernel_counts()
+        claw, status, wall, counts, ran = counted_run(
+            lambda: run_sod(dev, n, np.float32, solver_type))
         ns, nr = status["numsteps"], status["numrejected"]
         q = claw.solution.q.astype(np.float64)
         ref, st64, wall64 = run_sod(dev, n, np.float64, solver_type)
@@ -1684,26 +1727,25 @@ def sod_path(dev, n=800):
                    / float(np.sum(q0[k])) for k in (0, 2))
         kernel, per_step = (("step1", 1) if solver_type == "classic"
                             else ("weno5", 10))
-        res = {"accepted": ns, "rejected": nr, "wall_s": wall,
-               "cell_updates_per_s": ns * n / wall, "launches": counts,
+        status = dict(status)
+        res = {"accepted": ns, "rejected": nr, "wall_s_counted": wall,
+               "launches": ran, "wrapper_counts": counts,
                "f64_accepted": st64["numsteps"],
                "f64_rejected": st64["numrejected"], "f64_wall_s": wall64,
                "vs_f64_l1": l1, "vs_f64_max": mx_rel,
                "mass_energy_change": cons}
         out[solver_type] = res
         print(f"[4e] sod {solver_type} {n} f32 to t={claw.solution.t}: {ns} "
-              f"accepted + {nr} rejected steps, {counts[kernel]} {kernel} "
-              f"launches (all counts {counts}), {wall:.3f} s wall, "
-              f"{ns * n / wall:.4e} cell-updates/s; against float64 "
+              f"accepted + {nr} rejected steps, {ran[kernel]} {kernel} "
+              f"launches the card ran ({ran}; the wrappers' counts "
+              f"{counts}), {wall:.3f} s wall with the device counters; "
+              f"against float64 "
               f"({st64['numsteps']} + {st64['numrejected']} steps, "
               f"{wall64:.3f} s): rel L1 {l1:.3e}, max rel {mx_rel:.3e}; "
               f"mass/energy change {cons:.3e}", flush=True)
-        others = {k: v for k, v in counts.items() if k != kernel}
-        if counts[kernel] == 0 or counts[kernel] != per_step * (ns + nr):
-            fail(f"sod {solver_type}: {counts[kernel]} {kernel} launches != "
-                 f"{per_step} x (accepted {ns} + rejected {nr})")
-        if any(others.values()):
-            fail(f"sod {solver_type}: other kernels launched: {others}")
+        res["loop"] = check_path_launches(f"sod {solver_type}", claw, status,
+                                          counts, kernel, per_step,
+                                          ran=ran)
         if nr < 1:
             fail(f"sod {solver_type}: the first step at dt_initial=0.1 "
                  f"should be rejected")
@@ -1898,6 +1940,15 @@ def profile_main_path(label, run_path):
                                           for s, k, _ in host_rows[:6]}}
 
 
+def profile_loops(label, run_path):
+    """profile_main_path of a path on the device loop (its default) and
+    on the host loop (``traced_evolve = False``), in turns."""
+    out = {"graph": profile_main_path(label + ", device loop", run_path)}
+    with host_loop():
+        out["host"] = profile_main_path(label + ", host loop", run_path)
+    return out
+
+
 def sharp_card_vs_cpu(dev, n=80):
     """SharpClaw quadrants at n^2 to t=0.8 (frames at 0.2, 0.4, 0.6, 0.8)
     on the card, on the CPU, and on the CPU from a state moved by one ulp
@@ -1962,6 +2013,276 @@ def sharp_card_vs_cpu(dev, n=80):
     return out
 
 
+# ---- the device loop: CUDA-graph replays against the host loop ----------
+
+@contextlib.contextmanager
+def host_loop():
+    """Every solver takes the host loop (``traced_evolve = False``, one CFL
+    readback per attempted step) inside the block."""
+    from pyclaw_tpu_torch.solver import Solver
+    Solver.traced_evolve = False
+    try:
+        yield
+    finally:
+        del Solver.traced_evolve
+
+
+def loop_paths():
+    """The main paths the loop phase drives: name -> (runner(dev, n, dtype,
+    tfinal) -> (claw, status, wall), full size, reduced size, final time,
+    the path's kernel, its launches per attempted step)."""
+    return {
+        "quadrants": (run_quadrants, 1024, 256, 0.8, "step2_ctu", 1),
+        "sharpclaw": (lambda d, n, dt, t: run_quadrants(d, n, dt, t,
+                                                        "sharpclaw"),
+                      1024, 128, 0.8, "dq2_weno5", 10),
+        "euler3d": (run_euler3d, 192, 48, 0.2, "step3_ctu", 1),
+        "shallow": (run_shallow, 1024, 256, 1.0, "step2_aos", 1),
+        "het": (run_het, 192, 48, 0.8, "step3_aos", 1),
+        "euler3d_capa": (run_euler3d_capa, 192, 48, 0.2, "step3_ctu", 1),
+        "sod": (lambda d, n, dt, t: run_sod(d, n, dt, "classic", t), 800,
+                800, 0.2, "step1", 1),
+        "sod_sharpclaw": (lambda d, n, dt, t: run_sod(d, n, dt, "sharpclaw",
+                                                      t),
+                          800, 800, 0.2, "weno5", 10)}
+
+
+def check_path_launches(label, claw, status, counts, kernel, per_attempt,
+                        graph=True, ran=None):
+    """The launch counts of a path's run.  The wrappers' counts
+    (``counts``): on the graph loop the path's kernel per_attempt times
+    and ``restore`` once for each of the three attempts a capture makes
+    (the eager warm-up and the two captured attempts), on the host loop
+    the kernel per_attempt times an attempted step and no restore.  The
+    device counters (``ran``, when given: the launches the card ran): the
+    kernel per_attempt times and ``restore`` once (none on the host loop)
+    an attempted step; on the graph loop the attempts are the accepted,
+    the rejected and those after the loop's end, and there is at least
+    one capture.  No other kernel in either.  Returns the solver's loop
+    counters."""
+    ns, nr = status["numsteps"], status["numrejected"]
+    st = dict(claw.solver.loop_stats)
+    attempts = st["attempts"] if graph else ns + nr
+    if graph and (attempts != ns + nr + st["after_end"]
+                  or st["captures"] < 1):
+        fail(f"{label}: {attempts} attempts != {ns} + {nr} + "
+             f"{st['after_end']} after the end, or no capture ({st})")
+    if not graph and st["frames"]:
+        fail(f"{label}: the host loop ran the device loop ({st})")
+    made = 3 * st["captures"] if graph else attempts
+    want = {kernel: per_attempt * made, "restore": made if graph else 0}
+    if any(counts[k] != v for k, v in want.items()) or counts[kernel] == 0:
+        fail(f"{label}: the wrappers counted {counts[kernel]} {kernel} and "
+             f"{counts['restore']} restore launches, not {want} "
+             f"({st['captures']} captures, {attempts} attempted steps)")
+    sources = [("the wrappers", counts)]
+    if ran is not None:
+        want = {kernel: per_attempt * attempts,
+                "restore": attempts if graph else 0}
+        if any(ran[k] != v for k, v in want.items()):
+            fail(f"{label}: the card ran {ran[kernel]} {kernel} and "
+                 f"{ran['restore']} restore launches, not {want} "
+                 f"({attempts} attempted steps)")
+        sources.append(("the device counters", ran))
+    for where, got in sources:
+        others = {k: v for k, v in got.items()
+                  if k not in (kernel, "restore") and v}
+        if others:
+            fail(f"{label}: other kernels launched ({where}): {others}")
+    return st
+
+
+def loop_phase(dev):
+    """[4h]: each main path at a reduced size in float32 on the graph loop
+    and on the host loop (``traced_evolve = False``): q equal bit for bit,
+    the same accepted and rejected steps, the launch counts of each
+    (check_path_launches: the wrappers' and the device counters'), the
+    readbacks per output frame and the attempts after the end; then the
+    path at full size on the graph loop and on the host loop, in turns and
+    without the device counters: their walls, and the graph loop's
+    counters with its warm-up and capture seconds."""
+    out = {}
+    for name, (run, n_full, n_small, tfinal, kernel, per) in \
+            loop_paths().items():
+        rec, qs = {}, {}
+        for mode in ("graph", "host"):
+            with (host_loop() if mode == "host" else contextlib.nullcontext()):
+                claw, status, wall, counts, ran = counted_run(
+                    lambda: run(dev, n_small, np.float32, tfinal))
+            st = check_path_launches(f"[4h] {name} {n_small} {mode} loop",
+                                     claw, status, counts, kernel, per,
+                                     graph=mode == "graph", ran=ran)
+            qs[mode] = claw.solution.q
+            rec[mode] = {"accepted": status["numsteps"],
+                         "rejected": status["numrejected"],
+                         "wall_s_counted": wall, "launches": ran,
+                         "wrapper_counts": counts, "loop": st,
+                         "t": claw.solution.t, "dt": claw.solver.dt}
+            del claw
+        g, h = rec["graph"], rec["host"]
+        equal = bool(np.array_equal(qs["graph"], qs["host"]))
+        st = g["loop"]
+        per_frame = st["readbacks"] / st["frames"]
+        rec.update({"size": n_small, "equal_bits": equal,
+                    "readbacks_per_frame": per_frame,
+                    "attempts_after_end": st["after_end"]})
+        print(f"[4h] {name} at {n_small} f32: graph loop {g['accepted']} + "
+              f"{g['rejected']} steps ({st['frames']} frames, "
+              f"{per_frame:.2f} readbacks a frame, {st['attempts']} "
+              f"attempts, {st['after_end']} after the end, "
+              f"{st['captures']} captures; {g['launches'][kernel]} {kernel} "
+              f"launches the card ran); host loop {h['accepted']} + "
+              f"{h['rejected']}; q equal bit for bit: {equal}", flush=True)
+        if not (equal and (g["accepted"], g["rejected"], g["t"], g["dt"])
+                == (h["accepted"], h["rejected"], h["t"], h["dt"])):
+            fail(f"[4h] {name}: the graph loop differs from the host loop: "
+                 f"{g['accepted']} + {g['rejected']} against "
+                 f"{h['accepted']} + {h['rejected']}, dt {g['dt']!r} against "
+                 f"{h['dt']!r}, q equal {equal}")
+        count_on_device(None)
+        for mode in ("graph", "host"):
+            reset_kernel_counts()
+            with (host_loop() if mode == "host" else contextlib.nullcontext()):
+                claw, status, wall = run(dev, n_full, np.float32, tfinal)
+            st = check_path_launches(f"[4h] {name} {n_full} {mode} loop",
+                                     claw, status, kernel_counts(), kernel,
+                                     per, graph=mode == "graph")
+            rec[f"{mode}_full"] = {"accepted": status["numsteps"],
+                                   "rejected": status["numrejected"],
+                                   "wall_s": wall, "loop": st}
+            print(f"    {name} at {n_full} f32 on the {mode} loop: "
+                  f"{status['numsteps']} + {status['numrejected']} steps in "
+                  f"{wall:.3f} s" + ("" if mode == "host" else
+                                     f" ({st})"), flush=True)
+            del claw
+        count_on_device(dev)
+        out[name] = rec
+    return out
+
+
+def loop_hooks(dev, n=200, tfinal=0.1):
+    """[4i]: gauges (on the graph loop) and before_step (on the host loop)
+    on the card against the same runs on the CPU: the Sod tube, classic, n
+    cells, float64, two frames.  The gauge series: the same steps and
+    times (1e-12), values to LOOP_HOOK_TOL; before_step (a hook that
+    scales the momentum in place each step): the same steps, q to
+    LOOP_HOOK_TOL."""
+    from pyclaw_tpu_torch.examples import euler_1d_shocktube as ex
+
+    def hook(solver, state):
+        state.q[1] *= 0.999
+
+    out = {}
+    for case in ("gauges", "before_step"):
+        runs = {}
+        for where in (dev, "cpu"):
+            claw = ex.setup(nx=n, solver_type="classic", outdir=None,
+                            dtype=np.float64, device=where)
+            claw.tfinal = tfinal
+            claw.num_output_times = 2
+            if case == "gauges":
+                claw.solution.state.grid.add_gauges([(-0.2,), (0.05,),
+                                                     (0.3,)])
+            else:
+                claw.solver.before_step = hook
+            st = claw.run()
+            runs[str(where)] = (claw, (st["numsteps"], st["numrejected"]))
+        (ck, sk), (cc, sc) = runs[str(dev)], runs["cpu"]
+        rec = {"steps_card": sk, "steps_cpu": sc,
+               "q_max_rel": float(np.max(np.abs(ck.solution.q
+                                                - cc.solution.q))
+                                  / np.max(np.abs(cc.solution.q)))}
+        if case == "gauges":
+            gk, gc = ck.solution.state.gauge_data, cc.solution.state.gauge_data
+            rec["samples"] = (len(gk), len(gc))
+            rec["t_max_diff"] = max(abs(a[1] - b[1]) for a, b in zip(gk, gc))
+            rec["values_max_rel"] = max(
+                float(np.max(np.abs(np.asarray(a[2]) - np.asarray(b[2]))))
+                for a, b in zip(gk, gc)) / float(np.max(np.abs(
+                    cc.solution.q)))
+            ok = (len(gk) == len(gc) == 3 * sk[0]
+                  and rec["t_max_diff"] <= 1e-12
+                  and rec["values_max_rel"] <= LOOP_HOOK_TOL
+                  and ck.solver.loop_stats["captures"] >= 1)
+        else:
+            ok = not ck.solver.loop_stats["frames"]
+        ok = ok and sk == sc and rec["q_max_rel"] <= LOOP_HOOK_TOL
+        out[case] = rec
+        print(f"[4i] {case} sod {n} f64 card vs cpu: {rec}", flush=True)
+        if not ok:
+            fail(f"[4i] {case}: the card's run differs from the CPU's: "
+                 f"{rec}")
+    return out
+
+
+# restore's cases of [3i]: shapes of the paths' q (f32) and odd sizes
+RESTORE_SHAPES = (((4, 1024, 1024), "float32"), ((3, 800), "float32"),
+                  ((5, 192, 192, 192), "float32"), ((3, 7), "float32"),
+                  ((4, 37, 131), "float64"), ((1,), "float64"))
+
+
+def compare_restore(dev, seed=9):
+    """[3i]: restore against its plain version (torch.where) on seeded data,
+    an accepted and a rejected step each: equal bit for bit."""
+    import torch
+    from pyclaw_tpu_torch.ops import restore
+    rng = np.random.default_rng(seed)
+    worst, ncase = 0.0, 0
+    for shape, tname in RESTORE_SHAPES:
+        dtype = getattr(torch, tname)
+        src = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                              device=dev)
+        for ok in (True, False):
+            dst = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                                  device=dev)
+            flag = torch.tensor(ok, device=dev)
+            want = restore.plain(dst.clone(), src, flag)
+            got = restore.restore(dst, src, flag)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            ncase += 1
+            if not torch.equal(got, want):
+                fail(f"restore {shape} {tname} ok={ok}: differs from "
+                     f"torch.where by {err}")
+    return worst, ncase
+
+
+def timing_restore(dev, shape=(4, 1024, 1024)):
+    """restore at the classic quadrants path's q (f32): an accepted step
+    (the path's case: one load of the flag a block) and a rejected one (a
+    copy of q), CUDA events and the profiler's device time, against
+    torch.where (its plain version and the one PyTorch call that computes
+    the same), and the bound of each case: one byte read (accepted) or q
+    read and written (rejected)."""
+    import torch
+    from pyclaw_tpu_torch.ops import restore
+    src = torch.randn(shape, device=dev)
+    dst = torch.randn(shape, device=dev)
+    nbytes = dst.numel() * dst.element_size()
+    out = {"shape": list(shape), "dtype": "float32"}
+    for ok in (True, False):
+        flag = torch.tensor(ok, device=dev)
+        key = "accepted" if ok else "rejected"
+
+        def kern():
+            return restore.restore(dst, src, flag)
+
+        def plain():
+            return restore.plain(dst, src, flag)
+        ms = time_ms(kern, 200)
+        dev_ms, dev_n = device_ms_per_call(kern, "restore_kernel", 20)
+        plain_ms = time_ms(plain, 200)
+        b = bound_of(1 if ok else 2 * nbytes, 0, "float32")
+        out[key] = {"ms": ms, "device_ms": dev_ms,
+                    "device_launches_profiled": dev_n, "plain_ms": plain_ms,
+                    "library_ms": plain_ms, **b}
+        print(f"  timing restore {shape} f32 {key}: kernel {ms:.4f} ms (on "
+              f"the device {dev_ms} ms, {dev_n} launches profiled), "
+              f"torch.where {plain_ms:.4f} ms, bound {b['bound_ms']:.6f} ms "
+              f"({b['bound_by']})", flush=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1979,12 +2300,13 @@ def main():
     # nvcc per source, all started together
     t0 = time.perf_counter()
     names = ["step2_ctu", "dq2_weno5", "step3_ctu", "step2_aos", "step1",
-             "weno5", "step3_aos"]
-    lib, dq_lib, lib3, lib_aos, lib_s1, lib_w5, lib_3a = _build.load_all(
+             "weno5", "step3_aos", "restore"]
+    lib, dq_lib, lib3, lib_aos, lib_s1, lib_w5, lib_3a, _ = _build.load_all(
         names)
     print(f"[2] built csrc/step2_ctu.cu, csrc/dq2_weno5.cu, "
           f"csrc/step3_ctu.cu, csrc/step2_aos.cu, csrc/step1.cu, "
-          f"csrc/weno5.cu and csrc/step3_aos.cu for sm_90a in "
+          f"csrc/weno5.cu, csrc/step3_aos.cu and csrc/restore.cu for sm_90a "
+          f"in "
           f"{time.perf_counter() - t0:.1f} s; shared memory per block: "
           f"step2_ctu f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
           f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
@@ -2124,6 +2446,14 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3h"] = time.perf_counter() - t0
 
+    # [3i] restore (the device loop's guarded restore) against torch.where
+    t0 = time.perf_counter()
+    rs_worst, rs_ncase = compare_restore(dev)
+    print(f"[3i] restore vs torch.where: {rs_ncase} cases, accepted and "
+          f"rejected, equal bit for bit (max abs err {rs_worst}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3i"] = time.perf_counter() - t0
+
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
         if nr < 1:
@@ -2136,33 +2466,38 @@ def main():
         if abs(claw.solution.t - 0.8) > 1e-12:
             fail(f"{label}: ended at t={claw.solution.t}")
 
-    # [4] the classic main path, with the launch count read around it
+    # [4] the classic main path, every launch count set to 0 just before it
+    # and read just after; the device loop's counters.  From here to [6]
+    # every wrapper also counts on the card (a replay's launches too)
+    count_on_device(dev)
     t0 = time.perf_counter()
-    tiled2d.step2_rows.launches = 0
-    claw, status, wall = run_quadrants(dev, 1024, np.float32)
-    launches = tiled2d.step2_rows.launches
+    claw, status, wall, counts, ran = counted_run(
+        lambda: run_quadrants(dev, 1024, np.float32))
+    launches = ran["step2_ctu"]
+    rs_launches = ran["restore"]
     ns, nr = status["numsteps"], status["numrejected"]
+    loop4 = check_path_launches("classic main path", claw, status, counts,
+                                "step2_ctu", 1, ran=ran)
     print(f"[4] main path 1024^2 f32 to t={claw.solution.t}: {ns} accepted "
-          f"+ {nr} rejected steps, {launches} kernel launches, "
-          f"{wall:.3f} s wall, {ns * 1024 * 1024 / wall:.4e} "
-          f"cell-updates/s", flush=True)
-    if launches == 0 or launches != ns + nr:
-        fail(f"launches {launches} != accepted {ns} + rejected {nr}")
+          f"+ {nr} rejected steps, {launches} kernel launches the card ran "
+          f"({ran}; the wrappers' counts {counts}), {wall:.3f} s wall "
+          f"with the device counters; device loop {loop4}", flush=True)
     check_run("classic main path", claw, ns, nr)
 
-    # [4b] the SharpClaw path (WENO5 + SSP104), launches read around it
-    tiled2d.dq_rows.launches = 0
-    sclaw, sstatus, swall = run_quadrants(dev, 1024, np.float32,
-                                          solver_type="sharpclaw")
-    dq_launches = tiled2d.dq_rows.launches
+    # [4b] the SharpClaw path (WENO5 + SSP104), every launch count set to 0
+    # just before it and read just after
+    sclaw, sstatus, swall, counts, ran = counted_run(
+        lambda: run_quadrants(dev, 1024, np.float32,
+                              solver_type="sharpclaw"))
+    dq_launches = ran["dq2_weno5"]
     sns, snr = sstatus["numsteps"], sstatus["numrejected"]
+    loop4b = check_path_launches("sharpclaw path", sclaw, sstatus, counts,
+                                 "dq2_weno5", 10, ran=ran)
     print(f"[4b] sharpclaw path 1024^2 f32 SSP104 to t={sclaw.solution.t}: "
           f"{sns} accepted + {snr} rejected steps, {dq_launches} dq2_weno5 "
-          f"launches, {swall:.3f} s wall, "
-          f"{sns * 1024 * 1024 / swall:.4e} cell-updates/s", flush=True)
-    if dq_launches == 0 or dq_launches != 10 * (sns + snr):
-        fail(f"dq launches {dq_launches} != 10 x (accepted {sns} + "
-             f"rejected {snr})")
+          f"launches the card ran ({ran}; the wrappers' counts "
+          f"{counts}), {swall:.3f} s wall with the device counters; "
+          f"device loop {loop4b}", flush=True)
     check_run("sharpclaw path", sclaw, sns, snr)
     phase_s["4+4b"] = time.perf_counter() - t0
 
@@ -2170,17 +2505,17 @@ def main():
     # around it
     t0 = time.perf_counter()
     n3 = 192
-    tiled2d.step3_xy.launches = 0
-    claw3, status3, wall3 = run_euler3d(dev, n3, np.float32)
-    s3_launches = tiled2d.step3_xy.launches
+    claw3, status3, wall3, counts, ran = counted_run(
+        lambda: run_euler3d(dev, n3, np.float32))
+    s3_launches = ran["step3_ctu"]
     ns3, nr3 = status3["numsteps"], status3["numrejected"]
+    loop4c = check_path_launches("euler_3d path", claw3, status3, counts,
+                                 "step3_ctu", 1, ran=ran)
     print(f"[4c] euler_3d path {n3}^3 f32 to t={claw3.solution.t}: {ns3} "
           f"accepted + {nr3} rejected steps, {s3_launches} step3_ctu "
-          f"launches, {wall3:.3f} s wall, {ns3 * n3 ** 3 / wall3:.4e} "
-          f"cell-updates/s", flush=True)
-    if s3_launches == 0 or s3_launches != ns3 + nr3:
-        fail(f"step3 launches {s3_launches} != accepted {ns3} + rejected "
-             f"{nr3}")
+          f"launches the card ran ({ran}; the wrappers' counts "
+          f"{counts}), {wall3:.3f} s wall with the device counters; "
+          f"device loop {loop4c}", flush=True)
     q3 = claw3.solution.q
     if nr3 < 1:
         fail("euler_3d path: the first step at dt_initial=0.1 should be "
@@ -2197,23 +2532,23 @@ def main():
     # [4d] the shallow-water path (radial dam break, 1024^2 f32), launches
     # read around it
     t0 = time.perf_counter()
-    tiled2d.step2_rows_generic.launches = 0
-    claw_sw, status_sw, wall_sw = run_shallow(dev, 1024, np.float32)
-    aos_launches = tiled2d.step2_rows_generic.launches
+    claw_sw, status_sw, wall_sw, counts, ran = counted_run(
+        lambda: run_shallow(dev, 1024, np.float32))
+    aos_launches = ran["step2_aos"]
     ns_sw, nr_sw = status_sw["numsteps"], status_sw["numrejected"]
+    loop4d = check_path_launches("shallow path", claw_sw, status_sw, counts,
+                                 "step2_aos", 1, ran=ran)
     q_sw = claw_sw.solution.q
     mass0 = float(np.sum(shallow_state(1024, 1024)[0], dtype=np.float64))
     mass_rel = abs(float(np.sum(q_sw[0], dtype=np.float64)) - mass0) / mass0
     mirror = float(np.abs(q_sw[0] - q_sw[0].T).max() / np.abs(q_sw[0]).max())
     print(f"[4d] shallow path 1024^2 f32 to t={claw_sw.solution.t}: {ns_sw} "
           f"accepted + {nr_sw} rejected steps, {aos_launches} step2_aos "
-          f"launches, {wall_sw:.3f} s wall, "
-          f"{ns_sw * 1024 * 1024 / wall_sw:.4e} cell-updates/s; mass "
+          f"launches the card ran ({ran}; the wrappers' counts "
+          f"{counts}), device loop {loop4d}, {wall_sw:.3f} s wall with the "
+          f"device counters; mass "
           f"change {mass_rel:.3e} (relative), max |h - h^T| / max h "
           f"{mirror:.3e}", flush=True)
-    if aos_launches == 0 or aos_launches != ns_sw + nr_sw:
-        fail(f"step2_aos launches {aos_launches} != accepted {ns_sw} + "
-             f"rejected {nr_sw}")
     if nr_sw < 1:
         fail("shallow path: the first step at dt_initial=0.1 should be "
              "rejected")
@@ -2241,23 +2576,18 @@ def main():
     # [4f] the 3D heterogeneous-acoustics path (192^3 f32), every launch
     # count set to 0 just before it and read just after
     t0 = time.perf_counter()
-    reset_kernel_counts()
-    claw_h, status_h, wall_h = run_het(dev, n3, np.float32)
-    counts_h = kernel_counts()
-    het_launches = counts_h["step3_aos"]
+    claw_h, status_h, wall_h, counts_h, ran = counted_run(
+        lambda: run_het(dev, n3, np.float32))
+    het_launches = ran["step3_aos"]
     ns_h, nr_h = status_h["numsteps"], status_h["numrejected"]
+    loop4f = check_path_launches("het path", claw_h, status_h, counts_h,
+                                 "step3_aos", 1, ran=ran)
     q_h = claw_h.solution.q
     print(f"[4f] acoustics_3d_heterogeneous path {n3}^3 f32 to "
           f"t={claw_h.solution.t}: {ns_h} accepted + {nr_h} rejected steps, "
-          f"{het_launches} step3_aos launches (all counts {counts_h}), "
-          f"{wall_h:.3f} s wall, {ns_h * n3 ** 3 / wall_h:.4e} "
-          f"cell-updates/s", flush=True)
-    if het_launches == 0 or het_launches != ns_h + nr_h:
-        fail(f"step3_aos launches {het_launches} != accepted {ns_h} + "
-             f"rejected {nr_h}")
-    others = {k: v for k, v in counts_h.items() if k != "step3_aos" and v}
-    if others:
-        fail(f"het path: other kernels launched: {others}")
+          f"{het_launches} step3_aos launches the card ran ({ran}; the "
+          f"wrappers' counts {counts_h}), {wall_h:.3f} s wall with the "
+          f"device counters; device loop {loop4f}", flush=True)
     if nr_h < 1:
         fail("het path: the first step at dt_initial=0.1 should be rejected")
     if q_h.shape != (4, n3, n3, n3) or not np.all(np.isfinite(q_h)):
@@ -2270,22 +2600,18 @@ def main():
     # [4g] the 3D Euler capacity path (192^3 f32), every launch count set
     # to 0 just before it and read just after
     t0 = time.perf_counter()
-    reset_kernel_counts()
-    claw_e, status_e, wall_e = run_euler3d_capa(dev, n3, np.float32)
-    counts_e = kernel_counts()
-    eu_launches = counts_e["step3_ctu"]
+    claw_e, status_e, wall_e, counts_e, ran = counted_run(
+        lambda: run_euler3d_capa(dev, n3, np.float32))
+    eu_launches = ran["step3_ctu"]
     ns_e, nr_e = status_e["numsteps"], status_e["numrejected"]
+    loop4g = check_path_launches("euler capacity path", claw_e, status_e,
+                                 counts_e, "step3_ctu", 1, ran=ran)
     q_e = claw_e.solution.q
     print(f"[4g] euler_3d capacity path {n3}^3 f32 to t={claw_e.solution.t}: "
           f"{ns_e} accepted + {nr_e} rejected steps, {eu_launches} step3_ctu "
-          f"launches (all counts {counts_e}), {wall_e:.3f} s wall, "
-          f"{ns_e * n3 ** 3 / wall_e:.4e} cell-updates/s", flush=True)
-    if eu_launches == 0 or eu_launches != ns_e + nr_e:
-        fail(f"step3_ctu launches {eu_launches} != accepted {ns_e} + "
-             f"rejected {nr_e}")
-    others = {k: v for k, v in counts_e.items() if k != "step3_ctu" and v}
-    if others:
-        fail(f"euler capacity path: other kernels launched: {others}")
+          f"launches the card ran ({ran}; the wrappers' counts "
+          f"{counts_e}), {wall_e:.3f} s wall with the device counters; device "
+          f"loop {loop4g}", flush=True)
     if nr_e < 1:
         fail("euler capacity path: the first step at dt_initial=0.1 should "
              "be rejected")
@@ -2351,16 +2677,20 @@ def main():
         if abs(c.solution.t - float(ref["t"])) > 1e-10:
             fail(f"golden shallow_2d_radial {tname}: t={c.solution.t}")
     tiled2d.step2_rows_generic.launches = 0
-    eta_drift, mom, lake_steps = lake_at_rest(dev, 1024, np.float32, 0.05)
+    eta_drift, mom, lake_loop = lake_at_rest(dev, 1024, np.float32, 0.05)
     lake_launches = tiled2d.step2_rows_generic.launches
-    print(f"[5d] lake at rest 1024^2 f32 to t=0.05: {lake_steps} steps, "
-          f"{lake_launches} step2_aos launches, max |eta - eta0| "
+    lake_steps = lake_loop["attempts"]
+    print(f"[5d] lake at rest 1024^2 f32 to t=0.05: {lake_steps} attempted "
+          f"steps, the wrapper counted "
+          f"{lake_launches} step2_aos launches (eager or captured, "
+          f"{lake_loop['captures']} captures), max |eta - eta0| "
           f"{eta_drift:.3e}, max |hu|, |hv| {mom:.3e} (tol {LAKE_TOL})",
           flush=True)
-    if not (lake_launches == lake_steps > 0 and eta_drift <= LAKE_TOL
+    if not (lake_launches == 3 * lake_loop["captures"] > 0
+            and lake_steps > 0 and eta_drift <= LAKE_TOL
             and mom <= LAKE_TOL):
         fail(f"lake at rest: drift {eta_drift}, momentum {mom}, launches "
-             f"{lake_launches} for {lake_steps} steps")
+             f"{lake_launches} for {lake_loop}")
 
     # [5e] the five 1D goldens on the card
     t0 = time.perf_counter()
@@ -2382,7 +2712,18 @@ def main():
     sharp_vs_cpu = sharp_card_vs_cpu(dev)
     phase_s["5b"] = time.perf_counter() - t0
 
-    # [6] timing and a profile window of each path
+    # [4h] the device loop against the host loop on every main path; [4i]
+    # gauges and before_step on the card against the CPU
+    t0 = time.perf_counter()
+    loops = loop_phase(dev)
+    phase_s["4h"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hooks = loop_hooks(dev)
+    phase_s["4i"] = time.perf_counter() - t0
+
+    # [6] timing and a profile window of each path, without the device
+    # counters
+    count_on_device(None)
     t0 = time.perf_counter()
     tm = timing(dev)
     tm_dq = timing_dq(dev)
@@ -2393,31 +2734,32 @@ def main():
     del q_h
     tm_eu = timing_step3_capa(dev, q_last=q_e)
     del q_e
-    prof = profile_main_path(
+    tm_rs = timing_restore(dev)
+    prof = profile_loops(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
-    sprof = profile_main_path(
+    sprof = profile_loops(
         "sharpclaw main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1, "sharpclaw"))
-    prof3 = profile_main_path(
+    prof3 = profile_loops(
         "euler_3d main path 192^3 f32 to t=0.02",
         lambda: run_euler3d(dev, 192, np.float32, 0.02))
-    prof_sw = profile_main_path(
+    prof_sw = profile_loops(
         "shallow path 1024^2 f32 to t=0.1",
         lambda: run_shallow(dev, 1024, np.float32, 0.1))
-    prof_het = profile_main_path(
+    prof_het = profile_loops(
         "acoustics_3d_heterogeneous path 192^3 f32 to t=0.8",
         lambda: run_het(dev, 192, np.float32))
-    prof_eu = profile_main_path(
+    prof_eu = profile_loops(
         "euler_3d capacity path 192^3 f32 to t=0.02",
         lambda: run_euler3d_capa(dev, 192, np.float32, 0.02))
     tm_1d = timing_1d(dev)
-    prof_sod = profile_main_path(
+    prof_sod = profile_loops(
         "sod classic path 800 f32 to t=0.2",
         lambda: run_sod(dev, 800, np.float32, "classic"))
     # a short window: the SharpClaw stage is ~230 small launches, and the
     # profiler's bookkeeping of a whole run takes minutes
-    prof_sod_sharp = profile_main_path(
+    prof_sod_sharp = profile_loops(
         "sod sharpclaw path 800 f32 to t=0.02",
         lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02))
     phase_s["6"] = time.perf_counter() - t0
@@ -2611,37 +2953,51 @@ def main():
         "max_rel_err_f64": s3e_worst["float64"],
         "max_rel_err_f32": s3e_worst["float32"],
     }
+    ra, rr = tm_rs["accepted"], tm_rs["rejected"]
+    rs_record = {
+        "name": "restore", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/restore.cu",
+        "replaces": "pyclaw_tpu/solver.py:320",
+        "replaces_function": "jnp.where(ok, q_new, q_) in the body of "
+                             "_make_evolve_fn's while_loop (XLA fuses it; "
+                             "no pallas_call)",
+        "rows": ["loop"],
+        "launches": rs_launches, "max_abs_err": rs_worst,
+        "ms": ra["ms"], "device_ms": ra["device_ms"],
+        "plain_ms": ra["plain_ms"],
+        "bound_ms": ra["bound_ms"], "bound_by": ra["bound_by"],
+        "library_ms": ra["library_ms"],
+        "shape": tm_rs["shape"], "dtype": "float32", "case": "accepted",
+        "ms_rejected": rr["ms"], "device_ms_rejected": rr["device_ms"],
+        "plain_ms_rejected": rr["plain_ms"],
+        "bound_ms_rejected": rr["bound_ms"],
+        "bound_by_rejected": rr["bound_by"],
+    }
     kernels = [record, dq_record, s3_record, aos_record, s1_record,
-               w5_record, het_record, eu_record]
+               w5_record, het_record, eu_record, rs_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
-                             "wall_s": wall,
-                             "cell_updates_per_s": ns * 1024 * 1024 / wall},
+                             "wall_s_counted": wall, "loop": loop4},
                "sharpclaw_path": {"accepted": sns, "rejected": snr,
                                   "dq_launches": dq_launches,
-                                  "wall_s": swall,
-                                  "cell_updates_per_s":
-                                      sns * 1024 * 1024 / swall},
+                                  "wall_s_counted": swall, "loop": loop4b},
                "euler3d_path": {"accepted": ns3, "rejected": nr3,
                                 "step3_launches": s3_launches,
-                                "wall_s": wall3,
-                                "cell_updates_per_s": ns3 * n3 ** 3 / wall3},
+                                "wall_s_counted": wall3, "loop": loop4c},
                "shallow_path": {"accepted": ns_sw, "rejected": nr_sw,
                                 "aos_launches": aos_launches,
-                                "wall_s": wall_sw,
-                                "cell_updates_per_s":
-                                    ns_sw * 1024 * 1024 / wall_sw,
+                                "wall_s_counted": wall_sw, "loop": loop4d,
                                 "mass_change_rel": mass_rel,
                                 "mirror_asymmetry": mirror},
                "sod_path": sod,
                "acoustics3d_het_path": {
                    "accepted": ns_h, "rejected": nr_h,
-                   "step3_aos_launches": het_launches, "wall_s": wall_h,
-                   "cell_updates_per_s": ns_h * n3 ** 3 / wall_h},
+                   "step3_aos_launches": het_launches,
+                   "wall_s_counted": wall_h, "loop": loop4f},
                "acoustics3d_het_checks": het,
                "euler3d_capacity_path": {
                    "accepted": ns_e, "rejected": nr_e,
-                   "step3_ctu_launches": eu_launches, "wall_s": wall_e,
-                   "cell_updates_per_s": ns_e * n3 ** 3 / wall_e},
+                   "step3_ctu_launches": eu_launches,
+                   "wall_s_counted": wall_e, "loop": loop4g},
                "euler3d_capacity_checks": eu_checks,
                "lake_at_rest": {"steps": lake_steps,
                                 "eta_drift": eta_drift, "momentum": mom},
@@ -2650,7 +3006,8 @@ def main():
                "timing": tm, "timing_dq": tm_dq, "timing_step3": tm3,
                "timing_aos": tm_aos, "timing_1d": tm_1d,
                "timing_step3_aos": tm_het,
-               "timing_step3_capa": tm_eu,
+               "timing_step3_capa": tm_eu, "timing_restore": tm_rs,
+               "device_loop": loops, "device_loop_hooks": hooks,
                "profile": prof, "profile_sharpclaw": sprof,
                "profile_euler3d": prof3, "profile_shallow": prof_sw,
                "profile_acoustics3d_het": prof_het,

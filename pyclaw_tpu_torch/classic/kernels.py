@@ -22,7 +22,9 @@ The 1D, 2D and 3D steps take aux arrays, a capacity function
 (``index_capa`` >= 0: per-cell dt/(dx kappa)) and the f-wave correction
 form.  Without a capacity function dt/dx stays a scalar: ``dt/dx``,
 ``0.5 dt/dx`` and ``dt^2 / (6 dx dy)`` are Python floats, which PyTorch
-rounds to q's dtype where they meet a tensor.  Sums over the small wave
+rounds to q's dtype where they meet a tensor; with dt a 0-d float64
+tensor (the solver's device loop) they are computed in float64 and rounded
+once to q's dtype (``_coef``), the same values.  Sums over the small wave
 and equation axes are written as explicit adds in a fixed order, so no
 result depends on how ATen splits or vectorises a reduction.
 """
@@ -62,16 +64,27 @@ def _correction_flux(wave, phi, s, dtdxave, fwave):
     return cq
 
 
-def _dtdx_arr(dt, dxi, capa):
+def _coef(x, like):
+    """A coefficient of dt as the plain version uses it: a Python float
+    as it is (PyTorch rounds it to q's dtype where it meets a tensor); a
+    0-d tensor (dt held as a float64 tensor by the solver's device loop)
+    rounded once to ``like``'s dtype, so that it meets q's tensors, and a
+    0-d CFL maximum, as the float would."""
+    return x.to(like.dtype) if isinstance(x, torch.Tensor) else x
+
+
+def _dtdx_arr(dt, dxi, capa, like):
     """dt/(dx kappa) per cell along the sweep axis: with a capacity
-    function a tensor shaped like ``capa``, else the Python float dt/dx,
-    which PyTorch rounds to q's dtype where it meets a tensor (the JAX
-    package's ``jnp.full((n,), dt/dx)`` holds that value in every cell).
-    The capacity form divides a 0-d tensor, as the JAX package divides
-    (``float / tensor`` in PyTorch multiplies by a reciprocal)."""
+    function a tensor shaped like ``capa``, else dt/dx as a scalar
+    (:func:`_coef`; the JAX package's ``jnp.full((n,), dt/dx)`` holds that
+    value in every cell).  The capacity form divides a 0-d tensor, as the
+    JAX package divides (``float / tensor`` in PyTorch multiplies by a
+    reciprocal).  ``dt`` is a Python float or a 0-d tensor; ``like`` a
+    tensor of q's dtype."""
     if capa is None:
-        return dt / dxi
-    return capa.new_full((), dt) / (dxi * capa)
+        return _coef(dt / dxi, like)
+    return torch.as_tensor(dt, dtype=capa.dtype,
+                           device=capa.device) / (dxi * capa)
 
 
 def step1(q, aux, dt, dx, rp, params, mthlim, order, fwave, index_capa,
@@ -80,13 +93,13 @@ def step1(q, aux, dt, dx, rp, params, mthlim, order, fwave, index_capa,
     arrays: the plain version of ``csrc/step1.cu``.
 
     q: (num_eqn, ..., n) with n = mx + 2*num_ghost (ghosts filled); aux:
-    (num_aux, ..., n) or None; ``dt`` a Python float.  Interface k lies
+    (num_aux, ..., n) or None; ``dt`` a Python float or a 0-d tensor.
+    Interface k lies
     between cells k and k+1; cell i takes apdq of interface i-1 and amdq
     of interface i.  Returns (q with the last axis cut to the interior
     mx, cfl over the interfaces touching interior cells)."""
     g = num_ghost
     n = q.shape[-1]
-    dt = float(dt)
 
     q_l, q_r = q[..., :-1], q[..., 1:]
     aux_l = aux_r = None
@@ -95,7 +108,7 @@ def step1(q, aux, dt, dx, rp, params, mthlim, order, fwave, index_capa,
     wave, s, amdq, apdq = rp(ixy, q_l, q_r, aux_l, aux_r, params)
 
     capa = aux[index_capa] if index_capa >= 0 else None
-    dtdx = _dtdx_arr(dt, dx, capa)
+    dtdx = _dtdx_arr(dt, dx, capa, q)
     s_int = s[..., g - 1:n - g]
     if capa is None:
         cfl = torch.amax(torch.maximum(s_int * dtdx, -s_int * dtdx))
@@ -120,7 +133,8 @@ def _sweep_normal(q, aux, ixy, rp, params, mthlim, order, fwave,
                   dtdx_cells):
     """Normal Riemann sweep along axis ``ixy`` of a ghost-padded array:
     (wave, s, amdq, apdq, cqxx, dtdxave) at every interface along that
-    axis.  ``dtdx_cells`` is a Python float, or a per-cell tensor (with a
+    axis.  ``dtdx_cells`` is a scalar (:func:`_coef`), or a per-cell
+    tensor (with a
     capacity function), whose interface value is the average of the two
     cells'.  cqxx and dtdxave are None for order 1."""
     axis = 1 + ixy
@@ -133,7 +147,7 @@ def _sweep_normal(q, aux, ixy, rp, params, mthlim, order, fwave,
     wave, s, amdq, apdq = rp(ixy, q_l, q_r, aux_l, aux_r, params)
     cqxx = dtdxave = None
     if order == 2:
-        if isinstance(dtdx_cells, torch.Tensor):
+        if isinstance(dtdx_cells, torch.Tensor) and dtdx_cells.dim() > 0:
             dtdxave = 0.5 * (slc(dtdx_cells, ixy, slice(0, n - 1))
                              + slc(dtdx_cells, ixy, slice(1, n)))
         else:
@@ -158,7 +172,8 @@ def step2(q, aux, dt, dx, dy, rp, rpt, params, mthlim, order, fwave,
     """2D unsplit classic step (step2.f90 + flux2.f90).
 
     q: (num_eqn, nx, ny) ghost-padded; aux: (num_aux, nx, ny) or None;
-    ``dt`` a Python float.  Normal fluctuations and correction fluxes
+    ``dt`` a Python float or a 0-d tensor.  Normal fluctuations and
+    correction fluxes
     are full-grid tensors; the transverse pass adds the corner-transport
     terms into the orthogonal flux as zero-padded shifted blocks (no
     scatter).  ``transverse_waves``: 0 donor-cell corners, 1 transport of
@@ -168,11 +183,10 @@ def step2(q, aux, dt, dx, dy, rp, rpt, params, mthlim, order, fwave,
     ``dtdx1d(i1)``).  Returns (q_interior, cfl)."""
     g = num_ghost
     num_eqn, nx, ny = q.shape
-    dt = float(dt)
 
     capa = aux[index_capa] if index_capa >= 0 else None
-    dtdx = _dtdx_arr(dt, dx, capa)
-    dtdy = _dtdx_arr(dt, dy, capa)
+    dtdx = _dtdx_arr(dt, dx, capa, q)
+    dtdy = _dtdx_arr(dt, dy, capa, q)
 
     wx, sx, amdqx, apdqx, cqxx, _ = _sweep_normal(
         q, aux, 0, rp, params, mthlim, order, fwave, dtdx)
@@ -284,7 +298,7 @@ def _step3_sweeps(q, aux, dt, deltas, rp, params, mthlim, order, fwave,
     g = num_ghost
     shape = q.shape[1:]
     capa = aux[index_capa] if index_capa >= 0 else None
-    dtdx_cells = [_dtdx_arr(dt, deltas[d], capa) for d in range(3)]
+    dtdx_cells = [_dtdx_arr(dt, deltas[d], capa, q) for d in range(3)]
     waves = {}
     cfl = None
     for d in range(3):
@@ -314,12 +328,12 @@ def step3(q, aux, dt, dx, dy, dz, rp, rpt, rptt, params, mthlim, order,
     """3D unsplit classic step (step3.f90 + flux3.f90): normal sweeps
     with limited corrections, rpt3 corner transport and rptt3
     corner-of-corner corrections.  q (num_eqn, nx, ny, nz) ghost-padded;
-    aux (num_aux, nx, ny, nz) or None; ``dt`` a Python float.  With a
+    aux (num_aux, nx, ny, nz) or None; ``dt`` a Python float or a 0-d
+    tensor.  With a
     capacity function (``index_capa`` >= 0) every dt/dD becomes the
     per-cell dt/(dD kappa), and the transverse coefficients are those of
     the receiving cell (flux3.f90 ``dtdx1d(i1)``).  Returns (q_interior,
     cfl)."""
-    dt = float(dt)
     deltas = (dx, dy, dz)
     waves, dtdx_cells, capa, cfl = _step3_sweeps(
         q, aux, dt, deltas, rp, params, mthlim, order, fwave, index_capa,
@@ -363,13 +377,14 @@ def _step3_update(q, aux, waves, dtdx_cells, capa, dt, deltas, rpt, rptt,
             for e in range(3):                  # transverse axis
                 if e == d:
                     continue
-                half = 0.5 * (dt / deltas[d])
+                half = _coef(0.5 * (dt / deltas[d]), q)
                 axis_e = 1 + e
                 f = 3 - d - e                   # the third axis
                 axis_f = 1 + f
                 n_f = shape[f]
                 n_e = shape[e]
-                coeff2 = (dt * dt) / (6.0 * deltas[d] * deltas[e])
+                coeff2 = _coef((dt * dt) / (6.0 * deltas[d] * deltas[e]),
+                               q)
                 own = {}        # i0 -> summed own-row rptt blocks
                 cross = {}      # (i0, e_start) -> summed crossing blocks
                 fe_blocks = {}  # i0 -> rpt contribution block for F[e]
@@ -389,7 +404,7 @@ def _step3_update(q, aux, waves, dtdx_cells, capa, dt, deltas, rpt, rptt,
                                  slice(i0, i0 + shape[d] - 1))
                         c_bm = 0.5 * slc(dd, e, slice(1, n_e))[None]
                         c_bp = 0.5 * slc(dd, e, slice(0, n_e - 1))[None]
-                        co2_full = (dt / (6.0 * deltas[e])) * dd
+                        co2_full = _coef(dt / (6.0 * deltas[e]), q) * dd
                     fe_blocks[i0] = -(c_bm * bm_s + c_bp * bp_s)
 
                     if rptt is not None and transverse_waves >= 2:

@@ -5,7 +5,9 @@ Counterpart of ``pyclaw_tpu/classic/solver.py`` (``ClawSolver :30-107``,
 ``ClawSolver1D :109-131``, ``ClawSolver2D :134-168``, ``_soa_eligible
 :387-398``, ``ClawSolver3D :401-528``), a rebuild of reference
 ``src/pyclaw/classic/solver.py``.  ``setup`` builds one step function
-``_step_fn(q, aux, dt, t) -> (q_new, cfl)``: BC extension of q (and aux),
+``_step_fn(q, aux, dt, t, out=None) -> (q_new, cfl)`` (dt and t Python
+floats or 0-d tensors; ``out`` the buffer of q_new or None): BC extension
+of q (and aux),
 then ``ops.sweep.step1`` (1D: aux, capacity, f-waves),
 ``ops.tiled2d.step2_rows`` (2D, the SoA Euler step),
 ``ops.tiled2d.step2_rows_generic`` (2D, the generic AoS step: aux,
@@ -84,10 +86,10 @@ class ClawSolver1D(ClawSolver):
         dx = state.patch.delta[0]
         sweep.check_options(mthlim, order, rp.num_waves, g)
 
-        def step_fn(q, aux, dt, t):
+        def step_fn(q, aux, dt, t, out=None):
             qbc, auxbc = self._extend_bc(q, aux, t, state)
             return sweep.step1(qbc, auxbc, dt, dx, rp, params, mthlim, order,
-                               fwave, index_capa, g)
+                               fwave, index_capa, g, out=out)
         return step_fn
 
 
@@ -120,10 +122,10 @@ class ClawSolver2D(ClawSolver):
         if self._soa_eligible(state):
             tiled2d.check_options(mthlim, order, tw)
 
-            def step_fn(q, aux, dt, t):
+            def step_fn(q, aux, dt, t, out=None):
                 qbc, _ = self._extend_bc(q, aux, t, state)
                 return tiled2d.step2_rows(qbc, dt, dx, dy, params, mthlim,
-                                          order, g, tw)
+                                          order, g, tw, out=out)
             return step_fn
 
         # the generic AoS step (any system with AoS hooks; on the card the
@@ -136,11 +138,11 @@ class ClawSolver2D(ClawSolver):
         fwave = self.fwave
         index_capa = state.index_capa
 
-        def step_fn(q, aux, dt, t):
+        def step_fn(q, aux, dt, t, out=None):
             qbc, auxbc = self._extend_bc(q, aux, t, state)
             return tiled2d.step2_rows_generic(qbc, auxbc, dt, dx, dy, rp,
                                               params, mthlim, order, fwave,
-                                              index_capa, g, tw)
+                                              index_capa, g, tw, out=out)
         return step_fn
 
     def _soa_eligible(self, state):
@@ -214,19 +216,20 @@ class ClawSolver3D(ClawSolver):
         if is_euler:
             tiled2d.check_options(mthlim, order, tw, 5, "step3_xy")
 
-            def step_fn(q, aux, dt, t):
+            def step_fn(q, aux, dt, t, out=None):
                 qbc, auxbc = self._extend_bc(q, aux, t, state)
                 return tiled2d.step3_xy(qbc, dt, dx, dy, dz, params, mthlim,
                                         order, g, tw, auxbc=auxbc,
-                                        index_capa=index_capa, fwave=fwave)
+                                        index_capa=index_capa, fwave=fwave,
+                                        out=out)
             return step_fn
 
         tiled2d.check_options(mthlim, order, tw, rp.num_waves,
                               "step3_xy_generic")
 
-        def step_fn(q, aux, dt, t):
+        def step_fn(q, aux, dt, t, out=None):
             qbc, auxbc = self._extend_bc(q, aux, t, state)
             return tiled2d.step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp,
                                             params, mthlim, order, fwave,
-                                            index_capa, g, tw)
+                                            index_capa, g, tw, out=out)
         return step_fn

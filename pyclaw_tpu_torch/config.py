@@ -27,12 +27,16 @@ def default_device():
 
 def resolve_device(device=None):
     """``torch.device`` for ``device`` (default: :func:`default_device`).
-    Raises if a CUDA device is asked for and no card is present."""
+    A CUDA device gets its index ("cuda" is the current card), so that it
+    equals the ``.device`` of the tensors made on it.  Raises if a CUDA
+    device is asked for and no card is present."""
     dev = torch.device(default_device() if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {dev} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

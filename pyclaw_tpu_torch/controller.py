@@ -162,6 +162,27 @@ class Controller:
                         self.frames.append(copy.deepcopy(self.solution))
                     self._write(frame)
 
+        self._write_gauges()
         status = self.solver.status
         logger.info("run finished: %s", status)
         return status
+
+    def _write_gauges(self):
+        """Dump recorded gauge time series to <outdir>/_gauges/gauge<N>.txt
+        (reference: per-step file appends from write_gauge_values; here the
+        series is buffered on device by the device loop and written once
+        at the end — same file contents, one IO event)."""
+        state = self.solution.state
+        if not state.gauge_data or self.output_format is None:
+            return
+        gdir = os.path.join(self.outdir,
+                            state.patch.grid.gauge_dir_name)
+        os.makedirs(gdir, exist_ok=True)
+        series = {}
+        for num, t, vals in state.gauge_data:
+            series.setdefault(num, []).append((t, vals))
+        for num, rows in series.items():
+            with open(os.path.join(gdir, f"gauge{num}.txt"), "w") as f:
+                for t, vals in rows:
+                    f.write(" ".join(f"{v:.15e}" for v in
+                                     [t, *list(vals)]) + "\n")

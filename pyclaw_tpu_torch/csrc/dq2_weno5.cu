@@ -89,6 +89,7 @@
 // weights) and riemann/euler.py (_alpha34, _flux_euler_2d_soa).
 
 #include "async_copy.cuh"
+#include "dt_coef.cuh"
 #include "euler2d.cuh"
 #include "weno5.cuh"
 
@@ -153,9 +154,21 @@ template <typename T> struct Args {
   T* dq;
   T* cflb;
   int NX, NY;            // padded (ghost-extended) extents
-  T ndtdx, ndtdy;        // -dt/dx, -dt/dy
-  T dtdx, dtdy, g1;
+  const double* dt;      // the step (dt_coef.cuh)
+  T dx, dy, g1;
+  T* C;                  // the block's coefficients of dt (shared memory)
 };
+
+// The coefficients of dt in Args::C: dt/dx, dt/dy, -dt/dx, -dt/dy in T,
+// as the host computed them from T(dt) before (dt_coef.cuh)
+enum { C_DTDX = 0, C_DTDY = 1, C_NDTDX = 2, C_NDTDY = 3, NCOEF = 4 };
+
+// coefficient k of dt (C_*): T(dt)/T(dx) or T(dt)/T(dy), negated for
+// C_NDTDX and C_NDTDY
+template <typename T> HD T dt_coef(const Args<T>& A, int k) {
+  const T q = T(*A.dt) / (k % 2 == 0 ? A.dx : A.dy);
+  return k < C_NDTDX ? q : -q;
+}
 
 template <typename T> struct Block {
   T* Q;
@@ -197,6 +210,8 @@ HD void phase_load(const Args<T>& A, Block<T>& B, int tid) {
     copy_async(B.Q + idx, A.qbc + ((long long)e * A.NX + I) * A.NY + J);
   }
   B.R[tid] = T(0);
+  // the block's coefficients of dt while the copies land
+  if (tid < NCOEF) A.C[tid] = dt_coef(A, tid);
   copy_wait_all();
 }
 
@@ -247,7 +262,7 @@ template <int D, typename T>
 HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
   constexpr int FR = D == 0 ? FXR : FYR, FC = D == 0 ? FXC : FYC;
   constexpr int EC = D == 0 ? EXC : EYC;
-  const T dtdx = D == 0 ? A.dtdx : A.dtdy;
+  const T dtdx = A.C[D == 0 ? C_DTDX : C_DTDY];
   T smax = B.R[tid];
   for (int idx = tid; idx < FR * FC; idx += NT) {
     int r = idx / FC, c = idx % FC;
@@ -309,7 +324,7 @@ HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
 template <int D, typename T>
 HD void phase_update(const Args<T>& A, Block<T>& B, int tid) {
   constexpr int FC = D == 0 ? FXC : FYC, EC = D == 0 ? EXC : EYC;
-  const T ndt = D == 0 ? A.ndtdx : A.ndtdy;
+  const T ndt = A.C[D == 0 ? C_NDTDX : C_NDTDY];
   const int nx = A.NX - 2 * G, ny = A.NY - 2 * G;
   for (int idx = tid; idx < TX * TY; idx += NT) {
     int ti = idx / TY, tj = idx % TY;
@@ -350,18 +365,17 @@ HD void phase_write_cfl(const Args<T>& A, Block<T>& B, int tid) {
 
 template <typename T>
 Args<T> make_args(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
-                  double dt, double dx, double dy, double g1) {
+                  const double* dt, double dx, double dy, double g1) {
   Args<T> A;
   A.qbc = static_cast<const T*>(qbc);
   A.dq = static_cast<T*>(dq);
   A.cflb = static_cast<T*>(cflb);
   A.NX = nxg;
   A.NY = nyg;
-  const T dt_ = T(dt);
-  A.dtdx = dt_ / T(dx);
-  A.dtdy = dt_ / T(dy);
-  A.ndtdx = -A.dtdx;
-  A.ndtdy = -A.dtdy;
+  A.dt = dt;
+  A.dx = T(dx);
+  A.dy = T(dy);
+  A.C = nullptr;
   A.g1 = T(g1);
   return A;
 }
@@ -375,6 +389,8 @@ void grid_of(int nxg, int nyg, int& nbx, int& nby) {
 template <typename T>
 __global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T coef[NCOEF];
+  A.C = coef;
   Block<T> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x,
          gridDim.y);
@@ -398,13 +414,16 @@ __global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<T> A) {
   phase_write_cfl<T>(A, B, tid);
 }
 
+// the devices whose shared-memory attribute of dq2_weno5_kernel<T> is set
+template <typename T> unsigned long long attr_done = 0;
+
 template <typename T>
 int launch(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
-           double dt, double dx, double dy, double g1, void* stream) {
-  // The limit applies to the current device only: set it on every launch.
-  cudaError_t err = cudaFuncSetAttribute(
-      dq2_weno5_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Layout<T>::bytes);
+           const double* dt, double dx, double dy, double g1,
+           void* stream) {
+  cudaError_t err = smem_attr_once(
+      reinterpret_cast<const void*>(dq2_weno5_kernel<T>),
+      (int)Layout<T>::bytes, attr_done<T>);
   if (err != cudaSuccess) return (int)err;
   int nbx, nby;
   grid_of(nxg, nyg, nbx, nby);
@@ -415,9 +434,8 @@ int launch(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
 }
 template <typename T> int blocks_per_sm() {
   int per = 0;
-  if (cudaFuncSetAttribute(dq2_weno5_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)Layout<T>::bytes) != cudaSuccess ||
+  if (smem_attr_once(reinterpret_cast<const void*>(dq2_weno5_kernel<T>),
+                     (int)Layout<T>::bytes, attr_done<T>) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &per, dq2_weno5_kernel<T>, NT, Layout<T>::bytes) != cudaSuccess)
     return -1;
@@ -430,11 +448,13 @@ template <typename T> int blocks_per_sm() {
 // kernel's index algebra against the plain version without a card.
 template <typename T>
 int launch_host(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
-                double dt, double dx, double dy, double g1) {
+                const double* dt, double dx, double dy, double g1) {
   int nbx, nby;
   grid_of(nxg, nyg, nbx, nby);
   Args<T> A = make_args<T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
   std::vector<T> smem(Layout<T>::elems);
+  T coef[NCOEF];
+  A.C = coef;
   for (int by = 0; by < nby; ++by) {
     for (int bx = 0; bx < nbx; ++bx) {
       Block<T> B;
@@ -482,16 +502,19 @@ int dq2_weno5_smem_bytes(int is_double) {
 
 // One SharpClaw dq.  qbc: (4, nxg, nyg) ghost-padded (3 ghost cells), dq:
 // (4, nxg-6, nyg-6), cflb: dq2_weno5_blocks(...) partial CFL maxima; all
-// contiguous, of the type named by the entry.  dt is exact in that type;
-// g1 = gamma - 1.  Returns a cudaError_t (0 on success).
+// contiguous, of the type named by the entry.  dt: the step in device
+// memory (host memory for the host emulation), a double that is exact in
+// the entry's type; g1 = gamma - 1.  Returns a cudaError_t (0 on success).
 #if defined(__CUDACC__)
 int dq2_weno5_f32(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
-                  double dt, double dx, double dy, double g1, void* stream) {
+                  const double* dt, double dx, double dy, double g1,
+                  void* stream) {
   return launch<float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, stream);
 }
 
 int dq2_weno5_f64(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
-                  double dt, double dx, double dy, double g1, void* stream) {
+                  const double* dt, double dx, double dy, double g1,
+                  void* stream) {
   return launch<double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, stream);
 }
 
@@ -502,12 +525,14 @@ int dq2_weno5_blocks_per_sm(int is_double) {
 }
 #else
 int dq2_weno5_host_f32(const void* qbc, void* dq, void* cflb, int nxg,
-                       int nyg, double dt, double dx, double dy, double g1) {
+                       int nyg, const double* dt, double dx, double dy,
+                       double g1) {
   return launch_host<float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
 }
 
 int dq2_weno5_host_f64(const void* qbc, void* dq, void* cflb, int nxg,
-                       int nyg, double dt, double dx, double dy, double g1) {
+                       int nyg, const double* dt, double dx, double dy,
+                       double g1) {
   return launch_host<double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
 }
 #endif

@@ -64,6 +64,7 @@
 // across zero would move the result by a whole wave.
 
 #include "async_copy.cuh"
+#include "dt_coef.cuh"
 #include "systems1d.cuh"
 #include "tvd.cuh"
 
@@ -72,6 +73,7 @@ namespace {
 constexpr int NT = 256;        // threads per block = staged cells per tile
 constexpr int TILE = NT - 4;   // interior cells per tile
 constexpr int NWARP = NT / 32;
+constexpr int NCOEF = 1;  // coefficients of dt a block keeps: dt/dx
 
 template <typename S, typename T, bool CAPA> struct Tile {
   static constexpr int NEQ = S::NEQ, NW = S::NW, NC = S::NC;
@@ -82,8 +84,9 @@ template <typename S, typename T, bool CAPA> struct Tile {
   static constexpr size_t elems = NEQ * QN + (CAPA ? QN : 0) + UN
       + NW * NEQ * WN + NEQ * WN + NWARP;    // + waves, apdq; CFL
   static constexpr size_t bytes = elems * sizeof(T);
-  static_assert(bytes <= 48 * 1024, "a launch takes 48 KB without an "
-                "attribute");
+  // (with the coefficients of dt, in static shared memory)
+  static_assert(bytes + NCOEF * sizeof(T) <= 48 * 1024,
+                "a launch takes 48 KB without an attribute");
 };
 
 template <typename T> struct Args {
@@ -93,8 +96,12 @@ template <typename T> struct Args {
   T* cflb;
   int N, g;        // padded length, ghost cells
   int capa;        // aux row of the capacity function (CAPA only)
-  T dt, dx;        // for the per-cell dt/(dx kappa)
-  T dtdx;          // dt/dx without a capacity function
+  const double* dt;  // the step (dt_coef.cuh)
+  T dx;            // for the per-cell dt/(dx kappa)
+  double ddx;      // for dt/dx
+  T* C;            // the block's dt/dx without a capacity function, the
+                   // plain version's Python float rounded once (shared
+                   // memory)
   P1d<T> P;
   int order;
   int lim[3];
@@ -121,7 +128,7 @@ template <typename S, typename T, bool CAPA> struct Block {
     R = AP + L::NEQ * L::WN;
     c0 = g + b * TILE;
   }
-  HD T dtd(const Args<T>& A, int j) const { return CAPA ? DX[j] : A.dtdx; }
+  HD T dtd(const Args<T>& A, int j) const { return CAPA ? DX[j] : A.C[0]; }
 };
 
 // what a thread computes for its interface and reads again in a later
@@ -137,6 +144,8 @@ template <typename S, typename T, bool CAPA>
 HD void phase_load(const Args<T>& A, Block<S, T, CAPA>& B, int t) {
   using L = Tile<S, T, CAPA>;
   constexpr int NEQ = L::NEQ, NC = L::NC, QN = L::QN;
+  // dt/dx first: its division overlaps the loads of q
+  if (t < NCOEF) A.C[t] = T(*A.dt / A.ddx);
   int I = B.c0 - 2 + t;
   I = I < A.N ? I : A.N - 1;
   T q[NEQ];
@@ -144,7 +153,9 @@ HD void phase_load(const Args<T>& A, Block<S, T, CAPA>& B, int t) {
     q[e] = A.qbc[(long long)e * A.N + I];
     B.q[e * QN + t] = q[e];
   }
-  if (CAPA) B.DX[t] = A.dt / (A.dx * A.aux[(long long)A.capa * A.N + I]);
+  if (CAPA) {
+    B.DX[t] = T(*A.dt) / (A.dx * A.aux[(long long)A.capa * A.N + I]);
+  }
   if constexpr (NC > 0) {
     T c[NC];
     S::cell(A.P, q, c);
@@ -276,12 +287,13 @@ template <typename S, typename T, bool CAPA>
 HD T block_cfl(const Args<T>& A, const Block<S, T, CAPA>& B) {
   T m = B.R[0];
   for (int w = 1; w < NWARP; ++w) m = mx(m, B.R[w]);
-  return CAPA ? m : A.dtdx * m;
+  return CAPA ? m : A.C[0] * m;
 }
 
 template <typename T>
 Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
-                  int n, int g, int capa, double dt, double dx, double p0,
+                  int n, int g, int capa, const double* dt, double dx,
+                  double p0,
                   double p1, int order, const int* lim) {
   Args<T> A;
   A.qbc = static_cast<const T*>(qbc);
@@ -291,9 +303,10 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
   A.N = n;
   A.g = g;
   A.capa = capa;
-  A.dt = T(dt);
+  A.dt = dt;
   A.dx = T(dx);
-  A.dtdx = T(dt / dx);   // the plain version's Python float, rounded once
+  A.ddx = dx;
+  A.C = nullptr;
   A.P.set(p0, p1);
   A.order = order;
   for (int p = 0; p < 3; ++p) A.lim[p] = lim[p];
@@ -306,6 +319,8 @@ int blocks_of(int n, int g) { return (n - 2 * g + TILE - 1) / TILE; }
 template <typename S, typename T, bool CAPA, bool FWAVE>
 __global__ void __launch_bounds__(NT) step1_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T coef[NCOEF];
+  A.C = coef;
   Block<S, T, CAPA> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, A.g);
   Regs<S, T> r;
@@ -342,8 +357,10 @@ template <typename S, typename T> int blocks_per_sm() {
 // array.  Used by the CPU tests to check the kernel's index algebra against
 // the plain version without a card.
 template <typename S, typename T, bool CAPA, bool FWAVE>
-int launch(const Args<T>& A, int nb, void*) {
+int launch(Args<T> A, int nb, void*) {
   std::vector<T> smem(Tile<S, T, CAPA>::elems);
+  T coef[NCOEF];
+  A.C = coef;
   std::vector<Regs<S, T>> regs(NT);
   for (int b = 0; b < nb; ++b) {
     Block<S, T, CAPA> B;
@@ -376,8 +393,9 @@ int dispatch_flags(const Args<T>& A, bool capa, bool fwave, int nb,
 
 template <typename T>
 int step(const void* qbc, const void* aux, void* qout, void* cflb, int n,
-         int g, int system, int capa, int fwave, double dt, double dx,
-         double p0, double p1, int order, const int* lim, void* stream) {
+         int g, int system, int capa, int fwave, const double* dt,
+         double dx, double p0, double p1, int order, const int* lim,
+         void* stream) {
   const Args<T> A = make_args<T>(qbc, aux, qout, cflb, n, g, capa, dt, dx,
                                  p0, p1, order, lim);
   const int nb = blocks_of(n, g);
@@ -438,13 +456,16 @@ int step1_blocks_per_sm(int is_double) {
 // (num_aux, n) or null when capa < 0; qout: (num_eqn, n-2g); cflb:
 // step1_blocks(n, g) partial CFL maxima; all contiguous, of the type named
 // by the entry.  system: SYS_*; capa: aux row of the capacity function or
-// -1; fwave: the f-wave correction form; p0, p1: the physics scalars (u |
+// -1; fwave: the f-wave correction form; dt: the step in device memory
+// (host memory for the host emulation), a double that is exact in the
+// entry's type; p0, p1: the physics scalars (u |
 // zz, cc | gamma); l0..l2: the limiter ids of the waves.  Returns a
 // cudaError_t (0 on success), or -1 for an unknown system.
 #if defined(__CUDACC__)
 #define STEP1_ENTRY(NAME, T)                                                 \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb, int n,  \
-           int g, int system, int capa, int fwave, double dt, double dx,     \
+           int g, int system, int capa, int fwave, const double* dt,         \
+           double dx,                                                        \
            double p0, double p1, int order, int l0, int l1, int l2,          \
            void* stream) {                                                   \
     const int lim[3] = {l0, l1, l2};                                         \
@@ -456,7 +477,8 @@ STEP1_ENTRY(step1_f64, double)
 #else
 #define STEP1_ENTRY(NAME, T)                                                 \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb, int n,  \
-           int g, int system, int capa, int fwave, double dt, double dx,     \
+           int g, int system, int capa, int fwave, const double* dt,         \
+           double dx,                                                        \
            double p0, double p1, int order, int l0, int l1, int l2) {        \
     const int lim[3] = {l0, l1, l2};                                         \
     return step<T>(qbc, aux, qout, cflb, n, g, system, capa, fwave, dt, dx,  \

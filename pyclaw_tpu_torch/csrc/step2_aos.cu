@@ -86,6 +86,7 @@
 // moved such a speed across zero moved the result by a whole wave.
 
 #include "async_copy.cuh"
+#include "dt_coef.cuh"
 #include "shallow2d.cuh"
 #include "tvd.cuh"
 
@@ -140,12 +141,23 @@ template <typename T> struct Args {
   T* cflb;
   int NX, NY;           // padded (ghost-extended) extents
   int capa;             // aux row of the capacity function (CAPA only)
-  T dt, dx, dy;         // for the per-cell dt/(dx kappa)
-  T dtdx, dtdy, hdx, hdy;  // dt/dx, dt/dy, 0.5 dt/dx, 0.5 dt/dy
+  const double* dt;     // the step (dt_coef.cuh)
+  T dx, dy;             // for the per-cell dt/(dx kappa)
+  double ddx, ddy;      // for the coefficients of dt
+  T* C;                 // the block's coefficients of dt (shared memory)
   Sw<T> P;
   int order, tw;
   int lim[3];
 };
+
+// The coefficients of dt in Args::C: dt/dx, dt/dy, 0.5 dt/dx, 0.5 dt/dy,
+// the plain version's Python floats rounded once to T (dt_coef.cuh)
+enum { C_DTDX = 0, C_DTDY = 1, C_HDX = 2, C_HDY = 3, NCOEF = 4 };
+
+template <typename T> HD T dt_coef(const Args<T>& A, int k) {
+  const double q = *A.dt / (k % 2 == 0 ? A.ddx : A.ddy);
+  return T(k < C_HDX ? q : 0.5 * q);
+}
 
 template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
   using L = Tile<S, T, TX, TY, CAPA>;
@@ -188,7 +200,7 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
   // dt/dx (D = 0) or dt/dy (D = 1) of the tile cell (r, c)
   template <int D> HD T dtd(const Args<T>& A, int r, int c) const {
     if (CAPA) return (D == 0 ? DX : DY)[r * L::QC + c];
-    return D == 0 ? A.dtdx : A.dtdy;
+    return A.C[D == 0 ? C_DTDX : C_DTDY];
   }
 };
 
@@ -217,6 +229,8 @@ HD void phase_load(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
     B.rx[tid] = T(0);
     B.ry[tid] = T(0);
   }
+  // the block's coefficients of dt while the copies land
+  if (tid < NCOEF) A.C[tid] = dt_coef(A, tid);
   copy_wait_all();
   for (int rc = tid; rc < L::QN; rc += NT) {
     T qv[L::NEQ], pv[NPC];
@@ -225,9 +239,9 @@ HD void phase_load(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
     for (int k = 0; k < NPC; ++k) B.PC[k * L::QN + rc] = pv[k];
     if (CAPA) {
       // dt / (dx kappa): the plain version's 0-d dt over (dx * kappa)
-      const T kappa = B.DX[rc];
-      B.DY[rc] = A.dt / (A.dy * kappa);
-      B.DX[rc] = A.dt / (A.dx * kappa);
+      const T kappa = B.DX[rc], dt = T(*A.dt);
+      B.DY[rc] = dt / (A.dy * kappa);
+      B.DX[rc] = dt / (A.dx * kappa);
     }
   }
 }
@@ -418,7 +432,7 @@ HD void item_gather_y(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
   const T* X = B.P;
   const int ti = idx / OYC, cj = idx % OYC;
   const int o = (ti + 1) * OYC + cj;
-  T lo = A.hdx, hi = A.hdx;
+  T lo = A.C[C_HDX], hi = lo;
   if (CAPA) {
     lo = T(0.5) * B.template dtd<0>(A, ti + 2, cj + 2);
     hi = T(0.5) * B.template dtd<0>(A, ti + 2, cj + 1);
@@ -467,7 +481,7 @@ HD void item_update(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
       fy_lo[h] = T(0.5) * B.template dtd<1>(A, ti + 2 + h, tj + 2);
       fy_hi[h] = T(0.5) * B.template dtd<1>(A, ti + 1 + h, tj + 2);
     } else {
-      fy_lo[h] = fy_hi[h] = A.hdy;
+      fy_lo[h] = fy_hi[h] = A.C[C_HDY];
     }
   }
   const T dxc = B.template dtd<0>(A, ti + 2, tj + 2);
@@ -542,12 +556,13 @@ HD T block_cfl(const Args<T>& A, const Block<S, T, TX, TY, CAPA>& B) {
     mx_x = mx(mx_x, B.rx[w]);
     mx_y = mx(mx_y, B.ry[w]);
   }
-  return CAPA ? mx(mx_x, mx_y) : mx(A.dtdx * mx_x, A.dtdy * mx_y);
+  return CAPA ? mx(mx_x, mx_y)
+              : mx(A.C[C_DTDX] * mx_x, A.C[C_DTDY] * mx_y);
 }
 
 template <typename T>
 Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
-                  int nxg, int nyg, int capa, double dt, double dx,
+                  int nxg, int nyg, int capa, const double* dt, double dx,
                   double dy, double grav, double dry, int order, int tw,
                   const int* lim) {
   Args<T> A;
@@ -558,14 +573,12 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
   A.NX = nxg;
   A.NY = nyg;
   A.capa = capa;
-  A.dt = T(dt);
+  A.dt = dt;
   A.dx = T(dx);
   A.dy = T(dy);
-  // Python floats of the plain version, rounded once to T
-  A.dtdx = T(dt / dx);
-  A.dtdy = T(dt / dy);
-  A.hdx = T(0.5 * (dt / dx));
-  A.hdy = T(0.5 * (dt / dy));
+  A.ddx = dx;
+  A.ddy = dy;
+  A.C = nullptr;
   A.P.g = T(grav);
   A.P.hg = T(grav * 0.5);
   A.P.dry = T(dry);
@@ -606,6 +619,8 @@ template <typename S, typename T, int TX, int TY, bool CAPA, bool FWAVE>
 __global__ void __launch_bounds__(NT, Shape<T>::PER_SM)
     step2_aos_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T coef[NCOEF];
+  A.C = coef;
   Block<S, T, TX, TY, CAPA> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x);
   step_block<FWAVE>(A, B, DeviceRun());
@@ -616,10 +631,11 @@ template <typename S, typename T, bool CAPA, bool FWAVE>
 int launch(const Args<T>& A, int nbx, int nby, void* stream) {
   constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
   constexpr size_t bytes = smem_bytes<S, T, CAPA>();
-  // The limit applies to the current device only: set it on every launch.
-  cudaError_t err = cudaFuncSetAttribute(
-      step2_aos_kernel<S, T, TX, TY, CAPA, FWAVE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static unsigned long long attr_done = 0;
+  cudaError_t err = smem_attr_once(
+      reinterpret_cast<const void*>(
+          step2_aos_kernel<S, T, TX, TY, CAPA, FWAVE>),
+      (int)bytes, attr_done);
   if (err != cudaSuccess) return (int)err;
   step2_aos_kernel<S, T, TX, TY, CAPA, FWAVE>
       <<<dim3(nbx, nby), NT, bytes, static_cast<cudaStream_t>(stream)>>>(A);
@@ -637,9 +653,11 @@ struct HostRun {
 };
 
 template <typename S, typename T, bool CAPA, bool FWAVE>
-int launch(const Args<T>& A, int nbx, int nby, void*) {
+int launch(Args<T> A, int nbx, int nby, void*) {
   constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
   std::vector<T> smem(Tile<S, T, TX, TY, CAPA>::elems);
+  T coef[NCOEF];
+  A.C = coef;
   for (int by = 0; by < nby; ++by) {
     for (int bx = 0; bx < nbx; ++bx) {
       Block<S, T, TX, TY, CAPA> B;
@@ -668,8 +686,8 @@ int dispatch_flags(const Args<T>& A, bool capa, bool fwave, int nbx, int nby,
 
 template <typename T>
 int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
-         int nyg, int system, int capa, int fwave, double dt, double dx,
-         double dy, double grav, double dry, int order, int tw,
+         int nyg, int system, int capa, int fwave, const double* dt,
+         double dx, double dy, double grav, double dry, int order, int tw,
          const int* lim, void* stream) {
   int nbx, nby;
   grid_of<T>(nxg, nyg, nbx, nby);
@@ -717,12 +735,15 @@ int step2_aos_smem_bytes(int system, int capa, int is_double) {
 // qout: (3, nxg-4, nyg-4); cflb: step2_aos_blocks(...) partial CFL maxima;
 // all contiguous, of the type named by the entry.  system: SYS_*; capa:
 // aux row of the capacity function or -1; fwave: the f-wave correction
-// form; l0..l2: the limiter ids of the three waves.  Returns a cudaError_t
+// form; dt: the step in device memory (host memory for the host
+// emulation), a double that is exact in the entry's type; l0..l2: the
+// limiter ids of the three waves.  Returns a cudaError_t
 // (0 on success), or -1 for an unknown system.
 #if defined(__CUDACC__)
 #define STEP2_AOS_ENTRY(NAME, T)                                             \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb,         \
-           int nxg, int nyg, int system, int capa, int fwave, double dt,     \
+           int nxg, int nyg, int system, int capa, int fwave,                \
+           const double* dt,                                                 \
            double dx, double dy, double grav, double dry, int order, int tw, \
            int l0, int l1, int l2, void* stream) {                           \
     const int lim[3] = {l0, l1, l2};                                         \
@@ -734,7 +755,8 @@ STEP2_AOS_ENTRY(step2_aos_f64, double)
 #else
 #define STEP2_AOS_ENTRY(NAME, T)                                             \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb,         \
-           int nxg, int nyg, int system, int capa, int fwave, double dt,     \
+           int nxg, int nyg, int system, int capa, int fwave,                \
+           const double* dt,                                                 \
            double dx, double dy, double grav, double dry, int order, int tw, \
            int l0, int l1, int l2) {                                         \
     const int lim[3] = {l0, l1, l2};                                         \

@@ -78,6 +78,7 @@
 // tvd.cuh, shared with step3_ctu.cu.
 
 #include "async_copy.cuh"
+#include "dt_coef.cuh"
 #include "euler2d.cuh"
 #include "tvd.cuh"
 
@@ -119,6 +120,10 @@ template <typename T, int TX, int TY> struct Tile {
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
+// The coefficients of dt in Args::C: dt/dx, dt/dy, 0.5 dt/dx, 0.5 dt/dy
+// in T, as the host computed them from T(dt) before (dt_coef.cuh)
+enum { C_DTDX = 0, C_DTDY = 1, C_HDX = 2, C_HDY = 3, NCOEF = 4 };
+
 // Field offsets inside an O array and inside S (times the region size)
 enum { F_AM = 0, F_AP = 4, F_CQ = 8 };
 enum { F_T0 = 0, F_T1 = 4, F_T2 = 8, F_T3 = 12 };
@@ -128,10 +133,19 @@ template <typename T> struct Args {
   T* qout;
   T* cflb;
   int NX, NY;           // padded (ghost-extended) extents
-  T dtdx, dtdy, hdx, hdy, g1;
+  const double* dt;     // the step (dt_coef.cuh)
+  T dx, dy, g1;
+  T* C;                 // the block's coefficients of dt (shared memory)
   int order, tw;
   int lim[4];
 };
+
+// coefficient k of dt (C_*): T(dt)/T(dx) or T(dt)/T(dy), halved for
+// C_HDX and C_HDY
+template <typename T> HD T dt_coef(const Args<T>& A, int k) {
+  const T q = T(*A.dt) / (k % 2 == 0 ? A.dx : A.dy);
+  return k < C_HDX ? q : T(0.5) * q;
+}
 
 template <typename T, int TX, int TY> struct Block {
   using L = Tile<T, TX, TY>;
@@ -173,6 +187,8 @@ HD void phase_load(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
     J = J < A.NY ? J : A.NY - 1;
     copy_async(B.q + idx, A.qbc + ((long long)e * A.NX + I) * A.NY + J);
   }
+  // the block's coefficients of dt while the copies land
+  if (tid < NCOEF) A.C[tid] = dt_coef(A, tid);
   B.rx[tid] = T(0);
   B.ry[tid] = T(0);
   copy_wait_all();
@@ -276,7 +292,7 @@ HD void phase_sweep(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
   constexpr int WC = IXY == 0 ? L::WXC : L::WYC;
   constexpr int ON = R * C;
   T* O = IXY == 0 ? B.OX : B.OY;
-  const T dtdx = IXY == 0 ? A.dtdx : A.dtdy;
+  const T dtdx = A.C[IXY == 0 ? C_DTDX : C_DTDY];
   T smax = IXY == 0 ? B.rx[tid] : B.ry[tid];
   for (int idx = tid; idx < ON; idx += NT) {
     int r = idx / C, c = idx % C;
@@ -413,9 +429,9 @@ HD void phase_gather_y(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
       T gy = T(0);
       if (face) {
         const int ti = r - 1;
-        gy = -A.hdx * (X[(F_T0 + e) * SN + (ti + 1) * OXC + cj + 1]
+        gy = -A.C[C_HDX] * (X[(F_T0 + e) * SN + (ti + 1) * OXC + cj + 1]
                        + X[(F_T1 + e) * SN + (ti + 1) * OXC + cj])
-             - A.hdx * (X[(F_T2 + e) * SN + ti * OXC + cj + 1]
+             - A.C[C_HDX] * (X[(F_T2 + e) * SN + ti * OXC + cj + 1]
                         + X[(F_T3 + e) * SN + ti * OXC + cj]);
       }
       B.OY[(F_CQ + e) * OYN + idx] = gy;
@@ -464,9 +480,9 @@ HD void phase_update(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
         T f = X[(F_CQ + e) * OXN + rk * OXC + tj + 1];
         if (A.tw > 0) {
           int cJ = tj + 1;
-          f = f - A.hdy * (YS[(F_T0 + e) * SN + (rk + 1) * OYC + cJ]
+          f = f - A.C[C_HDY] * (YS[(F_T0 + e) * SN + (rk + 1) * OYC + cJ]
                            + YS[(F_T1 + e) * SN + rk * OYC + cJ])
-                - A.hdy * (YS[(F_T2 + e) * SN + (rk + 1) * OYC + cJ - 1]
+                - A.C[C_HDY] * (YS[(F_T2 + e) * SN + (rk + 1) * OYC + cJ - 1]
                            + YS[(F_T3 + e) * SN + rk * OYC + cJ - 1]);
         }
         F[h] = f;
@@ -480,8 +496,8 @@ HD void phase_update(const Args<T>& A, Block<T, TX, TY>& B, int tid) {
       T amx = X[(F_AM + e) * OXN + (ti + 1) * OXC + tj + 1];
       T apy = Y[(F_AP + e) * OYN + (ti + 1) * OYC + tj];
       T amy = Y[(F_AM + e) * OYN + (ti + 1) * OYC + tj + 1];
-      T dq = (apx + amx + F[1] - F[0]) * A.dtdx
-           + (apy + amy + G[1] - G[0]) * A.dtdy;
+      T dq = (apx + amx + F[1] - F[0]) * A.C[C_DTDX]
+           + (apy + amy + G[1] - G[0]) * A.C[C_DTDY];
       A.qout[((long long)e * nx + (I - 2)) * ny + (J - 2)] =
           B.qs(e, ti + 2, tj + 2) - dq;
     }
@@ -508,24 +524,23 @@ HD void step_block(const Args<T>& A, Block<T, TX, TY>& B, const X& run) {
 // the block's CFL: max speed times dt/dx, max over both directions
 template <typename T, int TX, int TY>
 HD T block_cfl(const Args<T>& A, const Block<T, TX, TY>& B) {
-  return mx(A.dtdx * block_max(B.rx), A.dtdy * block_max(B.ry));
+  return mx(A.C[C_DTDX] * block_max(B.rx), A.C[C_DTDY] * block_max(B.ry));
 }
 
 template <typename T>
 Args<T> make_args(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-                  double dt, double dx, double dy, double g1, int order,
-                  int tw, const int* lim) {
+                  const double* dt, double dx, double dy, double g1,
+                  int order, int tw, const int* lim) {
   Args<T> A;
   A.qbc = static_cast<const T*>(qbc);
   A.qout = static_cast<T*>(qout);
   A.cflb = static_cast<T*>(cflb);
   A.NX = nxg;
   A.NY = nyg;
-  const T dt_ = T(dt);
-  A.dtdx = dt_ / T(dx);
-  A.dtdy = dt_ / T(dy);
-  A.hdx = T(0.5) * A.dtdx;
-  A.hdy = T(0.5) * A.dtdy;
+  A.dt = dt;
+  A.dx = T(dx);
+  A.dy = T(dy);
+  A.C = nullptr;
   A.g1 = T(g1);
   A.order = order;
   A.tw = tw;
@@ -551,6 +566,8 @@ template <typename T, int TX, int TY>
 __global__ void __launch_bounds__(NT, Shape<T>::PER_SM)
     step2_ctu_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T coef[NCOEF];
+  A.C = coef;
   Block<T, TX, TY> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x);
   step_block(A, B, DeviceRun());
@@ -559,14 +576,14 @@ __global__ void __launch_bounds__(NT, Shape<T>::PER_SM)
 
 template <typename T>
 int launch(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-           double dt, double dx, double dy, double g1, int order, int tw,
-           const int* lim, void* stream) {
+           const double* dt, double dx, double dy, double g1, int order,
+           int tw, const int* lim, void* stream) {
   constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
   using L = Tile<T, TX, TY>;
-  // The limit applies to the current device only: set it on every launch.
-  cudaError_t err = cudaFuncSetAttribute(
-      step2_ctu_kernel<T, TX, TY>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  static unsigned long long attr_done = 0;
+  cudaError_t err = smem_attr_once(
+      reinterpret_cast<const void*>(step2_ctu_kernel<T, TX, TY>),
+      (int)L::bytes, attr_done);
   if (err != cudaSuccess) return (int)err;
   int nbx, nby;
   grid_of<T>(nxg, nyg, nbx, nby);
@@ -589,8 +606,8 @@ struct HostRun {
 
 template <typename T>
 int launch_host(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-                double dt, double dx, double dy, double g1, int order,
-                int tw, const int* lim) {
+                const double* dt, double dx, double dy, double g1,
+                int order, int tw, const int* lim) {
   constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
   using L = Tile<T, TX, TY>;
   int nbx, nby;
@@ -598,6 +615,8 @@ int launch_host(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
   Args<T> A = make_args<T>(qbc, qout, cflb, nxg, nyg, dt, dx, dy, g1, order,
                            tw, lim);
   std::vector<T> smem(L::elems);
+  T coef[NCOEF];
+  A.C = coef;
   for (int by = 0; by < nby; ++by) {
     for (int bx = 0; bx < nbx; ++bx) {
       Block<T, TX, TY> B;
@@ -643,36 +662,42 @@ int step2_ctu_smem_bytes(int is_double) {
 
 // One CTU step.  qbc: (4, nxg, nyg) ghost-padded (2 ghost cells), qout:
 // (4, nxg-4, nyg-4), cflb: step2_ctu_blocks(...) partial CFL maxima; all
-// contiguous, of the type named by the entry.  lim: 4 limiter ids.
+// contiguous, of the type named by the entry.  dt: the step in device
+// memory (host memory for the host emulation), a double that is exact in
+// the entry's type.  lim: 4 limiter ids.
 // Returns a cudaError_t (0 on success).
 #if defined(__CUDACC__)
 int step2_ctu_f32(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-                  double dt, double dx, double dy, double g1, int order,
-                  int tw, int l0, int l1, int l2, int l3, void* stream) {
+                  const double* dt, double dx, double dy, double g1,
+                  int order, int tw, int l0, int l1, int l2, int l3,
+                  void* stream) {
   const int lim[4] = {l0, l1, l2, l3};
   return launch<float>(qbc, qout, cflb, nxg, nyg, dt, dx, dy, g1, order, tw,
                        lim, stream);
 }
 
 int step2_ctu_f64(const void* qbc, void* qout, void* cflb, int nxg, int nyg,
-                  double dt, double dx, double dy, double g1, int order,
-                  int tw, int l0, int l1, int l2, int l3, void* stream) {
+                  const double* dt, double dx, double dy, double g1,
+                  int order, int tw, int l0, int l1, int l2, int l3,
+                  void* stream) {
   const int lim[4] = {l0, l1, l2, l3};
   return launch<double>(qbc, qout, cflb, nxg, nyg, dt, dx, dy, g1, order,
                         tw, lim, stream);
 }
 #else
 int step2_ctu_host_f32(const void* qbc, void* qout, void* cflb, int nxg,
-                       int nyg, double dt, double dx, double dy, double g1,
-                       int order, int tw, int l0, int l1, int l2, int l3) {
+                       int nyg, const double* dt, double dx, double dy,
+                       double g1, int order, int tw, int l0, int l1, int l2,
+                       int l3) {
   const int lim[4] = {l0, l1, l2, l3};
   return launch_host<float>(qbc, qout, cflb, nxg, nyg, dt, dx, dy, g1,
                             order, tw, lim);
 }
 
 int step2_ctu_host_f64(const void* qbc, void* qout, void* cflb, int nxg,
-                       int nyg, double dt, double dx, double dy, double g1,
-                       int order, int tw, int l0, int l1, int l2, int l3) {
+                       int nyg, const double* dt, double dx, double dy,
+                       double g1, int order, int tw, int l0, int l1, int l2,
+                       int l3) {
   const int lim[4] = {l0, l1, l2, l3};
   return launch_host<double>(qbc, qout, cflb, nxg, nyg, dt, dx, dy, g1,
                              order, tw, lim);

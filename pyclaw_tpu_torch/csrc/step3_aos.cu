@@ -126,6 +126,7 @@
 #include "acoustics3d.cuh"
 #include "async_copy.cuh"
 #include "ctu3d.cuh"
+#include "dt_coef.cuh"
 #include "tvd.cuh"
 
 namespace {
@@ -197,12 +198,13 @@ template <typename T> struct Args {
   int N[3];            // padded (ghost-extended) extents
   int nb[3];           // blocks along x, y, z
   int capa;            // aux row of the capacity function (CAPA only)
-  T dt;                // for the per-cell dt/(dD kappa)
+  const double* dt;    // the step (dt_coef.cuh)
+  double dd[3];        // dx, dy, dz for the coefficients of dt
   T d[3];              // dx, dy, dz
-  T dtd[3];            // dt / dD
-  T half[3];           // 0.5 dt / dD
-  T co2[3][3];         // dt^2 / (6 dD dE)
-  T co6[3];            // dt / (6 dE), the kappa-scaled rptt factor
+  T* C;                // the block's coefficients of dt (dt_coef.cuh:
+                       // coef3), in shared memory: dt/dD, 0.5 dt/dD,
+                       // dt/(6 dE) (the kappa-scaled rptt factor),
+                       // dt^2/(6 dD dE)
   Sys3<T> P;
   int order, tw;
   int lim[NLIM];       // the limiter id of each wave
@@ -247,7 +249,7 @@ template <class S, typename T, class H, bool CAPA> struct Block {
   // dt/dD of the staged cell c: per cell with a capacity function
   template <int D> HD T dtd(const Args<T>& A, int c) const {
     if (CAPA) return DT[D * L::QN + c];
-    return A.dtd[D];
+    return A.C[K3_DTD + D];
   }
   HD T* AMf() const { return U + (L::oAMF - L::oU); }
   HD T* APf() const { return AMf() + L::NEQ * L::FM; }
@@ -287,15 +289,17 @@ HD void phase_load(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   }
   for (int idx = tid; idx < L::oTR - L::oF0; idx += NTB<T>) B.F[0][idx] = T(0);
   B.RED[tid] = T(0);
+  // the block's coefficients of dt while the copies land
+  if (tid < NCOEF3) A.C[tid] = coef3<T>(*A.dt, A.dd, tid);
   copy_wait_all();
   if (CAPA) {
     for (int idx = tid; idx < NF * L::QN; idx += NTB<T>) {
       if (idx < (NF - 1) * L::QN) continue;
       const int r = idx - (NF - 1) * L::QN;
       // dt / (dD kappa): the plain version's 0-d dt over (dD * kappa)
-      const T kappa = B.DT[2 * L::QN + r];
+      const T kappa = B.DT[2 * L::QN + r], dt = T(*A.dt);
       for (int d = 0; d < 3; ++d)
-        B.DT[d * L::QN + r] = A.dt / (A.d[d] * kappa);
+        B.DT[d * L::QN + r] = dt / (A.d[d] * kappa);
     }
   }
 }
@@ -513,7 +517,7 @@ HD void phase_gather_e(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
     const int k_bm = flat<R::B0, R::B1, R::B2>(k);
     k[E] = c[E];
     const int k_bp = flat<R::B0, R::B1, R::B2>(k);
-    T h_bm = A.half[D], h_bp = A.half[D];
+    T h_bm = A.C[K3_HALF + D], h_bp = h_bm;
     if (CAPA) {
       int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
       l[E] = c[E] + 2;
@@ -577,7 +581,7 @@ HD void phase_gather_split(const Args<T>& A, Block<S, T, H, CAPA>& B,
   for (int idx = tid; idx < RE::FN; idx += NTB<T>) {
     int c[3];
     dec<RE::F0, RE::F1, RE::F2>(idx, c);
-    T h_bm = A.half[D], h_bp = A.half[D];
+    T h_bm = A.C[K3_HALF + D], h_bp = h_bm;
     if (CAPA) {
       int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
       l[E] = c[E] + 2;
@@ -610,8 +614,9 @@ HD void phase_rptt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
     dec<R::B0, R::B1, R::B2>(idx, b);
     int l[3] = {b[0] + 1, b[1] + 1, b[2] + 1};
     l[D] += IMP - 1;
-    T co = A.co2[D][E];
-    if (CAPA) co = A.co6[E] * B.DT[D * L::QN + B.cell(l[0], l[1], l[2])];
+    T co = A.C[K3_CO2 + 3 * D + E];
+    if (CAPA)
+      co = A.C[K3_CO6 + E] * B.DT[D * L::QN + B.cell(l[0], l[1], l[2])];
     if (PART == 0) co = -co;
     T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
     split_aux<F>(B, l, ab, ac, aa);
@@ -784,7 +789,8 @@ HD void step_block(const Args<T>& A, Block<S, T, H, CAPA>& B, const X& run) {
 
 template <typename T>
 Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
-                  int nxg, int nyg, int nzg, int capa, double dt, double dx,
+                  int nxg, int nyg, int nzg, int capa, const double* dt,
+                  double dx,
                   double dy, double dz, const double* prm, int order, int tw,
                   const int* lim) {
   using H = Shape<T>;
@@ -798,17 +804,12 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
   A.N[2] = nzg;
   tile_counts<H>(A.N, A.nb);
   A.capa = capa;
-  A.dt = T(dt);
-  // the plain version's coefficients: Python doubles rounded to T
-  const double deltas[3] = {dx, dy, dz};
-  for (int d = 0; d < 3; ++d) {
-    A.d[d] = T(deltas[d]);
-    A.dtd[d] = T(dt / deltas[d]);
-    A.half[d] = T(0.5 * (dt / deltas[d]));
-    A.co6[d] = T(dt / (6.0 * deltas[d]));
-    for (int e = 0; e < 3; ++e)
-      A.co2[d][e] = T((dt * dt) / (6.0 * deltas[d] * deltas[e]));
-  }
+  A.dt = dt;
+  A.dd[0] = dx;
+  A.dd[1] = dy;
+  A.dd[2] = dz;
+  for (int d = 0; d < 3; ++d) A.d[d] = T(A.dd[d]);
+  A.C = nullptr;
   // advection: u, v, w; acoustics: zz, cc
   for (int d = 0; d < 3; ++d) A.P.vel[d] = T(prm[d]);
   A.P.zz = T(prm[0]);
@@ -849,6 +850,8 @@ template <class S, typename T, bool CAPA, bool FWAVE>
 __global__ void __launch_bounds__(NTB<T>, 1) step3_aos_kernel(Args<T> A) {
   using H = Shape<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T coef[NCOEF3];
+  A.C = coef;
   Block<S, T, H, CAPA> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x);
   tile_origin<H>(A.nb, B.bid, B.C0);
@@ -859,10 +862,10 @@ __global__ void __launch_bounds__(NTB<T>, 1) step3_aos_kernel(Args<T> A) {
 template <class S, typename T, bool CAPA, bool FWAVE>
 int launch(const Args<T>& A, void* stream) {
   constexpr size_t bytes = smem_bytes<S, T, CAPA>();
-  // The limit applies to the current device only: set it on every launch.
-  cudaError_t err = cudaFuncSetAttribute(
-      step3_aos_kernel<S, T, CAPA, FWAVE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static unsigned long long attr_done = 0;
+  cudaError_t err = smem_attr_once(
+      reinterpret_cast<const void*>(step3_aos_kernel<S, T, CAPA, FWAVE>),
+      (int)bytes, attr_done);
   if (err != cudaSuccess) return (int)err;
   step3_aos_kernel<S, T, CAPA, FWAVE>
       <<<nblocks(A), NTB<T>, bytes, static_cast<cudaStream_t>(stream)>>>(A);
@@ -880,9 +883,11 @@ template <int N> struct HostRun {
 };
 
 template <class S, typename T, bool CAPA, bool FWAVE>
-int launch(const Args<T>& A, void*) {
+int launch(Args<T> A, void*) {
   using H = Shape<T>;
   std::vector<T> smem(Lay<S, T, H, CAPA>::elems);
+  T coef[NCOEF3];
+  A.C = coef;
   for (int b = 0; b < nblocks(A); ++b) {
     Block<S, T, H, CAPA> B;
     B.bind(smem.data(), b);
@@ -909,7 +914,7 @@ int dispatch_flags(const Args<T>& A, bool capa, bool fwave, void* stream) {
 
 template <typename T>
 int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
-         int nyg, int nzg, int system, int capa, int fwave, double dt,
+         int nyg, int nzg, int system, int capa, int fwave, const double* dt,
          double dx, double dy, double dz, const double* prm, int order,
          int tw, const int* lim, void* stream) {
   const Args<T> A = make_args<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, capa,
@@ -940,10 +945,11 @@ int step3_aos_blocks(int nxg, int nyg, int nzg, int is_double) {
   const double prm[3] = {0, 0, 0};
   if (is_double)
     return nblocks(make_args<double>(nullptr, nullptr, nullptr, nullptr, nxg,
-                                     nyg, nzg, -1, 1, 1, 1, 1, prm, 1, 0,
-                                     lim));
+                                     nyg, nzg, -1, nullptr, 1, 1, 1, prm, 1,
+                                     0, lim));
   return nblocks(make_args<float>(nullptr, nullptr, nullptr, nullptr, nxg,
-                                  nyg, nzg, -1, 1, 1, 1, 1, prm, 1, 0, lim));
+                                  nyg, nzg, -1, nullptr, 1, 1, 1, prm, 1, 0,
+                                  lim));
 }
 
 // Threads per block (reported by chip_smoke.py).
@@ -973,7 +979,9 @@ int step3_aos_limiter_ids() { return NLIM; }
 // cells); aux: (num_aux, nxg, nyg, nzg) or null when the system reads none
 // and capa < 0; qout: (num_eqn, nxg-4, nyg-4, nzg-4); cflb:
 // step3_aos_blocks(...) partial CFL maxima; all contiguous, of the type
-// named by the entry.  system: SYS_*; capa: aux row of the capacity
+// named by the entry.  dt: the step in device memory (host memory for the
+// host emulation), a double that is exact in the entry's type.  system:
+// SYS_*; capa: aux row of the capacity
 // function or -1; fwave: the f-wave correction form; p0..p2: u, v, w
 // (advection) or zz, cc (acoustics); l0..l4: the limiter ids of the
 // waves.  Returns a cudaError_t (0 on success), or -1 for an
@@ -981,7 +989,8 @@ int step3_aos_limiter_ids() { return NLIM; }
 #if defined(__CUDACC__)
 #define STEP3_AOS_ENTRY(NAME, T)                                              \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb, int nxg, \
-           int nyg, int nzg, int system, int capa, int fwave, double dt,      \
+           int nyg, int nzg, int system, int capa, int fwave,                 \
+           const double* dt,                                                  \
            double dx, double dy, double dz, double p0, double p1, double p2,  \
            int order, int tw, int l0, int l1, int l2, int l3, int l4,         \
            void* stream) {                                                    \
@@ -995,7 +1004,8 @@ STEP3_AOS_ENTRY(step3_aos_f64, double)
 #else
 #define STEP3_AOS_ENTRY(NAME, T)                                              \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb, int nxg, \
-           int nyg, int nzg, int system, int capa, int fwave, double dt,      \
+           int nyg, int nzg, int system, int capa, int fwave,                 \
+           const double* dt,                                                  \
            double dx, double dy, double dz, double p0, double p1, double p2,  \
            int order, int tw, int l0, int l1, int l2, int l3, int l4) {       \
     const int lim[NLIM] = {l0, l1, l2, l3, l4};                               \

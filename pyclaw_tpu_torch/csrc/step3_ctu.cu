@@ -136,6 +136,7 @@
 
 #include "async_copy.cuh"
 #include "ctu3d.cuh"
+#include "dt_coef.cuh"
 #include "euler3d.cuh"
 #include "tvd.cuh"
 
@@ -243,12 +244,13 @@ template <typename T> struct Args {
   int N[3];            // padded (ghost-extended) extents
   int nb[3];           // blocks along x, y, z
   int capa;
-  T dt;                // for the per-cell dt/(dD kappa)
+  const double* dt;    // the step (dt_coef.cuh)
+  double dd[3];        // dx, dy, dz for the coefficients of dt
   T d[3];              // dx, dy, dz
-  T dtd[3];            // dt / dD
-  T half[3];           // 0.5 dt / dD
-  T co2[3][3];         // dt^2 / (6 dD dE)
-  T co6[3];            // dt / (6 dE), the kappa-scaled rptt factor
+  T* C;                // the block's coefficients of dt (dt_coef.cuh:
+                       // coef3), in shared memory: dt (for the per-cell
+                       // dt/(dD kappa)), dt/dD, 0.5 dt/dD, dt/(6 dE) (the
+                       // kappa-scaled rptt factor), dt^2/(6 dD dE)
   T g1;
   int order, tw;
   int lim[5];
@@ -327,13 +329,15 @@ HD void phase_load(const Args<T>& A, Block<T, S>& B, int tid) {
   }
   for (int idx = tid; idx < L::oTR - L::oF0; idx += S::NT) B.F[0][idx] = T(0);
   B.RED[tid] = T(0);
+  // the block's coefficients of dt while the copies land
+  if (tid < NCOEF3) A.C[tid] = coef3<T>(*A.dt, A.dd, tid);
   copy_wait_all();
 }
 
 // ---- K: the per-cell dt/(dD kappa) of the sweep along D ----------------
 // the plain version's 0-d dt over (dD * kappa)
 template <int D, typename T> HD T dtd_of(const Args<T>& A, T kappa) {
-  return A.dt / (A.d[D] * kappa);
+  return A.C[K3_DT] / (A.d[D] * kappa);
 }
 
 // turn the staged kappa into dt/(dD kappa) in place (the roe<0> phase)
@@ -363,7 +367,7 @@ HD void restage_finish(const Args<T>& A, Block<T, S>& B, int tid) {
 template <int D, typename T, class S>
 HD T dtd_at(const Args<T>& A, const Block<T, S>& B, int c) {
   if constexpr (S::capa) return B.K[c];
-  return A.dtd[D];
+  return A.C[K3_DTD + D];
 }
 
 // ---- Roe data of the normal solve at D-interface idx (Reg's A region);
@@ -447,7 +451,7 @@ HD void item_sweep(const Args<T>& A, Block<T, S>& B, int idx, T& cfl) {
   dec<R::B0, R::B1, R::B2>(idx, b);
   // dt/dD of the interface's left and right cells, and at the interface
   // (the average of the two with a capacity function)
-  T dl = A.dtd[D], dr = dl, dtd = dl;
+  T dl = A.C[K3_DTD + D], dr = dl, dtd = dl;
   if constexpr (S::capa) {
     int l[3] = {b[0] + 1, b[1] + 1, b[2] + 1};
     dl = B.K[B.cell(l)];
@@ -650,7 +654,7 @@ HD void item_gather_e(const Args<T>& A, Block<T, S>& B, int idx, int sm,
   T* FE = B.F[E];
   int c[3], k[3];
   dec<RE::F0, RE::F1, RE::F2>(idx, c);
-  T h_bm = A.half[D], h_bp = h_bm;
+  T h_bm = A.C[K3_HALF + D], h_bp = h_bm;
   if constexpr (S::capa) {
     int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
     h_bm = T(0.5) * B.K[B.cell(l)];
@@ -688,12 +692,12 @@ HD void item_rptt(const Args<T>& A, Block<T, S>& B, int idx, int src,
   dec<N0, N1, N2>(idx, s);
   s[E] += PART == 0 ? 1 : 0;
   const int si = flat<SR::S0, SR::S1, SR::S2>(s);
-  T co = A.co2[D][E];
+  T co = A.C[K3_CO2 + 3 * D + E];
   if constexpr (S::capa) {
     // the split point's cell: the receiving tile cell s[D] along D
     int l[3] = {s[0] + 1, s[1] + 1, s[2] + 1};
     l[D] += 1;
-    co = A.co6[E] * B.K[B.cell(l)];
+    co = A.C[K3_CO6 + E] * B.K[B.cell(l)];
   }
   if (PART == 0) co = -co;
   T bs[5], eig[7], cm[5], cp[5];
@@ -751,7 +755,7 @@ HD void item_update(const Args<T>& A, Block<T, S>& B, int idx) {
   dec<S::X, S::Y, S::Z>(idx, c);
   const int I0 = B.C0[0] + c[0], I1 = B.C0[1] + c[1], I2 = B.C0[2] + c[2];
   if (I0 >= A.N[0] - 2 || I1 >= A.N[1] - 2 || I2 >= A.N[2] - 2) return;
-  T d0 = A.dtd[0], d1 = A.dtd[1], d2 = A.dtd[2];
+  T d0 = A.C[K3_DTD], d1 = A.C[K3_DTD + 1], d2 = A.C[K3_DTD + 2];
   if constexpr (S::capa) {
     // K holds kappa after the last sweep
     const int l[3] = {c[0] + 2, c[1] + 2, c[2] + 2};
@@ -965,7 +969,8 @@ HD void step_block(const Args<T>& A, Block<T, S>& B, const X& run) {
 
 template <typename T>
 Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
-                  int nxg, int nyg, int nzg, int capa, double dt, double dx,
+                  int nxg, int nyg, int nzg, int capa, const double* dt,
+                  double dx,
                   double dy, double dz, double g1, int order, int tw,
                   const int* lim) {
   Args<T> A;
@@ -978,17 +983,12 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
   A.N[2] = nzg;
   tile_counts<Shape<T>>(A.N, A.nb);
   A.capa = capa;
-  A.dt = T(dt);
-  // the plain version's coefficients: Python doubles rounded to T
-  const double deltas[3] = {dx, dy, dz};
-  for (int d = 0; d < 3; ++d) {
-    A.d[d] = T(deltas[d]);
-    A.dtd[d] = T(dt / deltas[d]);
-    A.half[d] = T(0.5 * (dt / deltas[d]));
-    A.co6[d] = T(dt / (6.0 * deltas[d]));
-    for (int e = 0; e < 3; ++e)
-      A.co2[d][e] = T((dt * dt) / (6.0 * deltas[d] * deltas[e]));
-  }
+  A.dt = dt;
+  A.dd[0] = dx;
+  A.dd[1] = dy;
+  A.dd[2] = dz;
+  for (int d = 0; d < 3; ++d) A.d[d] = T(A.dd[d]);
+  A.C = nullptr;
   A.g1 = T(g1);
   A.order = order;
   A.tw = tw;
@@ -1011,6 +1011,8 @@ struct DeviceRun {
 template <typename T, class S>
 __global__ void __launch_bounds__(S::NT, 1) step3_ctu_kernel(Args<T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T coef[NCOEF3];
+  A.C = coef;
   Block<T, S> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x);
   tile_origin<S>(A.nb, B.bid, B.C0);
@@ -1020,10 +1022,10 @@ __global__ void __launch_bounds__(S::NT, 1) step3_ctu_kernel(Args<T> A) {
 
 template <typename T, class S> int launch(const Args<T>& A, void* stream) {
   using L = Lay<T, S>;
-  // The limit applies to the current device only: set it on every launch.
-  cudaError_t err = cudaFuncSetAttribute(
-      step3_ctu_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L::bytes);
+  static unsigned long long attr_done = 0;
+  cudaError_t err = smem_attr_once(
+      reinterpret_cast<const void*>(step3_ctu_kernel<T, S>), (int)L::bytes,
+      attr_done);
   if (err != cudaSuccess) return (int)err;
   step3_ctu_kernel<T, S><<<nblocks(A), S::NT, L::bytes,
                            static_cast<cudaStream_t>(stream)>>>(A);
@@ -1040,8 +1042,10 @@ template <int N> struct HostRun {
   }
 };
 
-template <typename T, class S> int launch(const Args<T>& A, void*) {
+template <typename T, class S> int launch(Args<T> A, void*) {
   std::vector<T> smem(Lay<T, S>::elems);
+  T coef[NCOEF3];
+  A.C = coef;
   for (int b = 0; b < nblocks(A); ++b) {
     Block<T, S> B;
     B.bind(smem.data(), b);
@@ -1056,7 +1060,7 @@ template <typename T, class S> int launch(const Args<T>& A, void*) {
 // one CTU step in the variant of the capacity row (capa >= 0) and form
 template <typename T>
 int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
-         int nyg, int nzg, int capa, int fwave, double dt, double dx,
+         int nyg, int nzg, int capa, int fwave, const double* dt, double dx,
          double dy, double dz, double g1, int order, int tw, const int* lim,
          void* stream) {
   const Args<T> A = make_args<T>(qbc, aux, qout, cflb, nxg, nyg, nzg, capa,
@@ -1115,7 +1119,9 @@ int step3_ctu_smem_bytes(int capa, int is_double) {
 
 // One CTU step.  qbc: (5, nxg, nyg, nzg) ghost-padded (2 ghost cells),
 // qout: (5, nxg-4, nyg-4, nzg-4), cflb: step3_ctu_blocks(...) partial CFL
-// maxima; all contiguous, of the type named by the entry.  l0..l4: the
+// maxima; all contiguous, of the type named by the entry.  dt: the step
+// in device memory (host memory for the host emulation), a double that
+// is exact in the entry's type.  l0..l4: the
 // limiter id of each wave.  step3_ctu_<type> runs the wave form without a
 // capacity function; step3_ctu_aux_<type> also takes aux (num_aux, nxg,
 // nyg, nzg), null when capa < 0, the aux row capa of the capacity
@@ -1124,7 +1130,8 @@ int step3_ctu_smem_bytes(int capa, int is_double) {
 #if defined(__CUDACC__)
 #define STEP3_CTU_ENTRIES(NAME, AUX_NAME, T)                                 \
   int NAME(const void* qbc, void* qout, void* cflb, int nxg, int nyg,        \
-           int nzg, double dt, double dx, double dy, double dz, double g1,   \
+           int nzg, const double* dt, double dx, double dy, double dz,      \
+           double g1,                                                        \
            int order, int tw, int l0, int l1, int l2, int l3, int l4,       \
            void* stream) {                                                   \
     const int lim[5] = {l0, l1, l2, l3, l4};                                 \
@@ -1132,7 +1139,8 @@ int step3_ctu_smem_bytes(int capa, int is_double) {
                    dy, dz, g1, order, tw, lim, stream);                      \
   }                                                                          \
   int AUX_NAME(const void* qbc, const void* aux, void* qout, void* cflb,     \
-               int nxg, int nyg, int nzg, int capa, int fwave, double dt,    \
+               int nxg, int nyg, int nzg, int capa, int fwave,               \
+               const double* dt,                                             \
                double dx, double dy, double dz, double g1, int order,        \
                int tw, int l0, int l1, int l2, int l3, int l4,               \
                void* stream) {                                               \
@@ -1145,14 +1153,16 @@ STEP3_CTU_ENTRIES(step3_ctu_f64, step3_ctu_aux_f64, double)
 #else
 #define STEP3_CTU_ENTRIES(NAME, AUX_NAME, T)                                 \
   int NAME(const void* qbc, void* qout, void* cflb, int nxg, int nyg,        \
-           int nzg, double dt, double dx, double dy, double dz, double g1,   \
+           int nzg, const double* dt, double dx, double dy, double dz,      \
+           double g1,                                                        \
            int order, int tw, int l0, int l1, int l2, int l3, int l4) {     \
     const int lim[5] = {l0, l1, l2, l3, l4};                                 \
     return step<T>(qbc, nullptr, qout, cflb, nxg, nyg, nzg, -1, 0, dt, dx,   \
                    dy, dz, g1, order, tw, lim, nullptr);                     \
   }                                                                          \
   int AUX_NAME(const void* qbc, const void* aux, void* qout, void* cflb,     \
-               int nxg, int nyg, int nzg, int capa, int fwave, double dt,    \
+               int nxg, int nyg, int nzg, int capa, int fwave,               \
+               const double* dt,                                             \
                double dx, double dy, double dz, double g1, int order,        \
                int tw, int l0, int l1, int l2, int l3, int l4) {             \
     const int lim[5] = {l0, l1, l2, l3, l4};                                 \

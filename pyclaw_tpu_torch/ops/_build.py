@@ -11,6 +11,10 @@ PyTorch version.
 :func:`build_host_emulation` compiles the same source with the host C++
 compiler, without CUDA: the kernel's phases then run block by block on
 the CPU, which lets the CPU tests check the kernel's index algebra.
+
+The wrappers' common arguments: :func:`bind_dt` and :func:`dt_arg` (dt
+as a pointer to device memory), :func:`out_tensor` and :func:`plain_out`
+(a step's output buffer); :func:`counted` counts a launch.
 """
 
 from __future__ import annotations
@@ -118,3 +122,67 @@ def build_host_emulation(name, out_dir, opt="-O1"):
     if proc.returncode != 0:
         raise RuntimeError(f"host build of {src} failed:\n{proc.stderr}")
     return ctypes.CDLL(out)
+
+
+# ---- arguments ------------------------------------------------------------
+
+def bind_dt(lib, entries, argtypes, index):
+    """Set the argument types of the entries ``entries`` of the ctypes
+    handle ``lib`` to ``argtypes`` (dt, at ``index``, a pointer to device
+    memory) and a stream; returns ``lib``."""
+    types = list(argtypes)
+    types[index] = ctypes.c_void_p
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes = types + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def dt_arg(dt, like):
+    """(pointer, tensor) for the dt of a launch on ``like``'s device: a
+    pointer to a float64 0-d tensor on that device, which the caller keeps
+    until the launch is enqueued.  ``dt`` is a Python float or a 0-d
+    tensor, exact in the kernel's type; a CUDA graph replays the launch
+    with the tensor's value of each replay."""
+    import torch
+    if isinstance(dt, torch.Tensor):
+        t = dt.to(device=like.device, dtype=torch.float64)
+    else:
+        t = torch.full((), float(dt), dtype=torch.float64, device=like.device)
+    return t.data_ptr(), t
+
+
+def counted(fn):
+    """Count one launch of wrapper ``fn``'s kernel, made just now on the
+    current stream: one more in ``fn.launches`` (the host's count of
+    launches made or captured into a CUDA graph), and, when
+    ``fn.device_launches`` holds a device counter
+    (:func:`pyclaw_tpu_torch.ops.count_on_device`), one more there on the
+    same stream, so that a graph's replay counts its launches too."""
+    fn.launches += 1
+    if fn.device_launches is not None:
+        fn.device_launches.add_(1)
+
+
+def out_tensor(name, out, shape, like):
+    """``out`` checked to be a contiguous tensor of ``shape`` on ``like``'s
+    device and of its dtype (a step's output buffer, so the solver's device
+    loop can alternate two), or a new one when it is None."""
+    import torch
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != like.dtype
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {like.dtype} "
+                         f"tensor of shape {tuple(shape)} on {like.device}")
+    return out
+
+
+def plain_out(result, out):
+    """A plain version's (q, cfl) with q copied into ``out`` when given."""
+    q, cfl = result
+    if out is None:
+        return q, cfl
+    out.copy_(q)
+    return out, cfl

@@ -9,7 +9,8 @@ version: ``classic/kernels.py:step1``.
 
 On a CPU tensor the wrapper computes the plain version.  On a CUDA tensor
 it launches the kernel or raises; it never falls back to the plain
-version.
+version.  It takes dt as a Python float or a 0-d tensor; the kernel reads
+it from device memory (``_build.dt_arg``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import functools
 
 import torch
 
+from . import _build
 from ..classic import kernels
 from ..riemann.acoustics import _zc
 from .tiled2d import _VALID_LIMITERS
@@ -26,20 +28,18 @@ from .tiled2d import _VALID_LIMITERS
 # rp.name -> system id of csrc/step1.cu (SYS_*)
 SYSTEMS_1D = {"advection_1D": 0, "acoustics_1D": 1, "euler_with_efix_1D": 2,
               "euler_roe_1D": 3, "euler_hlle_1D": 4}
-# qbc, aux, qout, cflb; n, g, system, capa, fwave; dt, dx, p0, p1; order
-# and three limiter ids (the host emulation takes these, the card's entries
-# a stream after them)
+# qbc, aux, qout, cflb; n, g, system, capa, fwave; dt (a pointer), dx, p0,
+# p1; order and three limiter ids (the host emulation takes these, the
+# card's entries a stream after them)
 STEP1_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                  + [ctypes.c_double] * 4 + [ctypes.c_int] * 4)
+                  + [ctypes.c_void_p] + [ctypes.c_double] * 3
+                  + [ctypes.c_int] * 4)
 
 
 def bind_lib(lib):
     """Set the argument types of a ctypes handle of a build of
     ``csrc/step1.cu``; returns it."""
-    for name in ("step1_f32", "step1_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = STEP1_ARGTYPES + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    _build.bind_dt(lib, ("step1_f32", "step1_f64"), STEP1_ARGTYPES, 9)
     lib.step1_blocks.argtypes = [ctypes.c_int] * 2
     lib.step1_blocks.restype = ctypes.c_int
     return lib
@@ -47,7 +47,6 @@ def bind_lib(lib):
 
 @functools.cache
 def _lib():
-    from . import _build
     return bind_lib(_build.load("step1"))
 
 
@@ -75,21 +74,23 @@ def system_params(rp, params):
 
 
 def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
-          num_ghost=2, lib=None):
+          num_ghost=2, lib=None, out=None):
     """One classic 1D step (step1.f90).
 
     qbc: (num_eqn, mx + 2 num_ghost) ghost-padded q; auxbc: (num_aux,
     mx + 2 num_ghost) or None (float32 or float64, contiguous, q's dtype).
     ``rp`` is the RiemannSolver record; ``dt`` the step in q's dtype (a
-    Python float that is exact in it); ``index_capa`` >= 0 names the aux
-    row of the capacity function.  Returns (q (num_eqn, mx), cfl as a 0-d
+    Python float or a 0-d tensor, exact in it); ``index_capa`` >= 0 names
+    the aux row of the capacity function; ``out`` is the buffer of q or
+    None.  Returns (q (num_eqn, mx), cfl as a 0-d
     tensor).  On a CPU tensor this is ``classic/kernels.py:step1``; on a
     CUDA tensor one launch of ``csrc/step1.cu`` (``lib``: a handle bound by
     :func:`bind_lib`, another build of it, or None for this checkout's)."""
     check_options(mthlim, order, rp.num_waves, num_ghost)
     if qbc.device.type == "cpu":
-        return kernels.step1(qbc, auxbc, dt, dx, rp.rp, params, mthlim,
-                             order, fwave, index_capa, num_ghost)
+        return _build.plain_out(kernels.step1(
+            qbc, auxbc, dt, dx, rp.rp, params, mthlim, order, fwave,
+            index_capa, num_ghost), out)
     if rp.name not in SYSTEMS_1D:
         raise NotImplementedError(
             f"step1: {rp.name} has no kernel yet (ROADMAP.md, Queue 2 item "
@@ -120,20 +121,21 @@ def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
             raise ValueError("step1: auxbc must be contiguous")
         aux_ptr = auxbc.data_ptr()
     lib = _lib() if lib is None else lib
-    q_out = torch.empty((rp.num_eqn, n - 2 * g), dtype=qbc.dtype,
-                        device=qbc.device)
+    q_out = _build.out_tensor("step1", out, (rp.num_eqn, n - 2 * g), qbc)
     cfl_blocks = torch.empty((lib.step1_blocks(n, g),), dtype=qbc.dtype,
                              device=qbc.device)
     fn = lib.step1_f64 if qbc.dtype == torch.float64 else lib.step1_f32
     lims = [int(m) for m in mthlim] + [0] * (3 - len(mthlim))
+    dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
             n, g, SYSTEMS_1D[rp.name], int(index_capa), int(bool(fwave)),
-            float(dt), float(dx), *system_params(rp, params), int(order),
+            dt_ptr, float(dx), *system_params(rp, params), int(order),
             *lims, torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"step1 launch failed: cudaError_t {rc}")
-    step1.launches += 1
+    _build.counted(step1)
     return q_out, torch.amax(cfl_blocks)
 
 
 step1.launches = 0
+step1.device_launches = None

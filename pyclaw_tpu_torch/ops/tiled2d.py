@@ -30,7 +30,11 @@
 
 On a CPU tensor each wrapper computes its plain PyTorch version.  On a
 CUDA tensor it launches the kernel or raises; it never falls back to the
-plain version.
+plain version.  Each takes dt as a Python float or a 0-d tensor, exact in
+q's dtype; the kernel reads it from device memory (``_build.dt_arg``), so
+the solver's device loop can capture the launch in a CUDA graph.  The
+steps take ``out``, the output buffer of q (the device loop alternates
+two).
 """
 
 from __future__ import annotations
@@ -40,24 +44,28 @@ import functools
 
 import torch
 
+from . import _build
 from ..classic import kernels, soa
 from ..limiters.tvd import CFL_LIMITER_IDS
 from ..riemann import acoustics, euler
 from ..sharpclaw import soa as sc_soa
 
-_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-             + [ctypes.c_double] * 4 + [ctypes.c_int] * 6
-             + [ctypes.c_void_p])
+# qbc, qout, cflb; nxg, nyg; dt (a pointer); dx, dy, gamma-1; order, tw
+# and four limiter ids (the host emulation takes these, the card's entries
+# a stream after them)
+STEP2_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] + [ctypes.c_double] * 3
+                  + [ctypes.c_int] * 6)
+# qbc, dq, cflb; nxg, nyg; dt (a pointer); dx, dy, gamma-1
+DQ_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p] + [ctypes.c_double] * 3)
 _VALID_LIMITERS = set(range(10)) | {16, 19, 20, 21} | set(CFL_LIMITER_IDS)
 
 
 def bind_step2_lib(lib):
     """Set the argument types of a ctypes handle of a build of
     ``csrc/step2_ctu.cu``; returns it."""
-    for name in ("step2_ctu_f32", "step2_ctu_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    _build.bind_dt(lib, ("step2_ctu_f32", "step2_ctu_f64"), STEP2_ARGTYPES, 5)
     lib.step2_ctu_blocks.argtypes = [ctypes.c_int] * 3
     lib.step2_ctu_blocks.restype = ctypes.c_int
     return lib
@@ -65,18 +73,13 @@ def bind_step2_lib(lib):
 
 @functools.cache
 def _lib():
-    from . import _build
     return bind_step2_lib(_build.load("step2_ctu"))
 
 
 def bind_dq_lib(lib):
     """Set the argument types of a ctypes handle of a build of
     ``csrc/dq2_weno5.cu``; returns it."""
-    for name in ("dq2_weno5_f32", "dq2_weno5_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_double] * 4 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    _build.bind_dt(lib, ("dq2_weno5_f32", "dq2_weno5_f64"), DQ_ARGTYPES, 5)
     lib.dq2_weno5_blocks.argtypes = [ctypes.c_int] * 2
     lib.dq2_weno5_blocks.restype = ctypes.c_int
     return lib
@@ -84,7 +87,6 @@ def bind_dq_lib(lib):
 
 @functools.cache
 def _dq_lib():
-    from . import _build
     return bind_dq_lib(_build.load("dq2_weno5"))
 
 
@@ -120,44 +122,46 @@ def check_options(mthlim, order, transverse_waves, num_waves=4,
 
 
 def step2_rows(qbc, dt, dx, dy, params, mthlim, order, num_ghost=2,
-               transverse_waves=2, lib=None):
+               transverse_waves=2, lib=None, out=None):
     """One 2D CTU step of the Euler 4-wave system.
 
     qbc: (4, nx+4, ny+4) ghost-padded q (float32 or float64, contiguous).
-    dt: step in q's dtype (a Python float that is exact in it).
+    dt: step in q's dtype (a Python float or a 0-d tensor, exact in it).
     lib: another build of the kernel, bound by :func:`bind_step2_lib` (the
     variant timer ``ops/time_kernels.py``); None for this checkout's.
+    out: the (4, nx, ny) buffer of the result, or None.
     Returns (q (4, nx, ny), cfl as a 0-d tensor)."""
     check_options(mthlim, order, transverse_waves)
     if num_ghost != 2:
         raise ValueError(f"step2_rows: num_ghost must be 2, got {num_ghost}")
     if qbc.device.type == "cpu":
-        return soa.step2_soa(qbc, dt, dx, dy, euler._rpn2_euler_soa,
-                             euler._rpt2_euler_soa, params, mthlim, order,
-                             num_ghost, transverse_waves,
-                             euler._prefactor_euler_2d_soa)
+        return _build.plain_out(soa.step2_soa(
+            qbc, dt, dx, dy, euler._rpn2_euler_soa, euler._rpt2_euler_soa,
+            params, mthlim, order, num_ghost, transverse_waves,
+            euler._prefactor_euler_2d_soa), out)
     _check_cuda_qbc("step2_rows", qbc, num_ghost, 4, 2)
     _, nxg, nyg = qbc.shape
     is_double = qbc.dtype == torch.float64
     lib = _lib() if lib is None else lib
     nblocks = lib.step2_ctu_blocks(nxg, nyg, int(is_double))
-    q_out = torch.empty((4, nxg - 4, nyg - 4), dtype=qbc.dtype,
-                        device=qbc.device)
+    q_out = _build.out_tensor("step2_rows", out, (4, nxg - 4, nyg - 4), qbc)
     cfl_blocks = torch.empty((nblocks,), dtype=qbc.dtype, device=qbc.device)
     fn = lib.step2_ctu_f64 if is_double else lib.step2_ctu_f32
     g1 = params["gamma"] - 1.0
     lims = [int(m) for m in mthlim]
+    dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), q_out.data_ptr(), cfl_blocks.data_ptr(),
-            nxg, nyg, float(dt), float(dx), float(dy), float(g1),
+            nxg, nyg, dt_ptr, float(dx), float(dy), float(g1),
             int(order), int(transverse_waves), *lims,
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"step2_ctu launch failed: cudaError_t {rc}")
-    step2_rows.launches += 1
+    _build.counted(step2_rows)
     return q_out, torch.amax(cfl_blocks)
 
 
 step2_rows.launches = 0
+step2_rows.device_launches = None
 
 
 def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None):
@@ -166,7 +170,7 @@ def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None):
     fluctuations, and f(qr) - f(ql) in each cell.
 
     qbc: (4, nx+6, ny+6) ghost-padded q (float32 or float64, contiguous).
-    dt: step in q's dtype (a Python float that is exact in it).
+    dt: step in q's dtype (a Python float or a 0-d tensor, exact in it).
     lib: another build of the kernel, bound by :func:`bind_dq_lib` (the
     variant timer ``ops/time_kernels.py``); None for this checkout's.
     Returns (dq (4, nx, ny) with dt included, cfl as a 0-d tensor)."""
@@ -192,31 +196,27 @@ def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None):
     cfl_blocks = torch.empty((lib.dq2_weno5_blocks(nxg, nyg),),
                              dtype=qbc.dtype, device=qbc.device)
     fn = lib.dq2_weno5_f64 if is_double else lib.dq2_weno5_f32
+    dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), dq.data_ptr(), cfl_blocks.data_ptr(), nxg, nyg,
-            float(dt), float(dx), float(dy), float(params["gamma"] - 1.0),
+            dt_ptr, float(dx), float(dy), float(params["gamma"] - 1.0),
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dq2_weno5 launch failed: cudaError_t {rc}")
-    dq_rows.launches += 1
+    _build.counted(dq_rows)
     return dq, torch.amax(cfl_blocks)
 
 
 dq_rows.launches = 0
+dq_rows.device_launches = None
 
 
 def bind_step3_lib(lib):
     """Set the argument types of a ctypes handle of a build of
-    ``csrc/step3_ctu.cu``; returns it.  A build without the aux entries
-    (an earlier commit's, for the variant timer) is bound without them."""
-    for name in ("step3_ctu_f32", "step3_ctu_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = STEP3_ARGTYPES + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for name in ("step3_ctu_aux_f32", "step3_ctu_aux_f64"):
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes = STEP3_AUX_ARGTYPES + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    ``csrc/step3_ctu.cu``; returns it."""
+    _build.bind_dt(lib, ("step3_ctu_f32", "step3_ctu_f64"), STEP3_ARGTYPES,
+                   6)
+    _build.bind_dt(lib, ("step3_ctu_aux_f32", "step3_ctu_aux_f64"),
+                   STEP3_AUX_ARGTYPES, 9)
     lib.step3_ctu_blocks.argtypes = [ctypes.c_int] * 4
     lib.step3_ctu_blocks.restype = ctypes.c_int
     return lib
@@ -224,19 +224,20 @@ def bind_step3_lib(lib):
 
 @functools.cache
 def _step3_lib():
-    from . import _build
     return bind_step3_lib(_build.load("step3_ctu"))
 
 
-# qbc, qout, cflb; nxg, nyg, nzg; dt, dx, dy, dz, gamma-1; order, tw and
-# five limiter ids (the host emulation takes these, the card's entries a
-# stream after them)
+# qbc, qout, cflb; nxg, nyg, nzg; dt (a pointer), dx, dy, dz, gamma-1;
+# order, tw and five limiter ids (the host emulation takes these, the
+# card's entries a stream after them)
 STEP3_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                  + [ctypes.c_double] * 5 + [ctypes.c_int] * 7)
+                  + [ctypes.c_void_p] + [ctypes.c_double] * 4
+                  + [ctypes.c_int] * 7)
 # the aux entries: qbc, aux, qout, cflb; nxg, nyg, nzg, capa, fwave; then
 # as STEP3_ARGTYPES
 STEP3_AUX_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                      + [ctypes.c_double] * 5 + [ctypes.c_int] * 7)
+                      + [ctypes.c_void_p] + [ctypes.c_double] * 4
+                      + [ctypes.c_int] * 7)
 
 
 def _check_cuda_aux(name, auxbc, qbc, naux, index_capa):
@@ -263,40 +264,42 @@ def _check_cuda_aux(name, auxbc, qbc, naux, index_capa):
 
 def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
              transverse_waves=2, lib=None, auxbc=None, index_capa=-1,
-             fwave=False):
+             fwave=False, out=None):
     """One 3D CTU step of the Euler system (5 equations, 5 waves), the
     counterpart of ``pyclaw_tpu/ops/tiled2d.py:step3_pallas_xy``.
 
     qbc: (5, nx+4, ny+4, nz+4) ghost-padded q (float32 or float64,
-    contiguous).  dt: step in q's dtype (a Python float that is exact in
-    it).  ``index_capa`` >= 0 names the row of ``auxbc`` (num_aux, nx+4,
-    ny+4, nz+4), q's dtype, contiguous, that holds the capacity function
-    (Euler reads no other aux); ``fwave`` takes the f-wave correction
-    form.  Returns (q (5, nx, ny, nz), cfl as a 0-d tensor).  On a CPU
-    tensor this is ``classic/kernels.py:step3``; on a CUDA tensor one
-    launch of ``csrc/step3_ctu.cu`` (``lib``: another build of it, bound
-    by :func:`bind_step3_lib`, for the variant timer
+    contiguous).  dt: step in q's dtype (a Python float or a 0-d tensor,
+    exact in it).  ``index_capa`` >= 0 names the row of ``auxbc``
+    (num_aux, nx+4, ny+4, nz+4), q's dtype, contiguous, that holds the
+    capacity function (Euler reads no other aux); ``fwave`` takes the
+    f-wave correction form; ``out`` is the buffer of q or None.  Returns
+    (q (5, nx, ny, nz), cfl as a 0-d tensor).  On a CPU tensor this is
+    ``classic/kernels.py:step3``; on a CUDA tensor one launch of
+    ``csrc/step3_ctu.cu`` (``lib``: another build of it, bound by
+    :func:`bind_step3_lib`, for the variant timer
     ``ops/time_kernels.py``; None for this checkout's)."""
     check_options(mthlim, order, transverse_waves, 5, "step3_xy")
     if num_ghost != 2:
         raise ValueError(f"step3_xy: num_ghost must be 2, got {num_ghost}")
     if qbc.device.type == "cpu":
         rp = euler.euler_3D
-        return kernels.step3(qbc, auxbc, dt, dx, dy, dz, rp.rp, rp.rpt,
-                             rp.rptt, params, mthlim, order, fwave,
-                             index_capa, num_ghost, transverse_waves,
-                             rp.prefactor)
+        return _build.plain_out(kernels.step3(
+            qbc, auxbc, dt, dx, dy, dz, rp.rp, rp.rpt, rp.rptt, params,
+            mthlim, order, fwave, index_capa, num_ghost, transverse_waves,
+            rp.prefactor), out)
     _check_cuda_qbc("step3_xy", qbc, num_ghost, 5, 3)
     aux_ptr = _check_cuda_aux("step3_xy", auxbc, qbc, 0, index_capa)
     _, nxg, nyg, nzg = qbc.shape
     is_double = qbc.dtype == torch.float64
     lib = _step3_lib() if lib is None else lib
-    q_out = torch.empty((5, nxg - 4, nyg - 4, nzg - 4), dtype=qbc.dtype,
-                        device=qbc.device)
+    q_out = _build.out_tensor("step3_xy", out,
+                              (5, nxg - 4, nyg - 4, nzg - 4), qbc)
     cfl_blocks = torch.empty((lib.step3_ctu_blocks(nxg, nyg, nzg,
                                                    int(is_double)),),
                              dtype=qbc.dtype, device=qbc.device)
-    tail = (float(dt), float(dx), float(dy), float(dz),
+    dt_ptr, _dt = _build.dt_arg(dt, qbc)
+    tail = (dt_ptr, float(dx), float(dy), float(dz),
             float(params["gamma"] - 1.0), int(order), int(transverse_waves),
             *[int(m) for m in mthlim],
             torch.cuda.current_stream(qbc.device).cuda_stream)
@@ -311,31 +314,30 @@ def step3_xy(qbc, dt, dx, dy, dz, params, mthlim, order, num_ghost=2,
                 int(bool(fwave)), *tail)
     if rc != 0:
         raise RuntimeError(f"step3_ctu launch failed: cudaError_t {rc}")
-    step3_xy.launches += 1
+    _build.counted(step3_xy)
     return q_out, torch.amax(cfl_blocks)
 
 
 step3_xy.launches = 0
+step3_xy.device_launches = None
 
 
 # rp.name -> (system id of csrc/step2_aos.cu (SYS_*), aux rows its normal
 # solver reads (NAUX))
 AOS_SYSTEMS = {"shallow_roe_with_efix_2D": (0, 0),
                "shallow_bathymetry_fwave_2D": (1, 1)}
-# qbc, aux, qout, cflb; nxg, nyg, system, capa, fwave; dt, dx, dy, grav,
-# dry_tolerance; order, tw and three limiter ids (the host emulation takes
-# these, the card's entries a stream after them)
+# qbc, aux, qout, cflb; nxg, nyg, system, capa, fwave; dt (a pointer), dx,
+# dy, grav, dry_tolerance; order, tw and three limiter ids (the host
+# emulation takes these, the card's entries a stream after them)
 AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                + [ctypes.c_double] * 5 + [ctypes.c_int] * 5)
+                + [ctypes.c_void_p] + [ctypes.c_double] * 4
+                + [ctypes.c_int] * 5)
 
 
 def bind_step2_aos_lib(lib):
     """Set the argument types of a ctypes handle of a build of
     ``csrc/step2_aos.cu``; returns it."""
-    for name in ("step2_aos_f32", "step2_aos_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = AOS_ARGTYPES + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    _build.bind_dt(lib, ("step2_aos_f32", "step2_aos_f64"), AOS_ARGTYPES, 9)
     lib.step2_aos_blocks.argtypes = [ctypes.c_int] * 3
     lib.step2_aos_blocks.restype = ctypes.c_int
     return lib
@@ -343,21 +345,21 @@ def bind_step2_aos_lib(lib):
 
 @functools.cache
 def _aos_lib():
-    from . import _build
     return bind_step2_aos_lib(_build.load("step2_aos"))
 
 
 def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
                        fwave, index_capa, num_ghost=2, transverse_waves=2,
-                       lib=None):
+                       lib=None, out=None):
     """One 2D CTU step of the generic AoS form (any system with AoS
     hooks on the CPU; the systems of :data:`AOS_SYSTEMS` on the card).
 
     qbc: (num_eqn, nx+4, ny+4) ghost-padded q; auxbc: (num_aux, nx+4,
     ny+4) or None (float32 or float64, contiguous, q's dtype).  dt: step
-    in q's dtype (a Python float that is exact in it).  ``index_capa``
-    >= 0 names the aux row of the capacity function.  Returns (q
-    (num_eqn, nx, ny), cfl as a 0-d tensor).  On a CPU tensor this is
+    in q's dtype (a Python float or a 0-d tensor, exact in it).
+    ``index_capa`` >= 0 names the aux row of the capacity function;
+    ``out`` is the buffer of q or None.  Returns (q (num_eqn, nx, ny), cfl
+    as a 0-d tensor).  On a CPU tensor this is
     ``classic/kernels.py:step2``; on a CUDA tensor one launch of
     ``csrc/step2_aos.cu`` (``lib``: another build of it, bound by
     :func:`bind_step2_aos_lib`, for the variant timer
@@ -368,9 +370,10 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
         raise ValueError(f"step2_rows_generic: num_ghost must be 2, got "
                          f"{num_ghost}")
     if qbc.device.type == "cpu":
-        return kernels.step2(qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt, params,
-                             mthlim, order, fwave, index_capa, num_ghost,
-                             transverse_waves, rp.prefactor)
+        return _build.plain_out(kernels.step2(
+            qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt, params, mthlim, order,
+            fwave, index_capa, num_ghost, transverse_waves, rp.prefactor),
+            out)
     if rp.name not in AOS_SYSTEMS:
         raise NotImplementedError(
             f"step2_rows_generic: {rp.name} has no kernel yet (ROADMAP.md, "
@@ -382,25 +385,27 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
                               naux, index_capa)
     is_double = qbc.dtype == torch.float64
     lib = _aos_lib() if lib is None else lib
-    q_out = torch.empty((3, nxg - 4, nyg - 4), dtype=qbc.dtype,
-                        device=qbc.device)
+    q_out = _build.out_tensor("step2_rows_generic", out,
+                              (3, nxg - 4, nyg - 4), qbc)
     cfl_blocks = torch.empty((lib.step2_aos_blocks(nxg, nyg,
                                                    int(is_double)),),
                              dtype=qbc.dtype, device=qbc.device)
     fn = lib.step2_aos_f64 if is_double else lib.step2_aos_f32
+    dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
             nxg, nyg, system, int(index_capa), int(bool(fwave)),
-            float(dt), float(dx), float(dy), float(params["grav"]),
+            dt_ptr, float(dx), float(dy), float(params["grav"]),
             float(params.get("dry_tolerance", 1e-8)), int(order),
             int(transverse_waves), *[int(m) for m in mthlim],
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"step2_aos launch failed: cudaError_t {rc}")
-    step2_rows_generic.launches += 1
+    _build.counted(step2_rows_generic)
     return q_out, torch.amax(cfl_blocks)
 
 
 step2_rows_generic.launches = 0
+step2_rows_generic.device_launches = None
 
 
 # rp.name -> (system id of csrc/step3_aos.cu (SYS_*), aux rows its solvers
@@ -411,11 +416,12 @@ STEP3_SYSTEMS = {"vc_acoustics_3D": (0, 2), "acoustics_3D": (1, 0),
 # limiter ids an entry of csrc/step3_aos.cu takes (five: the interface
 # keeps the width it had when it also ran euler_3D's five waves)
 STEP3_AOS_LIMITERS = 5
-# qbc, aux, qout, cflb; nxg, nyg, nzg, system, capa, fwave; dt, dx, dy,
-# dz and three physics scalars; order, tw and five limiter ids (the host
-# emulation takes these, the card's entries a stream after them)
+# qbc, aux, qout, cflb; nxg, nyg, nzg, system, capa, fwave; dt (a
+# pointer), dx, dy, dz and three physics scalars; order, tw and five
+# limiter ids (the host emulation takes these, the card's entries a stream
+# after them)
 STEP3_AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                      + [ctypes.c_double] * 7
+                      + [ctypes.c_void_p] + [ctypes.c_double] * 6
                       + [ctypes.c_int] * (2 + STEP3_AOS_LIMITERS))
 
 
@@ -427,10 +433,8 @@ def bind_step3_aos_lib(lib):
     if n != STEP3_AOS_LIMITERS:
         raise RuntimeError(f"step3_aos: the build takes {n} limiter ids, "
                            f"the wrapper passes {STEP3_AOS_LIMITERS}")
-    for name in ("step3_aos_f32", "step3_aos_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = STEP3_AOS_ARGTYPES + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    _build.bind_dt(lib, ("step3_aos_f32", "step3_aos_f64"),
+                   STEP3_AOS_ARGTYPES, 10)
     lib.step3_aos_blocks.argtypes = [ctypes.c_int] * 4
     lib.step3_aos_blocks.restype = ctypes.c_int
     return lib
@@ -438,7 +442,6 @@ def bind_step3_aos_lib(lib):
 
 @functools.cache
 def _step3_aos_lib():
-    from . import _build
     return bind_step3_aos_lib(_build.load("step3_aos"))
 
 
@@ -463,15 +466,16 @@ def step3_limiter_ids(mthlim):
 
 def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
                      fwave, index_capa, num_ghost=2, transverse_waves=2,
-                     lib=None):
+                     lib=None, out=None):
     """One 3D CTU step of the generic AoS form (any system with AoS hooks
     on the CPU; the systems of :data:`STEP3_SYSTEMS` on the card).
 
     qbc: (num_eqn, nx+4, ny+4, nz+4) ghost-padded q; auxbc: (num_aux,
     nx+4, ny+4, nz+4) or None (float32 or float64, contiguous, q's dtype).
-    dt: step in q's dtype (a Python float that is exact in it).
-    ``index_capa`` >= 0 names the aux row of the capacity function.
-    Returns (q (num_eqn, nx, ny, nz), cfl as a 0-d tensor).  On a CPU
+    dt: step in q's dtype (a Python float or a 0-d tensor, exact in it).
+    ``index_capa`` >= 0 names the aux row of the capacity function;
+    ``out`` is the buffer of q or None.  Returns (q (num_eqn, nx, ny, nz),
+    cfl as a 0-d tensor).  On a CPU
     tensor this is ``classic/kernels.py:step3``; on a CUDA tensor one
     launch of ``csrc/step3_aos.cu`` (``lib``: another build of it, bound
     by :func:`bind_step3_aos_lib`, for the variant timer
@@ -482,10 +486,10 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
         raise ValueError(f"step3_xy_generic: num_ghost must be 2, got "
                          f"{num_ghost}")
     if qbc.device.type == "cpu":
-        return kernels.step3(qbc, auxbc, dt, dx, dy, dz, rp.rp, rp.rpt,
-                             rp.rptt, params, mthlim, order, fwave,
-                             index_capa, num_ghost, transverse_waves,
-                             rp.prefactor)
+        return _build.plain_out(kernels.step3(
+            qbc, auxbc, dt, dx, dy, dz, rp.rp, rp.rpt, rp.rptt, params,
+            mthlim, order, fwave, index_capa, num_ghost, transverse_waves,
+            rp.prefactor), out)
     if rp.name == "euler_3D":
         raise NotImplementedError(
             "step3_xy_generic: euler_3D runs on step3_xy (csrc/step3_ctu.cu)")
@@ -500,22 +504,24 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
                               naux, index_capa)
     is_double = qbc.dtype == torch.float64
     lib = _step3_aos_lib() if lib is None else lib
-    q_out = torch.empty((rp.num_eqn, nxg - 4, nyg - 4, nzg - 4),
-                        dtype=qbc.dtype, device=qbc.device)
+    q_out = _build.out_tensor("step3_xy_generic", out,
+                              (rp.num_eqn, nxg - 4, nyg - 4, nzg - 4), qbc)
     cfl_blocks = torch.empty((lib.step3_aos_blocks(nxg, nyg, nzg,
                                                    int(is_double)),),
                              dtype=qbc.dtype, device=qbc.device)
     fn = lib.step3_aos_f64 if is_double else lib.step3_aos_f32
+    dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
             nxg, nyg, nzg, system, int(index_capa), int(bool(fwave)),
-            float(dt), float(dx), float(dy), float(dz),
+            dt_ptr, float(dx), float(dy), float(dz),
             *step3_system_scalars(rp, params), int(order),
             int(transverse_waves), *step3_limiter_ids(mthlim),
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"step3_aos launch failed: cudaError_t {rc}")
-    step3_xy_generic.launches += 1
+    _build.counted(step3_xy_generic)
     return q_out, torch.amax(cfl_blocks)
 
 
 step3_xy_generic.launches = 0
+step3_xy_generic.device_launches = None

@@ -175,6 +175,14 @@ def _exact(value, dtype):
     return float(np.dtype(str(dtype).split(".")[1]).type(value))
 
 
+def _dt(value, dtype, dev):
+    """The step of a timed case: ``value`` rounded to ``dtype``, as a
+    float64 0-d tensor on ``dev``, as the solver's device loop holds it
+    (the kernels read dt from device memory)."""
+    return torch.full((), _exact(value, dtype), dtype=torch.float64,
+                      device=dev)
+
+
 def step2_ctu_case(n, dtype, dev):
     """step2_ctu's timed case at n^2, the classic quadrants path's
     configuration on its first state: qbc (2 extrapolated ghost cells) and
@@ -182,7 +190,7 @@ def step2_ctu_case(n, dtype, dev):
     1/n, gamma 1.4, van Leer, order 2, transverse_waves 2)."""
     qbc = padded(quadrants_state(n, n), dtype, dev)
     h = 1.0 / n
-    return qbc, (_exact(0.2 / n, dtype), h, h, {"gamma": 1.4}, (3,) * 4, 2,
+    return qbc, (_dt(0.2 / n, dtype, dev), h, h, {"gamma": 1.4}, (3,) * 4, 2,
                  2, 2)
 
 
@@ -195,7 +203,7 @@ def step3_ctu_case(n, dtype, dev, q=None):
     q = euler3d_state(n, n, n) if q is None else q
     qbc = padded3(q, dtype, dev).contiguous()
     d = 2.0 / n
-    return qbc, (_exact(0.3 * d, dtype), d, d, d, {"gamma": 1.4}, (4,) * 5,
+    return qbc, (_dt(0.3 * d, dtype, dev), d, d, d, {"gamma": 1.4}, (4,) * 5,
                  2, 2, 2)
 
 
@@ -204,7 +212,7 @@ def dq_case(n, dtype, dev):
     cells) and the rest of ``tiled2d.dq_rows``'s arguments (dt = 2/n,
     dx = dy = 1/n, gamma 1.4)."""
     qbc = padded(quadrants_state(n, n), dtype, dev, num_ghost=3)
-    return qbc, (_exact(2.0 / n, dtype), 1.0 / n, 1.0 / n, {"gamma": 1.4})
+    return qbc, (_dt(2.0 / n, dtype, dev), 1.0 / n, 1.0 / n, {"gamma": 1.4})
 
 
 def step3_aos_case(n, dtype, dev):
@@ -218,7 +226,7 @@ def step3_aos_case(n, dtype, dev):
     qbc = padded3(q_np, dtype, dev).contiguous()
     auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
     d = 2.0 / n
-    return qbc, auxbc, (_exact(0.45 * d, dtype), d, d, d,
+    return qbc, auxbc, (_dt(0.45 * d, dtype, dev), d, d, d,
                         riemann.vc_acoustics_3D, {}, (4, 4), 2, False, -1,
                         2, 1)
 
@@ -234,7 +242,7 @@ def euler3d_capa_case(n, dtype, dev, q=None):
     qbc = padded3(q_np, dtype, dev).contiguous()
     auxbc = padded3_aux(aux_np, dtype, dev).contiguous()
     d = 2.0 / n
-    return qbc, auxbc, (_exact(0.3 * d, dtype), d, d, d, {"gamma": 1.4},
+    return qbc, auxbc, (_dt(0.3 * d, dtype, dev), d, d, d, {"gamma": 1.4},
                         (4,) * 5, 2, 2, 2)
 
 
@@ -254,7 +262,7 @@ def step2_aos_case(n, dtype, dev):
     from .. import riemann
     qbc = padded(shallow_state(n, n), dtype, dev)
     h = 5.0 / n
-    return qbc, (None, _exact(0.5 * h, dtype), h, h,
+    return qbc, (None, _dt(0.5 * h, dtype, dev), h, h,
                  riemann.shallow_roe_with_efix_2D, {"grav": 1.0}, (4,) * 3,
                  2, False, -1, 2, 2)
 
@@ -304,7 +312,7 @@ def step1_case(n, dtype, dev, state="sod"):
     from .. import riemann
     qbc = padded_1d(STATES_1D[state](n), dtype, dev, 2)
     dx = 1.0 / n
-    return qbc, (None, _exact(0.5 * dx, dtype), dx,
+    return qbc, (None, _dt(0.5 * dx, dtype, dev), dx,
                  riemann.euler_with_efix_1D, {"gamma": 1.4}, (4,) * 3, 2,
                  False, -1, 2)
 
@@ -396,7 +404,12 @@ def _euler3d_capa_call(dtype, dev, n=192):
 
     def make(lib, source="step3_ctu"):
         if source == "step3_aos":
+            # that build (an older commit's) takes dt by value
             lib = tiled2d.bind_step3_aos_lib(lib)
+            types = list(tiled2d.STEP3_AOS_ARGTYPES)
+            types[10] = ctypes.c_double
+            for fn in (lib.step3_aos_f32, lib.step3_aos_f64):
+                fn.argtypes = types + [ctypes.c_void_p]
             return lambda: _step3_aos_euler(lib, qbc, auxbc, args)
         lib = tiled2d.bind_step3_lib(lib)
         return lambda: tiled2d.step3_xy(qbc, *args, lib=lib, auxbc=auxbc,

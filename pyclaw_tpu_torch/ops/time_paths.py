@@ -1,12 +1,15 @@
-"""Time the classic quadrants, Euler 3D, shallow-water and Euler capacity
-paths of checkouts against each other on one card, each run in a process
-of its own.
+"""Time the classic and SharpClaw quadrants, Euler 3D, shallow-water,
+Euler capacity, the two Sod and the heterogeneous acoustics paths of
+checkouts against each other on one card, each run in a process of its
+own.
 
-    python -m pyclaw_tpu_torch.ops.time_paths LABEL=ROOT [LABEL=ROOT ...]
-        [--out FILE]
+    python -m pyclaw_tpu_torch.ops.time_paths LABEL=ROOT[:host]
+        [LABEL=ROOT[:host] ...] [--out FILE] [--paths P1,P2]
 
 ROOT is a directory that holds a ``pyclaw_tpu_torch`` package: ``.`` for
-this checkout, an unpacked ``git archive`` for another commit.  For each
+this checkout, an unpacked ``git archive`` for another commit; ``:host``
+runs its solvers on the host loop (``traced_evolve = False``) in place of
+the device loop.  For each
 path the labels run in order and then in reverse (parent, change,
 change, parent).  Each run is a fresh Python process that imports the
 package from ROOT (its kernels build into ROOT's ``build/kernels``),
@@ -17,9 +20,18 @@ warms the path up with a short run to t = 0.01, then times
 1024^2 to t = 1.0 (``step2_aos``) and Euler 3D with the capacity function
 of ``examples.euler_3d.add_capacity`` at 192^3 to t = 0.2 (``step3_ctu``;
 ``step3_aos`` in checkouts before it moved there, so both wrappers'
-launches are counted).  It prints the accepted and rejected steps, the
-kernel's launches, the wall seconds and the cell-updates/s.  Needs a
-card; writes the records as JSON to ``--out``.
+launches are counted), the SharpClaw quadrants at 1024^2 to t = 0.8
+(WENO5, SSP104: ``dq2_weno5``), the Sod tube at 800 cells to t = 0.2
+on the classic solver (``step1``) and on SharpClaw (``weno5``), and the
+heterogeneous acoustics at 192^3 to t = 0.8 (``step3_aos``).  It
+prints the accepted and rejected steps, the kernel's launches as its
+wrappers count them (on the device loop the launches they make or
+capture: a capture's eager warm-up attempt and two captured attempts;
+a replay counts nothing), the wall seconds, the cell-updates/s and,
+where the solver has a device loop, its host readbacks and attempted
+steps per output frame, the attempts after the end and the seconds of
+its warm-up and capture.  Needs a card; writes the records as JSON to
+``--out``.
 """
 
 from __future__ import annotations
@@ -32,27 +44,40 @@ import subprocess
 import sys
 
 # (example module, setup keywords, final time, cells, the wrappers whose
-# launches count, a function of the module applied to the state or "")
-# per path
+# launches count (module.function of ops), a function of the module
+# applied to the state or "") per path
 PATHS = {
     "quadrants": ("euler_2d_quadrants", {"mx": 1024, "my": 1024}, 0.8,
-                  1024 ** 2, "step2_rows", ""),
+                  1024 ** 2, "tiled2d.step2_rows", ""),
     "euler3d": ("euler_3d", {"mx": 192, "my": 192, "mz": 192}, 0.2,
-                192 ** 3, "step3_xy", ""),
+                192 ** 3, "tiled2d.step3_xy", ""),
     "shallow": ("shallow_2d_radial", {"mx": 1024, "my": 1024}, 1.0,
-                1024 ** 2, "step2_rows_generic", ""),
+                1024 ** 2, "tiled2d.step2_rows_generic", ""),
     "euler3d_capa": ("euler_3d", {"mx": 192, "my": 192, "mz": 192}, 0.2,
-                     192 ** 3, "step3_xy,step3_xy_generic", "add_capacity"),
+                     192 ** 3, "tiled2d.step3_xy,tiled2d.step3_xy_generic",
+                     "add_capacity"),
+    "sharpclaw": ("euler_2d_quadrants", {"mx": 1024, "my": 1024,
+                                         "solver_type": "sharpclaw"}, 0.8,
+                  1024 ** 2, "tiled2d.dq_rows", ""),
+    "sod": ("euler_1d_shocktube", {"nx": 800, "solver_type": "classic"},
+            0.2, 800, "sweep.step1", ""),
+    "sod_sharpclaw": ("euler_1d_shocktube", {"nx": 800,
+                                             "solver_type": "sharpclaw"},
+                      0.2, 800, "weno.weno5", ""),
+    "het": ("acoustics_3d_heterogeneous", {"mx": 192, "my": 192, "mz": 192},
+            0.8, 192 ** 3, "tiled2d.step3_xy_generic", ""),
 }
 
 CHILD = r"""
 import importlib, json, sys, time
 import numpy as np
 import torch
-root, module, kw, tfinal, cells, wrappers, post, device = sys.argv[1:9]
+root, module, kw, tfinal, cells, wrappers, post, device, host = sys.argv[1:10]
 sys.path.insert(0, root)
 sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-from pyclaw_tpu_torch.ops import tiled2d
+if host == "host":
+    from pyclaw_tpu_torch.solver import Solver
+    Solver.traced_evolve = False
 ex = importlib.import_module("pyclaw_tpu_torch.examples." + module)
 kw = json.loads(kw)
 
@@ -66,7 +91,11 @@ def make(t):
 
 make(0.01).run()
 claw = make(float(tfinal))
-fns = [getattr(tiled2d, w) for w in wrappers.split(",")]
+fns = []
+for w in wrappers.split(","):
+    mod, name = w.split(".")
+    fns.append(getattr(importlib.import_module("pyclaw_tpu_torch.ops."
+                                               + mod), name))
 for fn in fns:
     fn.launches = 0
 sync()
@@ -74,26 +103,29 @@ t0 = time.perf_counter()
 status = claw.run()
 sync()
 wall = time.perf_counter() - t0
+stats = getattr(claw.solver, "loop_stats", None)
 print(json.dumps({"accepted": status["numsteps"],
                   "rejected": status["numrejected"],
                   "launches": sum(fn.launches for fn in fns), "wall_s": wall,
                   "cell_updates_per_s": status["numsteps"] * int(cells)
-                  / wall}))
+                  / wall,
+                  "loop": None if stats is None else dict(stats)}))
 """
 
 
-def run_one(root, path, device="cuda", size=None, tfinal=None):
+def run_one(root, path, device="cuda", size=None, tfinal=None, host=False):
     """One timed run of ``path`` from ROOT in a fresh process (``size``
     and ``tfinal`` override the path's setup keywords and final time: the
-    CPU tests run it small)."""
+    CPU tests run it small; ``host`` takes the host loop)."""
     module, kw, t_path, cells, wrappers, post = PATHS[path]
     kw = kw if size is None else size
-    cells = cells if size is None else math.prod(size.values())
+    cells = cells if size is None else math.prod(
+        v for v in size.values() if isinstance(v, int))
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, root, module, json.dumps(kw),
          str(t_path if tfinal is None else tfinal), str(cells), wrappers,
-         post, device], cwd=root, capture_output=True, text=True,
-        timeout=900)
+         post, device, "host" if host else "device"], cwd=root,
+        capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{path} from {root} failed:\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -118,12 +150,20 @@ def main(argv=None):
     for path in args.paths.split(","):
         runs = {label: [] for label, _ in args.variants}
         for label, root in order:
-            rec = run_one(os.path.abspath(root), path)
+            root, _, mode = root.partition(":")
+            rec = run_one(os.path.abspath(root), path, host=mode == "host")
             runs[label].append(rec)
+            loop = rec.get("loop")
+            per = "" if not (loop and loop["frames"]) else (
+                f"; {loop['readbacks'] / loop['frames']:.2f} readbacks and "
+                f"{loop['attempts'] / loop['frames']:.2f} attempts a frame, "
+                f"{loop['after_end']} after the end, warm-up "
+                f"{loop['warmup_s']:.4f} s, capture "
+                f"{loop['capture_s']:.4f} s")
             print(f"  {path} [{label}]: {rec['accepted']} + "
                   f"{rec['rejected']} steps, {rec['launches']} launches, "
                   f"{rec['wall_s']:.3f} s, "
-                  f"{rec['cell_updates_per_s']:.4e} cell-updates/s",
+                  f"{rec['cell_updates_per_s']:.4e} cell-updates/s{per}",
                   flush=True)
         result["paths"][path] = runs
     if args.out:

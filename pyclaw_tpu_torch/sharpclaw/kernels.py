@@ -44,11 +44,10 @@ def dq_1d(qbc, auxbc, dt, dx, rp, params, lim_type, weno_order, index_capa,
     """Semidiscrete update along the LAST axis (flux1.f90).
 
     qbc: (num_eqn, ..., n) ghost-padded; auxbc (num_aux, ..., n) or None;
-    ``dt`` a Python float.  Returns (dq over the interior along the last
-    axis, with the dt factor included, cfl)."""
+    ``dt`` a Python float or a 0-d tensor.  Returns (dq over the interior
+    along the last axis, with the dt factor included, cfl)."""
     g = num_ghost
     n = qbc.shape[-1]
-    dt = float(dt)
 
     ql, qr = _recon(qbc, lim_type, weno_order)
     if positivity is not None:
@@ -73,7 +72,7 @@ def dq_1d(qbc, auxbc, dt, dx, rp, params, lim_type, weno_order, index_capa,
         adq = amdq2 + apdq2
 
     capa = auxbc[index_capa] if index_capa >= 0 else None
-    dtdx = _dtdx_arr(dt, dx, capa)
+    dtdx = _dtdx_arr(dt, dx, capa, qbc)
     s_int = s[..., g - 1:n - g]
     if capa is None:
         cfl = torch.amax(torch.maximum(s_int * dtdx, -s_int * dtdx))

@@ -6,7 +6,9 @@ Counterpart of ``pyclaw_tpu/sharpclaw/solver.py`` (``_CFL_DEFAULTS :40``,
 1D branch ``:272-280``, ``_make_step :300-347`` for Euler, SSP33 and
 SSP104, ``SharpClawSolver1D :501``, ``SharpClawSolver2D :505``), a
 rebuild of reference ``src/pyclaw/sharpclaw/solver.py``.  ``setup``
-builds one step function ``_step_fn(q, aux, dt, t) -> (q_new, cfl)``;
+builds one step function ``_step_fn(q, aux, dt, t, out=None) -> (q_new,
+cfl)`` (dt and t Python floats or 0-d tensors; ``out`` the buffer of
+q_new or None, which the last stage combine writes);
 each RK stage extends the BCs and calls ``sharpclaw/kernels.py:dq_1d``
 (1D, any registered system with an ``rp`` hook, with aux and capacity:
 its WENO5 reconstruction ``ops.weno.weno5`` launches ``csrc/weno5.cu``
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..config import torch_dtype
 from ..ops import tiled2d
 from ..solver import Solver, _not_ported
 from . import kernels
@@ -126,26 +129,31 @@ class SharpClawSolver(Solver):
 
         def stage_t(t, dt, c, div=1.0):
             """t + c*dt/div in q's dtype, as the JAX package computes the
-            stage times (they reach only the BCs)."""
+            stage times (they reach only the BCs): a Python float, or with
+            t and dt 0-d tensors (the device loop) a float64 0-d tensor of
+            the same value."""
+            if isinstance(t, torch.Tensor):
+                kd = torch_dtype(state.q.dtype)
+                return (t.to(kd) + dt.to(kd) * c / div).to(torch.float64)
             return float(kdtype(t) + kdtype(c) * kdtype(dt) / kdtype(div))
 
         if self.time_integrator == "Euler":
-            def step(q, aux, dt, t):
+            def step(q, aux, dt, t, out=None):
                 d, cfl = dq(q, aux, dt, t)
-                return q + d, cfl
+                return torch.add(q, d, out=out), cfl
 
         elif self.time_integrator == "SSP33":
-            def step(q, aux, dt, t):
+            def step(q, aux, dt, t, out=None):
                 d1, c1 = dq(q, aux, dt, t)
                 q1 = q + d1
                 d2, c2 = dq(q1, aux, dt, stage_t(t, dt, 1.0))
                 q2 = 0.75 * q + 0.25 * (q1 + d2)
                 d3, c3 = dq(q2, aux, dt, stage_t(t, dt, 0.5))
-                qn = q / 3.0 + (2.0 / 3.0) * (q2 + d3)
+                qn = torch.add(q / 3.0, (2.0 / 3.0) * (q2 + d3), out=out)
                 return qn, torch.maximum(c1, torch.maximum(c2, c3))
 
         else:  # SSP104: Ketcheson's low-storage 2-register scheme
-            def step(q, aux, dt, t):
+            def step(q, aux, dt, t, out=None):
                 # the CFL carry is a function of q, so a NaN in q still
                 # reaches the accept/reject test
                 cfl = q.reshape(-1)[0] * 0.0
@@ -161,7 +169,7 @@ class SharpClawSolver(Solver):
                     s1 = s1 + d / 6.0
                     cfl = torch.maximum(cfl, c)
                 d, c = dq(s1, aux, dt, stage_t(t, dt, 1.0))
-                qn = s2 + 0.6 * s1 + 0.1 * d
+                qn = torch.add(s2 + 0.6 * s1, 0.1 * d, out=out)
                 return qn, torch.maximum(cfl, c)
         return step
 

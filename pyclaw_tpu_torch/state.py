@@ -57,6 +57,10 @@ class State:
         self.p = None
         self.compute_F = None
         self.F = None
+        self.keep_gauges = False
+        # (gauge number, t, q at the gauge's cell) per accepted step,
+        # recorded by the solver; the controller writes them at the end
+        self.gauge_data = []
 
     # ------------------------------------------------------------------
     @property

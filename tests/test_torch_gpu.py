@@ -1,7 +1,9 @@
 """Card-only tests: the CUDA kernels (step2_ctu with step3_ctu's
 capacity and f-wave variants, dq2_weno5, step3_ctu, step2_aos, step1,
-weno5, step3_aos) against their plain PyTorch versions at small shapes,
-and the Euler capacity path's launch counts.  Whether a card is present is decided inside the
+weno5, step3_aos, restore) against their plain PyTorch versions at small
+shapes, the Euler capacity path's launch counts, and the device loop
+(CUDA-graph replays) against the host loop, with gauges and before_step
+against the CPU.  Whether a card is present is decided inside the
 fixture, so every process collects the same tests; without a card they
 skip.
 
@@ -21,6 +23,20 @@ from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
 
 PARAMS = {"gamma": 1.4}
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _ran(fn, kernel, card):
+    """fn() with the wrappers' device counters on (ops.count_on_device):
+    (its result, the launches of ``kernel`` the card ran, a CUDA graph's
+    replays included)."""
+    from pyclaw_tpu_torch import ops
+    ops.count_on_device(card)
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out, int(ops.kernel_wrappers()[kernel].device_launches)
+    finally:
+        ops.count_on_device(None)
 
 
 @pytest.fixture
@@ -468,8 +484,9 @@ def test_step3_ctu_capacity_kernel_matches_plain(card, tw, order, lim, capa,
 def test_euler_capacity_path_launches_step3_ctu(card, capacity, fwave):
     """ClawSolver3D(euler_3D) with a capacity function, f-waves or both
     through Controller.run on the card: one step3_ctu launch per attempted
-    step, no step3_aos launch; the result matches the same run on the
-    CPU."""
+    step on the card (its device counter; the wrapper counts the eager
+    warm-up attempt and the two captured ones), no step3_aos launch; the
+    result matches the same run on the CPU."""
     from pyclaw_tpu_torch.examples import euler_3d
 
     def run(device):
@@ -483,11 +500,282 @@ def test_euler_capacity_path_launches_step3_ctu(card, capacity, fwave):
         return claw, claw.run()
 
     generic, ctu = tiled2d.step3_xy_generic.launches, tiled2d.step3_xy.launches
-    claw, status = run(card)
-    assert (tiled2d.step3_xy.launches - ctu
-            == status["numsteps"] + status["numrejected"] > 0)
+    (claw, status), ran = _ran(lambda: run(card), "step3_ctu", card)
+    stats = claw.solver.loop_stats
+    # one launch per attempted step of the device loop (those after its
+    # end included)
+    assert (ran == stats["attempts"]
+            >= status["numsteps"] + status["numrejected"] > 0)
+    assert tiled2d.step3_xy.launches - ctu == 3 * stats["captures"] > 0
     assert tiled2d.step3_xy_generic.launches == generic
     claw_c, status_c = run("cpu")
     assert status_c["numsteps"] == status["numsteps"]
     q, q_c = claw.solution.q, claw_c.solution.q
     assert np.abs(q - q_c).max() / np.abs(q_c).max() <= 1e-10
+
+
+# ---- the device loop -----------------------------------------------------
+
+def _small_path(name, device, dtype=np.float32):
+    """A main path's example at a small size on ``device``."""
+    from pyclaw_tpu_torch.examples import (acoustics_3d_heterogeneous,
+                                           euler_1d_shocktube,
+                                           euler_2d_quadrants, euler_3d,
+                                           shallow_2d_radial)
+    if name in ("quadrants", "sharpclaw"):
+        claw = euler_2d_quadrants.setup(
+            mx=40, my=40, outdir=None, device=device, dtype=dtype,
+            solver_type="classic" if name == "quadrants" else "sharpclaw")
+        claw.tfinal = 0.2
+    elif name in ("euler3d", "euler3d_capa"):
+        claw = euler_3d.setup(mx=12, my=12, mz=12, outdir=None,
+                              device=device, dtype=dtype)
+        if name == "euler3d_capa":
+            euler_3d.add_capacity(claw.solution.state)
+        claw.tfinal = 0.05
+    elif name == "shallow":
+        claw = shallow_2d_radial.setup(mx=40, my=40, outdir=None,
+                                       device=device, dtype=dtype)
+        claw.tfinal = 0.2
+    elif name == "het":
+        claw = acoustics_3d_heterogeneous.setup(mx=12, my=12, mz=12,
+                                                outdir=None, device=device,
+                                                dtype=dtype)
+        claw.tfinal = 0.2
+    else:
+        claw = euler_1d_shocktube.setup(
+            nx=100, outdir=None, device=device, dtype=dtype,
+            solver_type="classic" if name == "sod" else "sharpclaw")
+        claw.tfinal = 0.05
+    claw.num_output_times = 2
+    return claw
+
+
+LOOP_PATHS = ["quadrants", "sharpclaw", "euler3d", "euler3d_capa", "shallow",
+              "het", "sod", "sod_sharpclaw"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", LOOP_PATHS)
+def test_graph_loop_equals_host_loop(card, name):
+    """The device loop (CUDA-graph replays) against the host loop
+    (traced_evolve=False) on each main path at a small size, float32: q
+    equal bit for bit, the same steps and dt; one restore launch per
+    attempted step on the card (its device counter; the wrapper counts
+    three a capture); at most a few readbacks a frame."""
+    from pyclaw_tpu_torch.ops import restore
+    graph, host = _small_path(name, card), _small_path(name, card)
+    host.solver.traced_evolve = False
+    before = restore.restore.launches
+    _, ran = _ran(graph.run, "restore", card)
+    stats = graph.solver.loop_stats
+    assert ran == stats["attempts"]
+    assert restore.restore.launches - before == 3 * stats["captures"]
+    host.run()
+    assert restore.restore.launches - before == 3 * stats["captures"]
+    assert np.array_equal(graph.solution.q, host.solution.q)
+    for key in ("numsteps", "numrejected", "cflmax", "dtmin", "dtmax"):
+        assert graph.solver.status[key] == host.solver.status[key]
+    assert graph.solver.dt == host.solver.dt
+    assert stats["captures"] >= 1 and stats["frames"] == 2
+    assert stats["attempts"] == (graph.solver.status["numsteps"]
+                                 + graph.solver.status["numrejected"]
+                                 + stats["after_end"])
+    assert stats["readbacks"] <= 5 * stats["frames"]
+    assert host.solver.loop_stats["frames"] == 0
+
+
+def _het_two_calls(device, how):
+    """The heterogeneous acoustics path at 12^3 in float64 on ``device``,
+    evolved to t = 0.1 and then to 0.2 on the device loop; between the
+    two calls the sound speed row of aux is raised by 10%: ``how`` =
+    "replaced" (a new array), "in_place" (through the array the caller
+    took before the first call), "fresh" (a new array of the changed
+    values, the reference) or None.  Returns (q, the caller's array,
+    state.aux after the second call)."""
+    claw = _small_path("het", device, np.float64)
+    state = claw.solution.state
+    held = state.aux
+    claw.solver.setup(claw.solution)
+    claw.solver.evolve_to_time(claw.solution, 0.1)
+    if how == "replaced":
+        state.aux = state.aux * np.array([1.0, 1.1])[:, None, None, None]
+    elif how == "in_place":
+        held[1] *= 1.1
+    elif how == "fresh":
+        changed = np.array(held, copy=True)
+        changed[1] *= 1.1
+        state.aux = changed
+    claw.solver.evolve_to_time(claw.solution, 0.2)
+    return np.array(state.q, copy=True), held, state.aux
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["replaced", "in_place"])
+def test_host_changed_aux_reaches_the_card(card, how):
+    """aux the host replaced, or changed in place through the array it
+    held before the run, between two evolve_to_time calls reaches the
+    card: bit-equal to a reference handed a fresh array, unlike a run
+    without the change, and the same as the CPU's run to 1e-10; state.aux
+    stays the caller's array."""
+    q, held, aux = _het_two_calls(card, how)
+    q_ref, _, _ = _het_two_calls(card, "fresh")
+    q_same, _, _ = _het_two_calls(card, None)
+    q_cpu, _, _ = _het_two_calls("cpu", how)
+    assert np.array_equal(q, q_ref)
+    assert np.abs(q - q_same).max() > 1e-6 * np.abs(q_same).max()
+    assert np.abs(q - q_cpu).max() <= 1e-10 * np.abs(q_cpu).max()
+    if how == "in_place":
+        assert aux is held
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["het", "euler3d_capa"])
+def test_unindexed_cuda_device_captures_once(card, name):
+    """A solver made with device "cuda" (no index) keeps its device
+    buffers from frame to frame: one capture for the whole run of a path
+    with aux, not one a frame."""
+    claw = _small_path(name, "cuda")
+    assert claw.solver.device == torch.device("cuda",
+                                              torch.cuda.current_device())
+    claw.run()
+    stats = claw.solver.loop_stats
+    assert stats["frames"] == 2 and stats["captures"] == 1
+
+
+@pytest.mark.gpu
+def test_kernel_reads_dt_at_each_replay(card):
+    """A graph that captured a step2_ctu launch with dt a device tensor
+    replays it with the tensor's value at the replay: the same bits as a
+    direct call at that dt."""
+    qbc = _qbc(3, 40, 30, torch.float32, card)
+    dt = torch.full((), 0.004, dtype=torch.float64, device=card)
+    out = torch.empty((4, 40, 30), dtype=torch.float32, device=card)
+    args = (1 / 40, 1 / 30, PARAMS, (3,) * 4, 2)
+    tiled2d.step2_rows(qbc, dt, *args, out=out)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, cfl = tiled2d.step2_rows(qbc, dt, *args, out=out)
+    for value in (0.002, 0.003):
+        dt.fill_(float(np.float32(value)))
+        graph.replay()
+        q_d, c_d = tiled2d.step2_rows(qbc, float(np.float32(value)), *args)
+        assert torch.equal(out, q_d) and torch.equal(cfl, c_d)
+
+
+@pytest.mark.gpu
+def test_device_counter_counts_replays(card):
+    """With the device counters on, a wrapper adds one on the card after
+    each launch: an eager launch and each replay of a graph that captured
+    one count there; the host's count takes the eager launch and the
+    capture."""
+    from pyclaw_tpu_torch import ops
+    qbc = _qbc(3, 40, 30, torch.float32, card)
+    args = (0.004, 1 / 40, 1 / 30, PARAMS, (3,) * 4, 2)
+    out = torch.empty((4, 40, 30), dtype=torch.float32, device=card)
+    ops.count_on_device(card)
+    try:
+        fn = tiled2d.step2_rows
+        before = fn.launches
+        fn(qbc, *args, out=out)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn(qbc, *args, out=out)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        assert fn.launches - before == 2
+        assert int(fn.device_launches) == 4
+        assert all(int(g.device_launches) == 0
+                   for k, g in ops.kernel_wrappers().items()
+                   if k != "step2_ctu")
+    finally:
+        ops.count_on_device(None)
+    assert tiled2d.step2_rows.device_launches is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((4, 33, 17), torch.float32),
+                                         ((3, 7), torch.float64),
+                                         ((5, 9, 8, 7), torch.float32)])
+def test_restore_kernel_matches_plain(card, shape, dtype):
+    from pyclaw_tpu_torch.ops import restore
+    src = torch.randn(shape, dtype=dtype, device=card)
+    for ok in (True, False):
+        dst = torch.randn(shape, dtype=dtype, device=card)
+        flag = torch.tensor(ok, device=card)
+        want = restore.plain(dst.clone(), src, flag)
+        before = restore.restore.launches
+        assert torch.equal(restore.restore(dst, src, flag), want)
+        assert restore.restore.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["gauges", "before_step"])
+def test_gauges_and_before_step_match_the_cpu(card, case):
+    """Gauges (recorded by the device loop) and before_step (the host
+    loop) on the card against the CPU: the Sod tube, float64."""
+    def hook(solver, state):
+        state.q[1] *= 0.999
+
+    runs = []
+    for device in (card, "cpu"):
+        claw = _small_path("sod", device, np.float64)
+        if case == "gauges":
+            claw.solution.state.grid.add_gauges([(-0.2,), (0.05,), (0.3,)])
+        else:
+            claw.solver.before_step = hook
+        runs.append((claw, claw.run()["numsteps"]))
+    (ck, nk), (cc, nc) = runs
+    assert nk == nc
+    assert np.abs(ck.solution.q - cc.solution.q).max() <= 1e-10
+    if case == "gauges":
+        gk, gc = ck.solution.state.gauge_data, cc.solution.state.gauge_data
+        assert len(gk) == len(gc) == 3 * nk
+        for (a, ta, va), (b, tb, vb) in zip(gk, gc):
+            assert a == b and abs(ta - tb) <= 1e-12
+            assert np.abs(np.asarray(va) - np.asarray(vb)).max() <= 1e-10
+        assert ck.solver.loop_stats["captures"] >= 1
+    else:
+        assert ck.solver.loop_stats["frames"] == 0
+
+
+@pytest.mark.gpu
+def test_capture_survives_garbage_graphs(card):
+    """An old run's loop left as cyclic garbage, with the collector set to
+    run at almost every allocation: the next run's capture still succeeds
+    (the collector is off inside a capture, where a graph's destruction
+    would invalidate it)."""
+    import gc
+    old = _small_path("sod", card)
+    old.run()
+    assert old.solver.loop_stats["captures"] == 1
+    cycle = [old]
+    cycle.append(cycle)
+    del old, cycle
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        claw = _small_path("sod_sharpclaw", card)
+        claw.run()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert claw.solver.loop_stats["captures"] == 1
+
+
+@pytest.mark.gpu
+def test_capture_failure_raises(card):
+    """A step that syncs the host cannot be captured: the device loop
+    raises and does not carry on in the host loop."""
+    claw = _small_path("sod", card)
+    claw.solver.setup(claw.solution)
+    step = claw.solver._step_fn
+
+    def syncing(q, aux, dt, t, out=None):
+        q_new, cfl = step(q, aux, dt, t, out=out)
+        float(cfl)
+        return q_new, cfl
+    claw.solver._step_fn = syncing
+    with pytest.raises(RuntimeError):
+        claw.run()
+    assert claw.solver.status["numsteps"] == 0

@@ -280,7 +280,6 @@ def _set(attr, value):
     (_set("dq_src", lambda *a: 0.0), "dq_src"),
     (_set("call_before_step_each_stage", True),
      "call_before_step_each_stage"),
-    (_set("before_step", lambda solver, state: None), "before_step"),
     (_set("use_soa", False), "generic SharpClaw dq"),
     (lambda claw: setattr(claw.solution.state, "aux",
                           np.zeros((1, 8, 8))), "aux"),

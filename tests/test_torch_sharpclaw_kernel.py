@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from pyclaw_tpu_torch.ops import tiled2d
 from pyclaw_tpu_torch.riemann import euler as te
 from pyclaw_tpu_torch.sharpclaw import soa as tsoa
 from test_torch_sharpclaw import euler_state, fallback_cells
@@ -37,8 +38,7 @@ def host_kernel(tmp_path_factory):
         "dq2_weno5", str(tmp_path_factory.mktemp("dq2_weno5_host")))
     for name in ("dq2_weno5_host_f32", "dq2_weno5_host_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_double] * 4)
+        fn.argtypes = tiled2d.DQ_ARGTYPES
         fn.restype = ctypes.c_int
     lib.dq2_weno5_blocks.argtypes = [ctypes.c_int] * 2
     lib.dq2_weno5_blocks.restype = ctypes.c_int
@@ -55,7 +55,7 @@ def _host_dq(lib, qbc, dt, dx, dy):
     fn = (lib.dq2_weno5_host_f64 if qbc.dtype == np.float64
           else lib.dq2_weno5_host_f32)
     rc = fn(qbc.ctypes.data, out.ctypes.data, cfl_blocks.ctypes.data, nxg,
-            nyg, dt, dx, dy, 0.4)
+            nyg, ctypes.byref(ctypes.c_double(dt)), dx, dy, 0.4)
     assert rc == 0
     assert np.isfinite(cfl_blocks).all()
     return out, cfl_blocks.max()

@@ -163,7 +163,8 @@ def _host(lib, name, q, aux, dt, dx, lim, order, fwave, capa, g):
     lims = [lim] * rp.num_waves + [0] * (3 - rp.num_waves)
     rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
             cfl_blocks.ctypes.data, n, g, sweep.SYSTEMS_1D[name], capa,
-            int(fwave), dt, dx, *sweep.system_params(rp, PARAMS), order,
+            int(fwave), ctypes.byref(ctypes.c_double(dt)), dx,
+            *sweep.system_params(rp, PARAMS), order,
             *lims)
     assert rc == 0
     # each block wrote its partial

@@ -11,6 +11,7 @@
   kernel's index algebra, tiling and edge masks without a card.
 """
 
+import ctypes
 import os
 import shutil
 import sys
@@ -120,7 +121,6 @@ def test_step_matches_step2_pallas_rows_interpret():
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    import ctypes
     if shutil.which("g++") is None and shutil.which("c++") is None:
         pytest.skip("no host C++ compiler for the kernel emulation")
     from pyclaw_tpu_torch.ops import _build
@@ -128,8 +128,7 @@ def host_kernel(tmp_path_factory):
         "step2_ctu", str(tmp_path_factory.mktemp("step2_ctu_host")))
     for name in ("step2_ctu_host_f32", "step2_ctu_host_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_double] * 4 + [ctypes.c_int] * 6)
+        fn.argtypes = tiled2d.STEP2_ARGTYPES
         fn.restype = ctypes.c_int
     lib.step2_ctu_blocks.argtypes = [ctypes.c_int] * 3
     lib.step2_ctu_blocks.restype = ctypes.c_int
@@ -159,8 +158,8 @@ def test_kernel_source_on_host_matches_plain(host_kernel, nx, ny, order,
     cfl_blocks = np.empty(host_kernel.step2_ctu_blocks(nx + 4, ny + 4,
                                                        int(is_double)), dtype)
     rc = fn(q.ctypes.data, out.ctypes.data, cfl_blocks.ctypes.data, nx + 4,
-            ny + 4, dt, 1.0 / nx, 1.0 / ny, 0.4, order, tw, lim, lim, lim,
-            lim)
+            ny + 4, ctypes.byref(ctypes.c_double(dt)), 1.0 / nx, 1.0 / ny,
+            0.4, order, tw, lim, lim, lim, lim)
     assert rc == 0
     q_p, c_p = _plain_step(q, dt, 1.0 / nx, 1.0 / ny, (lim,) * 4, order, tw)
     assert np.abs(out - q_p).max() / np.abs(q_p).max() <= tol

@@ -235,7 +235,8 @@ def test_kernel_source_on_host_matches_plain(host_kernel, face, nx, ny,
                                                        int(is_double)), dtype)
     rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
             cfl_blocks.ctypes.data, nx + 4, ny + 4, tiled2d.AOS_SYSTEMS[name][0],
-            capa, int(fwave), dt, *deltas, PARAMS["grav"], 1e-8, order, tw,
+            capa, int(fwave), ctypes.byref(ctypes.c_double(dt)), *deltas,
+            PARAMS["grav"], 1e-8, order, tw,
             lim, lim, lim)
     assert rc == 0
     q_p, c_p = _plain(name, q, aux, dt, *deltas, (lim,) * 3, order, fwave,

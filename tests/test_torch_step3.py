@@ -295,7 +295,8 @@ def test_kernel_source_on_host_matches_plain(host_kernel, face, shape,
     cfl_blocks = np.empty(host_kernel.step3_ctu_blocks(nxg, nyg, nzg,
                                                        int(is_double)), dtype)
     rc = fn(q.ctypes.data, out.ctypes.data, cfl_blocks.ctypes.data, nxg, nyg,
-            nzg, dt, *deltas, 0.4, order, tw, *(lim,) * 5)
+            nzg, ctypes.byref(ctypes.c_double(dt)), *deltas, 0.4, order, tw,
+            *(lim,) * 5)
     assert rc == 0
     q_p, c_p = _plain(q, dt, deltas, (lim,) * 5, order, tw)
     assert np.abs(out - q_p).max() / np.abs(q_p).max() <= tol
@@ -355,7 +356,8 @@ def _aux_host_step(lib, q, aux, capa, fwave, dt, d, order, tw, lim):
                          np.nan, q.dtype)
     rc = fn(q.ctypes.data, None if aux is None else aux.ctypes.data,
             out.ctypes.data, cfl_blocks.ctypes.data, *q.shape[1:], capa,
-            int(fwave), dt, *d, 0.4, order, tw, *(lim,) * 5)
+            int(fwave), ctypes.byref(ctypes.c_double(dt)), *d, 0.4, order,
+            tw, *(lim,) * 5)
     assert rc == 0 and np.isfinite(cfl_blocks).all()
     return out, float(cfl_blocks.max())
 
@@ -430,8 +432,9 @@ def test_capacity_variant_at_kappa_one_matches_no_capacity(host_kernel, tw,
           else host_kernel.step3_ctu_host_f32)
     out0 = np.empty_like(out1)
     cfl0 = np.empty(host_kernel.step3_ctu_blocks(*n, int(is_double)), dtype)
-    assert fn(q.ctypes.data, out0.ctypes.data, cfl0.ctypes.data, *n, dt, *d,
-              0.4, order, tw, *(lim,) * 5) == 0
+    assert fn(q.ctypes.data, out0.ctypes.data, cfl0.ctypes.data, *n,
+              ctypes.byref(ctypes.c_double(dt)), *d, 0.4, order, tw,
+              *(lim,) * 5) == 0
     assert np.abs(out1 - out0).max() / np.abs(out0).max() <= tol
     assert abs(c1 - float(cfl0.max())) <= tol * float(cfl0.max())
 

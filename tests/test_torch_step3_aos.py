@@ -366,7 +366,8 @@ def _host_step(lib, rp, q, aux, dt, d, params, case, dtype):
                          np.nan, dtype)
     rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
             cfl_blocks.ctypes.data, *q.shape[1:],
-            tiled2d.STEP3_SYSTEMS[name][0], capa, int(fwave), dt, *d,
+            tiled2d.STEP3_SYSTEMS[name][0], capa, int(fwave),
+            ctypes.byref(ctypes.c_double(dt)), *d,
             *tiled2d.step3_system_scalars(rp, params), order, tw,
             *tiled2d.step3_limiter_ids((lim,) * rp.num_waves))
     assert rc == 0

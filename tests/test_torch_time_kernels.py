@@ -42,12 +42,13 @@ def test_parse_variant():
 
 
 def _first_call(monkeypatch, name, claw):
-    """The arguments of the first call of ``tiled2d.<name>`` in a run."""
+    """The arguments of the first call of ``tiled2d.<name>`` in a run,
+    without ``out`` (the device loop's output buffer, not the case's)."""
     seen = []
     real = getattr(tiled2d, name)
 
     def spy(*args, **kwargs):
-        seen.append((args, kwargs))
+        seen.append((args, {k: v for k, v in kwargs.items() if k != "out"}))
         return real(*args, **kwargs)
     monkeypatch.setattr(tiled2d, name, spy)
     claw.run()
@@ -185,7 +186,7 @@ def test_step1_case_is_the_classic_sod_path(monkeypatch):
     real = sweep.step1
 
     def spy(*args, **kwargs):
-        seen.append(args + tuple(kwargs.values()))
+        seen.append(args + tuple(v for k, v in kwargs.items() if k != "out"))
         return real(*args, **kwargs)
     monkeypatch.setattr(sweep, "step1", spy)
     claw.run()
@@ -257,7 +258,11 @@ def test_parse_sass_counts_opcodes_per_entry():
     ("quadrants", {"mx": 12, "my": 12}),
     ("euler3d", {"mx": 6, "my": 6, "mz": 6}),
     ("shallow", {"mx": 12, "my": 12}),
-    ("euler3d_capa", {"mx": 6, "my": 6, "mz": 6})])
+    ("euler3d_capa", {"mx": 6, "my": 6, "mz": 6}),
+    ("sharpclaw", {"mx": 12, "my": 12, "solver_type": "sharpclaw"}),
+    ("sod", {"nx": 40, "solver_type": "classic"}),
+    ("sod_sharpclaw", {"nx": 40, "solver_type": "sharpclaw"}),
+    ("het", {"mx": 6, "my": 6, "mz": 6})])
 def test_time_paths_runs_each_path_in_its_own_process(path, size):
     """ops/time_paths.py's timed run (a fresh process importing the
     package from a root), on the CPU at a small size."""
@@ -269,4 +274,10 @@ def test_time_paths_runs_each_path_in_its_own_process(path, size):
     assert rec["wall_s"] > 0 and rec["cell_updates_per_s"] > 0
     # the wrappers count launches of the kernel only, never on the CPU
     assert rec["launches"] == 0
+    # the timed run's device loop: no graph on the CPU
+    loop = rec["loop"]
+    assert loop["frames"] >= 1 and loop["captures"] == 0
+    assert loop["readbacks"] >= loop["frames"]
+    assert loop["attempts"] == (loop["after_end"] + rec["accepted"]
+                                + rec["rejected"])
 
