@@ -33,18 +33,24 @@ Phases (each asserts; any failure exits non-zero):
      0/1/2 x order 1/2 x limiters {4, 3, 10} at 16^3, 33x17x9 and 5x40x7,
      float32 and float64;
   3d. step2_aos against its plain PyTorch version (one step each), over
-     the radial dam break state and a seeded random wet state, grids
-     1024^2, 60^2, 125^2, 64x100 and 100x37, float32 and float64: the
-     shallow-water Roe solver for transverse_waves 0/1/2 x order 1/2, and
-     bathymetry f-waves with aux, with and without a capacity function;
+     the radial dam break state, the radial acoustics pulse and a seeded
+     random wet state, grids 1024^2, 60^2, 125^2, 64x100 and 100x37,
+     float32 and float64: the shallow-water Roe solver for
+     transverse_waves 0/1/2 x order 1/2, bathymetry f-waves with aux,
+     with and without a capacity function, and the acoustics instance
+     (two waves) for transverse_waves 0/1/2 x order 1/2 x {MC, minmod};
   3e. step1 against its plain PyTorch version (one step each): the five
      1D systems (advection, acoustics, Euler with and without the entropy
      fix, HLLE) at n in {1, 7, 251, 252, 253, 255, 256, 257, 505, 800,
      100003} on seeded
      random states (and the Sod state at 800), order 1/2 with MC, van
      Leer and the CFL-dependent id 10; advection with a non-uniform
-     capacity function and with the f-wave form; float32 and float64, the
-     CFL equal bit for bit;
+     capacity function and with the f-wave form; then sw_aug_1D (f-waves,
+     the bottom in aux) at n in {1, 7, 251, 252, 253, 500, 505, 100003} on
+     seeded wet/dry states that take every branch of the augmented solver
+     (wet/wet, the Ritter fronts, walls on either side, both dry, damp
+     cells) and on the dry dam break's first state at 500, order 1/2 with
+     minmod and MC; float32 and float64, the CFL equal bit for bit;
   3f. weno5 against its plain version at (1, 5), (3, 806), (4, 37, 131),
      the small tile's edges (3, 127), (3, 129), (65537, 4), the large
      tile's edges ((257, 1023), (257, 1024), (257, 1025), (129, 2051) in
@@ -113,15 +119,30 @@ Phases (each asserts; any failure exits non-zero):
      (the walls, and the device loop's warm-up and capture seconds);
   4i. gauges (on the device loop) and before_step (on the host loop) on
      the card against the CPU: the Sod tube, classic, 200 cells, float64;
-  5. the 80^2 and 128^2 quadrants goldens (tests/golden/*.npz) on the
-     card, float32 and float64;
-  5c. the 16^3 euler_3d golden on the card, float32 and float64;
-  5d. the 60^2 shallow_2d_radial golden on the card, float32 and float64,
-     and a lake at rest over a bump (bathymetry f-waves) at 1024^2
-     float32, which must stay at rest to roundoff;
-  5e. the five 1D goldens (advection_1d, advection_1d_sharpclaw,
-     acoustics_1d, euler_1d_sod, euler_1d_sod_sharpclaw) on the card,
-     float32 and float64;
+  4j. the acoustics path: examples.acoustics_2d.setup(mx=my=1024,
+     float32) through Controller.run() to t=0.12, every launch count set
+     to 0 just before it and read just after (step2_aos, its acoustics
+     instance: 1 per attempted step), one capture, the x/y mirror symmetry
+     of p;
+  4k. the dry dam break: examples.dam_break_dry.setup(nx=500) to t=2.0 in
+     float32 (launch counts around it; step1, its sw_aug instance: 1 per
+     attempted step) and float64: h >= 0 in every frame, the mass
+     conserved to roundoff until the rarefaction nears the left end;
+  4l. the Sod tube with SharpClaw char_decomp=2 at 800 cells in float32 to
+     t=0.2 (the whole stage is plain PyTorch: no kernel launch but one
+     restore an attempted step), against the same run in float64;
+  5v. the golden validator (pyclaw_tpu_torch/validate.py, the port of
+     tools/tpu_validate.py): its ten cases on the card in float32 at the
+     tool's tolerances and in float64 at 1e-8 (it took over the goldens of
+     the earlier phases [5], [5c], [5d] and three of [5e], at the same
+     tolerances); the two pairs that the JAX package's own run misses
+     under one-ulp moves (the dry dam break in float32, the char_decomp
+     Sod tube in float64: CONDITIONED) are reported not ok when they miss,
+     and must stay within a fixed bound taken from those readings;
+  5d. a lake at rest over a bump (bathymetry f-waves) at 1024^2 float32,
+     which must stay at rest to roundoff;
+  5e. the two 1D goldens the validator has no case for (acoustics_1d,
+     euler_1d_sod) on the card, float32 and float64;
   5f. the heterogeneous path's correctness (no golden exists): the 32^3
      run to t=0.8 on the card in float64 against the same run on the
      CPU's plain step (equal steps, 1e-10); the 192^3 float32 run against
@@ -144,17 +165,21 @@ Phases (each asserts; any failure exits non-zero):
      its bound, and step3_ctu the same at 192^3 (on the 3D path's first
      input and, the kernel alone, on its last); step1 on the Sod state at
      n = 800 and 2^20 and on a seeded smooth state at 2^20, weno5 on the
-     same states padded for SharpClaw ((3, 806), (3, 2^20+6)), each also
+     same states padded for SharpClaw ((3, 806), (3, 2^20+6)), step1's
+     sw_aug instance on a seeded wet/dry state at 2^20, each also
      with its device time from torch.profiler and its share of the bound;
      step2_ctu, dq2_weno5 and
      step3_ctu also by the profiler; step3_aos, its plain version and
      its bound at 192^3 on the heterogeneous path's first input, and the
      kernel on its last; the same for step3_ctu's capacity variant on the
-     Euler capacity path's first input and last state; step2_aos also by
-     the profiler; then
+     Euler capacity path's first input and last state; step2_aos (its
+     shallow-water and its acoustics instance, each on its path's first
+     input) also by the profiler; then
      each 2D path to t=0.1, the 3D Euler path to t=0.02, the heterogeneous
      path to t=0.8, the Euler capacity path to t=0.02, the classic Sod path to t=0.2 and the SharpClaw one to
-     t=0.02 under torch.profiler (device busy share, launches per step,
+     t=0.02, the acoustics path to t=0.12, the dry dam break to t=0.5 and
+     the char_decomp Sod path to t=0.02 under torch.profiler (device busy
+     share, launches per step,
      device time by kernel and by group: kernel, BC extension of q and
      aux, CFL reduction, frame copies; host time by operation), each on
      the device loop and on the host loop; restore at (4, 1024, 1024) f32,
@@ -180,7 +205,8 @@ from pyclaw_tpu_torch.ops.time_kernels import (
     euler3d_capa_state, euler3d_state, events_ms as time_ms, het_state,
     padded, padded_1d, padded3, padded3_aux, quadrants_state, shallow_state,
     sod_state, step1_case, step2_aos_case, step2_ctu_case, step3_aos_case,
-    step3_ctu_case, weno5_case)
+    step3_ctu_case, weno5_case, acoustics_state, step2_aos_acoustics_case,
+    dam_state, DAM_PARAMS)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -248,6 +274,17 @@ FLOPS_PER_CELL_3D = 3 * (512 + 2 * 994) + 78 + 50
 # interfaces 714.  The fold and update per cell 78.
 FLOPS_PER_CELL_AOS = 2 * 357 + 78
 
+# The same for the acoustics instance of csrc/step2_aos.cu
+# (csrc/acoustics2d.cuh; order 2, transverse_waves 2, MC, no capacity).
+# Per interface: the normal solve (jumps 2, strengths 6, waves 3, amdq/apdq
+# 6) 17; the limiter of two waves with two nonzero components (norm 3, dot
+# product 3, theta 3, MC 6, nu 2, select 1, coefficient 4) 44; the
+# correction flux 7; the fluctuations to split 6; two rpt2 splits of 13
+# (strengths 7, the four parts 6) 26; CFL 2 -> 102; two interfaces 204.
+# The fold and update per cell 78, as for shallow water.  About 12
+# operations per byte in float32 and 6 in float64: bytes bound it.
+FLOPS_PER_CELL_AOS_ACOUSTICS = 2 * 102 + 78
+
 
 def capacity_ops_per_cell_3d(p, rptt, tw):
     """Operations per cell a capacity function adds to one 3D CTU step
@@ -313,8 +350,6 @@ TOL_REL = {"float32": 1e-5, "float64": 1e-12}        # one step, vs plain
 # float64 stays at TOL_REL.
 ULP_FACTOR = 4.0
 GOLDEN_TOL = {"float32": 1e-3, "float64": 1e-8}      # tools/tpu_validate
-# tools/tpu_validate.py:49 holds shallow_2d_radial to 2e-3 in float32
-GOLDEN_TOL_SHALLOW = {"float32": 2e-3, "float64": 1e-8}
 # a lake at rest in float32 stays at rest to this (absolute, in units of
 # the depth 1 and of the momentum): roundoff of the well-balanced f-waves
 LAKE_TOL = 1e-5
@@ -760,10 +795,18 @@ def timing_step3(dev, n=192, q_last=None):
 
 SW_PARAMS = {"grav": 1.0}
 ROE, BATHY = "shallow_roe_with_efix_2D", "shallow_bathymetry_fwave_2D"
-# (system, fwave, index_capa, transverse_waves, order, limiter) of [3d]
+ACOUSTICS_2D = "acoustics_2D"
+# each system's problem_data in [3d] (acoustics: examples.acoustics_2d's)
+AOS_PARAMS = {ROE: SW_PARAMS, BATHY: SW_PARAMS,
+              ACOUSTICS_2D: {"rho": 1.0, "bulk": 4.0, "zz": 2.0, "cc": 2.0}}
+# (system, fwave, index_capa, transverse_waves, order, limiter) of [3d];
+# the acoustics instance (two waves) at orders 1 and 2, every
+# transverse_waves, MC and minmod
 AOS_CASES = ([(ROE, False, -1, tw, order, 4) for tw in (0, 1, 2)
               for order in (1, 2)]
-             + [(BATHY, True, -1, 2, 2, 4), (BATHY, True, 1, 2, 2, 10)])
+             + [(BATHY, True, -1, 2, 2, 4), (BATHY, True, 1, 2, 2, 10)]
+             + [(ACOUSTICS_2D, False, -1, tw, order, lim) for tw in (0, 1, 2)
+                for order in (1, 2) for lim in (4, 1)])
 
 
 def random_wet_state(rng, nx, ny):
@@ -782,23 +825,30 @@ def plain_aos(qbc, auxbc, dt, dx, dy, name, fwave, capa, tw, order, lim):
     from pyclaw_tpu_torch import riemann
     from pyclaw_tpu_torch.classic import kernels
     rp = riemann.ALL[name]
-    return kernels.step2(qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt, SW_PARAMS,
-                         (lim,) * 3, order, fwave, capa, 2, tw)
+    return kernels.step2(qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt,
+                         AOS_PARAMS[name], (lim,) * rp.num_waves, order,
+                         fwave, capa, 2, tw)
 
 
 def compare_aos(dev, grids, seed=3):
-    """step2_aos vs its plain version, one step each, on the card."""
+    """step2_aos vs its plain version, one step each, on the card: the
+    shallow-water instances on the radial dam break state and a seeded
+    random wet state, the acoustics instance on the radial pulse of
+    examples.acoustics_2d and a seeded random state.  Returns (worst
+    relative error, worst CFL error, the main configuration's max abs
+    error (shallow, acoustics), cases)."""
     import torch
     from pyclaw_tpu_torch import riemann
     from pyclaw_tpu_torch.ops import tiled2d
     rng = np.random.default_rng(seed)
     worst = {"float32": 0.0, "float64": 0.0}
     worst_cfl = {"float32": 0.0, "float64": 0.0}
-    main_abs_err = None
+    main_abs_err = {}
     ncase = 0
     for nx, ny in grids:
         q_rand, aux_np = random_wet_state(rng, nx, ny)
-        inputs = {"dam_break": shallow_state(nx, ny), "random": q_rand}
+        inputs = {"dam_break": shallow_state(nx, ny), "random": q_rand,
+                  "pulse": acoustics_state(nx, ny)}
         dx, dy = 5.0 / nx, 5.0 / ny
         for iname, q_np in inputs.items():
             for tname, dtype in (("float32", torch.float32),
@@ -807,9 +857,14 @@ def compare_aos(dev, grids, seed=3):
                 auxbc = padded(aux_np, dtype, dev)
                 dt = float(np.dtype(tname).type(0.1 * min(dx, dy)))
                 for name, fwave, capa, tw, order, lim in AOS_CASES:
-                    qk, ck = tiled2d.step2_rows_generic(
-                        qbc, auxbc, dt, dx, dy, riemann.ALL[name],
-                        SW_PARAMS, (lim,) * 3, order, fwave, capa, 2, tw)
+                    if (iname == "pulse") != (name == ACOUSTICS_2D) and \
+                            iname != "random":
+                        continue
+                    rp = riemann.ALL[name]
+                    lims = (lim,) * rp.num_waves
+                    args = (qbc, auxbc, dt, dx, dy, rp, AOS_PARAMS[name],
+                            lims, order, fwave, capa, 2, tw)
+                    qk, ck = tiled2d.step2_rows_generic(*args)
                     qp, cp = plain_aos(qbc, auxbc, dt, dx, dy, name, fwave,
                                        capa, tw, order, lim)
                     torch.cuda.synchronize()
@@ -825,10 +880,13 @@ def compare_aos(dev, grids, seed=3):
                              f"cfl {float(ck)!r} vs {float(cp)!r}")
                     worst[tname] = max(worst[tname], rel)
                     worst_cfl[tname] = max(worst_cfl[tname], dcfl)
-                    if ((nx, ny, iname, tname, name, tw, order)
-                            == (1024, 1024, "dam_break", "float32", ROE, 2,
-                                2)):
-                        main_abs_err = abs_err
+                    if ((nx, ny, iname, tname, tw, order, lim)
+                            == (1024, 1024, "dam_break", "float32", 2, 2, 4)
+                            and name == ROE):
+                        main_abs_err["shallow"] = abs_err
+                    if ((nx, ny, iname, tname, tw, order, lim)
+                            == (1024, 1024, "pulse", "float32", 2, 2, 4)):
+                        main_abs_err["acoustics"] = abs_err
                     ncase += 1
                     del qk, qp
         print(f"  compare step2_aos {nx}x{ny}: max rel err f32 "
@@ -881,35 +939,41 @@ def lake_at_rest(dev, n, dtype, tfinal):
             float(np.abs(q[1:]).max()), dict(claw.solver.loop_stats))
 
 
-def timing_aos(dev, n=1024):
+def timing_aos(dev, n=1024, system=ROE):
     """step2_aos (CUDA events and the profiler's device time), its plain
-    version and its bound at n^2 on the radial dam break state (the main
-    path's first input, ops/time_kernels.py:step2_aos_case)."""
+    version and its bound at n^2 on the first input of the system's path:
+    the radial dam break (shallow water, ops/time_kernels.py:
+    step2_aos_case) or the radial pulse (acoustics,
+    step2_aos_acoustics_case)."""
     import torch
     from pyclaw_tpu_torch.ops import tiled2d
+    case, flops = ((step2_aos_case, FLOPS_PER_CELL_AOS) if system == ROE
+                   else (step2_aos_acoustics_case,
+                         FLOPS_PER_CELL_AOS_ACOUSTICS))
     out = {}
     for tname, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
-        qbc, args = step2_aos_case(n, dtype, dev)
+        qbc, args = case(n, dtype, dev)
         dt, h = args[1], args[2]
 
         def kern():
             return tiled2d.step2_rows_generic(qbc, *args)
 
         def plain():
-            return plain_aos(qbc, None, dt, h, h, ROE, False, -1, 2, 2, 4)
+            return plain_aos(qbc, None, dt, h, h, system, False, -1, 2, 2, 4)
 
         ms = time_ms(kern, 200)
         plain_ms = time_ms(plain, 20, warm=2)
         ms_again = time_ms(kern, 200)
         dev_ms, dev_n = device_ms_per_call(kern, "step2_aos_kernel", 20)
         item = qbc.element_size()
-        b = bound_of(qbc.numel() * item + 3 * n * n * item,
-                     FLOPS_PER_CELL_AOS * n * n, tname)
+        b = bound_of(qbc.numel() * item + 3 * n * n * item, flops * n * n,
+                     tname)
         out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
                       "device_launches_profiled": dev_n,
                       "plain_ms": plain_ms, **b}
-        print(f"  timing step2_aos {n}^2 {tname}: kernel {ms:.4f} ms (repeat "
+        print(f"  timing step2_aos {system} {n}^2 {tname}: kernel {ms:.4f} "
+              f"ms (repeat "
               f"{ms_again:.4f}; on the device {dev_ms} ms, {dev_n} launches "
               f"profiled), plain {plain_ms:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
@@ -1471,6 +1535,18 @@ def timing_step3_capa(dev, n=192, q_last=None):
 # CFL 6 -> 260.  Per cell: the update 18 and the CFL reduction 1.
 FLOPS_PER_CELL_STEP1 = 24 + 37 + 82 + 96 + 15 + 6 + 18 + 1
 
+# Operations per cell of one step1 sweep of the augmented shallow-water
+# solver (csrc/systems1d.cuh: SwAug1D; order 2, minmod, f-waves), counted
+# in the same way, one interface a cell: the Riemann solve 115 (wet and
+# wall tests and the extended states 18, sound speeds and the Roe-type
+# average 16, Einfeldt and Ritter speeds 14, the augmented flux jump 22,
+# the HLLE split 17, the f-waves, amdq and apdq with their dry and wall
+# selects 28); the limiter of two waves (norm, dot product, theta,
+# minmod, nu, the sign coefficient) 38; the correction flux 6; CFL 4; the
+# update 12.  Nine operations per byte in float32 (q 2 and the bottom
+# read, q 2 written): bytes bound it.
+FLOPS_PER_CELL_SW_AUG = 115 + 38 + 6 + 4 + 12
+
 # Operations per entry of one WENO5 reconstruction (left and right edge
 # values), counted from csrc/weno5.cu and csrc/weno5.cuh, each term that
 # neighbouring entries share counted once: smoothness indicators 23 (one
@@ -1495,6 +1571,11 @@ STEP1_LIMS = ((1, 4), (2, 4), (2, 3), (2, 10))
 # non-uniform capacity function, and the f-wave branch
 STEP1_ADVECTION_EXTRA = ((2, 4, 0, False), (2, 10, 0, False),
                          (2, 4, -1, True), (2, 10, 0, True))
+# sw_aug_1D in [3e]: interior lengths (the dry dam break's 500 among them)
+# and (order, limiter): first order, minmod (the example's) and MC, all
+# in the f-wave form the solver needs
+SW_AUG_NS = (1, 7, 251, 252, 253, 500, 505, 100003)
+SW_AUG_LIMS = ((1, 1), (2, 1), (2, 4))
 # shapes of [3f]: the small tile (csrc/weno5.cu: weno5_tile, 128
 # entries) at the path's (3, 806), on short rows, at its edges and on rows
 # past the grid's 65535, and the large tile's edges (1024 entries in f32,
@@ -1504,20 +1585,23 @@ WENO5_SHAPES = ((1, 5), (3, 806), (4, 37, 131), (3, 127), (3, 129),
                 (65537, 4), (257, 1023), (257, 1024), (257, 1025),
                 (129, 2051), (513, 511), (513, 512), (513, 513),
                 (257, 1027), (3, 2 ** 20 + 6))
-# the 1D goldens on the card: (golden, example module, setup keywords,
-# float32 tolerance).  tools/tpu_validate.py:36-38 holds advection_1d and
-# advection_1d_sharpclaw to 5e-4 and :42-43 euler_1d_sod_sharpclaw to
-# 1e-3; it has no case for acoustics_1d and euler_1d_sod, held to 1e-3.
+# the 1D goldens on the card that the validator ([5v]) has no case for:
+# (golden, example module, setup keywords, float32 tolerance), held to
+# 1e-3 (advection_1d, advection_1d_sharpclaw and euler_1d_sod_sharpclaw
+# are validator cases, at the same tolerances and t check)
 GOLDENS_1D = (
-    ("advection_1d", "advection_1d", dict(nx=100, solver_type="classic"),
-     5e-4),
-    ("advection_1d_sharpclaw", "advection_1d",
-     dict(nx=100, solver_type="sharpclaw"), 5e-4),
     ("acoustics_1d", "acoustics_1d", dict(nx=100), 1e-3),
     ("euler_1d_sod", "euler_1d_shocktube",
-     dict(nx=200, solver_type="classic"), 1e-3),
-    ("euler_1d_sod_sharpclaw", "euler_1d_shocktube",
-     dict(nx=200, solver_type="sharpclaw"), 1e-3))
+     dict(nx=200, solver_type="classic"), 1e-3))
+# the two (case, type) pairs of the validator that no run can be held to
+# at the tolerance: the JAX package's own run, from its initial state moved
+# by one ulp, misses their goldens by 3.2e-4 to 4.75e-2 (the dry dam break
+# in float32, 16 of 30 seeds above its 2e-3) and by 5.0e-9 to 2.20e-8 (the
+# char_decomp Sod tube in float64, 23 of 30 above 1e-8) on the CPU
+# (`python tests/test_torch_validate.py`).  [5v] holds each to the largest
+# of those readings, a fixed bound; every other pair to the tolerance.
+CONDITIONED = {("dam_break_dry_1d", "float32"): 4.8e-2,
+               ("euler_1d_sod_chardecomp", "float64"): 2.2e-8}
 # the Sod path at 800 cells in float32 against the same run in float64 on
 # the card (relative L1, max relative) and the change of mass and energy
 # (relative; no wave reaches the ends by t=0.2).  The plain versions on
@@ -1546,26 +1630,69 @@ def random_state_1d(rng, name, m):
     return q, 0.7 + 0.6 * rng.random((1, m))
 
 
+def random_sw_aug_state(rng, m):
+    """A seeded ghost-padded state (2, m) of sw_aug_1D and its bottom (1,
+    m): each cell wet (depth 0.2 .. 1.2, either velocity), dry on a low
+    bottom, dry on a high bottom (above any neighbour's surface: a wall)
+    or damp (0 < h < dry_tolerance), so that the interfaces take every
+    branch of the augmented solver."""
+    kind = rng.integers(0, 4, m)
+    dry = DAM_PARAMS["dry_tolerance"]
+    h = np.where(kind == 0, 0.2 + rng.random(m),
+                 np.where(kind == 3, dry * rng.random(m), 0.0))
+    b = np.where(kind == 2, 2.0 + rng.random(m), 0.3 * rng.random(m))
+    return np.stack([h, h * rng.standard_normal(m)]), b[None]
+
+
 def plain_step1(qbc, auxbc, dt, dx, name, lims, order, fwave, capa):
     from pyclaw_tpu_torch import riemann
     from pyclaw_tpu_torch.classic import kernels
+    params = DAM_PARAMS if name == "sw_aug_1D" else PARAMS_1D
     return kernels.step1(qbc, auxbc, dt, dx, riemann.ALL[name].rp,
-                         PARAMS_1D, lims, order, fwave, capa, 2)
+                         params, lims, order, fwave, capa, 2)
+
+
+def step1_vs_plain(qbc, auxbc, dt, dx, name, lims, order, fwave, capa):
+    """step1 and its plain version on one input: (q, cfl) of each."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import sweep
+    rp = riemann.ALL[name]
+    params = DAM_PARAMS if name == "sw_aug_1D" else PARAMS_1D
+    args = (qbc, auxbc, dt, dx, rp, params, lims, order, fwave, capa)
+    qk, ck = sweep.step1(*args)
+    qp, cp = plain_step1(qbc, auxbc, dt, dx, name, lims, order, fwave, capa)
+    torch.cuda.synchronize()
+    return qk, ck, qp, cp
 
 
 def compare_step1(dev, seed=4):
     """step1 vs its plain version, one step each, on the card: the five 1D
     systems at every n of STEP1_NS (seeded random states; the Sod state
     too at n = 800), the (order, limiter) pairs of STEP1_LIMS, and on
-    advection a non-uniform capacity function and the f-wave form.  The
-    CFL must be equal bit for bit."""
+    advection a non-uniform capacity function and the f-wave form.  Then
+    sw_aug_1D at every n of SW_AUG_NS on seeded
+    wet/dry states (random_sw_aug_state) and, at 500, the dry dam break's
+    first state.  The CFL must be equal bit for bit.  Returns (worst
+    relative error, max abs error at the main configurations (Sod,
+    sw_aug), cases)."""
     import torch
     from pyclaw_tpu_torch import riemann
-    from pyclaw_tpu_torch.ops import sweep
     rng = np.random.default_rng(seed)
     worst = {"float32": 0.0, "float64": 0.0}
-    main_abs_err = None
+    main_abs_err = {}
     ncase = 0
+
+    def check(label, n, nq, tname, qk, ck, qp, cp):
+        abs_err = float((qk - qp).abs().max())
+        scale = float(qp.abs().max())
+        rel = abs_err / scale if scale > 0.0 else abs_err
+        if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                and float(ck) == float(cp) and tuple(qk.shape) == (nq, n)):
+            fail(f"step1 vs plain {label}: rel err {rel:.3e}, cfl "
+                 f"{float(ck)!r} vs {float(cp)!r}")
+        worst[tname] = max(worst[tname], rel)
+        return abs_err
     for n in STEP1_NS:
         dx = 1.0 / n
         for name in SYSTEMS_1D:
@@ -1586,29 +1713,46 @@ def compare_step1(dev, seed=4):
                     dt = float(np.dtype(tname).type(0.1 * dx))
                     for order, lim, capa, fwave in cases:
                         lims = (lim,) * rp.num_waves
-                        qk, ck = sweep.step1(qbc, auxbc, dt, dx, rp,
-                                             PARAMS_1D, lims, order, fwave,
-                                             capa)
-                        qp, cp = plain_step1(qbc, auxbc, dt, dx, name, lims,
+                        res = step1_vs_plain(qbc, auxbc, dt, dx, name, lims,
                                              order, fwave, capa)
-                        torch.cuda.synchronize()
-                        abs_err = float((qk - qp).abs().max())
-                        scale = float(qp.abs().max())
-                        rel = abs_err / scale if scale > 0.0 else abs_err
-                        if not (np.isfinite(rel) and rel <= TOL_REL[tname]
-                                and float(ck) == float(cp)
-                                and tuple(qk.shape) == (rp.num_eqn, n)):
-                            fail(f"step1 vs plain n={n} {name} {iname} "
-                                 f"{tname} order={order} lim={lim} "
-                                 f"capa={capa} fwave={fwave}: rel err "
-                                 f"{rel:.3e}, cfl {float(ck)!r} vs "
-                                 f"{float(cp)!r}")
-                        worst[tname] = max(worst[tname], rel)
+                        abs_err = check(f"n={n} {name} {iname} {tname} "
+                                        f"order={order} lim={lim} "
+                                        f"capa={capa} fwave={fwave}", n,
+                                        rp.num_eqn, tname, *res)
                         if (iname, tname, order, lim) == ("sod", "float32",
                                                           2, 4):
-                            main_abs_err = abs_err
+                            main_abs_err["sod"] = abs_err
                         ncase += 1
         print(f"  compare step1 n={n}: max rel err f32 "
+              f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; the CFL "
+              f"equal in every case", flush=True)
+    for n in SW_AUG_NS:
+        dx = 10.0 / n
+        q_np, aux_np = random_sw_aug_state(rng, n + 4)
+        inputs = {"random": (q_np, aux_np)}
+        if n == 500:
+            from pyclaw_tpu_torch.examples import dam_break_dry as ex
+            st = ex.setup(nx=n, outdir=None, device="cpu").solution.state
+            inputs["dam"] = tuple(padded_1d(a, torch.float64, "cpu",
+                                            2).numpy()
+                                  for a in (st.q, st.aux))
+        for iname, (qn, an) in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc = torch.as_tensor(qn, dtype=dtype, device=dev)
+                auxbc = torch.as_tensor(an, dtype=dtype, device=dev)
+                dt = float(np.dtype(tname).type(0.02 * dx))
+                for order, lim in SW_AUG_LIMS:
+                    res = step1_vs_plain(qbc, auxbc, dt, dx, "sw_aug_1D",
+                                         (lim, lim), order, True, -1)
+                    abs_err = check(f"n={n} sw_aug_1D {iname} {tname} "
+                                    f"order={order} lim={lim}", n, 2, tname,
+                                    *res)
+                    if (iname, tname, order, lim) == ("dam", "float32", 2,
+                                                      1):
+                        main_abs_err["sw_aug"] = abs_err
+                    ncase += 1
+        print(f"  compare step1 sw_aug_1D n={n}: max rel err f32 "
               f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; the CFL "
               f"equal in every case", flush=True)
     return worst, main_abs_err, ncase
@@ -1658,13 +1802,13 @@ def compare_weno5(dev, seed=5):
     return worst, main_abs_err, ncase
 
 
-def run_sod(dev, n, dtype, solver_type, tfinal=0.2):
+def run_sod(dev, n, dtype, solver_type, tfinal=0.2, char_decomp=0):
     """examples.euler_1d_shocktube through Controller.run(); returns
     (claw, status, wall seconds)."""
     import torch
     from pyclaw_tpu_torch.examples import euler_1d_shocktube as ex
     claw = ex.setup(nx=n, solver_type=solver_type, dtype=dtype, outdir=None,
-                    device=dev)
+                    device=dev, char_decomp=char_decomp)
     claw.tfinal = tfinal
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1762,7 +1906,8 @@ def sod_path(dev, n=800):
 
 
 def goldens_1d(dev):
-    """[5e]: the five 1D goldens on the card, float32 and float64."""
+    """[5e]: the 1D goldens of GOLDENS_1D on the card, float32 and
+    float64."""
     import importlib
     out = {}
     for name, module, kwargs, tol32 in GOLDENS_1D:
@@ -1807,21 +1952,26 @@ def timing_1d(dev):
             item = torch.finfo(dtype).bits // 8
             iters = 200 if n == 800 else 50
             qbc, args = step1_case(n, dtype, dev, state)
-            q = weno5_case(n, dtype, dev, state)
+            # bytes: q (and the dam break's bottom) read, q written
+            nbytes = (qbc.numel() + (0 if args[0] is None
+                                     else args[0].numel())
+                      + qbc.shape[0] * n) * item
+            flops = (FLOPS_PER_CELL_SW_AUG if state == "dam"
+                     else FLOPS_PER_CELL_STEP1)
             kerns = {
                 "step1": (lambda: sweep.step1(qbc, *args),
                           lambda: kernels.step1(qbc, *args[:3],
                                                 args[3].rp, *args[4:]),
-                          "step1_kernel",
-                          bound_of((qbc.numel() + 3 * n) * item,
-                                   FLOPS_PER_CELL_STEP1 * n, tname),
-                          list(qbc.shape)),
-                "weno5": (lambda: weno.weno5(q), lambda: recon.weno5(q),
-                          "weno5_kernel",
-                          bound_of(3 * q.numel() * item,
-                                   FLOPS_PER_ENTRY_WENO5[tname] * q.numel(),
-                                   tname),
-                          list(q.shape))}
+                          "step1_kernel", bound_of(nbytes, flops * n, tname),
+                          list(qbc.shape))}
+            if state != "dam":
+                q = weno5_case(n, dtype, dev, state)
+                kerns["weno5"] = (
+                    lambda: weno.weno5(q), lambda: recon.weno5(q),
+                    "weno5_kernel",
+                    bound_of(3 * q.numel() * item,
+                             FLOPS_PER_ENTRY_WENO5[tname] * q.numel(), tname),
+                    list(q.shape))
             for name, (kern, plain, needle, bound, shape) in kerns.items():
                 ms = time_ms(kern, iters)
                 plain_ms = time_ms(plain, iters // 5, warm=2)
@@ -2013,6 +2163,213 @@ def sharp_card_vs_cpu(dev, n=80):
     return out
 
 
+# ---- the paths of this slice: acoustics 2D, the dry dam break, the Sod
+# tube with char_decomp; the validator -----------------------------------
+
+def run_acoustics(dev, n, dtype, tfinal=0.12):
+    """examples.acoustics_2d through Controller.run(); returns (claw,
+    status, wall seconds)."""
+    import torch
+    from pyclaw_tpu_torch.examples import acoustics_2d as ex
+    claw = ex.setup(mx=n, my=n, dtype=dtype, outdir=None, device=dev)
+    claw.tfinal = tfinal
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
+def run_dam(dev, n, dtype, tfinal=2.0):
+    """examples.dam_break_dry (dimension 1) through Controller.run(), every
+    frame kept; returns (claw, status, wall seconds)."""
+    import torch
+    from pyclaw_tpu_torch.examples import dam_break_dry as ex
+    claw = ex.setup(nx=n, dtype=dtype, outdir=None, device=dev)
+    claw.tfinal = tfinal
+    claw.keep_copy = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
+def acoustics_path(dev, n=1024):
+    """[4j]: the acoustics path at n^2 in float32 to t=0.12 on the device
+    loop, every launch count set to 0 just before it and read just after
+    (step2_aos: 1 per attempted step), with the quadrants path's gates
+    (the first step rejected, one capture, the attempts after the end,
+    the readbacks a frame) and the x <-> y mirror symmetry of p."""
+    claw, status, wall, counts, ran = counted_run(
+        lambda: run_acoustics(dev, n, np.float32))
+    ns, nr = status["numsteps"], status["numrejected"]
+    loop = check_path_launches("acoustics path", claw, status, counts,
+                               "step2_aos", 1, ran=ran)
+    q = claw.solution.q
+    mirror = float(np.abs(q[0] - q[0].T).max() / np.abs(q[0]).max())
+    per_frame = loop["readbacks"] / loop["frames"]
+    print(f"[4j] acoustics_2d path {n}^2 f32 to t={claw.solution.t}: {ns} "
+          f"accepted + {nr} rejected steps, {ran['step2_aos']} step2_aos "
+          f"launches the card ran ({ran}; the wrappers' counts {counts}), "
+          f"{wall:.3f} s wall with the device counters; device loop {loop}, "
+          f"{per_frame:.2f} readbacks a frame; max |p - p^T| / max |p| "
+          f"{mirror:.3e}", flush=True)
+    if nr < 1:
+        fail("acoustics path: the first step at dt_initial=0.1 should be "
+             "rejected")
+    if q.shape != (3, n, n) or not np.all(np.isfinite(q)):
+        fail(f"acoustics path: result is not finite (3, {n}, {n})")
+    if abs(claw.solution.t - 0.12) > 1e-12 or loop["captures"] != 1:
+        fail(f"acoustics path: ended at t={claw.solution.t}, "
+             f"{loop['captures']} captures")
+    if not mirror <= 1e-4:
+        fail(f"acoustics path: mirror asymmetry {mirror}")
+    return {"accepted": ns, "rejected": nr, "wall_s_counted": wall,
+            "launches": ran, "wrapper_counts": counts, "loop": loop,
+            "readbacks_per_frame": per_frame, "mirror_asymmetry": mirror}
+
+
+# [4k]: the dry dam break's mass in the frames at t <= 1.0, before the
+# rarefaction's head (sqrt(g) = 3.1 a unit of time from x = 0) and its
+# numerical spread reach the left end at x = -5 (no flux crosses either end
+# before), to roundoff: relative change per type (the plain version on the
+# CPU: 4.5e-16 in float64, 5.1e-7 in float32)
+DAM_MASS_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+def dam_path(dev, n=500):
+    """[4k]: the dry dam break at n cells to t=2.0, float32 (every launch
+    count set to 0 just before it and read just after; step1: 1 per
+    attempted step) and float64: h >= 0 in every frame, the mass conserved
+    to roundoff in the frames at t <= 1.0, and the float32 run against
+    the float64 one (reported)."""
+    out = {}
+    q64 = None
+    for tname, dtype in (("float32", np.float32), ("float64", np.float64)):
+        if tname == "float32":
+            claw, status, wall, counts, ran = counted_run(
+                lambda: run_dam(dev, n, dtype))
+            loop = check_path_launches("dam break path", claw, status,
+                                       counts, "step1", 1, ran=ran)
+        else:
+            claw, status, wall = run_dam(dev, n, dtype)
+            loop, ran, counts = dict(claw.solver.loop_stats), None, None
+        ns, nr = status["numsteps"], status["numrejected"]
+        frames = claw.frames
+        mass0 = float(np.sum(frames[0].q[0], dtype=np.float64))
+        hmin = min(float(f.q[0].min()) for f in frames)
+        mass = max(abs(float(np.sum(f.q[0], dtype=np.float64)) - mass0)
+                   / mass0 for f in frames if f.t <= 1.0)
+        q = claw.solution.q.astype(np.float64)
+        rec = {"accepted": ns, "rejected": nr, "wall_s_counted": wall,
+               "launches": ran, "wrapper_counts": counts, "loop": loop,
+               "frames": [f.t for f in frames], "h_min": hmin,
+               "mass_change": mass}
+        if tname == "float32":
+            q32 = q
+        else:
+            q64 = q
+        out[tname] = rec
+        print(f"[4k] dam_break_dry path {n} {tname} to t={claw.solution.t}: "
+              f"{ns} accepted + {nr} rejected steps"
+              + (f", {ran['step1']} step1 launches the card ran ({ran}; the "
+                 f"wrappers' counts {counts})" if ran else "")
+              + f", {wall:.3f} s wall; device loop {loop}; min h over the "
+              f"frames {hmin!r}, mass change to t=1.0 {mass:.3e}", flush=True)
+        if nr < 1 or abs(claw.solution.t - 2.0) > 1e-12 or len(frames) != 5:
+            fail(f"dam break path {tname}: {nr} rejected steps, t="
+                 f"{claw.solution.t}, {len(frames)} frames")
+        if q.shape != (2, n) or not np.all(np.isfinite(q)):
+            fail(f"dam break path {tname}: result is not finite (2, {n})")
+        if not (hmin >= 0.0 and mass <= DAM_MASS_TOL[tname]):
+            fail(f"dam break path {tname}: min h {hmin}, mass change {mass}")
+        del claw
+    out["f32_vs_f64_max"] = float(np.max(np.abs(q32 - q64))
+                                  / np.max(np.abs(q64)))
+    out["f32_vs_f64_l1"] = float(np.mean(np.abs(q32 - q64))
+                                 / np.mean(np.abs(q64)))
+    print(f"    dam_break_dry f32 against f64: max rel "
+          f"{out['f32_vs_f64_max']:.3e}, rel L1 {out['f32_vs_f64_l1']:.3e}",
+          flush=True)
+    return out
+
+
+def chardecomp_path(dev, n=800):
+    """[4l]: the Sod tube with SharpClaw char_decomp=2 at n cells in float32
+    to t=0.2 on the device loop, every launch count set to 0 just before it
+    and read just after: the whole stage is plain PyTorch (no kernel of
+    the port; one restore an attempted step); against the same run in
+    float64 on the card (SOD_RUN_TOL's SharpClaw gates), the change of
+    mass and energy."""
+    q0 = sod_state(n)
+    claw, status, wall, counts, ran = counted_run(
+        lambda: run_sod(dev, n, np.float32, "sharpclaw", char_decomp=2))
+    ns, nr = status["numsteps"], status["numrejected"]
+    loop = check_path_launches("sod chardecomp", claw, status, counts, None,
+                               0, ran=ran)
+    q = claw.solution.q.astype(np.float64)
+    ref, st64, wall64 = run_sod(dev, n, np.float64, "sharpclaw",
+                                char_decomp=2)
+    q64 = ref.solution.q
+    l1 = float(np.mean(np.abs(q - q64)) / np.mean(np.abs(q64)))
+    mx_rel = float(np.max(np.abs(q - q64)) / np.max(np.abs(q64)))
+    cons = max(abs(float(np.sum(q[k])) - float(np.sum(q0[k])))
+               / float(np.sum(q0[k])) for k in (0, 2))
+    print(f"[4l] sod sharpclaw char_decomp=2 {n} f32 to t={claw.solution.t}: "
+          f"{ns} accepted + {nr} rejected steps, launches the card ran "
+          f"{ran} (the wrappers' counts {counts}), {wall:.3f} s wall with "
+          f"the device counters; device loop {loop}; against float64 "
+          f"({st64['numsteps']} + {st64['numrejected']} steps, {wall64:.3f} "
+          f"s): rel L1 {l1:.3e}, max rel {mx_rel:.3e}; mass/energy change "
+          f"{cons:.3e}", flush=True)
+    if nr < 1 or q.shape != (3, n) or not np.all(np.isfinite(q)):
+        fail(f"sod chardecomp: {nr} rejected steps, or not finite (3, {n})")
+    if np.min(q[0]) <= 0.0 or abs(claw.solution.t - 0.2) > 1e-12:
+        fail(f"sod chardecomp: a non-positive density or t="
+             f"{claw.solution.t}")
+    tol_l1, tol_max, tol_cons = SOD_RUN_TOL["sharpclaw"]
+    if not (l1 <= tol_l1 and mx_rel <= tol_max and cons <= tol_cons):
+        fail(f"sod chardecomp f32 vs f64: rel L1 {l1}, max rel {mx_rel}, "
+             f"mass/energy change {cons}")
+    return {"accepted": ns, "rejected": nr, "wall_s_counted": wall,
+            "launches": ran, "wrapper_counts": counts, "loop": loop,
+            "f64_accepted": st64["numsteps"], "f64_wall_s": wall64,
+            "vs_f64_l1": l1, "vs_f64_max": mx_rel,
+            "mass_energy_change": cons}
+
+
+def validator_phase(dev):
+    """[5v]: pyclaw_tpu_torch.validate on the card, its ten cases in float32
+    at tools/tpu_validate.py's tolerances and in float64 at 1e-8: every
+    (case, type) ok, but the two of CONDITIONED, which the validator
+    reports not ok when they miss and which must stay within their bound
+    with the golden's t."""
+    from pyclaw_tpu_torch import validate
+    out = {}
+    for dtype in ("float32", "float64"):
+        res = validate.validate(device=dev, dtype=dtype)
+        for name, rec in res.items():
+            if "error" in rec:
+                fail(f"[5v] {name} {dtype}: {rec['error']}")
+            bound = CONDITIONED.get((name, dtype))
+            print(f"[5v] golden {name} {dtype}: rel err "
+                  f"{rec['rel_err']:.3e} (tol {rec['tol']}"
+                  + (f", bound {bound}" if bound else "")
+                  + f"), t={rec['t']}, {rec['seconds']:.3f} s, ok "
+                  f"{rec['ok']}", flush=True)
+            if not (rec["ok"] or (bound is not None and rec["t_ok"]
+                                  and rec["rel_err"] <= bound)):
+                fail(f"[5v] {name} {dtype}: {rec}")
+            out[f"{name}:{dtype}"] = rec
+    print("[5v] validator, ok at the tolerance: " + ", ".join(
+        f"{dtype} {sum(r['ok'] for k, r in out.items() if k.endswith(dtype))}"
+        f" of {len(validate.CASES)}" for dtype in ("float32", "float64"))
+        + "; not ok, within the bound: " + (", ".join(
+            k for k, r in out.items() if not r["ok"]) or "none"), flush=True)
+    return out
+
+
 # ---- the device loop: CUDA-graph replays against the host loop ----------
 
 @contextlib.contextmanager
@@ -2058,7 +2415,8 @@ def check_path_launches(label, claw, status, counts, kernel, per_attempt,
     kernel per_attempt times and ``restore`` once (none on the host loop)
     an attempted step; on the graph loop the attempts are the accepted,
     the rejected and those after the loop's end, and there is at least
-    one capture.  No other kernel in either.  Returns the solver's loop
+    one capture.  No other kernel in either (``kernel`` None: a path that
+    runs no kernel of the port but restore).  Returns the solver's loop
     counters."""
     ns, nr = status["numsteps"], status["numrejected"]
     st = dict(claw.solver.loop_stats)
@@ -2070,18 +2428,20 @@ def check_path_launches(label, claw, status, counts, kernel, per_attempt,
     if not graph and st["frames"]:
         fail(f"{label}: the host loop ran the device loop ({st})")
     made = 3 * st["captures"] if graph else attempts
-    want = {kernel: per_attempt * made, "restore": made if graph else 0}
-    if any(counts[k] != v for k, v in want.items()) or counts[kernel] == 0:
-        fail(f"{label}: the wrappers counted {counts[kernel]} {kernel} and "
-             f"{counts['restore']} restore launches, not {want} "
+    want = {"restore": made if graph else 0}
+    if kernel is not None:
+        want[kernel] = per_attempt * made
+    if (any(counts[k] != v for k, v in want.items())
+            or (kernel is not None and counts[kernel] == 0)):
+        fail(f"{label}: the wrappers counted {counts} launches, not {want} "
              f"({st['captures']} captures, {attempts} attempted steps)")
     sources = [("the wrappers", counts)]
     if ran is not None:
-        want = {kernel: per_attempt * attempts,
-                "restore": attempts if graph else 0}
+        want = {"restore": attempts if graph else 0}
+        if kernel is not None:
+            want[kernel] = per_attempt * attempts
         if any(ran[k] != v for k, v in want.items()):
-            fail(f"{label}: the card ran {ran[kernel]} {kernel} and "
-                 f"{ran['restore']} restore launches, not {want} "
+            fail(f"{label}: the card ran {ran} launches, not {want} "
                  f"({attempts} attempted steps)")
         sources.append(("the device counters", ran))
     for where, got in sources:
@@ -2319,11 +2679,15 @@ def main():
           f"{lib_aos.step2_aos_smem_bytes(0, 0, 0)} B, f64 "
           f"{lib_aos.step2_aos_smem_bytes(0, 0, 1)} B, (bathymetry with "
           f"capacity) f32 {lib_aos.step2_aos_smem_bytes(1, 1, 0)} B, f64 "
-          f"{lib_aos.step2_aos_smem_bytes(1, 1, 1)} B; step1 (Euler) f32 "
+          f"{lib_aos.step2_aos_smem_bytes(1, 1, 1)} B, (acoustics) f32 "
+          f"{lib_aos.step2_aos_smem_bytes(2, 0, 0)} B, f64 "
+          f"{lib_aos.step2_aos_smem_bytes(2, 0, 1)} B; step1 (Euler) f32 "
           f"{lib_s1.step1_smem_bytes(2, 0, 0)} B, f64 "
           f"{lib_s1.step1_smem_bytes(2, 0, 1)} B, (advection with "
           f"capacity) f32 {lib_s1.step1_smem_bytes(0, 1, 0)} B, f64 "
-          f"{lib_s1.step1_smem_bytes(0, 1, 1)} B; step3_aos (heterogeneous "
+          f"{lib_s1.step1_smem_bytes(0, 1, 1)} B, (sw_aug) f32 "
+          f"{lib_s1.step1_smem_bytes(5, 0, 0)} B, f64 "
+          f"{lib_s1.step1_smem_bytes(5, 0, 1)} B; step3_aos (heterogeneous "
           f"acoustics) f32 {lib_3a.step3_aos_smem_bytes(0, 0, 0)} B, f64 "
           f"{lib_3a.step3_aos_smem_bytes(0, 0, 1)} B, (with capacity) f32 "
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 0)} B, f64 "
@@ -2391,9 +2755,10 @@ def main():
 
     # [3d] step2_aos against its plain version
     t0 = time.perf_counter()
-    aos_worst, aos_worst_cfl, aos_main_abs_err, aos_ncase = compare_aos(
+    aos_worst, aos_worst_cfl, aos_abs, aos_ncase = compare_aos(
         dev, [(1024, 1024), (60, 60), (125, 125), (64, 100), (100, 37)])
-    print(f"[3d] step2_aos vs plain: {aos_ncase} cases, max rel err f32 "
+    print(f"[3d] step2_aos vs plain (shallow water and acoustics): "
+          f"{aos_ncase} cases, max rel err f32 "
           f"{aos_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
           f"{aos_worst['float64']:.3e} (tol {TOL_REL['float64']}); max cfl "
           f"rel f32 {aos_worst_cfl['float32']:.3e}, f64 "
@@ -2403,8 +2768,9 @@ def main():
 
     # [3e] step1 against its plain version
     t0 = time.perf_counter()
-    s1_worst, s1_main_abs_err, s1_ncase = compare_step1(dev)
-    print(f"[3e] step1 vs plain: {s1_ncase} cases, max rel err f32 "
+    s1_worst, s1_abs, s1_ncase = compare_step1(dev)
+    print(f"[3e] step1 vs plain (six systems, sw_aug_1D on wet/dry states): "
+          f"{s1_ncase} cases, max rel err f32 "
           f"{s1_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
           f"{s1_worst['float64']:.3e} (tol {TOL_REL['float64']}); the CFL "
           f"equal in every case; {time.perf_counter() - t0:.1f} s",
@@ -2625,57 +2991,29 @@ def main():
     del claw_e
     phase_s["4g"] = time.perf_counter() - t0
 
-    # [5] goldens on the card
-    golden = {}
-    for n, name in ((80, "euler_2d_quadrants"),
-                    (128, "euler_2d_quadrants_128")):
-        ref = np.load(os.path.join(ROOT, "tests", "golden", f"{name}.npz"))
-        for tname, dtype in (("float32", np.float32),
-                             ("float64", np.float64)):
-            c, st, w = run_quadrants(dev, n, dtype)
-            rel = float(np.max(np.abs(c.solution.q.astype(np.float64)
-                                      - ref["q"]))
-                        / np.max(np.abs(ref["q"])))
-            golden[f"{name}:{tname}"] = rel
-            print(f"[5] golden {name} {tname}: rel err {rel:.3e} (tol "
-                  f"{GOLDEN_TOL[tname]}), {st['numsteps']} steps, "
-                  f"{w:.3f} s", flush=True)
-            if not rel <= GOLDEN_TOL[tname]:
-                fail(f"golden {name} {tname}: {rel} > {GOLDEN_TOL[tname]}")
-            if abs(c.solution.t - float(ref["t"])) > 1e-10:
-                fail(f"golden {name} {tname}: t={c.solution.t}")
+    # [4j] the acoustics path (1024^2 f32), [4k] the dry dam break (500
+    # cells, f32 and f64), [4l] the Sod tube with char_decomp=2 (800 cells
+    # f32), every launch count set to 0 just before each and read just
+    # after
+    t0 = time.perf_counter()
+    acou = acoustics_path(dev)
+    phase_s["4j"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dam = dam_path(dev)
+    phase_s["4k"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chardecomp = chardecomp_path(dev)
+    phase_s["4l"] = time.perf_counter() - t0
 
-    # [5c] the 16^3 euler_3d golden on the card
-    ref = np.load(os.path.join(ROOT, "tests", "golden", "euler_3d.npz"))
-    for tname, dtype in (("float32", np.float32), ("float64", np.float64)):
-        c, st, w = run_euler3d(dev, 16, dtype)
-        rel = float(np.max(np.abs(c.solution.q.astype(np.float64) - ref["q"]))
-                    / np.max(np.abs(ref["q"])))
-        golden[f"euler_3d:{tname}"] = rel
-        print(f"[5c] golden euler_3d {tname}: rel err {rel:.3e} (tol "
-              f"{GOLDEN_TOL[tname]}), {st['numsteps']} + "
-              f"{st['numrejected']} steps, {w:.3f} s", flush=True)
-        if not rel <= GOLDEN_TOL[tname]:
-            fail(f"golden euler_3d {tname}: {rel} > {GOLDEN_TOL[tname]}")
-        if abs(c.solution.t - float(ref["t"])) > 1e-10:
-            fail(f"golden euler_3d {tname}: t={c.solution.t}")
+    # [5v] the validator on the card: the ten golden cases of
+    # tools/tpu_validate.py in float32 and float64 (it takes over the
+    # goldens of the earlier phases [5], [5c], [5d] and three of [5e])
+    t0 = time.perf_counter()
+    validator = validator_phase(dev)
+    golden = {k: v["rel_err"] for k, v in validator.items()}
+    phase_s["5v"] = time.perf_counter() - t0
 
-    # [5d] the 60^2 shallow_2d_radial golden and a lake at rest on the card
-    ref = np.load(os.path.join(ROOT, "tests", "golden",
-                               "shallow_2d_radial.npz"))
-    for tname, dtype in (("float32", np.float32), ("float64", np.float64)):
-        c, st, w = run_shallow(dev, 60, dtype)
-        rel = float(np.max(np.abs(c.solution.q.astype(np.float64) - ref["q"]))
-                    / np.max(np.abs(ref["q"])))
-        golden[f"shallow_2d_radial:{tname}"] = rel
-        print(f"[5d] golden shallow_2d_radial {tname}: rel err {rel:.3e} (tol "
-              f"{GOLDEN_TOL_SHALLOW[tname]}), {st['numsteps']} + "
-              f"{st['numrejected']} steps, {w:.3f} s", flush=True)
-        if not rel <= GOLDEN_TOL_SHALLOW[tname]:
-            fail(f"golden shallow_2d_radial {tname}: {rel} > "
-                 f"{GOLDEN_TOL_SHALLOW[tname]}")
-        if abs(c.solution.t - float(ref["t"])) > 1e-10:
-            fail(f"golden shallow_2d_radial {tname}: t={c.solution.t}")
+    # [5d] a lake at rest on the card
     tiled2d.step2_rows_generic.launches = 0
     eta_drift, mom, lake_loop = lake_at_rest(dev, 1024, np.float32, 0.05)
     lake_launches = tiled2d.step2_rows_generic.launches
@@ -2692,7 +3030,7 @@ def main():
         fail(f"lake at rest: drift {eta_drift}, momentum {mom}, launches "
              f"{lake_launches} for {lake_loop}")
 
-    # [5e] the five 1D goldens on the card
+    # [5e] the two 1D goldens that the validator has no case for
     t0 = time.perf_counter()
     golden.update(goldens_1d(dev))
     phase_s["5e"] = time.perf_counter() - t0
@@ -2730,6 +3068,7 @@ def main():
     tm3 = timing_step3(dev, q_last=q3)
     del q3
     tm_aos = timing_aos(dev)
+    tm_aos_ac = timing_aos(dev, system=ACOUSTICS_2D)
     tm_het = timing_step3_aos(dev, q_last=q_h)
     del q_h
     tm_eu = timing_step3_capa(dev, q_last=q_e)
@@ -2762,6 +3101,15 @@ def main():
     prof_sod_sharp = profile_loops(
         "sod sharpclaw path 800 f32 to t=0.02",
         lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02))
+    prof_ac = profile_loops(
+        "acoustics path 1024^2 f32 to t=0.12",
+        lambda: run_acoustics(dev, 1024, np.float32))
+    prof_dam = profile_loops(
+        "dam_break_dry path 500 f32 to t=0.5",
+        lambda: run_dam(dev, 500, np.float32, 0.5))
+    prof_cd = profile_loops(
+        "sod sharpclaw char_decomp=2 path 800 f32 to t=0.02",
+        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02, 2))
     phase_s["6"] = time.perf_counter() - t0
 
     f32, f64 = tm["float32"], tm["float64"]
@@ -2834,7 +3182,7 @@ def main():
                              "(ops/tiled2d.py:609); step2_pallas "
                              "(ops/sweep2d.py:41)",
         "rows": ["1b", "5", "6"],
-        "launches": aos_launches, "max_abs_err": aos_main_abs_err,
+        "launches": aos_launches, "max_abs_err": aos_abs["shallow"],
         "ms": a32["ms"], "device_ms": a32["device_ms"],
         "plain_ms": a32["plain_ms"],
         "bound_ms": a32["bound_ms"], "bound_by": a32["bound_by"],
@@ -2854,7 +3202,7 @@ def main():
         "source": "pyclaw_tpu_torch/csrc/step1.cu",
         "replaces": "pyclaw_tpu/ops/sweep.py:35",
         "replaces_function": "step1_pallas", "rows": ["7"],
-        "launches": s1_launches, "max_abs_err": s1_main_abs_err,
+        "launches": s1_launches, "max_abs_err": s1_abs["sod"],
         "ms": k32["ms"], "device_ms": k32["device_ms"],
         "plain_ms": k32["plain_ms"],
         "bound_ms": k32["bound_ms"], "bound_by": k32["bound_by"],
@@ -2973,8 +3321,54 @@ def main():
         "bound_ms_rejected": rr["bound_ms"],
         "bound_by_rejected": rr["bound_by"],
     }
-    kernels = [record, dq_record, s3_record, aos_record, s1_record,
-               w5_record, het_record, eu_record, rs_record]
+    c32, c64 = tm_aos_ac["float32"], tm_aos_ac["float64"]
+    aos_ac_record = {
+        "name": "step2_aos:acoustics_2D", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step2_aos.cu",
+        "system_source": "pyclaw_tpu_torch/csrc/acoustics2d.cuh",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:113",
+        "replaces_function": "step2_pallas_rows (SoA body classic/soa.py:"
+                             "202 for acoustics_2D without aux; generic "
+                             "body classic/kernels.py:345 with aux)",
+        "rows": ["1b"],
+        "launches": acou["launches"]["step2_aos"],
+        "max_abs_err": aos_abs["acoustics"],
+        "ms": c32["ms"], "device_ms": c32["device_ms"],
+        "plain_ms": c32["plain_ms"],
+        "bound_ms": c32["bound_ms"], "bound_by": c32["bound_by"],
+        "library_ms": None,
+        "shape": [3, 1028, 1028], "dtype": "float32",
+        "ms_f64": c64["ms"], "device_ms_f64": c64["device_ms"],
+        "plain_ms_f64": c64["plain_ms"],
+        "bound_ms_f64": c64["bound_ms"], "bound_by_f64": c64["bound_by"],
+        "max_rel_err_f64": aos_worst["float64"],
+        "max_rel_err_f32": aos_worst["float32"],
+    }
+    d32 = tm_1d["step1"][f"dam {2 ** 20}:float32"]
+    d64 = tm_1d["step1"][f"dam {2 ** 20}:float64"]
+    s1_sw_record = {
+        "name": "step1:sw_aug_1D", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step1.cu",
+        "system_source": "pyclaw_tpu_torch/csrc/systems1d.cuh",
+        "replaces": "pyclaw_tpu/ops/sweep.py:35",
+        "replaces_function": "step1_pallas", "rows": ["7"],
+        "launches": dam["float32"]["launches"]["step1"],
+        "max_abs_err": s1_abs["sw_aug"],
+        "ms": d32["ms"], "device_ms": d32["device_ms"],
+        "plain_ms": d32["plain_ms"],
+        "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
+        "library_ms": None,
+        "shape": d32["shape"], "aux_shape": [1, d32["shape"][1]],
+        "dtype": "float32", "share_of_device": d32["share_of_device"],
+        "ms_f64": d64["ms"], "device_ms_f64": d64["device_ms"],
+        "plain_ms_f64": d64["plain_ms"],
+        "bound_ms_f64": d64["bound_ms"], "bound_by_f64": d64["bound_by"],
+        "max_rel_err_f64": s1_worst["float64"],
+        "max_rel_err_f32": s1_worst["float32"],
+    }
+    kernels = [record, dq_record, s3_record, aos_record, aos_ac_record,
+               s1_record, s1_sw_record, w5_record, het_record, eu_record,
+               rs_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s_counted": wall, "loop": loop4},
                "sharpclaw_path": {"accepted": sns, "rejected": snr,
@@ -2999,12 +3393,15 @@ def main():
                    "step3_ctu_launches": eu_launches,
                    "wall_s_counted": wall_e, "loop": loop4g},
                "euler3d_capacity_checks": eu_checks,
+               "acoustics_path": acou, "dam_break_dry_path": dam,
+               "sod_chardecomp_path": chardecomp, "validator": validator,
                "lake_at_rest": {"steps": lake_steps,
                                 "eta_drift": eta_drift, "momentum": mom},
                "golden_rel_err": golden, "sharpclaw_card_vs_cpu":
                    sharp_vs_cpu,
                "timing": tm, "timing_dq": tm_dq, "timing_step3": tm3,
-               "timing_aos": tm_aos, "timing_1d": tm_1d,
+               "timing_aos": tm_aos, "timing_aos_acoustics": tm_aos_ac,
+               "timing_1d": tm_1d,
                "timing_step3_aos": tm_het,
                "timing_step3_capa": tm_eu, "timing_restore": tm_rs,
                "device_loop": loops, "device_loop_hooks": hooks,
@@ -3014,6 +3411,9 @@ def main():
                "profile_euler3d_capacity": prof_eu,
                "profile_sod_classic": prof_sod,
                "profile_sod_sharpclaw": prof_sod_sharp,
+               "profile_acoustics": prof_ac,
+               "profile_dam_break_dry": prof_dam,
+               "profile_sod_chardecomp": prof_cd,
                "phase_seconds": phase_s,
                "card": card, "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)

@@ -129,7 +129,8 @@ class ClawSolver2D(ClawSolver):
             return step_fn
 
         # the generic AoS step (any system with AoS hooks; on the card the
-        # systems of tiled2d.AOS_SYSTEMS, the wrapper raises for others)
+        # systems of tiled2d.AOS_SYSTEMS: shallow water and acoustics, the
+        # wrapper raises for others)
         rp = self.rp
         if rp.rp is None:
             raise _not_ported("generic AoS 2D step")
@@ -148,8 +149,11 @@ class ClawSolver2D(ClawSolver):
     def _soa_eligible(self, state):
         """The JAX package's test (``classic/solver.py:387-398``): the SoA
         CTU step covers the no-aux / no-capacity / wave-form case of a
-        solver with SoA hooks.  The port's SoA kernel covers the Euler
-        4-wave system only."""
+        solver with SoA hooks.  The port's SoA kernel (``csrc/
+        step2_ctu.cu``) covers the Euler 4-wave system only: acoustics_2D,
+        which has SoA hooks too and runs on the JAX package's SoA body,
+        takes the generic route here (``csrc/step2_aos.cu``, the same
+        step)."""
         if self.use_soa is False:
             return False
         return (self.rp.rpn_soa is not None

@@ -1,0 +1,85 @@
+// acoustics2d.cuh — constant-coefficient linear acoustics, the third
+// system of the generic 2D CTU kernel (step2_aos.cu), operation for
+// operation as in pyclaw_tpu_torch/riemann/acoustics.py:
+//   Acoustics2D  _rp_acoustics (rpn2) + _rpt_acoustics (rpt2)
+// q = (p, u, v), two waves of speeds -c and +c, each with components p
+// and the normal velocity only; no aux, nothing per cell.  The Python
+// scalar factors fold as they do there: 2.0 * zz once in double (Ac2::z2),
+// -cc as the negated double (Ac2::mcc), each rounded to T where it meets a
+// tensor.  The system gives step2_aos.cu the hooks the shallow-water
+// systems of shallow2d.cuh give it: Par and make_par (its physics scalars
+// in Args), prep (per-cell quantities: none), nz (the wave components that
+// can be nonzero), rpn and Trans (the transverse split of one interface).
+//
+// Compiles with nvcc and, without __CUDACC__, with a host C++ compiler
+// for the kernel's host emulation (ops/_build.py:build_host_emulation).
+
+#pragma once
+
+#include "euler2d.cuh"
+
+namespace {
+
+// physics scalars in the kernel's type
+template <typename T> struct Ac2 {
+  T zz, cc, mcc, z2;   // impedance, sound speed, -cc, 2.0 * zz
+};
+
+// ---- acoustics_2D: q = (p, u, v) -------------------------------------------
+struct Acoustics2D {
+  static constexpr int NEQ = 3, NW = 2, NAUX = 0, NPC = 0;
+
+  // the physics scalars in Args, rounded once from the doubles the
+  // wrapper passes (p0 = zz, p1 = cc)
+  template <typename T> using Par = Ac2<T>;
+  template <typename T> static Ac2<T> make_par(double p0, double p1) {
+    Ac2<T> P;
+    P.zz = T(p0);
+    P.cc = T(p1);
+    P.mcc = T(-p1);
+    P.z2 = T(2.0 * p0);
+    return P;
+  }
+
+  template <typename T> static HD void prep(const Ac2<T>&, const T*, T*) {}
+
+  // both waves have the pressure and the normal velocity only
+  template <int IXY> static HD constexpr bool nz(int, int e) {
+    return e != 2 - IXY;
+  }
+
+  template <int IXY, typename T>
+  static HD void rpn(const Ac2<T>& P, const T ql[3], const T qr[3],
+                     const T*, const T*, const T*, const T*, T w[2][3],
+                     T s[2], T am[3], T ap[3]) {
+    constexpr int mu = 1 + IXY, mv = 2 - IXY;
+    const T d0 = qr[0] - ql[0], dmu = qr[mu] - ql[mu];
+    const T a1 = (-d0 + P.zz * dmu) / P.z2;    // left-going strength
+    const T a2 = (d0 + P.zz * dmu) / P.z2;     // right-going strength
+    w[0][0] = -a1 * P.zz; w[0][mu] = a1; w[0][mv] = T(0);
+    w[1][0] = a2 * P.zz; w[1][mu] = a2; w[1][mv] = T(0);
+    s[0] = P.mcc;
+    s[1] = P.cc;
+    for (int e = 0; e < 3; ++e) {
+      am[e] = P.mcc * w[0][e];
+      ap[e] = P.cc * w[1][e];
+    }
+  }
+
+  // _rpt_acoustics: split asdq along the transverse direction into its
+  // down-going (bm) and up-going (bp) parts; the same at every interface
+  template <int IXY, typename T> struct Trans {
+    Ac2<T> P;
+    HD Trans(const Ac2<T>& p, const T*, const T*, const T*, const T*)
+        : P(p) {}
+    HD void split(const T asdq[3], T bm[3], T bp[3]) const {
+      constexpr int mu = 1 + IXY, mv = 2 - IXY;
+      const T a1 = (-asdq[0] + P.zz * asdq[mv]) / P.z2;   // down-going
+      const T a2 = (asdq[0] + P.zz * asdq[mv]) / P.z2;    // up-going
+      bm[0] = P.cc * a1 * P.zz; bm[mu] = T(0); bm[mv] = P.mcc * a1;
+      bp[0] = P.cc * a2 * P.zz; bp[mu] = T(0); bp[mv] = P.cc * a2;
+    }
+  };
+};
+
+}  // namespace

@@ -6,7 +6,12 @@
 //   ShallowBathyFwave2D  _rpn2_shallow_bathymetry_fwave (aux[0] = b) +
 //                        _rpt2_shallow_roe
 // The Python scalar factors fold as they do there: g*0.5 and 0.5*g once
-// in double (Sw::hg), then rounded to T where they meet a tensor.
+// in double (Sw::hg), then rounded to T where they meet a tensor.  Both
+// systems give step2_aos.cu its system hooks through ShallowHooks: Par and
+// make_par (their physics scalars in Args), prep (the per-cell quantities),
+// nz (the wave components that can be nonzero) and Trans (the Roe
+// transverse split of one interface); acoustics2d.cuh gives the same
+// hooks.
 //
 // Compiles with nvcc and, without __CUDACC__, with a host C++ compiler
 // for the kernel's host emulation (ops/_build.py:build_host_emulation).
@@ -91,8 +96,43 @@ template <int IXY> HD constexpr bool sw_nz(int p, int e) {
   return p != 1 || e == 2 - IXY;
 }
 
+// the hooks both shallow-water systems share
+struct ShallowHooks {
+  static constexpr int NPC = ::NPC;
+
+  // the physics scalars in Args: (grav, dry_tolerance) as p0, p1
+  template <typename T> using Par = Sw<T>;
+  template <typename T> static Sw<T> make_par(double p0, double p1) {
+    Sw<T> P;
+    P.g = T(p0);
+    P.hg = T(p0 * 0.5);
+    P.dry = T(p1);
+    return P;
+  }
+
+  template <typename T>
+  static HD void prep(const Sw<T>& P, const T q[3], T pc[NPC]) {
+    cell_prep(P, q, pc);
+  }
+
+  template <int IXY> static HD constexpr bool nz(int p, int e) {
+    return sw_nz<IXY>(p, e);
+  }
+
+  // the two rpt2 splits of an interface share its Roe average
+  template <int IXY, typename T> struct Trans {
+    RoeSw<IXY, T> r;
+    HD Trans(const Sw<T>& P, const T ql[3], const T qr[3], const T pl[NPC],
+             const T pr[NPC])
+        : r(P, ql[0], qr[0], pl, pr) {}
+    HD void split(const T asdq[3], T bm[3], T bp[3]) const {
+      rpt2_shallow<IXY, T>(r, asdq, bm, bp);
+    }
+  };
+};
+
 // ---- shallow_roe_with_efix_2D ------------------------------------------
-struct ShallowRoeEfix2D {
+struct ShallowRoeEfix2D : ShallowHooks {
   static constexpr int NEQ = 3, NW = 3, NAUX = 0;
 
   template <int IXY, typename T>
@@ -145,7 +185,7 @@ struct ShallowRoeEfix2D {
 };
 
 // ---- shallow_bathymetry_fwave_2D (aux[0] = b) ----------------------------
-struct ShallowBathyFwave2D {
+struct ShallowBathyFwave2D : ShallowHooks {
   static constexpr int NEQ = 3, NW = 3, NAUX = 1;
 
   template <int IXY, typename T>

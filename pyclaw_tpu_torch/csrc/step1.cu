@@ -12,12 +12,16 @@
 // this file, on the CPU (tests/test_torch_step1.py).
 //
 // What bounds it on the card: per cell it reads num_eqn values of q (and
-// one of the capacity function) and writes num_eqn (24 B per cell for
+// one of the capacity function, and the aux rows the system reads) and
+// writes num_eqn (24 B per cell for
 // Euler in f32, 48 B in f64), and does 279 floating-point operations per
 // cell for Euler with the entropy fix and MC (chip_smoke.py:
 // FLOPS_PER_CELL_STEP1), among them divides and square roots: 12 (f32)
 // and 6 (f64) operations per byte, below the card's 20 and 10, so bytes
-// bound it; chip_smoke.py computes both bounds.  At the examples' sizes
+// bound it; the augmented shallow-water solver (sw_aug_1D, with the
+// bathymetry row: 20 B per cell in f32) does about 175 operations a cell
+// with minmod and f-waves (chip_smoke.py: FLOPS_PER_CELL_SW_AUG), bytes-
+// bound too; chip_smoke.py computes both bounds.  At the examples' sizes
 // (100-800 cells) a launch does nanoseconds of work, so launch latency and
 // the host loop's CFL readback set the step.
 //
@@ -29,7 +33,8 @@
 // interface to its right, so what a thread computes for its interface and
 // reads again in a later phase (the speeds, amdq, the correction flux)
 // stays in its registers; shared memory holds what a neighbour reads: q
-// and the system's per-cell quantities (csrc/systems1d.cuh: cell(),
+// (with the aux rows the system reads, staged beside it) and the
+// system's per-cell quantities (csrc/systems1d.cuh: cell(),
 // computed once a cell in the load phase instead of at both of its
 // interfaces), with a capacity function the per-cell dt/(dx kappa), and
 // the waves, apdq and the correction flux of each interface (the last
@@ -43,8 +48,8 @@
 //
 // Phases (separated by barriers; staged cell j is padded cell c0-2+j,
 // interface m lies between staged cells m and m+1):
-//   load    q (+ dt/(dx kappa)) of staged cell t into shared memory, and
-//           its per-cell quantities
+//   load    q (+ the system's aux rows, + dt/(dx kappa)) of staged cell t
+//           into shared memory, and its per-cell quantities
 //   rp      waves, speeds, amdq, apdq at interface t (0 .. NT-2); the
 //           waves and apdq to shared memory
 //   limit   at interfaces 1 .. TILE+1: theta from the upwind neighbour's
@@ -77,12 +82,13 @@ constexpr int NCOEF = 1;  // coefficients of dt a block keeps: dt/dx
 
 template <typename S, typename T, bool CAPA> struct Tile {
   static constexpr int NEQ = S::NEQ, NW = S::NW, NC = S::NC;
+  static constexpr int NAUX = S::NAUX;       // aux rows the system reads
   static constexpr int QN = NT;              // staged cells c0-2 .. c0+TILE+1
   static constexpr int WN = NT - 1;          // interfaces between them
   // per-cell quantities, then the correction flux in the same space
   static constexpr int UN = NC * QN > NEQ * WN ? NC * QN : NEQ * WN;
-  static constexpr size_t elems = NEQ * QN + (CAPA ? QN : 0) + UN
-      + NW * NEQ * WN + NEQ * WN + NWARP;    // + waves, apdq; CFL
+  static constexpr size_t elems = NEQ * QN + NAUX * QN + (CAPA ? QN : 0)
+      + UN + NW * NEQ * WN + NEQ * WN + NWARP;  // + waves, apdq; CFL
   static constexpr size_t bytes = elems * sizeof(T);
   // (with the coefficients of dt, in static shared memory)
   static_assert(bytes + NCOEF * sizeof(T) <= 48 * 1024,
@@ -110,6 +116,7 @@ template <typename T> struct Args {
 template <typename S, typename T, bool CAPA> struct Block {
   using L = Tile<S, T, CAPA>;
   T* q;    // [NEQ][QN]
+  T* a;    // [NAUX][QN] the aux rows the system reads
   T* DX;   // [QN] dt/(dx kappa) (CAPA)
   T* C;    // [NC][QN] per-cell quantities (load, rp)
   T* CQ;   // [NEQ][WN] correction flux (limit, update), aliasing C
@@ -120,7 +127,8 @@ template <typename S, typename T, bool CAPA> struct Block {
 
   HD void bind(T* s, int b, int g) {
     q = s;
-    DX = q + L::NEQ * L::QN;
+    a = q + L::NEQ * L::QN;
+    DX = a + L::NAUX * L::QN;
     C = DX + (CAPA ? L::QN : 0);
     CQ = C;
     W = C + L::UN;
@@ -139,7 +147,8 @@ template <typename S, typename T> struct Regs {
   T cq[S::NEQ];    // correction flux (limit -> update)
 };
 
-// ---- phase: stage q (and dt/(dx kappa)) of cell t, its quantities ---------
+// ---- phase: stage q (its aux rows, dt/(dx kappa)) of cell t, its
+// quantities ----------------------------------------------------------------
 template <typename S, typename T, bool CAPA>
 HD void phase_load(const Args<T>& A, Block<S, T, CAPA>& B, int t) {
   using L = Tile<S, T, CAPA>;
@@ -153,6 +162,8 @@ HD void phase_load(const Args<T>& A, Block<S, T, CAPA>& B, int t) {
     q[e] = A.qbc[(long long)e * A.N + I];
     B.q[e * QN + t] = q[e];
   }
+  for (int m = 0; m < L::NAUX; ++m)
+    B.a[m * QN + t] = A.aux[(long long)m * A.N + I];
   if (CAPA) {
     B.DX[t] = T(*A.dt) / (A.dx * A.aux[(long long)A.capa * A.N + I]);
   }
@@ -181,7 +192,16 @@ HD void phase_rp(const Args<T>& A, Block<S, T, CAPA>& B, Regs<S, T>& r,
     cr[k] = B.C[k * QN + t + 1];
   }
   T w[NW][NEQ], ap[NEQ];
-  S::template rp<T>(A.P, ql, qr, cl, cr, w, r.s, r.am, ap);
+  if constexpr (L::NAUX > 0) {
+    T al[L::NAUX], ar[L::NAUX];
+    for (int m = 0; m < L::NAUX; ++m) {
+      al[m] = B.a[m * QN + t];
+      ar[m] = B.a[m * QN + t + 1];
+    }
+    S::template rp<T>(A.P, ql, qr, al, ar, cl, cr, w, r.s, r.am, ap);
+  } else {
+    S::template rp<T>(A.P, ql, qr, cl, cr, w, r.s, r.am, ap);
+  }
   for (int p = 0; p < NW; ++p)
     for (int e = 0; e < NEQ; ++e) B.W[(p * NEQ + e) * WN + t] = w[p][e];
   for (int e = 0; e < NEQ; ++e) B.AP[e * WN + t] = ap[e];
@@ -378,7 +398,7 @@ int launch(Args<T> A, int nb, void*) {
 
 // system ids of the C interface (ops/sweep.py:SYSTEMS_1D)
 enum { SYS_ADVECTION = 0, SYS_ACOUSTICS = 1, SYS_EULER_EFIX = 2,
-       SYS_EULER_ROE = 3, SYS_EULER_HLLE = 4 };
+       SYS_EULER_ROE = 3, SYS_EULER_HLLE = 4, SYS_SW_AUG = 5 };
 
 template <typename T, typename S>
 int dispatch_flags(const Args<T>& A, bool capa, bool fwave, int nb,
@@ -411,6 +431,8 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int n,
       return dispatch_flags<T, EulerRoe1D<false>>(A, c, f, nb, stream);
     case SYS_EULER_HLLE:
       return dispatch_flags<T, EulerHlle1D>(A, c, f, nb, stream);
+    case SYS_SW_AUG:
+      return dispatch_flags<T, SwAug1D>(A, c, f, nb, stream);
     default:
       return -1;
   }
@@ -433,12 +455,16 @@ extern "C" {
 // Number of blocks (= CFL partials) the kernel writes for a padded length.
 int step1_blocks(int n, int g) { return blocks_of(n, g); }
 
+// Number of systems the build takes (system ids 0 .. step1_num_systems()-1).
+int step1_num_systems() { return SYS_SW_AUG + 1; }
+
 // Shared memory bytes per block (reported by chip_smoke.py).
 int step1_smem_bytes(int system, int capa, int is_double) {
   switch (system) {
     case SYS_ADVECTION: return smem_of<Advection1D>(capa, is_double);
     case SYS_ACOUSTICS: return smem_of<Acoustics1D>(capa, is_double);
     case SYS_EULER_HLLE: return smem_of<EulerHlle1D>(capa, is_double);
+    case SYS_SW_AUG: return smem_of<SwAug1D>(capa, is_double);
     default: return smem_of<EulerRoe1D<true>>(capa, is_double);
   }
 }
@@ -453,13 +479,14 @@ int step1_blocks_per_sm(int is_double) {
 #endif
 
 // One 1D sweep.  qbc: (num_eqn, n) ghost-padded (g >= 2 ghost cells); aux:
-// (num_aux, n) or null when capa < 0; qout: (num_eqn, n-2g); cflb:
+// (num_aux, n) or null when the system reads none and capa < 0; qout:
+// (num_eqn, n-2g); cflb:
 // step1_blocks(n, g) partial CFL maxima; all contiguous, of the type named
 // by the entry.  system: SYS_*; capa: aux row of the capacity function or
 // -1; fwave: the f-wave correction form; dt: the step in device memory
 // (host memory for the host emulation), a double that is exact in the
-// entry's type; p0, p1: the physics scalars (u |
-// zz, cc | gamma); l0..l2: the limiter ids of the waves.  Returns a
+// entry's type; p0, p1: the physics scalars (u | zz, cc | gamma | grav,
+// dry_tolerance); l0..l2: the limiter ids of the waves.  Returns a
 // cudaError_t (0 on success), or -1 for an unknown system.
 #if defined(__CUDACC__)
 #define STEP1_ENTRY(NAME, T)                                                 \

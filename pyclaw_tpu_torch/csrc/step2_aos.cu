@@ -1,7 +1,7 @@
 // step2_aos.cu — the whole 2D unsplit classic (CTU) step of the generic
 // AoS form, one launch per step, for Hopper (sm_90a): any registered
-// system of csrc/shallow2d.cuh, with aux arrays, a capacity function and
-// the f-wave correction form.
+// system of csrc/shallow2d.cuh or csrc/acoustics2d.cuh, with aux arrays, a
+// capacity function and the f-wave correction form.
 //
 // Replaces the TPU kernels that run the generic body
 // pyclaw_tpu/classic/kernels.py:step2 (and its roll form step2_roll):
@@ -14,11 +14,14 @@
 // this file, on the CPU (tests/test_torch_step2_aos.py).
 //
 // What bounds it on the card: per cell it reads 3 values of q (and 0-2 of
-// aux) and writes 3 (least traffic 24 B/cell in f32), but it does ~800
-// floating-point operations per cell (two normal solves with the entropy
-// fix, the limiter, four transverse splits, the fold), among them divides
-// and square roots.  So it is bound by operations; chip_smoke.py computes
-// both bounds from the count in `FLOPS_PER_CELL_AOS` there.
+// aux) and writes 3 (least traffic 24 B/cell in f32).  The shallow-water
+// systems do ~800 floating-point operations per cell (two normal solves
+// with the entropy fix, the limiter, four transverse splits, the fold),
+// among them divides and square roots, so they are bound by operations;
+// acoustics does ~280 (two waves, no square root): 12 operations per byte
+// in f32 and 6 in f64, below the card's 20 and 10, so bytes bound it.
+// chip_smoke.py computes both bounds from the counts in
+// `FLOPS_PER_CELL_AOS` and `FLOPS_PER_CELL_AOS_ACOUSTICS` there.
 //
 // Design (that of step2_ctu.cu): a block owns a TX x TY tile of output
 // cells and stages q, the aux fields the system reads and, with a capacity
@@ -76,15 +79,21 @@
 //             neighbour y-interfaces into Fx and applies the conservative
 //             update; each warp's CFL maxima
 //
-// Template parameters: the system (its normal and transverse solvers),
-// the type, the tile, CAPA (per-cell dtdx) and FWAVE (the correction
-// form 0.5 sign(s) (1 - |s| dt/dx), with sign(0) = 0).  The arithmetic
+// Template parameters: the system (its hooks: the type of its physics
+// scalars in Args (Par, set by make_par), its per-cell quantities (prep,
+// NPC of them), the wave components that can be nonzero (nz: the
+// limiter's dot products and the correction sums skip the others), its
+// normal solve (rpn) and the transverse split of an interface (Trans);
+// every per-wave loop runs over its NW waves), the type, the tile, CAPA
+// (per-cell dtdx) and FWAVE (the correction form 0.5 sign(s) (1 - |s|
+// dt/dx), with sign(0) = 0).  The arithmetic
 // repeats the plain version operation for operation, and the source is
 // built without fused multiply-adds (ops/_build.py: -fmad=false), so each
 // operation rounds as PyTorch's does: the f-wave correction and split
 // jump where a speed crosses zero, and a contracted multiply-add that
 // moved such a speed across zero moved the result by a whole wave.
 
+#include "acoustics2d.cuh"
 #include "async_copy.cuh"
 #include "dt_coef.cuh"
 #include "shallow2d.cuh"
@@ -111,6 +120,8 @@ template <> struct Shape<double> {
 
 template <typename S, typename T, int TX, int TY, bool CAPA> struct Tile {
   static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
+  static constexpr int NPC = S::NPC;                  // per-cell quantities
+  static constexpr int NPL = NPC > 0 ? NPC : 1;       // (a local array's)
   static constexpr int QR = TX + 4, QC = TY + 4, QN = QR * QC;  // + halo
   static constexpr int WXR = TX + 3, WXC = TY + 2;    // x solve region
   static constexpr int WYR = TX + 2, WYC = TY + 3;    // y solve region
@@ -134,7 +145,7 @@ enum { F_AM = 0, F_AP = 1, F_CQ = 2, F_SB = 3 };
 // the rpt2 parts in P (times NEQ): bm, bp of amdq(+cq), of apdq(-cq)
 enum { F_T0 = 0, F_T1 = 1, F_T2 = 2, F_T3 = 3 };
 
-template <typename T> struct Args {
+template <typename T, typename Par> struct Args {
   const T* qbc;
   const T* aux;
   T* qout;
@@ -145,16 +156,21 @@ template <typename T> struct Args {
   T dx, dy;             // for the per-cell dt/(dx kappa)
   double ddx, ddy;      // for the coefficients of dt
   T* C;                 // the block's coefficients of dt (shared memory)
-  Sw<T> P;
+  Par P;                // the system's physics scalars (S::Par<T>)
   int order, tw;
   int lim[3];
 };
+
+// the arguments of a step of system S in type T
+template <typename S, typename T>
+using SysArgs = Args<T, typename S::template Par<T>>;
 
 // The coefficients of dt in Args::C: dt/dx, dt/dy, 0.5 dt/dx, 0.5 dt/dy,
 // the plain version's Python floats rounded once to T (dt_coef.cuh)
 enum { C_DTDX = 0, C_DTDY = 1, C_HDX = 2, C_HDY = 3, NCOEF = 4 };
 
-template <typename T> HD T dt_coef(const Args<T>& A, int k) {
+template <typename T, typename Par>
+HD T dt_coef(const Args<T, Par>& A, int k) {
   const double q = *A.dt / (k % 2 == 0 ? A.ddx : A.ddy);
   return T(k < C_HDX ? q : 0.5 * q);
 }
@@ -165,7 +181,7 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
   T* a;    // [NAUX][QR][QC]
   T* DX;   // [QR][QC] dt/(dx kappa) (CAPA)
   T* DY;   // [QR][QC] dt/(dy kappa) (CAPA)
-  T* PC;   // [NPC][QR][QC] the per-cell quantities (cell_prep)
+  T* PC;   // [NPC][QR][QC] the per-cell quantities (S::prep)
   T* W;    // [NWF][WN]: wave p component e at (p*NEQ+e), speeds after
   T* OX;   // [NOX][OXN]
   T* OY;   // [NOY][OYN]
@@ -180,7 +196,7 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
     DX = a + L::NAUX * L::QN;
     DY = DX + (CAPA ? L::QN : 0);
     PC = DY + (CAPA ? L::QN : 0);
-    W = PC + NPC * L::QN;
+    W = PC + L::NPC * L::QN;
     OX = W + L::NWF * L::WN;
     OY = OX + L::NOX * L::OXN;
     P = OY + L::NOY * L::OYN;
@@ -194,11 +210,11 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
     for (int e = 0; e < L::NEQ; ++e) qv[e] = q[e * L::QN + r * L::QC + c];
     for (int m = 0; m < L::NAUX; ++m) av[m] = a[m * L::QN + r * L::QC + c];
   }
-  HD void prep(int r, int c, T pv[NPC]) const {
-    for (int k = 0; k < NPC; ++k) pv[k] = PC[k * L::QN + r * L::QC + c];
+  HD void prep(int r, int c, T pv[]) const {
+    for (int k = 0; k < L::NPC; ++k) pv[k] = PC[k * L::QN + r * L::QC + c];
   }
   // dt/dx (D = 0) or dt/dy (D = 1) of the tile cell (r, c)
-  template <int D> HD T dtd(const Args<T>& A, int r, int c) const {
+  template <int D> HD T dtd(const SysArgs<S, T>& A, int r, int c) const {
     if (CAPA) return (D == 0 ? DX : DY)[r * L::QC + c];
     return A.C[D == 0 ? C_DTDX : C_DTDY];
   }
@@ -209,7 +225,8 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
 // DX, and the thread that copied it turns it into dt/(dx kappa) and
 // dt/(dy kappa) in place after its own wait.
 template <typename S, typename T, int TX, int TY, bool CAPA>
-HD void phase_load(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
+HD void phase_load(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
+                   int tid) {
   using L = Tile<S, T, TX, TY, CAPA>;
   const long long plane = (long long)A.NX * A.NY;
   // each thread stages every field of its cells
@@ -233,10 +250,10 @@ HD void phase_load(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
   if (tid < NCOEF) A.C[tid] = dt_coef(A, tid);
   copy_wait_all();
   for (int rc = tid; rc < L::QN; rc += NT) {
-    T qv[L::NEQ], pv[NPC];
+    T qv[L::NEQ], pv[L::NPL];
     for (int f = 0; f < L::NEQ; ++f) qv[f] = B.q[f * L::QN + rc];
-    cell_prep(A.P, qv, pv);
-    for (int k = 0; k < NPC; ++k) B.PC[k * L::QN + rc] = pv[k];
+    S::prep(A.P, qv, pv);
+    for (int k = 0; k < L::NPC; ++k) B.PC[k * L::QN + rc] = pv[k];
     if (CAPA) {
       // dt / (dx kappa): the plain version's 0-d dt over (dx * kappa)
       const T kappa = B.DX[rc], dt = T(*A.dt);
@@ -248,7 +265,8 @@ HD void phase_load(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
 
 // ---- normal solve at one interface of the region of axis IXY ------------
 template <int IXY, typename S, typename T, int TX, int TY, bool CAPA>
-HD void item_rpn(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int idx) {
+HD void item_rpn(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
+                 int idx) {
   using L = Tile<S, T, TX, TY, CAPA>;
   constexpr int NEQ = L::NEQ, NW = L::NW;
   constexpr int C = IXY == 0 ? L::WXC : L::WYC;
@@ -257,7 +275,8 @@ HD void item_rpn(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int idx) {
   T* O = IXY == 0 ? B.OX : B.OY;
   int r = idx / C, c = idx % C;
   // left cell: x (r, c+1), y (r+1, c); right cell (r+1, c+1)
-  T ql[NEQ], qr[NEQ], al[L::NAUX + 1], ar[L::NAUX + 1], pl[NPC], pr[NPC];
+  T ql[NEQ], qr[NEQ], al[L::NAUX + 1], ar[L::NAUX + 1], pl[L::NPL];
+  T pr[L::NPL];
   B.cell(IXY == 0 ? r : r + 1, IXY == 0 ? c + 1 : c, ql, al);
   B.prep(IXY == 0 ? r : r + 1, IXY == 0 ? c + 1 : c, pl);
   B.cell(r + 1, c + 1, qr, ar);
@@ -294,7 +313,8 @@ template <typename T> HD void warp_fold(T* red, int t, T v) {
 // ---- phase: limiter, correction flux, transverse split, CFL --------------
 template <int IXY, bool FWAVE, typename S, typename T, int TX, int TY,
           bool CAPA>
-HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
+HD void phase_sweep(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
+                    int tid) {
   using L = Tile<S, T, TX, TY, CAPA>;
   constexpr int NEQ = L::NEQ, NW = L::NW, WN = L::WN, SN = L::SN;
   constexpr int R = IXY == 0 ? L::OXR : L::OYR;
@@ -331,7 +351,7 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
         T wn2 = T(0), dlo = T(0), dhi = T(0);
         bool first = true;
         for (int e = 0; e < NEQ; ++e) {
-          if (!sw_nz<IXY>(p, e)) continue;
+          if (!S::template nz<IXY>(p, e)) continue;
           const T wl = B.W[(p * NEQ + e) * WN + lo];
           const T wh = B.W[(p * NEQ + e) * WN + hi];
           wn2 = first ? w[p][e] * w[p][e] : wn2 + w[p][e] * w[p][e];
@@ -356,7 +376,7 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
       for (int e = 0; e < NEQ; ++e) {
         T acc = cf[0] * w[0][e];
         for (int p = 1; p < NW; ++p) {
-          if (sw_nz<IXY>(p, e)) acc = acc + cf[p] * w[p][e];
+          if (S::template nz<IXY>(p, e)) acc = acc + cf[p] * w[p][e];
         }
         cq[e] = acc;
       }
@@ -376,7 +396,7 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
     if (A.tw > 0) {
       const bool both = A.tw >= 2 && A.order == 2;
       T amt[NEQ], apt[NEQ], bm[NEQ], bp[NEQ], ql[NEQ], qr[NEQ];
-      T ax[L::NAUX + 1], pl[NPC], pr[NPC];
+      T ax[L::NAUX + 1], pl[L::NPL], pr[L::NPL];
       for (int e = 0; e < NEQ; ++e) {
         const T am = O[(F_AM * NEQ + e) * ON + idx];
         const T ap = O[(F_AP * NEQ + e) * ON + idx];
@@ -387,13 +407,13 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
       B.cell(rr, rc, qr, ax);
       B.prep(lr, lc, pl);
       B.prep(rr, rc, pr);
-      const RoeSw<IXY, T> roe(A.P, ql[0], qr[0], pl, pr);
-      rpt2_shallow<IXY, T>(roe, amt, bm, bp);
+      const typename S::template Trans<IXY, T> tr(A.P, ql, qr, pl, pr);
+      tr.split(amt, bm, bp);
       for (int e = 0; e < NEQ; ++e) {
         B.P[(F_T0 * NEQ + e) * SN + idx] = bm[e];
         B.P[(F_T1 * NEQ + e) * SN + idx] = bp[e];
       }
-      rpt2_shallow<IXY, T>(roe, apt, bm, bp);
+      tr.split(apt, bm, bp);
       for (int e = 0; e < NEQ; ++e) {
         B.P[(F_T2 * NEQ + e) * SN + idx] = bm[e];
         B.P[(F_T3 * NEQ + e) * SN + idx] = bp[e];
@@ -424,7 +444,7 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B, int tid) {
 // cj)) into F_CQ, the same of apdq at row ti into F_SB, each part times
 // the receiving cell's 0.5 dt/dx ------------------------------------------
 template <typename S, typename T, int TX, int TY, bool CAPA>
-HD void item_gather_y(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
+HD void item_gather_y(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
                       int idx) {
   using L = Tile<S, T, TX, TY, CAPA>;
   constexpr int NEQ = L::NEQ, OXC = L::OXC, OYC = L::OYC, OYN = L::OYN;
@@ -449,7 +469,7 @@ HD void item_gather_y(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
 
 // ---- conservative update of tile cell idx, with the x-flux's gather ----
 template <typename S, typename T, int TX, int TY, bool CAPA>
-HD void item_update(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
+HD void item_update(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
                     int idx) {
   using L = Tile<S, T, TX, TY, CAPA>;
   constexpr int NEQ = L::NEQ;
@@ -526,7 +546,7 @@ HD void items2(int tid, int n, const F& f, int m, const G& g) {
 
 template <bool FWAVE, typename S, typename T, int TX, int TY, bool CAPA,
           class X>
-HD void step_block(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
+HD void step_block(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
                    const X& run) {
   using L = Tile<S, T, TX, TY, CAPA>;
   constexpr int NX0 = L::WXR * L::WXC, NY0 = L::WYR * L::WYC;
@@ -550,7 +570,7 @@ HD void step_block(const Args<T>& A, Block<S, T, TX, TY, CAPA>& B,
 // capacity function the partials hold max|s| and the scalar dt/dx is
 // applied here (the same value: the product is monotone)
 template <typename S, typename T, int TX, int TY, bool CAPA>
-HD T block_cfl(const Args<T>& A, const Block<S, T, TX, TY, CAPA>& B) {
+HD T block_cfl(const SysArgs<S, T>& A, const Block<S, T, TX, TY, CAPA>& B) {
   T mx_x = B.rx[0], mx_y = B.ry[0];
   for (int w = 1; w < NT / 32; ++w) {
     mx_x = mx(mx_x, B.rx[w]);
@@ -560,12 +580,12 @@ HD T block_cfl(const Args<T>& A, const Block<S, T, TX, TY, CAPA>& B) {
               : mx(A.C[C_DTDX] * mx_x, A.C[C_DTDY] * mx_y);
 }
 
-template <typename T>
-Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
-                  int nxg, int nyg, int capa, const double* dt, double dx,
-                  double dy, double grav, double dry, int order, int tw,
-                  const int* lim) {
-  Args<T> A;
+template <typename S, typename T>
+SysArgs<S, T> make_args(const void* qbc, const void* aux, void* qout,
+                        void* cflb, int nxg, int nyg, int capa,
+                        const double* dt, double dx, double dy, double p0,
+                        double p1, int order, int tw, const int* lim) {
+  SysArgs<S, T> A;
   A.qbc = static_cast<const T*>(qbc);
   A.aux = static_cast<const T*>(aux);
   A.qout = static_cast<T*>(qout);
@@ -579,9 +599,9 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
   A.ddx = dx;
   A.ddy = dy;
   A.C = nullptr;
-  A.P.g = T(grav);
-  A.P.hg = T(grav * 0.5);
-  A.P.dry = T(dry);
+  // the system's two physics scalars: (grav, dry_tolerance) for shallow
+  // water, (zz, cc) for acoustics
+  A.P = S::template make_par<T>(p0, p1);
   A.order = order;
   A.tw = tw;
   for (int p = 0; p < 3; ++p) A.lim[p] = lim[p];
@@ -617,7 +637,7 @@ struct DeviceRun {
 
 template <typename S, typename T, int TX, int TY, bool CAPA, bool FWAVE>
 __global__ void __launch_bounds__(NT, Shape<T>::PER_SM)
-    step2_aos_kernel(Args<T> A) {
+    step2_aos_kernel(SysArgs<S, T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T coef[NCOEF];
   A.C = coef;
@@ -628,7 +648,7 @@ __global__ void __launch_bounds__(NT, Shape<T>::PER_SM)
 }
 
 template <typename S, typename T, bool CAPA, bool FWAVE>
-int launch(const Args<T>& A, int nbx, int nby, void* stream) {
+int launch(const SysArgs<S, T>& A, int nbx, int nby, void* stream) {
   constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
   constexpr size_t bytes = smem_bytes<S, T, CAPA>();
   static unsigned long long attr_done = 0;
@@ -653,7 +673,7 @@ struct HostRun {
 };
 
 template <typename S, typename T, bool CAPA, bool FWAVE>
-int launch(Args<T> A, int nbx, int nby, void*) {
+int launch(SysArgs<S, T> A, int nbx, int nby, void*) {
   constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
   std::vector<T> smem(Tile<S, T, TX, TY, CAPA>::elems);
   T coef[NCOEF];
@@ -670,12 +690,14 @@ int launch(Args<T> A, int nbx, int nby, void*) {
 }
 #endif
 
-// system ids of the C interface (ops/tiled2d.py:AOS_SYSTEMS)
-enum { SYS_SHALLOW_ROE_EFIX = 0, SYS_SHALLOW_BATHY_FWAVE = 1 };
+// system ids of the C interface (ops/tiled2d.py:AOS_SYSTEMS); each a
+// template instance of its own
+enum { SYS_SHALLOW_ROE_EFIX = 0, SYS_SHALLOW_BATHY_FWAVE = 1,
+       SYS_ACOUSTICS_2D = 2 };
 
 template <typename T, typename S>
-int dispatch_flags(const Args<T>& A, bool capa, bool fwave, int nbx, int nby,
-                   void* stream) {
+int dispatch_flags(const SysArgs<S, T>& A, bool capa, bool fwave, int nbx,
+                   int nby, void* stream) {
   if (capa) {
     return fwave ? launch<S, T, true, true>(A, nbx, nby, stream)
                  : launch<S, T, true, false>(A, nbx, nby, stream);
@@ -687,22 +709,25 @@ int dispatch_flags(const Args<T>& A, bool capa, bool fwave, int nbx, int nby,
 template <typename T>
 int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
          int nyg, int system, int capa, int fwave, const double* dt,
-         double dx, double dy, double grav, double dry, int order, int tw,
+         double dx, double dy, double p0, double p1, int order, int tw,
          const int* lim, void* stream) {
   int nbx, nby;
   grid_of<T>(nxg, nyg, nbx, nby);
-  const Args<T> A = make_args<T>(qbc, aux, qout, cflb, nxg, nyg, capa, dt,
-                                 dx, dy, grav, dry, order, tw, lim);
+#define STEP2_AOS_SYSTEM(S)                                                  \
+  dispatch_flags<T, S>(make_args<S, T>(qbc, aux, qout, cflb, nxg, nyg, capa, \
+                                       dt, dx, dy, p0, p1, order, tw, lim),  \
+                       capa >= 0, fwave != 0, nbx, nby, stream)
   switch (system) {
     case SYS_SHALLOW_ROE_EFIX:
-      return dispatch_flags<T, ShallowRoeEfix2D>(A, capa >= 0, fwave != 0,
-                                                 nbx, nby, stream);
+      return STEP2_AOS_SYSTEM(ShallowRoeEfix2D);
     case SYS_SHALLOW_BATHY_FWAVE:
-      return dispatch_flags<T, ShallowBathyFwave2D>(A, capa >= 0, fwave != 0,
-                                                    nbx, nby, stream);
+      return STEP2_AOS_SYSTEM(ShallowBathyFwave2D);
+    case SYS_ACOUSTICS_2D:
+      return STEP2_AOS_SYSTEM(Acoustics2D);
     default:
       return -1;
   }
+#undef STEP2_AOS_SYSTEM
 }
 
 }  // namespace
@@ -718,6 +743,9 @@ int step2_aos_blocks(int nxg, int nyg, int is_double) {
   return nbx * nby;
 }
 
+// Number of systems the build takes (system ids 0 .. this - 1).
+int step2_aos_num_systems() { return SYS_ACOUSTICS_2D + 1; }
+
 // Blocks per SM the kernel is built for (reported by chip_smoke.py).
 int step2_aos_blocks_per_sm(int is_double) {
   return is_double ? Shape<double>::PER_SM : Shape<float>::PER_SM;
@@ -725,9 +753,14 @@ int step2_aos_blocks_per_sm(int is_double) {
 
 // Shared memory bytes per block (reported by chip_smoke.py).
 int step2_aos_smem_bytes(int system, int capa, int is_double) {
-  return system == SYS_SHALLOW_BATHY_FWAVE
-      ? smem_of<ShallowBathyFwave2D>(capa != 0, is_double != 0)
-      : smem_of<ShallowRoeEfix2D>(capa != 0, is_double != 0);
+  switch (system) {
+    case SYS_SHALLOW_BATHY_FWAVE:
+      return smem_of<ShallowBathyFwave2D>(capa != 0, is_double != 0);
+    case SYS_ACOUSTICS_2D:
+      return smem_of<Acoustics2D>(capa != 0, is_double != 0);
+    default:
+      return smem_of<ShallowRoeEfix2D>(capa != 0, is_double != 0);
+  }
 }
 
 // One CTU step.  qbc: (3, nxg, nyg) ghost-padded (2 ghost cells); aux:
@@ -736,19 +769,21 @@ int step2_aos_smem_bytes(int system, int capa, int is_double) {
 // all contiguous, of the type named by the entry.  system: SYS_*; capa:
 // aux row of the capacity function or -1; fwave: the f-wave correction
 // form; dt: the step in device memory (host memory for the host
-// emulation), a double that is exact in the entry's type; l0..l2: the
-// limiter ids of the three waves.  Returns a cudaError_t
-// (0 on success), or -1 for an unknown system.
+// emulation), a double that is exact in the entry's type; p0, p1: the
+// system's two physics scalars ((grav, dry_tolerance) for shallow water,
+// (zz, cc) for acoustics); l0..l2: the limiter ids of the waves (the
+// kernel reads the system's NW).  Returns a cudaError_t (0 on success),
+// or -1 for an unknown system.
 #if defined(__CUDACC__)
 #define STEP2_AOS_ENTRY(NAME, T)                                             \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb,         \
            int nxg, int nyg, int system, int capa, int fwave,                \
            const double* dt,                                                 \
-           double dx, double dy, double grav, double dry, int order, int tw, \
+           double dx, double dy, double p0, double p1, int order, int tw,     \
            int l0, int l1, int l2, void* stream) {                           \
     const int lim[3] = {l0, l1, l2};                                         \
     return step<T>(qbc, aux, qout, cflb, nxg, nyg, system, capa, fwave, dt,  \
-                   dx, dy, grav, dry, order, tw, lim, stream);               \
+                   dx, dy, p0, p1, order, tw, lim, stream);                  \
   }
 STEP2_AOS_ENTRY(step2_aos_f32, float)
 STEP2_AOS_ENTRY(step2_aos_f64, double)
@@ -757,11 +792,11 @@ STEP2_AOS_ENTRY(step2_aos_f64, double)
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb,         \
            int nxg, int nyg, int system, int capa, int fwave,                \
            const double* dt,                                                 \
-           double dx, double dy, double grav, double dry, int order, int tw, \
+           double dx, double dy, double p0, double p1, int order, int tw,     \
            int l0, int l1, int l2) {                                         \
     const int lim[3] = {l0, l1, l2};                                         \
     return step<T>(qbc, aux, qout, cflb, nxg, nyg, system, capa, fwave, dt,  \
-                   dx, dy, grav, dry, order, tw, lim, nullptr);              \
+                   dx, dy, p0, p1, order, tw, lim, nullptr);                 \
   }
 STEP2_AOS_ENTRY(step2_aos_host_f32, float)
 STEP2_AOS_ENTRY(step2_aos_host_f64, double)

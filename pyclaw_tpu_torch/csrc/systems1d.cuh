@@ -5,14 +5,16 @@
 //   EulerRoe1D<EFIX>  euler.py:_rp1_euler_roe (with and without the Harten
 //                     entropy fix)
 //   EulerHlle1D       euler.py:_rp1_euler_hlle
+//   SwAug1D           shallow.py:_rp1_sw_aug (with _sw_aug_core)
 // A Python scalar is rounded to T where it meets a tensor (P1d holds the
 // rounded values); PyTorch's `float / tensor` is reciprocal(tensor) * float
 // and is written so here.  Each system's cell() computes NC quantities of
 // one cell that its rp() reads at both of the cell's interfaces (the same
 // expressions the interface would compute, so the bits do not depend on
-// where they are computed); rp() takes the two cells' states and
-// quantities and returns the waves w[p][e], the speeds s[p] and the
-// fluctuations amdq, apdq of one interface.
+// where they are computed); rp() takes the two cells' states (a system
+// with NAUX > 0 also their first NAUX aux rows) and quantities and returns
+// the waves w[p][e], the speeds s[p] and the fluctuations amdq, apdq of
+// one interface.
 //
 // Compiles with nvcc and, without __CUDACC__, with a host C++ compiler for
 // the kernel's host emulation (ops/_build.py:build_host_emulation).
@@ -24,12 +26,13 @@
 namespace {
 
 // physics scalars in the kernel's type, rounded once from the doubles the
-// wrapper passes (p0, p1: u | zz, cc | gamma)
+// wrapper passes (p0, p1: u | zz, cc | gamma | grav, dry_tolerance)
 template <typename T> struct P1d {
   T u;              // advection speed
   T zz, cc, mcc;    // acoustic impedance, sound speed, -cc
   T z2;             // 2.0 * zz
   T gamma, g1;      // gamma, gamma - 1.0
+  T g, hg, dry;     // grav, grav * 0.5 (= 0.5 * grav), dry_tolerance
   void set(double p0, double p1) {
     u = T(p0);
     zz = T(p0);
@@ -38,12 +41,15 @@ template <typename T> struct P1d {
     z2 = T(2.0 * p0);
     gamma = T(p0);
     g1 = T(p0 - 1.0);
+    g = T(p0);
+    hg = T(p0 * 0.5);
+    dry = T(p1);
   }
 };
 
 // ---- advection_1D ---------------------------------------------------------
 struct Advection1D {
-  static constexpr int NEQ = 1, NW = 1, NC = 0;
+  static constexpr int NEQ = 1, NW = 1, NC = 0, NAUX = 0;
   template <typename T>
   static HD void cell(const P1d<T>&, const T*, T*) {}
   template <typename T>
@@ -59,7 +65,7 @@ struct Advection1D {
 
 // ---- acoustics_1D: q = (p, u) ----------------------------------------------
 struct Acoustics1D {
-  static constexpr int NEQ = 2, NW = 2, NC = 0;
+  static constexpr int NEQ = 2, NW = 2, NC = 0, NAUX = 0;
   template <typename T>
   static HD void cell(const P1d<T>&, const T*, T*) {}
   template <typename T>
@@ -118,7 +124,7 @@ HD void sound1(const P1d<T>& P, T rho, T mom, T E, T& u, T& c) {
 }
 
 template <bool EFIX> struct EulerRoe1D {
-  static constexpr int NEQ = 3, NW = 3;
+  static constexpr int NEQ = 3, NW = 3, NAUX = 0;
   // the Roe parts and, for the entropy fix, sound1's u and c of the cell
   enum { C_U = ROE_NC, C_C = ROE_NC + 1 };
   static constexpr int NC = EFIX ? ROE_NC + 2 : ROE_NC;
@@ -181,7 +187,7 @@ template <bool EFIX> struct EulerRoe1D {
 
 // ---- euler_hlle_1D: two waves through the intermediate state ---------------
 struct EulerHlle1D {
-  static constexpr int NEQ = 3, NW = 2;
+  static constexpr int NEQ = 3, NW = 2, NAUX = 0;
   // the Roe parts, then the cell's velocity, pressure and sound speed
   enum { C_U = ROE_NC, C_P = ROE_NC + 1, C_C = ROE_NC + 2 };
   static constexpr int NC = ROE_NC + 3;
@@ -215,6 +221,82 @@ struct EulerHlle1D {
     for (int e = 0; e < 3; ++e) {
       am[e] = mn(s1, T(0)) * w[0][e] + mn(s2, T(0)) * w[1][e];
       ap[e] = mx(s1, T(0)) * w[0][e] + mx(s2, T(0)) * w[1][e];
+    }
+  }
+};
+
+// ---- sw_aug_1D: q = (h, hu), aux[0] = b; f-wave form ----------------------
+// The dry-state machinery of _sw_aug_core: a dry cell whose bottom lies
+// above the wet neighbour's surface is a wall (it reflects the wet state);
+// Einfeldt speeds, replaced by the Ritter front speed toward a dry side;
+// the HLLE-type split of the bathymetry-augmented flux jump with the
+// surface as the state jump.  Every branch is a select on a sign test of
+// the plain version (h > dry, h + b <= b', the signs of s1 and s2), each
+// operand rounded as there (the source is built without contractions).
+struct SwAug1D {
+  static constexpr int NEQ = 2, NW = 2, NC = 0, NAUX = 1;
+  template <typename T>
+  static HD void cell(const P1d<T>&, const T*, T*) {}
+  template <typename T>
+  static HD void rp(const P1d<T>& P, const T ql[2], const T qr[2],
+                    const T al[], const T ar[], const T*, const T*,
+                    T w[2][2], T s[2], T am[2], T ap[2]) {
+    const T h_l = ql[0], h_r = qr[0], b_l = al[0], b_r = ar[0];
+    const bool wet_l = h_l > P.dry, wet_r = h_r > P.dry;
+    const T u_l0 = wet_l ? ql[1] / h_l : T(0);
+    const T u_r0 = wet_r ? qr[1] / h_r : T(0);
+    const bool wall_r = !wet_r && wet_l && h_l + b_l <= b_r;
+    const bool wall_l = !wet_l && wet_r && h_r + b_r <= b_l;
+
+    const T h_le = wall_l ? h_r : (wet_l ? h_l : T(0));
+    const T u_le = wall_l ? -u_r0 : u_l0;
+    const T b_le = wall_l ? b_r : b_l;
+    const T h_re = wall_r ? h_l : (wet_r ? h_r : T(0));
+    const T u_re = wall_r ? -u_l0 : u_r0;
+    const T b_re = wall_r ? b_l : b_r;
+    const bool wet_le = wet_l || wall_l, wet_re = wet_r || wall_r;
+    const bool bothdry = !wet_le && !wet_re;
+
+    const T c_l = sqrt_(P.g * h_le), c_r = sqrt_(P.g * h_re);
+    const T sh_l = sqrt_(h_le), sh_r = sqrt_(h_re);
+    const T wsum = sh_l + sh_r > T(0) ? sh_l + sh_r : T(1);
+    const T u_hat = (sh_l * u_le + sh_r * u_re) / wsum;
+    const T c_hat = sqrt_(P.hg * (h_le + h_re));
+    T s1 = mn(u_le - c_l, u_hat - c_hat);
+    T s2 = mx(u_re + c_r, u_hat + c_hat);
+    // the exact rarefaction front toward a dry side (Ritter)
+    if (wet_re && !wet_le) s1 = u_re - T(2) * c_r;
+    if (wet_le && !wet_re) s2 = u_le + T(2) * c_l;
+    if (bothdry) {
+      s1 = T(0);
+      s2 = T(0);
+    }
+
+    const T hu_le = h_le * u_le, hu_re = h_re * u_re;
+    const T hbar = T(0.5) * (h_le + h_re);
+    const T fd1 = hu_re - hu_le;
+    const T fd2 = (hu_re * u_re + P.hg * h_re * h_re)
+                - (hu_le * u_le + P.hg * h_le * h_le)
+                + P.g * hbar * (b_re - b_le);
+    // the dissipative state jump: surface and momentum
+    const T dq1 = (h_re + b_re) - (h_le + b_le);
+    const T dq2 = fd1;
+    const T ds = s2 - s1;
+    const T denom = ds == T(0) ? T(1) : ds;
+    const T zero = bothdry ? T(0) : T(1) / denom;
+    const T W1[2] = {(s2 * dq1 - fd1) * zero, (s2 * dq2 - fd2) * zero};
+    const T W2[2] = {(fd1 - s1 * dq1) * zero, (fd2 - s1 * dq2) * zero};
+
+    // f-waves s_p W_p, zeroed where either cell is dry (first order at
+    // fronts); no fluctuation into a dry wall cell
+    const bool frontal = h_l <= P.dry || h_r <= P.dry;
+    s[0] = s1;
+    s[1] = s2;
+    for (int e = 0; e < 2; ++e) {
+      w[0][e] = frontal ? T(0) : s1 * W1[e];
+      w[1][e] = frontal ? T(0) : s2 * W2[e];
+      am[e] = wall_l ? T(0) : mn(s1, T(0)) * W1[e] + mn(s2, T(0)) * W2[e];
+      ap[e] = wall_r ? T(0) : mx(s1, T(0)) * W1[e] + mx(s2, T(0)) * W2[e];
     }
   }
 };

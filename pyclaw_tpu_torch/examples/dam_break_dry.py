@@ -1,0 +1,60 @@
+"""Dam break onto a dry sloping beach, wetting and drying with the
+augmented solver (reference GeoClaw-class sw_aug) — the port's copy of the
+JAX package's ``examples/dam_break_dry.py``, with the same initial
+condition and settings (a column of depth 1 left of x = 0 on [-5, 5], a
+dry beach b = max(0, 0.4 (x - 1)), grav 9.8, dry_tolerance 1e-5,
+extrapolation BCs for q and aux, to t = 2.0): ``ClawSolver1D(sw_aug_1D)``
+with f-waves and the minmod limiter, cfl_desired 0.4, cfl_max 0.45
+(``csrc/step1.cu`` on a card).  Depths stay nonnegative through the
+wetting and the drying front.  ``setup()`` takes the JAX example's
+keywords plus ``device`` and ``dtype``; ``dimension=2`` (the radial analog
+on ``sw_aug_2D``) raises, naming its ROADMAP.md item.
+
+    python -m pyclaw_tpu_torch.examples.dam_break_dry
+"""
+
+import numpy as np
+
+import pyclaw_tpu_torch as pyclaw
+from pyclaw_tpu_torch import riemann
+from pyclaw_tpu_torch.solver import _not_ported
+
+
+def setup(nx=500, dimension=1, outdir="./_output", dtype=None, device=None):
+    if dimension != 1:
+        raise _not_ported("sw_aug_2D")
+    solver = pyclaw.ClawSolver1D(riemann.sw_aug_1D, device=device)
+    domain = pyclaw.Domain([-5.0], [5.0], [nx])
+    solver.fwave = True
+    solver.limiters = [pyclaw.limiters.tvd.minmod]
+    solver.cfl_desired = 0.4
+    solver.cfl_max = 0.45
+    solver.all_bcs = pyclaw.BC.extrap
+    solver.aux_bc_lower = [pyclaw.BC.extrap] * dimension
+    solver.aux_bc_upper = [pyclaw.BC.extrap] * dimension
+
+    state = pyclaw.State(domain, solver.rp.num_eqn, num_aux=1, dtype=dtype)
+    state.problem_data["grav"] = 9.8
+    state.problem_data["dry_tolerance"] = 1e-5
+
+    x = domain.grid.x.centers
+    beach = np.maximum(0.0, 0.4 * (x - 1.0))       # dry beach x > 1
+    state.aux[0] = beach
+    state.q[0] = np.where(x < 0.0, 1.0, 0.0)       # dam at x = 0
+    state.q[1] = 0.0
+
+    claw = pyclaw.Controller()
+    claw.solution = pyclaw.Solution(state, domain)
+    claw.solver = solver
+    claw.tfinal = 2.0
+    claw.num_output_times = 4
+    claw.outdir = outdir
+    if outdir is None:
+        claw.output_format = None
+    return claw
+
+
+if __name__ == "__main__":
+    claw = setup()
+    status = claw.run()
+    print(status)

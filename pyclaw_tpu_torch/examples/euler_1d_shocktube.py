@@ -8,8 +8,10 @@ settings (rho, p = 1, 1 left of x = 0 and 0.125, 0.1 right of it on
 form of the in-cell fluctuation; ``time_integrator`` SSP104, SSP33 or
 Euler).  ``setup()`` takes the JAX example's keywords plus ``device`` and
 ``dtype``; the device picks the kernel (``csrc/step1.cu`` or
-``csrc/weno5.cu`` on a card), so there is no ``kernel_language``;
-``char_decomp`` other than 0 raises at setup.
+``csrc/weno5.cu`` on a card), so there is no ``kernel_language``.
+``char_decomp`` (SharpClaw, 0-4) picks the reconstruction: 2 is the
+golden ``euler_1d_sod_chardecomp``'s characteristic WENO, plain PyTorch
+on the card too.
 
     python -m pyclaw_tpu_torch.examples.euler_1d_shocktube
 """

@@ -4,7 +4,8 @@
 :func:`step1`, counterpart of ``step1_pallas``: one launch of
 ``csrc/step1.cu`` computes one classic 1D step (Riemann solve, limiter,
 wave- or f-wave-form correction flux, per-cell dt/(dx kappa), update) of a
-system of :data:`SYSTEMS_1D` and one CFL maximum per block.  Plain
+system of :data:`SYSTEMS_1D` (``sw_aug_1D`` with the bottom in aux row 0,
+:data:`AUX_ROWS_1D`) and one CFL maximum per block.  Plain
 version: ``classic/kernels.py:step1``.
 
 On a CPU tensor the wrapper computes the plain version.  On a CUDA tensor
@@ -27,7 +28,10 @@ from .tiled2d import _VALID_LIMITERS
 
 # rp.name -> system id of csrc/step1.cu (SYS_*)
 SYSTEMS_1D = {"advection_1D": 0, "acoustics_1D": 1, "euler_with_efix_1D": 2,
-              "euler_roe_1D": 3, "euler_hlle_1D": 4}
+              "euler_roe_1D": 3, "euler_hlle_1D": 4, "sw_aug_1D": 5}
+# aux rows a system's solver reads (its NAUX in csrc/systems1d.cuh), where
+# it reads any
+AUX_ROWS_1D = {"sw_aug_1D": 1}
 # qbc, aux, qout, cflb; n, g, system, capa, fwave; dt (a pointer), dx, p0,
 # p1; order and three limiter ids (the host emulation takes these, the
 # card's entries a stream after them)
@@ -43,6 +47,14 @@ def bind_lib(lib):
     lib.step1_blocks.argtypes = [ctypes.c_int] * 2
     lib.step1_blocks.restype = ctypes.c_int
     return lib
+
+
+def build_takes(lib, rp):
+    """Whether a build of ``csrc/step1.cu`` (``lib``, a ctypes handle) has
+    the system of ``rp``: an earlier build has fewer systems, and one
+    without ``step1_num_systems`` has the first five."""
+    count = getattr(lib, "step1_num_systems", None)
+    return SYSTEMS_1D[rp.name] < (count() if count is not None else 5)
 
 
 @functools.cache
@@ -64,12 +76,17 @@ def check_options(mthlim, order, num_waves, num_ghost):
 
 def system_params(rp, params):
     """The two physics scalars the kernel takes for system ``rp``: (u, 0)
-    for advection, (zz, cc) for acoustics, (gamma, 0) for Euler."""
+    for advection, (zz, cc) for acoustics, (gamma, 0) for Euler, (grav,
+    dry_tolerance) for the augmented shallow-water solver (dry_tolerance
+    1e-8 when problem_data has none, as in the JAX package)."""
     if rp.name == "advection_1D":
         return float(params["u"]), 0.0
     if rp.name == "acoustics_1D":
         zz, cc = _zc(params)
         return float(zz), float(cc)
+    if rp.name == "sw_aug_1D":
+        return (float(params["grav"]),
+                float(params.get("dry_tolerance", 1e-8)))
     return float(params["gamma"]), 0.0
 
 
@@ -108,12 +125,14 @@ def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
         raise ValueError("step1: qbc must be contiguous")
     n = qbc.shape[1]
     aux_ptr = None
-    if index_capa >= 0:
+    naux = AUX_ROWS_1D.get(rp.name, 0)
+    if index_capa >= 0 or naux:
+        rows = max(naux, index_capa + 1)
         if (auxbc is None or auxbc.dim() != 2 or auxbc.shape[1] != n
-                or auxbc.shape[0] <= index_capa):
+                or auxbc.shape[0] < rows):
             raise ValueError(
-                f"step1: index_capa={index_capa} needs auxbc of shape "
-                f"(num_aux, {n}), got "
+                f"step1: {rp.name} with index_capa={index_capa} needs auxbc "
+                f"of shape (num_aux >= {rows}, {n}), got "
                 f"{None if auxbc is None else tuple(auxbc.shape)}")
         if auxbc.device != qbc.device or auxbc.dtype != qbc.dtype:
             raise TypeError("step1: auxbc must share qbc's device and dtype")

@@ -19,9 +19,11 @@
   its generic-AoS body (``rpn_soa=None``), of ``step2_pallas_tiled_generic``
   and of ``ops/sweep2d.py:step2_pallas``: one launch of
   ``csrc/step2_aos.cu`` computes the whole unsplit CTU step of a system
-  of :data:`AOS_SYSTEMS`, with aux arrays, a capacity function and the
-  f-wave form, for any (nx, ny).  Plain version:
-  ``classic/kernels.py:step2``.
+  of :data:`AOS_SYSTEMS` (the two shallow-water systems and
+  ``acoustics_2D``, each a template instance of its own, given its two
+  physics scalars by :func:`aos_system_params`), with aux arrays, a
+  capacity function and the f-wave form, for any (nx, ny).  Plain
+  version: ``classic/kernels.py:step2``.
 * :func:`step3_xy_generic`, counterpart of ``step3_pallas_xy`` with its
   aux body ``kernel_aux``: one launch of ``csrc/step3_aos.cu`` computes
   the whole 3D unsplit CTU step of a system of :data:`STEP3_SYSTEMS`,
@@ -325,10 +327,12 @@ step3_xy.device_launches = None
 # rp.name -> (system id of csrc/step2_aos.cu (SYS_*), aux rows its normal
 # solver reads (NAUX))
 AOS_SYSTEMS = {"shallow_roe_with_efix_2D": (0, 0),
-               "shallow_bathymetry_fwave_2D": (1, 1)}
+               "shallow_bathymetry_fwave_2D": (1, 1),
+               "acoustics_2D": (2, 0)}
 # qbc, aux, qout, cflb; nxg, nyg, system, capa, fwave; dt (a pointer), dx,
-# dy, grav, dry_tolerance; order, tw and three limiter ids (the host
-# emulation takes these, the card's entries a stream after them)
+# dy and the system's two physics scalars p0, p1 (aos_system_params);
+# order, tw and three limiter ids (the host emulation takes these, the
+# card's entries a stream after them)
 AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                 + [ctypes.c_void_p] + [ctypes.c_double] * 4
                 + [ctypes.c_int] * 5)
@@ -346,6 +350,32 @@ def bind_step2_aos_lib(lib):
 @functools.cache
 def _aos_lib():
     return bind_step2_aos_lib(_build.load("step2_aos"))
+
+
+def aos_build_takes(lib, rp):
+    """Whether a build of ``csrc/step2_aos.cu`` (``lib``, a ctypes handle)
+    has the system of ``rp``: one without ``step2_aos_num_systems`` (an
+    earlier build) has the two shallow-water systems."""
+    count = getattr(lib, "step2_aos_num_systems", None)
+    return AOS_SYSTEMS[rp.name][0] < (count() if count is not None else 2)
+
+
+def aos_system_params(rp, params):
+    """The two physics scalars ``csrc/step2_aos.cu`` takes for system
+    ``rp``: (zz, cc) for acoustics, (grav, dry_tolerance) for shallow water
+    (dry_tolerance 1e-8 when problem_data has none, as in the JAX
+    package)."""
+    if rp.name == "acoustics_2D":
+        zz, cc = acoustics._zc(params)
+        return float(zz), float(cc)
+    return float(params["grav"]), float(params.get("dry_tolerance", 1e-8))
+
+
+def aos_limiter_ids(mthlim):
+    """The three limiter ids an entry of ``csrc/step2_aos.cu`` takes: one
+    per wave, padded with the last (the kernel reads the system's)."""
+    lims = [int(m) for m in mthlim]
+    return lims + [lims[-1]] * (3 - len(lims))
 
 
 def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
@@ -394,9 +424,8 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
     dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
             nxg, nyg, system, int(index_capa), int(bool(fwave)),
-            dt_ptr, float(dx), float(dy), float(params["grav"]),
-            float(params.get("dry_tolerance", 1e-8)), int(order),
-            int(transverse_waves), *[int(m) for m in mthlim],
+            dt_ptr, float(dx), float(dy), *aos_system_params(rp, params),
+            int(order), int(transverse_waves), *aos_limiter_ids(mthlim),
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"step2_aos launch failed: cudaError_t {rc}")

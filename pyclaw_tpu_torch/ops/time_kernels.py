@@ -5,7 +5,8 @@ and the timers and timed cases that ``chip_smoke.py`` uses too.
         [--out FILE] [--sass]
 
 KERNEL is ``step2_ctu``, ``dq2_weno5``, ``step3_ctu``, ``step3_aos``,
-``step2_aos``, ``euler3d_capa`` (the source ``step3_ctu.cu`` on the
+``step2_aos`` (the shallow-water and the acoustics case),
+``euler3d_capa`` (the source ``step3_ctu.cu`` on the
 Euler capacity path's case), ``step1`` or ``weno5``, timed through its
 wrapper in ``ops/tiled2d.py``, ``ops/sweep.py`` or ``ops/weno.py`` on the
 case that ``chip_smoke.py`` times (:func:`step2_ctu_case`,
@@ -15,7 +16,9 @@ case that ``chip_smoke.py`` times (:func:`step2_ctu_case`,
 cells, the Sod tube's initial state (two constant states: all but one
 interface carry no wave) and a seeded smooth state (:func:`smooth_state`:
 every interface works), and on the Sod state at their path's shape (800
-cells; (3, 806)).  Each VARIANT is
+cells; (3, 806)); step1 also on a seeded wet/dry state of the dry dam
+break at 2^20 (:func:`dam_state`: its sw_aug instance; a build without
+that system leaves it out).  Each VARIANT is
 ``LABEL=ROOT[@SOURCE][:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/
 csrc/KERNEL.cu`` (ROOT a checkout, for example an unpacked ``git
 archive`` of a parent commit, or a copy with an edited source) built with
@@ -267,6 +270,28 @@ def step2_aos_case(n, dtype, dev):
                  2, False, -1, 2, 2)
 
 
+def acoustics_state(nx, ny):
+    """q of examples.acoustics_2d at nx x ny (a CPU tensor)."""
+    from ..examples import acoustics_2d as ex
+    return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
+
+
+def step2_aos_acoustics_case(n, dtype, dev):
+    """step2_aos's acoustics instance's timed case at n^2, the acoustics
+    path's configuration on its first state (the radial pulse of
+    examples.acoustics_2d): qbc (2 extrapolated ghost cells) and the rest
+    of ``tiled2d.step2_rows_generic``'s arguments (no aux, dt = 0.4 dx /
+    c, dx = dy = 2/n, acoustics_2D with rho 1 and K 4 (Z = c = 2), MC,
+    order 2, no f-waves, no capacity, 2 ghost cells, transverse_waves
+    2)."""
+    from .. import riemann
+    qbc = padded(acoustics_state(n, n), dtype, dev)
+    h = 2.0 / n
+    return qbc, (None, _dt(0.2 * h, dtype, dev), h, h, riemann.acoustics_2D,
+                 {"rho": 1.0, "bulk": 4.0, "zz": 2.0, "cc": 2.0}, (4,) * 2,
+                 2, False, -1, 2, 2)
+
+
 def sod_state(n):
     """q of examples.euler_1d_shocktube at n cells (a CPU array)."""
     from ..examples import euler_1d_shocktube as ex
@@ -293,6 +318,21 @@ def smooth_state(n, seed=0):
     return np.stack([rho, rho * u, p / 0.4 + 0.5 * rho * u * u])
 
 
+def dam_state(n, seed=0):
+    """A seeded wet/dry state of the dry dam break's system at n cells of
+    [-5, 5] (q (2, n), aux (1, n), CPU arrays): the example's beach b =
+    max(0, 0.4 (x - 1)), and in each cell, drawn independently, water of
+    depth 0.2 .. 1.2 with a velocity of either sign (3 in 4 cells) or a
+    dry bed.  Its interfaces take every branch of the augmented solver:
+    wet/wet, the Ritter fronts either way, walls where the beach rises
+    above a neighbour's surface, both dry."""
+    rng = np.random.default_rng(seed)
+    x = (np.arange(n) + 0.5) * (10.0 / n) - 5.0
+    b = np.maximum(0.0, 0.4 * (x - 1.0))
+    h = np.where(rng.random(n) < 0.75, 0.2 + rng.random(n), 0.0)
+    return np.stack([h, h * rng.standard_normal(n)]), b[None]
+
+
 def padded_1d(q_np, dtype, dev, num_ghost):
     """1D q extended by ``num_ghost`` extrapolated cells at each end."""
     from .. import bc
@@ -301,15 +341,27 @@ def padded_1d(q_np, dtype, dev, num_ghost):
 
 
 STATES_1D = {"sod": sod_state, "smooth": smooth_state}
+# the dry dam break's grav and dry_tolerance (examples/dam_break_dry.py)
+DAM_PARAMS = {"grav": 9.8, "dry_tolerance": 1e-5}
 
 
 def step1_case(n, dtype, dev, state="sod"):
-    """step1's timed case at n cells, the classic Sod path's configuration
-    on ``state`` (a name of :data:`STATES_1D`): qbc (2 extrapolated ghost
-    cells) and the rest of ``sweep.step1``'s arguments (no aux, dt = 0.5
-    dx, dx = 1/n, euler_with_efix_1D, gamma 1.4, MC, order 2, no
-    f-waves, no capacity, 2 ghost cells)."""
+    """step1's timed case at n cells: qbc (2 extrapolated ghost cells)
+    and the rest of ``sweep.step1``'s arguments.  On a state of
+    :data:`STATES_1D`, the classic Sod path's configuration (no aux, dt =
+    0.5 dx, dx = 1/n, euler_with_efix_1D, gamma 1.4, MC, order 2, no
+    f-waves, no capacity, 2 ghost cells); on "dam" (:func:`dam_state`)
+    the dry dam break's (the beach in aux, dt = 0.06 dx, dx = 10/n,
+    sw_aug_1D, grav 9.8, dry_tolerance 1e-5, minmod, order 2, f-waves, no
+    capacity)."""
     from .. import riemann
+    if state == "dam":
+        q_np, aux_np = dam_state(n)
+        qbc = padded_1d(q_np, dtype, dev, 2)
+        auxbc = padded_1d(aux_np, dtype, dev, 2)
+        dx = 10.0 / n
+        return qbc, (auxbc, _dt(0.06 * dx, dtype, dev), dx,
+                     riemann.sw_aug_1D, DAM_PARAMS, (1, 1), 2, True, -1, 2)
     qbc = padded_1d(STATES_1D[state](n), dtype, dev, 2)
     dx = 1.0 / n
     return qbc, (None, _dt(0.5 * dx, dtype, dev), dx,
@@ -365,12 +417,18 @@ def _step3_aos_call(dtype, dev, n=192):
 
 def _step2_aos_call(dtype, dev, n=1024):
     from . import tiled2d
-    qbc, args = step2_aos_case(n, dtype, dev)
+    makes = {}
+    for label, case in (("", step2_aos_case),
+                        ("acoustics", step2_aos_acoustics_case)):
+        qbc, args = case(n, dtype, dev)
 
-    def make(lib, source="step2_aos"):
-        lib = tiled2d.bind_step2_aos_lib(lib)
-        return lambda: tiled2d.step2_rows_generic(qbc, *args, lib=lib)
-    return make
+        def make(lib, source="step2_aos", qbc=qbc, args=args):
+            lib = tiled2d.bind_step2_aos_lib(lib)
+            if not tiled2d.aos_build_takes(lib, args[4]):
+                return None        # an earlier build without the system
+            return lambda: tiled2d.step2_rows_generic(qbc, *args, lib=lib)
+        makes[label] = make
+    return makes
 
 
 def _step3_aos_euler(lib, qbc, auxbc, args):
@@ -417,9 +475,10 @@ def _euler3d_capa_call(dtype, dev, n=192):
     return make
 
 
-# the 1D kernels' timed states: name -> (state, cells)
+# the 1D kernels' timed states: name -> (state, cells); "dam" times
+# step1 alone (the dry dam break runs no weno5)
 CASES_1D = {"sod": ("sod", 2 ** 20), "smooth": ("smooth", 2 ** 20),
-            "sod 800": ("sod", 800)}
+            "sod 800": ("sod", 800), "dam": ("dam", 2 ** 20)}
 
 
 def _step1_call(dtype, dev):
@@ -430,6 +489,8 @@ def _step1_call(dtype, dev):
 
         def make(lib, source=None, qbc=qbc, args=args):
             lib = sweep.bind_lib(lib)
+            if not sweep.build_takes(lib, args[3]):
+                return None        # an earlier build without the system
             return lambda: sweep.step1(qbc, *args, lib=lib)
         makes[label] = make
     return makes
@@ -439,6 +500,8 @@ def _weno5_call(dtype, dev):
     from . import weno
     makes = {}
     for label, (state, n) in CASES_1D.items():
+        if state == "dam":
+            continue
         q = weno5_case(n, dtype, dev, state)
 
         def make(lib, source=None, q=q):
@@ -561,8 +624,11 @@ def run(kernel, variants, sass=False):
 
 def _time_state(kernel, key, make, libs, sources, labels, order):
     """Each variant's output against the first one's and its times on one
-    timed state."""
+    timed state.  A build that lacks the state's system (``make`` gives
+    None) is left out of it."""
     calls = {label: make(libs[label], sources[label]) for label in labels}
+    labels = [label for label in labels if calls[label] is not None]
+    order = [label for label in order if calls[label] is not None]
     ref_out, ref_cfl = None, None
     per = {}
     for label in labels:

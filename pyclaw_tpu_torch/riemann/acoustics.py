@@ -1,25 +1,30 @@
-"""Linear acoustics Riemann solvers, 1D and 3D, plain PyTorch.
+"""Linear acoustics Riemann solvers, 1D, 2D and 3D, plain PyTorch.
 
 Counterpart of ``pyclaw_tpu/riemann/acoustics.py`` (``_zc :21``,
-``_rp_acoustics :28-53``, ``_rpt3_acoustics :107-121``,
-``_flux_acoustics :149-157``, ``_rptt3_acoustics :181-188``, the records
-``acoustics_1D :171-172`` and ``acoustics_3D :191-194``), physics of
-reference ``rp1_acoustics.f90``: p_t + K div(u) = 0, rho u_t + grad p = 0
-with impedance Z = sqrt(rho K) and sound speed c = sqrt(K / rho) from
-problem_data {'rho', 'bulk'} (or the precomputed {'zz', 'cc'}).  q =
-(p, u) in 1D, (p, u, v, w) in 3D; two waves of speeds -c and +c.  The 3D
-transverse split decomposes a fluctuation along ``trans_axis`` with the
-same eigenstructure, and the double-transverse split is the same split
-along the third axis.  The CUDA kernels repeat them: ``csrc/step1.cu`` in
-``csrc/systems1d.cuh`` (``Acoustics1D``), ``csrc/step3_aos.cu`` in
-``csrc/acoustics3d.cuh`` (``Acoustics3D``).  The ``evec`` hook
-(char_decomp) and the 2D record are queued in ROADMAP.md.
+``_rp_acoustics :28-53``, ``_rpt_acoustics :54-71``, ``_rp_acoustics_soa
+:73-90``, ``_rpt_acoustics_soa :92-105``, ``_rpt3_acoustics :107-121``,
+``_evec_acoustics :124-147``, ``_flux_acoustics :149-157``,
+``_flux_acoustics_soa :160-166``, ``_rptt3_acoustics :181-188``, the
+records ``acoustics_1D :171-173``, ``acoustics_2D :174-180`` and
+``acoustics_3D :191-194``), physics of reference ``rp1_acoustics.f90``,
+``rpn2_acoustics.f90`` and ``rpt2_acoustics.f90``: p_t + K div(u) = 0,
+rho u_t + grad p = 0 with impedance Z = sqrt(rho K) and sound speed c =
+sqrt(K / rho) from problem_data {'rho', 'bulk'} (or the precomputed {'zz',
+'cc'}).  q = (p, u) in 1D, (p, u, v) in 2D, (p, u, v, w) in 3D; two waves
+of speeds -c and +c.  The transverse splits decompose a fluctuation along
+the transverse axis with the same eigenstructure, and the 3D
+double-transverse split is the same split along the third axis.  The
+CUDA kernels repeat them: ``csrc/step1.cu`` in ``csrc/systems1d.cuh``
+(``Acoustics1D``), ``csrc/step2_aos.cu`` in ``csrc/acoustics2d.cuh``
+(``Acoustics2D``), ``csrc/step3_aos.cu`` in ``csrc/acoustics3d.cuh``
+(``Acoustics3D``).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -53,6 +58,59 @@ def _rp_acoustics(ixy, q_l, q_r, aux_l, aux_r, params):
     return wave, s, amdq, apdq
 
 
+def _rpt_acoustics(ixy, imp, q_l, q_r, aux_l, aux_r, asdq, params):
+    """Split the fluctuation asdq into its transverse-going parts
+    (reference rpt2_acoustics.f90)."""
+    zz, cc = _zc(params)
+    if asdq.shape[0] != 3:
+        raise ValueError("rpt2 acoustics expects 3-component q")
+    mv = 2 - ixy                                   # transverse component
+    a1 = (-asdq[0] + zz * asdq[mv]) / (2.0 * zz)   # down-going
+    a2 = (asdq[0] + zz * asdq[mv]) / (2.0 * zz)    # up-going
+
+    zero = torch.zeros_like(a1)
+    bm = [zero] * asdq.shape[0]
+    bm[0], bm[mv] = cc * a1 * zz, -cc * a1         # -c * (-Z a1)
+    bp = [zero] * asdq.shape[0]
+    bp[0], bp[mv] = cc * a2 * zz, cc * a2
+    return torch.stack(bm), torch.stack(bp)
+
+
+# ---- SoA variants (classic/soa.py protocol) --------------------------
+def _rp_acoustics_soa(ixy, q_l, q_r, params):
+    zz, cc = _zc(params)
+    mu = 1 + ixy
+    dp = q_r[0] - q_l[0]
+    dv = q_r[mu] - q_l[mu]
+    a1 = (-dp + zz * dv) / (2.0 * zz)
+    a2 = (dp + zz * dv) / (2.0 * zz)
+
+    def mk(p_c, u_c):
+        comp = [None] * len(q_l)
+        comp[0] = p_c
+        comp[mu] = u_c
+        return tuple(comp)
+
+    waves = (mk(-a1 * zz, a1), mk(a2 * zz, a2))
+    speeds = (-cc, cc)
+    return waves, speeds
+
+
+def _rpt_acoustics_soa(ixy, imp, q_l, q_r, asdq, params):
+    zz, cc = _zc(params)
+    mv = 2 - ixy
+    a1 = (-asdq[0] + zz * asdq[mv]) / (2.0 * zz)
+    a2 = (asdq[0] + zz * asdq[mv]) / (2.0 * zz)
+    zero = torch.zeros_like(asdq[0])
+    bm = [zero] * len(q_l)
+    bp = [zero] * len(q_l)
+    bm[0] = cc * a1 * zz
+    bm[mv] = -cc * a1
+    bp[0] = cc * a2 * zz
+    bp[mv] = cc * a2
+    return tuple(bm), tuple(bp)
+
+
 def _rpt3_acoustics(ixy, imp, q_l, q_r, aux_l, aux_r, asdq, params,
                     trans_axis=None):
     """3D transverse split along ``trans_axis`` (defaults to the next
@@ -81,6 +139,29 @@ def _rptt3_acoustics(ixy, icoor, imp, impt, q_l, q_r, aux_l, aux_r,
                            params, trans_axis=trans_axis)
 
 
+def _evec_acoustics(ixy, q, aux, params):
+    """Eigenvector matrices (R, L) of the acoustics flux Jacobian along
+    axis ``ixy`` (the SharpClaw evec hook of char_decomp): the acoustic
+    waves (-Z, e_mu) and (+Z, e_mu) in the first and last columns, the
+    shear components passing through.  Constant: two (n, n) CPU tensors
+    in q's dtype, which broadcast against q on any device as scalars do
+    (no copy to the device, so a CUDA graph can capture their use)."""
+    zz, _ = _zc(params)
+    n = q.shape[0]
+    mu = 1 + ixy
+    R = np.eye(n)
+    R[:, 0] = 0.0
+    R[:, n - 1] = 0.0
+    R[0, 0], R[mu, 0] = -zz, 1.0
+    R[0, n - 1], R[mu, n - 1] = zz, 1.0
+    shear = [j for j in range(1, n) if j != mu]
+    for col, j in zip(range(1, n - 1), shear):
+        R[:, col] = 0.0
+        R[j, col] = 1.0
+    L = np.linalg.inv(R)
+    return (torch.tensor(R, dtype=q.dtype), torch.tensor(L, dtype=q.dtype))
+
+
 def _flux_acoustics(ixy, q, aux, params):
     """Linear acoustic flux along ixy: f = [K u_n, p/rho, 0...] with
     K = zz*cc, rho = zz/cc (RiemannSolver.flux protocol)."""
@@ -92,10 +173,28 @@ def _flux_acoustics(ixy, q, aux, params):
     return torch.stack(f)
 
 
+def _flux_acoustics_soa(ixy, qs, params):
+    zz, cc = _zc(params)
+    mu = 1 + ixy
+    comp = [None] * len(qs)
+    comp[0] = (zz * cc) * qs[mu]
+    comp[mu] = (cc / zz) * qs[0]
+    return tuple(comp)
+
+
 from . import RiemannSolver  # noqa: E402
 
 acoustics_1D = RiemannSolver("acoustics_1D", 1, 2, 2, _rp_acoustics)
 acoustics_1D.flux = _flux_acoustics
+acoustics_1D.evec = _evec_acoustics
+acoustics_2D = RiemannSolver("acoustics_2D", 2, 3, 2, _rp_acoustics,
+                             rpt=_rpt_acoustics)
+acoustics_2D.evec = _evec_acoustics
+acoustics_2D.rpn_soa = _rp_acoustics_soa
+acoustics_2D.rpt_soa = _rpt_acoustics_soa
+acoustics_2D.flux = _flux_acoustics
+acoustics_2D.flux_soa = _flux_acoustics_soa
 acoustics_3D = RiemannSolver("acoustics_3D", 3, 4, 2, _rp_acoustics,
                              rpt=_rpt3_acoustics, rptt=_rptt3_acoustics)
+acoustics_3D.evec = _evec_acoustics
 acoustics_3D.flux = _flux_acoustics

@@ -11,7 +11,9 @@ records ``:787-796, :819, :826-827`` (physics of reference
 ``_rpn2_euler_soa :297``, ``_prefactor_euler_2d_soa :359``,
 ``_rpt2_euler_soa :365``, ``_rpn3_euler :489``,
 ``_prefactor_euler_3d :542``, ``_split_transverse_euler :556``,
-``_rpt3_euler :626``, ``_rptt3_euler :634``, ``_flux_euler_2d_soa :752``,
+``_rpt3_euler :626``, ``_rptt3_euler :634``, the char_decomp hooks
+``_evec_euler_1d :642`` and ``_evec_euler_nd :670``,
+``_flux_euler_2d_soa :752``,
 positivity ``:775`` and the registry lines ``:797-824`` (physics of
 reference ``rpn2_euler_4wave.f90`` + ``rpt2_euler.f90`` and
 ``rpn3_euler.f90`` + ``rpt3_euler.f90`` + ``rptt3_euler.f90``).  Ideal
@@ -482,6 +484,98 @@ def _rptt3_euler(ixy, icoor, imp, impt, q_l, q_r, aux_l, aux_r, bsasdq,
                                    bsasdq, params, 1 + ixy, eig=eig)
 
 
+def _evec_euler_1d(ixy, q, aux, params):
+    """Right and left eigenvector matrices of the 1D Euler Jacobian at
+    each cell state (reference sharpclaw/evec.f90; the char_decomp hook):
+    (R, L), each (num_eqn, num_eqn, *n), L = R^-1 in closed form."""
+    gamma = params["gamma"]
+    g1 = gamma - 1.0
+    rho, mom, E = q[0], q[1], q[2]
+    u = mom / rho
+    p = g1 * (E - 0.5 * rho * u * u)
+    a = torch.sqrt(gamma * p / rho)
+    H = (E + p) / rho
+
+    one = torch.ones_like(u)
+    R = torch.stack([
+        torch.stack([one, one, one]),
+        torch.stack([u - a, u, u + a]),
+        torch.stack([H - u * a, 0.5 * u * u, H + u * a]),
+    ])
+    b1 = g1 / (a * a)
+    b2 = 0.5 * b1 * u * u
+    L = torch.stack([
+        torch.stack([0.5 * (b2 + u / a), -0.5 * (b1 * u + 1.0 / a),
+                     0.5 * b1]),
+        torch.stack([1.0 - b2, b1 * u, -b1]),
+        torch.stack([0.5 * (b2 - u / a), -0.5 * (b1 * u - 1.0 / a),
+                     0.5 * b1]),
+    ])
+    return R, L
+
+
+def _evec_euler_nd(ixy, q, aux, params):
+    """Eigenvector matrices of the multi-D Euler Jacobian along axis
+    ``ixy`` at each cell state (the char_decomp hook of the 2D 4-wave
+    and 3D solvers); characteristic fields in the order (u-a, entropy,
+    shear(s), u+a)."""
+    gamma = params["gamma"]
+    g1 = gamma - 1.0
+    num_eqn = q.shape[0]
+    e_idx = num_eqn - 1
+    vel_idx = list(range(1, num_eqn - 1))
+    mu = 1 + ixy
+    trans = [i for i in vel_idx if i != mu]
+    rho = q[0]
+    E = q[e_idx]
+    vels = {i: q[i] / rho for i in vel_idx}
+    un = vels[mu]
+    V2 = sum(v * v for v in vels.values())
+    p = g1 * (E - 0.5 * rho * V2)
+    a = torch.sqrt(gamma * p / rho)
+    H = (E + p) / rho
+    b1 = g1 / (a * a)
+    b2 = 0.5 * b1 * V2
+    one = torch.ones_like(un)
+    zero = torch.zeros_like(un)
+    R = [[zero] * num_eqn for _ in range(num_eqn)]
+    L = [[zero] * num_eqn for _ in range(num_eqn)]
+
+    # acoustic columns 0 (u-a) and num_eqn-1 (u+a)
+    for col, sgn in ((0, -1.0), (num_eqn - 1, 1.0)):
+        R[0][col] = one
+        R[mu][col] = un + sgn * a
+        for i in trans:
+            R[i][col] = vels[i]
+        R[e_idx][col] = H + sgn * un * a
+    # entropy column 1
+    R[0][1] = one
+    for i in vel_idx:
+        R[i][1] = vels[i]
+    R[e_idx][1] = 0.5 * V2
+    # shear columns: one per transverse momentum
+    for col, i in zip(range(2, num_eqn - 1), trans):
+        R[i][col] = one
+        R[e_idx][col] = vels[i]
+
+    # left eigenvectors (the inverse in closed form)
+    for row, sgn in ((0, -1.0), (num_eqn - 1, 1.0)):
+        L[row][0] = 0.5 * (b2 - sgn * un / a)
+        L[row][mu] = -0.5 * (b1 * un - sgn / a)
+        for i in trans:
+            L[row][i] = -0.5 * b1 * vels[i]
+        L[row][e_idx] = 0.5 * b1
+    L[1][0] = 1.0 - b2
+    for i in vel_idx:
+        L[1][i] = b1 * vels[i]
+    L[1][e_idx] = -b1
+    for row, i in zip(range(2, num_eqn - 1), trans):
+        L[row][0] = -vels[i]
+        L[row][i] = one
+    return (torch.stack([torch.stack(r) for r in R]),
+            torch.stack([torch.stack(r) for r in L]))
+
+
 def _make_euler_positivity(vel_idx, e_idx):
     def positivity(q, aux, params):
         rho = q[0]
@@ -503,6 +597,7 @@ euler_4wave_2D.rpt_soa = _rpt2_euler_soa
 euler_4wave_2D.prefactor_soa = _prefactor_euler_2d_soa
 euler_4wave_2D.positivity = _make_euler_positivity((1, 2), 3)
 euler_4wave_2D.flux_soa = _flux_euler_2d_soa
+euler_4wave_2D.evec = _evec_euler_nd
 
 euler_3D = RiemannSolver("euler_3D", 3, 5, 5, _rpn3_euler,
                          rpt=_rpt3_euler, rptt=_rptt3_euler,
@@ -511,6 +606,7 @@ euler_3D.prefactor = _prefactor_euler_3d
 # metadata of the JAX package; its batched transverse path is not ported
 euler_3D.transverse_batchable = True
 euler_3D.positivity = _make_euler_positivity((1, 2, 3), 4)
+euler_3D.evec = _evec_euler_nd
 
 euler_with_efix_1D = RiemannSolver("euler_with_efix_1D", 1, 3, 3,
                                    _rp1_euler_with_efix, requires=("gamma",))
@@ -521,3 +617,5 @@ euler_hlle_1D = RiemannSolver("euler_hlle_1D", 1, 3, 2, _rp1_euler_hlle,
 for _s in (euler_with_efix_1D, euler_roe_1D, euler_hlle_1D):
     _s.positivity = _make_euler_positivity((1,), 2)
     _s.flux = _make_euler_flux(1)
+euler_with_efix_1D.evec = _evec_euler_1d
+euler_roe_1D.evec = _evec_euler_1d

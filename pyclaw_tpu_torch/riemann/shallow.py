@@ -1,20 +1,26 @@
-"""Shallow-water Riemann solvers of the 2D classic path, plain PyTorch.
+"""Shallow-water Riemann solvers of the 2D classic path and the 1D
+augmented solver with wetting and drying, plain PyTorch.
 
 Counterpart of ``pyclaw_tpu/riemann/shallow.py`` (``_rpn2_shallow_roe
 :115``, ``_rpt2_shallow_roe :187``, ``_rpn2_shallow_bathymetry_fwave
-:341``, ``_shallow_positivity :407``), itself a rebuild of reference
-``rpn2_shallow_roe_with_efix.f90``, ``rpt2_shallow_roe_with_efix.f90``
-and ``rpn2_shallow_bathymetry_fwave.f90``.  System: h_t + (hu)_x +
-(hv)_y = 0, (hu)_t + (hu^2 + g h^2/2)_x + (huv)_y = 0, (hv)_t + (huv)_x
-+ (hv^2 + g h^2/2)_y = 0, with g = problem_data['grav'].
+:341``, ``_shallow_positivity :407``, ``_sw_aug_core :430-504``,
+``_rp1_sw_aug :507-532``, ``_sw_aug_positivity :604-611``), itself a
+rebuild of reference ``rpn2_shallow_roe_with_efix.f90``,
+``rpt2_shallow_roe_with_efix.f90``, ``rpn2_shallow_bathymetry_fwave.f90``
+and GeoClaw's augmented solver.  System: h_t + (hu)_x + (hv)_y = 0,
+(hu)_t + (hu^2 + g h^2/2)_x + (huv)_y = 0, (hv)_t + (huv)_x + (hv^2 + g
+h^2/2)_y = 0, with g = problem_data['grav'].
 
 Every expression keeps the JAX package's operation order (Python
 scalars fold first, as there), so in float64 the two agree to roundoff
-(tests/test_torch_riemann_shallow.py).  The CUDA kernel repeats them in
-``csrc/shallow2d.cuh``.  Dry states (h = 0) give inf/nan in the Roe
-solver, as in the reference; the bathymetry f-wave solver guards its
-divisions with ``dry_tolerance`` (default 1e-8).  The SharpClaw hooks
-(``evec``, ``flux``) are not ported yet (ROADMAP.md, Queue 1 item 7).
+(tests/test_torch_riemann_shallow.py, tests/test_torch_sw_aug.py).  The
+CUDA kernels repeat them: the 2D solvers in ``csrc/shallow2d.cuh``, the
+augmented 1D solver in ``csrc/systems1d.cuh`` (``SwAug1D``).  Dry states
+(h = 0) give inf/nan in the Roe solver, as in the reference; the
+bathymetry f-wave and augmented solvers guard their divisions with
+``dry_tolerance`` (default 1e-8).  ``sw_aug_2D`` and the SharpClaw hooks
+(``evec``, ``flux``) of the 2D solvers are not ported yet (ROADMAP.md,
+Queue 1 items 10 and 7).
 """
 
 from __future__ import annotations
@@ -194,6 +200,97 @@ def _shallow_positivity(q, aux, params):
     return q[0] > 0.0
 
 
+# ---- GeoClaw-class augmented solver with wetting and drying (sw_aug) ----
+def _sw_aug_core(g, dry, h_l, h_r, hu_l, hu_r, b_l, b_r):
+    """The dry-state machinery of the augmented solver (reference
+    rpn2_sw_aug.f90, George 2008): a dry cell whose bottom lies above the
+    wet neighbour's surface reflects the wet state (a wall); Einfeldt
+    speeds, replaced by the Ritter front speed u -+ 2c toward a dry side;
+    the HLLE-type split of the bathymetry-augmented flux jump, with the
+    surface eta = h + b as the state jump.  Returns (s1, s2, W1, W2, u_hat,
+    wall_l, wall_r), W_p the (h, hu) parts of wave p."""
+    wet_l, wet_r = h_l > dry, h_r > dry
+    u_l0 = torch.where(wet_l, hu_l / torch.where(wet_l, h_l, 1.0), 0.0)
+    u_r0 = torch.where(wet_r, hu_r / torch.where(wet_r, h_r, 1.0), 0.0)
+
+    wall_r = (~wet_r) & wet_l & (h_l + b_l <= b_r)
+    wall_l = (~wet_l) & wet_r & (h_r + b_r <= b_l)
+
+    h_le = torch.where(wall_l, h_r, torch.where(wet_l, h_l, 0.0))
+    u_le = torch.where(wall_l, -u_r0, u_l0)
+    b_le = torch.where(wall_l, b_r, b_l)
+    h_re = torch.where(wall_r, h_l, torch.where(wet_r, h_r, 0.0))
+    u_re = torch.where(wall_r, -u_l0, u_r0)
+    b_re = torch.where(wall_r, b_l, b_r)
+    wet_le = wet_l | wall_l
+    wet_re = wet_r | wall_r
+    bothdry = (~wet_le) & (~wet_re)
+
+    c_l = torch.sqrt(g * h_le)
+    c_r = torch.sqrt(g * h_re)
+    sh_l, sh_r = torch.sqrt(h_le), torch.sqrt(h_re)
+    wsum = torch.where(sh_l + sh_r > 0.0, sh_l + sh_r, 1.0)
+    u_hat = (sh_l * u_le + sh_r * u_re) / wsum
+    c_hat = torch.sqrt(g * 0.5 * (h_le + h_re))
+
+    s1 = torch.minimum(u_le - c_l, u_hat - c_hat)
+    s2 = torch.maximum(u_re + c_r, u_hat + c_hat)
+    # the exact rarefaction front toward a dry side (Ritter)
+    s1 = torch.where(wet_re & ~wet_le, u_re - 2.0 * c_r, s1)
+    s2 = torch.where(wet_le & ~wet_re, u_le + 2.0 * c_l, s2)
+    s1 = torch.where(bothdry, 0.0, s1)
+    s2 = torch.where(bothdry, 0.0, s2)
+
+    hu_le = h_le * u_le
+    hu_re = h_re * u_re
+    hbar = 0.5 * (h_le + h_re)
+    fd1 = hu_re - hu_le
+    fd2 = (hu_re * u_re + 0.5 * g * h_re * h_re) \
+        - (hu_le * u_le + 0.5 * g * h_le * h_le) \
+        + g * hbar * (b_re - b_le)
+    # the dissipative state jump: surface and momentum
+    dq1 = (h_re + b_re) - (h_le + b_le)
+    dq2 = fd1
+
+    denom = torch.where(s2 - s1 == 0.0, 1.0, s2 - s1)
+    zero = torch.where(bothdry, 0.0, 1.0 / denom)
+    W1 = ((s2 * dq1 - fd1) * zero, (s2 * dq2 - fd2) * zero)
+    W2 = ((fd1 - s1 * dq1) * zero, (fd2 - s1 * dq2) * zero)
+    u_hat = torch.where(bothdry, 0.0, u_hat)
+    return s1, s2, W1, W2, u_hat, wall_l, wall_r
+
+
+def _rp1_sw_aug(ixy, q_l, q_r, aux_l, aux_r, params):
+    """1D augmented shallow-water solver with wetting and drying
+    (GeoClaw rp1-class sw_aug): aux[0] = b(x), f-wave form (use
+    solver.fwave = True); problem_data['dry_tolerance'] (default 1e-8)
+    marks dry cells.  The f-waves s_p W_p are zeroed where either cell is
+    dry (first order at fronts), and no fluctuation enters a dry wall
+    cell."""
+    g = params["grav"]
+    dry = params.get("dry_tolerance", 1e-8)
+    s1, s2, W1, W2, _, wall_l, wall_r = _sw_aug_core(
+        g, dry, q_l[0], q_r[0], q_l[1], q_r[1], aux_l[0], aux_r[0])
+
+    frontal = (q_l[0] <= dry) | (q_r[0] <= dry)
+    z1 = torch.where(frontal, 0.0, torch.stack([s1 * W1[0], s1 * W1[1]]))
+    z2 = torch.where(frontal, 0.0, torch.stack([s2 * W2[0], s2 * W2[1]]))
+    wave = torch.stack([z1, z2], dim=1)
+    s = torch.stack([s1, s2])
+    amdq = torch.clamp(s1, max=0.0) * torch.stack(W1) \
+        + torch.clamp(s2, max=0.0) * torch.stack(W2)
+    apdq = torch.clamp(s1, min=0.0) * torch.stack(W1) \
+        + torch.clamp(s2, min=0.0) * torch.stack(W2)
+    amdq = torch.where(wall_l, 0.0, amdq)
+    apdq = torch.where(wall_r, 0.0, apdq)
+    return wave, s, amdq, apdq
+
+
+def _sw_aug_positivity(q, aux, params):
+    dry = params.get("dry_tolerance", 1e-8)
+    return q[0] > dry
+
+
 from . import RiemannSolver  # noqa: E402
 
 shallow_roe_with_efix_2D = RiemannSolver(
@@ -205,3 +302,7 @@ shallow_bathymetry_fwave_2D = RiemannSolver(
     "shallow_bathymetry_fwave_2D", 2, 3, 3, _rpn2_shallow_bathymetry_fwave,
     rpt=_rpt2_shallow_roe, requires=("grav",))
 shallow_bathymetry_fwave_2D.positivity = _shallow_positivity
+
+sw_aug_1D = RiemannSolver("sw_aug_1D", 1, 2, 2, _rp1_sw_aug,
+                          requires=("grav",))
+sw_aug_1D.positivity = _sw_aug_positivity

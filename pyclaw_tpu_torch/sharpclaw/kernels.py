@@ -2,22 +2,33 @@
 kernel.
 
 Counterpart of ``pyclaw_tpu/sharpclaw/kernels.py`` (``_recon :31-43`` for
-``lim_type=2``, ``weno_order=5``; ``dq_1d :270-349`` for
-``char_decomp=0``), the rebuild of reference ``sharpclaw/flux1.f90``:
-reconstruct cell-edge values with WENO5 (``ops.weno.weno5``: the CUDA
-kernel ``csrc/weno5.cu`` on a card, ``limiters/recon.py:weno5`` on the
-CPU), fall back to first order in a cell whose edge state is not
-admissible (the ``positivity`` hook), solve the Riemann problems at the
-interfaces, add the in-cell total fluctuation and assemble
+``lim_type=2``, ``weno_order=5``; ``_interface_waves :69``, ``_shift_ifc
+:82``, ``_recon_wave :94`` (WENO form), ``_recon_char :169``,
+``_recon_char_ifc :184``, ``_recon_char_trans :226``; ``dq_1d :270-349``
+with ``char_decomp`` 0-4 at ``lim_type=2``), the rebuild of reference
+``sharpclaw/flux1.f90``: reconstruct cell-edge values, componentwise with
+WENO5 (``ops.weno.weno5``: the CUDA kernel ``csrc/weno5.cu`` on a card,
+``limiters/recon.py:weno5`` on the CPU) or, with ``char_decomp``, on the
+Riemann waves (1), the cells' characteristic fields (2), the jumps
+transmitted into each cell's fields (3) or the interfaces'
+characteristic fields (4); fall back to first order in a cell whose edge
+state is not admissible (the ``positivity`` hook), solve the Riemann
+problems at the interfaces, add the in-cell total fluctuation and
+assemble
 
     dq_i = -dt/(kappa_i dx) (apdq_{i-1/2} + amdq_{i+1/2} + adq_i).
 
 The total fluctuation adq_i = f(qr_i) - f(ql_i) uses the record's ``flux``
 hook when it has one, else a second Riemann solve on (ql_i, qr_i) summing
-amdq + apdq.  Everything but the reconstruction stays plain tensor
-operations, as the JAX package leaves it to XLA.  The other
-reconstructions (TVD, char_decomp 1-4, WENO orders 7-17) and ``dq_nd``
-raise or are queued in ROADMAP.md.
+amdq + apdq.  Everything but the componentwise WENO5 stays plain tensor
+operations, as the JAX package leaves it to XLA: the characteristic
+reconstructions too (the JAX package's reach no Pallas kernel, and each
+projects every stencil onto its own cell's or interface's eigenvectors,
+so the fields do not form the one shifted array that ``weno5.cu`` takes).
+Products with the eigenvector matrices and sums over the wave and
+equation axes are explicit adds in a fixed order.  The TVD
+reconstructions (``lim_type=1``), WENO orders 7-17 and ``dq_nd`` raise or
+are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,13 +36,14 @@ from __future__ import annotations
 import torch
 
 from ..classic.kernels import _dtdx_arr
+from ..limiters import recon
 from ..ops import weno
 from ..solver import _not_ported
 
 
 def _recon(qbc, lim_type, weno_order):
     """Cell-edge values (ql, qr) of every cell of ``qbc`` along its last
-    axis: WENO5, the only reconstruction ported."""
+    axis: componentwise WENO5."""
     if lim_type != 2:
         raise _not_ported("lim_type=1")
     if weno_order != 5:
@@ -39,17 +51,192 @@ def _recon(qbc, lim_type, weno_order):
     return weno.weno5(qbc)
 
 
+def _matvec(M, v):
+    """out[a] = sum_b M[a, b] v[b], the sum in order of b: M (n, n, ...)
+    per cell, or (n, n) constant (a CPU tensor of scalars); v (n, ...)."""
+    n = M.shape[0]
+    out = []
+    for a in range(n):
+        acc = M[a, 0] * v[0]
+        for b in range(1, n):
+            acc = acc + M[a, b] * v[b]
+        out.append(acc)
+    return torch.stack(out)
+
+
+def _dot0(a, b):
+    """sum over axis 0 of a * b, in order."""
+    acc = a[0] * b[0]
+    for k in range(1, a.shape[0]):
+        acc = acc + a[k] * b[k]
+    return acc
+
+
+def _interface_waves(qbc, auxbc, params, rp, ixy):
+    """The Riemann waves at every interface along the last axis: (num_eqn,
+    num_waves, ..., n-1), interface k between cells k and k+1."""
+    aux_l = aux_r = None
+    if auxbc is not None:
+        aux_l, aux_r = auxbc[..., :-1], auxbc[..., 1:]
+    wave, _, _, _ = rp(ixy, qbc[..., :-1], qbc[..., 1:], aux_l, aux_r, params)
+    return wave
+
+
+def _shift_ifc(a, m):
+    """An interface-indexed array shifted by ``m`` along its last axis,
+    zero-filled (zero waves beyond the ends; that band is trimmed)."""
+    if m == 0:
+        return a
+    z = torch.zeros_like(a[..., :abs(m)])
+    if m > 0:
+        return torch.cat([a[..., m:], z], dim=-1)
+    return torch.cat([z, a[..., :m]], dim=-1)
+
+
+def _recon_wave(qbc, auxbc, params, rp, ixy, weno_order):
+    """Wave-slope WENO reconstruction (reference weno.f90 weno5_wave;
+    char_decomp=1): for each wave family and target interface I, the
+    neighbouring interfaces' waves projected onto W_I give relative
+    strengths T_m = <W_{I+m}, W_I> / |W_I|^2, whose cumulative sums form a
+    pseudo-field with a unit jump at I; its WENO edge value is the
+    fraction of W_I added to the cell average."""
+    wave = _interface_waves(qbc, auxbc, params, rp, ixy)
+    num_waves = wave.shape[1]
+    wnorm2 = _dot0(wave, wave)                     # (nw, ..., n-1)
+    safe = wnorm2 > 0.0
+    inv = torch.where(safe, 1.0 / torch.where(safe, wnorm2, 1.0), 0.0)
+
+    k = (weno_order + 1) // 2
+    T = {m: (_dot0(_shift_ifc(wave, m), wave) * inv if m != 0
+             else safe.to(wnorm2.dtype))
+         for m in range(-k + 1, k)}
+
+    def pseudo(j):
+        # v_0 = 0 (the cell left of I), v_{j+1} - v_j = T_j
+        if j == 0:
+            return torch.zeros_like(T[0])
+        if j > 0:
+            return sum(T[m] for m in range(0, j))
+        return -sum(T[m] for m in range(j, 0))
+
+    # the right edge of cell i: target interface i, cell i pseudo-cell 0
+    _, ps_r = recon.weno_stencil(weno_order,
+                                 [pseudo(j) for j in range(-k + 1, k)])
+    # the left edge of cell i: target interface i-1, cell i pseudo-cell 1
+    ps_l, _ = recon.weno_stencil(
+        weno_order, [pseudo(j) - 1.0 for j in range(-k + 2, k + 1)])
+
+    def contrib(ps):
+        acc = ps[0][None] * wave[:, 0]
+        for p in range(1, num_waves):
+            acc = acc + ps[p][None] * wave[:, p]
+        return acc
+
+    contrib_r = contrib(ps_r)                      # at interface i
+    contrib_l = contrib(ps_l)                      # at interface i-1
+    zero = torch.zeros_like(contrib_r[..., :1])
+    qr = qbc + torch.cat([contrib_r, zero], dim=-1)
+    ql = qbc + torch.cat([zero, contrib_l], dim=-1)
+    return ql, qr
+
+
+def _recon_char(qbc, auxbc, params, evec, ixy, weno_order):
+    """Characteristic-wise WENO (reference weno5_char; char_decomp=2):
+    each cell's stencil projected onto that cell's eigenvectors,
+    reconstructed field by field and transformed back."""
+    R, L = evec(ixy, qbc, auxbc, params)
+    k = (weno_order + 1) // 2
+    ws = [_matvec(L, recon._shift(qbc, m)) for m in range(-k + 1, k)]
+    wl, wr = recon.weno_stencil(weno_order, ws)
+    return _matvec(R, wl), _matvec(R, wr)
+
+
+def _recon_char_ifc(qbc, auxbc, params, evec, ixy, weno_order):
+    """Interface-basis characteristic WENO (char_decomp=4): the
+    eigensystem at the mean of each interface's two cells, and both
+    biased edge states of that interface reconstructed in it."""
+    q_avg = 0.5 * (qbc[..., :-1] + qbc[..., 1:])
+    aux_avg = (None if auxbc is None
+               else 0.5 * (auxbc[..., :-1] + auxbc[..., 1:]))
+    R, L = evec(ixy, q_avg, aux_avg, params)       # (ne, ne, ..., n-1)
+    k = (weno_order + 1) // 2
+
+    def proj(m):
+        # the interface-indexed view of cell i+m for interface i
+        return _matvec(L, recon._shift(qbc, m)[..., :-1])
+
+    # the left state at interface i: the right edge of cell i
+    _, wr = recon.weno_stencil(weno_order,
+                               [proj(m) for m in range(-k + 1, k)])
+    # the right state at interface i: the left edge of cell i+1
+    wl, _ = recon.weno_stencil(weno_order,
+                               [proj(m + 1) for m in range(-k + 1, k)])
+    edge_l = _matvec(R, wr)
+    edge_r = _matvec(R, wl)
+    # back to the per-cell (ql, qr); the outermost edges lie in the
+    # trimmed ghost band
+    qr = torch.cat([edge_l, qbc[..., -1:]], dim=-1)
+    ql = torch.cat([qbc[..., :1], edge_r], dim=-1)
+    return ql, qr
+
+
+def _recon_char_trans(qbc, auxbc, params, evec, ixy, weno_order):
+    """Transmission-based characteristic WENO (reference weno5_trans;
+    char_decomp=3): each interface jump projected onto the target cell's
+    left eigenvectors; the cumulative sums of those transmitted strengths
+    form per-family pseudo-fields (zero at the cell) whose WENO edge
+    values are added back through the cell's R."""
+    R, L = evec(ixy, qbc, auxbc, params)
+    k = (weno_order + 1) // 2
+    dq = qbc[..., 1:] - qbc[..., :-1]
+    dq_pad = torch.cat([dq, torch.zeros_like(dq[..., :1])], dim=-1)
+    # alpha_m[..., i] = L_i (the jump m interfaces away)
+    alpha = {m: _matvec(L, _shift_ifc(dq_pad, m))
+             for m in range(-k + 1, k - 1)}
+
+    def pseudo(j):
+        # v_j - v_{j-1} = alpha_{j-1}; v_0 = 0 (the cell itself)
+        if j == 0:
+            return torch.zeros_like(qbc)
+        if j > 0:
+            return sum(alpha[m] for m in range(0, j))
+        return -sum(alpha[m] for m in range(j, 0))
+
+    wl, wr = recon.weno_stencil(weno_order,
+                                [pseudo(j) for j in range(-k + 1, k)])
+    return qbc + _matvec(R, wl), qbc + _matvec(R, wr)
+
+
+def _reconstruct(qbc, auxbc, params, rp, ixy, lim_type, weno_order,
+                 char_decomp, evec):
+    """The cell-edge values of :func:`dq_1d` for ``char_decomp`` 0-4 (the
+    JAX package's branches at ``lim_type=2``; modes 2-4 need ``evec``)."""
+    if lim_type != 2:
+        raise _not_ported("lim_type=1")
+    if char_decomp == 1:
+        return _recon_wave(qbc, auxbc, params, rp, ixy, weno_order)
+    if char_decomp in (2, 3, 4) and evec is not None:
+        fn = {2: _recon_char, 3: _recon_char_trans,
+              4: _recon_char_ifc}[char_decomp]
+        return fn(qbc, auxbc, params, evec, ixy, weno_order)
+    return _recon(qbc, lim_type, weno_order)
+
+
 def dq_1d(qbc, auxbc, dt, dx, rp, params, lim_type, weno_order, index_capa,
-          num_ghost, ixy=0, positivity=None, flux=None):
+          num_ghost, ixy=0, positivity=None, flux=None, char_decomp=0,
+          evec=None):
     """Semidiscrete update along the LAST axis (flux1.f90).
 
     qbc: (num_eqn, ..., n) ghost-padded; auxbc (num_aux, ..., n) or None;
-    ``dt`` a Python float or a 0-d tensor.  Returns (dq over the interior
-    along the last axis, with the dt factor included, cfl)."""
+    ``dt`` a Python float or a 0-d tensor; ``rp`` the normal solver (its
+    waves also feed ``char_decomp=1``), ``evec`` the eigenvector hook of
+    ``char_decomp`` 2-4.  Returns (dq over the interior along the last
+    axis, with the dt factor included, cfl)."""
     g = num_ghost
     n = qbc.shape[-1]
 
-    ql, qr = _recon(qbc, lim_type, weno_order)
+    ql, qr = _reconstruct(qbc, auxbc, params, rp, ixy, lim_type, weno_order,
+                          char_decomp, evec)
     if positivity is not None:
         # per-cell first-order fallback where a reconstructed edge state
         # would be unphysical

@@ -11,8 +11,9 @@ cfl)`` (dt and t Python floats or 0-d tensors; ``out`` the buffer of
 q_new or None, which the last stage combine writes);
 each RK stage extends the BCs and calls ``sharpclaw/kernels.py:dq_1d``
 (1D, any registered system with an ``rp`` hook, with aux and capacity:
-its WENO5 reconstruction ``ops.weno.weno5`` launches ``csrc/weno5.cu``
-on a CUDA tensor) or ``ops.tiled2d.dq_rows`` (2D Euler 4-wave: one
+its componentwise WENO5 reconstruction ``ops.weno.weno5`` launches
+``csrc/weno5.cu`` on a CUDA tensor; ``char_decomp`` 1-4 reconstructs in
+plain PyTorch) or ``ops.tiled2d.dq_rows`` (2D Euler 4-wave: one
 launch of ``csrc/dq2_weno5.cu``); on a CPU tensor both run their plain
 PyTorch versions.  The stage combines are plain tensor operations, as
 the JAX package leaves them to XLA.
@@ -67,8 +68,14 @@ class SharpClawSolver(Solver):
             raise _not_ported("lim_type=1")
         if self.weno_order != 5:
             raise _not_ported("weno_order 7-17")
-        if self.char_decomp != 0:
-            raise _not_ported("char_decomp 1-4")
+        # the JAX package's checks (sharpclaw/solver.py:187-192)
+        if self.char_decomp in (2, 3, 4) and self.rp.evec is None:
+            raise ValueError(f"char_decomp={self.char_decomp} needs an evec "
+                             f"hook on Riemann solver {self.rp.name}")
+        if self.char_decomp not in (0, 1, 2, 3, 4):
+            raise ValueError(f"char_decomp={self.char_decomp} not supported "
+                             "(0 componentwise, 1 wave, 2 characteristic, "
+                             "3 transmission, 4 interface-basis)")
         if self.tfluct_solver:
             raise _not_ported("tfluct_solver")
         if self.dq_src is not None:
@@ -80,7 +87,9 @@ class SharpClawSolver(Solver):
                 raise ValueError(f"Riemann solver {self.rp.name} has no rp "
                                  "hook")
         elif (self.use_soa is False or self.num_dim != 2
-                or self.rp.name != "euler_4wave_2D"):
+                or self.rp.name != "euler_4wave_2D" or self.char_decomp != 0):
+            # char_decomp != 0 leaves the JAX package's SoA route in 2D
+            # and 3D (sharpclaw/solver.py:158) for its generic dq
             raise _not_ported("generic SharpClaw dq")
 
     def setup(self, solution):
@@ -110,11 +119,14 @@ class SharpClawSolver(Solver):
             index_capa = state.index_capa
             (dx,) = state.patch.delta
 
+            char_decomp = self.char_decomp
+
             def dq1(q, aux, dt, t):
                 qbc, auxbc = self._extend_bc(q, aux, t, state)
                 return kernels.dq_1d(qbc, auxbc, dt, dx, rp.rp, params,
                                      lim_type, weno_order, index_capa, g,
-                                     positivity=rp.positivity, flux=rp.flux)
+                                     positivity=rp.positivity, flux=rp.flux,
+                                     char_decomp=char_decomp, evec=rp.evec)
             return dq1
         dx, dy = state.patch.delta
 

@@ -167,7 +167,6 @@ def test_frames_across_the_packages(tmp_path):
 
 
 @pytest.mark.parametrize("attr,value,match", [
-    ("char_decomp", 2, "char_decomp 1-4"),
     ("lim_type", 1, "lim_type=1"),
     ("weno_order", 7, "weno_order 7-17"),
     ("time_integrator", "RK", "time_integrator"),

@@ -1,0 +1,236 @@
+"""SharpClaw's characteristic reconstructions (``char_decomp`` 1-4 at
+``lim_type=2``) and the eigenvector hooks, the port against the JAX
+package.
+
+* the ``evec`` hooks of Euler (1D, 2D 4-wave, 3D) and acoustics against
+  the JAX functions, 1e-12;
+* ``_interface_waves``, ``_shift_ifc`` and each reconstruction
+  (``_recon_wave``, ``_recon_char``, ``_recon_char_trans``,
+  ``_recon_char_ifc``), then ``dq_1d`` at char_decomp 1-4, against the
+  JAX functions on seeded Euler and acoustics states, 1e-12;
+* modes 2, 3 and 4 coincide on constant-coefficient acoustics (the
+  oracle of tests/test_char_decomp.py);
+* the Sod tube with char_decomp=2 against
+  tests/golden/euler_1d_sod_chardecomp.npz in float64: 1e-8, or four
+  times the reference's own one-ulp sensitivity (the JAX run from a
+  state moved by one ulp), which is larger;
+* what stays refused: lim_type=1, char_decomp in 2D, a missing evec hook,
+  a mode outside 0-4.
+"""
+
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pyclaw_tpu_torch
+from pyclaw_tpu import riemann as jriemann
+from pyclaw_tpu.sharpclaw import kernels as jk
+from pyclaw_tpu_torch import riemann as triemann
+from pyclaw_tpu_torch import validate
+from pyclaw_tpu_torch.examples import euler_1d_shocktube as tsod
+from pyclaw_tpu_torch.sharpclaw import kernels as tk
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
+
+import euler_1d_shocktube as jsod  # noqa: E402
+
+EULER = {"gamma": 1.4}
+ACOUSTICS = {"zz": 1.7, "cc": 0.8}
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+
+
+def _euler(seed, n, ndim=1):
+    """A seeded admissible Euler state (num_eqn, n), velocities of either
+    sign."""
+    rng = np.random.default_rng(seed)
+    rho = 0.5 + rng.random(n)
+    mom = [rho * rng.standard_normal(n) for _ in range(ndim)]
+    p = 0.5 + rng.random(n)
+    E = p / 0.4 + 0.5 * sum(m * m for m in mom) / rho
+    return np.stack([rho, *mom, E])
+
+
+@pytest.mark.parametrize("name,ndim", [("euler_with_efix_1D", 1),
+                                       ("euler_roe_1D", 1),
+                                       ("euler_4wave_2D", 2),
+                                       ("euler_3D", 3)])
+def test_euler_evec_matches_jax(name, ndim):
+    q = _euler(ndim, 13, ndim)
+    for ixy in range(ndim):
+        Rt, Lt = triemann.ALL[name].evec(ixy, torch.from_numpy(q), None,
+                                         EULER)
+        Rj, Lj = jax.jit(lambda a: jriemann.ALL[name].evec(ixy, a, None,
+                                                           EULER))(q)
+        assert _rel(Rt.numpy(), Rj) <= 1e-12
+        assert _rel(Lt.numpy(), Lj) <= 1e-12
+
+
+@pytest.mark.parametrize("name,ndim", [("acoustics_1D", 1),
+                                       ("acoustics_2D", 2),
+                                       ("acoustics_3D", 3)])
+def test_acoustics_evec_matches_jax(name, ndim):
+    q = np.random.default_rng(ndim).standard_normal((ndim + 1, 5))
+    for ixy in range(ndim):
+        Rt, Lt = triemann.ALL[name].evec(ixy, torch.from_numpy(q), None,
+                                         ACOUSTICS)
+        Rj, Lj = jriemann.ALL[name].evec(ixy, jnp.asarray(q), None,
+                                         ACOUSTICS)
+        assert Rt.device.type == "cpu" and Rt.dtype == torch.float64
+        assert _rel(Rt.numpy(), Rj) <= 1e-12
+        assert _rel(Lt.numpy(), Lj) <= 1e-12
+
+
+def test_interface_waves_and_shift_match_jax():
+    q = _euler(3, 20)
+    rp_t, rp_j = triemann.euler_with_efix_1D.rp, jriemann.euler_with_efix_1D.rp
+    wt = tk._interface_waves(torch.from_numpy(q), None, EULER, rp_t, 0)
+    wj = jax.jit(lambda a: jk._interface_waves(a, None, EULER, rp_j, 0))(q)
+    assert _rel(wt.numpy(), wj) <= 1e-12
+    for m in (-2, -1, 0, 1, 2):
+        assert np.array_equal(tk._shift_ifc(wt, m).numpy(),
+                              np.asarray(jk._shift_ifc(jnp.asarray(
+                                  wt.numpy()), m)))
+
+
+RECONS = {1: "_recon_wave", 2: "_recon_char", 3: "_recon_char_trans",
+          4: "_recon_char_ifc"}
+
+
+@pytest.mark.parametrize("system", ["euler", "acoustics"])
+@pytest.mark.parametrize("cd", [1, 2, 3, 4])
+def test_reconstructions_match_jax(cd, system):
+    if system == "euler":
+        q, params = _euler(10 + cd, 40), EULER
+        rs_t, rs_j = triemann.euler_with_efix_1D, jriemann.euler_with_efix_1D
+    else:
+        q = np.random.default_rng(cd).standard_normal((2, 40))
+        params = ACOUSTICS
+        rs_t, rs_j = triemann.acoustics_1D, jriemann.acoustics_1D
+    qt = torch.from_numpy(q)
+    fn_t, fn_j = getattr(tk, RECONS[cd]), getattr(jk, RECONS[cd])
+    if cd == 1:
+        out_t = fn_t(qt, None, params, rs_t.rp, 0, 5)
+        out_j = jax.jit(lambda a: fn_j(a, None, params, rs_j.rp, 0, 2, 5,
+                                       4))(q)
+    else:
+        out_t = fn_t(qt, None, params, rs_t.evec, 0, 5)
+        out_j = jax.jit(lambda a: fn_j(a, None, params, rs_j.evec, 0, 5))(q)
+    for a, b in zip(out_t, out_j):
+        assert a.dtype == torch.float64
+        assert _rel(a.numpy(), b) <= 1e-12
+
+
+@pytest.mark.parametrize("cd", [1, 2, 3, 4])
+def test_dq_1d_matches_jax(cd):
+    q = _euler(20 + cd, 48)
+    rs_t, rs_j = triemann.euler_with_efix_1D, jriemann.euler_with_efix_1D
+    d_t, c_t = tk.dq_1d(torch.from_numpy(q), None, 1e-3, 0.01, rs_t.rp,
+                        EULER, 2, 5, -1, 3, positivity=rs_t.positivity,
+                        flux=rs_t.flux, char_decomp=cd, evec=rs_t.evec)
+    d_j, c_j = jax.jit(lambda a: jk.dq_1d(
+        a, None, 1e-3, 0.01, rs_j.rp, EULER, 2, 5, -1, 3, char_decomp=cd,
+        evec=rs_j.evec, positivity=rs_j.positivity, flux=rs_j.flux))(q)
+    assert _rel(d_t.numpy(), d_j) <= 1e-12
+    assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
+
+
+def _acoustics_pulse(char_decomp):
+    """The 1D acoustics pulse of tests/test_char_decomp.py on the port:
+    200 cells of [-1, 1], Z = c = 1, SSP104 to t = 0.25."""
+    solver = pyclaw_tpu_torch.SharpClawSolver1D(triemann.acoustics_1D,
+                                                device="cpu")
+    solver.char_decomp = char_decomp
+    solver.all_bcs = pyclaw_tpu_torch.BC.extrap
+    domain = pyclaw_tpu_torch.Domain([-1.0], [1.0], [200])
+    state = pyclaw_tpu_torch.State(domain, 2)
+    state.problem_data["zz"] = 1.0
+    state.problem_data["cc"] = 1.0
+    x = domain.grid.x.centers
+    state.q[0] = np.exp(-80.0 * (x + 0.4) ** 2)
+    state.q[1] = state.q[0]
+    claw = pyclaw_tpu_torch.Controller()
+    claw.solution = pyclaw_tpu_torch.Solution(state, domain)
+    claw.solver = solver
+    claw.tfinal, claw.num_output_times = 0.25, 1
+    claw.output_format = None
+    claw.run()
+    return claw.solution.q
+
+
+def test_modes_coincide_on_constant_coefficients():
+    q2 = _acoustics_pulse(2)
+    np.testing.assert_allclose(_acoustics_pulse(3), q2, atol=1e-8)
+    np.testing.assert_allclose(_acoustics_pulse(4), q2, atol=1e-8)
+    assert np.abs(q2).max() > 0.1
+
+
+def _jax_sod(seed=None):
+    """The JAX package's float64 run of the validator's char_decomp case,
+    from its initial state moved by one ulp (each entry times 1 + eps r, r
+    seeded uniform in [-1, 1]) when ``seed`` is given."""
+    jclaw = jsod.setup(nx=200, solver_type="sharpclaw", char_decomp=2,
+                       outdir=None)
+    state = jclaw.solution.state
+    if seed is not None:
+        r = np.random.default_rng(seed).uniform(-1.0, 1.0, state.q.shape)
+        state.q = state.q * (1.0 + np.finfo(np.float64).eps * r)
+    jclaw.run()
+    return np.asarray(jclaw.solution.q)
+
+
+def test_sod_chardecomp_within_jax_one_ulp_spread():
+    """The port's float64 run to t = 0.2 against the JAX package's, which
+    reproduces the golden: the gap (1.7e-8 of the golden's max) is above
+    the golden's 1e-8, and within the changes that one-ulp moves of the
+    initial state make in the JAX run itself (seeds 7-11: 9.0e-9 to
+    2.2e-8), so the validator reports this case not ok in float64."""
+    ref = np.load(os.path.join(validate.GOLDEN_DIR,
+                               "euler_1d_sod_chardecomp.npz"))
+    scale = np.abs(ref["q"]).max()
+    q, t = validate.run_case("euler_1d_shocktube", dict(
+        nx=200, solver_type="sharpclaw", char_decomp=2), "cpu", np.float64)
+    assert abs(t - float(ref["t"])) < 1e-10
+    q_jax = _jax_sod()
+    assert np.abs(q_jax - ref["q"]).max() <= 1e-12 * scale
+    moves = [np.abs(_jax_sod(seed) - q_jax).max() / scale
+             for seed in (7, 8, 9, 10, 11)]
+    gap = np.abs(q - q_jax).max() / scale
+    assert gap <= max(moves), (gap, moves)
+
+
+def test_what_stays_refused():
+    claw = tsod.setup(nx=16, outdir=None, device="cpu", char_decomp=2)
+    claw.solver.lim_type = 1
+    with pytest.raises(NotImplementedError, match="lim_type=1"):
+        claw.solver.setup(claw.solution)
+    for cd, err in ((5, "not supported"), (-1, "not supported")):
+        claw = tsod.setup(nx=16, outdir=None, device="cpu", char_decomp=cd)
+        with pytest.raises(ValueError, match=err):
+            claw.solver.setup(claw.solution)
+    claw = tsod.setup(nx=16, outdir=None, device="cpu", char_decomp=2)
+    claw.solver = pyclaw_tpu_torch.SharpClawSolver1D(
+        triemann.euler_hlle_1D, device="cpu")
+    claw.solver.char_decomp = 2
+    with pytest.raises(ValueError, match="evec"):
+        claw.solver.setup(claw.solution)
+    from pyclaw_tpu_torch.examples import euler_2d_quadrants as qex
+    claw = qex.setup(mx=8, my=8, outdir=None, device="cpu",
+                     solver_type="sharpclaw")
+    claw.solver.char_decomp = 2
+    with pytest.raises(NotImplementedError, match="generic SharpClaw dq"):
+        claw.solver.setup(claw.solution)

@@ -65,7 +65,9 @@ def test_registry():
             triemann.shallow_bathymetry_fwave_2D,
         "advection_3D": triemann.advection_3D,
         "acoustics_3D": triemann.acoustics_3D,
-        "vc_acoustics_3D": triemann.vc_acoustics_3D}
+        "vc_acoustics_3D": triemann.vc_acoustics_3D,
+        "acoustics_2D": triemann.acoustics_2D,
+        "sw_aug_1D": triemann.sw_aug_1D}
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

@@ -30,7 +30,8 @@ from pyclaw_tpu_torch.classic import kernels as tk
 from pyclaw_tpu_torch.ops import sweep
 
 PARAMS = {"u": -0.7, "rho": 1.3, "bulk": 2.0, "gamma": 1.4}
-NAMES = list(sweep.SYSTEMS_1D)
+# the systems that read no aux (sw_aug_1D: tests/test_torch_sw_aug.py)
+NAMES = [n for n in sweep.SYSTEMS_1D if n not in sweep.AUX_ROWS_1D]
 
 
 @pytest.fixture(autouse=True)

@@ -173,6 +173,22 @@ def test_step2_aos_case_is_the_shallow_path(monkeypatch):
     assert tuple(path[4]) == case[6] and path[5:] == case[7:]
 
 
+def test_step2_aos_acoustics_case_is_the_acoustics_path(monkeypatch):
+    """step2_aos's acoustics case is examples.acoustics_2d's first step,
+    as chip_smoke.py's [4j] path runs it."""
+    from pyclaw_tpu_torch.examples import acoustics_2d as ex
+    n = 12
+    claw = ex.setup(mx=n, my=n, outdir=None, device="cpu", dtype="float64")
+    claw.tfinal = 0.01
+    args, kwargs = _first_call(monkeypatch, "step2_rows_generic", claw)
+    qbc, case = tk.step2_aos_acoustics_case(n, torch.float64, "cpu")
+    assert torch.equal(args[0], qbc) and args[1] is None is case[0]
+    path = args[3:] + tuple(kwargs.values())
+    # dt is the controller's; the rest is the case's
+    assert path[:3] == case[2:5] and path[3] == case[5]
+    assert tuple(path[4]) == case[6] and path[5:] == case[7:]
+
+
 def test_step1_case_is_the_classic_sod_path(monkeypatch):
     """step1's case is the classic Sod path's first step, as chip_smoke.py's
     [4e] runs it (examples.euler_1d_shocktube, ClawSolver1D, MC)."""
@@ -198,6 +214,38 @@ def test_step1_case_is_the_classic_sod_path(monkeypatch):
     assert sweep.system_params(path[4], path[5]) == \
         sweep.system_params(case[3], case[4])
     assert tuple(path[6]) == case[5] and path[7:] == case[6:]
+
+
+def test_step1_dam_case_is_the_dam_break_configuration(monkeypatch):
+    """step1's "dam" case takes the dry dam break's configuration
+    (examples.dam_break_dry: sw_aug_1D, grav, dry_tolerance, minmod,
+    f-waves, the beach in aux) on a seeded wet/dry state, whose depths
+    stay nonnegative and whose interfaces include dry and wet ones."""
+    from pyclaw_tpu_torch.examples import dam_break_dry as ex
+    from pyclaw_tpu_torch.ops import sweep
+    n = 40
+    claw = ex.setup(nx=n, outdir=None, device="cpu", dtype="float64")
+    claw.tfinal = 0.01
+    seen = []
+    real = sweep.step1
+
+    def spy(*args, **kwargs):
+        seen.append(args + tuple(v for k, v in kwargs.items() if k != "out"))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(sweep, "step1", spy)
+    claw.run()
+    path = seen[0]
+    qbc, case = tk.step1_case(n, torch.float64, "cpu", "dam")
+    assert qbc.shape == path[0].shape and case[0].shape == path[1].shape
+    # the beach (the path's aux) is the case's
+    assert torch.equal(case[0], path[1])
+    assert path[3] == case[2] and path[4] is case[3]
+    assert sweep.system_params(path[4], path[5]) == \
+        sweep.system_params(case[3], case[4])
+    assert tuple(path[6]) == case[5] and path[7:] == case[6:]
+    h = qbc[0].numpy()
+    assert h.min() == 0.0 and (h > 0.2).mean() > 0.5
+    assert tk.CASES_1D["dam"] == ("dam", 2 ** 20)
 
 
 def test_weno5_case_is_the_sharpclaw_sod_path(monkeypatch):
