@@ -131,6 +131,24 @@ Phases (each asserts; any failure exits non-zero):
   4l. the Sod tube with SharpClaw char_decomp=2 at 800 cells in float32 to
      t=0.2 (the whole stage is plain PyTorch: no kernel launch but one
      restore an attempted step), against the same run in float64;
+  4m. the parallel overlay (pyclaw_tpu_torch/parallel) in a world of one
+     NCCL rank (init_distributed on a file:// store):
+     parallel.ClawSolver3D on examples.euler_3d.setup(mx=my=mz=192,
+     float32) to t=0.2, equal bit for bit to [4c]'s serial q with the
+     same accepted and rejected steps, one step3_ctu launch an attempted
+     step on the card (the overlay takes the host loop) and no other
+     kernel;
+  4n. four ranks of the overlay (NCCL with one card a rank when the
+     machine has four, else gloo with the four ranks on the one card,
+     decided before any rank starts; the ranks are spawned after [2]
+     built the kernels): Euler 3D 192^3 on (2,2,1) to t=0.2, the classic
+     quadrants 1024^2 on (2,2) to t=0.1, the SharpClaw quadrants 256^2 on
+     (2,2) to t=0.05 and Sod (classic) at 800 cells on (4,) to t=0.2, all
+     float32, each equal bit for bit to the serial card run of the same
+     setup with the same steps, each rank's device counters holding its
+     kernel's launches per attempted step times the attempts; the walls
+     beside the serial ones (the cost of the exchange, not a scaling
+     figure);
   5v. the golden validator (pyclaw_tpu_torch/validate.py, the port of
      tools/tpu_validate.py): its ten cases on the card in float32 at the
      tool's tolerances and in float64 at 1e-8 (it took over the goldens of
@@ -2370,6 +2388,269 @@ def validator_phase(dev):
     return out
 
 
+# ---- the parallel overlay: [4m] NCCL with one rank, [4n] four ranks -------
+
+# [4n]'s runs: name -> (the example module, its setup keywords, the
+# overlay's solver class, the mesh shape, the final time, the kernel, its
+# launches per attempted step)
+OVERLAY_CASES = {
+    "euler3d": ("euler_3d", dict(mx=192, my=192, mz=192), "ClawSolver3D",
+                (2, 2, 1), 0.2, "step3_ctu", 1),
+    "quadrants": ("euler_2d_quadrants", dict(mx=1024, my=1024),
+                  "ClawSolver2D", (2, 2), 0.1, "step2_ctu", 1),
+    "sharpclaw": ("euler_2d_quadrants",
+                  dict(mx=256, my=256, solver_type="sharpclaw"),
+                  "SharpClawSolver2D", (2, 2), 0.05, "dq2_weno5", 10),
+    "sod": ("euler_1d_shocktube", dict(nx=800, solver_type="classic"),
+            "ClawSolver1D", (4,), 0.2, "step1", 1),
+}
+OVERLAY_RANKS = 4
+
+
+def overlay_claw(name, dev, mesh=None):
+    """The float32 claw of OVERLAY_CASES[name] on ``dev``: the example's
+    serial run, or with ``mesh`` the overlay on that mesh.  An example
+    with a ``use_parallel`` keyword (Euler 3D) builds the overlay itself,
+    its solver and its Controller, as a user's run does; the others' serial
+    solver is swapped for the overlay's of the same settings."""
+    import importlib
+    import inspect
+
+    from pyclaw_tpu_torch import convert, parallel
+    module, kw, cls, _, tfinal, _, _ = OVERLAY_CASES[name]
+    ex = importlib.import_module(f"pyclaw_tpu_torch.examples.{module}")
+    if mesh is not None and "use_parallel" in inspect.signature(
+            ex.setup).parameters:
+        claw = ex.setup(dtype=np.float32, outdir=None, device=dev,
+                        use_parallel=True, **kw)
+        if not (isinstance(claw, parallel.Controller)
+                and type(claw.solver) is getattr(parallel, cls)):
+            fail(f"{module}.setup(use_parallel=True) built "
+                 f"{type(claw).__name__} / {type(claw.solver).__name__}")
+        claw.solver.mesh = mesh
+    else:
+        claw = ex.setup(dtype=np.float32, outdir=None, device=dev, **kw)
+        if mesh is not None:
+            solver = getattr(parallel, cls)(claw.solver.rp, mesh=mesh,
+                                            device=dev)
+            convert.apply_solver_settings(
+                solver, convert.solver_settings(claw.solver))
+            claw.solver = solver
+    claw.tfinal = tfinal
+    return claw
+
+
+def free_port():
+    """A free TCP port on the loopback interface, for a process group's
+    store (MASTER_PORT)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def launcher_env(rank, world_size, port, local_rank=None):
+    """The environment torchrun gives a rank (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT and, for a rank of its own card, LOCAL_RANK)
+    inside the block, so that ``parallel.init_distributed()`` joins as
+    under torchrun; the earlier values come back after it."""
+    env = {"RANK": rank, "WORLD_SIZE": world_size,
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+           "LOCAL_RANK": local_rank}
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_claw(claw):
+    """claw.run() between two synchronisations: (claw, status, wall)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
+def overlay_record(label, claw, status, wall, counts, ran, kernel,
+                   per_attempt):
+    """A run's record: its steps, its wall, the launch counts (the
+    wrappers' and the card's, held by check_path_launches to the kernel's
+    launches per attempted step times the attempts, on the host loop)."""
+    loop = check_path_launches(label, claw, status, counts, kernel,
+                               per_attempt, graph=False, ran=ran)
+    return {"accepted": status["numsteps"], "rejected":
+            status["numrejected"], "wall_s": wall, "launches": ran,
+            "wrapper_counts": counts, "loop": loop}
+
+
+def overlay_rank(rank, backend, devices, port, outdir, names):
+    """[4n]: one rank of the four, on ``devices[rank]``.  Joins the process
+    group as under torchrun (the launcher's environment, a store on
+    ``port``; NCCL from the card, gloo when asked), runs each case of
+    ``names`` on the overlay with its device counters set to 0 just before
+    and read just after, and writes its records (rank 0 also each gathered
+    q) into ``outdir``."""
+    import torch
+    import torch.distributed as dist
+    from pyclaw_tpu_torch import parallel
+    from pyclaw_tpu_torch.ops import _build
+    dev = torch.device(devices[rank])
+    with launcher_env(rank, OVERLAY_RANKS, port,
+                      dev.index if backend == "nccl" else None):
+        parallel.init_distributed(None if backend == "nccl" else backend,
+                                  device=dev)
+    if dev.type == "cuda":
+        # the parent's builds, loaded here outside the timed runs
+        _build.load_all([OVERLAY_CASES[n][5] for n in names])
+    count_on_device(dev)
+    if dist.get_backend() != backend:
+        fail(f"[4n] rank {rank}: backend {dist.get_backend()}, not {backend}")
+    out = {}
+    for name in names:
+        _, _, _, shape, _, kernel, per_attempt = OVERLAY_CASES[name]
+        claw = overlay_claw(name, dev, parallel.make_mesh(len(shape), shape))
+        dist.barrier()
+        claw, status, wall, counts, ran = counted_run(lambda: run_claw(claw))
+        out[name] = overlay_record(f"[4n] {name} rank {rank}", claw, status,
+                                   wall, counts, ran, kernel, per_attempt)
+        out[name]["mesh"] = list(claw.solver.mesh.shape)
+        if rank == 0:
+            np.save(os.path.join(outdir, f"{name}.npy"), claw.solution.q)
+        del claw
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def nccl_one_rank(dev, q_serial, ns, nr):
+    """[4m]: Euler 3D 192^3 f32 to t=0.2 on the overlay in a world of one
+    NCCL rank, joined as under torchrun (``parallel.init_distributed()``
+    reads RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT and takes NCCL from
+    the card) and built by ``euler_3d.setup(use_parallel=True)``: q equal
+    bit for bit to [4c]'s serial run, the same accepted and rejected
+    steps, one step3_ctu launch an attempted step on the card and no
+    other kernel."""
+    import torch.distributed as dist
+    from pyclaw_tpu_torch import parallel
+    with launcher_env(0, 1, free_port()):
+        parallel.init_distributed()
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"[4m]: the process group's backend is "
+                 f"{dist.get_backend()}")
+        claw = overlay_claw("euler3d", dev, parallel.make_mesh(3))
+        claw, status, wall, counts, ran = counted_run(lambda: run_claw(claw))
+        rec = overlay_record("[4m] euler_3d nccl", claw, status, wall,
+                             counts, ran, "step3_ctu", 1)
+        q = claw.solution.q
+    finally:
+        dist.destroy_process_group()
+    rec["bit_equal"] = bool(np.array_equal(q, q_serial))
+    rec["serial_steps"] = [ns, nr]
+    print(f"[4m] euler_3d 192^3 f32 to t=0.2 on the overlay, NCCL, one rank "
+          f"(mesh {list(claw.solver.mesh.shape)}): {rec['accepted']} + "
+          f"{rec['rejected']} steps (serial [4c] {ns} + {nr}), "
+          f"{ran['step3_ctu']} step3_ctu launches the card ran, "
+          f"{wall:.3f} s wall; q equal to [4c]'s bit for bit: "
+          f"{rec['bit_equal']}", flush=True)
+    if not rec["bit_equal"] or (rec["accepted"], rec["rejected"]) != (ns, nr):
+        fail(f"[4m]: the overlay differs from the serial run: "
+             f"max |dq| {float(np.abs(q - q_serial).max())}, steps "
+             f"{rec['accepted']} + {rec['rejected']} against {ns} + {nr}")
+    return rec
+
+
+def four_ranks(dev, limit_s=400):
+    """[4n]: each case of OVERLAY_CASES on four ranks against the serial
+    card run of the same setup: q equal bit for bit, the same steps, and
+    each rank's device counters holding its kernel's launches per
+    attempted step times the attempts.  NCCL with one card a rank when
+    the machine has four cards, else gloo with the four ranks on the one
+    card (decided here, before any rank starts); the parent has built the
+    kernels, so the ranks load them.  The walls beside the serial ones
+    are the cost of the exchange, not a scaling figure."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    backend = "nccl" if torch.cuda.device_count() >= OVERLAY_RANKS else "gloo"
+    devices = ([f"cuda:{r}" for r in range(OVERLAY_RANKS)]
+               if backend == "nccl" else [str(dev)] * OVERLAY_RANKS)
+    print(f"[4n] backend {backend}: {torch.cuda.device_count()} card(s), "
+          f"{OVERLAY_RANKS} ranks" + ("" if backend == "nccl" else
+                                     " on one card, faces through pinned "
+                                     "host memory"), flush=True)
+    serial = {}
+    for name in OVERLAY_CASES:
+        claw, status, wall, _, _ = counted_run(
+            lambda: run_claw(overlay_claw(name, dev)))
+        # the same run on the host loop, which the overlay takes: its wall
+        with host_loop():
+            _, _, wall_host = run_claw(overlay_claw(name, dev))
+        serial[name] = (claw.solution.q, status["numsteps"],
+                        status["numrejected"], wall, wall_host)
+        del claw
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            overlay_rank, args=(backend, devices, free_port(), outdir,
+                                list(OVERLAY_CASES)),
+            nprocs=OVERLAY_RANKS, join=False, start_method="spawn")
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > limit_s:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"[4n]: the ranks did not end within {limit_s} s")
+        ranks_wall = time.perf_counter() - t0
+        recs = []
+        for r in range(OVERLAY_RANKS):
+            with open(os.path.join(outdir, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        q_ranks = {name: np.load(os.path.join(outdir, f"{name}.npy"))
+                   for name in serial}
+    out = {"backend": backend, "ranks_s": ranks_wall, "devices": devices}
+    for name, (q_ser, ns, nr, wall_ser, wall_host) in serial.items():
+        q = q_ranks[name]
+        per = [rec[name] for rec in recs]
+        steps = {(p["accepted"], p["rejected"]) for p in per}
+        kernel = OVERLAY_CASES[name][5]
+        res = {"mesh": per[0]["mesh"], "accepted": per[0]["accepted"],
+               "rejected": per[0]["rejected"], "serial_accepted": ns,
+               "serial_rejected": nr, "serial_wall_s": wall_ser,
+               "serial_host_loop_wall_s": wall_host,
+               "rank_wall_s": [p["wall_s"] for p in per],
+               "launches": [p["launches"][kernel] for p in per],
+               "bit_equal": bool(np.array_equal(q, q_ser))}
+        out[name] = res
+        print(f"[4n] {name} on {res['mesh']} ({backend}): "
+              f"{res['accepted']} + {res['rejected']} steps (serial {ns} + "
+              f"{nr}), {kernel} launches per rank {res['launches']}; wall "
+              f"per rank {[round(w, 3) for w in res['rank_wall_s']]} s, "
+              f"serial {wall_ser:.3f} s (device loop), {wall_host:.3f} s "
+              f"(host loop) (the exchange's cost on "
+              f"{'four cards' if backend == 'nccl' else 'one card'}, not a "
+              f"scaling figure); q equal to the serial run bit for bit: "
+              f"{res['bit_equal']}", flush=True)
+        if not res["bit_equal"] or steps != {(ns, nr)}:
+            fail(f"[4n] {name}: the overlay differs from the serial run: "
+                 f"max |dq| {float(np.abs(q - q_ser).max())}, steps {steps} "
+                 f"against {(ns, nr)}")
+    return out
+
+
 # ---- the device loop: CUDA-graph replays against the host loop ----------
 
 @contextlib.contextmanager
@@ -3005,6 +3286,16 @@ def main():
     chardecomp = chardecomp_path(dev)
     phase_s["4l"] = time.perf_counter() - t0
 
+    # [4m] the parallel overlay in a world of one NCCL rank against [4c];
+    # [4n] four ranks against the serial runs, every launch count of each
+    # rank set to 0 just before each run and read just after
+    t0 = time.perf_counter()
+    overlay_one = nccl_one_rank(dev, q3, ns3, nr3)
+    phase_s["4m"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    overlay_four = four_ranks(dev)
+    phase_s["4n"] = time.perf_counter() - t0
+
     # [5v] the validator on the card: the ten golden cases of
     # tools/tpu_validate.py in float32 and float64 (it takes over the
     # goldens of the earlier phases [5], [5c], [5d] and three of [5e])
@@ -3120,7 +3411,9 @@ def main():
         "replaces_function": "step2_pallas_rows (SoA body); "
                              "step2_pallas_tiled (ops/tiled2d.py:52)",
         "rows": ["1", "4"],
-        "launches": launches, "max_abs_err": main_abs_err,
+        "launches": launches,
+        "overlay_launches": {"4n": overlay_four["quadrants"]["launches"]},
+        "max_abs_err": main_abs_err,
         "ms": f32["ms"], "device_ms": f32["device_ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
@@ -3139,7 +3432,9 @@ def main():
         "replaces": "pyclaw_tpu/ops/tiled2d.py:314",
         "replaces_function": "dq_pallas_rows", "rows": ["2"],
         "redesigned_in": 7,
-        "launches": dq_launches, "max_abs_err": dq_main_abs_err,
+        "launches": dq_launches,
+        "overlay_launches": {"4n": overlay_four["sharpclaw"]["launches"]},
+        "max_abs_err": dq_main_abs_err,
         "ms": d32["ms"], "device_ms": d32["device_ms"],
         "plain_ms": d32["plain_ms"],
         "bound_ms": d32["bound_ms"], "bound_by": d32["bound_by"],
@@ -3157,7 +3452,11 @@ def main():
         "source": "pyclaw_tpu_torch/csrc/step3_ctu.cu",
         "replaces": "pyclaw_tpu/ops/tiled2d.py:431",
         "replaces_function": "step3_pallas_xy", "rows": ["3"],
-        "launches": s3_launches, "max_abs_err": s3_main_abs_err,
+        "launches": s3_launches,
+        "overlay_launches": {
+            "4m": overlay_one["launches"]["step3_ctu"],
+            "4n": overlay_four["euler3d"]["launches"]},
+        "max_abs_err": s3_main_abs_err,
         "ms": t32["ms"], "device_ms": t32["device_ms"],
         "ms_last_state": t32["ms_last_state"],
         "plain_ms": t32["plain_ms"],
@@ -3202,7 +3501,9 @@ def main():
         "source": "pyclaw_tpu_torch/csrc/step1.cu",
         "replaces": "pyclaw_tpu/ops/sweep.py:35",
         "replaces_function": "step1_pallas", "rows": ["7"],
-        "launches": s1_launches, "max_abs_err": s1_abs["sod"],
+        "launches": s1_launches,
+        "overlay_launches": {"4n": overlay_four["sod"]["launches"]},
+        "max_abs_err": s1_abs["sod"],
         "ms": k32["ms"], "device_ms": k32["device_ms"],
         "plain_ms": k32["plain_ms"],
         "bound_ms": k32["bound_ms"], "bound_by": k32["bound_by"],
@@ -3395,6 +3696,8 @@ def main():
                "euler3d_capacity_checks": eu_checks,
                "acoustics_path": acou, "dam_break_dry_path": dam,
                "sod_chardecomp_path": chardecomp, "validator": validator,
+               "overlay_nccl_one_rank": overlay_one,
+               "overlay_four_ranks": overlay_four,
                "lake_at_rest": {"steps": lake_steps,
                                 "eta_drift": eta_drift, "momentum": mom},
                "golden_rel_err": golden, "sharpclaw_card_vs_cpu":

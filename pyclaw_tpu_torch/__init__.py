@@ -51,7 +51,8 @@ from .solver import BC, Solver  # noqa: F401,E402
 from .state import State  # noqa: F401,E402
 from .classic import (  # noqa: F401,E402
     ClawSolver1D, ClawSolver2D, ClawSolver3D)
-from .sharpclaw import SharpClawSolver1D, SharpClawSolver2D  # noqa: F401,E402
+from .sharpclaw import (  # noqa: F401,E402
+    SharpClawSolver1D, SharpClawSolver2D, SharpClawSolver3D)
 from . import limiters, riemann  # noqa: F401,E402
 
 __version__ = "0.1.0"

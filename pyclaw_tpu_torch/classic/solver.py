@@ -59,7 +59,8 @@ class ClawSolver(Solver):
         self._size_bc_lists(self.num_dim)
         if self.dt_initial is not None:
             self.dt = self.dt_initial
-        self._step_fn = self._make_hyperbolic_step(state)
+        self._step_fn = self._finalize_step(
+            self._make_hyperbolic_step(state), state)
         self._is_set_up = True
 
     def _make_hyperbolic_step(self, state):

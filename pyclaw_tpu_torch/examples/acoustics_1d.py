@@ -55,6 +55,5 @@ def setup(nx=100, solver_type="classic", time_integrator="SSP104",
 
 
 if __name__ == "__main__":
-    claw = setup()
-    status = claw.run()
-    print(status)
+    from pyclaw_tpu_torch.util import run_app_from_main
+    run_app_from_main(setup)

@@ -62,6 +62,5 @@ def setup(mx=32, my=32, mz=32, solver_type="classic", rho_bot=4.0,
 
 
 if __name__ == "__main__":
-    claw = setup()
-    status = claw.run()
-    print(status)
+    from pyclaw_tpu_torch.util import run_app_from_main
+    run_app_from_main(setup)

@@ -8,6 +8,8 @@ one): ``ClawSolver1D(advection_1D)`` with the van Leer limiter, or
 Euler).  ``setup()`` takes the JAX example's keywords plus ``device`` and
 ``dtype``; the device picks the kernel (``csrc/step1.cu`` or
 ``csrc/weno5.cu`` on a card), so there is no ``kernel_language``.
+``use_petsc`` is taken and, as in the JAX example, changes nothing: the
+serial solver runs.
 
     python -m pyclaw_tpu_torch.examples.advection_1d
 """
@@ -21,10 +23,6 @@ from pyclaw_tpu_torch import riemann
 def setup(nx=100, use_petsc=False, solver_type="classic", weno_order=5,
           time_integrator="SSP104", outdir="./_output", dtype=None,
           device=None):
-    if use_petsc:
-        raise NotImplementedError(
-            "use_petsc is not ported to pyclaw_tpu_torch yet (ROADMAP.md, "
-            "Queue 1 item 13)")
     if solver_type == "classic":
         solver = pyclaw.ClawSolver1D(riemann.advection_1D, device=device)
         solver.limiters = [pyclaw.limiters.tvd.vanleer]
@@ -58,6 +56,5 @@ def setup(nx=100, use_petsc=False, solver_type="classic", weno_order=5,
 
 
 if __name__ == "__main__":
-    claw = setup()
-    status = claw.run()
-    print(status)
+    from pyclaw_tpu_torch.util import run_app_from_main
+    run_app_from_main(setup)

@@ -55,6 +55,5 @@ def setup(nx=500, dimension=1, outdir="./_output", dtype=None, device=None):
 
 
 if __name__ == "__main__":
-    claw = setup()
-    status = claw.run()
-    print(status)
+    from pyclaw_tpu_torch.util import run_app_from_main
+    run_app_from_main(setup)

@@ -59,6 +59,5 @@ def setup(nx=800, solver_type="sharpclaw", time_integrator="SSP104",
 
 
 if __name__ == "__main__":
-    claw = setup()
-    status = claw.run()
-    print(status)
+    from pyclaw_tpu_torch.util import run_app_from_main
+    run_app_from_main(setup)

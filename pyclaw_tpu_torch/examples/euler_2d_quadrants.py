@@ -60,6 +60,5 @@ def setup(mx=200, my=200, solver_type="classic", time_integrator="SSP104",
 
 
 if __name__ == "__main__":
-    claw = setup()
-    status = claw.run()
-    print(status)
+    from pyclaw_tpu_torch.util import run_app_from_main
+    run_app_from_main(setup)

@@ -3,28 +3,29 @@
 same initial condition and ``setup()`` keywords plus ``device``, on the
 unsplit classic CTU solver (MC limiter, extrapolation BCs, gamma = 1.4,
 to t = 0.2).  The device picks the kernel, so there is no
-``kernel_language``.
+``kernel_language``.  With ``use_parallel=True`` the solver is the
+parallel overlay's (``pyclaw_tpu_torch.parallel``), one process a rank;
+SharpClaw in 3D is not ported yet (its setup raises).
 
-    python -m pyclaw_tpu_torch.examples.euler_3d
+    python -m pyclaw_tpu_torch.examples.euler_3d mx=64 my=64 mz=64
+    torchrun --nproc-per-node 4 -m pyclaw_tpu_torch.examples.euler_3d \
+        use_parallel=True mx=192 my=192 mz=192 dtype=float32
 """
 
 import numpy as np
 
 import pyclaw_tpu_torch as pyclaw
-from pyclaw_tpu_torch import riemann
-from pyclaw_tpu_torch.solver import _not_ported
+from pyclaw_tpu_torch import parallel, riemann
 
 
 def setup(mx=32, my=32, mz=32, solver_type="classic", use_parallel=False,
           outdir="./_output", dtype=None, device=None):
-    if solver_type != "classic":
-        raise _not_ported("generic SharpClaw dq")
-    if use_parallel:
-        raise NotImplementedError(
-            "use_parallel is not ported to pyclaw_tpu_torch yet (ROADMAP.md, "
-            "Queue 1 item 13)")
-    solver = pyclaw.ClawSolver3D(riemann.euler_3D, device=device)
-    solver.limiters = [pyclaw.limiters.tvd.MC]
+    classes = parallel if use_parallel else pyclaw
+    if solver_type == "classic":
+        solver = classes.ClawSolver3D(riemann.euler_3D, device=device)
+        solver.limiters = [pyclaw.limiters.tvd.MC]
+    else:
+        solver = classes.SharpClawSolver3D(riemann.euler_3D, device=device)
     solver.all_bcs = pyclaw.BC.extrap
 
     domain = pyclaw.Domain([-1.0, -1.0, -1.0], [1.0, 1.0, 1.0],
@@ -42,14 +43,14 @@ def setup(mx=32, my=32, mz=32, solver_type="classic", use_parallel=False,
     state.q[3] = 0.0
     state.q[4] = p / (gamma - 1.0)
 
-    claw = pyclaw.Controller()
+    # the overlay's Controller: rank 0 writes the ascii frames
+    claw = classes.Controller()
     claw.solution = pyclaw.Solution(state, domain)
     claw.solver = solver
     claw.tfinal = 0.2
     claw.num_output_times = 2
     claw.outdir = outdir
-    if outdir is None:
-        claw.output_format = None
+    claw.output_format = "ascii" if outdir is not None else None
     return claw
 
 
@@ -70,6 +71,5 @@ def add_capacity(state):
 
 
 if __name__ == "__main__":
-    claw = setup()
-    status = claw.run()
-    print(status)
+    from pyclaw_tpu_torch.util import run_app_from_main
+    run_app_from_main(setup)

@@ -48,6 +48,5 @@ def setup(mx=125, my=125, solver_type="classic", outdir="./_output",
 
 
 if __name__ == "__main__":
-    claw = setup()
-    status = claw.run()
-    print(status)
+    from pyclaw_tpu_torch.util import run_app_from_main
+    run_app_from_main(setup)

@@ -171,36 +171,69 @@ class Solver:
                 raise ValueError(f"index_capa={state.index_capa} names no "
                                  "row of state.aux")
 
+    # the parallel overlay (pyclaw_tpu_torch/parallel) runs this solver's
+    # step on each rank's block: it sets this (the overlay takes the host
+    # loop) and replaces the three hooks below, _finalize_step (the CFL
+    # reduction) and _pull (the gather)
+    distributed = False
+
+    def _ghosts(self, arr, lower, upper, wall_reflects):
+        """``arr`` with its ghost cells on every spatial axis: the serial
+        ``bc.extend``; the overlay's halo exchange takes its place."""
+        return extend(arr, self.num_ghost, lower, upper,
+                      wall_reflects=wall_reflects)
+
+    def _block_of(self, arr):
+        """This process's block of a global array (num_eqn|num_aux, *cells)
+        of the state, or None for None: all of it in serial."""
+        return arr
+
+    def _owns_boundary(self, d, side):
+        """True when this process holds the physical boundary ``side`` (0
+        lower, 1 upper) of dimension ``d``, where a custom BC callback
+        runs: always in serial."""
+        return True
+
     def _extend_bc(self, q, aux, t, state):
         """Ghost-cell extension + custom-BC callbacks: (qbc, auxbc).  aux
         is extended on every step, without the wall reflection, as in the
         JAX package (``pyclaw_tpu/solver.py:_extend_bc``)."""
         g = self.num_ghost
-        qbc = extend(q, g, self.bc_lower, self.bc_upper, wall_reflects=True)
+        qbc = self._ghosts(q, self.bc_lower, self.bc_upper, True)
         auxbc = None
         if aux is not None:
-            auxbc = extend(aux, g, self.aux_bc_lower, self.aux_bc_upper,
-                           wall_reflects=False)
+            auxbc = self._ghosts(aux, self.aux_bc_lower, self.aux_bc_upper,
+                                 False)
             for d in range(self.num_dim):
                 if (self.aux_bc_lower[d] == BC.custom
-                        and self.user_aux_bc_lower is not None):
+                        and self.user_aux_bc_lower is not None
+                        and self._owns_boundary(d, 0)):
                     auxbc = self.user_aux_bc_lower(state, d, t, qbc, auxbc, g)
             for d in range(self.num_dim):
                 if (self.aux_bc_upper[d] == BC.custom
-                        and self.user_aux_bc_upper is not None):
+                        and self.user_aux_bc_upper is not None
+                        and self._owns_boundary(d, 1)):
                     auxbc = self.user_aux_bc_upper(state, d, t, qbc, auxbc, g)
         for d in range(self.num_dim):
             if self.bc_lower[d] == BC.custom:
                 if self.user_bc_lower is None:
                     raise ValueError("bc_lower is custom but user_bc_lower "
                                      "is not set")
-                qbc = self.user_bc_lower(state, d, t, qbc, auxbc, g)
+                if self._owns_boundary(d, 0):
+                    qbc = self.user_bc_lower(state, d, t, qbc, auxbc, g)
             if self.bc_upper[d] == BC.custom:
                 if self.user_bc_upper is None:
                     raise ValueError("bc_upper is custom but user_bc_upper "
                                      "is not set")
-                qbc = self.user_bc_upper(state, d, t, qbc, auxbc, g)
+                if self._owns_boundary(d, 1):
+                    qbc = self.user_bc_upper(state, d, t, qbc, auxbc, g)
         return qbc, auxbc
+
+    def _finalize_step(self, step_fn, state):
+        """The step function the solver runs, from the one its setup
+        built: ``step_fn`` itself in serial; the overlay adds the CFL
+        reduction over its ranks."""
+        return step_fn
 
     def step(self, solution):
         """One step of self.dt on the device state; sets the cached CFL."""
@@ -236,27 +269,27 @@ class Solver:
         owns and from there asynchronously (state.aux stays the caller's
         array)."""
         dtype = torch_dtype(state.q.dtype)
+        q, aux = self._block_of(state.q), self._block_of(state.aux)
         held = self._q_host
-        if held is not None and state.q is held[0]:
+        if held is not None and q is held[0]:
             self._q_dev = self._to_device(held[1], self._q_dev, True)
         else:
             self._q_dev = self._to_device(torch.as_tensor(
-                np.ascontiguousarray(state.q), dtype=dtype), self._q_dev)
-        if state.aux is None:
+                np.ascontiguousarray(q), dtype=dtype), self._q_dev)
+        if aux is None:
             self._aux_dev = None
             return
         if self.device.type != "cuda":
             self._aux_dev = self._to_device(torch.as_tensor(
-                np.ascontiguousarray(state.aux), dtype=dtype), self._aux_dev)
+                np.ascontiguousarray(aux), dtype=dtype), self._aux_dev)
             return
         stage = self._aux_stage
-        if (stage is None or tuple(stage.shape) != state.aux.shape
+        if (stage is None or tuple(stage.shape) != aux.shape
                 or stage.dtype != dtype):
-            stage = self._aux_stage = self._host_buffer(state.aux.shape,
-                                                        dtype)
+            stage = self._aux_stage = self._host_buffer(aux.shape, dtype)
         elif self._aux_copied is not None:
             self._aux_copied.synchronize()
-        stage.numpy()[...] = state.aux
+        stage.numpy()[...] = aux
         self._aux_dev = self._to_device(stage, self._aux_dev, True)
         self._aux_copied = torch.cuda.Event()
         self._aux_copied.record(torch.cuda.current_stream(self.device))
@@ -310,7 +343,7 @@ class Solver:
         return _DeviceLoop(self, state, self._q_dev, self._aux_dev)
 
     def _can_use_traced_evolve(self, state):
-        return (self.before_step is None
+        return (not self.distributed and self.before_step is None
                 and getattr(self, "traced_evolve", True))
 
     def _evolve_traced(self, solution, tend):

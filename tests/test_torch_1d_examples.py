@@ -178,9 +178,27 @@ def test_sharpclaw_1d_refuses(attr, value, match):
         claw.solver.setup(claw.solution)
 
 
+def test_use_petsc_runs_the_serial_solver():
+    """use_petsc=True in both packages' advection example: the flag
+    changes nothing, the serial classic solver runs (to t=0.2)."""
+    import advection_1d as jadv
+    runs = []
+    for claw in (jadv.setup(nx=64, use_petsc=True, outdir=None),
+                 tadv.setup(nx=64, use_petsc=True, outdir=None,
+                            device="cpu")):
+        claw.tfinal, claw.num_output_times = 0.2, 1
+        status = claw.run()
+        runs.append((np.array(claw.solution.q), status["numsteps"]))
+    (q_j, ns_j), (q_t, ns_t) = runs
+    assert ns_t == ns_j > 0
+    assert np.abs(q_t - q_j).max() / np.abs(q_j).max() <= 1e-12
+
+
 def test_what_the_slice_refuses():
-    with pytest.raises(NotImplementedError, match="use_petsc"):
-        tadv.setup(nx=8, use_petsc=True, outdir=None, device="cpu")
+    # use_petsc is taken and changes nothing, as in the JAX example: the
+    # serial solver runs (test_use_petsc_runs_the_serial_solver)
+    assert type(tadv.setup(nx=8, use_petsc=True, outdir=None,
+                           device="cpu").solver) is pyclaw_tpu_torch.ClawSolver1D
     # before_step is taken (the host loop runs it)
     claw = tadv.setup(nx=8, outdir=None, device="cpu")
     claw.solver.before_step = lambda solver, state: None

@@ -135,12 +135,16 @@ def test_setup_refuses_what_the_port_does_not_take():
             None if aux is None else torch.from_numpy(aux), 1e-3, 0.0)
         assert q_new.shape == (5, 4, 4, 4) and float(cfl) > 0.0
     _setup_raises(ValueError, "index_capa", index_capa=0)
+    claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
+                     solver_type="sharpclaw")
     with pytest.raises(NotImplementedError, match="generic SharpClaw dq"):
-        tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
-                  solver_type="sharpclaw")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
-                  use_parallel=True)
+        claw.run()
+    # use_parallel builds the parallel overlay's solver and Controller
+    from pyclaw_tpu_torch import parallel
+    claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
+                     use_parallel=True)
+    assert isinstance(claw.solver, parallel.ClawSolver3D)
+    assert isinstance(claw, parallel.Controller)
 
 
 def test_missing_rptt_raises_as_in_the_jax_package():

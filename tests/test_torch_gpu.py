@@ -5,7 +5,8 @@ restore) against their plain PyTorch versions at small shapes, the
 golden validator's three cases of the acoustics, dry dam break and
 char_decomp paths, the Euler capacity path's launch counts, and the device loop
 (CUDA-graph replays) against the host loop, with gauges and before_step
-against the CPU.  Whether a card is present is decided inside the
+against the CPU, and the parallel overlay in a world of one NCCL rank
+against the serial run.  Whether a card is present is decided inside the
 fixture, so every process collects the same tests; without a card they
 skip.
 
@@ -873,3 +874,56 @@ def test_capture_failure_raises(card):
     with pytest.raises(RuntimeError):
         claw.run()
     assert claw.solver.status["numsteps"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kernel,per_attempt", [
+    ("euler3d", "step3_ctu", 1), ("sharpclaw", "dq2_weno5", 10)])
+def test_overlay_in_a_world_of_one_nccl_rank(card, monkeypatch, name, kernel,
+                                             per_attempt):
+    """The parallel overlay in a world of one NCCL rank, joined as under
+    torchrun (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT; the backend
+    from the card), gives the serial run bit for bit, with the same steps,
+    on the host loop: the kernel's launches per attempted step times the
+    attempts.  Euler 3D builds the overlay through its example's
+    ``use_parallel=True``; the quadrants example has no such keyword, so
+    its solver is swapped for the overlay's."""
+    import socket
+
+    import torch.distributed as dist
+    from pyclaw_tpu_torch import convert, ops, parallel
+    from pyclaw_tpu_torch.examples import euler_3d
+    serial = _small_path(name, card)
+    st = serial.run()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for key, val in (("RANK", 0), ("WORLD_SIZE", 1),
+                     ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", port)):
+        monkeypatch.setenv(key, str(val))
+    parallel.init_distributed()
+    try:
+        assert dist.get_backend() == "nccl"
+        if name == "euler3d":
+            claw = euler_3d.setup(mx=12, my=12, mz=12, use_parallel=True,
+                                  outdir=None, device=card, dtype=np.float32)
+            claw.tfinal = 0.05
+            assert isinstance(claw, parallel.Controller)
+        else:
+            claw = _small_path(name, card)
+            settings = convert.solver_settings(claw.solver)
+            claw.solver = getattr(parallel, type(claw.solver).__name__)(
+                claw.solver.rp, device=card)
+            convert.apply_solver_settings(claw.solver, settings)
+        solver = claw.solver
+        assert solver.distributed
+        before = ops.kernel_wrappers()[kernel].launches
+        status = claw.run()
+        launched = ops.kernel_wrappers()[kernel].launches - before
+    finally:
+        dist.destroy_process_group()
+    ns, nr = status["numsteps"], status["numrejected"]
+    assert (ns, nr) == (st["numsteps"], st["numrejected"])
+    assert launched == per_attempt * (ns + nr)
+    assert solver.loop_stats["frames"] == 0
+    np.testing.assert_array_equal(claw.solution.q, serial.solution.q)
