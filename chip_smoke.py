@@ -81,6 +81,15 @@ Phases (each asserts; any failure exits non-zero):
   3i. restore (the device loop's guarded restore, csrc/restore.cu)
      against torch.where, an accepted and a rejected step, at the paths'
      shapes and odd sizes, equal bit for bit;
+  3j. dq2_weno5's acoustics instance against its plain version
+     (sharpclaw/soa.py:dq_2d_soa with acoustics_2D's SoA hooks; one dq
+     each), over a seeded random state and the radial pulse of
+     examples.acoustics_2d, grids 1024^2, 1000x997 and 17x33, float32 and
+     float64, the CFL to the same tolerance;
+  3k. weno5 against its plain version on the SharpClaw 3D path's shapes:
+     (5, 198^3) with each axis moved last and made contiguous, as dq_nd
+     calls it, over the Euler 3D example's first state and a seeded
+     random one, float32 and float64;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -131,6 +140,25 @@ Phases (each asserts; any failure exits non-zero):
   4l. the Sod tube with SharpClaw char_decomp=2 at 800 cells in float32 to
      t=0.2 (the whole stage is plain PyTorch: no kernel launch but one
      restore an attempted step), against the same run in float64;
+  4o. the SharpClaw 3D path: examples.euler_3d.setup(mx=my=mz=192,
+     solver_type="sharpclaw", float32) through Controller.run() to t=0.2
+     (SharpClawSolver3D: sharpclaw/kernels.py:dq_nd, weno5.cu on every
+     axis of every stage), every launch count set to 0 just before it and
+     read just after (weno5: 30 per attempted step, restore 1, no other
+     kernel); the wall and the card's peak memory; q finite with rho > 0
+     and p > 0; then the same run in float64: the problem's symmetry
+     under each exchange of two axes (the momentum components swapped with
+     them) to 1e-5 of max|q|, and the float32 run within 1e-3 of it
+     (relative L1; the scheme amplifies the float32 roundoff of the
+     mirrored sums far above 1e-5: SHARP3D_SYM_TOL);
+  4p. the SharpClaw routes of the other examples on the generic dq, float32,
+     every launch count set to 0 just before each and read just after:
+     acoustics_2d at 1024^2 to t=0.12 (the SoA route: dq2_weno5's
+     acoustics instance, 10 per attempted step; p mirror-symmetric),
+     shallow_2d_radial at 1024^2 to t=1.0 (the generic dq in 2D: weno5, 20
+     per attempted step; h > 0) and acoustics_3d_heterogeneous at 128^3 to
+     t=0.8 (the generic dq with aux and the second Riemann solve: weno5,
+     30);
   4m. the parallel overlay (pyclaw_tpu_torch/parallel) in a world of one
      NCCL rank (init_distributed on a file:// store):
      parallel.ClawSolver3D on examples.euler_3d.setup(mx=my=mz=192,
@@ -143,9 +171,10 @@ Phases (each asserts; any failure exits non-zero):
      decided before any rank starts; the ranks are spawned after [2]
      built the kernels): Euler 3D 192^3 on (2,2,1) to t=0.2, the classic
      quadrants 1024^2 on (2,2) to t=0.1, the SharpClaw quadrants 256^2 on
-     (2,2) to t=0.05 and Sod (classic) at 800 cells on (4,) to t=0.2, all
-     float32, each equal bit for bit to the serial card run of the same
-     setup with the same steps, each rank's device counters holding its
+     (2,2) to t=0.05, Sod (classic) at 800 cells on (4,) to t=0.2 and
+     SharpClaw Euler 3D 64^3 on (2,2,1) to t=0.1, all float32, each
+     equal bit for bit to the serial card run of the same setup with the
+     same steps, each rank's device counters holding its
      kernel's launches per attempted step times the attempts; the walls
      beside the serial ones (the cost of the exchange, not a scaling
      figure);
@@ -176,6 +205,9 @@ Phases (each asserts; any failure exits non-zero):
      float64 run on the card (relative L1); the x <-> y mirror symmetry of
      rho; the change of the capacity-weighted mass; the boundary cells
      unchanged (the front has not reached them);
+  5s. SharpClaw in 3D on the card against the same run on the CPU in
+     float64: Euler 3D at 24^3 to t=0.1 and heterogeneous acoustics at
+     24^3 to t=0.2, equal steps, q to 1e-12 of max|q|;
   5b. SharpClaw quadrants at 80^2 on the card against the same run on the
      CPU (the plain path the CPU tests tie to the JAX package): float64 at
      t=0.2 and t=0.8, float32 at t=0.8;
@@ -201,7 +233,10 @@ Phases (each asserts; any failure exits non-zero):
      device time by kernel and by group: kernel, BC extension of q and
      aux, CFL reduction, frame copies; host time by operation), each on
      the device loop and on the host loop; restore at (4, 1024, 1024) f32,
-     accepted and rejected, against torch.where;
+     accepted and rejected, against torch.where; dq2_weno5's acoustics
+     instance at 1024^2 on the radial pulse and weno5 at (5, 198^3) on each
+     axis of the Euler 3D state (events, profiler, plain, bound), and
+     [4o]'s path to t=0.02 under torch.profiler on the device loop;
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -257,6 +292,15 @@ FLOPS_PER_CELL = 2 * 616 + 88
 # 172 / 170; two fluxes and their difference 32 / 30; the direction's
 # part of dq 12 -> 672 / 624; the sum of the two parts 4.
 FLOPS_PER_CELL_DQ = {"float32": 2 * 672 + 4, "float64": 2 * 624 + 4}
+
+# The same for the acoustics instance of csrc/dq2_weno5.cu.  Per
+# direction: WENO5 of three components 327 / 294; one solve per interface
+# (jumps 2, strengths 6, waves 3, the fluctuations of the two nonzero
+# components 20, CFL 5) 36; two fluxes and their difference 7; the
+# direction's part of dq 9 -> 379 / 346; the sum of the two parts 3.
+# About 32 operations per byte in float32: operations bound it, as Euler.
+FLOPS_PER_CELL_DQ_ACOUSTICS = {"float32": 2 * 379 + 3,
+                               "float64": 2 * 346 + 3}
 
 # Operations per cell of one 3D CTU step (order 2, transverse_waves 2,
 # MC), counted from csrc/step3_ctu.cu and csrc/euler3d.cuh in the same
@@ -626,12 +670,14 @@ def compare_step3(dev, n_main=192, seed=2):
     return worst, worst_cfl, main_abs_err, ncase
 
 
-def run_euler3d(dev, n, dtype, tfinal=0.2):
-    """examples.euler_3d through Controller.run(); returns (claw, status,
-    wall seconds)."""
+def run_euler3d(dev, n, dtype, tfinal=0.2, **kw):
+    """examples.euler_3d through Controller.run() (``kw``: more of its
+    setup keywords, ``solver_type``); returns (claw, status, wall
+    seconds)."""
     import torch
     from pyclaw_tpu_torch.examples import euler_3d as ex
-    claw = ex.setup(mx=n, my=n, mz=n, dtype=dtype, outdir=None, device=dev)
+    claw = ex.setup(mx=n, my=n, mz=n, dtype=dtype, outdir=None, device=dev,
+                    **kw)
     claw.tfinal = tfinal
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -914,12 +960,12 @@ def compare_aos(dev, grids, seed=3):
     return worst, worst_cfl, main_abs_err, ncase
 
 
-def run_shallow(dev, n, dtype, tfinal=1.0):
-    """examples.shallow_2d_radial through Controller.run(); returns
-    (claw, status, wall seconds)."""
+def run_shallow(dev, n, dtype, tfinal=1.0, **kw):
+    """examples.shallow_2d_radial through Controller.run() (``kw``: more
+    of its setup keywords); returns (claw, status, wall seconds)."""
     import torch
     from pyclaw_tpu_torch.examples import shallow_2d_radial as ex
-    claw = ex.setup(mx=n, my=n, dtype=dtype, outdir=None, device=dev)
+    claw = ex.setup(mx=n, my=n, dtype=dtype, outdir=None, device=dev, **kw)
     claw.tfinal = tfinal
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2184,12 +2230,12 @@ def sharp_card_vs_cpu(dev, n=80):
 # ---- the paths of this slice: acoustics 2D, the dry dam break, the Sod
 # tube with char_decomp; the validator -----------------------------------
 
-def run_acoustics(dev, n, dtype, tfinal=0.12):
-    """examples.acoustics_2d through Controller.run(); returns (claw,
-    status, wall seconds)."""
+def run_acoustics(dev, n, dtype, tfinal=0.12, **kw):
+    """examples.acoustics_2d through Controller.run() (``kw``: more of its
+    setup keywords); returns (claw, status, wall seconds)."""
     import torch
     from pyclaw_tpu_torch.examples import acoustics_2d as ex
-    claw = ex.setup(mx=n, my=n, dtype=dtype, outdir=None, device=dev)
+    claw = ex.setup(mx=n, my=n, dtype=dtype, outdir=None, device=dev, **kw)
     claw.tfinal = tfinal
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2388,6 +2434,416 @@ def validator_phase(dev):
     return out
 
 
+# ---- SharpClaw on the generic dq: [3j], [3k], [4o], [4p], [5s] ------------
+
+# [3j]: the grids of the acoustics instance of dq2_weno5.cu
+DQ_ACOUSTICS_GRIDS = ((1024, 1024), (1000, 997), (17, 33))
+ACOUSTICS_PARAMS = AOS_PARAMS[ACOUSTICS_2D]
+# [3k]: weno5 on the three moved layouts of the SharpClaw 3D path's state
+# (5, 198^3), each axis moved last and made contiguous as dq_nd does
+WENO5_3D_N = 198
+# [4o]: the SharpClaw Euler 3D path (n^3 float32 to t=0.2) and the same
+# run in float64.  The problem is symmetric under each exchange of two
+# axes; the mirrored problem sums the axes' parts in another order and its
+# Roe averages take the transverse velocities in another order, so the
+# runs are symmetric to roundoff as the scheme amplifies it, not to bits.
+# WENO5 with SSP104 amplifies it by about 1e7 on this blast by t=0.2 at
+# 192^3: the float64 run's asymmetry is 8.4e-10 there, the float32 run's
+# 3.9e-3 (this phase, on the card), and the CPU's plain path in float32
+# at 96^3 shows 4.5e-4 (tests/test_torch_sharpclaw3d.py --roundoff).  So
+# the symmetry gate is the float64 run's, and the float32 run is held to
+# the float64 one in relative L1 (3.7e-4 at 192^3), a bound that a wrong
+# kernel or axis would pass by orders of magnitude
+SHARP3D_N = 192
+SHARP3D_TFINAL = 0.2
+SHARP3D_SYM_TOL = 1e-5
+SHARP3D_F32_L1_TOL = 1e-3
+# [5s]: the card against the CPU in float64 (equal steps; q to this of
+# max|q|: the plain operations and the kernel round as on the CPU up to
+# the card's rsqrt and its fused operations)
+SHARP3D_CARD_CPU_TOL = 1e-12
+
+
+def compare_dq_acoustics(dev, seed=10):
+    """[3j]: the acoustics instance of dq2_weno5 against its plain version
+    (sharpclaw/soa.py:dq_2d_soa with acoustics_2D's SoA hooks) on the
+    card, one dq each: a seeded random state and the example's radial
+    pulse on each of DQ_ACOUSTICS_GRIDS, float32 and float64; dq to
+    TOL_REL of max|dq| (in float32 to [3b]'s roundoff bound: at least
+    ULP_FACTOR times the plain version's own change under a one-ulp move
+    of its input, since on a smooth state dq is a small difference of
+    the fluctuations and fluxes and the kernel's fused operations round
+    it otherwise) and the CFL to TOL_REL relative."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
+    rp = riemann.acoustics_2D
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    for nx, ny in DQ_ACOUSTICS_GRIDS:
+        inputs = {"random": rng.standard_normal((3, nx, ny)),
+                  "pulse": acoustics_state(nx, ny)}
+        dx, dy = 2.0 / nx, 2.0 / ny
+        for iname, q_np in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc = padded(q_np, dtype, dev, num_ghost=3)
+                dt = float(np.dtype(tname).type(0.6 / max(nx, ny)))
+                dk, ck = tiled2d.dq_rows(qbc, dt, dx, dy, ACOUSTICS_PARAMS,
+                                         rp=rp)
+                def plain(qin):
+                    return sc_soa.dq_2d_soa(qin, dt, dx, dy, rp.rpn_soa,
+                                            ACOUSTICS_PARAMS, 5, 3,
+                                            flux_soa=rp.flux_soa)
+                dp, cp = plain(qbc)
+                torch.cuda.synchronize()
+                abs_err = float((dk - dp).abs().max())
+                rel = abs_err / float(dp.abs().max())
+                rel_cfl = abs(float(ck) - float(cp)) / float(cp)
+                tol, sens = TOL_REL[tname], None
+                if tname == "float32":
+                    r = torch.as_tensor(rng.uniform(-1.0, 1.0, qbc.shape),
+                                        dtype=dtype, device=dev)
+                    dpp, _ = plain(qbc * (1.0 + torch.finfo(dtype).eps * r))
+                    sens = float((dpp - dp).abs().max() / dp.abs().max())
+                    tol = max(tol, ULP_FACTOR * sens)
+                if not (np.isfinite(rel) and rel <= tol
+                        and rel_cfl <= TOL_REL[tname]
+                        and dk.shape == (3, nx, ny)):
+                    fail(f"[3j] dq2_weno5 acoustics vs plain {nx}x{ny} "
+                         f"{iname} {tname}: rel err {rel:.3e} (tol "
+                         f"{tol:.3e}), cfl {float(ck)!r} vs {float(cp)!r}")
+                worst[tname] = max(worst[tname], rel)
+                worst_cfl[tname] = max(worst_cfl[tname], rel_cfl)
+                if (nx, ny, iname, tname) == (1024, 1024, "pulse",
+                                              "float32"):
+                    main_abs_err = abs_err
+                ncase += 1
+                print(f"  dq acoustics {nx}x{ny} {iname:6s} {tname}: rel "
+                      f"err {rel:.3e} (tol {tol:.1e}), cfl rel "
+                      f"{rel_cfl:.3e}" + (f"; a one-ulp input change moves "
+                                          f"the plain version by {sens:.3e}"
+                                          if sens is not None else ""),
+                      flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def sharp3d_state(n):
+    """q of examples.euler_3d at n^3 (a CPU array)."""
+    from pyclaw_tpu_torch.examples import euler_3d as ex
+    return ex.setup(mx=n, my=n, mz=n, outdir=None, device="cpu").solution.q
+
+
+def weno5_3d_inputs(dtype, dev, seed=11):
+    """[3k]'s states at (5, n^3), n = WENO5_3D_N (the SharpClaw 3D path's
+    ghost-padded size): the path's first state padded by extrapolation
+    (as its BCs pad it) and a seeded random one."""
+    import torch
+    n = WENO5_3D_N
+    first = padded3(sharp3d_state(n - 6), dtype, dev)
+    first = torch.nn.functional.pad(first[None], (1, 1, 1, 1, 1, 1),
+                                    mode="replicate")[0].contiguous()
+    rng = np.random.default_rng(seed)
+    return {"first": first,
+            "random": torch.as_tensor(random_state3(rng, n, n, n),
+                                      dtype=dtype, device=dev)}
+
+
+def compare_weno5_3d(dev):
+    """[3k]: weno5 against its plain version (limiters/recon.py:weno5) on
+    each of the three moved layouts (every axis moved last, contiguous) of
+    [3k]'s (5, 198^3) states, float32 and float64, to TOL_REL of the
+    edge values' max: the rows of 198 entries take the kernel's branch of
+    large arrays (weno5_tile)."""
+    import torch
+    from pyclaw_tpu_torch.limiters import recon
+    from pyclaw_tpu_torch.ops import weno
+    worst = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        for iname, q in weno5_3d_inputs(dtype, dev).items():
+            for axis in range(3):
+                qm = q.movedim(1 + axis, -1).contiguous()
+                lk, rk = weno.weno5(qm)
+                lp, rp = recon.weno5(qm)
+                torch.cuda.synchronize()
+                abs_err = max(float((lk - lp).abs().max()),
+                              float((rk - rp).abs().max()))
+                rel = abs_err / max(float(lp.abs().max()),
+                                    float(rp.abs().max()))
+                if not (np.isfinite(rel) and rel <= TOL_REL[tname]):
+                    fail(f"[3k] weno5 vs plain {iname} axis {axis} {tname}: "
+                         f"rel err {rel:.3e}")
+                worst[tname] = max(worst[tname], rel)
+                if (tname, iname, axis) == ("float32", "first", 0):
+                    main_abs_err = abs_err
+                ncase += 1
+                del lk, rk, lp, rp, qm
+        print(f"  weno5 3D pencils (5, {WENO5_3D_N}^3) {tname}: max rel err "
+              f"{worst[tname]:.3e} on {ncase} cases so far", flush=True)
+    return worst, main_abs_err, ncase
+
+
+def axis_asymmetry(q):
+    """max over the three exchanges of two axes of |q - q mirrored| (the
+    matching momentum components swapped too), relative to max|q|: the
+    Euler 3D example is symmetric under each."""
+    worst = 0.0
+    for a, b in ((0, 1), (0, 2), (1, 2)):
+        m = np.swapaxes(q, 1 + a, 1 + b).copy()
+        m[[1 + a, 1 + b]] = m[[1 + b, 1 + a]]
+        worst = max(worst, float(np.abs(m - q).max()))
+    return worst / float(np.abs(q).max())
+
+
+def euler3d_pressure(q, gamma=1.4):
+    return (gamma - 1.0) * (q[4] - 0.5 * (q[1] ** 2 + q[2] ** 2 + q[3] ** 2)
+                            / q[0])
+
+
+def sharpclaw3d_path(dev, n=SHARP3D_N, tfinal=SHARP3D_TFINAL):
+    """[4o]: examples.euler_3d with solver_type="sharpclaw" at n^3 in
+    float32 through Controller.run() on the device loop, every launch count
+    set to 0 just before it and read just after: weno5 30 launches an
+    attempted step (10 stages, 3 axes) on the card's counter, restore
+    once, no other kernel; the steps, the wall, the peak of the card's
+    memory; q finite with rho > 0 and p > 0.  Then the same run in
+    float64: symmetric under each exchange of two axes (the momentum
+    components swapped with them) to SHARP3D_SYM_TOL of max|q|, and the
+    float32 run within SHARP3D_F32_L1_TOL of it (relative L1); the
+    float32 run's own asymmetry is reported (see SHARP3D_SYM_TOL)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats(dev)
+    claw, status, wall, counts, ran = counted_run(
+        lambda: run_euler3d(dev, n, np.float32, tfinal,
+                            solver_type="sharpclaw"))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ns, nr = status["numsteps"], status["numrejected"]
+    loop = check_path_launches("sharpclaw euler_3d path", claw, status,
+                               counts, "weno5", 30, ran=ran)
+    q = claw.solution.q
+    t_end = claw.solution.t
+    del claw
+    asym = axis_asymmetry(q)
+    p = euler3d_pressure(q.astype(np.float64))
+    print(f"[4o] sharpclaw euler_3d path {n}^3 f32 SSP104 to t={t_end}: "
+          f"{ns} accepted + {nr} rejected steps ({loop['attempts']} "
+          f"attempted), {ran['weno5']} weno5 launches the card ran (30 x "
+          f"attempts; {ran}; the wrappers' counts {counts}), {wall:.3f} s "
+          f"wall with the device counters, peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; device loop {loop}; min rho "
+          f"{float(q[0].min()):.4f}, min p {float(p.min()):.4f}, axis "
+          f"asymmetry {asym:.3e}", flush=True)
+    if q.shape != (5, n, n, n) or not np.all(np.isfinite(q)):
+        fail(f"[4o]: result is not finite (5, {n}, {n}, {n})")
+    if not (float(q[0].min()) > 0.0 and float(p.min()) > 0.0):
+        fail("[4o]: rho or p not positive")
+    if abs(t_end - tfinal) > 1e-12:
+        fail(f"[4o]: ended at t={t_end}")
+    c64, st64, wall64 = run_euler3d(dev, n, np.float64, tfinal,
+                                    solver_type="sharpclaw")
+    q64 = c64.solution.q
+    del c64
+    asym64 = axis_asymmetry(q64)
+    l1 = float(np.abs(q - q64).sum() / np.abs(q64).sum())
+    print(f"[4o] the same in f64: {st64['numsteps']} + "
+          f"{st64['numrejected']} steps, {wall64:.3f} s wall; axis "
+          f"asymmetry {asym64:.3e} (tol {SHARP3D_SYM_TOL}); f32 vs f64 "
+          f"relative L1 {l1:.3e} (tol {SHARP3D_F32_L1_TOL}), max "
+          f"{float(np.abs(q - q64).max() / np.abs(q64).max()):.3e}",
+          flush=True)
+    if not (asym64 <= SHARP3D_SYM_TOL and l1 <= SHARP3D_F32_L1_TOL):
+        fail(f"[4o]: f64 axis asymmetry {asym64} or f32 vs f64 L1 {l1}")
+    return {"n": n, "tfinal": tfinal, "accepted": ns, "rejected": nr,
+            "wall_s_counted": wall, "peak_bytes": peak,
+            "launches": ran, "wrapper_counts": counts, "loop": loop,
+            "axis_asymmetry_f32": asym, "axis_asymmetry_f64": asym64,
+            "f64_steps": [st64["numsteps"], st64["numrejected"]],
+            "f64_wall_s": wall64, "f32_vs_f64_l1": l1}
+
+
+def sharpclaw_routes(dev, n2=1024, n3=128):
+    """[4p]: the SharpClaw routes of the 2D and 3D examples besides
+    [4o]'s, float32 on the device loop, every launch count set to 0 just
+    before each and read just after: acoustics_2d at n2^2 to t=0.12 (the
+    SoA route, dq2_weno5's acoustics instance, 10 launches an attempted
+    step), shallow_2d_radial at n2^2 to t=1.0 (the generic dq in 2D,
+    weno5 20 an attempt; h > 0) and acoustics_3d_heterogeneous at n3^3
+    to t=0.8 (the generic dq in 3D with aux and no flux hook, the second
+    Riemann solve; weno5 30 an attempt).  The acoustics run's x <-> y
+    asymmetry of p is reported, not gated: the float32 SharpClaw run of
+    this example is itself 1.2e-2 from the float64 one at 1024^2 (max,
+    relative; the plain path on the CPU, tests/test_torch_sharpclaw3d.py
+    --roundoff, which is symmetric bit for bit where the kernel's fused
+    operations round x and y otherwise)."""
+    cases = {
+        "acoustics_2d": (lambda: run_acoustics(dev, n2, np.float32,
+                                               solver_type="sharpclaw"),
+                         "dq2_weno5", 10, (3, n2, n2), 0.12),
+        "shallow_2d_radial": (lambda: run_shallow(dev, n2, np.float32,
+                                                  solver_type="sharpclaw"),
+                              "weno5", 20, (3, n2, n2), 1.0),
+        "acoustics_3d_heterogeneous": (
+            lambda: run_het(dev, n3, np.float32, solver_type="sharpclaw"),
+            "weno5", 30, (4, n3, n3, n3), 0.8)}
+    out = {}
+    for name, (run, kernel, per, shape, tfinal) in cases.items():
+        claw, status, wall, counts, ran = counted_run(run)
+        ns, nr = status["numsteps"], status["numrejected"]
+        loop = check_path_launches(f"[4p] {name}", claw, status, counts,
+                                   kernel, per, ran=ran)
+        q = claw.solution.q
+        rec = {"accepted": ns, "rejected": nr, "wall_s_counted": wall,
+               "launches": ran, "wrapper_counts": counts, "loop": loop}
+        if name == "acoustics_2d":
+            rec["mirror_asymmetry"] = float(np.abs(q[0] - q[0].T).max()
+                                            / np.abs(q[0]).max())
+        if name == "shallow_2d_radial":
+            rec["min_h"] = float(q[0].min())
+        print(f"[4p] sharpclaw {name} {'x'.join(map(str, shape[1:]))} f32 "
+              f"to t={claw.solution.t}: {ns} accepted + {nr} rejected steps, "
+              f"{ran[kernel]} {kernel} launches the card ran ({per} x "
+              f"attempts; {ran}), {wall:.3f} s wall with the device "
+              f"counters; device loop {loop}; "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rec.items()
+                          if k in ("mirror_asymmetry", "min_h")), flush=True)
+        if q.shape != shape or not np.all(np.isfinite(q)):
+            fail(f"[4p] {name}: result is not finite {shape}")
+        if abs(claw.solution.t - tfinal) > 1e-12:
+            fail(f"[4p] {name}: ended at t={claw.solution.t}")
+        if rec.get("min_h", 1.0) <= 0.0:
+            fail(f"[4p] {name}: {rec}")
+        out[name] = rec
+        del claw
+    return out
+
+
+def sharpclaw3d_card_vs_cpu(dev, n=24):
+    """[5s]: SharpClaw Euler 3D (to t=0.1) and heterogeneous acoustics 3D
+    (to t=0.2) at n^3 in float64 on the card against the same runs on the
+    CPU (the plain path the CPU tests tie to the JAX package): equal
+    steps, q to SHARP3D_CARD_CPU_TOL of max|q|."""
+    out = {}
+    for name, run, tfinal in (
+            ("euler_3d", lambda d, t: run_euler3d(d, n, np.float64, t,
+                                                  solver_type="sharpclaw"),
+             0.1),
+            ("acoustics_3d_heterogeneous",
+             lambda d, t: run_het(d, n, np.float64, t,
+                                  solver_type="sharpclaw"), 0.2)):
+        runs = {}
+        for where in (dev, "cpu"):
+            claw, status, _ = run(where, tfinal)
+            runs[str(where)] = (claw.solution.q, status["numsteps"],
+                                status["numrejected"], claw.solution.t)
+        (q_k, ns_k, nr_k, t_k), (q_c, ns_c, nr_c, t_c) = runs.values()
+        rel = float(np.abs(q_k - q_c).max() / np.abs(q_c).max())
+        out[name] = {"rel": rel, "steps": [ns_k, nr_k],
+                     "cpu_steps": [ns_c, nr_c]}
+        print(f"[5s] sharpclaw {name} {n}^3 f64 to t={t_k} card vs cpu: max "
+              f"rel {rel:.3e} (tol {SHARP3D_CARD_CPU_TOL}), steps {ns_k} + "
+              f"{nr_k} (cpu {ns_c} + {nr_c})", flush=True)
+        if (ns_k, nr_k, t_k) != (ns_c, nr_c, t_c) or not (
+                rel <= SHARP3D_CARD_CPU_TOL):
+            fail(f"[5s] {name}: the card's run differs from the CPU's: "
+                 f"{out[name]}")
+    return out
+
+
+def timing_dq_acoustics(dev, n=1024):
+    """[6]: the acoustics instance of dq2_weno5, its plain version and its
+    bound at n^2 on the example's radial pulse (dt = 0.6 dx / c)."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
+    rp = riemann.acoustics_2D
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc = padded(acoustics_state(n, n), dtype, dev, num_ghost=3)
+        h = 2.0 / n
+        dt = float(np.dtype(tname).type(0.3 * h))
+
+        def kern():
+            return tiled2d.dq_rows(qbc, dt, h, h, ACOUSTICS_PARAMS, rp=rp)
+
+        def plain():
+            return sc_soa.dq_2d_soa(qbc, dt, h, h, rp.rpn_soa,
+                                    ACOUSTICS_PARAMS, 5, 3,
+                                    flux_soa=rp.flux_soa)
+
+        ms = time_ms(kern, 100)
+        plain_ms = time_ms(plain, 10, warm=2)
+        ms_again = time_ms(kern, 100)
+        dev_ms, dev_n = device_ms_per_call(kern, "dq2_weno5_kernel", 20)
+        item = qbc.element_size()
+        b = bound_of(qbc.numel() * item + 3 * n * n * item,
+                     FLOPS_PER_CELL_DQ_ACOUSTICS[tname] * n * n, tname)
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, **b}
+        print(f"  timing dq acoustics {n}^2 {tname}: kernel {ms:.4f} ms "
+              f"(repeat {ms_again:.4f}; on the device {dev_ms} ms, {dev_n} "
+              f"launches profiled), plain {plain_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
+    return out
+
+
+def timing_weno5_3d(dev):
+    """[6]: weno5 at the SharpClaw 3D path's shape, (5, 198^3) with each
+    axis moved last (the path's first state): a wrapper call (CUDA
+    events), the kernel's device time (torch.profiler), the plain version
+    and the bound (each entry read once, both edge values written once),
+    float32 and float64; by axis, and their mean."""
+    import torch
+    from pyclaw_tpu_torch.limiters import recon
+    from pyclaw_tpu_torch.ops import weno
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        q = weno5_3d_inputs(dtype, dev)["first"]
+        recs = []
+        for axis in range(3):
+            qm = q.movedim(1 + axis, -1).contiguous()
+            ms = time_ms(lambda: weno.weno5(qm), 20)
+            plain_ms = time_ms(lambda: recon.weno5(qm), 3, warm=1)
+            dev_ms, dev_n = device_ms_per_call(lambda: weno.weno5(qm),
+                                               "weno5_kernel", 10)
+            recs.append((ms, plain_ms, dev_ms))
+            del qm
+        item = q.element_size()
+        b = bound_of(3 * q.numel() * item,
+                     FLOPS_PER_ENTRY_WENO5[tname] * q.numel(), tname)
+        dev_mean = (None if any(r[2] is None for r in recs)
+                    else sum(r[2] for r in recs) / 3)
+        out[tname] = {"ms": sum(r[0] for r in recs) / 3,
+                      "plain_ms": sum(r[1] for r in recs) / 3,
+                      "device_ms": dev_mean,
+                      "by_axis": [{"ms": r[0], "plain_ms": r[1],
+                                   "device_ms": r[2]} for r in recs],
+                      "shape": list(q.shape), **b}
+        print(f"  timing weno5 (5, {WENO5_3D_N}^3) {tname}: wrapper call by "
+              f"axis {[round(r[0], 4) for r in recs]} ms, on the device "
+              f"{[r[2] for r in recs]} ms, plain "
+              f"{[round(r[1], 3) for r in recs]} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of the device time "
+              f"{None if dev_mean is None else b['bound_ms'] / dev_mean}, "
+              f"library_ms null", flush=True)
+    return out
+
+
 # ---- the parallel overlay: [4m] NCCL with one rank, [4n] four ranks -------
 
 # [4n]'s runs: name -> (the example module, its setup keywords, the
@@ -2403,6 +2859,9 @@ OVERLAY_CASES = {
                   "SharpClawSolver2D", (2, 2), 0.05, "dq2_weno5", 10),
     "sod": ("euler_1d_shocktube", dict(nx=800, solver_type="classic"),
             "ClawSolver1D", (4,), 0.2, "step1", 1),
+    "sharpclaw3d": ("euler_3d", dict(mx=64, my=64, mz=64,
+                                     solver_type="sharpclaw"),
+                    "SharpClawSolver3D", (2, 2, 1), 0.1, "weno5", 30),
 }
 OVERLAY_RANKS = 4
 
@@ -2952,7 +3411,9 @@ def main():
           f"step2_ctu f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
           f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
           f"{dq_lib.dq2_weno5_smem_bytes(0)} B, f64 "
-          f"{dq_lib.dq2_weno5_smem_bytes(1)} B; step3_ctu f32 "
+          f"{dq_lib.dq2_weno5_smem_bytes(1)} B, (acoustics) f32 "
+          f"{dq_lib.dq2_weno5_acoustics_smem_bytes(0)} B, f64 "
+          f"{dq_lib.dq2_weno5_acoustics_smem_bytes(1)} B; step3_ctu f32 "
           f"{lib3.step3_ctu_smem_bytes(0, 0)} B, f64 "
           f"{lib3.step3_ctu_smem_bytes(0, 1)} B, (with capacity) f32 "
           f"{lib3.step3_ctu_smem_bytes(1, 0)} B, f64 "
@@ -2980,7 +3441,9 @@ def main():
           f"{lib.step2_ctu_blocks_per_sm(1)} of {lib.step2_ctu_threads(1)} "
           f"(f64); dq2_weno5 "
           f"{dq_lib.dq2_weno5_blocks_per_sm(0)} blocks of 288 threads (f32), "
-          f"{dq_lib.dq2_weno5_blocks_per_sm(1)} (f64); step2_aos "
+          f"{dq_lib.dq2_weno5_blocks_per_sm(1)} (f64), acoustics "
+          f"{dq_lib.dq2_weno5_acoustics_blocks_per_sm(0)} (f32), "
+          f"{dq_lib.dq2_weno5_acoustics_blocks_per_sm(1)} (f64); step2_aos "
           f"{lib_aos.step2_aos_blocks_per_sm(0)} blocks of 256 threads "
           f"(f32), {lib_aos.step2_aos_blocks_per_sm(1)} (f64); step3_ctu "
           f"one block (its shared memory) of "
@@ -3100,6 +3563,29 @@ def main():
           f"rejected, equal bit for bit (max abs err {rs_worst}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3i"] = time.perf_counter() - t0
+
+    # [3j] dq2_weno5's acoustics instance against its plain version
+    t0 = time.perf_counter()
+    dqa_worst, dqa_worst_cfl, dqa_main_abs_err, dqa_ncase = \
+        compare_dq_acoustics(dev)
+    print(f"[3j] dq2_weno5 acoustics vs plain: {dqa_ncase} cases, max rel "
+          f"err f32 {dqa_worst['float32']:.3e} (tol {TOL_REL['float32']} or "
+          f"{ULP_FACTOR} x the plain version's one-ulp change, by case), "
+          f"f64 {dqa_worst['float64']:.3e} (tol {TOL_REL['float64']}); max "
+          f"cfl rel f32 {dqa_worst_cfl['float32']:.3e}, f64 "
+          f"{dqa_worst_cfl['float64']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3j"] = time.perf_counter() - t0
+
+    # [3k] weno5 on the SharpClaw 3D path's moved layouts
+    t0 = time.perf_counter()
+    w3_worst, w3_main_abs_err, w3_ncase = compare_weno5_3d(dev)
+    print(f"[3k] weno5 vs plain on (5, {WENO5_3D_N}^3), each axis moved "
+          f"last: {w3_ncase} cases, max rel err f32 "
+          f"{w3_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{w3_worst['float64']:.3e} (tol {TOL_REL['float64']}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3k"] = time.perf_counter() - t0
 
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
@@ -3286,6 +3772,18 @@ def main():
     chardecomp = chardecomp_path(dev)
     phase_s["4l"] = time.perf_counter() - t0
 
+    # [4o] the SharpClaw 3D path: Euler 3D (192^3 f32, the generic dq
+    # on weno5.cu); [4p] the SharpClaw routes of acoustics_2d (the
+    # acoustics instance of dq2_weno5.cu), shallow_2d_radial and
+    # acoustics_3d_heterogeneous; every launch count set to 0 just before
+    # each run and read just after
+    t0 = time.perf_counter()
+    sharp3d = sharpclaw3d_path(dev)
+    phase_s["4o"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    routes = sharpclaw_routes(dev)
+    phase_s["4p"] = time.perf_counter() - t0
+
     # [4m] the parallel overlay in a world of one NCCL rank against [4c];
     # [4n] four ranks against the serial runs, every launch count of each
     # rank set to 0 just before each run and read just after
@@ -3336,6 +3834,11 @@ def main():
     eu_checks = euler_capa_checks(dev, q_e, n3)
     phase_s["5g"] = time.perf_counter() - t0
 
+    # [5s] SharpClaw 3D on the card against the same runs on the CPU
+    t0 = time.perf_counter()
+    sharp3d_vs_cpu = sharpclaw3d_card_vs_cpu(dev)
+    phase_s["5s"] = time.perf_counter() - t0
+
     # [5b] SharpClaw on the card against the same run on the CPU
     t0 = time.perf_counter()
     sharp_vs_cpu = sharp_card_vs_cpu(dev)
@@ -3365,6 +3868,8 @@ def main():
     tm_eu = timing_step3_capa(dev, q_last=q_e)
     del q_e
     tm_rs = timing_restore(dev)
+    tm_dq_ac = timing_dq_acoustics(dev)
+    tm_w5_3d = timing_weno5_3d(dev)
     prof = profile_loops(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
@@ -3401,6 +3906,12 @@ def main():
     prof_cd = profile_loops(
         "sod sharpclaw char_decomp=2 path 800 f32 to t=0.02",
         lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02, 2))
+    # [4o]'s path, the device loop only (its host loop takes minutes under
+    # the profiler): the busy share and weno5's share of the device time
+    prof_s3 = profile_main_path(
+        "[4o] sharpclaw euler_3d path 192^3 f32 to t=0.02, device loop",
+        lambda: run_euler3d(dev, 192, np.float32, 0.02,
+                            solver_type="sharpclaw"))
     phase_s["6"] = time.perf_counter() - t0
 
     f32, f64 = tm["float32"], tm["float64"]
@@ -3667,9 +4178,52 @@ def main():
         "max_rel_err_f64": s1_worst["float64"],
         "max_rel_err_f32": s1_worst["float32"],
     }
-    kernels = [record, dq_record, s3_record, aos_record, aos_ac_record,
-               s1_record, s1_sw_record, w5_record, het_record, eu_record,
-               rs_record]
+    q32, q64 = tm_dq_ac["float32"], tm_dq_ac["float64"]
+    dq_ac_record = {
+        "name": "dq2_weno5:acoustics_2D", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/dq2_weno5.cu",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:314",
+        "replaces_function": "dq_pallas_rows (body sharpclaw/soa.py:237 "
+                             "with acoustics_2D's SoA hooks)",
+        "rows": ["2"],
+        "launches": routes["acoustics_2d"]["launches"]["dq2_weno5"],
+        "max_abs_err": dqa_main_abs_err,
+        "ms": q32["ms"], "device_ms": q32["device_ms"],
+        "plain_ms": q32["plain_ms"],
+        "bound_ms": q32["bound_ms"], "bound_by": q32["bound_by"],
+        "library_ms": None,
+        "shape": [3, 1030, 1030], "dtype": "float32",
+        "ms_f64": q64["ms"], "device_ms_f64": q64["device_ms"],
+        "plain_ms_f64": q64["plain_ms"],
+        "bound_ms_f64": q64["bound_ms"], "bound_by_f64": q64["bound_by"],
+        "max_rel_err_f64": dqa_worst["float64"],
+        "max_rel_err_f32": dqa_worst["float32"],
+    }
+    v32, v64 = tm_w5_3d["float32"], tm_w5_3d["float64"]
+    w5_3d_record = {
+        "name": "weno5:sharpclaw_3d", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/weno5.cu",
+        "replaces": "pyclaw_tpu/ops/weno.py:76",
+        "replaces_function": "weno5_pallas, as sharpclaw/kernels.py:dq_nd "
+                             "calls it on each axis",
+        "rows": ["8"],
+        "launches": sharp3d["launches"]["weno5"],
+        "overlay_launches": {"4n": overlay_four["sharpclaw3d"]["launches"]},
+        "max_abs_err": w3_main_abs_err,
+        "ms": v32["ms"], "device_ms": v32["device_ms"],
+        "plain_ms": v32["plain_ms"],
+        "bound_ms": v32["bound_ms"], "bound_by": v32["bound_by"],
+        "library_ms": None,
+        "shape": v32["shape"], "dtype": "float32",
+        "ms_f64": v64["ms"], "device_ms_f64": v64["device_ms"],
+        "plain_ms_f64": v64["plain_ms"],
+        "bound_ms_f64": v64["bound_ms"], "bound_by_f64": v64["bound_by"],
+        "max_rel_err_f64": w3_worst["float64"],
+        "max_rel_err_f32": w3_worst["float32"],
+    }
+    kernels = [record, dq_record, dq_ac_record, s3_record, aos_record,
+               aos_ac_record, s1_record, s1_sw_record, w5_record,
+               w5_3d_record, het_record, eu_record, rs_record]
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s_counted": wall, "loop": loop4},
                "sharpclaw_path": {"accepted": sns, "rejected": snr,
@@ -3696,6 +4250,12 @@ def main():
                "euler3d_capacity_checks": eu_checks,
                "acoustics_path": acou, "dam_break_dry_path": dam,
                "sod_chardecomp_path": chardecomp, "validator": validator,
+               "sharpclaw_euler3d_path": sharp3d,
+               "sharpclaw_routes": routes,
+               "sharpclaw3d_card_vs_cpu": sharp3d_vs_cpu,
+               "timing_dq_acoustics": tm_dq_ac,
+               "timing_weno5_3d": tm_w5_3d,
+               "profile_sharpclaw_euler3d": prof_s3,
                "overlay_nccl_one_rank": overlay_one,
                "overlay_four_ranks": overlay_four,
                "lake_at_rest": {"steps": lake_steps,

@@ -22,8 +22,11 @@ The port carries these paths, each with a hand-written CUDA kernel:
 
 * 2D Euler quadrants on the classic CTU step (``ClawSolver2D`` with
   ``euler_4wave_2D``; ``csrc/step2_ctu.cu``);
-* 2D Euler on SharpClaw WENO5 (``SharpClawSolver2D``; SSP104, SSP33,
-  Euler; ``csrc/dq2_weno5.cu``);
+* 2D Euler and 2D acoustics on SharpClaw WENO5 (``SharpClawSolver2D``;
+  SSP104, SSP33, Euler; ``csrc/dq2_weno5.cu``), and SharpClaw on every
+  other 2D and 3D system and option through the generic dq
+  (``SharpClawSolver2D/3D``; ``sharpclaw/kernels.py:dq_nd`` around
+  ``csrc/weno5.cu``);
 * 3D Euler on the classic CTU step (``ClawSolver3D`` with ``euler_3D``;
   ``csrc/step3_ctu.cu``);
 * 2D shallow water on the generic AoS CTU step, with aux, capacity and

@@ -72,7 +72,6 @@ class ClawSolver1D(ClawSolver):
     correction flux and update in one sweep.  Takes aux arrays, a capacity
     function (``state.index_capa``) and ``fwave``."""
     num_dim = 1
-    takes_aux = True
 
     def _make_hyperbolic_step(self, state):
         rp = self.rp
@@ -101,7 +100,6 @@ class ClawSolver2D(ClawSolver):
     2 = also of the second-order correction waves.  Takes aux arrays, a
     capacity function (``state.index_capa``) and ``fwave``."""
     num_dim = 2
-    takes_aux = True
 
     def __init__(self, riemann_solver=None, device=None):
         super().__init__(riemann_solver, device=device)
@@ -133,7 +131,7 @@ class ClawSolver2D(ClawSolver):
         # systems of tiled2d.AOS_SYSTEMS: shallow water and acoustics, the
         # wrapper raises for others)
         rp = self.rp
-        if rp.rp is None:
+        if rp.rp is None or rp.rpt is None:
             raise _not_ported("generic AoS 2D step")
         tiled2d.check_options(mthlim, order, tw, rp.num_waves,
                               "step2_rows_generic")
@@ -180,7 +178,6 @@ class ClawSolver3D(ClawSolver):
     ``ops.tiled2d.STEP3_SYSTEMS`` run ``ops.tiled2d.step3_xy_generic``
     (``csrc/step3_aos.cu``)."""
     num_dim = 3
-    takes_aux = True
 
     def __init__(self, riemann_solver=None, device=None):
         super().__init__(riemann_solver, device=device)

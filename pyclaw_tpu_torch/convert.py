@@ -19,7 +19,7 @@ SETTINGS = ("limiters", "order", "transverse_waves", "bc_lower",
             "bc_upper", "aux_bc_lower", "aux_bc_upper", "fwave", "cfl_max",
             "cfl_desired", "dt_initial", "dt_max", "dt_variable",
             "max_steps", "time_integrator", "weno_order", "lim_type",
-            "char_decomp", "dimensional_split")
+            "char_decomp", "dimensional_split", "use_soa")
 
 
 def solution_from_arrays(q, problem_data, lower, upper, num_cells, t=0.0,

@@ -1,15 +1,30 @@
 // dq2_weno5.cu — one SharpClaw semidiscrete evaluation (WENO5, Roe,
-// per-system flux) of the 2D Euler 4-wave system, one launch per RK stage,
-// for Hopper (sm_90a).
+// per-system flux) of a 2D system, one launch per RK stage, for Hopper
+// (sm_90a).  Two systems, each a template instance of its own (a system
+// struct gives NEQ, NW, Par and make_par, admissible, nz, waves, speeds
+// and flux): the Euler 4-wave system (Euler4, the entries dq2_weno5_*) and
+// constant-coefficient acoustics_2D (Acoustics, dq2_weno5_acoustics_*).
 //
 // Replaces the TPU kernel pyclaw_tpu/ops/tiled2d.py:dq_pallas_rows
 // (pallas_call at :415) with its SoA body sharpclaw/soa.py:dq_2d_soa_roll.
 // It computes what pyclaw_tpu/sharpclaw/soa.py:dq_2d_soa computes for
-// componentwise WENO5 with the positivity fallback and the flux form of
-// the in-cell fluctuation; its plain PyTorch version is
-// pyclaw_tpu_torch/sharpclaw/soa.py:dq_2d_soa, which it is held against on
-// the card (chip_smoke.py) and, through the host emulation at the end of
-// this file, on the CPU (tests/test_torch_sharpclaw_kernel.py).
+// componentwise WENO5 with the positivity fallback (Euler's; acoustics has
+// none) and the flux form of the in-cell fluctuation; its plain PyTorch
+// version is pyclaw_tpu_torch/sharpclaw/soa.py:dq_2d_soa with the system's
+// SoA hooks, which it is held against on the card (chip_smoke.py [3b],
+// [3j]) and, through the host emulation at the end of this file, on the
+// CPU (tests/test_torch_sharpclaw_kernel.py, tests/test_torch_sharpclaw_nd.py).
+//
+// The acoustics instance (added after the Euler one was redesigned): 3
+// equations, 2 waves of the constant speeds -c and +c whose transverse
+// velocity component is zero (nz skips it, as the plain version's None
+// components are skipped), the flux (zz cc u_n, cc/zz p, 0).  Per cell it
+// moves 24 B in f32 (3 values in, 3 out) and does 761 (f32) / 695 (f64)
+// operations (chip_smoke.py:FLOPS_PER_CELL_DQ_ACOUSTICS), most of them
+// WENO5's: operations bound it, as they bound Euler.  It keeps Euler's
+// tile and phases.  The Euler instance's code is the same template with
+// Euler's hooks, and its bits are unchanged (ops/time_kernels.py
+// dq2_weno5 against the parent's build).
 //
 // What bounds it on the card: per cell it must read the 4 values of q
 // (with the 3-cell ghost band) and write the 4 values of dq, about 32 B
@@ -86,7 +101,9 @@
 //
 // The arithmetic repeats the plain version operation for operation,
 // including the float32/float64 branches of limiters/recon.py (WENO
-// weights) and riemann/euler.py (_alpha34, _flux_euler_2d_soa).
+// weights) and riemann/euler.py (_alpha34, _flux_euler_2d_soa); the
+// acoustics algebra is riemann/acoustics.py's _rp_acoustics_soa and
+// _flux_acoustics_soa, the Python scalars folded in double as there.
 
 #include "async_copy.cuh"
 #include "dt_coef.cuh"
@@ -100,8 +117,12 @@ constexpr int TX = 16, TY = 16;  // cells per tile along x (rows), y (cols)
 constexpr int G = 3;         // ghost cells (WENO5)
 
 // ---- Euler physics (riemann/euler.py) ----------------------------------
+template <typename T> struct EulerPar {
+  T g1;   // gamma - 1
+};
+
 // positivity: rho > 0 and p > 0
-template <typename T> HD bool admissible(T g1, const T q[4]) {
+template <typename T> HD bool euler_admissible(T g1, const T q[4]) {
   const T rho = q[0];
   const T ke = T(0.5) * (q[1] * q[1] + q[2] * q[2]) / (rho > T(0) ? rho : T(1));
   const T p = g1 * (q[3] - ke);
@@ -131,6 +152,98 @@ HD void flux_2d(float g1, const float q[4], float f[4]) {
   f[3] = u * (q[3] + p);
 }
 
+// ---- euler_4wave_2D: q = (rho, rho u, rho v, E) ------------------------
+struct Euler4 {
+  static constexpr int NEQ = 4, NW = 4;
+  template <typename T> using Par = EulerPar<T>;
+  template <typename T> static EulerPar<T> make_par(double p0, double) {
+    EulerPar<T> P;
+    P.g1 = T(p0);
+    return P;
+  }
+  template <typename T>
+  static HD bool admissible(const EulerPar<T>& P, const T q[4]) {
+    return euler_admissible(P.g1, q);
+  }
+  // every wave component takes part in the fluctuations
+  template <int IXY> static HD constexpr bool nz(int, int) { return true; }
+  template <int IXY, typename T>
+  static HD void waves(const EulerPar<T>& P, const T ql[4], const T qr[4],
+                       T w[4][4], T s[4]) {
+    const Roe<T> rs = roe_2d<IXY>(P.g1, ql, qr);
+    roe_waves<IXY>(rs, w, s);
+  }
+  template <int IXY, typename T>
+  static HD void speeds(const EulerPar<T>& P, const T ql[4], const T qr[4],
+                        T s[4]) {
+    const Roe<T> rs = roe_2d<IXY>(P.g1, ql, qr);
+    s[0] = rs.u - rs.a;
+    s[1] = rs.u;
+    s[2] = rs.u;
+    s[3] = rs.u + rs.a;
+  }
+  template <int IXY, typename T>
+  static HD void flux(const EulerPar<T>& P, const T q[4], T f[4]) {
+    flux_2d<IXY>(P.g1, q, f);
+  }
+};
+
+// ---- acoustics_2D: q = (p, u, v) (riemann/acoustics.py) ----------------
+template <typename T> struct AcPar {
+  // impedance, sound speed, -cc, 2 zz, zz cc, cc / zz: each folded in
+  // double and rounded once, as the plain version's Python scalars
+  T zz, cc, mcc, z2, zc, cz;
+};
+
+struct Acoustics {
+  static constexpr int NEQ = 3, NW = 2;
+  template <typename T> using Par = AcPar<T>;
+  template <typename T> static AcPar<T> make_par(double zz, double cc) {
+    AcPar<T> P;
+    P.zz = T(zz);
+    P.cc = T(cc);
+    P.mcc = T(-cc);
+    P.z2 = T(2.0 * zz);
+    P.zc = T(zz * cc);
+    P.cz = T(cc / zz);
+    return P;
+  }
+  // no positivity fallback
+  template <typename T> static HD bool admissible(const AcPar<T>&, const T*) {
+    return true;
+  }
+  // both waves have the pressure and the normal velocity only
+  template <int IXY> static HD constexpr bool nz(int, int e) {
+    return e != 2 - IXY;
+  }
+  // _rp_acoustics_soa
+  template <int IXY, typename T>
+  static HD void waves(const AcPar<T>& P, const T ql[3], const T qr[3],
+                       T w[2][3], T s[2]) {
+    constexpr int mu = 1 + IXY, mv = 2 - IXY;
+    const T d0 = qr[0] - ql[0], dmu = qr[mu] - ql[mu];
+    const T a1 = (-d0 + P.zz * dmu) / P.z2;    // left-going strength
+    const T a2 = (d0 + P.zz * dmu) / P.z2;     // right-going strength
+    w[0][0] = -a1 * P.zz; w[0][mu] = a1; w[0][mv] = T(0);
+    w[1][0] = a2 * P.zz; w[1][mu] = a2; w[1][mv] = T(0);
+    s[0] = P.mcc;
+    s[1] = P.cc;
+  }
+  template <int IXY, typename T>
+  static HD void speeds(const AcPar<T>& P, const T*, const T*, T s[2]) {
+    s[0] = P.mcc;
+    s[1] = P.cc;
+  }
+  // _flux_acoustics_soa
+  template <int IXY, typename T>
+  static HD void flux(const AcPar<T>& P, const T q[3], T f[3]) {
+    constexpr int mu = 1 + IXY, mv = 2 - IXY;
+    f[0] = P.zc * q[mu];
+    f[mu] = P.cz * q[0];
+    f[mv] = T(0);
+  }
+};
+
 // ---- block geometry and shared-memory layout --------------------------
 constexpr int QR = TX + 2 * G, QC = TY + 2 * G;   // q tile + halo
 constexpr int EXR = TX + 2, EXC = TY;             // x edge states
@@ -140,22 +253,24 @@ constexpr int FYR = TX, FYC = TY + 1;             // y interfaces
 constexpr int EN = EXR * EXC > EYR * EYC ? EXR * EXC : EYR * EYC;
 constexpr int FN = FXR * FXC > FYR * FYC ? FXR * FXC : FYR * FYC;
 
-template <typename T> struct Layout {
-  // Q [4][QR][QC], E [2][8][EN] (per direction: ql 0..3, qr 4..7), F
-  // [2][8][FN] (per direction: amdq 0..3,
-  // apdq 4..7), DQ [4][TX*TY] (the x part of dq), R [NT] (CFL partials)
+template <typename S, typename T> struct Layout {
+  // Q [NEQ][QR][QC], E [2][2 NEQ][EN] (per direction: ql 0..NEQ-1, qr
+  // NEQ..2 NEQ-1), F [2][2 NEQ][FN] (per direction: amdq, then apdq),
+  // DQ [NEQ][TX*TY] (the x part of dq), R [NT] (CFL partials)
+  static constexpr int N = S::NEQ;
   static constexpr size_t elems =
-      4 * QR * QC + 2 * 8 * EN + 2 * 8 * FN + 4 * TX * TY + NT;
+      N * QR * QC + 2 * 2 * N * EN + 2 * 2 * N * FN + N * TX * TY + NT;
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
-template <typename T> struct Args {
+template <typename S, typename T> struct Args {
   const T* qbc;
   T* dq;
   T* cflb;
   int NX, NY;            // padded (ghost-extended) extents
   const double* dt;      // the step (dt_coef.cuh)
-  T dx, dy, g1;
+  T dx, dy;
+  typename S::template Par<T> P;   // the system's physics scalars
   T* C;                  // the block's coefficients of dt (shared memory)
 };
 
@@ -165,12 +280,13 @@ enum { C_DTDX = 0, C_DTDY = 1, C_NDTDX = 2, C_NDTDY = 3, NCOEF = 4 };
 
 // coefficient k of dt (C_*): T(dt)/T(dx) or T(dt)/T(dy), negated for
 // C_NDTDX and C_NDTDY
-template <typename T> HD T dt_coef(const Args<T>& A, int k) {
+template <typename S, typename T> HD T dt_coef(const Args<S, T>& A, int k) {
   const T q = T(*A.dt) / (k % 2 == 0 ? A.dx : A.dy);
   return k < C_NDTDX ? q : -q;
 }
 
-template <typename T> struct Block {
+template <typename S, typename T> struct Block {
+  static constexpr int N = S::NEQ;
   T* Q;
   T* E[2];   // edge states along x, y
   T* F[2];   // fluctuations at the x-, y-interfaces
@@ -180,12 +296,12 @@ template <typename T> struct Block {
 
   HD void bind(T* s, int bx_, int by_, int nbx_, int nby_) {
     Q = s;
-    E[0] = Q + 4 * QR * QC;
-    E[1] = E[0] + 8 * EN;
-    F[0] = E[1] + 8 * EN;
-    F[1] = F[0] + 8 * FN;
-    DQ = F[1] + 8 * FN;
-    R = DQ + 4 * TX * TY;
+    E[0] = Q + N * QR * QC;
+    E[1] = E[0] + 2 * N * EN;
+    F[0] = E[1] + 2 * N * EN;
+    F[1] = F[0] + 2 * N * FN;
+    DQ = F[1] + 2 * N * FN;
+    R = DQ + N * TX * TY;
     bx = bx_;
     by = by_;
     nbx = nbx_;
@@ -198,9 +314,9 @@ template <typename T> struct Block {
 
 // ---- phase: stage q tile + halo ----------------------------------------
 // every copy is issued (cp.async) before the thread waits on any
-template <typename T>
-HD void phase_load(const Args<T>& A, Block<T>& B, int tid) {
-  for (int idx = tid; idx < 4 * QR * QC; idx += NT) {
+template <typename S, typename T>
+HD void phase_load(const Args<S, T>& A, Block<S, T>& B, int tid) {
+  for (int idx = tid; idx < S::NEQ * QR * QC; idx += NT) {
     int e = idx / (QR * QC);
     int r = (idx / QC) % QR;
     int c = idx % QC;
@@ -217,17 +333,17 @@ HD void phase_load(const Args<T>& A, Block<T>& B, int tid) {
 
 // WENO edge states of the cell at staged (row, col) along D, with the
 // positivity fallback to the cell average (sharpclaw/soa.py:89-92)
-template <int D, typename T>
-HD void edge_states(const Args<T>& A, const Block<T>& B, int row, int col,
-                    T ql[4], T qr[4]) {
-  for (int e = 0; e < 4; ++e) {
+template <int D, typename S, typename T>
+HD void edge_states(const Args<S, T>& A, const Block<S, T>& B, int row,
+                    int col, T ql[S::NEQ], T qr[S::NEQ]) {
+  for (int e = 0; e < S::NEQ; ++e) {
     T v[5];
     for (int k = 0; k < 5; ++k)
       v[k] = D == 0 ? B.q(e, row - 2 + k, col) : B.q(e, row, col - 2 + k);
     weno5(v[0], v[1], v[2], v[3], v[4], ql[e], qr[e]);
   }
-  if (!(admissible(A.g1, ql) && admissible(A.g1, qr))) {
-    for (int e = 0; e < 4; ++e) {
+  if (!(S::admissible(A.P, ql) && S::admissible(A.P, qr))) {
+    for (int e = 0; e < S::NEQ; ++e) {
       ql[e] = B.q(e, row, col);
       qr[e] = ql[e];
     }
@@ -235,31 +351,33 @@ HD void edge_states(const Args<T>& A, const Block<T>& B, int row, int col,
 }
 
 // ---- phase: edge states of the tile plus a 1-cell ring along D ---------
-template <int D, typename T>
-HD void phase_edges(const Args<T>& A, Block<T>& B, int tid) {
+template <int D, typename S, typename T>
+HD void phase_edges(const Args<S, T>& A, Block<S, T>& B, int tid) {
+  constexpr int N = S::NEQ;
   constexpr int ER = D == 0 ? EXR : EYR, EC = D == 0 ? EXC : EYC;
   for (int idx = tid; idx < ER * EC; idx += NT) {
     int r = idx / EC, c = idx % EC;
     // x: cell (I0-1+r, J0+c) = staged (r+2, c+3); y: (I0+r, J0-1+c)
     int row = D == 0 ? r + 2 : r + 3, col = D == 0 ? c + 3 : c + 2;
-    T ql[4], qr[4];
+    T ql[N], qr[N];
     edge_states<D>(A, B, row, col, ql, qr);
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < N; ++e) {
       B.E[D][e * EN + idx] = ql[e];
-      B.E[D][(4 + e) * EN + idx] = qr[e];
+      B.E[D][(N + e) * EN + idx] = qr[e];
     }
   }
 }
 
-template <typename T> HD T speed_max(const T s[4], T dtdx) {
+template <int NW, typename T> HD T speed_max(const T s[NW], T dtdx) {
   T m = dtdx * fabs_(s[0]);
-  for (int p = 1; p < 4; ++p) m = mx(m, dtdx * fabs_(s[p]));
+  for (int p = 1; p < NW; ++p) m = mx(m, dtdx * fabs_(s[p]));
   return m;
 }
 
 // ---- phase: Roe solves at the tile's interfaces along D, and the CFL ---
-template <int D, typename T>
-HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
+template <int D, typename S, typename T>
+HD void phase_iface(const Args<S, T>& A, Block<S, T>& B, int tid) {
+  constexpr int N = S::NEQ, NW = S::NW;
   constexpr int FR = D == 0 ? FXR : FYR, FC = D == 0 ? FXC : FYC;
   constexpr int EC = D == 0 ? EXC : EYC;
   const T dtdx = A.C[D == 0 ? C_DTDX : C_DTDY];
@@ -269,28 +387,31 @@ HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
     // interface between E cells (r, c) and x: (r+1, c), y: (r, c+1)
     int el = r * EC + c;
     int er = D == 0 ? el + EC : el + 1;
-    T ql[4], qr[4];
-    for (int e = 0; e < 4; ++e) {
-      ql[e] = B.E[D][(4 + e) * EN + el];   // qr of the left cell
+    T ql[N], qr[N];
+    for (int e = 0; e < N; ++e) {
+      ql[e] = B.E[D][(N + e) * EN + el];   // qr of the left cell
       qr[e] = B.E[D][e * EN + er];         // ql of the right cell
     }
-    const Roe<T> rs = roe_2d<D>(A.g1, ql, qr);
-    T w[4][4], s[4];
-    roe_waves<D>(rs, w, s);
-    for (int e = 0; e < 4; ++e) {
+    T w[NW][N], s[NW];
+    S::template waves<D>(A.P, ql, qr, w, s);
+    for (int e = 0; e < N; ++e) {
+      // the sums over the waves that have component e, in wave order
       T m = T(0), pp = T(0);
-      for (int p = 0; p < 4; ++p) {
+      bool first = true;
+      for (int p = 0; p < NW; ++p) {
+        if (!S::template nz<D>(p, e)) continue;
         T am_t = mn(s[p], T(0)) * w[p][e];
         T ap_t = mx(s[p], T(0)) * w[p][e];
-        m = p == 0 ? am_t : m + am_t;
-        pp = p == 0 ? ap_t : pp + ap_t;
+        m = first ? am_t : m + am_t;
+        pp = first ? ap_t : pp + ap_t;
+        first = false;
       }
       B.F[D][e * FN + idx] = m;
-      B.F[D][(4 + e) * FN + idx] = pp;
+      B.F[D][(N + e) * FN + idx] = pp;
     }
     // x-interface k = I0-1+r (y: j = J0-1+c) is in the window up to nxg-4
     bool in_cfl = D == 0 ? B.I0 - 1 + r <= A.NX - 4 : B.J0 - 1 + c <= A.NY - 4;
-    if (in_cfl) smax = mx(smax, speed_max(s, dtdx));
+    if (in_cfl) smax = mx(smax, speed_max<NW>(s, dtdx));
   }
 
   // ghost band across the sweep (x: columns 0..2 and nyg-3..nyg-1), for
@@ -308,12 +429,12 @@ HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
     int row_r = D == 0 ? k + 3 : across, col_r = D == 0 ? across : k + 3;
     bool in_cfl = D == 0 ? B.I0 - 1 + k <= A.NX - 4 : B.J0 - 1 + k <= A.NY - 4;
     if (!in_cfl) continue;
-    T ql_l[4], qr_l[4], ql_r[4], qr_r[4];
+    T ql_l[N], qr_l[N], ql_r[N], qr_r[N];
     edge_states<D>(A, B, row_l, col_l, ql_l, qr_l);
     edge_states<D>(A, B, row_r, col_r, ql_r, qr_r);
-    const Roe<T> rs = roe_2d<D>(A.g1, qr_l, ql_r);
-    const T s[4] = {rs.u - rs.a, rs.u, rs.u, rs.u + rs.a};
-    smax = mx(smax, speed_max(s, dtdx));
+    T s[NW];
+    S::template speeds<D>(A.P, qr_l, ql_r, s);
+    smax = mx(smax, speed_max<NW>(s, dtdx));
   }
   B.R[tid] = smax;
 }
@@ -321,8 +442,9 @@ HD void phase_iface(const Args<T>& A, Block<T>& B, int tid) {
 // ---- phase: one direction's part of dq --------------------------------
 // x: DQ = -dt/dx (apdq_{I-1} + amdq_I + f(qr_I) - f(ql_I));
 // y: dq = DQ + -dt/dy (...), stored to device memory (masked)
-template <int D, typename T>
-HD void phase_update(const Args<T>& A, Block<T>& B, int tid) {
+template <int D, typename S, typename T>
+HD void phase_update(const Args<S, T>& A, Block<S, T>& B, int tid) {
+  constexpr int N = S::NEQ;
   constexpr int FC = D == 0 ? FXC : FYC, EC = D == 0 ? EXC : EYC;
   const T ndt = A.C[D == 0 ? C_NDTDX : C_NDTDY];
   const int nx = A.NX - 2 * G, ny = A.NY - 2 * G;
@@ -333,16 +455,16 @@ HD void phase_update(const Args<T>& A, Block<T>& B, int tid) {
     int f_lo = ti * FC + tj;
     int f_hi = D == 0 ? f_lo + FC : f_lo + 1;
     int ec = D == 0 ? (ti + 1) * EC + tj : ti * EC + tj + 1;
-    T ql[4], qr[4], fl[4], fr[4];
-    for (int e = 0; e < 4; ++e) {
+    T ql[N], qr[N], fl[N], fr[N];
+    for (int e = 0; e < N; ++e) {
       ql[e] = B.E[D][e * EN + ec];
-      qr[e] = B.E[D][(4 + e) * EN + ec];
+      qr[e] = B.E[D][(N + e) * EN + ec];
     }
-    flux_2d<D>(A.g1, ql, fl);
-    flux_2d<D>(A.g1, qr, fr);
+    S::template flux<D>(A.P, ql, fl);
+    S::template flux<D>(A.P, qr, fr);
     if (D == 1 && (I >= A.NX - G || J >= A.NY - G)) continue;
-    for (int e = 0; e < 4; ++e) {
-      T part = ndt * (B.F[D][(4 + e) * FN + f_lo] + B.F[D][e * FN + f_hi]
+    for (int e = 0; e < N; ++e) {
+      T part = ndt * (B.F[D][(N + e) * FN + f_lo] + B.F[D][e * FN + f_hi]
                       + (fr[e] - fl[e]));
       if (D == 0) {
         B.DQ[e * TX * TY + idx] = part;
@@ -355,18 +477,19 @@ HD void phase_update(const Args<T>& A, Block<T>& B, int tid) {
 }
 
 // the block's CFL partial from the per-warp maxima in R[0 .. NT/32)
-template <typename T>
-HD void phase_write_cfl(const Args<T>& A, Block<T>& B, int tid) {
+template <typename S, typename T>
+HD void phase_write_cfl(const Args<S, T>& A, Block<S, T>& B, int tid) {
   if (tid != 0) return;
   T c = B.R[0];
   for (int w = 1; w < NT / 32; ++w) c = mx(c, B.R[w]);
   A.cflb[B.by * B.nbx + B.bx] = c;
 }
 
-template <typename T>
-Args<T> make_args(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
-                  const double* dt, double dx, double dy, double g1) {
-  Args<T> A;
+template <typename S, typename T>
+Args<S, T> make_args(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
+                     const double* dt, double dx, double dy, double p0,
+                     double p1) {
+  Args<S, T> A;
   A.qbc = static_cast<const T*>(qbc);
   A.dq = static_cast<T*>(dq);
   A.cflb = static_cast<T*>(cflb);
@@ -376,7 +499,7 @@ Args<T> make_args(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
   A.dx = T(dx);
   A.dy = T(dy);
   A.C = nullptr;
-  A.g1 = T(g1);
+  A.P = S::template make_par<T>(p0, p1);
   return A;
 }
 
@@ -386,58 +509,60 @@ void grid_of(int nxg, int nyg, int& nbx, int& nby) {
 }
 
 #if defined(__CUDACC__)
-template <typename T>
-__global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<T> A) {
+template <typename S, typename T>
+__global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<S, T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T coef[NCOEF];
   A.C = coef;
-  Block<T> B;
+  Block<S, T> B;
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x,
          gridDim.y);
   const int tid = threadIdx.x;
-  phase_load<T>(A, B, tid);
+  phase_load<S, T>(A, B, tid);
   __syncthreads();
-  phase_edges<0, T>(A, B, tid);
-  phase_edges<1, T>(A, B, tid);
+  phase_edges<0, S, T>(A, B, tid);
+  phase_edges<1, S, T>(A, B, tid);
   __syncthreads();
-  phase_iface<0, T>(A, B, tid);
-  phase_iface<1, T>(A, B, tid);
+  phase_iface<0, S, T>(A, B, tid);
+  phase_iface<1, S, T>(A, B, tid);
   __syncthreads();
   // a thread owns the same cells in both: no barrier between
-  phase_update<0, T>(A, B, tid);
-  phase_update<1, T>(A, B, tid);
+  phase_update<0, S, T>(A, B, tid);
+  phase_update<1, S, T>(A, B, tid);
   // the CFL partial: a warp-shuffle max, then one slot per warp
   const T m = warp_max(B.R[tid]);
   __syncthreads();
   if (tid % 32 == 0) B.R[tid / 32] = m;
   __syncthreads();
-  phase_write_cfl<T>(A, B, tid);
+  phase_write_cfl<S, T>(A, B, tid);
 }
 
-// the devices whose shared-memory attribute of dq2_weno5_kernel<T> is set
-template <typename T> unsigned long long attr_done = 0;
+// the devices whose shared-memory attribute of dq2_weno5_kernel<S, T> is set
+template <typename S, typename T> unsigned long long attr_done = 0;
 
-template <typename T>
+template <typename S, typename T>
 int launch(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
-           const double* dt, double dx, double dy, double g1,
+           const double* dt, double dx, double dy, double p0, double p1,
            void* stream) {
   cudaError_t err = smem_attr_once(
-      reinterpret_cast<const void*>(dq2_weno5_kernel<T>),
-      (int)Layout<T>::bytes, attr_done<T>);
+      reinterpret_cast<const void*>(dq2_weno5_kernel<S, T>),
+      (int)Layout<S, T>::bytes, attr_done<S, T>);
   if (err != cudaSuccess) return (int)err;
   int nbx, nby;
   grid_of(nxg, nyg, nbx, nby);
-  Args<T> A = make_args<T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
-  dq2_weno5_kernel<T><<<dim3(nbx, nby), NT, Layout<T>::bytes,
-                        static_cast<cudaStream_t>(stream)>>>(A);
+  Args<S, T> A = make_args<S, T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, p0, p1);
+  dq2_weno5_kernel<S, T><<<dim3(nbx, nby), NT, Layout<S, T>::bytes,
+                           static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
 }
-template <typename T> int blocks_per_sm() {
+template <typename S, typename T> int blocks_per_sm() {
   int per = 0;
-  if (smem_attr_once(reinterpret_cast<const void*>(dq2_weno5_kernel<T>),
-                     (int)Layout<T>::bytes, attr_done<T>) != cudaSuccess ||
+  if (smem_attr_once(reinterpret_cast<const void*>(dq2_weno5_kernel<S, T>),
+                     (int)Layout<S, T>::bytes, attr_done<S, T>) !=
+          cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, dq2_weno5_kernel<T>, NT, Layout<T>::bytes) != cudaSuccess)
+          &per, dq2_weno5_kernel<S, T>, NT, Layout<S, T>::bytes) !=
+          cudaSuccess)
     return -1;
   return per;
 }
@@ -446,37 +571,38 @@ template <typename T> int blocks_per_sm() {
 // with each barrier between two phases kept by running the whole block
 // through a phase before the next.  Used by the CPU tests to check the
 // kernel's index algebra against the plain version without a card.
-template <typename T>
+template <typename S, typename T>
 int launch_host(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
-                const double* dt, double dx, double dy, double g1) {
+                const double* dt, double dx, double dy, double p0,
+                double p1) {
   int nbx, nby;
   grid_of(nxg, nyg, nbx, nby);
-  Args<T> A = make_args<T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
-  std::vector<T> smem(Layout<T>::elems);
+  Args<S, T> A = make_args<S, T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, p0, p1);
+  std::vector<T> smem(Layout<S, T>::elems);
   T coef[NCOEF];
   A.C = coef;
   for (int by = 0; by < nby; ++by) {
     for (int bx = 0; bx < nbx; ++bx) {
-      Block<T> B;
+      Block<S, T> B;
       B.bind(smem.data(), bx, by, nbx, nby);
-      for (int t = 0; t < NT; ++t) phase_load<T>(A, B, t);
+      for (int t = 0; t < NT; ++t) phase_load<S, T>(A, B, t);
       for (int t = 0; t < NT; ++t) {
-        phase_edges<0, T>(A, B, t);
-        phase_edges<1, T>(A, B, t);
+        phase_edges<0, S, T>(A, B, t);
+        phase_edges<1, S, T>(A, B, t);
       }
       for (int t = 0; t < NT; ++t) {
-        phase_iface<0, T>(A, B, t);
-        phase_iface<1, T>(A, B, t);
+        phase_iface<0, S, T>(A, B, t);
+        phase_iface<1, S, T>(A, B, t);
       }
       for (int t = 0; t < NT; ++t) {
-        phase_update<0, T>(A, B, t);
-        phase_update<1, T>(A, B, t);
+        phase_update<0, S, T>(A, B, t);
+        phase_update<1, S, T>(A, B, t);
       }
       // the warp max as a loop over the lanes (R[t / 32] is written only
       // after thread t / 32's own value has been read)
       for (int t = 0; t < NT; ++t)
         B.R[t / 32] = t % 32 == 0 ? B.R[t] : mx(B.R[t / 32], B.R[t]);
-      phase_write_cfl<T>(A, B, 0);
+      phase_write_cfl<S, T>(A, B, 0);
     }
   }
   return 0;
@@ -488,52 +614,98 @@ int launch_host(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
 // ---- plain C interface (loaded with ctypes) ----------------------------
 extern "C" {
 
-// Number of blocks (= CFL partials) the kernel writes for a padded grid.
+// Number of blocks (= CFL partials) the kernel writes for a padded grid
+// (either system).
 int dq2_weno5_blocks(int nxg, int nyg) {
   int nbx, nby;
   grid_of(nxg, nyg, nbx, nby);
   return nbx * nby;
 }
 
-// Shared memory bytes per block (reported by chip_smoke.py).
+// Shared memory bytes per block (reported by chip_smoke.py): Euler, and the
+// acoustics instance.
 int dq2_weno5_smem_bytes(int is_double) {
-  return is_double ? (int)Layout<double>::bytes : (int)Layout<float>::bytes;
+  return is_double ? (int)Layout<Euler4, double>::bytes
+                   : (int)Layout<Euler4, float>::bytes;
+}
+int dq2_weno5_acoustics_smem_bytes(int is_double) {
+  return is_double ? (int)Layout<Acoustics, double>::bytes
+                   : (int)Layout<Acoustics, float>::bytes;
 }
 
-// One SharpClaw dq.  qbc: (4, nxg, nyg) ghost-padded (3 ghost cells), dq:
-// (4, nxg-6, nyg-6), cflb: dq2_weno5_blocks(...) partial CFL maxima; all
+// One SharpClaw dq.  qbc: (NEQ, nxg, nyg) ghost-padded (3 ghost cells), dq:
+// (NEQ, nxg-6, nyg-6), cflb: dq2_weno5_blocks(...) partial CFL maxima; all
 // contiguous, of the type named by the entry.  dt: the step in device
 // memory (host memory for the host emulation), a double that is exact in
-// the entry's type; g1 = gamma - 1.  Returns a cudaError_t (0 on success).
+// the entry's type.  The Euler entries (NEQ 4) take g1 = gamma - 1, the
+// acoustics entries (NEQ 3) the impedance zz and the sound speed cc.
+// Returns a cudaError_t (0 on success).
 #if defined(__CUDACC__)
 int dq2_weno5_f32(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
                   const double* dt, double dx, double dy, double g1,
                   void* stream) {
-  return launch<float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, stream);
+  return launch<Euler4, float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, 0.0,
+                               stream);
 }
 
 int dq2_weno5_f64(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
                   const double* dt, double dx, double dy, double g1,
                   void* stream) {
-  return launch<double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, stream);
+  return launch<Euler4, double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, 0.0,
+                                stream);
+}
+
+int dq2_weno5_acoustics_f32(const void* qbc, void* dq, void* cflb, int nxg,
+                            int nyg, const double* dt, double dx, double dy,
+                            double zz, double cc, void* stream) {
+  return launch<Acoustics, float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, zz,
+                                  cc, stream);
+}
+
+int dq2_weno5_acoustics_f64(const void* qbc, void* dq, void* cflb, int nxg,
+                            int nyg, const double* dt, double dx, double dy,
+                            double zz, double cc, void* stream) {
+  return launch<Acoustics, double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, zz,
+                                   cc, stream);
 }
 
 // Resident blocks per SM on the current device (reported by
 // chip_smoke.py), or -1 on an error.
 int dq2_weno5_blocks_per_sm(int is_double) {
-  return is_double ? blocks_per_sm<double>() : blocks_per_sm<float>();
+  return is_double ? blocks_per_sm<Euler4, double>()
+                   : blocks_per_sm<Euler4, float>();
+}
+int dq2_weno5_acoustics_blocks_per_sm(int is_double) {
+  return is_double ? blocks_per_sm<Acoustics, double>()
+                   : blocks_per_sm<Acoustics, float>();
 }
 #else
 int dq2_weno5_host_f32(const void* qbc, void* dq, void* cflb, int nxg,
                        int nyg, const double* dt, double dx, double dy,
                        double g1) {
-  return launch_host<float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
+  return launch_host<Euler4, float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1,
+                                    0.0);
 }
 
 int dq2_weno5_host_f64(const void* qbc, void* dq, void* cflb, int nxg,
                        int nyg, const double* dt, double dx, double dy,
                        double g1) {
-  return launch_host<double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1);
+  return launch_host<Euler4, double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1,
+                                     0.0);
+}
+
+int dq2_weno5_acoustics_host_f32(const void* qbc, void* dq, void* cflb,
+                                 int nxg, int nyg, const double* dt,
+                                 double dx, double dy, double zz, double cc) {
+  return launch_host<Acoustics, float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy,
+                                       zz, cc);
+}
+
+int dq2_weno5_acoustics_host_f64(const void* qbc, void* dq, void* cflb,
+                                 int nxg, int nyg, const double* dt,
+                                 double dx, double dy, double zz, double cc) {
+  return launch_host<Acoustics, double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy,
+                                        zz, cc);
 }
 #endif
 

@@ -4,11 +4,12 @@ port's copy of the JAX package's ``examples/acoustics_2d.py``, with the
 same initial condition and settings (a cosine ring of pressure around r =
 0.5 on [-1, 1]^2, rho = 1, K = 4, extrapolation BCs, to t = 0.12):
 ``ClawSolver2D(acoustics_2D)`` with the MC limiter, the unsplit CTU step
-(``csrc/step2_aos.cu`` on a card).  ``setup()`` takes the JAX example's
-keywords plus ``device`` and ``dtype``; the device picks the kernel, so
-there is no ``kernel_language``.  ``solver_type="sharpclaw"`` (the
-generic SharpClaw dq) and ``dimensional_split=True`` raise at setup,
-naming their ROADMAP.md items.
+(``csrc/step2_aos.cu`` on a card), or with ``solver_type="sharpclaw"``
+``SharpClawSolver2D(acoustics_2D)`` (WENO5, ``time_integrator``; the SoA
+dq, ``csrc/dq2_weno5.cu``'s acoustics instance on a card).  ``setup()``
+takes the JAX example's keywords plus ``device`` and ``dtype``; the
+device picks the kernel, so there is no ``kernel_language``.
+``dimensional_split=True`` raises at setup, naming its ROADMAP.md item.
 
     python -m pyclaw_tpu_torch.examples.acoustics_2d
 """
@@ -23,13 +24,16 @@ from pyclaw_tpu_torch.solver import _not_ported
 def setup(mx=100, my=100, solver_type="classic", time_integrator="SSP104",
           dimensional_split=False, outdir="./_output", dtype=None,
           device=None):
-    if solver_type != "classic":
-        raise _not_ported("generic SharpClaw dq")
-    if dimensional_split:
-        raise _not_ported("dimensional_split")
-    solver = pyclaw.ClawSolver2D(riemann.acoustics_2D, device=device)
-    solver.dimensional_split = dimensional_split
-    solver.limiters = [pyclaw.limiters.tvd.MC]
+    if solver_type == "classic":
+        if dimensional_split:
+            raise _not_ported("dimensional_split")
+        solver = pyclaw.ClawSolver2D(riemann.acoustics_2D, device=device)
+        solver.dimensional_split = dimensional_split
+        solver.limiters = [pyclaw.limiters.tvd.MC]
+    else:
+        solver = pyclaw.SharpClawSolver2D(riemann.acoustics_2D,
+                                          device=device)
+        solver.time_integrator = time_integrator
     solver.all_bcs = pyclaw.BC.extrap
 
     domain = pyclaw.Domain([-1.0, -1.0], [1.0, 1.0], [mx, my])

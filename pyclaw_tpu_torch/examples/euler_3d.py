@@ -2,10 +2,12 @@
 — the port's copy of the JAX package's ``examples/euler_3d.py``, with the
 same initial condition and ``setup()`` keywords plus ``device``, on the
 unsplit classic CTU solver (MC limiter, extrapolation BCs, gamma = 1.4,
-to t = 0.2).  The device picks the kernel, so there is no
-``kernel_language``.  With ``use_parallel=True`` the solver is the
-parallel overlay's (``pyclaw_tpu_torch.parallel``), one process a rank;
-SharpClaw in 3D is not ported yet (its setup raises).
+to t = 0.2; ``csrc/step3_ctu.cu`` on a card) or, with
+``solver_type="sharpclaw"``, on ``SharpClawSolver3D`` (WENO5, SSP104; the
+generic dq, ``csrc/weno5.cu`` on a card).  The device picks the kernel,
+so there is no ``kernel_language``.  With ``use_parallel=True`` the
+solver is the parallel overlay's (``pyclaw_tpu_torch.parallel``), one
+process a rank.
 
     python -m pyclaw_tpu_torch.examples.euler_3d mx=64 my=64 mz=64
     torchrun --nproc-per-node 4 -m pyclaw_tpu_torch.examples.euler_3d \

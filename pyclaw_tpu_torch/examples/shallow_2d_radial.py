@@ -5,7 +5,10 @@ initial condition and settings (``ClawSolver2D(shallow_roe_with_efix_2D)``,
 MC limiter, extrapolation BCs, grav 1.0, [-2.5, 2.5]^2, to t = 1.0) and
 ``setup()`` keywords plus ``device`` and ``dtype``.  The device picks the
 kernel (``csrc/step2_aos.cu`` on a card), so there is no
-``kernel_language``.  SharpClaw on shallow water is not ported yet.
+``kernel_language``.  ``solver_type="sharpclaw"`` runs
+``SharpClawSolver2D(shallow_roe_with_efix_2D)`` (WENO5, SSP104; the
+generic dq with the system's flux and positivity hooks, ``csrc/weno5.cu``
+on a card).
 
     python -m pyclaw_tpu_torch.examples.shallow_2d_radial
 """
@@ -14,16 +17,17 @@ import numpy as np
 
 import pyclaw_tpu_torch as pyclaw
 from pyclaw_tpu_torch import riemann
-from pyclaw_tpu_torch.solver import _not_ported
 
 
 def setup(mx=125, my=125, solver_type="classic", outdir="./_output",
           dtype=None, device=None):
-    if solver_type != "classic":
-        raise _not_ported("generic SharpClaw dq")
-    solver = pyclaw.ClawSolver2D(riemann.shallow_roe_with_efix_2D,
-                                 device=device)
-    solver.limiters = [pyclaw.limiters.tvd.MC]
+    if solver_type == "classic":
+        solver = pyclaw.ClawSolver2D(riemann.shallow_roe_with_efix_2D,
+                                     device=device)
+        solver.limiters = [pyclaw.limiters.tvd.MC]
+    else:
+        solver = pyclaw.SharpClawSolver2D(riemann.shallow_roe_with_efix_2D,
+                                          device=device)
     solver.all_bcs = pyclaw.BC.extrap
 
     domain = pyclaw.Domain([-2.5, -2.5], [2.5, 2.5], [mx, my])

@@ -7,8 +7,10 @@
   ``classic/soa.py:step2_soa``.
 * :func:`dq_rows`, counterpart of ``dq_pallas_rows``: one launch of
   ``csrc/dq2_weno5.cu`` computes one SharpClaw WENO5 semidiscrete
-  evaluation (one RK stage's dq) and one CFL maximum per block.  Plain
-  version: ``sharpclaw/soa.py:dq_2d_soa``.
+  evaluation (one RK stage's dq) and one CFL maximum per block, for a
+  system of :data:`DQ_SYSTEMS` (Euler 4-wave and ``acoustics_2D``, each a
+  template instance of its own).  Plain version:
+  ``sharpclaw/soa.py:dq_2d_soa`` with the system's SoA hooks.
 * :func:`step3_xy`, counterpart of ``step3_pallas_xy`` for Euler: one
   launch of ``csrc/step3_ctu.cu`` computes the whole 3D unsplit CTU step
   (normal sweeps, rpt3 and rptt3 corner transport) of the Euler system,
@@ -58,9 +60,15 @@ from ..sharpclaw import soa as sc_soa
 STEP2_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                   + [ctypes.c_void_p] + [ctypes.c_double] * 3
                   + [ctypes.c_int] * 6)
-# qbc, dq, cflb; nxg, nyg; dt (a pointer); dx, dy, gamma-1
+# qbc, dq, cflb; nxg, nyg; dt (a pointer); dx, dy, gamma-1 (the Euler
+# entries; the acoustics entries take zz, cc in place of gamma-1)
 DQ_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                + [ctypes.c_void_p] + [ctypes.c_double] * 3)
+DQ_ACOUSTICS_ARGTYPES = DQ_ARGTYPES + [ctypes.c_double]
+# rp.name -> (the prefix of its entries in csrc/dq2_weno5.cu, their
+# argument types)
+DQ_SYSTEMS = {"euler_4wave_2D": ("dq2_weno5", DQ_ARGTYPES),
+              "acoustics_2D": ("dq2_weno5_acoustics", DQ_ACOUSTICS_ARGTYPES)}
 _VALID_LIMITERS = set(range(10)) | {16, 19, 20, 21} | set(CFL_LIMITER_IDS)
 
 
@@ -80,11 +88,25 @@ def _lib():
 
 def bind_dq_lib(lib):
     """Set the argument types of a ctypes handle of a build of
-    ``csrc/dq2_weno5.cu``; returns it."""
-    _build.bind_dt(lib, ("dq2_weno5_f32", "dq2_weno5_f64"), DQ_ARGTYPES, 5)
+    ``csrc/dq2_weno5.cu`` (the entries of each system of
+    :data:`DQ_SYSTEMS` it has: an earlier build has Euler's only);
+    returns it."""
+    for prefix, argtypes in DQ_SYSTEMS.values():
+        if getattr(lib, prefix + "_f32", None) is not None:
+            _build.bind_dt(lib, (prefix + "_f32", prefix + "_f64"),
+                           argtypes, 5)
     lib.dq2_weno5_blocks.argtypes = [ctypes.c_int] * 2
     lib.dq2_weno5_blocks.restype = ctypes.c_int
     return lib
+
+
+def dq_system_params(rp, params):
+    """The physics scalars of the entries of ``csrc/dq2_weno5.cu`` for
+    system ``rp``: (gamma - 1,) for Euler, (zz, cc) for acoustics."""
+    if rp.name == "acoustics_2D":
+        zz, cc = acoustics._zc(params)
+        return float(zz), float(cc)
+    return (float(params["gamma"] - 1.0),)
 
 
 @functools.cache
@@ -166,44 +188,53 @@ step2_rows.launches = 0
 step2_rows.device_launches = None
 
 
-def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None):
-    """One SharpClaw semidiscrete evaluation of the Euler 4-wave system:
-    componentwise WENO5 edge states with the positivity fallback, Roe
-    fluctuations, and f(qr) - f(ql) in each cell.
+def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None,
+            rp=euler.euler_4wave_2D):
+    """One SharpClaw semidiscrete evaluation of a 2D system with SoA hooks
+    ``rp`` (Euler 4-wave by default): componentwise WENO5 edge states
+    with the system's positivity fallback (Euler's), Roe fluctuations,
+    and f(qr) - f(ql) in each cell.
 
-    qbc: (4, nx+6, ny+6) ghost-padded q (float32 or float64, contiguous).
-    dt: step in q's dtype (a Python float or a 0-d tensor, exact in it).
-    lib: another build of the kernel, bound by :func:`bind_dq_lib` (the
-    variant timer ``ops/time_kernels.py``); None for this checkout's.
-    Returns (dq (4, nx, ny) with dt included, cfl as a 0-d tensor)."""
+    qbc: (num_eqn, nx+6, ny+6) ghost-padded q (float32 or float64,
+    contiguous).  dt: step in q's dtype (a Python float or a 0-d tensor,
+    exact in it).  lib: another build of the kernel, bound by
+    :func:`bind_dq_lib` (the variant timer ``ops/time_kernels.py``); None
+    for this checkout's.  Returns (dq (num_eqn, nx, ny) with dt included,
+    cfl as a 0-d tensor).  On a CUDA tensor a system outside
+    :data:`DQ_SYSTEMS` raises."""
     if num_ghost != (weno_order + 1) // 2:
         raise ValueError(f"dq_rows: weno_order={weno_order} needs "
                          f"num_ghost={(weno_order + 1) // 2}, got "
                          f"{num_ghost}")
     if qbc.device.type == "cpu":
-        return sc_soa.dq_2d_soa(qbc, dt, dx, dy, euler._rpn2_euler_soa,
-                                params, weno_order, num_ghost,
-                                positivity=euler.euler_4wave_2D.positivity,
-                                flux_soa=euler._flux_euler_2d_soa)
+        return sc_soa.dq_2d_soa(qbc, dt, dx, dy, rp.rpn_soa, params,
+                                weno_order, num_ghost,
+                                positivity=rp.positivity,
+                                flux_soa=rp.flux_soa)
     if weno_order != 5:
         raise NotImplementedError(
             f"dq_rows: weno_order={weno_order} has no kernel yet "
             f"(ROADMAP.md, Queue 1: 'weno_order 7-17')")
-    _check_cuda_qbc("dq_rows", qbc, num_ghost, 4, 2)
+    if rp.name not in DQ_SYSTEMS:
+        raise NotImplementedError(
+            f"dq_rows: {rp.name} has no kernel yet (ROADMAP.md, Queue 2 "
+            f"item 12: 'SharpClaw 2D systems of dq2_weno5.cu')")
+    _check_cuda_qbc("dq_rows", qbc, num_ghost, rp.num_eqn, 2)
     _, nxg, nyg = qbc.shape
     is_double = qbc.dtype == torch.float64
     lib = _dq_lib() if lib is None else lib
-    dq = torch.empty((4, nxg - 6, nyg - 6), dtype=qbc.dtype,
+    dq = torch.empty((rp.num_eqn, nxg - 6, nyg - 6), dtype=qbc.dtype,
                      device=qbc.device)
     cfl_blocks = torch.empty((lib.dq2_weno5_blocks(nxg, nyg),),
                              dtype=qbc.dtype, device=qbc.device)
-    fn = lib.dq2_weno5_f64 if is_double else lib.dq2_weno5_f32
+    prefix = DQ_SYSTEMS[rp.name][0]
+    fn = getattr(lib, prefix + ("_f64" if is_double else "_f32"))
     dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), dq.data_ptr(), cfl_blocks.data_ptr(), nxg, nyg,
-            dt_ptr, float(dx), float(dy), float(params["gamma"] - 1.0),
+            dt_ptr, float(dx), float(dy), *dq_system_params(rp, params),
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"dq2_weno5 launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"{prefix} launch failed: cudaError_t {rc}")
     _build.counted(dq_rows)
     return dq, torch.amax(cfl_blocks)
 

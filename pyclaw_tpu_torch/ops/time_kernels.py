@@ -271,7 +271,7 @@ def step2_aos_case(n, dtype, dev):
 
 
 def acoustics_state(nx, ny):
-    """q of examples.acoustics_2d at nx x ny (a CPU tensor)."""
+    """q of examples.acoustics_2d at nx x ny (a numpy array)."""
     from ..examples import acoustics_2d as ex
     return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
 

@@ -2,7 +2,8 @@
 plain PyTorch.
 
 Counterpart of ``pyclaw_tpu/riemann/acoustics_var.py``
-(``_rp_acoustics_var :19-41``, ``_rpt_acoustics_var :44-78``, the record
+(``_rp_acoustics_var :19-41``, ``_rpt_acoustics_var :44-78``, the
+char_decomp hook ``_evec_acoustics_var :81-101``, the record
 ``vc_acoustics_3D :114-116``), physics of reference
 ``rp1_acoustics_var.f90`` and ``rpn2_vc_acoustics.f90``: per-cell
 material parameters in aux, aux[0] = impedance Z and aux[1] = sound speed
@@ -15,8 +16,7 @@ c.  At an interface the jump splits against the one-sided impedances:
 The operations run in the JAX package's order, so the two agree to
 roundoff in float64 (tests/test_torch_riemann_3d.py).  The CUDA kernel
 ``csrc/step3_aos.cu`` repeats them in ``csrc/acoustics3d.cuh``
-(``VcAcoustics3D``).  The 1D and 2D records and the ``evec`` hook are
-queued in ROADMAP.md.
+(``VcAcoustics3D``).  The 1D and 2D records are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -83,6 +83,31 @@ def _rpt_acoustics_var(ixy, imp, q_l, q_r, aux_l, aux_r, asdq, params,
     return torch.stack(bm), torch.stack(bp)
 
 
+def _evec_acoustics_var(ixy, q, aux, params):
+    """Per-cell eigenvector matrices (R, L), each (num_eqn, num_eqn, *n),
+    of heterogeneous acoustics along ``ixy`` (the char_decomp hook): the
+    acoustic waves (-Z, e_mu) and (Z, e_mu) with the cell's impedance
+    aux[0] in the first and last columns, the shear components passing
+    through."""
+    z = aux[0]
+    num_eqn = q.shape[0]
+    mu = 1 + ixy
+    one = torch.ones_like(z)
+    zero = torch.zeros_like(z)
+    R = [[zero] * num_eqn for _ in range(num_eqn)]
+    L = [[zero] * num_eqn for _ in range(num_eqn)]
+    R[0][0], R[mu][0] = -z, one
+    R[0][num_eqn - 1], R[mu][num_eqn - 1] = z, one
+    L[0][0], L[0][mu] = -0.5 / z, 0.5 * one
+    L[num_eqn - 1][0], L[num_eqn - 1][mu] = 0.5 / z, 0.5 * one
+    shear = [j for j in range(1, num_eqn) if j != mu]
+    for k, j in zip(range(1, num_eqn - 1), shear):
+        R[j][k] = one
+        L[k][j] = one
+    return (torch.stack([torch.stack(r) for r in R]),
+            torch.stack([torch.stack(r) for r in L]))
+
+
 from . import RiemannSolver  # noqa: E402
 
 # 3D heterogeneous acoustics: q = (p, u, v, w), aux rows (Z, c).  No rptt
@@ -90,3 +115,4 @@ from . import RiemannSolver  # noqa: E402
 # the unsplit step runs with transverse_waves=1.
 vc_acoustics_3D = RiemannSolver("vc_acoustics_3D", 3, 4, 2,
                                 _rp_acoustics_var, rpt=_rpt_acoustics_var)
+vc_acoustics_3D.evec = _evec_acoustics_var

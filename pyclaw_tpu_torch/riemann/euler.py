@@ -1,6 +1,8 @@
 """Euler Roe solvers, plain PyTorch: the 1D systems (Roe with and without
 the Harten entropy fix, HLLE) and the 3D system in AoS form, the 2D
-4-wave system in SoA form.
+4-wave system in SoA form and its normal solver in AoS form (for
+SharpClaw's generic dq: ``_rpn2_euler :200-268``; the registry's
+``flux`` hooks ``:828, :833``).
 
 Counterpart of ``pyclaw_tpu/riemann/euler.py``: ``_wsum :22``,
 ``_roe_averages :32``, ``_alpha34 :66``, ``_rp1_euler_roe :93-163``,
@@ -331,6 +333,50 @@ def _rp1_euler_hlle(ixy, q_l, q_r, aux_l, aux_r, params):
     return wave, s, amdq, apdq
 
 
+def _rpn2_euler_4wave(ixy, q_l, q_r, aux_l, aux_r, params):
+    """rpn2_euler_4wave in AoS form (the SharpClaw generic dq's normal
+    solver): 4 waves (num_eqn, 4, *n), speeds (u - a, u, u, u + a),
+    amdq, apdq; the algebra of :func:`_rpn2_euler_soa`."""
+    gamma = params["gamma"]
+    g1 = gamma - 1.0
+    mu = 1 + ixy          # normal momentum component
+    mv = 2 - ixy          # transverse momentum component
+    E = 3
+
+    (u, v), H, a, a2, _ = _roe_averages(q_l, q_r, gamma, (mu, mv))
+
+    d = q_r - q_l
+    d0, dmu, dmv, dE = d[0], d[mu], d[mv], d[E]
+
+    euv = H - (u * u + v * v)
+    a3, a4 = _alpha34(g1, a, a2, u,
+                      euv * d0 + u * dmu + v * dmv - dE,
+                      dmu + (a - u) * d0)
+    a2w = dmv - v * d0                 # shear strength
+    a1 = d0 - a3 - a4
+
+    num_eqn = q_l.shape[0]
+    z = torch.zeros_like(d0)
+
+    def mk(rho_c, mu_c, mv_c, e_c):
+        comp = [z] * num_eqn
+        comp[0] = rho_c
+        comp[mu] = mu_c
+        comp[mv] = mv_c
+        comp[E] = e_c
+        return torch.stack(comp)
+
+    wave = torch.stack([
+        mk(a1, a1 * (u - a), a1 * v, a1 * (H - u * a)),
+        mk(a3, a3 * u, a3 * v, a3 * 0.5 * (u * u + v * v)),
+        mk(z, z, a2w, a2w * v),
+        mk(a4, a4 * (u + a), a4 * v, a4 * (H + u * a))], dim=1)
+    s = torch.stack([u - a, u, u, u + a])
+    amdq = _wsum(torch.clamp(s, max=0.0), wave)
+    apdq = _wsum(torch.clamp(s, min=0.0), wave)
+    return wave, s, amdq, apdq
+
+
 def _make_euler_flux(ndim):
     """Physical Euler flux f(q) along ``ixy`` (RiemannSolver.flux): every
     component advects with u, the momentum row adds p, the energy row
@@ -588,10 +634,12 @@ def _make_euler_positivity(vel_idx, e_idx):
 
 from . import RiemannSolver  # noqa: E402
 
-# The AoS hooks (rp/rpt) are not ported: the SoA path is the only one
-# this slice runs (classic/solver.py raises for the others).
-euler_4wave_2D = RiemannSolver("euler_4wave_2D", 2, 4, 4, None,
+# The AoS normal solver and flux serve SharpClaw's generic dq; rpt is not
+# ported, so the classic solver takes the SoA step only (classic/solver.py
+# raises for the generic AoS step).
+euler_4wave_2D = RiemannSolver("euler_4wave_2D", 2, 4, 4, _rpn2_euler_4wave,
                                requires=("gamma",))
+euler_4wave_2D.flux = _make_euler_flux(2)
 euler_4wave_2D.rpn_soa = _rpn2_euler_soa
 euler_4wave_2D.rpt_soa = _rpt2_euler_soa
 euler_4wave_2D.prefactor_soa = _prefactor_euler_2d_soa
@@ -607,6 +655,7 @@ euler_3D.prefactor = _prefactor_euler_3d
 euler_3D.transverse_batchable = True
 euler_3D.positivity = _make_euler_positivity((1, 2, 3), 4)
 euler_3D.evec = _evec_euler_nd
+euler_3D.flux = _make_euler_flux(3)
 
 euler_with_efix_1D = RiemannSolver("euler_with_efix_1D", 1, 3, 3,
                                    _rp1_euler_with_efix, requires=("gamma",))

@@ -18,9 +18,11 @@ CUDA kernels repeat them: the 2D solvers in ``csrc/shallow2d.cuh``, the
 augmented 1D solver in ``csrc/systems1d.cuh`` (``SwAug1D``).  Dry states
 (h = 0) give inf/nan in the Roe solver, as in the reference; the
 bathymetry f-wave and augmented solvers guard their divisions with
-``dry_tolerance`` (default 1e-8).  ``sw_aug_2D`` and the SharpClaw hooks
-(``evec``, ``flux``) of the 2D solvers are not ported yet (ROADMAP.md,
-Queue 1 items 10 and 7).
+``dry_tolerance`` (default 1e-8).  The SharpClaw hooks of
+``shallow_roe_with_efix_2D``: ``_evec_shallow :230`` and ``_flux_shallow
+:266`` (the bathymetry f-wave record has neither, as in the JAX
+package).  ``sw_aug_2D`` is not ported yet (ROADMAP.md, Queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -200,6 +202,46 @@ def _shallow_positivity(q, aux, params):
     return q[0] > 0.0
 
 
+def _evec_shallow(ixy, q, aux, params):
+    """Eigenvector matrices (R, L), each (3, 3, *n), of the 2D
+    shallow-water Jacobian along ``ixy`` at each cell state (the
+    char_decomp hook), the transverse momentum riding the u-eigenvalue
+    contact.  The JAX package's 1D branch serves records not ported."""
+    g = params["grav"]
+    h = q[0]
+    c = torch.sqrt(g * h)
+    mu = 1 + ixy
+    mv = 2 - ixy
+    un = q[mu] / h
+    ut = q[mv] / h
+    one = torch.ones_like(un)
+    zero = torch.zeros_like(un)
+    inv2c = 0.5 / c
+    R = [[zero] * 3 for _ in range(3)]
+    L = [[zero] * 3 for _ in range(3)]
+    R[0][0], R[mu][0], R[mv][0] = one, un - c, ut
+    R[mv][1] = one
+    R[0][2], R[mu][2], R[mv][2] = one, un + c, ut
+    L[0][0], L[0][mu] = (un + c) * inv2c, -inv2c
+    L[1][0], L[1][mv] = -ut, one
+    L[2][0], L[2][mu] = -(un - c) * inv2c, inv2c
+    return (torch.stack([torch.stack(r) for r in R]),
+            torch.stack([torch.stack(r) for r in L]))
+
+
+def _flux_shallow(ixy, q, aux, params):
+    """Shallow-water flux along ``ixy``: [hu, hu^2 + g h^2/2, huv]
+    (RiemannSolver.flux, flat bottom), zero in a dry cell."""
+    g = params["grav"]
+    h = q[0]
+    mu = 1 + ixy
+    wet = h > 0.0
+    u = torch.where(wet, q[mu] / torch.where(wet, h, 1.0), 0.0)
+    f = [u * q[k] for k in range(q.shape[0])]   # [hu, hu*u, hv*u]
+    f[mu] = f[mu] + 0.5 * g * h * h
+    return torch.stack(f)
+
+
 # ---- GeoClaw-class augmented solver with wetting and drying (sw_aug) ----
 def _sw_aug_core(g, dry, h_l, h_r, hu_l, hu_r, b_l, b_r):
     """The dry-state machinery of the augmented solver (reference
@@ -297,6 +339,8 @@ shallow_roe_with_efix_2D = RiemannSolver(
     "shallow_roe_with_efix_2D", 2, 3, 3, _rpn2_shallow_roe,
     rpt=_rpt2_shallow_roe, requires=("grav",))
 shallow_roe_with_efix_2D.positivity = _shallow_positivity
+shallow_roe_with_efix_2D.evec = _evec_shallow
+shallow_roe_with_efix_2D.flux = _flux_shallow
 
 shallow_bathymetry_fwave_2D = RiemannSolver(
     "shallow_bathymetry_fwave_2D", 2, 3, 3, _rpn2_shallow_bathymetry_fwave,

@@ -1,12 +1,13 @@
-"""SharpClaw semidiscretization in 1D, plain PyTorch around the WENO5
-kernel.
+"""SharpClaw semidiscretization in 1D, 2D and 3D, plain PyTorch around
+the WENO5 kernel.
 
 Counterpart of ``pyclaw_tpu/sharpclaw/kernels.py`` (``_recon :31-43`` for
 ``lim_type=2``, ``weno_order=5``; ``_interface_waves :69``, ``_shift_ifc
 :82``, ``_recon_wave :94`` (WENO form), ``_recon_char :169``,
 ``_recon_char_ifc :184``, ``_recon_char_trans :226``; ``dq_1d :270-349``
-with ``char_decomp`` 0-4 at ``lim_type=2``), the rebuild of reference
-``sharpclaw/flux1.f90``: reconstruct cell-edge values, componentwise with
+with ``char_decomp`` 0-4 at ``lim_type=2``; ``dq_nd :352-381``), the
+rebuild of reference ``sharpclaw/flux1.f90``, ``flux2.f90`` and
+``flux3.f90``: reconstruct cell-edge values, componentwise with
 WENO5 (``ops.weno.weno5``: the CUDA kernel ``csrc/weno5.cu`` on a card,
 ``limiters/recon.py:weno5`` on the CPU) or, with ``char_decomp``, on the
 Riemann waves (1), the cells' characteristic fields (2), the jumps
@@ -26,9 +27,12 @@ reconstructions too (the JAX package's reach no Pallas kernel, and each
 projects every stencil onto its own cell's or interface's eigenvectors,
 so the fields do not form the one shifted array that ``weno5.cu`` takes).
 Products with the eigenvector matrices and sums over the wave and
-equation axes are explicit adds in a fixed order.  The TVD
-reconstructions (``lim_type=1``), WENO orders 7-17 and ``dq_nd`` raise or
-are queued in ROADMAP.md.
+equation axes are explicit adds in a fixed order.  :func:`dq_nd` runs
+:func:`dq_1d` along each axis in turn (no transverse solves) and sums the
+parts in the axis order, as the JAX package does; its row-tiled wrapper
+``dq_nd_tiled :384``, which fits the TPU's VMEM and gives the same bits,
+is not ported.  The TVD reconstructions (``lim_type=1``) and WENO orders
+7-17 raise; they are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -272,3 +276,35 @@ def dq_1d(qbc, auxbc, dt, dx, rp, params, lim_type, weno_order, index_capa,
     # cells 1..n-2: apdq at the left interface (k=i-1), amdq at the right
     dq_cells = -dtdx_c * (apdq[..., :-1] + amdq[..., 1:] + adq[..., 1:-1])
     return dq_cells[..., g - 1:n - 1 - g], cfl
+
+
+def dq_nd(qbc, auxbc, dt, deltas, rp, params, lim_type, weno_order,
+          index_capa, num_ghost, positivity=None, flux=None, char_decomp=0,
+          evec=None):
+    """Multi-dimensional method-of-lines update (flux2.f90 / flux3.f90):
+    :func:`dq_1d` along each spatial axis of ``qbc`` (num_eqn, *n)
+    ghost-padded, the axis moved last (a contiguous copy, which
+    ``ops.weno.weno5`` needs on a card), each part stripped of the other
+    axes' ghost cells and summed in the axis order.  Returns (dq over the
+    interior cells with the dt factor included, cfl: the maximum over the
+    axes)."""
+    g = num_ghost
+    num_dim = qbc.dim() - 1
+    dq_total = cfl = None
+    for d in range(num_dim):
+        axis = 1 + d
+        qm = qbc.movedim(axis, -1).contiguous()
+        auxm = None if auxbc is None else auxbc.movedim(axis, -1)
+        dqd, cfld = dq_1d(qm, auxm, dt, deltas[d], rp, params, lim_type,
+                          weno_order, index_capa, g, ixy=d,
+                          positivity=positivity, flux=flux,
+                          char_decomp=char_decomp, evec=evec)
+        dqd = dqd.movedim(-1, axis)
+        sl = [slice(None)] * dqd.dim()
+        for d2 in range(num_dim):
+            if d2 != d:
+                sl[1 + d2] = slice(g, dqd.shape[1 + d2] - g)
+        dqd = dqd[tuple(sl)]
+        dq_total = dqd if dq_total is None else dq_total + dqd
+        cfl = cfld if cfl is None else torch.maximum(cfl, cfld)
+    return dq_total, cfl

@@ -6,10 +6,12 @@ Counterpart of ``pyclaw_tpu/sharpclaw/soa.py`` (``_slc :26``,
 form or its VMEM row tiling.  Every equation is its own 2D ``(nx, ny)``
 tensor; WENO reconstructs each component along the sweep axis.
 
-This is what ``ops.tiled2d.dq_rows`` computes on a CPU tensor, and what
-the CUDA kernel ``csrc/dq2_weno5.cu`` is held against on the card.  The
-index algebra and the operation order are the JAX package's, so in
-float64 the two agree to roundoff (tests/test_torch_sharpclaw.py).
+This is what ``ops.tiled2d.dq_rows`` computes on a CPU tensor, with the
+system's SoA hooks (Euler 4-wave, ``acoustics_2D``, whose speeds are
+Python floats), and what the CUDA kernel ``csrc/dq2_weno5.cu`` is held
+against on the card.  The index algebra and the operation order are the
+JAX package's, so in float64 the two agree to roundoff
+(tests/test_torch_sharpclaw.py, tests/test_torch_sharpclaw_nd.py).
 """
 
 from __future__ import annotations
@@ -61,6 +63,14 @@ def fallback_count(qbc, params, positivity, weno_order=5):
     return n
 
 
+def _split(sp):
+    """(min(s, 0), max(s, 0)) of a speed: a tensor, or a Python float for
+    a system whose speeds are constant (acoustics)."""
+    if isinstance(sp, torch.Tensor):
+        return torch.clamp(sp, max=0.0), torch.clamp(sp, min=0.0)
+    return min(sp, 0.0), max(sp, 0.0)
+
+
 def _combine(waves, speeds, num_eqn, zero):
     """Godunov fluctuations from SoA waves: (amdq, apdq) per equation."""
     amdq, apdq = [], []
@@ -69,8 +79,9 @@ def _combine(waves, speeds, num_eqn, zero):
         for w, sp in zip(waves, speeds):
             if w[e] is None:
                 continue
-            am_t = torch.clamp(sp, max=0.0) * w[e]
-            ap_t = torch.clamp(sp, min=0.0) * w[e]
+            sm, sp_ = _split(sp)
+            am_t = sm * w[e]
+            ap_t = sp_ * w[e]
             am = am_t if am is None else am + am_t
             ap = ap_t if ap is None else ap + ap_t
         amdq.append(am if am is not None else zero)
@@ -128,10 +139,13 @@ def _dq_dir_soa(qs, axis, dt, dxi, rpn_soa, params, weno_order, num_ghost,
 
     dtdx = dt / dxi
     # interfaces g-1 .. n-g-1 along the sweep, the whole other axis
-    # (ghost band included); NaN propagates
+    # (ghost band included); NaN propagates.  A constant speed (a Python
+    # float) counts as a 0-d tensor of dt's dtype.
     cfl = dtdx * reduce(torch.maximum,
                         (torch.amax(torch.abs(slc(s, axis,
                                                    slice(g - 1, n - g))))
+                         if isinstance(s, torch.Tensor)
+                         else torch.full_like(dtdx, abs(s))
                          for s in speeds))
 
     dq = []

@@ -1,24 +1,34 @@
-"""SharpClaw method-of-lines solvers, the 1D and the 2D WENO5 paths.
+"""SharpClaw method-of-lines solvers in 1D, 2D and 3D.
 
 Counterpart of ``pyclaw_tpu/sharpclaw/solver.py`` (``_CFL_DEFAULTS :40``,
 ``SharpClawSolver :47-148`` without the multistep integrators,
-``_soa_eligible :151``, the SoA branch of ``_make_dq :165-270`` and its
-1D branch ``:272-280``, ``_make_step :300-347`` for Euler, SSP33 and
-SSP104, ``SharpClawSolver1D :501``, ``SharpClawSolver2D :505``), a
-rebuild of reference ``src/pyclaw/sharpclaw/solver.py``.  ``setup``
-builds one step function ``_step_fn(q, aux, dt, t, out=None) -> (q_new,
-cfl)`` (dt and t Python floats or 0-d tensors; ``out`` the buffer of
-q_new or None, which the last stage combine writes);
-each RK stage extends the BCs and calls ``sharpclaw/kernels.py:dq_1d``
-(1D, any registered system with an ``rp`` hook, with aux and capacity:
-its componentwise WENO5 reconstruction ``ops.weno.weno5`` launches
-``csrc/weno5.cu`` on a CUDA tensor; ``char_decomp`` 1-4 reconstructs in
-plain PyTorch) or ``ops.tiled2d.dq_rows`` (2D Euler 4-wave: one
-launch of ``csrc/dq2_weno5.cu``); on a CPU tensor both run their plain
-PyTorch versions.  The stage combines are plain tensor operations, as
-the JAX package leaves them to XLA.
+``_soa_eligible :151-163``, ``_make_dq :165-293``, ``_make_step
+:300-347`` for Euler, SSP33 and SSP104, ``SharpClawSolver1D/2D/3D
+:501-509``), a rebuild of reference ``src/pyclaw/sharpclaw/solver.py``.
+``setup`` builds one step function ``_step_fn(q, aux, dt, t, out=None)
+-> (q_new, cfl)`` (dt and t Python floats or 0-d tensors; ``out`` the
+buffer of q_new or None, which the last stage combine writes).  Each RK
+stage extends the BCs and takes one of two routes, as the JAX package
+does:
 
-Options of the JAX package that this slice does not port raise
+* the SoA route (:meth:`SharpClawSolver._soa_eligible`: 2D, WENO,
+  ``char_decomp=0``, no aux or capacity, a system with SoA hooks, and
+  ``use_soa``): ``ops.tiled2d.dq_rows``, one launch of
+  ``csrc/dq2_weno5.cu`` (the Euler 4-wave or the acoustics instance);
+* every other case: ``sharpclaw/kernels.py:dq_1d`` in 1D,
+  ``kernels.dq_nd`` (its sweeps along each axis) in 2D and 3D, for any
+  registered system with an ``rp`` hook, with aux, a capacity function,
+  ``char_decomp`` 0-4 and the positivity fallback; the componentwise
+  WENO5 reconstruction ``ops.weno.weno5`` launches ``csrc/weno5.cu``
+  on a CUDA tensor, ``char_decomp`` 1-4 reconstructs in plain PyTorch.
+
+On a CPU tensor both routes run their plain PyTorch versions.  The
+stage combines are plain tensor operations, as the JAX package leaves
+them to XLA.  The row tiling of the JAX package (``dq_nd_tiled``,
+``soa_tile_rows``) fits the TPU's VMEM and gives the same bits; it is
+not ported.
+
+Options of the JAX package that the port does not take yet raise
 ``NotImplementedError`` at setup, naming their ROADMAP.md item.
 """
 
@@ -82,15 +92,20 @@ class SharpClawSolver(Solver):
             raise _not_ported("dq_src")
         if self.call_before_step_each_stage:
             raise _not_ported("call_before_step_each_stage")
-        if self.num_dim == 1:
-            if self.rp.rp is None:
-                raise ValueError(f"Riemann solver {self.rp.name} has no rp "
-                                 "hook")
-        elif (self.use_soa is False or self.num_dim != 2
-                or self.rp.name != "euler_4wave_2D" or self.char_decomp != 0):
-            # char_decomp != 0 leaves the JAX package's SoA route in 2D
-            # and 3D (sharpclaw/solver.py:158) for its generic dq
-            raise _not_ported("generic SharpClaw dq")
+
+    def _soa_eligible(self, state):
+        """The JAX package's test (``sharpclaw/solver.py:151-163``): the
+        SoA dq covers 2D componentwise WENO with no aux, capacity or
+        tfluct, for a system with SoA hooks."""
+        if self.use_soa is False:
+            return False
+        return (self.num_dim == 2
+                and self.lim_type == 2
+                and self.char_decomp == 0
+                and not self.tfluct_solver
+                and state.aux is None
+                and state.index_capa < 0
+                and self.rp.rpn_soa is not None)
 
     def setup(self, solution):
         state = solution.states[0]
@@ -109,30 +124,35 @@ class SharpClawSolver(Solver):
     # ------------------------------------------------------------------
     def _make_dq(self, state):
         """fn(q, aux, dt, t) -> (dq over the interior with dt included,
-        cfl): BC extension, then one dq_1d (1D) or dq_rows (2D) call."""
+        cfl): BC extension, then one dq_rows (the SoA route), dq_1d (1D)
+        or dq_nd (2D, 3D) call."""
         params = self._weak_params(state.problem_data)
         weno_order = self.weno_order
         g = self.num_ghost
+        rp = self.rp
+        if self._soa_eligible(state):
+            dx, dy = state.patch.delta
+
+            def dq_soa(q, aux, dt, t):
+                qbc, _ = self._extend_bc(q, aux, t, state)
+                return tiled2d.dq_rows(qbc, dt, dx, dy, params, weno_order,
+                                       g, rp=rp)
+            return dq_soa
+        if rp.rp is None:
+            raise ValueError(f"Riemann solver {rp.name} has no rp hook")
+        lim_type = self.lim_type
+        index_capa = state.index_capa
+        char_decomp = self.char_decomp
         if self.num_dim == 1:
-            rp = self.rp
-            lim_type = self.lim_type
-            index_capa = state.index_capa
-            (dx,) = state.patch.delta
-
-            char_decomp = self.char_decomp
-
-            def dq1(q, aux, dt, t):
-                qbc, auxbc = self._extend_bc(q, aux, t, state)
-                return kernels.dq_1d(qbc, auxbc, dt, dx, rp.rp, params,
-                                     lim_type, weno_order, index_capa, g,
-                                     positivity=rp.positivity, flux=rp.flux,
-                                     char_decomp=char_decomp, evec=rp.evec)
-            return dq1
-        dx, dy = state.patch.delta
+            fn, delta = kernels.dq_1d, state.patch.delta[0]
+        else:
+            fn, delta = kernels.dq_nd, tuple(state.patch.delta)
 
         def dq(q, aux, dt, t):
-            qbc, _ = self._extend_bc(q, aux, t, state)
-            return tiled2d.dq_rows(qbc, dt, dx, dy, params, weno_order, g)
+            qbc, auxbc = self._extend_bc(q, aux, t, state)
+            return fn(qbc, auxbc, dt, delta, rp.rp, params, lim_type,
+                      weno_order, index_capa, g, positivity=rp.positivity,
+                      flux=rp.flux, char_decomp=char_decomp, evec=rp.evec)
         return dq
 
     def _make_step(self, state):
@@ -187,10 +207,7 @@ class SharpClawSolver(Solver):
 
 
 class SharpClawSolver1D(SharpClawSolver):
-    """1D SharpClaw (flux1.f90 path); takes aux arrays and a capacity
-    function, as ``dq_1d``'s plain code carries them."""
     num_dim = 1
-    takes_aux = True
 
 
 class SharpClawSolver2D(SharpClawSolver):
@@ -198,6 +215,4 @@ class SharpClawSolver2D(SharpClawSolver):
 
 
 class SharpClawSolver3D(SharpClawSolver):
-    """3D SharpClaw: its dq is the JAX package's generic SharpClaw dq,
-    which is not ported yet, so setup raises naming it."""
     num_dim = 3

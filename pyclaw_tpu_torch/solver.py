@@ -144,14 +144,9 @@ class Solver:
         """Subclasses build their step function here."""
         raise NotImplementedError
 
-    # aux arrays and a capacity function: only the solvers that set this
-    # take them (ClawSolver1D, ClawSolver2D, ClawSolver3D,
-    # SharpClawSolver1D); the others raise under their ROADMAP items
-    takes_aux = False
-
     def _check_setup(self, state):
         """The checks of every solver's setup: the Riemann solver fits the
-        state, and no option that the port does not take yet is set."""
+        state, and a capacity function names a row of aux."""
         if self.rp is None:
             raise ValueError("no Riemann solver attached")
         if state.num_eqn != self.rp.num_eqn:
@@ -162,14 +157,10 @@ class Solver:
             if key not in state.problem_data:
                 raise ValueError(f"problem_data missing '{key}' required by "
                                  f"{self.rp.name}")
-        if state.aux is not None and not self.takes_aux:
-            raise _not_ported("aux")
-        if state.index_capa >= 0:
-            if not self.takes_aux:
-                raise _not_ported("capacity")
-            if state.aux is None or state.index_capa >= state.aux.shape[0]:
-                raise ValueError(f"index_capa={state.index_capa} names no "
-                                 "row of state.aux")
+        if state.index_capa >= 0 and (state.aux is None or
+                                      state.index_capa >= state.aux.shape[0]):
+            raise ValueError(f"index_capa={state.index_capa} names no row "
+                             "of state.aux")
 
     # the parallel overlay (pyclaw_tpu_torch/parallel) runs this solver's
     # step on each rank's block: it sets this (the overlay takes the host

@@ -208,9 +208,32 @@ def test_aux_frames_across_the_packages(tmp_path):
 
 
 def test_what_the_slice_refuses():
-    with pytest.raises(NotImplementedError, match="generic SharpClaw dq"):
-        tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
-                  solver_type="sharpclaw")
+    # the SharpClaw route runs (SharpClawSolver3D: the generic dq with
+    # aux, the second Riemann solve for the in-cell fluctuation) and takes
+    # the JAX solver's fixed-dt step; its unported options raise under
+    # their own names
+    claw = tex.setup(mx=4, my=5, mz=6, outdir=None, device="cpu",
+                     solver_type="sharpclaw")
+    jclaw = jex.setup(mx=4, my=5, mz=6, outdir=None, solver_type="sharpclaw")
+    for c in (claw, jclaw):
+        c.solver.setup(c.solution)
+    state = claw.solution.state
+    q_t, c_t = claw.solver._step_fn(torch.from_numpy(state.q),
+                                    torch.from_numpy(state.aux), 0.05, 0.0)
+    jstate = jclaw.solution.state
+    q_j, c_j = jclaw.solver._step_fn(jnp.asarray(jstate.q),
+                                     jnp.asarray(jstate.aux), 0.05, 0.0)
+    q_j = np.asarray(q_j)
+    assert np.abs(q_t.numpy() - q_j).max() <= 1e-12 * np.abs(q_j).max()
+    assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
+    for attr, val, name in (("lim_type", 1, "lim_type=1"),
+                            ("weno_order", 7, "weno_order 7-17"),
+                            ("tfluct_solver", True, "tfluct_solver")):
+        claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
+                         solver_type="sharpclaw")
+        setattr(claw.solver, attr, val)
+        with pytest.raises(NotImplementedError, match=name):
+            claw.solver.setup(claw.solution)
     with pytest.raises(NotImplementedError, match="'dimensional_split'"):
         tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
                   dimensional_split=True)

@@ -228,9 +228,19 @@ def test_what_stays_refused():
     claw.solver.char_decomp = 2
     with pytest.raises(ValueError, match="evec"):
         claw.solver.setup(claw.solution)
+    # in 2D, char_decomp leaves the SoA route for the generic dq (dq_nd),
+    # as in the JAX package, and takes the JAX solver's fixed-dt step
+    import euler_2d_quadrants as jquad
     from pyclaw_tpu_torch.examples import euler_2d_quadrants as qex
     claw = qex.setup(mx=8, my=8, outdir=None, device="cpu",
                      solver_type="sharpclaw")
-    claw.solver.char_decomp = 2
-    with pytest.raises(NotImplementedError, match="generic SharpClaw dq"):
-        claw.solver.setup(claw.solution)
+    jclaw = jquad.setup(mx=8, my=8, outdir=None, solver_type="sharpclaw")
+    for c in (claw, jclaw):
+        c.solver.char_decomp = 2
+        c.solver.setup(c.solution)
+    assert not claw.solver._soa_eligible(claw.solution.state)
+    q0 = claw.solution.state.q
+    q_t, c_t = claw.solver._step_fn(torch.from_numpy(q0), None, 2e-3, 0.0)
+    q_j, c_j = jclaw.solver._step_fn(jnp.asarray(q0), None, 2e-3, 0.0)
+    assert _rel(q_t.numpy(), q_j) <= 1e-12
+    assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)

@@ -203,6 +203,10 @@ CASES = {
     "euler_3d": (
         _from_example("ClawSolver3D", "euler_3D", 0.2, mx=16, my=16, mz=16),
         (2, 2, 1), "euler_3d"),
+    "euler_3d_sharpclaw": (
+        _from_example("SharpClawSolver3D", "euler_3D", 0.1, mx=12, my=12,
+                      mz=12, solver_type="sharpclaw", dt_initial=1e-3),
+        (2, 2, 1), "euler_3d"),
     "shallow_aux_capacity": (_shallow_aux_capacity, (2, 2), None),
     "custom_bc": (_custom_bc, (2, 2), None),
 }
@@ -568,11 +572,15 @@ def test_what_the_overlay_refuses(monkeypatch):
     assert ctrl.output_format == "sharded"
     with pytest.raises(NotImplementedError, match="sharded frames"):
         ctrl.run()
-    s = parallel.SharpClawSolver3D(pyclaw_tpu_torch.riemann.euler_3D,
-                                   device="cpu")
-    claw = teuler3d.setup(mx=4, my=4, mz=4, outdir=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="generic SharpClaw dq"):
-        s.setup(claw.solution)
+    # the overlay's SharpClawSolver3D runs: in a world of one rank it
+    # gives the serial SharpClaw run bit for bit
+    claws = [teuler3d.setup(mx=6, my=6, mz=6, outdir=None, device="cpu",
+                            solver_type="sharpclaw", use_parallel=p)
+             for p in (False, True)]
+    assert isinstance(claws[1].solver, parallel.SharpClawSolver3D)
+    got = [_run(c) for c in claws]
+    assert got[0][1:] == got[1][1:] and got[0][1] >= 2
+    np.testing.assert_array_equal(got[0][0], got[1][0])
     monkeypatch.setattr(halo, "_backend", lambda: "nccl")
     with pytest.raises(ValueError, match="NCCL"):
         halo.check_device("cpu")

@@ -166,21 +166,31 @@ def test_aux_frames_across_the_packages(tmp_path):
 
 
 def test_what_the_slice_refuses():
-    with pytest.raises(NotImplementedError, match="generic SharpClaw dq"):
-        tex.setup(mx=8, my=8, outdir=None, device="cpu",
-                  solver_type="sharpclaw")
-    # the Euler system has SoA hooks only: no generic step on it
+    # the SharpClaw route runs (the generic dq with the flux and
+    # positivity hooks) and gives the JAX example's run
+    claw = tex.setup(mx=8, my=8, outdir=None, device="cpu",
+                     solver_type="sharpclaw", dtype=np.float64)
+    jclaw = jex.setup(mx=8, my=8, outdir=None, solver_type="sharpclaw")
+    assert claw.run()["numsteps"] == jclaw.run()["numsteps"]
+    q_j = np.asarray(jclaw.solution.q)
+    assert np.abs(claw.solution.q - q_j).max() <= 1e-12 * np.abs(q_j).max()
+    # the Euler system has no rpt: no generic classic step on it
     from pyclaw_tpu_torch.examples import euler_2d_quadrants as qex
     claw = qex.setup(mx=8, my=8, outdir=None, device="cpu")
     claw.solver.use_soa = False
     with pytest.raises(NotImplementedError, match="generic AoS 2D step"):
         claw.solver.setup(claw.solution)
-    # aux and capacity stay refused by SharpClaw
-    claw = qex.setup(mx=8, my=8, outdir=None, device="cpu",
-                     solver_type="sharpclaw")
-    claw.solution.state.aux = np.ones((1, 8, 8))
-    with pytest.raises(NotImplementedError, match="'aux'"):
-        claw.solver.setup(claw.solution)
+    # SharpClaw takes aux: with it the quadrants leave the SoA route for
+    # the generic dq, the same numerics (Euler reads no aux)
+    claws = [qex.setup(mx=8, my=8, outdir=None, device="cpu",
+                       solver_type="sharpclaw") for _ in range(2)]
+    claws[1].solution.state.aux = np.ones((1, 8, 8))
+    steps = [c.run()["numsteps"] for c in claws]
+    assert not claws[1].solver._soa_eligible(claws[1].solution.state)
+    assert steps[0] == steps[1] >= 2
+    q_soa = claws[0].solution.q
+    assert (np.abs(claws[1].solution.q - q_soa).max()
+            <= 1e-12 * np.abs(q_soa).max())
     # a capacity row that is not in aux
     claw = tex.setup(mx=8, my=8, outdir=None, device="cpu")
     claw.solution.state.index_capa = 0

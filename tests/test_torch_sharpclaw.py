@@ -16,7 +16,9 @@ package's, on the CPU.
   amplifies one-ulp differences through the shocks: perturbing the
   initial state by one ulp moves the JAX package's own t=0.8 result by
   up to 6e-4 max relative);
-* the options this slice does not port raise at setup.
+* the options the port does not take raise at setup; those that take
+  the generic dq (char_decomp, use_soa=False, aux, a capacity function)
+  give the JAX solver's fixed-dt step.
 """
 
 import os
@@ -275,16 +277,10 @@ def _set(attr, value):
     (_set("time_integrator", "LMM"), "time_integrator"),
     (_set("lim_type", 1), "lim_type=1"),
     (_set("weno_order", 7), "weno_order 7-17"),
-    (_set("char_decomp", 2), "generic SharpClaw dq"),
     (_set("tfluct_solver", True), "tfluct_solver"),
     (_set("dq_src", lambda *a: 0.0), "dq_src"),
     (_set("call_before_step_each_stage", True),
      "call_before_step_each_stage"),
-    (_set("use_soa", False), "generic SharpClaw dq"),
-    (lambda claw: setattr(claw.solution.state, "aux",
-                          np.zeros((1, 8, 8))), "aux"),
-    (lambda claw: setattr(claw.solution.state, "index_capa", 0),
-     "capacity"),
 ])
 def test_setup_raises_for_unported_options(apply, match):
     claw = tex.setup(mx=8, my=8, outdir=None, device="cpu",
@@ -292,3 +288,45 @@ def test_setup_raises_for_unported_options(apply, match):
     apply(claw)
     with pytest.raises(NotImplementedError, match=match):
         claw.solver.setup(claw.solution)
+
+
+def _aux(claw):
+    claw.solution.state.aux = np.full((1, 8, 8), 0.5)
+
+
+def _capacity(claw):
+    x, y = claw.solution.state.grid.c_centers
+    claw.solution.state.aux = (1.0 + 0.2 * np.cos(4.0 * x)
+                               * np.sin(3.0 * y))[None]
+    claw.solution.state.index_capa = 0
+
+
+# the options that sent the quadrants off the SoA route and raised 'generic
+# SharpClaw dq' until the generic dq (sharpclaw/kernels.py:dq_nd) was
+# ported; aux and a capacity function were refused by every SharpClaw 2D
+# solver
+@pytest.mark.parametrize("apply", [
+    _set("char_decomp", 2), _set("use_soa", False), _aux, _capacity],
+    ids=["char_decomp", "use_soa", "aux", "capacity"])
+def test_generic_route_matches_jax_step_fn(apply):
+    """Each option takes the generic dq, as in the JAX package
+    (``_soa_eligible`` false), and the port's fixed-dt SSP104 step equals
+    the JAX solver's to 1e-12."""
+    claw = tex.setup(mx=8, my=8, outdir=None, device="cpu",
+                     solver_type="sharpclaw")
+    jclaw = jex.setup(mx=8, my=8, outdir=None, solver_type="sharpclaw")
+    for c in (claw, jclaw):
+        apply(c)
+        c.solver.setup(c.solution)
+    state = claw.solution.state
+    assert not claw.solver._soa_eligible(state)
+    assert not jclaw.solver._soa_eligible(jclaw.solution.state)
+    aux = state.aux
+    q_t, c_t = claw.solver._step_fn(
+        torch.from_numpy(state.q),
+        None if aux is None else torch.from_numpy(aux), 2e-3, 0.0)
+    q_j, c_j = jclaw.solver._step_fn(
+        jnp.asarray(state.q), None if aux is None else jnp.asarray(aux),
+        2e-3, 0.0)
+    assert _rel(q_t.numpy(), np.asarray(q_j)) <= TOL[np.float64]
+    assert abs(float(c_t) - float(c_j)) <= TOL[np.float64] * float(c_j)

@@ -1,5 +1,8 @@
 """The CUDA kernel ``csrc/dq2_weno5.cu``, compiled for the host, against
-its plain PyTorch version ``sharpclaw/soa.py:dq_2d_soa``.
+its plain PyTorch version ``sharpclaw/soa.py:dq_2d_soa``: the Euler
+4-wave instance (the entries ``dq2_weno5_host_*``) and the acoustics
+instance (``dq2_weno5_acoustics_host_*``, the plain version with
+``acoustics_2D``'s SoA hooks).
 
 Without ``__CUDACC__`` the source runs its phases block by block on the
 CPU, which checks the kernel's index algebra, 16x16 tiling, ragged-edge
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from pyclaw_tpu_torch.ops import tiled2d
+from pyclaw_tpu_torch.riemann import acoustics as tac
 from pyclaw_tpu_torch.riemann import euler as te
 from pyclaw_tpu_torch.sharpclaw import soa as tsoa
 from test_torch_sharpclaw import euler_state, fallback_cells
@@ -36,9 +40,13 @@ def host_kernel(tmp_path_factory):
     from pyclaw_tpu_torch.ops import _build
     lib = _build.build_host_emulation(
         "dq2_weno5", str(tmp_path_factory.mktemp("dq2_weno5_host")))
-    for name in ("dq2_weno5_host_f32", "dq2_weno5_host_f64"):
+    for name, argtypes in (
+            ("dq2_weno5_host_f32", tiled2d.DQ_ARGTYPES),
+            ("dq2_weno5_host_f64", tiled2d.DQ_ARGTYPES),
+            ("dq2_weno5_acoustics_host_f32", tiled2d.DQ_ACOUSTICS_ARGTYPES),
+            ("dq2_weno5_acoustics_host_f64", tiled2d.DQ_ACOUSTICS_ARGTYPES)):
         fn = getattr(lib, name)
-        fn.argtypes = tiled2d.DQ_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.dq2_weno5_blocks.argtypes = [ctypes.c_int] * 2
     lib.dq2_weno5_blocks.restype = ctypes.c_int
@@ -127,3 +135,42 @@ def test_kernel_on_many_ragged_tiles(host_kernel, nx, ny, dtype, tol):
         euler_state(nx + ny, (nx + 6, ny + 6), fallback=True).astype(dtype))
     assert fallback_cells(torch.from_numpy(qbc)) > 0
     _check(host_kernel, qbc, tol)
+
+
+# acoustics_2D as examples/acoustics_2d.py sets it up: rho = 1, K = 4
+ACOUSTICS = {"rho": 1.0, "bulk": 4.0, "zz": 2.0, "cc": 2.0}
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny", [(40, 36), (16, 16), (5, 9), (17, 50)])
+def test_acoustics_instance_on_host_matches_plain(host_kernel, nx, ny,
+                                                  dtype, tol):
+    """The acoustics instance: 3 equations, the constant speeds -c, +c,
+    no positivity fallback, the waves' zero transverse component skipped
+    as the plain version skips its None."""
+    rng = np.random.default_rng(nx + 3 * ny)
+    qbc = np.ascontiguousarray(
+        rng.standard_normal((3, nx + 6, ny + 6)).astype(dtype))
+    dt = float(qbc.dtype.type(0.3 / max(nx, ny)))
+    dx, dy = 2.0 / nx, 2.0 / ny
+    out = np.empty((3, nx, ny), qbc.dtype)
+    ntiles = -(-nx // 16) * -(-ny // 16)
+    cfl_blocks = np.full(ntiles, np.nan, qbc.dtype)
+    fn = (host_kernel.dq2_weno5_acoustics_host_f64 if dtype == np.float64
+          else host_kernel.dq2_weno5_acoustics_host_f32)
+    rc = fn(qbc.ctypes.data, out.ctypes.data, cfl_blocks.ctypes.data,
+            nx + 6, ny + 6, ctypes.byref(ctypes.c_double(dt)), dx, dy,
+            *tiled2d.dq_system_params(tac.acoustics_2D, ACOUSTICS))
+    assert rc == 0 and np.isfinite(cfl_blocks).all()
+    rp = tac.acoustics_2D
+    d_p, c_p = tsoa.dq_2d_soa(torch.from_numpy(qbc), dt, dx, dy, rp.rpn_soa,
+                              ACOUSTICS, 5, 3, positivity=rp.positivity,
+                              flux_soa=rp.flux_soa)
+    d_p = d_p.numpy()
+    assert np.abs(out - d_p).max() / np.abs(d_p).max() <= tol
+    assert abs(cfl_blocks.max() - float(c_p)) <= tol * float(c_p)
+    # the same physics scalars reach the wrapper's plain route
+    d_w, c_w = tiled2d.dq_rows(torch.from_numpy(qbc), dt, dx, dy, ACOUSTICS,
+                               rp=rp)
+    assert torch.equal(d_w, torch.from_numpy(d_p)) and float(c_w) == c_p

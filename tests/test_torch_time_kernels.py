@@ -70,6 +70,8 @@ def test_dq_case_is_the_sharpclaw_path(monkeypatch):
     args, kwargs = _first_call(monkeypatch, "dq_rows", claw)
     qbc, case = tk.dq_case(n, torch.float64, "cpu")
     assert torch.equal(args[0], qbc)
+    # the system, which the solver names: the case's is dq_rows's default
+    assert kwargs.pop("rp") is tiled2d.euler.euler_4wave_2D
     # dt is the controller's; the rest is the case's
     assert args[2:] + tuple(kwargs.values()) == case[1:] + (5, 3)
 
