@@ -90,6 +90,18 @@ Phases (each asserts; any failure exits non-zero):
      (5, 198^3) with each axis moved last and made contiguous, as dq_nd
      calls it, over the Euler 3D example's first state and a seeded
      random one, float32 and float64;
+  3l. step2_aos's instances of this slice against the plain version (one
+     step each): the Euler 4-wave system on the quadrants state and a
+     seeded random admissible state, the Euler 5-wave system on the
+     shock-bubble state and a seeded random state with a tracer (speeds
+     crossing zero), sw_aug_2D on seeded wet/dry states that take every
+     branch of the augmented solver and on the radial-bump state (the
+     bottom in aux), at 1024^2, 60^2, 100x37, 64x100, 7x5 and 600x700,
+     float32 and float64: transverse_waves 0/1/2 x order 1/2 with MC, van
+     Leer and id 10 with a capacity row, and the f-wave form (four of
+     these at 1024^2 and 600x700);
+  3m. dq2_weno5's Euler 5-wave instance against its plain version (one dq
+     each) on [3b]'s grids and kinds of state, each with a tracer;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -159,6 +171,24 @@ Phases (each asserts; any failure exits non-zero):
      per attempted step; h > 0) and acoustics_3d_heterogeneous at 128^3 to
      t=0.8 (the generic dq with aux and the second Riemann solve: weno5,
      30);
+  4q. the slice's path: examples.shock_bubble (euler_5wave_2D, MC, the
+     generic CTU step: step2_aos's Euler 5-wave instance, 1 launch an
+     attempted step) at 2048x512 f32 to t=0.6 through Controller.run(),
+     and its SharpClaw route at 1024x256 f32 to t=0.6 (dq2_weno5's Euler
+     5-wave instance, 10 an attempted step), every launch count set to 0
+     just before each and read just after: the steps, the wall, the peak
+     memory, rho > 0, p > 0 and the tracer's sum within 1e-3 of its
+     start; the quadrants off the SoA route (use_soa=False: step2_aos's
+     Euler 4-wave instance) at 1024^2 f32 to t=0.8 beside [4]'s run (max
+     and relative L1 difference) and both routes at 128^2 in float64;
+  4r. sw_aug_2D: examples.radial_bump_bathymetry at 1024^2 f32 to t=0.3
+     (h > 0, the y mirror symmetry), its lake at rest at 1024^2 in
+     float32 and float64 (machine-still), examples.dam_break_dry with
+     dimension=2 at 500^2 f32 to t=0.5 (the mass kept; the least h over
+     the frames reported and held to the JAX package's own run's, which
+     goes below 0 at this grid), each with every launch count set to 0
+     just before it and read just after (step2_aos's sw_aug instance, 1
+     an attempted step);
   4m. the parallel overlay (pyclaw_tpu_torch/parallel) in a world of one
      NCCL rank (init_distributed on a file:// store):
      parallel.ClawSolver3D on examples.euler_3d.setup(mx=my=mz=192,
@@ -211,6 +241,11 @@ Phases (each asserts; any failure exits non-zero):
   5b. SharpClaw quadrants at 80^2 on the card against the same run on the
      CPU (the plain path the CPU tests tie to the JAX package): float64 at
      t=0.2 and t=0.8, float32 at t=0.8;
+  5x. shock_bubble at 80x20 to t=0.1 (classic and SharpClaw) and the 2D
+     dry dam break at 40^2 to t=0.5 (h >= 0) on the card against the same
+     runs on the CPU in float64: equal steps, q to 1e-12 of max|q|; the
+     dam break to t=2.0 reported beside them (ill-conditioned: a one-ulp
+     move of its initial state moves the JAX run by up to 4.8e-2);
   6. timing at 1024^2 (CUDA events): each 2D kernel, its plain version,
      its bound, and step3_ctu the same at 192^3 (on the 3D path's first
      input and, the kernel alone, on its last); step1 on the Sod state at
@@ -236,7 +271,12 @@ Phases (each asserts; any failure exits non-zero):
      accepted and rejected, against torch.where; dq2_weno5's acoustics
      instance at 1024^2 on the radial pulse and weno5 at (5, 198^3) on each
      axis of the Euler 3D state (events, profiler, plain, bound), and
-     [4o]'s path to t=0.02 under torch.profiler on the device loop;
+     [4o]'s path to t=0.02 under torch.profiler on the device loop; the
+     instances of this slice (step2_aos Euler 4-wave on the quadrants at
+     1024^2, Euler 5-wave on the shock bubble at 2048x512, sw_aug_2D on
+     the radial bump at 1024^2; dq2_weno5 Euler 5-wave on the shock
+     bubble at 2048x512) by events and the profiler, beside their plain
+     versions and bounds;
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -259,7 +299,9 @@ from pyclaw_tpu_torch.ops.time_kernels import (
     padded, padded_1d, padded3, padded3_aux, quadrants_state, shallow_state,
     sod_state, step1_case, step2_aos_case, step2_ctu_case, step3_aos_case,
     step3_ctu_case, weno5_case, acoustics_state, step2_aos_acoustics_case,
-    dam_state, DAM_PARAMS)
+    dam_state, DAM_PARAMS, shock_bubble_state, radial_bump_state,
+    step2_aos_euler4_case, step2_aos_euler5_case, step2_aos_sw_aug_case,
+    dq_euler5_case)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -887,11 +929,9 @@ def random_wet_state(rng, nx, ny):
 
 def plain_aos(qbc, auxbc, dt, dx, dy, name, fwave, capa, tw, order, lim):
     from pyclaw_tpu_torch import riemann
-    from pyclaw_tpu_torch.classic import kernels
     rp = riemann.ALL[name]
-    return kernels.step2(qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt,
-                         AOS_PARAMS[name], (lim,) * rp.num_waves, order,
-                         fwave, capa, 2, tw)
+    return plain_step2(qbc, auxbc, dt, dx, dy, rp, AOS_PARAMS[name],
+                       (lim,) * rp.num_waves, order, fwave, capa, tw)
 
 
 def compare_aos(dev, grids, seed=3):
@@ -1005,39 +1045,49 @@ def lake_at_rest(dev, n, dtype, tfinal):
 
 def timing_aos(dev, n=1024, system=ROE):
     """step2_aos (CUDA events and the profiler's device time), its plain
-    version and its bound at n^2 on the first input of the system's path:
-    the radial dam break (shallow water, ops/time_kernels.py:
-    step2_aos_case) or the radial pulse (acoustics,
-    step2_aos_acoustics_case)."""
+    version and its bound on the first input of the system's path
+    (ops/time_kernels.py): the radial dam break at n^2 (shallow water,
+    step2_aos_case), the radial pulse at n^2 (acoustics,
+    step2_aos_acoustics_case), the quadrants at n^2 (Euler 4-wave,
+    step2_aos_euler4_case), the shock bubble at 2n x n/2 (Euler 5-wave,
+    step2_aos_euler5_case) or the radial bump at n^2 with its bottom in
+    aux (sw_aug_2D, step2_aos_sw_aug_case)."""
     import torch
     from pyclaw_tpu_torch.ops import tiled2d
-    case, flops = ((step2_aos_case, FLOPS_PER_CELL_AOS) if system == ROE
-                   else (step2_aos_acoustics_case,
-                         FLOPS_PER_CELL_AOS_ACOUSTICS))
+    case, flops = {
+        ROE: (step2_aos_case, FLOPS_PER_CELL_AOS),
+        ACOUSTICS_2D: (step2_aos_acoustics_case,
+                       FLOPS_PER_CELL_AOS_ACOUSTICS),
+        EULER4: (step2_aos_euler4_case, FLOPS_PER_CELL_AOS_EULER4),
+        EULER5: (step2_aos_euler5_case, FLOPS_PER_CELL_AOS_EULER5),
+        SW_AUG: (step2_aos_sw_aug_case, FLOPS_PER_CELL_AOS_SW_AUG)}[system]
     out = {}
     for tname, dtype in (("float32", torch.float32),
                          ("float64", torch.float64)):
         qbc, args = case(n, dtype, dev)
-        dt, h = args[1], args[2]
+        auxbc, dt, dx, dy, rp, params, lims, order, fwave, capa, _, tw = args
 
         def kern():
             return tiled2d.step2_rows_generic(qbc, *args)
 
         def plain():
-            return plain_aos(qbc, None, dt, h, h, system, False, -1, 2, 2, 4)
+            return plain_step2(qbc, auxbc, dt, dx, dy, rp, params, lims,
+                               order, fwave, capa, tw)
 
         ms = time_ms(kern, 200)
         plain_ms = time_ms(plain, 20, warm=2)
         ms_again = time_ms(kern, 200)
         dev_ms, dev_n = device_ms_per_call(kern, "step2_aos_kernel", 20)
         item = qbc.element_size()
-        b = bound_of(qbc.numel() * item + 3 * n * n * item, flops * n * n,
-                     tname)
+        cells = (qbc.shape[1] - 4) * (qbc.shape[2] - 4)
+        aux_bytes = 0 if auxbc is None else auxbc.numel() * item
+        b = bound_of(qbc.numel() * item + aux_bytes
+                     + rp.num_eqn * cells * item, flops * cells, tname)
         out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
                       "device_launches_profiled": dev_n,
-                      "plain_ms": plain_ms, **b}
-        print(f"  timing step2_aos {system} {n}^2 {tname}: kernel {ms:.4f} "
-              f"ms (repeat "
+                      "plain_ms": plain_ms, "shape": list(qbc.shape), **b}
+        print(f"  timing step2_aos {system} {tuple(qbc.shape)} {tname}: "
+              f"kernel {ms:.4f} ms (repeat "
               f"{ms_again:.4f}; on the device {dev_ms} ms, {dev_n} launches "
               f"profiled), plain {plain_ms:.4f} ms, bound "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
@@ -2844,6 +2894,593 @@ def timing_weno5_3d(dev):
     return out
 
 
+# ---- the 2D Euler family off the SoA route and sw_aug_2D: [3l], [3m],
+# [4q], [4r], [5x] and their part of [6] -----------------------------------
+
+EULER4, EULER5, SW_AUG = "euler_4wave_2D", "euler_5wave_2D", "sw_aug_2D"
+EULER_PARAMS = {"gamma": 1.4}
+SW_AUG_PARAMS = {"grav": 9.8, "dry_tolerance": 1e-3}
+# [3l]: the grids (1024^2, the host tests' grids, less than a tile and one
+# ragged on both axes with more tiles than resident blocks), and the options
+# (transverse_waves, order, limiter, index_capa >= 0 for a capacity row,
+# fwave): [3d]'s matrix of transverse_waves and order with MC, van Leer
+# and id 10 with and without a capacity function, and the f-wave form
+# (sw_aug_2D takes f-waves in every case); the large grids take four
+NEW_AOS_GRIDS = ((1024, 1024), (60, 60), (100, 37), (64, 100), (7, 5),
+                 (600, 700))
+NEW_AOS_OPTS = ([(tw, order, 4, -1, False) for tw in (0, 1, 2)
+                 for order in (1, 2)]
+                + [(2, 2, 4, 0, False), (1, 2, 3, 0, False),
+                   (2, 2, 10, -1, True), (2, 2, 4, 0, True)])
+NEW_AOS_OPTS_LARGE = [(2, 2, 4, -1, False), (1, 1, 4, -1, False),
+                      (2, 2, 4, 0, False), (2, 2, 10, -1, True)]
+
+# Operations per cell of one generic CTU step of the Euler 4-wave system
+# (csrc/step2_aos.cu with csrc/euler2d_aos.cuh; order 2, transverse_waves
+# 2, MC, no capacity): the same function as step2_ctu.cu's, counted as
+# row 1's FLOPS_PER_CELL (each interface quantity once).  The 5-wave
+# system adds its tracer's: per interface phi_hat 5 (sqrt(rho) and phi a
+# cell: 2 a cell), the tracer parts of three waves 3, the fifth wave 3,
+# its fluctuation component (4 waves' terms and the fifth speed's split)
+# 16, the limiter of the fifth wave 18 and the tracer component of the
+# norms and dot products of three waves 12, the correction flux's tracer
+# component 11, the fluctuation to split 2, the splits' tracer lines 8,
+# the CFL 2 -> 80; per cell the fold and update of a fifth component 22.
+FLOPS_PER_CELL_AOS_EULER4 = FLOPS_PER_CELL
+FLOPS_PER_CELL_AOS_EULER5 = FLOPS_PER_CELL + 2 * 80 + 22 + 2
+# The sw_aug_2D instance (csrc/sw_aug2d.cuh; order 2, transverse_waves 2,
+# minmod, f-waves, no capacity), counted from its own operations in the
+# same way, each select one: per interface the normal solve (the wet
+# tests and velocities 8, the dry-state machinery of _sw_aug_core 77, the
+# shear wave 11, the f-waves and their frontal selects 17, the
+# fluctuations with their wall selects 36) 149; the limiter of three
+# waves 78; the correction flux 15; the fluctuations to split 6; the
+# split's Roe average with its wet selects 29 and two splits of 77 (the
+# shallow-water split's 71 and its wet selects) 154; v +- c 2; CFL 3 ->
+# 436; two interfaces 872.  The fold and update per cell 78.
+FLOPS_PER_CELL_AOS_SW_AUG = 2 * 436 + 78
+# The Euler 5-wave instance of csrc/dq2_weno5.cu: FLOPS_PER_CELL_DQ and,
+# per direction, WENO5 of the tracer (109 / 98), phi_hat 9, the tracer
+# parts of the waves and the fifth wave 6, its fluctuation component 16,
+# the CFL 2, its flux and difference 3 and its part of dq 3 (148 / 137);
+# the sum of its two parts 1
+FLOPS_PER_CELL_DQ_EULER5 = {"float32": 2 * (672 + 148) + 5,
+                            "float64": 2 * (624 + 137) + 5}
+# [4q]: the classic quadrants off the SoA route against the SoA run.  The
+# two plain routes on the CPU at 128^2 to t=0.8 (the same 243 + 1 steps)
+# differ by 4.59e-15 (float64, max relative; 1.64e-6 in float32): the
+# card's two kernels at 128^2 in float64 are held to 10 times that; at
+# 1024^2 in float32 (the slice's run) the relative L1 difference is held
+# to SHARP_RUN_TOL's 1e-4, as a whole float32 run on the card is against
+# another route elsewhere
+ROUTES_CPU_F64_MAX = 4.59e-15
+ROUTES_TOL = {"f64_128_max": 10 * ROUTES_CPU_F64_MAX,
+              "f32_1024_l1": SHARP_RUN_TOL["t0.8_l1"]}
+# [4q]: the tracer's sum to its start (the JAX package's check,
+# tests/test_examples_tail.py:88-101); [5x]: the card against the CPU in
+# float64
+TRACER_TOL = 1e-3
+CARD_VS_CPU_TOL = 1e-12
+# [5x]: the 2D dry dam break at 40^2 is held card against CPU to t=0.5;
+# to t=2.0 (its tfinal) it is reported only: there a one-ulp move of the
+# initial state moves the JAX package's own run by 3.0e-2 to 4.8e-2 (max
+# relative, five seeds, the CPU, float64) and the port's plain run by
+# 2.6e-2 to 6.9e-2, and the two packages' runs differ by 4.5e-2 (134 and
+# 129 steps); PyTorch's CPU sqrt in float64 rounds 0.7% of its entries
+# one ulp from the correctly rounded value the card and the kernel
+# return, so the card and the CPU part in the first steps
+DAM2D_CONDITIONED_T = 2.0
+# [4r]: the 2D dry dam break at 500^2 to t=0.5 does not keep h >= 0: the
+# JAX package's own run of examples/dam_break_dry.py (dimension=2, the
+# CPU, float64) reaches min h -1.7372e-3 in its frames, the port's plain
+# path on the CPU -2.114e-4 (float32) and -3.340e-4 (float64); at 100^2
+# and 200^2 both keep h >= 0 exactly (to t=0.5; to t=2.0 the 40^2 runs
+# of both packages reach -1.3e-2).  The card's min h is held to the JAX
+# run's; [5x] holds h >= 0 exactly on its 40^2 run to t=0.5
+DAM2D_JAX_MIN_H = -1.7372e-3
+
+
+def euler_state_tracer(rng, nx, ny, pockets=0.0, speed=1.5):
+    """A seeded admissible Euler state (5, nx, ny) with velocities of
+    ``speed`` times a standard normal (u - a and u + a cross zero) and a
+    tracer rho phi, phi in [0, 1) and zero in about half of the cells;
+    with ``pockets`` > 0 that share of the cells are low-density pockets
+    (rho = p = 0.05, as :func:`random_state`'s)."""
+    shape = (nx, ny)
+    rho = 0.5 + rng.random(shape)
+    u = speed * rng.standard_normal(shape)
+    v = speed * rng.standard_normal(shape)
+    p = 0.5 + rng.random(shape)
+    if pockets > 0.0:
+        pocket = rng.random(shape) < pockets
+        rho = np.where(pocket, 0.05, rho)
+        p = np.where(pocket, 0.05, p)
+    phi = rng.random(shape) * (rng.random(shape) < 0.5)
+    return np.stack([rho, rho * u, rho * v,
+                     p / 0.4 + 0.5 * rho * (u * u + v * v), rho * phi])
+
+
+def sw_aug_wet_dry_state(rng, nx, ny):
+    """A seeded wet/dry state (3, nx, ny) and its bottom (nx, ny) that take
+    every branch of the augmented solver: a quarter of the cells dry on a
+    bottom above or below the wet neighbours' surface (walls and fronts),
+    a tenth damp (below the dry tolerance), the rest wet with velocities
+    of either sign."""
+    dry = rng.random((nx, ny)) < 0.25
+    h = np.where(dry, 0.0, 0.2 + rng.random((nx, ny)))
+    h = np.where(rng.random((nx, ny)) < 0.1, 5e-4, h)
+    b = np.where(dry, 0.5 + rng.random((nx, ny)), 0.3 * rng.random((nx, ny)))
+    q = np.stack([h, h * rng.standard_normal((nx, ny)),
+                  h * rng.standard_normal((nx, ny))])
+    return q, b
+
+
+def new_aos_inputs(rng, nx, ny):
+    """{system: {state: (q, bottom or None)}} of [3l] at nx x ny."""
+    q_bump, aux_bump = radial_bump_state(nx, ny)
+    return {
+        EULER4: {"quadrants": (quadrants_state(nx, ny), None),
+                 "random": (euler_state_tracer(rng, nx, ny)[:4], None)},
+        EULER5: {"shock_bubble": (shock_bubble_state(nx, ny), None),
+                 "random": (euler_state_tracer(rng, nx, ny), None)},
+        SW_AUG: {"wet_dry": sw_aug_wet_dry_state(rng, nx, ny),
+                 "radial_bump": (q_bump, aux_bump[0])}}
+
+
+def plain_step2(qbc, auxbc, dt, dx, dy, rp, params, lims, order, fwave,
+                capa, tw):
+    """classic/kernels.py:step2 with system rp's AoS hooks and prefactor:
+    the plain version of step2_aos."""
+    from pyclaw_tpu_torch.classic import kernels
+    return kernels.step2(qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt, params, lims,
+                         order, fwave, capa, 2, tw, rp.prefactor)
+
+
+def compare_aos_new(dev, seed=12):
+    """[3l]: step2_aos's Euler 4-wave, Euler 5-wave and sw_aug_2D instances
+    against the plain version, one step each, over NEW_AOS_GRIDS, two
+    states a system, float32 and float64, with a capacity row in aux.
+    Returns (worst relative error, worst CFL error, each system's main
+    configuration's max abs error (1024^2 f32, its first state, the first
+    option), cases)."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = {}
+    ncase = 0
+    for nx, ny in NEW_AOS_GRIDS:
+        opts = NEW_AOS_OPTS_LARGE if nx * ny > 2e5 else NEW_AOS_OPTS
+        kappa = 0.7 + 0.6 * rng.random((nx, ny))
+        dx, dy = 1.0 / nx, 1.0 / ny
+        for name, inputs in new_aos_inputs(rng, nx, ny).items():
+            rp = riemann.ALL[name]
+            params = SW_AUG_PARAMS if name == SW_AUG else EULER_PARAMS
+            for iname, (q_np, b_np) in inputs.items():
+                rows = ([] if b_np is None else [b_np]) + [kappa]
+                capa_row = len(rows) - 1
+                for tname, dtype in (("float32", torch.float32),
+                                     ("float64", torch.float64)):
+                    qbc = padded(q_np, dtype, dev)
+                    auxbc = padded(np.stack(rows), dtype, dev)
+                    dt = float(np.dtype(tname).type(0.05 * min(dx, dy)))
+                    for tw, order, lim, capa, fwave in opts:
+                        capa = capa_row if capa >= 0 else -1
+                        fwave = fwave or name == SW_AUG
+                        lims = (lim,) * rp.num_waves
+                        args = (qbc, auxbc, dt, dx, dy, rp, params, lims,
+                                order, fwave, capa)
+                        qk, ck = tiled2d.step2_rows_generic(*args, 2, tw)
+                        qp, cp = plain_step2(*args, tw)
+                        torch.cuda.synchronize()
+                        abs_err = float((qk - qp).abs().max())
+                        rel = abs_err / float(qp.abs().max())
+                        dcfl = abs(float(ck) - float(cp)) / float(cp)
+                        if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                                and dcfl <= TOL_REL[tname]
+                                and tuple(qk.shape) == (rp.num_eqn, nx, ny)):
+                            fail(f"[3l] step2_aos vs plain {nx}x{ny} {name} "
+                                 f"{iname} {tname} tw={tw} order={order} "
+                                 f"lim={lim} capa={capa} fwave={fwave}: rel "
+                                 f"err {rel:.3e}, cfl {float(ck)!r} vs "
+                                 f"{float(cp)!r}")
+                        worst[tname] = max(worst[tname], rel)
+                        worst_cfl[tname] = max(worst_cfl[tname], dcfl)
+                        if ((nx, tname, (tw, order, lim)) == (1024, "float32",
+                                                               (2, 2, 4))
+                                and capa < 0 and name not in main_abs_err):
+                            main_abs_err[name] = abs_err
+                        ncase += 1
+                        del qk, qp
+        print(f"  [3l] step2_aos Euler 4/5-wave, sw_aug_2D {nx}x{ny}: max "
+              f"rel err f32 {worst['float32']:.3e} f64 "
+              f"{worst['float64']:.3e}; max cfl rel f32 "
+              f"{worst_cfl['float32']:.3e} f64 {worst_cfl['float64']:.3e}",
+              flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def compare_dq_euler5(dev, grids, seed=13):
+    """[3m]: dq2_weno5's Euler 5-wave instance against its plain version
+    (sharpclaw/soa.py:dq_2d_soa with euler_5wave_2D's SoA hooks), one dq
+    each, over [3b]'s grids and kinds of state, each with a tracer: the
+    shock-bubble state, a seeded random admissible state and one with
+    low-density pockets (the positivity fallback; float32 held to
+    ULP_FACTOR times the plain version's own change under a one-ulp move
+    of its input where larger, as [3b])."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
+    rp = riemann.euler_5wave_2D
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    for nx, ny in grids:
+        # pockets in a twentieth of the cells, a quarter on a grid of less
+        # than a tile (a twentieth of 35 cells may leave none inside)
+        pockets = 0.05 if nx * ny > 256 else 0.25
+        inputs = {"shock_bubble": shock_bubble_state(nx, ny),
+                  "random": euler_state_tracer(rng, nx, ny, speed=0.5),
+                  "fallback": euler_state_tracer(rng, nx, ny,
+                                                 pockets=pockets, speed=0.5)}
+        dx, dy = 1.0 / nx, 1.0 / ny
+        for iname, q_np in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc = padded(q_np, dtype, dev, num_ghost=3)
+                dt = float(np.dtype(tname).type(0.3 / max(nx, ny)))
+                dk, ck = tiled2d.dq_rows(qbc, dt, dx, dy, EULER_PARAMS,
+                                         rp=rp)
+
+                def plain(qin):
+                    return sc_soa.dq_2d_soa(
+                        qin, dt, dx, dy, rp.rpn_soa, EULER_PARAMS, 5, 3,
+                        positivity=rp.positivity, flux_soa=rp.flux_soa)
+                dp, cp = plain(qbc)
+                torch.cuda.synchronize()
+                abs_err = float((dk - dp).abs().max())
+                rel = abs_err / float(dp.abs().max())
+                dcfl = abs(float(ck) - float(cp))
+                tol, nfall, sens = TOL_REL[tname], 0, None
+                if iname == "fallback":
+                    nfall = sc_soa.fallback_count(qbc, EULER_PARAMS,
+                                                  rp.positivity)
+                    r = torch.as_tensor(rng.uniform(-1.0, 1.0, qbc.shape),
+                                        dtype=dtype, device=dev)
+                    dpp, _ = plain(qbc * (1.0 + torch.finfo(dtype).eps * r))
+                    sens = float((dpp - dp).abs().max() / dp.abs().max())
+                    if tname == "float32":
+                        tol = max(tol, ULP_FACTOR * sens)
+                    if nfall == 0:
+                        fail(f"[3m] dq {nx}x{ny} fallback state: no cell "
+                             f"fell back")
+                if not (np.isfinite(rel) and rel <= tol
+                        and dcfl <= TOL_REL[tname] * float(cp)
+                        and dk.shape == (5, nx, ny)):
+                    fail(f"[3m] dq2_weno5 euler5 vs plain {nx}x{ny} {iname} "
+                         f"{tname}: rel err {rel:.3e} (tol {tol:.3e}), cfl "
+                         f"{float(ck)!r} vs {float(cp)!r}")
+                worst[tname] = max(worst[tname], rel)
+                if (nx, ny, iname, tname) == (1024, 1024, "shock_bubble",
+                                              "float32"):
+                    main_abs_err = abs_err
+                ncase += 1
+                print(f"  [3m] dq2_weno5 euler5 {nx}x{ny} {iname:12s} "
+                      f"{tname}: rel err {rel:.3e} (tol {tol:.1e}), |dcfl| "
+                      f"{dcfl:.3e}"
+                      + (f"; {nfall} cells fell back, one-ulp input change "
+                         f"moves the plain version by {sens:.3e}"
+                         if nfall else ""), flush=True)
+    return worst, main_abs_err, ncase
+
+
+def run_example(dev, module, dtype, tfinal, tweak=None, keep_copy=False,
+                **kw):
+    """pyclaw_tpu_torch.examples.<module> through Controller.run()
+    (``kw``: its setup keywords; ``tweak(claw)`` before the run); returns
+    (claw, status, wall seconds)."""
+    import importlib
+    import torch
+    ex = importlib.import_module(f"pyclaw_tpu_torch.examples.{module}")
+    claw = ex.setup(outdir=None, device=dev, dtype=dtype, **kw)
+    claw.tfinal = tfinal
+    claw.keep_copy = keep_copy
+    if tweak is not None:
+        tweak(claw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
+def euler_checks(label, q, tracer0=None):
+    """rho > 0 and p > 0 in every cell of an Euler state q, and the
+    tracer's sum within TRACER_TOL of ``tracer0``; returns (min rho, min p,
+    the tracer's relative change)."""
+    rho = q[0].astype(np.float64)
+    p = 0.4 * (q[3] - 0.5 * (q[1].astype(np.float64) ** 2 + q[2] ** 2)
+               / rho)
+    change = (None if tracer0 is None
+              else abs(float(np.sum(q[4], dtype=np.float64)) - tracer0)
+              / tracer0)
+    if not (np.all(np.isfinite(q)) and rho.min() > 0.0 and p.min() > 0.0
+            and (change is None or change <= TRACER_TOL)):
+        fail(f"{label}: min rho {rho.min()}, min p {p.min()}, tracer "
+             f"change {change}")
+    return float(rho.min()), float(p.min()), change
+
+
+def shock_bubble_path(dev, n=(2048, 512), n_sharp=(1024, 256)):
+    """[4q]: the slice's path, examples.shock_bubble (euler_5wave_2D, MC)
+    classic at 2048x512 f32 to t=0.6 on the device loop (step2_aos's Euler
+    5-wave instance, 1 launch an attempted step; restore 1), and
+    SharpClaw at 1024x256 f32 to t=0.6 (dq2_weno5's Euler 5-wave instance,
+    10 an attempt), every launch count set to 0 just before each and read
+    just after: the steps, the wall and the peak memory; rho > 0, p > 0 and
+    the tracer's sum kept."""
+    import torch
+    out = {}
+    for solver_type, (mx, my), kernel, per in (
+            ("classic", n, "step2_aos", 1),
+            ("sharpclaw", n_sharp, "dq2_weno5", 10)):
+        tracer0 = float(np.sum(shock_bubble_state(mx, my)[4],
+                               dtype=np.float64))
+        torch.cuda.reset_peak_memory_stats(dev)
+        claw, status, wall, counts, ran = counted_run(
+            lambda: run_example(dev, "shock_bubble", np.float32, 0.6,
+                                mx=mx, my=my, solver_type=solver_type))
+        peak = torch.cuda.max_memory_allocated(dev)
+        ns, nr = status["numsteps"], status["numrejected"]
+        loop = check_path_launches(f"[4q] shock_bubble {solver_type}", claw,
+                                   status, counts, kernel, per, ran=ran)
+        q = claw.solution.q
+        if q.shape != (5, mx, my) or abs(claw.solution.t - 0.6) > 1e-12:
+            fail(f"[4q] shock_bubble {solver_type}: shape {q.shape}, t "
+                 f"{claw.solution.t}")
+        rho_min, p_min, tracer = euler_checks(
+            f"[4q] shock_bubble {solver_type}", q, tracer0)
+        rec = {"shape": [5, mx, my], "accepted": ns, "rejected": nr,
+               "wall_s_counted": wall, "launches": ran,
+               "wrapper_counts": counts, "loop": loop,
+               "peak_memory_bytes": int(peak), "min_rho": rho_min,
+               "min_p": p_min, "tracer_change": tracer,
+               "cell_updates_per_s": ns * mx * my / wall}
+        out[solver_type] = rec
+        print(f"[4q] shock_bubble {solver_type} {mx}x{my} f32 to "
+              f"t={claw.solution.t}: {ns} accepted + {nr} rejected steps, "
+              f"{ran[kernel]} {kernel} launches the card ran ({per} x "
+              f"attempts; {ran}; the wrappers' counts {counts}), "
+              f"{wall:.3f} s wall with the device counters, peak memory "
+              f"{peak / 2 ** 20:.1f} MiB; device loop {loop}; min rho "
+              f"{rho_min:.4e}, min p {p_min:.4e}, tracer sum change "
+              f"{tracer:.3e} (tol {TRACER_TOL})", flush=True)
+        del claw
+    return out
+
+
+def quadrants_routes(dev, q_soa, steps_soa, n=1024):
+    """[4q]: the classic quadrants off the SoA route (use_soa=False: the
+    generic step, step2_aos's Euler 4-wave instance, 1 launch an attempted
+    step) at n^2 f32 to t=0.8 beside [4]'s SoA run (step2_ctu): the steps,
+    the max and relative L1 difference (gated at ROUTES_TOL); then both
+    routes at 128^2 in float64 on the card (gated at 10 times the CPU's
+    two plain routes' difference)."""
+    def off_soa(claw):
+        claw.solver.use_soa = False
+    claw, status, wall, counts, ran = counted_run(
+        lambda: run_example(dev, "euler_2d_quadrants", np.float32, 0.8,
+                            tweak=off_soa, mx=n, my=n))
+    loop = check_path_launches("[4q] quadrants off the SoA route", claw,
+                               status, counts, "step2_aos", 1, ran=ran)
+    q = claw.solution.q.astype(np.float64)
+    q_soa = q_soa.astype(np.float64)
+    rec = {"accepted": status["numsteps"], "rejected": status["numrejected"],
+           "steps_soa": list(steps_soa), "wall_s_counted": wall,
+           "launches": ran, "wrapper_counts": counts, "loop": loop,
+           "f32_max_rel": float(np.abs(q - q_soa).max()
+                                / np.abs(q_soa).max()),
+           "f32_l1_rel": float(np.abs(q - q_soa).mean()
+                               / np.abs(q_soa).mean())}
+    del claw
+    runs = {}
+    for soa in (True, False):
+        def route(claw, soa=soa):
+            claw.solver.use_soa = soa
+        c, st, _ = run_example(dev, "euler_2d_quadrants", np.float64, 0.8,
+                               tweak=route, mx=128, my=128)
+        runs[soa] = (c.solution.q, (st["numsteps"], st["numrejected"]))
+    rec["f64_128_max_rel"] = float(np.abs(runs[False][0] - runs[True][0])
+                                   .max() / np.abs(runs[True][0]).max())
+    rec["f64_128_steps"] = [runs[True][1], runs[False][1]]
+    rec["tol"] = ROUTES_TOL
+    print(f"[4q] quadrants {n}^2 f32 to t=0.8 off the SoA route: "
+          f"{rec['accepted']} accepted + {rec['rejected']} rejected steps "
+          f"(the SoA run {steps_soa}), {ran['step2_aos']} step2_aos "
+          f"launches the card ran ({ran}), {wall:.3f} s wall; against the "
+          f"SoA run: max rel {rec['f32_max_rel']:.3e}, rel L1 "
+          f"{rec['f32_l1_rel']:.3e} (tol {ROUTES_TOL['f32_1024_l1']}); "
+          f"128^2 f64 the two kernels: max rel {rec['f64_128_max_rel']:.3e} "
+          f"(tol {ROUTES_TOL['f64_128_max']:.3e}), steps "
+          f"{rec['f64_128_steps']}", flush=True)
+    if not (np.all(np.isfinite(q))
+            and rec["f32_l1_rel"] <= ROUTES_TOL["f32_1024_l1"]
+            and rec["f64_128_max_rel"] <= ROUTES_TOL["f64_128_max"]
+            and runs[True][1] == runs[False][1]):
+        fail(f"[4q] quadrants off the SoA route: {rec}")
+    return rec
+
+
+def sw_aug_paths(dev, n=1024, n_dam=500):
+    """[4r]: sw_aug_2D on the card, float32 unless named, every launch
+    count set to 0 just before each run and read just after (step2_aos's
+    sw_aug instance, 1 launch an attempted step): radial_bump_bathymetry
+    at n^2 to t=0.3 (h > 0, the y -> -y mirror symmetry of h); the lake at
+    rest over its bump at n^2 to t=0.05 in float32 and float64 (machine-
+    still: LAKE_TOL in float32, 1e-12 in float64); dam_break_dry with
+    dimension=2 at n_dam^2 to t=0.5 (the mass kept to DAM_MASS_TOL, the
+    least h over the frames no lower than the JAX package's own run's,
+    DAM2D_JAX_MIN_H; h >= 0 is reported)."""
+    out = {}
+    claw, status, wall, counts, ran = counted_run(
+        lambda: run_example(dev, "radial_bump_bathymetry", np.float32, 0.3,
+                            mx=n, my=n))
+    loop = check_path_launches("[4r] radial_bump_bathymetry", claw, status,
+                               counts, "step2_aos", 1, ran=ran)
+    q = claw.solution.q
+    mirror = float(np.abs(q[0] - q[0][:, ::-1]).max() / np.abs(q[0]).max())
+    rec = {"accepted": status["numsteps"], "rejected": status["numrejected"],
+           "wall_s_counted": wall, "launches": ran, "loop": loop,
+           "min_h": float(q[0].min()), "mirror_asymmetry": mirror}
+    print(f"[4r] radial_bump_bathymetry {n}^2 f32 to t={claw.solution.t}: "
+          f"{rec['accepted']} accepted + {rec['rejected']} rejected steps, "
+          f"{ran['step2_aos']} step2_aos launches the card ran ({ran}), "
+          f"{wall:.3f} s wall; min h {rec['min_h']:.4e}, max |h(x,y) - "
+          f"h(x,-y)| / max h {mirror:.3e}", flush=True)
+    if not (q.shape == (3, n, n) and np.all(np.isfinite(q))
+            and rec["min_h"] > 0.0 and mirror <= 1e-4
+            and abs(claw.solution.t - 0.3) <= 1e-12):
+        fail(f"[4r] radial_bump_bathymetry: {rec}")
+    out["radial_bump"] = rec
+    del claw
+    for tname, dtype, tol in (("float32", np.float32, LAKE_TOL),
+                              ("float64", np.float64, 1e-12)):
+        claw, status, wall, counts, ran = counted_run(
+            lambda: run_example(dev, "radial_bump_bathymetry", dtype, 0.05,
+                                mx=n, my=n, perturb=0.0))
+        loop = check_path_launches(f"[4r] lake at rest {tname}", claw,
+                                   status, counts, "step2_aos", 1, ran=ran)
+        q, b = claw.solution.q, claw.solution.aux[0]
+        drift = float(np.abs(q[0].astype(np.float64) + b - 1.0).max())
+        mom = float(np.abs(q[1:]).max())
+        out[f"lake_{tname}"] = {"attempts": loop["attempts"],
+                                "eta_drift": drift, "momentum": mom,
+                                "launches": ran}
+        print(f"[4r] sw_aug lake at rest {n}^2 {tname} to t=0.05: "
+              f"{loop['attempts']} attempted steps, {ran['step2_aos']} "
+              f"step2_aos launches the card ran; max |eta - 1| {drift:.3e}, "
+              f"max |hu|, |hv| {mom:.3e} (tol {tol})", flush=True)
+        if not (drift <= tol and mom <= tol):
+            fail(f"[4r] lake at rest {tname}: {out[f'lake_{tname}']}")
+        del claw
+    claw, status, wall, counts, ran = counted_run(
+        lambda: run_example(dev, "dam_break_dry", np.float32, 0.5,
+                            keep_copy=True, nx=n_dam, dimension=2))
+    loop = check_path_launches("[4r] dam_break_dry 2D", claw, status,
+                               counts, "step2_aos", 1, ran=ran)
+    frames = claw.frames
+    mass0 = float(np.sum(frames[0].q[0], dtype=np.float64))
+    hmin = min(float(f.q[0].min()) for f in frames)
+    mass = max(abs(float(np.sum(f.q[0], dtype=np.float64)) - mass0) / mass0
+               for f in frames)
+    rec = {"accepted": status["numsteps"], "rejected": status["numrejected"],
+           "wall_s_counted": wall, "launches": ran, "loop": loop,
+           "frames": [f.t for f in frames], "h_min": hmin,
+           "mass_change": mass}
+    print(f"[4r] dam_break_dry dimension=2 {n_dam}^2 f32 to "
+          f"t={claw.solution.t}: {rec['accepted']} accepted + "
+          f"{rec['rejected']} rejected steps, {ran['step2_aos']} step2_aos "
+          f"launches the card ran ({ran}), {wall:.3f} s wall; min h over "
+          f"the frames {hmin!r} (h >= 0: {hmin >= 0.0}; the JAX package's "
+          f"own run {DAM2D_JAX_MIN_H}), mass change {mass:.3e} (tol "
+          f"{DAM_MASS_TOL['float32']})", flush=True)
+    if not (np.all(np.isfinite(claw.solution.q))
+            and hmin >= DAM2D_JAX_MIN_H
+            and mass <= DAM_MASS_TOL["float32"]
+            and abs(claw.solution.t - 0.5) <= 1e-12):
+        fail(f"[4r] dam_break_dry 2D: {rec}")
+    out["dam_break_dry_2d"] = rec
+    return out
+
+
+def card_vs_cpu_new(dev):
+    """[5x]: the card against the CPU's plain path in float64 (equal steps,
+    q to CARD_VS_CPU_TOL of max|q|): shock_bubble at 80x20 to t=0.1,
+    classic and SharpClaw, and dam_break_dry with dimension=2 at 40^2 to
+    t=0.5 (h >= 0 exactly in the card's final state); the dam break to
+    t=2.0 is reported, not held (DAM2D_CONDITIONED_T)."""
+    out = {}
+    for label, module, tfinal, kw in (
+            ("shock_bubble classic", "shock_bubble", 0.1,
+             dict(mx=80, my=20)),
+            ("shock_bubble sharpclaw", "shock_bubble", 0.1,
+             dict(mx=80, my=20, solver_type="sharpclaw")),
+            ("dam_break_dry 2D", "dam_break_dry", 0.5,
+             dict(nx=40, dimension=2)),
+            ("dam_break_dry 2D (conditioned)", "dam_break_dry",
+             DAM2D_CONDITIONED_T, dict(nx=40, dimension=2))):
+        runs = {}
+        for where in (dev, "cpu"):
+            c, st, w = run_example(where, module, np.float64, tfinal, **kw)
+            runs[str(where)] = (c.solution.q, (st["numsteps"],
+                                               st["numrejected"]), w)
+        (q_k, s_k, w_k), (q_c, s_c, w_c) = runs[str(dev)], runs["cpu"]
+        rel = float(np.abs(q_k - q_c).max() / np.abs(q_c).max())
+        out[label] = {"max_rel": rel, "steps_card": s_k, "steps_cpu": s_c,
+                      "wall_card_s": w_k, "wall_cpu_s": w_c}
+        print(f"[5x] {label} f64 to t={tfinal} card vs cpu: max rel "
+              f"{rel:.3e} (tol {CARD_VS_CPU_TOL}), steps card {s_k}, cpu "
+              f"{s_c}; wall card {w_k:.3f} s, cpu {w_c:.3f} s", flush=True)
+        if module == "dam_break_dry":
+            out[label]["min_h"] = float(q_k[0].min())
+            out[label]["min_h_cpu"] = float(q_c[0].min())
+        if tfinal == DAM2D_CONDITIONED_T:
+            print(f"    (reported, not held: the run is ill-conditioned; min h "
+                  f"card {out[label]['min_h']:.4e}, cpu "
+                  f"{out[label]['min_h_cpu']:.4e})", flush=True)
+            continue
+        if not (s_k == s_c and rel <= CARD_VS_CPU_TOL
+                and out[label].get("min_h", 0.0) >= 0.0):
+            fail(f"[5x] {label}: {out[label]}")
+    return out
+
+
+def timing_dq_euler5(dev, n=1024):
+    """[6]: the Euler 5-wave instance of dq2_weno5, its plain version and
+    its bound on the shock-bubble state at 2n x n/2 (the cells of n^2;
+    ops/time_kernels.py:dq_euler5_case)."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc, args, rp = dq_euler5_case(n, dtype, dev)
+        dt, h, _, params = args
+
+        def kern():
+            return tiled2d.dq_rows(qbc, *args, rp=rp)
+
+        def plain():
+            return sc_soa.dq_2d_soa(qbc, dt, h, h, rp.rpn_soa, params, 5, 3,
+                                    positivity=rp.positivity,
+                                    flux_soa=rp.flux_soa)
+
+        ms = time_ms(kern, 100)
+        plain_ms = time_ms(plain, 10, warm=2)
+        ms_again = time_ms(kern, 100)
+        dev_ms, dev_n = device_ms_per_call(kern, "dq2_weno5_kernel", 20)
+        item = qbc.element_size()
+        cells = (qbc.shape[1] - 6) * (qbc.shape[2] - 6)
+        b = bound_of(qbc.numel() * item + 5 * cells * item,
+                     FLOPS_PER_CELL_DQ_EULER5[tname] * cells, tname)
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, "shape": list(qbc.shape), **b}
+        print(f"  timing dq euler5 {tuple(qbc.shape)} {tname}: kernel "
+              f"{ms:.4f} ms (repeat {ms_again:.4f}; on the device {dev_ms} "
+              f"ms, {dev_n} launches profiled), plain {plain_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
+    return out
+
+
 # ---- the parallel overlay: [4m] NCCL with one rank, [4n] four ranks -------
 
 # [4n]'s runs: name -> (the example module, its setup keywords, the
@@ -3457,6 +4094,22 @@ def main():
           f"{lib_s1.step1_blocks_per_sm(1)} (f64); weno5 (large tile) "
           f"{lib_w5.weno5_blocks_per_sm(0)} blocks of 128 threads (f32), "
           f"{lib_w5.weno5_blocks_per_sm(1)} (f64)", flush=True)
+    smem_new = {name: [lib_aos.step2_aos_smem_bytes(sid, c, d)
+                       for d in (0, 1) for c in (0, 1)]
+                for name, sid in (("Euler 4-wave", 3), ("Euler 5-wave", 4),
+                                  ("sw_aug_2D", 5))}
+    print(f"    the instances of this slice: step2_aos shared memory "
+          f"(f32 without and with capacity, then f64) {smem_new} B; blocks "
+          f"per SM (the launch bound) Euler "
+          f"{lib_aos.step2_aos_system_blocks_per_sm(3, 0)} (f32), "
+          f"{lib_aos.step2_aos_system_blocks_per_sm(3, 1)} (f64), sw_aug_2D "
+          f"{lib_aos.step2_aos_system_blocks_per_sm(5, 0)} (f32), "
+          f"{lib_aos.step2_aos_system_blocks_per_sm(5, 1)} (f64); dq2_weno5 "
+          f"Euler 5-wave {dq_lib.dq2_weno5_euler5_smem_bytes(0)} B (f32), "
+          f"{dq_lib.dq2_weno5_euler5_smem_bytes(1)} B (f64), resident "
+          f"{dq_lib.dq2_weno5_euler5_blocks_per_sm(0)} (f32), "
+          f"{dq_lib.dq2_weno5_euler5_blocks_per_sm(1)} (f64) blocks per SM",
+          flush=True)
     for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
@@ -3587,6 +4240,31 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3k"] = time.perf_counter() - t0
 
+    # [3l] step2_aos's Euler 4-wave, Euler 5-wave and sw_aug_2D instances
+    # against their plain version
+    t0 = time.perf_counter()
+    aosn_worst, aosn_worst_cfl, aosn_abs, aosn_ncase = compare_aos_new(dev)
+    print(f"[3l] step2_aos vs plain (Euler 4-wave, Euler 5-wave, sw_aug_2D):"
+          f" {aosn_ncase} cases, max rel err f32 "
+          f"{aosn_worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{aosn_worst['float64']:.3e} (tol {TOL_REL['float64']}); max cfl "
+          f"rel f32 {aosn_worst_cfl['float32']:.3e}, f64 "
+          f"{aosn_worst_cfl['float64']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3l"] = time.perf_counter() - t0
+
+    # [3m] dq2_weno5's Euler 5-wave instance against its plain version, on
+    # [3b]'s grids
+    t0 = time.perf_counter()
+    dq5_worst, dq5_main_abs_err, dq5_ncase = compare_dq_euler5(
+        dev, grids + [(7, 5), (600, 700)])
+    print(f"[3m] dq2_weno5 euler5 vs plain: {dq5_ncase} cases, max rel err "
+          f"f32 {dq5_worst['float32']:.3e} (tol {TOL_REL['float32']}, or "
+          f"{ULP_FACTOR} x the one-ulp sensitivity on the fallback states), "
+          f"f64 {dq5_worst['float64']:.3e} (tol {TOL_REL['float64']}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3m"] = time.perf_counter() - t0
+
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
         if nr < 1:
@@ -3616,6 +4294,7 @@ def main():
           f"({ran}; the wrappers' counts {counts}), {wall:.3f} s wall "
           f"with the device counters; device loop {loop4}", flush=True)
     check_run("classic main path", claw, ns, nr)
+    q_soa = claw.solution.q.copy()
 
     # [4b] the SharpClaw path (WENO5 + SSP104), every launch count set to 0
     # just before it and read just after
@@ -3784,6 +4463,19 @@ def main():
     routes = sharpclaw_routes(dev)
     phase_s["4p"] = time.perf_counter() - t0
 
+    # [4q] the slice's path: shock_bubble classic (2048x512) and SharpClaw
+    # (1024x256); the quadrants off the SoA route beside [4]'s run; [4r]
+    # the sw_aug_2D runs; every launch count set to 0 just before each run
+    # and read just after
+    t0 = time.perf_counter()
+    bubble = shock_bubble_path(dev)
+    routes_q = quadrants_routes(dev, q_soa, (ns, nr))
+    del q_soa
+    phase_s["4q"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    swaug = sw_aug_paths(dev)
+    phase_s["4r"] = time.perf_counter() - t0
+
     # [4m] the parallel overlay in a world of one NCCL rank against [4c];
     # [4n] four ranks against the serial runs, every launch count of each
     # rank set to 0 just before each run and read just after
@@ -3844,6 +4536,12 @@ def main():
     sharp_vs_cpu = sharp_card_vs_cpu(dev)
     phase_s["5b"] = time.perf_counter() - t0
 
+    # [5x] shock_bubble and the 2D dry dam break on the card against the
+    # same runs on the CPU
+    t0 = time.perf_counter()
+    new_vs_cpu = card_vs_cpu_new(dev)
+    phase_s["5x"] = time.perf_counter() - t0
+
     # [4h] the device loop against the host loop on every main path; [4i]
     # gauges and before_step on the card against the CPU
     t0 = time.perf_counter()
@@ -3870,6 +4568,9 @@ def main():
     tm_rs = timing_restore(dev)
     tm_dq_ac = timing_dq_acoustics(dev)
     tm_w5_3d = timing_weno5_3d(dev)
+    tm_aos_new = {name: timing_aos(dev, system=name)
+                  for name in (EULER4, EULER5, SW_AUG)}
+    tm_dq_e5 = timing_dq_euler5(dev)
     prof = profile_loops(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
@@ -4221,9 +4922,60 @@ def main():
         "max_rel_err_f64": w3_worst["float64"],
         "max_rel_err_f32": w3_worst["float32"],
     }
+    new_records = []
+    for name, launches, source in (
+            (EULER4, routes_q["launches"]["step2_aos"],
+             "pyclaw_tpu_torch/csrc/euler2d_aos.cuh"),
+            (EULER5, bubble["classic"]["launches"]["step2_aos"],
+             "pyclaw_tpu_torch/csrc/euler2d_aos.cuh"),
+            (SW_AUG, swaug["radial_bump"]["launches"]["step2_aos"],
+             "pyclaw_tpu_torch/csrc/sw_aug2d.cuh")):
+        t32, t64 = tm_aos_new[name]["float32"], tm_aos_new[name]["float64"]
+        new_records.append({
+            "name": f"step2_aos:{name}", "route": "cuda",
+            "source": "pyclaw_tpu_torch/csrc/step2_aos.cu",
+            "system_source": source,
+            "replaces": "pyclaw_tpu/ops/tiled2d.py:113",
+            "replaces_function": "step2_pallas_rows (generic body "
+                                 "classic/kernels.py:345 step2_roll; the "
+                                 "SoA body classic/soa.py for Euler without "
+                                 "aux); step2_pallas_tiled_generic "
+                                 "(ops/tiled2d.py:609); step2_pallas "
+                                 "(ops/sweep2d.py:41)",
+            "rows": ["1b"], "launches": launches,
+            "max_abs_err": aosn_abs[name],
+            "ms": t32["ms"], "device_ms": t32["device_ms"],
+            "plain_ms": t32["plain_ms"],
+            "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+            "library_ms": None, "shape": t32["shape"], "dtype": "float32",
+            "ms_f64": t64["ms"], "device_ms_f64": t64["device_ms"],
+            "plain_ms_f64": t64["plain_ms"],
+            "bound_ms_f64": t64["bound_ms"],
+            "bound_by_f64": t64["bound_by"],
+            "max_rel_err_f64": aosn_worst["float64"],
+            "max_rel_err_f32": aosn_worst["float32"]})
+    e32, e64 = tm_dq_e5["float32"], tm_dq_e5["float64"]
+    new_records.append({
+        "name": "dq2_weno5:euler_5wave_2D", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/dq2_weno5.cu",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:314",
+        "replaces_function": "dq_pallas_rows (body sharpclaw/soa.py:237 "
+                             "with euler_5wave_2D's SoA hooks)",
+        "rows": ["2"],
+        "launches": bubble["sharpclaw"]["launches"]["dq2_weno5"],
+        "max_abs_err": dq5_main_abs_err,
+        "ms": e32["ms"], "device_ms": e32["device_ms"],
+        "plain_ms": e32["plain_ms"],
+        "bound_ms": e32["bound_ms"], "bound_by": e32["bound_by"],
+        "library_ms": None, "shape": e32["shape"], "dtype": "float32",
+        "ms_f64": e64["ms"], "device_ms_f64": e64["device_ms"],
+        "plain_ms_f64": e64["plain_ms"],
+        "bound_ms_f64": e64["bound_ms"], "bound_by_f64": e64["bound_by"],
+        "max_rel_err_f64": dq5_worst["float64"],
+        "max_rel_err_f32": dq5_worst["float32"]})
     kernels = [record, dq_record, dq_ac_record, s3_record, aos_record,
                aos_ac_record, s1_record, s1_sw_record, w5_record,
-               w5_3d_record, het_record, eu_record, rs_record]
+               w5_3d_record, het_record, eu_record, rs_record] + new_records
     summary = {"main_path": {"accepted": ns, "rejected": nr,
                              "wall_s_counted": wall, "loop": loop4},
                "sharpclaw_path": {"accepted": sns, "rejected": snr,
@@ -4254,6 +5006,10 @@ def main():
                "sharpclaw_routes": routes,
                "sharpclaw3d_card_vs_cpu": sharp3d_vs_cpu,
                "timing_dq_acoustics": tm_dq_ac,
+               "shock_bubble_path": bubble,
+               "quadrants_off_soa": routes_q, "sw_aug_paths": swaug,
+               "new_card_vs_cpu": new_vs_cpu,
+               "timing_aos_new": tm_aos_new, "timing_dq_euler5": tm_dq_e5,
                "timing_weno5_3d": tm_w5_3d,
                "profile_sharpclaw_euler3d": prof_s3,
                "overlay_nccl_one_rank": overlay_one,

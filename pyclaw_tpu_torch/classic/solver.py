@@ -128,8 +128,8 @@ class ClawSolver2D(ClawSolver):
             return step_fn
 
         # the generic AoS step (any system with AoS hooks; on the card the
-        # systems of tiled2d.AOS_SYSTEMS: shallow water and acoustics, the
-        # wrapper raises for others)
+        # systems of tiled2d.AOS_SYSTEMS: shallow water, acoustics and the
+        # Euler 4- and 5-wave systems, the wrapper raises for others)
         rp = self.rp
         if rp.rp is None or rp.rpt is None:
             raise _not_ported("generic AoS 2D step")
@@ -149,10 +149,12 @@ class ClawSolver2D(ClawSolver):
         """The JAX package's test (``classic/solver.py:387-398``): the SoA
         CTU step covers the no-aux / no-capacity / wave-form case of a
         solver with SoA hooks.  The port's SoA kernel (``csrc/
-        step2_ctu.cu``) covers the Euler 4-wave system only: acoustics_2D,
-        which has SoA hooks too and runs on the JAX package's SoA body,
-        takes the generic route here (``csrc/step2_aos.cu``, the same
-        step)."""
+        step2_ctu.cu``) covers the Euler 4-wave system only:
+        ``acoustics_2D`` and ``euler_5wave_2D``, which have SoA hooks too
+        and run on the JAX package's SoA body, take the generic route here
+        (``csrc/step2_aos.cu``, the same step to roundoff), as the Euler
+        4-wave system does with aux, a capacity function, f-waves or
+        ``use_soa=False``."""
         if self.use_soa is False:
             return False
         return (self.rp.rpn_soa is not None

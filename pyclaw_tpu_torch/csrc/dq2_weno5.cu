@@ -1,9 +1,11 @@
 // dq2_weno5.cu — one SharpClaw semidiscrete evaluation (WENO5, Roe,
 // per-system flux) of a 2D system, one launch per RK stage, for Hopper
-// (sm_90a).  Two systems, each a template instance of its own (a system
+// (sm_90a).  Three systems, each a template instance of its own (a system
 // struct gives NEQ, NW, Par and make_par, admissible, nz, waves, speeds
-// and flux): the Euler 4-wave system (Euler4, the entries dq2_weno5_*) and
-// constant-coefficient acoustics_2D (Acoustics, dq2_weno5_acoustics_*).
+// and flux): the Euler 4-wave system (Euler4, the entries dq2_weno5_*),
+// constant-coefficient acoustics_2D (Acoustics, dq2_weno5_acoustics_*)
+// and the Euler 5-wave system with its passive tracer (Euler5,
+// dq2_weno5_euler5_*).
 //
 // Replaces the TPU kernel pyclaw_tpu/ops/tiled2d.py:dq_pallas_rows
 // (pallas_call at :415) with its SoA body sharpclaw/soa.py:dq_2d_soa_roll.
@@ -14,6 +16,14 @@
 // SoA hooks, which it is held against on the card (chip_smoke.py [3b],
 // [3j]) and, through the host emulation at the end of this file, on the
 // CPU (tests/test_torch_sharpclaw_kernel.py, tests/test_torch_sharpclaw_nd.py).
+//
+// The Euler 5-wave instance (added after the acoustics one): Euler4's
+// algebra on the first four components and the tracer of
+// riemann/euler.py's _rpn2_euler_soa and _flux_euler_2d_soa (tracer=True):
+// 5 equations and 5 waves, the positivity fallback on rho and p only.
+// Its block takes 60,752 B (f32) / 121,504 B (f64) of shared memory, so
+// f64 runs one block an SM.  Measured on the shock bubble at 2048x512
+// (PERF.md section 6; H100, 700 W): 0.23 / 1.01 ms (f32 / f64).
 //
 // The acoustics instance (added after the Euler one was redesigned): 3
 // equations, 2 waves of the constant speeds -c and +c whose transverse
@@ -185,6 +195,77 @@ struct Euler4 {
   template <int IXY, typename T>
   static HD void flux(const EulerPar<T>& P, const T q[4], T f[4]) {
     flux_2d<IXY>(P.g1, q, f);
+  }
+};
+
+// ---- euler_5wave_2D: q = (rho, rho u, rho v, E, rho phi) ----------------
+// Euler4's algebra for the first four components (roe_2d, the waves of
+// roe_waves, flux_2d), and the passive tracer of _rpn2_euler_soa(tracer)
+// and _flux_euler_2d_soa(tracer): phi_hat from sqrt(rho) (not the rsqrt
+// form), the tracer parts of the waves that carry density, a fifth wave
+// of speed u, and the flux u q[4] with u as flux_2d's form computes it
+struct Euler5 {
+  static constexpr int NEQ = 5, NW = 5;
+  template <typename T> using Par = EulerPar<T>;
+  template <typename T> static EulerPar<T> make_par(double p0, double) {
+    EulerPar<T> P;
+    P.g1 = T(p0);
+    return P;
+  }
+  // positivity on rho and p (the tracer is not tested)
+  template <typename T>
+  static HD bool admissible(const EulerPar<T>& P, const T q[5]) {
+    return euler_admissible(P.g1, q);
+  }
+  // the shear wave (p = 2) has the transverse momentum and the energy
+  // only, the tracer wave (p = 4) the tracer only: the plain version's
+  // None components
+  template <int IXY> static HD constexpr bool nz(int p, int e) {
+    return p == 2 ? (e == 2 - IXY || e == 3) : (p == 4 ? e == 4 : true);
+  }
+  template <int IXY, typename T>
+  static HD void waves(const EulerPar<T>& P, const T ql[5], const T qr[5],
+                       T w[5][5], T s[5]) {
+    const Roe<T> rs = roe_2d<IXY>(P.g1, ql, qr);
+    T w4[4][4], s4[4];
+    roe_waves<IXY>(rs, w4, s4);
+    const T srl = sqrt_(ql[0]), srr = sqrt_(qr[0]);
+    const T phat = (srl * (ql[4] / ql[0]) + srr * (qr[4] / qr[0]))
+                   / (srl + srr);
+    for (int p = 0; p < 4; ++p) {
+      for (int e = 0; e < 4; ++e) w[p][e] = w4[p][e];
+      s[p] = s4[p];
+    }
+    w[0][4] = rs.a1 * phat;
+    w[1][4] = rs.a3 * phat;
+    w[2][4] = T(0);
+    w[3][4] = rs.a4 * phat;
+    for (int e = 0; e < 4; ++e) w[4][e] = T(0);
+    w[4][4] = (qr[4] - ql[4]) - phat * (qr[0] - ql[0]);
+    s[4] = rs.u;
+  }
+  template <int IXY, typename T>
+  static HD void speeds(const EulerPar<T>& P, const T ql[5], const T qr[5],
+                        T s[5]) {
+    const Roe<T> rs = roe_2d<IXY>(P.g1, ql, qr);
+    s[0] = rs.u - rs.a;
+    s[1] = rs.u;
+    s[2] = rs.u;
+    s[3] = rs.u + rs.a;
+    s[4] = rs.u;
+  }
+  template <int IXY>
+  static HD void flux(const EulerPar<double>& P, const double q[5],
+                      double f[5]) {
+    flux_2d<IXY>(P.g1, q, f);
+    f[4] = (q[1 + IXY] / q[0]) * q[4];
+  }
+  template <int IXY>
+  static HD void flux(const EulerPar<float>& P, const float q[5],
+                      float f[5]) {
+    flux_2d<IXY>(P.g1, q, f);
+    const float rinv = 1.0f / q[0];
+    f[4] = (q[1 + IXY] * rinv) * q[4];
   }
 };
 
@@ -632,6 +713,10 @@ int dq2_weno5_acoustics_smem_bytes(int is_double) {
   return is_double ? (int)Layout<Acoustics, double>::bytes
                    : (int)Layout<Acoustics, float>::bytes;
 }
+int dq2_weno5_euler5_smem_bytes(int is_double) {
+  return is_double ? (int)Layout<Euler5, double>::bytes
+                   : (int)Layout<Euler5, float>::bytes;
+}
 
 // One SharpClaw dq.  qbc: (NEQ, nxg, nyg) ghost-padded (3 ghost cells), dq:
 // (NEQ, nxg-6, nyg-6), cflb: dq2_weno5_blocks(...) partial CFL maxima; all
@@ -653,6 +738,20 @@ int dq2_weno5_f64(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
                   void* stream) {
   return launch<Euler4, double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, 0.0,
                                 stream);
+}
+
+int dq2_weno5_euler5_f32(const void* qbc, void* dq, void* cflb, int nxg,
+                         int nyg, const double* dt, double dx, double dy,
+                         double g1, void* stream) {
+  return launch<Euler5, float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1, 0.0,
+                               stream);
+}
+
+int dq2_weno5_euler5_f64(const void* qbc, void* dq, void* cflb, int nxg,
+                         int nyg, const double* dt, double dx, double dy,
+                         double g1, void* stream) {
+  return launch<Euler5, double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1,
+                                0.0, stream);
 }
 
 int dq2_weno5_acoustics_f32(const void* qbc, void* dq, void* cflb, int nxg,
@@ -679,6 +778,10 @@ int dq2_weno5_acoustics_blocks_per_sm(int is_double) {
   return is_double ? blocks_per_sm<Acoustics, double>()
                    : blocks_per_sm<Acoustics, float>();
 }
+int dq2_weno5_euler5_blocks_per_sm(int is_double) {
+  return is_double ? blocks_per_sm<Euler5, double>()
+                   : blocks_per_sm<Euler5, float>();
+}
 #else
 int dq2_weno5_host_f32(const void* qbc, void* dq, void* cflb, int nxg,
                        int nyg, const double* dt, double dx, double dy,
@@ -692,6 +795,20 @@ int dq2_weno5_host_f64(const void* qbc, void* dq, void* cflb, int nxg,
                        double g1) {
   return launch_host<Euler4, double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1,
                                      0.0);
+}
+
+int dq2_weno5_euler5_host_f32(const void* qbc, void* dq, void* cflb,
+                              int nxg, int nyg, const double* dt, double dx,
+                              double dy, double g1) {
+  return launch_host<Euler5, float>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, g1,
+                                    0.0);
+}
+
+int dq2_weno5_euler5_host_f64(const void* qbc, void* dq, void* cflb,
+                              int nxg, int nyg, const double* dt, double dx,
+                              double dy, double g1) {
+  return launch_host<Euler5, double>(qbc, dq, cflb, nxg, nyg, dt, dx, dy,
+                                     g1, 0.0);
 }
 
 int dq2_weno5_acoustics_host_f32(const void* qbc, void* dq, void* cflb,

@@ -1,7 +1,8 @@
 // step2_aos.cu — the whole 2D unsplit classic (CTU) step of the generic
 // AoS form, one launch per step, for Hopper (sm_90a): any registered
-// system of csrc/shallow2d.cuh or csrc/acoustics2d.cuh, with aux arrays, a
-// capacity function and the f-wave correction form.
+// system of csrc/shallow2d.cuh, csrc/acoustics2d.cuh, csrc/euler2d_aos.cuh
+// or csrc/sw_aug2d.cuh, with aux arrays, a capacity function and the
+// f-wave correction form.
 //
 // Replaces the TPU kernels that run the generic body
 // pyclaw_tpu/classic/kernels.py:step2 (and its roll form step2_roll):
@@ -63,6 +64,19 @@
 // The gathered sums keep the first port's order: each flux takes its cq,
 // then the sum of the parts of amdq, then that of apdq.
 //
+// The Euler 4- and 5-wave systems and sw_aug_2D (added after the
+// redesign) keep the design.  Their Args take one limiter id per wave
+// (five for the 5-wave system; the first three systems' Args keep their
+// three, so their code is unchanged: the same SASS and bits as before,
+// ops/time_kernels.py step2_aos against the earlier build).  Euler stages
+// four per-cell quantities (six with the tracer), so a block takes 69 KB
+// (93 KB) of shared memory in f32 and 137 KB (184 KB) in f64: the launch
+// bound is 2 blocks an SM in f32 (the registers of 3 would spill) and 1
+// in f64 (PerSm); the tile is every system's.  Measured at 1024^2 (the
+// quadrants, the shock bubble at 2048x512, the radial bump; PERF.md
+// section 6; H100, 700 W): Euler 4-wave 0.18 / 0.65 ms, Euler 5-wave
+// 0.26 / 0.87 ms, sw_aug_2D 0.18 / 0.50 ms (f32 / f64).
+//
 // Phases (each a loop of the block's threads over one or two regions,
 // separated by barriers):
 //   load      q, aux, kappa tile + halo -> shared (indices clamped to the
@@ -96,7 +110,9 @@
 #include "acoustics2d.cuh"
 #include "async_copy.cuh"
 #include "dt_coef.cuh"
+#include "euler2d_aos.cuh"
 #include "shallow2d.cuh"
+#include "sw_aug2d.cuh"
 #include "tvd.cuh"
 
 namespace {
@@ -116,6 +132,20 @@ template <> struct Shape<float> {
 };
 template <> struct Shape<double> {
   static constexpr int TX = 11, TY = 16, PER_SM = 2;
+};
+// Blocks per SM of system S (the launch bound): Shape's, but for the
+// Euler systems, whose shared memory (66-91 KB a block in f32, 134-181 KB
+// in f64) leaves room for 2 blocks in f32 (3 for 4 waves, which the
+// registers of 3 would not hold without spills) and 1 in f64; the tile is
+// the same for every system
+template <typename S, typename T> struct PerSm {
+  static constexpr int value = Shape<T>::PER_SM;
+};
+template <int NE> struct PerSm<EulerAoS2D<NE>, float> {
+  static constexpr int value = 2;
+};
+template <int NE> struct PerSm<EulerAoS2D<NE>, double> {
+  static constexpr int value = 1;
 };
 
 template <typename S, typename T, int TX, int TY, bool CAPA> struct Tile {
@@ -145,7 +175,9 @@ enum { F_AM = 0, F_AP = 1, F_CQ = 2, F_SB = 3 };
 // the rpt2 parts in P (times NEQ): bm, bp of amdq(+cq), of apdq(-cq)
 enum { F_T0 = 0, F_T1 = 1, F_T2 = 2, F_T3 = 3 };
 
-template <typename T, typename Par> struct Args {
+// NL limiter ids: one per wave, three for the systems of fewer waves (the
+// Args of the first three systems, as they were before the Euler ones)
+template <typename T, typename Par, int NL> struct Args {
   const T* qbc;
   const T* aux;
   T* qout;
@@ -158,19 +190,22 @@ template <typename T, typename Par> struct Args {
   T* C;                 // the block's coefficients of dt (shared memory)
   Par P;                // the system's physics scalars (S::Par<T>)
   int order, tw;
-  int lim[3];
+  int lim[NL];
 };
+
+// the limiter ids of system S's Args
+template <typename S> constexpr int nlim() { return S::NW > 3 ? S::NW : 3; }
 
 // the arguments of a step of system S in type T
 template <typename S, typename T>
-using SysArgs = Args<T, typename S::template Par<T>>;
+using SysArgs = Args<T, typename S::template Par<T>, nlim<S>()>;
 
 // The coefficients of dt in Args::C: dt/dx, dt/dy, 0.5 dt/dx, 0.5 dt/dy,
 // the plain version's Python floats rounded once to T (dt_coef.cuh)
 enum { C_DTDX = 0, C_DTDY = 1, C_HDX = 2, C_HDY = 3, NCOEF = 4 };
 
-template <typename T, typename Par>
-HD T dt_coef(const Args<T, Par>& A, int k) {
+template <typename T, typename Par, int NL>
+HD T dt_coef(const Args<T, Par, NL>& A, int k) {
   const double q = *A.dt / (k % 2 == 0 ? A.ddx : A.ddy);
   return T(k < C_HDX ? q : 0.5 * q);
 }
@@ -600,11 +635,11 @@ SysArgs<S, T> make_args(const void* qbc, const void* aux, void* qout,
   A.ddy = dy;
   A.C = nullptr;
   // the system's two physics scalars: (grav, dry_tolerance) for shallow
-  // water, (zz, cc) for acoustics
+  // water, (zz, cc) for acoustics, (gamma - 1, unused) for Euler
   A.P = S::template make_par<T>(p0, p1);
   A.order = order;
   A.tw = tw;
-  for (int p = 0; p < 3; ++p) A.lim[p] = lim[p];
+  for (int p = 0; p < nlim<S>(); ++p) A.lim[p] = lim[p];
   return A;
 }
 
@@ -636,7 +671,7 @@ struct DeviceRun {
 };
 
 template <typename S, typename T, int TX, int TY, bool CAPA, bool FWAVE>
-__global__ void __launch_bounds__(NT, Shape<T>::PER_SM)
+__global__ void __launch_bounds__(NT, PerSm<S, T>::value)
     step2_aos_kernel(SysArgs<S, T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T coef[NCOEF];
@@ -693,7 +728,10 @@ int launch(SysArgs<S, T> A, int nbx, int nby, void*) {
 // system ids of the C interface (ops/tiled2d.py:AOS_SYSTEMS); each a
 // template instance of its own
 enum { SYS_SHALLOW_ROE_EFIX = 0, SYS_SHALLOW_BATHY_FWAVE = 1,
-       SYS_ACOUSTICS_2D = 2 };
+       SYS_ACOUSTICS_2D = 2, SYS_EULER_4WAVE_2D = 3, SYS_EULER_5WAVE_2D = 4,
+       SYS_SW_AUG_2D = 5, NUM_SYSTEMS = 6 };
+// the limiter ids an entry takes (one per wave of the widest system)
+constexpr int NLIM_ENTRY = 5;
 
 template <typename T, typename S>
 int dispatch_flags(const SysArgs<S, T>& A, bool capa, bool fwave, int nbx,
@@ -724,6 +762,12 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
       return STEP2_AOS_SYSTEM(ShallowBathyFwave2D);
     case SYS_ACOUSTICS_2D:
       return STEP2_AOS_SYSTEM(Acoustics2D);
+    case SYS_EULER_4WAVE_2D:
+      return STEP2_AOS_SYSTEM(Euler4AoS2D);
+    case SYS_EULER_5WAVE_2D:
+      return STEP2_AOS_SYSTEM(Euler5AoS2D);
+    case SYS_SW_AUG_2D:
+      return STEP2_AOS_SYSTEM(SwAug2D);
     default:
       return -1;
   }
@@ -744,11 +788,22 @@ int step2_aos_blocks(int nxg, int nyg, int is_double) {
 }
 
 // Number of systems the build takes (system ids 0 .. this - 1).
-int step2_aos_num_systems() { return SYS_ACOUSTICS_2D + 1; }
+int step2_aos_num_systems() { return NUM_SYSTEMS; }
 
-// Blocks per SM the kernel is built for (reported by chip_smoke.py).
+// Number of limiter ids an entry takes.
+int step2_aos_limiter_ids() { return NLIM_ENTRY; }
+
+// Blocks per SM the kernel is built for (reported by chip_smoke.py): the
+// first three systems', and system's.
 int step2_aos_blocks_per_sm(int is_double) {
   return is_double ? Shape<double>::PER_SM : Shape<float>::PER_SM;
+}
+int step2_aos_system_blocks_per_sm(int system, int is_double) {
+  if (system == SYS_EULER_4WAVE_2D || system == SYS_EULER_5WAVE_2D) {
+    return is_double ? PerSm<Euler4AoS2D, double>::value
+                     : PerSm<Euler4AoS2D, float>::value;
+  }
+  return step2_aos_blocks_per_sm(is_double);
 }
 
 // Shared memory bytes per block (reported by chip_smoke.py).
@@ -758,30 +813,37 @@ int step2_aos_smem_bytes(int system, int capa, int is_double) {
       return smem_of<ShallowBathyFwave2D>(capa != 0, is_double != 0);
     case SYS_ACOUSTICS_2D:
       return smem_of<Acoustics2D>(capa != 0, is_double != 0);
+    case SYS_EULER_4WAVE_2D:
+      return smem_of<Euler4AoS2D>(capa != 0, is_double != 0);
+    case SYS_EULER_5WAVE_2D:
+      return smem_of<Euler5AoS2D>(capa != 0, is_double != 0);
+    case SYS_SW_AUG_2D:
+      return smem_of<SwAug2D>(capa != 0, is_double != 0);
     default:
       return smem_of<ShallowRoeEfix2D>(capa != 0, is_double != 0);
   }
 }
 
-// One CTU step.  qbc: (3, nxg, nyg) ghost-padded (2 ghost cells); aux:
-// (num_aux, nxg, nyg) or null when the system reads none and capa < 0;
-// qout: (3, nxg-4, nyg-4); cflb: step2_aos_blocks(...) partial CFL maxima;
+// One CTU step.  qbc: (NEQ, nxg, nyg) ghost-padded (2 ghost cells), NEQ
+// the system's; aux: (num_aux, nxg, nyg) or null when the system reads
+// none and capa < 0; qout: (NEQ, nxg-4, nyg-4); cflb:
+// step2_aos_blocks(...) partial CFL maxima;
 // all contiguous, of the type named by the entry.  system: SYS_*; capa:
 // aux row of the capacity function or -1; fwave: the f-wave correction
 // form; dt: the step in device memory (host memory for the host
 // emulation), a double that is exact in the entry's type; p0, p1: the
 // system's two physics scalars ((grav, dry_tolerance) for shallow water,
-// (zz, cc) for acoustics); l0..l2: the limiter ids of the waves (the
-// kernel reads the system's NW).  Returns a cudaError_t (0 on success),
-// or -1 for an unknown system.
+// (zz, cc) for acoustics, (gamma - 1, 0) for Euler); l0..l4: the limiter
+// ids of the waves (the kernel reads the system's NW).  Returns a
+// cudaError_t (0 on success), or -1 for an unknown system.
 #if defined(__CUDACC__)
 #define STEP2_AOS_ENTRY(NAME, T)                                             \
   int NAME(const void* qbc, const void* aux, void* qout, void* cflb,         \
            int nxg, int nyg, int system, int capa, int fwave,                \
            const double* dt,                                                 \
            double dx, double dy, double p0, double p1, int order, int tw,     \
-           int l0, int l1, int l2, void* stream) {                           \
-    const int lim[3] = {l0, l1, l2};                                         \
+           int l0, int l1, int l2, int l3, int l4, void* stream) {           \
+    const int lim[NLIM_ENTRY] = {l0, l1, l2, l3, l4};                        \
     return step<T>(qbc, aux, qout, cflb, nxg, nyg, system, capa, fwave, dt,  \
                    dx, dy, p0, p1, order, tw, lim, stream);                  \
   }
@@ -793,8 +855,8 @@ STEP2_AOS_ENTRY(step2_aos_f64, double)
            int nxg, int nyg, int system, int capa, int fwave,                \
            const double* dt,                                                 \
            double dx, double dy, double p0, double p1, int order, int tw,     \
-           int l0, int l1, int l2) {                                         \
-    const int lim[3] = {l0, l1, l2};                                         \
+           int l0, int l1, int l2, int l3, int l4) {                         \
+    const int lim[NLIM_ENTRY] = {l0, l1, l2, l3, l4};                        \
     return step<T>(qbc, aux, qout, cflb, nxg, nyg, system, capa, fwave, dt,  \
                    dx, dy, p0, p1, order, tw, lim, nullptr);                 \
   }

@@ -6,9 +6,15 @@ dry beach b = max(0, 0.4 (x - 1)), grav 9.8, dry_tolerance 1e-5,
 extrapolation BCs for q and aux, to t = 2.0): ``ClawSolver1D(sw_aug_1D)``
 with f-waves and the minmod limiter, cfl_desired 0.4, cfl_max 0.45
 (``csrc/step1.cu`` on a card).  Depths stay nonnegative through the
-wetting and the drying front.  ``setup()`` takes the JAX example's
-keywords plus ``device`` and ``dtype``; ``dimension=2`` (the radial analog
-on ``sw_aug_2D``) raises, naming its ROADMAP.md item.
+wetting and the drying front.  ``dimension=2`` runs the radial analog on
+[-5, 5]^2: ``ClawSolver2D(sw_aug_2D)`` with ``transverse_waves=0`` (the
+CTU corrections are not positivity-preserving over wetting and drying
+fronts), a column of depth 1 inside r = 0.5 and the beach b = max(0,
+0.4 (r - 1)) (``csrc/step2_aos.cu``'s sw_aug instance on a card); on
+fine grids its depths dip below 0, in the JAX package's run too
+(ROADMAP.md, Queue 3).
+``setup()`` takes the JAX example's keywords plus ``device`` and
+``dtype``.
 
     python -m pyclaw_tpu_torch.examples.dam_break_dry
 """
@@ -17,14 +23,18 @@ import numpy as np
 
 import pyclaw_tpu_torch as pyclaw
 from pyclaw_tpu_torch import riemann
-from pyclaw_tpu_torch.solver import _not_ported
 
 
 def setup(nx=500, dimension=1, outdir="./_output", dtype=None, device=None):
-    if dimension != 1:
-        raise _not_ported("sw_aug_2D")
-    solver = pyclaw.ClawSolver1D(riemann.sw_aug_1D, device=device)
-    domain = pyclaw.Domain([-5.0], [5.0], [nx])
+    if dimension == 1:
+        solver = pyclaw.ClawSolver1D(riemann.sw_aug_1D, device=device)
+        domain = pyclaw.Domain([-5.0], [5.0], [nx])
+    else:
+        solver = pyclaw.ClawSolver2D(riemann.sw_aug_2D, device=device)
+        # donor-cell corners: the CTU transverse corrections are not
+        # positivity-preserving over wetting and drying fronts
+        solver.transverse_waves = 0
+        domain = pyclaw.Domain([-5.0, -5.0], [5.0, 5.0], [nx, nx])
     solver.fwave = True
     solver.limiters = [pyclaw.limiters.tvd.minmod]
     solver.cfl_desired = 0.4
@@ -37,11 +47,19 @@ def setup(nx=500, dimension=1, outdir="./_output", dtype=None, device=None):
     state.problem_data["grav"] = 9.8
     state.problem_data["dry_tolerance"] = 1e-5
 
-    x = domain.grid.x.centers
-    beach = np.maximum(0.0, 0.4 * (x - 1.0))       # dry beach x > 1
-    state.aux[0] = beach
-    state.q[0] = np.where(x < 0.0, 1.0, 0.0)       # dam at x = 0
-    state.q[1] = 0.0
+    if dimension == 1:
+        x = domain.grid.x.centers
+        beach = np.maximum(0.0, 0.4 * (x - 1.0))       # dry beach x > 1
+        state.aux[0] = beach
+        state.q[0] = np.where(x < 0.0, 1.0, 0.0)       # dam at x = 0
+        state.q[1] = 0.0
+    else:
+        x, y = domain.grid.c_centers
+        r = np.sqrt(x ** 2 + y ** 2)
+        state.aux[0] = np.maximum(0.0, 0.4 * (r - 1.0))
+        state.q[0] = np.where(r < 0.5, 1.0, 0.0)
+        state.q[1] = 0.0
+        state.q[2] = 0.0
 
     claw = pyclaw.Controller()
     claw.solution = pyclaw.Solution(state, domain)

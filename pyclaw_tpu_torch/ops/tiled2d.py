@@ -8,8 +8,9 @@
 * :func:`dq_rows`, counterpart of ``dq_pallas_rows``: one launch of
   ``csrc/dq2_weno5.cu`` computes one SharpClaw WENO5 semidiscrete
   evaluation (one RK stage's dq) and one CFL maximum per block, for a
-  system of :data:`DQ_SYSTEMS` (Euler 4-wave and ``acoustics_2D``, each a
-  template instance of its own).  Plain version:
+  system of :data:`DQ_SYSTEMS` (Euler 4-wave, Euler 5-wave with its
+  tracer and ``acoustics_2D``, each a template instance of its own).
+  Plain version:
   ``sharpclaw/soa.py:dq_2d_soa`` with the system's SoA hooks.
 * :func:`step3_xy`, counterpart of ``step3_pallas_xy`` for Euler: one
   launch of ``csrc/step3_ctu.cu`` computes the whole 3D unsplit CTU step
@@ -21,9 +22,10 @@
   its generic-AoS body (``rpn_soa=None``), of ``step2_pallas_tiled_generic``
   and of ``ops/sweep2d.py:step2_pallas``: one launch of
   ``csrc/step2_aos.cu`` computes the whole unsplit CTU step of a system
-  of :data:`AOS_SYSTEMS` (the two shallow-water systems and
-  ``acoustics_2D``, each a template instance of its own, given its two
-  physics scalars by :func:`aos_system_params`), with aux arrays, a
+  of :data:`AOS_SYSTEMS` (the three shallow-water systems, ``acoustics_2D``
+  and the Euler 4- and 5-wave systems, each a template instance of its
+  own, given its two physics scalars by :func:`aos_system_params`), with
+  aux arrays, a
   capacity function and the f-wave form, for any (nx, ny).  Plain
   version: ``classic/kernels.py:step2``.
 * :func:`step3_xy_generic`, counterpart of ``step3_pallas_xy`` with its
@@ -68,7 +70,8 @@ DQ_ACOUSTICS_ARGTYPES = DQ_ARGTYPES + [ctypes.c_double]
 # rp.name -> (the prefix of its entries in csrc/dq2_weno5.cu, their
 # argument types)
 DQ_SYSTEMS = {"euler_4wave_2D": ("dq2_weno5", DQ_ARGTYPES),
-              "acoustics_2D": ("dq2_weno5_acoustics", DQ_ACOUSTICS_ARGTYPES)}
+              "acoustics_2D": ("dq2_weno5_acoustics", DQ_ACOUSTICS_ARGTYPES),
+              "euler_5wave_2D": ("dq2_weno5_euler5", DQ_ARGTYPES)}
 _VALID_LIMITERS = set(range(10)) | {16, 19, 20, 21} | set(CFL_LIMITER_IDS)
 
 
@@ -100,9 +103,17 @@ def bind_dq_lib(lib):
     return lib
 
 
+def dq_build_takes(lib, rp):
+    """Whether a build of ``csrc/dq2_weno5.cu`` (``lib``, a ctypes handle)
+    has the entries of system ``rp`` (an earlier build lacks the later
+    systems')."""
+    return getattr(lib, DQ_SYSTEMS[rp.name][0] + "_f32", None) is not None
+
+
 def dq_system_params(rp, params):
     """The physics scalars of the entries of ``csrc/dq2_weno5.cu`` for
-    system ``rp``: (gamma - 1,) for Euler, (zz, cc) for acoustics."""
+    system ``rp``: (gamma - 1,) for Euler (4- or 5-wave), (zz, cc) for
+    acoustics."""
     if rp.name == "acoustics_2D":
         zz, cc = acoustics._zc(params)
         return float(zz), float(cc)
@@ -359,20 +370,41 @@ step3_xy.device_launches = None
 # solver reads (NAUX))
 AOS_SYSTEMS = {"shallow_roe_with_efix_2D": (0, 0),
                "shallow_bathymetry_fwave_2D": (1, 1),
-               "acoustics_2D": (2, 0)}
-# qbc, aux, qout, cflb; nxg, nyg, system, capa, fwave; dt (a pointer), dx,
-# dy and the system's two physics scalars p0, p1 (aos_system_params);
-# order, tw and three limiter ids (the host emulation takes these, the
-# card's entries a stream after them)
-AOS_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                + [ctypes.c_void_p] + [ctypes.c_double] * 4
-                + [ctypes.c_int] * 5)
+               "acoustics_2D": (2, 0), "euler_4wave_2D": (3, 0),
+               "euler_5wave_2D": (4, 0), "sw_aug_2D": (5, 1)}
+# limiter ids an entry of csrc/step2_aos.cu takes (one per wave of its
+# widest system, Euler 5-wave; a build without step2_aos_limiter_ids, made
+# before the Euler systems, takes three)
+AOS_LIMITERS = 5
+
+
+def aos_argtypes(nlim=AOS_LIMITERS):
+    """The argument types of the entries of a build of ``csrc/step2_aos.cu``
+    that takes ``nlim`` limiter ids: qbc, aux, qout, cflb; nxg, nyg,
+    system, capa, fwave; dt (a pointer), dx, dy and the system's two
+    physics scalars p0, p1 (:func:`aos_system_params`); order, tw and the
+    limiter ids (the host emulation takes these, the card's entries a
+    stream after them)."""
+    return ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p] + [ctypes.c_double] * 4
+            + [ctypes.c_int] * (2 + nlim))
+
+
+AOS_ARGTYPES = aos_argtypes()
+
+
+def aos_limiter_count(lib):
+    """The limiter ids the entries of a build of ``csrc/step2_aos.cu``
+    (``lib``, a ctypes handle) take."""
+    count = getattr(lib, "step2_aos_limiter_ids", None)
+    return count() if count is not None else 3
 
 
 def bind_step2_aos_lib(lib):
     """Set the argument types of a ctypes handle of a build of
     ``csrc/step2_aos.cu``; returns it."""
-    _build.bind_dt(lib, ("step2_aos_f32", "step2_aos_f64"), AOS_ARGTYPES, 9)
+    _build.bind_dt(lib, ("step2_aos_f32", "step2_aos_f64"),
+                   aos_argtypes(aos_limiter_count(lib)), 9)
     lib.step2_aos_blocks.argtypes = [ctypes.c_int] * 3
     lib.step2_aos_blocks.restype = ctypes.c_int
     return lib
@@ -393,20 +425,23 @@ def aos_build_takes(lib, rp):
 
 def aos_system_params(rp, params):
     """The two physics scalars ``csrc/step2_aos.cu`` takes for system
-    ``rp``: (zz, cc) for acoustics, (grav, dry_tolerance) for shallow water
-    (dry_tolerance 1e-8 when problem_data has none, as in the JAX
-    package)."""
+    ``rp``: (zz, cc) for acoustics, (gamma - 1, 0) for Euler (gamma - 1.0
+    folded in double, as the plain version's Python scalar), (grav,
+    dry_tolerance) for shallow water (dry_tolerance 1e-8 when problem_data
+    has none, as in the JAX package)."""
     if rp.name == "acoustics_2D":
         zz, cc = acoustics._zc(params)
         return float(zz), float(cc)
+    if rp.name.startswith("euler_"):
+        return float(params["gamma"] - 1.0), 0.0
     return float(params["grav"]), float(params.get("dry_tolerance", 1e-8))
 
 
-def aos_limiter_ids(mthlim):
-    """The three limiter ids an entry of ``csrc/step2_aos.cu`` takes: one
-    per wave, padded with the last (the kernel reads the system's)."""
+def aos_limiter_ids(mthlim, nlim=AOS_LIMITERS):
+    """The ``nlim`` limiter ids an entry of ``csrc/step2_aos.cu`` takes:
+    one per wave, padded with the last (the kernel reads the system's)."""
     lims = [int(m) for m in mthlim]
-    return lims + [lims[-1]] * (3 - len(lims))
+    return lims + [lims[-1]] * (nlim - len(lims))
 
 
 def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
@@ -439,7 +474,7 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
         raise NotImplementedError(
             f"step2_rows_generic: {rp.name} has no kernel yet (ROADMAP.md, "
             f"Queue 2 item 8: '2D systems of step2_aos.cu')")
-    _check_cuda_qbc("step2_rows_generic", qbc, num_ghost, 3, 2)
+    _check_cuda_qbc("step2_rows_generic", qbc, num_ghost, rp.num_eqn, 2)
     _, nxg, nyg = qbc.shape
     system, naux = AOS_SYSTEMS[rp.name]
     aux_ptr = _check_cuda_aux(f"step2_rows_generic: {rp.name}", auxbc, qbc,
@@ -447,7 +482,7 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
     is_double = qbc.dtype == torch.float64
     lib = _aos_lib() if lib is None else lib
     q_out = _build.out_tensor("step2_rows_generic", out,
-                              (3, nxg - 4, nyg - 4), qbc)
+                              (rp.num_eqn, nxg - 4, nyg - 4), qbc)
     cfl_blocks = torch.empty((lib.step2_aos_blocks(nxg, nyg,
                                                    int(is_double)),),
                              dtype=qbc.dtype, device=qbc.device)
@@ -456,7 +491,8 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
     rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
             nxg, nyg, system, int(index_capa), int(bool(fwave)),
             dt_ptr, float(dx), float(dy), *aos_system_params(rp, params),
-            int(order), int(transverse_waves), *aos_limiter_ids(mthlim),
+            int(order), int(transverse_waves),
+            *aos_limiter_ids(mthlim, aos_limiter_count(lib)),
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"step2_aos launch failed: cudaError_t {rc}")

@@ -4,15 +4,19 @@ and the timers and timed cases that ``chip_smoke.py`` uses too.
     python -m pyclaw_tpu_torch.ops.time_kernels KERNEL VARIANT [VARIANT ...]
         [--out FILE] [--sass]
 
-KERNEL is ``step2_ctu``, ``dq2_weno5``, ``step3_ctu``, ``step3_aos``,
-``step2_aos`` (the shallow-water and the acoustics case),
+KERNEL is ``step2_ctu``, ``dq2_weno5`` (the Euler 4-wave and 5-wave
+cases), ``step3_ctu``, ``step3_aos``, ``step2_aos`` (the shallow-water,
+acoustics, Euler 4-wave, Euler 5-wave and sw_aug_2D cases),
 ``euler3d_capa`` (the source ``step3_ctu.cu`` on the
 Euler capacity path's case), ``step1`` or ``weno5``, timed through its
 wrapper in ``ops/tiled2d.py``, ``ops/sweep.py`` or ``ops/weno.py`` on the
 case that ``chip_smoke.py`` times (:func:`step2_ctu_case`,
-:func:`dq_case`, :func:`step3_ctu_case`, :func:`step3_aos_case`,
-:func:`step2_aos_case`, :func:`euler3d_capa_case`, :func:`step1_case`,
-:func:`weno5_case`).  The two 1D kernels are timed on two states at 2^20
+:func:`dq_case`, :func:`dq_euler5_case`, :func:`step3_ctu_case`,
+:func:`step3_aos_case`, :func:`step2_aos_case` and the other
+``step2_aos_*_case``, :func:`euler3d_capa_case`, :func:`step1_case`,
+:func:`weno5_case`); a case whose system a build lacks (an earlier
+build) leaves that build out of it.  The two 1D kernels are timed on
+two states at 2^20
 cells, the Sod tube's initial state (two constant states: all but one
 interface carry no wave) and a seeded smooth state (:func:`smooth_state`:
 every interface works), and on the Sod state at their path's shape (800
@@ -292,6 +296,76 @@ def step2_aos_acoustics_case(n, dtype, dev):
                  2, False, -1, 2, 2)
 
 
+def shock_bubble_state(nx, ny):
+    """q of examples.shock_bubble at nx x ny (a numpy array)."""
+    from ..examples import shock_bubble as ex
+    return ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.q
+
+
+def radial_bump_state(nx, ny):
+    """q and aux (the bottom) of examples.radial_bump_bathymetry at nx x
+    ny (numpy arrays)."""
+    from ..examples import radial_bump_bathymetry as ex
+    st = ex.setup(mx=nx, my=ny, outdir=None, device="cpu").solution.state
+    return st.q, st.aux
+
+
+def step2_aos_euler4_case(n, dtype, dev):
+    """step2_aos's Euler 4-wave instance's timed case at n^2: the
+    quadrants off the SoA route on their first state, the classic
+    quadrants path's configuration (no aux, dt = 0.2/n, dx = dy = 1/n,
+    gamma 1.4, van Leer, order 2, no f-waves, no capacity, 2 ghost cells,
+    transverse_waves 2)."""
+    from .. import riemann
+    qbc = padded(quadrants_state(n, n), dtype, dev)
+    h = 1.0 / n
+    return qbc, (None, _dt(0.2 * h, dtype, dev), h, h,
+                 riemann.euler_4wave_2D, {"gamma": 1.4}, (3,) * 4, 2, False,
+                 -1, 2, 2)
+
+
+def step2_aos_euler5_case(n, dtype, dev):
+    """step2_aos's Euler 5-wave instance's timed case at 2n x n/2 (the
+    cells of n^2), the shock-bubble path's configuration on its first
+    state: qbc (2 extrapolated ghost cells) and the rest of
+    ``tiled2d.step2_rows_generic``'s arguments (no aux, dt = 0.2 dx, dx =
+    dy = 1/n, gamma 1.4, MC, order 2, no f-waves, no capacity, 2 ghost
+    cells, transverse_waves 2)."""
+    from .. import riemann
+    qbc = padded(shock_bubble_state(2 * n, n // 2), dtype, dev)
+    h = 1.0 / n
+    return qbc, (None, _dt(0.2 * h, dtype, dev), h, h,
+                 riemann.euler_5wave_2D, {"gamma": 1.4}, (4,) * 5, 2, False,
+                 -1, 2, 2)
+
+
+def step2_aos_sw_aug_case(n, dtype, dev):
+    """step2_aos's sw_aug_2D instance's timed case at n^2, the radial-bump
+    path's configuration on its first state: qbc, auxbc (the bottom; 2
+    extrapolated ghost cells each) and the rest of
+    ``tiled2d.step2_rows_generic``'s arguments (dt = 0.1 dx, dx = dy =
+    2/n, grav 9.8, dry_tolerance 1e-8, minmod, order 2, f-waves, no
+    capacity, 2 ghost cells, transverse_waves 2)."""
+    from .. import riemann
+    q_np, aux_np = radial_bump_state(n, n)
+    h = 2.0 / n
+    return padded(q_np, dtype, dev), (
+        padded(aux_np, dtype, dev), _dt(0.1 * h, dtype, dev), h, h,
+        riemann.sw_aug_2D, {"grav": 9.8}, (1,) * 3, 2, True, -1, 2, 2)
+
+
+def dq_euler5_case(n, dtype, dev):
+    """dq2_weno5's Euler 5-wave instance's timed case at 2n x n/2 (the
+    cells of n^2): qbc (the shock-bubble state, 3 ghost cells) and the
+    rest of ``tiled2d.dq_rows``'s arguments (dt = 0.5 dx, dx = dy = 1/n,
+    gamma 1.4) and the system."""
+    from .. import riemann
+    qbc = padded(shock_bubble_state(2 * n, n // 2), dtype, dev, num_ghost=3)
+    h = 1.0 / n
+    return qbc, (_dt(0.5 * h, dtype, dev), h, h, {"gamma": 1.4}), \
+        riemann.euler_5wave_2D
+
+
 def sod_state(n):
     """q of examples.euler_1d_shocktube at n cells (a CPU array)."""
     from ..examples import euler_1d_shocktube as ex
@@ -397,12 +471,20 @@ def _step3_ctu_call(dtype, dev, n=192):
 
 def _dq_call(dtype, dev, n=1024):
     from . import tiled2d
+    from .. import riemann
     qbc, args = dq_case(n, dtype, dev)
+    makes = {}
+    for label, (qbc, args, rp) in (
+            ("", (qbc, args, riemann.euler_4wave_2D)),
+            ("euler5", dq_euler5_case(n, dtype, dev))):
 
-    def make(lib, source=None):
-        lib = tiled2d.bind_dq_lib(lib)
-        return lambda: tiled2d.dq_rows(qbc, *args, lib=lib)
-    return make
+        def make(lib, source=None, qbc=qbc, args=args, rp=rp):
+            lib = tiled2d.bind_dq_lib(lib)
+            if not tiled2d.dq_build_takes(lib, rp):
+                return None        # an earlier build without the system
+            return lambda: tiled2d.dq_rows(qbc, *args, lib=lib, rp=rp)
+        makes[label] = make
+    return makes
 
 
 def _step3_aos_call(dtype, dev, n=192):
@@ -419,7 +501,10 @@ def _step2_aos_call(dtype, dev, n=1024):
     from . import tiled2d
     makes = {}
     for label, case in (("", step2_aos_case),
-                        ("acoustics", step2_aos_acoustics_case)):
+                        ("acoustics", step2_aos_acoustics_case),
+                        ("euler4", step2_aos_euler4_case),
+                        ("euler5", step2_aos_euler5_case),
+                        ("sw_aug", step2_aos_sw_aug_case)):
         qbc, args = case(n, dtype, dev)
 
         def make(lib, source="step2_aos", qbc=qbc, args=args):

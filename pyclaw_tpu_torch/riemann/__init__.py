@@ -5,13 +5,14 @@ plain function on whole interface tensors, registered in a
 :class:`RiemannSolver` record that also carries ``num_eqn`` /
 ``num_waves`` metadata.  The port carries the AoS hooks of the 1D
 solvers (``advection_1D``, ``acoustics_1D``, ``euler_with_efix_1D``,
-``euler_roe_1D``, ``euler_hlle_1D``, ``sw_aug_1D``), the SoA hooks of
-the 2D Euler 4-wave Roe solver (``euler_4wave_2D``), the AoS and SoA
-hooks of ``acoustics_2D``, the AoS hooks of the 2D shallow-water solvers
-(``shallow_roe_with_efix_2D``, ``shallow_bathymetry_fwave_2D``) and of
-the 3D solvers (``euler_3D``, ``advection_3D``, ``acoustics_3D``,
-``vc_acoustics_3D``), and the ``evec`` hooks (char_decomp) of the Euler
-and acoustics records: 14 of the JAX package's 35 records.  The rest of
+``euler_roe_1D``, ``euler_hlle_1D``, ``sw_aug_1D``), the AoS and SoA
+hooks of the 2D Euler Roe solvers (``euler_4wave_2D``,
+``euler_5wave_2D`` with its passive tracer) and of ``acoustics_2D``, the
+AoS hooks of the 2D shallow-water solvers (``shallow_roe_with_efix_2D``,
+``shallow_bathymetry_fwave_2D``, ``sw_aug_2D``) and of the 3D solvers
+(``euler_3D``, ``advection_3D``, ``acoustics_3D``, ``vc_acoustics_3D``),
+and the ``evec`` hooks (char_decomp) of the Euler and acoustics records:
+16 of the JAX package's 35 records.  The rest of
 the library is queued in ROADMAP.md.
 
 AoS calling conventions (classic/kernels.py), q (num_eqn, *n):
@@ -76,14 +77,16 @@ from .acoustics import (  # noqa: E402,F401
     acoustics_1D, acoustics_2D, acoustics_3D)
 from .acoustics_var import vc_acoustics_3D  # noqa: E402,F401
 from .euler import (  # noqa: E402,F401
-    euler_3D, euler_4wave_2D, euler_hlle_1D, euler_roe_1D,
+    euler_3D, euler_4wave_2D, euler_5wave_2D, euler_hlle_1D, euler_roe_1D,
     euler_with_efix_1D)
 from .shallow import (  # noqa: E402,F401
-    shallow_bathymetry_fwave_2D, shallow_roe_with_efix_2D, sw_aug_1D)
+    shallow_bathymetry_fwave_2D, shallow_roe_with_efix_2D, sw_aug_1D,
+    sw_aug_2D)
 
 ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
                            euler_roe_1D, euler_hlle_1D, sw_aug_1D,
-                           euler_4wave_2D, acoustics_2D, euler_3D,
-                           shallow_roe_with_efix_2D,
-                           shallow_bathymetry_fwave_2D, advection_3D,
+                           euler_4wave_2D, euler_5wave_2D, acoustics_2D,
+                           euler_3D, shallow_roe_with_efix_2D,
+                           shallow_bathymetry_fwave_2D, sw_aug_2D,
+                           advection_3D,
                            acoustics_3D, vc_acoustics_3D]}

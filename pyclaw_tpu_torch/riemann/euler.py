@@ -1,35 +1,36 @@
 """Euler Roe solvers, plain PyTorch: the 1D systems (Roe with and without
-the Harten entropy fix, HLLE) and the 3D system in AoS form, the 2D
-4-wave system in SoA form and its normal solver in AoS form (for
-SharpClaw's generic dq: ``_rpn2_euler :200-268``; the registry's
-``flux`` hooks ``:828, :833``).
+the Harten entropy fix, HLLE), the 2D 4-wave and 5-wave (passive tracer)
+systems in AoS form (the classic generic step and SharpClaw's generic dq)
+and in SoA form, and the 3D system in AoS form.
 
 Counterpart of ``pyclaw_tpu/riemann/euler.py``: ``_wsum :22``,
 ``_roe_averages :32``, ``_alpha34 :66``, ``_rp1_euler_roe :93-163``,
-``_rp1_euler_hlle :169-194``, ``_make_euler_flux :732-749`` and the 1D
-records ``:787-796, :819, :826-827`` (physics of reference
-``rp1_euler_with_efix.f90`` and ``euler_1D_py.py``),
-``_roe_averages_soa :274``,
-``_rpn2_euler_soa :297``, ``_prefactor_euler_2d_soa :359``,
-``_rpt2_euler_soa :365``, ``_rpn3_euler :489``,
-``_prefactor_euler_3d :542``, ``_split_transverse_euler :556``,
-``_rpt3_euler :626``, ``_rptt3_euler :634``, the char_decomp hooks
-``_evec_euler_1d :642`` and ``_evec_euler_nd :670``,
-``_flux_euler_2d_soa :752``,
-positivity ``:775`` and the registry lines ``:797-824`` (physics of
-reference ``rpn2_euler_4wave.f90`` + ``rpt2_euler.f90`` and
-``rpn3_euler.f90`` + ``rpt3_euler.f90`` + ``rptt3_euler.f90``).  Ideal
-gas, gamma from problem_data; q = (rho, rho*u, rho*v, E) in 2D and
+``_rp1_euler_hlle :169-194``, ``_rpn2_euler :200-271`` (with its tracer
+branch), ``_roe_averages_soa :274``, ``_rpn2_euler_soa :297-356`` (with
+its tracer branch), ``_prefactor_euler_2d_soa :359``, ``_rpt2_euler_soa
+:365-418``, ``_prefactor_euler_2d :421-427``, ``_rpt2_euler :430-485``,
+``_rpn3_euler :489``, ``_prefactor_euler_3d :542``,
+``_split_transverse_euler :556``, ``_rpt3_euler :626``, ``_rptt3_euler
+:634``, the char_decomp hooks ``_evec_euler_1d :642`` and
+``_evec_euler_nd :670``, ``_make_euler_flux :732-749``,
+``_flux_euler_2d_soa :752-772``, positivity ``:775`` and the registry
+lines ``:787-833`` (physics of reference ``rp1_euler_with_efix.f90``,
+``euler_1D_py.py``, ``rpn2_euler_4wave.f90`` / ``rpn2_euler_5wave.f90``
++ ``rpt2_euler.f90`` and ``rpn3_euler.f90`` + ``rpt3_euler.f90`` +
+``rptt3_euler.f90``).  Ideal gas, gamma from problem_data; q = (rho,
+rho*u, rho*v, E) in 2D (the 5-wave system adds the tracer rho*phi) and
 (rho, rho*u, rho*v, rho*w, E) in 3D.
 
-The CUDA kernels ``csrc/step2_ctu.cu`` and ``csrc/dq2_weno5.cu`` repeat
-the 2D algebra operation for operation, including the float32/float64
-branches of :func:`_alpha34` and :func:`_flux_euler_2d_soa`;
-``csrc/step3_ctu.cu`` repeats the 3D algebra, ``csrc/systems1d.cuh``
-(for ``csrc/step1.cu``) the 1D algebra.  The 3D solver has two
-wave sets: the normal solve keeps 5 explicit waves (the limiter sees the
-two shear waves apart), the transverse splits sum entropy and both shears
-into one wave, so a split has 3 speeds.
+The CUDA kernels repeat the algebra operation for operation, including
+the float32/float64 branches of :func:`_alpha34` and
+:func:`_flux_euler_2d_soa`: ``csrc/step2_ctu.cu`` the 2D 4-wave SoA step,
+``csrc/euler2d_aos.cuh`` (for ``csrc/step2_aos.cu``) the 2D AoS hooks of
+both 2D systems, ``csrc/dq2_weno5.cu`` the 2D SoA hooks of both,
+``csrc/step3_ctu.cu`` the 3D algebra, ``csrc/systems1d.cuh`` (for
+``csrc/step1.cu``) the 1D algebra.  The 3D solver has two wave sets: the
+normal solve keeps 5 explicit waves (the limiter sees the two shear waves
+apart), the transverse splits sum entropy and both shears into one wave,
+so a split has 3 speeds.
 """
 
 from __future__ import annotations
@@ -74,9 +75,12 @@ def _roe_averages_soa(q_l, q_r, gamma, mu, mv):
     return u, v, H, a2, torch.sqrt(a2)
 
 
-def _rpn2_euler_soa(ixy, q_l, q_r, params):
-    """rpn2_euler_4wave in SoA form: 4 waves as per-equation 2D tensors
-    (None for identically-zero components) and their speeds."""
+def _rpn2_euler_soa(ixy, q_l, q_r, params, tracer=False):
+    """rpn2_euler_4wave (rpn2_euler_5wave with ``tracer``) in SoA form:
+    4 (5) waves as per-equation 2D tensors (None for identically-zero
+    components) and their speeds.  The tracer q[4] = rho phi rides every
+    wave that carries density as phi_hat times its density strength; the
+    rest of its jump is a fifth wave of speed u."""
     gamma = params["gamma"]
     g1 = gamma - 1.0
     mu = 1 + ixy
@@ -95,22 +99,40 @@ def _rpn2_euler_soa(ixy, q_l, q_r, params):
     a2w = dmv - v * d0
     a1 = d0 - a3 - a4
 
-    def mk(rho_c, mu_c, mv_c, e_c):
+    def mk(rho_c, mu_c, mv_c, e_c, t_c=None):
         comp = [None] * len(q_l)
         comp[0] = rho_c
         comp[mu] = mu_c
         comp[mv] = mv_c
         comp[3] = e_c
+        if tracer:
+            comp[4] = t_c
         return tuple(comp)
 
-    waves = (
-        mk(a1, a1 * (u - a), a1 * v, a1 * (H - u * a)),
-        mk(a3, a3 * u, a3 * v, a3 * 0.5 * (u * u + v * v)),
-        mk(None, None, a2w, a2w * v),
-        mk(a4, a4 * (u + a), a4 * v, a4 * (H + u * a)),
-    )
-    speeds = (u - a, u, u, u + a)
-    return waves, speeds
+    if tracer:
+        srl, srr = torch.sqrt(q_l[0]), torch.sqrt(q_r[0])
+        phat = (srl * (q_l[4] / q_l[0]) + srr * (q_r[4] / q_r[0])) \
+            / (srl + srr)
+        t1, t2, t4 = a1 * phat, a3 * phat, a4 * phat
+        a5 = (q_r[4] - q_l[4]) - phat * d0
+    else:
+        t1 = t2 = t4 = a5 = None
+
+    waves = [
+        mk(a1, a1 * (u - a), a1 * v, a1 * (H - u * a), t1),
+        mk(a3, a3 * u, a3 * v, a3 * 0.5 * (u * u + v * v), t2),
+        mk(None, None, a2w, a2w * v, None),
+        mk(a4, a4 * (u + a), a4 * v, a4 * (H + u * a), t4),
+    ]
+    speeds = [u - a, u, u, u + a]
+    if tracer:
+        waves.append(mk(None, None, None, None, a5))
+        speeds.append(u)
+    return tuple(waves), tuple(speeds)
+
+
+def _rpn2_euler_5wave_soa(ixy, q_l, q_r, params):
+    return _rpn2_euler_soa(ixy, q_l, q_r, params, tracer=True)
 
 
 def _prefactor_euler_2d_soa(ixy, qs_l, qs_r, params):
@@ -166,17 +188,22 @@ def _rpt2_euler_soa(ixy, imp, q_l, q_r, asdq, params, eig=None):
             bp_t = torch.clamp(sp, min=0.0) * w[e]
             bm[e] = bm_t if bm[e] is None else bm[e] + bm_t
             bp[e] = bp_t if bp[e] is None else bp[e] + bp_t
+    if num_eqn == 5:    # the passive tracer rides the transverse flow
+        t_m = torch.clamp(v, max=0.0) * asdq[4]
+        t_p = torch.clamp(v, min=0.0) * asdq[4]
+        bm[4] = t_m if bm[4] is None else bm[4] + t_m
+        bp[4] = t_p if bp[4] is None else bp[4] + t_p
     zero = torch.zeros_like(asdq[0])
     bm = [zero if b is None else b for b in bm]
     bp = [zero if b is None else b for b in bp]
     return tuple(bm), tuple(bp)
 
 
-def _flux_euler_2d_soa(ixy, qs, params):
+def _flux_euler_2d_soa(ixy, qs, params, tracer=False):
     """Physical flux of the 2D Euler system along ``ixy``, one tensor per
-    component (RiemannSolver.flux_soa).  float32 shares one reciprocal of
-    rho, as the JAX package does; the CUDA kernel ``csrc/dq2_weno5.cu``
-    branches the same way."""
+    component (RiemannSolver.flux_soa), with the tracer's u q[4] when
+    ``tracer``.  float32 shares one reciprocal of rho, as the JAX package
+    does; the CUDA kernel ``csrc/dq2_weno5.cu`` branches the same way."""
     gamma = params["gamma"]
     mu, mv = 1 + ixy, 2 - ixy
     rho, E = qs[0], qs[3]
@@ -192,7 +219,13 @@ def _flux_euler_2d_soa(ixy, qs, params):
     comp[mu] = qs[mu] * u + p
     comp[mv] = qs[mv] * u
     comp[3] = u * (E + p)
+    if tracer:
+        comp[4] = u * qs[4]
     return tuple(comp)
+
+
+def _flux_euler_5wave_soa(ixy, qs, params):
+    return _flux_euler_2d_soa(ixy, qs, params, tracer=True)
 
 
 def _wsum(coef, wave):
@@ -333,9 +366,9 @@ def _rp1_euler_hlle(ixy, q_l, q_r, aux_l, aux_r, params):
     return wave, s, amdq, apdq
 
 
-def _rpn2_euler_4wave(ixy, q_l, q_r, aux_l, aux_r, params):
-    """rpn2_euler_4wave in AoS form (the SharpClaw generic dq's normal
-    solver): 4 waves (num_eqn, 4, *n), speeds (u - a, u, u, u + a),
+def _rpn2_euler(ixy, q_l, q_r, aux_l, aux_r, params, tracer=False):
+    """rpn2_euler_4wave (rpn2_euler_5wave with ``tracer``) in AoS form: 4
+    (5) waves (num_eqn, num_waves, *n), speeds (u - a, u, u, u + a (, u)),
     amdq, apdq; the algebra of :func:`_rpn2_euler_soa`."""
     gamma = params["gamma"]
     g1 = gamma - 1.0
@@ -358,6 +391,84 @@ def _rpn2_euler_4wave(ixy, q_l, q_r, aux_l, aux_r, params):
     num_eqn = q_l.shape[0]
     z = torch.zeros_like(d0)
 
+    def mk(rho_c, mu_c, mv_c, e_c, t_c=z):
+        comp = [z] * num_eqn
+        comp[0] = rho_c
+        comp[mu] = mu_c
+        comp[mv] = mv_c
+        comp[E] = e_c
+        if tracer:
+            comp[4] = t_c
+        return torch.stack(comp)
+
+    if tracer:
+        # the passive tracer q[4] = rho phi (rpn2_euler_5wave.f90): every
+        # wave that carries density carries phi_hat times its strength;
+        # the rest of the tracer's jump rides its own wave of speed u
+        T = 4
+        srl, srr = torch.sqrt(q_l[0]), torch.sqrt(q_r[0])
+        phat = (srl * (q_l[T] / q_l[0]) + srr * (q_r[T] / q_r[0])) \
+            / (srl + srr)
+        t1, t2, t4 = a1 * phat, a3 * phat, a4 * phat
+    else:
+        t1 = t2 = t4 = z
+    waves = [mk(a1, a1 * (u - a), a1 * v, a1 * (H - u * a), t1),
+             mk(a3, a3 * u, a3 * v, a3 * 0.5 * (u * u + v * v), t2),
+             mk(z, z, a2w, a2w * v),
+             mk(a4, a4 * (u + a), a4 * v, a4 * (H + u * a), t4)]
+    speeds = [u - a, u, u, u + a]
+    if tracer:
+        waves.append(mk(z, z, z, z, d[T] - phat * d0))
+        speeds.append(u)
+    wave = torch.stack(waves, dim=1)
+    s = torch.stack(speeds)
+    amdq = _wsum(torch.clamp(s, max=0.0), wave)
+    apdq = _wsum(torch.clamp(s, min=0.0), wave)
+    return wave, s, amdq, apdq
+
+
+def _rpn2_euler_4wave(ixy, q_l, q_r, aux_l, aux_r, params):
+    return _rpn2_euler(ixy, q_l, q_r, aux_l, aux_r, params, tracer=False)
+
+
+def _rpn2_euler_5wave(ixy, q_l, q_r, aux_l, aux_r, params):
+    return _rpn2_euler(ixy, q_l, q_r, aux_l, aux_r, params, tracer=True)
+
+
+def _prefactor_euler_2d(ixy, q_l, q_r, aux_l, aux_r, params):
+    """The Roe average that both rpt2 splits at one set of interfaces take
+    (RiemannSolver.prefactor): (u, v, H, a, a2)."""
+    mu, mv = 1 + ixy, 2 - ixy
+    (u, v), H, a, a2, _ = _roe_averages(q_l, q_r, params["gamma"], (mu, mv))
+    return (u, v, H, a, a2)
+
+
+def _rpt2_euler(ixy, imp, q_l, q_r, aux_l, aux_r, asdq, params, eig=None):
+    """rpt2_euler in AoS form: split ``asdq`` (num_eqn, *n) into its
+    down-going (bm) and up-going (bp) parts along the transverse
+    direction, at the Roe average of (q_l, q_r) (``eig``: the same from
+    :func:`_prefactor_euler_2d`); a tracer rides the transverse flow v."""
+    gamma = params["gamma"]
+    g1 = gamma - 1.0
+    mu = 1 + ixy          # normal component of the sweep
+    mv = 2 - ixy          # transverse component (the split's direction)
+    E = 3
+
+    if eig is None:
+        (u, v), H, a, a2, _ = _roe_averages(q_l, q_r, gamma, (mu, mv))
+    else:
+        u, v, H, a, a2 = eig
+    d0, dmu, dmv, dE = asdq[0], asdq[mu], asdq[mv], asdq[E]
+
+    euv = H - (u * u + v * v)
+    b3 = g1 / a2 * (euv * d0 + u * dmu + v * dmv - dE)
+    b2w = dmu - u * d0                 # shear in the transverse split
+    b4 = (dmv + (a - v) * d0 - a * b3) / (2.0 * a)
+    b1 = d0 - b3 - b4
+
+    num_eqn = q_l.shape[0]
+    z = torch.zeros_like(d0)
+
     def mk(rho_c, mu_c, mv_c, e_c):
         comp = [z] * num_eqn
         comp[0] = rho_c
@@ -366,15 +477,22 @@ def _rpn2_euler_4wave(ixy, q_l, q_r, aux_l, aux_r, params):
         comp[E] = e_c
         return torch.stack(comp)
 
-    wave = torch.stack([
-        mk(a1, a1 * (u - a), a1 * v, a1 * (H - u * a)),
-        mk(a3, a3 * u, a3 * v, a3 * 0.5 * (u * u + v * v)),
-        mk(z, z, a2w, a2w * v),
-        mk(a4, a4 * (u + a), a4 * v, a4 * (H + u * a))], dim=1)
-    s = torch.stack([u - a, u, u, u + a])
-    amdq = _wsum(torch.clamp(s, max=0.0), wave)
-    apdq = _wsum(torch.clamp(s, min=0.0), wave)
-    return wave, s, amdq, apdq
+    w1 = mk(b1, b1 * u, b1 * (v - a), b1 * (H - v * a))
+    w2 = mk(b3, b3 * u, b3 * v, b3 * 0.5 * (u * u + v * v))
+    w3 = mk(z, b2w, z, b2w * u)
+    w4 = mk(b4, b4 * u, b4 * (v + a), b4 * (H + v * a))
+
+    bmasdq = torch.zeros_like(asdq)
+    bpasdq = torch.zeros_like(asdq)
+    for w, sp in zip((w1, w2, w3, w4), (v - a, v, v, v + a)):
+        bmasdq = bmasdq + torch.clamp(sp, max=0.0) * w
+        bpasdq = bpasdq + torch.clamp(sp, min=0.0) * w
+    if num_eqn == 5:
+        bmasdq = torch.cat([bmasdq[:4], (bmasdq[4] + torch.clamp(
+            v, max=0.0) * asdq[4])[None]])
+        bpasdq = torch.cat([bpasdq[:4], (bpasdq[4] + torch.clamp(
+            v, min=0.0) * asdq[4])[None]])
+    return bmasdq, bpasdq
 
 
 def _make_euler_flux(ndim):
@@ -634,11 +752,9 @@ def _make_euler_positivity(vel_idx, e_idx):
 
 from . import RiemannSolver  # noqa: E402
 
-# The AoS normal solver and flux serve SharpClaw's generic dq; rpt is not
-# ported, so the classic solver takes the SoA step only (classic/solver.py
-# raises for the generic AoS step).
 euler_4wave_2D = RiemannSolver("euler_4wave_2D", 2, 4, 4, _rpn2_euler_4wave,
-                               requires=("gamma",))
+                               rpt=_rpt2_euler, requires=("gamma",))
+euler_4wave_2D.prefactor = _prefactor_euler_2d
 euler_4wave_2D.flux = _make_euler_flux(2)
 euler_4wave_2D.rpn_soa = _rpn2_euler_soa
 euler_4wave_2D.rpt_soa = _rpt2_euler_soa
@@ -646,6 +762,17 @@ euler_4wave_2D.prefactor_soa = _prefactor_euler_2d_soa
 euler_4wave_2D.positivity = _make_euler_positivity((1, 2), 3)
 euler_4wave_2D.flux_soa = _flux_euler_2d_soa
 euler_4wave_2D.evec = _evec_euler_nd
+
+# the JAX package's record: no evec hook
+euler_5wave_2D = RiemannSolver("euler_5wave_2D", 2, 5, 5, _rpn2_euler_5wave,
+                               rpt=_rpt2_euler, requires=("gamma",))
+euler_5wave_2D.prefactor = _prefactor_euler_2d
+euler_5wave_2D.flux = _make_euler_flux(2)
+euler_5wave_2D.rpn_soa = _rpn2_euler_5wave_soa
+euler_5wave_2D.rpt_soa = _rpt2_euler_soa
+euler_5wave_2D.prefactor_soa = _prefactor_euler_2d_soa
+euler_5wave_2D.positivity = _make_euler_positivity((1, 2), 3)
+euler_5wave_2D.flux_soa = _flux_euler_5wave_soa
 
 euler_3D = RiemannSolver("euler_3D", 3, 5, 5, _rpn3_euler,
                          rpt=_rpt3_euler, rptt=_rptt3_euler,

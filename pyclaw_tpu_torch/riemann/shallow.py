@@ -4,7 +4,9 @@ augmented solver with wetting and drying, plain PyTorch.
 Counterpart of ``pyclaw_tpu/riemann/shallow.py`` (``_rpn2_shallow_roe
 :115``, ``_rpt2_shallow_roe :187``, ``_rpn2_shallow_bathymetry_fwave
 :341``, ``_shallow_positivity :407``, ``_sw_aug_core :430-504``,
-``_rp1_sw_aug :507-532``, ``_sw_aug_positivity :604-611``), itself a
+``_rp1_sw_aug :507-532``, ``_rpn2_sw_aug :535-583``, ``_rpt2_sw_aug
+:586-601``, ``_sw_aug_positivity :604-606`` and the ``sw_aug_2D`` record
+``:612-614``), itself a
 rebuild of reference ``rpn2_shallow_roe_with_efix.f90``,
 ``rpt2_shallow_roe_with_efix.f90``, ``rpn2_shallow_bathymetry_fwave.f90``
 and GeoClaw's augmented solver.  System: h_t + (hu)_x + (hv)_y = 0,
@@ -14,15 +16,16 @@ h^2/2)_y = 0, with g = problem_data['grav'].
 Every expression keeps the JAX package's operation order (Python
 scalars fold first, as there), so in float64 the two agree to roundoff
 (tests/test_torch_riemann_shallow.py, tests/test_torch_sw_aug.py).  The
-CUDA kernels repeat them: the 2D solvers in ``csrc/shallow2d.cuh``, the
-augmented 1D solver in ``csrc/systems1d.cuh`` (``SwAug1D``).  Dry states
+CUDA kernels repeat them: the 2D solvers in ``csrc/shallow2d.cuh`` and
+``csrc/sw_aug2d.cuh`` (``SwAug2D``), the augmented 1D solver in
+``csrc/systems1d.cuh`` (``SwAug1D``).  Dry states
 (h = 0) give inf/nan in the Roe solver, as in the reference; the
 bathymetry f-wave and augmented solvers guard their divisions with
 ``dry_tolerance`` (default 1e-8).  The SharpClaw hooks of
 ``shallow_roe_with_efix_2D``: ``_evec_shallow :230`` and ``_flux_shallow
 :266`` (the bathymetry f-wave record has neither, as in the JAX
-package).  ``sw_aug_2D`` is not ported yet (ROADMAP.md, Queue 1 item
-10).
+package); nor does ``sw_aug_2D``, whose SharpClaw route is the generic
+dq (``sharpclaw/kernels.py:dq_nd``).
 """
 
 from __future__ import annotations
@@ -328,6 +331,70 @@ def _rp1_sw_aug(ixy, q_l, q_r, aux_l, aux_r, params):
     return wave, s, amdq, apdq
 
 
+def _rpn2_sw_aug(ixy, q_l, q_r, aux_l, aux_r, params):
+    """2D augmented shallow-water solver with wetting and drying
+    (reference rpn2_sw_aug.f90): the machinery of :func:`_sw_aug_core`
+    along the normal, and a shear wave of speed u_hat carrying the
+    transverse momentum.  aux[0] = b(x, y), f-wave form (use
+    solver.fwave = True).  The f-waves are zeroed where either cell is
+    dry, and no fluctuation enters a dry wall cell."""
+    g = params["grav"]
+    dry = params.get("dry_tolerance", 1e-8)
+    mu = 1 + ixy
+    mv = 2 - ixy
+
+    h_l, h_r = q_l[0], q_r[0]
+    wet_l, wet_r = h_l > dry, h_r > dry
+    v_l = torch.where(wet_l, q_l[mv] / torch.where(wet_l, h_l, 1.0), 0.0)
+    v_r = torch.where(wet_r, q_r[mv] / torch.where(wet_r, h_r, 1.0), 0.0)
+
+    s1, s3, W1, W3, u_hat, wall_l, wall_r = _sw_aug_core(
+        g, dry, h_l, h_r, q_l[mu], q_r[mu], aux_l[0], aux_r[0])
+    s2 = u_hat                       # the shear rides the normal flow
+
+    # the transverse momentum advects with the normal flow
+    hu_le = torch.where(wet_l | wall_l,
+                        torch.where(wall_l, -q_r[mu], q_l[mu]), 0.0)
+    hu_re = torch.where(wet_r | wall_r,
+                        torch.where(wall_r, -q_l[mu], q_r[mu]), 0.0)
+    fd3 = hu_re * v_r - hu_le * v_l
+
+    num_eqn = q_l.shape[0]
+    z = torch.zeros_like(h_l)
+    zv1 = _mk(num_eqn, mu, mv, z, s1 * W1[0], s1 * W1[1], s1 * W1[0] * v_l)
+    zv3 = _mk(num_eqn, mu, mv, z, s3 * W3[0], s3 * W3[1], s3 * W3[0] * v_r)
+    zv2 = _mk(num_eqn, mu, mv, z, z, z,
+              fd3 - s1 * W1[0] * v_l - s3 * W3[0] * v_r)
+    # first order at wet/dry fronts (see _rp1_sw_aug)
+    frontal = (~wet_l) | (~wet_r)
+    wave = torch.where(frontal, 0.0, torch.stack([zv1, zv2, zv3], dim=1))
+    s = torch.stack([s1, s2, s3])
+
+    wv1 = _mk(num_eqn, mu, mv, z, W1[0], W1[1], W1[0] * v_l)
+    wv3 = _mk(num_eqn, mu, mv, z, W3[0], W3[1], W3[0] * v_r)
+    amdq = torch.clamp(s1, max=0.0) * wv1 + torch.clamp(s3, max=0.0) * wv3 \
+        + torch.where(s2 < 0.0, zv2, 0.0)
+    apdq = torch.clamp(s1, min=0.0) * wv1 + torch.clamp(s3, min=0.0) * wv3 \
+        + torch.where(s2 >= 0.0, zv2, 0.0)
+    amdq = torch.where(wall_l, 0.0, amdq)
+    apdq = torch.where(wall_r, 0.0, apdq)
+    return wave, s, amdq, apdq
+
+
+def _rpt2_sw_aug(ixy, imp, q_l, q_r, aux_l, aux_r, asdq, params):
+    """The transverse split of the augmented solver: that of
+    :func:`_rpt2_shallow_roe` where both cells are wet, none elsewhere
+    (the dry cells' states replaced by ones before the split)."""
+    dry = params.get("dry_tolerance", 1e-8)
+    wet = (q_l[0] > dry) & (q_r[0] > dry)
+    ql_s = torch.where(wet[None], q_l, torch.ones_like(q_l))
+    qr_s = torch.where(wet[None], q_r, torch.ones_like(q_r))
+    bmasdq, bpasdq = _rpt2_shallow_roe(ixy, imp, ql_s, qr_s, aux_l, aux_r,
+                                       asdq, params)
+    return (torch.where(wet[None], bmasdq, 0.0),
+            torch.where(wet[None], bpasdq, 0.0))
+
+
 def _sw_aug_positivity(q, aux, params):
     dry = params.get("dry_tolerance", 1e-8)
     return q[0] > dry
@@ -350,3 +417,7 @@ shallow_bathymetry_fwave_2D.positivity = _shallow_positivity
 sw_aug_1D = RiemannSolver("sw_aug_1D", 1, 2, 2, _rp1_sw_aug,
                           requires=("grav",))
 sw_aug_1D.positivity = _sw_aug_positivity
+
+sw_aug_2D = RiemannSolver("sw_aug_2D", 2, 3, 3, _rpn2_sw_aug,
+                          rpt=_rpt2_sw_aug, requires=("grav",))
+sw_aug_2D.positivity = _sw_aug_positivity

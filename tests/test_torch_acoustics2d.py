@@ -197,7 +197,8 @@ def test_wrapper_passes_the_system_scalars():
         2.0, 2.0)
     assert tiled2d.aos_system_params(
         triemann.shallow_roe_with_efix_2D, {"grav": 9.8}) == (9.8, 1e-8)
-    assert tiled2d.aos_limiter_ids((4, 1)) == [4, 1, 1]
+    assert tiled2d.aos_limiter_ids((4, 1)) == [4, 1, 1, 1, 1]
+    assert tiled2d.aos_limiter_ids((4, 1), 3) == [4, 1, 1]
 
 
 # ---- the slice end to end -------------------------------------------------

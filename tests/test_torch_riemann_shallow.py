@@ -5,7 +5,11 @@
 ``pyclaw_tpu/riemann/shallow.py`` on the same seeded wet states, in both
 directions: float64 to 1e-13 of each output's scale, float32 to 1e-5.
 The states include transonic rarefactions, so both branches of the
-entropy fix on waves 1 and 3 run (the test counts them).
+entropy fix on waves 1 and 3 run (the test counts them).  The augmented
+solver with wetting and drying (``_rpn2_sw_aug``, ``_rpt2_sw_aug``) on
+seeded wet/dry interfaces that take each of its branches: both wet, a
+dry front on either side, a wall on either side, both dry, and damp
+cells below the dry tolerance.
 """
 
 import jax.numpy as jnp
@@ -133,3 +137,79 @@ def test_registry_and_records():
         q = torch.tensor([[1.0, 0.0, -1.0]])
         assert rp.positivity(q, None, PARAMS).tolist() == [True, False,
                                                            False]
+
+
+SW_AUG = {"grav": 9.8, "dry_tolerance": 1e-3}
+# (h_l, h_r, b_l, b_r) of each branch of _sw_aug_core: both wet, the dry
+# fronts (the Ritter speed), the walls (a dry cell whose bottom lies above
+# the wet neighbour's surface), both dry, a damp cell against a wet one
+BRANCHES = {"wet": (0.8, 0.5, 0.1, 0.2), "front_l": (0.0, 0.6, 0.0, 0.1),
+            "front_r": (0.6, 0.0, 0.1, 0.0), "wall_l": (0.0, 0.3, 1.0, 0.1),
+            "wall_r": (0.3, 0.0, 0.1, 1.0), "dry": (0.0, 0.0, 0.2, 0.3),
+            "damp": (5e-4, 0.5, 0.2, 0.1)}
+
+
+def _wet_dry_pair(seed, ixy):
+    """Left/right states (3, *N) and bottoms (1, *N): each interface one
+    of BRANCHES, its depths and bottoms perturbed (a dry depth stays 0),
+    velocities of either sign."""
+    rng = np.random.default_rng(seed)
+    table = np.array(list(BRANCHES.values()))
+    kind = rng.integers(0, len(table), N)
+    h_l, h_r, b_l, b_r = (table[kind, k] for k in range(4))
+    jitter = 1.0 + 0.2 * rng.random((4,) + N)
+    h_l, h_r = h_l * jitter[0], h_r * jitter[1]
+    b_l, b_r = b_l * jitter[2], b_r * jitter[3]
+    mu, mv = 1 + ixy, 2 - ixy
+    ql, qr = np.zeros((3,) + N), np.zeros((3,) + N)
+    ql[0], qr[0] = h_l, h_r
+    for q in (ql, qr):
+        q[mu] = q[0] * 2.0 * rng.standard_normal(N)
+        q[mv] = q[0] * rng.standard_normal(N)
+    return ql, qr, b_l[None], b_r[None], kind
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-13),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("ixy", [0, 1])
+def test_sw_aug_2d_matches_jax(ixy, dtype, tol):
+    """_rpn2_sw_aug's waves, speeds and fluctuations and _rpt2_sw_aug's
+    split (imp 1 and 2) on interfaces of every branch."""
+    ql, qr, bl, br, kind = _wet_dry_pair(80 + ixy, ixy)
+    assert set(kind.ravel()) == set(range(len(BRANCHES)))
+    arrays = [a.astype(dtype) for a in (ql, qr, bl, br)]
+    ref = js._rpn2_sw_aug(ixy, *(jnp.asarray(a) for a in arrays), SW_AUG)
+    got = ts._rpn2_sw_aug(ixy, *(torch.from_numpy(a) for a in arrays),
+                          SW_AUG)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.from_numpy(arrays[0]).dtype
+        assert _max_rel(g.numpy(), r) <= tol
+    # the walls take no fluctuation, the fronts no f-wave
+    wall_l = kind == list(BRANCHES).index("wall_l")
+    assert float(got[2][:, wall_l].abs().max()) == 0.0
+    front = kind == list(BRANCHES).index("front_l")
+    assert float(got[0][:, :, front].abs().max()) == 0.0
+    asdq = np.random.default_rng(90 + ixy).standard_normal(
+        ql.shape).astype(dtype)
+    for imp in (1, 2):
+        bm_j, bp_j = js._rpt2_sw_aug(ixy, imp,
+                                     *(jnp.asarray(a) for a in arrays),
+                                     jnp.asarray(asdq), SW_AUG)
+        bm_t, bp_t = ts._rpt2_sw_aug(ixy, imp,
+                                     *(torch.from_numpy(a) for a in arrays),
+                                     torch.from_numpy(asdq), SW_AUG)
+        assert _max_rel(bm_t.numpy(), bm_j) <= tol
+        assert _max_rel(bp_t.numpy(), bp_j) <= tol
+        # no split where either cell is dry
+        assert float(bm_t[:, kind != 0].abs().max()) == 0.0
+
+
+def test_sw_aug_2d_record():
+    rp = triemann.ALL["sw_aug_2D"]
+    assert (rp.num_dim, rp.num_eqn, rp.num_waves) == (2, 3, 3)
+    assert rp.requires == ("grav",)
+    assert rp.rp is ts._rpn2_sw_aug and rp.rpt is ts._rpt2_sw_aug
+    assert rp.rpn_soa is None and rp.prefactor is None and rp.flux is None
+    q = torch.tensor([[1.0, 1e-9, 0.0]])
+    assert rp.positivity(q, None, {"grav": 1.0}).tolist() == [True, False,
+                                                              False]

@@ -12,7 +12,7 @@ JAX package.
 * a lake at rest over a bump (bathymetry f-waves) stays at rest to
   roundoff;
 * ascii frames with aux across the two packages;
-* what the slice still refuses.
+* what the slice still refuses, and the quadrants off the SoA route.
 """
 
 import os
@@ -174,12 +174,19 @@ def test_what_the_slice_refuses():
     assert claw.run()["numsteps"] == jclaw.run()["numsteps"]
     q_j = np.asarray(jclaw.solution.q)
     assert np.abs(claw.solution.q - q_j).max() <= 1e-12 * np.abs(q_j).max()
-    # the Euler system has no rpt: no generic classic step on it
+    # the Euler system off the SoA route (use_soa=False) takes the generic
+    # classic step (rpt2_euler with the shared Roe average), as the JAX
+    # package does, and gives the JAX example's run
     from pyclaw_tpu_torch.examples import euler_2d_quadrants as qex
-    claw = qex.setup(mx=8, my=8, outdir=None, device="cpu")
-    claw.solver.use_soa = False
-    with pytest.raises(NotImplementedError, match="generic AoS 2D step"):
-        claw.solver.setup(claw.solution)
+    import euler_2d_quadrants as jqex
+    claw = qex.setup(mx=8, my=8, outdir=None, device="cpu",
+                     dtype=np.float64)
+    jclaw = jqex.setup(mx=8, my=8, outdir=None)
+    claw.solver.use_soa = jclaw.solver.use_soa = False
+    assert claw.run()["numsteps"] == jclaw.run()["numsteps"]
+    assert not claw.solver._soa_eligible(claw.solution.state)
+    q_j = np.asarray(jclaw.solution.q)
+    assert np.abs(claw.solution.q - q_j).max() <= 1e-12 * np.abs(q_j).max()
     # SharpClaw takes aux: with it the quadrants leave the SoA route for
     # the generic dq, the same numerics (Euler reads no aux)
     claws = [qex.setup(mx=8, my=8, outdir=None, device="cpu",

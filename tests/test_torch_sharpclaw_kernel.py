@@ -1,8 +1,10 @@
 """The CUDA kernel ``csrc/dq2_weno5.cu``, compiled for the host, against
 its plain PyTorch version ``sharpclaw/soa.py:dq_2d_soa``: the Euler
-4-wave instance (the entries ``dq2_weno5_host_*``) and the acoustics
+4-wave instance (the entries ``dq2_weno5_host_*``), the acoustics
 instance (``dq2_weno5_acoustics_host_*``, the plain version with
-``acoustics_2D``'s SoA hooks).
+``acoustics_2D``'s SoA hooks) and the Euler 5-wave instance with its
+passive tracer (``dq2_weno5_euler5_host_*``, the plain version with
+``euler_5wave_2D``'s SoA hooks).
 
 Without ``__CUDACC__`` the source runs its phases block by block on the
 CPU, which checks the kernel's index algebra, 16x16 tiling, ragged-edge
@@ -44,7 +46,9 @@ def host_kernel(tmp_path_factory):
             ("dq2_weno5_host_f32", tiled2d.DQ_ARGTYPES),
             ("dq2_weno5_host_f64", tiled2d.DQ_ARGTYPES),
             ("dq2_weno5_acoustics_host_f32", tiled2d.DQ_ACOUSTICS_ARGTYPES),
-            ("dq2_weno5_acoustics_host_f64", tiled2d.DQ_ACOUSTICS_ARGTYPES)):
+            ("dq2_weno5_acoustics_host_f64", tiled2d.DQ_ACOUSTICS_ARGTYPES),
+            ("dq2_weno5_euler5_host_f32", tiled2d.DQ_ARGTYPES),
+            ("dq2_weno5_euler5_host_f64", tiled2d.DQ_ARGTYPES)):
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -172,5 +176,57 @@ def test_acoustics_instance_on_host_matches_plain(host_kernel, nx, ny,
     assert abs(cfl_blocks.max() - float(c_p)) <= tol * float(c_p)
     # the same physics scalars reach the wrapper's plain route
     d_w, c_w = tiled2d.dq_rows(torch.from_numpy(qbc), dt, dx, dy, ACOUSTICS,
+                               rp=rp)
+    assert torch.equal(d_w, torch.from_numpy(d_p)) and float(c_w) == c_p
+
+
+def tracer_state(seed, shape, fallback=False):
+    """:func:`euler_state` with a tracer rho phi, phi in [0, 1), zero
+    outside a random half of the cells (the bubble's edge)."""
+    rng = np.random.default_rng(seed + 1)
+    q = euler_state(seed, shape, fallback)
+    phi = rng.random(shape) * (rng.random(shape) < 0.5)
+    return np.concatenate([q, (q[0] * phi)[None]])
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny,fallback", [
+    (40, 36, False), (16, 16, False), (7, 5, False), (33, 17, True),
+    (17, 50, True)])
+def test_euler5_instance_on_host_matches_plain(host_kernel, nx, ny,
+                                               fallback, dtype, tol):
+    """The Euler 5-wave instance: the tracer's fifth wave and flux, its
+    parts of the waves that carry density, the positivity fallback on rho
+    and p (the tracer is not tested), the None components skipped as the
+    plain version skips them."""
+    rp = te.euler_5wave_2D
+    qbc = np.ascontiguousarray(
+        tracer_state(nx * ny, (nx + 6, ny + 6), fallback).astype(dtype))
+    if fallback:
+        assert tsoa.fallback_count(torch.from_numpy(qbc), PARAMS,
+                                   rp.positivity) > 0
+    dt = float(qbc.dtype.type(0.3 / max(nx, ny)))
+    dx, dy = 1.0 / nx, 1.0 / ny
+    out = np.empty((5, nx, ny), qbc.dtype)
+    cfl_blocks = np.full(host_kernel.dq2_weno5_blocks(nx + 6, ny + 6),
+                         np.nan, qbc.dtype)
+    fn = (host_kernel.dq2_weno5_euler5_host_f64 if dtype == np.float64
+          else host_kernel.dq2_weno5_euler5_host_f32)
+    rc = fn(qbc.ctypes.data, out.ctypes.data, cfl_blocks.ctypes.data,
+            nx + 6, ny + 6, ctypes.byref(ctypes.c_double(dt)), dx, dy,
+            *tiled2d.dq_system_params(rp, PARAMS))
+    assert rc == 0 and np.isfinite(cfl_blocks).all()
+    d_p, c_p = tsoa.dq_2d_soa(torch.from_numpy(qbc), dt, dx, dy, rp.rpn_soa,
+                              PARAMS, 5, 3, positivity=rp.positivity,
+                              flux_soa=rp.flux_soa)
+    d_p = d_p.numpy()
+    assert np.abs(out - d_p).max() / np.abs(d_p).max() <= tol
+    # the tracer's row on its own scale
+    assert (np.abs(out[4] - d_p[4]).max() / np.abs(d_p[4]).max()
+            <= tol)
+    assert abs(cfl_blocks.max() - float(c_p)) <= tol * float(c_p)
+    # the wrapper's plain route on a CPU tensor is the same plain version
+    d_w, c_w = tiled2d.dq_rows(torch.from_numpy(qbc), dt, dx, dy, PARAMS,
                                rp=rp)
     assert torch.equal(d_w, torch.from_numpy(d_p)) and float(c_w) == c_p

@@ -18,6 +18,12 @@ JAX package's.
   function and, on each face in turn, a fast state in the inner ghost
   layer (inside the CFL window) and a faster one in the outer layer
   (outside it).
+* the same for the instances of the Euler 4- and 5-wave systems (a
+  tracer; speeds crossing zero; the f-wave form) and of ``sw_aug_2D``
+  (wet/dry states that take every branch of the augmented solver: both
+  wet, each dry front, walls on either side, both dry, damp cells below
+  the dry tolerance; the f-wave form, the bottom in aux) on grids less
+  than a tile, of one and of several tiles, ragged either way.
 """
 
 import ctypes
@@ -237,7 +243,7 @@ def test_kernel_source_on_host_matches_plain(host_kernel, face, nx, ny,
             cfl_blocks.ctypes.data, nx + 4, ny + 4, tiled2d.AOS_SYSTEMS[name][0],
             capa, int(fwave), ctypes.byref(ctypes.c_double(dt)), *deltas,
             PARAMS["grav"], 1e-8, order, tw,
-            lim, lim, lim)
+            *tiled2d.aos_limiter_ids((lim,) * 3))
     assert rc == 0
     q_p, c_p = _plain(name, q, aux, dt, *deltas, (lim,) * 3, order, fwave,
                       capa, tw)
@@ -247,3 +253,126 @@ def test_kernel_source_on_host_matches_plain(host_kernel, face, nx, ny,
         q0, _ = _state(face + nx + ny, nx, ny)
         assert c_p > 1.2 * _plain(name, q0.astype(dtype), aux, dt, *deltas,
                                   (lim,) * 3, order, fwave, capa, tw)[1]
+
+
+# ---- the Euler and sw_aug_2D instances on the host --------------------------
+EULER_PARAMS = {"gamma": 1.4}
+SW_AUG_PARAMS = {"grav": 9.8, "dry_tolerance": 1e-3}
+# (transverse_waves, order, limiter, index_capa, fwave): every
+# transverse_waves and order, MC, van Leer and the CFL-dependent id 10,
+# with and without a capacity function, the wave and the f-wave form
+EULER_OPTS = [(2, 2, 4, -1, False), (1, 2, 3, -1, False),
+              (0, 1, 4, -1, False), (2, 2, 10, 0, False),
+              (1, 1, 3, 0, False), (2, 2, 4, -1, True), (0, 2, 10, 0, True)]
+# sw_aug_2D takes f-waves, the bottom in aux[0]; the capacity in aux[1]
+SW_AUG_OPTS = [(2, 2, 4, -1), (1, 2, 3, 1), (0, 1, 4, -1), (0, 2, 10, 1),
+               (2, 1, 1, -1), (1, 2, 4, 1)]
+
+
+def euler_state(seed, nx, ny, num_eqn):
+    """Ghost-padded admissible Euler state (num_eqn, nx+4, ny+4) with
+    velocities of either sign (u - a and u + a cross zero), a tracer rho
+    phi for the 5-wave system, and a non-uniform capacity in aux[0]."""
+    rng = np.random.default_rng(seed)
+    n = (nx + 4, ny + 4)
+    rho = 0.5 + rng.random(n)
+    u, v = 1.5 * rng.standard_normal(n), 1.5 * rng.standard_normal(n)
+    p = 0.5 + rng.random(n)
+    q = [rho, rho * u, rho * v, p / 0.4 + 0.5 * rho * (u * u + v * v)]
+    if num_eqn == 5:
+        q.append(rho * rng.random(n) * (rng.random(n) < 0.5))
+    return np.stack(q), np.stack([0.7 + 0.6 * rng.random(n)])
+
+
+def sw_aug_state(seed, nx, ny):
+    """Ghost-padded wet/dry state (3, nx+4, ny+4): a quarter of the cells
+    dry (h = 0) on a bottom that lies above or below the wet neighbours'
+    surface (walls and fronts), a tenth damp (h below the dry tolerance),
+    the rest wet with velocities of either sign; aux: the bottom and a
+    non-uniform capacity."""
+    rng = np.random.default_rng(seed)
+    n = (nx + 4, ny + 4)
+    dry = rng.random(n) < 0.25
+    h = np.where(dry, 0.0, 0.2 + rng.random(n))
+    h = np.where(rng.random(n) < 0.1, 5e-4, h)
+    b = np.where(dry, 0.5 + rng.random(n), 0.3 * rng.random(n))
+    q = np.stack([h, h * rng.standard_normal(n), h * rng.standard_normal(n)])
+    return q, np.stack([b, 0.7 + 0.6 * rng.random(n)])
+
+
+def _host_step(lib, name, q, aux, dt, deltas, params, lims, order, tw,
+               fwave, capa):
+    rp = triemann.ALL[name]
+    nx, ny = q.shape[1] - 4, q.shape[2] - 4
+    is_double = q.dtype == np.float64
+    fn = lib.step2_aos_host_f64 if is_double else lib.step2_aos_host_f32
+    out = np.empty((rp.num_eqn, nx, ny), q.dtype)
+    cfl_blocks = np.full(lib.step2_aos_blocks(nx + 4, ny + 4,
+                                              int(is_double)), np.nan,
+                         q.dtype)
+    rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
+            cfl_blocks.ctypes.data, nx + 4, ny + 4,
+            tiled2d.AOS_SYSTEMS[name][0], capa, int(fwave),
+            ctypes.byref(ctypes.c_double(dt)), *deltas,
+            *tiled2d.aos_system_params(rp, params), order, tw,
+            *tiled2d.aos_limiter_ids(lims))
+    assert rc == 0 and np.isfinite(cfl_blocks).all()
+    return out, float(cfl_blocks.max())
+
+
+GRIDS = [(7, 5), (60, 60), (100, 37), (64, 100)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny", GRIDS)
+@pytest.mark.parametrize("name", ["euler_4wave_2D", "euler_5wave_2D",
+                                  "sw_aug_2D"])
+def test_new_instances_on_host_match_plain(host_kernel, name, nx, ny,
+                                           dtype, tol):
+    """csrc/step2_aos.cu's Euler 4-wave, Euler 5-wave and sw_aug_2D
+    instances (the wider limiter ids, the per-cell Roe quantities, the
+    tracer, the dry-state machinery) against the plain version, over the
+    options matrix."""
+    rp = triemann.ALL[name]
+    deltas = (1.0 / nx, 1.0 / ny)
+    if name == "sw_aug_2D":
+        q, aux = sw_aug_state(nx + 3 * ny, nx, ny)
+        params = SW_AUG_PARAMS
+        opts = [o + (True,) for o in SW_AUG_OPTS]
+    else:
+        q, aux = euler_state(nx + 3 * ny, nx, ny, rp.num_eqn)
+        params = EULER_PARAMS
+        opts = EULER_OPTS
+    q, aux = (np.ascontiguousarray(a.astype(dtype)) for a in (q, aux))
+    dt = float(dtype(0.05 * min(deltas)))
+    for tw, order, lim, capa, fwave in opts:
+        lims = (lim,) * rp.num_waves
+        out, cfl = _host_step(host_kernel, name, q, aux, dt, deltas, params,
+                              lims, order, tw, fwave, capa)
+        q_p, c_p = tk.step2(torch.from_numpy(q), torch.from_numpy(aux), dt,
+                            *deltas, rp.rp, rp.rpt, params, lims, order,
+                            fwave, capa, 2, tw, rp.prefactor)
+        _close(out, q_p.numpy(), cfl, float(c_p), tol)
+
+
+def test_new_instances_are_registered(host_kernel):
+    """The build takes the six systems and five limiter ids, as the
+    wrapper passes them; an unknown system id is refused."""
+    assert host_kernel.step2_aos_num_systems() == len(tiled2d.AOS_SYSTEMS)
+    assert host_kernel.step2_aos_limiter_ids() == tiled2d.AOS_LIMITERS
+    assert tiled2d.aos_limiter_count(host_kernel) == tiled2d.AOS_LIMITERS
+    assert tiled2d.aos_system_params(triemann.euler_5wave_2D,
+                                     EULER_PARAMS) == (1.4 - 1.0, 0.0)
+    assert tiled2d.aos_system_params(triemann.sw_aug_2D,
+                                     SW_AUG_PARAMS) == (9.8, 1e-3)
+    q, aux = euler_state(0, 7, 5, 4)
+    q, aux = np.ascontiguousarray(q), np.ascontiguousarray(aux)
+    out = np.empty((4, 7, 5))
+    cfl_blocks = np.empty(host_kernel.step2_aos_blocks(11, 9, 1))
+    rc = host_kernel.step2_aos_host_f64(
+        q.ctypes.data, aux.ctypes.data, out.ctypes.data,
+        cfl_blocks.ctypes.data, 11, 9, len(tiled2d.AOS_SYSTEMS), -1, 0,
+        ctypes.byref(ctypes.c_double(1e-3)), 0.1, 0.1, 0.4, 0.0, 2, 2,
+        *tiled2d.aos_limiter_ids((4,)))
+    assert rc == -1

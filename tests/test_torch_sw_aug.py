@@ -11,7 +11,7 @@
 * the dry dam break at nx=200 against tests/golden/dam_break_dry_1d.npz
   in float64 (1e-8), with h >= 0 in every frame and the mass conserved
   until the front reaches the boundary;
-* what the example and the wrapper refuse.
+* what the wrapper refuses, and the example's dimension=2.
 """
 
 import ctypes
@@ -196,5 +196,20 @@ def test_dam_break_dry_matches_golden_and_stays_positive():
 
 
 def test_what_the_example_refuses():
-    with pytest.raises(NotImplementedError, match="sw_aug_2D"):
-        tex.setup(nx=8, dimension=2, outdir=None, device="cpu")
+    """dimension=2 (the radial analog on sw_aug_2D), refused before its
+    system was ported, runs: h >= 0 in every frame, and the JAX example's
+    steps and q."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "examples"))
+    import dam_break_dry as jex
+    claw = tex.setup(nx=16, dimension=2, outdir=None, device="cpu",
+                     dtype=np.float64)
+    jclaw = jex.setup(nx=16, dimension=2, outdir=None)
+    claw.tfinal = jclaw.tfinal = 0.5
+    assert claw.run()["numsteps"] == jclaw.run()["numsteps"]
+    assert claw.solver.transverse_waves == 0
+    for frame in claw.frames:
+        assert frame.q[0].min() >= 0.0
+    q_j = np.asarray(jclaw.solution.q)
+    assert np.abs(claw.solution.q - q_j).max() <= 1e-12 * np.abs(q_j).max()
