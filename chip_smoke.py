@@ -102,6 +102,18 @@ Phases (each asserts; any failure exits non-zero):
      these at 1024^2 and 600x700);
   3m. dq2_weno5's Euler 5-wave instance against its plain version (one dq
      each) on [3b]'s grids and kinds of state, each with a tracer;
+  3n. step2_aos's scalar and variable-coefficient instances (advection_2D,
+     vc_advection_2D, vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D,
+     burgers_2D) against the plain version (one step each) at 1024^2, 7x5
+     (less than a tile) and 600x700 (ragged, several tiles), on each
+     run's first state and a seeded random one (aux jumping along both
+     axes across the tiles' edges; Burgers with transonic interfaces),
+     float32 and float64, transverse_waves 0/1/2, order 1/2, MC, minmod
+     and the CFL-dependent id 10, a capacity row, the f-wave form,
+     Burgers with and without the entropy fix;
+  3o. step3_aos's burgers_3D instance against the plain version at 192^3,
+     17x13x9 and 3x5x2, on the pulse and a seeded random state, float32
+     and float64;
   4. the classic main path: examples.euler_2d_quadrants.setup(mx=1024,
      my=1024, float32) through Controller.run() to tfinal=0.8, with the
      kernel's launch count read around it;
@@ -189,6 +201,26 @@ Phases (each asserts; any failure exits non-zero):
      goes below 0 at this grid), each with every launch count set to 0
      just before it and read just after (step2_aos's sw_aug instance, 1
      an attempted step);
+  4s. examples.kpp at 1024^2 f32 to t=1.0, classic (minmod,
+     transverse_waves 2, CFL 0.45 / 0.5: step2_aos's kpp_2D instance, 1
+     an attempted step; q within its initial range) and SharpClaw at 512^2
+     (the generic dq: weno5 20 an attempted step);
+  4t. examples.acoustics_2d_interface at 1024^2 f32 to t=0.6, classic MC
+     (step2_aos's vc_acoustics_2D instance; p's y mirror symmetry),
+     SharpClaw at 512^2 (weno5 20 an attempt) and SharpClaw with
+     char_decomp=2 at 256^2 (plain PyTorch: restore only);
+  4u. examples.advection_2d at 1024^2 f32 to t=2.0 (vc_advection_2D on
+     the swirl's edge velocities, transverse_waves 0), advection_2D (u =
+     1, v = 0.5, periodic) and vc_advection_fwave_2D (the swirl's cell
+     velocities, a capacity row, f-waves) at 1024^2 f32 to t=0.25, each
+     keeping its (capacity-weighted) mass;
+  4v. burgers_2D on a Gaussian pulse at 1024^2 and burgers_3D at 192^3
+     (CFL 0.45 / 0.5), periodic, MC, float32 and float64 to t=0.4
+     (step2_aos's and
+     step3_aos's Burgers instances): the mass kept, the float64 runs'
+     diagonal (2D) and x <-> y (3D) symmetry gated; each of [4s]-[4v]'s
+     runs with every launch count set to 0 just before it and read just
+     after;
   4m. the parallel overlay (pyclaw_tpu_torch/parallel) in a world of one
      NCCL rank (init_distributed on a file:// store):
      parallel.ClawSolver3D on examples.euler_3d.setup(mx=my=mz=192,
@@ -246,6 +278,9 @@ Phases (each asserts; any failure exits non-zero):
      runs on the CPU in float64: equal steps, q to 1e-12 of max|q|; the
      dam break to t=2.0 reported beside them (ill-conditioned: a one-ulp
      move of its initial state moves the JAX run by up to 4.8e-2);
+  5y. [4s]-[4v]'s runs at small grids (the examples at 40^2, advection_2d
+     at 48^2, Burgers at 48^2 and 12^3) on the card against the same runs
+     on the CPU in float64: equal steps, q to 1e-12 of max|q|;
   6. timing at 1024^2 (CUDA events): each 2D kernel, its plain version,
      its bound, and step3_ctu the same at 192^3 (on the 3D path's first
      input and, the kernel alone, on its last); step1 on the Sod state at
@@ -276,7 +311,8 @@ Phases (each asserts; any failure exits non-zero):
      1024^2, Euler 5-wave on the shock bubble at 2048x512, sw_aug_2D on
      the radial bump at 1024^2; dq2_weno5 Euler 5-wave on the shock
      bubble at 2048x512) by events and the profiler, beside their plain
-     versions and bounds;
+     versions and bounds; the same for the instances of [3n] and [3o],
+     each on its run's first input (1024^2, 192^3);
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -301,7 +337,9 @@ from pyclaw_tpu_torch.ops.time_kernels import (
     step3_ctu_case, weno5_case, acoustics_state, step2_aos_acoustics_case,
     dam_state, DAM_PARAMS, shock_bubble_state, radial_bump_state,
     step2_aos_euler4_case, step2_aos_euler5_case, step2_aos_sw_aug_case,
-    dq_euler5_case)
+    dq_euler5_case, SCALAR_CASES, example_state, fwave_capacity,
+    gaussian_state, step2_aos_scalar_case, step3_aos_burgers_case,
+    swirl_cell_velocities)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -411,13 +449,15 @@ def flops_per_cell_3d_aos(name, tw, capa=False):
     interface quantity counted once (the halo interfaces, the second dot
     product of each interface pair and the neighbours' splits are
     overhead, not work).  Per sweep direction, per interface: the normal
-    solve (vc acoustics 23, acoustics 19, advection 5); per wave the
+    solve (vc acoustics 23, acoustics 19, advection 5, Burgers 9 on its
+    common branch: the jump, the average speed 2, the split 4, the
+    transonic test 2); per wave the
     limiter (norm and one dot product 2 (2 m - 1), theta 3, MC 6, nu 2,
     the coefficient 6, the select 1); the correction flux m (2 p - 1); cq
     into the flux m; CFL 3 p; the cell's fluctuation term 3 m; with
     transverse_waves 2 the fluctuations to split 2 m.  Per (sweep,
     transverse) pair and fluctuation: the split (vc acoustics 15,
-    acoustics 12, advection 4) and the E-flux gather 5 m; with
+    acoustics 12, advection and Burgers 4) and the E-flux gather 5 m; with
     transverse_waves 2 and a system that has rptt3, two double-transverse
     splits, each with its scaling 2 m and its F-flux gather 5 m.  The
     update 10 m per cell.  m equations, p waves."""
@@ -425,7 +465,8 @@ def flops_per_cell_3d_aos(name, tw, capa=False):
     m, p, rpn, split, rptt = {
         "vc_acoustics_3D": (4, 2, 23, 15, False),
         "acoustics_3D": (4, 2, 19, 12, True),
-        "advection_3D": (1, 1, 5, 4, True)}[name]
+        "advection_3D": (1, 1, 5, 4, True),
+        "burgers_3D": (1, 1, 9, 4, True)}[name]
     if capa:
         capa_ops = capacity_ops_per_cell_3d(p, rptt, tw)
     limiter = 2 * (2 * m - 1) + 3 + 6 + 2 + 6 + 1
@@ -1122,12 +1163,13 @@ def step3_aos_matrix():
 
 
 def plain_step3_aos(qbc, auxbc, dt, deltas, name, lims, order, fwave, capa,
-                    tw):
+                    tw, params=None):
     from pyclaw_tpu_torch import riemann
     from pyclaw_tpu_torch.classic import kernels
     rp = riemann.ALL[name]
     return kernels.step3(qbc, auxbc, dt, *deltas, rp.rp, rp.rpt, rp.rptt,
-                         PARAMS_3D, lims, order, fwave, capa, 2, tw)
+                         PARAMS_3D if params is None else params, lims,
+                         order, fwave, capa, 2, tw)
 
 
 def compare_step3_aos(dev, n_main=192, seed=6):
@@ -3481,6 +3523,624 @@ def timing_dq_euler5(dev, n=1024):
     return out
 
 
+# ---- the scalar and variable-coefficient systems: [3n], [3o], [4s]-[4v],
+# [5y] and their timings in [6] ---------------------------------------------
+
+# the six step2_aos instances of this slice, in the order of
+# ops/time_kernels.py:SCALAR_CASES (each timed on its run's first input)
+SCALAR_2D = tuple(SCALAR_CASES)
+# each system's problem_data in [3n] (Burgers takes its efix per option)
+SCALAR_PARAMS = {"advection_2D": {"u": 0.7, "v": -0.4}}
+# [3n]: the path's grid, one less than a tile and one ragged on both axes
+# with more tiles than resident blocks; (transverse_waves, order, limiter,
+# index_capa, fwave): every transverse_waves and order, MC, minmod and the
+# CFL-dependent id 10, a capacity row (aux's last), the f-wave form
+# (vc_advection_fwave_2D always); Burgers without the entropy fix on the
+# second option
+SCALAR_GRIDS = ((1024, 1024), (7, 5), (600, 700))
+SCALAR_OPTS = [(2, 2, 4, -1, False), (1, 2, 1, 0, False),
+               (0, 1, 4, -1, False), (2, 2, 10, 0, True),
+               (0, 2, 10, 0, False), (1, 1, 1, -1, False)]
+SCALAR_OPTS_LARGE = [(2, 2, 4, -1, False), (1, 2, 1, 0, False),
+                     (0, 1, 10, 0, True)]
+# [3o]: burgers_3D's grids (the path's, a ragged one of several tiles and
+# one less than a tile) and (transverse_waves, order, limiter, index_capa,
+# fwave, efix)
+BURGERS3D_GRIDS = ((192, 192, 192), (17, 13, 9), (3, 5, 2))
+BURGERS3D_OPTS = [(2, 2, 4, -1, False, True), (1, 2, 1, 0, False, False),
+                  (0, 1, 4, -1, False, True), (2, 2, 10, 0, True, True),
+                  (2, 1, 3, 0, False, False)]
+BURGERS3D_OPTS_LARGE = BURGERS3D_OPTS[:2]
+# Operations per cell of one generic CTU step of each scalar instance of
+# csrc/step2_aos.cu (csrc/scalar2d.cuh; order 2, the run's limiter and
+# transverse_waves), counted in the same way as FLOPS_PER_CELL_AOS, each
+# interface quantity counted once, a sin or cos as one operation.  Per
+# interface: the normal solve (advection 5: the jump, min, max and two
+# products; kpp 11 and its per-cell sin and cos 2 a cell; Burgers 9 on
+# its common branch: the jump, the average speed 2, the split 4, the
+# transonic test 2; the f-wave form 7: the flux jump 3, the speed 2, two
+# selects); the limiter of the one wave (norm 1, dot product 1, theta 1,
+# the limiter 3-8, nu 2, select 1, the coefficient 4: 16 with MC, 13 with
+# minmod, 14 with van Leer); the correction flux 1; with transverse waves
+# the fluctuations to split 2 and two splits of 4 (kpp: the average state
+# and its cos or sin 3 more); CFL 2.  The fold and update per cell 26
+# (the shallow-water 78 over three equations); a capacity row adds 4 a
+# cell and 2 an interface.  Each moves 8 B a cell in float32 (q read and
+# written), 16 B with two aux rows: 4-14 operations per byte, below the
+# card's 20 (and 10 in float64): bytes bound every one of them.  The
+# heterogeneous acoustics instance: the constant-coefficient count
+# FLOPS_PER_CELL_AOS_ACOUSTICS with its one-sided impedances (the normal
+# solve's denominator 1 more, each split's 2 more: 6 an interface).
+FLOPS_PER_CELL_SCALAR = {
+    "advection_2D": 2 * (5 + 14 + 1 + 2 + 8 + 2) + 26,
+    "vc_advection_2D": 2 * (5 + 14 + 1 + 2) + 26,       # transverse_waves 0
+    "vc_advection_fwave_2D": 2 * (7 + 16 + 1 + 2 + 8 + 2 + 2) + 26 + 4,
+    "vc_acoustics_2D": FLOPS_PER_CELL_AOS_ACOUSTICS + 2 * 6,
+    "kpp_2D": 2 * (11 + 13 + 1 + 2 + 8 + 3 + 2) + 26 + 2,
+    "burgers_2D": 2 * (9 + 16 + 1 + 2 + 8 + 2) + 26}
+# [4s]-[4v]: the runs' bounds on q, where the scheme keeps one: kpp
+# (minmod) and the swirl (van Leer, donor-cell corners) stay within their
+# initial range to this (absolute)
+SCALAR_RANGE_TOL = 1e-3
+# [4u], [4v]: the runs conserve their (capacity-weighted) mass to this
+# (relative; no flux crosses the boundary: periodic, or velocities that
+# vanish there): float64 to 1e-12; float32 to 1e-4, since each update
+# rounds, and the swirl's many small ones against q near 1 drift with the
+# steps (the plain version on the CPU: 6.3e-7 at 256^2, 3.0e-6 at 512^2
+# to t=2.0, float64 1.6e-15); the float64 Burgers runs keep their
+# diagonal (2D) and x <-> y (3D) symmetry to 1e-10 (absolute, q in [0, 1];
+# the plain version at 48^2: 1e-11, tests/test_2d_examples.py); the
+# interface run's float32 p keeps its y -> -y mirror symmetry to 1e-4
+# (relative, as [4r]'s radial bump)
+SCALAR_MASS_TOL = {"float32": 1e-4, "float64": 1e-12}
+SCALAR_SYM_TOL = 1e-10
+SCALAR_MIRROR_TOL = 1e-4
+
+
+def scalar_random_state(rng, name, nx, ny):
+    """A seeded (q, aux of the system's two aux rows or None) of system
+    ``name`` at nx x ny: states of either sign (Burgers: transonic
+    interfaces; kpp around its initial 14 pi / 4 and pi / 4); the
+    advection velocities of either sign, positive (Z, c) for acoustics,
+    each jumping across rows and columns 12 | 13 and 15 | 16 (the tiles'
+    edges of both types) and random elsewhere."""
+    rp_neq = {"vc_acoustics_2D": 3}.get(name, 1)
+    if name == "kpp_2D":
+        q = (np.where(rng.random((1, nx, ny)) < 0.5, 14.0 * np.pi / 4.0,
+                      np.pi / 4.0) + 0.3 * rng.standard_normal((1, nx, ny)))
+    else:
+        q = rng.standard_normal((rp_neq, nx, ny))
+    if name in ("advection_2D", "kpp_2D", "burgers_2D"):
+        return q, None
+    if name == "vc_acoustics_2D":
+        aux = 1.0 + 0.5 * rng.random((2, nx, ny))
+    else:
+        aux = rng.standard_normal((2, nx, ny))
+    aux[:, 12:] *= 2.5
+    aux[:, 13:] *= 0.5
+    aux[:, :, 15:] *= 3.0
+    aux[:, :, 16:] *= 0.4
+    return q, aux
+
+
+def scalar_path_state(name, nx, ny):
+    """(q, the system's two aux rows or None) of the run of system
+    ``name`` at nx x ny: its example's or run's initial state
+    (ops/time_kernels.py:SCALAR_CASES)."""
+    if name == "kpp_2D":
+        return example_state("kpp", nx, ny)
+    if name == "vc_acoustics_2D":
+        return example_state("acoustics_2d_interface", nx, ny)
+    if name == "vc_advection_2D":
+        return example_state("advection_2d", nx, ny)
+    if name == "burgers_2D":
+        return gaussian_state((nx, ny)), None
+    q = example_state("advection_2d", nx, ny)[0]
+    if name == "advection_2D":
+        return q, None
+    return q, swirl_cell_velocities(nx, ny)
+
+
+def compare_scalar(dev, seed=14):
+    """[3n]: step2_aos's six scalar and variable-coefficient instances
+    against the plain version, one step each, over SCALAR_GRIDS, the run's
+    first state and a seeded random one a system, float32 and float64, a
+    capacity row in aux (its last).  Returns (worst relative error, worst
+    CFL error, each system's main configuration's max abs error (1024^2
+    f32, the run's state, the first option), cases)."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = {}
+    ncase = 0
+    for nx, ny in SCALAR_GRIDS:
+        opts = SCALAR_OPTS_LARGE if nx * ny > 2e5 else SCALAR_OPTS
+        kappa = 0.7 + 0.6 * rng.random((nx, ny))
+        dx, dy = 1.0 / nx, 1.0 / ny
+        for name in SCALAR_2D:
+            rp = riemann.ALL[name]
+            inputs = {"path": scalar_path_state(name, nx, ny),
+                      "random": scalar_random_state(rng, name, nx, ny)}
+            for iname, (q_np, a_np) in inputs.items():
+                rows = ([] if a_np is None else list(a_np[:2])) + [kappa]
+                capa_row = len(rows) - 1
+                for tname, dtype in (("float32", torch.float32),
+                                     ("float64", torch.float64)):
+                    qbc = padded(q_np, dtype, dev)
+                    auxbc = padded(np.stack(rows), dtype, dev)
+                    dt = float(np.dtype(tname).type(0.05 * min(dx, dy)))
+                    for k, (tw, order, lim, capa, fwave) in enumerate(opts):
+                        capa = capa_row if capa >= 0 else -1
+                        fwave = fwave or name == "vc_advection_fwave_2D"
+                        params = dict(SCALAR_PARAMS.get(name, {}),
+                                      efix=k != 1)
+                        args = (qbc, auxbc, dt, dx, dy, rp, params,
+                                (lim,) * rp.num_waves, order, fwave, capa)
+                        qk, ck = tiled2d.step2_rows_generic(*args, 2, tw)
+                        qp, cp = plain_step2(*args, tw)
+                        torch.cuda.synchronize()
+                        abs_err = float((qk - qp).abs().max())
+                        rel = abs_err / max(float(qp.abs().max()), 1e-300)
+                        dcfl = abs(float(ck) - float(cp)) / float(cp)
+                        if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                                and dcfl <= TOL_REL[tname]
+                                and tuple(qk.shape) == (rp.num_eqn, nx, ny)):
+                            fail(f"[3n] step2_aos vs plain {nx}x{ny} {name} "
+                                 f"{iname} {tname} tw={tw} order={order} "
+                                 f"lim={lim} capa={capa} fwave={fwave}: rel "
+                                 f"err {rel:.3e}, cfl {float(ck)!r} vs "
+                                 f"{float(cp)!r}")
+                        worst[tname] = max(worst[tname], rel)
+                        worst_cfl[tname] = max(worst_cfl[tname], dcfl)
+                        if ((nx, tname, iname, k) == (1024, "float32",
+                                                      "path", 0)):
+                            main_abs_err[name] = abs_err
+                        ncase += 1
+                        del qk, qp
+        print(f"  [3n] step2_aos scalar instances {nx}x{ny}: max rel err "
+              f"f32 {worst['float32']:.3e} f64 {worst['float64']:.3e}; max "
+              f"cfl rel f32 {worst_cfl['float32']:.3e} f64 "
+              f"{worst_cfl['float64']:.3e}", flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def compare_burgers3d(dev, seed=15):
+    """[3o]: step3_aos's burgers_3D instance against the plain version, one
+    step each, over BURGERS3D_GRIDS, the Burgers 3D run's first state (the
+    pulse) and a seeded random one of either sign (transonic interfaces),
+    float32 and float64, a capacity row in aux.  Returns (worst relative
+    error, worst CFL error, the max abs error at 192^3 f32 on the pulse
+    with the first option, cases)."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    rp = riemann.burgers_3D
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = None
+    ncase = 0
+    for shape in BURGERS3D_GRIDS:
+        opts = BURGERS3D_OPTS_LARGE if shape[0] > 100 else BURGERS3D_OPTS
+        kappa = 0.7 + 0.6 * rng.random((1,) + shape)
+        d = tuple(1.0 / n for n in shape)
+        inputs = {"path": gaussian_state(shape),
+                  "random": rng.standard_normal((1,) + shape)}
+        for iname, q_np in inputs.items():
+            for tname, dtype in (("float32", torch.float32),
+                                 ("float64", torch.float64)):
+                qbc = padded3(q_np, dtype, dev).contiguous()
+                auxbc = padded3_aux(kappa, dtype, dev).contiguous()
+                dt = float(np.dtype(tname).type(0.05 * min(d)))
+                for k, (tw, order, lim, capa, fwave, efix) in enumerate(opts):
+                    args = (qbc, auxbc, dt, *d, rp, {"efix": efix}, (lim,),
+                            order, fwave, capa)
+                    qk, ck = tiled2d.step3_xy_generic(*args, 2, tw)
+                    qp, cp = plain_step3_aos(qbc, auxbc, dt, d, rp.name,
+                                             (lim,), order, fwave, capa, tw,
+                                             params={"efix": efix})
+                    torch.cuda.synchronize()
+                    abs_err = float((qk - qp).abs().max())
+                    rel = abs_err / float(qp.abs().max())
+                    dcfl = abs(float(ck) - float(cp)) / float(cp)
+                    if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                            and dcfl <= TOL_REL[tname]
+                            and tuple(qk.shape) == (1,) + shape):
+                        fail(f"[3o] step3_aos burgers_3D vs plain {shape} "
+                             f"{iname} {tname} tw={tw} order={order} "
+                             f"lim={lim} capa={capa} fwave={fwave} efix="
+                             f"{efix}: rel err {rel:.3e}, cfl {float(ck)!r} "
+                             f"vs {float(cp)!r}")
+                    worst[tname] = max(worst[tname], rel)
+                    worst_cfl[tname] = max(worst_cfl[tname], dcfl)
+                    if (shape[0], tname, iname, k) == (192, "float32",
+                                                       "path", 0):
+                        main_abs_err = abs_err
+                    ncase += 1
+                    del qk, qp
+        print(f"  [3o] step3_aos burgers_3D {shape}: max rel err f32 "
+              f"{worst['float32']:.3e} f64 {worst['float64']:.3e}; max cfl "
+              f"rel f32 {worst_cfl['float32']:.3e} f64 "
+              f"{worst_cfl['float64']:.3e}", flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def scalar_claw(dev, name, n, dtype, tfinal):
+    """The runs of this slice that no example holds, built through the
+    port's API as a user would: ``advection_2D`` (u = 1, v = 0.5,
+    periodic, van Leer) on advection_2d's disk; ``vc_advection_fwave_2D``
+    (the swirl's cell velocities, a capacity row in aux[2], fwave=True,
+    MC, CFL 0.45 / 0.5, extrapolation BCs) on the same disk;
+    ``burgers_2D`` / ``burgers_3D`` (the pulse of gaussian_state, periodic,
+    MC; in 3D CFL 0.45 / 0.5).  n cells an axis, to ``tfinal``."""
+    import pyclaw_tpu_torch as pyclaw
+    dim = 3 if name == "burgers_3D" else 2
+    cls = pyclaw.ClawSolver3D if dim == 3 else pyclaw.ClawSolver2D
+    solver = cls(getattr(pyclaw.riemann, name), device=dev)
+    domain = pyclaw.Domain([0.0] * dim, [1.0] * dim, [n] * dim)
+    num_aux = 3 if name == "vc_advection_fwave_2D" else 0
+    state = pyclaw.State(domain, 1, num_aux=num_aux, dtype=dtype)
+    if name.startswith("burgers"):
+        solver.limiters = [pyclaw.limiters.tvd.MC]
+        solver.all_bcs = pyclaw.BC.periodic
+        state.q[0] = gaussian_state((n,) * dim)[0]
+    else:
+        state.q[0] = example_state("advection_2d", n, n)[0][0]
+    if name == "burgers_3D":
+        # at the default CFL (0.9 / 1.0) the 3D step overshoots once the
+        # shock forms at 192^3 (max q 1.69 by t=0.25), and so does its
+        # plain version (the card and the CPU's plain path agree to 2.6e-14
+        # at 64^3, where its rejected steps begin); kpp.py's CFL 0.45 / 0.5
+        # keeps it within [0, 1]
+        solver.cfl_desired, solver.cfl_max = 0.45, 0.5
+    if name == "advection_2D":
+        solver.limiters = [pyclaw.limiters.tvd.vanleer]
+        solver.all_bcs = pyclaw.BC.periodic
+        state.problem_data["u"], state.problem_data["v"] = 1.0, 0.5
+    if name == "vc_advection_fwave_2D":
+        solver.fwave = True
+        solver.limiters = [pyclaw.limiters.tvd.MC]
+        solver.cfl_desired, solver.cfl_max = 0.45, 0.5
+        solver.all_bcs = pyclaw.BC.extrap
+        solver.aux_bc_lower = [pyclaw.BC.extrap] * 2
+        solver.aux_bc_upper = [pyclaw.BC.extrap] * 2
+        state.aux[:2] = swirl_cell_velocities(n, n)
+        state.aux[2] = fwave_capacity(n, n)
+        state.index_capa = 2
+    claw = pyclaw.Controller()
+    claw.solution = pyclaw.Solution(state, domain)
+    claw.solver = solver
+    claw.tfinal = tfinal
+    claw.num_output_times = 1
+    claw.outdir = None
+    claw.output_format = None
+    return claw
+
+
+def run_scalar(dev, name, n, dtype, tfinal):
+    """:func:`scalar_claw` through Controller.run(); returns (claw, status,
+    wall seconds)."""
+    import torch
+    claw = scalar_claw(dev, name, n, dtype, tfinal)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
+def scalar_mass(q, kappa=None):
+    """sum(kappa q[0]) in float64 (kappa 1 when None)."""
+    q0 = q[0].astype(np.float64)
+    return float(np.sum(q0 if kappa is None else q0 * kappa))
+
+
+def scalar_run(label, run, kernel, per, shape, tfinal):
+    """One run of this slice on the device loop, every launch count set to
+    0 just before it and read just after: the launches (``kernel`` per
+    attempted step, restore once), the steps, the wall, the loop's
+    counters; q finite of ``shape`` at ``tfinal``.  Returns (claw, its
+    record)."""
+    claw, status, wall, counts, ran = counted_run(run)
+    ns, nr = status["numsteps"], status["numrejected"]
+    loop = check_path_launches(label, claw, status, counts, kernel, per,
+                               ran=ran)
+    q = claw.solution.q
+    if (q.shape != shape or not np.all(np.isfinite(q))
+            or abs(claw.solution.t - tfinal) > 1e-12):
+        fail(f"{label}: q {q.shape} finite {np.all(np.isfinite(q))}, t "
+             f"{claw.solution.t}")
+    rec = {"accepted": ns, "rejected": nr, "wall_s_counted": wall,
+           "launches": ran, "wrapper_counts": counts, "loop": loop,
+           "cell_updates_per_s": ns * int(np.prod(shape[1:])) / wall,
+           "q_min": float(q.min()), "q_max": float(q.max())}
+    print(f"{label} to t={claw.solution.t}: {ns} accepted + {nr} rejected "
+          f"steps, {ran.get(kernel, 0) if kernel else 0} {kernel} launches "
+          f"the card ran ({per} x attempts; {ran}), {wall:.3f} s wall with "
+          f"the device counters; device loop {loop}; q in "
+          f"[{rec['q_min']:.6g}, {rec['q_max']:.6g}]", flush=True)
+    return claw, rec
+
+
+def in_range(label, rec, lo, hi):
+    """Fail unless the run's q stayed in [lo, hi] to SCALAR_RANGE_TOL."""
+    if not (rec["q_min"] >= lo - SCALAR_RANGE_TOL
+            and rec["q_max"] <= hi + SCALAR_RANGE_TOL):
+        fail(f"{label}: q in [{rec['q_min']}, {rec['q_max']}], not in "
+             f"[{lo}, {hi}] to {SCALAR_RANGE_TOL}")
+
+
+def kpp_path(dev, n=1024, n_sharp=512):
+    """[4s]: examples.kpp in float32 to t=1.0: classic at n^2 (minmod,
+    transverse_waves 2, CFL 0.45 / 0.5; step2_aos's kpp_2D instance, 1
+    launch an attempted step), q within its initial range [pi/4, 14 pi/4];
+    SharpClaw at n_sharp^2 (the generic dq, weno5 20 an attempt)."""
+    out = {}
+    claw, out["classic"] = scalar_run(
+        f"[4s] kpp classic {n}^2 f32",
+        lambda: run_example(dev, "kpp", np.float32, 1.0, mx=n, my=n),
+        "step2_aos", 1, (1, n, n), 1.0)
+    in_range("[4s] kpp classic", out["classic"], np.pi / 4, 3.5 * np.pi)
+    del claw
+    claw, out["sharpclaw"] = scalar_run(
+        f"[4s] kpp sharpclaw {n_sharp}^2 f32",
+        lambda: run_example(dev, "kpp", np.float32, 1.0, mx=n_sharp,
+                            my=n_sharp, solver_type="sharpclaw"),
+        "weno5", 20, (1, n_sharp, n_sharp), 1.0)
+    return out
+
+
+def interface_path(dev, n=1024, n_sharp=512, n_cd=256):
+    """[4t]: examples.acoustics_2d_interface in float32 to t=0.6: classic
+    MC at n^2 (step2_aos's vc_acoustics_2D instance, 1 launch an
+    attempted step; p keeps its y -> -y mirror symmetry to
+    SCALAR_MIRROR_TOL), SharpClaw at n_sharp^2 (the generic dq with aux,
+    weno5 20 an attempt) and SharpClaw with char_decomp=2 at n_cd^2 (the
+    characteristic reconstruction through the record's evec, plain
+    PyTorch: no kernel of the port but restore)."""
+    out = {}
+    for label, kw, kernel, per, m in (
+            ("classic", {}, "step2_aos", 1, n),
+            ("sharpclaw", {"solver_type": "sharpclaw"}, "weno5", 20,
+             n_sharp),
+            ("sharpclaw char_decomp=2", {"solver_type": "sharpclaw"}, None,
+             0, n_cd)):
+        def tweak(claw, label=label):
+            if "char_decomp" in label:
+                claw.solver.char_decomp = 2
+        claw, rec = scalar_run(
+            f"[4t] acoustics_2d_interface {label} {m}^2 f32",
+            lambda kw=kw, m=m, tweak=tweak: run_example(
+                dev, "acoustics_2d_interface", np.float32, 0.6, tweak=tweak,
+                mx=m, my=m, **kw), kernel, per, (3, m, m), 0.6)
+        p = claw.solution.q[0].astype(np.float64)
+        rec["mirror_asymmetry"] = float(np.abs(p - p[:, ::-1]).max()
+                                        / np.abs(p).max())
+        print(f"    max |p(x, y) - p(x, -y)| / max |p| "
+              f"{rec['mirror_asymmetry']:.3e}"
+              + (f" (tol {SCALAR_MIRROR_TOL})" if label == "classic"
+                 else " (reported)"), flush=True)
+        if label == "classic" and rec["mirror_asymmetry"] > SCALAR_MIRROR_TOL:
+            fail(f"[4t] classic: {rec}")
+        out[label] = rec
+        del claw
+    return out
+
+
+def advection_paths(dev, n=1024):
+    """[4u]: the three advection instances in float32, each with its
+    (capacity-weighted) mass kept to SCALAR_MASS_TOL: examples.advection_2d
+    at n^2 to t=2.0 (vc_advection_2D on the swirl's edge velocities,
+    transverse_waves 0, van Leer: q within [0, 1]); advection_2D (u = 1,
+    v = 0.5, periodic, van Leer) at n^2 to t=0.25 and vc_advection_fwave_2D
+    (the swirl's cell velocities, a capacity row, f-waves, MC) at n^2 to
+    t=0.25; step2_aos 1 launch an attempted step each."""
+    out = {}
+    disk = example_state("advection_2d", n, n)[0].astype(np.float32)
+    kappa = fwave_capacity(n, n).astype(np.float32).astype(np.float64)
+    for label, run, tfinal, kap in (
+            ("advection_2d (vc_advection_2D)",
+             lambda: run_example(dev, "advection_2d", np.float32, 2.0,
+                                 mx=n, my=n), 2.0, None),
+            ("advection_2D", lambda: run_scalar(dev, "advection_2D", n,
+                                                np.float32, 0.25), 0.25,
+             None),
+            ("vc_advection_fwave_2D",
+             lambda: run_scalar(dev, "vc_advection_fwave_2D", n, np.float32,
+                                0.25), 0.25, kappa)):
+        claw, rec = scalar_run(f"[4u] {label} {n}^2 f32", run, "step2_aos",
+                               1, (1, n, n), tfinal)
+        mass0 = scalar_mass(disk, kap)
+        mass = scalar_mass(claw.solution.q, kap)
+        rec["mass_change"] = abs(mass - mass0) / abs(mass0)
+        print(f"    mass change {rec['mass_change']:.3e} (tol "
+              f"{SCALAR_MASS_TOL['float32']})", flush=True)
+        if rec["mass_change"] > SCALAR_MASS_TOL["float32"]:
+            fail(f"[4u] {label}: {rec}")
+        if "vc_advection_2D" in label:
+            in_range(f"[4u] {label}", rec, 0.0, 1.0)
+        out[label.split()[0]] = rec
+        del claw
+    return out
+
+
+def burgers_paths(dev, n2=1024, n3=192, t2=0.4, t3=0.4):
+    """[4v]: burgers_2D on the pulse at n2^2 to t2 and burgers_3D at n3^3
+    to t3 (CFL 0.45 / 0.5), periodic, MC, float32 and float64 (step2_aos's
+    and step3_aos's
+    Burgers instances, 1 launch an attempted step): the mass kept to
+    SCALAR_MASS_TOL; the float64 runs' diagonal (2D) and x <-> y (3D)
+    symmetry to SCALAR_SYM_TOL (the JAX package's gate of
+    tests/test_2d_examples.py:198-215); the float32 run's relative L1
+    distance from the float64 one reported."""
+    out = {}
+    for name, n, tfinal, kernel in (("burgers_2D", n2, t2, "step2_aos"),
+                                    ("burgers_3D", n3, t3, "step3_aos")):
+        dim = 3 if name == "burgers_3D" else 2
+        shape = (1,) + (n,) * dim
+        runs = {}
+        for tname, dtype in (("float32", np.float32),
+                             ("float64", np.float64)):
+            mass0 = scalar_mass(gaussian_state((n,) * dim).astype(dtype))
+            claw, rec = scalar_run(
+                f"[4v] {name} {n}^{dim} {tname}",
+                lambda dtype=dtype: run_scalar(dev, name, n, dtype, tfinal),
+                kernel, 1, shape, tfinal)
+            q = claw.solution.q[0].astype(np.float64)
+            rec["mass_change"] = abs(scalar_mass(q[None]) - mass0) / mass0
+            rec["symmetry"] = float(np.abs(q - np.swapaxes(q, 0, 1)).max())
+            print(f"    mass change {rec['mass_change']:.3e} (tol "
+                  f"{SCALAR_MASS_TOL[tname]}); max |q - q^T| "
+                  f"{rec['symmetry']:.3e}"
+                  + (f" (tol {SCALAR_SYM_TOL})" if tname == "float64"
+                     else " (reported)"), flush=True)
+            if (rec["mass_change"] > SCALAR_MASS_TOL[tname]
+                    or (tname == "float64"
+                        and rec["symmetry"] > SCALAR_SYM_TOL)):
+                fail(f"[4v] {name} {tname}: {rec}")
+            runs[tname] = q
+            out[f"{name}:{tname}"] = rec
+            del claw
+        l1 = float(np.abs(runs["float32"] - runs["float64"]).mean()
+                   / np.abs(runs["float64"]).mean())
+        out[f"{name}:f32_vs_f64_l1"] = l1
+        print(f"    {name} f32 against f64: rel L1 {l1:.3e}", flush=True)
+    return out
+
+
+def scalar_card_vs_cpu(dev):
+    """[5y]: this slice's runs on the card against the same runs on the
+    CPU's plain path in float64 (equal steps, q to CARD_VS_CPU_TOL of
+    max|q|): the three examples on their routes at 40^2 (advection_2d at
+    48^2), advection_2D and vc_advection_fwave_2D at 40^2, burgers_2D at
+    48^2 and burgers_3D at 12^3."""
+    out = {}
+    cases = (
+        ("kpp classic", lambda d: run_example(d, "kpp", np.float64, 1.0,
+                                              mx=40, my=40)),
+        ("kpp sharpclaw", lambda d: run_example(
+            d, "kpp", np.float64, 1.0, mx=40, my=40,
+            solver_type="sharpclaw")),
+        ("acoustics_2d_interface classic", lambda d: run_example(
+            d, "acoustics_2d_interface", np.float64, 0.6, mx=40, my=40)),
+        ("acoustics_2d_interface sharpclaw", lambda d: run_example(
+            d, "acoustics_2d_interface", np.float64, 0.6, mx=40, my=40,
+            solver_type="sharpclaw")),
+        ("advection_2d", lambda d: run_example(d, "advection_2d", np.float64,
+                                               2.0, mx=48, my=48)),
+        ("advection_2D", lambda d: run_scalar(d, "advection_2D", 40,
+                                              np.float64, 0.25)),
+        ("vc_advection_fwave_2D", lambda d: run_scalar(
+            d, "vc_advection_fwave_2D", 40, np.float64, 0.25)),
+        ("burgers_2D", lambda d: run_scalar(d, "burgers_2D", 48, np.float64,
+                                            0.4)),
+        ("burgers_3D", lambda d: run_scalar(d, "burgers_3D", 12, np.float64,
+                                            0.5)))
+    for label, run in cases:
+        runs = {}
+        for where in (dev, "cpu"):
+            c, st, w = run(where)
+            runs[str(where)] = (c.solution.q, (st["numsteps"],
+                                               st["numrejected"]), w)
+        (q_k, s_k, w_k), (q_c, s_c, w_c) = runs[str(dev)], runs["cpu"]
+        rel = float(np.abs(q_k - q_c).max() / np.abs(q_c).max())
+        out[label] = {"max_rel": rel, "steps_card": s_k, "steps_cpu": s_c,
+                      "wall_card_s": w_k, "wall_cpu_s": w_c}
+        print(f"[5y] {label} f64 card vs cpu: max rel {rel:.3e} (tol "
+              f"{CARD_VS_CPU_TOL}), steps card {s_k}, cpu {s_c}; wall card "
+              f"{w_k:.3f} s, cpu {w_c:.3f} s", flush=True)
+        if not (s_k == s_c and rel <= CARD_VS_CPU_TOL):
+            fail(f"[5y] {label}: {out[label]}")
+    return out
+
+
+def timing_scalar(dev, name, n=1024):
+    """[6]: step2_aos's instance of system ``name`` (CUDA events and the
+    profiler's device time), its plain version and its bound on its run's
+    first input at n^2 (ops/time_kernels.py:step2_aos_scalar_case)."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc, args = step2_aos_scalar_case(name, n, dtype, dev)
+        auxbc, dt, dx, dy, rp, params, lims, order, fwave, capa, _, tw = args
+
+        def kern():
+            return tiled2d.step2_rows_generic(qbc, *args)
+
+        def plain():
+            return plain_step2(qbc, auxbc, dt, dx, dy, rp, params, lims,
+                               order, fwave, capa, tw)
+
+        ms = time_ms(kern, 200)
+        plain_ms = time_ms(plain, 20, warm=2)
+        ms_again = time_ms(kern, 200)
+        dev_ms, dev_n = device_ms_per_call(kern, "step2_aos_kernel", 20)
+        item = qbc.element_size()
+        cells = (qbc.shape[1] - 4) * (qbc.shape[2] - 4)
+        aux_bytes = 0 if auxbc is None else auxbc.numel() * item
+        b = bound_of(qbc.numel() * item + aux_bytes
+                     + rp.num_eqn * cells * item,
+                     FLOPS_PER_CELL_SCALAR[name] * cells, tname)
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, "shape": list(qbc.shape), **b}
+        print(f"  timing step2_aos {name} {tuple(qbc.shape)} {tname}: "
+              f"kernel {ms:.4f} ms (repeat {ms_again:.4f}; on the device "
+              f"{dev_ms} ms, {dev_n} launches profiled), plain "
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}; bytes {b['bytes_ms']:.4f}, operations "
+              f"{b['ops_ms']:.4f}), share of bound {b['bound_ms'] / ms:.4f}, "
+              f"library_ms null", flush=True)
+    return out
+
+
+def timing_burgers3d(dev, n=192):
+    """[6]: step3_aos's burgers_3D instance (the Burgers 3D run's
+    configuration: transverse_waves 2, order 2, MC), its plain version and
+    its bound at n^3 on the run's first input
+    (ops/time_kernels.py:step3_aos_burgers_case)."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc, auxbc, args = step3_aos_burgers_case(n, dtype, dev)
+        dt, deltas, rp, params = args[0], args[1:4], args[4], args[5]
+
+        def kern():
+            return tiled2d.step3_xy_generic(qbc, auxbc, *args)
+
+        def plain():
+            return plain_step3_aos(qbc, auxbc, dt, deltas, rp.name, (4,), 2,
+                                   False, -1, 2, params=params)
+
+        ms = time_ms(kern, 20, warm=2)
+        plain_ms = time_ms(plain, 3, warm=1)
+        ms_again = time_ms(kern, 20, warm=2)
+        dev_ms, dev_n = device_ms_per_call(kern, "step3_aos_kernel", 10)
+        item = qbc.element_size()
+        b = bound_of((qbc.numel() + n ** 3) * item,
+                     flops_per_cell_3d_aos(rp.name, 2) * n ** 3, tname)
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, "shape": list(qbc.shape), **b}
+        print(f"  timing step3_aos burgers_3D {n}^3 {tname}: kernel "
+              f"{ms:.4f} ms (repeat {ms_again:.4f}; on the device {dev_ms} "
+              f"ms, {dev_n} launches profiled), plain {plain_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bytes "
+              f"{b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), share "
+              f"of bound {b['bound_ms'] / ms:.4f}, library_ms null",
+              flush=True)
+        del qbc
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- the parallel overlay: [4m] NCCL with one rank, [4n] four ranks -------
 
 # [4n]'s runs: name -> (the example module, its setup keywords, the
@@ -4072,6 +4732,7 @@ def main():
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 0)} B, f64 "
           f"{lib_3a.step3_aos_smem_bytes(0, 1, 1)} B", flush=True)
     phase_s = {"build": time.perf_counter() - t0}
+    scalar_runs = {}
     print(f"    resident per SM: step2_ctu "
           f"{lib.step2_ctu_blocks_per_sm(0)} blocks of "
           f"{lib.step2_ctu_threads(0)} threads (f32), "
@@ -4110,6 +4771,17 @@ def main():
           f"{dq_lib.dq2_weno5_euler5_blocks_per_sm(0)} (f32), "
           f"{dq_lib.dq2_weno5_euler5_blocks_per_sm(1)} (f64) blocks per SM",
           flush=True)
+    smem_scalar = {name: [lib_aos.step2_aos_smem_bytes(
+        tiled2d.AOS_SYSTEMS[name][0], c, d) for d in (0, 1) for c in (0, 1)]
+        for name in SCALAR_2D}
+    print(f"    the scalar instances: step2_aos shared memory (f32 without "
+          f"and with capacity, then f64) {smem_scalar} B, blocks per SM "
+          f"{lib_aos.step2_aos_system_blocks_per_sm(6, 0)} (f32), "
+          f"{lib_aos.step2_aos_system_blocks_per_sm(6, 1)} (f64); step3_aos "
+          f"burgers_3D {lib_3a.step3_aos_smem_bytes(3, 0, 0)} B (f32), "
+          f"{lib_3a.step3_aos_smem_bytes(3, 0, 1)} B (f64), with capacity "
+          f"{lib_3a.step3_aos_smem_bytes(3, 1, 0)} B (f32), "
+          f"{lib_3a.step3_aos_smem_bytes(3, 1, 1)} B (f64)", flush=True)
     for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
@@ -4264,6 +4936,28 @@ def main():
           f"f64 {dq5_worst['float64']:.3e} (tol {TOL_REL['float64']}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     phase_s["3m"] = time.perf_counter() - t0
+
+    # [3n] step2_aos's scalar and variable-coefficient instances and [3o]
+    # step3_aos's burgers_3D instance against their plain version
+    t0 = time.perf_counter()
+    sc_worst, sc_worst_cfl, sc_abs, sc_ncase = compare_scalar(dev)
+    print(f"[3n] step2_aos vs plain (advection_2D, vc_advection_2D, "
+          f"vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D, burgers_2D): "
+          f"{sc_ncase} cases, max rel err f32 {sc_worst['float32']:.3e} (tol "
+          f"{TOL_REL['float32']}), f64 {sc_worst['float64']:.3e} (tol "
+          f"{TOL_REL['float64']}); max cfl rel f32 "
+          f"{sc_worst_cfl['float32']:.3e}, f64 {sc_worst_cfl['float64']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_s["3n"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b3_worst, b3_worst_cfl, b3_abs, b3_ncase = compare_burgers3d(dev)
+    print(f"[3o] step3_aos burgers_3D vs plain: {b3_ncase} cases, max rel "
+          f"err f32 {b3_worst['float32']:.3e} (tol {TOL_REL['float32']}), "
+          f"f64 {b3_worst['float64']:.3e} (tol {TOL_REL['float64']}); max "
+          f"cfl rel f32 {b3_worst_cfl['float32']:.3e}, f64 "
+          f"{b3_worst_cfl['float64']:.3e}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    phase_s["3o"] = time.perf_counter() - t0
 
     def check_run(label, claw, ns, nr):
         q = claw.solution.q
@@ -4476,6 +5170,15 @@ def main():
     swaug = sw_aug_paths(dev)
     phase_s["4r"] = time.perf_counter() - t0
 
+    # [4s]-[4v] the runs of this slice's systems: kpp, the material
+    # interface, the three advection systems, Burgers in 2D and 3D; every
+    # launch count set to 0 just before each run and read just after
+    for key, phase in (("4s", kpp_path), ("4t", interface_path),
+                       ("4u", advection_paths), ("4v", burgers_paths)):
+        t0 = time.perf_counter()
+        scalar_runs[key] = phase(dev)
+        phase_s[key] = time.perf_counter() - t0
+
     # [4m] the parallel overlay in a world of one NCCL rank against [4c];
     # [4n] four ranks against the serial runs, every launch count of each
     # rank set to 0 just before each run and read just after
@@ -4542,6 +5245,11 @@ def main():
     new_vs_cpu = card_vs_cpu_new(dev)
     phase_s["5x"] = time.perf_counter() - t0
 
+    # [5y] [4s]-[4v]'s runs at small grids on the card against the CPU
+    t0 = time.perf_counter()
+    scalar_vs_cpu = scalar_card_vs_cpu(dev)
+    phase_s["5y"] = time.perf_counter() - t0
+
     # [4h] the device loop against the host loop on every main path; [4i]
     # gauges and before_step on the card against the CPU
     t0 = time.perf_counter()
@@ -4555,64 +5263,102 @@ def main():
     # counters
     count_on_device(None)
     t0 = time.perf_counter()
+    # each item's seconds (phase_seconds "6:<item>")
+    last = [t0]
+
+    def lap(key):
+        now = time.perf_counter()
+        phase_s[f"6:{key}"] = now - last[0]
+        last[0] = now
+
     tm = timing(dev)
+    lap("tm")
     tm_dq = timing_dq(dev)
+    lap("tm_dq")
     tm3 = timing_step3(dev, q_last=q3)
+    lap("tm3")
     del q3
     tm_aos = timing_aos(dev)
+    lap("tm_aos")
     tm_aos_ac = timing_aos(dev, system=ACOUSTICS_2D)
+    lap("tm_aos_ac")
     tm_het = timing_step3_aos(dev, q_last=q_h)
+    lap("tm_het")
     del q_h
     tm_eu = timing_step3_capa(dev, q_last=q_e)
+    lap("tm_eu")
     del q_e
     tm_rs = timing_restore(dev)
+    lap("tm_rs")
     tm_dq_ac = timing_dq_acoustics(dev)
+    lap("tm_dq_ac")
     tm_w5_3d = timing_weno5_3d(dev)
+    lap("tm_w5_3d")
     tm_aos_new = {name: timing_aos(dev, system=name)
                   for name in (EULER4, EULER5, SW_AUG)}
+    lap("tm_aos_new")
     tm_dq_e5 = timing_dq_euler5(dev)
+    lap("tm_dq_e5")
+    tm_scalar = {name: timing_scalar(dev, name) for name in SCALAR_2D}
+    lap("tm_scalar")
+    tm_b3 = timing_burgers3d(dev)
+    lap("tm_b3")
     prof = profile_loops(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
+    lap("prof")
     sprof = profile_loops(
         "sharpclaw main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1, "sharpclaw"))
+    lap("sprof")
     prof3 = profile_loops(
         "euler_3d main path 192^3 f32 to t=0.02",
         lambda: run_euler3d(dev, 192, np.float32, 0.02))
+    lap("prof3")
     prof_sw = profile_loops(
         "shallow path 1024^2 f32 to t=0.1",
         lambda: run_shallow(dev, 1024, np.float32, 0.1))
+    lap("prof_sw")
     prof_het = profile_loops(
         "acoustics_3d_heterogeneous path 192^3 f32 to t=0.8",
         lambda: run_het(dev, 192, np.float32))
+    lap("prof_het")
     prof_eu = profile_loops(
         "euler_3d capacity path 192^3 f32 to t=0.02",
         lambda: run_euler3d_capa(dev, 192, np.float32, 0.02))
+    lap("prof_eu")
     tm_1d = timing_1d(dev)
+    lap("tm_1d")
     prof_sod = profile_loops(
         "sod classic path 800 f32 to t=0.2",
         lambda: run_sod(dev, 800, np.float32, "classic"))
     # a short window: the SharpClaw stage is ~230 small launches, and the
     # profiler's bookkeeping of a whole run takes minutes
+    lap("prof_sod")
     prof_sod_sharp = profile_loops(
         "sod sharpclaw path 800 f32 to t=0.02",
         lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02))
+    lap("prof_sod_sharp")
     prof_ac = profile_loops(
         "acoustics path 1024^2 f32 to t=0.12",
         lambda: run_acoustics(dev, 1024, np.float32))
+    lap("prof_ac")
     prof_dam = profile_loops(
         "dam_break_dry path 500 f32 to t=0.5",
         lambda: run_dam(dev, 500, np.float32, 0.5))
+    lap("prof_dam")
     prof_cd = profile_loops(
         "sod sharpclaw char_decomp=2 path 800 f32 to t=0.02",
         lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02, 2))
     # [4o]'s path, the device loop only (its host loop takes minutes under
     # the profiler): the busy share and weno5's share of the device time
+    lap("prof_cd")
     prof_s3 = profile_main_path(
         "[4o] sharpclaw euler_3d path 192^3 f32 to t=0.02, device loop",
         lambda: run_euler3d(dev, 192, np.float32, 0.02,
                             solver_type="sharpclaw"))
+
+    lap("prof_s3")
     phase_s["6"] = time.perf_counter() - t0
 
     f32, f64 = tm["float32"], tm["float64"]
@@ -4973,6 +5719,64 @@ def main():
         "bound_ms_f64": e64["bound_ms"], "bound_by_f64": e64["bound_by"],
         "max_rel_err_f64": dq5_worst["float64"],
         "max_rel_err_f32": dq5_worst["float32"]})
+    # this slice's instances: each one's launches from its run
+    sr = scalar_runs
+    scalar_launches = {
+        "kpp_2D": sr["4s"]["classic"]["launches"]["step2_aos"],
+        "vc_acoustics_2D": sr["4t"]["classic"]["launches"]["step2_aos"],
+        "vc_advection_2D": sr["4u"]["advection_2d"]["launches"]["step2_aos"],
+        "advection_2D": sr["4u"]["advection_2D"]["launches"]["step2_aos"],
+        "vc_advection_fwave_2D":
+            sr["4u"]["vc_advection_fwave_2D"]["launches"]["step2_aos"],
+        "burgers_2D":
+            sr["4v"]["burgers_2D:float32"]["launches"]["step2_aos"]}
+    for name in SCALAR_2D:
+        t32, t64 = tm_scalar[name]["float32"], tm_scalar[name]["float64"]
+        new_records.append({
+            "name": f"step2_aos:{name}", "route": "cuda",
+            "source": "pyclaw_tpu_torch/csrc/step2_aos.cu",
+            "system_source": ("pyclaw_tpu_torch/csrc/acoustics2d.cuh"
+                              if name == "vc_acoustics_2D" else
+                              "pyclaw_tpu_torch/csrc/scalar2d.cuh"),
+            "replaces": "pyclaw_tpu/ops/tiled2d.py:113",
+            "replaces_function": "step2_pallas_rows (generic body "
+                                 "classic/kernels.py:345 step2_roll); "
+                                 "step2_pallas_tiled_generic "
+                                 "(ops/tiled2d.py:609); step2_pallas "
+                                 "(ops/sweep2d.py:41)",
+            "rows": ["1b"], "launches": scalar_launches[name],
+            "max_abs_err": sc_abs[name],
+            "ms": t32["ms"], "device_ms": t32["device_ms"],
+            "plain_ms": t32["plain_ms"],
+            "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+            "library_ms": None, "shape": t32["shape"], "dtype": "float32",
+            "ms_f64": t64["ms"], "device_ms_f64": t64["device_ms"],
+            "plain_ms_f64": t64["plain_ms"],
+            "bound_ms_f64": t64["bound_ms"],
+            "bound_by_f64": t64["bound_by"],
+            "max_rel_err_f64": sc_worst["float64"],
+            "max_rel_err_f32": sc_worst["float32"]})
+    b32, b64 = tm_b3["float32"], tm_b3["float64"]
+    new_records.append({
+        "name": "step3_aos:burgers_3D", "route": "cuda",
+        "source": "pyclaw_tpu_torch/csrc/step3_aos.cu",
+        "system_source": "pyclaw_tpu_torch/csrc/acoustics3d.cuh",
+        "replaces": "pyclaw_tpu/ops/tiled2d.py:431",
+        "replaces_function": "step3_pallas_xy",
+        "replaces_body": "kernel_aux (ops/tiled2d.py:490-518; "
+                         "classic/kernels.py:806 step3_roll)",
+        "rows": ["3b"],
+        "launches": sr["4v"]["burgers_3D:float32"]["launches"]["step3_aos"],
+        "max_abs_err": b3_abs,
+        "ms": b32["ms"], "device_ms": b32["device_ms"],
+        "plain_ms": b32["plain_ms"],
+        "bound_ms": b32["bound_ms"], "bound_by": b32["bound_by"],
+        "library_ms": None, "shape": b32["shape"], "dtype": "float32",
+        "ms_f64": b64["ms"], "device_ms_f64": b64["device_ms"],
+        "plain_ms_f64": b64["plain_ms"],
+        "bound_ms_f64": b64["bound_ms"], "bound_by_f64": b64["bound_by"],
+        "max_rel_err_f64": b3_worst["float64"],
+        "max_rel_err_f32": b3_worst["float32"]})
     kernels = [record, dq_record, dq_ac_record, s3_record, aos_record,
                aos_ac_record, s1_record, s1_sw_record, w5_record,
                w5_3d_record, het_record, eu_record, rs_record] + new_records
@@ -5009,6 +5813,9 @@ def main():
                "shock_bubble_path": bubble,
                "quadrants_off_soa": routes_q, "sw_aug_paths": swaug,
                "new_card_vs_cpu": new_vs_cpu,
+               "scalar_runs": scalar_runs,
+               "scalar_card_vs_cpu": scalar_vs_cpu,
+               "timing_scalar": tm_scalar, "timing_burgers_3d": tm_b3,
                "timing_aos_new": tm_aos_new, "timing_dq_euler5": tm_dq_e5,
                "timing_weno5_3d": tm_w5_3d,
                "profile_sharpclaw_euler3d": prof_s3,

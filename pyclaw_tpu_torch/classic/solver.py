@@ -98,7 +98,19 @@ class ClawSolver2D(ClawSolver):
     (step2.f90/flux2.f90 path).  ``transverse_waves`` ∈ {0, 1, 2}: 0 =
     donor-cell, 1 = corner transport of the first-order fluctuations,
     2 = also of the second-order correction waves.  Takes aux arrays, a
-    capacity function (``state.index_capa``) and ``fwave``."""
+    capacity function (``state.index_capa``) and ``fwave``.
+
+    The step: the Euler 4-wave system on the SoA route
+    (:meth:`_soa_eligible`) runs ``ops.tiled2d.step2_rows``
+    (``csrc/step2_ctu.cu``); every other system with an ``rp`` and an
+    ``rpt`` hook runs ``ops.tiled2d.step2_rows_generic``, which on the
+    card launches ``csrc/step2_aos.cu`` for the systems of
+    ``ops.tiled2d.AOS_SYSTEMS``: the shallow-water systems
+    (``shallow_roe_with_efix_2D``, ``shallow_bathymetry_fwave_2D``,
+    ``sw_aug_2D``), ``acoustics_2D``, ``vc_acoustics_2D``, the Euler 4- and
+    5-wave systems, ``advection_2D``, ``vc_advection_2D``,
+    ``vc_advection_fwave_2D``, ``kpp_2D`` and ``burgers_2D``, and raises
+    for any other."""
     num_dim = 2
 
     def __init__(self, riemann_solver=None, device=None):
@@ -128,8 +140,7 @@ class ClawSolver2D(ClawSolver):
             return step_fn
 
         # the generic AoS step (any system with AoS hooks; on the card the
-        # systems of tiled2d.AOS_SYSTEMS: shallow water, acoustics and the
-        # Euler 4- and 5-wave systems, the wrapper raises for others)
+        # systems of tiled2d.AOS_SYSTEMS, the wrapper raises for others)
         rp = self.rp
         if rp.rp is None or rp.rpt is None:
             raise _not_ported("generic AoS 2D step")
@@ -177,8 +188,10 @@ class ClawSolver3D(ClawSolver):
     The step: ``euler_3D`` runs ``ops.tiled2d.step3_xy``
     (``csrc/step3_ctu.cu``), with or without a capacity function or
     f-waves (Euler reads no other aux); the systems of
-    ``ops.tiled2d.STEP3_SYSTEMS`` run ``ops.tiled2d.step3_xy_generic``
-    (``csrc/step3_aos.cu``)."""
+    ``ops.tiled2d.STEP3_SYSTEMS`` (``vc_acoustics_3D``, ``acoustics_3D``,
+    ``advection_3D``, ``burgers_3D``: every 3D record of the JAX package
+    but Euler) run ``ops.tiled2d.step3_xy_generic``
+    (``csrc/step3_aos.cu``).  Any other 3D record is refused at setup."""
     num_dim = 3
 
     def __init__(self, riemann_solver=None, device=None):

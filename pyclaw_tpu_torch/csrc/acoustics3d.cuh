@@ -6,11 +6,16 @@
 //                  _rptt3_acoustics (constant Z and c)
 //   Advection3D    advection.py      _rp_advection + _rpt_advection +
 //                  _rptt_advection (constant u, v, w)
+//   Burgers3D      burgers.py        _rp_burgers + _rpt_burgers +
+//                  _rptt_burgers (the entropy fix; splits by the sign of
+//                  the receiving cell's state: SPLIT_Q)
 // (Euler in 3D runs step3_ctu.cu, euler3d.cuh.)  Each system gives its
 // normal solve rpn<D> at a D-interface, its transverse split rpt<E> of a
 // fluctuation along E and, where it has one, its double-transverse split
 // rptt<F> along F.  A split reads the aux of the receiving cell and of
-// its two neighbours along the split's axis.
+// its two neighbours along the split's axis; a system with SPLIT_Q reads
+// the receiving cell's state instead, which the kernel passes in place of
+// that cell's aux (ac).
 // The Python scalar factors fold as they do there: 2.0 * zz once in
 // double (Sys3::p2z), then rounded to T where it meets a tensor.
 //
@@ -23,8 +28,8 @@
 
 namespace {
 
-// physics scalars in the kernel's type: advection (u, v, w) in vel;
-// acoustics zz, cc and 2 zz
+// physics scalars in the kernel's type: advection (u, v, w) in vel (the
+// efix flag of Burgers in vel[0]); acoustics zz, cc and 2 zz
 template <typename T> struct Sys3 {
   T vel[3];
   T zz, cc, p2z;
@@ -153,6 +158,45 @@ struct Advection3D {
     bp[0] = mx(ut, T(0)) * asdq[0];
   }
 
+  template <int F, typename T>
+  HD static void rptt(const Sys3<T>& P, const T ab[], const T ac[],
+                      const T aa[], const T bs[], T cm[], T cp[]) {
+    rpt<F, T>(P, ab, ac, aa, bs, cm, cp);
+  }
+};
+
+// ---- Burgers: one equation, one wave; p0 (vel[0]) the efix flag ---------
+struct Burgers3D {
+  static constexpr int NEQ = 1, NW = 1, NAUX = 0;
+  static constexpr bool HAS_RPTT = true;
+  // the splits read the receiving cell's state (in ac[0])
+  static constexpr bool SPLIT_Q = true;
+
+  template <int D, typename T>
+  HD static void rpn(const Sys3<T>& P, const T ql[], const T qr[],
+                     const T[], const T[], T w[][NEQ], T s[], T am[],
+                     T ap[]) {
+    const T dq = qr[0] - ql[0];
+    const T sv = T(0.5) * (ql[0] + qr[0]);
+    w[0][0] = dq;
+    s[0] = sv;
+    am[0] = mn(sv, T(0)) * dq;
+    ap[0] = mx(sv, T(0)) * dq;
+    if (P.vel[0] != T(0) && ql[0] < T(0) && qr[0] > T(0)) {
+      am[0] = T(-0.5) * ql[0] * ql[0];     // transonic rarefaction
+      ap[0] = T(0.5) * qr[0] * qr[0];
+    }
+  }
+
+  // by the sign of the receiving cell's state qc = ac[0]
+  template <int E, typename T>
+  HD static void rpt(const Sys3<T>&, const T[], const T ac[], const T[],
+                     const T asdq[], T bm[], T bp[]) {
+    bm[0] = mn(ac[0], T(0)) * asdq[0];
+    bp[0] = mx(ac[0], T(0)) * asdq[0];
+  }
+
+  // _rptt_burgers is _rpt_burgers on the part, by the same cell
   template <int F, typename T>
   HD static void rptt(const Sys3<T>& P, const T ab[], const T ac[],
                       const T aa[], const T bs[], T cm[], T cp[]) {

@@ -31,12 +31,21 @@ HD float pow_(float x, float y) { return powf(x, y); }
 HD double pow_(double x, double y) { return pow(x, y); }
 HD float fabs_(float x) { return fabsf(x); }
 HD double fabs_(double x) { return fabs(x); }
+HD float sin_(float x) { return sinf(x); }
+HD double sin_(double x) { return sin(x); }
+HD float cos_(float x) { return cosf(x); }
+HD double cos_(double x) { return cos(x); }
 #else
 template <typename T> HD T rsqrt_(T x) { return T(1) / std::sqrt(x); }
 template <typename T> HD T sqrt_(T x) { return std::sqrt(x); }
 template <typename T> HD T pow_(T x, T y) { return std::pow(x, y); }
 template <typename T> HD T fabs_(T x) { return std::fabs(x); }
+template <typename T> HD T sin_(T x) { return std::sin(x); }
+template <typename T> HD T cos_(T x) { return std::cos(x); }
 #endif
+
+// the physics scalars of a system that takes none
+template <typename T> struct NoPar {};
 
 // NaN-propagating max/min (jnp.maximum / torch.maximum semantics)
 template <typename T> HD T mx(T a, T b) { return (a != a || a > b) ? a : b; }

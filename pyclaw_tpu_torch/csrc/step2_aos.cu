@@ -1,8 +1,12 @@
 // step2_aos.cu — the whole 2D unsplit classic (CTU) step of the generic
 // AoS form, one launch per step, for Hopper (sm_90a): any registered
-// system of csrc/shallow2d.cuh, csrc/acoustics2d.cuh, csrc/euler2d_aos.cuh
-// or csrc/sw_aug2d.cuh, with aux arrays, a capacity function and the
-// f-wave correction form.
+// system of csrc/shallow2d.cuh, csrc/acoustics2d.cuh, csrc/euler2d_aos.cuh,
+// csrc/sw_aug2d.cuh or csrc/scalar2d.cuh, with aux arrays, a capacity
+// function and the f-wave correction form.  Twelve systems, each a
+// template instance of its own (SYS_* below): shallow_roe_with_efix_2D,
+// shallow_bathymetry_fwave_2D, acoustics_2D, euler_4wave_2D,
+// euler_5wave_2D, sw_aug_2D, advection_2D, vc_advection_2D,
+// vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D and burgers_2D.
 //
 // Replaces the TPU kernels that run the generic body
 // pyclaw_tpu/classic/kernels.py:step2 (and its roll form step2_roll):
@@ -77,6 +81,27 @@
 // section 6; H100, 700 W): Euler 4-wave 0.18 / 0.65 ms, Euler 5-wave
 // 0.26 / 0.87 ms, sw_aug_2D 0.18 / 0.50 ms (f32 / f64).
 //
+// The scalar and variable-coefficient systems (advection_2D,
+// vc_advection_2D, vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D,
+// burgers_2D; added after the Euler ones) keep the design, the tile and
+// the first systems' Args (two physics scalars: (u, v) for advection_2D,
+// the efix flag for Burgers).  Four of them split a fluctuation by the
+// cell it enters, not by the interface: Burgers by that cell's state,
+// the variable-coefficient advection by the transverse edge velocities
+// of that cell and of the one above it, the heterogeneous acoustics by
+// the impedance and sound speed of that cell and of its two transverse
+// neighbours, which the plain version takes by a torch.roll of the
+// receiving cells' aux.  Their hook is S::rpt, marked by S::CELL_SPLIT
+// (cell_split below): it reads the staged cells, which the split region
+// and its neighbours keep inside the tile and its halo; the Trans hook of
+// the earlier systems and their code are unchanged (the same SASS and
+// bits, time_kernels --sass against the earlier build).  Measured on each
+// run's first state at 1024^2 (PERF.md section 6; H100, 700 W), device
+// ms f32 / f64: kpp_2D 0.040 / 0.074, vc_acoustics_2D 0.096 / 0.207,
+// vc_advection_2D 0.033 / 0.048, advection_2D 0.039 / 0.066,
+// vc_advection_fwave_2D 0.042 / 0.071, burgers_2D 0.036 / 0.050: bytes
+// bound them at 2.5-10 µs.
+//
 // Phases (each a loop of the block's threads over one or two regions,
 // separated by barriers):
 //   load      q, aux, kappa tile + halo -> shared (indices clamped to the
@@ -97,7 +122,8 @@
 // scalars in Args (Par, set by make_par), its per-cell quantities (prep,
 // NPC of them), the wave components that can be nonzero (nz: the
 // limiter's dot products and the correction sums skip the others), its
-// normal solve (rpn) and the transverse split of an interface (Trans);
+// normal solve (rpn) and the transverse split of an interface (Trans) or
+// of a receiving cell (rpt, CELL_SPLIT);
 // every per-wave loop runs over its NW waves), the type, the tile, CAPA
 // (per-cell dtdx) and FWAVE (the correction form 0.5 sign(s) (1 - |s|
 // dt/dx), with sign(0) = 0).  The arithmetic
@@ -107,15 +133,27 @@
 // jump where a speed crosses zero, and a contracted multiply-add that
 // moved such a speed across zero moved the result by a whole wave.
 
+#include <type_traits>
+
 #include "acoustics2d.cuh"
 #include "async_copy.cuh"
 #include "dt_coef.cuh"
 #include "euler2d_aos.cuh"
+#include "scalar2d.cuh"
 #include "shallow2d.cuh"
 #include "sw_aug2d.cuh"
 #include "tvd.cuh"
 
 namespace {
+
+// Whether system S splits a fluctuation by the cell it enters (S::rpt: the
+// state of that cell and the aux of it and of its two neighbours along the
+// transverse axis; S::CELL_SPLIT) rather than by the interface (S::Trans,
+// the systems without the member)
+template <class S, class = void> struct CellSplit : std::false_type {};
+template <class S>
+struct CellSplit<S, std::void_t<decltype(S::CELL_SPLIT)>>
+    : std::integral_constant<bool, S::CELL_SPLIT> {};
 
 constexpr int NT = 256;  // threads per block
 
@@ -245,6 +283,9 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
     for (int e = 0; e < L::NEQ; ++e) qv[e] = q[e * L::QN + r * L::QC + c];
     for (int m = 0; m < L::NAUX; ++m) av[m] = a[m * L::QN + r * L::QC + c];
   }
+  HD void aux_of(int r, int c, T av[]) const {
+    for (int m = 0; m < L::NAUX; ++m) av[m] = a[m * L::QN + r * L::QC + c];
+  }
   HD void prep(int r, int c, T pv[]) const {
     for (int k = 0; k < L::NPC; ++k) pv[k] = PC[k * L::QN + r * L::QC + c];
   }
@@ -332,6 +373,27 @@ HD void item_rpn(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
       O[(F_AP * NEQ + e) * ON + o] = ap[e];
     }
   }
+}
+
+// ---- the transverse split of a CELL_SPLIT system: the fluctuation asdq
+// entering the staged cell (r, c), by its state and the aux of it and of
+// its neighbours below and above along the transverse axis (y for an
+// x-interface, x for a y-interface).  The split regions reach cells
+// 1 .. TX+2 (TY+2) of the staged tile along the transverse axis, so the
+// neighbours lie in 0 .. TX+3 (TY+3): inside the tile and its halo; a
+// neighbour clamped at the padded grid's upper edge feeds only parts
+// that no kept face gathers (the plain version's wrapped row) ----------
+template <int IXY, typename S, typename T, int TX, int TY, bool CAPA>
+HD void cell_split(const SysArgs<S, T>& A,
+                   const Block<S, T, TX, TY, CAPA>& B, int r, int c,
+                   const T asdq[], T bm[], T bp[]) {
+  using L = Tile<S, T, TX, TY, CAPA>;
+  constexpr int dr = IXY == 0 ? 0 : 1, dc = IXY == 0 ? 1 : 0;
+  T qc[L::NEQ], ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
+  B.cell(r, c, qc, ac);
+  B.aux_of(r - dr, c - dc, ab);
+  B.aux_of(r + dr, c + dc, aa);
+  S::template rpt<IXY, T>(A.P, qc, ab, ac, aa, asdq, bm, bp);
 }
 
 // fold thread t's CFL partial into its warp's slot: a shuffle max on the
@@ -438,20 +500,34 @@ HD void phase_sweep(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
         amt[e] = both ? am + cq[e] : am;
         apt[e] = both ? ap - cq[e] : ap;
       }
-      B.cell(lr, lc, ql, ax);
-      B.cell(rr, rc, qr, ax);
-      B.prep(lr, lc, pl);
-      B.prep(rr, rc, pr);
-      const typename S::template Trans<IXY, T> tr(A.P, ql, qr, pl, pr);
-      tr.split(amt, bm, bp);
-      for (int e = 0; e < NEQ; ++e) {
-        B.P[(F_T0 * NEQ + e) * SN + idx] = bm[e];
-        B.P[(F_T1 * NEQ + e) * SN + idx] = bp[e];
-      }
-      tr.split(apt, bm, bp);
-      for (int e = 0; e < NEQ; ++e) {
-        B.P[(F_T2 * NEQ + e) * SN + idx] = bm[e];
-        B.P[(F_T3 * NEQ + e) * SN + idx] = bp[e];
+      if constexpr (CellSplit<S>::value) {
+        // amdq enters the left cell, apdq the right one
+        cell_split<IXY>(A, B, lr, lc, amt, bm, bp);
+        for (int e = 0; e < NEQ; ++e) {
+          B.P[(F_T0 * NEQ + e) * SN + idx] = bm[e];
+          B.P[(F_T1 * NEQ + e) * SN + idx] = bp[e];
+        }
+        cell_split<IXY>(A, B, rr, rc, apt, bm, bp);
+        for (int e = 0; e < NEQ; ++e) {
+          B.P[(F_T2 * NEQ + e) * SN + idx] = bm[e];
+          B.P[(F_T3 * NEQ + e) * SN + idx] = bp[e];
+        }
+      } else {
+        B.cell(lr, lc, ql, ax);
+        B.cell(rr, rc, qr, ax);
+        B.prep(lr, lc, pl);
+        B.prep(rr, rc, pr);
+        const typename S::template Trans<IXY, T> tr(A.P, ql, qr, pl, pr);
+        tr.split(amt, bm, bp);
+        for (int e = 0; e < NEQ; ++e) {
+          B.P[(F_T0 * NEQ + e) * SN + idx] = bm[e];
+          B.P[(F_T1 * NEQ + e) * SN + idx] = bp[e];
+        }
+        tr.split(apt, bm, bp);
+        for (int e = 0; e < NEQ; ++e) {
+          B.P[(F_T2 * NEQ + e) * SN + idx] = bm[e];
+          B.P[(F_T3 * NEQ + e) * SN + idx] = bp[e];
+        }
       }
     }
 
@@ -635,7 +711,8 @@ SysArgs<S, T> make_args(const void* qbc, const void* aux, void* qout,
   A.ddy = dy;
   A.C = nullptr;
   // the system's two physics scalars: (grav, dry_tolerance) for shallow
-  // water, (zz, cc) for acoustics, (gamma - 1, unused) for Euler
+  // water, (zz, cc) for acoustics, (gamma - 1, unused) for Euler, (u, v)
+  // for advection_2D, (efix, unused) for Burgers
   A.P = S::template make_par<T>(p0, p1);
   A.order = order;
   A.tw = tw;
@@ -729,7 +806,9 @@ int launch(SysArgs<S, T> A, int nbx, int nby, void*) {
 // template instance of its own
 enum { SYS_SHALLOW_ROE_EFIX = 0, SYS_SHALLOW_BATHY_FWAVE = 1,
        SYS_ACOUSTICS_2D = 2, SYS_EULER_4WAVE_2D = 3, SYS_EULER_5WAVE_2D = 4,
-       SYS_SW_AUG_2D = 5, NUM_SYSTEMS = 6 };
+       SYS_SW_AUG_2D = 5, SYS_ADVECTION_2D = 6, SYS_VC_ADVECTION_2D = 7,
+       SYS_VC_ADVECTION_FWAVE_2D = 8, SYS_VC_ACOUSTICS_2D = 9,
+       SYS_KPP_2D = 10, SYS_BURGERS_2D = 11, NUM_SYSTEMS = 12 };
 // the limiter ids an entry takes (one per wave of the widest system)
 constexpr int NLIM_ENTRY = 5;
 
@@ -768,6 +847,18 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
       return STEP2_AOS_SYSTEM(Euler5AoS2D);
     case SYS_SW_AUG_2D:
       return STEP2_AOS_SYSTEM(SwAug2D);
+    case SYS_ADVECTION_2D:
+      return STEP2_AOS_SYSTEM(Advection2D);
+    case SYS_VC_ADVECTION_2D:
+      return STEP2_AOS_SYSTEM(VcAdvection2D);
+    case SYS_VC_ADVECTION_FWAVE_2D:
+      return STEP2_AOS_SYSTEM(VcAdvectionFwave2D);
+    case SYS_VC_ACOUSTICS_2D:
+      return STEP2_AOS_SYSTEM(VcAcoustics2D);
+    case SYS_KPP_2D:
+      return STEP2_AOS_SYSTEM(Kpp2D);
+    case SYS_BURGERS_2D:
+      return STEP2_AOS_SYSTEM(Burgers2D);
     default:
       return -1;
   }
@@ -819,6 +910,18 @@ int step2_aos_smem_bytes(int system, int capa, int is_double) {
       return smem_of<Euler5AoS2D>(capa != 0, is_double != 0);
     case SYS_SW_AUG_2D:
       return smem_of<SwAug2D>(capa != 0, is_double != 0);
+    case SYS_ADVECTION_2D:
+      return smem_of<Advection2D>(capa != 0, is_double != 0);
+    case SYS_VC_ADVECTION_2D:
+      return smem_of<VcAdvection2D>(capa != 0, is_double != 0);
+    case SYS_VC_ADVECTION_FWAVE_2D:
+      return smem_of<VcAdvectionFwave2D>(capa != 0, is_double != 0);
+    case SYS_VC_ACOUSTICS_2D:
+      return smem_of<VcAcoustics2D>(capa != 0, is_double != 0);
+    case SYS_KPP_2D:
+      return smem_of<Kpp2D>(capa != 0, is_double != 0);
+    case SYS_BURGERS_2D:
+      return smem_of<Burgers2D>(capa != 0, is_double != 0);
     default:
       return smem_of<ShallowRoeEfix2D>(capa != 0, is_double != 0);
   }
@@ -833,7 +936,9 @@ int step2_aos_smem_bytes(int system, int capa, int is_double) {
 // form; dt: the step in device memory (host memory for the host
 // emulation), a double that is exact in the entry's type; p0, p1: the
 // system's two physics scalars ((grav, dry_tolerance) for shallow water,
-// (zz, cc) for acoustics, (gamma - 1, 0) for Euler); l0..l4: the limiter
+// (zz, cc) for acoustics, (gamma - 1, 0) for Euler, (u, v) for
+// advection_2D, (efix, 0) for Burgers, unread by the other scalar systems
+// and vc_acoustics_2D); l0..l4: the limiter
 // ids of the waves (the kernel reads the system's NW).  Returns a
 // cudaError_t (0 on success), or -1 for an unknown system.
 #if defined(__CUDACC__)

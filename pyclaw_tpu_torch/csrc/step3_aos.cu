@@ -1,6 +1,7 @@
 // step3_aos.cu — the whole 3D unsplit classic (CTU) step of the generic
 // AoS form, one launch per step, for Hopper (sm_90a): any system of
-// csrc/acoustics3d.cuh (heterogeneous and constant acoustics, advection),
+// csrc/acoustics3d.cuh (heterogeneous and constant acoustics, advection,
+// Burgers),
 // with aux arrays, a capacity function and the f-wave correction form,
 // for any (nx, ny, nz).  (Euler, with or without a capacity function or
 // f-waves, runs step3_ctu.cu.)
@@ -32,6 +33,15 @@
 // matrix product, only per-cell scalar arithmetic (the Riemann solves, the
 // limiter, the splits), so the levers are the work the halo repeats, the
 // phases and their barriers, the warps per SM and the staging.
+//
+// Burgers (burgers_3D, added after the redesign) splits each fluctuation,
+// and each split part again (rptt3), by the sign of the state of the
+// cell the fluctuation enters; split_aux hands a SPLIT_Q system that
+// cell's staged state in place of its aux, and the other systems' code
+// is unchanged (the same SASS and bits, time_kernels --sass).  At 192^3
+// on the Gaussian pulse (PERF.md section 6; H100, 700 W) it takes 2.54 /
+// 6.01 ms (f32 / f64) with transverse_waves 2: its twenty rptt3 phases a
+// sweep cost more than the heterogeneous system's two.
 //
 // Design: a block owns a tile of output cells and stages q, the aux rows
 // the system reads and, with a capacity function, the per-cell
@@ -89,7 +99,7 @@
 // and with a capacity function):
 //   heterogeneous acoustics  128,768 / 121,216 B; 149,504 / 144,256 B
 //   acoustics                154,112 / 145,792 B; 174,848 / 168,832 B
-//   advection                 41,696 /  39,616 B;  62,432 /  62,656 B
+//   advection, Burgers        41,696 /  39,616 B;  62,432 /  62,656 B
 //
 // Phases (each a loop of the block's threads over a region, separated by
 // barriers), for each sweep axis D in x, y, z:
@@ -123,6 +133,8 @@
 // acoustics3d.cuh, the limiters in tvd.cuh, the tile geometry (shared with
 // step3_ctu.cu) in ctu3d.cuh, the asynchronous copies in async_copy.cuh.
 
+#include <type_traits>
+
 #include "acoustics3d.cuh"
 #include "async_copy.cuh"
 #include "ctu3d.cuh"
@@ -130,6 +142,13 @@
 #include "tvd.cuh"
 
 namespace {
+
+// Whether system S's splits read the receiving cell's state (S::SPLIT_Q,
+// Burgers) rather than aux (the systems without the member)
+template <class S, class = void> struct SplitQ : std::false_type {};
+template <class S>
+struct SplitQ<S, std::void_t<decltype(S::SPLIT_Q)>>
+    : std::integral_constant<bool, S::SPLIT_Q> {};
 
 // Tile shape per type: cells along x, y, z
 template <typename T> struct Shape;
@@ -458,16 +477,23 @@ HD void phase_fluct(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   }
 }
 
-// aux of the staged cell c and of its neighbours below and above along E
+// aux of the staged cell c and of its neighbours below and above along E;
+// for a SPLIT_Q system, the cell's state in ac (its splits read no aux)
 template <int E, class S, typename T, class H, bool CAPA>
 HD void split_aux(const Block<S, T, H, CAPA>& B, const int l[3], T ab[],
                   T ac[], T aa[]) {
-  int m[3] = {l[0], l[1], l[2]};
-  B.load_aux(B.cell(m[0], m[1], m[2]), ac);
-  m[E] = l[E] - 1;
-  B.load_aux(B.cell(m[0], m[1], m[2]), ab);
-  m[E] = l[E] + 1;
-  B.load_aux(B.cell(m[0], m[1], m[2]), aa);
+  using L = Lay<S, T, H, CAPA>;
+  if constexpr (SplitQ<S>::value) {
+    const int c = B.cell(l[0], l[1], l[2]);
+    for (int e = 0; e < L::NEQ; ++e) ac[e] = B.Q[e * L::QN + c];
+  } else {
+    int m[3] = {l[0], l[1], l[2]};
+    B.load_aux(B.cell(m[0], m[1], m[2]), ac);
+    m[E] = l[E] - 1;
+    B.load_aux(B.cell(m[0], m[1], m[2]), ab);
+    m[E] = l[E] + 1;
+    B.load_aux(B.cell(m[0], m[1], m[2]), aa);
+  }
 }
 
 // ---- phase: rpt3 split of one fluctuation along E -----------------------
@@ -810,7 +836,7 @@ Args<T> make_args(const void* qbc, const void* aux, void* qout, void* cflb,
   A.dd[2] = dz;
   for (int d = 0; d < 3; ++d) A.d[d] = T(A.dd[d]);
   A.C = nullptr;
-  // advection: u, v, w; acoustics: zz, cc
+  // advection: u, v, w; acoustics: zz, cc; Burgers: the efix flag
   for (int d = 0; d < 3; ++d) A.P.vel[d] = T(prm[d]);
   A.P.zz = T(prm[0]);
   A.P.cc = T(prm[1]);
@@ -900,7 +926,8 @@ int launch(Args<T> A, void*) {
 #endif
 
 // system ids of the C interface (ops/tiled2d.py:STEP3_SYSTEMS)
-enum { SYS_VC_ACOUSTICS = 0, SYS_ACOUSTICS = 1, SYS_ADVECTION = 2 };
+enum { SYS_VC_ACOUSTICS = 0, SYS_ACOUSTICS = 1, SYS_ADVECTION = 2,
+       SYS_BURGERS = 3, NUM_SYSTEMS = 4 };
 
 template <typename T, class S>
 int dispatch_flags(const Args<T>& A, bool capa, bool fwave, void* stream) {
@@ -929,6 +956,8 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
     case SYS_ADVECTION:
       return dispatch_flags<T, Advection3D>(A, capa >= 0, fwave != 0,
                                             stream);
+    case SYS_BURGERS:
+      return dispatch_flags<T, Burgers3D>(A, capa >= 0, fwave != 0, stream);
     default:
       return -1;
   }
@@ -966,6 +995,8 @@ int step3_aos_smem_bytes(int system, int capa, int is_double) {
       return smem_of<Acoustics3D>(capa != 0, is_double != 0);
     case SYS_ADVECTION:
       return smem_of<Advection3D>(capa != 0, is_double != 0);
+    case SYS_BURGERS:
+      return smem_of<Burgers3D>(capa != 0, is_double != 0);
     default:
       return -1;
   }
@@ -975,6 +1006,10 @@ int step3_aos_smem_bytes(int system, int capa, int is_double) {
 // waves reads the first of them).
 int step3_aos_limiter_ids() { return NLIM; }
 
+// Number of systems the build takes (system ids 0 .. this - 1; an earlier
+// build without this entry takes three).
+int step3_aos_num_systems() { return NUM_SYSTEMS; }
+
 // One CTU step.  qbc: (num_eqn, nxg, nyg, nzg) ghost-padded (2 ghost
 // cells); aux: (num_aux, nxg, nyg, nzg) or null when the system reads none
 // and capa < 0; qout: (num_eqn, nxg-4, nyg-4, nzg-4); cflb:
@@ -983,7 +1018,8 @@ int step3_aos_limiter_ids() { return NLIM; }
 // host emulation), a double that is exact in the entry's type.  system:
 // SYS_*; capa: aux row of the capacity
 // function or -1; fwave: the f-wave correction form; p0..p2: u, v, w
-// (advection) or zz, cc (acoustics); l0..l4: the limiter ids of the
+// (advection), zz, cc (acoustics) or the efix flag (Burgers: 1 or 0);
+// l0..l4: the limiter ids of the
 // waves.  Returns a cudaError_t (0 on success), or -1 for an
 // unknown system.
 #if defined(__CUDACC__)

@@ -22,10 +22,12 @@
   its generic-AoS body (``rpn_soa=None``), of ``step2_pallas_tiled_generic``
   and of ``ops/sweep2d.py:step2_pallas``: one launch of
   ``csrc/step2_aos.cu`` computes the whole unsplit CTU step of a system
-  of :data:`AOS_SYSTEMS` (the three shallow-water systems, ``acoustics_2D``
-  and the Euler 4- and 5-wave systems, each a template instance of its
-  own, given its two physics scalars by :func:`aos_system_params`), with
-  aux arrays, a
+  of :data:`AOS_SYSTEMS` (the three shallow-water systems, ``acoustics_2D``,
+  the Euler 4- and 5-wave systems, and the scalar and
+  variable-coefficient systems ``advection_2D``, ``vc_advection_2D``,
+  ``vc_advection_fwave_2D``, ``vc_acoustics_2D``, ``kpp_2D`` and
+  ``burgers_2D``, each a template instance of its own, given its two
+  physics scalars by :func:`aos_system_params`), with aux arrays, a
   capacity function and the f-wave form, for any (nx, ny).  Plain
   version: ``classic/kernels.py:step2``.
 * :func:`step3_xy_generic`, counterpart of ``step3_pallas_xy`` with its
@@ -366,12 +368,15 @@ step3_xy.launches = 0
 step3_xy.device_launches = None
 
 
-# rp.name -> (system id of csrc/step2_aos.cu (SYS_*), aux rows its normal
-# solver reads (NAUX))
+# rp.name -> (system id of csrc/step2_aos.cu (SYS_*), aux rows its
+# solvers read (NAUX))
 AOS_SYSTEMS = {"shallow_roe_with_efix_2D": (0, 0),
                "shallow_bathymetry_fwave_2D": (1, 1),
                "acoustics_2D": (2, 0), "euler_4wave_2D": (3, 0),
-               "euler_5wave_2D": (4, 0), "sw_aug_2D": (5, 1)}
+               "euler_5wave_2D": (4, 0), "sw_aug_2D": (5, 1),
+               "advection_2D": (6, 0), "vc_advection_2D": (7, 2),
+               "vc_advection_fwave_2D": (8, 2), "vc_acoustics_2D": (9, 2),
+               "kpp_2D": (10, 0), "burgers_2D": (11, 0)}
 # limiter ids an entry of csrc/step2_aos.cu takes (one per wave of its
 # widest system, Euler 5-wave; a build without step2_aos_limiter_ids, made
 # before the Euler systems, takes three)
@@ -428,12 +433,22 @@ def aos_system_params(rp, params):
     ``rp``: (zz, cc) for acoustics, (gamma - 1, 0) for Euler (gamma - 1.0
     folded in double, as the plain version's Python scalar), (grav,
     dry_tolerance) for shallow water (dry_tolerance 1e-8 when problem_data
-    has none, as in the JAX package)."""
+    has none, as in the JAX package), (u, v) for ``advection_2D``, (1, 0)
+    or (0, 0) for Burgers with or without the entropy fix (on unless
+    problem_data['efix'] is false, as in the JAX package), (0, 0) for the
+    systems that read none."""
     if rp.name == "acoustics_2D":
         zz, cc = acoustics._zc(params)
         return float(zz), float(cc)
     if rp.name.startswith("euler_"):
         return float(params["gamma"] - 1.0), 0.0
+    if rp.name == "advection_2D":
+        return float(params["u"]), float(params["v"])
+    if rp.name == "burgers_2D":
+        return float(bool(params.get("efix", True))), 0.0
+    if rp.name in ("vc_advection_2D", "vc_advection_fwave_2D",
+                   "vc_acoustics_2D", "kpp_2D"):
+        return 0.0, 0.0
     return float(params["grav"]), float(params.get("dry_tolerance", 1e-8))
 
 
@@ -508,7 +523,7 @@ step2_rows_generic.device_launches = None
 # read (NAUX)).  euler_3D is not here: ClawSolver3D sends it to step3_xy
 # (csrc/step3_ctu.cu), with or without a capacity function or f-waves.
 STEP3_SYSTEMS = {"vc_acoustics_3D": (0, 2), "acoustics_3D": (1, 0),
-                 "advection_3D": (2, 0)}
+                 "advection_3D": (2, 0), "burgers_3D": (3, 0)}
 # limiter ids an entry of csrc/step3_aos.cu takes (five: the interface
 # keeps the width it had when it also ran euler_3D's five waves)
 STEP3_AOS_LIMITERS = 5
@@ -541,14 +556,26 @@ def _step3_aos_lib():
     return bind_step3_aos_lib(_build.load("step3_aos"))
 
 
+def step3_build_takes(lib, rp):
+    """Whether a build of ``csrc/step3_aos.cu`` (``lib``, a ctypes handle)
+    has the system of ``rp``: one without ``step3_aos_num_systems`` (an
+    earlier build) has the first three."""
+    count = getattr(lib, "step3_aos_num_systems", None)
+    return STEP3_SYSTEMS[rp.name][0] < (count() if count is not None else 3)
+
+
 def step3_system_scalars(rp, params):
     """The three physics scalars ``csrc/step3_aos.cu`` takes for system
-    ``rp``: (u, v, w) for advection, (zz, cc, 0) for acoustics."""
+    ``rp``: (u, v, w) for advection, (zz, cc, 0) for acoustics, (1, 0, 0)
+    or (0, 0, 0) for Burgers with or without the entropy fix (on unless
+    problem_data['efix'] is false)."""
     if rp.name == "advection_3D":
         return tuple(float(params[k]) for k in ("u", "v", "w"))
     if rp.name == "acoustics_3D":
         zz, cc = acoustics._zc(params)
         return float(zz), float(cc), 0.0
+    if rp.name == "burgers_3D":
+        return float(bool(params.get("efix", True))), 0.0, 0.0
     return 0.0, 0.0, 0.0
 
 

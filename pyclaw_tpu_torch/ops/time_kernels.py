@@ -5,15 +5,17 @@ and the timers and timed cases that ``chip_smoke.py`` uses too.
         [--out FILE] [--sass]
 
 KERNEL is ``step2_ctu``, ``dq2_weno5`` (the Euler 4-wave and 5-wave
-cases), ``step3_ctu``, ``step3_aos``, ``step2_aos`` (the shallow-water,
-acoustics, Euler 4-wave, Euler 5-wave and sw_aug_2D cases),
+cases), ``step3_ctu``, ``step3_aos`` (the heterogeneous-acoustics and
+Burgers cases), ``step2_aos`` (the shallow-water, acoustics, Euler
+4-wave, Euler 5-wave and sw_aug_2D cases, and those of the scalar and
+variable-coefficient systems, :data:`SCALAR_CASES`),
 ``euler3d_capa`` (the source ``step3_ctu.cu`` on the
 Euler capacity path's case), ``step1`` or ``weno5``, timed through its
 wrapper in ``ops/tiled2d.py``, ``ops/sweep.py`` or ``ops/weno.py`` on the
 case that ``chip_smoke.py`` times (:func:`step2_ctu_case`,
 :func:`dq_case`, :func:`dq_euler5_case`, :func:`step3_ctu_case`,
-:func:`step3_aos_case`, :func:`step2_aos_case` and the other
-``step2_aos_*_case``, :func:`euler3d_capa_case`, :func:`step1_case`,
+:func:`step3_aos_case`, :func:`step3_aos_burgers_case`,
+:func:`step2_aos_case` and the other ``step2_aos_*_case``, :func:`euler3d_capa_case`, :func:`step1_case`,
 :func:`weno5_case`); a case whose system a build lacks (an earlier
 build) leaves that build out of it.  The two 1D kernels are timed on
 two states at 2^20
@@ -354,6 +356,103 @@ def step2_aos_sw_aug_case(n, dtype, dev):
         riemann.sw_aug_2D, {"grav": 9.8}, (1,) * 3, 2, True, -1, 2, 2)
 
 
+def example_state(module, nx, ny, **kw):
+    """q and aux of ``examples.<module>``'s initial state at nx x ny
+    (numpy arrays; aux None without aux)."""
+    import importlib
+    ex = importlib.import_module(f"pyclaw_tpu_torch.examples.{module}")
+    st = ex.setup(mx=nx, my=ny, outdir=None, device="cpu", **kw).solution.state
+    return st.q, st.aux
+
+
+def gaussian_state(shape):
+    """The Burgers runs' pulse exp(-30 |x - 1/2|^2) on the unit square
+    (cube) of ``shape`` cells, at the cell centres (a (1, *shape) numpy
+    array)."""
+    axes = [(np.arange(n) + 0.5) / n - 0.5 for n in shape]
+    grids = np.meshgrid(*axes, indexing="ij")
+    return np.exp(-30.0 * sum(g * g for g in grids))[None]
+
+
+def swirl_cell_velocities(nx, ny):
+    """The swirl of examples/advection_2d.py at the cell centres of [0, 1]^2
+    (u = dpsi/dy, v = -dpsi/dx of psi = sin^2(pi x) sin^2(pi y) / pi): the
+    cell velocities of the vc_advection_fwave_2D runs, (2, nx, ny)."""
+    x = (np.arange(nx) + 0.5) / nx
+    y = (np.arange(ny) + 0.5) / ny
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    u = np.sin(np.pi * X) ** 2 * np.sin(2.0 * np.pi * Y)
+    v = -np.sin(2.0 * np.pi * X) * np.sin(np.pi * Y) ** 2
+    return np.stack([u, v])
+
+
+def fwave_capacity(nx, ny):
+    """The capacity row of the vc_advection_fwave_2D runs: 1 + 0.3
+    sin(2 pi x) sin(2 pi y) at the cell centres of [0, 1]^2."""
+    x = (np.arange(nx) + 0.5) / nx
+    y = (np.arange(ny) + 0.5) / ny
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    return 1.0 + 0.3 * np.sin(2.0 * np.pi * X) * np.sin(2.0 * np.pi * Y)
+
+
+# step2_aos's scalar and variable-coefficient instances, each timed on the
+# first input of its run in chip_smoke.py ([4s]-[4v]): system -> (state
+# (q, aux or None) at n^2, dx at n, dt / dx, problem_data, limiter,
+# fwave, index_capa, transverse_waves)
+SCALAR_CASES = {
+    "kpp_2D": (lambda n: example_state("kpp", n, n), lambda n: 4.0 / n,
+               0.45, {}, 1, False, -1, 2),
+    "vc_acoustics_2D": (lambda n: example_state("acoustics_2d_interface", n,
+                                                n),
+                        lambda n: 2.0 / n, 0.9, {}, 4, False, -1, 2),
+    "vc_advection_2D": (lambda n: example_state("advection_2d", n, n),
+                        lambda n: 1.0 / n, 0.45, {}, 3, False, -1, 0),
+    "advection_2D": (lambda n: (example_state("advection_2d", n, n)[0],
+                                None),
+                     lambda n: 1.0 / n, 0.6, {"u": 1.0, "v": 0.5}, 3,
+                     False, -1, 2),
+    "vc_advection_fwave_2D": (
+        lambda n: (example_state("advection_2d", n, n)[0],
+                   np.concatenate([swirl_cell_velocities(n, n),
+                                   fwave_capacity(n, n)[None]])),
+        lambda n: 1.0 / n, 0.45, {}, 4, True, 2, 2),
+    "burgers_2D": (lambda n: (gaussian_state((n, n)), None),
+                   lambda n: 1.0 / n,
+                   0.9, {"efix": True}, 4, False, -1, 2)}
+
+
+def step2_aos_scalar_case(name, n, dtype, dev):
+    """step2_aos's instance of system ``name`` (:data:`SCALAR_CASES`): qbc,
+    and the rest of ``tiled2d.step2_rows_generic``'s arguments (auxbc, dt,
+    dx, dy, the system, its problem_data, limiters, order 2, fwave,
+    index_capa, 2 ghost cells, transverse_waves), all extended by
+    extrapolation."""
+    from .. import riemann
+    state, dx_of, cfl, params, lim, fwave, capa, tw = SCALAR_CASES[name]
+    q_np, aux_np = state(n)
+    h = dx_of(n)
+    rp = riemann.ALL[name]
+    auxbc = None if aux_np is None else padded(aux_np, dtype, dev)
+    return padded(q_np, dtype, dev), (
+        auxbc, _dt(cfl * h, dtype, dev), h, h, rp, params,
+        (lim,) * rp.num_waves, 2, fwave, capa, 2, tw)
+
+
+def step3_aos_burgers_case(n, dtype, dev):
+    """step3_aos's burgers_3D instance's timed case at n^3, the Burgers 3D
+    run's configuration on its first state (the pulse of
+    :func:`gaussian_state`): qbc, no aux, and the rest of
+    ``tiled2d.step3_xy_generic``'s arguments (dt = 0.45 dx, dx = 1/n, the
+    entropy fix, MC, order 2, no f-waves, no capacity, 2 ghost cells,
+    transverse_waves 2)."""
+    from .. import riemann
+    qbc = padded3(gaussian_state((n,) * 3), dtype, dev).contiguous()
+    d = 1.0 / n
+    return qbc, None, (_dt(0.45 * d, dtype, dev), d, d, d,
+                       riemann.burgers_3D, {"efix": True}, (4,), 2, False,
+                       -1, 2, 2)
+
+
 def dq_euler5_case(n, dtype, dev):
     """dq2_weno5's Euler 5-wave instance's timed case at 2n x n/2 (the
     cells of n^2): qbc (the shock-bubble state, 3 ghost cells) and the
@@ -489,22 +588,32 @@ def _dq_call(dtype, dev, n=1024):
 
 def _step3_aos_call(dtype, dev, n=192):
     from . import tiled2d
-    qbc, auxbc, args = step3_aos_case(n, dtype, dev)
+    makes = {}
+    for label, case in (("", step3_aos_case),
+                        ("burgers", step3_aos_burgers_case)):
+        qbc, auxbc, args = case(n, dtype, dev)
 
-    def make(lib, source=None):
-        lib = tiled2d.bind_step3_aos_lib(lib)
-        return lambda: tiled2d.step3_xy_generic(qbc, auxbc, *args, lib=lib)
-    return make
+        def make(lib, source=None, qbc=qbc, auxbc=auxbc, args=args):
+            lib = tiled2d.bind_step3_aos_lib(lib)
+            if not tiled2d.step3_build_takes(lib, args[4]):
+                return None        # an earlier build without the system
+            return lambda: tiled2d.step3_xy_generic(qbc, auxbc, *args,
+                                                    lib=lib)
+        makes[label] = make
+    return makes
 
 
 def _step2_aos_call(dtype, dev, n=1024):
     from . import tiled2d
     makes = {}
-    for label, case in (("", step2_aos_case),
-                        ("acoustics", step2_aos_acoustics_case),
-                        ("euler4", step2_aos_euler4_case),
-                        ("euler5", step2_aos_euler5_case),
-                        ("sw_aug", step2_aos_sw_aug_case)):
+    cases = [("", step2_aos_case),
+             ("acoustics", step2_aos_acoustics_case),
+             ("euler4", step2_aos_euler4_case),
+             ("euler5", step2_aos_euler5_case),
+             ("sw_aug", step2_aos_sw_aug_case)]
+    cases += [(name, lambda n, dtype, dev, name=name: step2_aos_scalar_case(
+        name, n, dtype, dev)) for name in SCALAR_CASES]
+    for label, case in cases:
         qbc, args = case(n, dtype, dev)
 
         def make(lib, source="step2_aos", qbc=qbc, args=args):

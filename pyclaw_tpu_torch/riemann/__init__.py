@@ -9,11 +9,14 @@ solvers (``advection_1D``, ``acoustics_1D``, ``euler_with_efix_1D``,
 hooks of the 2D Euler Roe solvers (``euler_4wave_2D``,
 ``euler_5wave_2D`` with its passive tracer) and of ``acoustics_2D``, the
 AoS hooks of the 2D shallow-water solvers (``shallow_roe_with_efix_2D``,
-``shallow_bathymetry_fwave_2D``, ``sw_aug_2D``) and of the 3D solvers
-(``euler_3D``, ``advection_3D``, ``acoustics_3D``, ``vc_acoustics_3D``),
-and the ``evec`` hooks (char_decomp) of the Euler and acoustics records:
-16 of the JAX package's 35 records.  The rest of
-the library is queued in ROADMAP.md.
+``shallow_bathymetry_fwave_2D``, ``sw_aug_2D``), of the 2D scalar and
+variable-coefficient solvers (``advection_2D``, ``vc_advection_2D``,
+``vc_advection_fwave_2D``, ``vc_acoustics_2D``, ``kpp_2D``,
+``burgers_2D``) and of the 3D solvers (``euler_3D``, ``advection_3D``,
+``acoustics_3D``, ``vc_acoustics_3D``, ``burgers_3D``), the ``flux``
+hooks of advection and Burgers, and the ``evec`` hooks (char_decomp) of
+the Euler and acoustics records: 23 of the JAX package's 35 records.
+The rest of the library is queued in ROADMAP.md.
 
 AoS calling conventions (classic/kernels.py), q (num_eqn, *n):
 
@@ -72,16 +75,20 @@ class RiemannSolver:
                 f"num_waves={self.num_waves})")
 
 
-from .advection import advection_1D, advection_3D  # noqa: E402,F401
+from .advection import (  # noqa: E402,F401
+    advection_1D, advection_2D, advection_3D, vc_advection_2D,
+    vc_advection_fwave_2D)
 from .acoustics import (  # noqa: E402,F401
     acoustics_1D, acoustics_2D, acoustics_3D)
-from .acoustics_var import vc_acoustics_3D  # noqa: E402,F401
+from .acoustics_var import vc_acoustics_2D, vc_acoustics_3D  # noqa: E402,F401
+from .burgers import burgers_2D, burgers_3D  # noqa: E402,F401
 from .euler import (  # noqa: E402,F401
     euler_3D, euler_4wave_2D, euler_5wave_2D, euler_hlle_1D, euler_roe_1D,
     euler_with_efix_1D)
 from .shallow import (  # noqa: E402,F401
     shallow_bathymetry_fwave_2D, shallow_roe_with_efix_2D, sw_aug_1D,
     sw_aug_2D)
+from .kpp import kpp_2D  # noqa: E402,F401
 
 ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
                            euler_roe_1D, euler_hlle_1D, sw_aug_1D,
@@ -89,4 +96,7 @@ ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
                            euler_3D, shallow_roe_with_efix_2D,
                            shallow_bathymetry_fwave_2D, sw_aug_2D,
                            advection_3D,
-                           acoustics_3D, vc_acoustics_3D]}
+                           acoustics_3D, vc_acoustics_3D, advection_2D,
+                           vc_advection_2D, vc_advection_fwave_2D,
+                           vc_acoustics_2D, kpp_2D, burgers_2D,
+                           burgers_3D]}

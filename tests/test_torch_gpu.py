@@ -1,7 +1,7 @@
 """Card-only tests: the CUDA kernels (step2_ctu with step3_ctu's
 capacity and f-wave variants, dq2_weno5, step3_ctu, step2_aos with its
-acoustics instance, step1 with its sw_aug instance, weno5, step3_aos,
-restore) against their plain PyTorch versions at small shapes, the
+acoustics and scalar instances, step1 with its sw_aug instance, weno5,
+step3_aos with its burgers_3D instance, restore) against their plain PyTorch versions at small shapes, the
 golden validator's three cases of the acoustics, dry dam break and
 char_decomp paths, the Euler capacity path's launch counts, and the device loop
 (CUDA-graph replays) against the host loop, with gauges and before_step
@@ -266,6 +266,76 @@ def test_aos_acoustics_kernel_matches_plain(card, capa, tw, order, lim, nx,
     assert qk.shape == (3, nx, ny)
     assert float((qk - qp).abs().max() / qp.abs().max()) <= TOL[dtype]
     assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["advection_2D", "vc_advection_2D",
+                                  "vc_advection_fwave_2D", "vc_acoustics_2D",
+                                  "kpp_2D", "burgers_2D"])
+def test_aos_scalar_kernels_match_plain(card, name, dtype):
+    """step2_aos.cu's scalar and variable-coefficient instances against the
+    plain step, on grids less than a tile and of several ragged tiles,
+    over transverse_waves 0/1/2, order 1/2, three limiters, a capacity row
+    and the f-wave form; one launch a step."""
+    rp = riemann.ALL[name]
+    for k, (tw, order, lim, capa, nx, ny) in enumerate([
+            (2, 2, 4, -1, 60, 60), (1, 2, 1, 2, 100, 37),
+            (0, 1, 10, -1, 5, 7), (2, 2, 10, 2, 33, 130)]):
+        rng = np.random.default_rng(nx * ny + k)
+        n = (nx + 4, ny + 4)
+        q = rng.standard_normal((rp.num_eqn,) + n)
+        aux = np.stack([1.0 + 0.5 * rng.random(n), 1.0 + 0.5 * rng.random(n),
+                        0.7 + 0.6 * rng.random(n)])
+        if name != "vc_acoustics_2D":
+            aux[:2] = rng.standard_normal((2,) + n)
+        qbc, auxbc = (torch.as_tensor(a, dtype=dtype, device=card)
+                      for a in (q, aux))
+        dt = float(np.dtype(str(dtype).split(".")[1]).type(0.2 / max(nx, ny)))
+        fwave = name == "vc_advection_fwave_2D" or k == 3
+        params = {"u": 0.7, "v": -0.4, "efix": k != 1}
+        args = (dt, 1 / nx, 1 / ny)
+        before = tiled2d.step2_rows_generic.launches
+        qk, ck = tiled2d.step2_rows_generic(qbc, auxbc, *args, rp, params,
+                                            (lim,), order, fwave, capa, 2,
+                                            tw)
+        torch.cuda.synchronize()
+        assert tiled2d.step2_rows_generic.launches == before + 1
+        qp, cp = kernels.step2(qbc, auxbc, *args, rp.rp, rp.rpt, params,
+                               (lim,), order, fwave, capa, 2, tw)
+        assert qk.shape == (rp.num_eqn, nx, ny)
+        assert float((qk - qp).abs().max() / qp.abs().max()) <= TOL[dtype]
+        assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tw,order,lim,capa,shape", [
+    (2, 2, 4, -1, (16, 16, 16)), (1, 2, 1, 0, (17, 13, 9)),
+    (0, 1, 10, 0, (3, 5, 2))])
+def test_step3_aos_burgers_matches_plain(card, tw, order, lim, capa, shape,
+                                         dtype):
+    """step3_aos.cu's burgers_3D instance against the plain step, with and
+    without the entropy fix."""
+    rp = riemann.burgers_3D
+    rng = np.random.default_rng(sum(shape))
+    n = tuple(s + 4 for s in shape)
+    qbc = torch.as_tensor(rng.standard_normal((1,) + n), dtype=dtype,
+                          device=card)
+    auxbc = torch.as_tensor(0.7 + 0.6 * rng.random((1,) + n), dtype=dtype,
+                            device=card)
+    d = tuple(1.0 / s for s in shape)
+    dt = float(np.dtype(str(dtype).split(".")[1]).type(0.05 * min(d)))
+    for efix in (True, False):
+        qk, ck = tiled2d.step3_xy_generic(qbc, auxbc, dt, *d, rp,
+                                          {"efix": efix}, (lim,), order,
+                                          False, capa, 2, tw)
+        torch.cuda.synchronize()
+        qp, cp = kernels.step3(qbc, auxbc, dt, *d, rp.rp, rp.rpt, rp.rptt,
+                               {"efix": efix}, (lim,), order, False, capa, 2,
+                               tw)
+        assert float((qk - qp).abs().max() / qp.abs().max()) <= TOL[dtype]
+        assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
 
 
 PARAMS_1D = {"u": -0.7, "zz": 1.3, "cc": 0.8, "gamma": 1.4}

@@ -77,7 +77,14 @@ def test_registry():
         "acoustics_3D": triemann.acoustics_3D,
         "vc_acoustics_3D": triemann.vc_acoustics_3D,
         "acoustics_2D": triemann.acoustics_2D,
-        "sw_aug_1D": triemann.sw_aug_1D}
+        "sw_aug_1D": triemann.sw_aug_1D,
+        "advection_2D": triemann.advection_2D,
+        "vc_advection_2D": triemann.vc_advection_2D,
+        "vc_advection_fwave_2D": triemann.vc_advection_fwave_2D,
+        "vc_acoustics_2D": triemann.vc_acoustics_2D,
+        "kpp_2D": triemann.kpp_2D,
+        "burgers_2D": triemann.burgers_2D,
+        "burgers_3D": triemann.burgers_3D}
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

@@ -23,7 +23,11 @@ JAX package's.
   (wet/dry states that take every branch of the augmented solver: both
   wet, each dry front, walls on either side, both dry, damp cells below
   the dry tolerance; the f-wave form, the bottom in aux) on grids less
-  than a tile, of one and of several tiles, ragged either way.
+  than a tile, of one and of several tiles, ragged either way;
+* and for the scalar and variable-coefficient instances (advection_2D,
+  vc_advection_2D, vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D,
+  burgers_2D: the split by the receiving cell and its transverse
+  neighbours' aux, with aux that jumps across tile edges).
 """
 
 import ctypes
@@ -347,6 +351,81 @@ def test_new_instances_on_host_match_plain(host_kernel, name, nx, ny,
     q, aux = (np.ascontiguousarray(a.astype(dtype)) for a in (q, aux))
     dt = float(dtype(0.05 * min(deltas)))
     for tw, order, lim, capa, fwave in opts:
+        lims = (lim,) * rp.num_waves
+        out, cfl = _host_step(host_kernel, name, q, aux, dt, deltas, params,
+                              lims, order, tw, fwave, capa)
+        q_p, c_p = tk.step2(torch.from_numpy(q), torch.from_numpy(aux), dt,
+                            *deltas, rp.rp, rp.rpt, params, lims, order,
+                            fwave, capa, 2, tw, rp.prefactor)
+        _close(out, q_p.numpy(), cfl, float(c_p), tol)
+
+
+# ---- the scalar and variable-coefficient instances on the host -------------
+SCALAR_PARAMS = {"u": 0.7, "v": -0.4}
+# (transverse_waves, order, limiter, index_capa, fwave): every
+# transverse_waves and order, MC, minmod and the CFL-dependent id 10, with
+# and without a capacity function (aux[2]), the wave and the f-wave form
+# (vc_advection_fwave_2D always takes the f-wave form)
+SCALAR_OPTS = [(2, 2, 4, -1, False), (1, 2, 1, 2, False), (0, 1, 4, -1, False),
+               (2, 2, 10, 2, True), (0, 2, 3, 2, False)]
+# grids less than a tile, of one tile in float32 (12x15) and in float64
+# (11x16), and of several tiles, ragged either way
+SCALAR_GRIDS = [(7, 5), (12, 15), (11, 16), (100, 37), (37, 64)]
+
+
+def scalar_state(seed, name, nx, ny):
+    """Ghost-padded state (num_eqn, nx+4, ny+4) and aux (3, nx+4, ny+4) of
+    a scalar or variable-coefficient system: states of either sign
+    (Burgers: transonic interfaces; kpp: around its initial 14 pi / 4 and
+    pi / 4), aux rows of either sign for the advection velocities,
+    positive impedance and sound speed for acoustics, a capacity row last;
+    the aux rows jump across the first tile edges of both types (padded
+    rows 13 | 14 and columns 17 | 18: f64 and f32 tiles' first rows and
+    f32 and f64 tiles' first columns)."""
+    rng = np.random.default_rng(seed)
+    n = (nx + 4, ny + 4)
+    rp = triemann.ALL[name]
+    if name == "kpp_2D":
+        q = np.where(rng.random((1,) + n) < 0.5, 14.0 * np.pi / 4.0,
+                     np.pi / 4.0) + 0.3 * rng.standard_normal((1,) + n)
+    else:
+        q = rng.standard_normal((rp.num_eqn,) + n)
+    if name == "vc_acoustics_2D":
+        aux = np.stack([1.0 + 0.5 * rng.random(n), 1.0 + 0.5 * rng.random(n),
+                        0.7 + 0.6 * rng.random(n)])
+    else:
+        aux = np.stack([rng.standard_normal(n), rng.standard_normal(n),
+                        0.7 + 0.6 * rng.random(n)])
+    aux[:2, 13:] *= 2.5
+    aux[:2, 14:] *= 0.5
+    aux[:2, :, 17:] *= 3.0
+    aux[:2, :, 18:] *= 0.4
+    return q, aux
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny", SCALAR_GRIDS)
+@pytest.mark.parametrize("name", ["advection_2D", "vc_advection_2D",
+                                  "vc_advection_fwave_2D", "vc_acoustics_2D",
+                                  "kpp_2D", "burgers_2D"])
+def test_scalar_instances_on_host_match_plain(host_kernel, name, nx, ny,
+                                              dtype, tol):
+    """csrc/step2_aos.cu's advection_2D, vc_advection_2D,
+    vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D and burgers_2D instances
+    (the cell split with the receiving cell's transverse neighbours'
+    aux, kpp's sin and cos, Burgers' entropy fix) against the plain
+    version, over the options matrix; Burgers also without the entropy
+    fix.  float32 to 1e-5 relative: roundoff, and for kpp the host's sinf
+    and cosf against PyTorch's (8e-8 here)."""
+    rp = triemann.ALL[name]
+    deltas = (1.0 / nx, 1.0 / ny)
+    q, aux = scalar_state(nx + 3 * ny + len(name), name, nx, ny)
+    q, aux = (np.ascontiguousarray(a.astype(dtype)) for a in (q, aux))
+    dt = float(dtype(0.05 * min(deltas)))
+    for k, (tw, order, lim, capa, fwave) in enumerate(SCALAR_OPTS):
+        fwave = fwave or name == "vc_advection_fwave_2D"
+        params = dict(SCALAR_PARAMS, efix=k != 1)
         lims = (lim,) * rp.num_waves
         out, cfl = _host_step(host_kernel, name, q, aux, dt, deltas, params,
                               lims, order, tw, fwave, capa)

@@ -22,8 +22,10 @@ package's, and the CUDA kernel's source on the host.
   gets a fast state in its inner ghost layer (inside the CFL window) and
   a faster one in its outer layer (outside it).
 
-Euler with a capacity function or f-waves runs ``csrc/step3_ctu.cu``; its
-host test is in tests/test_torch_step3.py.
+The same for the ``burgers_3D`` instance (the splits by the receiving
+cell's state) on grids less than, equal to and larger than a tile of
+each type.  Euler with a capacity function or f-waves runs
+``csrc/step3_ctu.cu``; its host test is in tests/test_torch_step3.py.
 """
 
 import ctypes
@@ -268,7 +270,7 @@ def test_wrapper_off_the_cpu_refuses_what_has_no_kernel():
     aux = torch.empty(1, 9, 9, 9, dtype=torch.float64, device="meta")
     e3 = triemann.euler_3D
     assert set(tiled2d.STEP3_SYSTEMS) == {"vc_acoustics_3D", "acoustics_3D",
-                                          "advection_3D"}
+                                          "advection_3D", "burgers_3D"}
     assert tiled2d.step3_system_scalars(e3, PARAMS) == (0.0, 0.0, 0.0)
     assert tiled2d.step3_limiter_ids((4, 3, 1, 10, 2)) == [4, 3, 1, 10, 2]
     assert tiled2d.step3_limiter_ids((4, 10)) == [4, 10, 10, 10, 10]
@@ -423,3 +425,60 @@ def test_kernel_source_on_host_matches_plain(host_kernel, face, shape, dtype,
                             (lim,) * rp.num_waves, order, fwave, capa, 2,
                             tw)[1])
         assert c_p > 1.2 * c0
+
+
+# ---- burgers_3D on the host -------------------------------------------------
+# (transverse_waves, order, limiter, index_capa, fwave, efix): every
+# transverse_waves and order, MC, minmod and the CFL-dependent id 10, with
+# and without a capacity function, the f-wave form, without the entropy fix
+BURGERS_OPTS = [(2, 2, 4, -1, False, True), (1, 2, 1, 0, False, False),
+                (0, 1, 4, -1, False, True), (2, 2, 10, 0, True, True),
+                (2, 1, 3, 0, False, False)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("shape", [(3, 5, 2), (8, 8, 8), (4, 6, 8),
+                                   (17, 13, 9), (9, 14, 20)])
+def test_burgers_on_host_matches_plain(host_kernel, shape, dtype, tol):
+    """csrc/step3_aos.cu's burgers_3D instance (the splits by the receiving
+    cell's state, rpt3 and rptt3, the entropy fix) against the plain
+    version on states of either sign (transonic interfaces) with a
+    capacity row: a grid less than a tile, one tile of each type (8x8x8
+    in float32, 4x6x8 in float64) and ragged grids of several tiles."""
+    rp = triemann.burgers_3D
+    rng = np.random.default_rng(sum(shape))
+    n = tuple(s + 4 for s in shape)
+    q = rng.standard_normal((1,) + n)
+    aux = (0.7 + 0.6 * rng.random((1,) + n))
+    q, aux = (np.ascontiguousarray(a.astype(dtype)) for a in (q, aux))
+    d = (2.0 / shape[0], 2.2 / shape[1], 1.8 / shape[2])
+    dt = float(dtype(0.05 * min(d)))
+    for tw, order, lim, capa, fwave, efix in BURGERS_OPTS:
+        params = {"efix": efix}
+        out, c_k = _host_step(host_kernel, rp, q, aux, dt, d, params,
+                              ("burgers_3D", capa, tw, order, lim, fwave),
+                              dtype)
+        qp, cp = tk.step3(torch.from_numpy(q), torch.from_numpy(aux), dt,
+                          *d, rp.rp, rp.rpt, rp.rptt, params, (lim,), order,
+                          fwave, capa, 2, tw)
+        q_p, c_p = qp.numpy(), float(cp)
+        assert np.abs(out - q_p).max() / np.abs(q_p).max() <= tol
+        assert abs(c_k - c_p) <= tol * c_p
+
+
+def test_the_source_takes_burgers(host_kernel):
+    """The build takes four systems, the wrapper's; an earlier build (no
+    step3_aos_num_systems) takes three."""
+    assert host_kernel.step3_aos_num_systems() == len(tiled2d.STEP3_SYSTEMS)
+    assert tiled2d.step3_build_takes(host_kernel, triemann.burgers_3D)
+
+    class Earlier:
+        pass
+
+    assert not tiled2d.step3_build_takes(Earlier(), triemann.burgers_3D)
+    assert tiled2d.step3_build_takes(Earlier(), triemann.advection_3D)
+    assert tiled2d.step3_system_scalars(triemann.burgers_3D, {}) == (
+        1.0, 0.0, 0.0)
+    assert tiled2d.step3_system_scalars(triemann.burgers_3D,
+                                        {"efix": False}) == (0.0, 0.0, 0.0)

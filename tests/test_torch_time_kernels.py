@@ -191,6 +191,29 @@ def test_step2_aos_acoustics_case_is_the_acoustics_path(monkeypatch):
     assert tuple(path[4]) == case[6] and path[5:] == case[7:]
 
 
+@pytest.mark.parametrize("name,module", [
+    ("kpp_2D", "kpp"), ("vc_acoustics_2D", "acoustics_2d_interface"),
+    ("vc_advection_2D", "advection_2d")])
+def test_step2_aos_scalar_case_is_the_example_path(monkeypatch, name,
+                                                   module):
+    """step2_aos's case of each scalar or variable-coefficient system with
+    an example is that example's first step (its state, aux, deltas,
+    limiters, options), as chip_smoke.py's [4s]-[4u] run it."""
+    import importlib
+    ex = importlib.import_module(f"pyclaw_tpu_torch.examples.{module}")
+    n = 12
+    claw = ex.setup(mx=n, my=n, outdir=None, device="cpu", dtype="float64")
+    claw.tfinal = 0.01
+    args, kwargs = _first_call(monkeypatch, "step2_rows_generic", claw)
+    qbc, case = tk.step2_aos_scalar_case(name, n, torch.float64, "cpu")
+    assert torch.equal(args[0], qbc)
+    assert (args[1] is None is case[0]) or torch.equal(args[1], case[0])
+    path = args[3:] + tuple(kwargs.values())
+    # dt is the controller's; the rest is the case's
+    assert path[:3] == case[2:5] and path[3] == case[5]
+    assert tuple(path[4]) == case[6] and path[5:] == case[7:]
+
+
 def test_step1_case_is_the_classic_sod_path(monkeypatch):
     """step1's case is the classic Sod path's first step, as chip_smoke.py's
     [4e] runs it (examples.euler_1d_shocktube, ClawSolver1D, MC)."""
