@@ -221,6 +221,26 @@ Phases (each asserts; any failure exits non-zero):
      diagonal (2D) and x <-> y (3D) symmetry gated; each of [4s]-[4v]'s
      runs with every launch count set to 0 just before it and read just
      after;
+  4w. dimensional splitting and source terms: step2_aos's psystem_2D and
+     shallow_sphere_fwave_2D instances (no transverse pass) against the
+     plain step (the unsplit runs' first states and seeded ones, f32 and
+     f64); examples.psystem_2d at 1024^2 to t=1.0 and
+     examples.shallow_sphere at 1024x512 with its Strang source to t=1.0,
+     each split (x and y sweeps of plain PyTorch; the sphere's source and
+     custom BCs in the device loop's graphs) and unsplit (the instance, 1
+     launch an attempted step, CFL 0.2 / 0.25), f32 and f64 (the
+     p-system's x mirror symmetry on both routes, its gauges; the
+     sphere's TC2 drift, its f32 drift at 128x64 against the CPU's);
+     examples.shock_forward_step at 600x200 f32 to t=0.5, classic split
+     and SharpClaw (dq2_weno5 10 an attempt), on the host loop of its
+     before_step; examples.acoustics_3d_heterogeneous split at 128^3 f32
+     to t=0.8; examples.advection_reaction at 2^20 cells (lambda 1000) to
+     t=1e-3, Godunov and Strang (step1 1 an attempt) and dq_src (weno5 10
+     an attempt), each against the exact solution; launches and device
+     ms a step of the split and unsplit routes (torch.profiler, to
+     t=0.02); the split and source routes at small grids on the card
+     against the CPU in f64 (equal steps, 1e-12); each run with every
+     launch count set to 0 just before it and read just after;
   4m. the parallel overlay (pyclaw_tpu_torch/parallel) in a world of one
      NCCL rank (init_distributed on a file:// store):
      parallel.ClawSolver3D on examples.euler_3d.setup(mx=my=mz=192,
@@ -312,7 +332,8 @@ Phases (each asserts; any failure exits non-zero):
      the radial bump at 1024^2; dq2_weno5 Euler 5-wave on the shock
      bubble at 2048x512) by events and the profiler, beside their plain
      versions and bounds; the same for the instances of [3n] and [3o],
-     each on its run's first input (1024^2, 192^3);
+     each on its run's first input (1024^2, 192^3), and for [4w]'s two
+     instances on their unsplit runs' first inputs (1024^2, 1024x512);
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -339,7 +360,7 @@ from pyclaw_tpu_torch.ops.time_kernels import (
     step2_aos_euler4_case, step2_aos_euler5_case, step2_aos_sw_aug_case,
     dq_euler5_case, SCALAR_CASES, example_state, fwave_capacity,
     gaussian_state, step2_aos_scalar_case, step3_aos_burgers_case,
-    swirl_cell_velocities)
+    swirl_cell_velocities, NO_TRANS_CASES, step2_aos_no_trans_case)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -3838,16 +3859,17 @@ def scalar_mass(q, kappa=None):
     return float(np.sum(q0 if kappa is None else q0 * kappa))
 
 
-def scalar_run(label, run, kernel, per, shape, tfinal):
-    """One run of this slice on the device loop, every launch count set to
-    0 just before it and read just after: the launches (``kernel`` per
-    attempted step, restore once), the steps, the wall, the loop's
-    counters; q finite of ``shape`` at ``tfinal``.  Returns (claw, its
-    record)."""
+def scalar_run(label, run, kernel, per, shape, tfinal, graph=True):
+    """One run of this slice on the device loop (``graph`` False: on the
+    host loop, which before_step takes), every launch count set to 0 just
+    before it and read just after: the launches (``kernel`` per attempted
+    step, restore once on the device loop; ``kernel`` None for a path of
+    plain PyTorch), the steps, the wall, the loop's counters; q finite of
+    ``shape`` at ``tfinal``.  Returns (claw, its record)."""
     claw, status, wall, counts, ran = counted_run(run)
     ns, nr = status["numsteps"], status["numrejected"]
     loop = check_path_launches(label, claw, status, counts, kernel, per,
-                               ran=ran)
+                               graph=graph, ran=ran)
     q = claw.solution.q
     if (q.shape != shape or not np.all(np.isfinite(q))
             or abs(claw.solution.t - tfinal) > 1e-12):
@@ -4138,6 +4160,471 @@ def timing_burgers3d(dev, n=192):
               flush=True)
         del qbc
         torch.cuda.empty_cache()
+    return out
+
+
+# ---- dimensional splitting and source terms: [4w] and its timings in [6]
+
+# step2_aos's instances without a transverse solver, in the order of
+# ops/time_kernels.py:NO_TRANS_CASES (each timed on its unsplit run's first
+# input)
+NO_TRANS_2D = tuple(NO_TRANS_CASES)
+# Operations per cell of one generic CTU step of each of them (order 2,
+# MC, f-waves, no transverse pass), counted from csrc/psystem2d.cuh,
+# csrc/shallow_sphere2d.cuh and csrc/step2_aos.cu in the same way as
+# FLOPS_PER_CELL_AOS, each interface quantity counted once, an exp or a
+# sqrt as one operation.  psystem_2D: per cell its u, v, sigma, z and c
+# (two divisions, the exp law's product, exp, subtraction and product,
+# two products or quotients and two square roots: 10); per interface the
+# normal solve (the jumps 4, the denominator 1, the strengths 6, the
+# waves 3, the speed 1: 15), the limiter of two waves of two nonzero
+# components 44 (as the acoustics instance's), the correction flux 7,
+# CFL 2; the update 30 (three equations, no transverse fold).
+# shallow_sphere_fwave_2D: per cell hu/h, hv/h, sqrt(h) and p (5); per
+# interface the normal solve (h_bar 2, the Roe velocities 10, c 2, the
+# fluxes 4 and along theta their six kappa products (3 an interface on
+# average), the flux jumps 5, the strengths 9, the waves 6, the split by
+# the speeds' signs 21: 64), the limiter of three waves 78 (as the
+# shallow-water instance's), the correction flux 15, CFL with capacity
+# 12, the capacity's average 2; the update 30 and the capacity's dt/(dx
+# kappa), dt/(dy kappa) 4.  In float32 the p-system moves 32 B a cell (q
+# and its two aux rows read, q written), the sphere 28 B (q and kappa,
+# aux row 1, read, q written; it reads no other aux row): 5.5 and 13.6
+# operations per byte, below the card's 20 (and 10 in float64): bytes
+# bound both.
+FLOPS_PER_CELL_NO_TRANS = {
+    "psystem_2D": 10 + 2 * (15 + 44 + 7 + 2) + 30,
+    "shallow_sphere_fwave_2D": 5 + 2 * (64 + 78 + 15 + 12 + 2) + 30 + 4}
+# [4w]'s kernel check: the unsplit run's grid, one less than a tile and one
+# ragged on both axes with more tiles than resident blocks; (the
+# transverse_waves passed, which the instance ignores, order, limiter,
+# index_capa, the p-system's stress law)
+NO_TRANS_GRIDS = {"psystem_2D": ((1024, 1024), (7, 5), (600, 700)),
+                  "shallow_sphere_fwave_2D": ((1024, 512), (7, 5),
+                                              (600, 700))}
+NO_TRANS_OPTS = [(2, 2, 4, -1, "exp"), (1, 2, 1, 1, "linear"),
+                 (0, 1, 10, 1, "exp")]
+# [4w]'s runs: the p-system to its example's t=1.0 and the sphere to
+# t=1.0 (a 25th of its example's revolution), the forward step to t=0.5,
+# the 3D acoustics to its example's t=0.8, advection-reaction to t=1e-3
+# with lambda = 1000 (the decay e^-1 over 1165 steps at 2^20 cells)
+PSYSTEM_T, SPHERE_T, FSTEP_T, REACTION_T, REACTION_LAM = 1.0, 1.0, 0.5, \
+    1e-3, 1000.0
+# [4w]: the p-system runs keep the x -> -x mirror symmetry of their
+# strain (absolute, eps in [0, 0.5]) to MIRROR_TOL_F64 in float64 and
+# MIRROR_TOL_F32 in float32.  Each split sweep's sums are mirror-exact (0
+# on the card).  The unsplit step without transverse terms amplifies its
+# roundoff (its second-order corrections are unstable at every Courant
+# number, the limiter bounds them; examples/psystem_2d.py): at CFL 0.45 on
+# the card at 1024^2 2.2e-9 in f64 and 2.1e-2 in f32.  Its route runs at
+# CFL 0.2 / 0.25, where the CPU's plain path reads, by
+# tests/test_torch_split.py --unsplit: f64 3.3e-16 at 256^2 and 8.3e-16
+# at 1024^2, f32 1.6e-7 at 256^2, 3.9e-7 at 512^2 and 5.4e-7 at 1024^2
+# (the card at 1024^2: f64 1.1e-15, f32 6.9e-7, on an H100 80GB HBM3 at
+# 700 W); the sphere's float64 TC2 depth drifts by at most
+# test_shallow_sphere.py's 0.05 (relative);
+# the float32 split run's drift on the card at SPHERE_SMALL within
+# SPHERE_F32_DRIFT of the same float32 run's on the CPU's plain path
+# (relative: float32 roundoff moves the drift, the card's operations
+# must move it as the CPU's do; they differed by 1.2e-5 on an H100 80GB
+# HBM3 at 700 W; tests/test_torch_split.py holds the CPU's float32 drift
+# to the JAX run's; the 1024x512 float32 drifts are reported);
+# advection-reaction ends within REACTION_TOL of the exact solution
+# e^(-lambda t) q0(x - t) (absolute, q0 in [0, 1]: the float32 decay
+# factor's rounding, ~6e-8 a step over 1165 steps, and the advection
+# error)
+MIRROR_TOL_F64, MIRROR_TOL_F32 = 1e-10, 1e-5
+SPHERE_DRIFT_TOL, SPHERE_F32_DRIFT, SPHERE_SMALL = 0.05, 1e-3, (128, 64)
+REACTION_TOL = 1e-3
+
+
+def no_trans_state(rng, name, nx, ny):
+    """A seeded (q, aux) of system ``name`` at nx x ny: the p-system's
+    strain of either sign, rho and K in (0.5, 3.5); the sphere's depths
+    near 1 and velocities of either sign, aux rows in (0.5, 1), each
+    jumping across rows 12 | 13 and columns 15 | 16."""
+    n = (nx, ny)
+    if name == "psystem_2D":
+        q = np.stack([0.3 * rng.standard_normal(n), rng.standard_normal(n),
+                      rng.standard_normal(n)])
+        aux = 0.5 + 3.0 * rng.random((2,) + n)
+    else:
+        h = 0.8 + 0.4 * rng.random(n)
+        q = np.stack([h, h * rng.standard_normal(n),
+                      h * rng.standard_normal(n)])
+        aux = 0.5 + 0.5 * rng.random((2,) + n)
+    aux[:, 12:] *= 1.3
+    aux[:, :, 15:] *= 0.8
+    return q, aux
+
+
+def compare_no_trans(dev, seed=16):
+    """[4w]: step2_aos's psystem_2D and shallow_sphere_fwave_2D instances
+    against the plain version (classic/kernels.py:step2 with rpt=None),
+    one step each, over NO_TRANS_GRIDS and NO_TRANS_OPTS, the unsplit
+    run's first state (its grid) and a seeded random one, float32 and
+    float64.  Returns (worst relative error, worst CFL error, each
+    system's main configuration's max abs error (its run's grid, f32, the
+    run's state, the first option), cases)."""
+    import torch
+    from pyclaw_tpu_torch import riemann
+    from pyclaw_tpu_torch.ops import tiled2d
+    rng = np.random.default_rng(seed)
+    worst = {"float32": 0.0, "float64": 0.0}
+    worst_cfl = {"float32": 0.0, "float64": 0.0}
+    main_abs_err = {}
+    ncase = 0
+    for name in NO_TRANS_2D:
+        rp = riemann.ALL[name]
+        for gi, (nx, ny) in enumerate(NO_TRANS_GRIDS[name]):
+            opts = NO_TRANS_OPTS[:2] if nx * ny > 2e5 else NO_TRANS_OPTS
+            inputs = {"random": no_trans_state(rng, name, nx, ny)}
+            if gi == 0:
+                qbc0, args0 = step2_aos_no_trans_case(name, nx, torch.float64,
+                                                      "cpu")
+                inputs["path"] = (qbc0[:, 2:-2, 2:-2].numpy(),
+                                  args0[0][:, 2:-2, 2:-2].numpy())
+            dx, dy = 1.0 / nx, 1.0 / ny
+            for iname, (q_np, a_np) in inputs.items():
+                for tname, dtype in (("float32", torch.float32),
+                                     ("float64", torch.float64)):
+                    qbc = padded(q_np, dtype, dev)
+                    auxbc = padded(a_np, dtype, dev)
+                    dt = float(np.dtype(tname).type(0.05 * min(dx, dy)))
+                    for k, (tw, order, lim, capa, law) in enumerate(opts):
+                        params = {"grav": 1.0, "stress_relation": law}
+                        args = (qbc, auxbc, dt, dx, dy, rp, params,
+                                (lim,) * rp.num_waves, order, True, capa)
+                        qk, ck = tiled2d.step2_rows_generic(*args, 2, tw)
+                        qp, cp = plain_step2(*args, tw)
+                        torch.cuda.synchronize()
+                        abs_err = float((qk - qp).abs().max())
+                        rel = abs_err / max(float(qp.abs().max()), 1e-300)
+                        dcfl = abs(float(ck) - float(cp)) / float(cp)
+                        if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                                and dcfl <= TOL_REL[tname]
+                                and tuple(qk.shape) == (rp.num_eqn, nx, ny)):
+                            fail(f"[4w] step2_aos vs plain {nx}x{ny} {name} "
+                                 f"{iname} {tname} tw={tw} order={order} "
+                                 f"lim={lim} capa={capa} law={law}: rel "
+                                 f"err {rel:.3e}, cfl {float(ck)!r} vs "
+                                 f"{float(cp)!r}")
+                        worst[tname] = max(worst[tname], rel)
+                        worst_cfl[tname] = max(worst_cfl[tname], dcfl)
+                        if (gi, tname, iname, k) == (0, "float32", "path", 0):
+                            main_abs_err[name] = abs_err
+                        ncase += 1
+                        del qk, qp
+    print(f"[4w] step2_aos vs plain (psystem_2D, shallow_sphere_fwave_2D, "
+          f"no transverse pass): {ncase} cases, max rel err f32 "
+          f"{worst['float32']:.3e} (tol {TOL_REL['float32']}), f64 "
+          f"{worst['float64']:.3e} (tol {TOL_REL['float64']}); max cfl rel "
+          f"f32 {worst_cfl['float32']:.3e}, f64 {worst_cfl['float64']:.3e}",
+          flush=True)
+    return worst, worst_cfl, main_abs_err, ncase
+
+
+def mirror_x(q0):
+    """max |f(x, y) - f(-x, y)| of a field on a grid symmetric in x."""
+    q0 = np.asarray(q0, dtype=np.float64)
+    return float(np.abs(q0 - q0[::-1]).max())
+
+
+def psystem_runs(dev, n=1024):
+    """[4w] psystem_2d at n^2 to PSYSTEM_T, float32 and float64: the split
+    route (the example's: x and y sweeps of plain PyTorch, gauges on the
+    device loop) and the unsplit one (step2_aos's psystem_2D instance, 1
+    launch an attempted step, CFL 0.2 / 0.25); each run's x mirror
+    symmetry of the strain to MIRROR_TOL_F64 / MIRROR_TOL_F32; the gauges
+    recorded."""
+    out = {}
+    for route, split, kernel, per in (("split", True, None, 0),
+                                      ("unsplit", False, "step2_aos", 1)):
+        for tname, dtype in (("float32", np.float32),
+                             ("float64", np.float64)):
+            claw, rec = scalar_run(
+                f"[4w] psystem_2d {route} {n}^2 {tname}",
+                lambda dtype=dtype, split=split: run_example(
+                    dev, "psystem_2d", dtype, PSYSTEM_T, mx=n, my=n,
+                    dimensional_split=split), kernel, per, (3, n, n),
+                PSYSTEM_T)
+            rec["mirror_x"] = mirror_x(claw.solution.q[0])
+            rec["gauge_samples"] = len(claw.solution.state.gauge_data)
+            tol = MIRROR_TOL_F64 if tname == "float64" else MIRROR_TOL_F32
+            print(f"    max |eps(x, y) - eps(-x, y)| {rec['mirror_x']:.3e} "
+                  f"(tol {tol}); {rec['gauge_samples']} gauge samples",
+                  flush=True)
+            if (rec["mirror_x"] > tol
+                    or rec["gauge_samples"] != 2 * rec["accepted"]):
+                fail(f"[4w] psystem_2d {route} {tname}: {rec}")
+            out[f"{route}:{tname}"] = rec
+            del claw
+    return out
+
+
+def sphere_runs(dev, n=(1024, 512)):
+    """[4w] shallow_sphere at n to SPHERE_T with the Strang source, float32
+    and float64: the split route (the example's; the source hook and the
+    custom q and aux BCs inside the device loop's CUDA graphs) and the
+    unsplit one (step2_aos's shallow_sphere_fwave_2D instance, 1 launch
+    an attempted step, CFL 0.2 / 0.25); h > 0; the TC2 depth's drift, the
+    float64 runs' within SPHERE_DRIFT_TOL; the float32 split run at
+    SPHERE_SMALL on the card and on the CPU, their drifts within
+    SPHERE_F32_DRIFT of each other."""
+    import importlib
+    ex = importlib.import_module("pyclaw_tpu_torch.examples.shallow_sphere")
+
+    def depth0(mx, my):
+        return ex.setup(mx=mx, my=my, outdir=None,
+                        device="cpu").solution.state.q[0].copy()
+
+    def drift_of(q, h0):
+        return float(np.abs(q[0].astype(np.float64) - h0).max() / h0.max())
+
+    h0 = depth0(*n)
+    out = {}
+    small = {}
+    for where in (dev, "cpu"):
+        claw, _, _ = run_example(where, "shallow_sphere", np.float32,
+                                 SPHERE_T, mx=SPHERE_SMALL[0],
+                                 my=SPHERE_SMALL[1])
+        small[str(where)] = drift_of(claw.solution.q, depth0(*SPHERE_SMALL))
+    rel = abs(small[str(dev)] - small["cpu"]) / small["cpu"]
+    out["f32_drift_small"] = {"card": small[str(dev)], "cpu": small["cpu"],
+                              "rel": rel}
+    print(f"[4w] shallow_sphere split {SPHERE_SMALL[0]}x{SPHERE_SMALL[1]} "
+          f"f32 to t={SPHERE_T}: TC2 depth drift card {small[str(dev)]:.6e}, "
+          f"cpu {small['cpu']:.6e}, rel {rel:.3e} (tol {SPHERE_F32_DRIFT})",
+          flush=True)
+    if rel > SPHERE_F32_DRIFT:
+        fail(f"[4w] shallow_sphere f32 drift: {out['f32_drift_small']}")
+    for route, split, kernel, per in (("split", True, None, 0),
+                                      ("unsplit", False, "step2_aos", 1)):
+        drift = {}
+        for tname, dtype in (("float32", np.float32),
+                             ("float64", np.float64)):
+            claw, rec = scalar_run(
+                f"[4w] shallow_sphere {route} {n[0]}x{n[1]} {tname}",
+                lambda dtype=dtype, split=split: run_example(
+                    dev, "shallow_sphere", dtype, SPHERE_T, mx=n[0],
+                    my=n[1], dimensional_split=split), kernel, per,
+                (3,) + n, SPHERE_T)
+            rec["drift"] = drift[tname] = drift_of(claw.solution.q, h0)
+            rec["h_min"] = float(claw.solution.q[0].min())
+            rec["captures"] = rec["loop"]["captures"]
+            print(f"    TC2 depth drift {rec['drift']:.6e}, min h "
+                  f"{rec['h_min']:.6g}", flush=True)
+            if rec["h_min"] <= 0.0:
+                fail(f"[4w] shallow_sphere {route} {tname}: {rec}")
+            out[f"{route}:{tname}"] = rec
+            del claw
+        print(f"    {route}: drift f32 {drift['float32']:.6e}, f64 "
+              f"{drift['float64']:.6e} (tol {SPHERE_DRIFT_TOL})", flush=True)
+        if drift["float64"] > SPHERE_DRIFT_TOL:
+            fail(f"[4w] shallow_sphere {route}: drift {drift}")
+    return out
+
+
+def fluid_checks(label, q, mx, my):
+    """rho > 0 and p > 0 in the forward step's fluid cells (outside the
+    step [0.6, 3] x [0, 0.2]); returns (min rho, min p)."""
+    fluid = np.ones((mx, my), bool)
+    fluid[int(round(0.2 * mx)):, :int(round(0.2 * my))] = False
+    q = q.astype(np.float64)
+    rho = q[0][fluid]
+    p = 0.4 * (q[3][fluid] - 0.5 * (q[1][fluid] ** 2 + q[2][fluid] ** 2)
+               / rho)
+    if not (rho.min() > 0.0 and p.min() > 0.0):
+        fail(f"{label}: min rho {rho.min()}, min p {p.min()} in the fluid")
+    return float(rho.min()), float(p.min())
+
+
+def forward_step_runs(dev, n=(600, 200)):
+    """[4w] shock_forward_step at n to FSTEP_T in float32, on the host
+    loop (its before_step): classic split (plain PyTorch, no kernel of the
+    port) and SharpClaw (dq2_weno5, 10 launches an attempted step); rho >
+    0 and p > 0 in the fluid."""
+    out = {}
+    for solver_type, kernel, per in (("classic", None, 0),
+                                     ("sharpclaw", "dq2_weno5", 10)):
+        label = f"[4w] shock_forward_step {solver_type} {n[0]}x{n[1]} f32"
+        claw, rec = scalar_run(
+            label, lambda st=solver_type: run_example(
+                dev, "shock_forward_step", np.float32, FSTEP_T, mx=n[0],
+                my=n[1], solver_type=st, num_output_times=1), kernel, per,
+            (4,) + n, FSTEP_T, graph=False)
+        rec["rho_min"], rec["p_min"] = fluid_checks(label, claw.solution.q,
+                                                    *n)
+        out[solver_type] = rec
+        del claw
+    return out
+
+
+def acoustics3d_split_run(dev, n=128):
+    """[4w] acoustics_3d_heterogeneous split (three sweeps of plain
+    PyTorch, the default CFL) at n^3 float32 to its example's t=0.8."""
+    claw, rec = scalar_run(
+        f"[4w] acoustics_3d_heterogeneous split {n}^3 f32",
+        lambda: run_example(dev, "acoustics_3d_heterogeneous", np.float32,
+                            0.8, mx=n, my=n, mz=n, dimensional_split=True),
+        None, 0, (4, n, n, n), 0.8)
+    del claw
+    return rec
+
+
+def reaction_runs(dev, n=2 ** 20):
+    """[4w] advection_reaction at n cells with lambda = REACTION_LAM to
+    REACTION_T, float32: classic with the source split Godunov and Strang
+    (step1, 1 launch an attempted step; the source in the device loop's
+    graphs) and SharpClaw with dq_src (weno5, 10 an attempt); each within
+    REACTION_TOL of the exact solution."""
+    out = {}
+    x = (np.arange(n) + 0.5) / n
+    exact = np.exp(-REACTION_LAM * REACTION_T) * np.exp(
+        -100.0 * ((x - REACTION_T) % 1.0 - 0.5) ** 2)
+    for label, kw, kernel, per in (
+            ("classic Godunov", {"source_split": 1}, "step1", 1),
+            ("classic Strang", {"source_split": 2}, "step1", 1),
+            ("sharpclaw dq_src", {"solver_type": "sharpclaw"}, "weno5", 10)):
+        claw, rec = scalar_run(
+            f"[4w] advection_reaction {label} 2^20 f32",
+            lambda kw=kw: run_example(dev, "advection_reaction", np.float32,
+                                      REACTION_T, nx=n, lam=REACTION_LAM,
+                                      **kw), kernel, per, (1, n), REACTION_T)
+        rec["max_err_exact"] = float(np.abs(claw.solution.q[0] - exact).max())
+        print(f"    max |q - exact| {rec['max_err_exact']:.3e} (tol "
+              f"{REACTION_TOL})", flush=True)
+        if rec["max_err_exact"] > REACTION_TOL:
+            fail(f"[4w] advection_reaction {label}: {rec}")
+        out[label] = rec
+        del claw
+    return out
+
+
+def split_profiles(dev):
+    """[4w]: launches and device ms a step of the split and the unsplit
+    routes of psystem_2d (1024^2) and shallow_sphere (1024x512), float32,
+    on the device loop, each to t=0.02 under torch.profiler
+    (profile_main_path)."""
+    out = {}
+    for name, kw in (("psystem_2d", {"mx": 1024, "my": 1024}),
+                     ("shallow_sphere", {"mx": 1024, "my": 512})):
+        for route, split in (("split", True), ("unsplit", False)):
+            out[f"{name}:{route}"] = profile_main_path(
+                f"[4w] {name} {route}",
+                lambda name=name, kw=kw, split=split: run_example(
+                    dev, name, np.float32, 0.02, dimensional_split=split,
+                    **kw))
+    return out
+
+
+def split_card_vs_cpu(dev):
+    """[4w]: the split routes and the source routes at small grids on the
+    card against the same runs on the CPU in float64 (equal steps, q to
+    CARD_VS_CPU_TOL of max|q|): psystem_2d at 60^2, split and unsplit
+    (step2_aos on the card), shallow_sphere at 64x32 to t=1.0, split and
+    unsplit, shock_forward_step classic at 60x20 to t=0.5,
+    acoustics_3d_heterogeneous split at 16^3, advection_reaction at 200
+    cells (Godunov, Strang, dq_src)."""
+    out = {}
+    cases = (
+        ("psystem_2d split", lambda d: run_example(
+            d, "psystem_2d", np.float64, 1.0, mx=60, my=60)),
+        ("psystem_2d unsplit", lambda d: run_example(
+            d, "psystem_2d", np.float64, 1.0, mx=60, my=60,
+            dimensional_split=False)),
+        ("shallow_sphere split", lambda d: run_example(
+            d, "shallow_sphere", np.float64, 1.0, mx=64, my=32)),
+        ("shallow_sphere unsplit", lambda d: run_example(
+            d, "shallow_sphere", np.float64, 1.0, mx=64, my=32,
+            dimensional_split=False)),
+        ("shock_forward_step classic", lambda d: run_example(
+            d, "shock_forward_step", np.float64, 0.5, mx=60, my=20,
+            num_output_times=1)),
+        ("acoustics_3d_heterogeneous split", lambda d: run_example(
+            d, "acoustics_3d_heterogeneous", np.float64, 0.8, mx=16, my=16,
+            mz=16, dimensional_split=True)),
+        ("advection_reaction Godunov", lambda d: run_example(
+            d, "advection_reaction", np.float64, 1.0, source_split=1)),
+        ("advection_reaction Strang", lambda d: run_example(
+            d, "advection_reaction", np.float64, 1.0, source_split=2)),
+        ("advection_reaction dq_src", lambda d: run_example(
+            d, "advection_reaction", np.float64, 1.0,
+            solver_type="sharpclaw")))
+    for label, run in cases:
+        runs = {}
+        for where in (dev, "cpu"):
+            c, st, w = run(where)
+            runs[str(where)] = (c.solution.q, (st["numsteps"],
+                                               st["numrejected"]), w)
+        (q_k, s_k, w_k), (q_c, s_c, w_c) = runs[str(dev)], runs["cpu"]
+        rel = float(np.abs(q_k - q_c).max() / np.abs(q_c).max())
+        out[label] = {"max_rel": rel, "steps_card": s_k, "steps_cpu": s_c,
+                      "wall_card_s": w_k, "wall_cpu_s": w_c}
+        print(f"[4w] {label} f64 card vs cpu: max rel {rel:.3e} (tol "
+              f"{CARD_VS_CPU_TOL}), steps card {s_k}, cpu {s_c}; wall card "
+              f"{w_k:.3f} s, cpu {w_c:.3f} s", flush=True)
+        if not (s_k == s_c and rel <= CARD_VS_CPU_TOL):
+            fail(f"[4w] {label}: {out[label]}")
+    return out
+
+
+def split_phase(dev):
+    """[4w]: this slice's instances against their plain version, its runs
+    (each with every launch count set to 0 just before it and read just
+    after), the routes' profiles and the card against the CPU."""
+    out = {"kernel_check": compare_no_trans(dev)}
+    out["psystem_2d"] = psystem_runs(dev)
+    out["shallow_sphere"] = sphere_runs(dev)
+    out["shock_forward_step"] = forward_step_runs(dev)
+    out["acoustics_3d_split"] = acoustics3d_split_run(dev)
+    out["advection_reaction"] = reaction_runs(dev)
+    out["profiles"] = split_profiles(dev)
+    out["card_vs_cpu"] = split_card_vs_cpu(dev)
+    return out
+
+
+def timing_no_trans(dev, name, n=1024):
+    """[6]: step2_aos's instance of system ``name`` (CUDA events and the
+    profiler's device time), its plain version and its bound on its
+    unsplit run's first input (ops/time_kernels.py:
+    step2_aos_no_trans_case)."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    out = {}
+    for tname, dtype in (("float32", torch.float32),
+                         ("float64", torch.float64)):
+        qbc, args = step2_aos_no_trans_case(name, n, dtype, dev)
+        auxbc, dt, dx, dy, rp, params, lims, order, fwave, capa, _, tw = args
+
+        def kern():
+            return tiled2d.step2_rows_generic(qbc, *args)
+
+        def plain():
+            return plain_step2(qbc, auxbc, dt, dx, dy, rp, params, lims,
+                               order, fwave, capa, tw)
+
+        ms = time_ms(kern, 200)
+        plain_ms = time_ms(plain, 20, warm=2)
+        ms_again = time_ms(kern, 200)
+        dev_ms, dev_n = device_ms_per_call(kern, "step2_aos_kernel", 20)
+        item = qbc.element_size()
+        cells = (qbc.shape[1] - 4) * (qbc.shape[2] - 4)
+        # the aux rows the instance reads, each once (NO_TRANS_CASES)
+        aux_read = len(NO_TRANS_CASES[name][5]) * auxbc[0].numel()
+        b = bound_of(qbc.numel() * item + aux_read * item
+                     + rp.num_eqn * cells * item,
+                     FLOPS_PER_CELL_NO_TRANS[name] * cells, tname)
+        out[tname] = {"ms": ms, "ms_repeat": ms_again, "device_ms": dev_ms,
+                      "device_launches_profiled": dev_n,
+                      "plain_ms": plain_ms, "shape": list(qbc.shape), **b}
+        print(f"  timing step2_aos {name} {tuple(qbc.shape)} {tname}: "
+              f"kernel {ms:.4f} ms (repeat {ms_again:.4f}; on the device "
+              f"{dev_ms} ms, {dev_n} launches profiled), plain "
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}; bytes {b['bytes_ms']:.4f}, operations "
+              f"{b['ops_ms']:.4f}), share of bound {b['bound_ms'] / ms:.4f}, "
+              f"library_ms null", flush=True)
     return out
 
 
@@ -4771,6 +5258,12 @@ def main():
           f"{dq_lib.dq2_weno5_euler5_blocks_per_sm(0)} (f32), "
           f"{dq_lib.dq2_weno5_euler5_blocks_per_sm(1)} (f64) blocks per SM",
           flush=True)
+    smem_no_trans = {name: [lib_aos.step2_aos_smem_bytes(
+        tiled2d.AOS_SYSTEMS[name][0], c, d) for d in (0, 1) for c in (0, 1)]
+        for name in NO_TRANS_2D}
+    print(f"    the instances without a transverse solver: step2_aos shared "
+          f"memory (f32 without and with capacity, then f64) "
+          f"{smem_no_trans} B", flush=True)
     smem_scalar = {name: [lib_aos.step2_aos_smem_bytes(
         tiled2d.AOS_SYSTEMS[name][0], c, d) for d in (0, 1) for c in (0, 1)]
         for name in SCALAR_2D}
@@ -5179,6 +5672,16 @@ def main():
         scalar_runs[key] = phase(dev)
         phase_s[key] = time.perf_counter() - t0
 
+    # [4w] this slice's paths: the instances without a transverse solver
+    # against their plain version; psystem_2d and shallow_sphere split and
+    # unsplit, the forward step, the 3D acoustics split and
+    # advection-reaction's sources, every launch count set to 0 just before
+    # each run and read just after; the routes' profiles; the card against
+    # the CPU
+    t0 = time.perf_counter()
+    split = split_phase(dev)
+    phase_s["4w"] = time.perf_counter() - t0
+
     # [4m] the parallel overlay in a world of one NCCL rank against [4c];
     # [4n] four ranks against the serial runs, every launch count of each
     # rank set to 0 just before each run and read just after
@@ -5303,6 +5806,8 @@ def main():
     lap("tm_scalar")
     tm_b3 = timing_burgers3d(dev)
     lap("tm_b3")
+    tm_no_trans = {name: timing_no_trans(dev, name) for name in NO_TRANS_2D}
+    lap("tm_no_trans")
     prof = profile_loops(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
@@ -5777,6 +6282,39 @@ def main():
         "bound_ms_f64": b64["bound_ms"], "bound_by_f64": b64["bound_by"],
         "max_rel_err_f64": b3_worst["float64"],
         "max_rel_err_f32": b3_worst["float32"]})
+    # this slice's instances: each one's launches from its unsplit run
+    nt_worst, _, nt_abs, _ = split["kernel_check"]
+    no_trans_runs = {"psystem_2D": ("psystem_2d", "psystem2d.cuh"),
+                     "shallow_sphere_fwave_2D": ("shallow_sphere",
+                                                 "shallow_sphere2d.cuh")}
+    for name in NO_TRANS_2D:
+        run_key, header = no_trans_runs[name]
+        t32 = tm_no_trans[name]["float32"]
+        t64 = tm_no_trans[name]["float64"]
+        new_records.append({
+            "name": f"step2_aos:{name}", "route": "cuda",
+            "source": "pyclaw_tpu_torch/csrc/step2_aos.cu",
+            "system_source": f"pyclaw_tpu_torch/csrc/{header}",
+            "replaces": "pyclaw_tpu/ops/tiled2d.py:113",
+            "replaces_function": "step2_pallas_rows (generic body "
+                                 "classic/kernels.py:345 step2_roll with "
+                                 "rpt=None); step2_pallas_tiled_generic "
+                                 "(ops/tiled2d.py:609); step2_pallas "
+                                 "(ops/sweep2d.py:41)",
+            "rows": ["1b"],
+            "launches": split[run_key]["unsplit:float32"]["launches"][
+                "step2_aos"],
+            "max_abs_err": nt_abs[name],
+            "ms": t32["ms"], "device_ms": t32["device_ms"],
+            "plain_ms": t32["plain_ms"],
+            "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+            "library_ms": None, "shape": t32["shape"], "dtype": "float32",
+            "ms_f64": t64["ms"], "device_ms_f64": t64["device_ms"],
+            "plain_ms_f64": t64["plain_ms"],
+            "bound_ms_f64": t64["bound_ms"],
+            "bound_by_f64": t64["bound_by"],
+            "max_rel_err_f64": nt_worst["float64"],
+            "max_rel_err_f32": nt_worst["float32"]})
     kernels = [record, dq_record, dq_ac_record, s3_record, aos_record,
                aos_ac_record, s1_record, s1_sw_record, w5_record,
                w5_3d_record, het_record, eu_record, rs_record] + new_records
@@ -5816,6 +6354,8 @@ def main():
                "scalar_runs": scalar_runs,
                "scalar_card_vs_cpu": scalar_vs_cpu,
                "timing_scalar": tm_scalar, "timing_burgers_3d": tm_b3,
+               "split_source_paths": split,
+               "timing_no_trans": tm_no_trans,
                "timing_aos_new": tm_aos_new, "timing_dq_euler5": tm_dq_e5,
                "timing_weno5_3d": tm_w5_3d,
                "profile_sharpclaw_euler3d": prof_s3,

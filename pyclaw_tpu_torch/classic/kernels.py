@@ -129,6 +129,28 @@ def step1(q, aux, dt, dx, rp, params, mthlim, order, fwave, index_capa,
     return q_new[..., g - 1:n - 1 - g], cfl
 
 
+def step1_dir(q, aux, dt, dxi, ixy, rp, params, mthlim, order, fwave,
+              index_capa, num_ghost):
+    """One sweep of dimensional splitting (step2ds.f90 / step3ds.f90):
+    :func:`step1` along spatial axis ``ixy`` of a ghost-padded N-D array,
+    with aux and its capacity row moved with q, then the ghost bands of
+    every other axis stripped.  Returns (q_interior, cfl).  The JAX
+    package's ``classic/kernels.py:99 step1_dir``; it reaches no TPU
+    kernel there, and runs as plain PyTorch on every device here."""
+    g = num_ghost
+    axis = 1 + ixy
+    qm = torch.movedim(q, axis, -1)
+    auxm = None if aux is None else torch.movedim(aux, axis, -1)
+    q_new, cfl = step1(qm, auxm, dt, dxi, rp, params, mthlim, order, fwave,
+                       index_capa, g, ixy=ixy)
+    q_new = torch.movedim(q_new, -1, axis)
+    sl = [slice(None)] * q_new.dim()
+    for d in range(q_new.dim() - 1):
+        if d != ixy:
+            sl[1 + d] = slice(g, q_new.shape[1 + d] - g)
+    return q_new[tuple(sl)], cfl
+
+
 def _sweep_normal(q, aux, ixy, rp, params, mthlim, order, fwave,
                   dtdx_cells):
     """Normal Riemann sweep along axis ``ixy`` of a ghost-padded array:

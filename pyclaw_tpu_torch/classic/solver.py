@@ -14,7 +14,11 @@ then ``ops.sweep.step1`` (1D: aux, capacity, f-waves),
 capacity, f-waves), ``ops.tiled2d.step3_xy`` (3D Euler) or
 ``ops.tiled2d.step3_xy_generic`` (3D, the generic AoS step: aux, capacity,
 f-waves), which launch the CUDA kernel on a CUDA tensor and run the plain
-PyTorch version on a CPU tensor.
+PyTorch version on a CPU tensor.  With ``dimensional_split = True`` the 2D
+and 3D step is one ``classic/kernels.py:step1_dir`` sweep an axis, each
+after its own BC fill (plain PyTorch on every device, as the JAX package
+runs it through XLA).  ``step_source`` is split around the step, Godunov
+or Strang (``source_split``), as in the JAX package.
 
 Options of the JAX package that this slice does not port raise
 ``NotImplementedError`` at setup, naming their ROADMAP.md item.
@@ -22,8 +26,11 @@ Options of the JAX package that this slice does not port raise
 
 from __future__ import annotations
 
-from ..ops import sweep, tiled2d
+import torch
+
+from ..ops import _build, sweep, tiled2d
 from ..solver import Solver, _not_ported
+from . import kernels
 
 
 class ClawSolver(Solver):
@@ -54,17 +61,74 @@ class ClawSolver(Solver):
     def setup(self, solution):
         state = solution.states[0]
         self._check_setup(state)
-        if self.step_source is not None:
-            raise _not_ported("step_source")
         self._size_bc_lists(self.num_dim)
         if self.dt_initial is not None:
             self.dt = self.dt_initial
-        self._step_fn = self._finalize_step(
-            self._make_hyperbolic_step(state), state)
+        self._step_fn = self._finalize_step(self._make_full_step(state),
+                                            state)
         self._is_set_up = True
 
     def _make_hyperbolic_step(self, state):
         raise NotImplementedError
+
+    def _make_full_step(self, state):
+        """The hyperbolic step with the source hook split around it, as
+        the JAX package's ``_make_full_step`` (``classic/solver.py:78-97``):
+        ``step_source(solver, state, q, dt) -> q_new``, a function of torch
+        operations, over dt/2 before and after the step (Strang,
+        ``source_split = 2``) or over dt after it (Godunov, 1).  The hook
+        gets dt as a 0-d float64 tensor on q's device (the device loop's
+        own, or the host loop's float made one), so on the card it is
+        captured with the step in the device loop's CUDA graphs; a hook
+        that reads a tensor back to the host fails that capture, which
+        raises."""
+        hyper = self._make_hyperbolic_step(state)
+        src = self.step_source
+        if src is None:
+            return hyper
+        split = self.source_split
+        if split not in (1, 2):
+            raise ValueError(f"source_split must be 1 (Godunov) or 2 "
+                             f"(Strang), got {split}")
+
+        def full(q, aux, dt, t, out=None):
+            if not isinstance(dt, torch.Tensor):
+                dt = torch.tensor(dt, dtype=torch.float64, device=q.device)
+            if split == 2:
+                q = src(self, state, q, dt / 2.0)
+            q_new, cfl = hyper(q, aux, dt, t)
+            q_new = src(self, state, q_new, dt if split == 1 else dt / 2.0)
+            return _build.plain_out((q_new, cfl), out)
+        return full
+
+    def _make_split_step(self, state, deltas):
+        """Dimensional splitting (Godunov, one sweep an axis in order, as
+        ``pyclaw_tpu/classic/solver.py:169-183, 447-460``): before each
+        sweep the BCs are filled again, custom callbacks included, at the
+        step's t, and each sweep is ``classic/kernels.py:step1_dir``; the
+        step's CFL is the largest sweep's.  A sweep's q between two sweeps
+        is a new tensor (in the device loop's graph pool on the card); the
+        last one is copied into ``out``."""
+        rp = self.rp
+        if rp.rp is None:
+            raise ValueError(f"Riemann solver {rp.name} has no rp hook")
+        params = self._weak_params(state.problem_data)
+        mthlim = self._mthlim()
+        order = self.order
+        fwave = self.fwave
+        index_capa = state.index_capa
+        g = self.num_ghost
+
+        def step_fn(q, aux, dt, t, out=None):
+            cfl = None
+            for ixy, dxi in enumerate(deltas):
+                qbc, auxbc = self._extend_bc(q, aux, t, state)
+                q, c = kernels.step1_dir(qbc, auxbc, dt, dxi, ixy, rp.rp,
+                                         params, mthlim, order, fwave,
+                                         index_capa, g)
+                cfl = c if cfl is None else torch.maximum(cfl, c)
+            return _build.plain_out((q, cfl), out)
+        return step_fn
 
 
 class ClawSolver1D(ClawSolver):
@@ -100,7 +164,9 @@ class ClawSolver2D(ClawSolver):
     2 = also of the second-order correction waves.  Takes aux arrays, a
     capacity function (``state.index_capa``) and ``fwave``.
 
-    The step: the Euler 4-wave system on the SoA route
+    With ``dimensional_split = True`` the step is an x then a y sweep
+    (:meth:`ClawSolver._make_split_step`).  Otherwise: the Euler 4-wave
+    system on the SoA route
     (:meth:`_soa_eligible`) runs ``ops.tiled2d.step2_rows``
     (``csrc/step2_ctu.cu``); every other system with an ``rp`` and an
     ``rpt`` hook runs ``ops.tiled2d.step2_rows_generic``, which on the
@@ -109,8 +175,9 @@ class ClawSolver2D(ClawSolver):
     (``shallow_roe_with_efix_2D``, ``shallow_bathymetry_fwave_2D``,
     ``sw_aug_2D``), ``acoustics_2D``, ``vc_acoustics_2D``, the Euler 4- and
     5-wave systems, ``advection_2D``, ``vc_advection_2D``,
-    ``vc_advection_fwave_2D``, ``kpp_2D`` and ``burgers_2D``, and raises
-    for any other."""
+    ``vc_advection_fwave_2D``, ``kpp_2D``, ``burgers_2D`` and the two
+    records without ``rpt``, ``psystem_2D`` and ``shallow_sphere_fwave_2D``
+    (no transverse pass), and raises for any other."""
     num_dim = 2
 
     def __init__(self, riemann_solver=None, device=None):
@@ -121,7 +188,7 @@ class ClawSolver2D(ClawSolver):
 
     def _make_hyperbolic_step(self, state):
         if self.dimensional_split:
-            raise _not_ported("dimensional_split")
+            return self._make_split_step(state, tuple(state.patch.delta))
         if self.num_ghost != 2:
             raise ValueError("the 2D CTU step needs num_ghost=2")
         params = self._weak_params(state.problem_data)
@@ -140,9 +207,11 @@ class ClawSolver2D(ClawSolver):
             return step_fn
 
         # the generic AoS step (any system with AoS hooks; on the card the
-        # systems of tiled2d.AOS_SYSTEMS, the wrapper raises for others)
+        # systems of tiled2d.AOS_SYSTEMS, the wrapper raises for others); a
+        # record without rpt runs no transverse pass, whatever
+        # transverse_waves says (pyclaw_tpu/classic/kernels.py:237)
         rp = self.rp
-        if rp.rp is None or rp.rpt is None:
+        if rp.rp is None:
             raise _not_ported("generic AoS 2D step")
         tiled2d.check_options(mthlim, order, tw, rp.num_waves,
                               "step2_rows_generic")
@@ -213,7 +282,7 @@ class ClawSolver3D(ClawSolver):
 
     def _make_hyperbolic_step(self, state):
         if self.dimensional_split:
-            raise _not_ported("dimensional_split")
+            return self._make_split_step(state, tuple(state.patch.delta))
         rp = self.rp
         is_euler = rp.name == "euler_3D"
         if not is_euler and rp.name not in tiled2d.STEP3_SYSTEMS:

@@ -1,12 +1,14 @@
 // step2_aos.cu — the whole 2D unsplit classic (CTU) step of the generic
 // AoS form, one launch per step, for Hopper (sm_90a): any registered
 // system of csrc/shallow2d.cuh, csrc/acoustics2d.cuh, csrc/euler2d_aos.cuh,
-// csrc/sw_aug2d.cuh or csrc/scalar2d.cuh, with aux arrays, a capacity
-// function and the f-wave correction form.  Twelve systems, each a
-// template instance of its own (SYS_* below): shallow_roe_with_efix_2D,
+// csrc/sw_aug2d.cuh, csrc/scalar2d.cuh, csrc/psystem2d.cuh or
+// csrc/shallow_sphere2d.cuh, with aux arrays, a capacity function and the
+// f-wave correction form.  Fourteen systems, each a template instance of
+// its own (SYS_* below): shallow_roe_with_efix_2D,
 // shallow_bathymetry_fwave_2D, acoustics_2D, euler_4wave_2D,
 // euler_5wave_2D, sw_aug_2D, advection_2D, vc_advection_2D,
-// vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D and burgers_2D.
+// vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D, burgers_2D, psystem_2D
+// and shallow_sphere_fwave_2D.
 //
 // Replaces the TPU kernels that run the generic body
 // pyclaw_tpu/classic/kernels.py:step2 (and its roll form step2_roll):
@@ -102,6 +104,19 @@
 // vc_advection_fwave_2D 0.042 / 0.071, burgers_2D 0.036 / 0.050: bytes
 // bound them at 2.5-10 µs.
 //
+// psystem_2D and shallow_sphere_fwave_2D (added after the scalar ones)
+// have no transverse solver, as their records have no rpt: the JAX
+// package's generic body skips the transverse pass for them
+// (pyclaw_tpu/classic/kernels.py:237).  Their system structs say so
+// (S::NO_TRANS): the step runs with transverse_waves 0 whatever the caller
+// passes, and no split is compiled for them.  shallow_sphere_fwave_2D
+// reads aux row 1 alone (kappa): it stages that row only (S::AUX0, Aux0
+// below).  psystem_2D's per-cell
+// quantities need the cell's aux (rho, K): its hook is S::prep_aux
+// (PrepAux below), called where the others' S::prep is.  The earlier
+// systems' code is unchanged (time_kernels --sass against the earlier
+// build).
+//
 // Phases (each a loop of the block's threads over one or two regions,
 // separated by barriers):
 //   load      q, aux, kappa tile + halo -> shared (indices clamped to the
@@ -139,8 +154,10 @@
 #include "async_copy.cuh"
 #include "dt_coef.cuh"
 #include "euler2d_aos.cuh"
+#include "psystem2d.cuh"
 #include "scalar2d.cuh"
 #include "shallow2d.cuh"
+#include "shallow_sphere2d.cuh"
 #include "sw_aug2d.cuh"
 #include "tvd.cuh"
 
@@ -154,6 +171,30 @@ template <class S, class = void> struct CellSplit : std::false_type {};
 template <class S>
 struct CellSplit<S, std::void_t<decltype(S::CELL_SPLIT)>>
     : std::integral_constant<bool, S::CELL_SPLIT> {};
+
+// Whether system S has no transverse solver (S::NO_TRANS): its step runs
+// no transverse pass
+template <class S, class = void> struct NoTrans : std::false_type {};
+template <class S>
+struct NoTrans<S, std::void_t<decltype(S::NO_TRANS)>>
+    : std::integral_constant<bool, S::NO_TRANS> {};
+
+// The first aux row system S reads (S::AUX0; 0 for the systems without
+// the member): its solvers read aux rows AUX0 .. AUX0 + NAUX - 1, which
+// make_args hands the kernel as its rows 0 .. NAUX - 1
+template <class S, class = void>
+struct Aux0 : std::integral_constant<int, 0> {};
+template <class S>
+struct Aux0<S, std::void_t<decltype(S::AUX0)>>
+    : std::integral_constant<int, S::AUX0> {};
+
+// Whether system S's per-cell quantities take the cell's aux as well as
+// its state (S::prep_aux(P, q, aux, pc)) rather than its state alone
+// (S::prep(P, q, pc))
+template <class S, class = void> struct PrepAux : std::false_type {};
+template <class S>
+struct PrepAux<S, std::void_t<decltype(&S::template prep_aux<float>)>>
+    : std::true_type {};
 
 constexpr int NT = 256;  // threads per block
 
@@ -328,7 +369,13 @@ HD void phase_load(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
   for (int rc = tid; rc < L::QN; rc += NT) {
     T qv[L::NEQ], pv[L::NPL];
     for (int f = 0; f < L::NEQ; ++f) qv[f] = B.q[f * L::QN + rc];
-    S::prep(A.P, qv, pv);
+    if constexpr (PrepAux<S>::value) {
+      T av[L::NAUX];
+      for (int m = 0; m < L::NAUX; ++m) av[m] = B.a[m * L::QN + rc];
+      S::prep_aux(A.P, qv, av, pv);
+    } else {
+      S::prep(A.P, qv, pv);
+    }
     for (int k = 0; k < L::NPC; ++k) B.PC[k * L::QN + rc] = pv[k];
     if (CAPA) {
       // dt / (dx kappa): the plain version's 0-d dt over (dx * kappa)
@@ -490,7 +537,7 @@ HD void phase_sweep(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
       }
     }
 
-    if (A.tw > 0) {
+    if constexpr (!NoTrans<S>::value) if (A.tw > 0) {
       const bool both = A.tw >= 2 && A.order == 2;
       T amt[NEQ], apt[NEQ], bm[NEQ], bp[NEQ], ql[NEQ], qr[NEQ];
       T ax[L::NAUX + 1], pl[L::NPL], pr[L::NPL];
@@ -698,12 +745,15 @@ SysArgs<S, T> make_args(const void* qbc, const void* aux, void* qout,
                         double p1, int order, int tw, const int* lim) {
   SysArgs<S, T> A;
   A.qbc = static_cast<const T*>(qbc);
-  A.aux = static_cast<const T*>(aux);
+  // a system that reads its aux from row AUX0 on gets the rows from
+  // there, its capacity row counted from there too
+  A.aux = static_cast<const T*>(aux)
+      + (long long)Aux0<S>::value * nxg * nyg;
   A.qout = static_cast<T*>(qout);
   A.cflb = static_cast<T*>(cflb);
   A.NX = nxg;
   A.NY = nyg;
-  A.capa = capa;
+  A.capa = capa - Aux0<S>::value;
   A.dt = dt;
   A.dx = T(dx);
   A.dy = T(dy);
@@ -712,10 +762,13 @@ SysArgs<S, T> make_args(const void* qbc, const void* aux, void* qout,
   A.C = nullptr;
   // the system's two physics scalars: (grav, dry_tolerance) for shallow
   // water, (zz, cc) for acoustics, (gamma - 1, unused) for Euler, (u, v)
-  // for advection_2D, (efix, unused) for Burgers
+  // for advection_2D, (efix, unused) for Burgers, (linear, unused) for
+  // psystem_2D, (grav, unused) for shallow_sphere_fwave_2D; a system
+  // without a transverse solver runs with transverse_waves 0 (its gather
+  // and update phases read tw; no split is compiled for it)
   A.P = S::template make_par<T>(p0, p1);
   A.order = order;
-  A.tw = tw;
+  A.tw = NoTrans<S>::value ? 0 : tw;
   for (int p = 0; p < nlim<S>(); ++p) A.lim[p] = lim[p];
   return A;
 }
@@ -808,7 +861,8 @@ enum { SYS_SHALLOW_ROE_EFIX = 0, SYS_SHALLOW_BATHY_FWAVE = 1,
        SYS_ACOUSTICS_2D = 2, SYS_EULER_4WAVE_2D = 3, SYS_EULER_5WAVE_2D = 4,
        SYS_SW_AUG_2D = 5, SYS_ADVECTION_2D = 6, SYS_VC_ADVECTION_2D = 7,
        SYS_VC_ADVECTION_FWAVE_2D = 8, SYS_VC_ACOUSTICS_2D = 9,
-       SYS_KPP_2D = 10, SYS_BURGERS_2D = 11, NUM_SYSTEMS = 12 };
+       SYS_KPP_2D = 10, SYS_BURGERS_2D = 11, SYS_PSYSTEM_2D = 12,
+       SYS_SHALLOW_SPHERE_2D = 13, NUM_SYSTEMS = 14 };
 // the limiter ids an entry takes (one per wave of the widest system)
 constexpr int NLIM_ENTRY = 5;
 
@@ -859,6 +913,10 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
       return STEP2_AOS_SYSTEM(Kpp2D);
     case SYS_BURGERS_2D:
       return STEP2_AOS_SYSTEM(Burgers2D);
+    case SYS_PSYSTEM_2D:
+      return STEP2_AOS_SYSTEM(Psystem2D);
+    case SYS_SHALLOW_SPHERE_2D:
+      return STEP2_AOS_SYSTEM(ShallowSphere2D);
     default:
       return -1;
   }
@@ -922,6 +980,10 @@ int step2_aos_smem_bytes(int system, int capa, int is_double) {
       return smem_of<Kpp2D>(capa != 0, is_double != 0);
     case SYS_BURGERS_2D:
       return smem_of<Burgers2D>(capa != 0, is_double != 0);
+    case SYS_PSYSTEM_2D:
+      return smem_of<Psystem2D>(capa != 0, is_double != 0);
+    case SYS_SHALLOW_SPHERE_2D:
+      return smem_of<ShallowSphere2D>(capa != 0, is_double != 0);
     default:
       return smem_of<ShallowRoeEfix2D>(capa != 0, is_double != 0);
   }
@@ -937,7 +999,8 @@ int step2_aos_smem_bytes(int system, int capa, int is_double) {
 // emulation), a double that is exact in the entry's type; p0, p1: the
 // system's two physics scalars ((grav, dry_tolerance) for shallow water,
 // (zz, cc) for acoustics, (gamma - 1, 0) for Euler, (u, v) for
-// advection_2D, (efix, 0) for Burgers, unread by the other scalar systems
+// advection_2D, (efix, 0) for Burgers, (linear, 0) for psystem_2D, (grav,
+// 0) for shallow_sphere_fwave_2D, unread by the other scalar systems
 // and vc_acoustics_2D); l0..l4: the limiter
 // ids of the waves (the kernel reads the system's NW).  Returns a
 // cudaError_t (0 on success), or -1 for an unknown system.

@@ -9,7 +9,8 @@ same initial condition and settings (a cosine ring of pressure around r =
 dq, ``csrc/dq2_weno5.cu``'s acoustics instance on a card).  ``setup()``
 takes the JAX example's keywords plus ``device`` and ``dtype``; the
 device picks the kernel, so there is no ``kernel_language``.
-``dimensional_split=True`` raises at setup, naming its ROADMAP.md item.
+``dimensional_split=True`` runs the x and y sweeps of dimensional
+splitting (plain PyTorch on every device).
 
     python -m pyclaw_tpu_torch.examples.acoustics_2d
 """
@@ -18,15 +19,12 @@ import numpy as np
 
 import pyclaw_tpu_torch as pyclaw
 from pyclaw_tpu_torch import riemann
-from pyclaw_tpu_torch.solver import _not_ported
 
 
 def setup(mx=100, my=100, solver_type="classic", time_integrator="SSP104",
           dimensional_split=False, outdir="./_output", dtype=None,
           device=None):
     if solver_type == "classic":
-        if dimensional_split:
-            raise _not_ported("dimensional_split")
         solver = pyclaw.ClawSolver2D(riemann.acoustics_2D, device=device)
         solver.dimensional_split = dimensional_split
         solver.limiters = [pyclaw.limiters.tvd.MC]

@@ -14,7 +14,8 @@ runs ``SharpClawSolver2D(vc_acoustics_2D)`` (WENO5, SSP104, the generic
 dq with aux, ``csrc/weno5.cu`` on a card; ``char_decomp`` through the
 record's ``evec``).  Plus ``device`` and ``dtype``; the device picks the
 kernel, so there is no ``kernel_language``.  ``dimensional_split=True``
-raises at setup, naming its ROADMAP.md item.
+runs the x and y sweeps of dimensional splitting (plain PyTorch on every
+device).
 
     python -m pyclaw_tpu_torch.examples.acoustics_2d_interface
 """
@@ -23,15 +24,12 @@ import numpy as np
 
 import pyclaw_tpu_torch as pyclaw
 from pyclaw_tpu_torch import riemann
-from pyclaw_tpu_torch.solver import _not_ported
 
 
 def setup(mx=200, my=200, solver_type="classic", rhol=4.0, cl=0.5,
           rhor=1.0, cr=1.0, dimensional_split=False, outdir="./_output",
           dtype=None, device=None):
     if solver_type == "classic":
-        if dimensional_split:
-            raise _not_ported("dimensional_split")
         solver = pyclaw.ClawSolver2D(riemann.vc_acoustics_2D, device=device)
         solver.dimensional_split = dimensional_split
         solver.limiters = [pyclaw.limiters.tvd.MC]

@@ -11,7 +11,9 @@ device picks the kernel (``csrc/step3_aos.cu`` on a card), so there is no
 ``kernel_language``.  ``solver_type="sharpclaw"`` runs
 ``SharpClawSolver3D(vc_acoustics_3D)`` (WENO5, SSP104; the generic dq
 with aux and the second Riemann solve for the in-cell fluctuation,
-``csrc/weno5.cu`` on a card).
+``csrc/weno5.cu`` on a card).  ``dimensional_split=True`` runs the
+three sweeps of dimensional splitting at the default CFL (plain PyTorch
+on every device), as the JAX example does.
 
     python -m pyclaw_tpu_torch.examples.acoustics_3d_heterogeneous
 """
@@ -20,18 +22,17 @@ import numpy as np
 
 import pyclaw_tpu_torch as pyclaw
 from pyclaw_tpu_torch import riemann
-from pyclaw_tpu_torch.solver import _not_ported
 
 
 def setup(mx=32, my=32, mz=32, solver_type="classic", rho_bot=4.0,
           c_bot=0.5, rho_top=1.0, c_top=1.0, dimensional_split=False,
           outdir="./_output", dtype=None, device=None):
     if solver_type == "classic":
-        if dimensional_split:
-            raise _not_ported("dimensional_split")
         solver = pyclaw.ClawSolver3D(riemann.vc_acoustics_3D, device=device)
-        solver.transverse_waves = 1     # no variable-coefficient rptt
-        solver.cfl_desired, solver.cfl_max = 0.45, 0.5
+        solver.dimensional_split = dimensional_split
+        if not dimensional_split:
+            solver.transverse_waves = 1     # no variable-coefficient rptt
+            solver.cfl_desired, solver.cfl_max = 0.45, 0.5
         solver.limiters = [pyclaw.limiters.tvd.MC]
     else:
         solver = pyclaw.SharpClawSolver3D(riemann.vc_acoustics_3D,

@@ -23,10 +23,12 @@
   and of ``ops/sweep2d.py:step2_pallas``: one launch of
   ``csrc/step2_aos.cu`` computes the whole unsplit CTU step of a system
   of :data:`AOS_SYSTEMS` (the three shallow-water systems, ``acoustics_2D``,
-  the Euler 4- and 5-wave systems, and the scalar and
+  the Euler 4- and 5-wave systems, the scalar and
   variable-coefficient systems ``advection_2D``, ``vc_advection_2D``,
   ``vc_advection_fwave_2D``, ``vc_acoustics_2D``, ``kpp_2D`` and
-  ``burgers_2D``, each a template instance of its own, given its two
+  ``burgers_2D``, and the two systems without a transverse solver,
+  ``psystem_2D`` and ``shallow_sphere_fwave_2D``, each a template
+  instance of its own, given its two
   physics scalars by :func:`aos_system_params`), with aux arrays, a
   capacity function and the f-wave form, for any (nx, ny).  Plain
   version: ``classic/kernels.py:step2``.
@@ -369,14 +371,16 @@ step3_xy.device_launches = None
 
 
 # rp.name -> (system id of csrc/step2_aos.cu (SYS_*), aux rows its
-# solvers read (NAUX))
+# solvers need: rows 0 .. n - 1 (NAUX; shallow_sphere_fwave_2D reads its
+# row 1 alone, AUX0 + NAUX))
 AOS_SYSTEMS = {"shallow_roe_with_efix_2D": (0, 0),
                "shallow_bathymetry_fwave_2D": (1, 1),
                "acoustics_2D": (2, 0), "euler_4wave_2D": (3, 0),
                "euler_5wave_2D": (4, 0), "sw_aug_2D": (5, 1),
                "advection_2D": (6, 0), "vc_advection_2D": (7, 2),
                "vc_advection_fwave_2D": (8, 2), "vc_acoustics_2D": (9, 2),
-               "kpp_2D": (10, 0), "burgers_2D": (11, 0)}
+               "kpp_2D": (10, 0), "burgers_2D": (11, 0),
+               "psystem_2D": (12, 2), "shallow_sphere_fwave_2D": (13, 2)}
 # limiter ids an entry of csrc/step2_aos.cu takes (one per wave of its
 # widest system, Euler 5-wave; a build without step2_aos_limiter_ids, made
 # before the Euler systems, takes three)
@@ -435,8 +439,9 @@ def aos_system_params(rp, params):
     dry_tolerance) for shallow water (dry_tolerance 1e-8 when problem_data
     has none, as in the JAX package), (u, v) for ``advection_2D``, (1, 0)
     or (0, 0) for Burgers with or without the entropy fix (on unless
-    problem_data['efix'] is false, as in the JAX package), (0, 0) for the
-    systems that read none."""
+    problem_data['efix'] is false, as in the JAX package), (1, 0) or (0, 0)
+    for ``psystem_2D``'s "linear" or "exp" stress law, (grav, 0) for
+    ``shallow_sphere_fwave_2D``, (0, 0) for the systems that read none."""
     if rp.name == "acoustics_2D":
         zz, cc = acoustics._zc(params)
         return float(zz), float(cc)
@@ -446,6 +451,10 @@ def aos_system_params(rp, params):
         return float(params["u"]), float(params["v"])
     if rp.name == "burgers_2D":
         return float(bool(params.get("efix", True))), 0.0
+    if rp.name == "psystem_2D":
+        return float(params.get("stress_relation", "exp") == "linear"), 0.0
+    if rp.name == "shallow_sphere_fwave_2D":
+        return float(params["grav"]), 0.0
     if rp.name in ("vc_advection_2D", "vc_advection_fwave_2D",
                    "vc_acoustics_2D", "kpp_2D"):
         return 0.0, 0.0
@@ -469,8 +478,12 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
     ny+4) or None (float32 or float64, contiguous, q's dtype).  dt: step
     in q's dtype (a Python float or a 0-d tensor, exact in it).
     ``index_capa`` >= 0 names the aux row of the capacity function;
-    ``out`` is the buffer of q or None.  Returns (q (num_eqn, nx, ny), cfl
-    as a 0-d tensor).  On a CPU tensor this is
+    ``out`` is the buffer of q or None.  A record without ``rpt``
+    (``psystem_2D``, ``shallow_sphere_fwave_2D``) runs no transverse pass
+    whatever ``transverse_waves`` says: the plain step skips it without
+    ``rpt``, the instance (``NO_TRANS``) runs with transverse_waves 0.
+    Returns (q (num_eqn, nx, ny), cfl as a 0-d tensor).  On a CPU tensor
+    this is
     ``classic/kernels.py:step2``; on a CUDA tensor one launch of
     ``csrc/step2_aos.cu`` (``lib``: another build of it, bound by
     :func:`bind_step2_aos_lib`, for the variant timer

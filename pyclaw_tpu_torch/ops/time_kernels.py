@@ -7,8 +7,9 @@ and the timers and timed cases that ``chip_smoke.py`` uses too.
 KERNEL is ``step2_ctu``, ``dq2_weno5`` (the Euler 4-wave and 5-wave
 cases), ``step3_ctu``, ``step3_aos`` (the heterogeneous-acoustics and
 Burgers cases), ``step2_aos`` (the shallow-water, acoustics, Euler
-4-wave, Euler 5-wave and sw_aug_2D cases, and those of the scalar and
-variable-coefficient systems, :data:`SCALAR_CASES`),
+4-wave, Euler 5-wave and sw_aug_2D cases, those of the scalar and
+variable-coefficient systems, :data:`SCALAR_CASES`, and those of the two
+systems without a transverse solver, :data:`NO_TRANS_CASES`),
 ``euler3d_capa`` (the source ``step3_ctu.cu`` on the
 Euler capacity path's case), ``step1`` or ``weno5``, timed through its
 wrapper in ``ops/tiled2d.py``, ``ops/sweep.py`` or ``ops/weno.py`` on the
@@ -438,6 +439,40 @@ def step2_aos_scalar_case(name, n, dtype, dev):
         (lim,) * rp.num_waves, 2, fwave, capa, 2, tw)
 
 
+# step2_aos's instances without a transverse solver, each timed on the
+# first input of its unsplit run in chip_smoke.py ([4w]): system ->
+# (example, (mx, my) at n, problem_data, limiter, index_capa, the aux rows
+# its step reads); f-waves, transverse_waves 0, dt = 0.3 min(dx kappa_min,
+# dy) / max speed bound
+NO_TRANS_CASES = {
+    "psystem_2D": ("psystem_2d", lambda n: (n, n),
+                   {"stress_relation": "exp"}, 4, -1, (0, 1)),
+    "shallow_sphere_fwave_2D": ("shallow_sphere", lambda n: (n, n // 2),
+                                {"grav": 1.0}, 4, 1, (1,))}
+
+
+def step2_aos_no_trans_case(name, n, dtype, dev):
+    """step2_aos's instance of system ``name`` (:data:`NO_TRANS_CASES`) on
+    its example's initial state at (mx, my): qbc, and the rest of
+    ``tiled2d.step2_rows_generic``'s arguments (auxbc, dt, dx, dy, the
+    system, its problem_data, limiters, order 2, f-waves, index_capa, 2
+    ghost cells, transverse_waves 0), all extended by extrapolation."""
+    import importlib
+
+    from .. import riemann
+    module, cells, params, lim, capa, _ = NO_TRANS_CASES[name]
+    mx, my = cells(n)
+    ex = importlib.import_module(f"pyclaw_tpu_torch.examples.{module}")
+    st = ex.setup(mx=mx, my=my, outdir=None, device="cpu").solution.state
+    dx, dy = st.patch.delta
+    kappa = 1.0 if capa < 0 else float(st.aux[capa].min())
+    rp = riemann.ALL[name]
+    return padded(st.q, dtype, dev), (
+        padded(st.aux, dtype, dev),
+        _dt(0.3 * min(dx * kappa, dy) / 1.5, dtype, dev), dx, dy, rp,
+        params, (lim,) * rp.num_waves, 2, True, capa, 2, 0)
+
+
 def step3_aos_burgers_case(n, dtype, dev):
     """step3_aos's burgers_3D instance's timed case at n^3, the Burgers 3D
     run's configuration on its first state (the pulse of
@@ -613,6 +648,8 @@ def _step2_aos_call(dtype, dev, n=1024):
              ("sw_aug", step2_aos_sw_aug_case)]
     cases += [(name, lambda n, dtype, dev, name=name: step2_aos_scalar_case(
         name, n, dtype, dev)) for name in SCALAR_CASES]
+    cases += [(name, lambda n, dtype, dev, name=name: step2_aos_no_trans_case(
+        name, n, dtype, dev)) for name in NO_TRANS_CASES]
     for label, case in cases:
         qbc, args = case(n, dtype, dev)
 

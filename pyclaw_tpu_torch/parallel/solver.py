@@ -17,7 +17,10 @@ block of the grid:
     rank with one ``all_gather``.
 
 The overlay takes the host loop: each attempted step is a halo exchange
-per stage, the kernel, one reduction and one readback.  The JAX
+per stage (per sweep with ``dimensional_split``), the kernel, one
+reduction and one readback.  A ``step_source`` marked ``global_grid``
+(one that closes over an array of the whole grid, as
+``riemann.shallow_sphere.make_sphere_source``'s) is refused at setup.  The JAX
 package's interior/boundary-band overlap (``_wrap_bc_kernel``) is not
 ported: its Pallas backend forces the blocking form, and the port's
 kernels take that backend's place.  A block the overlay cannot take
@@ -57,6 +60,12 @@ class _DistributedMixin:
 
     # -- the CFL reduction, and the checks of the decomposition ----------
     def _finalize_step(self, step_fn, state):
+        # a source hook that closes over an array of the whole grid (the
+        # sphere's latitudes) would meet a rank's block: refused, never run
+        # with another answer
+        if getattr(getattr(self, "step_source", None), "global_grid", False):
+            raise _not_ported("a step_source on the global grid under the "
+                              "overlay")
         if self.mesh is None:
             self.mesh = make_mesh(self.num_dim)
         mesh = self.mesh

@@ -12,10 +12,11 @@ AoS hooks of the 2D shallow-water solvers (``shallow_roe_with_efix_2D``,
 ``shallow_bathymetry_fwave_2D``, ``sw_aug_2D``), of the 2D scalar and
 variable-coefficient solvers (``advection_2D``, ``vc_advection_2D``,
 ``vc_advection_fwave_2D``, ``vc_acoustics_2D``, ``kpp_2D``,
-``burgers_2D``) and of the 3D solvers (``euler_3D``, ``advection_3D``,
+``burgers_2D``, and the rpt-less ``psystem_2D`` and
+``shallow_sphere_fwave_2D``) and of the 3D solvers (``euler_3D``, ``advection_3D``,
 ``acoustics_3D``, ``vc_acoustics_3D``, ``burgers_3D``), the ``flux``
 hooks of advection and Burgers, and the ``evec`` hooks (char_decomp) of
-the Euler and acoustics records: 23 of the JAX package's 35 records.
+the Euler and acoustics records: 25 of the JAX package's 35 records.
 The rest of the library is queued in ROADMAP.md.
 
 AoS calling conventions (classic/kernels.py), q (num_eqn, *n):
@@ -89,6 +90,8 @@ from .shallow import (  # noqa: E402,F401
     shallow_bathymetry_fwave_2D, shallow_roe_with_efix_2D, sw_aug_1D,
     sw_aug_2D)
 from .kpp import kpp_2D  # noqa: E402,F401
+from .psystem2d import psystem_2D  # noqa: E402,F401
+from .shallow_sphere import shallow_sphere_fwave_2D  # noqa: E402,F401
 
 ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
                            euler_roe_1D, euler_hlle_1D, sw_aug_1D,
@@ -99,4 +102,4 @@ ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
                            acoustics_3D, vc_acoustics_3D, advection_2D,
                            vc_advection_2D, vc_advection_fwave_2D,
                            vc_acoustics_2D, kpp_2D, burgers_2D,
-                           burgers_3D]}
+                           burgers_3D, psystem_2D, shallow_sphere_fwave_2D]}

@@ -88,8 +88,6 @@ class SharpClawSolver(Solver):
                              "3 transmission, 4 interface-basis)")
         if self.tfluct_solver:
             raise _not_ported("tfluct_solver")
-        if self.dq_src is not None:
-            raise _not_ported("dq_src")
         if self.call_before_step_each_stage:
             raise _not_ported("call_before_step_each_stage")
 
@@ -124,8 +122,25 @@ class SharpClawSolver(Solver):
     # ------------------------------------------------------------------
     def _make_dq(self, state):
         """fn(q, aux, dt, t) -> (dq over the interior with dt included,
-        cfl): BC extension, then one dq_rows (the SoA route), dq_1d (1D)
-        or dq_nd (2D, 3D) call."""
+        cfl): :meth:`_make_hyperbolic_dq`, plus ``dt * dq_src(solver,
+        state, q, dt, t)`` when the solver has a ``dq_src`` hook (a
+        function of torch operations; dt and t as the step gets them), as
+        on each of the JAX package's routes (``sharpclaw/solver.py:238-243,
+        264-269, 292-297``)."""
+        base = self._make_hyperbolic_dq(state)
+        dq_src = self.dq_src
+        if dq_src is None:
+            return base
+
+        def dq(q, aux, dt, t):
+            d, cfl = base(q, aux, dt, t)
+            return d + dt * dq_src(self, state, q, dt, t), cfl
+        return dq
+
+    def _make_hyperbolic_dq(self, state):
+        """fn(q, aux, dt, t) -> (dq, cfl) of the hyperbolic part: BC
+        extension, then one dq_rows (the SoA route), dq_1d (1D) or dq_nd
+        (2D, 3D) call."""
         params = self._weak_params(state.problem_data)
         weno_order = self.weno_order
         g = self.num_ghost

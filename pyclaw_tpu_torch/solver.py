@@ -4,11 +4,21 @@ Counterpart of ``pyclaw_tpu/solver.py`` (``BC``, ``Solver``: settings,
 BC sizing and extension, the evolve loop), a rebuild of reference
 ``src/pyclaw/solver.py — class Solver``.
 
-``evolve_to_time`` follows the arithmetic of the JAX package's traced
-loop (``solver.py:302-341``): ``dt_try = min(dt, tend - t)``; accept when
-the CFL is finite and <= ``cfl_max``; next dt ``min(dt_max,
+The device loop follows the arithmetic of the JAX package's traced loop
+(``solver.py:302-341``): ``dt_try = min(dt, tend - t)``; accept when the
+CFL is finite and <= ``cfl_max``; next dt ``min(dt_max,
 dt_try*cfl_desired/cfl)``, or ``dt_try*0.5`` when the CFL is not finite
-or not positive.  Time bookkeeping stays in float64 and the step gets dt
+or not positive.  One-step calls and ``before_step`` runs follow the JAX
+package's host loop (``solver.py:458-503``), which those calls take there
+too and which differs where a clipped step is rejected: the step is
+clipped when ``t + dt > tend - 1e-14``, a rejected step's next dt comes
+from the dt before the clip, a zero CFL keeps dt, and the loop ends at
+``t >= tend - 1e-14``.  ``traced_evolve = False`` keeps the traced loop's
+rule, where the JAX package takes its host loop's: in the port it is the
+host replay of the device loop, held to it bit for bit
+(``tests/test_torch_evolve.py::test_host_loop_equals_device_loop``,
+``chip_smoke.py`` [4h]), and the overlay's host loop keeps it as the JAX
+overlay's traced loop.  Time bookkeeping stays in float64 and the step gets dt
 in q's dtype.  It dispatches as the JAX package's ``_evolve_to_time``
 (``:434-505``): with ``tend`` given and no ``before_step``, the device
 loop (:class:`_DeviceLoop`, the counterpart of ``_make_evolve_fn`` and
@@ -327,10 +337,10 @@ class Solver:
         (``pyclaw_tpu/solver.py:267-362``): the whole accept/reject loop
         on the device, one host readback per batch of attempted steps.
 
-        Semantics match evolve_to_time's host loop (and the JAX package's
-        traced loop, corner included): when a final clipped step (dt ->
-        tend-t) is rejected, the next dt is derived from the clipped
-        value."""
+        Semantics match the JAX package's traced loop, corner included:
+        when a final clipped step (dt -> tend-t) is rejected, the next dt
+        is derived from the clipped value (the host loop derives it from
+        the dt before the clip, as the JAX package's host loop does)."""
         return _DeviceLoop(self, state, self._q_dev, self._aux_dev)
 
     def _can_use_traced_evolve(self, state):
@@ -395,8 +405,13 @@ class Solver:
             self._pull(state)
             return status
 
-        # the host loop: one-step calls, before_step, traced_evolve=False;
-        # one CFL readback per attempted step
+        # the host loop: one-step calls, before_step, traced_evolve=False
+        # and the overlay; one CFL readback per attempted step.  The dt
+        # rule of the JAX host loop for one-step calls and before_step
+        # (the calls that take that loop in both packages), the traced
+        # loop's otherwise (the module's docstring says why)
+        jax_host = take_one_step or self.before_step is not None
+        end_tol = 1e-14 if jax_host else 1e-12
         q = self._q_dev
         kdtype = state.q.dtype.type      # dt as the kernel sees it
         t = float(state.t)
@@ -407,7 +422,7 @@ class Solver:
         def more():
             if ns + nr >= self.max_steps:
                 return False
-            return ns == 0 if take_one_step else t < tend - 1e-12
+            return ns == 0 if take_one_step else t < tend - end_tol
 
         while more():
             if self.before_step is not None:
@@ -418,7 +433,12 @@ class Solver:
                 self.before_step(self, state)
                 self._push(state)
                 q = self._q_dev
-            dt_try = dt if take_one_step else min(dt, tend - t)
+            if take_one_step:
+                dt_try = dt
+            elif jax_host:
+                dt_try = tend - t if t + dt > tend - 1e-14 else dt
+            else:
+                dt_try = min(dt, tend - t)
             q_new, cfl_t = self._step_fn(q, self._aux_dev,
                                          float(kdtype(dt_try)),
                                          float(kdtype(t)))
@@ -444,10 +464,13 @@ class Solver:
                     logger.info("rejecting step: cfl=%g > %g", cfl,
                                 self.cfl_max)
             if self.dt_variable:
+                base = dt if jax_host and not ok else dt_try
                 if math.isfinite(cfl) and cfl > 0.0:
-                    dt = min(self.dt_max, dt_try * self.cfl_desired / cfl)
+                    dt = min(self.dt_max, base * self.cfl_desired / cfl)
+                elif jax_host and math.isfinite(cfl):
+                    dt = base
                 else:
-                    dt = dt_try * 0.5
+                    dt = base * 0.5
 
         self._q_dev = q
         if (ns == 0) if take_one_step else (t < tend - 1e-12):

@@ -234,8 +234,9 @@ def test_accept_reject_loop_matches_jax():
 def test_what_the_example_refuses():
     """The SharpClaw route runs (the SoA dq: csrc/dq2_weno5.cu's acoustics
     instance on a card, its plain version here) and gives the JAX
-    example's run, which ignores dimensional_split as the port does;
-    dimensional_split stays refused on the classic route."""
+    example's run, which ignores dimensional_split as the port does.  The
+    classic route takes dimensional_split too (no longer refused): its x
+    and y sweeps give the JAX example's split run."""
     claw = tex.setup(mx=8, my=8, outdir=None, device="cpu",
                      solver_type="sharpclaw", dtype=np.float64,
                      dimensional_split=True)
@@ -245,6 +246,8 @@ def test_what_the_example_refuses():
                       dimensional_split=True)
     assert status["numsteps"] == jclaw.run()["numsteps"]
     assert _rel(claw.solution.q, jclaw.solution.q) <= 1e-12
-    with pytest.raises(NotImplementedError, match="dimensional_split"):
-        tex.setup(mx=8, my=8, outdir=None, device="cpu",
-                  dimensional_split=True)
+    claw = tex.setup(mx=8, my=8, outdir=None, device="cpu",
+                     dtype=np.float64, dimensional_split=True)
+    jclaw = jex.setup(mx=8, my=8, outdir=None, dimensional_split=True)
+    assert claw.run()["numsteps"] == jclaw.run()["numsteps"]
+    assert _rel(claw.solution.q, jclaw.solution.q) <= 1e-12

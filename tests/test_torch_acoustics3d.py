@@ -234,9 +234,12 @@ def test_what_the_slice_refuses():
         setattr(claw.solver, attr, val)
         with pytest.raises(NotImplementedError, match=name):
             claw.solver.setup(claw.solution)
-    with pytest.raises(NotImplementedError, match="'dimensional_split'"):
-        tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
-                  dimensional_split=True)
+    # dimensional_split is taken (no longer refused): three sweeps at the
+    # default CFL and transverse_waves, as the JAX example sets them
+    claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
+                     dimensional_split=True)
+    claw.solver.setup(claw.solution)
+    assert (claw.solver.cfl_max, claw.solver.transverse_waves) == (1.0, 2)
     # no variable-coefficient rptt: transverse_waves=2 is refused
     claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu")
     claw.solver.transverse_waves = 2

@@ -54,9 +54,9 @@ def test_cuda_tensor_without_card_is_not_run_on_cpu(no_card):
 
 def test_unported_options_raise():
     claw = ex.setup(mx=8, my=8, outdir=None, device="cpu")
+    # dimensional_split is taken (no longer refused)
     claw.solver.dimensional_split = True
-    with pytest.raises(NotImplementedError, match="dimensional_split"):
-        claw.solver.setup(claw.solution)
+    claw.solver.setup(claw.solution)
     # before_step is taken (the host loop runs it)
     claw = ex.setup(mx=8, my=8, outdir=None, device="cpu")
     claw.solver.before_step = lambda solver, state: None

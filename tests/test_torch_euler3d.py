@@ -117,8 +117,10 @@ def _setup_raises(exc, match, **kw):
 
 
 def test_setup_refuses_what_the_port_does_not_take():
-    _setup_raises(NotImplementedError, "'dimensional_split'",
-                  dimensional_split=True)
+    # dimensional_split is taken (no longer refused)
+    claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu")
+    claw.solver.dimensional_split = True
+    claw.solver.setup(claw.solution)
     # aux, a capacity function and f-waves now set up (the generic step;
     # Euler reads no aux); a capacity row that is not in aux is refused
     for kw in (dict(aux=np.ones((1, 4, 4, 4))),

@@ -8,7 +8,8 @@ as a CUDA graph) against the JAX package's traced loop
   equal; dt, cflmax, dtmin and dtmax to 1e-12 (the two packages' steps
   agree to roundoff, and dt comes from the step's CFL);
 * the clipped corner (dt_initial > tend - t, the clipped first step
-  rejected, the next dt derived from the clipped value), max_steps
+  rejected, the next dt derived from the clipped value; with before_step
+  from the dt before the clip, as the JAX package's host loop), max_steps
   exhausted (the same exception text), dt_variable=False;
 * gauges: gauge_data against the JAX package's, the overflow warning of a
   small gauge_buffer_len, and the controllers' gauge files;
@@ -134,6 +135,40 @@ def test_clipped_corner_matches_jax():
         c.run()
     _same_run(jclaw, claw)
     assert claw.solver.status["numrejected"] >= 1
+
+
+def test_each_loop_follows_the_jax_loop_of_its_rule():
+    """The clipped corner (dt_initial 0.1 > tend - t = 0.05, the clipped
+    first step rejected) under each dt rule.  With before_step (a no-op)
+    both packages run their host loop, whose next dt comes from the dt
+    before the clip (0.1 * 0.9 / cfl); the port matches the JAX host loop.
+    The device loop and the host loop under traced_evolve=False (the
+    device loop's host replay, held to it bit for bit) match the JAX
+    traced loop, whose next dt comes from the clipped value.  The two
+    rules give different runs."""
+    def hook(solver, state):
+        pass
+
+    runs = {}
+    for how in ("device", "traced_evolve=False", "before_step"):
+        jclaw, claw = _pair("sod_classic", frames=1, dt_initial=0.1)
+        if how == "traced_evolve=False":
+            claw.solver.traced_evolve = False
+        if how == "before_step":
+            jclaw.solver.before_step = claw.solver.before_step = hook
+        for c in (jclaw, claw):
+            c.tfinal = 0.05
+            c.run()
+        _same_run(jclaw, claw)
+        assert claw.solver.status["numrejected"] >= 1
+        assert ((getattr(claw.solver, "_evolve_fn", None) is None)
+                == (how != "device"))
+        runs[how] = claw
+    assert np.array_equal(runs["device"].solution.q,
+                          runs["traced_evolve=False"].solution.q)
+    assert runs["device"].solver.dt != runs["before_step"].solver.dt
+    assert not np.array_equal(runs["device"].solution.q,
+                              runs["before_step"].solution.q)
 
 
 def test_max_steps_exhausted_raises_as_jax():

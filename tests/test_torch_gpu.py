@@ -1,6 +1,7 @@
 """Card-only tests: the CUDA kernels (step2_ctu with step3_ctu's
 capacity and f-wave variants, dq2_weno5, step3_ctu, step2_aos with its
-acoustics and scalar instances, step1 with its sw_aug instance, weno5,
+acoustics, scalar and rpt-less instances, step1 with its sw_aug instance,
+weno5,
 step3_aos with its burgers_3D instance, restore) against their plain PyTorch versions at small shapes, the
 golden validator's three cases of the acoustics, dry dam break and
 char_decomp paths, the Euler capacity path's launch counts, and the device loop
@@ -306,6 +307,66 @@ def test_aos_scalar_kernels_match_plain(card, name, dtype):
         assert qk.shape == (rp.num_eqn, nx, ny)
         assert float((qk - qp).abs().max() / qp.abs().max()) <= TOL[dtype]
         assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["psystem_2D", "shallow_sphere_fwave_2D"])
+def test_aos_no_transverse_kernels_match_plain(card, name, dtype):
+    """step2_aos.cu's instances without a transverse solver against the
+    plain step with rpt=None, whatever transverse_waves the caller passes;
+    both stress laws of the p-system, the sphere's capacity row 1; one
+    launch a step."""
+    rp = riemann.ALL[name]
+    for k, (tw, order, lim, capa, law, nx, ny) in enumerate([
+            (2, 2, 4, -1, "exp", 60, 60), (1, 2, 1, 1, "linear", 100, 37),
+            (0, 1, 10, 1, "exp", 5, 7), (2, 2, 4, 1, "exp", 33, 130)]):
+        rng = np.random.default_rng(nx * ny + k)
+        n = (nx + 4, ny + 4)
+        if name == "psystem_2D":
+            q = np.stack([0.3 * rng.standard_normal(n),
+                          rng.standard_normal(n), rng.standard_normal(n)])
+            aux = 0.5 + 3.0 * rng.random((2,) + n)
+        else:
+            h = 0.8 + 0.4 * rng.random(n)
+            q = np.stack([h, h * rng.standard_normal(n),
+                          h * rng.standard_normal(n)])
+            aux = 0.5 + 0.5 * rng.random((2,) + n)
+        qbc, auxbc = (torch.as_tensor(a, dtype=dtype, device=card)
+                      for a in (q, aux))
+        dt = float(np.dtype(str(dtype).split(".")[1]).type(0.1 / max(nx, ny)))
+        params = {"grav": 1.0, "stress_relation": law}
+        args = (dt, 1 / nx, 1 / ny)
+        before = tiled2d.step2_rows_generic.launches
+        qk, ck = tiled2d.step2_rows_generic(qbc, auxbc, *args, rp, params,
+                                            (lim,) * rp.num_waves, order,
+                                            True, capa, 2, tw)
+        torch.cuda.synchronize()
+        assert tiled2d.step2_rows_generic.launches == before + 1
+        qp, cp = kernels.step2(qbc, auxbc, *args, rp.rp, None, params,
+                               (lim,) * rp.num_waves, order, True, capa, 2,
+                               tw)
+        assert qk.shape == (rp.num_eqn, nx, ny)
+        assert float((qk - qp).abs().max() / qp.abs().max()) <= TOL[dtype]
+        assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)
+
+
+@pytest.mark.gpu
+def test_syncing_step_source_fails_the_capture(card):
+    """A step_source that reads dt back to the host cannot be captured
+    with the step: the device loop raises, and does not carry on in the
+    host loop."""
+    from pyclaw_tpu_torch.examples import advection_reaction
+    claw = advection_reaction.setup(nx=64, outdir=None, device=card)
+    hook = claw.solver.step_source
+
+    def syncing(solver, state, q, dt):
+        float(dt)
+        return hook(solver, state, q, dt)
+    claw.solver.step_source = syncing
+    with pytest.raises(RuntimeError):
+        claw.run()
+    assert claw.solver.status["numsteps"] == 0
 
 
 @pytest.mark.gpu

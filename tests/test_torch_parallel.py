@@ -28,6 +28,7 @@ import torch.multiprocessing as mp
 import pyclaw_tpu_torch
 from pyclaw_tpu_torch import bc as tbc
 from pyclaw_tpu_torch import convert, parallel, util
+from pyclaw_tpu_torch.examples import acoustics_3d_heterogeneous as tacou3d
 from pyclaw_tpu_torch.examples import euler_1d_shocktube as tsod
 from pyclaw_tpu_torch.examples import euler_2d_quadrants as tquad
 from pyclaw_tpu_torch.examples import euler_3d as teuler3d
@@ -173,6 +174,56 @@ def _custom_bc(pkg, ex, solver):
     return _controller(pkg, s, pkg.Solution(state, domain), 0.02)
 
 
+def _split(build):
+    """``build``'s case run with dimensional splitting."""
+    def split(pkg, ex, solver):
+        claw = build(pkg, ex, solver)
+        claw.solver.dimensional_split = True
+        return claw
+    return split
+
+
+def _psystem_split(pkg, ex, solver):
+    """The layered p-system of examples/psystem_2d.py (f-waves, MC, split:
+    the record has no rpt) at 32^2 to t=0.2, without its gauges."""
+    s = solver("ClawSolver2D", pkg.riemann.psystem_2D)
+    s.fwave = True
+    s.dimensional_split = True
+    s.limiters = [pkg.limiters.tvd.MC]
+    s.bc_lower = s.bc_upper = [pkg.BC.extrap, pkg.BC.wall]
+    s.aux_bc_lower = s.aux_bc_upper = [pkg.BC.extrap] * 2
+    domain = pkg.Domain([-1.0, -1.0], [1.0, 1.0], [32, 32])
+    state = pkg.State(domain, 3, num_aux=2)
+    state.problem_data["stress_relation"] = "exp"
+    x, y = domain.grid.c_centers
+    layer = (np.floor(4.0 * (y + 1.0)) % 2) == 0
+    state.aux[0] = np.where(layer, 4.0, 1.0)
+    state.aux[1] = np.where(layer, 4.0, 1.0)
+    state.q[0] = 0.5 * np.exp(-50.0 * ((x - 0.2) ** 2 + y ** 2))
+    state.q[1:] = 0.0
+    return _controller(pkg, s, pkg.Solution(state, domain), 0.2)
+
+
+def _advection_source(pkg, ex, solver):
+    """Advection-reaction (examples/advection_reaction.py, classic, MC,
+    Strang): a pointwise step_source, which runs on each rank's block."""
+    s = solver("ClawSolver1D", pkg.riemann.advection_1D)
+    s.limiters = [pkg.limiters.tvd.MC]
+    s.source_split = 2
+    if pkg is pyclaw_tpu_torch:
+        s.step_source = lambda solver, state, q, dt: q * torch.exp(-dt)
+    else:
+        import jax.numpy as jnp
+        s.step_source = lambda solver, state, q, dt: q * jnp.exp(-dt)
+    s.all_bcs = pkg.BC.periodic
+    domain = pkg.Domain([0.0], [1.0], [160])
+    state = pkg.State(domain, 1)
+    state.problem_data["u"] = 1.0
+    x = domain.grid.x.centers
+    state.q[0] = np.exp(-100.0 * (x - 0.5) ** 2)
+    return _controller(pkg, s, pkg.Solution(state, domain), 0.2)
+
+
 BC = pyclaw_tpu_torch.BC
 # name -> (setup function, mesh shape, example module name or None)
 CASES = {
@@ -209,10 +260,19 @@ CASES = {
         (2, 2, 1), "euler_3d"),
     "shallow_aux_capacity": (_shallow_aux_capacity, (2, 2), None),
     "custom_bc": (_custom_bc, (2, 2), None),
+    # dimensional splitting: each sweep's halo exchange
+    "acoustics_2d_split": (_split(_acoustics_2d(BC.wall)), (2, 2), None),
+    "psystem_split": (_psystem_split, (2, 2), None),
+    "acoustics_3d_split": (
+        _from_example("ClawSolver3D", "vc_acoustics_3D", 0.2, mx=16, my=16,
+                      mz=16, dimensional_split=True),
+        (2, 2, 1), "acoustics_3d_heterogeneous"),
+    "advection_source": (_advection_source, (RANKS,), None),
 }
 
 PORT_EXAMPLES = {"euler_2d_quadrants": tquad, "euler_1d_shocktube": tsod,
-                 "euler_3d": teuler3d}
+                 "euler_3d": teuler3d,
+                 "acoustics_3d_heterogeneous": tacou3d}
 
 
 def _port_claw(name, distributed):

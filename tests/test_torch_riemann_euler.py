@@ -84,7 +84,9 @@ def test_registry():
         "vc_acoustics_2D": triemann.vc_acoustics_2D,
         "kpp_2D": triemann.kpp_2D,
         "burgers_2D": triemann.burgers_2D,
-        "burgers_3D": triemann.burgers_3D}
+        "burgers_3D": triemann.burgers_3D,
+        "psystem_2D": triemann.psystem_2D,
+        "shallow_sphere_fwave_2D": triemann.shallow_sphere_fwave_2D}
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

@@ -9,7 +9,8 @@ within 1e-12 of max|q|.
 * ``examples/acoustics_2d_interface.py`` (``vc_acoustics_2D``) at 40^2 to
   t = 0.6, classic (MC, the heterogeneous transverse split) and SharpClaw
   (the generic dq with aux), and SharpClaw with ``char_decomp=2`` (the
-  record's ``evec``); its ``dimensional_split=True`` raises at setup;
+  record's ``evec``); its ``dimensional_split=True`` gives the JAX
+  example's split run;
 * ``examples/kpp.py`` (``kpp_2D``) at 40^2 to t = 1.0, classic and
   SharpClaw;
 * ``burgers_2D`` on a Gaussian at 48^2 to t = 0.4 (periodic, MC: the
@@ -95,9 +96,12 @@ def test_acoustics_2d_interface_matches_jax(solver_type, char_decomp):
 
 
 def test_acoustics_2d_interface_refuses_dimensional_split():
-    with pytest.raises(NotImplementedError, match="dimensional_split"):
-        tai.setup(mx=8, my=8, dimensional_split=True, outdir=None,
-                  device="cpu")
+    """No longer refused: the example's dimensional_split=True runs its x
+    and y sweeps and gives the JAX example's split run."""
+    claw = tai.setup(mx=16, my=16, dimensional_split=True, outdir=None,
+                     device="cpu", dtype=np.float64)
+    jclaw = jai.setup(mx=16, my=16, dimensional_split=True, outdir=None)
+    assert _same_run(claw, jclaw)["numsteps"] >= 6
 
 
 @pytest.mark.parametrize("solver_type", ["classic", "sharpclaw"])

@@ -278,7 +278,6 @@ def _set(attr, value):
     (_set("lim_type", 1), "lim_type=1"),
     (_set("weno_order", 7), "weno_order 7-17"),
     (_set("tfluct_solver", True), "tfluct_solver"),
-    (_set("dq_src", lambda *a: 0.0), "dq_src"),
     (_set("call_before_step_each_stage", True),
      "call_before_step_each_stage"),
 ])

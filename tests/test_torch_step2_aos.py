@@ -27,7 +27,10 @@ JAX package's.
 * and for the scalar and variable-coefficient instances (advection_2D,
   vc_advection_2D, vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D,
   burgers_2D: the split by the receiving cell and its transverse
-  neighbours' aux, with aux that jumps across tile edges).
+  neighbours' aux, with aux that jumps across tile edges);
+* and for the two instances without a transverse solver (psystem_2D with
+  either stress law, shallow_sphere_fwave_2D with its capacity row), which
+  take no transverse pass whatever transverse_waves the caller passes.
 """
 
 import ctypes
@@ -432,6 +435,64 @@ def test_scalar_instances_on_host_match_plain(host_kernel, name, nx, ny,
         q_p, c_p = tk.step2(torch.from_numpy(q), torch.from_numpy(aux), dt,
                             *deltas, rp.rp, rp.rpt, params, lims, order,
                             fwave, capa, 2, tw, rp.prefactor)
+        _close(out, q_p.numpy(), cfl, float(c_p), tol)
+
+
+# ---- the instances without a transverse solver on the host ----------------
+# (transverse_waves passed, order, limiter, index_capa, fwave, the
+# p-system's stress law): the kernel runs each with transverse_waves 0
+NO_TRANS_OPTS = [(2, 2, 4, -1, True, "exp"), (1, 2, 1, 1, True, "linear"),
+                 (0, 1, 4, 1, False, "exp"), (2, 2, 10, 1, True, "exp")]
+
+
+def no_trans_state(seed, name, nx, ny):
+    """Ghost-padded state and aux (2, nx+4, ny+4) of psystem_2D (strain of
+    either sign, rho and K positive) or shallow_sphere_fwave_2D (depths
+    near 1, velocities of either sign with transonic interfaces, aux rows
+    of cos(theta)-like values in (0.5, 1.1)), aux jumping across the first
+    tile edges of both types as scalar_state's."""
+    rng = np.random.default_rng(seed)
+    n = (nx + 4, ny + 4)
+    if name == "psystem_2D":
+        q = np.stack([0.3 * rng.standard_normal(n), rng.standard_normal(n),
+                      rng.standard_normal(n)])
+        aux = np.stack([0.5 + rng.random(n), 0.5 + 3.0 * rng.random(n)])
+    else:
+        h = 0.8 + 0.4 * rng.random(n)
+        q = np.stack([h, h * 1.2 * rng.standard_normal(n),
+                      h * 1.2 * rng.standard_normal(n)])
+        aux = 0.5 + 0.6 * rng.random((2,) + n)
+    aux[:, 13:] *= 1.3
+    aux[:, 14:] *= 0.8
+    aux[:, :, 17:] *= 1.2
+    aux[:, :, 18:] *= 0.9
+    return q, aux
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny", [(7, 5), (12, 15), (100, 37)])
+@pytest.mark.parametrize("name", ["psystem_2D", "shallow_sphere_fwave_2D"])
+def test_no_transverse_instances_on_host_match_plain(host_kernel, name, nx,
+                                                     ny, dtype, tol):
+    """csrc/step2_aos.cu's psystem_2D instance (the per-cell stress staged
+    from q and aux, both laws) and shallow_sphere_fwave_2D instance (kappa
+    inside the theta f-wave, the capacity row 1, each wave split by its
+    speed's sign) against the plain step with rpt=None, over the options
+    matrix; the kernel is given transverse_waves 1 and 2 too and runs none."""
+    rp = triemann.ALL[name]
+    deltas = (1.0 / nx, 1.0 / ny)
+    q, aux = no_trans_state(nx + 3 * ny + len(name), name, nx, ny)
+    q, aux = (np.ascontiguousarray(a.astype(dtype)) for a in (q, aux))
+    dt = float(dtype(0.05 * min(deltas)))
+    for tw, order, lim, capa, fwave, law in NO_TRANS_OPTS:
+        params = {"grav": 1.0, "stress_relation": law}
+        lims = (lim,) * rp.num_waves
+        out, cfl = _host_step(host_kernel, name, q, aux, dt, deltas, params,
+                              lims, order, tw, fwave, capa)
+        q_p, c_p = tk.step2(torch.from_numpy(q), torch.from_numpy(aux), dt,
+                            *deltas, rp.rp, None, params, lims, order,
+                            fwave, capa, 2, tw, None)
         _close(out, q_p.numpy(), cfl, float(c_p), tol)
 
 
