@@ -35,6 +35,8 @@ HD float sin_(float x) { return sinf(x); }
 HD double sin_(double x) { return sin(x); }
 HD float cos_(float x) { return cosf(x); }
 HD double cos_(double x) { return cos(x); }
+HD float exp_(float x) { return expf(x); }
+HD double exp_(double x) { return exp(x); }
 #else
 template <typename T> HD T rsqrt_(T x) { return T(1) / std::sqrt(x); }
 template <typename T> HD T sqrt_(T x) { return std::sqrt(x); }
@@ -42,6 +44,7 @@ template <typename T> HD T pow_(T x, T y) { return std::pow(x, y); }
 template <typename T> HD T fabs_(T x) { return std::fabs(x); }
 template <typename T> HD T sin_(T x) { return std::sin(x); }
 template <typename T> HD T cos_(T x) { return std::cos(x); }
+template <typename T> HD T exp_(T x) { return std::exp(x); }
 #endif
 
 // the physics scalars of a system that takes none

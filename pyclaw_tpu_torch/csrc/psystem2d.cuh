@@ -23,13 +23,6 @@
 
 namespace {
 
-#if defined(__CUDACC__)
-HD float exp_(float x) { return expf(x); }
-HD double exp_(double x) { return exp(x); }
-#else
-template <typename T> HD T exp_(T x) { return std::exp(x); }
-#endif
-
 // the stress law: p0 = 1 for "linear", 0 for "exp"
 template <typename T> struct Stress {
   bool linear;

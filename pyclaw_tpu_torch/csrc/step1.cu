@@ -21,7 +21,9 @@
 // bound it; the augmented shallow-water solver (sw_aug_1D, with the
 // bathymetry row: 20 B per cell in f32) does about 175 operations a cell
 // with minmod and f-waves (chip_smoke.py: FLOPS_PER_CELL_SW_AUG), bytes-
-// bound too; chip_smoke.py computes both bounds.  At the examples' sizes
+// bound too; so are the library systems (ids 6-15, 31-355 operations
+// and 8-56 B a cell in f32, chip_smoke.py: flops_per_cell_library);
+// chip_smoke.py computes every bound.  At the examples' sizes
 // (100-800 cells) a launch does nanoseconds of work, so launch latency and
 // the host loop's CFL readback set the step.
 //
@@ -44,7 +46,9 @@
 // barriers a block.  Any n >= 1 and num_ghost >=
 // 2 work: loads are clamped to the padded array, and results past the
 // last interior cell are masked.  Every variant's shared memory is below
-// the 48 KB a launch takes without an attribute.
+// the 48 KB a launch takes without an attribute but MHD's in float64
+// (seven equations: 75.7 KB), which set the opt-in attribute (Mhd1D's
+// SMEM_OPT_IN; 2 blocks an SM).
 //
 // Phases (separated by barriers; staged cell j is padded cell c0-2+j,
 // interface m lies between staged cells m and m+1):
@@ -80,6 +84,16 @@ constexpr int TILE = NT - 4;   // interior cells per tile
 constexpr int NWARP = NT / 32;
 constexpr int NCOEF = 1;  // coefficients of dt a block keeps: dt/dx
 
+// whether system S stages more than the 48 KB a launch takes without the
+// opt-in attribute (S::SMEM_OPT_IN; false where S does not say)
+template <typename S, typename = void> struct OptIn {
+  static constexpr bool value = false;
+};
+template <typename S>
+struct OptIn<S, decltype(void(S::SMEM_OPT_IN))> {
+  static constexpr bool value = S::SMEM_OPT_IN;
+};
+
 template <typename S, typename T, bool CAPA> struct Tile {
   static constexpr int NEQ = S::NEQ, NW = S::NW, NC = S::NC;
   static constexpr int NAUX = S::NAUX;       // aux rows the system reads
@@ -90,9 +104,14 @@ template <typename S, typename T, bool CAPA> struct Tile {
   static constexpr size_t elems = NEQ * QN + NAUX * QN + (CAPA ? QN : 0)
       + UN + NW * NEQ * WN + NEQ * WN + NWARP;  // + waves, apdq; CFL
   static constexpr size_t bytes = elems * sizeof(T);
-  // (with the coefficients of dt, in static shared memory)
-  static_assert(bytes + NCOEF * sizeof(T) <= 48 * 1024,
+  // over 48 KB (with the coefficients of dt, in static shared memory) a
+  // launch needs the opt-in attribute; only a system that says so may
+  // take it, and no block takes more than an SM's 227 KB
+  static constexpr bool opt_in = bytes + NCOEF * sizeof(T) > 48 * 1024;
+  static_assert(!opt_in || OptIn<S>::value,
                 "a launch takes 48 KB without an attribute");
+  static_assert(bytes + NCOEF * sizeof(T) <= 227 * 1024,
+                "a block takes at most 227 KB of shared memory");
 };
 
 template <typename T> struct Args {
@@ -169,7 +188,14 @@ HD void phase_load(const Args<T>& A, Block<S, T, CAPA>& B, int t) {
   }
   if constexpr (NC > 0) {
     T c[NC];
-    S::cell(A.P, q, c);
+    if constexpr (L::NAUX > 0) {
+      // the cell's aux rows, as this thread staged them
+      T a[L::NAUX];
+      for (int m = 0; m < L::NAUX; ++m) a[m] = B.a[m * QN + t];
+      S::cell(A.P, q, a, c);
+    } else {
+      S::cell(A.P, q, c);
+    }
     for (int k = 0; k < NC; ++k) B.C[k * QN + t] = c[k];
   }
 }
@@ -355,8 +381,23 @@ __global__ void __launch_bounds__(NT) step1_kernel(Args<T> A) {
   if (t == 0) A.cflb[blockIdx.x] = block_cfl(A, B);
 }
 
+// an instance over 48 KB of shared memory: the opt-in attribute, set
+// before every launch (it is not a stream operation, so a launch captured
+// into a CUDA graph sets it too); a no-op for the others
+template <typename S, typename T, bool CAPA, bool FWAVE> int opt_in() {
+  using L = Tile<S, T, CAPA>;
+  if constexpr (L::opt_in) {
+    return (int)cudaFuncSetAttribute(
+        step1_kernel<S, T, CAPA, FWAVE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  }
+  return 0;
+}
+
 template <typename S, typename T, bool CAPA, bool FWAVE>
 int launch(const Args<T>& A, int nb, void* stream) {
+  const int rc = opt_in<S, T, CAPA, FWAVE>();
+  if (rc != 0) return rc;
   step1_kernel<S, T, CAPA, FWAVE>
       <<<nb, NT, Tile<S, T, CAPA>::bytes,
          static_cast<cudaStream_t>(stream)>>>(A);
@@ -365,6 +406,7 @@ int launch(const Args<T>& A, int nb, void* stream) {
 
 // resident blocks per SM of the wave-form variant of system S
 template <typename S, typename T> int blocks_per_sm() {
+  if (opt_in<S, T, false, false>() != 0) return -1;
   int nb = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &nb, step1_kernel<S, T, false, false>, NT, Tile<S, T, false>::bytes);
@@ -398,7 +440,35 @@ int launch(Args<T> A, int nb, void*) {
 
 // system ids of the C interface (ops/sweep.py:SYSTEMS_1D)
 enum { SYS_ADVECTION = 0, SYS_ACOUSTICS = 1, SYS_EULER_EFIX = 2,
-       SYS_EULER_ROE = 3, SYS_EULER_HLLE = 4, SYS_SW_AUG = 5 };
+       SYS_EULER_ROE = 3, SYS_EULER_HLLE = 4, SYS_SW_AUG = 5,
+       SYS_SHALLOW_ROE = 6, SYS_SHALLOW_HLLE = 7, SYS_SHALLOW_BATHY = 8,
+       SYS_PSYSTEM = 9, SYS_VC_ADVECTION = 10, SYS_VC_ADVECTION_FWAVE = 11,
+       SYS_ACOUSTICS_VAR = 12, SYS_BURGERS = 13, SYS_TRAFFIC = 14,
+       SYS_MHD = 15, NUM_SYSTEMS = 16 };
+
+// calls F::template run<S>() with the struct S of a system id; -1 for an
+// unknown id
+template <typename F> int with_system(int system, F&& f) {
+  switch (system) {
+    case SYS_ADVECTION: return f.template run<Advection1D>();
+    case SYS_ACOUSTICS: return f.template run<Acoustics1D>();
+    case SYS_EULER_EFIX: return f.template run<EulerRoe1D<true>>();
+    case SYS_EULER_ROE: return f.template run<EulerRoe1D<false>>();
+    case SYS_EULER_HLLE: return f.template run<EulerHlle1D>();
+    case SYS_SW_AUG: return f.template run<SwAug1D>();
+    case SYS_SHALLOW_ROE: return f.template run<ShallowRoe1D<true>>();
+    case SYS_SHALLOW_HLLE: return f.template run<ShallowHlle1D>();
+    case SYS_SHALLOW_BATHY: return f.template run<ShallowBathyFwave1D>();
+    case SYS_PSYSTEM: return f.template run<Psystem1D>();
+    case SYS_VC_ADVECTION: return f.template run<VcAdvection1D>();
+    case SYS_VC_ADVECTION_FWAVE: return f.template run<VcAdvectionFwave1D>();
+    case SYS_ACOUSTICS_VAR: return f.template run<AcousticsVar1D>();
+    case SYS_BURGERS: return f.template run<Burgers1D>();
+    case SYS_TRAFFIC: return f.template run<Traffic1D>();
+    case SYS_MHD: return f.template run<Mhd1D>();
+    default: return -1;
+  }
+}
 
 template <typename T, typename S>
 int dispatch_flags(const Args<T>& A, bool capa, bool fwave, int nb,
@@ -411,6 +481,16 @@ int dispatch_flags(const Args<T>& A, bool capa, bool fwave, int nb,
                : launch<S, T, false, false>(A, nb, stream);
 }
 
+template <typename T> struct Launch {
+  const Args<T>& A;
+  bool c, f;
+  int nb;
+  void* stream;
+  template <typename S> int run() {
+    return dispatch_flags<T, S>(A, c, f, nb, stream);
+  }
+};
+
 template <typename T>
 int step(const void* qbc, const void* aux, void* qout, void* cflb, int n,
          int g, int system, int capa, int fwave, const double* dt,
@@ -418,34 +498,30 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int n,
          void* stream) {
   const Args<T> A = make_args<T>(qbc, aux, qout, cflb, n, g, capa, dt, dx,
                                  p0, p1, order, lim);
-  const int nb = blocks_of(n, g);
-  const bool c = capa >= 0, f = fwave != 0;
-  switch (system) {
-    case SYS_ADVECTION:
-      return dispatch_flags<T, Advection1D>(A, c, f, nb, stream);
-    case SYS_ACOUSTICS:
-      return dispatch_flags<T, Acoustics1D>(A, c, f, nb, stream);
-    case SYS_EULER_EFIX:
-      return dispatch_flags<T, EulerRoe1D<true>>(A, c, f, nb, stream);
-    case SYS_EULER_ROE:
-      return dispatch_flags<T, EulerRoe1D<false>>(A, c, f, nb, stream);
-    case SYS_EULER_HLLE:
-      return dispatch_flags<T, EulerHlle1D>(A, c, f, nb, stream);
-    case SYS_SW_AUG:
-      return dispatch_flags<T, SwAug1D>(A, c, f, nb, stream);
-    default:
-      return -1;
-  }
+  return with_system(system, Launch<T>{A, capa >= 0, fwave != 0,
+                                       blocks_of(n, g), stream});
 }
 
-template <typename S> int smem_of(bool capa, bool is_double) {
-  if (is_double) {
-    return (int)(capa ? Tile<S, double, true>::bytes
-                      : Tile<S, double, false>::bytes);
+#if defined(__CUDACC__)
+struct BlocksPerSm {
+  bool is_double;
+  template <typename S> int run() {
+    return is_double ? blocks_per_sm<S, double>() : blocks_per_sm<S, float>();
   }
-  return (int)(capa ? Tile<S, float, true>::bytes
-                    : Tile<S, float, false>::bytes);
-}
+};
+#endif
+
+struct SmemOf {
+  bool capa, is_double;
+  template <typename S> int run() {
+    if (is_double) {
+      return (int)(capa ? Tile<S, double, true>::bytes
+                        : Tile<S, double, false>::bytes);
+    }
+    return (int)(capa ? Tile<S, float, true>::bytes
+                      : Tile<S, float, false>::bytes);
+  }
+};
 
 }  // namespace
 
@@ -456,25 +532,20 @@ extern "C" {
 int step1_blocks(int n, int g) { return blocks_of(n, g); }
 
 // Number of systems the build takes (system ids 0 .. step1_num_systems()-1).
-int step1_num_systems() { return SYS_SW_AUG + 1; }
+int step1_num_systems() { return NUM_SYSTEMS; }
 
-// Shared memory bytes per block (reported by chip_smoke.py).
+// Shared memory bytes per block (reported by chip_smoke.py); -1 for an
+// unknown system.
 int step1_smem_bytes(int system, int capa, int is_double) {
-  switch (system) {
-    case SYS_ADVECTION: return smem_of<Advection1D>(capa, is_double);
-    case SYS_ACOUSTICS: return smem_of<Acoustics1D>(capa, is_double);
-    case SYS_EULER_HLLE: return smem_of<EulerHlle1D>(capa, is_double);
-    case SYS_SW_AUG: return smem_of<SwAug1D>(capa, is_double);
-    default: return smem_of<EulerRoe1D<true>>(capa, is_double);
-  }
+  return with_system(system, SmemOf{capa != 0, is_double != 0});
 }
 
 #if defined(__CUDACC__)
-// Resident blocks per SM of Euler with the entropy fix (reported by
-// chip_smoke.py).
-int step1_blocks_per_sm(int is_double) {
-  return is_double ? blocks_per_sm<EulerRoe1D<true>, double>()
-                   : blocks_per_sm<EulerRoe1D<true>, float>();
+// Resident blocks per SM of a system's wave-form variant without a
+// capacity function (an instance over 48 KB with its opt-in attribute);
+// -1 for an unknown system.
+int step1_system_blocks_per_sm(int system, int is_double) {
+  return with_system(system, BlocksPerSm{is_double != 0});
 }
 #endif
 

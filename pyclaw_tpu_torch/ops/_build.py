@@ -23,6 +23,8 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -44,6 +46,9 @@ EXTRA_NVCC_FLAGS = {"step2_aos": ["-fmad=false"], "step3_aos": ["-fmad=false"],
 
 # name -> (ctypes.CDLL, compiler report); one build per process
 _loaded = {}
+# name -> seconds from the start of load_all's builds to the end of that
+# source's nvcc (the builds run together: the slowest sets the wall)
+build_seconds = {}
 
 
 def _nvcc():
@@ -67,6 +72,7 @@ def load_all(names):
     """ctypes handles of ``csrc/<name>.cu`` for each of ``names``, built
     for sm_90a: one nvcc per stale source, all started together."""
     procs = {}
+    start = time.perf_counter()
     for name in names:
         if name in _loaded:
             continue
@@ -82,8 +88,19 @@ def load_all(names):
              out + ".tmp", src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
+    results = {}
+
+    def wait(name, proc):
+        results[name] = proc.communicate()
+        build_seconds[name] = time.perf_counter() - start
+    waiters = [threading.Thread(target=wait, args=(name, p[2]))
+               for name, p in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     for name, (src, out, proc) in procs.items():
-        stdout, stderr = proc.communicate()
+        stdout, stderr = results[name]
         if proc.returncode != 0:
             failed.append(f"build of {src} failed:\n{stderr}")
             continue

@@ -4,9 +4,9 @@
 :func:`step1`, counterpart of ``step1_pallas``: one launch of
 ``csrc/step1.cu`` computes one classic 1D step (Riemann solve, limiter,
 wave- or f-wave-form correction flux, per-cell dt/(dx kappa), update) of a
-system of :data:`SYSTEMS_1D` (``sw_aug_1D`` with the bottom in aux row 0,
-:data:`AUX_ROWS_1D`) and one CFL maximum per block.  Plain
-version: ``classic/kernels.py:step1``.
+system of :data:`SYSTEMS_1D` (every 1D record of the JAX package; those
+that read aux rows, :data:`AUX_ROWS_1D`, stage them beside q) and one CFL
+maximum per block.  Plain version: ``classic/kernels.py:step1``.
 
 On a CPU tensor the wrapper computes the plain version.  On a CUDA tensor
 it launches the kernel or raises; it never falls back to the plain
@@ -24,14 +24,22 @@ import torch
 from . import _build
 from ..classic import kernels
 from ..riemann.acoustics import _zc
+from ..riemann.traffic import umax_of
 from .tiled2d import _VALID_LIMITERS
 
 # rp.name -> system id of csrc/step1.cu (SYS_*)
 SYSTEMS_1D = {"advection_1D": 0, "acoustics_1D": 1, "euler_with_efix_1D": 2,
-              "euler_roe_1D": 3, "euler_hlle_1D": 4, "sw_aug_1D": 5}
+              "euler_roe_1D": 3, "euler_hlle_1D": 4, "sw_aug_1D": 5,
+              "shallow_roe_with_efix_1D": 6, "shallow_hlle_1D": 7,
+              "shallow_bathymetry_fwave_1D": 8, "psystem_1D": 9,
+              "vc_advection_1D": 10, "vc_advection_fwave_1D": 11,
+              "acoustics_variable_1D": 12, "burgers_1D": 13,
+              "traffic_1D": 14, "mhd_1D": 15}
 # aux rows a system's solver reads (its NAUX in csrc/systems1d.cuh), where
 # it reads any
-AUX_ROWS_1D = {"sw_aug_1D": 1}
+AUX_ROWS_1D = {"sw_aug_1D": 1, "shallow_bathymetry_fwave_1D": 1,
+               "psystem_1D": 2, "vc_advection_1D": 1,
+               "vc_advection_fwave_1D": 1, "acoustics_variable_1D": 2}
 # qbc, aux, qout, cflb; n, g, system, capa, fwave; dt (a pointer), dx, p0,
 # p1; order and three limiter ids (the host emulation takes these, the
 # card's entries a stream after them)
@@ -49,12 +57,24 @@ def bind_lib(lib):
     return lib
 
 
+def system_of(rp):
+    """The system id of record ``rp`` in csrc/step1.cu; raises for a
+    record the kernel has no system for (its plain version runs on a CPU
+    tensor only)."""
+    if rp.name not in SYSTEMS_1D:
+        raise NotImplementedError(
+            f"step1: no system of csrc/step1.cu for the record {rp.name} "
+            f"(its systems: {', '.join(SYSTEMS_1D)}); the plain version "
+            f"runs it on a CPU tensor")
+    return SYSTEMS_1D[rp.name]
+
+
 def build_takes(lib, rp):
     """Whether a build of ``csrc/step1.cu`` (``lib``, a ctypes handle) has
     the system of ``rp``: an earlier build has fewer systems, and one
     without ``step1_num_systems`` has the first five."""
     count = getattr(lib, "step1_num_systems", None)
-    return SYSTEMS_1D[rp.name] < (count() if count is not None else 5)
+    return system_of(rp) < (count() if count is not None else 5)
 
 
 @functools.cache
@@ -78,15 +98,35 @@ def system_params(rp, params):
     """The two physics scalars the kernel takes for system ``rp``: (u, 0)
     for advection, (zz, cc) for acoustics, (gamma, 0) for Euler, (grav,
     dry_tolerance) for the augmented shallow-water solver (dry_tolerance
-    1e-8 when problem_data has none, as in the JAX package)."""
-    if rp.name == "advection_1D":
+    1e-8 when problem_data has none, as in the JAX package), (grav, 0) for
+    the other shallow-water solvers (the bathymetry is an aux row), (1 for
+    the linear stress law else 0, 0) for the p-system, (1 if the entropy
+    fix is on else 0, 0) for Burgers, (umax, 0) for traffic, (gamma, bx)
+    for MHD, and (0, 0) for the variable-coefficient systems, whose
+    coefficients are aux rows."""
+    name = rp.name
+    if name == "advection_1D":
         return float(params["u"]), 0.0
-    if rp.name == "acoustics_1D":
+    if name == "acoustics_1D":
         zz, cc = _zc(params)
         return float(zz), float(cc)
-    if rp.name == "sw_aug_1D":
+    if name == "sw_aug_1D":
         return (float(params["grav"]),
                 float(params.get("dry_tolerance", 1e-8)))
+    if name.startswith("shallow_"):
+        return float(params["grav"]), 0.0
+    if name == "psystem_1D":
+        linear = params.get("stress_relation", "exp") == "linear"
+        return float(linear), 0.0
+    if name == "burgers_1D":
+        return float(bool(params.get("efix", True))), 0.0
+    if name == "traffic_1D":
+        return float(umax_of(params)), 0.0
+    if name == "mhd_1D":
+        return float(params["gamma"]), float(params["bx"])
+    if name in ("vc_advection_1D", "vc_advection_fwave_1D",
+                "acoustics_variable_1D"):
+        return 0.0, 0.0
     return float(params["gamma"]), 0.0
 
 
@@ -108,10 +148,7 @@ def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
         return _build.plain_out(kernels.step1(
             qbc, auxbc, dt, dx, rp.rp, params, mthlim, order, fwave,
             index_capa, num_ghost), out)
-    if rp.name not in SYSTEMS_1D:
-        raise NotImplementedError(
-            f"step1: {rp.name} has no kernel yet (ROADMAP.md, Queue 2 item "
-            f"9: '1D systems of step1.cu')")
+    system = system_of(rp)
     if qbc.device.type != "cuda":
         raise ValueError(f"step1: unsupported device {qbc.device}")
     if qbc.dtype not in (torch.float32, torch.float64):
@@ -147,7 +184,7 @@ def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave, index_capa,
     lims = [int(m) for m in mthlim] + [0] * (3 - len(mthlim))
     dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), aux_ptr, q_out.data_ptr(), cfl_blocks.data_ptr(),
-            n, g, SYSTEMS_1D[rp.name], int(index_capa), int(bool(fwave)),
+            n, g, system, int(index_capa), int(bool(fwave)),
             dt_ptr, float(dx), *system_params(rp, params), int(order),
             *lims, torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:

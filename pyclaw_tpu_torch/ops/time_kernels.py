@@ -25,8 +25,9 @@ interface carry no wave) and a seeded smooth state (:func:`smooth_state`:
 every interface works), and on the Sod state at their path's shape (800
 cells; (3, 806)); step1 also on a seeded wet/dry state of the dry dam
 break at 2^20 (:func:`dam_state`: its sw_aug instance; a build without
-that system leaves it out).  Each VARIANT is
-``LABEL=ROOT[@SOURCE][:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/
+that system leaves it out), and each library system (ids 6-15,
+:data:`LIBRARY_1D`) at 2^20 on its seeded state (:func:`library_case`).
+Each VARIANT is ``LABEL=ROOT[@SOURCE][:FLAG,...]``: the source ``ROOT/pyclaw_tpu_torch/
 csrc/KERNEL.cu`` (ROOT a checkout, for example an unpacked ``git
 archive`` of a parent commit, or a copy with an edited source) built with
 this checkout's nvcc flags and the given extra nvcc flags (for example
@@ -59,6 +60,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -577,6 +579,94 @@ def step1_case(n, dtype, dev, state="sod"):
                  False, -1, 2)
 
 
+# ---- the 1D records of step1.cu's systems 6-15 ----------------------------
+# each record's physics scalars on its seeded state (library_state) and in
+# its timed case (library_case): the examples' values
+LIBRARY_1D = {
+    "shallow_roe_with_efix_1D": {"grav": 1.0},
+    "shallow_hlle_1D": {"grav": 1.0},
+    "shallow_bathymetry_fwave_1D": {"grav": 9.8},
+    "psystem_1D": {"stress_relation": "exp"},
+    "vc_advection_1D": {},
+    "vc_advection_fwave_1D": {},
+    "acoustics_variable_1D": {},
+    "burgers_1D": {"efix": True},
+    "traffic_1D": {"umax": 1.0},
+    "mhd_1D": {"gamma": 2.0, "bx": 0.75},
+}
+# (limiter id, f-waves) of each record's example: MC 4, van Leer 3
+LIBRARY_OPTS = {
+    "shallow_roe_with_efix_1D": (4, False), "shallow_hlle_1D": (4, False),
+    "shallow_bathymetry_fwave_1D": (3, True), "psystem_1D": (3, True),
+    "vc_advection_1D": (4, False), "vc_advection_fwave_1D": (4, True),
+    "acoustics_variable_1D": (4, False), "burgers_1D": (3, False),
+    "traffic_1D": (3, False), "mhd_1D": (4, False)}
+
+
+def library_state(name, n, seed=0):
+    """A seeded admissible state of record ``name`` (a key of
+    :data:`LIBRARY_1D`, or ``sw_aug_1D``) at n cells: (q (num_eqn, n),
+    the aux rows the record reads (naux, n) or None), CPU float64 arrays.
+    Velocities take both signs, so that the transonic and sign branches
+    (the entropy fixes, the f-wave splits, traffic's sonic point) are
+    taken: shallow water h in 0.5 .. 1.5 (bathymetry below the surface,
+    0 .. 0.3; sw_aug_1D also dry and damp cells on low and high bottoms);
+    the p-system rho and K in 1 .. 4 and K eps within +-2.4; impedances
+    and sound speeds in 0.5 .. 2.5; traffic densities in 0 .. 1; MHD rho
+    in 0.3 .. 1.3, p in 0.2 .. 1.2 at gamma 2 and bx 0.75."""
+    rng = np.random.default_rng(seed)
+    r, z = rng.random, rng.standard_normal
+    if name in ("shallow_roe_with_efix_1D", "shallow_hlle_1D",
+                "shallow_bathymetry_fwave_1D"):
+        h = 0.5 + r(n)
+        q = np.stack([h, h * 1.2 * z(n)])
+        aux = 0.3 * r((1, n)) if name.endswith("fwave_1D") else None
+        return q, aux
+    if name == "sw_aug_1D":
+        kind = rng.integers(0, 4, n)
+        h = np.where(kind == 0, 0.2 + r(n),
+                     np.where(kind == 3, 1e-5 * r(n), 0.0))
+        b = np.where(kind == 2, 2.0 + r(n), 0.3 * r(n))
+        return np.stack([h, h * z(n)]), b[None]
+    if name == "psystem_1D":
+        aux = 1.0 + 3.0 * r((2, n))
+        return np.stack([0.6 * z(n).clip(-1, 1), aux[0] * z(n)]), aux
+    if name in ("vc_advection_1D", "vc_advection_fwave_1D"):
+        return z((1, n)), z((1, n))
+    if name == "acoustics_variable_1D":
+        return z((2, n)), 0.5 + 2.0 * r((2, n))
+    if name == "burgers_1D":
+        return z((1, n)), None
+    if name == "traffic_1D":
+        return r((1, n)), None
+    if name == "mhd_1D":
+        par = LIBRARY_1D[name]
+        rho, p = 0.3 + r(n), 0.2 + r(n)
+        vel = 0.8 * z((3, n))
+        by, bz = z(n), z(n)
+        E = (p / (par["gamma"] - 1.0) + 0.5 * rho * (vel ** 2).sum(0)
+             + 0.5 * (par["bx"] ** 2 + by ** 2 + bz ** 2))
+        return np.stack([rho, *(rho * vel), by, bz, E]), None
+    raise KeyError(name)
+
+
+def library_case(name, n, dtype, dev, seed=0):
+    """step1's timed case of record ``name`` at n cells: qbc and auxbc (2
+    extrapolated ghost cells) of :func:`library_state` and the rest of
+    ``sweep.step1``'s arguments: the example's limiter and form
+    (:data:`LIBRARY_OPTS`), order 2, no capacity, dt = 0.05 dx (every
+    speed of the state is below 10), dx = 1/n."""
+    from .. import riemann
+    q_np, aux_np = library_state(name, n, seed)
+    qbc = padded_1d(q_np, dtype, dev, 2)
+    auxbc = None if aux_np is None else padded_1d(aux_np, dtype, dev, 2)
+    rp = riemann.ALL[name]
+    lim, fwave = LIBRARY_OPTS[name]
+    dx = 1.0 / n
+    return qbc, (auxbc, _dt(0.05 * dx, dtype, dev), dx, rp, LIBRARY_1D[name],
+                 (lim,) * rp.num_waves, 2, fwave, -1, 2)
+
+
 def weno5_case(n, dtype, dev, state="sod"):
     """weno5's timed case at n cells, the SharpClaw Sod path's input on
     ``state``: q with 3 extrapolated ghost cells, (3, n + 6)."""
@@ -715,8 +805,12 @@ CASES_1D = {"sod": ("sod", 2 ** 20), "smooth": ("smooth", 2 ** 20),
 def _step1_call(dtype, dev):
     from . import sweep
     makes = {}
-    for label, (state, n) in CASES_1D.items():
-        qbc, args = step1_case(n, dtype, dev, state)
+    cases = {label: step1_case(n, dtype, dev, state)
+             for label, (state, n) in CASES_1D.items()}
+    # the library systems (ids 6-15) at 2^20 cells on their seeded states
+    cases.update({f"lib {name}": library_case(name, 2 ** 20, dtype, dev)
+                  for name in LIBRARY_1D})
+    for label, (qbc, args) in cases.items():
 
         def make(lib, source=None, qbc=qbc, args=args):
             lib = sweep.bind_lib(lib)
@@ -755,6 +849,7 @@ def _outputs(res):
 
 def _build_variants(variants):
     procs = []
+    start = time.perf_counter()
     for label, root, source, flags in variants:
         src = os.path.join(root, "pyclaw_tpu_torch", "csrc", f"{source}.cu")
         out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "variants",
@@ -771,6 +866,9 @@ def _build_variants(variants):
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"build of {label} failed:\n{stderr}")
+        # the builds run together: a build done before an earlier-listed
+        # one is read when that one is
+        print(f"  [{label}] built by {time.perf_counter() - start:.1f} s")
         for line in (stdout + stderr).splitlines():
             if any(k in line for k in ("registers", "spill")):
                 print(f"  [{label}] {line.strip()}")

@@ -3,21 +3,17 @@
 Counterpart of ``pyclaw_tpu/riemann/__init__.py``.  Every solver is a
 plain function on whole interface tensors, registered in a
 :class:`RiemannSolver` record that also carries ``num_eqn`` /
-``num_waves`` metadata.  The port carries the AoS hooks of the 1D
-solvers (``advection_1D``, ``acoustics_1D``, ``euler_with_efix_1D``,
-``euler_roe_1D``, ``euler_hlle_1D``, ``sw_aug_1D``), the AoS and SoA
-hooks of the 2D Euler Roe solvers (``euler_4wave_2D``,
-``euler_5wave_2D`` with its passive tracer) and of ``acoustics_2D``, the
-AoS hooks of the 2D shallow-water solvers (``shallow_roe_with_efix_2D``,
-``shallow_bathymetry_fwave_2D``, ``sw_aug_2D``), of the 2D scalar and
-variable-coefficient solvers (``advection_2D``, ``vc_advection_2D``,
-``vc_advection_fwave_2D``, ``vc_acoustics_2D``, ``kpp_2D``,
-``burgers_2D``, and the rpt-less ``psystem_2D`` and
-``shallow_sphere_fwave_2D``) and of the 3D solvers (``euler_3D``, ``advection_3D``,
-``acoustics_3D``, ``vc_acoustics_3D``, ``burgers_3D``), the ``flux``
-hooks of advection and Burgers, and the ``evec`` hooks (char_decomp) of
-the Euler and acoustics records: 25 of the JAX package's 35 records.
-The rest of the library is queued in ROADMAP.md.
+``num_waves`` metadata.  The port has all 35 records of the JAX package,
+each with the hooks the JAX record sets: the 1D solvers (advection,
+acoustics, Euler, shallow water, the p-system, variable-coefficient
+advection and acoustics, Burgers, traffic, MHD), the AoS and SoA hooks
+of the 2D Euler Roe solvers (``euler_4wave_2D``, ``euler_5wave_2D`` with
+its passive tracer) and of ``acoustics_2D``, the AoS hooks of the other
+2D solvers (shallow water, the scalar and variable-coefficient solvers,
+the rpt-less ``psystem_2D`` and ``shallow_sphere_fwave_2D``) and of the
+3D solvers (``euler_3D``, ``advection_3D``, ``acoustics_3D``,
+``vc_acoustics_3D``, ``burgers_3D``), and the ``flux``, ``positivity``
+and ``evec`` (char_decomp) hooks.
 
 AoS calling conventions (classic/kernels.py), q (num_eqn, *n):
 
@@ -77,21 +73,26 @@ class RiemannSolver:
 
 
 from .advection import (  # noqa: E402,F401
-    advection_1D, advection_2D, advection_3D, vc_advection_2D,
-    vc_advection_fwave_2D)
+    advection_1D, advection_2D, advection_3D, vc_advection_1D,
+    vc_advection_2D, vc_advection_fwave_1D, vc_advection_fwave_2D)
 from .acoustics import (  # noqa: E402,F401
     acoustics_1D, acoustics_2D, acoustics_3D)
-from .acoustics_var import vc_acoustics_2D, vc_acoustics_3D  # noqa: E402,F401
-from .burgers import burgers_2D, burgers_3D  # noqa: E402,F401
+from .acoustics_var import (  # noqa: E402,F401
+    acoustics_variable_1D, vc_acoustics_2D, vc_acoustics_3D)
+from .burgers import burgers_1D, burgers_2D, burgers_3D  # noqa: E402,F401
 from .euler import (  # noqa: E402,F401
     euler_3D, euler_4wave_2D, euler_5wave_2D, euler_hlle_1D, euler_roe_1D,
     euler_with_efix_1D)
 from .shallow import (  # noqa: E402,F401
-    shallow_bathymetry_fwave_2D, shallow_roe_with_efix_2D, sw_aug_1D,
-    sw_aug_2D)
+    shallow_bathymetry_fwave_1D, shallow_bathymetry_fwave_2D,
+    shallow_hlle_1D, shallow_roe_with_efix_1D, shallow_roe_with_efix_2D,
+    sw_aug_1D, sw_aug_2D)
+from .traffic import traffic_1D  # noqa: E402,F401
 from .kpp import kpp_2D  # noqa: E402,F401
+from .psystem import psystem_1D  # noqa: E402,F401
 from .psystem2d import psystem_2D  # noqa: E402,F401
 from .shallow_sphere import shallow_sphere_fwave_2D  # noqa: E402,F401
+from .mhd import mhd_1D  # noqa: E402,F401
 
 ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
                            euler_roe_1D, euler_hlle_1D, sw_aug_1D,
@@ -102,4 +103,9 @@ ALL = {s.name: s for s in [advection_1D, acoustics_1D, euler_with_efix_1D,
                            acoustics_3D, vc_acoustics_3D, advection_2D,
                            vc_advection_2D, vc_advection_fwave_2D,
                            vc_acoustics_2D, kpp_2D, burgers_2D,
-                           burgers_3D, psystem_2D, shallow_sphere_fwave_2D]}
+                           burgers_3D, psystem_2D, shallow_sphere_fwave_2D,
+                           shallow_roe_with_efix_1D, shallow_hlle_1D,
+                           shallow_bathymetry_fwave_1D, psystem_1D,
+                           vc_advection_1D, vc_advection_fwave_1D,
+                           acoustics_variable_1D, burgers_1D, traffic_1D,
+                           mhd_1D]}

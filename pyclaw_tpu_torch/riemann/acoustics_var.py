@@ -4,7 +4,8 @@ plain PyTorch.
 Counterpart of ``pyclaw_tpu/riemann/acoustics_var.py``
 (``_rp_acoustics_var :19-41``, ``_rpt_acoustics_var :44-78``, the
 char_decomp hook ``_evec_acoustics_var :81-101``, the records
-``vc_acoustics_2D :107-109`` and ``vc_acoustics_3D :114-116``), physics of reference
+``acoustics_variable_1D :104-106``, ``vc_acoustics_2D :107-109`` and
+``vc_acoustics_3D :114-116``), physics of reference
 ``rp1_acoustics_var.f90`` and ``rpn2_vc_acoustics.f90``: per-cell
 material parameters in aux, aux[0] = impedance Z and aux[1] = sound speed
 c.  At an interface the jump splits against the one-sided impedances:
@@ -15,10 +16,11 @@ c.  At an interface the jump splits against the one-sided impedances:
 
 The operations run in the JAX package's order, so the two agree to
 roundoff in float64 (tests/test_torch_riemann_3d.py,
-tests/test_torch_riemann_scalar.py).  The CUDA kernels repeat them:
-``csrc/step2_aos.cu`` in ``csrc/acoustics2d.cuh`` (``VcAcoustics2D``),
-``csrc/step3_aos.cu`` in ``csrc/acoustics3d.cuh`` (``VcAcoustics3D``).
-The 1D record is queued in ROADMAP.md.
+tests/test_torch_riemann_scalar.py, tests/test_torch_riemann_1d_library.py).
+The CUDA kernels repeat them: ``csrc/step1.cu`` in ``csrc/systems1d.cuh``
+(``AcousticsVar1D``), ``csrc/step2_aos.cu`` in ``csrc/acoustics2d.cuh``
+(``VcAcoustics2D``), ``csrc/step3_aos.cu`` in ``csrc/acoustics3d.cuh``
+(``VcAcoustics3D``).
 """
 
 from __future__ import annotations
@@ -112,6 +114,10 @@ def _evec_acoustics_var(ixy, q, aux, params):
 
 from . import RiemannSolver  # noqa: E402
 
+# 1D heterogeneous acoustics: q = (p, u), aux rows (Z, c)
+acoustics_variable_1D = RiemannSolver("acoustics_variable_1D", 1, 2, 2,
+                                      _rp_acoustics_var)
+acoustics_variable_1D.evec = _evec_acoustics_var
 # 2D heterogeneous acoustics: q = (p, u, v), aux rows (Z, c)
 vc_acoustics_2D = RiemannSolver("vc_acoustics_2D", 2, 3, 2,
                                 _rp_acoustics_var, rpt=_rpt_acoustics_var)

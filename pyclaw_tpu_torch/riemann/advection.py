@@ -6,7 +6,8 @@ Counterpart of ``pyclaw_tpu/riemann/advection.py`` (``_upwind :15``,
 ``_rpt_vc_advection :55-74``, ``_rp_vc_advection :76-84``,
 ``_rp_vc_advection_fwave :86-98``, ``_flux_advection :101``, the records
 ``advection_1D :108``, ``advection_2D :110``, ``advection_3D :112`` with
-their ``flux`` hooks ``:115-116``, ``vc_advection_2D :120`` and
+their ``flux`` hooks ``:115-116``, ``vc_advection_1D :117``,
+``vc_advection_fwave_1D :118``, ``vc_advection_2D :120`` and
 ``vc_advection_fwave_2D :122``), physics of reference
 ``rp1_advection.f90`` and ``rpn2_vc_advection.f90``: the color equation
 q_t + u q_x = 0, one wave W = q_r - q_l with speed u, fluctuations
@@ -15,11 +16,11 @@ double-transverse splits take the velocity along their axis in the same
 way.  The variable-coefficient records read the edge velocities from
 aux (``vc_advection_2D``) or, in the f-wave form, the cell velocities
 (``vc_advection_fwave_2D``).  The CUDA kernels repeat them:
-``csrc/step1.cu`` in ``csrc/systems1d.cuh`` (``Advection1D``),
+``csrc/step1.cu`` in ``csrc/systems1d.cuh`` (``Advection1D``,
+``VcAdvection1D``, ``VcAdvectionFwave1D``),
 ``csrc/step2_aos.cu`` in ``csrc/scalar2d.cuh`` (``Advection2D``,
 ``VcAdvection2D``, ``VcAdvectionFwave2D``), ``csrc/step3_aos.cu`` in
-``csrc/acoustics3d.cuh`` (``Advection3D``).  The 1D variable-coefficient
-records are queued in ROADMAP.md.
+``csrc/acoustics3d.cuh`` (``Advection3D``).
 """
 
 from __future__ import annotations
@@ -121,6 +122,9 @@ advection_3D = RiemannSolver("advection_3D", 3, 1, 1, _rp_advection,
                              requires=("u", "v", "w"))
 for _s in (advection_1D, advection_2D, advection_3D):
     _s.flux = _flux_advection
+vc_advection_1D = RiemannSolver("vc_advection_1D", 1, 1, 1, _rp_vc_advection)
+vc_advection_fwave_1D = RiemannSolver("vc_advection_fwave_1D", 1, 1, 1,
+                                      _rp_vc_advection_fwave)
 vc_advection_2D = RiemannSolver("vc_advection_2D", 2, 1, 1, _rp_vc_advection,
                                 rpt=_rpt_vc_advection)
 vc_advection_fwave_2D = RiemannSolver("vc_advection_fwave_2D", 2, 1, 1,

@@ -1,18 +1,18 @@
-"""Burgers Riemann solvers in 2D and 3D, plain PyTorch.
+"""Burgers Riemann solvers in 1D, 2D and 3D, plain PyTorch.
 
 Counterpart of ``pyclaw_tpu/riemann/burgers.py`` (``_rp_burgers :15-28``,
 ``_rpt_burgers :30-39``, ``_rptt_burgers :42-45``, ``_flux_burgers
-:48-50``, the records ``burgers_2D :56`` and ``burgers_3D :58`` with
-their ``flux`` hooks ``:60-61``), physics of reference ``rp1_burgers.f90``
+:48-50``, the records ``burgers_1D :55``, ``burgers_2D :56`` and
+``burgers_3D :58`` with their ``flux`` hooks ``:60-61``), physics of reference ``rp1_burgers.f90``
 and ``rpt2_burgers.f90``: q_t + (q^2/2)_x + (q^2/2)_y (+ (q^2/2)_z) = 0;
 one wave W = q_r - q_l with the Roe speed s = (q_l + q_r)/2, and the
 entropy fix of a transonic rarefaction (q_l < 0 < q_r: amdq = -q_l^2/2,
 apdq = q_r^2/2), on unless problem_data['efix'] is False.  The transverse
 and double-transverse splits go by the sign of the receiving cell's own
-state.  The CUDA kernels repeat them: ``csrc/step2_aos.cu`` in
+state.  The CUDA kernels repeat them: ``csrc/step1.cu`` in
+``csrc/systems1d.cuh`` (``Burgers1D``), ``csrc/step2_aos.cu`` in
 ``csrc/scalar2d.cuh`` (``Burgers2D``), ``csrc/step3_aos.cu`` in
-``csrc/acoustics3d.cuh`` (``Burgers3D``).  ``burgers_1D`` is queued in
-ROADMAP.md.
+``csrc/acoustics3d.cuh`` (``Burgers3D``).
 """
 
 from __future__ import annotations
@@ -53,9 +53,10 @@ def _flux_burgers(ixy, q, aux, params):
 
 from . import RiemannSolver  # noqa: E402
 
+burgers_1D = RiemannSolver("burgers_1D", 1, 1, 1, _rp_burgers)
 burgers_2D = RiemannSolver("burgers_2D", 2, 1, 1, _rp_burgers,
                            rpt=_rpt_burgers)
 burgers_3D = RiemannSolver("burgers_3D", 3, 1, 1, _rp_burgers,
                            rpt=_rpt_burgers, rptt=_rptt_burgers)
-for _s in (burgers_2D, burgers_3D):
+for _s in (burgers_1D, burgers_2D, burgers_3D):
     _s.flux = _flux_burgers

@@ -1,7 +1,9 @@
-"""Shallow-water Riemann solvers of the 2D classic path and the 1D
-augmented solver with wetting and drying, plain PyTorch.
+"""Shallow-water Riemann solvers, 1D and 2D, plain PyTorch.
 
-Counterpart of ``pyclaw_tpu/riemann/shallow.py`` (``_rpn2_shallow_roe
+Counterpart of ``pyclaw_tpu/riemann/shallow.py`` (the 1D Roe solver with
+Harten's entropy fix ``_rp1_shallow_roe :31-81``, ``_rp1_shallow_hlle
+:88-111``, the 1D records ``:283-292``, ``_rp1_shallow_bathymetry_fwave
+:300-338`` and its record ``:415-418``, ``_rpn2_shallow_roe
 :115``, ``_rpt2_shallow_roe :187``, ``_rpn2_shallow_bathymetry_fwave
 :341``, ``_shallow_positivity :407``, ``_sw_aug_core :430-504``,
 ``_rp1_sw_aug :507-532``, ``_rpn2_sw_aug :535-583``, ``_rpt2_sw_aug
@@ -11,19 +13,21 @@ rebuild of reference ``rpn2_shallow_roe_with_efix.f90``,
 ``rpt2_shallow_roe_with_efix.f90``, ``rpn2_shallow_bathymetry_fwave.f90``
 and GeoClaw's augmented solver.  System: h_t + (hu)_x + (hv)_y = 0,
 (hu)_t + (hu^2 + g h^2/2)_x + (huv)_y = 0, (hv)_t + (huv)_x + (hv^2 + g
-h^2/2)_y = 0, with g = problem_data['grav'].
+h^2/2)_y = 0, with g = problem_data['grav'] (in 1D: h_t + (hu)_x = 0,
+(hu)_t + (hu^2 + g h^2/2)_x = 0).
 
 Every expression keeps the JAX package's operation order (Python
 scalars fold first, as there), so in float64 the two agree to roundoff
 (tests/test_torch_riemann_shallow.py, tests/test_torch_sw_aug.py).  The
 CUDA kernels repeat them: the 2D solvers in ``csrc/shallow2d.cuh`` and
-``csrc/sw_aug2d.cuh`` (``SwAug2D``), the augmented 1D solver in
-``csrc/systems1d.cuh`` (``SwAug1D``).  Dry states
+``csrc/sw_aug2d.cuh`` (``SwAug2D``), the 1D solvers in
+``csrc/systems1d.cuh`` (``ShallowRoe1D``, ``ShallowHlle1D``,
+``ShallowBathyFwave1D``, ``SwAug1D``).  Dry states
 (h = 0) give inf/nan in the Roe solver, as in the reference; the
 bathymetry f-wave and augmented solvers guard their divisions with
 ``dry_tolerance`` (default 1e-8).  The SharpClaw hooks of
-``shallow_roe_with_efix_2D``: ``_evec_shallow :230`` and ``_flux_shallow
-:266`` (the bathymetry f-wave record has neither, as in the JAX
+the Roe and HLLE records: ``_evec_shallow :230`` and ``_flux_shallow
+:266`` (the bathymetry f-wave records have neither, as in the JAX
 package); nor does ``sw_aug_2D``, whose SharpClaw route is the generic
 dq (``sharpclaw/kernels.py:dq_nd``).
 """
@@ -39,6 +43,133 @@ def _mk(num_eqn, mu, mv, z, h_c, mu_c, mv_c):
     comp = [z] * num_eqn
     comp[0], comp[mu], comp[mv] = h_c, mu_c, mv_c
     return torch.stack(comp)
+
+
+def _rp1_shallow_roe(ixy, q_l, q_r, aux_l, aux_r, params, efix=True):
+    """1D Roe solver, q = (h, hu): two waves at u_hat -+ c_hat, with
+    Harten's entropy fix of transonic rarefactions when ``efix``."""
+    g = params["grav"]
+    h_l, h_r = q_l[0], q_r[0]
+    hu_l, hu_r = q_l[1], q_r[1]
+    u_l, u_r = hu_l / h_l, hu_r / h_r
+
+    sh_l, sh_r = torch.sqrt(h_l), torch.sqrt(h_r)
+    u = (sh_l * u_l + sh_r * u_r) / (sh_l + sh_r)
+    c = torch.sqrt(g * 0.5 * (h_l + h_r))
+
+    d = q_r - q_l
+    a1 = 0.5 * ((u + c) * d[0] - d[1]) / c
+    a2 = 0.5 * (-(u - c) * d[0] + d[1]) / c
+
+    w1 = torch.stack([a1, a1 * (u - c)])
+    w2 = torch.stack([a2, a2 * (u + c)])
+    wave = torch.stack([w1, w2], dim=1)
+    s = torch.stack([u - c, u + c])
+
+    if not efix:
+        amdq = torch.clamp(s[0], max=0.0) * w1 \
+            + torch.clamp(s[1], max=0.0) * w2
+        apdq = torch.clamp(s[0], min=0.0) * w1 \
+            + torch.clamp(s[1], min=0.0) * w2
+        return wave, s, amdq, apdq
+
+    # Harten entropy fix (transonic rarefactions)
+    c_l = torch.sqrt(g * h_l)
+    c_r = torch.sqrt(g * h_r)
+    # the state between the waves
+    hm = h_l + a1
+    hum = hu_l + a1 * (u - c)
+    um = hum / torch.where(hm <= 0.0, 1.0, hm)
+    cm = torch.sqrt(g * torch.clamp(hm, min=0.0))
+
+    lam1_l = u_l - c_l
+    lam1_m = um - cm
+    trans1 = (lam1_l < 0.0) & (lam1_m > 0.0)
+    den1 = torch.where(lam1_m - lam1_l == 0.0, 1.0, lam1_m - lam1_l)
+    sf1 = torch.where(trans1, lam1_l * (lam1_m - s[0]) / den1,
+                      torch.clamp(s[0], max=0.0))
+
+    lam2_m = um + cm
+    lam2_r = u_r + c_r
+    trans2 = (lam2_m < 0.0) & (lam2_r > 0.0)
+    den2 = torch.where(lam2_r - lam2_m == 0.0, 1.0, lam2_r - lam2_m)
+    sf2 = torch.where(trans2, lam2_m * (lam2_r - s[1]) / den2,
+                      torch.clamp(s[1], max=0.0))
+
+    amdq = sf1 * w1 + sf2 * w2
+    df = s[0] * w1 + s[1] * w2
+    apdq = df - amdq
+    return wave, s, amdq, apdq
+
+
+def _rp1_shallow_with_efix(ixy, q_l, q_r, aux_l, aux_r, params):
+    return _rp1_shallow_roe(ixy, q_l, q_r, aux_l, aux_r, params, efix=True)
+
+
+def _rp1_shallow_hlle(ixy, q_l, q_r, aux_l, aux_r, params):
+    """1D HLLE solver: two waves through the intermediate state, at the
+    Einfeldt speeds (the Roe speeds bounded by the cells' own)."""
+    g = params["grav"]
+    h_l, h_r = q_l[0], q_r[0]
+    u_l, u_r = q_l[1] / h_l, q_r[1] / h_r
+    c_l = torch.sqrt(g * h_l)
+    c_r = torch.sqrt(g * h_r)
+    sh_l, sh_r = torch.sqrt(h_l), torch.sqrt(h_r)
+    u = (sh_l * u_l + sh_r * u_r) / (sh_l + sh_r)
+    c = torch.sqrt(g * 0.5 * (h_l + h_r))
+
+    s1 = torch.minimum(u - c, u_l - c_l)
+    s2 = torch.maximum(u + c, u_r + c_r)
+    f_l = torch.stack([q_l[1], h_l * u_l * u_l + 0.5 * g * h_l * h_l])
+    f_r = torch.stack([q_r[1], h_r * u_r * u_r + 0.5 * g * h_r * h_r])
+    denom = torch.where(s2 - s1 == 0.0, 1.0, s2 - s1)
+    q_m = (s2 * q_r - s1 * q_l - (f_r - f_l)) / denom
+
+    wave = torch.stack([q_m - q_l, q_r - q_m], dim=1)
+    s = torch.stack([s1, s2])
+    amdq = torch.clamp(s1, max=0.0) * wave[:, 0] \
+        + torch.clamp(s2, max=0.0) * wave[:, 1]
+    apdq = torch.clamp(s1, min=0.0) * wave[:, 0] \
+        + torch.clamp(s2, min=0.0) * wave[:, 1]
+    return wave, s, amdq, apdq
+
+
+def _rp1_shallow_bathymetry_fwave(ixy, q_l, q_r, aux_l, aux_r, params):
+    """Well-balanced 1D f-wave solver over bathymetry aux[0] = b: the flux
+    jump augmented by g h_bar (b_r - b_l), split into two f-waves at the
+    Einfeldt speeds, so that a lake at rest has zero fluctuations.  Use
+    with ``solver.fwave = True``."""
+    g = params["grav"]
+    h_l, h_r = q_l[0], q_r[0]
+    hu_l, hu_r = q_l[1], q_r[1]
+    u_l, u_r = hu_l / h_l, hu_r / h_r
+    b_l, b_r = aux_l[0], aux_r[0]
+
+    sh_l, sh_r = torch.sqrt(h_l), torch.sqrt(h_r)
+    u = (sh_l * u_l + sh_r * u_r) / (sh_l + sh_r)
+    c = torch.sqrt(g * 0.5 * (h_l + h_r))
+    s1 = torch.minimum(u - c, u_l - torch.sqrt(g * h_l))
+    s2 = torch.maximum(u + c, u_r + torch.sqrt(g * h_r))
+
+    hbar = 0.5 * (h_l + h_r)
+    fd1 = hu_r - hu_l
+    fd2 = (hu_r * u_r + 0.5 * g * h_r * h_r) \
+        - (hu_l * u_l + 0.5 * g * h_l * h_l) \
+        + g * hbar * (b_r - b_l)
+
+    denom = torch.where(s2 - s1 == 0.0, 1.0, s2 - s1)
+    beta1 = (s2 * fd1 - fd2) / denom
+    beta2 = (fd2 - s1 * fd1) / denom
+
+    w1 = torch.stack([beta1, beta1 * s1])
+    w2 = torch.stack([beta2, beta2 * s2])
+    wave = torch.stack([w1, w2], dim=1)
+    s = torch.stack([s1, s2])
+    zero = torch.zeros_like(w1)
+    amdq = torch.where(s1 < 0.0, w1, zero) + torch.where(s2 < 0.0, w2, zero)
+    apdq = torch.where(s1 >= 0.0, w1, zero) \
+        + torch.where(s2 >= 0.0, w2, zero)
+    return wave, s, amdq, apdq
 
 
 def _rpn2_shallow_roe(ixy, q_l, q_r, aux_l, aux_r, params):
@@ -206,13 +337,22 @@ def _shallow_positivity(q, aux, params):
 
 
 def _evec_shallow(ixy, q, aux, params):
-    """Eigenvector matrices (R, L), each (3, 3, *n), of the 2D
-    shallow-water Jacobian along ``ixy`` at each cell state (the
-    char_decomp hook), the transverse momentum riding the u-eigenvalue
-    contact.  The JAX package's 1D branch serves records not ported."""
+    """Eigenvector matrices (R, L) of the shallow-water Jacobian along
+    ``ixy`` at each cell state (the char_decomp hook): (2, 2, *n) in 1D,
+    (h, hu); (3, 3, *n) in 2D, (h, hu, hv), the transverse momentum riding
+    the u-eigenvalue contact."""
     g = params["grav"]
     h = q[0]
     c = torch.sqrt(g * h)
+    if q.shape[0] == 2:
+        u = q[1] / h
+        one = torch.ones_like(u)
+        inv2c = 0.5 / c
+        R = torch.stack([torch.stack([one, one]),
+                         torch.stack([u - c, u + c])])
+        L = torch.stack([torch.stack([(u + c) * inv2c, -one * inv2c]),
+                         torch.stack([-(u - c) * inv2c, one * inv2c])])
+        return R, L
     mu = 1 + ixy
     mv = 2 - ixy
     un = q[mu] / h
@@ -402,12 +542,24 @@ def _sw_aug_positivity(q, aux, params):
 
 from . import RiemannSolver  # noqa: E402
 
+shallow_roe_with_efix_1D = RiemannSolver(
+    "shallow_roe_with_efix_1D", 1, 2, 2, _rp1_shallow_with_efix,
+    requires=("grav",))
+shallow_hlle_1D = RiemannSolver("shallow_hlle_1D", 1, 2, 2,
+                                _rp1_shallow_hlle, requires=("grav",))
 shallow_roe_with_efix_2D = RiemannSolver(
     "shallow_roe_with_efix_2D", 2, 3, 3, _rpn2_shallow_roe,
     rpt=_rpt2_shallow_roe, requires=("grav",))
-shallow_roe_with_efix_2D.positivity = _shallow_positivity
-shallow_roe_with_efix_2D.evec = _evec_shallow
-shallow_roe_with_efix_2D.flux = _flux_shallow
+for _s in (shallow_roe_with_efix_1D, shallow_hlle_1D,
+           shallow_roe_with_efix_2D):
+    _s.positivity = _shallow_positivity
+    _s.evec = _evec_shallow
+    _s.flux = _flux_shallow
+
+shallow_bathymetry_fwave_1D = RiemannSolver(
+    "shallow_bathymetry_fwave_1D", 1, 2, 2, _rp1_shallow_bathymetry_fwave,
+    requires=("grav",))
+shallow_bathymetry_fwave_1D.positivity = _shallow_positivity
 
 shallow_bathymetry_fwave_2D = RiemannSolver(
     "shallow_bathymetry_fwave_2D", 2, 3, 3, _rpn2_shallow_bathymetry_fwave,

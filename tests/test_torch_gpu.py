@@ -1,7 +1,7 @@
 """Card-only tests: the CUDA kernels (step2_ctu with step3_ctu's
 capacity and f-wave variants, dq2_weno5, step3_ctu, step2_aos with its
-acoustics, scalar and rpt-less instances, step1 with its sw_aug instance,
-weno5,
+acoustics, scalar and rpt-less instances, step1 with its sw_aug instance
+and its library systems, weno5,
 step3_aos with its burgers_3D instance, restore) against their plain PyTorch versions at small shapes, the
 golden validator's three cases of the acoustics, dry dam break and
 char_decomp paths, the Euler capacity path's launch counts, and the device loop
@@ -487,6 +487,47 @@ def test_step1_sw_aug_kernel_matches_plain(card, n, order, lim, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [7, 252, 505])
+@pytest.mark.parametrize("capa,fwave", [(False, False), (True, False),
+                                        (False, True), (True, True)])
+@pytest.mark.parametrize("name", [
+    "shallow_roe_with_efix_1D", "shallow_hlle_1D",
+    "shallow_bathymetry_fwave_1D", "psystem_1D", "vc_advection_1D",
+    "vc_advection_fwave_1D", "acoustics_variable_1D", "burgers_1D",
+    "traffic_1D", "mhd_1D"])
+def test_step1_library_kernels_match_plain(card, name, capa, fwave, n,
+                                           dtype):
+    """step1.cu's library systems (ids 6-15), every variant (capacity x
+    form; MHD's float64 instances over 48 KB of shared memory), against
+    the plain step on seeded admissible states with the system's aux rows
+    and a capacity row after them; one launch each, the CFL equal bit for
+    bit."""
+    from pyclaw_tpu_torch.ops.time_kernels import LIBRARY_1D, library_state
+    q, aux = library_state(name, n + 4, n)
+    cap = 0.7 + 0.6 * np.random.default_rng(n).random((1, n + 4))
+    aux = cap if aux is None else np.vstack([aux, cap])
+    qbc = torch.as_tensor(q, dtype=dtype, device=card)
+    auxbc = torch.as_tensor(aux, dtype=dtype, device=card)
+    rp = riemann.ALL[name]
+    capa_row = sweep.AUX_ROWS_1D.get(name, 0) if capa else -1
+    dx = 1.0 / n
+    dt = float(np.dtype(str(dtype).split(".")[1]).type(0.05 * dx))
+    lims = (4,) * rp.num_waves
+    params = LIBRARY_1D[name]
+    before = sweep.step1.launches
+    qk, ck = sweep.step1(qbc, auxbc, dt, dx, rp, params, lims, 2, fwave,
+                         capa_row)
+    torch.cuda.synchronize()
+    assert sweep.step1.launches == before + 1
+    qp, cp = kernels.step1(qbc, auxbc, dt, dx, rp.rp, params, lims, 2,
+                           fwave, capa_row, 2)
+    assert qk.dtype == dtype and qk.shape == (rp.num_eqn, n)
+    assert float((qk - qp).abs().max() / qp.abs().max()) <= TOL[dtype]
+    assert float(ck) == float(cp)
+
+
+@pytest.mark.gpu
 def test_acoustics_char_decomp_on_the_card_matches_the_cpu(card):
     """SharpClaw acoustics with char_decomp=4: the constant eigenvectors
     are CPU scalars that the device loop's captured stage multiplies by;
@@ -532,9 +573,11 @@ def test_step1_kernel_rejects_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="auxbc"):
         sweep.step1(qbc, None, *args, 0)
     other = riemann.RiemannSolver("other_1D", 1, 3, 3, rp.rp)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
+    before = sweep.step1.launches
+    with pytest.raises(NotImplementedError, match="no system of"):
         sweep.step1(qbc, None, 1e-3, 0.05, other, PARAMS_1D, (4,) * 3, 2,
                     False, -1)
+    assert sweep.step1.launches == before
 
 
 @pytest.mark.gpu

@@ -86,7 +86,17 @@ def test_registry():
         "burgers_2D": triemann.burgers_2D,
         "burgers_3D": triemann.burgers_3D,
         "psystem_2D": triemann.psystem_2D,
-        "shallow_sphere_fwave_2D": triemann.shallow_sphere_fwave_2D}
+        "shallow_sphere_fwave_2D": triemann.shallow_sphere_fwave_2D,
+        "shallow_roe_with_efix_1D": triemann.shallow_roe_with_efix_1D,
+        "shallow_hlle_1D": triemann.shallow_hlle_1D,
+        "shallow_bathymetry_fwave_1D":
+            triemann.shallow_bathymetry_fwave_1D,
+        "psystem_1D": triemann.psystem_1D,
+        "vc_advection_1D": triemann.vc_advection_1D,
+        "vc_advection_fwave_1D": triemann.vc_advection_fwave_1D,
+        "acoustics_variable_1D": triemann.acoustics_variable_1D,
+        "burgers_1D": triemann.burgers_1D, "traffic_1D": triemann.traffic_1D,
+        "mhd_1D": triemann.mhd_1D}
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])

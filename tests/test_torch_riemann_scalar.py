@@ -83,8 +83,9 @@ def test_records_match_jax():
             assert ((getattr(t, hook) is None)
                     == (getattr(j, hook) is None)), (name, hook)
         assert t.requires == j.requires
-    # 23 after this slice, 25 with psystem_2D and shallow_sphere_fwave_2D
-    assert len(triemann.ALL) == 25
+    # 23 after this slice, 25 with psystem_2D and shallow_sphere_fwave_2D,
+    # all 35 with the 1D library (tests/test_torch_riemann_1d_library.py)
+    assert len(triemann.ALL) == 35
     assert set(triemann.ALL) <= set(jriemann.ALL)
 
 

@@ -12,7 +12,12 @@
   span several tiles and are no multiple of the tile, and at the edges of
   its 252-cell tile, float32 and float64, with a fast state in the inner
   ghost cell of each end (inside the CFL window) and a faster one in the
-  outer ghost cell (outside it); every block writes its CFL partial.
+  outer ghost cell (outside it); every block writes its CFL partial.  All
+  sixteen systems: those that read aux rows (sw_aug_1D, the bathymetry
+  f-wave, the p-system with both stress laws, the variable-coefficient
+  advection and acoustics) on seeded admissible states
+  (``ops/time_kernels.py:library_state``) with their rows and, where the
+  case has one, a capacity row after them.
 """
 
 import ctypes
@@ -28,10 +33,18 @@ from pyclaw_tpu.classic import kernels as jk
 from pyclaw_tpu_torch import riemann as triemann
 from pyclaw_tpu_torch.classic import kernels as tk
 from pyclaw_tpu_torch.ops import sweep
+from pyclaw_tpu_torch.ops.time_kernels import LIBRARY_1D, library_state
 
 PARAMS = {"u": -0.7, "rho": 1.3, "bulk": 2.0, "gamma": 1.4}
-# the systems that read no aux (sw_aug_1D: tests/test_torch_sw_aug.py)
-NAMES = [n for n in sweep.SYSTEMS_1D if n not in sweep.AUX_ROWS_1D]
+# the physics scalars of the library systems' cases; a case's name
+# "record:variant" runs the record with the variant's scalars
+VARIANT_PARAMS = {"sw_aug_1D": {"grav": 9.8, "dry_tolerance": 1e-5},
+                  "psystem_1D:linear": {"stress_relation": "linear"},
+                  "burgers_1D:nofix": {"efix": False}}
+# the first five systems, which read no aux (sw_aug_1D: tests/
+# test_torch_sw_aug.py; systems 6-15: tests/test_torch_riemann_1d_library.py)
+NAMES = [n for n, i in sweep.SYSTEMS_1D.items()
+         if i < 6 and n not in sweep.AUX_ROWS_1D]
 
 
 @pytest.fixture(autouse=True)
@@ -56,10 +69,28 @@ def _state(name, n, seed, dtype=np.float64):
             np.ascontiguousarray(aux.astype(dtype)))
 
 
+def _params(case_name):
+    """(record, problem_data) of a case's name."""
+    name = case_name.split(":")[0]
+    return name, VARIANT_PARAMS.get(case_name, LIBRARY_1D.get(name, PARAMS))
+
+
+def _library_state(case_name, n, seed, dtype):
+    """q (num_eqn, n) and aux: the record's aux rows, then a positive
+    capacity row (index: the record's aux row count)."""
+    name = case_name.split(":")[0]
+    q, aux = library_state(name, n, seed)
+    cap = 0.7 + 0.6 * np.random.default_rng(seed + 1).random((1, n))
+    aux = cap if aux is None else np.vstack([aux, cap])
+    return (np.ascontiguousarray(q.astype(dtype)),
+            np.ascontiguousarray(aux.astype(dtype)))
+
+
 def _plain(name, q, aux, dt, dx, lim, order, fwave, capa, g=2):
+    name, params = _params(name)
     rp = triemann.ALL[name]
     qn, cfl = tk.step1(torch.from_numpy(q), torch.from_numpy(aux), dt, dx,
-                       rp.rp, PARAMS, (lim,) * rp.num_waves, order, fwave,
+                       rp.rp, params, (lim,) * rp.num_waves, order, fwave,
                        capa, g)
     return qn.numpy(), float(cfl)
 
@@ -155,6 +186,7 @@ def host_kernel(tmp_path_factory):
 
 
 def _host(lib, name, q, aux, dt, dx, lim, order, fwave, capa, g):
+    name, params = _params(name)
     rp = triemann.ALL[name]
     n = q.shape[1]
     is_double = q.dtype == np.float64
@@ -165,7 +197,7 @@ def _host(lib, name, q, aux, dt, dx, lim, order, fwave, capa, g):
     rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
             cfl_blocks.ctypes.data, n, g, sweep.SYSTEMS_1D[name], capa,
             int(fwave), ctypes.byref(ctypes.c_double(dt)), dx,
-            *sweep.system_params(rp, PARAMS), order,
+            *sweep.system_params(rp, params), order,
             *lims)
     assert rc == 0
     # each block wrote its partial
@@ -196,14 +228,36 @@ def _fast_end(q, side, g):
     ("euler_hlle_1D", 2, 3, -1, False, 2, 1),
     ("acoustics_1D", 2, 4, 0, False, 2, None),
     ("advection_1D", 2, 10, 0, True, 2, None),
-    ("advection_1D", 2, 1, -1, False, 4, None)], ids=str)
+    ("advection_1D", 2, 1, -1, False, 4, None),
+    # the systems with aux rows and the library systems (ids 5-15); a
+    # capacity case's capacity row follows the system's aux rows
+    ("sw_aug_1D", 2, 1, -1, True, 2, None),
+    ("sw_aug_1D", 2, 4, 0, True, 3, None),
+    ("shallow_roe_with_efix_1D", 2, 4, -1, False, 2, None),
+    ("shallow_hlle_1D", 2, 10, 0, False, 2, None),
+    ("shallow_bathymetry_fwave_1D", 2, 3, 0, True, 2, None),
+    ("psystem_1D", 2, 3, -1, True, 2, None),
+    ("psystem_1D:linear", 1, 4, 0, True, 3, None),
+    ("vc_advection_1D", 2, 4, 0, False, 2, None),
+    ("vc_advection_fwave_1D", 2, 10, -1, True, 2, None),
+    ("acoustics_variable_1D", 2, 4, 0, False, 2, None),
+    ("burgers_1D", 2, 3, -1, False, 2, None),
+    ("burgers_1D:nofix", 2, 4, 0, True, 2, None),
+    ("traffic_1D", 2, 3, 0, True, 2, None),
+    ("mhd_1D", 2, 4, -1, False, 2, None),
+    ("mhd_1D", 2, 1, 0, True, 2, None)], ids=str)
 def test_kernel_source_on_host_matches_plain(host_kernel, case, n, dtype,
                                              tol):
     """csrc/step1.cu's phases (tiles, halos, ragged-edge masks, the
     limiter's neighbour waves across tile edges, the capacity
     coefficients, the CFL window) against the plain version."""
     name, order, lim, capa, fwave, g, fast = case
-    q, aux = _state(name, n + 2 * g, n + g, dtype)
+    record = name.split(":")[0]
+    if record in sweep.SYSTEMS_1D and record in (*LIBRARY_1D, "sw_aug_1D"):
+        q, aux = _library_state(name, n + 2 * g, n + g, dtype)
+        capa = capa if capa < 0 else sweep.AUX_ROWS_1D.get(record, 0) + capa
+    else:
+        q, aux = _state(name, n + 2 * g, n + g, dtype)
     if fast is not None:
         q = _fast_end(q.astype(np.float64), fast, g).astype(dtype)
     dx = 1.0 / max(n, 10)
