@@ -6,7 +6,8 @@ Phases (each asserts; any failure exits non-zero):
   1. the card: name, nvidia-smi name and power limit;
   2. the build of every kernel from the checkout's sources (nvcc, sm_90a,
      one nvcc per source, all started together), with the ptxas report
-     (registers, shared memory, spills);
+     (registers, shared memory, spills), and each instance of
+     csrc/dq2_weno.cu's shared memory and resident blocks per SM;
   (every main path runs on the device loop: solver.py's _DeviceLoop
      replays one attempted step as a CUDA graph.  Every wrapper's count
      and its device counter (ops.count_on_device: one more on the card's
@@ -241,6 +242,31 @@ Phases (each asserts; any failure exits non-zero):
      t=0.02); the split and source routes at small grids on the card
      against the CPU in f64 (equal steps, 1e-12); each run with every
      launch count set to 0 just before it and read just after;
+  4y. the other SharpClaw options: the quadrants with SharpClaw at WENO
+     order 7 at 1024^2 f32 to t=0.8 on the device loop (the SoA route:
+     csrc/dq2_weno.cu's dq2_weno7, 10 launches an attempted step, no
+     dq2_weno5), its profile to t=0.1, and its float64 run at 256^2 to
+     t=0.02 against its plain version on the card (a conditioned run:
+     equal steps gated, the distance a reading); one
+     dq of each of
+     dq2_weno.cu's 36 instances (orders 7-17; Euler 4-wave, acoustics,
+     Euler 5-wave; f32, f64) against sharpclaw/soa.py:dq_2d_soa at 1024^2
+     (Euler 5-wave 2048x512) and on a ragged 250x171 state that takes the
+     positivity fallback (TOL_REL, the CFL equal bit for bit), and each on
+     a short path of its system (128^2; 10 launches an attempted step);
+     the quadrants at 1024^2 f32 (WENO5) to t=0.1 with RK4 on the device
+     loop and SSPLMMk2, SSPLMMk3 and LMM (Adams-Bashforth 3, fixed dt) on
+     the host loop (no attempt after the end), each against its plain run
+     on the card at 128^2 in float64 (conditioned, as the order-7 run); a
+     smooth periodic Euler wave at 128^2 in float64 to t=0.01 at WENO
+     orders 7 and 17 and with each integrator, on the kernels and on
+     their plain versions on the card, gated at 1e-12 with equal steps;
+     the Sod tube with lim_type=1 and
+     char_decomp 0-4 and with lim_type=0, the quadrants with lim_type=1
+     at 512^2 (plain PyTorch: no WENO kernel) and the tfluct advection
+     case, each float64 run on the card against the CPU; every launch
+     count set to 0 just before each run and read just after; its
+     phase_seconds;
   4m. the parallel overlay (pyclaw_tpu_torch/parallel) in a world of one
      NCCL rank (init_distributed on a file:// store):
      parallel.ClawSolver3D on examples.euler_3d.setup(mx=my=mz=192,
@@ -317,8 +343,8 @@ Phases (each asserts; any failure exits non-zero):
      input) also by the profiler; then
      each 2D path to t=0.1, the 3D Euler path to t=0.02, the heterogeneous
      path to t=0.8, the Euler capacity path to t=0.02, the classic Sod path to t=0.2 and the SharpClaw one to
-     t=0.02, the acoustics path to t=0.12, the dry dam break to t=0.5 and
-     the char_decomp Sod path to t=0.02 under torch.profiler (device busy
+     t=0.01, the acoustics path to t=0.12, the dry dam break to t=0.5 and
+     the char_decomp Sod path to t=0.01 under torch.profiler (device busy
      share, launches per step,
      device time by kernel and by group: kernel, BC extension of q and
      aux, CFL reduction, frame copies; host time by operation), each on
@@ -334,6 +360,8 @@ Phases (each asserts; any failure exits non-zero):
      versions and bounds; the same for the instances of [3n] and [3o],
      each on its run's first input (1024^2, 192^3), and for [4w]'s two
      instances on their unsplit runs' first inputs (1024^2, 1024x512);
+     each of dq2_weno.cu's 36 instances on its 1024^2 case (events, the
+     profiler, the plain version, the bound and its share);
   7. the JSON lines: a kernels record, the card line, and the result.
 
 It needs one card and exits non-zero, printing no result, without one.
@@ -2236,8 +2264,8 @@ def timing_1d(dev):
 
 
 # device kernels grouped by what launched them (by kernel name)
-DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5", "step3_ctu",
-                             "step2_aos", "step1_kernel",
+DEVICE_GROUPS = (("kernel", ("step2_ctu", "dq2_weno5", "dq2_weno_kernel",
+                             "step3_ctu", "step2_aos", "step1_kernel",
                              "weno5_kernel", "step3_aos")),
                  ("bc_extension", ("CatArrayBatchedCopy", "copy_kernel")),
                  ("cfl_reduction", ("reduce_kernel", "maximum")),
@@ -4809,11 +4837,13 @@ STEGOTON_GOLDEN_PEAK = (2.22, 2.30)
 def plain_wrappers():
     """Within the block, the kernel wrappers that the 1D and 2D classic
     and SharpClaw solvers call (ops.sweep.step1, ops.weno.weno5,
-    ops.tiled2d.step2_rows_generic) compute their plain PyTorch versions
-    on any device: a route's plain version on the card."""
+    ops.tiled2d.step2_rows_generic, ops.tiled2d.dq_rows) compute their
+    plain PyTorch versions on any device: a route's plain version on the
+    card."""
     from pyclaw_tpu_torch.classic import kernels
     from pyclaw_tpu_torch.limiters import recon
     from pyclaw_tpu_torch.ops import _build, sweep, tiled2d, weno
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
 
     def step1(qbc, auxbc, dt, dx, rp, params, mthlim, order, fwave,
               index_capa, num_ghost=2, lib=None, out=None):
@@ -4831,17 +4861,27 @@ def plain_wrappers():
             qbc, auxbc, dt, dx, dy, rp.rp, rp.rpt, params, mthlim, order,
             fwave, index_capa, num_ghost, transverse_waves, rp.prefactor),
             out)
-    saved = (sweep.step1, weno.weno5, tiled2d.step2_rows_generic)
-    sweep.step1, weno.weno5, tiled2d.step2_rows_generic = (
-        step1, weno5, step2_rows_generic)
+
+    def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3,
+                lib=None, rp=None):
+        rp = rp if rp is not None else dq_weno_rp("euler_4wave_2D")
+        return sc_soa.dq_2d_soa(qbc, dt, dx, dy, rp.rpn_soa, params,
+                                weno_order, num_ghost,
+                                positivity=rp.positivity,
+                                flux_soa=rp.flux_soa)
+    saved = (sweep.step1, weno.weno5, tiled2d.step2_rows_generic,
+             tiled2d.dq_rows)
+    (sweep.step1, weno.weno5, tiled2d.step2_rows_generic,
+     tiled2d.dq_rows) = (step1, weno5, step2_rows_generic, dq_rows)
     try:
         yield
     finally:
-        sweep.step1, weno.weno5, tiled2d.step2_rows_generic = saved
+        (sweep.step1, weno.weno5, tiled2d.step2_rows_generic,
+         tiled2d.dq_rows) = saved
 
 
 # the kernels whose wrappers plain_wrappers() stands in for
-PLAIN_SWAPPED = ("step1", "weno5", "step2_aos")
+PLAIN_SWAPPED = ("step1", "weno5", "step2_aos", "dq2_weno5", "dq2_weno")
 
 
 def kernel_and_plain(label, run, kernel):
@@ -5138,6 +5178,653 @@ def library_phase(dev):
         secs[key] = time.perf_counter() - t0
     out["seconds"] = secs
     print(f"[4x] seconds: {secs}", flush=True)
+    return out
+
+
+# ---- [4y]: the other SharpClaw options: WENO orders 7-17 on dq2_weno.cu,
+# the RK and multistep integrators, lim_type 0/1 and tfluct ----------------
+
+WENO_ORDERS = (7, 9, 11, 13, 15, 17)     # csrc/dq2_weno.cu's
+# its systems (ops/tiled2d.py:DQ_SYSTEMS)
+DQ_WENO_SYSTEMS = ("euler_4wave_2D", "acoustics_2D", "euler_5wave_2D")
+# acoustics_2D as examples/acoustics_2d.py sets it up
+DQ_WENO_ACOUSTICS = {"rho": 1.0, "bulk": 4.0, "zz": 2.0, "cc": 2.0}
+
+
+def dq_weno_entry(order, name, tname):
+    """The entry of csrc/dq2_weno.cu: dq2_weno<order>[_acoustics|_euler5]
+    _f32|f64."""
+    from pyclaw_tpu_torch.ops import tiled2d
+    return (tiled2d.dq_weno_entry(name, order)
+            + ("_f32" if tname == "float32" else "_f64"))
+
+
+# Operations per cell of one dq of csrc/dq2_weno.cu, counted as
+# FLOPS_PER_CELL_DQ is, at the least the function needs.  The WENO of
+# order 2K-1 of one component along one direction (weno_edges): K betas,
+# each the quadratic form v^T B v of a symmetric B, as w_a = sum_{c>=a}
+# B'_ac v_c (B' = 2B off the diagonal) and then sum_a v_a w_a (K^2 + 2K -
+# 1); per stencil the eps add, the square and the reciprocal, which both
+# edges share (3K); per edge K candidate values of K terms (K (2K - 1)),
+# the weights d_l / (eps + beta_l)^2 (K products), num (K products, K - 1
+# adds), den (K - 1 adds) and the division (1): 2K^2 + 3K - 1.  float32
+# adds the normalisation (K adds, a reciprocal, K products: 2K + 1).
+# Everything else is dq2_weno5.cu's, whose counts hold WENO5 as 109 (f32)
+# / 98 (f64) operations a component and direction: per direction Euler
+# 4-wave 672 / 624 less 4 x that, acoustics 379 / 346 less 3 x, Euler
+# 5-wave 820 / 761 less 5 x; the sum of the two parts NEQ.
+WENO5_COMPONENT_OPS = {"float32": 109, "float64": 98}
+DQ_REST_PER_DIR = {
+    "euler_4wave_2D": {"float32": 672 - 4 * 109, "float64": 624 - 4 * 98},
+    "acoustics_2D": {"float32": 379 - 3 * 109, "float64": 346 - 3 * 98},
+    "euler_5wave_2D": {"float32": 820 - 5 * 109, "float64": 761 - 5 * 98}}
+
+
+def weno_component_ops(k, tname):
+    ops = (k * (k * k + 2 * k - 1) + 3 * k
+           + 2 * (k * (2 * k - 1) + 4 * k - 1))
+    return ops + (2 * k + 1 if tname == "float32" else 0)
+
+
+def flops_per_cell_dq_weno(name, order, tname):
+    k = (order + 1) // 2
+    neq = dq_weno_rp(name).num_eqn
+    return (2 * (neq * weno_component_ops(k, tname)
+                 + DQ_REST_PER_DIR[name][tname]) + neq)
+
+
+def dq_weno_rp(name):
+    from pyclaw_tpu_torch.riemann import acoustics, euler
+    return {"euler_4wave_2D": euler.euler_4wave_2D,
+            "euler_5wave_2D": euler.euler_5wave_2D,
+            "acoustics_2D": acoustics.acoustics_2D}[name]
+
+
+def dq_weno_params(name):
+    return DQ_WENO_ACOUSTICS if name == "acoustics_2D" else {"gamma": 1.4}
+
+
+def dq_weno_state(name, nx, ny, seed, pockets=0.0):
+    """A seeded state of system ``name`` (nx, ny cells): an admissible
+    Euler state (with ``pockets``, low-density cells that take the
+    positivity fallback), the 5-wave system's with a tracer, or a random
+    acoustics state."""
+    rng = np.random.default_rng(seed)
+    if name == "acoustics_2D":
+        return rng.standard_normal((3, nx, ny))
+    q = random_state(rng, nx, ny, pockets=pockets)
+    if name == "euler_5wave_2D":
+        q = np.concatenate([q, (q[0] * rng.random((nx, ny)))[None]])
+    return q
+
+
+def dq_weno_case(name, order, tname, dev, big=True):
+    """(qbc, dt, dx, dy) of one dq of an instance: at 1024^2 (Euler 5-wave
+    2048x512, as [4q]) on a seeded admissible state, or at 250x171
+    (ragged) on a state whose Euler edges take the positivity fallback."""
+    import torch
+    k = (order + 1) // 2
+    nx, ny = (((2048, 512) if name == "euler_5wave_2D" else (1024, 1024))
+              if big else (250, 171))
+    q = dq_weno_state(name, nx, ny, seed=order * 7 + len(name) + big,
+                      pockets=0.0 if big else 0.1)
+    dtype = getattr(torch, tname)
+    qbc = padded(q, dtype, dev, num_ghost=k).contiguous()
+    dt = float(np.dtype(tname).type(0.3 / max(nx, ny)))
+    return qbc, dt, 1.0 / nx, 1.0 / ny
+
+
+def dq_weno_resources(tiled2d):
+    """{entry: (shared memory bytes a block, resident blocks per SM)} of
+    each instance of csrc/dq2_weno.cu on this card; fails when one takes
+    no block."""
+    import ctypes
+    lib = tiled2d._dq_weno_lib()
+    lib.dq2_weno_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.dq2_weno_blocks_per_sm.restype = ctypes.c_int
+    out = {}
+    for order in WENO_ORDERS:
+        for name in DQ_WENO_SYSTEMS:
+            sys_id = tiled2d.DQ_SYSTEMS[name][2]
+            for d, tname in enumerate(("float32", "float64")):
+                out[dq_weno_entry(order, name, tname)] = (
+                    lib.dq2_weno_smem_bytes(sys_id, order, d),
+                    lib.dq2_weno_blocks_per_sm(sys_id, order, d))
+    if any(b < 1 for _, b in out.values()):
+        fail(f"a dq2_weno instance takes no block on an SM: {out}")
+    return out
+
+
+def compare_dq_weno(dev):
+    """[4y]: one dq of each of dq2_weno.cu's 36 instances against
+    sharpclaw/soa.py:dq_2d_soa at its order on the card, at 1024^2 (Euler
+    5-wave 2048x512) on a seeded admissible state and at 250x171 (ragged)
+    on a state that takes the positivity fallback: TOL_REL (1e-12 in
+    float64, 1e-5 in float32), the CFL equal bit for bit.  Returns
+    ({entry: its max abs err on the 1024^2 state}, {entry: its max rel
+    err on each state}, worst rel err per type, cases, bit-equal
+    cases)."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
+    abs_err, rel_err = {}, {}
+    worst = {"float32": 0.0, "float64": 0.0}
+    ncase = nbits = 0
+    for order in WENO_ORDERS:
+        k = (order + 1) // 2
+        for name in DQ_WENO_SYSTEMS:
+            rp, params = dq_weno_rp(name), dq_weno_params(name)
+            for tname in ("float32", "float64"):
+                for big in (True, False):
+                    qbc, dt, dx, dy = dq_weno_case(name, order, tname, dev,
+                                                   big)
+                    dk, ck = tiled2d.dq_rows(qbc, dt, dx, dy, params, order,
+                                             k, rp=rp)
+                    dp, cp = sc_soa.dq_2d_soa(
+                        qbc, dt, dx, dy, rp.rpn_soa, params, order, k,
+                        positivity=rp.positivity, flux_soa=rp.flux_soa)
+                    torch.cuda.synchronize()
+                    err = float((dk - dp).abs().max())
+                    rel = err / float(dp.abs().max())
+                    nfall = (0 if big or rp.positivity is None else
+                             sc_soa.fallback_count(qbc, params,
+                                                   rp.positivity, order))
+                    label = (f"[4y] {dq_weno_entry(order, name, tname)} "
+                             f"{tuple(qbc.shape)}")
+                    if not (np.isfinite(rel) and rel <= TOL_REL[tname]
+                            and float(ck) == float(cp)
+                            and dk.shape == (rp.num_eqn,) + tuple(
+                                s - 2 * k for s in qbc.shape[1:])):
+                        fail(f"{label} vs plain: rel err {rel:.3e}, cfl "
+                             f"{float(ck)!r} vs {float(cp)!r}")
+                    if not big and rp.positivity is not None and nfall == 0:
+                        fail(f"{label}: no cell fell back")
+                    worst[tname] = max(worst[tname], rel)
+                    nbits += bool(torch.equal(dk, dp))
+                    ncase += 1
+                    entry = dq_weno_entry(order, name, tname)
+                    rel_err.setdefault(entry, {})[
+                        "1024" if big else "ragged"] = rel
+                    if big:
+                        abs_err[entry] = err
+    print(f"[4y] dq2_weno vs plain: {ncase} cases (36 instances, 1024^2 "
+          f"and a ragged 250x171 state with fallbacks), max rel err f32 "
+          f"{worst['float32']:.3e}, f64 {worst['float64']:.3e}, the CFL "
+          f"equal in every case, {nbits} bit-equal", flush=True)
+    return abs_err, rel_err, worst, ncase, nbits
+
+
+def perturbed(claw):
+    """Move a Controller's initial state by one ulp (relative, seeded)."""
+    state = claw.solution.state
+    r = np.random.default_rng(11).uniform(-1.0, 1.0, state.q.shape)
+    state.q = (state.q * (1.0 + np.finfo(state.q.dtype).eps * r)).astype(
+        state.q.dtype)
+
+
+def solver_tweak(perturb=False, **attrs):
+    """A run_example tweak: one output frame, the solver's ``attrs`` set
+    after setup, and with ``perturb`` the initial state moved by one
+    ulp."""
+    def tweak(claw):
+        claw.num_output_times = 1
+        for key, val in attrs.items():
+            setattr(claw.solver, key, val)
+        if perturb:
+            perturbed(claw)
+    return tweak
+
+
+def quadrants_opts(dev, n, dtype, tfinal, perturb=False, **attrs):
+    """(claw, status, wall) of the SharpClaw quadrants at n^2 to tfinal
+    in one frame with the solver's ``attrs`` set after setup."""
+    return run_example(dev, "euler_2d_quadrants", dtype, tfinal,
+                       tweak=solver_tweak(perturb, **attrs), mx=n, my=n,
+                       solver_type="sharpclaw")
+
+
+def held_to_plain(label, run, kernel, tol=None):
+    """``run()`` (a float64 path's Controller.run: (claw, status, wall))
+    on the kernels and under :func:`plain_wrappers` (kernel_and_plain):
+    the same steps, and q within ``tol`` of max|q|.  With ``tol`` None
+    the run is conditioned (a one-ulp move of its initial state moves its
+    plain version by more than 1e-12: ROADMAP.md Queue 3) and the
+    distance is a reading only.  Returns the readings."""
+    (kc, ks, _), (pc, ps, _), _ = kernel_and_plain(label, run, kernel)
+    steps = (ks["numsteps"], ks["numrejected"])
+    if steps != (ps["numsteps"], ps["numrejected"]):
+        fail(f"{label}: kernel {steps} steps, plain "
+             f"{(ps['numsteps'], ps['numrejected'])}")
+    q_p = pc.solution.q
+    rel = float(np.abs(kc.solution.q - q_p).max() / np.abs(q_p).max())
+    if tol is not None and not rel <= tol:
+        fail(f"{label}: the kernel run is {rel:.3e} from the plain run "
+             f"(tol {tol:.1e})")
+    print(f"{label}: {steps[0]} + {steps[1]} steps, kernel vs plain max rel "
+          f"{rel:.3e} ("
+          + ("a conditioned run: a reading" if tol is None
+             else f"tol {tol:.1e}") + ")", flush=True)
+    return {"steps": steps, "vs_plain_max_rel": rel, "tol": tol}
+
+
+def smooth_euler(claw):
+    """Make a quadrants Controller periodic, from a smooth Euler state: a
+    density wave rho = 1 + 0.2 sin 2 pi (x + 2y) carried at (u, v) =
+    (0.5, -0.3), p = 1.  No stencil is constant, so no beta is a
+    cancellation and a one-ulp move of the state moves the run by about
+    1e-15 at WENO orders 5, 7 and 17 (the CPU's plain path at 48^2)."""
+    import pyclaw_tpu_torch as pyclaw
+    claw.solver.all_bcs = pyclaw.BC.periodic
+    state = claw.solution.state
+    x, y = claw.solution.domain.grid.c_centers
+    rho = 1.0 + 0.2 * np.sin(2.0 * np.pi * (x + 2.0 * y))
+    u, v, p = 0.5, -0.3, 1.0
+    state.q = np.stack([rho, rho * u, rho * v,
+                        p / 0.4 + 0.5 * rho * (u * u + v * v)]).astype(
+        state.q.dtype)
+
+
+def smooth_opts(dev, n, tfinal, **attrs):
+    """(claw, status, wall) of SharpClaw on :func:`smooth_euler`'s wave at
+    n^2 in float64 to ``tfinal`` in one frame, the solver's ``attrs`` set
+    after setup."""
+    def tweak(claw):
+        smooth_euler(claw)
+        solver_tweak(**attrs)(claw)
+    return run_example(dev, "euler_2d_quadrants", np.float64, tfinal,
+                       tweak=tweak, mx=n, my=n, solver_type="sharpclaw")
+
+
+def smooth_paths(dev, n=128, tfinal=0.01):
+    """[4y]: :func:`smooth_euler`'s wave at n^2 in float64 to ``tfinal``
+    from dt 1e-3, on the kernels and on their plain versions on the card,
+    held to 1e-12 of max|q| with the same steps (held_to_plain, gated):
+    SSP104 at WENO orders 7 and 17 (dq2_weno7_f64, dq2_weno17_f64), and
+    WENO5 (dq2_weno5) with each integrator of INTEGRATOR_RUNS."""
+    out = {}
+    for order in (7, 17):
+        out[f"weno{order}"] = held_to_plain(
+            f"[4y] smooth wave weno{order} {n}^2 f64 to t={tfinal}",
+            lambda order=order: smooth_opts(
+                dev, n, tfinal, weno_order=order, dt_initial=1e-3),
+            "dq2_weno", 1e-12)
+    for label, (integrator, attrs) in INTEGRATOR_RUNS.items():
+        kw = dict({"dt_initial": 1e-3}, **attrs, time_integrator=integrator)
+        out[label] = held_to_plain(
+            f"[4y] smooth wave {label} {n}^2 f64 to t={tfinal}",
+            lambda kw=kw: smooth_opts(dev, n, tfinal, **kw),
+            "dq2_weno5", 1e-12)
+    return out
+
+
+def weno7_path(dev, n=1024):
+    """[4y]: the quadrants with SharpClaw at WENO order 7 at n^2 in float32
+    (SSP104, the SoA route: dq2_weno7, 10 launches an attempted step, no
+    dq2_weno5) through Controller.run() to t=0.8 on the device loop, every
+    launch count set to 0 just before it and read just after; its profile
+    to t=0.1; the float64 run at 256^2 to t=0.02 against its plain
+    version on the card (from dt 1e-3: the default first attempt at dt
+    0.1 is rejected after blowing up), a conditioned run (piecewise-
+    constant data, ROADMAP.md Queue 3): equal steps gated, the distance
+    a reading; smooth_paths gates the instance at 1e-12."""
+    claw, status, wall, counts, ran = counted_run(
+        lambda: quadrants_opts(dev, n, np.float32, 0.8, weno_order=7))
+    ns, nr = status["numsteps"], status["numrejected"]
+    loop = check_path_launches("[4y] quadrants weno7", claw, status, counts,
+                               "dq2_weno", 10, ran=ran)
+    q = claw.solution.q
+    if (q.shape != (4, n, n) or not np.all(np.isfinite(q))
+            or not claw.solution.state.is_valid()
+            or abs(claw.solution.t - 0.8) > 1e-12 or ran["dq2_weno5"]):
+        fail(f"[4y] quadrants weno7: q {q.shape} finite "
+             f"{np.all(np.isfinite(q))}, t {claw.solution.t}, dq2_weno5 "
+             f"{ran['dq2_weno5']}")
+    per_step = (ran["dq2_weno"] + ran["restore"]) / max(1, loop["attempts"])
+    print(f"[4y] quadrants weno7 {n}^2 f32 SSP104 to t={claw.solution.t}: "
+          f"{ns} accepted + {nr} rejected steps, {ran['dq2_weno']} dq2_weno7 "
+          f"launches the card ran ({ran}; the wrappers' counts {counts}), "
+          f"{per_step:.2f} launches of the port's kernels an attempt, "
+          f"{wall:.3f} s wall with the device counters; device loop {loop}",
+          flush=True)
+    prof = profile_main_path(
+        f"[4y] quadrants weno7 {n}^2 f32 to t=0.1",
+        lambda: quadrants_opts(dev, n, np.float32, 0.1, weno_order=7))
+    f64 = held_to_plain(
+        "[4y] quadrants weno7 256^2 f64 to t=0.02 from dt 1e-3",
+        lambda: quadrants_opts(dev, 256, np.float64, 0.02, weno_order=7,
+                               dt_initial=1e-3), "dq2_weno")
+    return {"accepted": ns, "rejected": nr, "wall_s_counted": wall,
+            "launches": ran, "wrapper_counts": counts, "loop": loop,
+            "launches_an_attempt": per_step, "profile": prof, "f64": f64}
+
+
+def instance_paths(dev):
+    """[4y]: each instance of dq2_weno.cu on a short path of its system
+    through Controller.run() on the device loop (SSP104, the example's
+    first state): the quadrants (Euler 4-wave) and examples.acoustics_2d
+    at 128^2, examples.shock_bubble's SharpClaw route (Euler 5-wave) at
+    128x32, each order in float32 and float64, every launch count set to
+    0 just before each run and read just after (dq2_weno 10 an attempted
+    step).  A run that ends non-finite must do so on its plain version
+    on the card too, with the same steps: the float32 rule of the
+    generic-order WENO (limiters/recon.py:weno_stencil, the JAX
+    package's) can lose eps + beta to cancellation on near-constant data
+    (ROADMAP.md, Queue 3), and the kernel repeats it.  Returns ({entry:
+    the launches the card ran}, {entry: the non-finite values of such a
+    run and of its plain run})."""
+    runs = {"euler_4wave_2D": ("euler_2d_quadrants", 0.02,
+                               dict(mx=128, my=128, solver_type="sharpclaw")),
+            "acoustics_2D": ("acoustics_2d", 0.02,
+                             dict(mx=128, my=128, solver_type="sharpclaw")),
+            "euler_5wave_2D": ("shock_bubble", 0.02,
+                               dict(mx=128, my=32, solver_type="sharpclaw"))}
+    out, nonfinite = {}, {}
+    for order in WENO_ORDERS:
+        for name, (module, tfinal, kw) in runs.items():
+            for tname, dtype in (("float32", np.float32),
+                                 ("float64", np.float64)):
+                entry = dq_weno_entry(order, name, tname)
+
+                def run():
+                    return run_example(dev, module, dtype, tfinal,
+                                       tweak=solver_tweak(weno_order=order),
+                                       **kw)
+                claw, status, _, counts, ran = counted_run(run)
+                check_path_launches(f"[4y] {entry} on {module}", claw,
+                                    status, counts, "dq2_weno", 10, ran=ran)
+                out[entry] = ran["dq2_weno"]
+                q = claw.solution.q
+                if np.all(np.isfinite(q)):
+                    continue
+                with plain_wrappers():
+                    pc, ps, _ = run()
+                if (np.all(np.isfinite(pc.solution.q))
+                        or (ps["numsteps"], ps["numrejected"])
+                        != (status["numsteps"], status["numrejected"])):
+                    fail(f"[4y] {entry} on {module}: q not finite, its "
+                         f"plain run on the card finite "
+                         f"{np.all(np.isfinite(pc.solution.q))}")
+                nonfinite[entry] = [int((~np.isfinite(q)).sum()),
+                                    int((~np.isfinite(pc.solution.q)).sum())]
+    print(f"[4y] each instance on a short path of its system (the card's "
+          f"launches): {out}; runs that end non-finite with their plain "
+          f"version (kernel, plain non-finite values): {nonfinite}",
+          flush=True)
+    return out, nonfinite
+
+
+# [4y]'s integrator runs on the quadrants (WENO5, dq2_weno5): the RK4
+# tableau on the device loop; SSPLMMk2, SSPLMMk3 (4 steps, variable dt) and
+# LMM with Adams-Bashforth 3 at a fixed dt (|s| dt/dx about 0.15 at 1024^2)
+# on the host loop
+RK4_TABLEAU = dict(a=[[0, 0, 0, 0], [0.5, 0, 0, 0], [0, 0.5, 0, 0],
+                      [0, 0, 1.0, 0]], b=[1 / 6, 1 / 3, 1 / 3, 1 / 6])
+AB3_COEFFS = dict(lmm_alpha=[0.0, 0.0, 1.0],
+                  lmm_beta=[5.0 / 12.0, -16.0 / 12.0, 23.0 / 12.0])
+INTEGRATOR_RUNS = {
+    "RK4": ("RK", dict(RK4_TABLEAU)),
+    "SSPLMMk2": ("SSPLMMk2", {}),
+    "SSPLMMk3": ("SSPLMMk3", {}),
+    "LMM-AB3": ("LMM", dict(AB3_COEFFS, dt_variable=False,
+                            dt_initial=5e-5))}
+
+
+def integrator_paths(dev, n=1024, tfinal=0.1):
+    """[4y]: the quadrants at n^2 in float32 (WENO5 on dq2_weno5) to
+    ``tfinal`` with each integrator of INTEGRATOR_RUNS, every launch count
+    set to 0 just before each and read just after: RK4 on the device loop
+    (4 dq2_weno5 launches an attempted step); the multistep methods on
+    the host loop (no device loop, no restore, no attempt after the end;
+    11 launches an attempted step while SSP104 starts the history, 1
+    after).  Each route against its plain run on the card at 128^2 in
+    float64 to t=0.02 from dt 1e-3 (held_to_plain; conditioned, as in
+    weno7_path; smooth_paths gates each route at 1e-12)."""
+    out = {}
+    for label, (integrator, attrs) in INTEGRATOR_RUNS.items():
+        kw = dict(attrs, time_integrator=integrator)
+        claw, status, wall, counts, ran = counted_run(
+            lambda: quadrants_opts(dev, n, np.float32, tfinal, **kw))
+        ns, nr = status["numsteps"], status["numrejected"]
+        st = dict(claw.solver.loop_stats)
+        if integrator == "RK":
+            check_path_launches(f"[4y] {label}", claw, status, counts,
+                                "dq2_weno5", 4, ran=ran)
+        else:
+            attempts = ns + nr
+            others = {k: v for k, v in ran.items()
+                      if k != "dq2_weno5" and v}
+            if (st["frames"] or st["attempts"] or st["after_end"] or others
+                    or not attempts <= ran["dq2_weno5"] <= 11 * attempts):
+                fail(f"[4y] {label}: the host loop's launches {ran} for "
+                     f"{attempts} attempted steps, loop {st}")
+        q = claw.solution.q
+        if (not np.all(np.isfinite(q)) or not claw.solution.state.is_valid()
+                or abs(claw.solution.t - tfinal) > 1e-12):
+            fail(f"[4y] {label}: q finite {np.all(np.isfinite(q))}, t "
+                 f"{claw.solution.t}")
+        print(f"[4y] {label} quadrants {n}^2 f32 to t={claw.solution.t}: "
+              f"{ns} accepted + {nr} rejected steps, {wall:.3f} s wall with "
+              f"the device counters, the card ran {ran}; loop {st}",
+              flush=True)
+        small = held_to_plain(
+            f"[4y] {label} quadrants 128^2 f64 to t=0.02 from dt 1e-3",
+            lambda kw=kw: quadrants_opts(
+                dev, 128, np.float64, 0.02,
+                **dict({"dt_initial": 1e-3}, **kw)), "dq2_weno5")
+        out[label] = {"accepted": ns, "rejected": nr, "wall_s_counted": wall,
+                      "launches": ran, "loop": st, "f64_128": small}
+    return out
+
+
+def tfluct_run(dev, dtype, use_tfluct, perturb=False, nx=64, tfinal=0.5):
+    """The tfluct case of tests/test_well_balanced.py:40 on the port: 1D
+    advection (u = 1) of a Gaussian, periodic, SharpClaw SSP104 to
+    ``tfinal``, with the exact in-cell fluctuation u (qr - ql) as a torch
+    tfluct hook, or without; (claw, status, wall)."""
+    import torch
+    import pyclaw_tpu_torch as pyclaw
+    from pyclaw_tpu_torch import riemann
+    solver = pyclaw.SharpClawSolver1D(riemann.advection_1D, device=dev)
+    solver.all_bcs = pyclaw.BC.periodic
+    if use_tfluct:
+        solver.tfluct_solver = True
+        solver.tfluct = lambda ixy, ql, qr, al, ar, p: p["u"] * (qr - ql)
+    domain = pyclaw.Domain([0.0], [1.0], [nx])
+    state = pyclaw.State(domain, 1, dtype=dtype)
+    state.problem_data["u"] = 1.0
+    x = domain.grid.x.centers
+    state.q[0, :] = np.exp(-100.0 * (x - 0.5) ** 2)
+    claw = pyclaw.Controller()
+    claw.solution = pyclaw.Solution(state, domain)
+    claw.solver = solver
+    claw.tfinal = tfinal
+    claw.num_output_times = 1
+    claw.output_format = None
+    if perturb:
+        perturbed(claw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = claw.run()
+    torch.cuda.synchronize()
+    return claw, status, time.perf_counter() - t0
+
+
+def card_against_cpu(label, run):
+    """``run(where, perturb)`` ((claw, status, wall) of a float64 run) on
+    the card and on the CPU: the same steps, q within CARD_VS_CPU_TOL of
+    max|q|, or within ULP_FACTOR times the CPU run's own move under a
+    one-ulp move of its initial state.  Returns the reading."""
+    (kc, ks, _), (cc, cs, _) = run(None, False), run("cpu", False)
+    steps = (ks["numsteps"], ks["numrejected"])
+    if steps != (cs["numsteps"], cs["numrejected"]):
+        fail(f"{label}: card {steps} steps, CPU "
+             f"{(cs['numsteps'], cs['numrejected'])}")
+    q_c = cc.solution.q
+    rel = float(np.abs(kc.solution.q - q_c).max() / np.abs(q_c).max())
+    out = {"steps": steps, "card_vs_cpu_max_rel": rel}
+    if not rel <= CARD_VS_CPU_TOL:
+        uc, _, _ = run("cpu", True)
+        out["cpu_one_ulp_move"] = float(
+            np.abs(uc.solution.q - q_c).max() / np.abs(q_c).max())
+        if not rel <= ULP_FACTOR * out["cpu_one_ulp_move"]:
+            fail(f"{label}: card vs CPU {rel:.3e} (tol {CARD_VS_CPU_TOL}; "
+                 f"the CPU run's one-ulp move {out['cpu_one_ulp_move']:.3e})")
+    print(f"{label}: {steps[0]} + {steps[1]} steps, card vs CPU max rel "
+          f"{rel:.3e} (tol {CARD_VS_CPU_TOL}"
+          + (f", or {ULP_FACTOR} x the CPU run's one-ulp move "
+             f"{out['cpu_one_ulp_move']:.3e}" if "cpu_one_ulp_move" in out
+             else "") + ")", flush=True)
+    return out
+
+
+def limiter_paths(dev):
+    """[4y]: lim_type 0/1 and tfluct, plain PyTorch on the card as the JAX
+    package runs them in XLA, every launch count set to 0 just before each
+    run and read just after: the Sod tube (800 cells, f32, to t=0.2) with
+    lim_type=1 (MC) and char_decomp 0-4, and with lim_type=0, on the
+    device loop (restore once an attempted step, no other kernel); the
+    quadrants at 512^2 f32 to t=0.1 with lim_type=1 (the dq_nd route, off
+    the SoA route: no dq2_weno5, dq2_weno or weno5); the tfluct advection
+    case (weno5.cu, 10 an attempted step) in float32 and float64.  Each
+    float64 run on the card against the CPU (card_against_cpu): Sod at
+    200 cells, the quadrants at 48^2, tfluct at 64."""
+    out = {}
+
+    def sod(where, dtype, nx, cd, lim, perturb=False):
+        return run_example(where, "euler_1d_shocktube", dtype, 0.2,
+                           tweak=solver_tweak(perturb, lim_type=lim), nx=nx,
+                           solver_type="sharpclaw", char_decomp=cd)
+
+    for lim, cds in ((1, (0, 1, 2, 3, 4)), (0, (0,))):
+        for cd in cds:
+            label = f"[4y] sod lim_type={lim} char_decomp={cd}"
+            claw, status, wall, counts, ran = counted_run(
+                lambda: sod(dev, np.float32, 800, cd, lim))
+            check_path_launches(label, claw, status, counts, None, 0,
+                                ran=ran)
+            q = claw.solution.q
+            if not (np.all(np.isfinite(q)) and np.min(q[0]) > 0.0):
+                fail(f"{label}: q not finite or rho <= 0")
+            print(f"{label} 800 f32 to t={claw.solution.t}: "
+                  f"{status['numsteps']} + {status['numrejected']} steps, "
+                  f"the card ran {ran}", flush=True)
+            out[f"sod lim{lim} cd{cd}"] = {
+                "accepted": status["numsteps"],
+                "rejected": status["numrejected"], "launches": ran,
+                "f64": card_against_cpu(
+                    f"{label} 200 f64 to t=0.2",
+                    lambda where, p: sod(where or dev, np.float64, 200, cd,
+                                         lim, p))}
+
+    claw, status, wall, counts, ran = counted_run(
+        lambda: quadrants_opts(dev, 512, np.float32, 0.1, lim_type=1))
+    check_path_launches("[4y] quadrants lim_type=1", claw, status, counts,
+                        None, 0, ran=ran)
+    if not claw.solution.state.is_valid():
+        fail("[4y] quadrants lim_type=1: invalid state")
+    print(f"[4y] quadrants lim_type=1 512^2 f32 to t={claw.solution.t}: "
+          f"{status['numsteps']} + {status['numrejected']} steps, the card "
+          f"ran {ran}", flush=True)
+    out["quadrants lim1"] = {
+        "accepted": status["numsteps"], "rejected": status["numrejected"],
+        "launches": ran,
+        "f64": card_against_cpu(
+            "[4y] quadrants lim_type=1 48^2 f64 to t=0.1",
+            lambda where, p: quadrants_opts(where or dev, 48, np.float64,
+                                            0.1, p, lim_type=1))}
+
+    q32 = {}
+    for use in (True, False):
+        claw, status, _, counts, ran = counted_run(
+            lambda: tfluct_run(dev, np.float32, use))
+        check_path_launches(f"[4y] tfluct {use}", claw, status, counts,
+                            "weno5", 10, ran=ran)
+        q32[use] = claw.solution.q
+        out[f"tfluct {use}"] = {"accepted": status["numsteps"],
+                                "rejected": status["numrejected"],
+                                "launches": ran}
+    move = float(np.abs(q32[True] - q32[False]).max())
+    if not move <= 1e-5:
+        fail(f"[4y] tfluct: the hook moves the f32 run by {move:.3e}")
+
+    out["tfluct f64"] = card_against_cpu(
+        "[4y] tfluct advection 64 f64 to t=0.5",
+        lambda where, p: tfluct_run(where or dev, np.float64, True, p))
+    out["tfluct f32 hook vs none"] = move
+    print(f"[4y] tfluct advection 64 f32: with and without the hook "
+          f"{move:.3e} apart (max abs)", flush=True)
+    return out
+
+
+def options_phase(dev):
+    """[4y]: the quadrants at WENO order 7 (1024^2, f32, t=0.8), every
+    instance of dq2_weno.cu against its plain version and on a short path,
+    the integrators, the smooth wave's runs against their plain versions,
+    lim_type 0/1 and tfluct; the seconds of each part."""
+    out, secs = {}, {}
+    for key, fn in (("weno7_path", weno7_path),
+                    ("compare", compare_dq_weno),
+                    ("instances", instance_paths),
+                    ("integrators", integrator_paths),
+                    ("smooth", smooth_paths),
+                    ("limiters", limiter_paths)):
+        t0 = time.perf_counter()
+        out[key] = fn(dev)
+        secs[key] = time.perf_counter() - t0
+    out["seconds"] = secs
+    print(f"[4y] seconds: {secs}", flush=True)
+    return out
+
+
+def timing_dq_weno(dev):
+    """[6]: each instance of dq2_weno.cu on its 1024^2 case (dq_weno_case;
+    Euler 5-wave 2048x512), float32 and float64: a wrapper call (CUDA
+    events), the kernel's device time (torch.profiler), the plain version
+    (dq_2d_soa at the order), the bound (bytes: qbc read and dq written
+    once; operations: flops_per_cell_dq_weno) and its share of the device
+    time."""
+    import torch
+    from pyclaw_tpu_torch.ops import tiled2d
+    from pyclaw_tpu_torch.sharpclaw import soa as sc_soa
+    out = {}
+    for order in WENO_ORDERS:
+        k = (order + 1) // 2
+        for name in DQ_WENO_SYSTEMS:
+            rp, params = dq_weno_rp(name), dq_weno_params(name)
+            for tname in ("float32", "float64"):
+                qbc, dt, dx, dy = dq_weno_case(name, order, tname, dev)
+
+                def kern():
+                    return tiled2d.dq_rows(qbc, dt, dx, dy, params, order, k,
+                                           rp=rp)
+
+                def plain():
+                    return sc_soa.dq_2d_soa(
+                        qbc, dt, dx, dy, rp.rpn_soa, params, order, k,
+                        positivity=rp.positivity, flux_soa=rp.flux_soa)
+                ms = time_ms(kern, 20, warm=2)
+                dev_ms, dev_n = device_ms_per_call(kern, "dq2_weno_kernel",
+                                                   10)
+                plain_ms = time_ms(plain, 1, warm=1)
+                item = qbc.element_size()
+                cells = (qbc.shape[1] - 2 * k) * (qbc.shape[2] - 2 * k)
+                b = bound_of(qbc.numel() * item + rp.num_eqn * cells * item,
+                             flops_per_cell_dq_weno(name, order, tname)
+                             * cells, tname)
+                entry = dq_weno_entry(order, name, tname)
+                share = (b["bound_ms"] / dev_ms if dev_ms
+                         else b["bound_ms"] / ms)
+                out[entry] = {"ms": ms, "device_ms": dev_ms,
+                              "device_launches_profiled": dev_n,
+                              "plain_ms": plain_ms, "shape": list(qbc.shape),
+                              "share_of_device": share, **b}
+                print(f"  timing {entry} {tuple(qbc.shape)}: kernel "
+                      f"{ms:.4f} ms (on the device {dev_ms} ms), plain "
+                      f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                      f"({b['bound_by']}), share of the device time "
+                      f"{share:.4f}, library_ms null", flush=True)
+                del qbc
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5765,13 +6452,13 @@ def main():
     # nvcc per source, all started together
     t0 = time.perf_counter()
     names = ["step2_ctu", "dq2_weno5", "step3_ctu", "step2_aos", "step1",
-             "weno5", "step3_aos", "restore"]
-    lib, dq_lib, lib3, lib_aos, lib_s1, lib_w5, lib_3a, _ = _build.load_all(
-        names)
+             "weno5", "step3_aos", "restore", "dq2_weno"]
+    (lib, dq_lib, lib3, lib_aos, lib_s1, lib_w5, lib_3a, _,
+     _) = _build.load_all(names)
     print(f"[2] built csrc/step2_ctu.cu, csrc/dq2_weno5.cu, "
           f"csrc/step3_ctu.cu, csrc/step2_aos.cu, csrc/step1.cu, "
-          f"csrc/weno5.cu, csrc/step3_aos.cu and csrc/restore.cu for sm_90a "
-          f"in "
+          f"csrc/weno5.cu, csrc/step3_aos.cu, csrc/restore.cu and "
+          f"csrc/dq2_weno.cu for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s; shared memory per block: "
           f"step2_ctu f32 {lib.step2_ctu_smem_bytes(0)} B, f64 "
           f"{lib.step2_ctu_smem_bytes(1)} B; dq2_weno5 f32 "
@@ -5870,6 +6557,9 @@ def main():
           f"seconds of each source {_build.build_seconds}", flush=True)
     if any(b < 1 for v in bps_lib.values() for b in v):
         fail(f"a step1 instance takes no block on an SM: {bps_lib}")
+    dq_weno = dq_weno_resources(tiled2d)
+    print(f"    dq2_weno.cu's instances (shared memory B, resident blocks of "
+          f"288 threads per SM): {dq_weno}", flush=True)
     for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
@@ -6286,6 +6976,15 @@ def main():
     library = library_phase(dev)
     phase_s["4x"] = time.perf_counter() - t0
 
+    # [4y] this slice's paths: the quadrants at WENO order 7 (1024^2 f32
+    # to t=0.8), every instance of dq2_weno.cu against its plain version
+    # and on a short path, the RK and multistep integrators, lim_type 0/1
+    # and tfluct, every launch count set to 0 just before each run and
+    # read just after
+    t0 = time.perf_counter()
+    options = options_phase(dev)
+    phase_s["4y"] = time.perf_counter() - t0
+
     # [4m] the parallel overlay in a world of one NCCL rank against [4c];
     # [4n] four ranks against the serial runs, every launch count of each
     # rank set to 0 just before each run and read just after
@@ -6414,6 +7113,8 @@ def main():
     lap("tm_no_trans")
     tm_lib = timing_library(dev)
     lap("tm_lib")
+    tm_dq_weno = timing_dq_weno(dev)
+    lap("tm_dq_weno")
     prof = profile_loops(
         "classic main path 1024^2 f32 to t=0.1",
         lambda: run_quadrants(dev, 1024, np.float32, 0.1))
@@ -6447,8 +7148,8 @@ def main():
     # profiler's bookkeeping of a whole run takes minutes
     lap("prof_sod")
     prof_sod_sharp = profile_loops(
-        "sod sharpclaw path 800 f32 to t=0.02",
-        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02))
+        "sod sharpclaw path 800 f32 to t=0.01",
+        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.01))
     lap("prof_sod_sharp")
     prof_ac = profile_loops(
         "acoustics path 1024^2 f32 to t=0.12",
@@ -6459,8 +7160,8 @@ def main():
         lambda: run_dam(dev, 500, np.float32, 0.5))
     lap("prof_dam")
     prof_cd = profile_loops(
-        "sod sharpclaw char_decomp=2 path 800 f32 to t=0.02",
-        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.02, 2))
+        "sod sharpclaw char_decomp=2 path 800 f32 to t=0.01",
+        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.01, 2))
     # [4o]'s path, the device loop only (its host loop takes minutes under
     # the profiler): the busy share and weno5's share of the device time
     lap("prof_cd")
@@ -6959,6 +7660,37 @@ def main():
             "share_of_device_f64": t64["share_of_device"],
             "max_rel_err_f64": s1_worst["float64"],
             "max_rel_err_f32": s1_worst["float32"]})
+    # dq2_weno.cu's instances: each one's launches from its short path in
+    # [4y], dq2_weno7's Euler float32 instance from the full-size path
+    dq_abs, dq_rel = options["compare"][0], options["compare"][1]
+    for order in WENO_ORDERS:
+        for name in DQ_WENO_SYSTEMS:
+            for tname in ("float32", "float64"):
+                entry = dq_weno_entry(order, name, tname)
+                t = tm_dq_weno[entry]
+                launches = options["instances"][0][entry]
+                if entry == "dq2_weno7_f32":
+                    launches = options["weno7_path"]["launches"]["dq2_weno"]
+                new_records.append({
+                    "name": entry, "route": "cuda",
+                    "source": "pyclaw_tpu_torch/csrc/dq2_weno.cu",
+                    "system_source": "pyclaw_tpu_torch/csrc/dq2_systems.cuh",
+                    "replaces": "pyclaw_tpu/ops/tiled2d.py:314",
+                    "replaces_function": f"dq_pallas_rows at weno_order "
+                                         f"{order} (body sharpclaw/soa.py:"
+                                         f"163 _dq_dir_roll) with {name}'s "
+                                         f"SoA hooks",
+                    "rows": ["2"], "launches": launches,
+                    "max_abs_err": dq_abs[entry],
+                    "ms": t["ms"], "device_ms": t["device_ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": None,
+                    "shape": t["shape"], "dtype": tname,
+                    "share_of_device": t["share_of_device"],
+                    "smem_bytes": dq_weno[entry][0],
+                    "blocks_per_sm": dq_weno[entry][1],
+                    "max_rel_err": max(dq_rel[entry].values()),
+                    "max_rel_err_by_state": dq_rel[entry]})
     kernels = [record, dq_record, dq_ac_record, s3_record, aos_record,
                aos_ac_record, s1_record, s1_sw_record, w5_record,
                w5_3d_record, het_record, eu_record, rs_record] + new_records
@@ -7001,6 +7733,8 @@ def main():
                "split_source_paths": split,
                "timing_no_trans": tm_no_trans,
                "library_paths": library, "timing_library": tm_lib,
+               "options_paths": options, "timing_dq_weno": tm_dq_weno,
+               "dq_weno_resources": dq_weno,
                "timing_aos_new": tm_aos_new, "timing_dq_euler5": tm_dq_e5,
                "timing_weno5_3d": tm_w5_3d,
                "profile_sharpclaw_euler3d": prof_s3,

@@ -19,7 +19,9 @@ SETTINGS = ("limiters", "order", "transverse_waves", "bc_lower",
             "bc_upper", "aux_bc_lower", "aux_bc_upper", "fwave", "cfl_max",
             "cfl_desired", "dt_initial", "dt_max", "dt_variable",
             "max_steps", "time_integrator", "weno_order", "lim_type",
-            "char_decomp", "dimensional_split", "use_soa")
+            "char_decomp", "dimensional_split", "use_soa", "tvd_limiter",
+            "a", "b", "c", "lmm_steps", "lmm_alpha", "lmm_beta",
+            "tfluct_solver")
 
 
 def solution_from_arrays(q, problem_data, lower, upper, num_cells, t=0.0,
@@ -51,7 +53,9 @@ def solution_from_arrays(q, problem_data, lower, upper, num_cells, t=0.0,
 
 def solver_settings(solver):
     """The settings of ``solver`` (any object with these attributes) as a
-    plain dict of Python values."""
+    plain dict of Python values.  A ``tfluct`` hook is a function of the
+    other package's arrays and is not carried: the caller sets the
+    port's own."""
     out = {}
     for key in SETTINGS:
         if hasattr(solver, key):

@@ -7,12 +7,15 @@ from .tiled2d import step2_rows  # noqa: F401
 
 
 def kernel_wrappers():
-    """{kernel: wrapper} of every kernel wrapper; each adds one to its
-    ``launches`` where it launches its kernel, or records the launch into
-    a CUDA graph being captured (the solver's device loop), and to its
-    device counter when one is set (:func:`count_on_device`)."""
+    """{kernel: wrapper} of every kernel wrapper (for ``dq2_weno``, whose
+    launches ``tiled2d.dq_rows`` makes at WENO orders 7-17, the counter
+    ``tiled2d.dq_weno_launches``); each adds one to its ``launches`` where
+    it launches its kernel, or records the launch into a CUDA graph being
+    captured (the solver's device loop), and to its device counter when
+    one is set (:func:`count_on_device`)."""
     from . import restore, sweep, tiled2d, weno
     return {"step2_ctu": tiled2d.step2_rows, "dq2_weno5": tiled2d.dq_rows,
+            "dq2_weno": tiled2d.dq_weno_launches,
             "step3_ctu": tiled2d.step3_xy,
             "step2_aos": tiled2d.step2_rows_generic,
             "step1": sweep.step1, "weno5": weno.weno5,

@@ -38,11 +38,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # s < 0, the entropy fix's transonic tests and the limiter's upwind choice
 # jump where a speed crosses zero, so a one-ulp difference in a speed near
 # zero would move the result by a whole wave.  weno5.cu rounds as its
-# plain version too.  step3_ctu.cu keeps its contractions (the bits of its
+# plain version too, and so does dq2_weno.cu (WENO orders 7-17), so that
+# its edge states and CFL are the plain version's.  step3_ctu.cu keeps its
+# contractions (the bits of its
 # wave form rest on them); its f-wave variant sums the speed that feeds
 # sign(s) with rounding intrinsics instead (csrc/euler3d.cuh).
 EXTRA_NVCC_FLAGS = {"step2_aos": ["-fmad=false"], "step3_aos": ["-fmad=false"],
-                    "step1": ["-fmad=false"], "weno5": ["-fmad=false"]}
+                    "step1": ["-fmad=false"], "weno5": ["-fmad=false"],
+                    "dq2_weno": ["-fmad=false"]}
 
 # name -> (ctypes.CDLL, compiler report); one build per process
 _loaded = {}
@@ -171,8 +174,9 @@ def dt_arg(dt, like):
 
 
 def counted(fn):
-    """Count one launch of wrapper ``fn``'s kernel, made just now on the
-    current stream: one more in ``fn.launches`` (the host's count of
+    """Count one launch of wrapper ``fn``'s kernel (or of a kernel whose
+    counts a namespace with the same two attributes keeps), made just now
+    on the current stream: one more in ``fn.launches`` (the host's count of
     launches made or captured into a CUDA graph), and, when
     ``fn.device_launches`` holds a device counter
     (:func:`pyclaw_tpu_torch.ops.count_on_device`), one more there on the

@@ -5,13 +5,15 @@
   body: one launch of ``csrc/step2_ctu.cu`` computes the whole unsplit
   CTU step and one CFL maximum per block.  Plain version:
   ``classic/soa.py:step2_soa``.
-* :func:`dq_rows`, counterpart of ``dq_pallas_rows``: one launch of
-  ``csrc/dq2_weno5.cu`` computes one SharpClaw WENO5 semidiscrete
-  evaluation (one RK stage's dq) and one CFL maximum per block, for a
-  system of :data:`DQ_SYSTEMS` (Euler 4-wave, Euler 5-wave with its
-  tracer and ``acoustics_2D``, each a template instance of its own).
-  Plain version:
-  ``sharpclaw/soa.py:dq_2d_soa`` with the system's SoA hooks.
+* :func:`dq_rows`, counterpart of ``dq_pallas_rows``: one launch
+  computes one SharpClaw semidiscrete evaluation (one RK stage's dq) and
+  one CFL maximum per block, for a system of :data:`DQ_SYSTEMS` (Euler
+  4-wave, Euler 5-wave with its tracer and ``acoustics_2D``) and an order
+  of :data:`DQ_ORDERS`, each a template instance of its own: at WENO
+  order 5 ``csrc/dq2_weno5.cu``, at orders 7-17 ``csrc/dq2_weno.cu``
+  (whose launches count on :data:`dq_weno_launches`).  Plain
+  version: ``sharpclaw/soa.py:dq_2d_soa`` at that order with the
+  system's SoA hooks.
 * :func:`step3_xy`, counterpart of ``step3_pallas_xy`` for Euler: one
   launch of ``csrc/step3_ctu.cu`` computes the whole 3D unsplit CTU step
   (normal sweeps, rpt3 and rptt3 corner transport) of the Euler system,
@@ -51,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -71,11 +74,14 @@ STEP2_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
 DQ_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                + [ctypes.c_void_p] + [ctypes.c_double] * 3)
 DQ_ACOUSTICS_ARGTYPES = DQ_ARGTYPES + [ctypes.c_double]
-# rp.name -> (the prefix of its entries in csrc/dq2_weno5.cu, their
-# argument types)
-DQ_SYSTEMS = {"euler_4wave_2D": ("dq2_weno5", DQ_ARGTYPES),
-              "acoustics_2D": ("dq2_weno5_acoustics", DQ_ACOUSTICS_ARGTYPES),
-              "euler_5wave_2D": ("dq2_weno5_euler5", DQ_ARGTYPES)}
+# rp.name -> (the suffix of its entries, their argument types, its system
+# id in csrc/dq2_weno.cu).  The entries are dq2_weno<order><suffix>_f32|f64
+# (dq_weno_entry), at WENO order 5 in csrc/dq2_weno5.cu, at the other
+# orders of DQ_ORDERS in csrc/dq2_weno.cu
+DQ_SYSTEMS = {"euler_4wave_2D": ("", DQ_ARGTYPES, 0),
+              "acoustics_2D": ("_acoustics", DQ_ACOUSTICS_ARGTYPES, 1),
+              "euler_5wave_2D": ("_euler5", DQ_ARGTYPES, 2)}
+DQ_ORDERS = (5, 7, 9, 11, 13, 15, 17)
 _VALID_LIMITERS = set(range(10)) | {16, 19, 20, 21} | set(CFL_LIMITER_IDS)
 
 
@@ -98,7 +104,8 @@ def bind_dq_lib(lib):
     ``csrc/dq2_weno5.cu`` (the entries of each system of
     :data:`DQ_SYSTEMS` it has: an earlier build has Euler's only);
     returns it."""
-    for prefix, argtypes in DQ_SYSTEMS.values():
+    for name, (_, argtypes, _) in DQ_SYSTEMS.items():
+        prefix = dq_weno_entry(name, 5)
         if getattr(lib, prefix + "_f32", None) is not None:
             _build.bind_dt(lib, (prefix + "_f32", prefix + "_f64"),
                            argtypes, 5)
@@ -111,7 +118,8 @@ def dq_build_takes(lib, rp):
     """Whether a build of ``csrc/dq2_weno5.cu`` (``lib``, a ctypes handle)
     has the entries of system ``rp`` (an earlier build lacks the later
     systems')."""
-    return getattr(lib, DQ_SYSTEMS[rp.name][0] + "_f32", None) is not None
+    return getattr(lib, dq_weno_entry(rp.name, 5) + "_f32",
+                   None) is not None
 
 
 def dq_system_params(rp, params):
@@ -127,6 +135,33 @@ def dq_system_params(rp, params):
 @functools.cache
 def _dq_lib():
     return bind_dq_lib(_build.load("dq2_weno5"))
+
+
+def dq_weno_entry(name, order):
+    """The prefix of the entries for system ``name`` (a key of
+    :data:`DQ_SYSTEMS`) at WENO order ``order``: of ``csrc/dq2_weno5.cu``
+    at order 5, of ``csrc/dq2_weno.cu`` at the others."""
+    return f"dq2_weno{order}{DQ_SYSTEMS[name][0]}"
+
+
+def bind_dq_weno_lib(lib):
+    """Set the argument types of a ctypes handle of a build of
+    ``csrc/dq2_weno.cu`` (every system and order past 5); returns it."""
+    for name, (_, argtypes, _) in DQ_SYSTEMS.items():
+        for order in DQ_ORDERS[1:]:
+            prefix = dq_weno_entry(name, order)
+            _build.bind_dt(lib, (prefix + "_f32", prefix + "_f64"), argtypes,
+                           5)
+    lib.dq2_weno_blocks.argtypes = [ctypes.c_int] * 3
+    lib.dq2_weno_blocks.restype = ctypes.c_int
+    lib.dq2_weno_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.dq2_weno_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _dq_weno_lib():
+    return bind_dq_weno_lib(_build.load("dq2_weno"))
 
 
 def _check_cuda_qbc(name, qbc, num_ghost, num_eqn, num_dim):
@@ -206,17 +241,18 @@ step2_rows.device_launches = None
 def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None,
             rp=euler.euler_4wave_2D):
     """One SharpClaw semidiscrete evaluation of a 2D system with SoA hooks
-    ``rp`` (Euler 4-wave by default): componentwise WENO5 edge states
-    with the system's positivity fallback (Euler's), Roe fluctuations,
-    and f(qr) - f(ql) in each cell.
+    ``rp`` (Euler 4-wave by default): componentwise WENO edge states of
+    order ``weno_order`` with the system's positivity fallback (Euler's),
+    Roe fluctuations, and f(qr) - f(ql) in each cell.
 
-    qbc: (num_eqn, nx+6, ny+6) ghost-padded q (float32 or float64,
-    contiguous).  dt: step in q's dtype (a Python float or a 0-d tensor,
-    exact in it).  lib: another build of the kernel, bound by
-    :func:`bind_dq_lib` (the variant timer ``ops/time_kernels.py``); None
-    for this checkout's.  Returns (dq (num_eqn, nx, ny) with dt included,
-    cfl as a 0-d tensor).  On a CUDA tensor a system outside
-    :data:`DQ_SYSTEMS` raises."""
+    qbc: (num_eqn, nx+2k, ny+2k) ghost-padded q, k = (weno_order + 1) //
+    2 = num_ghost (float32 or float64, contiguous).  dt: step in q's dtype
+    (a Python float or a 0-d tensor, exact in it).  lib: another build of
+    the order's kernel, bound by :func:`bind_dq_lib` (order 5) or
+    :func:`bind_dq_weno_lib` (the variant timer ``ops/time_kernels.py``);
+    None for this checkout's.  Returns (dq (num_eqn, nx, ny) with dt
+    included, cfl as a 0-d tensor).  On a CUDA tensor an order outside
+    :data:`DQ_ORDERS` or a system outside :data:`DQ_SYSTEMS` raises."""
     if num_ghost != (weno_order + 1) // 2:
         raise ValueError(f"dq_rows: weno_order={weno_order} needs "
                          f"num_ghost={(weno_order + 1) // 2}, got "
@@ -226,36 +262,47 @@ def dq_rows(qbc, dt, dx, dy, params, weno_order=5, num_ghost=3, lib=None,
                                 weno_order, num_ghost,
                                 positivity=rp.positivity,
                                 flux_soa=rp.flux_soa)
-    if weno_order != 5:
-        raise NotImplementedError(
-            f"dq_rows: weno_order={weno_order} has no kernel yet "
-            f"(ROADMAP.md, Queue 1: 'weno_order 7-17')")
+    if weno_order not in DQ_ORDERS:
+        raise ValueError(f"dq_rows: weno_order={weno_order} has no kernel "
+                         f"(orders {DQ_ORDERS})")
     if rp.name not in DQ_SYSTEMS:
         raise NotImplementedError(
             f"dq_rows: {rp.name} has no kernel yet (ROADMAP.md, Queue 2 "
             f"item 12: 'SharpClaw 2D systems of dq2_weno5.cu')")
     _check_cuda_qbc("dq_rows", qbc, num_ghost, rp.num_eqn, 2)
     _, nxg, nyg = qbc.shape
-    is_double = qbc.dtype == torch.float64
-    lib = _dq_lib() if lib is None else lib
-    dq = torch.empty((rp.num_eqn, nxg - 6, nyg - 6), dtype=qbc.dtype,
-                     device=qbc.device)
-    cfl_blocks = torch.empty((lib.dq2_weno5_blocks(nxg, nyg),),
-                             dtype=qbc.dtype, device=qbc.device)
-    prefix = DQ_SYSTEMS[rp.name][0]
-    fn = getattr(lib, prefix + ("_f64" if is_double else "_f32"))
+    if weno_order == 5:
+        lib = _dq_lib() if lib is None else lib
+        nblocks = lib.dq2_weno5_blocks(nxg, nyg)
+    else:
+        lib = _dq_weno_lib() if lib is None else lib
+        nblocks = lib.dq2_weno_blocks(nxg, nyg, weno_order)
+    prefix = dq_weno_entry(rp.name, weno_order)
+    g = num_ghost
+    dq = torch.empty((rp.num_eqn, nxg - 2 * g, nyg - 2 * g),
+                     dtype=qbc.dtype, device=qbc.device)
+    cfl_blocks = torch.empty((nblocks,), dtype=qbc.dtype, device=qbc.device)
+    fn = getattr(lib, prefix + ("_f64" if qbc.dtype == torch.float64
+                                else "_f32"))
     dt_ptr, _dt = _build.dt_arg(dt, qbc)
     rc = fn(qbc.data_ptr(), dq.data_ptr(), cfl_blocks.data_ptr(), nxg, nyg,
             dt_ptr, float(dx), float(dy), *dq_system_params(rp, params),
             torch.cuda.current_stream(qbc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{prefix} launch failed: cudaError_t {rc}")
-    _build.counted(dq_rows)
+    # order 5's launches count here, those of csrc/dq2_weno.cu on
+    # dq_weno_launches, so that a path shows which kernel it ran
+    _build.counted(dq_rows if weno_order == 5 else dq_weno_launches)
     return dq, torch.amax(cfl_blocks)
 
 
 dq_rows.launches = 0
 dq_rows.device_launches = None
+
+
+# the launch counts of csrc/dq2_weno.cu (dq_rows at WENO orders 7-17;
+# ops.kernel_wrappers names them dq2_weno), kept as a wrapper keeps its own
+dq_weno_launches = types.SimpleNamespace(launches=0, device_launches=None)
 
 
 def bind_step3_lib(lib):

@@ -1,38 +1,43 @@
 """SharpClaw semidiscretization in 1D, 2D and 3D, plain PyTorch around
 the WENO5 kernel.
 
-Counterpart of ``pyclaw_tpu/sharpclaw/kernels.py`` (``_recon :31-43`` for
-``lim_type=2``, ``weno_order=5``; ``_interface_waves :69``, ``_shift_ifc
-:82``, ``_recon_wave :94`` (WENO form), ``_recon_char :169``,
-``_recon_char_ifc :184``, ``_recon_char_trans :226``; ``dq_1d :270-349``
-with ``char_decomp`` 0-4 at ``lim_type=2``; ``dq_nd :352-381``), the
-rebuild of reference ``sharpclaw/flux1.f90``, ``flux2.f90`` and
-``flux3.f90``: reconstruct cell-edge values, componentwise with
-WENO5 (``ops.weno.weno5``: the CUDA kernel ``csrc/weno5.cu`` on a card,
-``limiters/recon.py:weno5`` on the CPU) or, with ``char_decomp``, on the
-Riemann waves (1), the cells' characteristic fields (2), the jumps
-transmitted into each cell's fields (3) or the interfaces'
-characteristic fields (4); fall back to first order in a cell whose edge
-state is not admissible (the ``positivity`` hook), solve the Riemann
-problems at the interfaces, add the in-cell total fluctuation and
-assemble
+Counterpart of ``pyclaw_tpu/sharpclaw/kernels.py`` (``_recon :31-43``,
+``_recon_char_tvd :46``, ``_interface_waves :69``, ``_shift_ifc :82``,
+``_recon_wave :94`` (TVD and WENO forms), ``_recon_char :169``,
+``_recon_char_ifc :184``, ``_recon_char_trans :226``; ``dq_1d
+:270-349`` with ``lim_type`` 0, 1 and 2, ``char_decomp`` 0-4 and
+``tfluct``; ``dq_nd :352-381``), the rebuild of reference
+``sharpclaw/flux1.f90``, ``flux2.f90`` and ``flux3.f90``: reconstruct
+cell-edge values, componentwise with WENO of odd order 5-17 (order 5:
+``ops.weno.weno5``, the CUDA kernel ``csrc/weno5.cu`` on a card,
+``limiters/recon.py:weno5`` on the CPU; orders 7-17:
+``limiters/recon.py:weno``), TVD (``lim_type=1``, ``recon.tvd2`` with the
+solver's ``tvd_limiter``) or first order (``lim_type=0``: the cell
+averages), or, with ``char_decomp``, on the Riemann waves (1), the
+cells' characteristic fields (2), the jumps transmitted into each cell's
+fields (3) or the interfaces' characteristic fields (4), in their WENO or
+TVD forms (the TVD form of 2-4 is the cells' characteristic TVD, as in
+the JAX package); fall back to first order in a cell whose edge state is
+not admissible (the ``positivity`` hook), solve the Riemann problems at
+the interfaces, add the in-cell total fluctuation and assemble
 
     dq_i = -dt/(kappa_i dx) (apdq_{i-1/2} + amdq_{i+1/2} + adq_i).
 
-The total fluctuation adq_i = f(qr_i) - f(ql_i) uses the record's ``flux``
-hook when it has one, else a second Riemann solve on (ql_i, qr_i) summing
-amdq + apdq.  Everything but the componentwise WENO5 stays plain tensor
-operations, as the JAX package leaves it to XLA: the characteristic
-reconstructions too (the JAX package's reach no Pallas kernel, and each
+The total fluctuation adq_i is a user ``tfluct`` hook's when the solver
+passes one (``tfluct_solver``), else f(qr_i) - f(ql_i) from the record's
+``flux`` hook when it has one, else a second Riemann solve on (ql_i,
+qr_i) summing amdq + apdq.  Everything but the componentwise WENO5 stays
+plain tensor operations, as the JAX package leaves it to XLA (its
+``_recon`` reaches a Pallas kernel at order 5 only): the other orders,
+the TVD forms and the characteristic reconstructions too (each of those
 projects every stencil onto its own cell's or interface's eigenvectors,
-so the fields do not form the one shifted array that ``weno5.cu`` takes).
-Products with the eigenvector matrices and sums over the wave and
-equation axes are explicit adds in a fixed order.  :func:`dq_nd` runs
+so the fields do not form the one shifted array that ``weno5.cu``
+takes).  Products with the eigenvector matrices and sums over the wave
+and equation axes are explicit adds in a fixed order.  :func:`dq_nd` runs
 :func:`dq_1d` along each axis in turn (no transverse solves) and sums the
 parts in the axis order, as the JAX package does; its row-tiled wrapper
 ``dq_nd_tiled :384``, which fits the TPU's VMEM and gives the same bits,
-is not ported.  The TVD reconstructions (``lim_type=1``) and WENO orders
-7-17 raise; they are queued in ROADMAP.md.
+is not ported.
 """
 
 from __future__ import annotations
@@ -41,18 +46,23 @@ import torch
 
 from ..classic.kernels import _dtdx_arr
 from ..limiters import recon
+from ..limiters.tvd import _phi
 from ..ops import weno
-from ..solver import _not_ported
 
 
-def _recon(qbc, lim_type, weno_order):
+def _recon(qbc, lim_type, weno_order, tvd_limiter=4):
     """Cell-edge values (ql, qr) of every cell of ``qbc`` along its last
-    axis: componentwise WENO5."""
-    if lim_type != 2:
-        raise _not_ported("lim_type=1")
-    if weno_order != 5:
-        raise _not_ported("weno_order 7-17")
-    return weno.weno5(qbc)
+    axis, componentwise: WENO (``lim_type=2``; order 5 through
+    ``ops.weno.weno5``), TVD (1) or the cell averages (0)."""
+    if lim_type == 2:
+        if weno_order == 5:
+            return weno.weno5(qbc)
+        return recon.weno(weno_order, qbc)
+    if lim_type == 1:
+        return recon.tvd2(qbc, limiter_id=tvd_limiter)
+    if lim_type == 0:
+        return qbc, qbc
+    raise ValueError(f"bad lim_type {lim_type}")
 
 
 def _matvec(M, v):
@@ -76,6 +86,16 @@ def _dot0(a, b):
     return acc
 
 
+def _recon_char_tvd(qbc, auxbc, params, evec, ixy, tvd_limiter):
+    """Characteristic-wise TVD (reference reconstruct.f90 tvd2_char): the
+    cell's characteristic components w = L q of its 3-cell stencil slope
+    limited, and the edge values transformed back."""
+    R, L = evec(ixy, qbc, auxbc, params)
+    w_m, w_0, w_p = (_matvec(L, recon._shift(qbc, m)) for m in (-1, 0, 1))
+    slope = recon.tvd_slope(w_0 - w_m, w_p - w_0, tvd_limiter)
+    return _matvec(R, w_0 - 0.5 * slope), _matvec(R, w_0 + 0.5 * slope)
+
+
 def _interface_waves(qbc, auxbc, params, rp, ixy):
     """The Riemann waves at every interface along the last axis: (num_eqn,
     num_waves, ..., n-1), interface k between cells k and k+1."""
@@ -97,18 +117,33 @@ def _shift_ifc(a, m):
     return torch.cat([z, a[..., :m]], dim=-1)
 
 
-def _recon_wave(qbc, auxbc, params, rp, ixy, weno_order):
-    """Wave-slope WENO reconstruction (reference weno.f90 weno5_wave;
-    char_decomp=1): for each wave family and target interface I, the
-    neighbouring interfaces' waves projected onto W_I give relative
-    strengths T_m = <W_{I+m}, W_I> / |W_I|^2, whose cumulative sums form a
-    pseudo-field with a unit jump at I; its WENO edge value is the
-    fraction of W_I added to the cell average."""
+def _recon_wave(qbc, auxbc, params, rp, ixy, lim_type, weno_order,
+                tvd_limiter=4):
+    """Wave-slope reconstruction (reference reconstruct.f90 tvd2_wave,
+    weno.f90 weno5_wave; char_decomp=1).  TVD form (``lim_type=1``): cell
+    i's slope is sum_p phi(theta_p) W^p at its right interface, theta_p
+    the left neighbour's projection ratio <W_{I-1}, W_I> / |W_I|^2.  WENO
+    form: for each wave family and target interface I, the neighbouring
+    interfaces' waves projected onto W_I give relative strengths T_m =
+    <W_{I+m}, W_I> / |W_I|^2, whose cumulative sums form a pseudo-field
+    with a unit jump at I; its WENO edge value is the fraction of W_I
+    added to the cell average."""
     wave = _interface_waves(qbc, auxbc, params, rp, ixy)
     num_waves = wave.shape[1]
     wnorm2 = _dot0(wave, wave)                     # (nw, ..., n-1)
     safe = wnorm2 > 0.0
     inv = torch.where(safe, 1.0 / torch.where(safe, wnorm2, 1.0), 0.0)
+
+    if lim_type == 1:
+        theta = _dot0(_shift_ifc(wave, -1), wave) * inv
+        phi = torch.where(safe, _phi(tvd_limiter, theta), 0.0)
+        slope_ifc = phi[0][None] * wave[:, 0]      # (ne, ..., n-1)
+        for p in range(1, num_waves):
+            slope_ifc = slope_ifc + phi[p][None] * wave[:, p]
+        # cell i's slope lives at its right interface (index i)
+        slope = torch.cat([slope_ifc, torch.zeros_like(slope_ifc[..., :1])],
+                          dim=-1)
+        return qbc - 0.5 * slope, qbc + 0.5 * slope
 
     k = (weno_order + 1) // 2
     T = {m: (_dot0(_shift_ifc(wave, m), wave) * inv if m != 0
@@ -212,35 +247,42 @@ def _recon_char_trans(qbc, auxbc, params, evec, ixy, weno_order):
 
 
 def _reconstruct(qbc, auxbc, params, rp, ixy, lim_type, weno_order,
-                 char_decomp, evec):
-    """The cell-edge values of :func:`dq_1d` for ``char_decomp`` 0-4 (the
-    JAX package's branches at ``lim_type=2``; modes 2-4 need ``evec``)."""
-    if lim_type != 2:
-        raise _not_ported("lim_type=1")
+                 char_decomp, evec, tvd_limiter):
+    """The cell-edge values of :func:`dq_1d`, dispatched as the JAX
+    package's ``dq_1d :281-307``: ``char_decomp`` 1 on the waves (TVD or
+    WENO); 2-4 with ``evec`` in their WENO forms at ``lim_type=2`` and the
+    cells' characteristic TVD at ``lim_type=1``; else componentwise."""
     if char_decomp == 1:
-        return _recon_wave(qbc, auxbc, params, rp, ixy, weno_order)
+        return _recon_wave(qbc, auxbc, params, rp, ixy, lim_type,
+                           weno_order, tvd_limiter)
     if char_decomp in (2, 3, 4) and evec is not None:
-        fn = {2: _recon_char, 3: _recon_char_trans,
-              4: _recon_char_ifc}[char_decomp]
-        return fn(qbc, auxbc, params, evec, ixy, weno_order)
-    return _recon(qbc, lim_type, weno_order)
+        if lim_type == 2:
+            fn = {2: _recon_char, 3: _recon_char_trans,
+                  4: _recon_char_ifc}[char_decomp]
+            return fn(qbc, auxbc, params, evec, ixy, weno_order)
+        if lim_type == 1:
+            return _recon_char_tvd(qbc, auxbc, params, evec, ixy,
+                                   tvd_limiter)
+    return _recon(qbc, lim_type, weno_order, tvd_limiter)
 
 
 def dq_1d(qbc, auxbc, dt, dx, rp, params, lim_type, weno_order, index_capa,
           num_ghost, ixy=0, positivity=None, flux=None, char_decomp=0,
-          evec=None):
+          evec=None, tfluct=None, tvd_limiter=4):
     """Semidiscrete update along the LAST axis (flux1.f90).
 
     qbc: (num_eqn, ..., n) ghost-padded; auxbc (num_aux, ..., n) or None;
     ``dt`` a Python float or a 0-d tensor; ``rp`` the normal solver (its
     waves also feed ``char_decomp=1``), ``evec`` the eigenvector hook of
-    ``char_decomp`` 2-4.  Returns (dq over the interior along the last
+    ``char_decomp`` 2-4; ``tfluct(ixy, ql, qr, aux_l, aux_r, params)``
+    the in-cell total fluctuation, or None; ``tvd_limiter`` the limiter
+    id of ``lim_type=1``.  Returns (dq over the interior along the last
     axis, with the dt factor included, cfl)."""
     g = num_ghost
     n = qbc.shape[-1]
 
     ql, qr = _reconstruct(qbc, auxbc, params, rp, ixy, lim_type, weno_order,
-                          char_decomp, evec)
+                          char_decomp, evec, tvd_limiter)
     if positivity is not None:
         # per-cell first-order fallback where a reconstructed edge state
         # would be unphysical
@@ -256,7 +298,9 @@ def dq_1d(qbc, auxbc, dt, dx, rp, params, lim_type, weno_order, index_capa,
                              params)
 
     # in-cell total fluctuation
-    if flux is not None:
+    if tfluct is not None:
+        adq = tfluct(ixy, ql, qr, auxbc, auxbc, params)
+    elif flux is not None:
         adq = flux(ixy, qr, auxbc, params) - flux(ixy, ql, auxbc, params)
     else:
         _, _, amdq2, apdq2 = rp(ixy, ql, qr, auxbc, auxbc, params)
@@ -280,7 +324,7 @@ def dq_1d(qbc, auxbc, dt, dx, rp, params, lim_type, weno_order, index_capa,
 
 def dq_nd(qbc, auxbc, dt, deltas, rp, params, lim_type, weno_order,
           index_capa, num_ghost, positivity=None, flux=None, char_decomp=0,
-          evec=None):
+          evec=None, tfluct=None, tvd_limiter=4):
     """Multi-dimensional method-of-lines update (flux2.f90 / flux3.f90):
     :func:`dq_1d` along each spatial axis of ``qbc`` (num_eqn, *n)
     ghost-padded, the axis moved last (a contiguous copy, which
@@ -298,7 +342,8 @@ def dq_nd(qbc, auxbc, dt, deltas, rp, params, lim_type, weno_order,
         dqd, cfld = dq_1d(qm, auxm, dt, deltas[d], rp, params, lim_type,
                           weno_order, index_capa, g, ixy=d,
                           positivity=positivity, flux=flux,
-                          char_decomp=char_decomp, evec=evec)
+                          char_decomp=char_decomp, evec=evec, tfluct=tfluct,
+                          tvd_limiter=tvd_limiter)
         dqd = dqd.movedim(-1, axis)
         sl = [slice(None)] * dqd.dim()
         for d2 in range(num_dim):

@@ -8,12 +8,15 @@ The device loop follows the arithmetic of the JAX package's traced loop
 (``solver.py:302-341``): ``dt_try = min(dt, tend - t)``; accept when the
 CFL is finite and <= ``cfl_max``; next dt ``min(dt_max,
 dt_try*cfl_desired/cfl)``, or ``dt_try*0.5`` when the CFL is not finite
-or not positive.  One-step calls and ``before_step`` runs follow the JAX
-package's host loop (``solver.py:458-503``), which those calls take there
-too and which differs where a clipped step is rejected: the step is
-clipped when ``t + dt > tend - 1e-14``, a rejected step's next dt comes
-from the dt before the clip, a zero CFL keeps dt, and the loop ends at
-``t >= tend - 1e-14``.  ``traced_evolve = False`` keeps the traced loop's
+or not positive.  One-step calls, ``before_step`` runs and the
+host-sequenced solvers (``_host_sequenced``: SharpClaw's multistep
+integrators) follow the JAX package's host loop (``solver.py:458-503``),
+which those calls take there too and which differs where a clipped step
+is rejected: the step is clipped when ``t + dt > tend - 1e-14``, a
+rejected step's next dt comes from the dt before the clip, a zero CFL
+keeps dt, and the loop ends at ``t >= tend - 1e-14``; an attempted step
+(:meth:`Solver._attempt`) may take a smaller dt than it was given, which
+the loop reads back.  ``traced_evolve = False`` keeps the traced loop's
 rule, where the JAX package takes its host loop's: in the port it is the
 host replay of the device loop, held to it bit for bit
 (``tests/test_torch_evolve.py::test_host_loop_equals_device_loop``,
@@ -23,9 +26,9 @@ in q's dtype.  It dispatches as the JAX package's ``_evolve_to_time``
 (``:434-505``): with ``tend`` given and no ``before_step``, the device
 loop (:class:`_DeviceLoop`, the counterpart of ``_make_evolve_fn`` and
 ``_evolve_traced``: a CUDA-graph replay of one attempted step, one host
-readback per batch of steps); one-step calls, ``before_step`` and
-``traced_evolve = False`` take the host loop, with one CFL readback per
-attempted step.  q stays on the device between steps; frames move
+readback per batch of steps); one-step calls, ``before_step``, the
+host-sequenced solvers and ``traced_evolve = False`` take the host loop,
+with one CFL readback per attempted step.  q stays on the device between steps; frames move
 through pinned host memory (``_push``/``_pull``).
 """
 
@@ -172,6 +175,11 @@ class Solver:
             raise ValueError(f"index_capa={state.index_capa} names no row "
                              "of state.aux")
 
+    # a solver whose steps keep a history on the host (SharpClaw's
+    # multistep integrators) takes the host loop with the JAX host
+    # loop's dt rule
+    _host_sequenced = False
+
     # the parallel overlay (pyclaw_tpu_torch/parallel) runs this solver's
     # step on each rank's block: it sets this (the overlay takes the host
     # loop) and replaces the three hooks below, _finalize_step (the CFL
@@ -235,6 +243,14 @@ class Solver:
         built: ``step_fn`` itself in serial; the overlay adds the CFL
         reduction over its ranks."""
         return step_fn
+
+    def _attempt(self, q, dt, t, kdtype):
+        """One attempted step of the host loop from q at t with dt (dt and
+        t handed to the step in q's dtype ``kdtype``): (q_new, cfl as a
+        float, the dt the step took)."""
+        q_new, cfl = self._step_fn(q, self._aux_dev, float(kdtype(dt)),
+                                   float(kdtype(t)))
+        return q_new, float(cfl), dt
 
     def step(self, solution):
         """One step of self.dt on the device state; sets the cached CFL."""
@@ -405,12 +421,14 @@ class Solver:
             self._pull(state)
             return status
 
-        # the host loop: one-step calls, before_step, traced_evolve=False
-        # and the overlay; one CFL readback per attempted step.  The dt
-        # rule of the JAX host loop for one-step calls and before_step
-        # (the calls that take that loop in both packages), the traced
-        # loop's otherwise (the module's docstring says why)
-        jax_host = take_one_step or self.before_step is not None
+        # the host loop: one-step calls, before_step, traced_evolve=False,
+        # the host-sequenced solvers and the overlay; one CFL readback per
+        # attempted step.  The dt rule of the JAX host loop for one-step
+        # calls, before_step and the host-sequenced solvers (the calls that
+        # take that loop in both packages), the traced loop's otherwise
+        # (the module's docstring says why)
+        jax_host = (take_one_step or self.before_step is not None
+                    or self._host_sequenced)
         end_tol = 1e-14 if jax_host else 1e-12
         q = self._q_dev
         kdtype = state.q.dtype.type      # dt as the kernel sees it
@@ -439,10 +457,8 @@ class Solver:
                 dt_try = tend - t if t + dt > tend - 1e-14 else dt
             else:
                 dt_try = min(dt, tend - t)
-            q_new, cfl_t = self._step_fn(q, self._aux_dev,
-                                         float(kdtype(dt_try)),
-                                         float(kdtype(t)))
-            cfl = float(cfl_t)           # the one host readback per step
+            # the one host readback per step; the dt the step took
+            q_new, cfl, dt_try = self._attempt(q, dt_try, t, kdtype)
             ok = self.accept_reject_step(cfl)
             if ok:
                 q = q_new

@@ -226,14 +226,27 @@ def test_what_the_slice_refuses():
     q_j = np.asarray(q_j)
     assert np.abs(q_t.numpy() - q_j).max() <= 1e-12 * np.abs(q_j).max()
     assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
-    for attr, val, name in (("lim_type", 1, "lim_type=1"),
-                            ("weno_order", 7, "weno_order 7-17"),
-                            ("tfluct_solver", True, "tfluct_solver")):
+    # the options once refused here (lim_type=1, weno_order=7,
+    # tfluct_solver without a hook: the second Riemann solve) take the
+    # JAX solver's fixed-dt step too
+    for attr, val in (("lim_type", 1), ("weno_order", 7),
+                      ("tfluct_solver", True)):
         claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",
                          solver_type="sharpclaw")
-        setattr(claw.solver, attr, val)
-        with pytest.raises(NotImplementedError, match=name):
-            claw.solver.setup(claw.solution)
+        jclaw = jex.setup(mx=4, my=4, mz=4, outdir=None,
+                          solver_type="sharpclaw")
+        for c in (claw, jclaw):
+            setattr(c.solver, attr, val)
+            c.solver.setup(c.solution)
+        state = claw.solution.state
+        q_t, c_t = claw.solver._step_fn(torch.from_numpy(state.q),
+                                        torch.from_numpy(state.aux), 0.05,
+                                        0.0)
+        q_j, c_j = jclaw.solver._step_fn(jnp.asarray(state.q),
+                                         jnp.asarray(state.aux), 0.05, 0.0)
+        q_j = np.asarray(q_j)
+        assert np.abs(q_t.numpy() - q_j).max() <= 1e-12 * np.abs(q_j).max()
+        assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
     # dimensional_split is taken (no longer refused): three sweeps at the
     # default CFL and transverse_waves, as the JAX example sets them
     claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",

@@ -14,8 +14,8 @@ package.
   tests/golden/euler_1d_sod_chardecomp.npz in float64: 1e-8, or four
   times the reference's own one-ulp sensitivity (the JAX run from a
   state moved by one ulp), which is larger;
-* what stays refused: lim_type=1, char_decomp in 2D, a missing evec hook,
-  a mode outside 0-4.
+* lim_type=1 with char_decomp=2 takes the JAX solver's step; what stays
+  refused: a missing evec hook, a mode outside 0-4.
 """
 
 import os
@@ -124,7 +124,7 @@ def test_reconstructions_match_jax(cd, system):
     qt = torch.from_numpy(q)
     fn_t, fn_j = getattr(tk, RECONS[cd]), getattr(jk, RECONS[cd])
     if cd == 1:
-        out_t = fn_t(qt, None, params, rs_t.rp, 0, 5)
+        out_t = fn_t(qt, None, params, rs_t.rp, 0, 2, 5)
         out_j = jax.jit(lambda a: fn_j(a, None, params, rs_j.rp, 0, 2, 5,
                                        4))(q)
     else:
@@ -214,10 +214,18 @@ def test_sod_chardecomp_within_jax_one_ulp_spread():
 
 
 def test_what_stays_refused():
+    # lim_type=1 with char_decomp=2 (once refused) takes the JAX solver's
+    # fixed-dt step: the characteristic TVD reconstruction
     claw = tsod.setup(nx=16, outdir=None, device="cpu", char_decomp=2)
-    claw.solver.lim_type = 1
-    with pytest.raises(NotImplementedError, match="lim_type=1"):
-        claw.solver.setup(claw.solution)
+    jclaw = jsod.setup(nx=16, outdir=None, char_decomp=2)
+    for c in (claw, jclaw):
+        c.solver.lim_type = 1
+        c.solver.setup(c.solution)
+    q0 = claw.solution.state.q
+    q_t, c_t = claw.solver._step_fn(torch.from_numpy(q0), None, 1e-3, 0.0)
+    q_j, c_j = jclaw.solver._step_fn(jnp.asarray(q0), None, 1e-3, 0.0)
+    assert _rel(q_t.numpy(), q_j) <= 1e-12
+    assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
     for cd, err in ((5, "not supported"), (-1, "not supported")):
         claw = tsod.setup(nx=16, outdir=None, device="cpu", char_decomp=cd)
         with pytest.raises(ValueError, match=err):

@@ -61,9 +61,18 @@ def test_unported_options_raise():
     claw = ex.setup(mx=8, my=8, outdir=None, device="cpu")
     claw.solver.before_step = lambda solver, state: None
     claw.solver.setup(claw.solution)
+    # SSPLMMk3 is taken (sequenced on the host, as in the JAX package)
     claw = ex.setup(mx=8, my=8, outdir=None, device="cpu",
                     solver_type="sharpclaw", time_integrator="SSPLMMk3")
-    with pytest.raises(NotImplementedError, match="SSPLMMk3"):
+    claw.solver.setup(claw.solution)
+    assert claw.solver._host_sequenced
+    assert not claw.solver._can_use_traced_evolve(claw.solution.state)
+    # an unknown integrator raises as in the JAX package
+    # (sharpclaw/solver.py:384-387)
+    claw = ex.setup(mx=8, my=8, outdir=None, device="cpu",
+                    solver_type="sharpclaw", time_integrator="SSP22")
+    with pytest.raises(NotImplementedError,
+                       match="time_integrator 'SSP22' not ported yet"):
         claw.solver.setup(claw.solution)
 
 
@@ -88,6 +97,15 @@ def test_cuda_tensor_without_card_is_not_run_on_cpu_dq(no_card):
     q = torch.zeros(4, 12, 12, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tiled2d.dq_rows(q, 0.01, 0.1, 0.1, {"gamma": 1.4})
-    with pytest.raises(NotImplementedError, match="weno_order"):
+    # order 7 has a kernel now (csrc/dq2_weno.cu): the device decides
+    with pytest.raises(ValueError, match="unsupported device"):
         tiled2d.dq_rows(q, 0.01, 0.1, 0.1, {"gamma": 1.4}, weno_order=7,
                         num_ghost=4)
+    # an order without a kernel, or a system without one, raises before
+    q19 = torch.zeros(4, 21, 21, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="weno_order=19 has no kernel"):
+        tiled2d.dq_rows(q19, 0.01, 0.1, 0.1, {"gamma": 1.4}, weno_order=19,
+                        num_ghost=10)
+    with pytest.raises(NotImplementedError, match="has no kernel"):
+        tiled2d.dq_rows(q, 0.01, 0.1, 0.1, {"gamma": 1.4}, weno_order=7,
+                        num_ghost=4, rp=riemann.shallow_roe_with_efix_2D)

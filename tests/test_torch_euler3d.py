@@ -138,7 +138,8 @@ def test_setup_refuses_what_the_port_does_not_take():
         assert q_new.shape == (5, 4, 4, 4) and float(cfl) > 0.0
     _setup_raises(ValueError, "index_capa", index_capa=0)
     # the SharpClaw route runs (SharpClawSolver3D on the generic dq) and
-    # takes the JAX solver's fixed-dt step; lim_type=1 stays refused
+    # takes the JAX solver's fixed-dt step, with lim_type=1 (once refused)
+    # too
     claw = tex.setup(mx=4, my=5, mz=6, outdir=None, device="cpu",
                      solver_type="sharpclaw")
     jclaw = jex.setup(mx=4, my=5, mz=6, outdir=None, solver_type="sharpclaw")
@@ -150,9 +151,14 @@ def test_setup_refuses_what_the_port_does_not_take():
     q_j = np.asarray(q_j)
     assert np.abs(q_t.numpy() - q_j).max() <= 1e-12 * np.abs(q_j).max()
     assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
-    claw.solver.lim_type = 1
-    with pytest.raises(NotImplementedError, match="lim_type=1"):
-        claw.solver.setup(claw.solution)
+    for c in (claw, jclaw):
+        c.solver.lim_type = 1
+        c.solver.setup(c.solution)
+    q_t, c_t = claw.solver._step_fn(torch.from_numpy(q0), None, 0.02, 0.0)
+    q_j, c_j = jclaw.solver._step_fn(jnp.asarray(q0), None, 0.02, 0.0)
+    q_j = np.asarray(q_j)
+    assert np.abs(q_t.numpy() - q_j).max() <= 1e-12 * np.abs(q_j).max()
+    assert abs(float(c_t) - float(c_j)) <= 1e-12 * float(c_j)
     # use_parallel builds the parallel overlay's solver and Controller
     from pyclaw_tpu_torch import parallel
     claw = tex.setup(mx=4, my=4, mz=4, outdir=None, device="cpu",

@@ -1,5 +1,6 @@
 """Card-only tests: the CUDA kernels (step2_ctu with step3_ctu's
-capacity and f-wave variants, dq2_weno5, step3_ctu, step2_aos with its
+capacity and f-wave variants, dq2_weno5, dq2_weno's 36 instances
+(orders 7-17), step3_ctu, step2_aos with its
 acoustics, scalar and rpt-less instances, step1 with its sw_aug instance
 and its library systems, weno5,
 step3_aos with its burgers_3D instance, restore) against their plain PyTorch versions at small shapes, the
@@ -124,11 +125,67 @@ def test_dq_kernel_rejects_what_it_cannot_take(card):
     qbc = _qbc(1, 16, 16, torch.float64, card, num_ghost=3)
     with pytest.raises(ValueError, match="contiguous"):
         tiled2d.dq_rows(qbc.transpose(1, 2), 1e-3, 0.1, 0.1, PARAMS)
-    with pytest.raises(NotImplementedError, match="weno_order"):
+    # an order without a kernel, and a system without one, raise: no
+    # fallback to the plain version
+    with pytest.raises(ValueError, match="weno_order"):
+        tiled2d.dq_rows(_qbc(1, 16, 16, torch.float64, card, num_ghost=10),
+                        1e-3, 0.1, 0.1, PARAMS, weno_order=19, num_ghost=10)
+    with pytest.raises(NotImplementedError, match="no kernel"):
         tiled2d.dq_rows(_qbc(1, 16, 16, torch.float64, card, num_ghost=4),
-                        1e-3, 0.1, 0.1, PARAMS, weno_order=7, num_ghost=4)
+                        1e-3, 0.1, 0.1, PARAMS, weno_order=7, num_ghost=4,
+                        rp=riemann.shallow_roe_with_efix_2D)
     with pytest.raises(TypeError, match="dtype"):
         tiled2d.dq_rows(qbc.half(), 1e-3, 0.1, 0.1, PARAMS)
+
+
+def _dq_weno_state(name, seed, nx, ny, k, dtype, dev):
+    """A seeded state of system ``name`` with k ghost cells: Euler's with
+    low-density pockets (the positivity fallback), the 5-wave system's
+    with a tracer, or a random acoustics state."""
+    if name == "acoustics_2D":
+        rng = np.random.default_rng(seed)
+        q = rng.standard_normal((3, nx + 2 * k, ny + 2 * k))
+        return torch.as_tensor(q, dtype=dtype, device=dev).contiguous()
+    qbc = _qbc(seed, nx, ny, dtype, dev, num_ghost=k, pockets=0.05)
+    if name == "euler_5wave_2D":
+        rng = np.random.default_rng(seed + 1)
+        phi = torch.as_tensor(rng.random(qbc.shape[1:]), dtype=dtype,
+                              device=dev)
+        qbc = torch.cat([qbc, (qbc[0] * phi)[None]]).contiguous()
+    return qbc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(tiled2d.DQ_SYSTEMS))
+@pytest.mark.parametrize("order", [7, 9, 11, 13, 15, 17])
+def test_dq_weno_kernels_match_plain(card, order, name, dtype):
+    """Each instance of dq2_weno.cu (orders 7-17, three systems, two
+    types) against sharpclaw/soa.py:dq_2d_soa at that order on a ragged
+    grid, the CFL equal; one launch counted on dq_weno_launches, none by
+    dq_rows."""
+    from pyclaw_tpu_torch.riemann import acoustics
+    k = (order + 1) // 2
+    nx, ny = 37, 50
+    rp = {"euler_4wave_2D": euler.euler_4wave_2D,
+          "euler_5wave_2D": euler.euler_5wave_2D,
+          "acoustics_2D": acoustics.acoustics_2D}[name]
+    params = (PARAMS if name != "acoustics_2D"
+              else {"rho": 1.0, "bulk": 4.0, "zz": 2.0, "cc": 2.0})
+    qbc = _dq_weno_state(name, order + nx, nx, ny, k, dtype, card)
+    dt = float(np.dtype(str(dtype).split(".")[1]).type(0.3 / max(nx, ny)))
+    before = (tiled2d.dq_rows.launches, tiled2d.dq_weno_launches.launches)
+    dk, ck = tiled2d.dq_rows(qbc, dt, 1 / nx, 1 / ny, params, order, k,
+                             rp=rp)
+    torch.cuda.synchronize()
+    assert (tiled2d.dq_rows.launches,
+            tiled2d.dq_weno_launches.launches) == (before[0], before[1] + 1)
+    dp, cp = sc_soa.dq_2d_soa(qbc, dt, 1 / nx, 1 / ny, rp.rpn_soa, params,
+                              order, k, positivity=rp.positivity,
+                              flux_soa=rp.flux_soa)
+    assert dk.dtype == dtype and dk.shape == (rp.num_eqn, nx, ny)
+    assert float((dk - dp).abs().max() / dp.abs().max()) <= TOL[dtype]
+    assert float(ck) == float(cp)
 
 
 def _qbc3(seed, nx, ny, nz, dtype, dev):

@@ -16,9 +16,10 @@ package's, on the CPU.
   amplifies one-ulp differences through the shocks: perturbing the
   initial state by one ulp moves the JAX package's own t=0.8 result by
   up to 6e-4 max relative);
-* the options the port does not take raise at setup; those that take
-  the generic dq (char_decomp, use_soa=False, aux, a capacity function)
-  give the JAX solver's fixed-dt step.
+* the options that were refused at setup (the other integrators,
+  lim_type=1, weno_order=7, tfluct_solver, call_before_step_each_stage)
+  and those that take the generic dq (char_decomp, use_soa=False, aux, a
+  capacity function) give the JAX solver's fixed-dt step or run.
 """
 
 import os
@@ -100,8 +101,15 @@ def test_weno5_stencil_matches_jax(kind, dtype):
 
 
 def test_weno_stencil_other_orders_raise():
-    with pytest.raises(NotImplementedError, match="weno_order 7-17"):
-        trecon.weno_stencil(7, [torch.zeros(3)] * 7)
+    """Order 7, once refused, against the JAX function (1e-12); a stencil
+    list of the wrong length raises as there."""
+    v = np.random.default_rng(7).standard_normal((7, 5, 6))
+    lt, rt = trecon.weno_stencil(7, [torch.from_numpy(x) for x in v])
+    lj, rj = jrecon.weno_stencil(7, [jnp.asarray(x) for x in v])
+    assert _rel(lt.numpy(), np.asarray(lj)) <= 1e-12
+    assert _rel(rt.numpy(), np.asarray(rj)) <= 1e-12
+    with pytest.raises(ValueError, match="needs 7 stencil arrays"):
+        trecon.weno_stencil(7, [torch.zeros(3)] * 5)
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -282,11 +290,57 @@ def _set(attr, value):
      "call_before_step_each_stage"),
 ])
 def test_setup_raises_for_unported_options(apply, match):
+    """Each option this test once saw refused (named by the second
+    column) now runs as in the JAX package, on the quadrants at 8^2 in
+    float64: a one-step integrator (RK with the classical RK4 tableau)
+    gives the JAX solver's fixed-dt step to 1e-12; SSPLMMk2 the JAX run's
+    steps and q to t=0.05 on the host loop; LMM without coefficients the
+    JAX package's ValueError."""
     claw = tex.setup(mx=8, my=8, outdir=None, device="cpu",
                      solver_type="sharpclaw")
-    apply(claw)
-    with pytest.raises(NotImplementedError, match=match):
-        claw.solver.setup(claw.solution)
+    jclaw = jex.setup(mx=8, my=8, outdir=None, solver_type="sharpclaw")
+    for c in (claw, jclaw):
+        apply(c)
+        if c.solver.time_integrator == "RK":
+            c.solver.a = [[0, 0, 0, 0], [0.5, 0, 0, 0], [0, 0.5, 0, 0],
+                          [0, 0, 1.0, 0]]
+            c.solver.b = [1 / 6, 1 / 3, 1 / 3, 1 / 6]
+    integrator = claw.solver.time_integrator
+    if integrator == "LMM":
+        errors = []
+        for c in (claw, jclaw):
+            with pytest.raises(ValueError) as info:
+                c.solver.setup(c.solution)
+            errors.append(str(info.value))
+        assert errors[0] == errors[1] and "lmm_alpha" in errors[0]
+        return
+    if integrator == "SSPLMMk2":
+        for c in (claw, jclaw):
+            c.tfinal = 0.05
+            c.num_output_times = 1
+        status_j = jclaw.run()
+        status_t = claw.run()
+        assert status_t["numsteps"] == status_j["numsteps"]
+        assert _rel(claw.solution.q, jclaw.solution.q) <= TOL[np.float64]
+        return
+    for c in (claw, jclaw):
+        c.solver.setup(c.solution)
+    q0 = claw.solution.state.q
+    q_t, c_t = claw.solver._step_fn(torch.from_numpy(q0), None, 2e-3, 0.0)
+    q_j, c_j = jclaw.solver._step_fn(jnp.asarray(q0), None, 2e-3, 0.0)
+    tol = tol_cfl = TOL[np.float64]
+    if claw.solver.weno_order == 7:
+        # conditioned (the generic-order betas of near-constant stencils
+        # are roundoff, ROADMAP.md Queue 3): held to the largest move of
+        # the JAX step when q0 moves by one ulp, up or down
+        moved = [jclaw.solver._step_fn(jnp.asarray(np.nextafter(q0, to)),
+                                       None, 2e-3, 0.0)
+                 for to in (np.inf, -np.inf)]
+        tol = max(_rel(np.asarray(q), np.asarray(q_j)) for q, _ in moved)
+        tol_cfl = max(abs(float(c) - float(c_j)) / float(c_j)
+                      for _, c in moved)
+    assert _rel(q_t.numpy(), np.asarray(q_j)) <= tol
+    assert abs(float(c_t) - float(c_j)) <= tol_cfl * float(c_j)
 
 
 def _aux(claw):
