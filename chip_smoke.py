@@ -267,6 +267,20 @@ Phases (each asserts; any failure exits non-zero):
      case, each float64 run on the card against the CPU; every launch
      count set to 0 just before each run and read just after; its
      phase_seconds;
+  4z. frames and restarts on the classic main path: the quadrants at
+     1024^2 f32 to t=0.8 through Controller.run() with four frames in
+     ascii (the native C++ writer), netcdf and, where h5py imports, hdf5,
+     equal bit for bit to the same run without files (the same steps and
+     step2_ctu launches); every frame read back (netcdf and hdf5 bit for
+     bit, ascii within %18.8e); the native writer's fort.q of a 256^2
+     frame byte-identical to the plain (Python) writer's, each writer's
+     ms; each format's host ms a 1024^2 frame (the pull from the card and
+     the write); the fixed-dt run (dt 0.2/800) restarted from its netcdf
+     frame 2 (t=0.4) equal bit for bit to the uninterrupted one, and a
+     variable-dt restart's steps; a Fortran-binary frame of a seeded state
+     read back exactly and stepped once on the card, equal to the step
+     from memory; hdf5 and plotting reported as not run where h5py or
+     matplotlib is missing;
   4m. the parallel overlay (pyclaw_tpu_torch/parallel) in a world of one
      NCCL rank (init_distributed on a file:// store):
      parallel.ClawSolver3D on examples.euler_3d.setup(mx=my=mz=192,
@@ -280,10 +294,17 @@ Phases (each asserts; any failure exits non-zero):
      built the kernels): Euler 3D 192^3 on (2,2,1) to t=0.2, the classic
      quadrants 1024^2 on (2,2) to t=0.1, the SharpClaw quadrants 256^2 on
      (2,2) to t=0.05, Sod (classic) at 800 cells on (4,) to t=0.2 and
-     SharpClaw Euler 3D 64^3 on (2,2,1) to t=0.1, all float32, each
+     SharpClaw Euler 3D 64^3 on (2,2,1) to t=0.1, and the classic
+     quadrants 256^2 on (2,2) to t=0.1 with three gauges (one on the
+     corner cell of rank 3's block; ascii frames and, where h5py imports,
+     sharded ones) and with a before_step hook that damps one seeded cell
+     of the global q, all float32, each
      equal bit for bit to the serial card run of the same setup with the
      same steps, each rank's device counters holding its
-     kernel's launches per attempted step times the attempts; the walls
+     kernel's launches per attempted step times the attempts; the gauge
+     series bit for bit and rank 0's gauge and frame files byte for byte
+     as the serial run's, the last sharded frame reassembled equal to the
+     serial q (reported as not run without h5py); the walls
      beside the serial ones (the cost of the exchange, not a scaling
      figure);
   5v. the golden validator (pyclaw_tpu_torch/validate.py, the port of
@@ -5898,6 +5919,281 @@ def timing_library(dev, n=2 ** 20):
 
 # ---- the parallel overlay: [4m] NCCL with one rank, [4n] four ranks -------
 
+# ---- [4z] frames and restarts on the main path ---------------------------
+
+# the quadrants at 1024^2 f32 to t=0.8 in four frames; the fixed dt of the
+# restart (800 steps a frame); the grid of the native writer's frame
+# against the plain one's; %18.8e keeps 9 digits: half a unit of the 9th
+FRAMES_N, FRAMES_T, FRAMES_OUT = 1024, 0.8, 4
+FRAMES_DT = 0.2 / 800
+NATIVE_N = 256
+ASCII_REL = 5e-9
+
+
+def have_module(name):
+    """True when ``name`` imports on this machine (h5py and matplotlib may
+    be missing on the card's)."""
+    import importlib.util
+    return importlib.util.find_spec(name) is not None
+
+
+def frames_claw(dev, outdir=None, fmts=None, fixed_dt=None, n=None):
+    """The quadrants at n^2 (FRAMES_N^2) f32 to FRAMES_T in FRAMES_OUT
+    frames, written in ``fmts`` (none without ``outdir``), at a fixed dt
+    when given."""
+    from pyclaw_tpu_torch.examples import euler_2d_quadrants as ex
+    n = FRAMES_N if n is None else n
+    claw = ex.setup(mx=n, my=n, dtype=np.float32, outdir=outdir, device=dev)
+    claw.tfinal, claw.num_output_times = FRAMES_T, FRAMES_OUT
+    claw.output_format = fmts if outdir is not None else None
+    if fixed_dt is not None:
+        claw.solver.dt_variable = False
+        claw.solver.dt_initial = fixed_dt
+    return claw
+
+
+def frame_read_back(claw, path, fmts):
+    """Each kept frame of ``claw`` read back in each format: netcdf and
+    hdf5 equal bit for bit (t too), ascii within %18.8e (ASCII_REL of each
+    entry); the largest ascii distance (relative to the entry)."""
+    from pyclaw_tpu_torch import Solution
+    worst = 0.0
+    for k, kept in enumerate(claw.frames):
+        want = kept.q.astype(np.float64)
+        for fmt in fmts:
+            got = Solution(k, path=path, file_format=fmt)
+            if got.q.shape != want.shape:
+                fail(f"[4z] frame {k} ({fmt}): shape {got.q.shape}")
+            if fmt == "ascii":
+                dist = np.abs(got.q - want)
+                ok = (abs(got.t - kept.t) <= 1e-8
+                      and bool(np.all(dist <= ASCII_REL * np.abs(want))))
+                worst = max(worst, float(np.max(
+                    dist / np.maximum(np.abs(want), 1e-300))))
+            else:
+                ok = got.t == kept.t and np.array_equal(got.q, want)
+            if not ok:
+                fail(f"[4z] frame {k} ({fmt}) does not read back: t "
+                     f"{got.t!r} against {kept.t!r}, max |dq| "
+                     f"{float(np.abs(got.q - want).max())}")
+    return worst
+
+
+def frames_phase(dev):
+    """[4z]: frames and restarts on the main path.  The quadrants at
+    1024^2 f32 to t=0.8 through Controller.run() with four frames in
+    ascii, netcdf and (where h5py imports) hdf5: q equal bit for bit to
+    the run with the same frames and no files, the same steps and
+    step2_ctu launches; every frame read back (netcdf, hdf5 bit for bit,
+    ascii within %18.8e); the native ascii writer's fort.q byte-identical
+    to the plain (Python) writer's at 256^2, each writer's ms a frame;
+    each format's ms a frame (the pull from the card and the write, host);
+    the fixed-dt run restarted from its netcdf frame 2 (t=0.4) equal bit
+    for bit to the uninterrupted one, and a variable-dt restart's steps; a
+    Fortran-binary frame of a seeded state read back and stepped once on
+    the card, equal to the same step from the state in memory.  What needs
+    a library this machine lacks (h5py, matplotlib) is reported as not
+    run."""
+    import shutil
+
+    from pyclaw_tpu_torch import Solution, plot
+    from pyclaw_tpu_torch.fileio import ascii as fascii
+    out = {"not_run": []}
+    fmts = ["ascii", "netcdf"]
+    if have_module("h5py"):
+        fmts.append("hdf5")
+    else:
+        out["not_run"].append("hdf5")
+        print("[4z] hdf5: not run, no h5py on this machine", flush=True)
+    root = os.path.join(ROOT, "build", "frames")
+    shutil.rmtree(root, ignore_errors=True)
+    fdir = os.path.join(root, "variable")
+
+    # frames do not perturb the run
+    def with_frames():
+        claw = frames_claw(dev, fdir, fmts)
+        claw.keep_copy = True
+        return run_claw(claw)
+    claw, status, wall, counts, ran = counted_run(with_frames)
+    loop = check_path_launches("[4z] quadrants with frames", claw, status,
+                               counts, "step2_ctu", 1, ran=ran)
+    ref, rstatus, rwall, rcounts, rran = counted_run(
+        lambda: run_claw(frames_claw(dev)))
+    check_path_launches("[4z] quadrants without files", ref, rstatus,
+                        rcounts, "step2_ctu", 1, ran=rran)
+    steps = (status["numsteps"], status["numrejected"])
+    rsteps = (rstatus["numsteps"], rstatus["numrejected"])
+    equal = bool(np.array_equal(claw.solution.q, ref.solution.q))
+    out["run"] = {"formats": fmts, "steps": steps, "steps_no_files": rsteps,
+                  "launches": ran["step2_ctu"],
+                  "launches_no_files": rran["step2_ctu"], "wall_s": wall,
+                  "wall_s_no_files": rwall, "bit_equal": equal, "loop": loop}
+    print(f"[4z] quadrants {FRAMES_N}^2 f32 to t={FRAMES_T}, {FRAMES_OUT} "
+          f"frames in {fmts}: {steps[0]} + {steps[1]} steps, "
+          f"{ran['step2_ctu']} step2_ctu launches, {wall:.3f} s wall; "
+          f"without files {rsteps[0]} + {rsteps[1]}, {rran['step2_ctu']}, "
+          f"{rwall:.3f} s; q equal bit for bit: {equal}", flush=True)
+    if not equal or steps != rsteps or ran["step2_ctu"] != rran["step2_ctu"]:
+        fail(f"[4z] the frames moved the run: {out['run']}")
+
+    # every frame reads back
+    t0 = time.perf_counter()
+    worst = frame_read_back(claw, fdir, fmts)
+    out["read_back"] = {"frames": len(claw.frames), "ascii_max_rel": worst,
+                        "s": time.perf_counter() - t0}
+    print(f"[4z] {len(claw.frames)} frames read back in {fmts}: netcdf"
+          f"{' and hdf5' if 'hdf5' in fmts else ''} bit for bit, ascii "
+          f"within {worst:.3e} of each entry (%18.8e: {ASCII_REL})",
+          flush=True)
+
+    # each format's host ms a frame: the pull from the card and the write
+    state = claw.solution.state
+    out["frame_ms"] = {}
+    for fmt in fmts:
+        pulls, writes = [], []
+        for i in range(3):
+            t0 = time.perf_counter()
+            claw.solver._pull(state)
+            t1 = time.perf_counter()
+            claw.solution.write(90 + i, path=fdir, file_format=fmt)
+            t2 = time.perf_counter()
+            pulls.append(t1 - t0)
+            writes.append(t2 - t1)
+        rec = {"pull_ms": 1e3 * float(np.median(pulls)),
+               "write_ms": 1e3 * float(np.median(writes))}
+        rec["frame_ms"] = rec["pull_ms"] + rec["write_ms"]
+        out["frame_ms"][fmt] = rec
+    print(f"[4z] host ms a {FRAMES_N}^2 f32 frame (median of 3; pull + "
+          f"write): " + ", ".join(
+              f"{f} {r['pull_ms']:.2f} + {r['write_ms']:.2f} = "
+              f"{r['frame_ms']:.2f}" for f, r in out["frame_ms"].items()),
+          flush=True)
+
+    # the native writer against the plain one, byte for byte
+    patch = frames_claw(dev, n=NATIVE_N).solution.patch
+    step = FRAMES_N // NATIVE_N
+    q_small = np.ascontiguousarray(claw.solution.q[:, ::step, ::step])
+    paths = {w: os.path.join(root, f"{w}.q") for w in ("native", "plain")}
+    t0 = time.perf_counter()
+    fascii._write_data_file(paths["native"], patch, q_small)
+    t1 = time.perf_counter()
+    fascii._write_data_file_plain(paths["plain"], patch, q_small)
+    t2 = time.perf_counter()
+    with open(paths["native"], "rb") as f:
+        native = f.read()
+    with open(paths["plain"], "rb") as f:
+        same = native == f.read()
+    out["native"] = {"n": NATIVE_N, "bytes": len(native),
+                     "native_ms": 1e3 * (t1 - t0),
+                     "plain_ms": 1e3 * (t2 - t1), "byte_identical": same}
+    print(f"[4z] fort.q of a {NATIVE_N}^2 frame: native writer "
+          f"{out['native']['native_ms']:.2f} ms, plain (Python) writer "
+          f"{out['native']['plain_ms']:.2f} ms, {len(native)} bytes, "
+          f"byte-identical: {same}", flush=True)
+    if not same:
+        fail("[4z] the native ascii writer differs from the plain one")
+
+    # the fixed-dt restart from netcdf frame 2, bit for bit
+    rdir = os.path.join(root, "fixed")
+
+    def restart(path, fixed_dt):
+        c = frames_claw(dev, fixed_dt=fixed_dt)
+        sol = Solution(2, path=path, file_format="netcdf")
+        sol.state.q = sol.state.q.astype(np.float32)
+        c.solution = sol
+        c.num_output_times = FRAMES_OUT - 2
+        return run_claw(c)
+    full, fstatus, fwall, fcounts, fran = counted_run(
+        lambda: run_claw(frames_claw(dev, rdir, ["netcdf"], FRAMES_DT)))
+    rs, rsstatus, rswall, rscounts, rsran = counted_run(
+        lambda: restart(rdir, FRAMES_DT))
+    for label, c, st, cn, rn in (("fixed dt", full, fstatus, fcounts, fran),
+                                 ("restart", rs, rsstatus, rscounts, rsran)):
+        check_path_launches(f"[4z] {label}", c, st, cn, "step2_ctu", 1,
+                            ran=rn)
+    equal = bool(np.array_equal(rs.solution.q, full.solution.q))
+    n_frame = round(FRAMES_T / FRAMES_OUT / FRAMES_DT)
+    out["restart_fixed_dt"] = {
+        "dt": FRAMES_DT, "steps": fstatus["numsteps"],
+        "steps_restarted": rsstatus["numsteps"],
+        "cflmax": fstatus["cflmax"], "t": rs.solution.t, "bit_equal": equal}
+    print(f"[4z] fixed dt {FRAMES_DT}: {fstatus['numsteps']} steps to "
+          f"t={full.solution.t} (CFL max {fstatus['cflmax']:.3f}); "
+          f"restarted from netcdf frame 2 (t=0.4): "
+          f"{rsstatus['numsteps']} steps to t={rs.solution.t}; q equal "
+          f"bit for bit: {equal}", flush=True)
+    if (not equal or rs.solution.t != full.solution.t
+            or fstatus["numsteps"] != FRAMES_OUT * n_frame
+            or rsstatus["numsteps"] != (FRAMES_OUT - 2) * n_frame):
+        fail(f"[4z] the fixed-dt restart differs: "
+             f"{out['restart_fixed_dt']}")
+    # a variable-dt restart from the first run's frame 2: it starts at
+    # the frame's t with dt_initial, so its steps are reported
+    vr, vstatus, _ = restart(fdir, None)
+    out["restart_variable_dt"] = {
+        "t0": 0.4, "t": vr.solution.t, "steps": vstatus["numsteps"],
+        "rejected": vstatus["numrejected"],
+        "max_rel_to_uninterrupted": float(
+            np.abs(vr.solution.q - claw.solution.q).max()
+            / np.abs(claw.solution.q).max())}
+    print(f"[4z] variable-dt restart from frame 2 (t=0.4) to "
+          f"t={vr.solution.t}: {vstatus['numsteps']} + "
+          f"{vstatus['numrejected']} steps (the uninterrupted run's frames "
+          f"3-4 differ in dt: restarted from dt_initial); max distance "
+          f"{out['restart_variable_dt']['max_rel_to_uninterrupted']:.3e} of "
+          f"max|q|", flush=True)
+    if abs(vr.solution.t - FRAMES_T) > 1e-12 or not np.all(
+            np.isfinite(vr.solution.q)):
+        fail(f"[4z] the variable-dt restart: {out['restart_variable_dt']}")
+
+    # a Fortran-binary frame (f64, Fortran order; fort.q holds the patch
+    # header only, as AMRClaw writes it) of a seeded state, one step
+    bdir = os.path.join(root, "binary")
+    q0 = random_state(np.random.default_rng(31), FRAMES_N,
+                      FRAMES_N).astype(np.float32)
+    mem = frames_claw(dev)
+    mem.solution.state.q = q0.copy()
+    mem.solution.write(4, path=bdir, file_format="ascii")
+    with open(os.path.join(bdir, "fort.q0004"), "w") as f:
+        fascii._write_patch_header(f, mem.solution.patch)
+    q0.astype(np.float64).ravel(order="F").tofile(
+        os.path.join(bdir, "fort.b0004"))
+    read = Solution(4, path=bdir, file_format="binary")
+    exact = bool(np.array_equal(read.q, q0.astype(np.float64)))
+    read.state.q = read.state.q.astype(np.float32)
+    read.state.problem_data.update(mem.solution.state.problem_data)
+    stepped = frames_claw(dev)
+    stepped.solution = read
+    stepped.solver.evolve_to_time(read)
+    mem.solver.evolve_to_time(mem.solution)
+    equal = bool(np.array_equal(read.q, mem.solution.q)
+                 and read.t == mem.solution.t)
+    out["binary"] = {"read_exact": exact, "step_bit_equal": equal,
+                     "steps": stepped.solver.status["numsteps"],
+                     "rejected": stepped.solver.status["numrejected"],
+                     "t": read.t}
+    print(f"[4z] binary frame of a seeded {FRAMES_N}^2 state: read back "
+          f"exactly: {exact}; one step on the card ({out['binary']['steps']}"
+          f" + {out['binary']['rejected']}, t={read.t:.6e}) equal to the "
+          f"step from memory bit for bit: {equal}", flush=True)
+    if not (exact and equal and out["binary"]["steps"] == 1):
+        fail(f"[4z] the binary frame: {out['binary']}")
+
+    if have_module("matplotlib"):
+        import matplotlib
+        matplotlib.use("Agg")
+        ax = plot.plot_frame(claw.solution)
+        ax.figure.savefig(os.path.join(root, "frame.png"), dpi=50)
+        out["plot"] = "plot_frame of the last frame"
+        print("[4z] plotting: plot_frame drew the last frame", flush=True)
+    else:
+        out["not_run"].append("plotting")
+        print("[4z] plotting: not run, no matplotlib on this machine",
+              flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 # [4n]'s runs: name -> (the example module, its setup keywords, the
 # overlay's solver class, the mesh shape, the final time, the kernel, its
 # launches per attempted step)
@@ -5914,16 +6210,54 @@ OVERLAY_CASES = {
     "sharpclaw3d": ("euler_3d", dict(mx=64, my=64, mz=64,
                                      solver_type="sharpclaw"),
                     "SharpClawSolver3D", (2, 2, 1), 0.1, "weno5", 30),
+    # gauges (the owners' reads, one all_gather an accepted step; frames
+    # and gauge files from rank 0, shards from every rank where h5py
+    # imports) and a before_step hook on the global q (OVERLAY_HOOKS)
+    "gauges": ("euler_2d_quadrants", dict(mx=256, my=256), "ClawSolver2D",
+               (2, 2), 0.1, "step2_ctu", 1),
+    "before_step": ("euler_2d_quadrants", dict(mx=256, my=256),
+                    "ClawSolver2D", (2, 2), 0.1, "step2_ctu", 1),
 }
 OVERLAY_RANKS = 4
+# [4n]'s gauges: one inside rank 1's block, one on the corner cell
+# (128, 128) of rank 3's, one on the grid's corner cell (255, 0); the cell
+# the before_step hook damps (seeded)
+OVERLAY_GAUGES = [(0.1, 0.7), (128.5 / 256, 128.5 / 256),
+                  (255.5 / 256, 0.5 / 256)]
+OVERLAY_DAMPED = tuple(int(i) for i in
+                       np.random.default_rng(21).integers(0, 256, 2))
 
 
-def overlay_claw(name, dev, mesh=None):
+def damp_one_cell(solver, state):
+    """[4n]'s before_step: damp one cell of the global q in place (the
+    same edit on every rank)."""
+    state.q[(slice(None),) + OVERLAY_DAMPED] *= 0.97
+
+
+def gauge_rows(claw):
+    """A run's gauge series as rows (gauge number, t, q at the cell)."""
+    return np.array([[num, t, *vals]
+                     for num, t, vals in claw.solution.state.gauge_data])
+
+
+# name -> what [4n] adds to the case's claw (the serial one and each
+# rank's)
+OVERLAY_HOOKS = {
+    "gauges": lambda claw: claw.solution.state.grid.add_gauges(
+        OVERLAY_GAUGES),
+    "before_step": lambda claw: setattr(claw.solver, "before_step",
+                                        damp_one_cell),
+}
+
+
+def overlay_claw(name, dev, mesh=None, outdir=None, fmts=None):
     """The float32 claw of OVERLAY_CASES[name] on ``dev``: the example's
-    serial run, or with ``mesh`` the overlay on that mesh.  An example
-    with a ``use_parallel`` keyword (Euler 3D) builds the overlay itself,
-    its solver and its Controller, as a user's run does; the others' serial
-    solver is swapped for the overlay's of the same settings."""
+    serial run, or with ``mesh`` the overlay on that mesh, with the
+    case's OVERLAY_HOOKS, writing frames in ``fmts`` into ``outdir`` when
+    given.  An example with a ``use_parallel`` keyword (Euler 3D) builds
+    the overlay itself, its solver and its Controller, as a user's run
+    does; the others' serial solver is swapped for the overlay's of the
+    same settings (and their Controller for the overlay's)."""
     import importlib
     import inspect
 
@@ -5947,7 +6281,14 @@ def overlay_claw(name, dev, mesh=None):
             convert.apply_solver_settings(
                 solver, convert.solver_settings(claw.solver))
             claw.solver = solver
+            ctrl = parallel.Controller()
+            ctrl.__dict__.update(claw.__dict__)
+            claw = ctrl
     claw.tfinal = tfinal
+    if name in OVERLAY_HOOKS:
+        OVERLAY_HOOKS[name](claw)
+    if outdir is not None:
+        claw.outdir, claw.output_format = outdir, fmts
     return claw
 
 
@@ -6032,7 +6373,12 @@ def overlay_rank(rank, backend, devices, port, outdir, names):
     out = {}
     for name in names:
         _, _, _, shape, _, kernel, per_attempt = OVERLAY_CASES[name]
-        claw = overlay_claw(name, dev, parallel.make_mesh(len(shape), shape))
+        frames = {}
+        if name == "gauges":
+            frames = dict(outdir=os.path.join(outdir, "gauges"),
+                          fmts=overlay_gauge_formats())
+        claw = overlay_claw(name, dev, parallel.make_mesh(len(shape), shape),
+                            **frames)
         dist.barrier()
         claw, status, wall, counts, ran = counted_run(lambda: run_claw(claw))
         out[name] = overlay_record(f"[4n] {name} rank {rank}", claw, status,
@@ -6040,6 +6386,8 @@ def overlay_rank(rank, backend, devices, port, outdir, names):
         out[name]["mesh"] = list(claw.solver.mesh.shape)
         if rank == 0:
             np.save(os.path.join(outdir, f"{name}.npy"), claw.solution.q)
+            np.save(os.path.join(outdir, f"{name}_gauges.npy"),
+                    gauge_rows(claw))
         del claw
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -6084,6 +6432,45 @@ def nccl_one_rank(dev, q_serial, ns, nr):
     return rec
 
 
+def overlay_gauge_formats():
+    """The formats of [4n]'s gauge case: ascii frames (rank 0) and, where
+    h5py imports, sharded frames (every rank)."""
+    return ["ascii", "sharded"] if have_module("h5py") else ["ascii"]
+
+
+def overlay_frame_checks(outdir, q_ser):
+    """[4n]'s gauge case's files: rank 0's gauge files and ascii frames
+    byte-identical to the serial run's, no other file but the shards, and
+    where h5py imports the last sharded frame reassembled equal to the
+    serial q."""
+    from pyclaw_tpu_torch import Solution
+    ser, ranks = (os.path.join(outdir, d) for d in ("serial_gauges",
+                                                    "gauges"))
+    names = sorted(os.listdir(ser))
+    got = sorted(n for n in os.listdir(ranks) if not n.startswith("shard"))
+    files = [n for n in names if n != "_gauges"]
+    files += [os.path.join("_gauges", n)
+              for n in sorted(os.listdir(os.path.join(ser, "_gauges")))]
+    same = got == names
+    for name in files:
+        with open(os.path.join(ser, name), "rb") as a, \
+                open(os.path.join(ranks, name), "rb") as b:
+            same = same and a.read() == b.read()
+    rec = {"files": len(files), "byte_identical": same}
+    if "sharded" in overlay_gauge_formats():
+        last = max(int(n[5:9]) for n in os.listdir(ranks)
+                   if n.startswith("shard") and n.endswith(".json"))
+        sol = Solution(last, path=ranks, file_format="sharded")
+        rec["sharded_frame"] = last
+        rec["sharded_equal"] = bool(np.array_equal(
+            sol.q, q_ser.astype(np.float64)))
+        rec["shards"] = len([n for n in os.listdir(ranks)
+                             if n.startswith(f"shard{last:04d}_p")])
+    else:
+        rec["sharded_frame"] = "not run, no h5py on this machine"
+    return rec
+
+
 def four_ranks(dev, limit_s=400):
     """[4n]: each case of OVERLAY_CASES on four ranks against the serial
     card run of the same setup: q equal bit for bit, the same steps, and
@@ -6096,7 +6483,6 @@ def four_ranks(dev, limit_s=400):
     import tempfile
 
     import torch
-    import torch.multiprocessing as mp
     backend = "nccl" if torch.cuda.device_count() >= OVERLAY_RANKS else "gloo"
     devices = ([f"cuda:{r}" for r in range(OVERLAY_RANKS)]
                if backend == "nccl" else [str(dev)] * OVERLAY_RANKS)
@@ -6104,36 +6490,48 @@ def four_ranks(dev, limit_s=400):
           f"{OVERLAY_RANKS} ranks" + ("" if backend == "nccl" else
                                      " on one card, faces through pinned "
                                      "host memory"), flush=True)
+    with tempfile.TemporaryDirectory() as outdir:
+        return four_ranks_in(dev, backend, devices, outdir, limit_s)
+
+
+def four_ranks_in(dev, backend, devices, outdir, limit_s):
+    """[4n]'s serial runs, ranks and checks (four_ranks), with the files
+    in ``outdir``."""
+    import torch.multiprocessing as mp
     serial = {}
     for name in OVERLAY_CASES:
+        frames = {}
+        if name == "gauges":
+            frames = dict(outdir=os.path.join(outdir, "serial_gauges"),
+                          fmts=["ascii"])
         claw, status, wall, _, _ = counted_run(
-            lambda: run_claw(overlay_claw(name, dev)))
+            lambda: run_claw(overlay_claw(name, dev, **frames)))
         # the same run on the host loop, which the overlay takes: its wall
         with host_loop():
             _, _, wall_host = run_claw(overlay_claw(name, dev))
         serial[name] = (claw.solution.q, status["numsteps"],
-                        status["numrejected"], wall, wall_host)
+                        status["numrejected"], wall, wall_host,
+                        gauge_rows(claw))
         del claw
-    with tempfile.TemporaryDirectory() as outdir:
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(
-            overlay_rank, args=(backend, devices, free_port(), outdir,
-                                list(OVERLAY_CASES)),
-            nprocs=OVERLAY_RANKS, join=False, start_method="spawn")
-        while not ctx.join(timeout=5):
-            if time.perf_counter() - t0 > limit_s:
-                for p in ctx.processes:
-                    p.kill()
-                fail(f"[4n]: the ranks did not end within {limit_s} s")
-        ranks_wall = time.perf_counter() - t0
-        recs = []
-        for r in range(OVERLAY_RANKS):
-            with open(os.path.join(outdir, f"rank{r}.json")) as f:
-                recs.append(json.load(f))
-        q_ranks = {name: np.load(os.path.join(outdir, f"{name}.npy"))
-                   for name in serial}
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        overlay_rank, args=(backend, devices, free_port(), outdir,
+                            list(OVERLAY_CASES)),
+        nprocs=OVERLAY_RANKS, join=False, start_method="spawn")
+    while not ctx.join(timeout=5):
+        if time.perf_counter() - t0 > limit_s:
+            for p in ctx.processes:
+                p.kill()
+            fail(f"[4n]: the ranks did not end within {limit_s} s")
+    ranks_wall = time.perf_counter() - t0
+    recs = []
+    for r in range(OVERLAY_RANKS):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    q_ranks = {name: np.load(os.path.join(outdir, f"{name}.npy"))
+               for name in serial}
     out = {"backend": backend, "ranks_s": ranks_wall, "devices": devices}
-    for name, (q_ser, ns, nr, wall_ser, wall_host) in serial.items():
+    for name, (q_ser, ns, nr, wall_ser, wall_host, _) in serial.items():
         q = q_ranks[name]
         per = [rec[name] for rec in recs]
         steps = {(p["accepted"], p["rejected"]) for p in per}
@@ -6150,8 +6548,9 @@ def four_ranks(dev, limit_s=400):
               f"{res['accepted']} + {res['rejected']} steps (serial {ns} + "
               f"{nr}), {kernel} launches per rank {res['launches']}; wall "
               f"per rank {[round(w, 3) for w in res['rank_wall_s']]} s, "
-              f"serial {wall_ser:.3f} s (device loop), {wall_host:.3f} s "
-              f"(host loop) (the exchange's cost on "
+              f"serial {wall_ser:.3f} s ("
+              f"{'host' if name == 'before_step' else 'device'} loop), "
+              f"{wall_host:.3f} s (host loop) (the exchange's cost on "
               f"{'four cards' if backend == 'nccl' else 'one card'}, not a "
               f"scaling figure); q equal to the serial run bit for bit: "
               f"{res['bit_equal']}", flush=True)
@@ -6159,6 +6558,37 @@ def four_ranks(dev, limit_s=400):
             fail(f"[4n] {name}: the overlay differs from the serial run: "
                  f"max |dq| {float(np.abs(q - q_ser).max())}, steps {steps} "
                  f"against {(ns, nr)}")
+    # the gauge case's series and files, the hook's damped cell
+    g = np.load(os.path.join(outdir, "gauges_gauges.npy"))
+    g_ser = serial["gauges"][5]
+    files = overlay_frame_checks(outdir, serial["gauges"][0])
+    out["gauges"].update(
+        {"samples": len(g), "serial_samples": len(g_ser),
+         "gauges_bit_equal": bool(g.shape == g_ser.shape
+                                  and np.array_equal(g, g_ser)),
+         "files": files})
+    print(f"[4n] gauges: {len(g)} samples of {len(OVERLAY_GAUGES)} gauges "
+          f"(one on the corner cell of rank 3's block) from the owners' "
+          f"reads, equal to the serial run's {len(g_ser)} bit for bit: "
+          f"{out['gauges']['gauges_bit_equal']}; rank 0's {files['files']} "
+          f"gauge and ascii frame files byte-identical to the serial "
+          f"run's: {files['byte_identical']}; sharded frame "
+          + (f"{files['sharded_frame']} ({files['shards']} shards) equal "
+             f"to the serial q: {files['sharded_equal']}"
+             if "sharded_equal" in files else files["sharded_frame"]),
+          flush=True)
+    before = serial["before_step"]
+    out["before_step"]["damped_cell"] = list(OVERLAY_DAMPED)
+    out["before_step"]["hook_changed_q"] = bool(not np.array_equal(
+        before[0], serial["gauges"][0]))
+    if not (out["gauges"]["gauges_bit_equal"]
+            and len(g) == len(OVERLAY_GAUGES) * serial["gauges"][1]
+            and files["byte_identical"]
+            and files.get("sharded_equal", True)
+            and files.get("shards", OVERLAY_RANKS) == OVERLAY_RANKS
+            and out["before_step"]["hook_changed_q"]):
+        fail(f"[4n] gauges / before_step: {out['gauges']}, "
+             f"{out['before_step']}")
     return out
 
 
@@ -6985,6 +7415,12 @@ def main():
     options = options_phase(dev)
     phase_s["4y"] = time.perf_counter() - t0
 
+    # [4z] frames in every format on the classic main path, read back, the
+    # native writer against the plain one, restarts, a binary frame
+    t0 = time.perf_counter()
+    frames = frames_phase(dev)
+    phase_s["4z"] = time.perf_counter() - t0
+
     # [4m] the parallel overlay in a world of one NCCL rank against [4c];
     # [4n] four ranks against the serial runs, every launch count of each
     # rank set to 0 just before each run and read just after
@@ -7738,6 +8174,7 @@ def main():
                "timing_aos_new": tm_aos_new, "timing_dq_euler5": tm_dq_e5,
                "timing_weno5_3d": tm_w5_3d,
                "profile_sharpclaw_euler3d": prof_s3,
+               "frames_and_restarts": frames,
                "overlay_nccl_one_rank": overlay_one,
                "overlay_four_ranks": overlay_four,
                "lake_at_rest": {"steps": lake_steps,

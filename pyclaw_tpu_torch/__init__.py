@@ -41,6 +41,12 @@ The port carries these paths, each with a hand-written CUDA kernel:
   (``ClawSolver3D`` with ``vc_acoustics_3D``, ``acoustics_3D`` or
   ``advection_3D``; ``csrc/step3_aos.cu``).
 
+Frames go through ``fileio`` in the JAX package's five formats: 'ascii'
+(the native C++ writer, ``_native``), 'hdf5' (``h5py``), 'netcdf',
+'binary' (read only) and the overlay's 'sharded' (``h5py``); every frame
+is a restart point, ``Solution(frame, path=..., file_format=...)``.
+``plot`` draws them (matplotlib).
+
 ROADMAP.md lists what comes next.
 """
 

@@ -63,17 +63,23 @@ class Controller:
             return None  # every nstepout steps
         raise ValueError(f"bad output_style {self.output_style}")
 
-    def _write(self, frame):
-        if self.output_format is None:
-            return
-        kwargs = dict(file_format=self.output_format,
+    def _frame_kwargs(self, frame, file_format):
+        """Solution.write's keywords for frame ``frame`` in
+        ``file_format``."""
+        kwargs = dict(file_format=file_format,
                       path=self.outdir,
                       write_aux=(self.write_aux_always or
                                  (frame == 0 and self.write_aux_init)),
                       options=self.output_options)
         if self.output_file_prefix is not None:
             kwargs["file_prefix"] = self.output_file_prefix
-        self.solution.write(frame, **kwargs)
+        return kwargs
+
+    def _write(self, frame):
+        if self.output_format is None:
+            return
+        self.solution.write(frame, **self._frame_kwargs(frame,
+                                                        self.output_format))
         if self.compute_p is not None:
             self.solution.state.compute_p = self.compute_p
             self.solution.write(frame, path=self.outdir,
@@ -186,3 +192,11 @@ class Controller:
                 for t, vals in rows:
                     f.write(" ".join(f"{v:.15e}" for v in
                                      [t, *list(vals)]) + "\n")
+
+    def plot(self, setplot=None):
+        """Show this run's frames (``plot.interactive_plot``; needs
+        matplotlib)."""
+        from . import plot
+        plot.interactive_plot(outdir=self.outdir,
+                              file_format=self.output_format,
+                              setplot=setplot)

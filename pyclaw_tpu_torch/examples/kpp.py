@@ -14,11 +14,12 @@ spiral branch near CFL 1), the unsplit CTU step (``csrc/step2_aos.cu``'s
 ``kpp_2D`` instance on a card); ``solver_type="sharpclaw"`` runs
 ``SharpClawSolver2D(kpp_2D)`` (WENO5, SSP104, the generic dq with the
 second Riemann solve for the in-cell fluctuation, ``csrc/weno5.cu`` on a
-card).  The device picks the kernel, so there is no ``kernel_language``;
-the JAX example's ``setplot`` is not ported (ROADMAP.md, Queue 1 item
-12: plotting).
+card).  The device picks the kernel, so there is no ``kernel_language``.
+``setplot`` is the JAX example's (q as a pcolor in [0, 4 pi]); the
+``htmlplot`` and ``iplot`` tokens draw the frames with it (matplotlib).
 
     python -m pyclaw_tpu_torch.examples.kpp
+    python -m pyclaw_tpu_torch.examples.kpp device=cpu htmlplot
 """
 
 import numpy as np
@@ -57,6 +58,18 @@ def setup(mx=200, my=200, solver_type="classic", outdir="./_output",
     return claw
 
 
+def setplot(plotdata):
+    plotdata.clearfigures()
+    plotfigure = plotdata.new_plotfigure(name="q", figno=0)
+    plotaxes = plotfigure.new_plotaxes()
+    plotaxes.title = "q (KPP rotating wave)"
+    plotitem = plotaxes.new_plotitem(plot_type="2d_pcolor")
+    plotitem.plot_var = 0
+    plotitem.pcolor_cmin = 0.0
+    plotitem.pcolor_cmax = 4.0 * np.pi
+    return plotdata
+
+
 if __name__ == "__main__":
     from pyclaw_tpu_torch.util import run_app_from_main
-    run_app_from_main(setup)
+    run_app_from_main(setup, setplot=setplot)

@@ -15,7 +15,9 @@ every device); ``solver_type="sharpclaw"`` runs
 ``SharpClawSolver2D(euler_4wave_2D)`` (WENO5, SSP104, the SoA dq:
 ``csrc/dq2_weno5.cu`` on a card).  ``setup()`` takes the JAX example's
 keywords plus ``device`` and ``dtype``; the device picks the kernel, so
-there is no ``kernel_language``.
+there is no ``kernel_language``.  ``setplot`` is the JAX example's (the
+density and its schlieren); the ``htmlplot`` and ``iplot`` tokens draw
+the frames with it (matplotlib).
 
     python -m pyclaw_tpu_torch.examples.shock_forward_step
 """
@@ -112,6 +114,28 @@ def setup(mx=120, my=40, solver_type="classic", tfinal=4.0,
     return claw
 
 
+def setplot(plotdata):
+    """Density pcolor + schlieren (visclaw-style setplot)."""
+    plotdata.clearfigures()
+
+    fig = plotdata.new_plotfigure(name="Density", figno=0)
+    axes = fig.new_plotaxes()
+    axes.title = "Density"
+    axes.scaled = True
+    item = axes.new_plotitem(plot_type="2d_pcolor")
+    item.plot_var = 0
+    item.pcolor_cmin = 0.0
+    item.pcolor_cmax = 6.0
+
+    fig = plotdata.new_plotfigure(name="Schlieren", figno=1)
+    axes = fig.new_plotaxes()
+    axes.title = "Schlieren (|grad rho|)"
+    axes.scaled = True
+    item = axes.new_plotitem(plot_type="2d_schlieren")
+    item.plot_var = 0
+    return plotdata
+
+
 if __name__ == "__main__":
     from pyclaw_tpu_torch.util import run_app_from_main
-    run_app_from_main(setup)
+    run_app_from_main(setup, setplot=setplot)

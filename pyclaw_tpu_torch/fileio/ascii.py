@@ -1,7 +1,7 @@
 """Clawpack classic ascii frame format (fort.tXXXX / fort.qXXXX / fort.aXXXX).
 
-Copy of the JAX package's ``fileio/ascii.py`` (pure-Python writer and the
-reader), a rebuild of reference ``src/pyclaw/fileio/ascii.py`` (:~1-300; SURVEY.md
+Copy of the JAX package's ``fileio/ascii.py`` (the writer, native and
+plain, and the reader), a rebuild of reference ``src/pyclaw/fileio/ascii.py`` (:~1-300; SURVEY.md
 §2.5): per frame a ``fort.tXXXX`` header (t, num_eqn, nstates, num_aux,
 num_dim, num_ghost) and a ``fort.qXXXX`` data file (per patch: patch_index,
 AMR_level, per-dim num_cells / lower / delta, then q in column-major cell
@@ -12,6 +12,7 @@ structure follow the reference layout.
 
 from __future__ import annotations
 
+import io
 import os
 
 import numpy as np
@@ -47,8 +48,18 @@ def write(solution, frame, path, file_prefix="fort", write_aux=False,
 
 
 def _write_data_file(fname, patch, q):
-    """Patch header + q array, written by the Python loops (the JAX
-    package's native C++ writer is not ported yet; ROADMAP.md)."""
+    """Patch header + q array, the cells by the native C++ writer
+    (``pyclaw_tpu_torch._native``, byte-identical to the Python loops of
+    :func:`_write_data_file_plain`); a failed build of it raises."""
+    from .. import _native
+    hdr = io.StringIO()
+    _write_patch_header(hdr, patch)
+    _native.write_ascii(fname, hdr.getvalue(), q)
+
+
+def _write_data_file_plain(fname, patch, q):
+    """:func:`_write_data_file` by the Python loops: the plain version,
+    which the tests and ``chip_smoke.py`` hold the native writer to."""
     with open(fname, "w") as f:
         _write_patch_header(f, patch)
         _write_array(f, q)

@@ -10,7 +10,11 @@ block of the grid, with the reference's per-step communication events:
                      the faces, axis by axis (BOX corner semantics)
   2. CFL reduction : MPI Allreduce(MAX) -> ``dist.all_reduce(MAX)``
   3. frames        : one ``all_gather`` of the blocks into the global q
-                     on every rank; rank 0 writes the gather formats
+                     on every rank; each rank writes its block of a
+                     'sharded' frame (``parallel/io.py``,
+                     ``fileio/sharded.py``), rank 0 the gather formats
+  4. gauges        : the owner of a gauge's cell reads it, one small
+                     ``all_gather`` an accepted step; rank 0 writes them
 
 Usage (mirrors ``import clawpack.petclaw as pyclaw``), one process a rank
 (``torchrun --nproc-per-node N program.py``):
@@ -22,7 +26,6 @@ Usage (mirrors ``import clawpack.petclaw as pyclaw``), one process a rank
 
 The solver builds a near-square mesh over all ranks by default; pass
 ``mesh=make_mesh(num_dim, mesh_shape)`` to choose the decomposition.
-The JAX package's ``parallel/io.py`` (sharded frames) is not ported yet.
 """
 
 from ..geometry import Dimension, Domain, Grid, Patch  # noqa: F401

@@ -2,11 +2,18 @@
 
 Counterpart of ``pyclaw_tpu/parallel/controller.py``.  Every rank runs the
 same orchestration loop and holds the global q after each frame
-(``parallel.solver``'s pull); rank 0 writes the gather formats
-('ascii'), the other ranks write nothing and log at ERROR (gauges raise
-under the overlay).
-The JAX package's default format, 'sharded' (each rank writes its own
-block), is not ported yet and raises.
+(``parallel.solver``'s pull); file-creating side effects and log chatter
+happen on rank 0 only, except the collective format, where each rank
+writes its own shard:
+
+  - ``output_format='sharded'`` (the default, like petclaw's 'petsc'):
+    every rank writes its block through ``fileio.sharded``, and rank 0
+    the index;
+  - the gather formats ('ascii', 'hdf5', 'netcdf'), the derived-quantity
+    (``compute_p``) and functional (``compute_F``) output: rank 0 only;
+  - gauges and log output: rank 0 only.
+
+Restart from a sharded frame:  ``Solution(k, path=..., file_format='sharded')``.
 """
 
 from __future__ import annotations
@@ -14,7 +21,6 @@ from __future__ import annotations
 import logging
 
 from .. import controller as _serial
-from ..solver import _not_ported
 from .distributed import is_main_process
 
 
@@ -26,13 +32,20 @@ class Controller(_serial.Controller):
     def _write(self, frame):
         if self.output_format is None:
             return
-        fmts = (list(self.output_format)
+        if is_main_process():
+            super()._write(frame)
+            return
+        fmts = (self.output_format
                 if isinstance(self.output_format, (list, tuple))
                 else [self.output_format])
         if "sharded" in fmts:
-            raise _not_ported("sharded frames")
-        if is_main_process():
-            super()._write(frame)
+            self.solution.write(frame, **self._frame_kwargs(frame,
+                                                            "sharded"))
+
+    def _write_gauges(self):
+        if not is_main_process():
+            return
+        super()._write_gauges()
 
     def _configure_logging(self):
         super()._configure_logging()

@@ -1,5 +1,5 @@
-"""Ghost-cell halo exchange, the CFL reduction and the frame gather over
-the ranks of a mesh.
+"""Ghost-cell halo exchange, the CFL reduction, the frame gather and the
+gauges' gather over the ranks of a mesh.
 
 Counterpart of ``pyclaw_tpu/parallel/halo.py`` (``extend_local :54-98``)
 and of the reductions in ``pyclaw_tpu/parallel/solver.py`` (``lax.pmax``
@@ -153,3 +153,28 @@ def gather(block, mesh, num_cells):
         coords = np.unravel_index(r, mesh.shape)
         out[mesh.block(num_cells, coords)] = host[r]
     return out
+
+
+def gather_cells(block, mesh, num_cells, cells):
+    """q at the global cell indices ``cells`` (numpy, num_eqn x
+    len(cells)) on every rank, from each rank's ``block``: the rank whose
+    block holds a cell reads it, and one ``all_gather`` of each rank's
+    reads (zeros where it holds no cell) brings them to every rank."""
+    sizes = [n // m for n, m in zip(num_cells, mesh.shape)]
+    local = torch.zeros((block.shape[0], len(cells)), dtype=block.dtype,
+                        device=block.device)
+    owners = []
+    for j, idx in enumerate(cells):
+        coords = tuple(int(i) // b for i, b in zip(idx, sizes))
+        owners.append(int(np.ravel_multi_index(coords, mesh.shape)))
+        if owners[-1] == mesh.rank:
+            local[:, j] = block[(slice(None),) + tuple(
+                int(i) - c * b for i, c, b in zip(idx, coords, sizes))]
+    if not dist.is_initialized():
+        parts = [local]
+    else:
+        wire = _to_wire(local)
+        parts = [torch.empty_like(wire) for _ in range(mesh.size)]
+        dist.all_gather(parts, wire)
+    host = torch.stack(parts).cpu().numpy()      # (ranks, num_eqn, cells)
+    return np.stack([host[r, :, j] for j, r in enumerate(owners)], axis=1)

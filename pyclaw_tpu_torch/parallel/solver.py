@@ -14,23 +14,34 @@ block of the grid:
   - ``_block_of`` / ``_pull``: every rank holds the global ``State``, as
     every JAX host runs the same program; a push copies this rank's block
     of q and aux to its device, a pull assembles the global q on every
-    rank with one ``all_gather``.
+    rank with one ``all_gather`` and marks the state with this rank's
+    block (``state.q_block``, which the sharded frame format writes);
+  - ``write_gauge_values``: the rank whose block holds a gauge's cell
+    reads it, and one ``all_gather`` an accepted step brings the values
+    to every rank (the JAX traced loop gathers them from the global
+    array); rank 0 writes the gauge files (``parallel.controller``).
 
 The overlay takes the host loop: each attempted step is a halo exchange
 per stage (per sweep with ``dimensional_split``), the kernel, one
-reduction and one readback.  A ``step_source`` marked ``global_grid``
-(one that closes over an array of the whole grid, as
-``riemann.shallow_sphere.make_sphere_source``'s) is refused at setup.  The JAX
-package's interior/boundary-band overlap (``_wrap_bc_kernel``) is not
-ported: its Pallas backend forces the blocking form, and the port's
-kernels take that backend's place.  A block the overlay cannot take
-raises at setup; nothing falls back.
+reduction and one readback.  A ``before_step`` hook gets the global
+``state.q`` before each step, as in the JAX host loop: the loop pulls
+(the gather), calls the hook on every rank and pushes this rank's block
+back, so an edit the hook makes to q takes effect (the hook must make the
+same edit on every rank).  A ``step_source`` marked ``global_grid`` (one
+that closes over an array of the whole grid, as
+``riemann.shallow_sphere.make_sphere_source``'s) is refused at setup:
+the JAX overlay runs the step source inside its shard_map'd step
+(``pyclaw_tpu/classic/solver.py:72, 85-87``,
+``pyclaw_tpu/parallel/solver.py:231``), where such a hook meets a block,
+so neither package takes it.  The JAX package's interior/boundary-band
+overlap (``_wrap_bc_kernel``) is not ported: its Pallas backend forces
+the blocking form, and the port's kernels take that backend's place.  A
+block the overlay cannot take raises at setup; nothing falls back.
 """
 
 from __future__ import annotations
 
 from .. import classic, sharpclaw
-from ..solver import _not_ported
 from . import halo
 from .mesh import make_mesh
 
@@ -62,10 +73,13 @@ class _DistributedMixin:
     def _finalize_step(self, step_fn, state):
         # a source hook that closes over an array of the whole grid (the
         # sphere's latitudes) would meet a rank's block: refused, never run
-        # with another answer
+        # with another answer (the JAX overlay has no such run either)
         if getattr(getattr(self, "step_source", None), "global_grid", False):
-            raise _not_ported("a step_source on the global grid under the "
-                              "overlay")
+            raise NotImplementedError(
+                "a step_source on the global grid under the overlay: the "
+                "hook closes over an array of the whole grid and would meet "
+                "this rank's block, as it would in the JAX package's "
+                "overlay (ROADMAP.md, Queue 3)")
         if self.mesh is None:
             self.mesh = make_mesh(self.num_dim)
         mesh = self.mesh
@@ -95,14 +109,18 @@ class _DistributedMixin:
         return None if arr is None else arr[self.mesh.block(arr.shape[1:])]
 
     def _pull(self, state):
-        state.q = halo.gather(self._q_dev, self.mesh,
-                              state.patch.num_cells_global)
+        cells = state.patch.num_cells_global
+        state.q = halo.gather(self._q_dev, self.mesh, cells)
+        state.q_block = (self.mesh, state.q[self.mesh.block(cells)])
 
-    def _evolve_to_time(self, solution, tend=None):
-        state = solution.states[0]
-        if self.before_step is not None or state.patch.grid.gauge_indices:
-            raise _not_ported("gauges and before_step under the overlay")
-        return super()._evolve_to_time(solution, tend)
+    def write_gauge_values(self, state):
+        cells = state.patch.grid.gauge_indices
+        if not cells:
+            return
+        vals = halo.gather_cells(self._q_dev, self.mesh,
+                                 state.patch.num_cells_global, cells)
+        for num in range(len(cells)):
+            state.gauge_data.append((num, state.t, vals[:, num].copy()))
 
 
 class ClawSolver1D(_DistributedMixin, classic.ClawSolver1D):
