@@ -410,7 +410,9 @@ from pyclaw_tpu_torch.ops.time_kernels import (
     dq_euler5_case, SCALAR_CASES, example_state, fwave_capacity,
     gaussian_state, step2_aos_scalar_case, step3_aos_burgers_case,
     swirl_cell_velocities, NO_TRANS_CASES, step2_aos_no_trans_case,
-    LIBRARY_1D, LIBRARY_OPTS, library_case, library_state)
+    LIBRARY_1D, LIBRARY_OPTS, library_case, library_state, random_state,
+    WENO_ORDERS, DQ_WENO_SYSTEMS, dq_weno_rp, dq_weno_params, dq_weno_case,
+    ptxas_resources, dq_weno_instance)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -601,23 +603,6 @@ def card_line():
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def random_state(rng, nx, ny, gamma=1.4, pockets=0.0):
-    """A seeded admissible Euler state (positive density and pressure).
-    With ``pockets`` > 0, that share of the cells are low-density pockets
-    (rho = p = 0.05), where WENO's edge values go non-positive and the
-    positivity fallback runs."""
-    rho = 0.5 + rng.random((nx, ny))
-    u = 0.5 * rng.standard_normal((nx, ny))
-    v = 0.5 * rng.standard_normal((nx, ny))
-    p = 0.5 + rng.random((nx, ny))
-    if pockets > 0.0:
-        pocket = rng.random((nx, ny)) < pockets
-        rho = np.where(pocket, 0.05, rho)
-        p = np.where(pocket, 0.05, p)
-    return np.stack([rho, rho * u, rho * v,
-                     p / (gamma - 1.0) + 0.5 * rho * (u * u + v * v)])
 
 
 def compare_kernel(dev, grids, seed=0):
@@ -5205,13 +5190,6 @@ def library_phase(dev):
 # ---- [4y]: the other SharpClaw options: WENO orders 7-17 on dq2_weno.cu,
 # the RK and multistep integrators, lim_type 0/1 and tfluct ----------------
 
-WENO_ORDERS = (7, 9, 11, 13, 15, 17)     # csrc/dq2_weno.cu's
-# its systems (ops/tiled2d.py:DQ_SYSTEMS)
-DQ_WENO_SYSTEMS = ("euler_4wave_2D", "acoustics_2D", "euler_5wave_2D")
-# acoustics_2D as examples/acoustics_2d.py sets it up
-DQ_WENO_ACOUSTICS = {"rho": 1.0, "bulk": 4.0, "zz": 2.0, "cc": 2.0}
-
-
 def dq_weno_entry(order, name, tname):
     """The entry of csrc/dq2_weno.cu: dq2_weno<order>[_acoustics|_euler5]
     _f32|f64."""
@@ -5254,65 +5232,71 @@ def flops_per_cell_dq_weno(name, order, tname):
                  + DQ_REST_PER_DIR[name][tname]) + neq)
 
 
-def dq_weno_rp(name):
-    from pyclaw_tpu_torch.riemann import acoustics, euler
-    return {"euler_4wave_2D": euler.euler_4wave_2D,
-            "euler_5wave_2D": euler.euler_5wave_2D,
-            "acoustics_2D": acoustics.acoustics_2D}[name]
-
-
-def dq_weno_params(name):
-    return DQ_WENO_ACOUSTICS if name == "acoustics_2D" else {"gamma": 1.4}
-
-
-def dq_weno_state(name, nx, ny, seed, pockets=0.0):
-    """A seeded state of system ``name`` (nx, ny cells): an admissible
-    Euler state (with ``pockets``, low-density cells that take the
-    positivity fallback), the 5-wave system's with a tracer, or a random
-    acoustics state."""
-    rng = np.random.default_rng(seed)
-    if name == "acoustics_2D":
-        return rng.standard_normal((3, nx, ny))
-    q = random_state(rng, nx, ny, pockets=pockets)
-    if name == "euler_5wave_2D":
-        q = np.concatenate([q, (q[0] * rng.random((nx, ny)))[None]])
-    return q
-
-
-def dq_weno_case(name, order, tname, dev, big=True):
-    """(qbc, dt, dx, dy) of one dq of an instance: at 1024^2 (Euler 5-wave
-    2048x512, as [4q]) on a seeded admissible state, or at 250x171
-    (ragged) on a state whose Euler edges take the positivity fallback."""
-    import torch
+# The operations csrc/dq2_weno.cu issues a cell under the plain version's
+# arithmetic (limiters/recon.py:weno_stencil, which the kernel repeats
+# operation for operation, built without contraction): per component and
+# direction K betas over the full K x K form, a product by the
+# coefficient, a product by the value and an add for each of its K^3
+# nonzero entries (3K^3); per edge and stencil the candidate value (K
+# products, K adds), eps + beta, its square, the reciprocal, the product
+# by d, num's product and add and den's add (2K + 7), and the edge's
+# division; float32's normalisation (K + 1 adds, a reciprocal, K
+# products); the rest as flops_per_cell_dq_weno.  Each operation issues
+# on its own, so the card's peak (an FMA counted as two) halves for it:
+# ceiling_ms is the least time under this arithmetic.
+def issued_ops_per_cell_dq_weno(name, order, tname):
     k = (order + 1) // 2
-    nx, ny = (((2048, 512) if name == "euler_5wave_2D" else (1024, 1024))
-              if big else (250, 171))
-    q = dq_weno_state(name, nx, ny, seed=order * 7 + len(name) + big,
-                      pockets=0.0 if big else 0.1)
-    dtype = getattr(torch, tname)
-    qbc = padded(q, dtype, dev, num_ghost=k).contiguous()
-    dt = float(np.dtype(tname).type(0.3 / max(nx, ny)))
-    return qbc, dt, 1.0 / nx, 1.0 / ny
+    neq = dq_weno_rp(name).num_eqn
+    weno = (3 * k ** 3 + 2 * (k * (2 * k + 7) + 1)
+            + (2 * k + 2 if tname == "float32" else 0))
+    return 2 * (neq * weno + DQ_REST_PER_DIR[name][tname]) + neq
 
 
-def dq_weno_resources(tiled2d):
-    """{entry: (shared memory bytes a block, resident blocks per SM)} of
-    each instance of csrc/dq2_weno.cu on this card; fails when one takes
-    no block."""
+def ceiling_ms_dq_weno(name, order, tname, cells):
+    """The least ms of one dq of an instance of csrc/dq2_weno.cu over
+    ``cells`` cells under the plain version's arithmetic: its issued
+    operations at half the card's peak (PEAK_FLOPS counts an FMA as
+    two)."""
+    return (issued_ops_per_cell_dq_weno(name, order, tname) * cells
+            / (PEAK_FLOPS[tname] / 2) * 1e3)
+
+
+def dq_weno_resources(tiled2d, report):
+    """{entry: {"threads", "smem_bytes", "blocks_per_sm", "registers",
+    "stack", "spill_stores", "spill_loads"}} of each instance of
+    csrc/dq2_weno.cu on this card: its threads and shared memory a block
+    and resident blocks per SM (the entries of the build), its registers,
+    stack frame and spill bytes (``report``, the build's ptxas report);
+    fails when one takes no block or the report lacks one."""
     import ctypes
     lib = tiled2d._dq_weno_lib()
-    lib.dq2_weno_blocks_per_sm.argtypes = [ctypes.c_int] * 3
-    lib.dq2_weno_blocks_per_sm.restype = ctypes.c_int
+    for fn in (lib.dq2_weno_blocks_per_sm, lib.dq2_weno_threads):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+    ptxas = {dq_weno_instance(fn): rec
+             for fn, rec in ptxas_resources(report).items()
+             if dq_weno_instance(fn) is not None}
     out = {}
     for order in WENO_ORDERS:
         for name in DQ_WENO_SYSTEMS:
             sys_id = tiled2d.DQ_SYSTEMS[name][2]
             for d, tname in enumerate(("float32", "float64")):
-                out[dq_weno_entry(order, name, tname)] = (
-                    lib.dq2_weno_smem_bytes(sys_id, order, d),
-                    lib.dq2_weno_blocks_per_sm(sys_id, order, d))
-    if any(b < 1 for _, b in out.values()):
+                rec = ptxas.get((name, order, tname), {})
+                out[dq_weno_entry(order, name, tname)] = {
+                    "threads": lib.dq2_weno_threads(sys_id, order, d),
+                    "smem_bytes": lib.dq2_weno_smem_bytes(sys_id, order, d),
+                    "blocks_per_sm": lib.dq2_weno_blocks_per_sm(sys_id,
+                                                                order, d),
+                    **{key: rec.get(key) for key in (
+                        "registers", "stack", "spill_stores",
+                        "spill_loads")}}
+    if any(r["blocks_per_sm"] < 1 for r in out.values()):
         fail(f"a dq2_weno instance takes no block on an SM: {out}")
+    # (a build that load_all found current has no report)
+    if report != "(cached build)" and any(
+            r["registers"] is None or r["stack"] is None
+            for r in out.values()):
+        fail(f"the ptxas report lacks a dq2_weno instance: {out}")
     return out
 
 
@@ -5835,15 +5819,21 @@ def timing_dq_weno(dev):
                 entry = dq_weno_entry(order, name, tname)
                 share = (b["bound_ms"] / dev_ms if dev_ms
                          else b["bound_ms"] / ms)
+                ceiling = ceiling_ms_dq_weno(name, order, tname, cells)
                 out[entry] = {"ms": ms, "device_ms": dev_ms,
                               "device_launches_profiled": dev_n,
                               "plain_ms": plain_ms, "shape": list(qbc.shape),
-                              "share_of_device": share, **b}
+                              "share_of_device": share,
+                              "ceiling_ms": ceiling,
+                              "issued_ops_per_cell":
+                                  issued_ops_per_cell_dq_weno(name, order,
+                                                              tname), **b}
                 print(f"  timing {entry} {tuple(qbc.shape)}: kernel "
                       f"{ms:.4f} ms (on the device {dev_ms} ms), plain "
                       f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                       f"({b['bound_by']}), share of the device time "
-                      f"{share:.4f}, library_ms null", flush=True)
+                      f"{share:.4f}, ceiling under the plain arithmetic "
+                      f"{ceiling:.4f} ms, library_ms null", flush=True)
                 del qbc
         torch.cuda.empty_cache()
     return out
@@ -6987,9 +6977,16 @@ def main():
           f"seconds of each source {_build.build_seconds}", flush=True)
     if any(b < 1 for v in bps_lib.values() for b in v):
         fail(f"a step1 instance takes no block on an SM: {bps_lib}")
-    dq_weno = dq_weno_resources(tiled2d)
-    print(f"    dq2_weno.cu's instances (shared memory B, resident blocks of "
-          f"288 threads per SM): {dq_weno}", flush=True)
+    dq_weno = dq_weno_resources(tiled2d, _build.build_report("dq2_weno"))
+    print("    dq2_weno.cu's instances (registers, stack frame B, spill "
+          "stores / loads B, threads and shared memory B a block, resident "
+          "blocks per SM):", flush=True)
+    for entry, r in dq_weno.items():
+        print(f"      {entry}: {r['registers']} registers, stack "
+              f"{r['stack']} B, spills {r['spill_stores']} / "
+              f"{r['spill_loads']} B, {r['threads']} threads, "
+              f"{r['smem_bytes']} B, {r['blocks_per_sm']} blocks",
+              flush=True)
     for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",
@@ -7584,8 +7581,8 @@ def main():
     # profiler's bookkeeping of a whole run takes minutes
     lap("prof_sod")
     prof_sod_sharp = profile_loops(
-        "sod sharpclaw path 800 f32 to t=0.01",
-        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.01))
+        "sod sharpclaw path 800 f32 to t=0.005",
+        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.005))
     lap("prof_sod_sharp")
     prof_ac = profile_loops(
         "acoustics path 1024^2 f32 to t=0.12",
@@ -7596,8 +7593,8 @@ def main():
         lambda: run_dam(dev, 500, np.float32, 0.5))
     lap("prof_dam")
     prof_cd = profile_loops(
-        "sod sharpclaw char_decomp=2 path 800 f32 to t=0.01",
-        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.01, 2))
+        "sod sharpclaw char_decomp=2 path 800 f32 to t=0.005",
+        lambda: run_sod(dev, 800, np.float32, "sharpclaw", 0.005, 2))
     # [4o]'s path, the device loop only (its host loop takes minutes under
     # the profiler): the busy share and weno5's share of the device time
     lap("prof_cd")
@@ -8123,8 +8120,8 @@ def main():
                     "bound_by": t["bound_by"], "library_ms": None,
                     "shape": t["shape"], "dtype": tname,
                     "share_of_device": t["share_of_device"],
-                    "smem_bytes": dq_weno[entry][0],
-                    "blocks_per_sm": dq_weno[entry][1],
+                    "ceiling_ms": t["ceiling_ms"],
+                    **dq_weno[entry],
                     "max_rel_err": max(dq_rel[entry].values()),
                     "max_rel_err_by_state": dq_rel[entry]})
     kernels = [record, dq_record, dq_ac_record, s3_record, aos_record,

@@ -2,10 +2,12 @@
 and the timers and timed cases that ``chip_smoke.py`` uses too.
 
     python -m pyclaw_tpu_torch.ops.time_kernels KERNEL VARIANT [VARIANT ...]
-        [--out FILE] [--sass]
+        [--out FILE] [--sass] [--only TEXT ...]
 
 KERNEL is ``step2_ctu``, ``dq2_weno5`` (the Euler 4-wave and 5-wave
-cases), ``step3_ctu``, ``step3_aos`` (the heterogeneous-acoustics and
+cases), ``dq2_weno`` (its 36 instances, each on its 1024^2 case and its
+ragged fallback case, :func:`dq_weno_case`; each build's CFL partials
+are compared too), ``step3_ctu``, ``step3_aos`` (the heterogeneous-acoustics and
 Burgers cases), ``step2_aos`` (the shallow-water, acoustics, Euler
 4-wave, Euler 5-wave and sw_aug_2D cases, those of the scalar and
 variable-coefficient systems, :data:`SCALAR_CASES`, and those of the two
@@ -37,16 +39,17 @@ another source of ROOT for the same case: for ``euler3d_capa``,
 system (system id 3, before ``step3_ctu.cu`` took the capacity path),
 called through its own entry.  All builds start together.
 
-For float32 and float64 (and each state) it prints each build's ptxas
-lines, each variant's output against the first variant's (max
-|difference| relative to max |output|, whether it is equal bit for bit,
-and the CFL), and its time: CUDA events over a run of
-calls, taken in turns (the variants in order, then in reverse, so two
+For float32 and float64 (and each state) it prints each build's
+registers, stack frame and spills per entry, each variant's output
+against the first variant's (max |difference| relative to max |output|,
+whether it is equal bit for bit, and the CFL), and its time: CUDA
+events over a run of calls, taken in turns (the variants in order, then in reverse, so two
 variants run old, new, new, old), and the device time per launch from
 torch.profiler.  With ``--sass`` it also prints, for each build, the
 static instruction count of each kernel entry and its most frequent
-opcodes (``cuobjdump -sass``).  Needs a card; writes the numbers as JSON
-to ``--out``.
+opcodes (``cuobjdump -sass``).  ``--only`` times only the states whose
+key (the type and the state's label) holds the text.  Needs a card;
+writes the numbers as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import functools
 import json
 import os
 import re
@@ -67,9 +71,9 @@ import torch
 
 from . import _build
 
-ITERS = {"step2_ctu": 200, "dq2_weno5": 100, "step3_ctu": 10,
-         "step3_aos": 20, "step2_aos": 200, "euler3d_capa": 10,
-         "step1": 200, "weno5": 200}
+ITERS = {"step2_ctu": 200, "dq2_weno5": 100, "dq2_weno": 20,
+         "step3_ctu": 10, "step3_aos": 20, "step2_aos": 200,
+         "euler3d_capa": 10, "step1": 200, "weno5": 200}
 # the source of each KERNEL that is not its own name
 SOURCE = {"euler3d_capa": "step3_ctu"}
 
@@ -502,6 +506,71 @@ def dq_euler5_case(n, dtype, dev):
         riemann.euler_5wave_2D
 
 
+def random_state(rng, nx, ny, gamma=1.4, pockets=0.0):
+    """A seeded admissible Euler state (positive density and pressure).
+    With ``pockets`` > 0, that share of the cells are low-density pockets
+    (rho = p = 0.05), where WENO's edge values go non-positive and the
+    positivity fallback runs."""
+    rho = 0.5 + rng.random((nx, ny))
+    u = 0.5 * rng.standard_normal((nx, ny))
+    v = 0.5 * rng.standard_normal((nx, ny))
+    p = 0.5 + rng.random((nx, ny))
+    if pockets > 0.0:
+        pocket = rng.random((nx, ny)) < pockets
+        rho = np.where(pocket, 0.05, rho)
+        p = np.where(pocket, 0.05, p)
+    return np.stack([rho, rho * u, rho * v,
+                     p / (gamma - 1.0) + 0.5 * rho * (u * u + v * v)])
+
+
+WENO_ORDERS = (7, 9, 11, 13, 15, 17)     # csrc/dq2_weno.cu's
+# its systems (ops/tiled2d.py:DQ_SYSTEMS)
+DQ_WENO_SYSTEMS = ("euler_4wave_2D", "acoustics_2D", "euler_5wave_2D")
+# acoustics_2D as examples/acoustics_2d.py sets it up
+DQ_WENO_ACOUSTICS = {"rho": 1.0, "bulk": 4.0, "zz": 2.0, "cc": 2.0}
+
+
+def dq_weno_rp(name):
+    from ..riemann import acoustics, euler
+    return {"euler_4wave_2D": euler.euler_4wave_2D,
+            "euler_5wave_2D": euler.euler_5wave_2D,
+            "acoustics_2D": acoustics.acoustics_2D}[name]
+
+
+def dq_weno_params(name):
+    return DQ_WENO_ACOUSTICS if name == "acoustics_2D" else {"gamma": 1.4}
+
+
+def dq_weno_state(name, nx, ny, seed, pockets=0.0):
+    """A seeded state of system ``name`` (nx, ny cells): an admissible
+    Euler state (with ``pockets``, low-density cells that take the
+    positivity fallback), the 5-wave system's with a tracer, or a random
+    acoustics state."""
+    rng = np.random.default_rng(seed)
+    if name == "acoustics_2D":
+        return rng.standard_normal((3, nx, ny))
+    q = random_state(rng, nx, ny, pockets=pockets)
+    if name == "euler_5wave_2D":
+        q = np.concatenate([q, (q[0] * rng.random((nx, ny)))[None]])
+    return q
+
+
+def dq_weno_case(name, order, tname, dev, big=True):
+    """(qbc, dt, dx, dy) of one dq of an instance of ``csrc/dq2_weno.cu``
+    (chip_smoke.py [4y] and [6]): at 1024^2 (Euler 5-wave 2048x512, as
+    [4q]) on a seeded admissible state, or at 250x171 (ragged) on a state
+    whose Euler edges take the positivity fallback."""
+    k = (order + 1) // 2
+    nx, ny = (((2048, 512) if name == "euler_5wave_2D" else (1024, 1024))
+              if big else (250, 171))
+    q = dq_weno_state(name, nx, ny, seed=order * 7 + len(name) + big,
+                      pockets=0.0 if big else 0.1)
+    dtype = getattr(torch, tname)
+    qbc = padded(q, dtype, dev, num_ghost=k).contiguous()
+    dt = float(np.dtype(tname).type(0.3 / max(nx, ny)))
+    return qbc, dt, 1.0 / nx, 1.0 / ny
+
+
 def sod_state(n):
     """q of examples.euler_1d_shocktube at n cells (a CPU array)."""
     from ..examples import euler_1d_shocktube as ex
@@ -711,6 +780,63 @@ def _dq_call(dtype, dev, n=1024):
     return makes
 
 
+def dq_weno_partials(lib, qbc, dt, dx, dy, params, order, rp):
+    """The CFL partial of each block of one launch of a build of
+    ``csrc/dq2_weno.cu`` (``lib`` bound by ``tiled2d.bind_dq_weno_lib``):
+    the launch ``tiled2d.dq_rows`` makes, without its max over the
+    partials."""
+    from . import tiled2d
+    k = (order + 1) // 2
+    _, nxg, nyg = qbc.shape
+    dq = torch.empty((rp.num_eqn, nxg - 2 * k, nyg - 2 * k), dtype=qbc.dtype,
+                     device=qbc.device)
+    cflb = torch.empty((lib.dq2_weno_blocks(nxg, nyg, order),),
+                       dtype=qbc.dtype, device=qbc.device)
+    prefix = tiled2d.dq_weno_entry(rp.name, order)
+    fn = getattr(lib, prefix + ("_f64" if qbc.dtype == torch.float64
+                                else "_f32"))
+    dt_ptr, _dt = _build.dt_arg(dt, qbc)
+    rc = fn(qbc.data_ptr(), dq.data_ptr(), cflb.data_ptr(), nxg, nyg, dt_ptr,
+            float(dx), float(dy), *tiled2d.dq_system_params(rp, params),
+            torch.cuda.current_stream(qbc.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{prefix} launch failed: cudaError_t {rc}")
+    return cflb
+
+
+def _dq_weno_call(dtype, dev):
+    """Each instance of ``csrc/dq2_weno.cu`` of ``dtype`` on its 1024^2
+    case and on its ragged 250x171 case (:func:`dq_weno_case`), timed
+    through ``tiled2d.dq_rows``; each call also gives its CFL partials
+    (``.partials``, :func:`dq_weno_partials`) for the bit check."""
+    from . import tiled2d
+    tname = str(dtype).split(".")[1]
+    makes = {}
+    for order in WENO_ORDERS:
+        for name in DQ_WENO_SYSTEMS:
+            for big in (True, False):
+                # the state is made at the first variant's call (so that
+                # --only makes none of the others)
+                case = functools.cache(functools.partial(
+                    dq_weno_case, name, order, tname, dev, big))
+
+                def make(lib, source=None, case=case, order=order,
+                         name=name):
+                    lib = tiled2d.bind_dq_weno_lib(lib)
+                    rp, params = dq_weno_rp(name), dq_weno_params(name)
+                    qbc, dt, dx, dy = case()
+                    k = (order + 1) // 2
+
+                    def call():
+                        return tiled2d.dq_rows(qbc, dt, dx, dy, params,
+                                               order, k, lib=lib, rp=rp)
+                    call.partials = lambda: dq_weno_partials(
+                        lib, qbc, dt, dx, dy, params, order, rp)
+                    return call
+                makes[f"{order} {name}" + ("" if big else " ragged")] = make
+    return makes
+
+
 def _step3_aos_call(dtype, dev, n=192):
     from . import tiled2d
     makes = {}
@@ -869,9 +995,12 @@ def _build_variants(variants):
         # the builds run together: a build done before an earlier-listed
         # one is read when that one is
         print(f"  [{label}] built by {time.perf_counter() - start:.1f} s")
-        for line in (stdout + stderr).splitlines():
-            if any(k in line for k in ("registers", "spill")):
-                print(f"  [{label}] {line.strip()}")
+        for fn, rec in ptxas_resources(stdout + stderr).items():
+            if rec["registers"] is not None:
+                print(f"  [{label}] {fn}: {rec['registers']} registers, "
+                      f"stack {rec.get('stack')} B, spill stores "
+                      f"{rec.get('spill_stores')} B, loads "
+                      f"{rec.get('spill_loads')} B")
         libs[label] = ctypes.CDLL(out)
     return libs
 
@@ -906,7 +1035,54 @@ def parse_sass(text, top=12):
     return out
 
 
-def run(kernel, variants, sass=False):
+def ptxas_resources(text):
+    """{function: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from the ``-Xptxas -v`` report of a build: each entry function's
+    registers (None for a function that is not an entry) and each
+    function's stack frame and spill bytes."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {"registers": None})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props:
+            rec = out.setdefault(props, {"registers": None})
+            rec.update(zip(("stack", "spill_stores", "spill_loads"),
+                           map(int, m.groups())))
+            props = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+# the system structs of csrc/dq2_systems.cuh, by their record's name
+DQ_WENO_STRUCTS = {"Euler4": "euler_4wave_2D", "Acoustics": "acoustics_2D",
+                   "Euler5": "euler_5wave_2D"}
+
+
+def dq_weno_instance(function):
+    """(system name, WENO order, type name) of the mangled name of an
+    instance of ``csrc/dq2_weno.cu``'s kernel, or None for another
+    function."""
+    m = re.search(r"dq2_weno_kernelI\w*?\d(Euler4|Euler5|Acoustics)ELi(\d+)E"
+                  r"([fd])E", function)
+    if m is None:
+        return None
+    return (DQ_WENO_STRUCTS[m.group(1)], 2 * int(m.group(2)) - 1,
+            "float32" if m.group(3) == "f" else "float64")
+
+
+def run(kernel, variants, sass=False, only=None):
     if not torch.cuda.is_available():
         raise RuntimeError("time_kernels needs a CUDA card")
     dev = torch.device("cuda", 0)
@@ -930,7 +1106,7 @@ def run(kernel, variants, sass=False):
                       f"instructions; {ops}")
     order = labels + labels[::-1]
     case = {"step2_ctu": _step2_ctu_call, "dq2_weno5": _dq_call,
-            "step3_ctu": _step3_ctu_call,
+            "dq2_weno": _dq_weno_call, "step3_ctu": _step3_ctu_call,
             "step3_aos": _step3_aos_call,
             "step2_aos": _step2_aos_call,
             "euler3d_capa": _euler3d_capa_call,
@@ -944,6 +1120,8 @@ def run(kernel, variants, sass=False):
             makes = {"": makes}
         for state, make in makes.items():
             key = f"{tname} {state}" if state else tname
+            if only and not any(s in key for s in only):
+                continue
             result["types"][key] = _time_state(
                 kernel, key, make, libs, sources, labels, order)
         del makes
@@ -958,7 +1136,7 @@ def _time_state(kernel, key, make, libs, sources, labels, order):
     calls = {label: make(libs[label], sources[label]) for label in labels}
     labels = [label for label in labels if calls[label] is not None]
     order = [label for label in order if calls[label] is not None]
-    ref_out, ref_cfl = None, None
+    ref_out, ref_cfl, ref_parts = None, None, None
     per = {}
     for label in labels:
         out, cfl = _outputs(calls[label]())
@@ -968,6 +1146,13 @@ def _time_state(kernel, key, make, libs, sources, labels, order):
         per[label] = {"rel_diff_vs_first": diff,
                       "equal": bool(torch.equal(out, ref_out)), "cfl": cfl,
                       "cfl_equal": cfl == ref_cfl, "events_ms": []}
+        partials = getattr(calls[label], "partials", None)
+        if partials is not None:
+            # every block's CFL partial, bit for bit
+            parts = partials()
+            ref_parts = parts.clone() if ref_parts is None else ref_parts
+            per[label]["partials_equal"] = bool(torch.equal(parts,
+                                                            ref_parts))
     for label in order:
         per[label]["events_ms"].append(
             events_ms(calls[label], ITERS[kernel], warm=3))
@@ -981,8 +1166,9 @@ def _time_state(kernel, key, make, libs, sources, labels, order):
               f"{per[label]['events_ms']}, device ms {dev_ms} "
               f"({dev_n} launches), rel diff vs {labels[0]} "
               f"{per[label]['rel_diff_vs_first']:.3e}, equal "
-              f"{per[label]['equal']}, cfl {per[label]['cfl']!r}",
-              flush=True)
+              f"{per[label]['equal']}, cfl {per[label]['cfl']!r}"
+              + (f", partials equal {per[label]['partials_equal']}"
+                 if "partials_equal" in per[label] else ""), flush=True)
     return per
 
 
@@ -1002,8 +1188,11 @@ def main(argv=None):
     ap.add_argument("variants", nargs="+", type=_parse_variant)
     ap.add_argument("--out")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--only", action="append",
+                    help="time only the states whose key (type and state) "
+                         "holds this text; may be given again")
     args = ap.parse_args(argv)
-    result = run(args.kernel, args.variants, args.sass)
+    result = run(args.kernel, args.variants, args.sass, args.only)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -21,7 +21,8 @@ warms the path up with a short run to t = 0.01, then times
 of ``examples.euler_3d.add_capacity`` at 192^3 to t = 0.2 (``step3_ctu``;
 ``step3_aos`` in checkouts before it moved there, so both wrappers'
 launches are counted), the SharpClaw quadrants at 1024^2 to t = 0.8
-(WENO5, SSP104: ``dq2_weno5``), the Sod tube at 800 cells to t = 0.2
+(WENO5, SSP104: ``dq2_weno5``; at WENO order 7: ``dq2_weno``), the Sod
+tube at 800 cells to t = 0.2
 on the classic solver (``step1``) and on SharpClaw (``weno5``), and the
 heterogeneous acoustics at 192^3 to t = 0.8 (``step3_aos``).  It
 prints the accepted and rejected steps, the kernel's launches as its
@@ -43,9 +44,10 @@ import os
 import subprocess
 import sys
 
-# (example module, setup keywords, final time, cells, the wrappers whose
-# launches count (module.function of ops), a function of the module
-# applied to the state or "") per path
+# (example module, setup keywords (under "solver", attributes set on the
+# solver after setup), final time, cells, the wrappers whose launches
+# count (module.function of ops), a function of the module applied to the
+# state or "") per path
 PATHS = {
     "quadrants": ("euler_2d_quadrants", {"mx": 1024, "my": 1024}, 0.8,
                   1024 ** 2, "tiled2d.step2_rows", ""),
@@ -59,6 +61,10 @@ PATHS = {
     "sharpclaw": ("euler_2d_quadrants", {"mx": 1024, "my": 1024,
                                          "solver_type": "sharpclaw"}, 0.8,
                   1024 ** 2, "tiled2d.dq_rows", ""),
+    "sharpclaw_weno7": ("euler_2d_quadrants",
+                        {"mx": 1024, "my": 1024, "solver_type": "sharpclaw",
+                         "solver": {"weno_order": 7}}, 0.8, 1024 ** 2,
+                        "tiled2d.dq_weno_launches", ""),
     "sod": ("euler_1d_shocktube", {"nx": 800, "solver_type": "classic"},
             0.2, 800, "sweep.step1", ""),
     "sod_sharpclaw": ("euler_1d_shocktube", {"nx": 800,
@@ -80,9 +86,12 @@ if host == "host":
     Solver.traced_evolve = False
 ex = importlib.import_module("pyclaw_tpu_torch.examples." + module)
 kw = json.loads(kw)
+solver_attrs = kw.pop("solver", {})
 
 def make(t):
     claw = ex.setup(outdir=None, dtype=np.float32, device=device, **kw)
+    for name, value in solver_attrs.items():
+        setattr(claw.solver, name, value)
     if post:
         getattr(ex, post)(claw.solution.state)
     claw.tfinal = t

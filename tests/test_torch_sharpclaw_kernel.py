@@ -6,8 +6,10 @@ compiled for the host, against their plain PyTorch version
 ``acoustics_2D``'s SoA hooks) and the Euler 5-wave instance with its
 passive tracer (``dq2_weno5_euler5_host_*``, the plain version with
 ``euler_5wave_2D``'s SoA hooks); and the same three systems at WENO
-orders 7 and 17 (``dq2_weno<order>[_acoustics|_euler5]_host_*``), the
-kernel that takes the stencil half-width K as a template parameter.
+orders 7, 9, 11, 15 and 17 (``dq2_weno<order>[_acoustics|_euler5]_host_*``),
+the kernel that takes the stencil half-width K as a template parameter,
+whose dq and CFL partials are also held bit for bit to its first design's
+(``WENO_DIGESTS``).
 
 Without ``__CUDACC__`` the source runs its phases block by block on the
 CPU, which checks the kernel's index algebra, 16x16 tiling, ragged-edge
@@ -18,6 +20,7 @@ tolerance.
 """
 
 import ctypes
+import hashlib
 import shutil
 
 import numpy as np
@@ -243,7 +246,7 @@ def host_weno_kernel(tmp_path_factory):
     lib = _build.build_host_emulation(
         "dq2_weno", str(tmp_path_factory.mktemp("dq2_weno_host")))
     for name, (_, argtypes, _) in tiled2d.DQ_SYSTEMS.items():
-        for order in (7, 9, 17):
+        for order in (7, 9, 11, 15, 17):
             for suffix in ("_host_f32", "_host_f64"):
                 fn = getattr(lib, tiled2d.dq_weno_entry(name, order) + suffix)
                 fn.argtypes = argtypes
@@ -273,7 +276,8 @@ def _weno_state(name, seed, nx, ny, k, dtype):
 
 def _check_weno(lib, name, order, qbc, tol):
     """The host emulation of ``name``'s instance at ``order`` against
-    the plain version: (relative max error of dq, the CFL of both)."""
+    the plain version; returns the CFL and the SHA-256 of the emulation's
+    dq and CFL partials (bytes)."""
     rp = WENO_RPS[name]
     params = ACOUSTICS if name == "acoustics_2D" else PARAMS
     k = (order + 1) // 2
@@ -296,59 +300,141 @@ def _check_weno(lib, name, order, qbc, tol):
     d_p = d_p.numpy()
     assert np.abs(out - d_p).max() / np.abs(d_p).max() <= tol
     assert abs(cfl_blocks.max() - float(c_p)) <= tol * float(c_p)
-    return float(c_p)
+    return float(c_p), hashlib.sha256(out.tobytes()
+                                      + cfl_blocks.tobytes()).hexdigest()
+
+
+# The SHA-256 of dq and the CFL partials of csrc/dq2_weno.cu's host
+# emulation on the states of test_weno_instances_on_host_match_plain, as
+# the first design of the kernel (one thread a cell, both directions'
+# buffers at once) computed them: a later design keeps its bits.
+WENO_DIGESTS = {
+    (7, 19, 37, "acoustics_2D", "float64"):
+        "ea4814a4598ee517d8069c4b45a63210848f14d569bda81fa35cc317a4b29be4",
+    (7, 19, 37, "acoustics_2D", "float32"):
+        "c6d62b3a18e7efc50f9cba5410c308b5fe17dbaef0ff2f1307d575e7520e5c18",
+    (7, 19, 37, "euler_4wave_2D", "float64"):
+        "6a67cf898caba16dfb0f3199dac86c681d34ada55ebe0e07c0a67b00edcc361e",
+    (7, 19, 37, "euler_4wave_2D", "float32"):
+        "eabffa34d0a1938fb6343cb8e448948d41f88f3d93807a544899a36b8e90ce36",
+    (7, 19, 37, "euler_5wave_2D", "float64"):
+        "186f1aae4a8394f869714b134761c138d0bbe7f966f04134d39c7a89d627c314",
+    (7, 19, 37, "euler_5wave_2D", "float32"):
+        "23a2f9a2ee4ed7a61a0a0b1500910391fef44e29210e946716c6ccad7bc69df4",
+    (17, 17, 5, "acoustics_2D", "float64"):
+        "81053ab72d8a4fe52f6a6471d63a2c163c87c830628fab33560450e19f238bc6",
+    (17, 17, 5, "acoustics_2D", "float32"):
+        "b7e707535a81a125496c8e7520fb97aa661517b4d019b42a34977972ae742207",
+    (17, 17, 5, "euler_4wave_2D", "float64"):
+        "30ef37573604ba8e3637df65a7c0bd0c31fcbeb22face050b841fbc00be101ed",
+    (17, 17, 5, "euler_4wave_2D", "float32"):
+        "8a0a5663e4c19c9a78b641f585f66c665c885443f5ceacfa8943494b5d117a79",
+    (17, 17, 5, "euler_5wave_2D", "float64"):
+        "cca40a28bb8905163539cb93d5979557465d70046825b7a2e970efea425a17fa",
+    (17, 17, 5, "euler_5wave_2D", "float32"):
+        "d86832933cb75bfe3b9cf26d4e60c81968fd96878ea1954947c317e800cbf9c7",
+    (11, 13, 11, "acoustics_2D", "float64"):
+        "cfc995ecad8897117849d7802a57c1cc837be4445b386e2e5865e5009752b394",
+    (11, 13, 11, "acoustics_2D", "float32"):
+        "00d8eb7e0ebcb4de2060186630096d0c334affb2e754ce3a936b8300d04acda0",
+    (11, 13, 11, "euler_4wave_2D", "float64"):
+        "b7dfa579e66eae6ce65939227910556c09411483eeba55333b441ef6979444e8",
+    (11, 13, 11, "euler_4wave_2D", "float32"):
+        "329b012b6d7c60496e39d03fca99a8852d60cc07f36c8bcd627658815c37084b",
+    (11, 13, 11, "euler_5wave_2D", "float64"):
+        "a022e8d77c1bc9d468b6447022cfcd20bc0a07d15e1f7457ba550234400accca",
+    (11, 13, 11, "euler_5wave_2D", "float32"):
+        "75d387c539de5038fa5b28f29c9ab413f0fd58d844a207e5ac6005cac920208f",
+    (15, 9, 14, "acoustics_2D", "float64"):
+        "f621cda665b95eca8aad2f3ef29710aeff5cdbf42febe502772caa52fc4b3181",
+    (15, 9, 14, "acoustics_2D", "float32"):
+        "ec167dd6b8dc52babe4f1b22de3daba1ba5e89908fe04b907c665c6df2afd0da",
+    (15, 9, 14, "euler_4wave_2D", "float64"):
+        "b383ffe7630dadbe7b683452c8e4649d2b1f8d27da99730294cff3c4c7fdf879",
+    (15, 9, 14, "euler_4wave_2D", "float32"):
+        "b6bfb27687e0030564d84bf450ff878d79b8a31013bf9ba63add7f48821e24d5",
+    (15, 9, 14, "euler_5wave_2D", "float64"):
+        "093c64c7a8fa0d85462b07ccf12574a57cac94c5103614e3e6360caa1709357b",
+    (15, 9, 14, "euler_5wave_2D", "float32"):
+        "21589349c9ba36036aab7707036f309a4425e3844b9c94d359d1375c2932837d"}
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
                                        (np.float32, 1e-5)])
 @pytest.mark.parametrize("name", sorted(WENO_RPS))
-@pytest.mark.parametrize("order,nx,ny", [(7, 19, 37), (17, 17, 5)])
+@pytest.mark.parametrize("order,nx,ny", [(7, 19, 37), (17, 17, 5),
+                                         (11, 13, 11), (15, 9, 14)])
 def test_weno_instances_on_host_match_plain(host_weno_kernel, order, nx, ny,
                                             name, dtype, tol):
-    """dq2_weno.cu's instances at orders 7 and 17 (K = 4, 9), each system,
-    both types, on ragged grids (partial tiles along both axes; at 17 x 5
-    the grid is less than a tile wide), the Euler states taking the
-    positivity fallback."""
+    """dq2_weno.cu's instances at orders 7, 11, 15 and 17 (K = 4, 6, 8,
+    9), each system, both types, on ragged grids (partial tiles along
+    both axes; at 17 x 5 the grid is less than a tile wide; at 13 x 11
+    and 9 x 14 one block holds the whole grid, so its ghost bands cover
+    both sides in each direction), the Euler states taking the positivity
+    fallback; dq and the CFL partials bit for bit those of the kernel's
+    first design (WENO_DIGESTS)."""
     k = (order + 1) // 2
     qbc = _weno_state(name, order * nx + ny, nx, ny, k, dtype)
     if name != "acoustics_2D":
         assert tsoa.fallback_count(torch.from_numpy(qbc), PARAMS,
                                    WENO_RPS[name].positivity, order) > 0
-    _check_weno(host_weno_kernel, name, order, qbc, tol)
+    _, digest = _check_weno(host_weno_kernel, name, order, qbc, tol)
+    assert digest == WENO_DIGESTS[(order, nx, ny, name,
+                                   np.dtype(dtype).name)]
 
 
 @pytest.mark.parametrize("where", ["x-lo", "x-hi", "y-lo", "y-hi"])
-def test_weno_instance_cfl_covers_the_ghost_band(host_weno_kernel, where):
+@pytest.mark.parametrize("nx,ny,i0,j0", [(37, 21, 20, 10),
+                                         (13, 11, 10, 8)])
+def test_weno_instance_cfl_covers_the_ghost_band(host_weno_kernel, where,
+                                                 nx, ny, i0, j0):
     """Order 9 (a 5-cell ghost band): a fast state in one ghost band, at
-    its outermost line, sets the CFL; the blocks at the grid's ends must
-    solve those interfaces (grid 37 x 21: two tiles per axis)."""
-    nx, ny, k = 37, 21, 5
+    its outermost line (row i0 of an x-band, column j0 of a y-band), sets
+    the CFL; the blocks at the grid's ends must solve those interfaces
+    (grid 37 x 21: two tiles per axis; 13 x 11: one block, which holds
+    both sides of each direction's band)."""
+    k = 5
     qbc = euler_state(9, (nx + 2 * k, ny + 2 * k))
-    i, j = {"x-lo": (20, 0), "x-hi": (20, ny + 2 * k - 1),
-            "y-lo": (0, 10), "y-hi": (nx + 2 * k - 1, 10)}[where]
+    i, j = {"x-lo": (i0, 0), "x-hi": (i0, ny + 2 * k - 1),
+            "y-lo": (0, j0), "y-hi": (nx + 2 * k - 1, j0)}[where]
     normal = 1 if where.startswith("x") else 2      # momentum along the band
     qbc[normal, i, j] = 40.0 * qbc[0, i, j]
     qbc[3, i, j] += 0.5 * qbc[normal, i, j] ** 2 / qbc[0, i, j]
     qbc = np.ascontiguousarray(qbc)
     assert _check_weno(host_weno_kernel, "euler_4wave_2D", 9, qbc,
-                       1e-12) > 2.0
+                       1e-12)[0] > 2.0
 
 
 def test_weno_instances_shared_memory(host_weno_kernel):
-    """Each instance's shared memory: N (16 + 2K)^2 + 4N 288 + 4N 272 +
-    256 N + 288 values (Euler at K = 9: 59.6 KB float32, 119 KB float64;
-    the Euler 5-wave system at K = 9 in float64 148 KB), within the card's
-    227 KB a block."""
+    """Each instance's shared memory: N (16 + 2K)^2 + ND 2N 288 + ND 2N
+    272 + 256 N + NT values, with ND = 1 (one direction's buffers at a
+    time) or 2 (both directions', float32 only, where four blocks still
+    fit the SM's 228 KB, 1 KB reserved a block) and NT the instance's
+    threads (a multiple of 32); every float64 instance fits two blocks
+    (Euler at K = 9: 42.0 KB float32, 83.1 KB float64; the Euler 5-wave
+    system at K = 9 in float64 103.3 KB)."""
+    for fn in ("dq2_weno_smem_bytes", "dq2_weno_threads"):
+        getattr(host_weno_kernel, fn).argtypes = [ctypes.c_int] * 3
+        getattr(host_weno_kernel, fn).restype = ctypes.c_int
     for name, (_, _, sys_id) in tiled2d.DQ_SYSTEMS.items():
         n = WENO_RPS[name].num_eqn
         for order in (7, 9, 11, 13, 15, 17):
             k = (order + 1) // 2
-            elems = n * (16 + 2 * k) ** 2 + 4 * n * 288 + 4 * n * 272 \
-                + 256 * n + 288
             for is_double, size in ((0, 4), (1, 8)):
+                nt = host_weno_kernel.dq2_weno_threads(sys_id, order,
+                                                       is_double)
+                assert nt % 32 == 0 and 256 <= nt <= 384
                 got = host_weno_kernel.dq2_weno_smem_bytes(sys_id, order,
                                                            is_double)
-                assert got == elems * size <= 232448
-    assert host_weno_kernel.dq2_weno_smem_bytes(0, 17, 0) == 59584
-    assert host_weno_kernel.dq2_weno_smem_bytes(2, 17, 1) == 148384
+                elems = {nd: n * (16 + 2 * k) ** 2 + nd * 2 * n * 288
+                         + nd * 2 * n * 272 + 256 * n + nt
+                         for nd in (1, 2)}
+                assert got in (elems[1] * size, elems[2] * size)
+                if got == elems[2] * size:
+                    assert not is_double and 4 * (got + 1024) <= 233472
+                assert got <= 233472 // 2 - 1024
+    assert host_weno_kernel.dq2_weno_smem_bytes(0, 17, 0) == 42048
+    assert host_weno_kernel.dq2_weno_smem_bytes(0, 17, 1) == 83072
+    assert host_weno_kernel.dq2_weno_smem_bytes(2, 17, 1) == 103328
     assert host_weno_kernel.dq2_weno_smem_bytes(0, 19, 0) == -1
+    assert host_weno_kernel.dq2_weno_threads(0, 19, 0) == -1

@@ -333,6 +333,8 @@ def test_parse_sass_counts_opcodes_per_entry():
     ("shallow", {"mx": 12, "my": 12}),
     ("euler3d_capa", {"mx": 6, "my": 6, "mz": 6}),
     ("sharpclaw", {"mx": 12, "my": 12, "solver_type": "sharpclaw"}),
+    ("sharpclaw_weno7", {"mx": 12, "my": 12, "solver_type": "sharpclaw",
+                         "solver": {"weno_order": 7}}),
     ("sod", {"nx": 40, "solver_type": "classic"}),
     ("sod_sharpclaw", {"nx": 40, "solver_type": "sharpclaw"}),
     ("het", {"mx": 6, "my": 6, "mz": 6})])
@@ -354,3 +356,65 @@ def test_time_paths_runs_each_path_in_its_own_process(path, size):
     assert loop["attempts"] == (loop["after_end"] + rec["accepted"]
                                 + rec["rejected"])
 
+
+# A ptxas -v report of two instances of csrc/dq2_weno.cu and a function
+# that is not an entry
+PTXAS = """
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__a29add1a_11_dq2_weno_cu_963421ad15dq2_weno_kernelINS_6Euler5ELi9EdEEvNS_4ArgsIT_T1_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__a29add1a_11_dq2_weno_cu_963421ad15dq2_weno_kernelINS_6Euler5ELi9EdEEvNS_4ArgsIT_T1_EE
+    64 bytes stack frame, 208 bytes spill stores, 268 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 64 bytes cumulative stack size, 32 bytes smem
+ptxas info    : Function properties for _ZN44_GLOBAL__N__a29add1a_11_dq2_weno_cu_963421ad10weno_edgesILi9EdEENS_5EdgesIT0_EEPKS2_i
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__a29add1a_11_dq2_weno_cu_963421ad15dq2_weno_kernelINS_9AcousticsELi4EfEEvNS_4ArgsIT_T1_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__a29add1a_11_dq2_weno_cu_963421ad15dq2_weno_kernelINS_9AcousticsELi4EfEEvNS_4ArgsIT_T1_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 47 registers, used 1 barriers, 16 bytes smem
+"""
+
+
+@pytest.mark.parametrize("instance,resources", [
+    (("euler_5wave_2D", 17, "float64"),
+     {"registers": 96, "stack": 64, "spill_stores": 208,
+      "spill_loads": 268}),
+    (("acoustics_2D", 7, "float32"),
+     {"registers": 47, "stack": 0, "spill_stores": 0, "spill_loads": 0}),
+    (None, {"registers": None, "stack": 0, "spill_stores": 8,
+            "spill_loads": 8})])
+def test_ptxas_resources_of_dq_weno_instances(instance, resources):
+    """Each function of a ptxas report with its registers (entries only),
+    stack frame and spill bytes; the instance of csrc/dq2_weno.cu that a
+    mangled entry name is (None for another function)."""
+    found = {tk.dq_weno_instance(fn): rec
+             for fn, rec in tk.ptxas_resources(PTXAS).items()}
+    assert found[instance] == resources
+
+
+@pytest.mark.parametrize("order", tk.WENO_ORDERS)
+@pytest.mark.parametrize("name", tk.DQ_WENO_SYSTEMS)
+def test_dq_weno_cases_are_the_chip_smoke_cases(order, name):
+    """time_kernels dq2_weno times each instance on chip_smoke.py's [4y]
+    cases (dq_weno_case): its 1024^2 (Euler 5-wave 2048x512) state and the
+    ragged 250x171 one, on which the Euler systems take the positivity
+    fallback; the states are made only when a variant is timed on
+    them."""
+    makes = tk._dq_weno_call(torch.float64, "cpu")
+    assert len(makes) == 2 * len(tk.WENO_ORDERS) * len(tk.DQ_WENO_SYSTEMS)
+    assert {f"{order} {name}", f"{order} {name} ragged"} <= set(makes)
+    k = (order + 1) // 2
+    rp = tk.dq_weno_rp(name)
+    qbc, dt, dx, dy = tk.dq_weno_case(name, order, "float64", "cpu",
+                                      big=False)
+    assert qbc.shape == (rp.num_eqn, 250 + 2 * k, 171 + 2 * k)
+    assert (dt, dx, dy) == (0.3 / 250, 1.0 / 250, 1.0 / 171)
+    if rp.positivity is not None:
+        from pyclaw_tpu_torch.sharpclaw import soa
+        assert soa.fallback_count(qbc, tk.dq_weno_params(name),
+                                  rp.positivity, order) > 0
+
+
+def test_dq_weno_kernel_is_a_choice():
+    """The kernel dq2_weno and --only parse; a run needs a card."""
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        tk.main(["dq2_weno", "new=.", "--only", "7 euler_4wave_2D"])
