@@ -412,7 +412,7 @@ from pyclaw_tpu_torch.ops.time_kernels import (
     swirl_cell_velocities, NO_TRANS_CASES, step2_aos_no_trans_case,
     LIBRARY_1D, LIBRARY_OPTS, library_case, library_state, random_state,
     WENO_ORDERS, DQ_WENO_SYSTEMS, dq_weno_rp, dq_weno_params, dq_weno_case,
-    ptxas_resources, dq_weno_instance)
+    ptxas_resources, dq_weno_instance, step2_aos_instance)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -5300,6 +5300,48 @@ def dq_weno_resources(tiled2d, report):
     return out
 
 
+def step2_aos_euler_resources(lib_aos, report):
+    """{(system, type name): {"threads", "smem_bytes", "launch_bound",
+    "blocks_per_sm", "registers", "stack", "spill_stores",
+    "spill_loads"}} of csrc/step2_aos.cu's Euler instances without
+    capacity or f-waves (those of the paths) on this card: threads, shared
+    memory a block, the launch bound and the resident blocks per SM (the
+    entries of the build), registers, stack frame and spill bytes
+    (``report``, the build's ptxas report); and the worst stack and spill
+    bytes of all their capacity and f-wave variants under the key
+    "variants".  Fails when one takes no block or the report lacks one."""
+    from pyclaw_tpu_torch.ops import tiled2d
+    ptxas = {step2_aos_instance(fn): rec
+             for fn, rec in ptxas_resources(report).items()
+             if step2_aos_instance(fn) is not None}
+    out = {}
+    for name in ("euler_4wave_2D", "euler_5wave_2D"):
+        sid = tiled2d.AOS_SYSTEMS[name][0]
+        for d, tname in enumerate(("float32", "float64")):
+            rec = ptxas.get((name, tname, False, False), {})
+            out[(name, tname)] = {
+                "threads": lib_aos.step2_aos_threads(),
+                "smem_bytes": lib_aos.step2_aos_smem_bytes(sid, 0, d),
+                "launch_bound": lib_aos.step2_aos_system_blocks_per_sm(
+                    sid, d),
+                "blocks_per_sm": lib_aos.step2_aos_system_resident_blocks(
+                    sid, d),
+                **{key: rec.get(key) for key in (
+                    "registers", "stack", "spill_stores", "spill_loads")}}
+    if any(r["blocks_per_sm"] < 1 for r in out.values()):
+        fail(f"a step2_aos Euler instance takes no block on an SM: {out}")
+    # (a build that load_all found current has no report)
+    if report != "(cached build)":
+        if len(ptxas) != 16 or any(r["registers"] is None
+                                   for r in out.values()):
+            fail(f"the ptxas report lacks a step2_aos Euler instance: "
+                 f"{sorted(ptxas)}")
+        out["variants"] = {key: max(r.get(key) or 0 for r in ptxas.values())
+                           for key in ("stack", "spill_stores",
+                                       "spill_loads")}
+    return out
+
+
 def compare_dq_weno(dev):
     """[4y]: one dq of each of dq2_weno.cu's 36 instances against
     sharpclaw/soa.py:dq_2d_soa at its order on the card, at 1024^2 (Euler
@@ -6919,8 +6961,9 @@ def main():
           f"{dq_lib.dq2_weno5_blocks_per_sm(1)} (f64), acoustics "
           f"{dq_lib.dq2_weno5_acoustics_blocks_per_sm(0)} (f32), "
           f"{dq_lib.dq2_weno5_acoustics_blocks_per_sm(1)} (f64); step2_aos "
-          f"{lib_aos.step2_aos_blocks_per_sm(0)} blocks of 256 threads "
-          f"(f32), {lib_aos.step2_aos_blocks_per_sm(1)} (f64); step3_ctu "
+          f"{lib_aos.step2_aos_system_blocks_per_sm(0, 0)} blocks of 256 "
+          f"threads (f32), {lib_aos.step2_aos_system_blocks_per_sm(0, 1)} "
+          f"(f64); step3_ctu "
           f"one block (its shared memory) of "
           f"{lib3.step3_ctu_threads(0, 0, 0)} threads (f32), "
           f"{lib3.step3_ctu_threads(0, 0, 1)} (f64), with capacity "
@@ -6937,11 +6980,25 @@ def main():
                        for d in (0, 1) for c in (0, 1)]
                 for name, sid in (("Euler 4-wave", 3), ("Euler 5-wave", 4),
                                   ("sw_aug_2D", 5))}
+    aos_euler = step2_aos_euler_resources(lib_aos,
+                                          _build.build_report("step2_aos"))
+    print("    step2_aos.cu's Euler instances (registers, stack frame B, "
+          "spill stores / loads B, threads and shared memory B a block, "
+          "launch bound, resident blocks per SM):", flush=True)
+    for key, r in aos_euler.items():
+        if key == "variants":
+            print(f"      every capacity and f-wave variant: stack at most "
+                  f"{r['stack']} B, spills at most {r['spill_stores']} / "
+                  f"{r['spill_loads']} B", flush=True)
+            continue
+        print(f"      {key[0]} {key[1]}: {r['registers']} registers, stack "
+              f"{r['stack']} B, spills {r['spill_stores']} / "
+              f"{r['spill_loads']} B, {r['threads']} threads, "
+              f"{r['smem_bytes']} B, launch bound {r['launch_bound']}, "
+              f"{r['blocks_per_sm']} blocks", flush=True)
     print(f"    the instances of this slice: step2_aos shared memory "
           f"(f32 without and with capacity, then f64) {smem_new} B; blocks "
-          f"per SM (the launch bound) Euler "
-          f"{lib_aos.step2_aos_system_blocks_per_sm(3, 0)} (f32), "
-          f"{lib_aos.step2_aos_system_blocks_per_sm(3, 1)} (f64), sw_aug_2D "
+          f"per SM (the launch bound) sw_aug_2D "
           f"{lib_aos.step2_aos_system_blocks_per_sm(5, 0)} (f32), "
           f"{lib_aos.step2_aos_system_blocks_per_sm(5, 1)} (f64); dq2_weno5 "
           f"Euler 5-wave {dq_lib.dq2_weno5_euler5_smem_bytes(0)} B (f32), "

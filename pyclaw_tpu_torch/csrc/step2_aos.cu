@@ -70,18 +70,35 @@
 // The gathered sums keep the first port's order: each flux takes its cq,
 // then the sum of the parts of amdq, then that of apdq.
 //
-// The Euler 4- and 5-wave systems and sw_aug_2D (added after the
-// redesign) keep the design.  Their Args take one limiter id per wave
-// (five for the 5-wave system; the first three systems' Args keep their
-// three, so their code is unchanged: the same SASS and bits as before,
-// ops/time_kernels.py step2_aos against the earlier build).  Euler stages
-// four per-cell quantities (six with the tracer), so a block takes 69 KB
-// (93 KB) of shared memory in f32 and 137 KB (184 KB) in f64: the launch
-// bound is 2 blocks an SM in f32 (the registers of 3 would spill) and 1
-// in f64 (PerSm); the tile is every system's.  Measured at 1024^2 (the
-// quadrants, the shock bubble at 2048x512, the radial bump; PERF.md
-// section 6; H100, 700 W): Euler 4-wave 0.18 / 0.65 ms, Euler 5-wave
-// 0.26 / 0.87 ms, sw_aug_2D 0.18 / 0.50 ms (f32 / f64).
+// The Euler 4- and 5-wave systems and sw_aug_2D were added after the
+// redesign; their Args take one limiter id per wave (five for the 5-wave
+// system; the first three systems' Args keep their three, so their code
+// is unchanged: the same SASS and bits as before, ops/time_kernels.py
+// step2_aos against the earlier build).  sw_aug_2D keeps the design.
+// The Euler systems have a design of their own (the section "the Euler
+// systems" below; S::NR marks it), fitted to them later with the same
+// bits (the host emulations and the card agree with the earlier design
+// bit for bit, q and the CFL): their first port in this design held every
+// interface's 20 / 30 wave components and speeds in shared memory, 69 /
+// 93 KB a block in f32 and 137 / 184 KB in f64, so f64 ran 1 block (8
+// warps) an SM, 3.4-3.6x its f32 time where shallow water's is 2.2x.  Now
+//   - each normal solve stores a record of 8 / 10 values (the strengths
+//     and the Roe average), from which the sweep forms again each wave's
+//     components and speed by the expressions the solve formed them by
+//     (the same bits under -fmad=false), and the splits take their Roe
+//     average (no division or square root of their own, no cell read);
+//   - the buffers are laid out by lifetime: the x parts die at the
+//     gather, which has a phase of its own; the x fluctuations at
+//     sweep<0>, after each cell keeps apdq + amdq of its x-faces (the
+//     first sum of its update); q and the per-cell quantities after the
+//     y normal solves (the update reads q from the grid);
+//   - a tile and launch bound of their own (SysShape): 12x15 in f32 at 3
+//     blocks an SM (4 for 5 waves), 11x15 at 2 in f64.
+// 44 / 57 KB a block in f32, 82 / 106 KB in f64; no spills.  Measured
+// against the earlier design in one call (PERF.md section 6; H100,
+// 700 W), device ms f32 / f64: Euler 4-wave 0.179 -> 0.156 / 0.648 ->
+// 0.338, Euler 5-wave 0.257 -> 0.215 / 0.865 -> 0.377, and 0.195 in f32
+// at 4 blocks an SM (another call); sw_aug_2D 0.18 / 0.50 ms.
 //
 // The scalar and variable-coefficient systems (advection_2D,
 // vc_advection_2D, vc_advection_fwave_2D, vc_acoustics_2D, kpp_2D,
@@ -198,6 +215,13 @@ struct PrepAux<S, std::void_t<decltype(&S::template prep_aux<float>)>>
 
 constexpr int NT = 256;  // threads per block
 
+// Whether system S stores its normal solves compactly (S::NR values a
+// record; the Euler systems): the design of the section "the Euler
+// systems" below
+template <class S, class = void> struct Compact : std::false_type {};
+template <class S>
+struct Compact<S, std::void_t<decltype(S::NR)>> : std::true_type {};
+
 // Tile shape per type (TX x TY cells) and blocks per SM (the launch
 // bound; f32 fits four by its registers and shared memory): 12x15 in f32,
 // 11x16 in f64, so that each normal-solve region ((TX+3) x (TY+2),
@@ -212,19 +236,20 @@ template <> struct Shape<float> {
 template <> struct Shape<double> {
   static constexpr int TX = 11, TY = 16, PER_SM = 2;
 };
-// Blocks per SM of system S (the launch bound): Shape's, but for the
-// Euler systems, whose shared memory (66-91 KB a block in f32, 134-181 KB
-// in f64) leaves room for 2 blocks in f32 (3 for 4 waves, which the
-// registers of 3 would not hold without spills) and 1 in f64; the tile is
-// the same for every system
-template <typename S, typename T> struct PerSm {
-  static constexpr int value = Shape<T>::PER_SM;
+// Tile and blocks per SM of system S: Shape's, but for the compact
+// systems, whose tile sets their shared memory (CTile below): 12x15 in
+// f32 at 4 blocks an SM for 5 waves (64 registers, no spills) and 3 for
+// 4 waves (4 were 1% slower), 11x15 at 2 in f64 (11x16 would not leave
+// room for two blocks with a capacity function; 12x14 spilled in the
+// f-wave variants); every region but sweep<0>'s is one pass of the 256
+// threads (its AX items fill a second)
+template <typename S, typename T, bool = Compact<S>::value>
+struct SysShape : Shape<T> {};
+template <typename S> struct SysShape<S, float, true> {
+  static constexpr int TX = 12, TY = 15, PER_SM = S::NW == 5 ? 4 : 3;
 };
-template <int NE> struct PerSm<EulerAoS2D<NE>, float> {
-  static constexpr int value = 2;
-};
-template <int NE> struct PerSm<EulerAoS2D<NE>, double> {
-  static constexpr int value = 1;
+template <typename S> struct SysShape<S, double, true> {
+  static constexpr int TX = 11, TY = 15, PER_SM = 2;
 };
 
 template <typename S, typename T, int TX, int TY, bool CAPA> struct Tile {
@@ -289,7 +314,10 @@ HD T dt_coef(const Args<T, Par, NL>& A, int k) {
   return T(k < C_HDX ? q : 0.5 * q);
 }
 
-template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
+template <typename S, typename T, int TX, int TY, bool CAPA_> struct Block {
+  using Sys = S;
+  using Type = T;
+  static constexpr bool CAPA = CAPA_;
   using L = Tile<S, T, TX, TY, CAPA>;
   T* q;    // [NEQ][QR][QC]
   T* a;    // [NAUX][QR][QC]
@@ -341,10 +369,13 @@ template <typename S, typename T, int TX, int TY, bool CAPA> struct Block {
 // Every copy is issued (cp.async) before any is waited on; kappa lands in
 // DX, and the thread that copied it turns it into dt/(dx kappa) and
 // dt/(dy kappa) in place after its own wait.
-template <typename S, typename T, int TX, int TY, bool CAPA>
-HD void phase_load(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
-                   int tid) {
-  using L = Tile<S, T, TX, TY, CAPA>;
+template <class Blk>
+HD void phase_load(const SysArgs<typename Blk::Sys, typename Blk::Type>& A,
+                   Blk& B, int tid) {
+  using S = typename Blk::Sys;
+  using T = typename Blk::Type;
+  using L = typename Blk::L;
+  constexpr bool CAPA = Blk::CAPA;
   const long long plane = (long long)A.NX * A.NY;
   // each thread stages every field of its cells
   for (int rc = tid; rc < L::QN; rc += NT) {
@@ -727,8 +758,11 @@ HD void step_block(const SysArgs<S, T>& A, Block<S, T, TX, TY, CAPA>& B,
 // one CFL value per block: max(s dt/dx) over the block's window; without a
 // capacity function the partials hold max|s| and the scalar dt/dx is
 // applied here (the same value: the product is monotone)
-template <typename S, typename T, int TX, int TY, bool CAPA>
-HD T block_cfl(const SysArgs<S, T>& A, const Block<S, T, TX, TY, CAPA>& B) {
+template <class Blk>
+HD typename Blk::Type block_cfl(
+    const SysArgs<typename Blk::Sys, typename Blk::Type>& A, const Blk& B) {
+  using T = typename Blk::Type;
+  constexpr bool CAPA = Blk::CAPA;
   T mx_x = B.rx[0], mx_y = B.ry[0];
   for (int w = 1; w < NT / 32; ++w) {
     mx_x = mx(mx_x, B.rx[w]);
@@ -736,6 +770,380 @@ HD T block_cfl(const SysArgs<S, T>& A, const Block<S, T, TX, TY, CAPA>& B) {
   }
   return CAPA ? mx(mx_x, mx_y)
               : mx(A.C[C_DTDX] * mx_x, A.C[C_DTDY] * mx_y);
+}
+
+// ---- the Euler systems: compact records, buffers by lifetime ------------
+// The interfaces' waves live as records (S::NR values: the strengths and
+// the Roe average, S::solve) from which the sweep forms again each wave's
+// components and speed (S::wave, S::speed) and the splits their Roe
+// average (S::Trans), so the sweep reads no cell; the update reads its q
+// from the padded grid.  Shared memory is laid out by lifetime (element
+// offsets; the phases as step_block's, with the gather of the x parts a
+// phase of its own before the y normal solves):
+//   Z0  XC (the x-face cq) and AX (each cell's apdq of its lower x-face
+//       plus amdq of its upper one, the first sum of its x difference),
+//       from sweep<0> to the update; DX, DY (CAPA) throughout
+//   Z1  q and the per-cell quantities, from the load to rpn<1>
+//   Z4  PX (the x parts), from sweep<0> to gather_y; then YAM (the
+//       y-interface amdq, apdq) at its end, from rpn<1> to the update
+//   Z2  WX (the x records) and XAM (the x-interface amdq, apdq), from
+//       rpn<0> to sweep<0>; then YS (the gathered sums; the first becomes
+//       the y-face flux), from gather_y to the update, and WY (the y
+//       records), from rpn<1> to sweep<1>
+//   PY  (the y parts), from sweep<1> to the update, over Z1 and Z4's head
+template <typename S, typename T, int TX, int TY, bool CAPA> struct CTile {
+  static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
+  static constexpr int NR = S::NR, NPC = S::NPC, NPL = NPC;
+  static constexpr int QR = TX + 4, QC = TY + 4, QN = QR * QC;
+  static constexpr int WXR = TX + 3, WXC = TY + 2, WXN = WXR * WXC;
+  static constexpr int WYR = TX + 2, WYC = TY + 3, WYN = WYR * WYC;
+  static constexpr int OXR = TX + 1, OXC = TY + 2, OXN = OXR * OXC;
+  static constexpr int OYR = TX + 2, OYC = TY + 1, OYN = OYR * OYC;
+  static constexpr int NC = TX * TY;
+  static constexpr int Z0 = NEQ * OXN + NEQ * NC + (CAPA ? 2 * QN : 0);
+  static constexpr int Z1 = (NEQ + NAUX + NPC) * QN;
+  static constexpr int Z4 = 4 * NEQ * OXN;
+  static constexpr int ZX = NR * WXN + 2 * NEQ * OXN;
+  static constexpr int ZY = 2 * NEQ * OYN + NR * WYN;
+  static constexpr int Z2 = ZX > ZY ? ZX : ZY;
+  static constexpr int YAM_AT = Z0 + Z1 + Z4 - 2 * NEQ * OYN;
+  static_assert(2 * NEQ * OYN <= Z4, "YAM fits in Z4");
+  static_assert(Z0 + 4 * NEQ * OYN <= YAM_AT, "PY ends before YAM");
+  static constexpr size_t elems = Z0 + Z1 + Z4 + Z2 + 2 * (NT / 32);
+  static constexpr size_t bytes = elems * sizeof(T);
+};
+
+template <typename S, typename T, int TX, int TY, bool CAPA_> struct CBlock {
+  using Sys = S;
+  using Type = T;
+  static constexpr bool CAPA = CAPA_;
+  using L = CTile<S, T, TX, TY, CAPA>;
+  T* XC;   // [NEQ][OXN]
+  T* AX;   // [NEQ][NC]
+  T* DX;   // [QR][QC] dt/(dx kappa) (CAPA)
+  T* DY;   // [QR][QC] dt/(dy kappa) (CAPA)
+  T* q;    // [NEQ][QR][QC]
+  T* a;    // [NAUX][QR][QC]
+  T* PC;   // [NPC][QR][QC]
+  T* PX;   // [4][NEQ][OXN]: bm, bp of amdq(+cq), of apdq(-cq)
+  T* WX;   // [NR][WXN]
+  T* XAM;  // [2][NEQ][OXN]: amdq, apdq
+  T* YS;   // [2][NEQ][OYN]: the sums of the gathered amdq and apdq parts
+  T* WY;   // [NR][WYN]
+  T* YAM;  // [2][NEQ][OYN]
+  T* PY;   // [4][NEQ][OYN]
+  T* rx;   // [NT / 32] x CFL partial max of each warp
+  T* ry;   // the same for y
+  int I0, J0, bid;
+
+  HD void bind(T* s, int bx, int by, int nbx) {
+    XC = s;
+    AX = XC + L::NEQ * L::OXN;
+    DX = AX + L::NEQ * L::NC;
+    DY = DX + (CAPA ? L::QN : 0);
+    q = s + L::Z0;
+    a = q + L::NEQ * L::QN;
+    PC = a + L::NAUX * L::QN;
+    PX = s + L::Z0 + L::Z1;
+    WX = PX + L::Z4;
+    XAM = WX + L::NR * L::WXN;
+    YS = WX;
+    WY = YS + 2 * L::NEQ * L::OYN;
+    YAM = s + L::YAM_AT;
+    PY = q;
+    rx = WX + L::Z2;
+    ry = rx + NT / 32;
+    I0 = 2 + by * TX;
+    J0 = 2 + bx * TY;
+    bid = by * nbx + bx;
+  }
+  HD void cell(int r, int c, T qv[], T pv[]) const {
+    for (int e = 0; e < L::NEQ; ++e) qv[e] = q[e * L::QN + r * L::QC + c];
+    for (int k = 0; k < L::NPC; ++k) pv[k] = PC[k * L::QN + r * L::QC + c];
+  }
+  template <int D> HD T dtd(const SysArgs<S, T>& A, int r, int c) const {
+    if (CAPA) return (D == 0 ? DX : DY)[r * L::QC + c];
+    return A.C[D == 0 ? C_DTDX : C_DTDY];
+  }
+};
+
+// ---- normal solve at one interface of the region of axis IXY: its
+// record, and the fluctuations of the interfaces the sweep keeps ---------
+template <int IXY, typename S, typename T, int TX, int TY, bool CAPA>
+HD void citem_rpn(const SysArgs<S, T>& A, CBlock<S, T, TX, TY, CAPA>& B,
+                  int idx) {
+  using L = CTile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, NR = L::NR;
+  constexpr int C = IXY == 0 ? L::WXC : L::WYC;
+  constexpr int WN = IXY == 0 ? L::WXN : L::WYN;
+  constexpr int OC = IXY == 0 ? L::OXC : L::OYC;
+  constexpr int ON = IXY == 0 ? L::OXN : L::OYN;
+  T* W = IXY == 0 ? B.WX : B.WY;
+  T* O = IXY == 0 ? B.XAM : B.YAM;
+  int r = idx / C, c = idx % C;
+  // left cell: x (r, c+1), y (r+1, c); right cell (r+1, c+1)
+  T ql[NEQ], qr[NEQ], pl[L::NPL], pr[L::NPL];
+  B.cell(IXY == 0 ? r : r + 1, IXY == 0 ? c + 1 : c, ql, pl);
+  B.cell(r + 1, c + 1, qr, pr);
+  T rec[NR], am[NEQ], ap[NEQ];
+  S::template solve<IXY, T>(A.P, ql, qr, pl, pr, rec, am, ap);
+  for (int k = 0; k < NR; ++k) W[k * WN + idx] = rec[k];
+  int orow = IXY == 0 ? r - 1 : r, ocol = IXY == 0 ? c : c - 1;
+  int orows = IXY == 0 ? L::OXR : L::OYR;
+  if (orow >= 0 && orow < orows && ocol >= 0 && ocol < OC) {
+    int o = orow * OC + ocol;
+    for (int e = 0; e < NEQ; ++e) {
+      O[(F_AM * NEQ + e) * ON + o] = am[e];
+      O[(F_AP * NEQ + e) * ON + o] = ap[e];
+    }
+  }
+}
+
+// ---- limiter, correction flux, transverse split and CFL of one interface
+// of the sweep region of axis IXY: each wave of the own interface, and of
+// its lower and upper neighbours for the limiter's dot products, formed
+// from their records in wave order; cq accumulates wave by wave in the
+// order of phase_sweep's sum ------------------------------------------------
+template <int IXY, bool FWAVE, typename S, typename T, int TX, int TY,
+          bool CAPA>
+HD void citem_sweep(const SysArgs<S, T>& A, CBlock<S, T, TX, TY, CAPA>& B,
+                    int idx, T& cmax) {
+  using L = CTile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, NW = L::NW, NR = L::NR;
+  constexpr int C = IXY == 0 ? L::OXC : L::OYC;
+  constexpr int WC = IXY == 0 ? L::WXC : L::WYC;
+  constexpr int WN = IXY == 0 ? L::WXN : L::WYN;
+  constexpr int ON = IXY == 0 ? L::OXN : L::OYN;
+  const T* W = IXY == 0 ? B.WX : B.WY;
+  const T* O = IXY == 0 ? B.XAM : B.YAM;
+  T* PP = IXY == 0 ? B.PX : B.PY;
+  int r = idx / C, c = idx % C;
+  int own = IXY == 0 ? (r + 1) * WC + c : r * WC + c + 1;
+  int lo = r * WC + c;
+  int hi = IXY == 0 ? (r + 2) * WC + c : r * WC + c + 2;
+  int lr = r + 1, lc = c + 1;
+  int rr = IXY == 0 ? r + 2 : r + 1, rc = IXY == 0 ? c + 1 : c + 2;
+  const T dl = B.template dtd<IXY>(A, lr, lc);
+  const T dr = B.template dtd<IXY>(A, rr, rc);
+  const T dtdx = CAPA ? T(0.5) * (dl + dr) : dl;
+  T rec[NR], s[NW];
+  for (int k = 0; k < NR; ++k) rec[k] = W[k * WN + own];
+  for (int p = 0; p < NW; ++p) s[p] = S::speed(rec, p);
+
+  // CFL window: interfaces touching the interior (kernels.py step2); read
+  // first, so that dl and dr die here
+  bool in_cfl;
+  if (IXY == 0) {
+    int k = B.I0 - 1 + r, J = B.J0 - 1 + c;
+    in_cfl = k < A.NX - 2 && c >= 1 && c <= TY && J < A.NY - 2;
+  } else {
+    int i = B.I0 - 1 + r, j = B.J0 - 1 + c;
+    in_cfl = r >= 1 && r <= TX && i < A.NX - 2 && j < A.NY - 2;
+  }
+  if (in_cfl) {
+    for (int p = 0; p < NW; ++p) {
+      if (CAPA) cmax = mx(cmax, mx(s[p] * dr, -s[p] * dl));
+      else cmax = mx(cmax, fabs_(s[p]));
+    }
+  }
+
+  T cq[NEQ];
+  for (int e = 0; e < NEQ; ++e) cq[e] = T(0);
+  if (A.order == 2) {
+    // unrolled, so that every index of a record and of s is a constant
+#pragma unroll
+    for (int p = 0; p < NW; ++p) {
+      T w[NEQ], wl[NEQ], wh[NEQ], rl[NR], rh[NR];
+      for (int k = 0; k < NR; ++k) {
+        rl[k] = W[k * WN + lo];
+        rh[k] = W[k * WN + hi];
+      }
+      S::template wave<IXY>(rec, p, w);
+      S::template wave<IXY>(rl, p, wl);
+      S::template wave<IXY>(rh, p, wh);
+      T wn2 = T(0), dlo = T(0), dhi = T(0);
+      bool first = true;
+      for (int e = 0; e < NEQ; ++e) {
+        if (!S::template nz<IXY>(p, e)) continue;
+        wn2 = first ? w[e] * w[e] : wn2 + w[e] * w[e];
+        dlo = first ? wl[e] * w[e] : dlo + wl[e] * w[e];
+        dhi = first ? w[e] * wh[e] : dhi + w[e] * wh[e];
+        first = false;
+      }
+      T phi = T(1);
+      const int lid = A.lim[p];
+      if (lid != 0) {
+        const bool safe = wn2 > T(0);
+        const T theta = safe ? (s[p] > T(0) ? dlo : dhi) / wn2 : T(0);
+        const T ph = phi_limiter<T>(lid, theta, fabs_(s[p]) * dtdx);
+        phi = safe ? ph : T(1);
+      }
+      const T abss = fabs_(s[p]);
+      const T lead = FWAVE
+          ? T(0.5) * T((s[p] > T(0)) - (s[p] < T(0)))
+          : T(0.5) * abss;
+      const T cf = lead * (T(1) - abss * dtdx) * phi;
+      for (int e = 0; e < NEQ; ++e) {
+        if (p == 0) cq[e] = cf * w[e];
+        else if (S::template nz<IXY>(p, e)) cq[e] = cq[e] + cf * w[e];
+      }
+    }
+  }
+  if (IXY == 0) {
+    for (int e = 0; e < NEQ; ++e) B.XC[e * ON + idx] = cq[e];
+  } else {
+    // a y-face of the tile: cq minus the gathered sums, in the first
+    // port's order
+    const bool face = A.tw > 0 && r >= 1 && r <= TX;
+    for (int e = 0; e < NEQ; ++e) {
+      T* g = B.YS + e * ON + idx;
+      *g = face ? cq[e] - *g - B.YS[(NEQ + e) * ON + idx] : cq[e];
+    }
+  }
+
+  if (A.tw > 0) {
+    const bool both = A.tw >= 2 && A.order == 2;
+    T amt[NEQ], apt[NEQ], bm[NEQ], bp[NEQ];
+    for (int e = 0; e < NEQ; ++e) {
+      const T am = O[(F_AM * NEQ + e) * ON + idx];
+      const T ap = O[(F_AP * NEQ + e) * ON + idx];
+      amt[e] = both ? am + cq[e] : am;
+      apt[e] = both ? ap - cq[e] : ap;
+    }
+    const typename S::template Trans<IXY, T> tr(A.P, rec);
+    tr.split(amt, bm, bp);
+    for (int e = 0; e < NEQ; ++e) {
+      PP[(F_T0 * NEQ + e) * ON + idx] = bm[e];
+      PP[(F_T1 * NEQ + e) * ON + idx] = bp[e];
+    }
+    tr.split(apt, bm, bp);
+    for (int e = 0; e < NEQ; ++e) {
+      PP[(F_T2 * NEQ + e) * ON + idx] = bm[e];
+      PP[(F_T3 * NEQ + e) * ON + idx] = bp[e];
+    }
+  }
+
+}
+
+// ---- cell idx's AX: apdq of its lower x-face plus amdq of its upper one
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void citem_ax(CBlock<S, T, TX, TY, CAPA>& B, int idx) {
+  using L = CTile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, OXC = L::OXC, OXN = L::OXN;
+  const int ti = idx / TY, tj = idx % TY;
+  for (int e = 0; e < NEQ; ++e) {
+    B.AX[e * L::NC + idx] = B.XAM[(F_AP * NEQ + e) * OXN + ti * OXC + tj + 1]
+        + B.XAM[(F_AM * NEQ + e) * OXN + (ti + 1) * OXC + tj + 1];
+  }
+}
+
+// ---- item_gather_y's sums from PX into YS ---------------------------------
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void citem_gather_y(const SysArgs<S, T>& A, CBlock<S, T, TX, TY, CAPA>& B,
+                       int idx) {
+  using L = CTile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, OXC = L::OXC, OXN = L::OXN, OYC = L::OYC;
+  constexpr int OYN = L::OYN;
+  const T* X = B.PX;
+  const int ti = idx / OYC, cj = idx % OYC;
+  const int o = (ti + 1) * OYC + cj;
+  T lo = A.C[C_HDX], hi = lo;
+  if (CAPA) {
+    lo = T(0.5) * B.template dtd<0>(A, ti + 2, cj + 2);
+    hi = T(0.5) * B.template dtd<0>(A, ti + 2, cj + 1);
+  }
+  for (int e = 0; e < NEQ; ++e) {
+    B.YS[e * OYN + o] =
+        lo * X[(F_T0 * NEQ + e) * OXN + (ti + 1) * OXC + cj + 1]
+        + hi * X[(F_T1 * NEQ + e) * OXN + (ti + 1) * OXC + cj];
+    B.YS[(NEQ + e) * OYN + o] =
+        lo * X[(F_T2 * NEQ + e) * OXN + ti * OXC + cj + 1]
+        + hi * X[(F_T3 * NEQ + e) * OXN + ti * OXC + cj];
+  }
+}
+
+// ---- item_update's conservative update from the compact buffers ----------
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void citem_update(const SysArgs<S, T>& A, CBlock<S, T, TX, TY, CAPA>& B,
+                     int idx) {
+  using L = CTile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, OXC = L::OXC, OYC = L::OYC, OXN = L::OXN;
+  constexpr int OYN = L::OYN;
+  const int nx = A.NX - 4, ny = A.NY - 4;
+  int ti = idx / TY, tj = idx % TY;
+  int I = B.I0 + ti, J = B.J0 + tj;
+  if (I >= A.NX - 2 || J >= A.NY - 2) return;
+  // y part f, component e at OY (r, c)
+  auto YP = [&](int f, int e, int r, int c) {
+    return B.PY[(f * NEQ + e) * OYN + r * OYC + c];
+  };
+  T fy_lo[2], fy_hi[2];
+  for (int h = 0; h < 2; ++h) {
+    if (CAPA) {
+      fy_lo[h] = T(0.5) * B.template dtd<1>(A, ti + 2 + h, tj + 2);
+      fy_hi[h] = T(0.5) * B.template dtd<1>(A, ti + 1 + h, tj + 2);
+    } else {
+      fy_lo[h] = fy_hi[h] = A.C[C_HDY];
+    }
+  }
+  const T dxc = B.template dtd<0>(A, ti + 2, tj + 2);
+  const T dyc = B.template dtd<1>(A, ti + 2, tj + 2);
+  const long long plane = (long long)A.NX * A.NY;
+  for (int e = 0; e < NEQ; ++e) {
+    T F[2], G[2];
+    for (int h = 0; h < 2; ++h) {
+      int rk = ti + h;
+      T f = B.XC[e * OXN + rk * OXC + tj + 1];
+      if (A.tw > 0) {
+        f = f - (fy_lo[h] * YP(F_T0, e, rk + 1, tj + 1)
+                 + fy_hi[h] * YP(F_T1, e, rk, tj + 1));
+        f = f - (fy_lo[h] * YP(F_T2, e, rk + 1, tj)
+                 + fy_hi[h] * YP(F_T3, e, rk, tj));
+      }
+      F[h] = f;
+      G[h] = B.YS[e * OYN + (ti + 1) * OYC + tj + h];
+    }
+    const T ax = B.AX[e * L::NC + idx];
+    const T apy = B.YAM[(F_AP * NEQ + e) * OYN + (ti + 1) * OYC + tj];
+    const T amy = B.YAM[(F_AM * NEQ + e) * OYN + (ti + 1) * OYC + tj + 1];
+    const T dq = (ax + F[1] - F[0]) * dxc + (apy + amy + G[1] - G[0]) * dyc;
+    A.qout[((long long)e * nx + (I - 2)) * ny + (J - 2)] =
+        A.qbc[e * plane + (long long)I * A.NY + J] - dq;
+  }
+}
+
+template <bool FWAVE, typename S, typename T, int TX, int TY, bool CAPA,
+          class X>
+HD void cstep_block(const SysArgs<S, T>& A, CBlock<S, T, TX, TY, CAPA>& B,
+                    const X& run) {
+  using L = CTile<S, T, TX, TY, CAPA>;
+  run([&](int t) { phase_load(A, B, t); });
+  run([&](int t) {
+    for (int i = t; i < L::WXN; i += NT) citem_rpn<0>(A, B, i);
+  });
+  run([&](int t) {
+    T cmax = T(0);
+    items2(t, L::OXN, [&](int i) {
+      citem_sweep<0, FWAVE>(A, B, i, cmax);
+    }, L::NC, [&](int i) { citem_ax(B, i); });
+    warp_fold(B.rx, t, cmax);
+  });
+  if (A.tw > 0) {
+    run([&](int t) {
+      for (int i = t; i < TX * L::OYC; i += NT) citem_gather_y(A, B, i);
+    });
+  }
+  run([&](int t) {
+    for (int i = t; i < L::WYN; i += NT) citem_rpn<1>(A, B, i);
+  });
+  run([&](int t) {
+    T cmax = T(0);
+    for (int i = t; i < L::OYN; i += NT) citem_sweep<1, FWAVE>(A, B, i, cmax);
+    warp_fold(B.ry, t, cmax);
+  });
+  run([&](int t) {
+    for (int i = t; i < L::NC; i += NT) citem_update(A, B, i);
+  });
 }
 
 template <typename S, typename T>
@@ -773,14 +1181,22 @@ SysArgs<S, T> make_args(const void* qbc, const void* aux, void* qout,
   return A;
 }
 
-template <typename T>
+// the block of system S in a tile of TX x TY: Block, or CBlock for the
+// compact systems
+template <typename S, typename T, int TX, int TY, bool CAPA>
+using BlockOf = std::conditional_t<Compact<S>::value,
+                                   CBlock<S, T, TX, TY, CAPA>,
+                                   Block<S, T, TX, TY, CAPA>>;
+
+template <typename S, typename T>
 void grid_of(int nxg, int nyg, int& nbx, int& nby) {
-  nbx = (nyg - 4 + Shape<T>::TY - 1) / Shape<T>::TY;
-  nby = (nxg - 4 + Shape<T>::TX - 1) / Shape<T>::TX;
+  nbx = (nyg - 4 + SysShape<S, T>::TY - 1) / SysShape<S, T>::TY;
+  nby = (nxg - 4 + SysShape<S, T>::TX - 1) / SysShape<S, T>::TX;
 }
 
 template <typename S, typename T, bool CAPA> constexpr size_t smem_bytes() {
-  return Tile<S, T, Shape<T>::TX, Shape<T>::TY, CAPA>::bytes;
+  return BlockOf<S, T, SysShape<S, T>::TX, SysShape<S, T>::TY,
+                 CAPA>::L::bytes;
 }
 
 template <typename S> int smem_of(bool capa, bool is_double) {
@@ -801,20 +1217,29 @@ struct DeviceRun {
 };
 
 template <typename S, typename T, int TX, int TY, bool CAPA, bool FWAVE>
-__global__ void __launch_bounds__(NT, PerSm<S, T>::value)
+__global__ void __launch_bounds__(NT, (SysShape<S, T>::PER_SM))
     step2_aos_kernel(SysArgs<S, T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T coef[NCOEF];
   A.C = coef;
-  Block<S, T, TX, TY, CAPA> B;
-  B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y, gridDim.x);
-  step_block<FWAVE>(A, B, DeviceRun());
-  if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(A, B);
+  if constexpr (Compact<S>::value) {
+    CBlock<S, T, TX, TY, CAPA> B;
+    B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y,
+           gridDim.x);
+    cstep_block<FWAVE>(A, B, DeviceRun());
+    if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(A, B);
+  } else {
+    Block<S, T, TX, TY, CAPA> B;
+    B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y,
+           gridDim.x);
+    step_block<FWAVE>(A, B, DeviceRun());
+    if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(A, B);
+  }
 }
 
 template <typename S, typename T, bool CAPA, bool FWAVE>
 int launch(const SysArgs<S, T>& A, int nbx, int nby, void* stream) {
-  constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
+  constexpr int TX = SysShape<S, T>::TX, TY = SysShape<S, T>::TY;
   constexpr size_t bytes = smem_bytes<S, T, CAPA>();
   static unsigned long long attr_done = 0;
   cudaError_t err = smem_attr_once(
@@ -825,6 +1250,24 @@ int launch(const SysArgs<S, T>& A, int nbx, int nby, void* stream) {
   step2_aos_kernel<S, T, TX, TY, CAPA, FWAVE>
       <<<dim3(nbx, nby), NT, bytes, static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
+}
+
+// Blocks of system S's instance without capacity or f-waves resident on
+// an SM of this card (its registers, shared memory and launch bound), or
+// -1 when the query fails
+template <typename S, typename T> int resident_blocks() {
+  constexpr int TX = SysShape<S, T>::TX, TY = SysShape<S, T>::TY;
+  constexpr size_t bytes = smem_bytes<S, T, false>();
+  const void* fn = reinterpret_cast<const void*>(
+      step2_aos_kernel<S, T, TX, TY, false, false>);
+  int per = 0;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, step2_aos_kernel<S, T, TX, TY, false, false>, NT,
+          bytes) != cudaSuccess)
+    return -1;
+  return per;
 }
 #else
 // Host emulation: the same phases, one block and one "thread" at a time,
@@ -839,15 +1282,17 @@ struct HostRun {
 
 template <typename S, typename T, bool CAPA, bool FWAVE>
 int launch(SysArgs<S, T> A, int nbx, int nby, void*) {
-  constexpr int TX = Shape<T>::TX, TY = Shape<T>::TY;
-  std::vector<T> smem(Tile<S, T, TX, TY, CAPA>::elems);
+  constexpr int TX = SysShape<S, T>::TX, TY = SysShape<S, T>::TY;
+  using Blk = BlockOf<S, T, TX, TY, CAPA>;
+  std::vector<T> smem(Blk::L::elems);
   T coef[NCOEF];
   A.C = coef;
   for (int by = 0; by < nby; ++by) {
     for (int bx = 0; bx < nbx; ++bx) {
-      Block<S, T, TX, TY, CAPA> B;
+      Blk B;
       B.bind(smem.data(), bx, by, nbx);
-      step_block<FWAVE>(A, B, HostRun());
+      if constexpr (Compact<S>::value) cstep_block<FWAVE>(A, B, HostRun());
+      else step_block<FWAVE>(A, B, HostRun());
       A.cflb[B.bid] = block_cfl(A, B);
     }
   }
@@ -867,8 +1312,10 @@ enum { SYS_SHALLOW_ROE_EFIX = 0, SYS_SHALLOW_BATHY_FWAVE = 1,
 constexpr int NLIM_ENTRY = 5;
 
 template <typename T, typename S>
-int dispatch_flags(const SysArgs<S, T>& A, bool capa, bool fwave, int nbx,
-                   int nby, void* stream) {
+int dispatch_flags(const SysArgs<S, T>& A, bool capa, bool fwave,
+                   void* stream) {
+  int nbx, nby;
+  grid_of<S, T>(A.NX, A.NY, nbx, nby);
   if (capa) {
     return fwave ? launch<S, T, true, true>(A, nbx, nby, stream)
                  : launch<S, T, true, false>(A, nbx, nby, stream);
@@ -877,50 +1324,41 @@ int dispatch_flags(const SysArgs<S, T>& A, bool capa, bool fwave, int nbx,
                : launch<S, T, false, false>(A, nbx, nby, stream);
 }
 
+template <class S> struct Sys { using type = S; };
+
+// fn(Sys<S>()) for the system of id `system`; -1 for an unknown id
+template <class F> int with_system(int system, const F& fn) {
+  switch (system) {
+    case SYS_SHALLOW_ROE_EFIX: return fn(Sys<ShallowRoeEfix2D>());
+    case SYS_SHALLOW_BATHY_FWAVE: return fn(Sys<ShallowBathyFwave2D>());
+    case SYS_ACOUSTICS_2D: return fn(Sys<Acoustics2D>());
+    case SYS_EULER_4WAVE_2D: return fn(Sys<Euler4AoS2D>());
+    case SYS_EULER_5WAVE_2D: return fn(Sys<Euler5AoS2D>());
+    case SYS_SW_AUG_2D: return fn(Sys<SwAug2D>());
+    case SYS_ADVECTION_2D: return fn(Sys<Advection2D>());
+    case SYS_VC_ADVECTION_2D: return fn(Sys<VcAdvection2D>());
+    case SYS_VC_ADVECTION_FWAVE_2D: return fn(Sys<VcAdvectionFwave2D>());
+    case SYS_VC_ACOUSTICS_2D: return fn(Sys<VcAcoustics2D>());
+    case SYS_KPP_2D: return fn(Sys<Kpp2D>());
+    case SYS_BURGERS_2D: return fn(Sys<Burgers2D>());
+    case SYS_PSYSTEM_2D: return fn(Sys<Psystem2D>());
+    case SYS_SHALLOW_SPHERE_2D: return fn(Sys<ShallowSphere2D>());
+    default: return -1;
+  }
+}
+
 template <typename T>
 int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
          int nyg, int system, int capa, int fwave, const double* dt,
          double dx, double dy, double p0, double p1, int order, int tw,
          const int* lim, void* stream) {
-  int nbx, nby;
-  grid_of<T>(nxg, nyg, nbx, nby);
-#define STEP2_AOS_SYSTEM(S)                                                  \
-  dispatch_flags<T, S>(make_args<S, T>(qbc, aux, qout, cflb, nxg, nyg, capa, \
-                                       dt, dx, dy, p0, p1, order, tw, lim),  \
-                       capa >= 0, fwave != 0, nbx, nby, stream)
-  switch (system) {
-    case SYS_SHALLOW_ROE_EFIX:
-      return STEP2_AOS_SYSTEM(ShallowRoeEfix2D);
-    case SYS_SHALLOW_BATHY_FWAVE:
-      return STEP2_AOS_SYSTEM(ShallowBathyFwave2D);
-    case SYS_ACOUSTICS_2D:
-      return STEP2_AOS_SYSTEM(Acoustics2D);
-    case SYS_EULER_4WAVE_2D:
-      return STEP2_AOS_SYSTEM(Euler4AoS2D);
-    case SYS_EULER_5WAVE_2D:
-      return STEP2_AOS_SYSTEM(Euler5AoS2D);
-    case SYS_SW_AUG_2D:
-      return STEP2_AOS_SYSTEM(SwAug2D);
-    case SYS_ADVECTION_2D:
-      return STEP2_AOS_SYSTEM(Advection2D);
-    case SYS_VC_ADVECTION_2D:
-      return STEP2_AOS_SYSTEM(VcAdvection2D);
-    case SYS_VC_ADVECTION_FWAVE_2D:
-      return STEP2_AOS_SYSTEM(VcAdvectionFwave2D);
-    case SYS_VC_ACOUSTICS_2D:
-      return STEP2_AOS_SYSTEM(VcAcoustics2D);
-    case SYS_KPP_2D:
-      return STEP2_AOS_SYSTEM(Kpp2D);
-    case SYS_BURGERS_2D:
-      return STEP2_AOS_SYSTEM(Burgers2D);
-    case SYS_PSYSTEM_2D:
-      return STEP2_AOS_SYSTEM(Psystem2D);
-    case SYS_SHALLOW_SPHERE_2D:
-      return STEP2_AOS_SYSTEM(ShallowSphere2D);
-    default:
-      return -1;
-  }
-#undef STEP2_AOS_SYSTEM
+  return with_system(system, [&](auto sys) {
+    using S = typename decltype(sys)::type;
+    return dispatch_flags<T, S>(
+        make_args<S, T>(qbc, aux, qout, cflb, nxg, nyg, capa, dt, dx, dy,
+                        p0, p1, order, tw, lim),
+        capa >= 0, fwave != 0, stream);
+  });
 }
 
 }  // namespace
@@ -928,12 +1366,23 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
 // ---- plain C interface (loaded with ctypes) ------------------------------
 extern "C" {
 
-// Number of blocks (= CFL partials) the kernel writes for a padded grid.
+// Number of blocks (= CFL partials) the kernel writes for a padded grid:
+// of every system but the compact ones (step2_aos_system_blocks), and of
+// system's.
 int step2_aos_blocks(int nxg, int nyg, int is_double) {
   int nbx, nby;
-  if (is_double) grid_of<double>(nxg, nyg, nbx, nby);
-  else grid_of<float>(nxg, nyg, nbx, nby);
+  if (is_double) grid_of<ShallowRoeEfix2D, double>(nxg, nyg, nbx, nby);
+  else grid_of<ShallowRoeEfix2D, float>(nxg, nyg, nbx, nby);
   return nbx * nby;
+}
+int step2_aos_system_blocks(int system, int nxg, int nyg, int is_double) {
+  return with_system(system, [&](auto sys) {
+    using S = typename decltype(sys)::type;
+    int nbx, nby;
+    if (is_double) grid_of<S, double>(nxg, nyg, nbx, nby);
+    else grid_of<S, float>(nxg, nyg, nbx, nby);
+    return nbx * nby;
+  });
 }
 
 // Number of systems the build takes (system ids 0 .. this - 1).
@@ -942,57 +1391,42 @@ int step2_aos_num_systems() { return NUM_SYSTEMS; }
 // Number of limiter ids an entry takes.
 int step2_aos_limiter_ids() { return NLIM_ENTRY; }
 
-// Blocks per SM the kernel is built for (reported by chip_smoke.py): the
-// first three systems', and system's.
-int step2_aos_blocks_per_sm(int is_double) {
-  return is_double ? Shape<double>::PER_SM : Shape<float>::PER_SM;
-}
+// Threads per block (reported by chip_smoke.py).
+int step2_aos_threads() { return NT; }
+
+// Blocks per SM system's instances are built for (the launch bound;
+// reported by chip_smoke.py).
 int step2_aos_system_blocks_per_sm(int system, int is_double) {
-  if (system == SYS_EULER_4WAVE_2D || system == SYS_EULER_5WAVE_2D) {
-    return is_double ? PerSm<Euler4AoS2D, double>::value
-                     : PerSm<Euler4AoS2D, float>::value;
-  }
-  return step2_aos_blocks_per_sm(is_double);
+  return with_system(system, [&](auto sys) {
+    using S = typename decltype(sys)::type;
+    return is_double ? SysShape<S, double>::PER_SM
+                     : SysShape<S, float>::PER_SM;
+  });
 }
+
+#if defined(__CUDACC__)
+// Blocks of system's instance without capacity or f-waves resident on an
+// SM of this card (reported by chip_smoke.py), or -1.
+int step2_aos_system_resident_blocks(int system, int is_double) {
+  return with_system(system, [&](auto sys) {
+    using S = typename decltype(sys)::type;
+    return is_double ? resident_blocks<S, double>()
+                     : resident_blocks<S, float>();
+  });
+}
+#endif
 
 // Shared memory bytes per block (reported by chip_smoke.py).
 int step2_aos_smem_bytes(int system, int capa, int is_double) {
-  switch (system) {
-    case SYS_SHALLOW_BATHY_FWAVE:
-      return smem_of<ShallowBathyFwave2D>(capa != 0, is_double != 0);
-    case SYS_ACOUSTICS_2D:
-      return smem_of<Acoustics2D>(capa != 0, is_double != 0);
-    case SYS_EULER_4WAVE_2D:
-      return smem_of<Euler4AoS2D>(capa != 0, is_double != 0);
-    case SYS_EULER_5WAVE_2D:
-      return smem_of<Euler5AoS2D>(capa != 0, is_double != 0);
-    case SYS_SW_AUG_2D:
-      return smem_of<SwAug2D>(capa != 0, is_double != 0);
-    case SYS_ADVECTION_2D:
-      return smem_of<Advection2D>(capa != 0, is_double != 0);
-    case SYS_VC_ADVECTION_2D:
-      return smem_of<VcAdvection2D>(capa != 0, is_double != 0);
-    case SYS_VC_ADVECTION_FWAVE_2D:
-      return smem_of<VcAdvectionFwave2D>(capa != 0, is_double != 0);
-    case SYS_VC_ACOUSTICS_2D:
-      return smem_of<VcAcoustics2D>(capa != 0, is_double != 0);
-    case SYS_KPP_2D:
-      return smem_of<Kpp2D>(capa != 0, is_double != 0);
-    case SYS_BURGERS_2D:
-      return smem_of<Burgers2D>(capa != 0, is_double != 0);
-    case SYS_PSYSTEM_2D:
-      return smem_of<Psystem2D>(capa != 0, is_double != 0);
-    case SYS_SHALLOW_SPHERE_2D:
-      return smem_of<ShallowSphere2D>(capa != 0, is_double != 0);
-    default:
-      return smem_of<ShallowRoeEfix2D>(capa != 0, is_double != 0);
-  }
+  return with_system(system, [&](auto sys) {
+    return smem_of<typename decltype(sys)::type>(capa != 0, is_double != 0);
+  });
 }
 
 // One CTU step.  qbc: (NEQ, nxg, nyg) ghost-padded (2 ghost cells), NEQ
 // the system's; aux: (num_aux, nxg, nyg) or null when the system reads
 // none and capa < 0; qout: (NEQ, nxg-4, nyg-4); cflb:
-// step2_aos_blocks(...) partial CFL maxima;
+// step2_aos_system_blocks(system, ...) partial CFL maxima;
 // all contiguous, of the type named by the entry.  system: SYS_*; capa:
 // aux row of the capacity function or -1; fwave: the f-wave correction
 // form; dt: the step in device memory (host memory for the host

@@ -456,14 +456,43 @@ def aos_limiter_count(lib):
     return count() if count is not None else 3
 
 
+def _bind_aos_blocks(lib):
+    lib.step2_aos_blocks.argtypes = [ctypes.c_int] * 3
+    lib.step2_aos_blocks.restype = ctypes.c_int
+    if hasattr(lib, "step2_aos_system_blocks"):
+        lib.step2_aos_system_blocks.argtypes = [ctypes.c_int] * 4
+        lib.step2_aos_system_blocks.restype = ctypes.c_int
+    return lib
+
+
 def bind_step2_aos_lib(lib):
     """Set the argument types of a ctypes handle of a build of
     ``csrc/step2_aos.cu``; returns it."""
     _build.bind_dt(lib, ("step2_aos_f32", "step2_aos_f64"),
                    aos_argtypes(aos_limiter_count(lib)), 9)
-    lib.step2_aos_blocks.argtypes = [ctypes.c_int] * 3
-    lib.step2_aos_blocks.restype = ctypes.c_int
-    return lib
+    return _bind_aos_blocks(lib)
+
+
+def bind_step2_aos_host(lib):
+    """Set the argument types of a ctypes handle of the host emulation of
+    ``csrc/step2_aos.cu`` (``_build.build_host_emulation``); returns
+    it."""
+    for name in ("step2_aos_host_f32", "step2_aos_host_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = AOS_ARGTYPES
+        fn.restype = ctypes.c_int
+    return _bind_aos_blocks(lib)
+
+
+def aos_blocks(lib, system, nxg, nyg, is_double):
+    """The CFL partials a build of ``csrc/step2_aos.cu`` (``lib``, bound by
+    :func:`bind_step2_aos_lib`) writes for system id ``system`` on a padded
+    nxg x nyg grid: ``step2_aos_system_blocks`` (the Euler systems have a
+    tile of their own); an earlier build without it has one tile per type
+    (``step2_aos_blocks``)."""
+    if hasattr(lib, "step2_aos_system_blocks"):
+        return lib.step2_aos_system_blocks(system, nxg, nyg, int(is_double))
+    return lib.step2_aos_blocks(nxg, nyg, int(is_double))
 
 
 @functools.cache
@@ -558,8 +587,7 @@ def step2_rows_generic(qbc, auxbc, dt, dx, dy, rp, params, mthlim, order,
     lib = _aos_lib() if lib is None else lib
     q_out = _build.out_tensor("step2_rows_generic", out,
                               (rp.num_eqn, nxg - 4, nyg - 4), qbc)
-    cfl_blocks = torch.empty((lib.step2_aos_blocks(nxg, nyg,
-                                                   int(is_double)),),
+    cfl_blocks = torch.empty((aos_blocks(lib, system, nxg, nyg, is_double),),
                              dtype=qbc.dtype, device=qbc.device)
     fn = lib.step2_aos_f64 if is_double else lib.step2_aos_f32
     dt_ptr, _dt = _build.dt_arg(dt, qbc)

@@ -348,6 +348,27 @@ def step2_aos_euler5_case(n, dtype, dev):
                  -1, 2, 2)
 
 
+# the ragged grid of the Euler instances' cases: no multiple of either
+# type's tile along either axis
+EULER_RAGGED = (250, 171)
+
+
+def step2_aos_euler_ragged_case(name, dtype, dev):
+    """step2_aos's Euler 4-wave (the quadrants) or 5-wave (the shock
+    bubble) instance on its first state at :data:`EULER_RAGGED`, with the
+    rest of the arguments of its full-size case (dx = dy = 1/nx)."""
+    from .. import riemann
+    nx, ny = EULER_RAGGED
+    if name == "euler_4wave_2D":
+        q, lims = quadrants_state(nx, ny), (3,) * 4
+    else:
+        q, lims = shock_bubble_state(nx, ny), (4,) * 5
+    h = 1.0 / nx
+    return padded(q, dtype, dev), (None, _dt(0.2 * h, dtype, dev), h, h,
+                                   riemann.ALL[name], {"gamma": 1.4}, lims,
+                                   2, False, -1, 2, 2)
+
+
 def step2_aos_sw_aug_case(n, dtype, dev):
     """step2_aos's sw_aug_2D instance's timed case at n^2, the radial-bump
     path's configuration on its first state: qbc, auxbc (the bottom; 2
@@ -862,6 +883,10 @@ def _step2_aos_call(dtype, dev, n=1024):
              ("euler4", step2_aos_euler4_case),
              ("euler5", step2_aos_euler5_case),
              ("sw_aug", step2_aos_sw_aug_case)]
+    cases += [(f"{label} ragged", lambda n, dtype, dev, name=name:
+               step2_aos_euler_ragged_case(name, dtype, dev))
+              for label, name in (("euler4", "euler_4wave_2D"),
+                                  ("euler5", "euler_5wave_2D"))]
     cases += [(name, lambda n, dtype, dev, name=name: step2_aos_scalar_case(
         name, n, dtype, dev)) for name in SCALAR_CASES]
     cases += [(name, lambda n, dtype, dev, name=name: step2_aos_no_trans_case(
@@ -1005,17 +1030,42 @@ def _build_variants(variants):
     return libs
 
 
-def sass_histogram(lib_path, top=12):
-    """{kernel entry: (static instruction count, [(opcode, count), ...])}
-    of a built library, from ``cuobjdump -sass``."""
+def sass_text(lib_path):
+    """``cuobjdump -sass`` of a built library."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300).stdout
-    return parse_sass(text, top)
+
+
+def sass_digests(text):
+    """{kernel entry: sha1 of its instructions} from ``cuobjdump -sass``
+    text: each ``Function :`` section's instruction lines without their
+    address comments and encodings, so that two builds of one function
+    compare equal exactly when they compiled to the same code (the
+    anonymous namespace's name, which each build draws anew, is left out
+    of the entries' names)."""
+    import hashlib
+    out, name, h = {}, None, None
+    # the anonymous namespace's name differs from build to build
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", text)
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            if name:
+                out[name] = h.hexdigest()
+            name, h = m.group(1), hashlib.sha1()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*(/\*.*)?$", line)
+        if name and m:
+            h.update(m.group(1).encode() + b"\n")
+    if name:
+        out[name] = h.hexdigest()
+    return out
 
 
 def parse_sass(text, top=12):
-    """The histogram of :func:`sass_histogram` from ``cuobjdump -sass``
+    """{kernel entry: (static instruction count, [(opcode, count), ...])}
+    from ``cuobjdump -sass``
     text: each ``Function :`` section's instructions by opcode (without
     its modifiers; a predicate guard is not an opcode)."""
     out, name, ops = {}, None, collections.Counter()
@@ -1033,6 +1083,14 @@ def parse_sass(text, top=12):
     if name:
         out[name] = (sum(ops.values()), ops.most_common(top))
     return out
+
+
+def sass_compare(a, b):
+    """(the entries equal in the two {entry: value} maps ``a`` and ``b``,
+    :func:`sass_digests` of two builds, the other entries of either), each
+    sorted."""
+    same = sorted(k for k in a.keys() & b.keys() if a[k] == b[k])
+    return same, sorted((a.keys() | b.keys()) - set(same))
 
 
 def ptxas_resources(text):
@@ -1082,6 +1140,23 @@ def dq_weno_instance(function):
             "float32" if m.group(3) == "f" else "float64")
 
 
+# the Euler system structs of csrc/euler2d_aos.cuh, by their wave count
+STEP2_AOS_EULER = {"4": "euler_4wave_2D", "5": "euler_5wave_2D"}
+
+
+def step2_aos_instance(function):
+    """(system name, type name, capa, fwave) of the mangled name of an
+    Euler instance of ``csrc/step2_aos.cu``'s kernel, or None for another
+    function."""
+    m = re.search(r"step2_aos_kernelINS_\d+EulerAoS2DILi([45])EEE([fd])"
+                  r"Li\d+ELi\d+ELb([01])ELb([01])E", function)
+    if m is None:
+        return None
+    return (STEP2_AOS_EULER[m.group(1)],
+            "float32" if m.group(2) == "f" else "float64",
+            m.group(3) == "1", m.group(4) == "1")
+
+
 def run(kernel, variants, sass=False, only=None):
     if not torch.cuda.is_available():
         raise RuntimeError("time_kernels needs a CUDA card")
@@ -1096,14 +1171,22 @@ def run(kernel, variants, sass=False, only=None):
     sources = {v[0]: v[2] for v in variants}
     libs = _build_variants(variants)
     labels = [v[0] for v in variants]
-    result_sass = {}
+    result_sass, digests = {}, {}
     if sass:
         for label in labels:
-            hist = sass_histogram(libs[label]._name)
+            text = sass_text(libs[label]._name)
+            hist = parse_sass(text)
             result_sass[label] = hist
+            digests[label] = sass_digests(text)
             for entry, (count, ops) in hist.items():
                 print(f"  sass [{label}] {entry[:70]}: {count} "
                       f"instructions; {ops}")
+        for label in labels[1:]:
+            same, differ = sass_compare(digests[labels[0]], digests[label])
+            print(f"  sass [{label}] against [{labels[0]}]: {len(same)} "
+                  f"entries equal instruction for instruction, "
+                  f"{len(differ)} differ or are in one build only: "
+                  f"{differ}")
     order = labels + labels[::-1]
     case = {"step2_ctu": _step2_ctu_call, "dq2_weno5": _dq_call,
             "dq2_weno": _dq_weno_call, "step3_ctu": _step3_ctu_call,

@@ -1,7 +1,7 @@
 """Time the classic and SharpClaw quadrants, Euler 3D, shallow-water,
-Euler capacity, the two Sod and the heterogeneous acoustics paths of
-checkouts against each other on one card, each run in a process of its
-own.
+Euler capacity, the two Sod, the heterogeneous acoustics, the shock
+bubble and the quadrants-off-SoA paths of checkouts against each other on
+one card, each run in a process of its own.
 
     python -m pyclaw_tpu_torch.ops.time_paths LABEL=ROOT[:host]
         [LABEL=ROOT[:host] ...] [--out FILE] [--paths P1,P2]
@@ -24,7 +24,11 @@ launches are counted), the SharpClaw quadrants at 1024^2 to t = 0.8
 (WENO5, SSP104: ``dq2_weno5``; at WENO order 7: ``dq2_weno``), the Sod
 tube at 800 cells to t = 0.2
 on the classic solver (``step1``) and on SharpClaw (``weno5``), and the
-heterogeneous acoustics at 192^3 to t = 0.8 (``step3_aos``).  It
+heterogeneous acoustics at 192^3 to t = 0.8 (``step3_aos``), the shock
+bubble at 2048x512 to t = 0.6 (``shock_bubble``: ``step2_aos``'s Euler
+5-wave instance) and the quadrants at 1024^2 to t = 0.8 off the SoA route
+(``quadrants_aos``: ``use_soa = False``, ``step2_aos``'s Euler 4-wave
+instance).  It
 prints the accepted and rejected steps, the kernel's launches as its
 wrappers count them (on the device loop the launches they make or
 capture: a capture's eager warm-up attempt and two captured attempts;
@@ -72,6 +76,11 @@ PATHS = {
                       0.2, 800, "weno.weno5", ""),
     "het": ("acoustics_3d_heterogeneous", {"mx": 192, "my": 192, "mz": 192},
             0.8, 192 ** 3, "tiled2d.step3_xy_generic", ""),
+    "shock_bubble": ("shock_bubble", {"mx": 2048, "my": 512}, 0.6,
+                     2048 * 512, "tiled2d.step2_rows_generic", ""),
+    "quadrants_aos": ("euler_2d_quadrants",
+                      {"mx": 1024, "my": 1024, "solver": {"use_soa": False}},
+                      0.8, 1024 ** 2, "tiled2d.step2_rows_generic", ""),
 }
 
 CHILD = r"""

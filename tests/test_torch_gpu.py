@@ -354,13 +354,13 @@ def test_aos_scalar_kernels_match_plain(card, name, dtype):
         params = {"u": 0.7, "v": -0.4, "efix": k != 1}
         args = (dt, 1 / nx, 1 / ny)
         before = tiled2d.step2_rows_generic.launches
+        lims = (lim,) * rp.num_waves
         qk, ck = tiled2d.step2_rows_generic(qbc, auxbc, *args, rp, params,
-                                            (lim,), order, fwave, capa, 2,
-                                            tw)
+                                            lims, order, fwave, capa, 2, tw)
         torch.cuda.synchronize()
         assert tiled2d.step2_rows_generic.launches == before + 1
         qp, cp = kernels.step2(qbc, auxbc, *args, rp.rp, rp.rpt, params,
-                               (lim,), order, fwave, capa, 2, tw)
+                               lims, order, fwave, capa, 2, tw)
         assert qk.shape == (rp.num_eqn, nx, ny)
         assert float((qk - qp).abs().max() / qp.abs().max()) <= TOL[dtype]
         assert abs(float(ck) - float(cp)) <= TOL[dtype] * float(cp)

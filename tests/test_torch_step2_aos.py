@@ -187,13 +187,7 @@ def host_kernel(tmp_path_factory):
     from pyclaw_tpu_torch.ops import _build
     lib = _build.build_host_emulation(
         "step2_aos", str(tmp_path_factory.mktemp("step2_aos_host")))
-    for name in ("step2_aos_host_f32", "step2_aos_host_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = tiled2d.AOS_ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.step2_aos_blocks.argtypes = [ctypes.c_int] * 3
-    lib.step2_aos_blocks.restype = ctypes.c_int
-    return lib
+    return tiled2d.bind_step2_aos_host(lib)
 
 
 def _fast_face(q, axis, side, scale):
@@ -314,9 +308,9 @@ def _host_step(lib, name, q, aux, dt, deltas, params, lims, order, tw,
     is_double = q.dtype == np.float64
     fn = lib.step2_aos_host_f64 if is_double else lib.step2_aos_host_f32
     out = np.empty((rp.num_eqn, nx, ny), q.dtype)
-    cfl_blocks = np.full(lib.step2_aos_blocks(nx + 4, ny + 4,
-                                              int(is_double)), np.nan,
-                         q.dtype)
+    cfl_blocks = np.full(tiled2d.aos_blocks(
+        lib, tiled2d.AOS_SYSTEMS[name][0], nx + 4, ny + 4, is_double),
+        np.nan, q.dtype)
     rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
             cfl_blocks.ctypes.data, nx + 4, ny + 4,
             tiled2d.AOS_SYSTEMS[name][0], capa, int(fwave),
@@ -327,7 +321,70 @@ def _host_step(lib, name, q, aux, dt, deltas, params, lims, order, tw,
     return out, float(cfl_blocks.max())
 
 
-GRIDS = [(7, 5), (60, 60), (100, 37), (64, 100)]
+# grids less than a tile, of several tiles, ragged either way; and those
+# that straddle the Euler systems' tiles (12x15 in float32, 11x15 in
+# float64) by a cell: one tile of either type, k TX +- 1 by k TY -+ 1
+GRIDS = [(7, 5), (60, 60), (100, 37), (64, 100), (11, 15), (12, 15),
+         (23, 29), (21, 31), (25, 14), (35, 46)]
+# The SHA-256 of q and the CFL of the Euler instances' host emulation over
+# EULER_OPTS (in order) on the grids that straddle their tiles, as the
+# design before the compact records (the one tile of every system)
+# computed them: the redesign keeps its bits
+EULER_DIGESTS = {
+    ("euler_4wave_2D", 11, 15, "float64"):
+        "4276bc6371110a59e6cb9cc25a0c295782e6c2b186e7254a993cfe4ed12a5412",
+    ("euler_4wave_2D", 11, 15, "float32"):
+        "c8d2291e0bb998ec1f063a8d905831fffce913a117d1976806aaea5e7dd268a3",
+    ("euler_4wave_2D", 12, 15, "float64"):
+        "6d422834ecdd325ad293da97f2dba822d3777d098028aee3faaa78ae0373e93e",
+    ("euler_4wave_2D", 12, 15, "float32"):
+        "7ebf6b61a7a615f9a4c3271a37bc1228b26ca23210acbbb041d5ab50b2804ebf",
+    ("euler_4wave_2D", 23, 29, "float64"):
+        "a8903c1b7a70ec48bf6bafbb4e4eb272f8067b7f35b81ce67db62e629d23424e",
+    ("euler_4wave_2D", 23, 29, "float32"):
+        "18247f97485bf87cfc1a0b0626776f3e89acd073c4f9d9d925433da70f09dfcc",
+    ("euler_4wave_2D", 21, 31, "float64"):
+        "11151c5b6530f66cb8d180c6ab6059e50aac87d6d7b58247f5dc8755a3e42b16",
+    ("euler_4wave_2D", 21, 31, "float32"):
+        "0d750049355f2ba1edd5591d7932216db50883d04f3f4ec5cd66da5f9b755e05",
+    ("euler_4wave_2D", 25, 14, "float64"):
+        "4243e01289935fa34c9389ff66dd111f6a77349143a2565db89e40a4e2b1b0cb",
+    ("euler_4wave_2D", 25, 14, "float32"):
+        "0e6344963df4662e82c3458db7b67909a0e041f980735b01a11165d39af02c11",
+    ("euler_4wave_2D", 35, 46, "float64"):
+        "6fa234747ffd25c6a5628513aabc7f2182141c7ad66197dfe3976c9eaf2253e0",
+    ("euler_4wave_2D", 35, 46, "float32"):
+        "c746acb4ddc49a77dc22932aecff98929bf340b073cc8fc0b7bf0def20bd88a3",
+    ("euler_5wave_2D", 11, 15, "float64"):
+        "a381d0c510568e96061b260bb63a5a356c8d75da3817eb72745f66857ed877c9",
+    ("euler_5wave_2D", 11, 15, "float32"):
+        "6961b021564fe5a3ba9f6f59887ccb0616565e43e9eb444da0d469481be15c2f",
+    ("euler_5wave_2D", 12, 15, "float64"):
+        "1de00e966355ab198b5094e4f71dfc0255d3d9ecf963975c6257a03c7c1d3324",
+    ("euler_5wave_2D", 12, 15, "float32"):
+        "7a4f4f31d5b7596e638f0588f0f9d1ed29dd6b8700cdd876060824c595db646f",
+    ("euler_5wave_2D", 23, 29, "float64"):
+        "11fd76946a7e4ddcbc85ac667951b8a290c90a79e172a14e931455a722bcb6e3",
+    ("euler_5wave_2D", 23, 29, "float32"):
+        "aa403d7042709e486d7d16517294f84f3a5e1db8b59b90f07e60a28f9bfc4462",
+    ("euler_5wave_2D", 21, 31, "float64"):
+        "69f661f565d06cc01926a658ecdb2d1198c332c397c335f081e57dc5a9b25e9f",
+    ("euler_5wave_2D", 21, 31, "float32"):
+        "40d02aca07f0789ef43334170bb7d551d381145a4c613f7b91e64b96f5407606",
+    ("euler_5wave_2D", 25, 14, "float64"):
+        "c8974981ca66f70030c7764c35b8eb9bd65cf6c1300b01cbed5f443a24f29c39",
+    ("euler_5wave_2D", 25, 14, "float32"):
+        "0db44f768bb4f155435710a6ccf0ad508538cfb2a00b0e314f14a7eee53f105d",
+    ("euler_5wave_2D", 35, 46, "float64"):
+        "3432197a709765ae20f1873da224576def693be35ca7d155598120e1c789d39a",
+    ("euler_5wave_2D", 35, 46, "float32"):
+        "c0ed56d226b2e13b1b0dc600e2c454dc068db6ca6263cfa035d67bcde2ca11b0",
+}
+
+
+def _euler_digest(h, out, cfl, dtype):
+    h.update(out.tobytes())
+    h.update(np.array(cfl, dtype).tobytes())
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
@@ -339,8 +396,12 @@ def test_new_instances_on_host_match_plain(host_kernel, name, nx, ny,
                                            dtype, tol):
     """csrc/step2_aos.cu's Euler 4-wave, Euler 5-wave and sw_aug_2D
     instances (the wider limiter ids, the per-cell Roe quantities, the
-    tracer, the dry-state machinery) against the plain version, over the
-    options matrix."""
+    tracer, the dry-state machinery; the Euler systems' compact records
+    and their own tile) against the plain version, over the options
+    matrix; on the grids of EULER_DIGESTS the Euler instances' q and CFL
+    bit for bit those of their design before the compact records."""
+    import hashlib
+    digest = hashlib.sha256()
     rp = triemann.ALL[name]
     deltas = (1.0 / nx, 1.0 / ny)
     if name == "sw_aug_2D":
@@ -361,6 +422,79 @@ def test_new_instances_on_host_match_plain(host_kernel, name, nx, ny,
                             *deltas, rp.rp, rp.rpt, params, lims, order,
                             fwave, capa, 2, tw, rp.prefactor)
         _close(out, q_p.numpy(), cfl, float(c_p), tol)
+        _euler_digest(digest, out, cfl, dtype)
+    key = (name, nx, ny, np.dtype(dtype).name)
+    if key in EULER_DIGESTS:
+        assert digest.hexdigest() == EULER_DIGESTS[key]
+
+
+def _any_state(name, nx, ny, dtype):
+    """A ghost-padded state, its aux and the physics parameters of system
+    ``name`` of AOS_SYSTEMS (the states of this file's other tests)."""
+    if name == "euler_4wave_2D" or name == "euler_5wave_2D":
+        q, aux = euler_state(nx + ny, nx, ny, triemann.ALL[name].num_eqn)
+        params = EULER_PARAMS
+    elif name == "sw_aug_2D":
+        q, aux = sw_aug_state(nx + ny, nx, ny)
+        params = SW_AUG_PARAMS
+    elif name in ("psystem_2D", "shallow_sphere_fwave_2D"):
+        q, aux = no_trans_state(nx + ny, name, nx, ny)
+        params = {"grav": 1.0, "stress_relation": "exp"}
+    elif name in (ROE, BATHY, "acoustics_2D"):
+        q, aux = _state(nx + ny, nx, ny)
+        params = dict(PARAMS, rho=1.0, bulk=4.0)
+    else:
+        q, aux = scalar_state(nx + ny, name, nx, ny)
+        params = SCALAR_PARAMS
+    return (np.ascontiguousarray(q.astype(dtype)),
+            np.ascontiguousarray(aux.astype(dtype)), params)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", sorted(tiled2d.AOS_SYSTEMS))
+def test_kernel_writes_the_partials_it_counts(host_kernel, name, dtype):
+    """Each system's instance writes step2_aos_system_blocks(...) CFL
+    partials, every one of them, and nothing past them, on a ragged grid
+    of several tiles."""
+    nx, ny = 37, 47
+    rp = triemann.ALL[name]
+    q, aux, params = _any_state(name, nx, ny, dtype)
+    is_double = dtype == np.float64
+    system = tiled2d.AOS_SYSTEMS[name][0]
+    n = host_kernel.step2_aos_system_blocks(system, nx + 4, ny + 4,
+                                            int(is_double))
+    fn = (host_kernel.step2_aos_host_f64 if is_double
+          else host_kernel.step2_aos_host_f32)
+    out = np.empty((rp.num_eqn, nx, ny), dtype)
+    cfl_blocks = np.full(n + 8, np.nan, dtype)
+    rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
+            cfl_blocks.ctypes.data, nx + 4, ny + 4, system, -1, 0,
+            ctypes.byref(ctypes.c_double(1e-3)), 1.0 / nx, 1.0 / ny,
+            *tiled2d.aos_system_params(rp, params), 2, 2,
+            *tiled2d.aos_limiter_ids((4,) * rp.num_waves))
+    assert rc == 0
+    assert np.isfinite(cfl_blocks[:n]).all()
+    assert np.isnan(cfl_blocks[n:]).all()
+
+
+@pytest.mark.parametrize("nx,ny", [(7, 5), (11, 15), (12, 16), (100, 37),
+                                   (1024, 1024), (2048, 512)])
+def test_system_blocks_are_the_tiles(host_kernel, nx, ny):
+    """step2_aos_system_blocks: the twelve systems other than Euler keep
+    step2_aos_blocks (one tile per type, 12x15 and 11x16); the Euler
+    systems count their own tiles (12x15 and 11x15)."""
+    for name, (system, _) in tiled2d.AOS_SYSTEMS.items():
+        for is_double in (0, 1):
+            got = host_kernel.step2_aos_system_blocks(system, nx + 4, ny + 4,
+                                                      is_double)
+            if name.startswith("euler_"):
+                tx, ty = (11, 15) if is_double else (12, 15)
+                assert got == -(-nx // tx) * -(-ny // ty)
+            else:
+                assert got == host_kernel.step2_aos_blocks(nx + 4, ny + 4,
+                                                           is_double)
+    assert host_kernel.step2_aos_system_blocks(len(tiled2d.AOS_SYSTEMS),
+                                               11, 9, 1) == -1
 
 
 # ---- the scalar and variable-coefficient instances on the host -------------

@@ -337,7 +337,9 @@ def test_parse_sass_counts_opcodes_per_entry():
                          "solver": {"weno_order": 7}}),
     ("sod", {"nx": 40, "solver_type": "classic"}),
     ("sod_sharpclaw", {"nx": 40, "solver_type": "sharpclaw"}),
-    ("het", {"mx": 6, "my": 6, "mz": 6})])
+    ("het", {"mx": 6, "my": 6, "mz": 6}),
+    ("shock_bubble", {"mx": 24, "my": 8}),
+    ("quadrants_aos", {"mx": 12, "my": 12, "solver": {"use_soa": False}})])
 def test_time_paths_runs_each_path_in_its_own_process(path, size):
     """ops/time_paths.py's timed run (a fresh process importing the
     package from a root), on the CPU at a small size."""
@@ -389,6 +391,82 @@ def test_ptxas_resources_of_dq_weno_instances(instance, resources):
     found = {tk.dq_weno_instance(fn): rec
              for fn, rec in tk.ptxas_resources(PTXAS).items()}
     assert found[instance] == resources
+
+
+# A ptxas -v report of two of csrc/step2_aos.cu's entries: an Euler
+# 5-wave instance (float64, 11x15, capacity, f-waves) and a shallow-water
+# one
+PTXAS_AOS = """
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_10EulerAoS2DILi5EEEdLi11ELi15ELb1ELb1EEEvNS_4ArgsIT0_NT_3ParIS4_EEXcl4nlimIS5_EEEEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_10EulerAoS2DILi5EEEdLi11ELi15ELb1ELb1EEEvNS_4ArgsIT0_NT_3ParIS4_EEXcl4nlimIS5_EEEEE
+    16 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16 bytes cumulative stack size, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_16ShallowRoeEfix2DEfLi12ELi15ELb0ELb0EEEvNS_4ArgsIT0_NT_3ParIS3_EEXcl4nlimIS4_EEEEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_16ShallowRoeEfix2DEfLi12ELi15ELb0ELb0EEEvNS_4ArgsIT0_NT_3ParIS3_EEXcl4nlimIS4_EEEEE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 61 registers, used 1 barriers, 16 bytes smem
+"""
+
+
+@pytest.mark.parametrize("instance,resources", [
+    (("euler_5wave_2D", "float64", True, True),
+     {"registers": 128, "stack": 16, "spill_stores": 24,
+      "spill_loads": 24}),
+    (None, {"registers": 61, "stack": 0, "spill_stores": 0,
+            "spill_loads": 0})])
+def test_ptxas_resources_of_step2_aos_euler_instances(instance, resources):
+    """The Euler instance of csrc/step2_aos.cu that a mangled entry name
+    is, (system, type, capacity, f-waves), and its resources from the
+    report (None for another system's entry)."""
+    found = {tk.step2_aos_instance(fn): rec
+             for fn, rec in tk.ptxas_resources(PTXAS_AOS).items()}
+    assert found[instance] == resources
+
+
+def _sass_build(ns, base, op="DFMA R2"):
+    """cuobjdump -sass text of a build: two entries in anonymous namespace
+    ``ns``, at address ``base``, with encodings."""
+    return f"""
+        code for sm_90a
+                Function : _ZN12_GLOBAL__N__{ns}_1kIfEvv
+        /*{base:04x}*/                   MOV R1, c[0x0][0x28] ;   /* 0x00000a0000017a02 */
+                                                                 /* 0x000fe40000000f00 */
+        /*{base + 16:04x}*/              @!P0 BRA 0x80 ;          /* 0x0000000000008947 */
+                Function : _ZN12_GLOBAL__N__{ns}_1kIdEvv
+        /*{base:04x}*/                   {op}, R4, R6, R8 ;       /* 0x0000000604027229 */
+"""
+
+
+def test_sass_digests_compare_builds_entry_by_entry():
+    """Two builds' entries compare equal when their instructions are,
+    whatever the address comments, the encodings and the anonymous
+    namespace's name of each build; one changed instruction makes its
+    entry differ."""
+    a = tk.sass_digests(_sass_build("1f0a", 0))
+    b = tk.sass_digests(_sass_build("2e9b", 0x100).replace(
+        "0x000fe4", "0x000fe5"))
+    assert sorted(a) == ["_ZN12_GLOBAL__N__1kIdEvv",
+                         "_ZN12_GLOBAL__N__1kIfEvv"]
+    assert tk.sass_compare(a, b) == (sorted(a), [])
+    c = tk.sass_digests(_sass_build("2e9b", 0, op="DFMA R4"))
+    assert tk.sass_compare(a, c) == (["_ZN12_GLOBAL__N__1kIfEvv"],
+                                     ["_ZN12_GLOBAL__N__1kIdEvv"])
+    assert tk.sass_compare({"x": "1"}, {"y": "1"}) == ([], ["x", "y"])
+
+
+@pytest.mark.parametrize("label,name", [("euler4 ragged", "euler_4wave_2D"),
+                                        ("euler5 ragged", "euler_5wave_2D")])
+def test_step2_aos_euler_ragged_cases(label, name):
+    """time_kernels step2_aos times each Euler instance also on a ragged
+    grid, no multiple of either type's tile, with its full-size case's
+    arguments."""
+    assert label in tk._step2_aos_call(torch.float64, "cpu", n=8)
+    qbc, args = tk.step2_aos_euler_ragged_case(name, torch.float64, "cpu")
+    nx, ny = tk.EULER_RAGGED
+    assert nx % 11 and nx % 12 and ny % 15
+    assert qbc.shape == (5 if name == "euler_5wave_2D" else 4, nx + 4,
+                         ny + 4)
+    assert args[4].name == name and args[2] == args[3] == 1.0 / nx
 
 
 @pytest.mark.parametrize("order", tk.WENO_ORDERS)
