@@ -412,7 +412,8 @@ from pyclaw_tpu_torch.ops.time_kernels import (
     swirl_cell_velocities, NO_TRANS_CASES, step2_aos_no_trans_case,
     LIBRARY_1D, LIBRARY_OPTS, library_case, library_state, random_state,
     WENO_ORDERS, DQ_WENO_SYSTEMS, dq_weno_rp, dq_weno_params, dq_weno_case,
-    ptxas_resources, dq_weno_instance, step2_aos_instance)
+    ptxas_resources, dq_weno_instance, step2_aos_instance,
+    dq2_weno5_instance, step3_aos_instance, BURGERS3D_OPTS)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -3665,12 +3666,10 @@ SCALAR_OPTS = [(2, 2, 4, -1, False), (1, 2, 1, 0, False),
 SCALAR_OPTS_LARGE = [(2, 2, 4, -1, False), (1, 2, 1, 0, False),
                      (0, 1, 10, 0, True)]
 # [3o]: burgers_3D's grids (the path's, a ragged one of several tiles and
-# one less than a tile) and (transverse_waves, order, limiter, index_capa,
-# fwave, efix)
+# one less than a tile); its options (transverse_waves, order, limiter,
+# index_capa, fwave, efix) are ops/time_kernels.py:BURGERS3D_OPTS, which
+# times each of them too
 BURGERS3D_GRIDS = ((192, 192, 192), (17, 13, 9), (3, 5, 2))
-BURGERS3D_OPTS = [(2, 2, 4, -1, False, True), (1, 2, 1, 0, False, False),
-                  (0, 1, 4, -1, False, True), (2, 2, 10, 0, True, True),
-                  (2, 1, 3, 0, False, False)]
 BURGERS3D_OPTS_LARGE = BURGERS3D_OPTS[:2]
 # Operations per cell of one generic CTU step of each scalar instance of
 # csrc/step2_aos.cu (csrc/scalar2d.cuh; order 2, the run's limiter and
@@ -5339,6 +5338,52 @@ def step2_aos_euler_resources(lib_aos, report):
         out["variants"] = {key: max(r.get(key) or 0 for r in ptxas.values())
                            for key in ("stack", "spill_stores",
                                        "spill_loads")}
+    return out
+
+
+def redesigned_resources(dq_lib, lib_3a, dq_report, s3_report):
+    """[2]: the instances with a configuration of their own,
+    dq2_weno5.cu's Euler 5-wave instance and step3_aos.cu's burgers_3D
+    (each capacity and f-wave variant), on this card:
+    {(kernel, system, type name[, capa, fwave]): {"threads",
+    "smem_bytes", "blocks_per_sm", "registers", "stack", "spill_stores",
+    "spill_loads"}}, the registers, stack frame and spill bytes from the
+    builds' ptxas reports.  Fails when one takes no block or a report
+    lacks one."""
+    from pyclaw_tpu_torch.ops import tiled2d
+    dq_ptxas = {dq2_weno5_instance(fn): rec
+                for fn, rec in ptxas_resources(dq_report).items()
+                if dq2_weno5_instance(fn) is not None}
+    s3_ptxas = {step3_aos_instance(fn): rec
+                for fn, rec in ptxas_resources(s3_report).items()
+                if step3_aos_instance(fn) is not None}
+    keys = ("registers", "stack", "spill_stores", "spill_loads")
+    out = {}
+    for d, tname in enumerate(("float32", "float64")):
+        rec = dq_ptxas.get(("euler_5wave_2D", tname), {})
+        out[("dq2_weno5", "euler_5wave_2D", tname)] = {
+            "threads": dq_lib.dq2_weno5_euler5_threads(d),
+            "smem_bytes": dq_lib.dq2_weno5_euler5_smem_bytes(d),
+            "blocks_per_sm": dq_lib.dq2_weno5_euler5_blocks_per_sm(d),
+            **{k: rec.get(k) for k in keys}}
+        sid = tiled2d.STEP3_SYSTEMS["burgers_3D"][0]
+        for capa in (False, True):
+            for fwave in (False, True):
+                rec = s3_ptxas.get(("burgers_3D", tname, capa, fwave), {})
+                out[("step3_aos", "burgers_3D", tname, capa, fwave)] = {
+                    "threads": lib_3a.step3_aos_system_threads(sid, d),
+                    "smem_bytes": lib_3a.step3_aos_smem_bytes(sid,
+                                                              int(capa), d),
+                    "blocks_per_sm": lib_3a.step3_aos_system_blocks_per_sm(
+                        sid, int(capa), int(fwave), d),
+                    **{k: rec.get(k) for k in keys}}
+    if any(r["blocks_per_sm"] < 1 for r in out.values()):
+        fail(f"a redesigned instance takes no block on an SM: {out}")
+    # (a build that load_all found current has no report)
+    if "(cached build)" not in (dq_report, s3_report) and any(
+            r["registers"] is None or r["stack"] is None
+            for r in out.values()):
+        fail(f"a ptxas report lacks a redesigned instance: {out}")
     return out
 
 
@@ -7044,6 +7089,22 @@ def main():
               f"{r['spill_loads']} B, {r['threads']} threads, "
               f"{r['smem_bytes']} B, {r['blocks_per_sm']} blocks",
               flush=True)
+    redesigned = redesigned_resources(
+        dq_lib, lib_3a, _build.build_report("dq2_weno5"),
+        _build.build_report("step3_aos"))
+    print("    the Euler 5-wave dq and burgers_3D instances (registers, "
+          "stack frame B, spill stores / loads B, threads and shared "
+          "memory B a block, resident blocks per SM):", flush=True)
+    for key, r in redesigned.items():
+        print(f"      {' '.join(str(k) for k in key)}: {r['registers']} "
+              f"registers, stack {r['stack']} B, spills "
+              f"{r['spill_stores']} / {r['spill_loads']} B, "
+              f"{r['threads']} threads, {r['smem_bytes']} B, "
+              f"{r['blocks_per_sm']} blocks", flush=True)
+    print(f"    build wall {phase_s['build']:.1f} s; each source's nvcc "
+          f"seconds from the start of the builds "
+          f"{ {k: round(v, 1) for k, v in _build.build_seconds.items()} }",
+          flush=True)
     for name in names:
         for line in _build.build_report(name).splitlines():
             if any(k in line for k in ("Compiling entry", "registers",

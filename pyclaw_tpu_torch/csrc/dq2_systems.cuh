@@ -22,10 +22,12 @@ template <typename T> struct EulerPar {
   T g1;   // gamma - 1
 };
 
-// positivity: rho > 0 and p > 0
-template <typename T> HD bool euler_admissible(T g1, const T q[4]) {
+// positivity: rho > 0 and p > 0 (ZQ: euler2d.cuh's qdiv)
+template <bool ZQ = false, typename T>
+HD bool euler_admissible(T g1, const T q[4]) {
   const T rho = q[0];
-  const T ke = T(0.5) * (q[1] * q[1] + q[2] * q[2]) / (rho > T(0) ? rho : T(1));
+  const T ke = qdiv<ZQ>(T(0.5) * (q[1] * q[1] + q[2] * q[2]),
+                        rho > T(0) ? rho : T(1));
   const T p = g1 * (q[3] - ke);
   return rho > T(0) && p > T(0);
 }
@@ -62,9 +64,9 @@ struct Euler4 {
     P.g1 = T(p0);
     return P;
   }
-  template <typename T>
+  template <bool ZQ = false, typename T>
   static HD bool admissible(const EulerPar<T>& P, const T q[4]) {
-    return euler_admissible(P.g1, q);
+    return euler_admissible<ZQ>(P.g1, q);
   }
   // every wave component takes part in the fluctuations
   template <int IXY> static HD constexpr bool nz(int, int) { return true; }
@@ -104,9 +106,9 @@ struct Euler5 {
     return P;
   }
   // positivity on rho and p (the tracer is not tested)
-  template <typename T>
+  template <bool ZQ = false, typename T>
   static HD bool admissible(const EulerPar<T>& P, const T q[5]) {
-    return euler_admissible(P.g1, q);
+    return euler_admissible<ZQ>(P.g1, q);
   }
   // the shear wave (p = 2) has the transverse momentum and the energy
   // only, the tracer wave (p = 4) the tracer only: the plain version's
@@ -181,7 +183,8 @@ struct Acoustics {
     return P;
   }
   // no positivity fallback
-  template <typename T> static HD bool admissible(const AcPar<T>&, const T*) {
+  template <bool ZQ = false, typename T>
+  static HD bool admissible(const AcPar<T>&, const T*) {
     return true;
   }
   // both waves have the pressure and the normal velocity only

@@ -22,9 +22,21 @@
 // algebra on the first four components and the tracer of
 // riemann/euler.py's _rpn2_euler_soa and _flux_euler_2d_soa (tracer=True):
 // 5 equations and 5 waves, the positivity fallback on rho and p only.
-// Its block takes 60,752 B (f32) / 121,504 B (f64) of shared memory, so
-// f64 runs one block an SM.  Measured on the shock bubble at 2048x512
-// (PERF.md section 6; H100, 700 W): 0.23 / 1.01 ms (f32 / f64).
+// It has a configuration of its own (Cfg): on the other instances'
+// (both directions' buffers, 288 threads) its block took 60,752 B (f32) /
+// 121,504 B (f64) of shared memory, so f64 ran one block an SM, with
+// spills.  Now one direction's edge and fluctuation buffers at a time
+// (38,352 / 76,448 B): f32 288 threads, one cell a thread, launch bound 4
+// blocks an SM; f64 256 threads, one (component, cell) a thread and the
+// positivity fallback a pass of its own (phase_edge_items,
+// phase_fallback), launch bound 2, no spills (at 384 threads it spilled
+// 252 B and ran 55% slower).  Its f64 WENO5 weights and positivity test
+// spare a zero quotient the division's slow path (euler2d.cuh: qdiv; the
+// shock bubble's tracer is zero outside the bubble and its gas is at rest
+// ahead of the shock).  The same
+// functions compute the same operations in the same contractions, so the
+// bits are the first design's (time_kernels dq2_weno5 --sass: dq and
+// every block's CFL partial equal; the other instances' SASS unchanged).
 //
 // The acoustics instance (added after the Euler one was redesigned): 3
 // equations, 2 waves of the constant speeds -c and +c whose transverse
@@ -116,6 +128,8 @@
 // acoustics algebra is riemann/acoustics.py's _rp_acoustics_soa and
 // _flux_acoustics_soa, the Python scalars folded in double as there.
 
+#include <type_traits>
+
 #include "async_copy.cuh"
 #include "dq2_systems.cuh"
 #include "dt_coef.cuh"
@@ -124,7 +138,6 @@
 
 namespace {
 
-constexpr int NT = 288;      // threads per block (9 warps)
 constexpr int TX = 16, TY = 16;  // cells per tile along x (rows), y (cols)
 constexpr int G = 3;         // ghost cells (WENO5)
 
@@ -137,13 +150,45 @@ constexpr int FYR = TX, FYC = TY + 1;             // y interfaces
 constexpr int EN = EXR * EXC > EYR * EYC ? EXR * EXC : EYR * EYC;
 constexpr int FN = FXR * FXC > FYR * FYC ? FXR * FXC : FYR * FYC;
 
+// The launch configuration of an instance (PERF.md section 6): the
+// threads a block (NT), the resident blocks an SM that the launch bounds
+// ask the registers for (MIN_BLOCKS), the directions whose edge and
+// fluctuation buffers a block holds at once (ND: both, so both
+// directions' phases share their barriers, or one at a time), and CELLS:
+// one cell a thread in the edge phases, its components in turn and the
+// positivity fallback on the states it computed (else one (component,
+// cell) a thread and the fallback a pass of its own).
+//   Euler 4-wave and acoustics: 288 threads (the 288 cells of a
+//     direction's edge region), 2 blocks, both directions, CELLS;
+//   Euler 5-wave (5 equations: both directions' buffers took 60,752 /
+//     121,504 B, one float64 block an SM): one direction at a time (38,352 /
+//     76,448 B); float32 288 threads, 4 blocks (56 registers), CELLS;
+//     float64 256 threads, 2 blocks (128 registers, no spills), one
+//     (component, cell) a thread.  Timed against each other on the card:
+//     float32 at 3 blocks, both directions at 3 blocks, 256 or 320
+//     threads, or one (component, cell) a thread ran 4-20% slower;
+//     float64 at 384 threads (80 registers) spilled and ran 55% slower.
+template <typename S, typename T> struct Cfg {
+  static constexpr bool OWN = std::is_same<S, Euler5>::value;
+  static constexpr bool F64 = sizeof(T) == 8;
+  static constexpr int NT = OWN && F64 ? 256 : 288;
+  static constexpr int MIN_BLOCKS = OWN && !F64 ? 4 : 2;
+  static constexpr int ND = OWN ? 1 : 2;
+  static constexpr bool CELLS = !(OWN && F64);
+  // the float64 WENO5 weights' and positivity test's divisions spare a
+  // zero quotient the slow path (euler2d.cuh: qdiv)
+  static constexpr bool ZQ = OWN && F64;
+};
+
 template <typename S, typename T> struct Layout {
-  // Q [NEQ][QR][QC], E [2][2 NEQ][EN] (per direction: ql 0..NEQ-1, qr
-  // NEQ..2 NEQ-1), F [2][2 NEQ][FN] (per direction: amdq, then apdq),
-  // DQ [NEQ][TX*TY] (the x part of dq), R [NT] (CFL partials)
-  static constexpr int N = S::NEQ;
-  static constexpr size_t elems =
-      N * QR * QC + 2 * 2 * N * EN + 2 * 2 * N * FN + N * TX * TY + NT;
+  // Q [NEQ][QR][QC], E [ND][2 NEQ][EN] (per direction: ql 0..NEQ-1, qr
+  // NEQ..2 NEQ-1), F [ND][2 NEQ][FN] (per direction: amdq, then apdq) of
+  // the ND directions in hand, DQ [NEQ][TX*TY] (the x part of dq), R [NT]
+  // (CFL partials)
+  static constexpr int N = S::NEQ, ND = Cfg<S, T>::ND;
+  static constexpr size_t elems = N * QR * QC + ND * 2 * N * EN +
+                                  ND * 2 * N * FN + N * TX * TY +
+                                  Cfg<S, T>::NT;
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
@@ -172,19 +217,20 @@ template <typename S, typename T> HD T dt_coef(const Args<S, T>& A, int k) {
 template <typename S, typename T> struct Block {
   static constexpr int N = S::NEQ;
   T* Q;
-  T* E[2];   // edge states along x, y
-  T* F[2];   // fluctuations at the x-, y-interfaces
+  T* E[2];   // edge states along x, y (one buffer when ND is 1)
+  T* F[2];   // fluctuations at the x-, y-interfaces (one buffer too)
   T* DQ;
   T* R;
   int I0, J0, bx, by, nbx, nby;  // first interior cell (padded indices)
 
   HD void bind(T* s, int bx_, int by_, int nbx_, int nby_) {
+    constexpr int ND = Cfg<S, T>::ND;
     Q = s;
     E[0] = Q + N * QR * QC;
-    E[1] = E[0] + 2 * N * EN;
-    F[0] = E[1] + 2 * N * EN;
-    F[1] = F[0] + 2 * N * FN;
-    DQ = F[1] + 2 * N * FN;
+    E[1] = E[0] + (ND - 1) * 2 * N * EN;
+    F[0] = E[0] + ND * 2 * N * EN;
+    F[1] = F[0] + (ND - 1) * 2 * N * FN;
+    DQ = F[0] + ND * 2 * N * FN;
     R = DQ + N * TX * TY;
     bx = bx_;
     by = by_;
@@ -200,7 +246,7 @@ template <typename S, typename T> struct Block {
 // every copy is issued (cp.async) before the thread waits on any
 template <typename S, typename T>
 HD void phase_load(const Args<S, T>& A, Block<S, T>& B, int tid) {
-  for (int idx = tid; idx < S::NEQ * QR * QC; idx += NT) {
+  for (int idx = tid; idx < S::NEQ * QR * QC; idx += Cfg<S, T>::NT) {
     int e = idx / (QR * QC);
     int r = (idx / QC) % QR;
     int c = idx % QC;
@@ -224,9 +270,11 @@ HD void edge_states(const Args<S, T>& A, const Block<S, T>& B, int row,
     T v[5];
     for (int k = 0; k < 5; ++k)
       v[k] = D == 0 ? B.q(e, row - 2 + k, col) : B.q(e, row, col - 2 + k);
-    weno5(v[0], v[1], v[2], v[3], v[4], ql[e], qr[e]);
+    weno5<Cfg<S, T>::ZQ>(v[0], v[1], v[2], v[3], v[4], ql[e], qr[e]);
   }
-  if (!(S::admissible(A.P, ql) && S::admissible(A.P, qr))) {
+  constexpr bool ZQ = Cfg<S, T>::ZQ;
+  if (!(S::template admissible<ZQ>(A.P, ql) &&
+        S::template admissible<ZQ>(A.P, qr))) {
     for (int e = 0; e < S::NEQ; ++e) {
       ql[e] = B.q(e, row, col);
       qr[e] = ql[e];
@@ -239,7 +287,7 @@ template <int D, typename S, typename T>
 HD void phase_edges(const Args<S, T>& A, Block<S, T>& B, int tid) {
   constexpr int N = S::NEQ;
   constexpr int ER = D == 0 ? EXR : EYR, EC = D == 0 ? EXC : EYC;
-  for (int idx = tid; idx < ER * EC; idx += NT) {
+  for (int idx = tid; idx < ER * EC; idx += Cfg<S, T>::NT) {
     int r = idx / EC, c = idx % EC;
     // x: cell (I0-1+r, J0+c) = staged (r+2, c+3); y: (I0+r, J0-1+c)
     int row = D == 0 ? r + 2 : r + 3, col = D == 0 ? c + 3 : c + 2;
@@ -248,6 +296,54 @@ HD void phase_edges(const Args<S, T>& A, Block<S, T>& B, int tid) {
     for (int e = 0; e < N; ++e) {
       B.E[D][e * EN + idx] = ql[e];
       B.E[D][(N + e) * EN + idx] = qr[e];
+    }
+  }
+}
+
+// ---- the same with one (component, cell) a thread (Cfg::CELLS false):
+// one component's WENO5, its edge states stored as computed; the
+// positivity fallback follows as a pass of its own (phase_fallback)
+template <int D, typename S, typename T>
+HD void phase_edge_items(const Args<S, T>&, Block<S, T>& B, int tid) {
+  constexpr int N = S::NEQ;
+  constexpr int ER = D == 0 ? EXR : EYR, EC = D == 0 ? EXC : EYC;
+  constexpr int NC = ER * EC;
+  for (int idx = tid; idx < N * NC; idx += Cfg<S, T>::NT) {
+    const int e = idx / NC, i = idx - e * NC;
+    const int r = i / EC, c = i % EC;
+    const int row = D == 0 ? r + 2 : r + 3, col = D == 0 ? c + 3 : c + 2;
+    T v[5];
+    for (int k = 0; k < 5; ++k)
+      v[k] = D == 0 ? B.q(e, row - 2 + k, col) : B.q(e, row, col - 2 + k);
+    T ql, qr;
+    weno5<Cfg<S, T>::ZQ>(v[0], v[1], v[2], v[3], v[4], ql, qr);
+    B.E[D][e * EN + i] = ql;
+    B.E[D][(N + e) * EN + i] = qr;
+  }
+}
+
+// ---- phase: the positivity fallback of phase_edge_items' states, one
+// cell a thread: where they are not both admissible, both take the cell
+// average (edge_states' test on the same values)
+template <int D, typename S, typename T>
+HD void phase_fallback(const Args<S, T>& A, Block<S, T>& B, int tid) {
+  constexpr int N = S::NEQ;
+  constexpr int ER = D == 0 ? EXR : EYR, EC = D == 0 ? EXC : EYC;
+  for (int i = tid; i < ER * EC; i += Cfg<S, T>::NT) {
+    T ql[N], qr[N];
+    for (int e = 0; e < N; ++e) {
+      ql[e] = B.E[D][e * EN + i];
+      qr[e] = B.E[D][(N + e) * EN + i];
+    }
+    if (S::template admissible<Cfg<S, T>::ZQ>(A.P, ql) &&
+        S::template admissible<Cfg<S, T>::ZQ>(A.P, qr))
+      continue;
+    const int r = i / EC, c = i % EC;
+    const int row = D == 0 ? r + 2 : r + 3, col = D == 0 ? c + 3 : c + 2;
+    for (int e = 0; e < N; ++e) {
+      const T q = B.q(e, row, col);
+      B.E[D][e * EN + i] = q;
+      B.E[D][(N + e) * EN + i] = q;
     }
   }
 }
@@ -266,7 +362,7 @@ HD void phase_iface(const Args<S, T>& A, Block<S, T>& B, int tid) {
   constexpr int EC = D == 0 ? EXC : EYC;
   const T dtdx = A.C[D == 0 ? C_DTDX : C_DTDY];
   T smax = B.R[tid];
-  for (int idx = tid; idx < FR * FC; idx += NT) {
+  for (int idx = tid; idx < FR * FC; idx += Cfg<S, T>::NT) {
     int r = idx / FC, c = idx % FC;
     // interface between E cells (r, c) and x: (r+1, c), y: (r, c+1)
     int el = r * EC + c;
@@ -303,7 +399,7 @@ HD void phase_iface(const Args<S, T>& A, Block<S, T>& B, int tid) {
   constexpr int NL = D == 0 ? FR : FC;
   const bool lo = D == 0 ? B.bx == 0 : B.by == 0;
   const bool hi = D == 0 ? B.bx == B.nbx - 1 : B.by == B.nby - 1;
-  for (int idx = tid; idx < 2 * G * NL; idx += NT) {
+  for (int idx = tid; idx < 2 * G * NL; idx += Cfg<S, T>::NT) {
     int side = idx / (G * NL), line = (idx / NL) % G, k = idx % NL;
     if (!(side == 0 ? lo : hi)) continue;
     // staged line across the sweep: 0..2 below the tile, TY+3.. above
@@ -332,7 +428,7 @@ HD void phase_update(const Args<S, T>& A, Block<S, T>& B, int tid) {
   constexpr int FC = D == 0 ? FXC : FYC, EC = D == 0 ? EXC : EYC;
   const T ndt = A.C[D == 0 ? C_NDTDX : C_NDTDY];
   const int nx = A.NX - 2 * G, ny = A.NY - 2 * G;
-  for (int idx = tid; idx < TX * TY; idx += NT) {
+  for (int idx = tid; idx < TX * TY; idx += Cfg<S, T>::NT) {
     int ti = idx / TY, tj = idx % TY;
     int I = B.I0 + ti, J = B.J0 + tj;
     // interfaces below / above the cell; the cell's own edge states
@@ -365,7 +461,7 @@ template <typename S, typename T>
 HD void phase_write_cfl(const Args<S, T>& A, Block<S, T>& B, int tid) {
   if (tid != 0) return;
   T c = B.R[0];
-  for (int w = 1; w < NT / 32; ++w) c = mx(c, B.R[w]);
+  for (int w = 1; w < Cfg<S, T>::NT / 32; ++w) c = mx(c, B.R[w]);
   A.cflb[B.by * B.nbx + B.bx] = c;
 }
 
@@ -387,14 +483,37 @@ Args<S, T> make_args(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
   return A;
 }
 
+// One direction at a time (Cfg::ND 1): its edge states (and the fallback
+// pass), its interfaces and its part of dq, each phase followed by a
+// barrier (X(fn) runs fn(tid) for every thread of the block, then one)
+template <int D, typename S, typename T, class X>
+HD void one_direction(const Args<S, T>& A, Block<S, T>& B, const X& run) {
+  if constexpr (Cfg<S, T>::CELLS) {
+    run([&](int t) { phase_edges<D, S, T>(A, B, t); });
+  } else {
+    run([&](int t) { phase_edge_items<D, S, T>(A, B, t); });
+    run([&](int t) { phase_fallback<D, S, T>(A, B, t); });
+  }
+  run([&](int t) { phase_iface<D, S, T>(A, B, t); });
+  run([&](int t) { phase_update<D, S, T>(A, B, t); });
+}
+
 void grid_of(int nxg, int nyg, int& nbx, int& nby) {
   nbx = (nyg - 2 * G + TY - 1) / TY;
   nby = (nxg - 2 * G + TX - 1) / TX;
 }
 
 #if defined(__CUDACC__)
+struct DeviceRun {
+  template <class Fn> __device__ void operator()(Fn&& fn) const {
+    fn(static_cast<int>(threadIdx.x));
+    __syncthreads();
+  }
+};
+
 template <typename S, typename T>
-__global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<S, T> A) {
+__global__ void __launch_bounds__(Cfg<S, T>::NT, Cfg<S, T>::MIN_BLOCKS)
+    dq2_weno5_kernel(Args<S, T> A) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T coef[NCOEF];
   A.C = coef;
@@ -404,15 +523,20 @@ __global__ void __launch_bounds__(NT, 2) dq2_weno5_kernel(Args<S, T> A) {
   const int tid = threadIdx.x;
   phase_load<S, T>(A, B, tid);
   __syncthreads();
-  phase_edges<0, S, T>(A, B, tid);
-  phase_edges<1, S, T>(A, B, tid);
-  __syncthreads();
-  phase_iface<0, S, T>(A, B, tid);
-  phase_iface<1, S, T>(A, B, tid);
-  __syncthreads();
-  // a thread owns the same cells in both: no barrier between
-  phase_update<0, S, T>(A, B, tid);
-  phase_update<1, S, T>(A, B, tid);
+  if constexpr (Cfg<S, T>::ND == 1) {
+    one_direction<0, S, T>(A, B, DeviceRun());
+    one_direction<1, S, T>(A, B, DeviceRun());
+  } else {
+    phase_edges<0, S, T>(A, B, tid);
+    phase_edges<1, S, T>(A, B, tid);
+    __syncthreads();
+    phase_iface<0, S, T>(A, B, tid);
+    phase_iface<1, S, T>(A, B, tid);
+    __syncthreads();
+    // a thread owns the same cells in both: no barrier between
+    phase_update<0, S, T>(A, B, tid);
+    phase_update<1, S, T>(A, B, tid);
+  }
   // the CFL partial: a warp-shuffle max, then one slot per warp
   const T m = warp_max(B.R[tid]);
   __syncthreads();
@@ -435,7 +559,8 @@ int launch(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
   int nbx, nby;
   grid_of(nxg, nyg, nbx, nby);
   Args<S, T> A = make_args<S, T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, p0, p1);
-  dq2_weno5_kernel<S, T><<<dim3(nbx, nby), NT, Layout<S, T>::bytes,
+  dq2_weno5_kernel<S, T><<<dim3(nbx, nby), Cfg<S, T>::NT,
+                           Layout<S, T>::bytes,
                            static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
 }
@@ -445,7 +570,8 @@ template <typename S, typename T> int blocks_per_sm() {
                      (int)Layout<S, T>::bytes, attr_done<S, T>) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, dq2_weno5_kernel<S, T>, NT, Layout<S, T>::bytes) !=
+          &per, dq2_weno5_kernel<S, T>, Cfg<S, T>::NT,
+          Layout<S, T>::bytes) !=
           cudaSuccess)
     return -1;
   return per;
@@ -455,10 +581,17 @@ template <typename S, typename T> int blocks_per_sm() {
 // with each barrier between two phases kept by running the whole block
 // through a phase before the next.  Used by the CPU tests to check the
 // kernel's index algebra against the plain version without a card.
+template <int N> struct HostRun {
+  template <class Fn> void operator()(Fn&& fn) const {
+    for (int t = 0; t < N; ++t) fn(t);
+  }
+};
+
 template <typename S, typename T>
 int launch_host(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
                 const double* dt, double dx, double dy, double p0,
                 double p1) {
+  constexpr int NT = Cfg<S, T>::NT;
   int nbx, nby;
   grid_of(nxg, nyg, nbx, nby);
   Args<S, T> A = make_args<S, T>(qbc, dq, cflb, nxg, nyg, dt, dx, dy, p0, p1);
@@ -470,17 +603,22 @@ int launch_host(const void* qbc, void* dq, void* cflb, int nxg, int nyg,
       Block<S, T> B;
       B.bind(smem.data(), bx, by, nbx, nby);
       for (int t = 0; t < NT; ++t) phase_load<S, T>(A, B, t);
-      for (int t = 0; t < NT; ++t) {
-        phase_edges<0, S, T>(A, B, t);
-        phase_edges<1, S, T>(A, B, t);
-      }
-      for (int t = 0; t < NT; ++t) {
-        phase_iface<0, S, T>(A, B, t);
-        phase_iface<1, S, T>(A, B, t);
-      }
-      for (int t = 0; t < NT; ++t) {
-        phase_update<0, S, T>(A, B, t);
-        phase_update<1, S, T>(A, B, t);
+      if constexpr (Cfg<S, T>::ND == 1) {
+        one_direction<0, S, T>(A, B, HostRun<NT>());
+        one_direction<1, S, T>(A, B, HostRun<NT>());
+      } else {
+        for (int t = 0; t < NT; ++t) {
+          phase_edges<0, S, T>(A, B, t);
+          phase_edges<1, S, T>(A, B, t);
+        }
+        for (int t = 0; t < NT; ++t) {
+          phase_iface<0, S, T>(A, B, t);
+          phase_iface<1, S, T>(A, B, t);
+        }
+        for (int t = 0; t < NT; ++t) {
+          phase_update<0, S, T>(A, B, t);
+          phase_update<1, S, T>(A, B, t);
+        }
       }
       // the warp max as a loop over the lanes (R[t / 32] is written only
       // after thread t / 32's own value has been read)
@@ -519,6 +657,11 @@ int dq2_weno5_acoustics_smem_bytes(int is_double) {
 int dq2_weno5_euler5_smem_bytes(int is_double) {
   return is_double ? (int)Layout<Euler5, double>::bytes
                    : (int)Layout<Euler5, float>::bytes;
+}
+
+// Threads per block of the Euler 5-wave instance (the others take 288).
+int dq2_weno5_euler5_threads(int is_double) {
+  return is_double ? Cfg<Euler5, double>::NT : Cfg<Euler5, float>::NT;
 }
 
 // One SharpClaw dq.  qbc: (NEQ, nxg, nyg) ghost-padded (3 ghost cells), dq:

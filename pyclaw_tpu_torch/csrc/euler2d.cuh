@@ -54,6 +54,29 @@ template <typename T> struct NoPar {};
 template <typename T> HD T mx(T a, T b) { return (a != a || a > b) ? a : b; }
 template <typename T> HD T mn(T a, T b) { return (a != a || a < b) ? a : b; }
 
+// a / b, rounded as IEEE's division.  With ZQ (float64 only), a zero
+// numerator over a finite nonzero denominator takes its signed zero from a
+// product: the card's float64 division takes its slow path for every zero
+// quotient, and a state with zero components (a tracer outside its
+// bubble, a gas at rest) gives one in most cells.  Both go through
+// rounding intrinsics; the quotient is the division's, bit for bit.  Used
+// only where the quotient feeds no product or sum that FMA contraction
+// could fuse otherwise than before: as a quotient of WENO5's weights
+// (weno5.cuh) or of the positivity test (dq2_systems.cuh).  Where it feeds
+// one (the flux's velocity, the tracer's Roe average), the card's build
+// contracted differently and moved the bits.
+template <bool ZQ> HD double qdiv(double a, double b) {
+#if defined(__CUDACC__)
+  if (ZQ) {
+    if (a == 0.0 && b != 0.0 && fabs(b) <= 1.7976931348623157e308)
+      return __dmul_rn(a, b);
+    return __ddiv_rn(a, b);
+  }
+#endif
+  return a / b;
+}
+template <bool ZQ> HD float qdiv(float a, float b) { return a / b; }
+
 // riemann/euler.py:_alpha34 — the dtype branch is part of the contract
 HD void alpha34(double g1, double a, double a2, double n3, double n4p,
                 double& a3, double& a4) {

@@ -37,11 +37,24 @@
 // Burgers (burgers_3D, added after the redesign) splits each fluctuation,
 // and each split part again (rptt3), by the sign of the state of the
 // cell the fluctuation enters; split_aux hands a SPLIT_Q system that
-// cell's staged state in place of its aux, and the other systems' code
-// is unchanged (the same SASS and bits, time_kernels --sass).  At 192^3
-// on the Gaussian pulse (PERF.md section 6; H100, 700 W) it takes 2.54 /
-// 6.01 ms (f32 / f64) with transverse_waves 2: its twenty rptt3 phases a
-// sweep cost more than the heterogeneous system's two.
+// cell's staged state in place of its aux.  It has a path of its own
+// (Lay::FUSED, the fused path): on the other systems' template its twenty
+// rptt3 phases a sweep, each a barrier over one block an SM with a
+// multiply or two an item, took 2.54 / 6.01 ms (f32 / f64) at 192^3 with
+// transverse_waves 2.  A part is a staged fluctuation times min or max of
+// the receiving cell's staged state (acoustics3d.cuh: rpt, rptt), so the
+// fused path computes each part where a flux gather adds it
+// (rptt_part, rptt_term): the gather of each transverse face takes its
+// rpt3 parts and its rptt3 terms in the order the staged phases added
+// them to that flux entry (the same operations on the same values: the
+// same bits), and the rpt and rptt phases, their barriers and the parts'
+// scratch go: 8 barriers a block, not ~65.  Its tile (8x8x8) and threads
+// (256) are its own, with launch bounds of 4 (f32) / 3 (f64) blocks an
+// SM: 28,736 / 57,472 B of shared memory a block (49,472 / 98,944 B with
+// a capacity function).  The other systems' code is unchanged (the same
+// SASS and bits, time_kernels --sass).  Against the staged path in one
+// call at 192^3 on the pulse (PERF.md section 6; H100, 700 W): 2.535 ->
+// 0.558 ms (f32), 6.015 -> 0.893 ms (f64), device time.
 //
 // Design: a block owns a tile of output cells and stages q, the aux rows
 // the system reads and, with a capacity function, the per-cell
@@ -92,14 +105,15 @@
 // shared memory does not hold (186 KB of 227 KB).
 //
 // Tile shape, chosen from the shared-memory budget (227 KB a block):
-// 8x8x8 cells in f32 and 4x6x8 in f64 for every system, one block per SM:
-// 32 warps (f32) / 16 warps (f64).  The faces' amdq/apdq share the rptt3
-// parts' scratch (they are read before the first rptt3 phase writes it).
-// step3_aos_smem_bytes reports each variant's bytes (f32 / f64, without
-// and with a capacity function):
+// 8x8x8 cells in f32 and 4x6x8 in f64 for every system but Burgers, one
+// block per SM: 32 warps (f32) / 16 warps (f64).  The faces' amdq/apdq
+// share the rptt3 parts' scratch (they are read before the first rptt3
+// phase writes it).  step3_aos_smem_bytes reports each variant's bytes
+// (f32 / f64, without and with a capacity function):
 //   heterogeneous acoustics  128,768 / 121,216 B; 149,504 / 144,256 B
 //   acoustics                154,112 / 145,792 B; 174,848 / 168,832 B
-//   advection, Burgers        41,696 /  39,616 B;  62,432 /  62,656 B
+//   advection                 41,696 /  39,616 B;  62,432 /  62,656 B
+//   Burgers (fused, 8x8x8)    28,736 /  57,472 B;  49,472 /  98,944 B
 //
 // Phases (each a loop of the block's threads over a region, separated by
 // barriers), for each sweep axis D in x, y, z:
@@ -113,7 +127,10 @@
 //     gather_split<E>   for both transverse axes E: the E-flux of each
 //                       E-face takes -dt/(2 dD) (bm, bp) of the splits of
 //                       amdq, then apdq, at its two neighbour cells
-//   with rptt3 (transverse_waves = 2), for each E and each fluctuation:
+//     (the fused path with transverse_waves = 2: the same phase, each
+//     gather also taking its face's rptt3 terms, computed in place)
+//   with rptt3 (transverse_waves = 2, staged), for each E and each
+//   fluctuation:
 //     rpt      split along E -> bm, bp (fluct<D> in the first one's phase)
 //     gather_e the E-flux of each E-face takes -dt/(2 dD) (bm, bp) of its
 //              two neighbour cells; rptt of bm along F
@@ -172,6 +189,32 @@ template <typename T> constexpr int NTB = Threads<T>::N;
 // the CFL fold keeps one slot per whole warp
 static_assert(NTB<float> % 32 == 0 && NTB<double> % 32 == 0,
               "whole warps per block");
+
+// The fused path of a SPLIT_Q system (Burgers): its tile, its threads and
+// the blocks an SM its launch bounds ask the registers for.  8x8x8 cells in
+// both types; 256 threads; 4 blocks in float32 (at most 64 registers, 28.7
+// KB of shared memory a block, 49.5 KB with a capacity function), 3 in
+// float64 (80 registers, 57.5 / 98.9 KB: a capacity function leaves 2).
+struct FusedShape {
+  static constexpr int X = 8, Y = 8, Z = 8;
+};
+template <typename T> struct FusedThreads;
+template <> struct FusedThreads<float> {
+  static constexpr int N = 256, MIN_BLOCKS = 4;
+};
+template <> struct FusedThreads<double> {
+  static constexpr int N = 256, MIN_BLOCKS = 3;
+};
+
+// the tile shape, threads and launch bound of system S's instances
+template <class S, typename T>
+using ShapeOf =
+    std::conditional_t<SplitQ<S>::value, FusedShape, Shape<T>>;
+template <class S, typename T>
+constexpr int NT_OF = SplitQ<S>::value ? FusedThreads<T>::N : NTB<T>;
+template <class S, typename T>
+constexpr int MIN_BLOCKS_OF =
+    SplitQ<S>::value ? FusedThreads<T>::MIN_BLOCKS : 1;
 // limiter ids an entry takes (one per wave; a system with fewer waves
 // reads the first of them)
 constexpr int NLIM = 5;
@@ -179,6 +222,10 @@ constexpr int NLIM = 5;
 // Shared-memory layout (offsets in elements)
 template <class S, typename T, class H, bool CAPA> struct Lay {
   static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
+  // the block's threads; whether the rpt3 and rptt3 parts are computed in
+  // the gathers (no scratch for them)
+  static constexpr int NT = NT_OF<S, T>;
+  static constexpr bool FUSED = SplitQ<S>::value;
   using R0 = Reg<H, 0>;
   using R1 = Reg<H, 1>;
   using R2 = Reg<H, 2>;
@@ -187,9 +234,10 @@ template <class S, typename T, class H, bool CAPA> struct Lay {
   static constexpr int CN = H::X * H::Y * H::Z;     // tile cells
   static constexpr int BM = CMAX(R0::BN, CMAX(R1::BN, R2::BN));
   static constexpr int FM = CMAX(R0::FN, CMAX(R1::FN, R2::FN));
-  // scratch (rptt3 only): [bm, bp 2 NEQ x BM | split parts along F
-  // 2 NEQ x BM]
-  static constexpr int US = S::HAS_RPTT ? 4 * NEQ * BM : 0;
+  // scratch (rptt3 only, not fused): [bm, bp 2 NEQ x BM | split parts
+  // along F 2 NEQ x BM]
+  static constexpr bool STAGED_RPTT = S::HAS_RPTT && !FUSED;
+  static constexpr int US = STAGED_RPTT ? 4 * NEQ * BM : 0;
   static_assert(FM <= BM, "the faces' fluctuations fit the parts' scratch");
   static constexpr int oAX = NEQ * QN;
   static constexpr int oDT = oAX + NAUX * QN;
@@ -202,10 +250,10 @@ template <class S, typename T, class H, bool CAPA> struct Lay {
   // amdq, apdq at the faces: written in the sweep phase and read by
   // fluct<D> before the first rptt3 phase writes the split parts along F,
   // so with rptt3 they take the parts' scratch
-  static constexpr int oAMF = oU + (S::HAS_RPTT ? 2 * NEQ * BM : 0);
+  static constexpr int oAMF = oU + (STAGED_RPTT ? 2 * NEQ * BM : 0);
   static constexpr int oRED = CMAX(oU + US, oAMF + 2 * NEQ * FM);
   // RED: the CFL partial of each thread, then of each warp
-  static constexpr size_t elems = oRED + NTB<T> + NTB<T> / 32;
+  static constexpr size_t elems = oRED + NT + NT / 32;
   static constexpr size_t bytes = elems * sizeof(T);
 };
 
@@ -287,7 +335,7 @@ HD void phase_load(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using L = Lay<S, T, H, CAPA>;
   constexpr int NF = L::NEQ + L::NAUX + (CAPA ? 1 : 0);
   const long long plane = (long long)A.N[0] * A.N[1] * A.N[2];
-  for (int idx = tid; idx < NF * L::QN; idx += NTB<T>) {
+  for (int idx = tid; idx < NF * L::QN; idx += L::NT) {
     const int f = idx / L::QN, r = idx % L::QN;
     int c[3];
     dec<L::Q0, L::Q1, L::Q2>(r, c);
@@ -306,13 +354,13 @@ HD void phase_load(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
       copy_async(B.DT + 2 * L::QN + r, A.aux + A.capa * plane + off);
     }
   }
-  for (int idx = tid; idx < L::oTR - L::oF0; idx += NTB<T>) B.F[0][idx] = T(0);
+  for (int idx = tid; idx < L::oTR - L::oF0; idx += L::NT) B.F[0][idx] = T(0);
   B.RED[tid] = T(0);
   // the block's coefficients of dt while the copies land
   if (tid < NCOEF3) A.C[tid] = coef3<T>(*A.dt, A.dd, tid);
   copy_wait_all();
   if (CAPA) {
-    for (int idx = tid; idx < NF * L::QN; idx += NTB<T>) {
+    for (int idx = tid; idx < NF * L::QN; idx += L::NT) {
       if (idx < (NF - 1) * L::QN) continue;
       const int r = idx - (NF - 1) * L::QN;
       // dt / (dD kappa): the plain version's 0-d dt over (dD * kappa)
@@ -350,7 +398,7 @@ HD void phase_sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   T* AMf = B.AMf();
   T* APf = B.APf();
   T cfl = B.RED[tid];
-  for (int idx = tid; idx < R::BN; idx += NTB<T>) {
+  for (int idx = tid; idx < R::BN; idx += L::NT) {
     int b[3];
     dec<R::B0, R::B1, R::B2>(idx, b);
     // the interface's left and right cells (staged indices)
@@ -464,7 +512,7 @@ HD void phase_fluct(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using L = Lay<S, T, H, CAPA>;
   const T* AMf = B.AMf();
   const T* APf = B.APf();
-  for (int idx = tid; idx < L::CN; idx += NTB<T>) {
+  for (int idx = tid; idx < L::CN; idx += L::NT) {
     int c[3];
     dec<H::X, H::Y, H::Z>(idx, c);
     const T dtd = B.template dtd<D>(A, B.cell(c[0] + 2, c[1] + 2, c[2] + 2));
@@ -503,7 +551,7 @@ HD void phase_rpt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using L = Lay<S, T, H, CAPA>;
   constexpr int NEQ = L::NEQ;
   T* BB = B.U;
-  for (int idx = tid; idx < R::BN; idx += NTB<T>) {
+  for (int idx = tid; idx < R::BN; idx += L::NT) {
     int b[3];
     dec<R::B0, R::B1, R::B2>(idx, b);
     // the receiving cell: left (IMP 1) or right (IMP 2) of the interface
@@ -534,7 +582,7 @@ HD void phase_gather_e(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   constexpr int F = 3 - D - E;
   const T* BB = B.U;
   T* FE = B.F[E];
-  for (int idx = tid; idx < RE::FN; idx += NTB<T>) {
+  for (int idx = tid; idx < RE::FN; idx += L::NT) {
     int c[3], k[3];
     dec<RE::F0, RE::F1, RE::F2>(idx, c);
     k[D] = c[D] + 1 - (IMP - 1);
@@ -598,13 +646,82 @@ HD void gather_split_one(const Args<T>& A, const Block<S, T, H, CAPA>& B,
   for (int e = 0; e < L::NEQ; ++e) fe[e] += -(h_bm * bm[e] + h_bp * bp[e]);
 }
 
+// ---- the fused path (Lay::FUSED: a SPLIT_Q system with transverse_waves
+// 2): the rptt3 parts that phase_rptt would stage, computed where
+// phase_gather_f gathers them.  Part W (0: cm, 1: cp) of the rptt3 split
+// along F of rpt3 part PART (0: bm, 1: bp) of fluctuation IMP at
+// D-interface k, scaled as phase_rptt scales it: the same operations on
+// the same staged values, so the same bits.
+template <int D, int E, int IMP, int PART, int W, class S, typename T,
+          class H, bool CAPA>
+HD T rptt_part(const Args<T>& A, const Block<S, T, H, CAPA>& B,
+               const int k[3]) {
+  using L = Lay<S, T, H, CAPA>;
+  constexpr int F = 3 - D - E;
+  int l[3] = {k[0] + 1, k[1] + 1, k[2] + 1};
+  l[D] += IMP - 1;
+  T co = A.C[K3_CO2 + 3 * D + E];
+  if (CAPA)
+    co = A.C[K3_CO6 + E] * B.DT[D * L::QN + B.cell(l[0], l[1], l[2])];
+  if (PART == 0) co = -co;
+  T bm[L::NEQ], bp[L::NEQ];
+  split_at<D, E, IMP>(A, B, k, bm, bp);
+  T ab[L::NAUX + 1], ac[L::NAUX + 1], aa[L::NAUX + 1];
+  split_aux<F>(B, l, ab, ac, aa);
+  T cm[L::NEQ], cp[L::NEQ];
+  S::template rptt<F, T>(A.P, ab, ac, aa, PART == 0 ? bm : bp, cm, cp);
+  return co * (W == 0 ? cm[0] : cp[0]);
+}
+
+// What phase_gather_f<D, E, IMP, PART> adds to the F-flux at face c (F =
+// 3 - D - E): the parts of its own e-row minus the crossing one's
+template <int D, int E, int IMP, int PART, class S, typename T, class H,
+          bool CAPA>
+HD T rptt_term(const Args<T>& A, const Block<S, T, H, CAPA>& B,
+               const int c[3]) {
+  constexpr int F = 3 - D - E;
+  int k[3];
+  k[D] = c[D] + 1 - (IMP - 1);
+  k[E] = c[E] + 1;
+  k[F] = c[F] + 1;
+  const T own_m = rptt_part<D, E, IMP, PART, 0>(A, B, k);
+  k[F] = c[F];
+  const T own_p = rptt_part<D, E, IMP, PART, 1>(A, B, k);
+  k[E] = c[E] + 1 + (PART == 0 ? 1 : -1);
+  const T x_p = rptt_part<D, E, IMP, PART, 1>(A, B, k);
+  k[F] = c[F] + 1;
+  const T x_m = rptt_part<D, E, IMP, PART, 0>(A, B, k);
+  const T own = own_m + own_p;
+  const T cross = -x_m - x_p;
+  return own + cross;
+}
+
+// The four rptt3 terms of the X-flux at face c, in the order of the staged
+// path's phases: the rpt3 parts split along the other transverse axis E,
+// of amdq (IMP 1) then apdq, bm then bp
+template <int D, int X, class S, typename T, class H, bool CAPA>
+HD void rptt_terms(const Args<T>& A, const Block<S, T, H, CAPA>& B,
+                   const int c[3], T* fe) {
+  constexpr int E = 3 - D - X;
+  fe[0] += rptt_term<D, E, 1, 0>(A, B, c);
+  fe[0] += rptt_term<D, E, 1, 1>(A, B, c);
+  fe[0] += rptt_term<D, E, 2, 0>(A, B, c);
+  fe[0] += rptt_term<D, E, 2, 1>(A, B, c);
+}
+
+// The E-flux gathers the rpt3 parts of its two neighbours, splitting them
+// as it goes; on the fused path with transverse_waves 2 it also takes the
+// rptt3 terms (computed in place, rptt_terms), in the staged path's order:
+// the lower transverse axis its rpt3 parts first (the staged path's first
+// two transverse passes split along it), the upper one last.
 template <int D, int E, class S, typename T, class H, bool CAPA>
 HD void phase_gather_split(const Args<T>& A, Block<S, T, H, CAPA>& B,
                            int tid) {
   using RE = Reg<H, E>;
   using L = Lay<S, T, H, CAPA>;
+  constexpr bool LOWER = E < 3 - D - E;
   T* FE = B.F[E];
-  for (int idx = tid; idx < RE::FN; idx += NTB<T>) {
+  for (int idx = tid; idx < RE::FN; idx += L::NT) {
     int c[3];
     dec<RE::F0, RE::F1, RE::F2>(idx, c);
     T h_bm = A.C[K3_HALF + D], h_bp = h_bm;
@@ -617,8 +734,14 @@ HD void phase_gather_split(const Args<T>& A, Block<S, T, H, CAPA>& B,
     }
     T fe[L::NEQ];
     for (int e = 0; e < L::NEQ; ++e) fe[e] = FE[e * RE::FN + idx];
+    if constexpr (L::FUSED && !LOWER) {
+      if (A.tw >= 2) rptt_terms<D, E>(A, B, c, fe);
+    }
     gather_split_one<D, E, 1>(A, B, c, h_bm, h_bp, fe);
     gather_split_one<D, E, 2>(A, B, c, h_bm, h_bp, fe);
+    if constexpr (L::FUSED && LOWER) {
+      if (A.tw >= 2) rptt_terms<D, E>(A, B, c, fe);
+    }
     for (int e = 0; e < L::NEQ; ++e) FE[e * RE::FN + idx] = fe[e];
   }
 }
@@ -635,7 +758,7 @@ HD void phase_rptt(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   constexpr int F = 3 - D - E;
   const T* BB = B.U;
   T* TB = B.U + 2 * NEQ * L::BM;
-  for (int idx = tid; idx < R::BN; idx += NTB<T>) {
+  for (int idx = tid; idx < R::BN; idx += L::NT) {
     int b[3];
     dec<R::B0, R::B1, R::B2>(idx, b);
     int l[3] = {b[0] + 1, b[1] + 1, b[2] + 1};
@@ -670,7 +793,7 @@ HD void phase_gather_f(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using RF = Reg<H, F>;
   const T* TB = B.U + 2 * NEQ * L::BM;
   T* FF = B.F[F];
-  for (int idx = tid; idx < RF::FN; idx += NTB<T>) {
+  for (int idx = tid; idx < RF::FN; idx += L::NT) {
     int c[3], k[3];
     dec<RF::F0, RF::F1, RF::F2>(idx, c);
     k[D] = c[D] + 1 - (IMP - 1);
@@ -699,7 +822,7 @@ HD void phase_update(const Args<T>& A, Block<S, T, H, CAPA>& B, int tid) {
   using R1 = Reg<H, 1>;
   using R2 = Reg<H, 2>;
   const int n0 = A.N[0] - 4, n1 = A.N[1] - 4, n2 = A.N[2] - 4;
-  for (int idx = tid; idx < L::CN; idx += NTB<T>) {
+  for (int idx = tid; idx < L::CN; idx += L::NT) {
     int c[3];
     dec<H::X, H::Y, H::Z>(idx, c);
     const int I0 = B.C0[0] + c[0], I1 = B.C0[1] + c[1], I2 = B.C0[2] + c[2];
@@ -762,9 +885,10 @@ HD void sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, const X& run) {
     if (D < 2) run([&](int t) { phase_fluct<D>(A, B, t); });
     return;
   }
-  // the rptt3 phases exist only for systems that have rptt3 (their scratch,
-  // Lay::US, is empty in the others)
-  if constexpr (S::HAS_RPTT) {
+  // the rptt3 phases exist only for systems that stage rptt3 parts (their
+  // scratch, Lay::US, is empty in the others); the fused path gathers them
+  // in the one phase below
+  if constexpr (Lay<S, T, H, CAPA>::STAGED_RPTT) {
     if (A.tw >= 2) {
       transverse_one<D, E1, 1>(A, B, run, [&](int t) {
         phase_fluct<D>(A, B, t);
@@ -782,21 +906,21 @@ HD void sweep(const Args<T>& A, Block<S, T, H, CAPA>& B, const X& run) {
   });
 }
 
-// fold thread t's CFL partial into its warp's slot: a shuffle max on the
-// card, a loop over the lanes on the host
-template <typename T> HD void warp_fold(T* red, int t) {
+// fold thread t's CFL partial into its warp's slot (a block of NT
+// threads): a shuffle max on the card, a loop over the lanes on the host
+template <int NT, typename T> HD void warp_fold(T* red, int t) {
 #if defined(__CUDACC__)
   const T m = warp_max(red[t]);
-  if (t % 32 == 0) red[NTB<T> + t / 32] = m;
+  if (t % 32 == 0) red[NT + t / 32] = m;
 #else
-  red[NTB<T> + t / 32] = t % 32 == 0 ? red[t] : mx(red[NTB<T> + t / 32], red[t]);
+  red[NT + t / 32] = t % 32 == 0 ? red[t] : mx(red[NT + t / 32], red[t]);
 #endif
 }
 
 // the block's CFL partial from the warps' slots
-template <typename T> HD T block_cfl(const T* red) {
-  T m = red[NTB<T>];
-  for (int w = 1; w < NTB<T> / 32; ++w) m = mx(m, red[NTB<T> + w]);
+template <int NT, typename T> HD T block_cfl(const T* red) {
+  T m = red[NT];
+  for (int w = 1; w < NT / 32; ++w) m = mx(m, red[NT + w]);
   return m;
 }
 
@@ -809,7 +933,7 @@ HD void step_block(const Args<T>& A, Block<S, T, H, CAPA>& B, const X& run) {
   run([&](int t) {
     if (A.tw == 0) phase_fluct<2>(A, B, t);
     phase_update(A, B, t);
-    warp_fold(B.RED, t);
+    warp_fold<Lay<S, T, H, CAPA>::NT>(B.RED, t);
   });
 }
 
@@ -852,7 +976,7 @@ template <typename T> int nblocks(const Args<T>& A) {
 }
 
 template <class S, typename T, bool CAPA> constexpr size_t smem_bytes() {
-  return Lay<S, T, Shape<T>, CAPA>::bytes;
+  return Lay<S, T, ShapeOf<S, T>, CAPA>::bytes;
 }
 
 template <class S> int smem_of(bool capa, bool is_double) {
@@ -873,8 +997,9 @@ struct DeviceRun {
 };
 
 template <class S, typename T, bool CAPA, bool FWAVE>
-__global__ void __launch_bounds__(NTB<T>, 1) step3_aos_kernel(Args<T> A) {
-  using H = Shape<T>;
+__global__ void __launch_bounds__(NT_OF<S, T>, MIN_BLOCKS_OF<S, T>)
+    step3_aos_kernel(Args<T> A) {
+  using H = ShapeOf<S, T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T coef[NCOEF3];
   A.C = coef;
@@ -882,20 +1007,40 @@ __global__ void __launch_bounds__(NTB<T>, 1) step3_aos_kernel(Args<T> A) {
   B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x);
   tile_origin<H>(A.nb, B.bid, B.C0);
   step_block<FWAVE>(A, B, DeviceRun());
-  if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(B.RED);
+  if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl<NT_OF<S, T>>(B.RED);
+}
+
+// the devices whose shared-memory attribute of the instance is set
+template <class S, typename T, bool CAPA, bool FWAVE>
+unsigned long long attr_done = 0;
+
+template <class S, typename T, bool CAPA, bool FWAVE>
+cudaError_t set_smem() {
+  return smem_attr_once(
+      reinterpret_cast<const void*>(step3_aos_kernel<S, T, CAPA, FWAVE>),
+      (int)smem_bytes<S, T, CAPA>(), attr_done<S, T, CAPA, FWAVE>);
 }
 
 template <class S, typename T, bool CAPA, bool FWAVE>
-int launch(const Args<T>& A, void* stream) {
-  constexpr size_t bytes = smem_bytes<S, T, CAPA>();
-  static unsigned long long attr_done = 0;
-  cudaError_t err = smem_attr_once(
-      reinterpret_cast<const void*>(step3_aos_kernel<S, T, CAPA, FWAVE>),
-      (int)bytes, attr_done);
+int launch(Args<T> A, void* stream) {
+  cudaError_t err = set_smem<S, T, CAPA, FWAVE>();
   if (err != cudaSuccess) return (int)err;
+  tile_counts<ShapeOf<S, T>>(A.N, A.nb);
   step3_aos_kernel<S, T, CAPA, FWAVE>
-      <<<nblocks(A), NTB<T>, bytes, static_cast<cudaStream_t>(stream)>>>(A);
+      <<<nblocks(A), NT_OF<S, T>, smem_bytes<S, T, CAPA>(),
+         static_cast<cudaStream_t>(stream)>>>(A);
   return (int)cudaGetLastError();
+}
+
+// resident blocks an SM of an instance on the current device, or -1
+template <class S, typename T, bool CAPA, bool FWAVE> int blocks_per_sm() {
+  int per = 0;
+  if (set_smem<S, T, CAPA, FWAVE>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, step3_aos_kernel<S, T, CAPA, FWAVE>, NT_OF<S, T>,
+          smem_bytes<S, T, CAPA>()) != cudaSuccess)
+    return -1;
+  return per;
 }
 #else
 // Host emulation: the same phases, one block and one "thread" at a time;
@@ -910,16 +1055,17 @@ template <int N> struct HostRun {
 
 template <class S, typename T, bool CAPA, bool FWAVE>
 int launch(Args<T> A, void*) {
-  using H = Shape<T>;
+  using H = ShapeOf<S, T>;
   std::vector<T> smem(Lay<S, T, H, CAPA>::elems);
   T coef[NCOEF3];
   A.C = coef;
+  tile_counts<H>(A.N, A.nb);
   for (int b = 0; b < nblocks(A); ++b) {
     Block<S, T, H, CAPA> B;
     B.bind(smem.data(), b);
     tile_origin<H>(A.nb, B.bid, B.C0);
-    step_block<FWAVE>(A, B, HostRun<NTB<T>>());
-    A.cflb[b] = block_cfl(B.RED);
+    step_block<FWAVE>(A, B, HostRun<NT_OF<S, T>>());
+    A.cflb[b] = block_cfl<NT_OF<S, T>>(B.RED);
   }
   return 0;
 }
@@ -937,6 +1083,27 @@ int dispatch_flags(const Args<T>& A, bool capa, bool fwave, void* stream) {
   }
   return fwave ? launch<S, T, false, true>(A, stream)
                : launch<S, T, false, false>(A, stream);
+}
+
+// fn(tag) for the system of id sys (tag's ::type), or -1 for another id
+template <class S> struct SystemTag {
+  using type = S;
+};
+template <class Fn> int with_system(int sys, Fn&& fn) {
+  switch (sys) {
+    case SYS_VC_ACOUSTICS: return fn(SystemTag<VcAcoustics3D>());
+    case SYS_ACOUSTICS: return fn(SystemTag<Acoustics3D>());
+    case SYS_ADVECTION: return fn(SystemTag<Advection3D>());
+    case SYS_BURGERS: return fn(SystemTag<Burgers3D>());
+    default: return -1;
+  }
+}
+
+template <class S, typename T> int system_blocks(int nxg, int nyg, int nzg) {
+  const int N[3] = {nxg, nyg, nzg};
+  int nb[3];
+  tile_counts<ShapeOf<S, T>>(N, nb);
+  return nb[0] * nb[1] * nb[2];
 }
 
 template <typename T>
@@ -968,7 +1135,9 @@ int step(const void* qbc, const void* aux, void* qout, void* cflb, int nxg,
 // ---- plain C interface (loaded with ctypes) -----------------------------
 extern "C" {
 
-// Number of blocks (= CFL partials) the kernel writes for a padded grid.
+// Number of blocks (= CFL partials) the instances of the systems other
+// than Burgers write for a padded grid (step3_aos_system_blocks: each
+// system's).
 int step3_aos_blocks(int nxg, int nyg, int nzg, int is_double) {
   const int lim[NLIM] = {0, 0, 0, 0, 0};
   const double prm[3] = {0, 0, 0};
@@ -981,10 +1150,51 @@ int step3_aos_blocks(int nxg, int nyg, int nzg, int is_double) {
                                   lim));
 }
 
-// Threads per block (reported by chip_smoke.py).
+// Threads per block of the systems other than Burgers (reported by
+// chip_smoke.py; step3_aos_system_threads: each system's).
 int step3_aos_threads(int is_double) {
   return is_double ? NTB<double> : NTB<float>;
 }
+
+// Number of blocks (= CFL partials) the instances of system id `system`
+// write for a padded grid (Burgers has a tile of its own), or -1.
+int step3_aos_system_blocks(int system, int nxg, int nyg, int nzg,
+                            int is_double) {
+  return with_system(system, [&](auto tag) {
+    using S = typename decltype(tag)::type;
+    return is_double ? system_blocks<S, double>(nxg, nyg, nzg)
+                     : system_blocks<S, float>(nxg, nyg, nzg);
+  });
+}
+
+// Threads per block of system id `system`'s instances, or -1.
+int step3_aos_system_threads(int system, int is_double) {
+  return with_system(system, [&](auto tag) {
+    using S = typename decltype(tag)::type;
+    return is_double ? NT_OF<S, double> : NT_OF<S, float>;
+  });
+}
+
+#if defined(__CUDACC__)
+// Resident blocks per SM of an instance of system id `system` on the
+// current device (reported by chip_smoke.py), or -1.
+int step3_aos_system_blocks_per_sm(int system, int capa, int fwave,
+                                   int is_double) {
+  return with_system(system, [&](auto tag) {
+    using S = typename decltype(tag)::type;
+    if (is_double) {
+      return capa ? (fwave ? blocks_per_sm<S, double, true, true>()
+                           : blocks_per_sm<S, double, true, false>())
+                  : (fwave ? blocks_per_sm<S, double, false, true>()
+                           : blocks_per_sm<S, double, false, false>());
+    }
+    return capa ? (fwave ? blocks_per_sm<S, float, true, true>()
+                         : blocks_per_sm<S, float, true, false>())
+                : (fwave ? blocks_per_sm<S, float, false, true>()
+                         : blocks_per_sm<S, float, false, false>());
+  });
+}
+#endif
 
 // Shared memory bytes per block (reported by chip_smoke.py).
 int step3_aos_smem_bytes(int system, int capa, int is_double) {

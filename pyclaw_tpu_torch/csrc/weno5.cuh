@@ -55,10 +55,14 @@ HD Weno5W<double> weno5_w(const double b[3]) {
   const double ib2 = 1.0 / (t * t);
   return {0.1 * ib0, 0.6 * ib1, 0.3 * ib2, 0.3 * ib0, 0.6 * ib1, 0.1 * ib2};
 }
+// (ZQ: euler2d.cuh's qdiv)
+template <bool ZQ = false>
 HD void weno5_apply(const Weno5W<double>& w, const double p[3],
                     const double m[3], double& ql, double& qr) {
-  qr = (w.a0 * p[0] + w.a1 * p[1] + w.a2 * p[2]) / (w.a0 + w.a1 + w.a2);
-  ql = (w.c0 * m[0] + w.c1 * m[1] + w.c2 * m[2]) / (w.c0 + w.c1 + w.c2);
+  qr = qdiv<ZQ>(w.a0 * p[0] + w.a1 * p[1] + w.a2 * p[2],
+                w.a0 + w.a1 + w.a2);
+  ql = qdiv<ZQ>(w.c0 * m[0] + w.c1 * m[1] + w.c2 * m[2],
+                w.c0 + w.c1 + w.c2);
 }
 
 // float32: normalised betas scaled by 1e3, one reciprocal for both edges
@@ -82,6 +86,7 @@ HD Weno5W<float> weno5_w(const float b[3]) {
   const float inv = 1.0f / (den_r * den_l);
   return {a0, a1, a2, c0, c1, c2, den_l * inv, den_r * inv};
 }
+template <bool ZQ = false>
 HD void weno5_apply(const Weno5W<float>& w, const float p[3],
                     const float m[3], float& ql, float& qr) {
   qr = (w.a0 * p[0] + w.a1 * p[1] + w.a2 * p[2]) * w.fr;
@@ -90,11 +95,11 @@ HD void weno5_apply(const Weno5W<float>& w, const float p[3],
 
 // the edge values of one stencil: its betas and candidate values, then the
 // weights of its type
-template <typename T>
+template <bool ZQ = false, typename T>
 HD void weno5(T vm2, T vm1, T v0, T vp1, T vp2, T& ql, T& qr) {
   T b[3], p[3], m[3];
   weno5_betas_polys(vm2, vm1, v0, vp1, vp2, b, p, m);
-  weno5_apply(weno5_w(b), p, m, ql, qr);
+  weno5_apply<ZQ>(weno5_w(b), p, m, ql, qr);
 }
 
 }  // namespace

@@ -634,9 +634,30 @@ def bind_step3_aos_lib(lib):
                            f"the wrapper passes {STEP3_AOS_LIMITERS}")
     _build.bind_dt(lib, ("step3_aos_f32", "step3_aos_f64"),
                    STEP3_AOS_ARGTYPES, 10)
+    return bind_step3_aos_lib_counts(lib)
+
+
+def bind_step3_aos_lib_counts(lib):
+    """Set the argument types of the block-count entries of a build of
+    ``csrc/step3_aos.cu`` (also of its host emulation); returns it."""
     lib.step3_aos_blocks.argtypes = [ctypes.c_int] * 4
     lib.step3_aos_blocks.restype = ctypes.c_int
+    if hasattr(lib, "step3_aos_system_blocks"):
+        lib.step3_aos_system_blocks.argtypes = [ctypes.c_int] * 5
+        lib.step3_aos_system_blocks.restype = ctypes.c_int
     return lib
+
+
+def step3_aos_blocks(lib, system, nxg, nyg, nzg, is_double):
+    """The CFL partials a build of ``csrc/step3_aos.cu`` (``lib``, bound by
+    :func:`bind_step3_aos_lib`) writes for system id ``system`` on a padded
+    grid: ``step3_aos_system_blocks`` (Burgers has a tile of its own); an
+    earlier build without it has one tile per type
+    (``step3_aos_blocks``)."""
+    if hasattr(lib, "step3_aos_system_blocks"):
+        return lib.step3_aos_system_blocks(system, nxg, nyg, nzg,
+                                           int(is_double))
+    return lib.step3_aos_blocks(nxg, nyg, nzg, int(is_double))
 
 
 @functools.cache
@@ -717,8 +738,8 @@ def step3_xy_generic(qbc, auxbc, dt, dx, dy, dz, rp, params, mthlim, order,
     lib = _step3_aos_lib() if lib is None else lib
     q_out = _build.out_tensor("step3_xy_generic", out,
                               (rp.num_eqn, nxg - 4, nyg - 4, nzg - 4), qbc)
-    cfl_blocks = torch.empty((lib.step3_aos_blocks(nxg, nyg, nzg,
-                                                   int(is_double)),),
+    cfl_blocks = torch.empty((step3_aos_blocks(lib, system, nxg, nyg, nzg,
+                                               is_double),),
                              dtype=qbc.dtype, device=qbc.device)
     fn = lib.step3_aos_f64 if is_double else lib.step3_aos_f32
     dt_ptr, _dt = _build.dt_arg(dt, qbc)

@@ -515,6 +515,43 @@ def step3_aos_burgers_case(n, dtype, dev):
                        -1, 2, 2)
 
 
+# burgers_3D's options (transverse_waves, order, limiter, index_capa,
+# fwave, efix) that chip_smoke.py [3o] holds against the plain version:
+# every transverse_waves and order, MC, minmod, the CFL-dependent id 10
+# and van Leer, a capacity row, the f-wave form, the entropy fix on and
+# off; the first is the Burgers 3D run's.  Each is timed at 192^3 on the
+# pulse and on a ragged grid of several tiles on a seeded state of either
+# sign (transonic interfaces).
+BURGERS3D_OPTS = [(2, 2, 4, -1, False, True), (1, 2, 1, 0, False, False),
+                  (0, 1, 4, -1, False, True), (2, 2, 10, 0, True, True),
+                  (2, 1, 3, 0, False, False)]
+BURGERS3D_RAGGED = (17, 13, 9)
+
+
+def step3_aos_burgers_variant_case(k, shape, dtype, dev, seed=15):
+    """step3_aos's burgers_3D instance with option k of
+    :data:`BURGERS3D_OPTS` on ``shape`` cells: the pulse of
+    :func:`gaussian_state` (a cube, as the Burgers 3D run) or a seeded
+    standard normal state (another shape), a seeded capacity row in
+    0.7 .. 1.3 where the option has one; qbc, auxbc (or None) and the rest
+    of ``tiled2d.step3_xy_generic``'s arguments (dt = 0.45 min(dx), dx =
+    1/n an axis)."""
+    from .. import riemann
+    tw, order, lim, capa, fwave, efix = BURGERS3D_OPTS[k]
+    rng = np.random.default_rng(seed + k)
+    cube = len(set(shape)) == 1
+    q = gaussian_state(shape) if cube else rng.standard_normal((1,) + shape)
+    qbc = padded3(q, dtype, dev).contiguous()
+    auxbc = None
+    if capa >= 0:
+        kappa = 0.7 + 0.6 * rng.random((1,) + shape)
+        auxbc = padded3_aux(kappa, dtype, dev).contiguous()
+    d = tuple(1.0 / n for n in shape)
+    return qbc, auxbc, (_dt(0.45 * min(d), dtype, dev), *d,
+                        riemann.burgers_3D, {"efix": efix}, (lim,), order,
+                        fwave, capa, 2, tw)
+
+
 def dq_euler5_case(n, dtype, dev):
     """dq2_weno5's Euler 5-wave instance's timed case at 2n x n/2 (the
     cells of n^2): qbc (the shock-bubble state, 3 ghost cells) and the
@@ -783,36 +820,65 @@ def _step3_ctu_call(dtype, dev, n=192):
     return make
 
 
+def dq_euler5_ragged_case(dtype, dev):
+    """dq2_weno5's Euler 5-wave instance on the ragged 250x171 state of
+    :func:`dq_weno_case` at WENO order 5 (several 16x16 tiles, partial
+    ones on both axes; low-density pockets take the positivity fallback):
+    qbc and the rest of ``tiled2d.dq_rows``'s arguments and the system."""
+    from .. import riemann
+    tname = str(dtype).split(".")[1]
+    qbc, dt, dx, dy = dq_weno_case("euler_5wave_2D", 5, tname, dev,
+                                   big=False)
+    return qbc, (dt, dx, dy, {"gamma": 1.4}), riemann.euler_5wave_2D
+
+
 def _dq_call(dtype, dev, n=1024):
+    """dq2_weno5's Euler 4-wave instance on the quadrants at n^2, its Euler
+    5-wave instance on the shock bubble at 2n x n/2 and at the [4q]
+    SharpClaw path's n x n/4, and on the ragged fallback state; each
+    Euler 5-wave call also gives its CFL partials (``.partials``)."""
     from . import tiled2d
     from .. import riemann
     qbc, args = dq_case(n, dtype, dev)
     makes = {}
-    for label, (qbc, args, rp) in (
-            ("", (qbc, args, riemann.euler_4wave_2D)),
-            ("euler5", dq_euler5_case(n, dtype, dev))):
+    for label, case in (
+            ("", lambda: (qbc, args, riemann.euler_4wave_2D)),
+            ("euler5", lambda: dq_euler5_case(n, dtype, dev)),
+            ("euler5 path", lambda: dq_euler5_case(n // 2, dtype, dev)),
+            ("euler5 ragged", lambda: dq_euler5_ragged_case(dtype, dev))):
+        # the state is made at the first variant's call
+        case = functools.cache(case)
 
-        def make(lib, source=None, qbc=qbc, args=args, rp=rp):
+        def make(lib, source=None, case=case, label=label):
             lib = tiled2d.bind_dq_lib(lib)
+            qbc, args, rp = case()
             if not tiled2d.dq_build_takes(lib, rp):
                 return None        # an earlier build without the system
-            return lambda: tiled2d.dq_rows(qbc, *args, lib=lib, rp=rp)
+
+            def call():
+                return tiled2d.dq_rows(qbc, *args, lib=lib, rp=rp)
+            if label:
+                call.partials = lambda: dq_weno_partials(
+                    lib, qbc, *args, 5, rp)
+            return call
         makes[label] = make
     return makes
 
 
 def dq_weno_partials(lib, qbc, dt, dx, dy, params, order, rp):
     """The CFL partial of each block of one launch of a build of
-    ``csrc/dq2_weno.cu`` (``lib`` bound by ``tiled2d.bind_dq_weno_lib``):
-    the launch ``tiled2d.dq_rows`` makes, without its max over the
-    partials."""
+    ``csrc/dq2_weno.cu`` (``lib`` bound by ``tiled2d.bind_dq_weno_lib``),
+    or of ``csrc/dq2_weno5.cu`` at order 5 (bound by
+    ``tiled2d.bind_dq_lib``): the launch ``tiled2d.dq_rows`` makes,
+    without its max over the partials."""
     from . import tiled2d
     k = (order + 1) // 2
     _, nxg, nyg = qbc.shape
     dq = torch.empty((rp.num_eqn, nxg - 2 * k, nyg - 2 * k), dtype=qbc.dtype,
                      device=qbc.device)
-    cflb = torch.empty((lib.dq2_weno_blocks(nxg, nyg, order),),
-                       dtype=qbc.dtype, device=qbc.device)
+    nblocks = (lib.dq2_weno5_blocks(nxg, nyg) if order == 5
+               else lib.dq2_weno_blocks(nxg, nyg, order))
+    cflb = torch.empty((nblocks,), dtype=qbc.dtype, device=qbc.device)
     prefix = tiled2d.dq_weno_entry(rp.name, order)
     fn = getattr(lib, prefix + ("_f64" if qbc.dtype == torch.float64
                                 else "_f32"))
@@ -859,14 +925,28 @@ def _dq_weno_call(dtype, dev):
 
 
 def _step3_aos_call(dtype, dev, n=192):
+    """step3_aos's heterogeneous-acoustics case and its Burgers cases: the
+    Burgers 3D run's (``burgers``), each other option of
+    :data:`BURGERS3D_OPTS` on the pulse at n^3 (``burgers v<k>``) and every
+    option on the ragged grid (``burgers ragged v<k>``)."""
     from . import tiled2d
     makes = {}
-    for label, case in (("", step3_aos_case),
-                        ("burgers", step3_aos_burgers_case)):
-        qbc, auxbc, args = case(n, dtype, dev)
+    cases = [("", lambda: step3_aos_case(n, dtype, dev)),
+             ("burgers", lambda: step3_aos_burgers_case(n, dtype, dev))]
+    cases += [(f"burgers v{k}", lambda k=k: step3_aos_burgers_variant_case(
+        k, (n,) * 3, dtype, dev)) for k in range(1, len(BURGERS3D_OPTS))]
+    cases += [(f"burgers ragged v{k}",
+               lambda k=k: step3_aos_burgers_variant_case(
+                   k, BURGERS3D_RAGGED, dtype, dev))
+              for k in range(len(BURGERS3D_OPTS))]
+    for label, case in cases:
+        # the state is made at the first variant's call (so that --only
+        # makes none of the others)
+        case = functools.cache(case)
 
-        def make(lib, source=None, qbc=qbc, auxbc=auxbc, args=args):
+        def make(lib, source=None, case=case):
             lib = tiled2d.bind_step3_aos_lib(lib)
+            qbc, auxbc, args = case()
             if not tiled2d.step3_build_takes(lib, args[4]):
                 return None        # an earlier build without the system
             return lambda: tiled2d.step3_xy_generic(qbc, auxbc, *args,
@@ -1153,6 +1233,37 @@ def step2_aos_instance(function):
     if m is None:
         return None
     return (STEP2_AOS_EULER[m.group(1)],
+            "float32" if m.group(2) == "f" else "float64",
+            m.group(3) == "1", m.group(4) == "1")
+
+
+def dq2_weno5_instance(function):
+    """(system name, type name) of the mangled name of an instance of
+    ``csrc/dq2_weno5.cu``'s kernel, or None for another function."""
+    m = re.search(r"dq2_weno5_kernelINS_\d+(Euler4|Euler5|Acoustics)E([fd])E",
+                  function)
+    if m is None:
+        return None
+    return (DQ_WENO_STRUCTS[m.group(1)],
+            "float32" if m.group(2) == "f" else "float64")
+
+
+# the system structs of csrc/acoustics3d.cuh, by their record's name
+STEP3_AOS_STRUCTS = {"VcAcoustics3D": "vc_acoustics_3D",
+                     "Acoustics3D": "acoustics_3D",
+                     "Advection3D": "advection_3D",
+                     "Burgers3D": "burgers_3D"}
+
+
+def step3_aos_instance(function):
+    """(system name, type name, capa, fwave) of the mangled name of an
+    instance of ``csrc/step3_aos.cu``'s kernel, or None for another
+    function."""
+    m = re.search(r"step3_aos_kernelINS_\d+(\w+?3D)E([fd])Lb([01])ELb([01])E",
+                  function)
+    if m is None or m.group(1) not in STEP3_AOS_STRUCTS:
+        return None
+    return (STEP3_AOS_STRUCTS[m.group(1)],
             "float32" if m.group(2) == "f" else "float64",
             m.group(3) == "1", m.group(4) == "1")
 

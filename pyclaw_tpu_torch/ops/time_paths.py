@@ -1,7 +1,8 @@
 """Time the classic and SharpClaw quadrants, Euler 3D, shallow-water,
-Euler capacity, the two Sod, the heterogeneous acoustics, the shock
-bubble and the quadrants-off-SoA paths of checkouts against each other on
-one card, each run in a process of its own.
+Euler capacity, the two Sod, the heterogeneous acoustics, the classic and
+SharpClaw shock bubble, the quadrants-off-SoA and the Burgers 3D paths of
+checkouts against each other on one card, each run in a process of its
+own.
 
     python -m pyclaw_tpu_torch.ops.time_paths LABEL=ROOT[:host]
         [LABEL=ROOT[:host] ...] [--out FILE] [--paths P1,P2]
@@ -26,9 +27,13 @@ tube at 800 cells to t = 0.2
 on the classic solver (``step1``) and on SharpClaw (``weno5``), and the
 heterogeneous acoustics at 192^3 to t = 0.8 (``step3_aos``), the shock
 bubble at 2048x512 to t = 0.6 (``shock_bubble``: ``step2_aos``'s Euler
-5-wave instance) and the quadrants at 1024^2 to t = 0.8 off the SoA route
-(``quadrants_aos``: ``use_soa = False``, ``step2_aos``'s Euler 4-wave
-instance).  It
+5-wave instance), the shock bubble on SharpClaw at 1024x256 to t = 0.6
+(``shock_bubble_sharpclaw``: ``dq2_weno5``'s Euler 5-wave instance), the
+quadrants at 1024^2 to t = 0.8 off the SoA route (``quadrants_aos``:
+``use_soa = False``, ``step2_aos``'s Euler 4-wave instance) and
+``burgers_3D`` on its pulse at 192^3 to t = 0.4 (``burgers3d``:
+``step3_aos``'s Burgers instance; chip_smoke.py [4v]'s run, built through
+the package's API as that run is: periodic, MC, CFL 0.45 / 0.5).  It
 prints the accepted and rejected steps, the kernel's launches as its
 wrappers count them (on the device loop the launches they make or
 capture: a capture's eager warm-up attempt and two captured attempts;
@@ -48,6 +53,9 @@ import os
 import subprocess
 import sys
 
+# the module name of a path that no example sets up: the child builds it
+# with BURGERS3D_SETUP
+BURGERS3D = "@burgers_3D"
 # (example module, setup keywords (under "solver", attributes set on the
 # solver after setup), final time, cells, the wrappers whose launches
 # count (module.function of ops), a function of the module applied to the
@@ -81,19 +89,58 @@ PATHS = {
     "quadrants_aos": ("euler_2d_quadrants",
                       {"mx": 1024, "my": 1024, "solver": {"use_soa": False}},
                       0.8, 1024 ** 2, "tiled2d.step2_rows_generic", ""),
+    "shock_bubble_sharpclaw": ("shock_bubble",
+                               {"mx": 1024, "my": 256,
+                                "solver_type": "sharpclaw"}, 0.6,
+                               1024 * 256, "tiled2d.dq_rows", ""),
+    "burgers3d": (BURGERS3D, {"mx": 192, "my": 192, "mz": 192}, 0.4,
+                  192 ** 3, "tiled2d.step3_xy_generic", ""),
 }
 
+# burgers_3D as chip_smoke.py [4v] runs it (scalar_claw): the pulse
+# exp(-30 |x - 1/2|^2) on the unit cube, periodic, MC, CFL 0.45 / 0.5,
+# through the package's API (the same in every checkout that has the
+# system)
+BURGERS3D_SETUP = r"""
+import numpy as np
+import pyclaw_tpu_torch as pyclaw
+
+
+def setup(mx, my, mz, outdir=None, dtype=np.float32, device=None):
+    solver = pyclaw.ClawSolver3D(pyclaw.riemann.burgers_3D, device=device)
+    solver.limiters = [pyclaw.limiters.tvd.MC]
+    solver.all_bcs = pyclaw.BC.periodic
+    solver.cfl_desired, solver.cfl_max = 0.45, 0.5
+    domain = pyclaw.Domain([0.0] * 3, [1.0] * 3, [mx, my, mz])
+    state = pyclaw.State(domain, 1, dtype=dtype)
+    axes = [(np.arange(n) + 0.5) / n - 0.5 for n in (mx, my, mz)]
+    grids = np.meshgrid(*axes, indexing="ij")
+    state.q[0] = np.exp(-30.0 * sum(g * g for g in grids))
+    claw = pyclaw.Controller()
+    claw.solution = pyclaw.Solution(state, domain)
+    claw.solver = solver
+    claw.num_output_times = 1
+    claw.outdir = outdir
+    claw.output_format = None
+    return claw
+"""
+
 CHILD = r"""
-import importlib, json, sys, time
+import importlib, json, sys, time, types
 import numpy as np
 import torch
 root, module, kw, tfinal, cells, wrappers, post, device, host = sys.argv[1:10]
+BURGERS3D_SETUP = sys.argv[10]
 sys.path.insert(0, root)
 sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
 if host == "host":
     from pyclaw_tpu_torch.solver import Solver
     Solver.traced_evolve = False
-ex = importlib.import_module("pyclaw_tpu_torch.examples." + module)
+if module.startswith("@"):
+    ex = types.SimpleNamespace()
+    exec(BURGERS3D_SETUP, vars(ex))
+else:
+    ex = importlib.import_module("pyclaw_tpu_torch.examples." + module)
 kw = json.loads(kw)
 solver_attrs = kw.pop("solver", {})
 
@@ -142,7 +189,8 @@ def run_one(root, path, device="cuda", size=None, tfinal=None, host=False):
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, root, module, json.dumps(kw),
          str(t_path if tfinal is None else tfinal), str(cells), wrappers,
-         post, device, "host" if host else "device"], cwd=root,
+         post, device, "host" if host else "device", BURGERS3D_SETUP],
+        cwd=root,
         capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{path} from {root} failed:\n{proc.stderr}")

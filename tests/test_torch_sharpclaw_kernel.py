@@ -9,7 +9,8 @@ passive tracer (``dq2_weno5_euler5_host_*``, the plain version with
 orders 7, 9, 11, 15 and 17 (``dq2_weno<order>[_acoustics|_euler5]_host_*``),
 the kernel that takes the stencil half-width K as a template parameter,
 whose dq and CFL partials are also held bit for bit to its first design's
-(``WENO_DIGESTS``).
+(``WENO_DIGESTS``), as the Euler 5-wave instance of ``dq2_weno5.cu`` is
+to its design before its configuration of its own (``EULER5_DIGESTS``).
 
 Without ``__CUDACC__`` the source runs its phases block by block on the
 CPU, which checks the kernel's index algebra, 16x16 tiling, ragged-edge
@@ -236,6 +237,100 @@ def test_euler5_instance_on_host_matches_plain(host_kernel, nx, ny,
     d_w, c_w = tiled2d.dq_rows(torch.from_numpy(qbc), dt, dx, dy, PARAMS,
                                rp=rp)
     assert torch.equal(d_w, torch.from_numpy(d_p)) and float(c_w) == c_p
+
+
+# the Euler 5-wave instance's grids of the bit check: less than a 16x16
+# tile, one tile, and ragged grids of several tiles on both axes, three
+# of them with low-density cells that take the positivity fallback
+EULER5_BIT_GRIDS = [(7, 5, False), (16, 16, False), (33, 17, True),
+                    (17, 50, True), (49, 35, True)]
+# sha256 of its dq and every CFL partial (euler5_digest) from the design
+# before its configuration of its own (both directions' buffers at once,
+# 288 threads, one cell a thread in both types)
+EULER5_DIGESTS = {
+    (7, 5, "float64"):
+        "eb04e87b803ff7da424526e202ab161d9a86c6a01bba72d7686362c3f7223559",
+    (7, 5, "float32"):
+        "e84f757626f6da1eda8695bb99bbcc1c3f57a983cb5c9c26cb70511cccb1ec78",
+    (16, 16, "float64"):
+        "3a3bf6f24646de960d65af43bac8f21ee7c3f010b106ad54252703d20f77eb60",
+    (16, 16, "float32"):
+        "216ac6f29e0ac9f65b221ce24decd51ee94d2895266e9579806ff21b0991b1f7",
+    (33, 17, "float64"):
+        "db434fcd1baa0bab85497857cc1442403d13fa306f2c61239f60218c682ea6d4",
+    (33, 17, "float32"):
+        "3a85abd49b0b3cc6c4d228891e2c6779d0b4b7d49874966d1e34d17c51d20383",
+    (17, 50, "float64"):
+        "86e12a15d8a08dff89e0e098a419f6ee7fe993bfa383e7f2a7ae7f0f2ec40514",
+    (17, 50, "float32"):
+        "2a76230298325bfdfef007fd50038b68f8dcc599b5938ba0e7ed1a1fb29fefad",
+    (49, 35, "float64"):
+        "d3b90454524dfa91950992e1443f5f7dd4b87be5732a753186fa2ce62e3e7f84",
+    (49, 35, "float32"):
+        "92310d2a0c34e34bd0a4b933d957bb53a865971facf008894ec7323ce1e61f40",
+}
+
+
+def euler5_digest(lib, nx, ny, fallback, dtype):
+    """sha256 of the Euler 5-wave instance's dq and CFL partials on
+    :func:`tracer_state` at nx x ny."""
+    rp = te.euler_5wave_2D
+    qbc = np.ascontiguousarray(
+        tracer_state(nx * ny + 1, (nx + 6, ny + 6), fallback).astype(dtype))
+    if fallback:
+        assert tsoa.fallback_count(torch.from_numpy(qbc), PARAMS,
+                                   rp.positivity) > 0
+    dt = float(qbc.dtype.type(0.3 / max(nx, ny)))
+    out = np.empty((5, nx, ny), qbc.dtype)
+    cfl_blocks = np.full(lib.dq2_weno5_blocks(nx + 6, ny + 6), np.nan,
+                         qbc.dtype)
+    fn = (lib.dq2_weno5_euler5_host_f64 if dtype == np.float64
+          else lib.dq2_weno5_euler5_host_f32)
+    rc = fn(qbc.ctypes.data, out.ctypes.data, cfl_blocks.ctypes.data,
+            nx + 6, ny + 6, ctypes.byref(ctypes.c_double(dt)), 1.0 / nx,
+            1.0 / ny, *tiled2d.dq_system_params(rp, PARAMS))
+    assert rc == 0 and np.isfinite(cfl_blocks).all()
+    return hashlib.sha256(out.tobytes() + cfl_blocks.tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("nx,ny,fallback", EULER5_BIT_GRIDS)
+def test_euler5_instance_bits_are_the_first_designs(host_kernel, nx, ny,
+                                                    fallback, dtype):
+    """The Euler 5-wave instance's own configuration (one direction's
+    buffers at a time; float64 one (component, cell) a thread with the
+    fallback a pass of its own) gives the dq and every CFL partial of the
+    design before it bit for bit (EULER5_DIGESTS)."""
+    assert euler5_digest(host_kernel, nx, ny, fallback, dtype) == (
+        EULER5_DIGESTS[(nx, ny, np.dtype(dtype).name)])
+
+
+def test_dq2_weno5_shared_memory(host_kernel):
+    """Each instance's shared memory: N 22^2 + ND 2N 288 + ND 2N 272 + 256 N
+    + NT values, the Euler 4-wave and acoustics instances with both
+    directions' buffers (ND 2) and 288 threads, the Euler 5-wave instance
+    with one direction's (ND 1) and 288 (float32) / 256 (float64) threads:
+    4 / 2 blocks of it fit an SM's 228 KB (1 KB reserved a block)."""
+    lib = host_kernel
+    for name in ("dq2_weno5_smem_bytes", "dq2_weno5_acoustics_smem_bytes",
+                 "dq2_weno5_euler5_smem_bytes", "dq2_weno5_euler5_threads"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+
+    def elems(n, nd, nt):
+        return n * 22 * 22 + nd * 2 * n * 288 + nd * 2 * n * 272 + 256 * n + nt
+
+    for is_double, size in ((0, 4), (1, 8)):
+        assert lib.dq2_weno5_smem_bytes(is_double) == elems(4, 2, 288) * size
+        assert (lib.dq2_weno5_acoustics_smem_bytes(is_double)
+                == elems(3, 2, 288) * size)
+        nt = lib.dq2_weno5_euler5_threads(is_double)
+        assert nt == (256 if is_double else 288)
+        got = lib.dq2_weno5_euler5_smem_bytes(is_double)
+        assert got == elems(5, 1, nt) * size
+        assert (2 if is_double else 4) * (got + 1024) <= 233472
+    assert lib.dq2_weno5_euler5_smem_bytes(0) == 38352
+    assert lib.dq2_weno5_euler5_smem_bytes(1) == 76448
 
 
 @pytest.fixture(scope="module")

@@ -23,8 +23,11 @@ package's, and the CUDA kernel's source on the host.
   a faster one in its outer layer (outside it).
 
 The same for the ``burgers_3D`` instance (the splits by the receiving
-cell's state) on grids less than, equal to and larger than a tile of
-each type.  Euler with a capacity function or f-waves runs
+cell's state; its fused path computes the rpt3 and rptt3 parts in the
+flux gathers, on an 8x8x8 tile of its own) on grids less than, equal to
+and larger than its tile and the other systems' tiles, its q and CFL
+bit for bit those of the staged design before it (BURGERS_DIGESTS), and
+its shared memory, threads and block counts.  Euler with a capacity function or f-waves runs
 ``csrc/step3_ctu.cu``; its host test is in tests/test_torch_step3.py.
 """
 
@@ -301,8 +304,7 @@ def host_kernel(tmp_path_factory):
         fn = getattr(lib, name)
         fn.argtypes = tiled2d.STEP3_AOS_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.step3_aos_blocks.argtypes = [ctypes.c_int] * 4
-    lib.step3_aos_blocks.restype = ctypes.c_int
+    tiled2d.bind_step3_aos_lib_counts(lib)
     return lib
 
 
@@ -363,9 +365,10 @@ def _host_step(lib, rp, q, aux, dt, d, params, case, dtype):
     is_double = dtype == np.float64
     fn = lib.step3_aos_host_f64 if is_double else lib.step3_aos_host_f32
     out = np.empty((rp.num_eqn,) + shape, dtype)
-    # one CFL partial per block, each written
-    cfl_blocks = np.full(lib.step3_aos_blocks(*q.shape[1:], int(is_double)),
-                         np.nan, dtype)
+    # one CFL partial per block of the system's tile, each written
+    cfl_blocks = np.full(tiled2d.step3_aos_blocks(
+        lib, tiled2d.STEP3_SYSTEMS[name][0], *q.shape[1:], is_double),
+        np.nan, dtype)
     rc = fn(q.ctypes.data, aux.ctypes.data, out.ctypes.data,
             cfl_blocks.ctypes.data, *q.shape[1:],
             tiled2d.STEP3_SYSTEMS[name][0], capa, int(fwave),
@@ -444,8 +447,9 @@ def test_burgers_on_host_matches_plain(host_kernel, shape, dtype, tol):
     """csrc/step3_aos.cu's burgers_3D instance (the splits by the receiving
     cell's state, rpt3 and rptt3, the entropy fix) against the plain
     version on states of either sign (transonic interfaces) with a
-    capacity row: a grid less than a tile, one tile of each type (8x8x8
-    in float32, 4x6x8 in float64) and ragged grids of several tiles."""
+    capacity row: a grid less than its 8x8x8 tile, one tile (and the
+    other systems' float64 tile, 4x6x8) and ragged grids of several tiles
+    on every axis."""
     rp = triemann.burgers_3D
     rng = np.random.default_rng(sum(shape))
     n = tuple(s + 4 for s in shape)
@@ -482,3 +486,123 @@ def test_the_source_takes_burgers(host_kernel):
         1.0, 0.0, 0.0)
     assert tiled2d.step3_system_scalars(triemann.burgers_3D,
                                         {"efix": False}) == (0.0, 0.0, 0.0)
+
+
+# (transverse_waves, order, limiter, index_capa, fwave, efix) of the bit
+# check: every transverse_waves and order, with MC, no capacity and the
+# entropy fix, and with the CFL-dependent id 10, a capacity row, f-waves
+# and no entropy fix
+BURGERS_BIT_OPTS = [(tw, order, lim, capa, fwave, efix)
+                    for tw in (0, 1, 2) for order in (1, 2)
+                    for lim, capa, fwave, efix in ((4, -1, False, True),
+                                                   (10, 0, True, False))]
+# sha256 of the burgers_3D instance's q and CFL over BURGERS_BIT_OPTS
+# (burgers_digest) from the staged design before the fused path: its
+# rpt3 and rptt3 phases staged each part in shared memory, on tiles of
+# 8x8x8 (float32) and 4x6x8 (float64)
+BURGERS_DIGESTS = {
+    ((3, 5, 2), "float64"):
+        "8b6ba0eca9bcd330cde15fe77a07f0c1773dff85fd60bcacc8a4c2f579ea9081",
+    ((3, 5, 2), "float32"):
+        "d763db8ffa740e79f3e558652cdf092fd2f762e6401bd7c5a3d523e2806aa054",
+    ((8, 8, 8), "float64"):
+        "52e90fc3f038fc6e638797f5cb28602d7a5fb317cec04e9315750c672dab9293",
+    ((8, 8, 8), "float32"):
+        "037385751e304f8d2da10b501d6bae9142e763f372321a05e1133e61510dd1de",
+    ((17, 13, 9), "float64"):
+        "ee55e1c14117e7799d38208aff924a2def3fed7aef01b02103835d4955d5eb38",
+    ((17, 13, 9), "float32"):
+        "defc4d45c7c5eac6374c6a0e6bbd31298f726e91a9c822034bcbddefd92dfd6f",
+    ((9, 14, 20), "float64"):
+        "ae155f1a24e5da68a00160d38afe216a8f42e4ed55bd7a7a627563deef4f690e",
+    ((9, 14, 20), "float32"):
+        "03c4f71c024e9b77ab133902e39be7025e095c565eca4e2a1a6438be7761b565",
+    ((20, 9, 17), "float64"):
+        "638c9574235a5ab78704bf593b25311e80434f54eb917db97f475ed609690754",
+    ((20, 9, 17), "float32"):
+        "7e6b760c8b2e09ca4c9d59a41fbd5c13ce7026e62359f58ee1a9825be7724b4d",
+}
+
+
+def burgers_digest(lib, shape, dtype, seed):
+    """sha256 of the burgers_3D instance's q and CFL, one step for each
+    option of BURGERS_BIT_OPTS, on a seeded state of either sign with a
+    seeded capacity row."""
+    import hashlib
+    rp = triemann.burgers_3D
+    rng = np.random.default_rng(seed)
+    n = tuple(s + 4 for s in shape)
+    q = np.ascontiguousarray(rng.standard_normal((1,) + n).astype(dtype))
+    aux = np.ascontiguousarray((0.7 + 0.6 * rng.random((1,) + n))
+                               .astype(dtype))
+    d = (2.0 / shape[0], 2.2 / shape[1], 1.8 / shape[2])
+    dt = float(dtype(0.05 * min(d)))
+    digest = hashlib.sha256()
+    for tw, order, lim, capa, fwave, efix in BURGERS_BIT_OPTS:
+        out, cfl = _host_step(lib, rp, q, aux, dt, d, {"efix": efix},
+                              ("burgers_3D", capa, tw, order, lim, fwave),
+                              dtype)
+        digest.update(out.tobytes())
+        digest.update(np.asarray(cfl, dtype).tobytes())
+    return digest.hexdigest()
+
+
+BURGERS_BIT_SHAPES = [(3, 5, 2), (8, 8, 8), (17, 13, 9), (9, 14, 20),
+                      (20, 9, 17)]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("shape", BURGERS_BIT_SHAPES)
+def test_burgers_bits_are_the_staged_designs(host_kernel, shape, dtype):
+    """The fused path's q and CFL of every option of BURGERS_BIT_OPTS equal
+    bit for bit those of the staged design before it (BURGERS_DIGESTS), on
+    a grid less than a tile, one tile and ragged grids of several tiles on
+    every axis: the same operations on the same values, the parts added
+    into each flux entry in the same order."""
+    key = (shape, np.dtype(dtype).name)
+    assert burgers_digest(host_kernel, shape, dtype,
+                          seed=sum(shape)) == BURGERS_DIGESTS[key]
+
+
+def test_burgers_tile_threads_and_shared_memory(host_kernel):
+    """The burgers_3D instances' shared memory is the fused layout's
+    formula (q and, with a capacity function, three planes of dt/(dD
+    kappa) with their 2-cell halo; the three fluxes; dq; the two
+    fluctuations to split at each interface of a sweep's split region;
+    amdq and apdq at the tile's faces; a CFL slot per thread and per
+    warp), on an 8x8x8 tile of 256 threads in both types; the other
+    systems keep their tiles, threads and block counts."""
+    lib = host_kernel
+    for fn in (lib.step3_aos_system_threads, lib.step3_aos_smem_bytes):
+        fn.argtypes = [ctypes.c_int] * (2 if fn is
+                                        lib.step3_aos_system_threads else 3)
+        fn.restype = ctypes.c_int
+    burgers = tiled2d.STEP3_SYSTEMS["burgers_3D"][0]
+    qn, cells, faces, split = 12 ** 3, 8 ** 3, 9 * 8 * 8, 9 * 10 * 10
+    for is_double, size in ((0, 4), (1, 8)):
+        nt = lib.step3_aos_system_threads(burgers, is_double)
+        assert nt == 256
+        for capa in (0, 1):
+            elems = (qn * (1 + 3 * capa) + 3 * faces + cells + 2 * split
+                     + 2 * faces + nt + nt // 32)
+            assert lib.step3_aos_smem_bytes(burgers, capa,
+                                            is_double) == elems * size
+        for grid in ((196, 196, 196), (21, 17, 13), (7, 9, 6)):
+            tiles = np.prod([-(-(n - 4) // 8) for n in grid])
+            assert tiled2d.step3_aos_blocks(lib, burgers, *grid,
+                                            is_double) == tiles
+            for name in ("vc_acoustics_3D", "acoustics_3D", "advection_3D"):
+                sid = tiled2d.STEP3_SYSTEMS[name][0]
+                assert lib.step3_aos_system_threads(sid, is_double) == (
+                    lib.step3_aos_threads(is_double))
+                assert tiled2d.step3_aos_blocks(
+                    lib, sid, *grid, is_double) == lib.step3_aos_blocks(
+                        *grid, is_double)
+
+    class Earlier:
+        """A build before the fused path: one tile per type."""
+        @staticmethod
+        def step3_aos_blocks(nxg, nyg, nzg, is_double):
+            return 7
+
+    assert tiled2d.step3_aos_blocks(Earlier(), burgers, 20, 20, 20, 1) == 7

@@ -339,7 +339,10 @@ def test_parse_sass_counts_opcodes_per_entry():
     ("sod_sharpclaw", {"nx": 40, "solver_type": "sharpclaw"}),
     ("het", {"mx": 6, "my": 6, "mz": 6}),
     ("shock_bubble", {"mx": 24, "my": 8}),
-    ("quadrants_aos", {"mx": 12, "my": 12, "solver": {"use_soa": False}})])
+    ("quadrants_aos", {"mx": 12, "my": 12, "solver": {"use_soa": False}}),
+    ("shock_bubble_sharpclaw", {"mx": 24, "my": 8,
+                                "solver_type": "sharpclaw"}),
+    ("burgers3d", {"mx": 6, "my": 6, "mz": 6})])
 def test_time_paths_runs_each_path_in_its_own_process(path, size):
     """ops/time_paths.py's timed run (a fresh process importing the
     package from a root), on the CPU at a small size."""
@@ -496,3 +499,90 @@ def test_dq_weno_kernel_is_a_choice():
     """The kernel dq2_weno and --only parse; a run needs a card."""
     with pytest.raises(RuntimeError, match="needs a CUDA card"):
         tk.main(["dq2_weno", "new=.", "--only", "7 euler_4wave_2D"])
+
+
+# A ptxas -v report of the redesigned instances: dq2_weno5.cu's Euler
+# 5-wave (float64) and step3_aos.cu's burgers_3D (float32, capacity, no
+# f-waves), and an entry of another system of each
+PTXAS_REDESIGNED = """
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c1d2e3f_12_dq2_weno5_cu_4a5b6c7d16dq2_weno5_kernelINS_6Euler5EdEEvNS_4ArgsIT_T0_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__0c1d2e3f_12_dq2_weno5_cu_4a5b6c7d16dq2_weno5_kernelINS_6Euler5EdEEvNS_4ArgsIT_T0_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__0c1d2e3f_12_dq2_weno5_cu_4a5b6c7d16dq2_weno5_kernelINS_6Euler4EfEEvNS_4ArgsIT_T0_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__0c1d2e3f_12_dq2_weno5_cu_4a5b6c7d16dq2_weno5_kernelINS_6Euler4EfEEvNS_4ArgsIT_T0_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 71 registers, used 1 barriers, 16 bytes smem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__5e6f7a8b_12_step3_aos_cu_9c0d1e2f16step3_aos_kernelINS_9Burgers3DEfLb1ELb0EEEvNS_4ArgsIT0_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__5e6f7a8b_12_step3_aos_cu_9c0d1e2f16step3_aos_kernelINS_9Burgers3DEfLb1ELb0EEEvNS_4ArgsIT0_EE
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 8 bytes cumulative stack size, 76 bytes smem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__5e6f7a8b_12_step3_aos_cu_9c0d1e2f16step3_aos_kernelINS_13VcAcoustics3DEdLb0ELb1EEEvNS_4ArgsIT0_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__5e6f7a8b_12_step3_aos_cu_9c0d1e2f16step3_aos_kernelINS_13VcAcoustics3DEdLb0ELb1EEEvNS_4ArgsIT0_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 152 bytes smem
+"""
+
+
+@pytest.mark.parametrize("parse,instance,resources", [
+    (tk.dq2_weno5_instance, ("euler_5wave_2D", "float64"),
+     {"registers": 80, "stack": 0, "spill_stores": 0, "spill_loads": 0}),
+    (tk.dq2_weno5_instance, ("euler_4wave_2D", "float32"),
+     {"registers": 71, "stack": 0, "spill_stores": 0, "spill_loads": 0}),
+    (tk.step3_aos_instance, ("burgers_3D", "float32", True, False),
+     {"registers": 64, "stack": 8, "spill_stores": 4, "spill_loads": 4}),
+    (tk.step3_aos_instance, ("vc_acoustics_3D", "float64", False, True),
+     {"registers": 128, "stack": 0, "spill_stores": 0, "spill_loads": 0})])
+def test_ptxas_resources_of_redesigned_instances(parse, instance,
+                                                 resources):
+    """The instance of csrc/dq2_weno5.cu ((system, type)) or of
+    csrc/step3_aos.cu ((system, type, capacity, f-waves)) that a mangled
+    entry name is, and its resources from the report; another kernel's
+    entry is None to each parser."""
+    found = {parse(fn): rec
+             for fn, rec in tk.ptxas_resources(PTXAS_REDESIGNED).items()}
+    assert found[instance] == resources
+    assert len([k for k in found if k is not None]) == 2
+
+
+def test_dq2_weno5_cases_cover_the_paths_shape_and_a_ragged_grid():
+    """time_kernels dq2_weno5 times the Euler 5-wave instance at 2048x512,
+    at the [4q] SharpClaw path's 1024x256 and on a ragged 250x171 state of
+    several tiles that takes the positivity fallback, each with its CFL
+    partials; the states are made only when a variant is timed on them."""
+    from pyclaw_tpu_torch.sharpclaw import soa
+    makes = tk._dq_call(torch.float64, "cpu", n=16)
+    assert set(makes) == {"", "euler5", "euler5 path", "euler5 ragged"}
+    qbc, args, rp = tk.dq_euler5_case(512, torch.float32, "cpu")
+    assert qbc.shape == (5, 1024 + 6, 256 + 6) and rp.num_eqn == 5
+    qbc, args, rp = tk.dq_euler5_ragged_case(torch.float64, "cpu")
+    assert qbc.shape == (5, 250 + 6, 171 + 6)
+    assert 250 % 16 and 171 % 16 and rp.name == "euler_5wave_2D"
+    assert soa.fallback_count(qbc, args[3], rp.positivity, 5) > 0
+
+
+def test_step3_aos_burgers_cases_are_chip_smokes_options():
+    """time_kernels step3_aos times burgers_3D on every option of [3o]:
+    the run's at 192^3 on the pulse, the others there too, and every one
+    on a ragged grid of several 8x8x8 tiles on a state of either sign,
+    with a capacity row where the option has one."""
+    makes = tk._step3_aos_call(torch.float64, "cpu", n=8)
+    n = len(tk.BURGERS3D_OPTS)
+    assert len(makes) == 2 + (n - 1) + n
+    assert all(f"burgers ragged v{k}" in makes for k in range(n))
+    assert tk.BURGERS3D_OPTS[0] == (2, 2, 4, -1, False, True)
+    nx, ny, nz = tk.BURGERS3D_RAGGED
+    assert nx > 16 and ny > 8 and nz > 8 and nx % 8 and ny % 8 and nz % 8
+    for k, (tw, order, lim, capa, fwave, efix) in enumerate(
+            tk.BURGERS3D_OPTS):
+        qbc, auxbc, args = tk.step3_aos_burgers_variant_case(
+            k, tk.BURGERS3D_RAGGED, torch.float64, "cpu")
+        assert qbc.shape == (1, nx + 4, ny + 4, nz + 4)
+        assert float(qbc.min()) < 0.0 < float(qbc.max())
+        assert (auxbc is None) == (capa < 0)
+        assert args[4].name == "burgers_3D" and args[5] == {"efix": efix}
+        assert args[6:] == ((lim,), order, fwave, capa, 2, tw)
+    qbc, auxbc, args = tk.step3_aos_burgers_variant_case(
+        0, (8, 8, 8), torch.float32, "cpu")
+    ref = tk.step3_aos_burgers_case(8, torch.float32, "cpu")
+    assert torch.equal(qbc, ref[0]) and auxbc is None
