@@ -3653,13 +3653,15 @@ def timing_dq_euler5(dev, n=1024):
 SCALAR_2D = tuple(SCALAR_CASES)
 # each system's problem_data in [3n] (Burgers takes its efix per option)
 SCALAR_PARAMS = {"advection_2D": {"u": 0.7, "v": -0.4}}
-# [3n]: the path's grid, one less than a tile and one ragged on both axes
-# with more tiles than resident blocks; (transverse_waves, order, limiter,
+# [3n]: the path's grid, one less than a tile, one ragged on both axes
+# with more tiles than resident blocks and one of several of
+# vc_advection_2D's own 32x32 tiles ragged by a cell on both axes (97 = 3
+# x 32 + 1 rows, 65 = 2 x 32 + 1 columns); (transverse_waves, order, limiter,
 # index_capa, fwave): every transverse_waves and order, MC, minmod and the
 # CFL-dependent id 10, a capacity row (aux's last), the f-wave form
 # (vc_advection_fwave_2D always); Burgers without the entropy fix on the
 # second option
-SCALAR_GRIDS = ((1024, 1024), (7, 5), (600, 700))
+SCALAR_GRIDS = ((1024, 1024), (7, 5), (600, 700), (97, 65))
 SCALAR_OPTS = [(2, 2, 4, -1, False), (1, 2, 1, 0, False),
                (0, 1, 4, -1, False), (2, 2, 10, 0, True),
                (0, 2, 10, 0, False), (1, 1, 1, -1, False)]
@@ -4294,11 +4296,14 @@ NO_TRANS_2D = tuple(NO_TRANS_CASES)
 FLOPS_PER_CELL_NO_TRANS = {
     "psystem_2D": 10 + 2 * (15 + 44 + 7 + 2) + 30,
     "shallow_sphere_fwave_2D": 5 + 2 * (64 + 78 + 15 + 12 + 2) + 30 + 4}
-# [4w]'s kernel check: the unsplit run's grid, one less than a tile and one
-# ragged on both axes with more tiles than resident blocks; (the
+# [4w]'s kernel check: the unsplit run's grid, one less than a tile, one
+# ragged on both axes with more tiles than resident blocks and (the
+# p-system's) one of several of its own 16x32 tiles ragged by a cell on
+# both axes (97 = 6 x 16 + 1 rows, 65 = 2 x 32 + 1 columns); (the
 # transverse_waves passed, which the instance ignores, order, limiter,
 # index_capa, the p-system's stress law)
-NO_TRANS_GRIDS = {"psystem_2D": ((1024, 1024), (7, 5), (600, 700)),
+NO_TRANS_GRIDS = {"psystem_2D": ((1024, 1024), (7, 5), (600, 700),
+                                 (97, 65)),
                   "shallow_sphere_fwave_2D": ((1024, 512), (7, 5),
                                               (600, 700))}
 NO_TRANS_OPTS = [(2, 2, 4, -1, "exp"), (1, 2, 1, 1, "linear"),
@@ -5299,45 +5304,65 @@ def dq_weno_resources(tiled2d, report):
     return out
 
 
-def step2_aos_euler_resources(lib_aos, report):
-    """{(system, type name): {"threads", "smem_bytes", "launch_bound",
-    "blocks_per_sm", "registers", "stack", "spill_stores",
-    "spill_loads"}} of csrc/step2_aos.cu's Euler instances without
-    capacity or f-waves (those of the paths) on this card: threads, shared
-    memory a block, the launch bound and the resident blocks per SM (the
-    entries of the build), registers, stack frame and spill bytes
-    (``report``, the build's ptxas report); and the worst stack and spill
-    bytes of all their capacity and f-wave variants under the key
-    "variants".  Fails when one takes no block or the report lacks one."""
+# step2_aos.cu's instances with a design of their own, and the variant
+# (capacity, f-waves) of each that its path runs
+STEP2_AOS_OWN = {"euler_4wave_2D": (False, False),
+                 "euler_5wave_2D": (False, False),
+                 "psystem_2D": (False, True),
+                 "vc_advection_2D": (False, False)}
+
+
+def step2_aos_own_resources(lib_aos, report):
+    """{(system, type name): {"threads", "launch_bound", "blocks_per_sm",
+    "path", "variants"}} of csrc/step2_aos.cu's instances with a design of
+    their own (STEP2_AOS_OWN: the Euler systems, psystem_2D,
+    vc_advection_2D) on this card: threads a block, the launch bound and
+    the resident blocks per SM of the variant without capacity or
+    f-waves (the entries of the build); "path" the (capacity, f-waves)
+    variant its path runs; under "variants" each variant's shared memory
+    a block and its registers, stack frame and spill bytes (``report``,
+    the build's ptxas report; None for a build that load_all found
+    current).  Fails when one takes no block, when a path's variant
+    spills or when the report lacks a variant."""
     from pyclaw_tpu_torch.ops import tiled2d
     ptxas = {step2_aos_instance(fn): rec
              for fn, rec in ptxas_resources(report).items()
              if step2_aos_instance(fn) is not None}
+    keys = ("registers", "stack", "spill_stores", "spill_loads")
     out = {}
-    for name in ("euler_4wave_2D", "euler_5wave_2D"):
+    for name, path in STEP2_AOS_OWN.items():
         sid = tiled2d.AOS_SYSTEMS[name][0]
         for d, tname in enumerate(("float32", "float64")):
-            rec = ptxas.get((name, tname, False, False), {})
+            variants = {}
+            for capa in (False, True):
+                for fwave in (False, True):
+                    rec = ptxas.get((name, tname, capa, fwave), {})
+                    variants[(capa, fwave)] = {
+                        "smem_bytes": lib_aos.step2_aos_smem_bytes(
+                            sid, int(capa), d),
+                        **{key: rec.get(key) for key in keys}}
             out[(name, tname)] = {
                 "threads": lib_aos.step2_aos_threads(),
-                "smem_bytes": lib_aos.step2_aos_smem_bytes(sid, 0, d),
                 "launch_bound": lib_aos.step2_aos_system_blocks_per_sm(
                     sid, d),
                 "blocks_per_sm": lib_aos.step2_aos_system_resident_blocks(
                     sid, d),
-                **{key: rec.get(key) for key in (
-                    "registers", "stack", "spill_stores", "spill_loads")}}
+                "path": path, "variants": variants}
     if any(r["blocks_per_sm"] < 1 for r in out.values()):
-        fail(f"a step2_aos Euler instance takes no block on an SM: {out}")
+        fail(f"a step2_aos instance of its own design takes no block on "
+             f"an SM: {out}")
+    if any((r["variants"][r["path"]]["spill_stores"] or 0) > 0
+           or (r["variants"][r["path"]]["spill_loads"] or 0) > 0
+           for r in out.values()):
+        fail(f"a step2_aos instance of its own design spills in its "
+             f"path's variant: {out}")
     # (a build that load_all found current has no report)
-    if report != "(cached build)":
-        if len(ptxas) != 16 or any(r["registers"] is None
-                                   for r in out.values()):
-            fail(f"the ptxas report lacks a step2_aos Euler instance: "
-                 f"{sorted(ptxas)}")
-        out["variants"] = {key: max(r.get(key) or 0 for r in ptxas.values())
-                           for key in ("stack", "spill_stores",
-                                       "spill_loads")}
+    if report != "(cached build)" and (
+            len(ptxas) != 8 * len(STEP2_AOS_OWN)
+            or any(v["registers"] is None for r in out.values()
+                   for v in r["variants"].values())):
+        fail(f"the ptxas report lacks a step2_aos instance of its own "
+             f"design: {sorted(ptxas)}")
     return out
 
 
@@ -7025,22 +7050,20 @@ def main():
                        for d in (0, 1) for c in (0, 1)]
                 for name, sid in (("Euler 4-wave", 3), ("Euler 5-wave", 4),
                                   ("sw_aug_2D", 5))}
-    aos_euler = step2_aos_euler_resources(lib_aos,
-                                          _build.build_report("step2_aos"))
-    print("    step2_aos.cu's Euler instances (registers, stack frame B, "
-          "spill stores / loads B, threads and shared memory B a block, "
-          "launch bound, resident blocks per SM):", flush=True)
-    for key, r in aos_euler.items():
-        if key == "variants":
-            print(f"      every capacity and f-wave variant: stack at most "
-                  f"{r['stack']} B, spills at most {r['spill_stores']} / "
-                  f"{r['spill_loads']} B", flush=True)
-            continue
-        print(f"      {key[0]} {key[1]}: {r['registers']} registers, stack "
-              f"{r['stack']} B, spills {r['spill_stores']} / "
-              f"{r['spill_loads']} B, {r['threads']} threads, "
-              f"{r['smem_bytes']} B, launch bound {r['launch_bound']}, "
-              f"{r['blocks_per_sm']} blocks", flush=True)
+    aos_own = step2_aos_own_resources(lib_aos,
+                                      _build.build_report("step2_aos"))
+    print("    step2_aos.cu's instances of their own design (threads a "
+          "block, launch bound, resident blocks per SM; each (capacity, "
+          "f-waves) variant's shared memory B a block, registers, stack "
+          "frame B, spill stores / loads B; * the path's):", flush=True)
+    for key, r in aos_own.items():
+        print(f"      {key[0]} {key[1]}: {r['threads']} threads, launch "
+              f"bound {r['launch_bound']}, {r['blocks_per_sm']} blocks; "
+              + "; ".join(
+                  f"{'*' if v == r['path'] else ''}{v}: {x['smem_bytes']} "
+                  f"B, {x['registers']} registers, stack {x['stack']}, "
+                  f"spills {x['spill_stores']} / {x['spill_loads']}"
+                  for v, x in r["variants"].items()), flush=True)
     print(f"    the instances of this slice: step2_aos shared memory "
           f"(f32 without and with capacity, then f64) {smem_new} B; blocks "
           f"per SM (the launch bound) sw_aug_2D "

@@ -4,10 +4,12 @@
 // sigma = exp(K eps) - 1 or K eps, two f-waves at -c_l and c_r.
 //
 // The record has no transverse solver: Psystem2D is marked NO_TRANS, so
-// step2_aos.cu runs it with transverse_waves 0 and compiles no split for
-// it.  Every interface of a cell takes the cell's u = rho u / rho and
-// rho v / rho, its sigma, its impedance z = sqrt(rho sigma') and its sound
-// speed c = sqrt(sigma' / rho): prep_aux stages them once a cell (the
+// step2_aos.cu runs it with transverse_waves 0, in a design of its own
+// that stores each normal solve as its two strengths (strengths) and
+// forms the waves again from them (wave).  Every interface of a cell
+// takes the cell's u = rho u / rho and rho v / rho, its sigma, its
+// impedance z = sqrt(rho sigma') and its sound speed c = sqrt(sigma' /
+// rho): prep_aux stages them once a cell (the
 // plain version computes them per interface, two exp a cell in the "exp"
 // law, from the same operations on the same values, so the same bits).
 // The stress law is the physics scalar p0 (0 "exp", 1 "linear"), each law
@@ -64,29 +66,28 @@ struct Psystem2D {
     return e != 2 - IXY;
   }
 
+  // the strengths b1, b2 of the two f-waves at an interface of axis IXY
+  // from its cells' per-cell quantities (prep_aux)
   template <int IXY, typename T>
-  static HD void rpn(const Stress<T>&, const T*, const T*, const T*,
-                     const T*, const T pl[5], const T pr[5], T w[2][3],
-                     T s[2], T am[3], T ap[3]) {
-    constexpr int mu = 1 + IXY, mv = 2 - IXY;
+  static HD void strengths(const T pl[5], const T pr[5], T b[2]) {
     const T z_l = pl[3], z_r = pr[3];
     const T df1 = -(pr[IXY] - pl[IXY]);
     const T df2 = -(pr[2] - pl[2]);
     const T denom = z_l + z_r;
-    const T b1 = (df2 + z_r * df1) / denom;
-    const T b2 = (z_l * df1 - df2) / denom;
-    w[0][0] = b1;
-    w[0][mu] = b1 * z_l;
-    w[0][mv] = T(0);
-    w[1][0] = b2;
-    w[1][mu] = -b2 * z_r;
-    w[1][mv] = T(0);
-    s[0] = -pl[4];
-    s[1] = pr[4];
-    for (int e = 0; e < 3; ++e) {
-      am[e] = w[0][e];
-      ap[e] = w[1][e];
-    }
+    b[0] = (df2 + z_r * df1) / denom;
+    b[1] = (z_l * df1 - df2) / denom;
+  }
+
+  // component e of wave p of strength b at an interface of axis IXY whose
+  // cells have the impedances z_l, z_r: (b1, b1 z_l) and (b2, -b2 z_r) in
+  // eps and the normal momentum, 0 in the transverse momentum; the waves
+  // are the fluctuations (amdq the first, apdq the second) and their
+  // speeds -c_l and c_r
+  template <int IXY, typename T>
+  static HD T wave(int p, int e, T b, T z_l, T z_r) {
+    if (e == 0) return b;
+    if (e == 1 + IXY) return p == 0 ? b * z_l : -b * z_r;
+    return T(0);
   }
 };
 

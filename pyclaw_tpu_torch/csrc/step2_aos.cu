@@ -134,6 +134,34 @@
 // systems' code is unchanged (time_kernels --sass against the earlier
 // build).
 //
+// psystem_2D and vc_advection_2D have designs of their own (the section
+// "psystem_2D and vc_advection_2D" below; Own marks them by their exact
+// type, so that VcAdvectionFwave2D keeps the generic design), fitted to
+// them later with the same bits (the host emulations and the card agree
+// with the generic design bit for bit, q and the CFL).  The generic
+// design, fitted to shallow water's ~800 operations a cell, gave them
+// scratch they never read: the p-system runs no transverse pass, yet its
+// 12x15 tile held the rpt2 parts and their sums and every wave's three
+// components and speed (50 / 98 KB a block, 2 blocks an SM in f64); the
+// scalar advection's 16 B and ~70 operations a cell went through six
+// barrier-separated phases on a tile of 180 cells.  Now
+//   - psystem_2D stores each normal solve as its two strengths and forms
+//     the waves again from them and the cells' impedances by the solve's
+//     own expressions (the same bits under -fmad=false); the sweeps keep
+//     each wave's correction coefficient over the dead u, v and sigma;
+//     four phases on a 16x32 tile (rows x columns), 24 / 48 KB;
+//   - vc_advection_2D stages q and its edge velocities and stores only
+//     each interface's correction flux: the wave, speed, fluctuations
+//     and rpt2 parts are a difference and a few products of staged
+//     values, formed where they are used (the update forms the parts of
+//     the twelve interfaces around its cell in place of a gather); three
+//     phases on a 32x32 tile, 25 / 49 KB.
+// No spills in the paths' variants.  Measured on each run's first state
+// at 1024^2 against the generic design in one call (PERF.md section 6,
+// PR 25, run 2; H100 80GB HBM3, 700 W), device ms f32 / f64: psystem_2D
+// 0.0818 -> 0.0487 / 0.1613 -> 0.0834, vc_advection_2D (tw 0) 0.0333 ->
+// 0.0198 / 0.0482 -> 0.0294 (tw 1 and 2 -32..-43%).
+//
 // Phases (each a loop of the block's threads over one or two regions,
 // separated by barriers):
 //   load      q, aux, kappa tile + halo -> shared (indices clamped to the
@@ -250,6 +278,36 @@ template <typename S> struct SysShape<S, float, true> {
 };
 template <typename S> struct SysShape<S, double, true> {
   static constexpr int TX = 11, TY = 15, PER_SM = 2;
+};
+
+// The systems with a design of their own (the section "psystem_2D and
+// vc_advection_2D" below), keyed on the exact type: a system derived from
+// one of them (VcAdvectionFwave2D from VcAdvection2D) keeps the generic
+// design
+enum { OWN_NONE = 0, OWN_PSYSTEM = 1, OWN_VC_ADVECTION = 2 };
+template <class S> struct Own : std::integral_constant<int, OWN_NONE> {};
+template <> struct Own<Psystem2D>
+    : std::integral_constant<int, OWN_PSYSTEM> {};
+template <> struct Own<VcAdvection2D>
+    : std::integral_constant<int, OWN_VC_ADVECTION> {};
+// their tiles (rows x columns; a warp spans a row of 32 columns) and
+// blocks per SM, each the fastest of those timed without spills in a
+// path's variant (PERF.md section 6, PR 25): the p-system 16x32 at 4 / 3
+// (8x32 and 32x32 slower; 5 and 6 blocks in f32 no faster; 4 in f64
+// spilled), the advection 32x32 at 4 / 3 (6 / 4 spilled in the variants
+// without capacity; 16x32 slower; 64x32 5% faster at tw 0 in f32, 13%
+// slower at tw 2)
+template <> struct SysShape<Psystem2D, float, false> {
+  static constexpr int TX = 16, TY = 32, PER_SM = 4;
+};
+template <> struct SysShape<Psystem2D, double, false> {
+  static constexpr int TX = 16, TY = 32, PER_SM = 3;
+};
+template <> struct SysShape<VcAdvection2D, float, false> {
+  static constexpr int TX = 32, TY = 32, PER_SM = 4;
+};
+template <> struct SysShape<VcAdvection2D, double, false> {
+  static constexpr int TX = 32, TY = 32, PER_SM = 3;
 };
 
 template <typename S, typename T, int TX, int TY, bool CAPA> struct Tile {
@@ -1146,6 +1204,510 @@ HD void cstep_block(const SysArgs<S, T>& A, CBlock<S, T, TX, TY, CAPA>& B,
   });
 }
 
+// ---- psystem_2D and vc_advection_2D: designs of their own ---------------
+// The two systems run no rpt2 parts' scratch and no stored waves: the
+// p-system has no transverse pass, the variable-coefficient advection one
+// equation whose wave, speed and fluctuations are a difference and two
+// products of the staged q and aux.  Each phase is a loop of the block's
+// threads over one region, as in step_block; the shared arrays (element
+// offsets in the design's Tile) are named by what they hold.  The
+// arithmetic of each interface and cell is the generic design's, operation
+// for operation and in its order of sums (the same bits).
+
+// the correction coefficient of one wave, lead (1 - |s| dt/dx) phi, from
+// its speed s, dt/dx and the limiter's sums |w|^2, w_lo . w and w . w_hi
+// (phase_sweep's)
+template <bool FWAVE, typename T>
+HD T wave_coef(int lid, T s, T dtdx, T wn2, T dlo, T dhi) {
+  T phi = T(1);
+  if (lid != 0) {
+    const bool safe = wn2 > T(0);
+    const T theta = safe ? (s > T(0) ? dlo : dhi) / wn2 : T(0);
+    const T ph = phi_limiter<T>(lid, theta, fabs_(s) * dtdx);
+    phi = safe ? ph : T(1);
+  }
+  const T abss = fabs_(s);
+  const T lead = FWAVE ? T(0.5) * T((s > T(0)) - (s < T(0)))
+                       : T(0.5) * abss;
+  return lead * (T(1) - abss * dtdx) * phi;
+}
+
+// whether the interface of the sweep region of axis IXY at (r, c) (the
+// generic design's OX / OY indices) is in the CFL window: it touches the
+// interior (kernels.py step2)
+template <int IXY, int TX, int TY, class Blk, class A_>
+HD bool in_cfl(const A_& A, const Blk& B, int r, int c) {
+  if (IXY == 0) {
+    const int k = B.I0 - 1 + r, J = B.J0 - 1 + c;
+    return k < A.NX - 2 && c >= 1 && c <= TY && J < A.NY - 2;
+  }
+  const int i = B.I0 - 1 + r, j = B.J0 - 1 + c;
+  return r >= 1 && r <= TX && i < A.NX - 2 && j < A.NY - 2;
+}
+
+// ---- psystem_2D: each normal solve a record of its two strengths ---------
+// Shared memory (element offsets):
+//   PC  q and aux as staged, then in place the per-cell quantities u, v,
+//       sigma, z, c (S::prep_aux; the update reads its q from the grid);
+//       DX, DY (CAPA) after them
+//   RX  the x normal solves' strengths b1, b2 over (TX+3) x TY interfaces
+//       (rows -3/2 .. TX+1/2 of the tile, its columns), RY the y ones over
+//       TX x (TY+3); the waves are formed again from them and the cells'
+//       z by the solve's own expressions (S::wave), their speeds are -c_l
+//       and c_r
+//   CX  the x sweeps' correction coefficient of each wave over (TX+1) x
+//       TY interfaces, CY the y ones over TX x (TY+1): over u, v and sigma
+//       of PC, which die with the normal solves
+// Phases: load | the normal solves | the sweeps and the CFL | the update.
+// No transverse pass, so the normal solves and sweeps cover the tile's
+// own columns (rows) alone.
+template <typename S, typename T, int TX, int TY, bool CAPA> struct PTile {
+  static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
+  static constexpr int NPC = S::NPC, NPL = NPC;
+  static_assert(NPC <= NEQ + NAUX, "the per-cell quantities fit over q, aux");
+  static constexpr int QR = TX + 4, QC = TY + 4, QN = QR * QC;
+  static constexpr int XSN = (TX + 3) * TY;             // x normal solves
+  static constexpr int YSC = TY + 3, YSN = TX * YSC;    // y normal solves
+  static constexpr int XFN = (TX + 1) * TY;             // x sweeps
+  static constexpr int YFC = TY + 1, YFN = TX * YFC;    // y sweeps
+  static_assert(NW * (XFN + YFN) <= 3 * QN, "CX, CY fit over u, v, sigma");
+  static constexpr int ZS = (NEQ + NAUX) * QN + (CAPA ? 2 * QN : 0);
+  static constexpr size_t elems = ZS + NW * (XSN + YSN) + 2 * (NT / 32);
+  static constexpr size_t bytes = elems * sizeof(T);
+};
+
+template <typename S, typename T, int TX, int TY, bool CAPA_> struct PBlock {
+  using Sys = S;
+  using Type = T;
+  static constexpr bool CAPA = CAPA_;
+  using L = PTile<S, T, TX, TY, CAPA>;
+  T* q;    // [NEQ][QR][QC] as staged
+  T* a;    // [NAUX][QR][QC] as staged
+  T* PC;   // [NPC][QR][QC] over q and a
+  T* DX;   // [QR][QC] dt/(dx kappa) (CAPA)
+  T* DY;   // [QR][QC] dt/(dy kappa) (CAPA)
+  T* RX;   // [NW][XSN]
+  T* RY;   // [NW][YSN]
+  T* CX;   // [NW][XFN]
+  T* CY;   // [NW][YFN]
+  T* rx;   // [NT / 32] x CFL partial max of each warp
+  T* ry;   // the same for y
+  int I0, J0, bid;
+
+  HD void bind(T* s, int bx, int by, int nbx) {
+    q = s;
+    a = q + L::NEQ * L::QN;
+    PC = s;
+    DX = s + (L::NEQ + L::NAUX) * L::QN;
+    DY = DX + (CAPA ? L::QN : 0);
+    RX = s + L::ZS;
+    RY = RX + L::NW * L::XSN;
+    CX = s;
+    CY = CX + L::NW * L::XFN;
+    rx = RY + L::NW * L::YSN;
+    ry = rx + NT / 32;
+    I0 = 2 + by * TX;
+    J0 = 2 + bx * TY;
+    bid = by * nbx + bx;
+  }
+  // per-cell quantity k of the tile cell (r, c)
+  HD T pc(int k, int r, int c) const { return PC[k * L::QN + r * L::QC + c]; }
+  template <int D> HD T dtd(const SysArgs<S, T>& A, int r, int c) const {
+    if (CAPA) return (D == 0 ? DX : DY)[r * L::QC + c];
+    return A.C[D == 0 ? C_DTDX : C_DTDY];
+  }
+};
+
+// ---- normal solve idx of axis IXY: x, between tile rows r and r+1 at
+// column c+2; y, between columns c and c+1 at row r+2 -----------------------
+template <int IXY, typename S, typename T, int TX, int TY, bool CAPA>
+HD void pitem_solve(PBlock<S, T, TX, TY, CAPA>& B, int idx) {
+  using L = PTile<S, T, TX, TY, CAPA>;
+  constexpr int C = IXY == 0 ? TY : L::YSC;
+  constexpr int N = IXY == 0 ? L::XSN : L::YSN;
+  const int r = idx / C, c = idx % C;
+  const int lr = IXY == 0 ? r : r + 2, lc = IXY == 0 ? c + 2 : c;
+  T pl[L::NPC], pr[L::NPC], b[L::NW];
+  for (int k = 0; k < L::NPC; ++k) {
+    pl[k] = B.pc(k, lr, lc);
+    pr[k] = B.pc(k, IXY == 0 ? lr + 1 : lr, IXY == 0 ? lc : lc + 1);
+  }
+  S::template strengths<IXY>(pl, pr, b);
+  T* R = IXY == 0 ? B.RX : B.RY;
+  for (int p = 0; p < L::NW; ++p) R[p * N + idx] = b[p];
+}
+
+// ---- limiter and correction coefficients of sweep idx of axis IXY (x:
+// between tile rows r+1 and r+2 at column c+2; y: between columns c+1 and
+// c+2 at row r+2), from the records of its solve and of the solves below
+// and above it along the axis (cells k = 0 .. 3 along the axis, its own
+// 1 and 2) ------------------------------------------------------------------
+template <int IXY, bool FWAVE, typename S, typename T, int TX, int TY,
+          bool CAPA>
+HD void pitem_sweep(const SysArgs<S, T>& A, PBlock<S, T, TX, TY, CAPA>& B,
+                    int idx, T& cmax) {
+  using L = PTile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, NW = L::NW;
+  constexpr int C = IXY == 0 ? TY : L::YFC;
+  constexpr int SC = IXY == 0 ? TY : L::YSC;
+  constexpr int SN = IXY == 0 ? L::XSN : L::YSN;
+  constexpr int FN = IXY == 0 ? L::XFN : L::YFN;
+  const int r = idx / C, c = idx % C;
+  const int r0 = IXY == 0 ? r : r + 2, c0 = IXY == 0 ? c + 2 : c;
+  constexpr int dr = IXY == 0 ? 1 : 0, dc = IXY == 0 ? 0 : 1;
+  const T* R = IXY == 0 ? B.RX : B.RY;
+  T b[3][NW], z[4];
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const int s = IXY == 0 ? (r + m) * SC + c : r * SC + c + m;
+    for (int p = 0; p < NW; ++p) b[m][p] = R[p * SN + s];
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) z[k] = B.pc(3, r0 + k * dr, c0 + k * dc);
+  static_assert(NW == 2, "the speeds -c_l and c_r");
+  const T s[2] = {-B.pc(4, r0 + dr, c0 + dc),
+                  B.pc(4, r0 + 2 * dr, c0 + 2 * dc)};
+  const T dl = B.template dtd<IXY>(A, r0 + dr, c0 + dc);
+  const T dh = B.template dtd<IXY>(A, r0 + 2 * dr, c0 + 2 * dc);
+  const T dtdx = CAPA ? T(0.5) * (dl + dh) : dl;
+  // the generic design's indices of the sweep region (its column, row
+  // counted from the halo's)
+  if (in_cfl<IXY, TX, TY>(A, B, IXY == 0 ? r : r + 1, IXY == 0 ? c + 1 : c)) {
+    for (int p = 0; p < NW; ++p) {
+      if (CAPA) cmax = mx(cmax, mx(s[p] * dh, -s[p] * dl));
+      else cmax = mx(cmax, fabs_(s[p]));
+    }
+  }
+  if (A.order != 2) return;
+  T* CF = IXY == 0 ? B.CX : B.CY;
+#pragma unroll
+  for (int p = 0; p < NW; ++p) {
+    T wn2 = T(0), dlo = T(0), dhi = T(0);
+    bool first = true;
+    for (int e = 0; e < NEQ; ++e) {
+      if (!S::template nz<IXY>(p, e)) continue;
+      const T w = S::template wave<IXY>(p, e, b[1][p], z[1], z[2]);
+      const T wl = S::template wave<IXY>(p, e, b[0][p], z[0], z[1]);
+      const T wh = S::template wave<IXY>(p, e, b[2][p], z[2], z[3]);
+      wn2 = first ? w * w : wn2 + w * w;
+      dlo = first ? wl * w : dlo + wl * w;
+      dhi = first ? w * wh : dhi + w * wh;
+      first = false;
+    }
+    CF[p * FN + idx] = wave_coef<FWAVE>(A.lim[p], s[p], dtdx, wn2, dlo, dhi);
+  }
+}
+
+// ---- conservative update of tile cell idx: the fluctuations and
+// correction fluxes of its four faces formed from the records ---------------
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void pitem_update(const SysArgs<S, T>& A, PBlock<S, T, TX, TY, CAPA>& B,
+                     int idx) {
+  using L = PTile<S, T, TX, TY, CAPA>;
+  constexpr int NEQ = L::NEQ, NW = L::NW;
+  const int nx = A.NX - 4, ny = A.NY - 4;
+  const int ti = idx / TY, tj = idx % TY;
+  const int I = B.I0 + ti, J = B.J0 + tj;
+  if (I >= A.NX - 2 || J >= A.NY - 2) return;
+  // face h of axis D (0 lower, 1 upper): its strengths, correction
+  // coefficients and the impedances of its cells
+  T b[2][2][NW], cf[2][2][NW], z[2][3];
+  for (int k = 0; k < 3; ++k) {
+    z[0][k] = B.pc(3, ti + 1 + k, tj + 2);
+    z[1][k] = B.pc(3, ti + 2, tj + 1 + k);
+  }
+  for (int h = 0; h < 2; ++h) {
+    const int sx = (ti + 1 + h) * TY + tj, fx = (ti + h) * TY + tj;
+    const int sy = ti * L::YSC + tj + 1 + h, fy = ti * L::YFC + tj + h;
+    for (int p = 0; p < NW; ++p) {
+      b[0][h][p] = B.RX[p * L::XSN + sx];
+      b[1][h][p] = B.RY[p * L::YSN + sy];
+      if (A.order == 2) {
+        cf[0][h][p] = B.CX[p * L::XFN + fx];
+        cf[1][h][p] = B.CY[p * L::YFN + fy];
+      }
+    }
+  }
+  const T dxc = B.template dtd<0>(A, ti + 2, tj + 2);
+  const T dyc = B.template dtd<1>(A, ti + 2, tj + 2);
+  const long long plane = (long long)A.NX * A.NY;
+#pragma unroll
+  for (int e = 0; e < NEQ; ++e) {
+    // the correction flux of face h of axis D (phase_sweep's sum)
+    auto cq = [&](auto D, int h) {
+      constexpr int d = decltype(D)::value;
+      if (A.order != 2) return T(0);
+      T acc = cf[d][h][0]
+          * S::template wave<d>(0, e, b[d][h][0], z[d][h], z[d][h + 1]);
+      for (int p = 1; p < NW; ++p) {
+        if (S::template nz<d>(p, e))
+          acc = acc + cf[d][h][p] * S::template wave<d>(
+              p, e, b[d][h][p], z[d][h], z[d][h + 1]);
+      }
+      return acc;
+    };
+    using X0 = std::integral_constant<int, 0>;
+    using Y1 = std::integral_constant<int, 1>;
+    // apdq of the lower face (its second wave), amdq of the upper one
+    const T apx = S::template wave<0>(1, e, b[0][0][1], z[0][0], z[0][1]);
+    const T amx = S::template wave<0>(0, e, b[0][1][0], z[0][1], z[0][2]);
+    const T apy = S::template wave<1>(1, e, b[1][0][1], z[1][0], z[1][1]);
+    const T amy = S::template wave<1>(0, e, b[1][1][0], z[1][1], z[1][2]);
+    const T dq = (apx + amx + cq(X0(), 1) - cq(X0(), 0)) * dxc
+               + (apy + amy + cq(Y1(), 1) - cq(Y1(), 0)) * dyc;
+    A.qout[((long long)e * nx + (I - 2)) * ny + (J - 2)] =
+        A.qbc[e * plane + (long long)I * A.NY + J] - dq;
+  }
+}
+
+template <bool FWAVE, typename S, typename T, int TX, int TY, bool CAPA,
+          class X>
+HD void pstep_block(const SysArgs<S, T>& A, PBlock<S, T, TX, TY, CAPA>& B,
+                    const X& run) {
+  using L = PTile<S, T, TX, TY, CAPA>;
+  run([&](int t) { phase_load(A, B, t); });
+  run([&](int t) {
+    items2(t, L::XSN, [&](int i) { pitem_solve<0>(B, i); },
+           L::YSN, [&](int i) { pitem_solve<1>(B, i); });
+  });
+  run([&](int t) {
+    T cx = T(0), cy = T(0);
+    items2(t, L::XFN, [&](int i) { pitem_sweep<0, FWAVE>(A, B, i, cx); },
+           L::YFN, [&](int i) { pitem_sweep<1, FWAVE>(A, B, i, cy); });
+    warp_fold(B.rx, t, cx);
+    warp_fold(B.ry, t, cy);
+  });
+  run([&](int t) {
+    for (int i = t; i < TX * TY; i += NT) pitem_update(A, B, i);
+  });
+}
+
+// ---- vc_advection_2D: one equation formed again from the staged cells ----
+// Shared memory: q and the edge velocities u, v as staged (DX, DY with
+// CAPA), then each interface's correction flux cq: CQX over the generic
+// design's OX region, (TX+1) x (TY+2), CQY over its OY region, (TX+2) x
+// (TY+1); without transverse waves only the tile's own columns (rows) of
+// them.  Every other quantity of an interface (the wave, its speed, amdq,
+// apdq and the split parts) is a difference and a few products of staged
+// values (S::rpn, S::rpt), formed where it is used: the update forms the
+// parts of the six x- and six y-interfaces around its cell in place of
+// gathering stored ones.  Phases: load | the sweeps and the CFL | the
+// update (two barriers where the generic design has six).
+template <typename S, typename T, int TX, int TY, bool CAPA> struct VTile {
+  static constexpr int NEQ = S::NEQ, NW = S::NW, NAUX = S::NAUX;
+  static_assert(NEQ == 1 && NW == 1 && S::NPC == 0, "a scalar system");
+  static constexpr int NPC = 0, NPL = 1;
+  static constexpr int QR = TX + 4, QC = TY + 4, QN = QR * QC;
+  static constexpr int OXR = TX + 1, OXC = TY + 2, OXN = OXR * OXC;
+  static constexpr int OYR = TX + 2, OYC = TY + 1, OYN = OYR * OYC;
+  static constexpr size_t elems = (NEQ + NAUX + (CAPA ? 2 : 0)) * QN + OXN
+      + OYN + 2 * (NT / 32);
+  static constexpr size_t bytes = elems * sizeof(T);
+};
+
+template <typename S, typename T, int TX, int TY, bool CAPA_> struct VBlock {
+  using Sys = S;
+  using Type = T;
+  static constexpr bool CAPA = CAPA_;
+  using L = VTile<S, T, TX, TY, CAPA>;
+  T* q;    // [QR][QC]
+  T* a;    // [NAUX][QR][QC]
+  T* DX;   // [QR][QC] dt/(dx kappa) (CAPA)
+  T* DY;   // [QR][QC] dt/(dy kappa) (CAPA)
+  T* PC;   // (no per-cell quantities)
+  T* CQX;  // [OXR][OXC]
+  T* CQY;  // [OYR][OYC]
+  T* rx;   // [NT / 32] x CFL partial max of each warp
+  T* ry;   // the same for y
+  int I0, J0, bid;
+
+  HD void bind(T* s, int bx, int by, int nbx) {
+    q = s;
+    a = q + L::QN;
+    DX = a + L::NAUX * L::QN;
+    DY = DX + (CAPA ? L::QN : 0);
+    PC = nullptr;
+    CQX = DY + (CAPA ? L::QN : 0);
+    CQY = CQX + L::OXN;
+    rx = CQY + L::OYN;
+    ry = rx + NT / 32;
+    I0 = 2 + by * TX;
+    J0 = 2 + bx * TY;
+    bid = by * nbx + bx;
+  }
+  HD T qc(int r, int c) const { return q[r * L::QC + c]; }
+  HD void aux_of(int r, int c, T av[]) const {
+    for (int m = 0; m < L::NAUX; ++m) av[m] = a[m * L::QN + r * L::QC + c];
+  }
+  template <int D> HD T dtd(const SysArgs<S, T>& A, int r, int c) const {
+    if (CAPA) return (D == 0 ? DX : DY)[r * L::QC + c];
+    return A.C[D == 0 ? C_DTDX : C_DTDY];
+  }
+  // the interface (r, c) of axis IXY (OX / OY indices): its cells, left
+  // (lr, lc) and right (lr + 1 - IXY, lc + IXY), and S::rpn's wave, speed
+  // and fluctuations
+  template <int IXY>
+  HD void solve(const SysArgs<S, T>& A, int r, int c, T& w, T& s, T& am,
+                T& ap) const {
+    const int lr = r + 1, lc = c + 1;
+    const int rr = lr + 1 - IXY, rc = lc + IXY;
+    T ql[1] = {qc(lr, lc)}, qr[1] = {qc(rr, rc)}, ar[L::NAUX];
+    T wv[1][1], sv[1], amv[1], apv[1];
+    aux_of(rr, rc, ar);
+    S::template rpn<IXY, T>(A.P, ql, qr, nullptr, ar, nullptr, nullptr, wv,
+                            sv, amv, apv);
+    w = wv[0][0];
+    s = sv[0];
+    am = amv[0];
+    ap = apv[0];
+  }
+  // cell_split's parts of the fluctuation asdq entering the tile cell (r,
+  // c) along the transverse axis of IXY
+  template <int IXY>
+  HD void split(const SysArgs<S, T>& A, int r, int c, T asdq, T& bm,
+                T& bp) const {
+    constexpr int dr = IXY == 0 ? 0 : 1, dc = IXY == 0 ? 1 : 0;
+    T qv[1] = {qc(r, c)}, ab[L::NAUX], ac[L::NAUX], aa[L::NAUX];
+    T as[1] = {asdq}, bmv[1], bpv[1];
+    aux_of(r - dr, c - dc, ab);
+    aux_of(r, c, ac);
+    aux_of(r + dr, c + dc, aa);
+    S::template rpt<IXY, T>(A.P, qv, ab, ac, aa, as, bmv, bpv);
+    bm = bmv[0];
+    bp = bpv[0];
+  }
+  // part k of the interface (r, c) of axis IXY: bm (k = 0), bp (1) of
+  // amdq(+cq) into its left cell, bm (2), bp (3) of apdq(-cq) into its
+  // right one (phase_sweep's)
+  template <int IXY>
+  HD T part(const SysArgs<S, T>& A, int r, int c, int k) const {
+    T w, s, am, ap, bm, bp;
+    solve<IXY>(A, r, c, w, s, am, ap);
+    const T cq = (IXY == 0 ? CQX[r * L::OXC + c] : CQY[r * L::OYC + c]);
+    const bool both = A.tw >= 2 && A.order == 2;
+    if (k < 2) {
+      split<IXY>(A, r + 1, c + 1, both ? am + cq : am, bm, bp);
+    } else {
+      split<IXY>(A, r + 2 - IXY, c + 1 + IXY, both ? ap - cq : ap, bm,
+                 bp);
+    }
+    return k % 2 == 0 ? bm : bp;
+  }
+};
+
+// ---- limiter and correction flux of the interface (r, c) of axis IXY,
+// its wave and those of its neighbours along the axis formed from the
+// staged q ------------------------------------------------------------------
+template <int IXY, bool FWAVE, typename S, typename T, int TX, int TY,
+          bool CAPA>
+HD void vitem_sweep(const SysArgs<S, T>& A, VBlock<S, T, TX, TY, CAPA>& B,
+                    int r, int c, T& cmax) {
+  using L = VTile<S, T, TX, TY, CAPA>;
+  constexpr int dr = IXY == 0 ? 1 : 0, dc = IXY == 0 ? 0 : 1;
+  T w, s, am, ap, wl, wh, x;
+  B.template solve<IXY>(A, r, c, w, s, am, ap);
+  const T dl = B.template dtd<IXY>(A, r + 1, c + 1);
+  const T dh = B.template dtd<IXY>(A, r + 1 + dr, c + 1 + dc);
+  const T dtdx = CAPA ? T(0.5) * (dl + dh) : dl;
+  if (in_cfl<IXY, TX, TY>(A, B, r, c)) {
+    if (CAPA) cmax = mx(cmax, mx(s * dh, -s * dl));
+    else cmax = mx(cmax, fabs_(s));
+  }
+  T cq = T(0);
+  if (A.order == 2) {
+    B.template solve<IXY>(A, r - dr, c - dc, wl, x, x, x);
+    B.template solve<IXY>(A, r + dr, c + dc, wh, x, x, x);
+    cq = wave_coef<FWAVE>(A.lim[0], s, dtdx, w * w, wl * w, w * wh) * w;
+  }
+  if (IXY == 0) B.CQX[r * L::OXC + c] = cq;
+  else B.CQY[r * L::OYC + c] = cq;
+}
+
+// ---- conservative update of tile cell idx: item_update's fluxes, the
+// rpt2 parts of the interfaces around the cell formed in place ------------
+template <typename S, typename T, int TX, int TY, bool CAPA>
+HD void vitem_update(const SysArgs<S, T>& A, VBlock<S, T, TX, TY, CAPA>& B,
+                     int idx) {
+  using L = VTile<S, T, TX, TY, CAPA>;
+  const int ny = A.NY - 4;
+  const int ti = idx / TY, tj = idx % TY;
+  const int I = B.I0 + ti, J = B.J0 + tj;
+  if (I >= A.NX - 2 || J >= A.NY - 2) return;
+  T w, s, apx, amx, apy, amy, x;
+  B.template solve<0>(A, ti, tj + 1, w, s, x, apx);
+  B.template solve<0>(A, ti + 1, tj + 1, w, s, amx, x);
+  B.template solve<1>(A, ti + 1, tj, w, s, x, apy);
+  B.template solve<1>(A, ti + 1, tj + 1, w, s, amy, x);
+  T F[2], G[2];
+  for (int h = 0; h < 2; ++h) {
+    F[h] = B.CQX[(ti + h) * L::OXC + tj + 1];
+    G[h] = B.CQY[(ti + 1) * L::OYC + tj + h];
+  }
+  if (A.tw > 0) {
+    // each part formed where its sum takes it (registers: the update of
+    // a cell would otherwise keep the 24 parts of twelve interfaces)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // Fx at OX row ti+h: the y parts of OY rows ti+h+1 (lo) and ti+h
+      // (hi), of amdq at column tj+1 and apdq at column tj
+      T fy_lo = A.C[C_HDY], fy_hi = fy_lo;
+      if (CAPA) {
+        fy_lo = T(0.5) * B.template dtd<1>(A, ti + 2 + h, tj + 2);
+        fy_hi = T(0.5) * B.template dtd<1>(A, ti + 1 + h, tj + 2);
+      }
+      F[h] = F[h] - (fy_lo * B.template part<1>(A, ti + h + 1, tj + 1, 0)
+                     + fy_hi * B.template part<1>(A, ti + h, tj + 1, 1));
+      F[h] = F[h] - (fy_lo * B.template part<1>(A, ti + h + 1, tj, 2)
+                     + fy_hi * B.template part<1>(A, ti + h, tj, 3));
+      // Gy at OY row ti+1, column tj+h: item_gather_y's two sums, of the
+      // x parts of OX rows ti+1 (amdq) and ti (apdq), columns tj+h+1 (lo)
+      // and tj+h (hi)
+      T lo = A.C[C_HDX], hi = lo;
+      if (CAPA) {
+        lo = T(0.5) * B.template dtd<0>(A, ti + 2, tj + h + 2);
+        hi = T(0.5) * B.template dtd<0>(A, ti + 2, tj + h + 1);
+      }
+      const T sum_am = lo * B.template part<0>(A, ti + 1, tj + h + 1, 0)
+                     + hi * B.template part<0>(A, ti + 1, tj + h, 1);
+      const T sum_ap = lo * B.template part<0>(A, ti, tj + h + 1, 2)
+                     + hi * B.template part<0>(A, ti, tj + h, 3);
+      G[h] = G[h] - sum_am - sum_ap;
+    }
+  }
+  const T dxc = B.template dtd<0>(A, ti + 2, tj + 2);
+  const T dyc = B.template dtd<1>(A, ti + 2, tj + 2);
+  const T dq = (apx + amx + F[1] - F[0]) * dxc
+             + (apy + amy + G[1] - G[0]) * dyc;
+  A.qout[(long long)(I - 2) * ny + (J - 2)] = B.qc(ti + 2, tj + 2) - dq;
+}
+
+template <bool FWAVE, typename S, typename T, int TX, int TY, bool CAPA,
+          class X>
+HD void vstep_block(const SysArgs<S, T>& A, VBlock<S, T, TX, TY, CAPA>& B,
+                    const X& run) {
+  using L = VTile<S, T, TX, TY, CAPA>;
+  run([&](int t) { phase_load(A, B, t); });
+  run([&](int t) {
+    // with transverse waves the generic design's whole OX and OY regions
+    // (the update's parts read them); without, the tile's own columns of
+    // OX and rows of OY
+    const bool tr = A.tw > 0;
+    T cx = T(0), cy = T(0);
+    items2(t, tr ? L::OXN : L::OXR * TY, [&](int i) {
+      vitem_sweep<0, FWAVE>(A, B, tr ? i / L::OXC : i / TY,
+                            tr ? i % L::OXC : i % TY + 1, cx);
+    }, tr ? L::OYN : TX * L::OYC, [&](int i) {
+      vitem_sweep<1, FWAVE>(A, B, tr ? i / L::OYC : i / L::OYC + 1,
+                            i % L::OYC, cy);
+    });
+    warp_fold(B.rx, t, cx);
+    warp_fold(B.ry, t, cy);
+  });
+  run([&](int t) {
+    for (int i = t; i < TX * TY; i += NT) vitem_update(A, B, i);
+  });
+}
+
 template <typename S, typename T>
 SysArgs<S, T> make_args(const void* qbc, const void* aux, void* qout,
                         void* cflb, int nxg, int nyg, int capa,
@@ -1181,12 +1743,16 @@ SysArgs<S, T> make_args(const void* qbc, const void* aux, void* qout,
   return A;
 }
 
-// the block of system S in a tile of TX x TY: Block, or CBlock for the
-// compact systems
+// the block of system S in a tile of TX x TY: Block, CBlock for the
+// compact systems, PBlock and VBlock for the systems of their own design
 template <typename S, typename T, int TX, int TY, bool CAPA>
-using BlockOf = std::conditional_t<Compact<S>::value,
-                                   CBlock<S, T, TX, TY, CAPA>,
-                                   Block<S, T, TX, TY, CAPA>>;
+using BlockOf = std::conditional_t<
+    Compact<S>::value, CBlock<S, T, TX, TY, CAPA>,
+    std::conditional_t<
+        Own<S>::value == OWN_PSYSTEM, PBlock<S, T, TX, TY, CAPA>,
+        std::conditional_t<Own<S>::value == OWN_VC_ADVECTION,
+                           VBlock<S, T, TX, TY, CAPA>,
+                           Block<S, T, TX, TY, CAPA>>>>;
 
 template <typename S, typename T>
 void grid_of(int nxg, int nyg, int& nbx, int& nby) {
@@ -1227,6 +1793,16 @@ __global__ void __launch_bounds__(NT, (SysShape<S, T>::PER_SM))
     B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y,
            gridDim.x);
     cstep_block<FWAVE>(A, B, DeviceRun());
+    if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(A, B);
+  } else if constexpr (Own<S>::value != OWN_NONE) {
+    BlockOf<S, T, TX, TY, CAPA> B;
+    B.bind(reinterpret_cast<T*>(smem_raw), blockIdx.x, blockIdx.y,
+           gridDim.x);
+    if constexpr (Own<S>::value == OWN_PSYSTEM) {
+      pstep_block<FWAVE>(A, B, DeviceRun());
+    } else {
+      vstep_block<FWAVE>(A, B, DeviceRun());
+    }
     if (threadIdx.x == 0) A.cflb[B.bid] = block_cfl(A, B);
   } else {
     Block<S, T, TX, TY, CAPA> B;
@@ -1292,6 +1868,10 @@ int launch(SysArgs<S, T> A, int nbx, int nby, void*) {
       Blk B;
       B.bind(smem.data(), bx, by, nbx);
       if constexpr (Compact<S>::value) cstep_block<FWAVE>(A, B, HostRun());
+      else if constexpr (Own<S>::value == OWN_PSYSTEM)
+        pstep_block<FWAVE>(A, B, HostRun());
+      else if constexpr (Own<S>::value == OWN_VC_ADVECTION)
+        vstep_block<FWAVE>(A, B, HostRun());
       else step_block<FWAVE>(A, B, HostRun());
       A.cflb[B.bid] = block_cfl(A, B);
     }

@@ -10,8 +10,9 @@ ragged fallback case, :func:`dq_weno_case`; each build's CFL partials
 are compared too), ``step3_ctu``, ``step3_aos`` (the heterogeneous-acoustics and
 Burgers cases), ``step2_aos`` (the shallow-water, acoustics, Euler
 4-wave, Euler 5-wave and sw_aug_2D cases, those of the scalar and
-variable-coefficient systems, :data:`SCALAR_CASES`, and those of the two
-systems without a transverse solver, :data:`NO_TRANS_CASES`),
+variable-coefficient systems, :data:`SCALAR_CASES`, those of the two
+systems without a transverse solver, :data:`NO_TRANS_CASES`, and the
+other variants of psystem_2D and vc_advection_2D, :data:`OWN_VARIANTS`),
 ``euler3d_capa`` (the source ``step3_ctu.cu`` on the
 Euler capacity path's case), ``step1`` or ``weno5``, timed through its
 wrapper in ``ops/tiled2d.py``, ``ops/sweep.py`` or ``ops/weno.py`` on the
@@ -500,6 +501,37 @@ def step2_aos_no_trans_case(name, n, dtype, dev):
         params, (lim,) * rp.num_waves, 2, True, capa, 2, 0)
 
 
+# the other variants of step2_aos's psystem_2D and vc_advection_2D
+# instances (each a design of its own), each on its path's state at n^2 as
+# in SCALAR_CASES / NO_TRANS_CASES but for: label -> (system,
+# transverse_waves, a capacity row (:func:`fwave_capacity`, appended to
+# aux), f-waves)
+OWN_VARIANTS = {
+    "vc_advection_2D tw1": ("vc_advection_2D", 1, False, False),
+    "vc_advection_2D tw2 capa fwave": ("vc_advection_2D", 2, True, True),
+    "psystem_2D capa": ("psystem_2D", 0, True, True),
+    "psystem_2D wave": ("psystem_2D", 0, False, False)}
+
+
+def step2_aos_variant_case(label, n, dtype, dev):
+    """step2_aos's case :data:`OWN_VARIANTS` ``label``: qbc and the rest of
+    ``tiled2d.step2_rows_generic``'s arguments (as
+    :func:`step2_aos_scalar_case` and :func:`step2_aos_no_trans_case`)."""
+    name, tw, capa, fwave = OWN_VARIANTS[label]
+    case = (step2_aos_scalar_case if name in SCALAR_CASES
+            else step2_aos_no_trans_case)
+    qbc, args = case(name, n, dtype, dev)
+    args = list(args)
+    if capa:
+        nx, ny = qbc.shape[1] - 4, qbc.shape[2] - 4
+        kappa = padded(fwave_capacity(nx, ny)[None], dtype, dev)
+        args[9] = args[0].shape[0]
+        args[0] = torch.cat([args[0], kappa]).contiguous()
+    args[8] = fwave
+    args[11] = tw
+    return qbc, tuple(args)
+
+
 def step3_aos_burgers_case(n, dtype, dev):
     """step3_aos's burgers_3D instance's timed case at n^3, the Burgers 3D
     run's configuration on its first state (the pulse of
@@ -971,6 +1003,9 @@ def _step2_aos_call(dtype, dev, n=1024):
         name, n, dtype, dev)) for name in SCALAR_CASES]
     cases += [(name, lambda n, dtype, dev, name=name: step2_aos_no_trans_case(
         name, n, dtype, dev)) for name in NO_TRANS_CASES]
+    cases += [(label, lambda n, dtype, dev, label=label:
+               step2_aos_variant_case(label, n, dtype, dev))
+              for label in OWN_VARIANTS]
     for label, case in cases:
         qbc, args = case(n, dtype, dev)
 
@@ -1220,21 +1255,27 @@ def dq_weno_instance(function):
             "float32" if m.group(3) == "f" else "float64")
 
 
-# the Euler system structs of csrc/euler2d_aos.cuh, by their wave count
+# the Euler system structs of csrc/euler2d_aos.cuh, by their wave count,
+# and the other systems of step2_aos.cu with a design of their own
 STEP2_AOS_EULER = {"4": "euler_4wave_2D", "5": "euler_5wave_2D"}
+STEP2_AOS_OWN = {"Psystem2D": "psystem_2D",
+                 "VcAdvection2D": "vc_advection_2D"}
 
 
 def step2_aos_instance(function):
     """(system name, type name, capa, fwave) of the mangled name of an
-    Euler instance of ``csrc/step2_aos.cu``'s kernel, or None for another
-    function."""
-    m = re.search(r"step2_aos_kernelINS_\d+EulerAoS2DILi([45])EEE([fd])"
-                  r"Li\d+ELi\d+ELb([01])ELb([01])E", function)
+    instance of ``csrc/step2_aos.cu``'s kernel of a system with a design
+    of its own (the Euler systems, psystem_2D, vc_advection_2D), or None
+    for another function."""
+    m = re.search(r"step2_aos_kernelINS_\d+(?:EulerAoS2DILi([45])EE|"
+                  r"(Psystem2D|VcAdvection2D))E([fd])Li\d+ELi\d+ELb([01])"
+                  r"ELb([01])E", function)
     if m is None:
         return None
-    return (STEP2_AOS_EULER[m.group(1)],
-            "float32" if m.group(2) == "f" else "float64",
-            m.group(3) == "1", m.group(4) == "1")
+    return (STEP2_AOS_EULER[m.group(1)] if m.group(1)
+            else STEP2_AOS_OWN[m.group(2)],
+            "float32" if m.group(3) == "f" else "float64",
+            m.group(4) == "1", m.group(5) == "1")
 
 
 def dq2_weno5_instance(function):

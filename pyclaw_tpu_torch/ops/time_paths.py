@@ -1,8 +1,8 @@
 """Time the classic and SharpClaw quadrants, Euler 3D, shallow-water,
 Euler capacity, the two Sod, the heterogeneous acoustics, the classic and
-SharpClaw shock bubble, the quadrants-off-SoA and the Burgers 3D paths of
-checkouts against each other on one card, each run in a process of its
-own.
+SharpClaw shock bubble, the quadrants-off-SoA, the Burgers 3D, the
+unsplit p-system and the swirl paths of checkouts against each other on
+one card, each run in a process of its own.
 
     python -m pyclaw_tpu_torch.ops.time_paths LABEL=ROOT[:host]
         [LABEL=ROOT[:host] ...] [--out FILE] [--paths P1,P2]
@@ -33,7 +33,12 @@ quadrants at 1024^2 to t = 0.8 off the SoA route (``quadrants_aos``:
 ``use_soa = False``, ``step2_aos``'s Euler 4-wave instance) and
 ``burgers_3D`` on its pulse at 192^3 to t = 0.4 (``burgers3d``:
 ``step3_aos``'s Burgers instance; chip_smoke.py [4v]'s run, built through
-the package's API as that run is: periodic, MC, CFL 0.45 / 0.5).  It
+the package's API as that run is: periodic, MC, CFL 0.45 / 0.5), the
+p-system's unsplit route at 1024^2 to t = 1.0 (``psystem_unsplit``:
+``dimensional_split=False``, CFL 0.2 / 0.25, ``step2_aos``'s psystem_2D
+instance; [4w]'s run) and the swirl at 1024^2 to t = 2.0 (``swirl``:
+``examples.advection_2d``, transverse_waves 0, ``step2_aos``'s
+vc_advection_2D instance; [4u]'s run).  It
 prints the accepted and rejected steps, the kernel's launches as its
 wrappers count them (on the device loop the launches they make or
 capture: a capture's eager warm-up attempt and two captured attempts;
@@ -95,6 +100,11 @@ PATHS = {
                                1024 * 256, "tiled2d.dq_rows", ""),
     "burgers3d": (BURGERS3D, {"mx": 192, "my": 192, "mz": 192}, 0.4,
                   192 ** 3, "tiled2d.step3_xy_generic", ""),
+    "psystem_unsplit": ("psystem_2d", {"mx": 1024, "my": 1024,
+                                       "dimensional_split": False}, 1.0,
+                        1024 ** 2, "tiled2d.step2_rows_generic", ""),
+    "swirl": ("advection_2d", {"mx": 1024, "my": 1024}, 2.0, 1024 ** 2,
+              "tiled2d.step2_rows_generic", ""),
 }
 
 # burgers_3D as chip_smoke.py [4v] runs it (scalar_claw): the pulse
@@ -185,7 +195,8 @@ def run_one(root, path, device="cuda", size=None, tfinal=None, host=False):
     module, kw, t_path, cells, wrappers, post = PATHS[path]
     kw = kw if size is None else size
     cells = cells if size is None else math.prod(
-        v for v in size.values() if isinstance(v, int))
+        v for v in size.values()
+        if isinstance(v, int) and not isinstance(v, bool))
     proc = subprocess.run(
         [sys.executable, "-c", CHILD, root, module, json.dumps(kw),
          str(t_path if tfinal is None else tfinal), str(cells), wrappers,

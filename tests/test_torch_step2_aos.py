@@ -480,15 +480,17 @@ def test_kernel_writes_the_partials_it_counts(host_kernel, name, dtype):
 @pytest.mark.parametrize("nx,ny", [(7, 5), (11, 15), (12, 16), (100, 37),
                                    (1024, 1024), (2048, 512)])
 def test_system_blocks_are_the_tiles(host_kernel, nx, ny):
-    """step2_aos_system_blocks: the twelve systems other than Euler keep
+    """step2_aos_system_blocks: the ten systems of the generic design keep
     step2_aos_blocks (one tile per type, 12x15 and 11x16); the Euler
-    systems count their own tiles (12x15 and 11x15)."""
+    systems count their own tiles (12x15 and 11x15), psystem_2D its 16x32
+    and vc_advection_2D its 32x32 in both types."""
+    own = {"psystem_2D": (16, 32), "vc_advection_2D": (32, 32)}
     for name, (system, _) in tiled2d.AOS_SYSTEMS.items():
         for is_double in (0, 1):
             got = host_kernel.step2_aos_system_blocks(system, nx + 4, ny + 4,
                                                       is_double)
-            if name.startswith("euler_"):
-                tx, ty = (11, 15) if is_double else (12, 15)
+            if name.startswith("euler_") or name in own:
+                tx, ty = own.get(name, (11, 15) if is_double else (12, 15))
                 assert got == -(-nx // tx) * -(-ny // ty)
             else:
                 assert got == host_kernel.step2_aos_blocks(nx + 4, ny + 4,
@@ -650,3 +652,123 @@ def test_new_instances_are_registered(host_kernel):
         ctypes.byref(ctypes.c_double(1e-3)), 0.1, 0.1, 0.4, 0.0, 2, 2,
         *tiled2d.aos_limiter_ids((4,)))
     assert rc == -1
+
+
+# ---- the redesigned psystem_2D and vc_advection_2D instances ---------------
+# grids less than a tile, of one tile of either design (psystem_2D 16x32,
+# vc_advection_2D 32x32, rows x columns), and k TX +- 1 by k TY -+ 1 of
+# both: the tiles' edges fall one cell inside and one cell outside
+BITS_GRIDS = [(7, 5), (16, 32), (32, 32), (17, 31), (33, 31), (31, 65),
+              (63, 65)]
+# The SHA-256 of q and the CFL of the host emulation of psystem_2D over
+# NO_TRANS_OPTS and of vc_advection_2D over SCALAR_OPTS (in order) on
+# BITS_GRIDS, as the generic design (12x15 / 11x16 tiles, the rpt2 parts
+# and their sums in shared memory) computed them: the designs of their own
+# keep its bits
+BITS_DIGESTS = {
+    ('psystem_2D', 7, 5, 'float64'):
+        "081c985ffc5778ad3a6c0e64011690b0c4a45a02382d3920419ee3c99d13f1d9",
+    ('psystem_2D', 7, 5, 'float32'):
+        "d047eb6ef30f13863a217de0e79e0fa5057207cb8b8027936250d0b1c04c91a2",
+    ('psystem_2D', 16, 32, 'float64'):
+        "2af1204988f83c8a0540142d1cca7c10160bd481bda86883fe03efa2b84e41f7",
+    ('psystem_2D', 16, 32, 'float32'):
+        "3e94d8bae31d8f7751a065fb90dacadd56b35e5d0eb5699bea498c7520647881",
+    ('psystem_2D', 32, 32, 'float64'):
+        "19c36da3aa657b3f5371eaed5bbc689861617db8d7459822b8c65ea2c0f4087c",
+    ('psystem_2D', 32, 32, 'float32'):
+        "14e3fc2c4a2435c5a6b2543e5fa3f053b49ec1de966b3732808be6596f364b07",
+    ('psystem_2D', 17, 31, 'float64'):
+        "33943615ca6ae1f90c8a6088f1bb62483ced57d484c9b7d7f8e97e15597029bc",
+    ('psystem_2D', 17, 31, 'float32'):
+        "45e1c86e06cb8b666e3571500e040de5db3c1e20803a1c4c8c480aabcdb3f881",
+    ('psystem_2D', 33, 31, 'float64'):
+        "b944565cc4867181063a08a4d56a92229d5c3d1120bdbe54df86cfdb79af4174",
+    ('psystem_2D', 33, 31, 'float32'):
+        "297e12330d1d72e7871384cb1e172d7202fa7cd4b46c4ed19dd2578a7861ed5a",
+    ('psystem_2D', 31, 65, 'float64'):
+        "88a8679d6ef431fe84d248e74b9a57f21a472733bb5de68edf3ff444a7e035b1",
+    ('psystem_2D', 31, 65, 'float32'):
+        "c511d1f61611731720e0cb6c998ebc27d8a5a4f9b69981775ffdcb6967734a83",
+    ('psystem_2D', 63, 65, 'float64'):
+        "178708ea8ab4908ef4157287acf8d6a7459e12ad948be1cd3049d411146ab8aa",
+    ('psystem_2D', 63, 65, 'float32'):
+        "9083091807f0b5313a39fc850eb15479a6721cbfa9cffd8cec69192c6c76a324",
+    ('vc_advection_2D', 7, 5, 'float64'):
+        "27f4ac138b92c63f84a16be698aae4cfec67b8a8c2d5acc99b63211ac69854ba",
+    ('vc_advection_2D', 7, 5, 'float32'):
+        "27fdb6dcea2e9cf991cfe1de4c6784c146a5ca26b00b962e52ca5943e453e00f",
+    ('vc_advection_2D', 16, 32, 'float64'):
+        "df7319bf5edf6afd80ce235578ed799ec766ba90a827ee289c60f78b1c7d37eb",
+    ('vc_advection_2D', 16, 32, 'float32'):
+        "25224f48d5e525dbb6cd1691e1ccecd1e375254b6ed6ccd55c645aac08e5a6f3",
+    ('vc_advection_2D', 32, 32, 'float64'):
+        "7ec95ec8382b5bace54c9ef5e4012cf968ca8ee7d83a4ccb9e843f29566c5d07",
+    ('vc_advection_2D', 32, 32, 'float32'):
+        "296fb99297a23f607f3d8acce63b0c2c8ed5ebc33e02728b5f92a3ed81f78aee",
+    ('vc_advection_2D', 17, 31, 'float64'):
+        "cf15abee73a1450e45a8a0f0c41145da52f6a06e7563b6beac7bfc274ab93921",
+    ('vc_advection_2D', 17, 31, 'float32'):
+        "a4ea30b4fb4d4ad83d3dd5b48ad63326f7a5a09d206a37d7c146e403a95d17d8",
+    ('vc_advection_2D', 33, 31, 'float64'):
+        "389a90a78931f455c48be456e088c1e2a9e02c237a2f19693e956f95e380f6d1",
+    ('vc_advection_2D', 33, 31, 'float32'):
+        "5de84810ba1659b7ba0a29248019749f47a6a1d439274b400e3886a67b4f813b",
+    ('vc_advection_2D', 31, 65, 'float64'):
+        "f939d76c051f0207d1a0953a8b36e943d8f359a632454c8f1bb85d02915f9ded",
+    ('vc_advection_2D', 31, 65, 'float32'):
+        "c11e2f75384bf1697c05915d0d5a0e5c2d757de5f88fb01f933d262b6bbb5637",
+    ('vc_advection_2D', 63, 65, 'float64'):
+        "4909e1dfab89d6caabca07b328a4f2bd2030171534631a5236122a592d41a66f",
+    ('vc_advection_2D', 63, 65, 'float32'):
+        "9680b9bf4044c5f463883cf5963daa8c9e50c8c3657e75bd23057fb31034ad9b",
+}
+
+
+def bits_digest(lib, name, nx, ny, dtype):
+    """The SHA-256 of q and the CFL of ``lib``'s host emulation of system
+    ``name`` (psystem_2D or vc_advection_2D) over its options on an nx x ny
+    grid, and each option's (q, CFL, the plain step's q and CFL)."""
+    import hashlib
+    digest = hashlib.sha256()
+    rp = triemann.ALL[name]
+    deltas = (1.0 / nx, 1.0 / ny)
+    if name == "psystem_2D":
+        q, aux = no_trans_state(nx + 3 * ny + len(name), name, nx, ny)
+        opts = [(tw, order, lim, capa, fwave,
+                 {"grav": 1.0, "stress_relation": law}, None)
+                for tw, order, lim, capa, fwave, law in NO_TRANS_OPTS]
+    else:
+        q, aux = scalar_state(nx + 3 * ny + len(name), name, nx, ny)
+        opts = [(tw, order, lim, capa, fwave, SCALAR_PARAMS, rp.rpt)
+                for tw, order, lim, capa, fwave in SCALAR_OPTS]
+    q, aux = (np.ascontiguousarray(a.astype(dtype)) for a in (q, aux))
+    dt = float(dtype(0.05 * min(deltas)))
+    runs = []
+    for tw, order, lim, capa, fwave, params, rpt in opts:
+        lims = (lim,) * rp.num_waves
+        out, cfl = _host_step(lib, name, q, aux, dt, deltas, params, lims,
+                              order, tw, fwave, capa)
+        q_p, c_p = tk.step2(torch.from_numpy(q), torch.from_numpy(aux), dt,
+                            *deltas, rp.rp, rpt, params, lims, order, fwave,
+                            capa, 2, tw, rp.prefactor if rpt else None)
+        _euler_digest(digest, out, cfl, dtype)
+        runs.append((out, cfl, q_p.numpy(), float(c_p)))
+    return digest.hexdigest(), runs
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12),
+                                       (np.float32, 1e-5)])
+@pytest.mark.parametrize("nx,ny", BITS_GRIDS)
+@pytest.mark.parametrize("name", ["psystem_2D", "vc_advection_2D"])
+def test_redesigned_instances_keep_their_bits(host_kernel, name, nx, ny,
+                                              dtype, tol):
+    """csrc/step2_aos.cu's psystem_2D and vc_advection_2D instances (each a
+    design of its own) against the plain version over their options
+    (every transverse_waves, order 1 and 2, capacity, f-waves, both stress
+    laws), and their q and CFL bit for bit those of the generic design
+    (BITS_DIGESTS) on grids that straddle their tiles."""
+    digest, runs = bits_digest(host_kernel, name, nx, ny, dtype)
+    for out, cfl, q_p, c_p in runs:
+        _close(out, q_p, cfl, c_p, tol)
+    assert digest == BITS_DIGESTS[(name, nx, ny, np.dtype(dtype).name)]

@@ -342,7 +342,9 @@ def test_parse_sass_counts_opcodes_per_entry():
     ("quadrants_aos", {"mx": 12, "my": 12, "solver": {"use_soa": False}}),
     ("shock_bubble_sharpclaw", {"mx": 24, "my": 8,
                                 "solver_type": "sharpclaw"}),
-    ("burgers3d", {"mx": 6, "my": 6, "mz": 6})])
+    ("burgers3d", {"mx": 6, "my": 6, "mz": 6}),
+    ("psystem_unsplit", {"mx": 12, "my": 12, "dimensional_split": False}),
+    ("swirl", {"mx": 12, "my": 12})])
 def test_time_paths_runs_each_path_in_its_own_process(path, size):
     """ops/time_paths.py's timed run (a fresh process importing the
     package from a root), on the CPU at a small size."""
@@ -396,10 +398,19 @@ def test_ptxas_resources_of_dq_weno_instances(instance, resources):
     assert found[instance] == resources
 
 
-# A ptxas -v report of two of csrc/step2_aos.cu's entries: an Euler
-# 5-wave instance (float64, 11x15, capacity, f-waves) and a shallow-water
-# one
+# A ptxas -v report of four of csrc/step2_aos.cu's entries: an Euler
+# 5-wave instance (float64, 11x15, capacity, f-waves), a psystem_2D one
+# (float32, 16x32, f-waves), a vc_advection_fwave_2D one (the generic
+# design) and a shallow-water one
 PTXAS_AOS = """
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_9Psystem2DEfLi16ELi32ELb0ELb1EEEvNS_4ArgsIT0_NT_3ParIS3_EEXcl4nlimIS4_EEEEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_9Psystem2DEfLi16ELi32ELb0ELb1EEEvNS_4ArgsIT0_NT_3ParIS3_EEXcl4nlimIS4_EEEEE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 32 bytes smem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_18VcAdvectionFwave2DEfLi12ELi15ELb0ELb1EEEvNS_4ArgsIT0_NT_3ParIS3_EEXcl4nlimIS4_EEEEE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_18VcAdvectionFwave2DEfLi12ELi15ELb0ELb1EEEvNS_4ArgsIT0_NT_3ParIS3_EEXcl4nlimIS4_EEEEE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 1 barriers, 16 bytes smem
 ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_10EulerAoS2DILi5EEEdLi11ELi15ELb1ELb1EEEvNS_4ArgsIT0_NT_3ParIS4_EEXcl4nlimIS5_EEEEE' for 'sm_90a'
 ptxas info    : Function properties for _ZN45_GLOBAL__N__565f0220_12_step2_aos_cu_0279f50516step2_aos_kernelINS_10EulerAoS2DILi5EEEdLi11ELi15ELb1ELb1EEEvNS_4ArgsIT0_NT_3ParIS4_EEXcl4nlimIS5_EEEEE
     16 bytes stack frame, 24 bytes spill stores, 24 bytes spill loads
@@ -415,15 +426,22 @@ ptxas info    : Used 61 registers, used 1 barriers, 16 bytes smem
     (("euler_5wave_2D", "float64", True, True),
      {"registers": 128, "stack": 16, "spill_stores": 24,
       "spill_loads": 24}),
+    (("psystem_2D", "float32", False, True),
+     {"registers": 40, "stack": 0, "spill_stores": 0, "spill_loads": 0}),
     (None, {"registers": 61, "stack": 0, "spill_stores": 0,
             "spill_loads": 0})])
 def test_ptxas_resources_of_step2_aos_euler_instances(instance, resources):
-    """The Euler instance of csrc/step2_aos.cu that a mangled entry name
-    is, (system, type, capacity, f-waves), and its resources from the
-    report (None for another system's entry)."""
-    found = {tk.step2_aos_instance(fn): rec
-             for fn, rec in tk.ptxas_resources(PTXAS_AOS).items()}
-    assert found[instance] == resources
+    """The instance of csrc/step2_aos.cu of a design of its own (Euler,
+    psystem_2D, vc_advection_2D) that a mangled entry name is, (system,
+    type, capacity, f-waves), and its resources from the report (None
+    for another system's entry: vc_advection_fwave_2D's and shallow
+    water's are the generic design's)."""
+    found = {}
+    for fn, rec in tk.ptxas_resources(PTXAS_AOS).items():
+        key = tk.step2_aos_instance(fn)
+        found.setdefault(key, []).append(rec)
+    assert resources in found[instance]
+    assert len(found) == 3 and len(found[None]) == 2
 
 
 def _sass_build(ns, base, op="DFMA R2"):
@@ -470,6 +488,25 @@ def test_step2_aos_euler_ragged_cases(label, name):
     assert qbc.shape == (5 if name == "euler_5wave_2D" else 4, nx + 4,
                          ny + 4)
     assert args[4].name == name and args[2] == args[3] == 1.0 / nx
+
+
+@pytest.mark.parametrize("label", sorted(tk.OWN_VARIANTS))
+def test_step2_aos_own_variant_cases(label):
+    """time_kernels step2_aos times psystem_2D and vc_advection_2D also in
+    their other variants (transverse_waves, a capacity row appended to
+    aux, f-waves) on their path's state: the path's case but for those."""
+    assert label in tk._step2_aos_call(torch.float64, "cpu", n=8)
+    name, tw, capa, fwave = tk.OWN_VARIANTS[label]
+    qbc, args = tk.step2_aos_variant_case(label, 8, torch.float64, "cpu")
+    base = (tk.step2_aos_scalar_case if name in tk.SCALAR_CASES
+            else tk.step2_aos_no_trans_case)(name, 8, torch.float64, "cpu")
+    naux = base[1][0].shape[0]
+    assert torch.equal(qbc, base[0]) and args[4].name == name
+    assert args[0].shape[0] == naux + capa and args[9] == (naux if capa
+                                                           else -1)
+    assert torch.equal(args[0][:naux], base[1][0])
+    assert args[8] == fwave and args[11] == tw
+    assert args[1:8] == base[1][1:8] and args[10] == base[1][10]
 
 
 @pytest.mark.parametrize("order", tk.WENO_ORDERS)
